@@ -18,7 +18,9 @@ whenever any phase fails. Phases, in order:
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
    on 2^16 synthetic records made from a seed, with every launch counter
-   set to 0 just before and read just after;
+   set to 0 just before and read just after; the kernel against its plain
+   version at the shape the driver gave it; then the same run again under
+   ``torch.profiler`` for the card's busy and idle share;
 5. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 """
@@ -288,6 +290,26 @@ def write_scoring_inputs(work: str, n: int, d_hashed: int, seed: int = SEED):
     return model_dir, data, w, offsets, (all_rows, all_cols, all_vals, len(vocab))
 
 
+def device_busy(prof) -> dict:
+    """Device time of a profiled window: the union of every CUDA activity
+    (kernels, copies, sets) on the card, and the ``ell_matvec`` kernels'
+    own time, in seconds. None where the profiler saw no device activity
+    (a machine whose CUPTI tracing is off): not measured."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if not spans:
+        return {"device_busy_s": None, "ell_matvec_device_s": None}
+    busy_us, reach = 0.0, float("-inf")
+    for start, end, _ in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    kernel_us = sum(end - start for start, end, name in spans if "ell_matvec" in name)
+    return {"device_busy_s": busy_us * 1e-6, "ell_matvec_device_s": kernel_us * 1e-6}
+
+
 def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
                 **device_kw):
     """Run the port's GLM scoring driver; ``device_kw`` is empty for the
@@ -311,14 +333,30 @@ def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
     wall_s = time.perf_counter() - t0
     launches = dispatch.launch_counts()
 
+    # the same run again under torch.profiler, for the card's busy share;
+    # tracing slows the synchronised margin step, so the run above is the
+    # one whose phases are reported
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if not device_kw:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run_scoring({**params, "overwrite": True}, **device_kw)
+        traced_wall_s = time.perf_counter() - t0
+    busy = device_busy(prof)
+
+    # the kernel against its plain version at the shape the driver gave it
     device = torch.device(run.device)
     rows, cols, vals, d = coo
     ell = from_coo(rows, cols, vals, n, d, dtype=torch.float64, device=device)
-    ref = (
-        ell_matvec_reference(ell.indices, ell.values,
-                             torch.from_numpy(w).to(device), d).cpu().numpy()
-        + offsets
-    )
+    w_dev = torch.from_numpy(w).to(device)
+    plain = ell_matvec_reference(ell.indices, ell.values, w_dev, d)
+    kernel = ell_matvec(ell.indices, ell.values, w_dev, d)
+    row_abs = ell_matvec_reference(ell.indices, ell.values.abs(), w_dev.abs(), d)
+    kernel_err = (kernel - plain).abs()
+    assert bool(torch.all(kernel_err <= 1e-12 * row_abs)), float(kernel_err.max())
+
+    ref = plain.cpu().numpy() + offsets
     assert run.scores.shape == (n,), run.scores.shape
     assert np.isfinite(run.scores).all(), "non-finite scores"
     np.testing.assert_allclose(run.scores, ref, rtol=1e-10, atol=1e-10)
@@ -334,6 +372,11 @@ def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
         "margin_rows_per_s": n / run.timings["margins"],
         "timings_s": run.timings,
         "launches": launches,
+        "traced_wall_s": traced_wall_s,
+        **busy,
+        "device_idle_share": (None if busy["device_busy_s"] is None
+                              else 1.0 - busy["device_busy_s"] / traced_wall_s),
+        "kernel_max_abs_err": float(kernel_err.max()),
         "metrics": run.metrics,
         "setup_s": setup_s,
     }
