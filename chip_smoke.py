@@ -14,19 +14,32 @@ whenever any phase fails. Phases, in order:
    duplicate ids, for (f64, f64), (f32, f32) and (bf16, f32); times of the
    kernel, the plain version and ``torch.mv`` on a CSR tensor of the same
    matrix (a yardstick the port never calls), against the HBM bound;
-4. score: the port's GLM scoring driver (``run_scoring``, sparse, with
+4. kernel: the training kernels against their plain versions at the same
+   shape — ``ell_scatter_add`` (f64, f32 updates; yardstick
+   ``index_add_``), ``fused_vgc`` (logistic loss) and ``fused_hvp`` in the
+   three dtype pairs — with times against the HBM bound;
+5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
    on 2^16 synthetic records made from a seed, with every launch counter
    set to 0 just before and read just after; the kernel against its plain
    version at the shape the driver gave it; then the same run again under
    ``torch.profiler`` for the card's busy and idle share;
-5. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+6. train: the port's GLM training driver (``run_glm_training``, sparse
+   TRON, L2 logistic, lambda in {10, 1}, float64, with validation) on 2^16
+   Criteo-layout records and 2^14 held-out ones, counters set to 0 just
+   before and read just after; the launch counts held to the solver's
+   iteration and CG counts; coefficients and held-out AUC held to
+   ``train_glm`` on the same batch on the CPU; phase seconds and host
+   syncs per iteration; the kernels timed at the shape the driver gave
+   them; then the same run under ``torch.profiler``;
+7. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -39,15 +52,31 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.cli.score import run_scoring
+from photon_ml_tpu_torch.cli.train import run_glm_training
 from photon_ml_tpu_torch.core.tasks import TaskType
-from photon_ml_tpu_torch.core.types import Coefficients
+from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
 from photon_ml_tpu_torch.io.avro import write_avro_file
 from photon_ml_tpu_torch.io.models import save_glm_model
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary, feature_key
 from photon_ml_tpu_torch.kernels import build, dispatch
-from photon_ml_tpu_torch.kernels.ell import ell_matvec, ell_matvec_reference
+from photon_ml_tpu_torch.kernels.ell import (
+    ell_matvec,
+    ell_matvec_reference,
+    ell_scatter_add,
+    ell_scatter_add_reference,
+)
+from photon_ml_tpu_torch.kernels.fused import (
+    fused_hessian_vector,
+    fused_hessian_vector_reference,
+    fused_value_grad_curvature,
+    fused_value_grad_curvature_reference,
+)
+from photon_ml_tpu_torch.models.training import train_glm
+from photon_ml_tpu_torch.ops import metrics as metrics_mod
+from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
 from photon_ml_tpu_torch.ops.sparse import from_coo
+from photon_ml_tpu_torch.solvers import host_reads, reset_host_reads
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -61,6 +90,13 @@ D_HASHED = 1 << HASH_BITS
 K = INT_FIELDS + CAT_FIELDS + 1
 KERNEL_ROWS = 1 << 22  # kernel phase depth
 SCORE_RECORDS = 1 << 16  # end-to-end depth (the pure-Python Avro codec)
+TRAIN_RECORDS = 1 << 16
+HELDOUT_RECORDS = 1 << 14
+TRAIN_LAMBDAS = [10.0, 1.0]
+# converged far past the default 1e-7, so that the card's run and the
+# CPU's, whose last bits differ (atomics), meet within 1e-6 in w
+TRAIN_TOLERANCE = 1e-12
+TRAIN_MAX_ITERS = 100
 
 # (values dtype, w dtype, stated tolerance: |kernel - plain| <=
 #  rtol * sum_k |v_ik w[c_ik]| per row — a bound on any summation order)
@@ -210,7 +246,190 @@ def kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K)
     return results
 
 
-# -- phase 4: the scoring driver end to end ----------------------------------
+# -- phase 4: the training kernels against their plain versions --------------
+
+# (values dtype, compute dtype, stated rtol) for the fused passes
+FUSED_CASES = [
+    ("f64", torch.float64, torch.float64, 1e-12),
+    ("f32", torch.float32, torch.float32, 1e-5),
+    ("bf16xf32", torch.bfloat16, torch.float32, 1e-2),
+]
+SCATTER_CASES = [("f64", torch.float64, 1e-12), ("f32", torch.float32, 1e-5)]
+SOURCES = {
+    "ell_matvec": ("photon_ml_tpu_torch/kernels/csrc/ell_matvec.cu",
+                   "photon_ml_tpu/kernels/ell.py:115"),
+    "ell_scatter_add": ("photon_ml_tpu_torch/kernels/csrc/ell_scatter_add.cu",
+                        "photon_ml_tpu/kernels/ell.py:166"),
+    "fused_vgc": ("photon_ml_tpu_torch/kernels/csrc/fused.cu",
+                  "photon_ml_tpu/kernels/fused.py:120"),
+    "fused_hvp": ("photon_ml_tpu_torch/kernels/csrc/fused.cu",
+                  "photon_ml_tpu/kernels/fused.py:185"),
+}
+# operations per row of the loss terms (logistic: a few exp/log1p and
+# products), counted at 20; per valid slot: 2 for the margin, 2 for the
+# scatter (1 for ell_scatter_add)
+LOSS_OPS_PER_ROW = 20
+
+
+def within(got, ref, scale, rtol):
+    """(max |got - ref|, every element within rtol * scale)."""
+    err = (got.double() - ref.double()).abs()
+    return float(err.max()), bool(torch.all(err <= rtol * scale.double()))
+
+
+def bound(nbytes, ops, dtype, peaks):
+    bytes_ms = nbytes / peaks["hbm"] * 1e3
+    ops_ms = ops / peaks["f64" if dtype == torch.float64 else "f32"] * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def row_inputs(n, d, cd, device, seed=SEED + 3):
+    """Seeded labels, offsets, weights (every 7th row 0, as padding) and
+    coefficients for the fused passes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randint(0, 2, (n,), generator=g, device=device).double()
+    off = 0.1 * torch.randn(n, generator=g, device=device, dtype=torch.float64)
+    ew = torch.rand(n, generator=g, device=device, dtype=torch.float64) + 0.5
+    ew[::7] = 0.0
+    w = 0.2 * torch.randn(d, generator=g, device=device, dtype=torch.float64)
+    return tuple(t.to(cd) for t in (y, off, ew, w))
+
+
+def check_scatter(idx, upd, d, rtol):
+    got = ell_scatter_add(idx, upd, d)
+    ref = ell_scatter_add_reference(idx, upd, d)
+    col_abs = ell_scatter_add_reference(idx, upd.abs().double(), d)
+    return within(got, ref, col_abs, rtol)
+
+
+def check_vgc(idx, vals, y, off, ew, w, d, rtol):
+    """The four outputs against the plain version. Scales: val sum|ew l|;
+    grad per column sum|v| (|a| + ew 0.25 row_abs), the second term the
+    move of a = ew l'(z) under a margin error of rtol * row_abs (|l''| <=
+    0.25); asum sum|a|; c = ew l''(z) per row |c| + ew row_abs (0.25 +
+    |l''|), l''' bounded the same way."""
+    got = fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
+    ref = fused_value_grad_curvature_reference(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
+    cd = ref[1].dtype
+    v = vals.to(cd)
+    z = ell_matvec_reference(idx, v, w, d) + off
+    row_abs = ell_matvec_reference(idx, v.abs().double(), w.abs().double(), d) + off.abs().double()
+    a_abs = (ew * LOGISTIC_LOSS.d1(z, y)).abs().double()
+    a_move = ew.double() * 0.25 * row_abs
+    d2 = LOGISTIC_LOSS.d2(z, y).abs().double()
+    scales = [
+        (ew * LOGISTIC_LOSS.value(z, y)).abs().double().sum(),
+        ell_scatter_add_reference(idx, v.abs().double() * (a_abs + a_move)[:, None], d),
+        (a_abs + a_move).sum(),
+        ref[3].abs().double() + ew.double() * row_abs * (0.25 + d2),
+    ]
+    errs = [within(g_, r_, s_, rtol) for g_, r_, s_ in zip(got, ref, scales)]
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    return max(e for e, _ in errs), all(ok for _, ok in errs) and finite
+
+
+def check_hvp(idx, vals, c, v_eff, shift, d, rtol):
+    hv, usum = fused_hessian_vector(idx, vals, c, v_eff, shift, d)
+    ref_hv, ref_usum = fused_hessian_vector_reference(idx, vals, c, v_eff, shift, d)
+    zv_abs = (ell_matvec_reference(idx, vals.abs().double(), v_eff.abs().double(), d)
+              + shift.abs().double())
+    u_abs = c.abs().double() * zv_abs
+    hv_scale = ell_scatter_add_reference(idx, vals.abs().double() * u_abs[:, None], d)
+    e1, ok1 = within(hv, ref_hv, hv_scale, rtol)
+    e2, ok2 = within(usum, ref_usum, u_abs.sum(), rtol)
+    return max(e1, e2), ok1 and ok2 and bool(torch.isfinite(hv).all())
+
+
+def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
+    """Check and time ell_scatter_add, fused_vgc and fused_hvp on one
+    design (every dtype each takes), against their plain versions and,
+    for ell_scatter_add, ``index_add_``. Returns one record per
+    (kernel, dtype)."""
+    n, k = idx.shape
+    valid = int((idx < d).sum())
+    results = []
+
+    def record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, lib_fn=None):
+        kernel_ms = time_ms(fn)
+        plain_ms = time_ms(plain_fn)
+        library_ms = None if lib_fn is None else time_ms(lib_fn)
+        bound_ms, bound_by = bound(nbytes, ops, cd, peaks)
+        src, replaces = SOURCES[kernel]
+        results.append({
+            "name": kernel, "dtype": dtype_label, "route": "cuda", "source": src,
+            "replaces": replaces, "shape": {"n": n, "k": k, "d": d},
+            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "bytes": nbytes, "ops": ops,
+        })
+        lib = "" if library_ms is None else f", index_add_ {library_ms:.4f} ms"
+        log(f"[{label}] {kernel} {dtype_label}: kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"max |kernel - plain| {max_err:.3e}")
+
+    flat_ids = torch.where(idx < d, idx, d).reshape(-1).long()
+    for dtype_label, dt, rtol in SCATTER_CASES:
+        upd = vals64.to(dt)
+        max_err, ok = check_scatter(idx, upd, d, rtol)
+        log(f"[{label}] ell_scatter_add {dtype_label}: max |kernel - plain| = "
+            f"{max_err:.3e} (rtol {rtol:g} x column sum of |upd|): "
+            f"{'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"ell_scatter_add {dtype_label} disagrees with its plain version")
+        flat_upd = upd.reshape(-1)
+        s = upd.element_size()
+        record(
+            "ell_scatter_add", dtype_label, dt, max_err,
+            lambda: ell_scatter_add(idx, upd, d),
+            lambda: ell_scatter_add_reference(idx, upd, d),
+            n * k * (4 + s) + d * s, valid,
+            lambda: torch.zeros(d + 1, dtype=dt, device=idx.device).index_add_(
+                0, flat_ids, flat_upd),
+        )
+        del upd, flat_upd
+    del flat_ids
+    torch.cuda.empty_cache()
+
+    for dtype_label, vdt, cd, rtol in FUSED_CASES:
+        vals = vals64.to(vdt)
+        y, off, ew, w = row_inputs(n, d, cd, idx.device)
+        s, sc = vals.element_size(), cd.itemsize
+        max_err, ok = check_vgc(idx, vals, y, off, ew, w, d, rtol)
+        log(f"[{label}] fused_vgc {dtype_label}: max |kernel - plain| = {max_err:.3e} "
+            f"(rtol {rtol:g} x sum of |terms|): {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fused_vgc {dtype_label} disagrees with its plain version")
+        record("fused_vgc", dtype_label, cd, max_err,
+               lambda: fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+               lambda: fused_value_grad_curvature_reference(
+                   idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+               n * k * (4 + s) + 2 * d * sc + 4 * n * sc,
+               4 * valid + LOSS_OPS_PER_ROW * n)
+        c = fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)[3]
+        shift = torch.tensor(0.05, dtype=cd, device=idx.device)
+        max_err, ok = check_hvp(idx, vals, c, w, shift, d, rtol)
+        log(f"[{label}] fused_hvp {dtype_label}: max |kernel - plain| = {max_err:.3e} "
+            f"(rtol {rtol:g} x sum of |terms|): {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fused_hvp {dtype_label} disagrees with its plain version")
+        record("fused_hvp", dtype_label, cd, max_err,
+               lambda: fused_hessian_vector(idx, vals, c, w, shift, d),
+               lambda: fused_hessian_vector_reference(idx, vals, c, w, shift, d),
+               n * k * (4 + s) + 2 * d * sc + n * sc, 4 * valid + 2 * n)
+        del vals, y, off, ew, w, c
+        torch.cuda.empty_cache()
+    return results
+
+
+def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
+    idx, vals64 = make_ell(n, k, d, "cuda")
+    results = training_kernels(name, idx, vals64, d, peaks_for(name))
+    del idx, vals64
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 5: the scoring driver end to end ----------------------------------
 
 
 def _hash(field: np.ndarray, value: np.ndarray) -> np.ndarray:
@@ -244,25 +463,15 @@ def make_criteo_like(n: int, seed: int = SEED):
     return rows, cols.reshape(-1), vals.reshape(-1)
 
 
-def write_scoring_inputs(work: str, n: int, d_hashed: int, seed: int = SEED):
-    """feature-index.txt (d_hashed keys + intercept), best-model.avro
-    (seeded f64 coefficients) and n TrainingExample records with offsets
-    and labels drawn from the seeded logistic model."""
-    rng = np.random.default_rng(seed + 2)
-    keys = [feature_key("h", str(b)) for b in range(d_hashed)]
-    vocab = FeatureVocabulary(keys, add_intercept=True)
-    model_dir = os.path.join(work, "model")
-    vocab.save(os.path.join(model_dir, "feature-index.txt"))
-    w = rng.normal(0.0, 0.25, size=len(vocab))
-    save_glm_model(
-        os.path.join(model_dir, "best-model.avro"),
-        Coefficients(means=torch.from_numpy(w)), vocab,
-        task=TaskType.LOGISTIC_REGRESSION,
-    )
+def write_examples(path: str, n: int, d_hashed: int, w: np.ndarray, icpt: int,
+                   seed: int, rng):
+    """n TrainingExample records in the Criteo layout at ``path``, with
+    offsets and labels drawn (from ``rng``) from the logistic model ``w``.
+    Returns the expected design straight from the generator's COO (the
+    intercept included), the labels and the offsets."""
     rows, cols, vals = make_criteo_like(n, seed)
     cols = cols % d_hashed
     offsets = rng.normal(0.0, 0.1, size=n)
-    icpt = vocab.intercept_index
     margins = np.bincount(rows, vals * w[cols], minlength=n) + w[icpt] + offsets
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
     per_row = cols.size // n
@@ -281,33 +490,73 @@ def write_scoring_inputs(work: str, n: int, d_hashed: int, seed: int = SEED):
         }
         for i in range(n)
     )
+    write_avro_file(path, TRAINING_EXAMPLE_SCHEMA, records)
+    coo = (
+        np.concatenate([rows, np.arange(n)]),
+        np.concatenate([cols, np.full(n, icpt)]),
+        np.concatenate([vals, np.ones(n)]),
+    )
+    return coo, labels, offsets
+
+
+def hashed_vocabulary(path: str, d_hashed: int) -> FeatureVocabulary:
+    """feature-index.txt with the d_hashed bucket keys in bucket order and
+    the intercept last, so column j is bucket j."""
+    vocab = FeatureVocabulary(
+        [feature_key("h", str(b)) for b in range(d_hashed)], add_intercept=True
+    )
+    vocab.save(path)
+    return vocab
+
+
+def write_scoring_inputs(work: str, n: int, d_hashed: int, seed: int = SEED):
+    """feature-index.txt (d_hashed keys + intercept), best-model.avro
+    (seeded f64 coefficients) and n TrainingExample records with offsets
+    and labels drawn from the seeded logistic model."""
+    rng = np.random.default_rng(seed + 2)
+    model_dir = os.path.join(work, "model")
+    vocab = hashed_vocabulary(os.path.join(model_dir, "feature-index.txt"), d_hashed)
+    w = rng.normal(0.0, 0.25, size=len(vocab))
+    save_glm_model(
+        os.path.join(model_dir, "best-model.avro"),
+        Coefficients(means=torch.from_numpy(w)), vocab,
+        task=TaskType.LOGISTIC_REGRESSION,
+    )
     data = os.path.join(work, "data", "part-00000.avro")
-    write_avro_file(data, TRAINING_EXAMPLE_SCHEMA, records)
-    # the expected design, built straight from the generator's COO
-    all_rows = np.concatenate([rows, np.arange(n)])
-    all_cols = np.concatenate([cols, np.full(n, icpt)])
-    all_vals = np.concatenate([vals, np.ones(n)])
-    return model_dir, data, w, offsets, (all_rows, all_cols, all_vals, len(vocab))
+    (rows, cols, vals), _, offsets = write_examples(
+        data, n, d_hashed, w, vocab.intercept_index, seed, rng
+    )
+    return model_dir, data, w, offsets, (rows, cols, vals, len(vocab))
+
+
+# the port's kernels by name; sum_partials is the fused passes' second,
+# single-block launch
+PROFILED_KERNELS = ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp",
+                    "sum_partials")
 
 
 def device_busy(prof) -> dict:
     """Device time of a profiled window: the union of every CUDA activity
-    (kernels, copies, sets) on the card, and the ``ell_matvec`` kernels'
-    own time, in seconds. None where the profiler saw no device activity
-    (a machine whose CUPTI tracing is off): not measured."""
+    (kernels, copies, sets) on the card, and each port kernel's own time,
+    in seconds. None where the profiler saw no device activity (a machine
+    whose CUPTI tracing is off): not measured."""
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     if not spans:
-        return {"device_busy_s": None, "ell_matvec_device_s": None}
+        return {"device_busy_s": None,
+                **{f"{k}_device_s": None for k in PROFILED_KERNELS}}
     busy_us, reach = 0.0, float("-inf")
     for start, end, _ in spans:
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
-    kernel_us = sum(end - start for start, end, name in spans if "ell_matvec" in name)
-    return {"device_busy_s": busy_us * 1e-6, "ell_matvec_device_s": kernel_us * 1e-6}
+    out = {"device_busy_s": busy_us * 1e-6}
+    for kernel in PROFILED_KERNELS:
+        us = sum(end - start for start, end, name in spans if f"{kernel}_kernel" in name)
+        out[f"{kernel}_device_s"] = us * 1e-6
+    return out
 
 
 def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
@@ -384,6 +633,163 @@ def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
     return summary
 
 
+# -- phase 6: the training driver end to end ---------------------------------
+
+
+def write_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
+                          seed: int = SEED):
+    """feature-index.txt and two Avro inputs, training and held-out, drawn
+    from one seeded logistic model over the hashed columns."""
+    rng = np.random.default_rng(seed + 4)
+    vocab_path = os.path.join(work, "feature-index.txt")
+    vocab = hashed_vocabulary(vocab_path, d_hashed)
+    w_true = rng.normal(0.0, 0.25, size=len(vocab))
+    sets = {}
+    for label, count, set_seed in (("train", n, seed + 5), ("heldout", n_heldout, seed + 6)):
+        path = os.path.join(work, label, "part-00000.avro")
+        coo, labels, offsets = write_examples(
+            path, count, d_hashed, w_true, vocab.intercept_index, set_seed, rng
+        )
+        sets[label] = (path, coo, labels, offsets)
+    return vocab_path, vocab, sets
+
+
+def batch_from(coo, labels, offsets, d: int, device) -> LabeledBatch:
+    """The LabeledBatch the driver should have built, straight from the
+    generator's COO."""
+    rows, cols, vals = coo
+    n = labels.shape[0]
+    ell = from_coo(rows, cols, vals, n, d, dtype=torch.float64, device=device)
+    return LabeledBatch.create(ell, labels, offsets=offsets, dtype=torch.float64,
+                               device=device)
+
+
+def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
+                n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+                **device_kw):
+    """Run the port's GLM training driver (sparse TRON, L2 logistic) and
+    hold it to ``train_glm`` on the CPU; ``device_kw`` is empty for the
+    card (the driver's default device)."""
+    t0 = time.perf_counter()
+    vocab_path, vocab, sets = write_training_inputs(work, n, n_heldout, d_hashed)
+    setup_s = time.perf_counter() - t0
+    log(f"[train] wrote {n} training and {n_heldout} held-out records, "
+        f"{d_hashed} hashed columns + intercept in {setup_s:.1f} s (set-up)")
+    params = {
+        "train_input": [sets["train"][0]],
+        "validate_input": [sets["heldout"][0]],
+        "output_dir": os.path.join(work, "out"),
+        "feature_file": vocab_path,
+        "optimizer": "TRON",
+        "reg_type": "L2",
+        "reg_weights": TRAIN_LAMBDAS,
+        "tolerance": TRAIN_TOLERANCE,
+        "max_iters": TRAIN_MAX_ITERS,
+        "sparse": True,
+        "precision": "float64",
+    }
+    dispatch.reset_launch_counts()
+    reset_host_reads()
+    t0 = time.perf_counter()
+    run = run_glm_training(params, **device_kw)
+    wall_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    reads = host_reads()
+
+    iters = [tm.result.iterations for tm in run.models]
+    cg = [tm.result.cg_iterations for tm in run.models]
+    expected = {"fused_vgc": sum(i + 1 for i in iters), "fused_hvp": sum(cg)}
+    failures = []
+    if not device_kw:
+        for kernel, count in expected.items():
+            if launches[kernel] != count:
+                failures.append(f"{kernel}: {launches[kernel]} launches, the solves need {count}")
+        if launches["ell_scatter_add"] < 5 or launches["ell_matvec"] < 1:
+            failures.append(f"the training run missed a kernel: {launches}")
+
+    # the same batch on the CPU through train_glm: coefficients and
+    # held-out AUC
+    d = len(vocab)
+    t0 = time.perf_counter()
+    batch_cpu = batch_from(*sets["train"][1:], d, "cpu")
+    heldout_cpu = batch_from(*sets["heldout"][1:], d, "cpu")
+    cfg = dataclasses.replace(run.params.to_training_config(),
+                              intercept_index=vocab.intercept_index)
+    cpu_models = train_glm(batch_cpu, cfg)
+    cpu_s = time.perf_counter() - t0
+    auc_key = metrics_mod.AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS
+    per_lambda = []
+    for tm, ref, vm in zip(run.models, cpu_models, run.validation_metrics):
+        w_card = tm.model.coefficients.means.cpu()
+        w_cpu = ref.model.coefficients.means
+        dw = float((w_card - w_cpu).abs().max())
+        w_inf = float(w_cpu.abs().max())
+        if not dw <= 1e-6 * max(1.0, w_inf):
+            failures.append(f"lambda={tm.reg_weight}: max |dw| {dw} vs the CPU run")
+        margins = ref.model.compute_margin(heldout_cpu.features, heldout_cpu.offsets)
+        auc_cpu = float(metrics_mod.area_under_roc_curve(
+            heldout_cpu.labels, margins, heldout_cpu.effective_weights()))
+        auc = vm[auc_key]
+        if not (0.5 < auc <= 1.0 and abs(auc - auc_cpu) <= 1e-6):
+            failures.append(f"lambda={tm.reg_weight}: held-out AUC {auc} vs CPU {auc_cpu}")
+        per_lambda.append({
+            "lambda": tm.reg_weight, "iterations": tm.result.iterations,
+            "cpu_iterations": ref.result.iterations, "reason": tm.result.reason,
+            "cpu_reason": ref.result.reason, "cg_iterations": tm.result.cg_iterations,
+            "cpu_cg_iterations": ref.result.cg_iterations, "solve_s": tm.seconds,
+            "cpu_solve_s": ref.seconds, "max_abs_dw": dw, "w_inf": w_inf,
+            "heldout_auc": auc, "cpu_heldout_auc": auc_cpu,
+        })
+
+    if failures:
+        log(f"[train] per lambda, card vs CPU: {json.dumps(per_lambda)}")
+        raise AssertionError("; ".join(failures))
+
+    # the kernels against their plain versions at the shape the driver gave
+    # them (the Criteo layout's hot columns included), then a traced run
+    shape_checks = []
+    if not device_kw:
+        batch_card = batch_from(*sets["train"][1:], d, run.device)
+        x = batch_card.features
+        shape_checks = training_kernels(name, x.indices, x.values, d, peaks_for(name),
+                                        label="train-shape")
+        del batch_card, x
+        torch.cuda.empty_cache()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if not device_kw:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run_glm_training({**params, "overwrite": True}, **device_kw)
+        traced_wall_s = time.perf_counter() - t0
+    busy = device_busy(prof)
+
+    total_iters = sum(iters)
+    summary = {
+        "records": n,
+        "heldout_records": n_heldout,
+        "d": d,
+        "k": int(batch_cpu.features.nnz_per_row),
+        "device": run.device,
+        "wall_s": wall_s,
+        "timings_s": run.timings,
+        "per_lambda": per_lambda,
+        "launches": launches,
+        "expected_launches": expected,
+        "host_reads": reads,
+        "host_reads_per_iteration": reads / max(total_iters, 1),
+        "cg_steps_per_iteration": sum(cg) / max(total_iters, 1),
+        "traced_wall_s": traced_wall_s,
+        **busy,
+        "device_idle_share": (None if busy["device_busy_s"] is None
+                              else 1.0 - busy["device_busy_s"] / traced_wall_s),
+        "cpu_reference_s": cpu_s,
+        "setup_s": setup_s,
+    }
+    log(f"[train] {json.dumps(summary)}")
+    return summary, shape_checks
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -402,32 +808,54 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     log(f"[build] CUDA kernels built in {time.perf_counter() - t0:.1f} s (set-up)")
-    ptxas = build.build_log("ell_matvec")
-    regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", ptxas)})
-    spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", ptxas)})
-    log(f"[build] ell_matvec instantiations: registers per thread {regs}, "
-        f"spill-store bytes {spills}")
+    for library in build.SOURCES:
+        ptxas = build.build_log(library)
+        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", ptxas)})
+        spills = sorted({int(s) for s in re.findall(r"(\d+) bytes spill stores", ptxas)})
+        log(f"[build] {library} instantiations: registers per thread {regs}, "
+            f"spill-store bytes {spills}")
 
-    # 3. kernel against its plain version
+    # 3. ell_matvec against its plain version
     checks = kernel_phase(name)
     log(json.dumps({"ell_matvec_checks": checks}))
 
-    # 4. the main path: GLM scoring end to end
+    # 4. the training kernels against their plain versions
+    train_checks = training_kernel_phase(name)
+    log(json.dumps({"training_kernel_checks": train_checks}))
+
+    # 5. GLM scoring end to end
     work = os.path.join(ROOT, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        summary = score_phase(work)
+        summary = score_phase(os.path.join(work, "score"))
+        if summary["launches"]["ell_matvec"] < 1:
+            raise AssertionError("the scoring run did not launch the ell_matvec kernel")
+        # 6. GLM training end to end
+        train_summary, shape_checks = train_phase(os.path.join(work, "train"), name)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if summary["launches"]["ell_matvec"] < 1:
-        raise AssertionError("the scoring run did not launch the ell_matvec kernel")
+    log(json.dumps({"train_shape_checks": shape_checks}))
 
-    # 5. result lines
+    # 7. result lines: each kernel at the kernel-phase shape in the main
+    # path's dtype (f64), its time at the training driver's shape, and its
+    # launches in the training run (and, per path, in the scoring run)
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    main_path = next(c for c in checks if c["dtype"] == "f64")  # the driver's dtype
-    kernels = [{**{k: main_path[k] for k in keys},
-                "launches": summary["launches"]["ell_matvec"]}]
+    kernels = []
+    for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp"):
+        main_path = next(c for c in checks + train_checks
+                         if c["name"] == kernel and c["dtype"] == "f64")
+        at_shape = next((c for c in shape_checks
+                         if c["name"] == kernel and c["dtype"] == "f64"), None)
+        kernels.append({
+            **{k: main_path[k] for k in keys},
+            "launches": train_summary["launches"][kernel],
+            "launches_by_path": {"score": summary["launches"][kernel],
+                                 "train": train_summary["launches"][kernel]},
+            "train_shape": None if at_shape is None else {
+                k: at_shape[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                         "library_ms", "max_abs_err")},
+        })
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({

@@ -8,7 +8,9 @@ built from ``kernels/csrc`` at first use. The package imports neither
 are the bridges between the two packages.
 
 Ported so far: GLM scoring (``cli.score.run_scoring`` with
-``model_kind="glm"``) with the ``ell_matvec`` kernel.
+``model_kind="glm"``) with the ``ell_matvec`` kernel, and GLM training
+(``cli.train.run_glm_training``, TRON and L-BFGS) with the
+``ell_scatter_add``, ``fused_vgc`` and ``fused_hvp`` kernels.
 """
 
 __version__ = "0.1.0"

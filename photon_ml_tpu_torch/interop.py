@@ -1,8 +1,9 @@
 """Carry data across from the JAX package as numpy arrays.
 
 The inputs are numpy arrays taken from ``photon_ml_tpu``'s
-``Coefficients``, ``SparseFeatures`` and ``LabeledBatch`` (``np.asarray``
-of their fields); this module never imports that package. bfloat16 arrays
+``Coefficients``, ``SparseFeatures``, ``LabeledBatch``,
+``NormalizationContext`` and ``SolverConfig`` (``np.asarray`` of their
+fields); this module never imports that package. bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) are converted exactly through float32.
 The other bridge is the GLM Avro model file, which both packages read and
 write (``io.models``).
@@ -13,8 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
 from photon_ml_tpu_torch.ops.sparse import SparseFeatures
+from photon_ml_tpu_torch.solvers.common import SolverConfig
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -54,4 +57,25 @@ def labeled_batch_from_numpy(
         offsets=tensor_from_numpy(offsets, device),
         weights=tensor_from_numpy(weights, device),
         mask=tensor_from_numpy(mask, device),
+    )
+
+
+def normalization_from_numpy(factors=None, shifts=None, device="cpu") -> NormalizationContext:
+    """A ``NormalizationContext`` from its (d,) factors and shifts (either
+    may be None)."""
+    return NormalizationContext(
+        factors=None if factors is None else tensor_from_numpy(factors, device),
+        shifts=None if shifts is None else tensor_from_numpy(shifts, device),
+    )
+
+
+def solver_config_from_numpy(
+    lower_bounds=None, upper_bounds=None, device="cpu", **knobs
+) -> SolverConfig:
+    """A ``SolverConfig`` with numpy box constraints; ``knobs`` are its
+    scalar fields (max_iters, tolerance, ...), as in the JAX package's."""
+    return SolverConfig(
+        lower_bounds=None if lower_bounds is None else tensor_from_numpy(lower_bounds, device),
+        upper_bounds=None if upper_bounds is None else tensor_from_numpy(upper_bounds, device),
+        **knobs,
     )

@@ -25,6 +25,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # kernel library -> its source under csrc/
 SOURCES: Dict[str, str] = {
     "ell_matvec": "ell_matvec.cu",
+    "ell_scatter_add": "ell_scatter_add.cu",
+    "fused": "fused.cu",
 }
 
 NVCC_FLAGS = (

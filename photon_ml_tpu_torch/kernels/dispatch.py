@@ -34,8 +34,15 @@ __all__ = [
 ]
 
 # Design reads per pass, per kernel: each pass reads (indices, values) once.
+# ell_rmatvec and ell_colsum are ell_scatter_add launches whose update
+# table is formed outside the kernel; each counts its own calls as well.
 _DESIGN_READS = {
     "ell_matvec": 1,
+    "ell_scatter_add": 1,
+    "ell_rmatvec": 1,
+    "ell_colsum": 1,
+    "fused_vgc": 1,
+    "fused_hvp": 1,
 }
 KERNELS: Tuple[str, ...] = tuple(_DESIGN_READS)
 

@@ -1,17 +1,28 @@
 """Padded-ELL kernels (counterpart of ``photon_ml_tpu/kernels/ell.py``).
 
-``ell_matvec``: z_i = sum_k v_ik * w[c_ik], with padding slots (column id
-``d``, value 0) reading 0. On CUDA tensors it launches the hand-written
-kernel in ``csrc/ell_matvec.cu``; on CPU tensors it runs
-``ell_matvec_reference``, the plain PyTorch version of the same function.
+- ``ell_matvec``: z_i = sum_k v_ik * w[c_ik] (``csrc/ell_matvec.cu``);
+- ``ell_scatter_add``: g_j = sum over slots with c_ik = j of upd_ik
+  (``csrc/ell_scatter_add.cu``), the core of
+- ``ell_rmatvec`` (upd = v_ik * a_i, the gradient back-projection) and
+- ``ell_colsum`` (upd = v_ik * c_i or v_ik^2 * c_i, the column sums), whose
+  update tables are formed outside the kernel, as the JAX package forms
+  them.
 
-Compute types follow ``result_type(values, w)`` and only these pairs are
-taken (anything else raises on either device):
+Padding slots (column id ``d``, value 0) read 0 and add nothing; so do ids
+outside [0, d). On CUDA tensors each wrapper launches its hand-written
+kernel (or raises); on CPU tensors it runs the ``*_reference`` function,
+the plain PyTorch version of the same contract.
+
+Compute types: ``ell_matvec`` follows ``result_type(values, w)`` and takes
+only these pairs (anything else raises on either device)::
 
     values   w      -> out
     float64  float64   float64
     float32  float32   float32
     bfloat16 float32   float32
+
+``ell_scatter_add`` takes float64 or float32 updates and sums in their
+dtype (so bf16 values times a float32 vector scatter in float32).
 """
 
 from __future__ import annotations
@@ -20,13 +31,29 @@ import torch
 
 from photon_ml_tpu_torch.kernels import dispatch
 
-__all__ = ["ell_matvec", "ell_matvec_reference", "compute_dtype"]
+__all__ = [
+    "ell_matvec",
+    "ell_matvec_reference",
+    "ell_scatter_add",
+    "ell_scatter_add_reference",
+    "ell_rmatvec",
+    "ell_rmatvec_reference",
+    "ell_colsum",
+    "ell_colsum_reference",
+    "compute_dtype",
+]
 
 # (values dtype, w dtype) -> (output dtype, C entry point)
 _MATVEC_TYPES = {
     (torch.float64, torch.float64): (torch.float64, "photon_ell_matvec_f64"),
     (torch.float32, torch.float32): (torch.float32, "photon_ell_matvec_f32"),
     (torch.bfloat16, torch.float32): (torch.float32, "photon_ell_matvec_bf16_f32"),
+}
+
+# update dtype -> C entry point of ell_scatter_add
+_SCATTER_TYPES = {
+    torch.float64: "photon_ell_scatter_add_f64",
+    torch.float32: "photon_ell_scatter_add_f32",
 }
 
 _INT32_MAX = 2**31 - 1
@@ -44,6 +71,73 @@ def compute_dtype(values_dtype: torch.dtype, w_dtype: torch.dtype) -> torch.dtyp
         ) from None
 
 
+def _scatter_entry(dtype: torch.dtype) -> str:
+    try:
+        return _SCATTER_TYPES[dtype]
+    except KeyError:
+        raise TypeError(
+            f"ell_scatter_add takes float64 or float32 updates, got {dtype}"
+        ) from None
+
+
+def check_launch(kernel: str, indices, d: int, tables=(), rows=(), cols=()) -> None:
+    """Raise on what a CUDA kernel over an (n, k) ELL does not take: int32
+    ids, (n, k) ``tables``, (n,) ``rows``, (d,) ``cols``, all contiguous,
+    d and the launch grid within int32."""
+    if indices.dtype != torch.int32:
+        raise TypeError(f"{kernel}: indices must be int32, got {indices.dtype}")
+    if indices.dim() != 2:
+        raise ValueError(f"{kernel}: indices must be (n, k), got {tuple(indices.shape)}")
+    n, k = indices.shape
+    for name, t in tables:
+        if t.shape != indices.shape:
+            raise ValueError(
+                f"{kernel}: indices {tuple(indices.shape)} and {name} "
+                f"{tuple(t.shape)} must be the same (n, k)"
+            )
+    for name, t in rows:
+        if t.dim() != 1 or t.shape[0] != n:
+            raise ValueError(f"{kernel}: {name} must be ({n},), got {tuple(t.shape)}")
+    for name, t in cols:
+        if t.dim() != 1 or t.shape[0] != d:
+            raise ValueError(f"{kernel}: {name} must be ({d},), got {tuple(t.shape)}")
+    if not (0 <= d <= _INT32_MAX):
+        raise ValueError(f"{kernel}: d={d} outside int32")
+    # 32 lanes per row at most, 256 threads per block, one block per 256 slots
+    if k > _INT32_MAX or -(-max(n * 32, n * k) // 256) > _INT32_MAX:
+        raise ValueError(f"{kernel}: (n, k)=({n}, {k}) exceeds the launch grid")
+    for name, t in (("indices", indices), *tables, *rows, *cols):
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def load_entry(library: str, entry: str, argtypes):
+    """The C entry point ``entry`` of kernel library ``library`` (built at
+    first use), with its ctypes signature."""
+    import ctypes
+
+    from photon_ml_tpu_torch.kernels import build
+
+    lib = build.load(library)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _valid_ids(indices: torch.Tensor, d: int) -> torch.Tensor:
+    """int64 ids with every id outside [0, d) sent to the padding id d."""
+    ids = indices.long()
+    return torch.where((ids >= 0) & (ids < d), ids, d)
+
+
+# -- matvec ------------------------------------------------------------------
+
+
 def ell_matvec_reference(
     indices: torch.Tensor, values: torch.Tensor, w: torch.Tensor, d: int
 ) -> torch.Tensor:
@@ -52,8 +146,7 @@ def ell_matvec_reference(
     outside [0, d) read the zero."""
     cd = compute_dtype(values.dtype, w.dtype)
     w_pad = torch.cat([w.to(cd), w.new_zeros(1, dtype=cd)])
-    ids = indices.long()
-    ids = torch.where((ids >= 0) & (ids < d), ids, d)
+    ids = _valid_ids(indices, d)
     gathered = w_pad.index_select(0, ids.reshape(-1)).reshape(ids.shape)
     return (values.to(cd) * gathered).sum(-1)
 
@@ -73,42 +166,121 @@ def ell_matvec(
     )
     if not dispatch.use_kernel("ell_matvec", indices, values, w):
         return ell_matvec_reference(indices, values, w, d)
-    if indices.dtype != torch.int32:
-        raise TypeError(f"ell_matvec: indices must be int32, got {indices.dtype}")
-    if indices.dim() != 2 or values.shape != indices.shape:
-        raise ValueError(
-            f"ell_matvec: indices {tuple(indices.shape)} and values "
-            f"{tuple(values.shape)} must be the same (n, k)"
-        )
-    if w.dim() != 1 or w.shape[0] != d:
-        raise ValueError(f"ell_matvec: w must be ({d},), got {tuple(w.shape)}")
-    if not (0 <= d <= _INT32_MAX):
-        raise ValueError(f"ell_matvec: d={d} outside int32")
-    for name, t in (("indices", indices), ("values", values), ("w", w)):
-        if not t.is_contiguous():
-            raise ValueError(f"ell_matvec: {name} must be contiguous")
+    check_launch("ell_matvec", indices, d, tables=[("values", values)], cols=[("w", w)])
     out = torch.empty((n,), dtype=cd, device=indices.device)
     if n == 0:
         return out
-    group = min(32, 1 << (max(k, 1) - 1).bit_length())  # lanes per row, as in the .cu
-    if k > _INT32_MAX or -(-n * group // 256) > _INT32_MAX:
-        raise ValueError(f"ell_matvec: (n, k)=({n}, {k}) exceeds the launch grid")
     import ctypes
 
-    from photon_ml_tpu_torch.kernels import build
-
-    lib = build.load("ell_matvec")
-    entry = getattr(lib, _MATVEC_TYPES[(values.dtype, w.dtype)][1])
-    entry.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    entry.restype = ctypes.c_int
+    lib, entry = load_entry(
+        "ell_matvec", _MATVEC_TYPES[(values.dtype, w.dtype)][1],
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p],
+    )
     with torch.cuda.device(indices.device):
-        stream = torch.cuda.current_stream(indices.device).cuda_stream
         code = entry(
             indices.data_ptr(), values.data_ptr(), w.data_ptr(), out.data_ptr(),
-            n, k, d, stream,
+            n, k, d, stream_of(indices),
         )
+    from photon_ml_tpu_torch.kernels import build
+
     build.check(lib, code, "ell_matvec launch")
     dispatch.count_launch("ell_matvec")
+    return out
+
+
+# -- scatter-add (rmatvec / colsum) ------------------------------------------
+
+
+def ell_scatter_add_reference(
+    indices: torch.Tensor, upd: torch.Tensor, d: int
+) -> torch.Tensor:
+    """Plain PyTorch ``ell_scatter_add``: ``index_add_`` of every slot into
+    a (d + 1,) buffer whose last entry takes the padding, then dropped."""
+    _scatter_entry(upd.dtype)
+    ids = _valid_ids(indices, d)
+    out = upd.new_zeros(d + 1)
+    out.index_add_(0, ids.reshape(-1), upd.reshape(-1))
+    return out[:d]
+
+
+def ell_scatter_add(indices: torch.Tensor, upd: torch.Tensor, d: int) -> torch.Tensor:
+    """g = column sums of ``upd`` by ``indices``, shape (d,), in ``upd``'s
+    dtype. CUDA tensors: a zeroed output and one launch of the CUDA kernel
+    on the current stream (or an exception); CPU tensors:
+    ``ell_scatter_add_reference``."""
+    entry_name = _scatter_entry(upd.dtype)
+    n, k = indices.shape
+    dispatch.record_kernel_cost(
+        "ell_scatter_add", n, k, d, upd.element_size(),
+        flops_per_slot=1.0, extra_bytes=d * upd.element_size(),
+    )
+    if not dispatch.use_kernel("ell_scatter_add", indices, upd):
+        return ell_scatter_add_reference(indices, upd, d)
+    check_launch("ell_scatter_add", indices, d, tables=[("upd", upd)])
+    out = torch.zeros((d,), dtype=upd.dtype, device=indices.device)
+    if n * k == 0:
+        return out
+    import ctypes
+
+    lib, entry = load_entry(
+        "ell_scatter_add", entry_name,
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    )
+    with torch.cuda.device(indices.device):
+        code = entry(
+            indices.data_ptr(), upd.data_ptr(), out.data_ptr(), n * k, d,
+            stream_of(indices),
+        )
+    from photon_ml_tpu_torch.kernels import build
+
+    build.check(lib, code, "ell_scatter_add launch")
+    dispatch.count_launch("ell_scatter_add")
+    return out
+
+
+def _rmatvec_update(values: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return values * a[..., None]
+
+
+def _colsum_update(values: torch.Tensor, c: torch.Tensor, square: bool) -> torch.Tensor:
+    v = values * values if square else values
+    return v * c[..., None]
+
+
+def ell_rmatvec_reference(indices, values, a, d: int) -> torch.Tensor:
+    return ell_scatter_add_reference(indices, _rmatvec_update(values, a), d)
+
+
+def ell_rmatvec(indices, values, a, d: int) -> torch.Tensor:
+    """g = ELL^T @ a, shape (d,), in ``result_type(values, a)``: the
+    per-slot update v_ik * a_i is formed outside the kernel."""
+    n, k = indices.shape
+    upd = _rmatvec_update(values, a)
+    dispatch.record_kernel_cost(
+        "ell_rmatvec", n, k, d, values.element_size(),
+        extra_bytes=d * upd.element_size(),
+    )
+    out = ell_scatter_add(indices, upd, d)
+    if dispatch.use_kernel("ell_rmatvec", indices, values, a) and n * k:
+        dispatch.count_launch("ell_rmatvec")
+    return out
+
+
+def ell_colsum_reference(indices, values, c, d: int, square: bool = False) -> torch.Tensor:
+    return ell_scatter_add_reference(indices, _colsum_update(values, c, square), d)
+
+
+def ell_colsum(indices, values, c, d: int, square: bool = False) -> torch.Tensor:
+    """s_j = sum_i c_i * v_ij (or v_ij^2), shape (d,): the column sums of
+    the feature summary and the Hessian diagonal."""
+    n, k = indices.shape
+    upd = _colsum_update(values, c, square)
+    dispatch.record_kernel_cost(
+        "ell_colsum", n, k, d, values.element_size(),
+        extra_bytes=d * upd.element_size(),
+    )
+    out = ell_scatter_add(indices, upd, d)
+    if dispatch.use_kernel("ell_colsum", indices, values, c) and n * k:
+        dispatch.count_launch("ell_colsum")
     return out

@@ -33,6 +33,10 @@ def mean_absolute_error(labels, predictions, weights):
     return _weighted(torch.abs(predictions - labels), weights)
 
 
+def total_poisson_loss(labels, margins, weights):
+    return torch.sum(weights * (torch.exp(margins) - labels * margins))
+
+
 # -- binary classification --------------------------------------------------
 
 

@@ -3,10 +3,12 @@
 
 Every row holds up to ``k`` (column, value) pairs, padded with column id
 ``d`` (one past the last feature) and value 0, so padding is algebraically
-invisible: a gather at id ``d`` reads 0. ``matvec`` sends a dense design to
-``torch.matmul`` and an ELL design to the ``ell_matvec`` kernel
-(:mod:`photon_ml_tpu_torch.kernels.ell`), which routes by the tensors'
-device. The hybrid and feature-sharded containers are not ported yet.
+invisible: a gather at id ``d`` reads 0 and a scatter to it adds nothing.
+``matvec``, ``rmatvec`` and ``colsum`` send a dense design to plain tensor
+products and an ELL design to the ``ell_matvec`` / ``ell_rmatvec`` /
+``ell_colsum`` kernels (:mod:`photon_ml_tpu_torch.kernels.ell`), which
+route by the tensors' device. The hybrid and feature-sharded containers
+are not ported yet: anything else raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.kernels.ell import ell_matvec
+from photon_ml_tpu_torch.kernels.ell import ell_colsum, ell_matvec, ell_rmatvec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,18 +64,52 @@ def cast_values(x, dtype: torch.dtype, device="cpu"):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def matvec(x, w: torch.Tensor) -> torch.Tensor:
-    """Margins contraction: (n, d) @ (d,) -> (n,).
+def as_dense(x) -> torch.Tensor:
+    """``x`` itself if it is a dense tensor; raises for the containers the
+    port does not have yet."""
+    if not isinstance(x, torch.Tensor):
+        raise NotImplementedError(
+            f"{type(x).__name__} designs are not ported to photon_ml_tpu_torch "
+            "yet (ROADMAP.md, queue A: 'Hybrid designs' and 'Parallel'); the "
+            "port takes a dense tensor or a padded-ELL SparseFeatures"
+        )
+    return x
 
-    A dense design of another dtype than ``w`` is promoted to
-    ``torch.promote_types`` first (the JAX package's bf16 low-precision
-    dense product is not ported)."""
+
+def _promoted(x: torch.Tensor, v: torch.Tensor):
+    """A dense design and a vector of another dtype, promoted to
+    ``torch.promote_types`` (the JAX package's bf16 low-precision dense
+    product is not ported)."""
+    if x.dtype != v.dtype:
+        cd = torch.promote_types(x.dtype, v.dtype)
+        return x.to(cd), v.to(cd)
+    return x, v
+
+
+def matvec(x, w: torch.Tensor) -> torch.Tensor:
+    """Margins contraction: (n, d) @ (d,) -> (n,)."""
     if is_sparse(x):
         return ell_matvec(x.indices, x.values, w, x.d)
-    if x.dtype != w.dtype:
-        cd = torch.promote_types(x.dtype, w.dtype)
-        x, w = x.to(cd), w.to(cd)
+    x, w = _promoted(as_dense(x), w)
     return torch.matmul(x, w)
+
+
+def rmatvec(x, a: torch.Tensor) -> torch.Tensor:
+    """Gradient back-projection: (n, d)^T @ (n,) -> (d,)."""
+    if is_sparse(x):
+        return ell_rmatvec(x.indices, x.values, a, x.d)
+    x, a = _promoted(as_dense(x), a)
+    return torch.matmul(x.T, a)
+
+
+def colsum(x, c: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """sum_i c_i * x_ij (or x_ij^2) -> (d,): the column sums of the feature
+    summary and the Hessian diagonal."""
+    if is_sparse(x):
+        return ell_colsum(x.indices, x.values, c, x.d, square=square)
+    x, c = _promoted(as_dense(x), c)
+    v = x * x if square else x
+    return torch.einsum("n,nd->d", c, v)
 
 
 # -- construction ------------------------------------------------------------

@@ -158,3 +158,99 @@ def test_cost_record_has_one_design_read(rng):
     assert cost["roofline_bytes"] == n * k * (4 + 4)
     assert cost["analytic_bytes"] == n * k * 8 + d * 4 + n * 4
     assert cost["analytic_flops"] == 2 * n * k
+
+
+# -- ell_scatter_add, ell_rmatvec, ell_colsum ---------------------------------
+
+from photon_ml_tpu_torch.kernels.ell import (  # noqa: E402
+    ell_colsum,
+    ell_rmatvec,
+    ell_scatter_add,
+    ell_scatter_add_reference,
+)
+
+
+def _col_abs(idx, terms, d):
+    """sum over slots of |term| per column: the scale of a column's rounding
+    error under any summation order."""
+    ids = np.where((idx >= 0) & (idx < d), idx, d)
+    out = np.zeros(d + 1)
+    np.add.at(out, ids.reshape(-1), np.abs(np.asarray(terms, np.float64)).reshape(-1))
+    return out[:d]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n,k,d,pad,dup", CASES)
+def test_scatter_add_matches_jax_pallas_and_xla(rng, n, k, d, pad, dup, dtype):
+    idx, val = _ell(rng, n, k, d, pad, dup, dtype)
+    upd = val.astype(dtype)
+    pallas = np.asarray(jax_ell.ell_scatter_add(jnp.asarray(idx), jnp.asarray(upd), d),
+                        np.float64)
+    # the XLA route: rmatvec with a = 1
+    xla = np.asarray(jax_sparse.rmatvec(
+        jax_sparse.SparseFeatures(jnp.asarray(idx), jnp.asarray(upd), d),
+        jnp.ones(n, dtype)), np.float64)
+    before = dispatch.launch_counts()["ell_scatter_add"]
+    got = ell_scatter_add(torch.from_numpy(idx), torch.from_numpy(upd), d)
+    assert dispatch.launch_counts()["ell_scatter_add"] == before  # CPU: no launch
+    assert got.dtype == _torch_dtype(dtype) and got.shape == (d,)
+    scale = _col_abs(idx, upd, d)
+    _close(got.double().numpy(), pallas, RTOL[dtype], scale)
+    _close(got.double().numpy(), xla, RTOL[dtype], scale)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("n,k,d,pad,dup", CASES[:6])
+def test_rmatvec_and_colsum_match_jax(rng, n, k, d, pad, dup, square, dtype):
+    idx, val = _ell(rng, n, k, d, pad, dup, dtype)
+    jv, ja = _np_dtypes(dtype)
+    a = rng.standard_normal(n).astype(ja)
+    c = np.abs(a)
+    j_idx, j_val = jnp.asarray(idx), jnp.asarray(val, jv)
+    sf = jax_sparse.SparseFeatures(j_idx, j_val, d)
+    t_idx, t_val = torch.from_numpy(idx), torch.from_numpy(val).to(_torch_dtype(dtype))
+    v64 = np.asarray(val, np.float64)
+    for name, pallas, xla, got, terms in (
+        ("rmatvec",
+         jax_ell.ell_rmatvec(j_idx, j_val, jnp.asarray(a), d),
+         jax_sparse.rmatvec(sf, jnp.asarray(a)),
+         ell_rmatvec(t_idx, t_val, torch.from_numpy(a), d),
+         v64 * a[:, None]),
+        ("colsum",
+         jax_ell.ell_colsum(j_idx, j_val, jnp.asarray(c), d, square=square),
+         jax_sparse.colsum(sf, jnp.asarray(c), square=square),
+         ell_colsum(t_idx, t_val, torch.from_numpy(c), d, square=square),
+         (v64 * v64 if square else v64) * c[:, None]),
+    ):
+        assert got.dtype == (torch.float64 if dtype == "float64" else torch.float32), name
+        scale = _col_abs(idx, terms, d)
+        _close(got.double().numpy(), np.asarray(pallas, np.float64), RTOL[dtype], scale)
+        _close(got.double().numpy(), np.asarray(xla, np.float64), RTOL[dtype], scale)
+
+
+def test_scatter_drops_padding_and_out_of_range_ids():
+    idx = torch.tensor([[0, 3, 3], [-1, 1, 5], [1, 1, 2]], dtype=torch.int32)
+    upd = torch.tensor([[1.0, 9.0, 9.0], [7.0, 2.0, 4.0], [0.5, 0.25, 3.0]],
+                       dtype=torch.float64)
+    # ids >= d (3, 5) and negative ids add nothing; duplicate ids sum
+    assert ell_scatter_add(idx, upd, 3).tolist() == [1.0, 2.75, 3.0]
+    assert torch.equal(ell_scatter_add(idx, upd, 3), ell_scatter_add_reference(idx, upd, 3))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16, torch.int32])
+def test_scatter_rejects_other_update_dtypes(dt):
+    idx = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(TypeError, match="ell_scatter_add"):
+        ell_scatter_add(idx, torch.ones((2, 2), dtype=dt), 3)
+
+
+def test_scatter_cost_records_one_design_read(rng):
+    n, k, d = 13, 6, 77
+    idx, val = _ell(rng, n, k, d, 1, False, "float64")
+    ell_colsum(torch.from_numpy(idx), torch.from_numpy(val), torch.ones(n, dtype=torch.float64), d)
+    costs = dispatch.kernel_costs()
+    for kernel in ("ell_scatter_add", "ell_colsum"):
+        assert dispatch.design_reads(kernel) == 1
+        assert costs[(kernel, n, k, d, 8)]["roofline_bytes"] == n * k * 12
+    assert costs[("ell_scatter_add", n, k, d, 8)]["analytic_flops"] == n * k

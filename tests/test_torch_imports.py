@@ -46,6 +46,11 @@ def test_scan_covers_the_port():
     assert "chip_smoke.py" in files
     assert os.path.join("photon_ml_tpu_torch", "cli", "score.py") in files
     assert os.path.join("photon_ml_tpu_torch", "kernels", "ell.py") in files
+    for rel in (("cli", "train.py"), ("cli", "stages.py"), ("kernels", "fused.py"),
+                ("ops", "objective.py"), ("ops", "stats.py"), ("solvers", "tron.py"),
+                ("solvers", "lbfgs.py"), ("solvers", "linesearch.py"),
+                ("models", "training.py"), ("core", "normalization.py")):
+        assert os.path.join("photon_ml_tpu_torch", *rel) in files
 
 
 def test_scanner_flags_forbidden_imports():
