@@ -16,12 +16,13 @@ whenever any phase fails. Phases, in order:
    matrix (a yardstick the port never calls), against the HBM bound;
 4. kernel: the training kernels against their plain versions at the same
    shape — ``ell_scatter_add`` (f64, f32 updates; yardstick
-   ``index_add_``), ``fused_vgc`` (logistic loss) and ``fused_hvp`` in the
-   three dtype pairs — with times against the HBM bound;
+   ``index_add_``), ``fused_vgc`` (logistic loss), ``fused_hvp`` and
+   ``fused_hdiag`` (logistic loss) in the three dtype pairs — with times
+   against the HBM bound;
 5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
-   on 2^16 synthetic records made from a seed, with every launch counter
+   on 2^15 synthetic records made from a seed, with every launch counter
    set to 0 just before and read just after; the kernel against its plain
    version at the shape the driver gave it; then the same run again under
    ``torch.profiler`` for the card's busy and idle share;
@@ -33,7 +34,25 @@ whenever any phase fails. Phases, in order:
    ``train_glm`` on the same batch on the CPU; phase seconds and host
    syncs per iteration; the kernels timed at the shape the driver gave
    them; then the same run under ``torch.profiler``;
-7. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+7. full trainer: on the same records, each run with the counters set to 0
+   just before and read just after, and each held to the same training on
+   the CPU (the same convergence reason; coefficients within 1e-6 max(1,
+   |w|inf), variances within 1e-6 relative, held-out AUC within 1e-6, the
+   same nonzero coefficients; for the first-order runs B and C, where the
+   card's trajectory may split from the CPU's on the atomics' last bits,
+   a split is recorded and held to the objective within 2e-4 relative and
+   the held-out AUC within 1e-3):
+   A. ``run_glm_training``, TRON, L2, lambda in {10, 1},
+      ``compute_variances`` (one ``fused_hdiag`` per lambda),
+      ``diagnostics`` and ``training_diagnostics`` (model-diagnostic.html);
+   B. ``run_glm_training``, L-BFGS with ELASTIC_NET (alpha 0.5, OWL-QN),
+      lambda in {10, 1}, ``compute_variances``, 100 iterations at most;
+   C. ``train_glm`` in memory: L-BFGS L2 with a constraint file boxing
+      the 13 integer-field coefficients;
+   D. ``train_glm`` in memory: NEWTON on the dense intercept + 13 integer
+      fields (d = 14) of the training records;
+   with the variance pass timed on the card at the driver's shape;
+8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 
@@ -67,14 +86,18 @@ from photon_ml_tpu_torch.kernels.ell import (
     ell_scatter_add_reference,
 )
 from photon_ml_tpu_torch.kernels.fused import (
+    fused_hessian_diagonal,
+    fused_hessian_diagonal_reference,
     fused_hessian_vector,
     fused_hessian_vector_reference,
     fused_value_grad_curvature,
     fused_value_grad_curvature_reference,
 )
-from photon_ml_tpu_torch.models.training import train_glm
+from photon_ml_tpu_torch.io.constraints import load_constraint_bounds
+from photon_ml_tpu_torch.models.training import GLMTrainingConfig, OptimizerType, train_glm
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
+from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
 from photon_ml_tpu_torch.ops.sparse import from_coo
 from photon_ml_tpu_torch.solvers import host_reads, reset_host_reads
 
@@ -89,7 +112,9 @@ HASH_BITS = 20
 D_HASHED = 1 << HASH_BITS
 K = INT_FIELDS + CAT_FIELDS + 1
 KERNEL_ROWS = 1 << 22  # kernel phase depth
-SCORE_RECORDS = 1 << 16  # end-to-end depth (the pure-Python Avro codec)
+# end-to-end depth (the pure-Python Avro codec); scoring cut to 2^15 for the
+# full trainer's time
+SCORE_RECORDS = 1 << 15
 TRAIN_RECORDS = 1 << 16
 HELDOUT_RECORDS = 1 << 14
 TRAIN_LAMBDAS = [10.0, 1.0]
@@ -264,6 +289,8 @@ SOURCES = {
                   "photon_ml_tpu/kernels/fused.py:120"),
     "fused_hvp": ("photon_ml_tpu_torch/kernels/csrc/fused.cu",
                   "photon_ml_tpu/kernels/fused.py:185"),
+    "fused_hdiag": ("photon_ml_tpu_torch/kernels/csrc/fused.cu",
+                    "photon_ml_tpu/kernels/fused.py:245"),
 }
 # operations per row of the loss terms (logistic: a few exp/log1p and
 # products), counted at 20; per valid slot: 2 for the margin, 2 for the
@@ -340,11 +367,29 @@ def check_hvp(idx, vals, c, v_eff, shift, d, rtol):
     return max(e1, e2), ok1 and ok2 and bool(torch.isfinite(hv).all())
 
 
+def check_hdiag(idx, vals, y, off, ew, w, d, rtol):
+    """The three outputs against the plain version. Scales: each output's
+    sum of |terms|, with c = ew l''(z) widened by its move under a margin
+    error of rtol * row_abs (the logistic loss's third derivative is at
+    most 0.1 in magnitude)."""
+    got = fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
+    ref = fused_hessian_diagonal_reference(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
+    v = vals.to(ref[0].dtype).double()
+    row_abs = ell_matvec_reference(idx, v.abs(), w.abs().double(), d) + off.abs().double()
+    z = ell_matvec_reference(idx, v, w.double(), d) + off.double()
+    c_abs = ew.double() * (LOGISTIC_LOSS.d2(z, y.double()).abs() + 0.1 * row_abs)
+    scales = [ell_scatter_add_reference(idx, v * v * c_abs[:, None], d),
+              ell_scatter_add_reference(idx, v.abs() * c_abs[:, None], d), c_abs.sum()]
+    errs = [within(g_, r_, s_, rtol) for g_, r_, s_ in zip(got, ref, scales)]
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    return max(e for e, _ in errs), all(ok for _, ok in errs) and finite
+
+
 def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
-    """Check and time ell_scatter_add, fused_vgc and fused_hvp on one
-    design (every dtype each takes), against their plain versions and,
-    for ell_scatter_add, ``index_add_``. Returns one record per
-    (kernel, dtype)."""
+    """Check and time ell_scatter_add, fused_vgc, fused_hvp and
+    fused_hdiag on one design (every dtype each takes), against their
+    plain versions and, for ell_scatter_add, ``index_add_``. Returns one
+    record per (kernel, dtype)."""
     n, k = idx.shape
     valid = int((idx < d).sum())
     results = []
@@ -416,6 +461,18 @@ def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
                lambda: fused_hessian_vector(idx, vals, c, w, shift, d),
                lambda: fused_hessian_vector_reference(idx, vals, c, w, shift, d),
                n * k * (4 + s) + 2 * d * sc + n * sc, 4 * valid + 2 * n)
+        max_err, ok = check_hdiag(idx, vals, y, off, ew, w, d, rtol)
+        log(f"[{label}] fused_hdiag {dtype_label}: max |kernel - plain| = {max_err:.3e} "
+            f"(rtol {rtol:g} x sum of |terms|): {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fused_hdiag {dtype_label} disagrees with its plain version")
+        # reads the design, w and three row vectors; writes two (d,) sums
+        record("fused_hdiag", dtype_label, cd, max_err,
+               lambda: fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+               lambda: fused_hessian_diagonal_reference(
+                   idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+               n * k * (4 + s) + 3 * d * sc + 3 * n * sc,
+               5 * valid + LOSS_OPS_PER_ROW * n)
         del vals, y, off, ew, w, c
         torch.cuda.empty_cache()
     return results
@@ -532,7 +589,7 @@ def write_scoring_inputs(work: str, n: int, d_hashed: int, seed: int = SEED):
 # the port's kernels by name; sum_partials is the fused passes' second,
 # single-block launch
 PROFILED_KERNELS = ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp",
-                    "sum_partials")
+                    "fused_hdiag", "sum_partials")
 
 
 def device_busy(prof) -> dict:
@@ -708,13 +765,14 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
             failures.append(f"the training run missed a kernel: {launches}")
 
     # the same batch on the CPU through train_glm: coefficients and
-    # held-out AUC
+    # held-out AUC (with the variances the full-trainer phase holds its
+    # TRON run to; they do not change the solves)
     d = len(vocab)
     t0 = time.perf_counter()
     batch_cpu = batch_from(*sets["train"][1:], d, "cpu")
     heldout_cpu = batch_from(*sets["heldout"][1:], d, "cpu")
     cfg = dataclasses.replace(run.params.to_training_config(),
-                              intercept_index=vocab.intercept_index)
+                              intercept_index=vocab.intercept_index, compute_variances=True)
     cpu_models = train_glm(batch_cpu, cfg)
     cpu_s = time.perf_counter() - t0
     auc_key = metrics_mod.AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS
@@ -787,7 +845,242 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         "setup_s": setup_s,
     }
     log(f"[train] {json.dumps(summary)}")
-    return summary, shape_checks
+    reference = {"params": params, "vocab": vocab, "sets": sets, "batch_cpu": batch_cpu,
+                 "heldout_cpu": heldout_cpu, "tron_models": cpu_models}
+    return summary, shape_checks, reference
+
+
+# -- phase 7: the full trainer -----------------------------------------------
+
+# bounds of the 13 integer-field coefficients in run C: a box around their
+# optimum at lambda 10 (the largest |w| there is 0.58). A box that binds at
+# the optimum stalls the projected L-BFGS (the JAX package's, ported as it
+# is): two runs on the card ended 0.1-0.7 apart in w after 500 iterations
+INT_FIELD_BOUND = 1.0
+ELASTIC_NET_ALPHA = 0.5
+CONSTRAINED_TOLERANCE = 1e-8
+CONSTRAINED_MAX_ITERS = 300
+NEWTON_LAMBDA = 1.0
+
+
+def heldout_auc(model, heldout) -> float:
+    margins = model.compute_margin(heldout.features, heldout.offsets)
+    return float(metrics_mod.area_under_roc_curve(
+        heldout.labels, margins, heldout.effective_weights()))
+
+
+def compare_models(label, card_models, cpu_models, heldout_cpu, failures, split_ok=False):
+    """Card against CPU per lambda: the same convergence reason, then
+    coefficients within 1e-6 max(1, |w|inf), variances within 1e-6
+    relative, held-out AUC within 1e-6 and the same nonzero coefficients
+    (magnitudes under 1e-8 aside). With ``split_ok`` (the first-order
+    solvers: OWL-QN and bounded L-BFGS) the card's run may leave the CPU's
+    trajectory — an orthant or line-search test flipping on the atomics'
+    last bits — and is then held on what the solver's stopping test fixes:
+    its objective within 2e-4 relative and the held-out AUC within 1e-3
+    (OWL-QN at lambda 1 stops on max_iters mid-descent; PERF.md has the
+    gaps split runs ended with); the split is recorded. Returns one record
+    per lambda."""
+    out = []
+    for tm, ref in zip(card_models, cpu_models):
+        coef = tm.model.coefficients
+        w_card, w_cpu = coef.means.cpu(), ref.model.coefficients.means
+        dw = float((w_card - w_cpu).abs().max())
+        w_inf = float(w_cpu.abs().max())
+        f_card, f_cpu = float(tm.result.value), float(ref.result.value)
+        rec = {"lambda": tm.reg_weight, "iterations": tm.result.iterations,
+               "cpu_iterations": ref.result.iterations, "reason": tm.result.reason,
+               "cpu_reason": ref.result.reason, "solve_s": tm.seconds,
+               "cpu_solve_s": ref.seconds, "max_abs_dw": dw, "w_inf": w_inf,
+               "objective": f_card, "cpu_objective": f_cpu,
+               "objective_rel_diff": abs(f_card - f_cpu) / abs(f_cpu)}
+        same = dw <= 1e-6 * max(1.0, w_inf)
+        rec["split"] = not same
+        where = f"{label} lambda={tm.reg_weight}"
+        if tm.result.reason != ref.result.reason:
+            failures.append(f"{where}: reason {tm.result.reason} vs {ref.result.reason} on the CPU")
+        if not same and not split_ok:
+            failures.append(f"{where}: max |dw| {dw} vs the CPU run")
+        if not same and rec["objective_rel_diff"] > 2e-4:
+            failures.append(f"{where}: objective {f_card} vs {f_cpu} on the CPU")
+        v_ref = ref.model.coefficients.variances
+        if v_ref is not None:
+            if coef.variances is None:
+                failures.append(f"{where}: no variances")
+            else:
+                v_card = coef.variances.cpu()
+                rel = float(((v_card - v_ref).abs() / v_ref.abs()).max())
+                rec["max_rel_dvariance"] = rel
+                if not (bool(torch.isfinite(v_card).all()) and bool((v_card > 0).all())):
+                    failures.append(f"{where}: variances not finite and positive")
+                if same and rel > 1e-6:
+                    failures.append(f"{where}: variances {rel} apart")
+        # the card's coefficients scored on the CPU's held-out batch
+        card_model = dataclasses.replace(tm.model, coefficients=Coefficients(means=w_card))
+        auc = heldout_auc(card_model, heldout_cpu)
+        auc_cpu = heldout_auc(ref.model, heldout_cpu)
+        rec.update(heldout_auc=auc, cpu_heldout_auc=auc_cpu)
+        if not (0.5 < auc <= 1.0 and abs(auc - auc_cpu) <= (1e-6 if same else 1e-3)):
+            failures.append(f"{where}: held-out AUC {auc} vs CPU {auc_cpu}")
+        nz_card, nz_cpu = w_card.abs() > 1e-8, w_cpu.abs() > 1e-8
+        rec.update(nonzeros=int(nz_card.sum()), cpu_nonzeros=int(nz_cpu.sum()),
+                   nonzero_pattern_flips=int((nz_card != nz_cpu).sum()))
+        if same and rec["nonzeros"] != rec["cpu_nonzeros"]:
+            failures.append(f"{where}: {rec['nonzeros']} nonzero coefficients vs "
+                            f"{rec['cpu_nonzeros']} on the CPU")
+        out.append(rec)
+    return out
+
+
+def timed_run(params, device_kw):
+    """``run_glm_training`` with the counters set to 0 just before and read
+    just after: (run, wall seconds, launches, host reads)."""
+    dispatch.reset_launch_counts()
+    reset_host_reads()
+    t0 = time.perf_counter()
+    run = run_glm_training(params, **device_kw)
+    wall_s = time.perf_counter() - t0
+    return run, wall_s, dispatch.launch_counts(), host_reads()
+
+
+def timed_train(batch, cfg):
+    """``train_glm`` in memory, counted the same way."""
+    dispatch.reset_launch_counts()
+    reset_host_reads()
+    t0 = time.perf_counter()
+    models = train_glm(batch, cfg)
+    if batch.labels.is_cuda:
+        torch.cuda.synchronize()
+    return models, time.perf_counter() - t0, dispatch.launch_counts(), host_reads()
+
+
+def dense_int_fields(coo, labels, offsets, d_int: int, device):
+    """The intercept and the integer fields as a dense (n, 1 + d_int)
+    batch: the first d_int of each row's generator slots, then a column of
+    ones."""
+    rows, cols, vals = coo
+    n = labels.shape[0]
+    per_row = (rows.size - n) // n
+    x = np.concatenate([vals[: n * per_row].reshape(n, per_row)[:, :d_int],
+                        np.ones((n, 1))], axis=1)
+    return LabeledBatch.create(x, labels, offsets=offsets, dtype=torch.float64, device=device)
+
+
+def full_trainer_phase(work: str, ref: dict, **device_kw):
+    """Run A-D of phase 7 and hold each to the CPU. ``device_kw`` is empty
+    for the card (the driver's default device)."""
+    failures = []
+    vocab, sets = ref["vocab"], ref["sets"]
+    batch_cpu, heldout_cpu = ref["batch_cpu"], ref["heldout_cpu"]
+    icpt = vocab.intercept_index
+    base = {**ref["params"], "output_dir": None}
+    summary = {}
+
+    # A: TRON + variances + diagnostics
+    params_a = {**base, "output_dir": os.path.join(work, "a"), "compute_variances": True,
+                "diagnostics": True, "training_diagnostics": True}
+    run, wall_s, launches, reads = timed_run(params_a, device_kw)
+    lam_count = len(run.models)
+    if not device_kw and launches["fused_hdiag"] != lam_count:
+        failures.append(f"run A: {launches['fused_hdiag']} fused_hdiag launches, "
+                        f"one per lambda is {lam_count}")
+    if not device_kw and min(launches[k] for k in ("fused_vgc", "fused_hvp", "ell_matvec",
+                                                      "ell_scatter_add")) < 1:
+        failures.append(f"run A missed a kernel: {launches}")
+    html = os.path.join(run.params.output_dir, "model-diagnostic.html")
+    if not (os.path.exists(html) and os.path.getsize(html) > 0):
+        failures.append("run A wrote no model-diagnostic.html")
+    per_lambda = compare_models("run A", run.models, ref["tron_models"], heldout_cpu, failures)
+    summary["run_a"] = {"wall_s": wall_s, "timings_s": run.timings, "launches": launches,
+                        "host_reads": reads, "per_lambda": per_lambda,
+                        "report_bytes": os.path.getsize(html) if os.path.exists(html) else 0}
+    log(f"[full] run A: {json.dumps(summary['run_a'])}")
+    launches_a = launches
+
+    # the variance pass alone at the driver's shape, on the run's own batch
+    # and solution (card: CUDA events; CPU: the host clock)
+    tm = run.models[-1]
+    x_dev = batch_from(*sets["train"][1:], len(vocab), tm.model.coefficients.means.device)
+    obj = GLMObjective(loss=LOGISTIC_LOSS, l2_weight=tm.reg_weight)
+    w_dev = tm.result.w
+    if not device_kw:
+        summary["variance_pass_ms"] = time_ms(lambda: obj.hessian_diagonal(w_dev, x_dev))
+    del x_dev
+
+    # B: OWL-QN elastic net + variances
+    params_b = {**base, "output_dir": os.path.join(work, "b"), "optimizer": "LBFGS",
+                "reg_type": "ELASTIC_NET", "elastic_net_alpha": ELASTIC_NET_ALPHA,
+                "compute_variances": True, "model_output_mode": "NONE"}
+    run, wall_s, launches, reads = timed_run(params_b, device_kw)
+    if not device_kw and (launches["fused_hdiag"] != len(run.models)
+                          or launches["fused_vgc"] < 1):
+        failures.append(f"run B missed a kernel: {launches}")
+    cfg_b = dataclasses.replace(run.params.to_training_config(), intercept_index=icpt)
+    t0 = time.perf_counter()
+    cpu_b = train_glm(batch_cpu, cfg_b)
+    cpu_b_s = time.perf_counter() - t0
+    iters = sum(tm.result.iterations for tm in run.models)
+    summary["run_b"] = {
+        "wall_s": wall_s, "timings_s": run.timings, "launches": launches, "host_reads": reads,
+        "host_reads_per_iteration": reads / max(iters, 1),
+        "evals": [tm.result.evals for tm in run.models], "cpu_reference_s": cpu_b_s,
+        "per_lambda": compare_models("run B", run.models, cpu_b, heldout_cpu, failures,
+                                     split_ok=True)}
+    log(f"[full] run B: {json.dumps(summary['run_b'])}")
+
+    # C: L-BFGS L2 in memory, a constraint file on the 13 integer fields
+    device = torch.device("cuda") if not device_kw else torch.device(device_kw["device"])
+    batch_dev = batch_from(*sets["train"][1:], len(vocab), device)
+    int_cols = sorted({int(c) for c in sets["train"][1][1][:INT_FIELDS]})
+    path = os.path.join(work, "constraints.json")
+    with open(path, "w") as f:
+        json.dump([{"name": "h", "term": str(c), "lowerBound": -INT_FIELD_BOUND,
+                    "upperBound": INT_FIELD_BOUND} for c in int_cols], f)
+    lower, upper = load_constraint_bounds(path, vocab)
+    cfg_c = GLMTrainingConfig(
+        optimizer=OptimizerType.LBFGS, regularization=RegularizationContext("L2"),
+        reg_weights=(TRAIN_LAMBDAS[0],), tolerance=CONSTRAINED_TOLERANCE,
+        max_iters=CONSTRAINED_MAX_ITERS, intercept_index=icpt, lower_bounds=lower,
+        upper_bounds=upper)
+    models_c, wall_s, launches, reads = timed_train(batch_dev, cfg_c)
+    if not device_kw and launches["fused_vgc"] < 1:
+        failures.append(f"run C missed fused_vgc: {launches}")
+    t0 = time.perf_counter()
+    cpu_c = train_glm(batch_cpu, cfg_c)
+    cpu_c_s = time.perf_counter() - t0
+    w_c = models_c[0].model.coefficients.means.cpu()
+    bound_ok = bool(torch.all(w_c[int_cols].abs() <= INT_FIELD_BOUND))
+    at_bound = int((w_c[int_cols].abs() == INT_FIELD_BOUND).sum())
+    if not bound_ok or models_c[0].result.reason == 1:
+        failures.append(f"run C: bounds held {bound_ok}, reason {models_c[0].result.reason}")
+    summary["run_c"] = {
+        "wall_s": wall_s, "launches": launches, "host_reads": reads,
+        "bounded_columns": len(int_cols), "at_bound": at_bound, "cpu_reference_s": cpu_c_s,
+        "per_lambda": compare_models("run C", models_c, cpu_c, heldout_cpu, failures,
+                                     split_ok=True)}
+    log(f"[full] run C: {json.dumps(summary['run_c'])}")
+    del batch_dev
+
+    # D: NEWTON on the dense intercept + integer fields
+    coo, labels, offsets = sets["train"][1:]
+    dense_dev = dense_int_fields(coo, labels, offsets, INT_FIELDS, device)
+    dense_cpu = dense_int_fields(coo, labels, offsets, INT_FIELDS, "cpu")
+    hcoo, hlabels, hoffsets = sets["heldout"][1:]
+    dense_heldout = dense_int_fields(hcoo, hlabels, hoffsets, INT_FIELDS, "cpu")
+    cfg_d = GLMTrainingConfig(
+        optimizer=OptimizerType.NEWTON, regularization=RegularizationContext("L2"),
+        reg_weights=(NEWTON_LAMBDA,), tolerance=TRAIN_TOLERANCE, max_iters=25,
+        intercept_index=INT_FIELDS, compute_variances=True)
+    models_d, wall_s, launches, reads = timed_train(dense_dev, cfg_d)
+    cpu_d = train_glm(dense_cpu, cfg_d)
+    summary["run_d"] = {
+        "d": INT_FIELDS + 1, "wall_s": wall_s, "host_reads": reads,
+        "per_lambda": compare_models("run D", models_d, cpu_d, dense_heldout, failures)}
+    log(f"[full] run D: {json.dumps(summary['run_d'])}")
+
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, launches_a
 
 
 def main() -> int:
@@ -831,27 +1124,34 @@ def main() -> int:
         if summary["launches"]["ell_matvec"] < 1:
             raise AssertionError("the scoring run did not launch the ell_matvec kernel")
         # 6. GLM training end to end
-        train_summary, shape_checks = train_phase(os.path.join(work, "train"), name)
+        train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
+        # 7. the full trainer on the same records
+        full_summary, full_launches = full_trainer_phase(os.path.join(work, "full"), reference)
+        del reference
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"train_shape_checks": shape_checks}))
+    log(json.dumps({"full_trainer": full_summary}))
 
-    # 7. result lines: each kernel at the kernel-phase shape in the main
+    # 8. result lines: each kernel at the kernel-phase shape in the main
     # path's dtype (f64), its time at the training driver's shape, and its
-    # launches in the training run (and, per path, in the scoring run)
+    # launches on its main path — the training run, and for fused_hdiag the
+    # full trainer's run A (per path: scoring, training, run A)
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp"):
+    for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp", "fused_hdiag"):
         main_path = next(c for c in checks + train_checks
                          if c["name"] == kernel and c["dtype"] == "f64")
         at_shape = next((c for c in shape_checks
                          if c["name"] == kernel and c["dtype"] == "f64"), None)
+        launches = (full_launches if kernel == "fused_hdiag" else train_summary["launches"])
         kernels.append({
             **{k: main_path[k] for k in keys},
-            "launches": train_summary["launches"][kernel],
+            "launches": launches[kernel],
             "launches_by_path": {"score": summary["launches"][kernel],
-                                 "train": train_summary["launches"][kernel]},
+                                 "train": train_summary["launches"][kernel],
+                                 "full_trainer_a": full_launches[kernel]},
             "train_shape": None if at_shape is None else {
                 k: at_shape[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                          "library_ms", "max_abs_err")},

@@ -38,10 +38,6 @@ UNPORTED_GLM_FIELDS = {
     "streamed_ingest": (False, "I/O runtime"),
     "mesh_shape": (None, "Parallel"),
     "hot_columns": (0, "Hybrid designs"),
-    "constraint_file": (None, "GLM solver options"),
-    "compute_variances": (False, "Variances"),
-    "diagnostics": (False, _OBS),
-    "training_diagnostics": (False, _OBS),
     "quality_fingerprint": (False, "Ingest hooks"),
     "profile": (False, _OBS),
     "debug_nans": (False, _OBS),
@@ -87,7 +83,8 @@ class GLMDriverParams:
     validate_input: List[str] = dataclasses.field(default_factory=list)
     data_validation: str = "VALIDATE_FULL"
     feature_file: Optional[str] = None  # pinned vocabulary (one key per line)
-    constraint_file: Optional[str] = None  # coefficient bounds JSON
+    # coefficient bounds JSON (io/constraints.py), read by the driver
+    constraint_file: Optional[str] = None
     date_range: Optional[str] = None  # "yyyymmdd-yyyymmdd"
     date_range_days_ago: Optional[str] = None  # "N-M"
     field_names: str = "TRAINING_EXAMPLE"
@@ -100,7 +97,11 @@ class GLMDriverParams:
     # warm start: a previous GLM run's directory or an explicit .avro
     initial_model_dir: Optional[str] = None
     log_level: str = "DEBUG"
+    # model diagnostics (HL, error independence, importances) -> HTML
+    # report + DIAGNOSED stage; requires validate_input
     diagnostics: bool = False
+    # additionally the training diagnostics: learning-curve refits and
+    # bootstrap intervals (``Params.trainingDiagnosticsEnabled``)
     training_diagnostics: bool = False
     # "float64" (the reference's double-precision solves); anything else
     # solves in float32
@@ -137,8 +138,15 @@ class GLMDriverParams:
             raise ValueError(
                 "date_range and date_range_days_ago are mutually exclusive"
             )
+        if self.training_diagnostics and not self.diagnostics:
+            raise ValueError("training_diagnostics requires diagnostics=True")
         if self.validate_per_iteration and not self.validate_input:
             raise ValueError("validate_per_iteration requires validate_input")
+        if self.diagnostics and not self.validate_input:
+            raise ValueError(
+                "diagnostics requires validate_input (the model diagnostics "
+                "run against validation data, Driver.scala:424-474)"
+            )
         self.to_training_config().validate()
 
     def to_training_config(self) -> GLMTrainingConfig:

@@ -1,17 +1,19 @@
 """GLM training driver (counterpart of ``photon_ml_tpu/cli/train.py``; the
 reference's staged pipeline, ``Driver.scala:76-570``): INIT -> PREPROCESSED
 (Avro ingest, feature indexing, data validation, feature summary) ->
-TRAINED (descending-lambda path with warm starts) -> VALIDATED (named
-metrics per lambda, best-model selection) -> model, text and summary
+TRAINED (descending-lambda path with warm starts; box constraints from
+``constraint_file``; variances with ``compute_variances``) -> VALIDATED
+(named metrics per lambda, best-model selection) -> DIAGNOSED (with
+``diagnostics``: model-diagnostic.html) -> model, text and summary
 outputs. Run as
 
     python -m photon_ml_tpu_torch.cli.train --config params.json
 
 or programmatically via :func:`run_glm_training`. It runs on the CUDA
 device unless given another: with ``sparse`` the objective passes go
-through the ``fused_vgc`` / ``fused_hvp`` kernels, the feature summary
-through ``ell_scatter_add`` and the validation margins through
-``ell_matvec``.
+through the ``fused_vgc`` / ``fused_hvp`` kernels, the variances through
+``fused_hdiag``, the feature summary through ``ell_scatter_add`` and the
+validation margins through ``ell_matvec``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ from photon_ml_tpu_torch.cli.config import (
 from photon_ml_tpu_torch.cli.stages import DriverStage, StageTracker
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.core.validators import DataValidationType, sanity_check_data
+from photon_ml_tpu_torch.diagnostics.driver import build_diagnostic_report
+from photon_ml_tpu_torch.diagnostics.html import render_html
+from photon_ml_tpu_torch.io.constraints import load_constraint_bounds
 from photon_ml_tpu_torch.io.ingest import IngestSource
 from photon_ml_tpu_torch.io.models import load_glm_model, save_glm_model
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
@@ -124,8 +129,9 @@ class GLMTrainingRun:
     # wall-clock seconds per phase: ingest (Avro decode + ELL build + copy
     # to the device), validate_data, summary (device, synchronised),
     # summary_write (feature-summary.tsv), train (every solve), validate
-    # (validation ingest + margins + metrics), write (models, texts,
-    # vocabulary, metrics); each solve's own seconds are on its model
+    # (validation ingest + margins + metrics), diagnose (the diagnostic
+    # report, with diagnostics), write (models, texts, vocabulary,
+    # metrics); each solve's own seconds are on its model
     timings: Dict[str, float]
 
 
@@ -196,6 +202,9 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         cfg = dataclasses.replace(
             params.to_training_config(), intercept_index=vocab.intercept_index
         )
+        if params.constraint_file:
+            lb, ub = load_constraint_bounds(params.constraint_file, vocab)
+            cfg = dataclasses.replace(cfg, lower_bounds=lb, upper_bounds=ub)
         initial = None
         if params.initial_model_dir:
             init_path = _initial_model_path(params.initial_model_dir)
@@ -216,6 +225,7 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
     # ---- VALIDATE --------------------------------------------------------
     best = None
     best_index = None
+    vbatch = None
     validation_metrics: List[Dict[str, float]] = []
     if params.validate_input:
         tracker.assert_at_least(DriverStage.TRAINED)
@@ -241,6 +251,29 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
                 _write_per_iteration_metrics(params, task, models, vbatch, logger)
             timings["validate"] = time.perf_counter() - t0
         tracker.advance(DriverStage.VALIDATED)
+
+    # ---- DIAGNOSE (``Driver.scala:424-474``) -----------------------------
+    if params.diagnostics:
+        tracker.assert_at_least(DriverStage.VALIDATED)
+        with timed(logger, "diagnose"):
+            t0 = time.perf_counter()
+            report = build_diagnostic_report(
+                params_dict=dataclasses.asdict(params),
+                models=models,
+                validation_metrics=validation_metrics,
+                train_batch=batch,
+                validation_batch=vbatch,
+                vocab=vocab,
+                summary=summary,
+                training_config=cfg,
+                training_diagnostics=params.training_diagnostics,
+            )
+            report_path = os.path.join(params.output_dir, "model-diagnostic.html")
+            with open(report_path, "w", encoding="utf-8") as f:
+                f.write(render_html(report))
+            timings["diagnose"] = time.perf_counter() - t0
+            logger.info(f"wrote diagnostic report to {report_path}")
+        tracker.advance(DriverStage.DIAGNOSED)
 
     # ---- OUTPUT ----------------------------------------------------------
     with timed(logger, "write models"):
@@ -336,6 +369,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--tolerance", type=float)
     p.add_argument("--sparse", action="store_true", default=None)
     p.add_argument("--overwrite", action="store_true", default=None)
+    p.add_argument("--diagnostics", action="store_true", default=None)
+    p.add_argument("--training-diagnostics", action="store_true", default=None)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     return p
 

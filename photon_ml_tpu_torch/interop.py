@@ -79,3 +79,13 @@ def solver_config_from_numpy(
         upper_bounds=None if upper_bounds is None else tensor_from_numpy(upper_bounds, device),
         **knobs,
     )
+
+
+def bounds_from_numpy(lower=None, upper=None):
+    """(lower, upper) box constraints from numpy (d,) arrays (either may be
+    None; +-inf where a side is open) as float64 CPU tensors, the form
+    ``GLMTrainingConfig.lower_bounds`` / ``upper_bounds`` keep."""
+    return tuple(
+        None if b is None else torch.from_numpy(np.array(b, dtype=np.float64))
+        for b in (lower, upper)
+    )

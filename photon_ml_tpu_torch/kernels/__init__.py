@@ -22,6 +22,8 @@ from photon_ml_tpu_torch.kernels.ell import (
     ell_scatter_add_reference,
 )
 from photon_ml_tpu_torch.kernels.fused import (
+    fused_hessian_diagonal,
+    fused_hessian_diagonal_reference,
     fused_hessian_vector,
     fused_hessian_vector_reference,
     fused_value_grad_curvature,
@@ -39,6 +41,8 @@ __all__ = [
     "ell_rmatvec",
     "ell_scatter_add",
     "ell_scatter_add_reference",
+    "fused_hessian_diagonal",
+    "fused_hessian_diagonal_reference",
     "fused_hessian_vector",
     "fused_hessian_vector_reference",
     "fused_value_grad_curvature",

@@ -2,14 +2,21 @@
 // stored (indices, values) per pass.
 //
 // Replaces photon_ml_tpu/kernels/fused.py::fused_value_grad_curvature
-// (Pallas body _vgc_kernel) and ::fused_hessian_vector (_hvp_kernel):
+// (Pallas body _vgc_kernel), ::fused_hessian_vector (_hvp_kernel) and
+// ::fused_hessian_diagonal (_hdiag_kernel):
 //
-//   vgc: z_i = sum_k v_ik w[c_ik] + off_i
-//        val = sum_i ew_i l(z_i, y_i)          asum = sum_i a_i
-//        a_i = ew_i l'(z_i, y_i)               grad_j = sum_{c_ik=j} v_ik a_i
-//        c_i = ew_i l''(z_i, y_i)
-//   hvp: zv_i = sum_k v_ik v[c_ik] + shift     u_i = c_i zv_i
-//        hv_j = sum_{c_ik=j} v_ik u_i          usum = sum_i u_i
+//   vgc:   z_i = sum_k v_ik w[c_ik] + off_i
+//          val = sum_i ew_i l(z_i, y_i)          asum = sum_i a_i
+//          a_i = ew_i l'(z_i, y_i)               grad_j = sum_{c_ik=j} v_ik a_i
+//          c_i = ew_i l''(z_i, y_i)
+//   hvp:   zv_i = sum_k v_ik v[c_ik] + shift     u_i = c_i zv_i
+//          hv_j = sum_{c_ik=j} v_ik u_i          usum = sum_i u_i
+//   hdiag: z_i, c_i as in vgc                    csum = sum_i c_i
+//          dx2_j = sum_{c_ik=j} v_ik^2 c_i       dx_j = sum_{c_ik=j} v_ik c_i
+//
+// hdiag squares each slot's value on its own (a duplicate id adds v^2 per
+// slot, not (sum v)^2), as the Pallas kernel's per-slot group totals do;
+// bf16 values are widened to f32 before the square.
 //
 // Same contract as the Pallas kernels: a slot whose column id is >= d (the
 // padding id is d; ids compared as unsigned) reads 0 and adds nothing;
@@ -21,9 +28,9 @@
 //
 // Bound on Hopper: HBM bytes. A pass reads the design once,
 // n*k*(4 + itemsize(values)), plus the (n,) row vectors and the (d,)
-// coefficient vector, and writes the (d,) back-projection and, for vgc,
-// the (n,) curvature weights; the gathers and the atomics hit the (d,)
-// vectors in the 50 MB L2.
+// coefficient vector, and writes the (d,) back-projection (two of them
+// for hdiag) and, for vgc, the (n,) curvature weights; the gathers and
+// the atomics hit the (d,) vectors in the 50 MB L2.
 //
 // Design (a simple, correct first version): ell_matvec's row mapping —
 // GROUP lanes own one row (8 for k <= 8, else 32), stride over its slots
@@ -31,8 +38,9 @@
 // the row's margin to every lane of the group, so each lane computes the
 // loss terms of its row itself (the same bits on every lane). Each lane
 // then re-reads its slots (now L1/L2 hits) and atomicAdds v_ik * a_i into
-// the gradient, which the caller zeroes on the same stream. The scalars
-// (val, asum; usum) become one partial per block, reduced in a fixed order
+// the gradient (hdiag: two atomics per slot, into dx2 and dx), which the
+// caller zeroes on the same stream. The scalars (val, asum; usum; csum)
+// become one partial per block, reduced in a fixed order
 // (warp butterfly, then warp 0 over the block's warps), and a second
 // single-block launch sums the partials in a fixed order: the value TRON
 // compares across trial points does not change from run to run. The
@@ -230,6 +238,49 @@ fused_hvp_kernel(const int32_t* __restrict__ indices,
   }
 }
 
+template <typename V, typename A, int GROUP, int LOSS>
+__global__ void __launch_bounds__(kThreads)
+fused_hdiag_kernel(const int32_t* __restrict__ indices,
+                   const V* __restrict__ values,
+                   const A* __restrict__ labels,
+                   const A* __restrict__ offsets,
+                   const A* __restrict__ ew,
+                   const A* __restrict__ w,
+                   A* __restrict__ dx2,
+                   A* __restrict__ dx,
+                   A* __restrict__ partials,
+                   long long n, int k, int d) {
+  __shared__ A shared[kWarps];
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long row = t / GROUP;
+  const int lane = (int)(t % GROUP);
+  const bool live = row < n;
+  const long long base = row * (long long)k;
+  A z = row_dot<V, A, GROUP>(indices, values, w, live, base, lane, k, d);
+  A csum = A(0);
+  if (live) {
+    z += offsets[row];
+    A l, d1, d2;
+    loss_terms<LOSS, A>(z, labels[row], l, d1, d2);
+    const A c = ew[row] * d2;
+    if (lane == 0) {
+      csum = c;
+    }
+    for (int s = lane; s < k; s += GROUP) {
+      const int32_t col = indices[base + s];
+      if ((unsigned)col < (unsigned)d) {
+        const A v = to_acc(values[base + s]);
+        atomicAdd(dx2 + col, v * v * c);
+        atomicAdd(dx + col, v * c);
+      }
+    }
+  }
+  csum = block_sum<A>(csum, shared);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = csum;
+  }
+}
+
 // out[j] = sum over blocks b of partials[b * width + j], j < width, in a
 // fixed order (one block).
 template <typename A>
@@ -337,12 +388,68 @@ int launch_hvp(const void* indices, const void* values, const void* curvature,
   return (int)cudaGetLastError();
 }
 
+template <typename V, typename A, int GROUP>
+void launch_hdiag_group(const int32_t* ix, const V* vals, const A* y,
+                        const A* off, const A* ew, const A* w, A* dx2, A* dx,
+                        A* partials, long long n, int k, int d, int loss,
+                        cudaStream_t s) {
+  const unsigned blocks = (unsigned)grid_blocks(n, GROUP);
+  switch (loss) {
+    case kLogistic:
+      fused_hdiag_kernel<V, A, GROUP, kLogistic><<<blocks, kThreads, 0, s>>>(
+          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
+      break;
+    case kSquared:
+      fused_hdiag_kernel<V, A, GROUP, kSquared><<<blocks, kThreads, 0, s>>>(
+          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
+      break;
+    case kPoisson:
+      fused_hdiag_kernel<V, A, GROUP, kPoisson><<<blocks, kThreads, 0, s>>>(
+          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
+      break;
+    default:
+      fused_hdiag_kernel<V, A, GROUP, kSmoothedHinge><<<blocks, kThreads, 0, s>>>(
+          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
+      break;
+  }
+}
+
+template <typename V, typename A>
+int launch_hdiag(const void* indices, const void* values, const void* labels,
+                 const void* offsets, const void* ew, const void* w, void* dx2,
+                 void* dx, void* partials, void* out, long long n, int k,
+                 int d, int loss, void* stream) {
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const V* vals = static_cast<const V*>(values);
+  const A* y = static_cast<const A*>(labels);
+  const A* off = static_cast<const A*>(offsets);
+  const A* e = static_cast<const A*>(ew);
+  const A* ww = static_cast<const A*>(w);
+  A* o2 = static_cast<A*>(dx2);
+  A* o1 = static_cast<A*>(dx);
+  A* p = static_cast<A*>(partials);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int group = k <= 8 ? 8 : 32;
+  if (group == 8) {
+    launch_hdiag_group<V, A, 8>(ix, vals, y, off, e, ww, o2, o1, p, n, k, d, loss, s);
+  } else {
+    launch_hdiag_group<V, A, 32>(ix, vals, y, off, e, ww, o2, o1, p, n, k, d, loss, s);
+  }
+  int code = (int)cudaGetLastError();
+  if (code != 0) {
+    return code;
+  }
+  sum_partials_kernel<A><<<1, kFinishThreads, 0, s>>>(
+      p, grid_blocks(n, group), 1, static_cast<A*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // scratch `partials` holds 2 * photon_fused_blocks(n, k) (vgc) or
-// photon_fused_blocks(n, k) (hvp) elements of the compute type
+// photon_fused_blocks(n, k) (hvp, hdiag) elements of the compute type
 long long photon_fused_blocks(long long n, int k) {
   return grid_blocks(n, k <= 8 ? 8 : 32);
 }
@@ -362,6 +469,14 @@ long long photon_fused_blocks(long long n, int k) {
       long long n, int k, int d, void* stream) {                               \
     return launch_hvp<V, A>(indices, values, curvature, shift, v, hv,          \
                             partials, out, n, k, d, stream);                   \
+  }                                                                            \
+  int photon_fused_hdiag_##SUFFIX(                                             \
+      const void* indices, const void* values, const void* labels,             \
+      const void* offsets, const void* ew, const void* w, void* dx2, void* dx, \
+      void* partials, void* out, long long n, int k, int d, int loss,          \
+      void* stream) {                                                          \
+    return launch_hdiag<V, A>(indices, values, labels, offsets, ew, w, dx2,    \
+                              dx, partials, out, n, k, d, loss, stream);       \
   }
 
 PHOTON_FUSED_ENTRIES(f64, double, double)

@@ -43,6 +43,7 @@ _DESIGN_READS = {
     "ell_colsum": 1,
     "fused_vgc": 1,
     "fused_hvp": 1,
+    "fused_hdiag": 1,
 }
 KERNELS: Tuple[str, ...] = tuple(_DESIGN_READS)
 

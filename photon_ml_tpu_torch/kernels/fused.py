@@ -7,6 +7,8 @@
   c = ew * l''(z) that TRON's next CG loop takes.
 - :func:`fused_hessian_vector` — one CG step's raw H @ v:
   X^T (c * (X @ v_eff + shift)) and sum(u).
+- :func:`fused_hessian_diagonal` — the variance pass: margins, then
+  colsum(x^2 c), colsum(x c) and sum(c) with c = ew * l''(z).
 
 ``GLMObjective`` applies the normalization algebra and L2 outside; those
 touch (d,) and (n,) vectors, not the design. On CUDA tensors each wrapper
@@ -38,6 +40,8 @@ __all__ = [
     "fused_value_grad_curvature_reference",
     "fused_hessian_vector",
     "fused_hessian_vector_reference",
+    "fused_hessian_diagonal",
+    "fused_hessian_diagonal_reference",
     "fused_compute_dtype",
 ]
 
@@ -199,6 +203,72 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     build.check(lib, code, "fused_hvp launch")
     dispatch.count_launch("fused_hvp")
     return hv, usum[0]
+
+
+# -- Hessian diagonal --------------------------------------------------------
+
+
+def fused_hessian_diagonal_reference(
+    indices, values, labels, offsets, ew, w_eff, d: int, loss
+):
+    """Plain PyTorch version: ``ell_matvec_reference`` margins, c = ew *
+    l''(z), and ``ell_scatter_add_reference`` of v_ik^2 c_i and v_ik c_i
+    (each slot squared on its own)."""
+    cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype, w_eff.dtype)
+    v = values.to(cd)
+    z = ell_matvec_reference(indices, v, w_eff.to(cd), d) + offsets.to(cd)
+    c = ew.to(cd) * loss.d2(z, labels.to(cd))
+    dx2 = ell_scatter_add_reference(indices, v * v * c[:, None], d)
+    return dx2, ell_scatter_add_reference(indices, v * c[:, None], d), c.sum()
+
+
+def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, loss):
+    """One design read -> (colsum(x^2, c), colsum(x, c), sum(c)) with
+    c = ew * l''(z) from the sweep's own margins. ``offsets`` already
+    carry the margin shift; ``w_eff`` is the normalization-effective
+    coefficient vector. ``sum(c)`` is a 0-dim tensor on the inputs'
+    device (no host sync)."""
+    cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype, w_eff.dtype)
+    loss_id = _loss_id(loss)
+    n, k = indices.shape
+    dispatch.record_kernel_cost(
+        "fused_hdiag", n, k, d, values.element_size(), flops_per_slot=5.0,
+        extra_bytes=3 * d * cd.itemsize + 3 * n * cd.itemsize,
+    )
+    if not dispatch.use_kernel("fused_hdiag", indices, values, labels, offsets, ew, w_eff):
+        return fused_hessian_diagonal_reference(
+            indices, values, labels, offsets, ew, w_eff, d, loss
+        )
+    y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
+    check_launch(
+        "fused_hdiag", indices, d, tables=[("values", values)],
+        rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
+    )
+    dev = indices.device
+    dx2 = torch.zeros((d,), dtype=cd, device=dev)
+    dx = torch.zeros((d,), dtype=cd, device=dev)
+    csum = torch.zeros((1,), dtype=cd, device=dev)
+    if n == 0:
+        return dx2, dx, csum[0]
+    import ctypes
+
+    lib, entry = load_entry(
+        "fused", f"photon_fused_hdiag_{_FUSED_TYPES[(values.dtype, cd)]}",
+        [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p],
+    )
+    partials = torch.empty((_blocks(lib, n, k),), dtype=cd, device=dev)
+    with torch.cuda.device(dev):
+        code = entry(
+            indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
+            e.data_ptr(), w.data_ptr(), dx2.data_ptr(), dx.data_ptr(),
+            partials.data_ptr(), csum.data_ptr(), n, k, d, loss_id, stream_of(indices),
+        )
+    from photon_ml_tpu_torch.kernels import build
+
+    build.check(lib, code, "fused_hdiag launch")
+    dispatch.count_launch("fused_hdiag")
+    return dx2, dx, csum[0]
 
 
 def _blocks(lib, n: int, k: int) -> int:

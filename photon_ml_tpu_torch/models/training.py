@@ -9,7 +9,10 @@ of ``photon_ml_tpu/models/training.py``; the reference's
   - the model is optimized in normalized space through the whitening
     algebra folded into the objective, then mapped back to raw feature
     space (``GeneralizedLinearAlgorithm.scala:111-113``);
-  - L2 goes into the objective; TRON is L2-only (``Params.scala:156-173``).
+  - L2 goes into the objective, L1 selects OWL-QN, TRON is L2-only (the
+    validation matrix of ``Params.scala:156-173``);
+  - with ``compute_variances`` each solution gets per-coefficient variances
+    1 / diag(H) at its own lambda, mapped to raw space with the means.
 
 The path is a Python loop over one per-lambda solve: the JAX package's
 ``path_mode="loop"``, which its tests hold equal to its default ``"scan"``.
@@ -42,13 +45,19 @@ from photon_ml_tpu_torch.solvers import (
     SolverConfig,
     SolverResult,
     minimize_lbfgs,
+    minimize_newton,
+    minimize_owlqn,
     minimize_tron,
 )
+
+# Variance guard for 1 / Hessian-diagonal, mirroring the epsilon in
+# ``optimization/game/OptimizationProblem.scala:89-116`` (MathConst.EPSILON).
+_VARIANCE_EPSILON = 1e-12
 
 
 class OptimizerType(enum.Enum):
     """``optimization/OptimizerType.scala`` plus the JAX package's exact
-    Newton solver, which the port does not run yet."""
+    Newton solver (dense designs, scale-only normalization, L2 only)."""
 
     LBFGS = "LBFGS"
     TRON = "TRON"
@@ -65,8 +74,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class GLMTrainingConfig:
     """The knobs of one training run (``Params.scala:36-183``). Box
-    constraints are not taken yet (ROADMAP.md, queue A: 'GLM solver
-    options'); the solvers take them through ``SolverConfig``."""
+    constraints are (d,) bounds (a tensor, an array or a sequence; +-inf
+    where a side is open), kept as float64 tensors on the CPU and moved to
+    the batch's device by each solve."""
 
     task: TaskType = TaskType.LOGISTIC_REGRESSION
     optimizer: OptimizerType = OptimizerType.LBFGS
@@ -77,6 +87,8 @@ class GLMTrainingConfig:
     tolerance: float = 1e-7
     num_corrections: int = 10
     intercept_index: Optional[int] = None
+    lower_bounds: Optional[torch.Tensor] = None
+    upper_bounds: Optional[torch.Tensor] = None
     compute_variances: bool = False
     track_states: bool = True
     # per-iteration coefficients (ModelTracker) for validate-per-iteration
@@ -88,11 +100,16 @@ class GLMTrainingConfig:
         object.__setattr__(
             self, "reg_weights", tuple(float(v) for v in self.reg_weights)
         )
+        for name in ("lower_bounds", "upper_bounds"):
+            v = getattr(self, name)
+            if v is not None:
+                object.__setattr__(
+                    self, name, torch.as_tensor(v, dtype=torch.float64, device="cpu")
+                )
 
     def validate(self) -> None:
         """The reference's cross-flag validation matrix
-        (``Params.scala:156-173``, ``OptimizationProblem.scala:155-161``),
-        then the parts the port does not run yet."""
+        (``Params.scala:156-173``, ``OptimizationProblem.scala:155-161``)."""
         if self.path_mode not in ("scan", "loop"):
             raise ValueError(
                 f"path_mode must be 'scan' or 'loop', got {self.path_mode!r}"
@@ -102,6 +119,14 @@ class GLMTrainingConfig:
             raise ValueError(
                 "TRON does not support L1 regularization "
                 "(reference Params.scala:158-161)"
+            )
+        has_constraints = (
+            self.lower_bounds is not None or self.upper_bounds is not None
+        )
+        if has_constraints and self.normalization != NormalizationType.NONE:
+            raise ValueError(
+                "box constraints cannot be combined with normalization "
+                "(reference Params.scala:162-165)"
             )
         if (
             self.optimizer == OptimizerType.TRON
@@ -120,20 +145,27 @@ class GLMTrainingConfig:
                 "(reference Params.scala:166-169)"
             )
         if self.optimizer == OptimizerType.NEWTON:
-            raise not_ported("the NEWTON optimizer", "GLM solver options")
-        if has_l1:
-            raise not_ported(
-                f"{self.regularization.reg_type} regularization (OWL-QN)",
-                "GLM solver options",
-            )
-        if self.compute_variances:
-            raise not_ported("compute_variances", "Variances")
+            if has_l1:
+                raise ValueError("NEWTON supports L2 only (use OWL-QN for L1)")
+            if not loss_for_task(self.task).twice_differentiable:
+                raise ValueError(f"{self.task} is first-order only; use LBFGS")
+            if has_constraints:
+                raise ValueError(
+                    "NEWTON does not support box constraints; use LBFGS"
+                )
+            if self.normalization == NormalizationType.STANDARDIZATION:
+                raise ValueError(
+                    "NEWTON supports scale-only normalization (no whiten "
+                    "shifts); use SCALE_WITH_* or NONE"
+                )
 
     def solver_config(self) -> SolverConfig:
         return SolverConfig(
             max_iters=self.max_iters,
             tolerance=self.tolerance,
             num_corrections=self.num_corrections,
+            lower_bounds=self.lower_bounds,
+            upper_bounds=self.upper_bounds,
             track_states=self.track_states,
             track_models=self.track_models,
         )
@@ -152,32 +184,63 @@ class TrainedModel:
 
 def _solver_step_fn(config: GLMTrainingConfig):
     """``solve(w0, reg_weight, batch, norm) -> SolverResult``: the one
-    per-lambda solve."""
+    per-lambda solve. L1 and elastic net run OWL-QN whatever the optimizer
+    (``LBFGS.scala:56-66``); otherwise TRON, NEWTON or L-BFGS."""
     loss = loss_for_task(config.task)
     reg = config.regularization
     scfg = config.solver_config()
+    use_owlqn = reg.reg_type in ("L1", "ELASTIC_NET")
     use_tron = config.optimizer == OptimizerType.TRON
+    use_newton = config.optimizer == OptimizerType.NEWTON
 
     def solve(w0, reg_weight, batch: LabeledBatch, norm: NormalizationContext):
         obj = GLMObjective(
             loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0)
         )
+        cfg = scfg
+        if cfg.lower_bounds is not None or cfg.upper_bounds is not None:
+            # the bounds go to the solve's device and dtype once
+            cfg = dataclasses.replace(cfg, **{
+                name: None if b is None else b.to(w0)
+                for name, b in (("lower_bounds", cfg.lower_bounds),
+                                ("upper_bounds", cfg.upper_bounds))
+            })
 
         def vg(w):
             return obj.value_and_grad(w, batch)
 
+        if use_owlqn:
+            return minimize_owlqn(vg, w0, reg_weight * reg.l1_weight(1.0), cfg)
         if use_tron:
             return minimize_tron(
                 vg,
                 lambda w, v: obj.hessian_vector(w, v, batch),
                 w0,
-                scfg,
+                cfg,
                 hvp_at_fn=lambda c, v: obj.hessian_vector_at(c, v, batch),
                 vgc_fn=lambda w: obj.value_grad_curvature(w, batch),
             )
-        return minimize_lbfgs(vg, w0, scfg)
+        if use_newton:
+            return minimize_newton(vg, lambda w: obj.hessian_full(w, batch), w0, cfg)
+        return minimize_lbfgs(vg, w0, cfg)
 
     return solve
+
+
+def _variances_fn(config: GLMTrainingConfig):
+    """``variances(w, reg_weight, batch, norm)``: the per-coefficient
+    variance estimate 1 / diag(H) at ``reg_weight``'s L2, in the solve's
+    (normalized) space. ELL designs: one ``fused_hessian_diagonal``."""
+    loss = loss_for_task(config.task)
+    reg = config.regularization
+
+    def variances(w, reg_weight, batch: LabeledBatch, norm: NormalizationContext):
+        obj = GLMObjective(
+            loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0)
+        )
+        return 1.0 / torch.clamp(obj.hessian_diagonal(w, batch), min=_VARIANCE_EPSILON)
+
+    return variances
 
 
 def solve_dtype(batch: LabeledBatch) -> torch.dtype:
@@ -225,6 +288,7 @@ def train_glm(
         w = torch.zeros((d,), dtype=dtype, device=device)
 
     solve = _solver_step_fn(config)
+    variances = _variances_fn(config) if config.compute_variances else None
     by_lambda = {}
     for lam in sorted(config.reg_weights, reverse=True):
         t0 = time.perf_counter()
@@ -240,8 +304,9 @@ def train_glm(
                 for row in result.w_history
             ])
             result = dataclasses.replace(result, w_history=hist)
+        var = None if variances is None else variances(result.w, lam, batch, norm)
         coef = norm.transform_model_coefficients(
-            Coefficients(means=result.w), config.intercept_index
+            Coefficients(means=result.w, variances=var), config.intercept_index
         )
         model = GeneralizedLinearModel(coefficients=coef, task=config.task)
         by_lambda[lam] = TrainedModel(

@@ -1,7 +1,9 @@
-"""GLM objectives: value / gradient / curvature / Hessian-vector
-(counterpart of ``photon_ml_tpu/ops/objective.py``; the reference's
+"""GLM objectives: value / gradient / curvature / Hessian-vector /
+Hessian diagonal / full Hessian (counterpart of
+``photon_ml_tpu/ops/objective.py``; the reference's
 ``function/ValueAndGradientAggregator.scala``,
-``function/HessianVectorAggregator.scala`` and
+``function/HessianVectorAggregator.scala``,
+``function/TwiceDiffFunction.scala`` and
 ``function/GeneralizedLinearModelLossFunction.scala``).
 
     margins = X @ (w * factor) + margin_shift(w) + offsets          (n,)
@@ -9,9 +11,10 @@
     grad    = factor * (X^T @ a) - (shift*factor) * sum(a)          (d,)
 
 Features are never whitened in memory: normalization costs one rank-1
-correction. The Hessian-vector product uses the analytic second
-derivative the same way. L2 is folded into value/grad/HVP; L1 is kept as
-``l1_weight`` for OWL-QN, which is not ported yet.
+correction. The Hessian-vector product and the Hessian diagonal use the
+analytic second derivative the same way. L2 is folded into
+value/grad/HVP/diagonal; L1 is kept as ``l1_weight`` for the OWL-QN
+solver (``solvers.lbfgs.minimize_owlqn``), which handles it itself.
 
 Padded-ELL designs take the fused single-read passes
 (:mod:`photon_ml_tpu_torch.kernels.fused`) on every device — the CUDA
@@ -32,11 +35,12 @@ from photon_ml_tpu_torch.core.normalization import (
 )
 from photon_ml_tpu_torch.core.types import LabeledBatch
 from photon_ml_tpu_torch.kernels.fused import (
+    fused_hessian_diagonal,
     fused_hessian_vector,
     fused_value_grad_curvature,
 )
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
-from photon_ml_tpu_torch.ops.sparse import is_sparse, matvec, rmatvec
+from photon_ml_tpu_torch.ops.sparse import as_dense, colsum, is_sparse, matvec, rmatvec
 
 _REG_TYPES = ("NONE", "L1", "L2", "ELASTIC_NET")
 
@@ -197,6 +201,57 @@ class GLMObjective:
         if self._has_l2:
             hv = hv + self.l2_weight * v
         return hv
+
+    def hessian_diagonal(self, w: torch.Tensor, batch: LabeledBatch) -> torch.Tensor:
+        """diag(H) for coefficient variances (``TwiceDiffFunction.scala:179-394``,
+        used by ``OptimizationProblem.updateCoefficientsVariances``). ELL
+        designs: one ``fused_hessian_diagonal`` pass; dense designs: column
+        sums. Whitening shifts expand (x - s)^2 into
+        colsum(x^2 c) - 2 s colsum(x c) + s^2 sum(c)."""
+        norm = self.normalization
+        x = batch.features
+        if is_sparse(x):
+            d_x2, d_x, csum = fused_hessian_diagonal(
+                x.indices, x.values, batch.labels,
+                batch.offsets + norm.margin_shift(w), batch.effective_weights(),
+                norm.effective_coefficients(w), x.d, self.loss,
+            )
+        else:
+            c = self.hessian_coefficients(w, batch)
+            d_x2 = colsum(x, c, square=True)
+            if norm.shifts is not None:
+                d_x, csum = colsum(x, c), c.sum()
+        diag = d_x2
+        if norm.shifts is not None:
+            s = norm.shifts
+            diag = d_x2 - 2.0 * s * d_x + s * s * csum
+        if norm.factors is not None:
+            diag = diag * norm.factors**2
+        if self._has_l2:
+            diag = diag + self.l2_weight
+        return diag
+
+    def hessian_full(self, w: torch.Tensor, batch: LabeledBatch) -> torch.Tensor:
+        """The explicit (d, d) Hessian X'^T diag(c) X' + l2 I, for the exact
+        Newton solver at small d: dense designs with scale-only (or no)
+        normalization. A plain matrix product; no kernel of the port."""
+        norm = self.normalization
+        if norm.shifts is not None:
+            raise ValueError(
+                "hessian_full supports scale-only normalization (whiten "
+                "shifts change X densely; use hessian_vector instead)"
+            )
+        if is_sparse(batch.features):
+            raise ValueError("hessian_full requires dense features")
+        x = as_dense(batch.features)
+        c = self.hessian_coefficients(w, batch)
+        x = x.to(c.dtype)
+        h = x.T @ (c[:, None] * x)
+        if norm.factors is not None:
+            h = h * torch.outer(norm.factors, norm.factors)
+        if self._has_l2:
+            h = h + self.l2_weight * torch.eye(w.shape[-1], dtype=h.dtype, device=h.device)
+        return h
 
     # -- variations ------------------------------------------------------
 

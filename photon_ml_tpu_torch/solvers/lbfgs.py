@@ -1,11 +1,12 @@
-"""L-BFGS with the two-loop recursion in Gram form (counterpart of
-``photon_ml_tpu/solvers/lbfgs.py``; the reference's
-``optimization/LBFGS.scala:41-133`` over breeze's LBFGS).
+"""L-BFGS with the two-loop recursion in Gram form, and OWL-QN for L1
+objectives (counterpart of ``photon_ml_tpu/solvers/lbfgs.py``; the
+reference's ``optimization/LBFGS.scala:41-133`` over breeze's LBFGS and
+OWLQN).
 
 The limited-memory history is a ring buffer of (m, d) tensors whose
 fill count and head are host ints; the direction is the Gram-form two-loop
-recursion; the line search is :func:`strong_wolfe`. OWL-QN (the L1 /
-elastic-net path) is not ported yet.
+recursion; the line search is :func:`strong_wolfe` (L-BFGS) or the
+orthant-projected backtracking of Andrew & Gao 2007 (OWL-QN).
 
 Host reads per iteration: the loop test (the convergence reason), the
 curvature test of the history push, and one per line-search evaluation.
@@ -228,6 +229,134 @@ def minimize_lbfgs(
         w=w,
         value=value,
         grad=grad,
+        iterations=it,
+        reason=reason,
+        values=values,
+        grad_norms=grad_norms,
+        w_history=w_history if config.track_models else None,
+        evals=evals,
+        step_tape=step_tape,
+        eval_tape=eval_tape,
+    )
+
+
+# -- OWL-QN (Orthant-Wise Limited-memory Quasi-Newton), for L1 objectives -----
+
+
+def _pseudo_gradient(w: torch.Tensor, g: torch.Tensor, l1) -> torch.Tensor:
+    """Pseudo-gradient of f(w) + l1 ||w||_1 (Andrew & Gao 2007, eq. 4)."""
+    right = g + l1  # the derivative approaching w = 0 from the right
+    left = g - l1  # from the left
+    zero = torch.zeros_like(g)
+    pg_zero = torch.where(left > 0.0, left, torch.where(right < 0.0, right, zero))
+    return torch.where(w > 0.0, right, torch.where(w < 0.0, left, pg_zero))
+
+
+def minimize_owlqn(
+    value_and_grad_fn: ValueAndGrad,
+    w0: torch.Tensor,
+    l1_weight,
+    config: SolverConfig = SolverConfig(),
+) -> SolverResult:
+    """Minimize f(w) + l1 ||w||_1. ``value_and_grad_fn`` is the SMOOTH part
+    only; the L1 term goes through the pseudo-gradient and the orthant
+    projection, as breeze's OWLQN (selected when the objective carries an
+    ``L1RegularizationTerm``, ``optimization/LBFGS.scala:56-66``). History
+    pairs use smooth gradients; the line search is projected backtracking,
+    one host read per trial point. Box constraints are not applied, as in
+    the JAX package."""
+    m = config.num_corrections
+    l1 = float(l1_weight)
+
+    w = w0
+    value, grad = value_and_grad_fn(w)
+    full = value + l1 * w.abs().sum()
+    pgnorm0 = torch.linalg.norm(_pseudo_gradient(w, grad, l1))
+    values, grad_norms = tracker_buffers(config.max_iters, value, config.track_states)
+    record(values, 0, full)
+    record(grad_norms, 0, pgnorm0)
+    w_history = model_buffer(config.max_iters, w, config.track_models)
+    step_tape = tape_buffer(config.max_iters, value, config.track_states)
+    eval_tape = tape_buffer(config.max_iters, value, config.track_states)
+    record(step_tape, 0, 0.0)
+    record(eval_tape, 0, 1.0)
+
+    hist = _empty_history(m, w)
+    value_initial, grad_norm_initial = full, pgnorm0
+    evals = 1
+    it = 0
+    reason = int(
+        ConvergenceReason.GRADIENT_CONVERGED
+        if host_read(pgnorm0 == 0.0)
+        else ConvergenceReason.NOT_CONVERGED
+    )
+    while reason == ConvergenceReason.NOT_CONVERGED:
+        pg = _pseudo_gradient(w, grad, l1)
+        direction = -_two_loop(hist, pg)
+        # sign alignment: drop components that disagree with -pg; fall back
+        # to steepest pseudo-descent when that leaves nothing
+        direction = torch.where(direction * pg < 0.0, direction, torch.zeros_like(direction))
+        degenerate = torch.dot(direction, direction) == 0.0
+        direction = torch.where(degenerate, -pg, direction)
+        # the orthant of the projected step: sign(w), or sign(-pg) at w = 0
+        xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
+
+        def trial(alpha, w=w, direction=direction, xi=xi, pg=pg, full=full):
+            wt = w + alpha * direction
+            wt = torch.where(wt * xi > 0.0, wt, torch.zeros_like(wt))
+            vt, gt = value_and_grad_fn(wt)
+            ft = vt + l1 * wt.abs().sum()
+            accepted = host_read(ft <= full + config.ls_c1 * torch.dot(pg, wt - w))
+            return wt, vt, ft, gt, accepted
+
+        if hist.count == 0:
+            alpha = 1.0 / torch.clamp(torch.linalg.norm(direction), min=1e-30)
+        else:
+            alpha = torch.ones((), dtype=value.dtype, device=value.device)
+        # backtracking with the Armijo-like acceptance of Andrew & Gao:
+        # F(w') <= F(w) + c1 pg . (w' - w)
+        w_new, v_new, f_new, g_new, ls_ok = trial(alpha)
+        ls_evals = 1
+        if not ls_ok:
+            alpha = alpha * 0.5
+        while not ls_ok and ls_evals < config.ls_max_evals:
+            w_new, v_new, f_new, g_new, ls_ok = trial(alpha)
+            ls_evals += 1
+            if not ls_ok:
+                alpha = alpha * 0.5
+        if not ls_ok:
+            # an exhausted line search keeps the previous iterate: a rejected
+            # trial point is never committed
+            w_new, v_new, f_new, g_new = w, value, full, grad
+        hist = _push_history(hist, w_new - w, g_new - grad)
+
+        it += 1
+        pgnorm = torch.linalg.norm(_pseudo_gradient(w_new, g_new, l1))
+        code = check_convergence(
+            full, f_new, pgnorm, value_initial, grad_norm_initial, it,
+            config.max_iters, config.tolerance,
+        )
+        if not ls_ok:
+            code = torch.where(
+                (code != ConvergenceReason.GRADIENT_CONVERGED)
+                & (code != ConvergenceReason.MAX_ITERATIONS),
+                torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
+                code,
+            )
+        record(values, it, f_new)
+        record(grad_norms, it, pgnorm)
+        record(w_history, it, w_new)
+        # a dead line search commits no step: the tape says 0
+        record(step_tape, it, alpha if ls_ok else 0.0)
+        record(eval_tape, it, float(ls_evals))
+        w, value, full, grad = w_new, v_new, f_new, g_new
+        evals += ls_evals
+        reason = host_read(code)
+
+    return SolverResult(
+        w=w,
+        value=full,
+        grad=_pseudo_gradient(w, grad, l1),
         iterations=it,
         reason=reason,
         values=values,

@@ -30,3 +30,16 @@ def synchronize(device: Optional[torch.device]) -> None:
     """Wait for the device's queued work (no-op off CUDA)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_numpy(x, dtype=None):
+    """A tensor (on any device, bfloat16 widened to float64) or array-like
+    as a host numpy array."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float64)
+        x = x.numpy()
+    import numpy as np
+
+    return np.asarray(x, dtype)

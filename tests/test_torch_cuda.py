@@ -218,6 +218,75 @@ def test_fused_hvp_matches_plain_version(cuda, n, k, vdt, wdt, rtol):
     assert _within(usum, ref_usum, u_abs.sum(), rtol)
 
 
+from photon_ml_tpu_torch.kernels.fused import (  # noqa: E402
+    fused_hessian_diagonal,
+    fused_hessian_diagonal_reference,
+)
+
+
+@pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("n,k", SHAPES)
+def test_fused_hdiag_matches_plain_version(cuda, n, k, vdt, wdt, rtol, loss):
+    d = 3001
+    idx, val64 = _ell(n, k, d, cuda)
+    val = val64.to(vdt)
+    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda, seed=13)
+    before = dispatch.launch_counts()["fused_hdiag"]
+    got = fused_hessian_diagonal(idx, val, y, off, ew, w, d, loss)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["fused_hdiag"] == before + 1
+    ref = fused_hessian_diagonal_reference(idx, val, y, off, ew, w, d, loss)
+    cd = ref[0].dtype
+    assert all(t.dtype == cd for t in got)
+    assert got[0].shape == (d,) and got[1].shape == (d,) and got[2].shape == ()
+    # scales: each output's sum of |terms|, where c_i may move by the
+    # margin's rounding (|l'''| bounded as for fused_vgc's curvature)
+    v = val.to(cd)
+    z = ell_matvec_reference(idx, v, w, d) + off
+    row_abs = ell_matvec_reference(idx, v.abs().double(), w.abs().double(), d) + off.abs()
+    c_abs = (ew * loss.d2(z, y)).abs().double() + ew.double() * row_abs * 0.25
+    if loss is POISSON_LOSS:
+        c_abs = c_abs + (ew * loss.d2(z, y)).abs().double() * row_abs
+    if loss is SMOOTHED_HINGE_LOSS:  # its l'' is a step in the margin
+        c_abs = ew.double().abs()
+    scale2 = ell_scatter_add_reference(idx, (v.double() ** 2) * c_abs[:, None], d)
+    scale1 = ell_scatter_add_reference(idx, v.double().abs() * c_abs[:, None], d)
+    tol = max(rtol, 1e-10)
+    assert _within(got[0], ref[0], scale2, tol)
+    assert _within(got[1], ref[1], scale1, tol)
+    assert _within(got[2], ref[2], c_abs.sum(), tol)
+
+
+def test_fused_hdiag_squares_each_duplicate_slot(cuda):
+    # two slots of one row on one column: v^2 per slot, as the JAX kernel
+    idx = torch.tensor([[2, 2, 5]], dtype=torch.int32, device=cuda)
+    val = torch.tensor([[1.5, -0.5, 0.0]], dtype=torch.float64, device=cuda)
+    one = torch.ones(1, dtype=torch.float64, device=cuda)
+    w = torch.zeros(5, dtype=torch.float64, device=cuda)
+    dx2, dx, csum = fused_hessian_diagonal(idx, val, one, 0 * one, one, w, 5, SQUARED_LOSS)
+    assert dx2.tolist() == [0.0, 0.0, 2.5, 0.0, 0.0]
+    assert dx.tolist() == [0.0, 0.0, 1.0, 0.0, 0.0] and float(csum) == 1.0
+
+
+def test_fused_hdiag_scalar_is_run_to_run_stable_and_empty_launches_nothing(cuda):
+    d = 3001
+    idx, val = _ell(20011, 40, d, cuda)
+    y, off, ew, w = _fused_inputs(20011, 40, d, torch.float64, cuda)
+    first = fused_hessian_diagonal(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)[2]
+    for _ in range(3):
+        assert torch.equal(first, fused_hessian_diagonal(
+            idx, val, y, off, ew, w, d, LOGISTIC_LOSS)[2])
+    before = dispatch.launch_counts()["fused_hdiag"]
+    z = torch.zeros(0, dtype=torch.float64, device=cuda)
+    dx2, dx, csum = fused_hessian_diagonal(
+        torch.zeros((0, 4), dtype=torch.int32, device=cuda),
+        torch.zeros((0, 4), dtype=torch.float64, device=cuda), z, z, z,
+        torch.ones(9, dtype=torch.float64, device=cuda), 9, LOGISTIC_LOSS)
+    assert dispatch.launch_counts()["fused_hdiag"] == before
+    assert not dx2.any() and not dx.any() and float(csum) == 0.0
+
+
 def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     d = 100
     idx, val = _ell(64, 8, d, cuda)
@@ -230,3 +299,9 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fused_hessian_vector(idx, val, ew.cpu(), w, torch.tensor(0.0), d)
     with pytest.raises(TypeError, match="fused passes"):
         fused_value_grad_curvature(idx, val.float(), y, off, ew, w, d, LOGISTIC_LOSS)
+    with pytest.raises(TypeError, match="int32"):
+        fused_hessian_diagonal(idx.long(), val, y, off, ew, w, d, LOGISTIC_LOSS)
+    with pytest.raises(ValueError, match=r"\(64,\)"):
+        fused_hessian_diagonal(idx, val, y[:10], off, ew, w, d, LOGISTIC_LOSS)
+    with pytest.raises(ValueError, match="more than one device"):
+        fused_hessian_diagonal(idx, val, y, off, ew.cpu(), w, d, LOGISTIC_LOSS)

@@ -1,13 +1,16 @@
 """The slice as a whole: GLM training through the JAX package's
 ``run_glm_training`` and the port's (on the CPU, ``device="cpu"``), on the
 same Avro fixture: sparse and dense, TRON and L-BFGS, two lambdas with
-validation, with and without normalization.
+validation, with and without normalization; then every solver option of
+the driver — coefficient variances, L1 and elastic net (OWL-QN), NEWTON,
+``constraint_file`` box constraints — and the diagnostics report.
 
 Tolerances (float64): the same iteration count, convergence reason and
-CG iterations per lambda, exactly; coefficients within
-1e-8 x max(1, ||w||_inf); validation metrics within 1e-8; the same best
+CG iterations per lambda, exactly; coefficients and variances within
+1e-8 x max(1, ||.||_inf); validation metrics within 1e-8; the same best
 index; feature-summary.tsv values within rtol 1e-12. A model written by
-either package loads in the other.
+either package loads in the other; the diagnostic reports are the same
+HTML once the output directories are named alike.
 """
 
 import json
@@ -216,10 +219,9 @@ def test_default_device_is_cuda_and_raises_without_a_card(fixture):
 
 UNPORTED = [(name, value) for name, value in (
     ("out_of_core", True), ("streamed_ingest", True), ("mesh_shape", {"data": 2}),
-    ("hot_columns", -1), ("constraint_file", "bounds.json"), ("compute_variances", True),
-    ("diagnostics", True), ("quality_fingerprint", True), ("trace_dir", "trace"),
+    ("hot_columns", -1), ("quality_fingerprint", True), ("trace_dir", "trace"),
     ("heartbeat_s", 1.0), ("convergence_report", True), ("profile", True),
-)] + [("reg_type", "L1"), ("reg_type", "ELASTIC_NET"), ("optimizer", "NEWTON")]
+)]
 
 
 @pytest.mark.parametrize("field,value", UNPORTED)
@@ -252,3 +254,125 @@ def test_model_text_writes_nonzeros_and_the_intercept(tmp_path):
     lines = path.read_text().splitlines()
     assert lines[0] == "b\tt\t2.5" and len(lines) == 2
     save_glm_model(str(tmp_path / "m.avro"), Coefficients(torch.tensor([0.0, 2.5, 0.0])), vocab)
+
+
+# -- the solver options and the diagnostics report ----------------------------
+
+CONSTRAINTS = [
+    {"name": "*", "term": "*", "lowerBound": -1.0, "upperBound": 1.0},
+    {"name": "f3", "term": "*", "lowerBound": 0.0},
+    {"name": "f4", "term": "t", "upperBound": 0.0},
+]
+
+OPTION_CASES = {
+    "tron_variances_diagnostics": dict(
+        optimizer="TRON", sparse=True, compute_variances=True, diagnostics=True,
+        training_diagnostics=True),
+    "owlqn_elastic_net_variances": dict(
+        optimizer="LBFGS", reg_type="ELASTIC_NET", sparse=True, compute_variances=True,
+        tolerance=1e-9),
+    "owlqn_l1_dense": dict(optimizer="LBFGS", reg_type="L1", sparse=False),
+    # one lambda and a tolerance the projected L-BFGS meets (ROADMAP queue C)
+    "lbfgs_constraint_file_variances": dict(
+        optimizer="LBFGS", sparse=True, compute_variances=True, reg_weights=[10.0],
+        tolerance=1e-5, constraint_file=True),
+    "newton_dense_scaled_variances": dict(
+        optimizer="NEWTON", sparse=False, normalization="SCALE_WITH_MAX_MAGNITUDE",
+        compute_variances=True, diagnostics=True),
+}
+
+
+def _load_models(out_dir, n_models, load, vocab_cls):
+    vocab = vocab_cls.load(os.path.join(out_dir, "feature-index.txt"))
+    names = sorted(os.listdir(os.path.join(out_dir, "models")))
+    avros = [n for n in names if n.endswith(".avro")]
+    assert len(avros) == n_models
+    return [load(os.path.join(out_dir, "models", n), vocab)[0] for n in avros]
+
+
+@pytest.mark.parametrize("case", list(OPTION_CASES))
+def test_solver_options_and_diagnostics_match_jax(fixture, monkeypatch, case):
+    from test_torch_diagnostics import _same_draws
+
+    _same_draws(monkeypatch)  # the bootstrap replicas see the same weights
+    kw = dict(OPTION_CASES[case])
+    if kw.pop("constraint_file", False):
+        path = fixture["tmp"] / "bounds.json"
+        path.write_text(json.dumps(CONSTRAINTS))
+        kw["constraint_file"] = str(path)
+    ref = jax_run({**_params(fixture, f"jax-{case}", **kw), "quality_fingerprint": False})
+    got = ttrain.run_glm_training(_params(fixture, f"port-{case}", **kw), device="cpu")
+    _assert_same_runs(got, ref)
+    for g, r in zip(got.models, ref.models):
+        gv, rv = g.model.coefficients.variances, r.model.coefficients.variances
+        if not kw.get("compute_variances"):
+            assert gv is None and rv is None
+            continue
+        rv = np.asarray(rv)
+        assert np.abs(gv.numpy() - rv).max() <= 1e-8 * max(1.0, np.abs(rv).max())
+    if "constraint_file" in kw:
+        w = got.models[0].model.coefficients.means.numpy()
+        assert np.all(np.abs(np.delete(w, got.vocab.intercept_index)) <= 1.0)
+        assert got.models[0].result.reason == int(ref.models[0].result.reason) != 1
+    if kw.get("reg_type") in ("L1", "ELASTIC_NET"):
+        for g, r in zip(got.models, ref.models):
+            assert np.array_equal(g.model.coefficients.means.numpy() == 0.0,
+                                  np.asarray(r.model.coefficients.means) == 0.0)
+
+    # the written models, means and variances, read back by the port
+    out_j, out_p = ref.params.output_dir, got.params.output_dir
+    n_models = len(got.models)
+    for gm, rm in zip(_load_models(out_p, n_models, load_glm_model, FeatureVocabulary),
+                      _load_models(out_j, n_models, load_glm_model, FeatureVocabulary)):
+        np.testing.assert_allclose(gm.means.numpy(), rm.means.numpy(), rtol=0, atol=1e-8)
+        assert (gm.variances is None) == (rm.variances is None)
+        if gm.variances is not None:
+            np.testing.assert_allclose(gm.variances.numpy(), rm.variances.numpy(),
+                                       rtol=1e-8, atol=0)
+
+    if kw.get("diagnostics"):
+        assert got.stages[-1] == DriverStage.DIAGNOSED and "diagnose" in got.timings
+        with open(os.path.join(out_j, "model-diagnostic.html"), encoding="utf-8") as a, \
+                open(os.path.join(out_p, "model-diagnostic.html"), encoding="utf-8") as b:
+            html_j, html_p = a.read(), b.read()
+        # the driver parameters table names each run's own output directory
+        assert html_p == html_j.replace(out_j, out_p)
+        assert "Hosmer&ndash;Lemeshow" in html_p and "Kendall tau" in html_p
+        if kw.get("training_diagnostics"):
+            assert "Bootstrap (15 replicas, 70% samples)" in html_p
+
+
+NEWLY_PORTED = [("constraint_file", "bounds.json"), ("compute_variances", True),
+                ("diagnostics", True), ("reg_type", "L1"), ("reg_type", "ELASTIC_NET"),
+                ("optimizer", "NEWTON")]
+
+
+@pytest.mark.parametrize("field,value", NEWLY_PORTED)
+def test_newly_ported_options_pass_validation(fixture, field, value):
+    params = GLMDriverParams(**{**_params(fixture, "unused"), field: value})
+    params.validate()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(training_diagnostics=True), "requires diagnostics"),
+    (dict(diagnostics=True, validate_input=[]), "requires validate_input"),
+    (dict(optimizer="NEWTON", reg_type="L1"), "L2 only"),
+    (dict(optimizer="TRON", reg_type="ELASTIC_NET"), "TRON"),
+])
+def test_option_cross_checks_refuse_like_jax(fixture, kw, match):
+    from photon_ml_tpu.cli.config import GLMDriverParams as JParams
+
+    params = {**_params(fixture, "unused"), **kw}
+    with pytest.raises(ValueError, match=match):
+        GLMDriverParams(**params).validate()
+    with pytest.raises(ValueError, match=match):
+        JParams(**params).validate()
+
+
+def test_constraints_with_normalization_are_refused(fixture, tmp_path):
+    path = tmp_path / "b.json"
+    path.write_text(json.dumps(CONSTRAINTS))
+    params = _params(fixture, "port-constrained-norm", constraint_file=str(path),
+                     normalization="SCALE_WITH_STANDARD_DEVIATION")
+    with pytest.raises(ValueError, match="normalization"):
+        ttrain.run_glm_training(params, device="cpu")
