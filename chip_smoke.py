@@ -18,7 +18,9 @@ whenever any phase fails. Phases, in order:
    shape — ``ell_scatter_add`` (f64, f32 updates; yardstick
    ``index_add_``), ``fused_vgc`` (logistic loss), ``fused_hvp`` and
    ``fused_hdiag`` (logistic loss) in the three dtype pairs — with times
-   against the HBM bound;
+   against the HBM bound; then ``ell_scatter_add`` again on the same
+   design with 14 columns named by every row (the Criteo layout's hot
+   columns);
 5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
@@ -32,8 +34,9 @@ whenever any phase fails. Phases, in order:
    before and read just after; the launch counts held to the solver's
    iteration and CG counts; coefficients and held-out AUC held to
    ``train_glm`` on the same batch on the CPU; phase seconds and host
-   syncs per iteration; the kernels timed at the shape the driver gave
-   them; then the same run under ``torch.profiler``;
+   syncs per iteration; every kernel (``ell_matvec`` with ``torch.mv`` on
+   CSR beside it) checked and timed at the shape the driver gave them;
+   then the same run under ``torch.profiler``;
 7. full trainer: on the same records, each run with the counters set to 0
    just before and read just after, and each held to the same training on
    the CPU (the same convergence reason; coefficients within 1e-6 max(1,
@@ -217,56 +220,96 @@ def check_kernel(idx, vals64, d, vdt, wdt, rtol, w64):
     return vals, w, got, float(err.max()), ok
 
 
-def kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
-    peaks = peaks_for(name)
-    idx, vals64 = make_ell(n, k, d, "cuda")
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    w64 = torch.randn(d, generator=g, device="cuda", dtype=torch.float64)
-    valid_slots = int((idx < d).sum())
+def device_ms(fn, runs: int = 20, spin_cycles: int = 200_000_000):
+    """Device time per call of ``fn``, calls back to back: the card first
+    spins (``torch.cuda._sleep``, about 0.1 s) while the host queues
+    ``runs`` calls, so the events around them time the card's work alone.
+    ``time_ms``'s events around one call also count the host's time to
+    launch it, which sets the pace of a short call. Raises if the host took
+    longer to queue the calls than the card spun."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    torch.cuda._sleep(spin_cycles)
+    events[1].record()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    events[2].record()
+    events[2].synchronize()
+    if queued_ms >= events[0].elapsed_time(events[1]):
+        raise AssertionError(f"device_ms: queueing {runs} calls took {queued_ms:.1f} ms, "
+                             "longer than the card's spin")
+    return events[1].elapsed_time(events[2]) / runs
+
+
+def timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, peaks,
+                 shape, label, lib_fn=None, lib_name="index_add_"):
+    """Time ``fn``, its plain version and the library call (if any), and
+    return the kernel's record against its bound, with the device time
+    per call of the kernel and the library call beside."""
+    kernel_ms = time_ms(fn)
+    plain_ms = time_ms(plain_fn)
+    library_ms = None if lib_fn is None else time_ms(lib_fn)
+    kernel_device_ms = device_ms(fn)
+    library_device_ms = None if lib_fn is None else device_ms(lib_fn)
+    bound_ms, bound_by = bound(nbytes, ops, cd, peaks)
+    src, replaces = SOURCES[kernel]
+    lib = ("" if library_ms is None else
+           f", {lib_name} {library_ms:.4f} ms (device {library_device_ms:.4f} ms)")
+    log(f"[{label}] {kernel} {dtype_label}: kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_device_ms:.4f} ms), plain {plain_ms:.4f} ms{lib}, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| {max_err:.3e}")
+    return {
+        "name": kernel, "dtype": dtype_label, "route": "cuda", "source": src,
+        "replaces": replaces, "shape": shape, "max_abs_err": max_err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "device_ms": kernel_device_ms,
+        "library_device_ms": library_device_ms, "bytes": nbytes, "ops": ops,
+    }
+
+
+def matvec_checks(idx, vals64, d, w64, peaks, label="kernel"):
+    """Check and time ell_matvec on one design in the three type pairs,
+    against its plain version and ``torch.mv`` on a CSR tensor of the same
+    matrix. Returns one record per type pair."""
+    n, k = idx.shape
+    valid_slots = int(((idx >= 0) & (idx < d)).sum())
     results = []
-    for label, vdt, wdt, rtol in DTYPE_CASES:
+    for dtype_label, vdt, wdt, rtol in DTYPE_CASES:
         vals, w, got, max_err, ok = check_kernel(idx, vals64, d, vdt, wdt, rtol, w64)
-        log(f"[kernel] ell_matvec {label}: max |kernel - plain| = {max_err:.3e} "
+        log(f"[{label}] ell_matvec {dtype_label}: max |kernel - plain| = {max_err:.3e} "
             f"(rtol {rtol:g} x row sum of |v w|): {'ok' if ok else 'DISAGREES'}")
         if not ok:
-            raise AssertionError(f"ell_matvec {label} disagrees with its plain version")
+            raise AssertionError(f"ell_matvec {dtype_label} disagrees with its plain version")
         # library yardstick: torch.mv on CSR (bf16 values upcast to f32 once,
         # outside the timing: the sparse product takes one dtype)
         csr = csr_of(idx, vals.to(got.dtype), d)
-        lib_out = torch.mv(csr, w.to(got.dtype))
-        lib_err = float((lib_out.double() - got.double()).abs().max())
-        kernel_ms = time_ms(lambda: ell_matvec(idx, vals, w, d))
-        plain_ms = time_ms(lambda: ell_matvec_reference(idx, vals, w, d))
-        library_ms = time_ms(lambda: torch.mv(csr, w.to(got.dtype)))
-        del csr, lib_out
-        nbytes = (n * k * (4 + vals.element_size()) + d * w.element_size()
-                  + n * got.element_size())
-        ops = 2 * valid_slots
-        bytes_ms = nbytes / peaks["hbm"] * 1e3
-        ops_ms = ops / peaks["f64" if got.dtype == torch.float64 else "f32"] * 1e3
-        results.append({
-            "name": "ell_matvec",
-            "dtype": label,
-            "route": "cuda",
-            "source": "photon_ml_tpu_torch/kernels/csrc/ell_matvec.cu",
-            "replaces": "photon_ml_tpu/kernels/ell.py:115",
-            "shape": {"n": n, "k": k, "d": d},
-            "max_abs_err": max_err,
-            "library_max_abs_diff": lib_err,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms,
-            "bytes": nbytes,
-            "ops": ops,
-        })
-        log(f"[kernel] ell_matvec {label}: kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.mv(CSR) {library_ms:.4f} ms, bound "
-            f"{max(bytes_ms, ops_ms):.4f} ms")
-        del vals, w, got
+        w_lib = w.to(got.dtype)
+        lib_err = float((torch.mv(csr, w_lib).double() - got.double()).abs().max())
+        rec = timed_record(
+            "ell_matvec", dtype_label, got.dtype, max_err,
+            lambda: ell_matvec(idx, vals, w, d),
+            lambda: ell_matvec_reference(idx, vals, w, d),
+            n * k * (4 + vals.element_size()) + d * w.element_size() + n * got.element_size(),
+            2 * valid_slots, peaks, {"n": n, "k": k, "d": d}, label,
+            lambda: torch.mv(csr, w_lib), "torch.mv(CSR)",
+        )
+        rec["library_max_abs_diff"] = lib_err
+        results.append(rec)
+        del vals, w, got, csr, w_lib
         torch.cuda.empty_cache()
-    del idx, vals64
+    return results
+
+
+def kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
+    idx, vals64 = make_ell(n, k, d, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    w64 = torch.randn(d, generator=g, device="cuda", dtype=torch.float64)
+    results = matvec_checks(idx, vals64, d, w64, peaks_for(name))
+    del idx, vals64, w64
     torch.cuda.empty_cache()
     return results
 
@@ -292,6 +335,9 @@ SOURCES = {
     "fused_hdiag": ("photon_ml_tpu_torch/kernels/csrc/fused.cu",
                     "photon_ml_tpu/kernels/fused.py:245"),
 }
+# columns named by every row in the hot-column scatter case: the Criteo
+# layout's intercept and 13 integer fields
+HOT_COLUMNS = INT_FIELDS + 1
 # operations per row of the loss terms (logistic: a few exp/log1p and
 # products), counted at 20; per valid slot: 2 for the margin, 2 for the
 # scatter (1 for ell_scatter_add)
@@ -323,8 +369,11 @@ def row_inputs(n, d, cd, device, seed=SEED + 3):
 
 
 def check_scatter(idx, upd, d, rtol):
+    """The kernel against its plain version summed in f64 from the same
+    updates: in f32 the plain version's own atomics (65,536 adds into each
+    hot column at the driver's shape) are off by more than the tolerance."""
     got = ell_scatter_add(idx, upd, d)
-    ref = ell_scatter_add_reference(idx, upd, d)
+    ref = ell_scatter_add_reference(idx, upd.double(), d)
     col_abs = ell_scatter_add_reference(idx, upd.abs().double(), d)
     return within(got, ref, col_abs, rtol)
 
@@ -385,34 +434,13 @@ def check_hdiag(idx, vals, y, off, ew, w, d, rtol):
     return max(e for e, _ in errs), all(ok for _, ok in errs) and finite
 
 
-def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
-    """Check and time ell_scatter_add, fused_vgc, fused_hvp and
-    fused_hdiag on one design (every dtype each takes), against their
-    plain versions and, for ell_scatter_add, ``index_add_``. Returns one
-    record per (kernel, dtype)."""
+def scatter_checks(idx, vals64, d, peaks, label="kernel"):
+    """Check and time ell_scatter_add on one design (f64 and f32 updates)
+    against its plain version and ``index_add_``. One record per dtype."""
     n, k = idx.shape
-    valid = int((idx < d).sum())
+    valid = int(((idx >= 0) & (idx < d)).sum())
+    flat_ids = torch.where((idx >= 0) & (idx < d), idx, d).reshape(-1).long()
     results = []
-
-    def record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, lib_fn=None):
-        kernel_ms = time_ms(fn)
-        plain_ms = time_ms(plain_fn)
-        library_ms = None if lib_fn is None else time_ms(lib_fn)
-        bound_ms, bound_by = bound(nbytes, ops, cd, peaks)
-        src, replaces = SOURCES[kernel]
-        results.append({
-            "name": kernel, "dtype": dtype_label, "route": "cuda", "source": src,
-            "replaces": replaces, "shape": {"n": n, "k": k, "d": d},
-            "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "bytes": nbytes, "ops": ops,
-        })
-        lib = "" if library_ms is None else f", index_add_ {library_ms:.4f} ms"
-        log(f"[{label}] {kernel} {dtype_label}: kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by}); "
-            f"max |kernel - plain| {max_err:.3e}")
-
-    flat_ids = torch.where(idx < d, idx, d).reshape(-1).long()
     for dtype_label, dt, rtol in SCATTER_CASES:
         upd = vals64.to(dt)
         max_err, ok = check_scatter(idx, upd, d, rtol)
@@ -420,20 +448,36 @@ def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
             f"{max_err:.3e} (rtol {rtol:g} x column sum of |upd|): "
             f"{'ok' if ok else 'DISAGREES'}")
         if not ok:
-            raise AssertionError(f"ell_scatter_add {dtype_label} disagrees with its plain version")
+            raise AssertionError(f"ell_scatter_add {dtype_label} ({label}) disagrees with "
+                                 f"its plain version")
         flat_upd = upd.reshape(-1)
         s = upd.element_size()
-        record(
+        results.append(timed_record(
             "ell_scatter_add", dtype_label, dt, max_err,
             lambda: ell_scatter_add(idx, upd, d),
             lambda: ell_scatter_add_reference(idx, upd, d),
-            n * k * (4 + s) + d * s, valid,
+            n * k * (4 + s) + d * s, valid, peaks, {"n": n, "k": k, "d": d}, label,
             lambda: torch.zeros(d + 1, dtype=dt, device=idx.device).index_add_(
                 0, flat_ids, flat_upd),
-        )
+        ))
         del upd, flat_upd
     del flat_ids
     torch.cuda.empty_cache()
+    return results
+
+
+def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
+    """Check and time ell_scatter_add, fused_vgc, fused_hvp and
+    fused_hdiag on one design (every dtype each takes), against their
+    plain versions and, for ell_scatter_add, ``index_add_``. Returns one
+    record per (kernel, dtype)."""
+    n, k = idx.shape
+    valid = int((idx < d).sum())
+    results = scatter_checks(idx, vals64, d, peaks, label)
+
+    def record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops):
+        results.append(timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn,
+                                    nbytes, ops, peaks, {"n": n, "k": k, "d": d}, label))
 
     for dtype_label, vdt, cd, rtol in FUSED_CASES:
         vals = vals64.to(vdt)
@@ -479,11 +523,19 @@ def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
 
 
 def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
+    """The training kernels on the uniform design, then ell_scatter_add on
+    the same design with HOT_COLUMNS columns named by every row. Returns
+    (uniform records, hot-column records)."""
     idx, vals64 = make_ell(n, k, d, "cuda")
-    results = training_kernels(name, idx, vals64, d, peaks_for(name))
+    peaks = peaks_for(name)
+    results = training_kernels(name, idx, vals64, d, peaks)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    idx[:, :HOT_COLUMNS] = torch.randperm(d, generator=g, device="cuda")[:HOT_COLUMNS].to(
+        torch.int32)
+    hot = scatter_checks(idx, vals64, d, peaks, label="kernel-hot")
     del idx, vals64
     torch.cuda.empty_cache()
-    return results
+    return results, hot
 
 
 # -- phase 5: the scoring driver end to end ----------------------------------
@@ -809,9 +861,13 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     if not device_kw:
         batch_card = batch_from(*sets["train"][1:], d, run.device)
         x = batch_card.features
-        shape_checks = training_kernels(name, x.indices, x.values, d, peaks_for(name),
-                                        label="train-shape")
-        del batch_card, x
+        peaks = peaks_for(name)
+        g = torch.Generator(device=run.device).manual_seed(SEED + 1)
+        w64 = torch.randn(d, generator=g, device=run.device, dtype=torch.float64)
+        shape_checks = (matvec_checks(x.indices, x.values, d, w64, peaks, label="train-shape")
+                        + training_kernels(name, x.indices, x.values, d, peaks,
+                                           label="train-shape"))
+        del batch_card, x, w64
         torch.cuda.empty_cache()
     activities = [torch.profiler.ProfilerActivity.CPU]
     if not device_kw:
@@ -1112,9 +1168,11 @@ def main() -> int:
     checks = kernel_phase(name)
     log(json.dumps({"ell_matvec_checks": checks}))
 
-    # 4. the training kernels against their plain versions
-    train_checks = training_kernel_phase(name)
+    # 4. the training kernels against their plain versions, and the scatter
+    # with hot columns
+    train_checks, hot_checks = training_kernel_phase(name)
     log(json.dumps({"training_kernel_checks": train_checks}))
+    log(json.dumps({"hot_column_scatter_checks": hot_checks}))
 
     # 5. GLM scoring end to end
     work = os.path.join(ROOT, "_smoke_work")
@@ -1134,11 +1192,14 @@ def main() -> int:
     log(json.dumps({"full_trainer": full_summary}))
 
     # 8. result lines: each kernel at the kernel-phase shape in the main
-    # path's dtype (f64), its time at the training driver's shape, and its
-    # launches on its main path — the training run, and for fused_hdiag the
-    # full trainer's run A (per path: scoring, training, run A)
+    # path's dtype (f64), its time at the training driver's shape (and
+    # ell_scatter_add's with hot columns), and its launches on its main
+    # path — the training run, and for fused_hdiag the full trainer's run A
+    # (per path: scoring, training, run A)
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+                  "library_device_ms", "max_abs_err")
     kernels = []
     for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp", "fused_hdiag"):
         main_path = next(c for c in checks + train_checks
@@ -1152,10 +1213,14 @@ def main() -> int:
             "launches_by_path": {"score": summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel]},
+            "device_ms": main_path["device_ms"],
+            "library_device_ms": main_path["library_device_ms"],
             "train_shape": None if at_shape is None else {
-                k: at_shape[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                         "library_ms", "max_abs_err")},
+                k: at_shape[k] for k in shape_keys},
         })
+        if kernel == "ell_scatter_add":
+            hot = next(c for c in hot_checks if c["dtype"] == "f64")
+            kernels[-1]["hot_columns"] = {k: hot[k] for k in shape_keys}
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({

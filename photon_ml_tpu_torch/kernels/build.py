@@ -2,8 +2,9 @@
 
 Each source under ``kernels/csrc`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
-``ctypes``. The library's name carries a hash of its source, so an edited
-source builds anew and an unchanged one is built once per checkout. The
+``ctypes``. The library's name carries a hash of its source and of the
+headers under ``csrc`` (``*.cuh``), so an edited source or header builds
+anew and an unchanged one is built once per checkout. The
 output goes to ``kernels/_build/`` (listed in ``.gitignore``). ``build``
 starts one ``nvcc`` per missing library, all at once, and raises if any
 fails. Nothing here runs at import: the CPU tests import every module of
@@ -54,9 +55,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """``_build/lib<name>-<source hash>.so``."""
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """``_build/lib<name>-<hash>.so``, the hash over the library's source,
+    every header under ``csrc/`` (any source may include any of them) and
+    the compiler flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(source.encode() + b"\0" + f.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -13,69 +13,122 @@
 // Bound on Hopper: HBM bytes. The design is read once,
 // n*k*(4 + itemsize(values)) bytes, against 2 FLOPs per slot. At
 // d = 2^20 f64 the w table (8 MiB) stays in the 50 MB L2, so the gathers
-// are L2 hits and only the streamed (indices, values) go to HBM.
+// are L2 hits and only the streamed (indices, values) go to HBM. What set
+// the pace of a warp-per-row kernel was latency: at k = 40 a warp took
+// slots 0-31 and then 32-39 on 8 lanes, each step an id load and then a
+// gather that waits on it, with little in flight per warp.
 //
-// Design (a simple, correct first version): GROUP lanes own one row, with
-// GROUP the smallest power of two >= k, at most 32 — one warp per row for
-// k > 16, 32/GROUP rows per warp below. Lanes stride over the row's slots,
-// so the loads of indices and values along the row are coalesced, each
-// lane gathers its w[c], and a __shfl_xor_sync butterfly within the group
-// finishes the row. Row offsets are 64-bit (n*k passes 2^31 at depth).
-// Nothing is staged in shared memory and nothing is allocated here; the
-// launch goes on the caller's stream and does not synchronise. Each entry
-// point returns cudaGetLastError() so the caller can raise on a refused
-// launch. Left for later: 16-byte vector loads, cp.async staging and an L2
-// persistence window for w.
+// Design: each block takes a tile of whole rows, a contiguous span of the
+// design, cut into granules of GS slots (GS = 4 when k % 4 == 0 and the
+// bases are aligned, so a granule never crosses a row; else GS = 1). Each
+// thread first issues all the loads of its U granules, 16-byte ids and
+// 32, 16 or 8 bytes of values per granule under the streaming hint (each
+// warp on one contiguous span, so every lane works whatever k is), then all
+// their gathers of w through the read-only path, then the products: one
+// partial per granule, in slot order, into shared memory. After a barrier
+// one thread per row adds its row's partials in granule order and the
+// block writes its rows, once each, with no atomics. The order of every
+// sum is fixed, so the result has the same bits from run to run. A row
+// longer than a tile's granule budget spans several rounds, each added to
+// the row's running sum in order. Offsets are 64-bit (n*k passes 2^31 at
+// depth). Nothing is allocated here; the launch goes on the caller's
+// stream and does not synchronise. Each entry point returns
+// cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ell_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ double to_acc(double v) { return v; }
-__device__ __forceinline__ float to_acc(float v) { return v; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+// granules per thread per round: fewer when a granule is 4 slots
+template <int GS>
+constexpr int kUnroll = GS == 1 ? 8 : 4;
 
-template <typename V, typename W, typename Acc, int GROUP>
+template <typename V, typename W, typename Acc, int GS>
 __global__ void __launch_bounds__(kThreads)
 ell_matvec_kernel(const int32_t* __restrict__ indices,
                   const V* __restrict__ values,
                   const W* __restrict__ w,
                   Acc* __restrict__ out,
-                  long long n, int k, int d) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long row = t / GROUP;
-  const int lane = (int)(t % GROUP);
-  Acc acc = Acc(0);
-  if (row < n) {
-    const long long base = row * (long long)k;
-    for (int s = lane; s < k; s += GROUP) {
-      const int32_t c = indices[base + s];
-      const Acc wc = ((unsigned)c < (unsigned)d) ? Acc(w[c]) : Acc(0);
-      acc += to_acc(values[base + s]) * wc;
-    }
+                  long long n, int k, int d, int rows_per_tile) {
+  constexpr int U = kUnroll<GS>;
+  constexpr int kRound = kThreads * U;  // granules per round
+  __shared__ Acc part[kRound];
+  __shared__ Acc row_acc[kRound];       // rows_per_tile <= kRound
+  const int kg = k / GS;                // granules per row
+  const long long r0 = (long long)blockIdx.x * rows_per_tile;
+  const int rows = (int)min((long long)rows_per_tile, n - r0);
+  const long long granules = (long long)rows * kg;
+  const int32_t* tile_ids = indices + r0 * k;
+  const V* tile_vals = values + r0 * k;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    row_acc[r] = Acc(0);
   }
-  // every lane of the warp takes part in the butterfly (full mask); the
-  // xor partners of a group stay inside the group
+  for (long long g0 = 0; g0 < granules; g0 += kRound) {
+    int32_t c[U][GS];
+    Acc v[U][GS];
 #pragma unroll
-  for (int off = GROUP / 2; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    for (int j = 0; j < U; ++j) {
+      const long long g = g0 + j * kThreads + threadIdx.x;
+      if (g < granules) {
+        photon::load_cs<GS>(tile_ids + g * GS, c[j]);
+        photon::load_cs<GS>(tile_vals + g * GS, v[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < GS; ++e) {
+          c[j][e] = -1;
+          v[j][e] = Acc(0);
+        }
+      }
+    }
+    Acc wc[U][GS];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+#pragma unroll
+      for (int e = 0; e < GS; ++e) {
+        wc[j][e] = (unsigned)c[j][e] < (unsigned)d ? Acc(__ldg(w + c[j][e])) : Acc(0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      Acc s = v[j][0] * wc[j][0];
+#pragma unroll
+      for (int e = 1; e < GS; ++e) {
+        s += v[j][e] * wc[j][e];
+      }
+      part[j * kThreads + threadIdx.x] = s;
+    }
+    __syncthreads();
+    // each row meeting this round adds its granules of it, in order
+    const long long g_end = min(g0 + kRound, granules);
+    const int r_first = (int)(g0 / kg);
+    const int r_last = (int)((g_end - 1) / kg);
+    for (int r = r_first + threadIdx.x; r <= r_last; r += kThreads) {
+      const long long lo = max((long long)r * kg, g0);
+      const long long hi = min((long long)(r + 1) * kg, g_end);
+      Acc s = row_acc[r];
+      for (long long g = lo; g < hi; ++g) {
+        s += part[g - g0];
+      }
+      row_acc[r] = s;
+    }
+    __syncthreads();
   }
-  if (row < n && lane == 0) {
-    out[row] = acc;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    out[r0 + r] = row_acc[r];
   }
 }
 
-template <typename V, typename W, typename Acc, int GROUP>
-void launch_group(const int32_t* indices, const V* values, const W* w,
-                  Acc* out, long long n, int k, int d, cudaStream_t stream) {
-  const long long threads = n * GROUP;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  ell_matvec_kernel<V, W, Acc, GROUP>
-      <<<(unsigned)blocks, kThreads, 0, stream>>>(indices, values, w, out, n, k, d);
+template <typename V, typename W, typename Acc, int GS>
+void launch_tiles(const int32_t* indices, const V* values, const W* w, Acc* out,
+                  long long n, int k, int d, cudaStream_t stream) {
+  constexpr int kRound = kThreads * kUnroll<GS>;
+  const int kg = k / GS;
+  const int rows_per_tile = kg == 0 ? kRound : (kg >= kRound ? 1 : kRound / kg);
+  const long long blocks = (n + rows_per_tile - 1) / rows_per_tile;
+  ell_matvec_kernel<V, W, Acc, GS><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      indices, values, w, out, n, k, d, rows_per_tile);
 }
 
 template <typename V, typename W, typename Acc>
@@ -86,18 +139,12 @@ int launch(const void* indices, const void* values, const void* w, void* out,
   const W* ww = static_cast<const W*>(w);
   Acc* o = static_cast<Acc*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 1) {
-    launch_group<V, W, Acc, 1>(ix, v, ww, o, n, k, d, s);
-  } else if (k <= 2) {
-    launch_group<V, W, Acc, 2>(ix, v, ww, o, n, k, d, s);
-  } else if (k <= 4) {
-    launch_group<V, W, Acc, 4>(ix, v, ww, o, n, k, d, s);
-  } else if (k <= 8) {
-    launch_group<V, W, Acc, 8>(ix, v, ww, o, n, k, d, s);
-  } else if (k <= 16) {
-    launch_group<V, W, Acc, 16>(ix, v, ww, o, n, k, d, s);
+  // a 4-slot granule of values is 32, 16 or 8 bytes: aligned to 16 or 8
+  constexpr unsigned kValueAlign = 4 * sizeof(V) < 16 ? 4 * sizeof(V) : 16;
+  if (k % 4 == 0 && photon::aligned(ix, 16) && photon::aligned(v, kValueAlign)) {
+    launch_tiles<V, W, Acc, 4>(ix, v, ww, o, n, k, d, s);
   } else {
-    launch_group<V, W, Acc, 32>(ix, v, ww, o, n, k, d, s);
+    launch_tiles<V, W, Acc, 1>(ix, v, ww, o, n, k, d, s);
   }
   return (int)cudaGetLastError();
 }

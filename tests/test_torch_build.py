@@ -1,0 +1,73 @@
+"""The port's kernel build keys each library by its source, every header
+under ``csrc/`` and the compiler flags, so an edited header builds anew.
+These tests only hash files: they need no ``nvcc`` and no card."""
+
+import os
+import shutil
+
+import pytest
+
+from photon_ml_tpu_torch.kernels import build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A copy of ``kernels/csrc`` that the build reads instead."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, copy)
+    monkeypatch.setattr(build, "CSRC_DIR", str(copy))
+    return copy
+
+
+def _paths():
+    return {name: build.library_path(name) for name in build.SOURCES}
+
+
+def _append(path, text):
+    with open(path, "a") as f:
+        f.write(text)
+
+
+def test_every_source_and_header_is_in_the_tree():
+    names = set(os.listdir(build.CSRC_DIR))
+    assert set(build.SOURCES.values()) <= names
+    assert "ell_common.cuh" in names
+
+
+def test_unchanged_tree_gives_the_same_paths(csrc):
+    first = _paths()
+    assert _paths() == first
+    assert len(set(first.values())) == len(build.SOURCES)
+    for name, path in first.items():
+        assert os.path.dirname(path) == build.BUILD_DIR
+        assert os.path.basename(path).startswith(f"lib{name}-") and path.endswith(".so")
+
+
+@pytest.mark.parametrize("name", sorted(build.SOURCES))
+def test_header_edit_changes_the_library_path(csrc, name):
+    before = build.library_path(name)
+    _append(csrc / "ell_common.cuh", "\n// edited\n")
+    assert build.library_path(name) != before
+
+
+@pytest.mark.parametrize("name", sorted(build.SOURCES))
+def test_new_header_changes_the_library_path(csrc, name):
+    before = build.library_path(name)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build.library_path(name) != before
+
+
+def test_source_edit_changes_only_its_library(csrc):
+    before = _paths()
+    _append(csrc / build.SOURCES["ell_matvec"], "\n// edited\n")
+    after = _paths()
+    assert after["ell_matvec"] != before["ell_matvec"]
+    assert {n: p for n, p in after.items() if n != "ell_matvec"} == {
+        n: p for n, p in before.items() if n != "ell_matvec"}
+
+
+def test_flags_are_in_the_hash(csrc, monkeypatch):
+    before = _paths()
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
+    after = _paths()
+    assert all(after[n] != before[n] for n in build.SOURCES)

@@ -305,3 +305,119 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fused_hessian_diagonal(idx, val, y[:10], off, ew, w, d, LOGISTIC_LOSS)
     with pytest.raises(ValueError, match="more than one device"):
         fused_hessian_diagonal(idx, val, y, off, ew.cpu(), w, d, LOGISTIC_LOSS)
+
+
+# -- the tile combiner of ell_scatter_add and the granules of ell_matvec -------
+
+
+def _criteo_like(n, d, device, seed=17):
+    """The Criteo layout's hot pattern over d columns: 14 columns (13
+    integer fields and the intercept) named by every row, then 26
+    categorical fields with Zipf(1.2) categories hashed into [0, d)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hot = torch.randperm(d, generator=g)[:14]
+    u = torch.rand((n, 26), generator=g, dtype=torch.float64)
+    cats = torch.floor(u.pow(-1.0 / 0.2)).clamp(max=1e9).long()  # Pareto tail, Zipf-like
+    cat_cols = (cats * 2_654_435_761 + torch.arange(26) * 7919) % d
+    idx = torch.cat([hot.expand(n, 14), cat_cols], 1).to(torch.int32)
+    val = torch.randn((n, 40), generator=g, dtype=torch.float64)
+    return idx.to(device), val.to(device)
+
+
+def _one_column(n, k, d, device):
+    idx = torch.full((n, k), d // 2, dtype=torch.int32, device=device)
+    val = torch.randn((n, k), device=device, dtype=torch.float64)
+    return idx, val
+
+
+def _colliding(n, k, d, device):
+    """Distinct ids 65536 apart: every one falls on one slot of any table
+    of 65536 entries or fewer, so most take the direct atomic path."""
+    ids = (torch.arange(n * k, device=device) % 300) * 65536 + 7
+    idx = (ids % d).to(torch.int32).reshape(n, k)
+    val = torch.randn((n, k), device=device, dtype=torch.float64)
+    return idx, val
+
+
+def _out_of_range(n, k, d, device):
+    idx, val = _ell(n, k, d, device, seed=3)
+    idx[::2, 0] = -1
+    idx[1::4, 2] = -(2**31)
+    idx[2::4, 3] = d + 1
+    idx[3::4, 1] = 2**31 - 1
+    return idx, val
+
+
+def _misaligned(t):
+    """The same rows one slot further on in a larger buffer: contiguous,
+    but not aligned for vector loads."""
+    n, k = t.shape
+    flat = torch.empty(n * k + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(n, k)
+
+
+DESIGNS = {
+    "criteo_hot": lambda dev: (*_criteo_like(20011, 1 << 20, dev), 1 << 20),
+    "one_column": lambda dev: (*_one_column(5003, 40, 3001, dev), 3001),
+    "colliding": lambda dev: (*_colliding(6007, 40, 1 << 26, dev), 1 << 26),
+    "out_of_range": lambda dev: (*_out_of_range(4099, 40, 3001, dev), 3001),
+    "misaligned": lambda dev: (*(_misaligned(t) for t in _ell(4099, 40, 3001, dev)), 3001),
+    "misaligned_k5": lambda dev: (*(_misaligned(t) for t in _ell(999, 5, 3001, dev)), 3001),
+}
+
+
+@pytest.mark.parametrize("dt,rtol", SCATTER_DTYPES)
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+def test_scatter_add_designs_match_plain_version(cuda, design, dt, rtol):
+    idx, val64, d = DESIGNS[design](cuda)
+    upd = val64.to(dt)
+    got = ell_scatter_add(idx, upd, d)
+    torch.cuda.synchronize()
+    ref = ell_scatter_add_reference(idx, upd, d)
+    col_abs = ell_scatter_add_reference(idx, upd.abs().double(), d)
+    assert got.dtype == dt and got.shape == (d,)
+    assert _within(got, ref, col_abs, rtol)
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+def test_matvec_designs_match_plain_version(cuda, design, vdt, wdt, rtol):
+    idx, val64, d = DESIGNS[design](cuda)
+    val = val64.to(vdt)
+    w = torch.randn(d, device=cuda, dtype=torch.float64).to(wdt)
+    got = ell_matvec(idx, val, w, d)
+    torch.cuda.synchronize()
+    ref = ell_matvec_reference(idx, val, w, d)
+    row_abs = ell_matvec_reference(idx, val.abs().double(), w.abs().double(), d)
+    assert torch.all((got.double() - ref.double()).abs() <= rtol * row_abs)
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("n,k", SHAPES + [(3, 5000), (70001, 4)])
+def test_matvec_has_the_same_bits_from_run_to_run(cuda, n, k, vdt, wdt, rtol):
+    d = 3001
+    idx, val64 = _ell(n, k, d, cuda)
+    val = val64.to(vdt)
+    w = torch.randn(d, device=cuda, dtype=torch.float64).to(wdt)
+    first = ell_matvec(idx, val, w, d)
+    for _ in range(2):
+        assert torch.equal(first, ell_matvec(idx, val, w, d))
+    ref = ell_matvec_reference(idx, val, w, d)
+    row_abs = ell_matvec_reference(idx, val.abs().double(), w.abs().double(), d)
+    assert torch.all((first.double() - ref.double()).abs() <= rtol * row_abs)
+
+
+def test_scatter_add_one_column_sums_every_slot(cuda):
+    # 2^17 slots on one column: one global atomic per tile
+    idx = torch.full((4096, 32), 7, dtype=torch.int32, device=cuda)
+    upd = torch.full((4096, 32), 0.5, dtype=torch.float64, device=cuda)
+    got = ell_scatter_add(idx, upd, 9)
+    assert got.tolist() == [0.0] * 7 + [65536.0, 0.0]
+
+
+def test_matvec_of_zero_slots_is_zero(cuda):
+    idx = torch.zeros((300, 0), dtype=torch.int32, device=cuda)
+    val = torch.zeros((300, 0), dtype=torch.float64, device=cuda)
+    got = ell_matvec(idx, val, torch.ones(5, dtype=torch.float64, device=cuda), 5)
+    assert got.shape == (300,) and not got.any()

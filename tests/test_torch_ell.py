@@ -254,3 +254,67 @@ def test_scatter_cost_records_one_design_read(rng):
         assert dispatch.design_reads(kernel) == 1
         assert costs[(kernel, n, k, d, 8)]["roofline_bytes"] == n * k * 12
     assert costs[("ell_scatter_add", n, k, d, 8)]["analytic_flops"] == n * k
+
+
+# -- a hot-column design in the Criteo layout ---------------------------------
+
+
+def _criteo_like(rng, n, d, dtype):
+    """(indices, values) in the Criteo layout over d columns: 13 integer
+    fields on fixed columns and the intercept (column d - 1), all named by
+    every row, 26 categorical fields with Zipf(1.2) categories hashed into
+    [0, d - 1) (the head categories are named by many rows, and two fields
+    may share a column), and a trailing padding slot in every third row."""
+    int_cols = rng.choice(d - 1, 13, replace=False)
+    cats = rng.zipf(1.2, size=(n, 26)) % 1_000_003
+    cat_cols = (cats * 2_654_435_761 + np.arange(26) * 7919) % (d - 1)
+    idx = np.concatenate(
+        [np.broadcast_to(int_cols, (n, 13)), cat_cols, np.full((n, 1), d - 1),
+         np.full((n, 1), d)], axis=1).astype(np.int32)
+    counts = rng.geometric(0.05, size=(n, 13)) - 1
+    val = np.concatenate(
+        [np.log1p(counts), np.ones((n, 26)), np.ones((n, 1)), np.zeros((n, 1))], axis=1)
+    idx[1::3, -1] = idx[1::3, 20]  # no padding there: a duplicate of a category
+    val[1::3, -1] = 0.5
+    if dtype == "bfloat16":
+        val = np.array(jnp.asarray(val, jnp.bfloat16).astype(jnp.float32))
+    return idx, val
+
+
+@pytest.mark.parametrize("n", [96, 301])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_matvec_hot_columns_match_jax(rng, n, dtype):
+    d = 513
+    idx, val = _criteo_like(rng, n, d, dtype)
+    w = rng.standard_normal(d)
+    jv, jw = _np_dtypes(dtype)
+    j_idx, j_val, j_w = jnp.asarray(idx), jnp.asarray(val, jv), jnp.asarray(w.astype(jw))
+    pallas = np.asarray(jax_ell.ell_matvec(j_idx, j_val, j_w, d), np.float64)
+    xla = np.asarray(jax_sparse.matvec(jax_sparse.SparseFeatures(j_idx, j_val, d), j_w),
+                     np.float64)
+    got = ell_matvec(torch.from_numpy(idx), torch.from_numpy(val).to(_torch_dtype(dtype)),
+                     torch.from_numpy(w.astype(jw)), d)
+    row_abs = _row_abs(idx, val, w.astype(jw), d)
+    out = got.to(torch.float64).numpy()
+    _close(out, pallas, RTOL[dtype], row_abs)
+    _close(out, xla, RTOL[dtype], row_abs)
+
+
+@pytest.mark.parametrize("n", [96, 301])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_scatter_add_hot_columns_match_jax(rng, n, dtype):
+    d = 513
+    idx, val = _criteo_like(rng, n, d, dtype)
+    upd = (val * rng.standard_normal((n, 1))).astype(dtype)
+    pallas = np.asarray(jax_ell.ell_scatter_add(jnp.asarray(idx), jnp.asarray(upd), d),
+                        np.float64)
+    xla = np.asarray(jax_sparse.rmatvec(
+        jax_sparse.SparseFeatures(jnp.asarray(idx), jnp.asarray(upd), d),
+        jnp.ones(n, dtype)), np.float64)
+    got = ell_scatter_add(torch.from_numpy(idx), torch.from_numpy(upd), d)
+    assert got.dtype == _torch_dtype(dtype) and got.shape == (d,)
+    # the intercept and the integer fields sum every row
+    assert np.count_nonzero(np.bincount(idx[idx < d], minlength=d) >= n) >= 14
+    scale = _col_abs(idx, upd, d)
+    _close(got.double().numpy(), pallas, RTOL[dtype], scale)
+    _close(got.double().numpy(), xla, RTOL[dtype], scale)
