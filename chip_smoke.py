@@ -16,11 +16,14 @@ whenever any phase fails. Phases, in order:
    matrix (a yardstick the port never calls), against the HBM bound;
 4. kernel: the training kernels against their plain versions at the same
    shape — ``ell_scatter_add`` (f64, f32 updates; yardstick
-   ``index_add_``), ``fused_vgc`` (logistic loss), ``fused_hvp`` and
-   ``fused_hdiag`` (logistic loss) in the three dtype pairs — with times
-   against the HBM bound; then ``ell_scatter_add`` again on the same
-   design with 14 columns named by every row (the Criteo layout's hot
-   columns);
+   ``index_add_``), ``fused_vgc`` (logistic loss), ``fused_hvp`` (beside
+   it a composite of library calls: ``torch.mv`` on CSR, elementwise,
+   ``torch.mv`` on the transposed CSR) and ``fused_hdiag`` (logistic loss)
+   in the three dtype pairs — with times against the HBM bound, and the
+   fused passes' scalars held to the same bits over 3 calls; then
+   ``ell_scatter_add``, ``fused_vgc`` and ``fused_hvp`` (f64, f32) again
+   on the same design with 14 columns named by every row (the Criteo
+   layout's hot columns);
 5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
@@ -35,8 +38,10 @@ whenever any phase fails. Phases, in order:
    iteration and CG counts; coefficients and held-out AUC held to
    ``train_glm`` on the same batch on the CPU; phase seconds and host
    syncs per iteration; every kernel (``ell_matvec`` with ``torch.mv`` on
-   CSR beside it) checked and timed at the shape the driver gave them;
-   then the same run under ``torch.profiler``;
+   CSR beside it, ``fused_hvp`` with its composite) checked and timed at
+   the shape the training driver gave them, the fused passes' scalars
+   held to the same bits over 3 calls, and the host's part of each call
+   timed beside the card's; then the same run under ``torch.profiler``;
 7. full trainer: on the same records, each run with the counters set to 0
    just before and read just after, and each held to the same training on
    the CPU (the same convergence reason; coefficients within 1e-6 max(1,
@@ -221,12 +226,13 @@ def check_kernel(idx, vals64, d, vdt, wdt, rtol, w64):
 
 
 def device_ms(fn, runs: int = 20, spin_cycles: int = 200_000_000):
-    """Device time per call of ``fn``, calls back to back: the card first
-    spins (``torch.cuda._sleep``, about 0.1 s) while the host queues
-    ``runs`` calls, so the events around them time the card's work alone.
-    ``time_ms``'s events around one call also count the host's time to
-    launch it, which sets the pace of a short call. Raises if the host took
-    longer to queue the calls than the card spun."""
+    """(device ms, host ms) per call of ``fn``, calls back to back: the card
+    first spins (``torch.cuda._sleep``, about 0.1 s) while the host queues
+    ``runs`` calls, so the events around them time the card's work alone,
+    and the host's clock around the queueing times the host's part of a
+    call (the wrapper and its launches). ``time_ms``'s events around one
+    call count both, and the host's part sets the pace of a short call.
+    Raises if the host took longer to queue the calls than the card spun."""
     fn()
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -242,32 +248,44 @@ def device_ms(fn, runs: int = 20, spin_cycles: int = 200_000_000):
     if queued_ms >= events[0].elapsed_time(events[1]):
         raise AssertionError(f"device_ms: queueing {runs} calls took {queued_ms:.1f} ms, "
                              "longer than the card's spin")
-    return events[1].elapsed_time(events[2]) / runs
+    return events[1].elapsed_time(events[2]) / runs, queued_ms / runs
 
 
 def timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, peaks,
-                 shape, label, lib_fn=None, lib_name="index_add_"):
-    """Time ``fn``, its plain version and the library call (if any), and
-    return the kernel's record against its bound, with the device time
-    per call of the kernel and the library call beside."""
+                 shape, label, lib_fn=None, lib_name="index_add_", composite=None):
+    """Time ``fn``, its plain version, the library call (if any) and a
+    composite of library calls (``(name, fn)``, if any), and return the
+    kernel's record against its bound, with the device time per call of
+    the kernel, the library call and the composite, and the host's time
+    per call of the kernel, beside."""
     kernel_ms = time_ms(fn)
     plain_ms = time_ms(plain_fn)
     library_ms = None if lib_fn is None else time_ms(lib_fn)
-    kernel_device_ms = device_ms(fn)
-    library_device_ms = None if lib_fn is None else device_ms(lib_fn)
+    kernel_device_ms, kernel_host_ms = device_ms(fn)
+    library_device_ms = None if lib_fn is None else device_ms(lib_fn)[0]
+    composite_ms = composite_device_ms = None
+    if composite is not None:
+        composite_ms = time_ms(composite[1])
+        composite_device_ms = device_ms(composite[1])[0]
     bound_ms, bound_by = bound(nbytes, ops, cd, peaks)
     src, replaces = SOURCES[kernel]
     lib = ("" if library_ms is None else
            f", {lib_name} {library_ms:.4f} ms (device {library_device_ms:.4f} ms)")
+    if composite is not None:
+        lib += (f", composite {composite[0]} {composite_ms:.4f} ms (device "
+                f"{composite_device_ms:.4f} ms)")
     log(f"[{label}] {kernel} {dtype_label}: kernel {kernel_ms:.4f} ms (device "
-        f"{kernel_device_ms:.4f} ms), plain {plain_ms:.4f} ms{lib}, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| {max_err:.3e}")
+        f"{kernel_device_ms:.4f} ms, host {kernel_host_ms:.4f} ms), plain {plain_ms:.4f} ms"
+        f"{lib}, bound {bound_ms:.4f} ms ({bound_by}); max |kernel - plain| {max_err:.3e}")
     return {
         "name": kernel, "dtype": dtype_label, "route": "cuda", "source": src,
         "replaces": replaces, "shape": shape, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "device_ms": kernel_device_ms,
-        "library_device_ms": library_device_ms, "bytes": nbytes, "ops": ops,
+        "library_ms": library_ms, "device_ms": kernel_device_ms, "host_ms": kernel_host_ms,
+        "library_device_ms": library_device_ms,
+        "composite": None if composite is None else composite[0],
+        "composite_ms": composite_ms, "composite_device_ms": composite_device_ms,
+        "bytes": nbytes, "ops": ops,
     }
 
 
@@ -345,9 +363,13 @@ LOSS_OPS_PER_ROW = 20
 
 
 def within(got, ref, scale, rtol):
-    """(max |got - ref|, every element within rtol * scale)."""
+    """(max |got - ref|, every element within rtol * scale, the largest
+    |got - ref| / scale: the share of the stated scale the error took)."""
     err = (got.double() - ref.double()).abs()
-    return float(err.max()), bool(torch.all(err <= rtol * scale.double()))
+    scale = scale.double()
+    share = torch.where(err > 0, err / scale, torch.zeros_like(err))
+    return (float(err.max()), bool(torch.all(err <= rtol * scale)),
+            float(share.max()) if share.numel() else 0.0)
 
 
 def bound(nbytes, ops, dtype, peaks):
@@ -401,19 +423,32 @@ def check_vgc(idx, vals, y, off, ew, w, d, rtol):
     ]
     errs = [within(g_, r_, s_, rtol) for g_, r_, s_ in zip(got, ref, scales)]
     finite = all(bool(torch.isfinite(t).all()) for t in got)
-    return max(e for e, _ in errs), all(ok for _, ok in errs) and finite
+    # the share against the plain version in f64 on the same inputs: the
+    # kernel's own rounding, without the plain version's
+    ref64 = fused_value_grad_curvature_reference(
+        idx, vals.double(), y.double(), off.double(), ew.double(), w.double(), d, LOGISTIC_LOSS)
+    return (max(e for e, _, _ in errs), all(ok for _, ok, _ in errs) and finite,
+            max(share for _, _, share in errs),
+            max(within(g_, r_, s_, rtol)[2] for g_, r_, s_ in zip(got, ref64, scales)))
 
 
 def check_hvp(idx, vals, c, v_eff, shift, d, rtol):
+    """hv and usum against the plain version (scales: sums of |terms|),
+    with the share of the scale against the plain version in f64, as
+    ``check_vgc``."""
     hv, usum = fused_hessian_vector(idx, vals, c, v_eff, shift, d)
     ref_hv, ref_usum = fused_hessian_vector_reference(idx, vals, c, v_eff, shift, d)
     zv_abs = (ell_matvec_reference(idx, vals.abs().double(), v_eff.abs().double(), d)
               + shift.abs().double())
     u_abs = c.abs().double() * zv_abs
     hv_scale = ell_scatter_add_reference(idx, vals.abs().double() * u_abs[:, None], d)
-    e1, ok1 = within(hv, ref_hv, hv_scale, rtol)
-    e2, ok2 = within(usum, ref_usum, u_abs.sum(), rtol)
-    return max(e1, e2), ok1 and ok2 and bool(torch.isfinite(hv).all())
+    e1, ok1, share1 = within(hv, ref_hv, hv_scale, rtol)
+    e2, ok2, share2 = within(usum, ref_usum, u_abs.sum(), rtol)
+    hv64, usum64 = fused_hessian_vector_reference(
+        idx, vals.double(), c.double(), v_eff.double(), shift.double(), d)
+    share64 = max(within(hv, hv64, hv_scale, rtol)[2], within(usum, usum64, u_abs.sum(), rtol)[2])
+    return (max(e1, e2), ok1 and ok2 and bool(torch.isfinite(hv).all()), max(share1, share2),
+            share64)
 
 
 def check_hdiag(idx, vals, y, off, ew, w, d, rtol):
@@ -431,7 +466,8 @@ def check_hdiag(idx, vals, y, off, ew, w, d, rtol):
               ell_scatter_add_reference(idx, v.abs() * c_abs[:, None], d), c_abs.sum()]
     errs = [within(g_, r_, s_, rtol) for g_, r_, s_ in zip(got, ref, scales)]
     finite = all(bool(torch.isfinite(t).all()) for t in got)
-    return max(e for e, _ in errs), all(ok for _, ok in errs) and finite
+    return (max(e for e, _, _ in errs), all(ok for _, ok, _ in errs) and finite,
+            max(share for _, _, share in errs))
 
 
 def scatter_checks(idx, vals64, d, peaks, label="kernel"):
@@ -443,9 +479,9 @@ def scatter_checks(idx, vals64, d, peaks, label="kernel"):
     results = []
     for dtype_label, dt, rtol in SCATTER_CASES:
         upd = vals64.to(dt)
-        max_err, ok = check_scatter(idx, upd, d, rtol)
+        max_err, ok, share = check_scatter(idx, upd, d, rtol)
         log(f"[{label}] ell_scatter_add {dtype_label}: max |kernel - plain| = "
-            f"{max_err:.3e} (rtol {rtol:g} x column sum of |upd|): "
+            f"{max_err:.3e} (rtol {rtol:g} x column sum of |upd|; {share:.2e} of it): "
             f"{'ok' if ok else 'DISAGREES'}")
         if not ok:
             raise AssertionError(f"ell_scatter_add {dtype_label} ({label}) disagrees with "
@@ -460,9 +496,117 @@ def scatter_checks(idx, vals64, d, peaks, label="kernel"):
             lambda: torch.zeros(d + 1, dtype=dt, device=idx.device).index_add_(
                 0, flat_ids, flat_upd),
         ))
+        results[-1]["max_err_share"] = share
         del upd, flat_upd
     del flat_ids
     torch.cuda.empty_cache()
+    return results
+
+
+def csr_t_of(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
+    """The ELL's transpose, (d, n), as a CSR tensor without its padding
+    slots; a stable sort by column keeps each column's rows in order."""
+    keep = idx < d
+    n = idx.shape[0]
+    rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)[keep]
+    cols = idx[keep].long()
+    order = torch.argsort(cols, stable=True)
+    crow = torch.zeros(d + 1, dtype=torch.int64, device=idx.device)
+    crow[1:] = torch.cumsum(torch.bincount(cols, minlength=d), 0)
+    return torch.sparse_csr_tensor(crow, rows[order], vals[keep][order], size=(d, n))
+
+
+# fused_hvp's yardstick: no single PyTorch call computes the pass, so a
+# composite of library calls the port never uses (bf16 values upcast once)
+HVP_COMPOSITE = "torch.mv(XT_csr, c * (torch.mv(X_csr, v) + shift)), three calls"
+
+
+def same_bits(fn, outputs, calls: int = 3) -> bool:
+    """``fn``'s scalar outputs (indices into its result) have the same bits
+    over ``calls`` calls."""
+    first = fn()
+    return all(torch.equal(first[i], again[i])
+               for again in (fn() for _ in range(calls - 1)) for i in outputs)
+
+
+def fused_checks(idx, vals64, d, peaks, label, cases=None, hdiag=True):
+    """Check and time fused_vgc, fused_hvp (with the composite beside) and,
+    with ``hdiag``, fused_hdiag on one design in each of ``cases`` (default
+    every dtype pair) against their plain versions; the scalars (val, asum;
+    usum) are held to the same bits over 3 calls. One record per (kernel,
+    dtype)."""
+    n, k = idx.shape
+    valid = int((idx < d).sum())
+    results = []
+
+    def record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, composite=None):
+        results.append(timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn,
+                                    nbytes, ops, peaks, {"n": n, "k": k, "d": d}, label,
+                                    composite=composite))
+        results[-1]["max_err_share"] = share
+        if kernel != "fused_hdiag":
+            results[-1]["max_err_share_vs_f64"] = share64
+
+    for dtype_label, vdt, cd, rtol in FUSED_CASES if cases is None else cases:
+        vals = vals64.to(vdt)
+        y, off, ew, w = row_inputs(n, d, cd, idx.device)
+        s, sc = vals.element_size(), cd.itemsize
+        max_err, ok, share, share64 = check_vgc(idx, vals, y, off, ew, w, d, rtol)
+        log(f"[{label}] fused_vgc {dtype_label}: max |kernel - plain| = {max_err:.3e} "
+            f"(rtol {rtol:g} x sum of |terms|; {share:.2e} of it, {share64:.2e} against "
+            f"the plain version in f64): {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fused_vgc {dtype_label} ({label}) disagrees with its "
+                                 f"plain version")
+        vgc = lambda: fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
+        if not same_bits(vgc, (0, 2)):
+            raise AssertionError(f"fused_vgc {dtype_label} ({label}): val or asum changed "
+                                 f"bits from call to call")
+        record("fused_vgc", dtype_label, cd, max_err, vgc,
+               lambda: fused_value_grad_curvature_reference(
+                   idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+               n * k * (4 + s) + 2 * d * sc + 4 * n * sc,
+               4 * valid + LOSS_OPS_PER_ROW * n)
+        c = vgc()[3]
+        shift = torch.tensor(0.05, dtype=cd, device=idx.device)
+        max_err, ok, share, share64 = check_hvp(idx, vals, c, w, shift, d, rtol)
+        log(f"[{label}] fused_hvp {dtype_label}: max |kernel - plain| = {max_err:.3e} "
+            f"(rtol {rtol:g} x sum of |terms|; {share:.2e} of it, {share64:.2e} against "
+            f"the plain version in f64): {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fused_hvp {dtype_label} ({label}) disagrees with its "
+                                 f"plain version")
+        hvp = lambda: fused_hessian_vector(idx, vals, c, w, shift, d)
+        if not same_bits(hvp, (1,)):
+            raise AssertionError(f"fused_hvp {dtype_label} ({label}): usum changed bits "
+                                 f"from call to call")
+        # the composite's two CSR tensors are built outside the timed region
+        x_csr, xt_csr = csr_of(idx, vals.to(cd), d), csr_t_of(idx, vals.to(cd), d)
+        composite = lambda: torch.mv(xt_csr, c * (torch.mv(x_csr, w) + shift))
+        composite_diff = float((composite().double() - hvp()[0].double()).abs().max())
+        record("fused_hvp", dtype_label, cd, max_err, hvp,
+               lambda: fused_hessian_vector_reference(idx, vals, c, w, shift, d),
+               n * k * (4 + s) + 2 * d * sc + n * sc, 4 * valid + 2 * n,
+               composite=(HVP_COMPOSITE, composite))
+        results[-1]["composite_max_abs_diff"] = composite_diff
+        del x_csr, xt_csr, composite
+        if hdiag:
+            max_err, ok, share = check_hdiag(idx, vals, y, off, ew, w, d, rtol)
+            log(f"[{label}] fused_hdiag {dtype_label}: max |kernel - plain| = "
+                f"{max_err:.3e} (rtol {rtol:g} x sum of |terms|; {share:.2e} of it): "
+                f"{'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                raise AssertionError(f"fused_hdiag {dtype_label} disagrees with its plain "
+                                     f"version")
+            # reads the design, w and three row vectors; writes two (d,) sums
+            record("fused_hdiag", dtype_label, cd, max_err,
+                   lambda: fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+                   lambda: fused_hessian_diagonal_reference(
+                       idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+                   n * k * (4 + s) + 3 * d * sc + 3 * n * sc,
+                   5 * valid + LOSS_OPS_PER_ROW * n)
+        del vals, y, off, ew, w, c
+        torch.cuda.empty_cache()
     return results
 
 
@@ -471,68 +615,23 @@ def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
     fused_hdiag on one design (every dtype each takes), against their
     plain versions and, for ell_scatter_add, ``index_add_``. Returns one
     record per (kernel, dtype)."""
-    n, k = idx.shape
-    valid = int((idx < d).sum())
-    results = scatter_checks(idx, vals64, d, peaks, label)
-
-    def record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops):
-        results.append(timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn,
-                                    nbytes, ops, peaks, {"n": n, "k": k, "d": d}, label))
-
-    for dtype_label, vdt, cd, rtol in FUSED_CASES:
-        vals = vals64.to(vdt)
-        y, off, ew, w = row_inputs(n, d, cd, idx.device)
-        s, sc = vals.element_size(), cd.itemsize
-        max_err, ok = check_vgc(idx, vals, y, off, ew, w, d, rtol)
-        log(f"[{label}] fused_vgc {dtype_label}: max |kernel - plain| = {max_err:.3e} "
-            f"(rtol {rtol:g} x sum of |terms|): {'ok' if ok else 'DISAGREES'}")
-        if not ok:
-            raise AssertionError(f"fused_vgc {dtype_label} disagrees with its plain version")
-        record("fused_vgc", dtype_label, cd, max_err,
-               lambda: fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
-               lambda: fused_value_grad_curvature_reference(
-                   idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
-               n * k * (4 + s) + 2 * d * sc + 4 * n * sc,
-               4 * valid + LOSS_OPS_PER_ROW * n)
-        c = fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)[3]
-        shift = torch.tensor(0.05, dtype=cd, device=idx.device)
-        max_err, ok = check_hvp(idx, vals, c, w, shift, d, rtol)
-        log(f"[{label}] fused_hvp {dtype_label}: max |kernel - plain| = {max_err:.3e} "
-            f"(rtol {rtol:g} x sum of |terms|): {'ok' if ok else 'DISAGREES'}")
-        if not ok:
-            raise AssertionError(f"fused_hvp {dtype_label} disagrees with its plain version")
-        record("fused_hvp", dtype_label, cd, max_err,
-               lambda: fused_hessian_vector(idx, vals, c, w, shift, d),
-               lambda: fused_hessian_vector_reference(idx, vals, c, w, shift, d),
-               n * k * (4 + s) + 2 * d * sc + n * sc, 4 * valid + 2 * n)
-        max_err, ok = check_hdiag(idx, vals, y, off, ew, w, d, rtol)
-        log(f"[{label}] fused_hdiag {dtype_label}: max |kernel - plain| = {max_err:.3e} "
-            f"(rtol {rtol:g} x sum of |terms|): {'ok' if ok else 'DISAGREES'}")
-        if not ok:
-            raise AssertionError(f"fused_hdiag {dtype_label} disagrees with its plain version")
-        # reads the design, w and three row vectors; writes two (d,) sums
-        record("fused_hdiag", dtype_label, cd, max_err,
-               lambda: fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
-               lambda: fused_hessian_diagonal_reference(
-                   idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
-               n * k * (4 + s) + 3 * d * sc + 3 * n * sc,
-               5 * valid + LOSS_OPS_PER_ROW * n)
-        del vals, y, off, ew, w, c
-        torch.cuda.empty_cache()
-    return results
+    return (scatter_checks(idx, vals64, d, peaks, label)
+            + fused_checks(idx, vals64, d, peaks, label))
 
 
 def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
-    """The training kernels on the uniform design, then ell_scatter_add on
-    the same design with HOT_COLUMNS columns named by every row. Returns
-    (uniform records, hot-column records)."""
+    """The training kernels on the uniform design, then ell_scatter_add,
+    fused_vgc and fused_hvp (f64 and f32) on the same design with
+    HOT_COLUMNS columns named by every row. Returns (uniform records,
+    hot-column records)."""
     idx, vals64 = make_ell(n, k, d, "cuda")
     peaks = peaks_for(name)
     results = training_kernels(name, idx, vals64, d, peaks)
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     idx[:, :HOT_COLUMNS] = torch.randperm(d, generator=g, device="cuda")[:HOT_COLUMNS].to(
         torch.int32)
-    hot = scatter_checks(idx, vals64, d, peaks, label="kernel-hot")
+    hot = (scatter_checks(idx, vals64, d, peaks, label="kernel-hot")
+           + fused_checks(idx, vals64, d, peaks, "kernel-hot", FUSED_CASES[:2], hdiag=False))
     del idx, vals64
     torch.cuda.empty_cache()
     return results, hot
@@ -1172,7 +1271,10 @@ def main() -> int:
     # with hot columns
     train_checks, hot_checks = training_kernel_phase(name)
     log(json.dumps({"training_kernel_checks": train_checks}))
-    log(json.dumps({"hot_column_scatter_checks": hot_checks}))
+    log(json.dumps({"hot_column_scatter_checks": [
+        c for c in hot_checks if c["name"] == "ell_scatter_add"]}))
+    log(json.dumps({"hot_column_fused_checks": [
+        c for c in hot_checks if c["name"] != "ell_scatter_add"]}))
 
     # 5. GLM scoring end to end
     work = os.path.join(ROOT, "_smoke_work")
@@ -1193,19 +1295,24 @@ def main() -> int:
 
     # 8. result lines: each kernel at the kernel-phase shape in the main
     # path's dtype (f64), its time at the training driver's shape (and
-    # ell_scatter_add's with hot columns), and its launches on its main
-    # path — the training run, and for fused_hdiag the full trainer's run A
-    # (per path: scoring, training, run A)
+    # with hot columns for ell_scatter_add, fused_vgc and fused_hvp), and
+    # its launches on its main path — the training run, and for
+    # fused_hdiag the full trainer's run A (per path: scoring, training,
+    # run A); fused_hvp's composite of library calls beside its times
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
-                  "library_device_ms", "max_abs_err")
+                  "host_ms", "library_device_ms", "composite_ms", "composite_device_ms",
+                  "max_abs_err", "max_err_share", "max_err_share_vs_f64")
+
+    def f64_record(records, kernel):
+        return next((c for c in records if c["name"] == kernel and c["dtype"] == "f64"), None)
+
     kernels = []
     for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp", "fused_hdiag"):
-        main_path = next(c for c in checks + train_checks
-                         if c["name"] == kernel and c["dtype"] == "f64")
-        at_shape = next((c for c in shape_checks
-                         if c["name"] == kernel and c["dtype"] == "f64"), None)
+        main_path = f64_record(checks + train_checks, kernel)
+        at_shape = f64_record(shape_checks, kernel)
+        hot = f64_record(hot_checks, kernel)
         launches = (full_launches if kernel == "fused_hdiag" else train_summary["launches"])
         kernels.append({
             **{k: main_path[k] for k in keys},
@@ -1214,13 +1321,16 @@ def main() -> int:
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel]},
             "device_ms": main_path["device_ms"],
+            "host_ms": main_path["host_ms"],
             "library_device_ms": main_path["library_device_ms"],
             "train_shape": None if at_shape is None else {
-                k: at_shape[k] for k in shape_keys},
+                k: at_shape.get(k) for k in shape_keys},
         })
-        if kernel == "ell_scatter_add":
-            hot = next(c for c in hot_checks if c["dtype"] == "f64")
-            kernels[-1]["hot_columns"] = {k: hot[k] for k in shape_keys}
+        if hot is not None:
+            kernels[-1]["hot_columns"] = {k: hot.get(k) for k in shape_keys}
+        if main_path["composite"] is not None:
+            kernels[-1].update({k: main_path[k] for k in (
+                "composite", "composite_ms", "composite_device_ms")})
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({

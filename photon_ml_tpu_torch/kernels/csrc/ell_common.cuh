@@ -105,7 +105,7 @@ struct TileCombiner {
         repeated(smem + (size_t)capacity * (sizeof(T) + sizeof(int32_t))),
         mask((unsigned)capacity - 1u) {}
 
-  static constexpr size_t bytes(int capacity) {
+  __host__ __device__ static constexpr size_t bytes(int capacity) {
     return (size_t)capacity * (sizeof(T) + sizeof(int32_t) + 1);
   }
 

@@ -14,57 +14,88 @@
 //   hdiag: z_i, c_i as in vgc                    csum = sum_i c_i
 //          dx2_j = sum_{c_ik=j} v_ik^2 c_i       dx_j = sum_{c_ik=j} v_ik c_i
 //
-// hdiag squares each slot's value on its own (a duplicate id adds v^2 per
-// slot, not (sum v)^2), as the Pallas kernel's per-slot group totals do;
-// bf16 values are widened to f32 before the square.
-//
 // Same contract as the Pallas kernels: a slot whose column id is >= d (the
-// padding id is d; ids compared as unsigned) reads 0 and adds nothing;
-// duplicate ids sum; the compute type is result_type(values, w, labels,
-// offsets, ew): (f64 values, f64), (f32, f32), (bf16 values, f32). The
-// loss is a template parameter covering the four PointwiseLosses of
-// photon_ml_tpu/ops/losses.py; logistic's softplus follows the port's
-// logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)).
+// padding id is d; ids compared as unsigned, so a negative id too) reads 0
+// and adds nothing; duplicate ids, within a row and across rows, sum; the
+// compute type is result_type(values, w, labels, offsets, ew): (f64 values,
+// f64), (f32, f32), (bf16 values, f32). The loss is a template parameter
+// covering the four PointwiseLosses of photon_ml_tpu/ops/losses.py;
+// logistic's softplus follows the port's logaddexp(x, 0) = max(x, 0) +
+// log1p(exp(-|x|)). hdiag squares each slot's value on its own (a duplicate
+// id adds v^2 per slot, not (sum v)^2), as the Pallas kernel's per-slot
+// group totals do; bf16 values are widened to f32 before the square. The
+// scalars (val, asum; usum; csum) are summed in a fixed order, so they have
+// the same bits from run to run: TRON compares them across trial points.
+// The (d,) outputs take atomics, whose order, and so a column's last bits,
+// vary.
 //
 // Bound on Hopper: HBM bytes. A pass reads the design once,
-// n*k*(4 + itemsize(values)), plus the (n,) row vectors and the (d,)
-// coefficient vector, and writes the (d,) back-projection (two of them
-// for hdiag) and, for vgc, the (n,) curvature weights; the gathers and
-// the atomics hit the (d,) vectors in the 50 MB L2.
+// n*k*(4 + itemsize), reads the (d,) vector and writes the (d,) output,
+// 2*d*itemsize, and reads one (n,) row vector, n*itemsize (hvp: c); vgc
+// reads two more and writes the curvature, 3*n*itemsize more. The gathers
+// and the atomics hit the (d,) vectors in the 50 MB L2.
 //
-// Design (a simple, correct first version): ell_matvec's row mapping —
-// GROUP lanes own one row (8 for k <= 8, else 32), stride over its slots
-// with coalesced loads, gather w[c], and a __shfl_xor_sync butterfly hands
-// the row's margin to every lane of the group, so each lane computes the
-// loss terms of its row itself (the same bits on every lane). Each lane
-// then re-reads its slots (now L1/L2 hits) and atomicAdds v_ik * a_i into
-// the gradient (hdiag: two atomics per slot, into dx2 and dx), which the
-// caller zeroes on the same stream. The scalars (val, asum; usum; csum)
-// become one partial per block, reduced in a fixed order
-// (warp butterfly, then warp 0 over the block's warps), and a second
-// single-block launch sums the partials in a fixed order: the value TRON
-// compares across trial points does not change from run to run. The
-// gradient's atomics do: their order, and so a column's last bits, vary.
-// Hot columns (the intercept, the integer fields of the Criteo layout)
-// serialise their atomics; that is left for a later redesign. Nothing is
-// allocated here; the launches go on the caller's stream and do not
-// synchronise. Each entry point returns cudaGetLastError().
+// vgc and hvp. What held the first design (a warp per row, as hdiag still
+// is) back, and what this one does about each point:
+//   1. One global atomic per slot. In the Criteo layout the intercept and
+//      the 13 integer-field columns are named by every row, so every row's
+//      atomics into them serialise in L2. Now each slot, scaled by its row's
+//      a_i or u_i, goes through photon::TileCombiner (ell_common.cuh): a
+//      column named once in the tile takes one global atomic, a repeated
+//      column is summed in shared memory and takes one global atomic per
+//      tile, and a column that finds no table slot in 16 probes takes a
+//      direct global atomic. The table (capacity the next power of two at
+//      least twice the tile's slots: 26 KB in f64) is dynamic shared memory.
+//   2. A warp per row: at k = 40, 37.5% of lane steps idle, each step an
+//      id load and then the gather that waits on it, scalar loads with no
+//      streaming hint. Now a block takes a tile of R = max(1, floor(1024 /
+//      k)) whole rows (25 at k = 40) in granules (ell_tile.cuh): each thread
+//      issues its 16-byte streaming loads of 4 slots, then their gathers
+//      through __ldg, then the products; one partial per granule, and one
+//      thread per row adds them in granule order.
+//   3. The design read twice (the scatter reloaded each row's ids and
+//      values). Now each thread keeps its slots in registers from the loads
+//      to the scatter. A row longer than one round (k > 1024) is the only
+//      case that reads the design twice: its scatter re-reads the slots of
+//      the earlier rounds, which are L2 hits.
+//   4. Eight rows per block, so 524,288 per-block scalar partials at
+//      n = 2^22 for one 256-thread block to add up. Now 25 rows per block at
+//      k = 40 (167,773 partials at n = 2^22, 2,622 at 2^16), added by one
+//      1024-thread block with four running sums per thread. That second
+//      launch stays: at n = 2^16 it adds a few microseconds, and summing in
+//      the first kernel's last block would need a counter in global memory
+//      kept from call to call.
+//   5. The wrapper's host path (kernels/fused.py): each C entry point is
+//      resolved with its signature once, the scalars' sums and the
+//      partials are one allocation, and the output is cleared here.
+// The row terms (for vgc the offset, the loss terms, curvature[i], the
+// row's share of val and asum, and a_i; for hvp the shift, u_i and its
+// share of usum) are computed by the thread that adds the row's sum; it
+// leaves the row's scale in shared memory for the scatter, and the block's
+// scalar partials are summed in a fixed order (block_sum). k = 0 with n > 0
+// gives every row's terms from the offsets alone.
+//
+// hdiag keeps the first design (row_dot: a group of lanes per row, a
+// __shfl_xor_sync butterfly hands the margin to every lane of the group;
+// then two atomics per slot) until it moves onto the tile pieces above.
+//
+// Nothing is allocated here; the launches go on the caller's stream and do
+// not synchronise. vgc and hvp clear their (d,) output on that stream
+// first (cudaMemsetAsync: one host call, where a zeroed tensor costs the
+// wrapper a dispatched fill); hdiag's caller zeroes its two. Each entry
+// point returns the first CUDA error, or cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ell_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using photon::to_acc;
+
+constexpr int kThreads = photon::tile::kThreads;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFinishThreads = 256;
+constexpr int kFinishThreads = 1024;
 
 enum LossId { kLogistic = 0, kSquared = 1, kPoisson = 2, kSmoothedHinge = 3 };
-
-__device__ __forceinline__ double to_acc(double v) { return v; }
-__device__ __forceinline__ float to_acc(float v) { return v; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename A>
 __device__ __forceinline__ A sigmoid(A t) {
@@ -102,7 +133,8 @@ __device__ __forceinline__ void loss_terms(A z, A y, A& l, A& d1, A& d2) {
   }
 }
 
-// Sum of x over the block in a fixed order; the result is valid in thread 0.
+// Sum of x over the block in a fixed order; the result is valid in thread
+// 0. `shared` holds one value per warp.
 template <typename A>
 __device__ __forceinline__ A block_sum(A x, A* shared) {
 #pragma unroll
@@ -125,7 +157,198 @@ __device__ __forceinline__ A block_sum(A x, A* shared) {
   return total;
 }
 
+// -- vgc and hvp: tiles of whole rows ----------------------------------------
+
+// The row terms of vgc: returns the row's scale a_i and adds the row's
+// ew l and a_i to s[0], s[1].
+template <typename A, int LOSS>
+struct VgcRows {
+  static constexpr int kScalars = 2;
+  const A* __restrict__ labels;
+  const A* __restrict__ offsets;
+  const A* __restrict__ ew;
+  A* __restrict__ curvature;
+
+  __device__ __forceinline__ A operator()(long long row, A margin, A* s) const {
+    A l, d1, d2;
+    loss_terms<LOSS, A>(margin + offsets[row], labels[row], l, d1, d2);
+    const A e = ew[row];
+    const A a = e * d1;
+    curvature[row] = e * d2;
+    s[0] += e * l;
+    s[1] += a;
+    return a;
+  }
+};
+
+// The row terms of hvp: returns u_i = c_i (zv_i + shift) and adds it to s[0].
+template <typename A>
+struct HvpRows {
+  static constexpr int kScalars = 1;
+  const A* __restrict__ curvature;
+  const A* __restrict__ shift;
+
+  __device__ __forceinline__ A operator()(long long row, A margin, A* s) const {
+    const A u = curvature[row] * (margin + __ldg(shift));
+    s[0] += u;
+    return u;
+  }
+};
+
+// What both passes take: the design, the (d,) vector t gathered by the row
+// sums (w or v), the (d,) output (grad or hv), the per-block scalar
+// partials, and the tiling the host chose.
+template <typename V, typename A>
+struct PassArgs {
+  const int32_t* indices;
+  const V* values;
+  const A* t;
+  A* out;
+  A* partials;
+  long long n;
+  int k;
+  int d;
+  int rows_per_tile;
+  int capacity;
+};
+
+// Scatter the thread's granules of the round that starts at granule g0:
+// each slot's value times its row's scale (row_scale[g / kg]) into out,
+// combined by column in the tile's table, which is clear with a barrier
+// since. v is scaled in place.
+template <int GS, typename A>
+__device__ __forceinline__ void scatter_round(
+    photon::TileCombiner<A>& table,
+    const int32_t (&c)[photon::tile::kGranules<GS>][GS],
+    A (&v)[photon::tile::kGranules<GS>][GS], long long g0, long long granules,
+    int kg, const A* row_scale, A* __restrict__ out, int d) {
+  constexpr int U = photon::tile::kGranules<GS>;
+  int h[U][GS];
+  bool owner[U][GS];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    // a tile's granules number at most max(1024, kg): int
+    const int g = (int)g0 + j * kThreads + threadIdx.x;
+    const A scale = g < granules ? row_scale[g / kg] : A(0);
+#pragma unroll
+    for (int e = 0; e < GS; ++e) {
+      h[j][e] = -1;
+      owner[j][e] = false;
+      if ((unsigned)c[j][e] < (unsigned)d) {
+        v[j][e] *= scale;
+        h[j][e] = table.place(c[j][e], owner[j][e]);
+        if (h[j][e] < 0) {
+          atomicAdd(out + c[j][e], v[j][e]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+#pragma unroll
+    for (int e = 0; e < GS; ++e) {
+      if (h[j][e] >= 0) {
+        table.add(h[j][e], owner[j][e], c[j][e], v[j][e], out);
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+#pragma unroll
+    for (int e = 0; e < GS; ++e) {
+      if (h[j][e] >= 0) {
+        table.flush(h[j][e], owner[j][e], c[j][e], v[j][e], out);
+      }
+    }
+  }
+}
+
+// One tile of rows_per_tile rows: the row sums of t, the row terms (Rows),
+// the block's scalar partials, then the scatter of the rows' scaled slots.
+// Dynamic shared memory: the table, then one partial per granule of a
+// round, then one running sum (later the scale) per row.
+template <int GS, typename V, typename A, typename Rows>
+__device__ __forceinline__ void fused_pass(const PassArgs<V, A>& p, const Rows& rows_of) {
+  namespace tile = photon::tile;
+  constexpr int U = tile::kGranules<GS>;
+  constexpr int kRound = tile::kRoundGranules<GS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ A scratch[kWarps];
+  photon::TileCombiner<A> table(smem, p.capacity);
+  A* part = reinterpret_cast<A*>(smem + photon::TileCombiner<A>::bytes(p.capacity));
+  A* row_acc = part + kRound;
+  const int kg = p.k / GS;
+  const long long r0 = (long long)blockIdx.x * p.rows_per_tile;
+  const int rows = (int)min((long long)p.rows_per_tile, p.n - r0);
+  const long long granules = (long long)rows * kg;
+  const int32_t* tile_ids = p.indices + r0 * p.k;
+  const V* tile_vals = p.values + r0 * p.k;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    row_acc[r] = A(0);
+  }
+  // the first round's loads are in flight while the table clears
+  table.clear();
+  int32_t c[U][GS];
+  A v[U][GS];
+  long long g_last = 0;
+  for (long long g0 = 0; g0 < granules; g0 += kRound) {
+    tile::load_round<GS>(tile_ids, tile_vals, g0, granules, c, v);
+    tile::round_partials<GS>(c, v, p.t, p.d, part);
+    __syncthreads();
+    tile::add_row_partials<GS>(part, g0, granules, kg, row_acc);
+    __syncthreads();
+    g_last = g0;
+  }
+  A s[Rows::kScalars];
+#pragma unroll
+  for (int i = 0; i < Rows::kScalars; ++i) {
+    s[i] = A(0);
+  }
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    row_acc[r] = rows_of(r0 + r, row_acc[r], s);
+  }
+#pragma unroll
+  for (int i = 0; i < Rows::kScalars; ++i) {
+    const A total = block_sum<A>(s[i], scratch);
+    if (threadIdx.x == 0) {
+      p.partials[(long long)blockIdx.x * Rows::kScalars + i] = total;
+    }
+  }
+  // block_sum ends in a barrier: every row's scale is in row_acc
+  if (granules == 0) {
+    return;
+  }
+  // the last round's slots are still in registers; a row longer than a
+  // round re-reads the earlier rounds (L2 hits): the only second read
+  scatter_round<GS>(table, c, v, g_last, granules, kg, row_acc, p.out, p.d);
+  for (long long g0 = 0; g0 < g_last; g0 += kRound) {
+    __syncthreads();
+    table.clear();
+    __syncthreads();
+    tile::load_round<GS>(tile_ids, tile_vals, g0, granules, c, v);
+    scatter_round<GS>(table, c, v, g0, granules, kg, row_acc, p.out, p.d);
+  }
+}
+
+// Two kernels with one body, so that a trace names each pass.
+template <int GS, typename V, typename A, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+fused_vgc_kernel(PassArgs<V, A> p, Rows rows_of) {
+  fused_pass<GS>(p, rows_of);
+}
+
+template <int GS, typename V, typename A, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+fused_hvp_kernel(PassArgs<V, A> p, Rows rows_of) {
+  fused_pass<GS>(p, rows_of);
+}
+
+// -- hdiag: a group of lanes per row -----------------------------------------
+
 // Row margin sum_k v_ik t[c_ik] over the group's lanes, on every lane.
+// Only fused_hdiag_kernel still uses it, until it moves onto ell_tile.cuh.
 template <typename V, typename A, int GROUP>
 __device__ __forceinline__ A row_dot(const int32_t* __restrict__ indices,
                                      const V* __restrict__ values,
@@ -147,95 +370,6 @@ __device__ __forceinline__ A row_dot(const int32_t* __restrict__ indices,
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
   return acc;
-}
-
-// Scatter v_ik * scale into out over the lane's slots of the row.
-template <typename V, typename A, int GROUP>
-__device__ __forceinline__ void row_scatter(const int32_t* __restrict__ indices,
-                                            const V* __restrict__ values,
-                                            A* __restrict__ out, A scale,
-                                            long long base, int lane, int k,
-                                            int d) {
-  for (int s = lane; s < k; s += GROUP) {
-    const int32_t c = indices[base + s];
-    if ((unsigned)c < (unsigned)d) {
-      atomicAdd(out + c, to_acc(values[base + s]) * scale);
-    }
-  }
-}
-
-template <typename V, typename A, int GROUP, int LOSS>
-__global__ void __launch_bounds__(kThreads)
-fused_vgc_kernel(const int32_t* __restrict__ indices,
-                 const V* __restrict__ values,
-                 const A* __restrict__ labels,
-                 const A* __restrict__ offsets,
-                 const A* __restrict__ ew,
-                 const A* __restrict__ w,
-                 A* __restrict__ grad,
-                 A* __restrict__ curvature,
-                 A* __restrict__ partials,
-                 long long n, int k, int d) {
-  __shared__ A shared[kWarps];
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long row = t / GROUP;
-  const int lane = (int)(t % GROUP);
-  const bool live = row < n;
-  const long long base = row * (long long)k;
-  A z = row_dot<V, A, GROUP>(indices, values, w, live, base, lane, k, d);
-  A val = A(0);
-  A asum = A(0);
-  if (live) {
-    z += offsets[row];
-    A l, d1, d2;
-    loss_terms<LOSS, A>(z, labels[row], l, d1, d2);
-    const A e = ew[row];
-    const A a = e * d1;
-    if (lane == 0) {
-      curvature[row] = e * d2;
-      val = e * l;
-      asum = a;
-    }
-    row_scatter<V, A, GROUP>(indices, values, grad, a, base, lane, k, d);
-  }
-  val = block_sum<A>(val, shared);
-  asum = block_sum<A>(asum, shared);
-  if (threadIdx.x == 0) {
-    partials[2 * (long long)blockIdx.x] = val;
-    partials[2 * (long long)blockIdx.x + 1] = asum;
-  }
-}
-
-template <typename V, typename A, int GROUP>
-__global__ void __launch_bounds__(kThreads)
-fused_hvp_kernel(const int32_t* __restrict__ indices,
-                 const V* __restrict__ values,
-                 const A* __restrict__ curvature,
-                 const A* __restrict__ shift,
-                 const A* __restrict__ v,
-                 A* __restrict__ hv,
-                 A* __restrict__ partials,
-                 long long n, int k, int d) {
-  __shared__ A shared[kWarps];
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long row = t / GROUP;
-  const int lane = (int)(t % GROUP);
-  const bool live = row < n;
-  const long long base = row * (long long)k;
-  A zv = row_dot<V, A, GROUP>(indices, values, v, live, base, lane, k, d);
-  A usum = A(0);
-  if (live) {
-    zv += *shift;
-    const A u = curvature[row] * zv;
-    if (lane == 0) {
-      usum = u;
-    }
-    row_scatter<V, A, GROUP>(indices, values, hv, u, base, lane, k, d);
-  }
-  usum = block_sum<A>(usum, shared);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = usum;
-  }
 }
 
 template <typename V, typename A, int GROUP, int LOSS>
@@ -282,52 +416,102 @@ fused_hdiag_kernel(const int32_t* __restrict__ indices,
 }
 
 // out[j] = sum over blocks b of partials[b * width + j], j < width, in a
-// fixed order (one block).
+// fixed order (one block; four running sums per thread keep four loads in
+// flight).
 template <typename A>
 __global__ void __launch_bounds__(kFinishThreads)
 sum_partials_kernel(const A* __restrict__ partials, long long blocks,
                     int width, A* __restrict__ out) {
   __shared__ A shared[kFinishThreads / 32];
   for (int j = 0; j < width; ++j) {
-    A acc = A(0);
-    for (long long b = threadIdx.x; b < blocks; b += kFinishThreads) {
-      acc += partials[b * width + j];
+    A acc[4] = {A(0), A(0), A(0), A(0)};
+    long long b = threadIdx.x;
+    for (; b + 3 * kFinishThreads < blocks; b += 4 * kFinishThreads) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[q] += partials[(b + q * kFinishThreads) * width + j];
+      }
     }
-    acc = block_sum<A>(acc, shared);
+    for (; b < blocks; b += kFinishThreads) {
+      acc[0] += partials[b * width + j];
+    }
+    const A total = block_sum<A>((acc[0] + acc[1]) + (acc[2] + acc[3]), shared);
     if (threadIdx.x == 0) {
-      out[j] = acc;
+      out[j] = total;
     }
   }
 }
 
-long long grid_blocks(long long n, int group) {
-  return (n * group + kThreads - 1) / kThreads;
+// -- host side ---------------------------------------------------------------
+
+// capacity of a tile's table: the next power of two at least twice the
+// slots of one round of the tile (at least 64, for the clear's words)
+int table_capacity(int k) {
+  const long long tile_slots = (long long)photon::tile::rows_per_tile(k) * k;
+  const long long slots =
+      tile_slots < photon::tile::kRoundSlots ? tile_slots : photon::tile::kRoundSlots;
+  int capacity = 64;
+  while (capacity < 2 * slots) {
+    capacity <<= 1;
+  }
+  return capacity;
 }
 
-template <typename V, typename A, int GROUP>
-void launch_vgc_group(const int32_t* ix, const V* vals, const A* y,
-                      const A* off, const A* ew, const A* w, A* grad,
-                      A* curv, A* partials, long long n, int k, int d,
-                      int loss, cudaStream_t s) {
-  const unsigned blocks = (unsigned)grid_blocks(n, GROUP);
-  switch (loss) {
-    case kLogistic:
-      fused_vgc_kernel<V, A, GROUP, kLogistic><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, grad, curv, partials, n, k, d);
-      break;
-    case kSquared:
-      fused_vgc_kernel<V, A, GROUP, kSquared><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, grad, curv, partials, n, k, d);
-      break;
-    case kPoisson:
-      fused_vgc_kernel<V, A, GROUP, kPoisson><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, grad, curv, partials, n, k, d);
-      break;
-    default:
-      fused_vgc_kernel<V, A, GROUP, kSmoothedHinge><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, grad, curv, partials, n, k, d);
-      break;
+long long tile_blocks(long long n, int k) {
+  const int rows = photon::tile::rows_per_tile(k);
+  return (n + rows - 1) / rows;
+}
+
+template <typename A>
+size_t tile_smem(int capacity, int round_granules, int rows) {
+  return photon::TileCombiner<A>::bytes(capacity) + (size_t)(round_granules + rows) * sizeof(A);
+}
+// the largest tile (k = 1: 1024 rows, 1-slot granules) fits the 48 KB a
+// launch takes without cudaFuncSetAttribute
+static_assert(photon::TileCombiner<double>::bytes(2 * photon::tile::kRoundSlots) +
+                  2 * photon::tile::kRoundSlots * sizeof(double) +
+                  kWarps * sizeof(double) <= 48 * 1024,
+              "a tile above 48 KB of shared memory needs cudaFuncSetAttribute");
+
+// One pass on the caller's stream: the (d,) output cleared, the tile
+// kernel with 4-slot granules (k % 4 == 0 and aligned bases) or 1-slot
+// ones, then the fixed-order sum of its Rows::kScalars partials per block
+// into sums.
+template <typename V, typename A, typename Rows>
+int launch_pass(void (*kernel4)(PassArgs<V, A>, Rows),
+                void (*kernel1)(PassArgs<V, A>, Rows), PassArgs<V, A> p,
+                Rows rows_of, A* sums, cudaStream_t s) {
+  namespace tile = photon::tile;
+  // a 4-slot granule of values is 32, 16 or 8 bytes: aligned to 16 or 8
+  constexpr unsigned kValueAlign = 4 * sizeof(V) < 16 ? 4 * sizeof(V) : 16;
+  const bool vec = p.k % 4 == 0 && photon::aligned(p.indices, 16) &&
+                   photon::aligned(p.values, kValueAlign);
+  p.rows_per_tile = tile::rows_per_tile(p.k);
+  p.capacity = table_capacity(p.k);
+  const long long blocks = tile_blocks(p.n, p.k);
+  const size_t smem = tile_smem<A>(
+      p.capacity, vec ? tile::kRoundGranules<4> : tile::kRoundGranules<1>, p.rows_per_tile);
+  int code = (int)cudaMemsetAsync(p.out, 0, (size_t)p.d * sizeof(A), s);
+  if (code != 0) {
+    return code;
   }
+  void (*kernel)(PassArgs<V, A>, Rows) = vec ? kernel4 : kernel1;
+  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(p, rows_of);
+  code = (int)cudaGetLastError();
+  if (code != 0) {
+    return code;
+  }
+  sum_partials_kernel<A><<<1, kFinishThreads, 0, s>>>(p.partials, blocks, Rows::kScalars, sums);
+  return (int)cudaGetLastError();
+}
+
+template <typename V, typename A, int LOSS>
+int launch_vgc_loss(const PassArgs<V, A>& p, const A* y, const A* off, const A* ew,
+                    A* curvature, A* sums, cudaStream_t s) {
+  using Rows = VgcRows<A, LOSS>;
+  return launch_pass<V, A, Rows>(fused_vgc_kernel<4, V, A, Rows>,
+                                 fused_vgc_kernel<1, V, A, Rows>, p,
+                                 Rows{y, off, ew, curvature}, sums, s);
 }
 
 template <typename V, typename A>
@@ -335,57 +519,43 @@ int launch_vgc(const void* indices, const void* values, const void* labels,
                const void* offsets, const void* ew, const void* w, void* grad,
                void* curvature, void* partials, void* out, long long n, int k,
                int d, int loss, void* stream) {
-  const int32_t* ix = static_cast<const int32_t*>(indices);
-  const V* vals = static_cast<const V*>(values);
+  const PassArgs<V, A> p{static_cast<const int32_t*>(indices), static_cast<const V*>(values),
+                         static_cast<const A*>(w), static_cast<A*>(grad),
+                         static_cast<A*>(partials), n, k, d, 0, 0};
   const A* y = static_cast<const A*>(labels);
   const A* off = static_cast<const A*>(offsets);
   const A* e = static_cast<const A*>(ew);
-  const A* ww = static_cast<const A*>(w);
-  A* g = static_cast<A*>(grad);
   A* c = static_cast<A*>(curvature);
-  A* p = static_cast<A*>(partials);
+  A* sums = static_cast<A*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = k <= 8 ? 8 : 32;
-  if (group == 8) {
-    launch_vgc_group<V, A, 8>(ix, vals, y, off, e, ww, g, c, p, n, k, d, loss, s);
-  } else {
-    launch_vgc_group<V, A, 32>(ix, vals, y, off, e, ww, g, c, p, n, k, d, loss, s);
+  switch (loss) {
+    case kLogistic:
+      return launch_vgc_loss<V, A, kLogistic>(p, y, off, e, c, sums, s);
+    case kSquared:
+      return launch_vgc_loss<V, A, kSquared>(p, y, off, e, c, sums, s);
+    case kPoisson:
+      return launch_vgc_loss<V, A, kPoisson>(p, y, off, e, c, sums, s);
+    default:
+      return launch_vgc_loss<V, A, kSmoothedHinge>(p, y, off, e, c, sums, s);
   }
-  int code = (int)cudaGetLastError();
-  if (code != 0) {
-    return code;
-  }
-  sum_partials_kernel<A><<<1, kFinishThreads, 0, s>>>(
-      p, grid_blocks(n, group), 2, static_cast<A*>(out));
-  return (int)cudaGetLastError();
 }
 
 template <typename V, typename A>
 int launch_hvp(const void* indices, const void* values, const void* curvature,
                const void* shift, const void* v, void* hv, void* partials,
                void* out, long long n, int k, int d, void* stream) {
-  const int32_t* ix = static_cast<const int32_t*>(indices);
-  const V* vals = static_cast<const V*>(values);
-  const A* c = static_cast<const A*>(curvature);
-  const A* sh = static_cast<const A*>(shift);
-  const A* vv = static_cast<const A*>(v);
-  A* h = static_cast<A*>(hv);
-  A* p = static_cast<A*>(partials);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = k <= 8 ? 8 : 32;
-  const unsigned blocks = (unsigned)grid_blocks(n, group);
-  if (group == 8) {
-    fused_hvp_kernel<V, A, 8><<<blocks, kThreads, 0, s>>>(ix, vals, c, sh, vv, h, p, n, k, d);
-  } else {
-    fused_hvp_kernel<V, A, 32><<<blocks, kThreads, 0, s>>>(ix, vals, c, sh, vv, h, p, n, k, d);
-  }
-  int code = (int)cudaGetLastError();
-  if (code != 0) {
-    return code;
-  }
-  sum_partials_kernel<A><<<1, kFinishThreads, 0, s>>>(
-      p, (long long)blocks, 1, static_cast<A*>(out));
-  return (int)cudaGetLastError();
+  using Rows = HvpRows<A>;
+  const PassArgs<V, A> p{static_cast<const int32_t*>(indices), static_cast<const V*>(values),
+                         static_cast<const A*>(v), static_cast<A*>(hv),
+                         static_cast<A*>(partials), n, k, d, 0, 0};
+  const Rows rows_of{static_cast<const A*>(curvature), static_cast<const A*>(shift)};
+  return launch_pass<V, A, Rows>(fused_hvp_kernel<4, V, A, Rows>,
+                                 fused_hvp_kernel<1, V, A, Rows>, p, rows_of,
+                                 static_cast<A*>(out), static_cast<cudaStream_t>(stream));
+}
+
+long long group_blocks(long long n, int group) {
+  return (n * group + kThreads - 1) / kThreads;
 }
 
 template <typename V, typename A, int GROUP>
@@ -393,7 +563,7 @@ void launch_hdiag_group(const int32_t* ix, const V* vals, const A* y,
                         const A* off, const A* ew, const A* w, A* dx2, A* dx,
                         A* partials, long long n, int k, int d, int loss,
                         cudaStream_t s) {
-  const unsigned blocks = (unsigned)grid_blocks(n, GROUP);
+  const unsigned blocks = (unsigned)group_blocks(n, GROUP);
   switch (loss) {
     case kLogistic:
       fused_hdiag_kernel<V, A, GROUP, kLogistic><<<blocks, kThreads, 0, s>>>(
@@ -440,7 +610,7 @@ int launch_hdiag(const void* indices, const void* values, const void* labels,
     return code;
   }
   sum_partials_kernel<A><<<1, kFinishThreads, 0, s>>>(
-      p, grid_blocks(n, group), 1, static_cast<A*>(out));
+      p, group_blocks(n, group), 1, static_cast<A*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -448,10 +618,15 @@ int launch_hdiag(const void* indices, const void* values, const void* labels,
 
 extern "C" {
 
-// scratch `partials` holds 2 * photon_fused_blocks(n, k) (vgc) or
-// photon_fused_blocks(n, k) (hvp, hdiag) elements of the compute type
+// scratch `partials` holds 2 * photon_fused_tile_blocks(n, k) (vgc) or
+// photon_fused_tile_blocks(n, k) (hvp) elements of the compute type
+long long photon_fused_tile_blocks(long long n, int k) {
+  return tile_blocks(n, k);
+}
+
+// scratch `partials` of hdiag holds photon_fused_blocks(n, k) elements
 long long photon_fused_blocks(long long n, int k) {
-  return grid_blocks(n, k <= 8 ? 8 : 32);
+  return group_blocks(n, k <= 8 ? 8 : 32);
 }
 
 #define PHOTON_FUSED_ENTRIES(SUFFIX, V, A)                                     \

@@ -27,6 +27,9 @@ dtype (so bf16 values times a float32 vector scatter in float32).
 
 from __future__ import annotations
 
+import contextlib
+from typing import Dict, Tuple
+
 import torch
 
 from photon_ml_tpu_torch.kernels import dispatch
@@ -111,9 +114,18 @@ def check_launch(kernel: str, indices, d: int, tables=(), rows=(), cols=()) -> N
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def load_entry(library: str, entry: str, argtypes):
-    """The C entry point ``entry`` of kernel library ``library`` (built at
-    first use), with its ctypes signature."""
+# (library, entry) -> (library, entry point with its signature set)
+_entries: Dict[Tuple[str, str], tuple] = {}
+
+
+def load_entry(library: str, entry: str, argtypes, restype=None):
+    """(library, the C entry point ``entry`` of kernel library ``library``
+    with its ctypes signature; ``restype`` defaults to ``c_int``). The
+    library is built at first use; each entry is resolved, and its
+    signature set, once per process."""
+    found = _entries.get((library, entry))
+    if found is not None:
+        return found
     import ctypes
 
     from photon_ml_tpu_torch.kernels import build
@@ -121,12 +133,22 @@ def load_entry(library: str, entry: str, argtypes):
     lib = build.load(library)
     fn = getattr(lib, entry)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = ctypes.c_int if restype is None else restype
+    _entries[(library, entry)] = (lib, fn)
     return lib, fn
 
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def device_scope(dev: torch.device):
+    """``torch.cuda.device(dev)`` around a launch; nothing when ``dev`` is
+    already the current device, the common case, which then costs the host
+    one query instead of two device switches."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _valid_ids(indices: torch.Tensor, d: int) -> torch.Tensor:
@@ -177,7 +199,7 @@ def ell_matvec(
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p],
     )
-    with torch.cuda.device(indices.device):
+    with device_scope(indices.device):
         code = entry(
             indices.data_ptr(), values.data_ptr(), w.data_ptr(), out.data_ptr(),
             n, k, d, stream_of(indices),
@@ -227,7 +249,7 @@ def ell_scatter_add(indices: torch.Tensor, upd: torch.Tensor, d: int) -> torch.T
         "ell_scatter_add", entry_name,
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     )
-    with torch.cuda.device(indices.device):
+    with device_scope(indices.device):
         code = entry(
             indices.data_ptr(), upd.data_ptr(), out.data_ptr(), n * k, d,
             stream_of(indices),

@@ -12,9 +12,13 @@
 
 ``GLMObjective`` applies the normalization algebra and L2 outside; those
 touch (d,) and (n,) vectors, not the design. On CUDA tensors each wrapper
-zeroes its (d,) output, launches the kernel and a fixed-order sum of the
-per-block scalar partials (or raises); on CPU tensors it runs the
-``*_reference`` function, the plain PyTorch version.
+makes one C call (or raises), which zeroes the (d,) outputs and launches
+the kernel and a fixed-order sum of the per-block scalar partials on the
+current stream; on CPU tensors it runs the ``*_reference`` function, the
+plain PyTorch version. ``fused_vgc`` and ``fused_hvp`` take tiles of whole
+rows and sum a tile's repeated columns in shared memory before they reach
+the (d,) output; ``fused_hdiag`` keeps a group of lanes per row and one
+atomic per slot, and its wrapper zeroes its outputs itself.
 
 Compute type ``result_type(values, w, labels, offsets, ew)``; taken pairs
 (values, compute): (float64, float64), (float32, float32),
@@ -29,6 +33,7 @@ import torch
 from photon_ml_tpu_torch.kernels import dispatch
 from photon_ml_tpu_torch.kernels.ell import (
     check_launch,
+    device_scope,
     ell_matvec_reference,
     ell_scatter_add_reference,
     load_entry,
@@ -114,17 +119,18 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
         return fused_value_grad_curvature_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
-    y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
+    y, off, e, w = (_as(t, cd) for t in (labels, offsets, ew, w_eff))
     check_launch(
         "fused_vgc", indices, d, tables=[("values", values)],
         rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
     )
     dev = indices.device
-    grad = torch.zeros((d,), dtype=cd, device=dev)
     curvature = torch.empty((n,), dtype=cd, device=dev)
-    sums = torch.zeros((2,), dtype=cd, device=dev)
     if n == 0:
-        return sums[0], grad, sums[1], curvature
+        sums = torch.zeros((2,), dtype=cd, device=dev)
+        return sums[0], torch.zeros((d,), dtype=cd, device=dev), sums[1], curvature
+    # the entry point clears grad on the stream before the kernel
+    grad = torch.empty((d,), dtype=cd, device=dev)
     import ctypes
 
     lib, entry = load_entry(
@@ -132,12 +138,16 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
         [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p],
     )
-    partials = torch.empty((2 * _blocks(lib, n, k),), dtype=cd, device=dev)
-    with torch.cuda.device(dev):
+    # the two sums (written by the kernels' fixed-order finish), then two
+    # partials per block
+    sums = torch.empty((2 + 2 * _blocks("photon_fused_tile_blocks", n, k),),
+                       dtype=cd, device=dev)
+    with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
             e.data_ptr(), w.data_ptr(), grad.data_ptr(), curvature.data_ptr(),
-            partials.data_ptr(), sums.data_ptr(), n, k, d, loss_id, stream_of(indices),
+            sums.data_ptr() + 2 * cd.itemsize, sums.data_ptr(), n, k, d, loss_id,
+            stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
 
@@ -174,16 +184,16 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     shift = torch.as_tensor(shift_v, dtype=cd, device=c.device)
     if not dispatch.use_kernel("fused_hvp", indices, values, c, v_eff, shift):
         return fused_hessian_vector_reference(indices, values, c, v_eff, shift, d)
-    cc, vv, sh = (t.to(cd).contiguous() for t in (c, v_eff, shift.reshape(1)))
+    cc, vv, sh = (_as(t, cd) for t in (c, v_eff, shift))
     check_launch(
         "fused_hvp", indices, d, tables=[("values", values)],
         rows=[("c", cc)], cols=[("v_eff", vv)],
     )
     dev = indices.device
-    hv = torch.zeros((d,), dtype=cd, device=dev)
-    usum = torch.zeros((1,), dtype=cd, device=dev)
     if n == 0:
-        return hv, usum[0]
+        return torch.zeros((d,), dtype=cd, device=dev), torch.zeros((), dtype=cd, device=dev)
+    # the entry point clears hv on the stream before the kernel
+    hv = torch.empty((d,), dtype=cd, device=dev)
     import ctypes
 
     lib, entry = load_entry(
@@ -191,11 +201,13 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
         [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p],
     )
-    partials = torch.empty((_blocks(lib, n, k),), dtype=cd, device=dev)
-    with torch.cuda.device(dev):
+    # the sum (written by the kernels' fixed-order finish), then one
+    # partial per block
+    usum = torch.empty((1 + _blocks("photon_fused_tile_blocks", n, k),), dtype=cd, device=dev)
+    with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), cc.data_ptr(), sh.data_ptr(),
-            vv.data_ptr(), hv.data_ptr(), partials.data_ptr(), usum.data_ptr(),
+            vv.data_ptr(), hv.data_ptr(), usum.data_ptr() + cd.itemsize, usum.data_ptr(),
             n, k, d, stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
@@ -239,7 +251,7 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
         return fused_hessian_diagonal_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
-    y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
+    y, off, e, w = (_as(t, cd) for t in (labels, offsets, ew, w_eff))
     check_launch(
         "fused_hdiag", indices, d, tables=[("values", values)],
         rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
@@ -257,8 +269,8 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
         [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p],
     )
-    partials = torch.empty((_blocks(lib, n, k),), dtype=cd, device=dev)
-    with torch.cuda.device(dev):
+    partials = torch.empty((_blocks("photon_fused_blocks", n, k),), dtype=cd, device=dev)
+    with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
             e.data_ptr(), w.data_ptr(), dx2.data_ptr(), dx.data_ptr(),
@@ -271,12 +283,18 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     return dx2, dx, csum[0]
 
 
-def _blocks(lib, n: int, k: int) -> int:
-    """Blocks of a fused launch (one scalar partial each), as the .cu
-    computes them."""
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, contiguous: ``t`` itself when it already is."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+def _blocks(entry: str, n: int, k: int) -> int:
+    """Blocks of a fused launch (the scalar partials of each), as the .cu
+    computes them: ``photon_fused_tile_blocks`` (vgc, hvp) or
+    ``photon_fused_blocks`` (hdiag)."""
     import ctypes
 
-    fn = lib.photon_fused_blocks
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
-    fn.restype = ctypes.c_longlong
+    _, fn = load_entry("fused", entry, [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong)
     return int(fn(n, k))

@@ -1,13 +1,15 @@
 """The port's kernel build keys each library by its source, every header
-under ``csrc/`` and the compiler flags, so an edited header builds anew.
-These tests only hash files: they need no ``nvcc`` and no card."""
+under ``csrc/`` and the compiler flags, so an edited header builds anew;
+the wrappers resolve each C entry point once. These tests only hash files
+and use a stand-in library: they need no ``nvcc`` and no card."""
 
+import ctypes
 import os
 import shutil
 
 import pytest
 
-from photon_ml_tpu_torch.kernels import build
+from photon_ml_tpu_torch.kernels import build, ell
 
 
 @pytest.fixture
@@ -31,7 +33,7 @@ def _append(path, text):
 def test_every_source_and_header_is_in_the_tree():
     names = set(os.listdir(build.CSRC_DIR))
     assert set(build.SOURCES.values()) <= names
-    assert "ell_common.cuh" in names
+    assert {"ell_common.cuh", "ell_tile.cuh"} <= names
 
 
 def test_unchanged_tree_gives_the_same_paths(csrc):
@@ -71,3 +73,25 @@ def test_flags_are_in_the_hash(csrc, monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     after = _paths()
     assert all(after[n] != before[n] for n in build.SOURCES)
+
+
+def test_load_entry_resolves_each_entry_once(monkeypatch):
+    class Lib:
+        """Stands in for a ctypes.CDLL: each attribute a new function."""
+
+        def __init__(self):
+            self.looked_up = []
+
+        def __getattr__(self, name):
+            self.looked_up.append(name)
+            return type("Fn", (), {"argtypes": None, "restype": None})()
+
+    lib, loads = Lib(), []
+    monkeypatch.setattr(build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(ell, "_entries", {})
+    first = ell.load_entry("fused", "photon_a", [ctypes.c_int], ctypes.c_longlong)
+    assert ell.load_entry("fused", "photon_a", [ctypes.c_void_p]) == first
+    assert first[0] is lib and loads == ["fused"] and lib.looked_up == ["photon_a"]
+    assert first[1].argtypes == [ctypes.c_int] and first[1].restype is ctypes.c_longlong
+    other = ell.load_entry("fused", "photon_b", [])
+    assert other[1].restype is ctypes.c_int and lib.looked_up == ["photon_a", "photon_b"]

@@ -159,33 +159,54 @@ def _fused_inputs(n, k, d, dt, device, seed=11):
     return labels.to(cd), offsets.to(cd), ew.to(cd), w.to(cd)
 
 
-@pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
-@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
-@pytest.mark.parametrize("n,k", SHAPES)
-def test_fused_vgc_matches_plain_version(cuda, n, k, vdt, wdt, rtol, loss):
-    d = 3001
-    idx, val64 = _ell(n, k, d, cuda)
-    val = val64.to(vdt)
-    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda)
+# the fused passes also take k = 0 (row terms from the offsets alone) and
+# rows longer than one 1024-slot round, in 4-slot granules (k = 2500) and
+# 1-slot ones (k = 4099)
+FUSED_SHAPES = SHAPES + [(300, 0), (5, 2500), (3, 4099)]
+
+
+def _check_vgc(idx, val, y, off, ew, w, d, loss, rtol):
     before = dispatch.launch_counts()["fused_vgc"]
     got = fused_value_grad_curvature(idx, val, y, off, ew, w, d, loss)
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["fused_vgc"] == before + 1
     ref = fused_value_grad_curvature_reference(idx, val, y, off, ew, w, d, loss)
-    # scales: the sums of |terms| each output element adds up
+    # scales: the sums of |terms| each output element adds up. A margin
+    # summed in another order moves by up to rtol * row_abs; that moves l
+    # by |a| row_abs / ew and a = ew l' by ew |l''| row_abs (l'' taken at
+    # z and z +- rtol * row_abs, which covers the smoothed hinge's step),
+    # times rtol, as in tests/test_torch_fused.py and chip_smoke.check_vgc:
+    # where l' cancels (z - y, e^z - y, m - 1) a's own size is no bound on
+    # its rounding
     cd = ref[1].dtype
     z = ell_matvec_reference(idx, val, w, d) + off
     a = ew * loss.d1(z, y)
-    val_scale = (ew * loss.value(z, y)).abs().sum()
-    grad_scale = ell_scatter_add_reference(idx, (val.to(cd) * a[:, None]).abs().double(), d)
     row_abs = ell_matvec_reference(idx, val.abs().double(), w.abs().double(), d) + off.abs()
-    c_scale = (ew * loss.d2(z + row_abs.to(cd), y)).abs() + (ew * loss.d2(z, y)).abs()
+    dz = (rtol * row_abs).to(cd)
+    d2_near = sum((ew * loss.d2(z + t, y)).abs().double() for t in (-dz, 0 * dz, dz))
+    a_abs = a.abs().double() + d2_near * row_abs
+    val_scale = ((ew * loss.value(z, y)).abs().double() + a.abs().double() * row_abs).sum()
+    grad_scale = ell_scatter_add_reference(idx, val.to(cd).abs().double() * a_abs[:, None], d)
+    # in f64: e^(z + row_abs) of a long Poisson row passes the f32 range
+    c_scale = ((ew.double() * loss.d2(z.double() + row_abs, y.double())).abs()
+               + (ew * loss.d2(z, y)).abs().double())
     assert _within(got[0], ref[0], val_scale, rtol)
     assert _within(got[1], ref[1], grad_scale, rtol)
-    assert _within(got[2], ref[2], a.abs().sum(), rtol)
-    assert got[3].shape == (n,) and bool(torch.isfinite(got[3]).all())
+    assert _within(got[2], ref[2], a_abs.sum(), rtol)
+    assert got[3].shape == (idx.shape[0],) and bool(torch.isfinite(got[3]).all())
     if loss is not SMOOTHED_HINGE_LOSS:  # its l'' is a step in the margin
         assert _within(got[3], ref[3], c_scale, max(rtol, 1e-10) * 10)
+    return got
+
+
+@pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("n,k", FUSED_SHAPES)
+def test_fused_vgc_matches_plain_version(cuda, n, k, vdt, wdt, rtol, loss):
+    d = 3001
+    idx, val64 = _ell(n, k, d, cuda)
+    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda)
+    _check_vgc(idx, val64.to(vdt), y, off, ew, w, d, loss, rtol)
 
 
 def test_fused_vgc_scalars_are_run_to_run_stable(cuda):
@@ -198,24 +219,29 @@ def test_fused_vgc_scalars_are_run_to_run_stable(cuda):
         assert torch.equal(first[0], again[0]) and torch.equal(first[2], again[2])
 
 
-@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
-@pytest.mark.parametrize("n,k", SHAPES)
-def test_fused_hvp_matches_plain_version(cuda, n, k, vdt, wdt, rtol):
-    d = 3001
-    idx, val64 = _ell(n, k, d, cuda)
-    val = val64.to(vdt)
-    _, _, c, v = _fused_inputs(n, k, d, vdt, cuda, seed=5)
-    shift = torch.tensor(0.3, device=cuda, dtype=c.dtype)
+def _check_hvp(idx, val, c, v, shift, d, rtol):
     before = dispatch.launch_counts()["fused_hvp"]
     hv, usum = fused_hessian_vector(idx, val, c, v, shift, d)
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["fused_hvp"] == before + 1
     ref_hv, ref_usum = fused_hessian_vector_reference(idx, val, c, v, shift, d)
-    zv_abs = ell_matvec_reference(idx, val.abs().double(), v.abs().double(), d) + 0.3
+    zv_abs = ell_matvec_reference(idx, val.abs().double(), v.abs().double(), d) + shift.abs()
     u_abs = c.abs().double() * zv_abs
     hv_scale = ell_scatter_add_reference(idx, val.abs().double() * u_abs[:, None], d)
+    assert hv.dtype == ref_hv.dtype and hv.shape == (d,) and usum.shape == ()
     assert _within(hv, ref_hv, hv_scale, rtol)
     assert _within(usum, ref_usum, u_abs.sum(), rtol)
+    return hv, usum
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("n,k", FUSED_SHAPES)
+def test_fused_hvp_matches_plain_version(cuda, n, k, vdt, wdt, rtol):
+    d = 3001
+    idx, val64 = _ell(n, k, d, cuda)
+    _, _, c, v = _fused_inputs(n, k, d, vdt, cuda, seed=5)
+    shift = torch.tensor(0.3, device=cuda, dtype=c.dtype)
+    _check_hvp(idx, val64.to(vdt), c, v, shift, d, rtol)
 
 
 from photon_ml_tpu_torch.kernels.fused import (  # noqa: E402
@@ -421,3 +447,100 @@ def test_matvec_of_zero_slots_is_zero(cuda):
     val = torch.zeros((300, 0), dtype=torch.float64, device=cuda)
     got = ell_matvec(idx, val, torch.ones(5, dtype=torch.float64, device=cuda), 5)
     assert got.shape == (300,) and not got.any()
+
+
+# -- the fused passes' tiles: the combiner, the granules, the scalars' bits ---
+
+
+@pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+def test_fused_vgc_designs_match_plain_version(cuda, design, vdt, wdt, rtol, loss):
+    idx, val64, d = DESIGNS[design](cuda)
+    y, off, ew, w = _fused_inputs(idx.shape[0], idx.shape[1], d, vdt, cuda)
+    _check_vgc(idx, val64.to(vdt), y, off, ew, w, d, loss, rtol)
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+def test_fused_hvp_designs_match_plain_version(cuda, design, vdt, wdt, rtol):
+    idx, val64, d = DESIGNS[design](cuda)
+    _, _, c, v = _fused_inputs(idx.shape[0], idx.shape[1], d, vdt, cuda, seed=5)
+    shift = torch.tensor(-0.2, device=cuda, dtype=c.dtype)
+    _check_hvp(idx, val64.to(vdt), c, v, shift, d, rtol)
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", ["criteo_hot", "uniform", "long_rows", "misaligned"])
+def test_fused_scalars_have_the_same_bits_from_run_to_run(cuda, design, vdt, wdt, rtol):
+    if design == "uniform":
+        idx, val64, d = (*_ell(20011, 40, 3001, cuda), 3001)
+    elif design == "long_rows":
+        idx, val64, d = (*_ell(7, 4099, 3001, cuda), 3001)
+    else:
+        idx, val64, d = DESIGNS[design](cuda)
+    n, k = idx.shape
+    val = val64.to(vdt)
+    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda)
+    shift = torch.tensor(0.1, device=cuda, dtype=w.dtype)
+    first = _check_vgc(idx, val, y, off, ew, w, d, LOGISTIC_LOSS, rtol)
+    hv, usum = _check_hvp(idx, val, ew, w, shift, d, rtol)
+    for _ in range(3):
+        again = fused_value_grad_curvature(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[2], again[2])
+        assert torch.equal(first[3], again[3])  # per row, no atomics
+        assert torch.equal(usum, fused_hessian_vector(idx, val, ew, w, shift, d)[1])
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", ["criteo_hot", "uniform", "misaligned_k5", "long_rows"])
+def test_fused_vgc_gradient_matches_its_own_margins(cuda, design, vdt, wdt, rtol):
+    # ell_matvec sums each row in the fused pass's granule order, so with
+    # the squared loss (a = ew (z - y), the same operations in both) the
+    # gradient is held at the sum of |v a| alone: no allowance for the
+    # margin's rounding, which _check_vgc's scale has to carry
+    if design == "uniform":
+        idx, val64, d = (*_ell(20011, 40, 3001, cuda), 3001)
+    elif design == "long_rows":
+        idx, val64, d = (*_ell(7, 4099, 3001, cuda), 3001)
+    else:
+        idx, val64, d = DESIGNS[design](cuda)
+    n, k = idx.shape
+    val = val64.to(vdt)
+    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda)
+    got = fused_value_grad_curvature(idx, val, y, off, ew, w, d, SQUARED_LOSS)
+    a = ew * SQUARED_LOSS.d1(ell_matvec(idx, val, w, d) + off, y)
+    v = val.to(a.dtype).double()
+    upd = v * a.double()[:, None]
+    ref = ell_scatter_add_reference(idx, upd, d)
+    assert _within(got[1], ref, ell_scatter_add_reference(idx, upd.abs(), d), rtol)
+    assert _within(got[2], a.double().sum(), a.double().abs().sum(), rtol)
+
+
+def test_fused_hvp_one_column_sums_every_slot(cuda):
+    # 2^17 slots on one column, every sum exact in f64: one global atomic
+    # per tile, the rest in shared memory
+    n, k = 4096, 32
+    idx = torch.full((n, k), 7, dtype=torch.int32, device=cuda)
+    val = torch.full((n, k), 0.5, dtype=torch.float64, device=cuda)
+    c = torch.ones(n, dtype=torch.float64, device=cuda)
+    v = torch.zeros(9, dtype=torch.float64, device=cuda)
+    v[7] = 1.0
+    hv, usum = fused_hessian_vector(idx, val, c, v, torch.tensor(0.0, device=cuda), 9)
+    # zv_i = 32 * 0.5 = 16 = u_i; hv_7 = n * 32 * 0.5 * 16
+    assert hv.tolist() == [0.0] * 7 + [256.0 * n, 0.0] and float(usum) == 16.0 * n
+
+
+def test_fused_passes_of_zero_slots_give_the_row_terms(cuda):
+    n, d = 2000, 5
+    idx = torch.zeros((n, 0), dtype=torch.int32, device=cuda)
+    val = torch.zeros((n, 0), dtype=torch.float64, device=cuda)
+    y, off, ew, w = _fused_inputs(n, 0, d, torch.float64, cuda)
+    val_, grad, asum, curv = fused_value_grad_curvature(idx, val, y, off, ew, w, d,
+                                                        LOGISTIC_LOSS)
+    ref = fused_value_grad_curvature_reference(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
+    assert not grad.any() and _within(curv, ref[3], ref[3].abs(), 1e-12)
+    assert _within(val_, ref[0], (ew * LOGISTIC_LOSS.value(off, y)).abs().sum(), 1e-12)
+    assert _within(asum, ref[2], (ew * LOGISTIC_LOSS.d1(off, y)).abs().sum(), 1e-12)
+    hv, usum = fused_hessian_vector(idx, val, ew, w, torch.tensor(0.5, device=cuda), d)
+    assert not hv.any() and _within(usum, 0.5 * ew.sum(), ew.sum(), 1e-12)

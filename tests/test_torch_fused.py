@@ -56,7 +56,6 @@ EDGES = [
 
 
 def _inputs(rng, n, k, d, pad, pad_rows, dup, dtype):
-    (jv, tv), (nc, tc) = DTYPES[dtype]
     idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
     val = rng.standard_normal((n, k))
     if pad:
@@ -69,6 +68,14 @@ def _inputs(rng, n, k, d, pad, pad_rows, dup, dtype):
         idx[::2, 1] = idx[::2, 0]
     if dtype == "bfloat16":
         val = np.array(jnp.asarray(val, jnp.bfloat16).astype(jnp.float32))
+    return _with_rows(rng, idx, val, d, dtype)
+
+
+def _with_rows(rng, idx, val, d, dtype):
+    """Seeded labels, offsets, weights and coefficients for a design, and
+    every input as JAX and as torch arrays."""
+    (jv, tv), (nc, tc) = DTYPES[dtype]
+    n = idx.shape[0]
     y = (rng.uniform(size=n) < 0.5).astype(np.float64)
     off = 0.2 * rng.standard_normal(n)
     ew = rng.uniform(0.5, 2.0, size=n)
@@ -127,7 +134,11 @@ def test_vgc_edge_shapes_match_jax(rng, case, dtype):
 
 def _run_vgc(rng, case, loss, dtype):
     n, k, d, pad, pad_rows, dup = case
-    idx, val, rows, jax_in, torch_in = _inputs(rng, n, k, d, pad, pad_rows, dup, dtype)
+    _vgc_against_jax(*_inputs(rng, n, k, d, pad, pad_rows, dup, dtype), d, loss, dtype)
+
+
+def _vgc_against_jax(idx, val, rows, jax_in, torch_in, d, loss, dtype):
+    n = idx.shape[0]
     pallas = jax_fused.fused_value_grad_curvature(*jax_in, d, JAX_LOSS[loss])
     # the XLA route: margins by gather, the gradient by scatter-add
     sf = jax_sparse.SparseFeatures(jax_in[0], jax_in[1], d)
@@ -160,7 +171,10 @@ HVP_CASES = [MIXED] + EDGES
                          ids=["mixed", "k1", "all_padding", "duplicates", "criteo_width"])
 def test_hvp_matches_jax_pallas_and_xla(rng, case, dtype):
     n, k, d, pad, pad_rows, dup = case
-    idx, val, rows, jax_in, torch_in = _inputs(rng, n, k, d, pad, pad_rows, dup, dtype)
+    _hvp_against_jax(*_inputs(rng, n, k, d, pad, pad_rows, dup, dtype), d, dtype)
+
+
+def _hvp_against_jax(idx, val, rows, jax_in, torch_in, d, dtype):
     _, _, ew, v = rows  # curvature weights c >= 0 and the CG direction
     shift = 0.25
     j_c, j_v = jnp.asarray(ew), jnp.asarray(v)
@@ -181,6 +195,53 @@ def test_hvp_matches_jax_pallas_and_xla(rng, case, dtype):
         out = got[i].to(torch.float64).numpy()
         _close(out, np.asarray(pallas[i], np.float64), scale, RTOL[dtype])
         _close(out, np.asarray(xla[i], np.float64), scale, RTOL[dtype])
+
+
+# -- a hot-column design in the Criteo layout ---------------------------------
+
+
+def _criteo_like(rng, n, d, dtype):
+    """(indices, values) in the Criteo layout over d columns: 13 integer
+    fields on fixed columns and the intercept (column d - 1), all named by
+    every row, 26 categorical fields with Zipf(1.2) categories hashed into
+    [0, d - 1) (the head categories are named by many rows, and two fields
+    may share a column), and a trailing padding slot in every third row
+    (the others hold a duplicate of a category). As in test_torch_ell.py."""
+    int_cols = rng.choice(d - 1, 13, replace=False)
+    cats = rng.zipf(1.2, size=(n, 26)) % 1_000_003
+    cat_cols = (cats * 2_654_435_761 + np.arange(26) * 7919) % (d - 1)
+    idx = np.concatenate(
+        [np.broadcast_to(int_cols, (n, 13)), cat_cols, np.full((n, 1), d - 1),
+         np.full((n, 1), d)], axis=1).astype(np.int32)
+    counts = rng.geometric(0.05, size=(n, 13)) - 1
+    val = np.concatenate(
+        [np.log1p(counts), np.ones((n, 26)), np.ones((n, 1)), np.zeros((n, 1))], axis=1)
+    idx[1::3, -1] = idx[1::3, 20]
+    val[1::3, -1] = 0.5
+    if dtype == "bfloat16":
+        val = np.array(jnp.asarray(val, jnp.bfloat16).astype(jnp.float32))
+    return idx, val
+
+
+HOT_VGC_CASES = [(96, "logistic")] + [(301, loss) for loss in LOSSES]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("n,loss", HOT_VGC_CASES)
+def test_vgc_hot_columns_match_jax(rng, n, loss, dtype):
+    d = 513
+    idx, val = _criteo_like(rng, n, d, dtype)
+    # the intercept and the integer fields are named by every row
+    assert np.count_nonzero(np.bincount(idx[idx < d], minlength=d) >= n) >= 14
+    _vgc_against_jax(*_with_rows(rng, idx, val, d, dtype), d, loss, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("n", [96, 301])
+def test_hvp_hot_columns_match_jax(rng, n, dtype):
+    d = 513
+    idx, val = _criteo_like(rng, n, d, dtype)
+    _hvp_against_jax(*_with_rows(rng, idx, val, d, dtype), d, dtype)
 
 
 def test_vgc_of_an_empty_batch(rng):
