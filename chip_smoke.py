@@ -334,11 +334,14 @@ def kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K)
 
 # -- phase 4: the training kernels against their plain versions --------------
 
-# (values dtype, compute dtype, stated rtol) for the fused passes
+# (values dtype, compute dtype, rtol against the plain version in the
+# compute type, rtol against the plain version in f64) for the fused
+# passes: in f32 the plain version's own rounding takes more of the scale
+# than the kernel's, so the kernel's own error is held to 1e-6 against f64
 FUSED_CASES = [
-    ("f64", torch.float64, torch.float64, 1e-12),
-    ("f32", torch.float32, torch.float32, 1e-5),
-    ("bf16xf32", torch.bfloat16, torch.float32, 1e-2),
+    ("f64", torch.float64, torch.float64, 1e-12, 1e-12),
+    ("f32", torch.float32, torch.float32, 1e-5, 1e-6),
+    ("bf16xf32", torch.bfloat16, torch.float32, 1e-2, 1e-2),
 ]
 SCATTER_CASES = [("f64", torch.float64, 1e-12), ("f32", torch.float32, 1e-5)]
 SOURCES = {
@@ -547,14 +550,15 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None, hdiag=True):
         if kernel != "fused_hdiag":
             results[-1]["max_err_share_vs_f64"] = share64
 
-    for dtype_label, vdt, cd, rtol in FUSED_CASES if cases is None else cases:
+    for dtype_label, vdt, cd, rtol, rtol64 in FUSED_CASES if cases is None else cases:
         vals = vals64.to(vdt)
         y, off, ew, w = row_inputs(n, d, cd, idx.device)
         s, sc = vals.element_size(), cd.itemsize
         max_err, ok, share, share64 = check_vgc(idx, vals, y, off, ew, w, d, rtol)
+        ok = ok and share64 <= rtol64
         log(f"[{label}] fused_vgc {dtype_label}: max |kernel - plain| = {max_err:.3e} "
             f"(rtol {rtol:g} x sum of |terms|; {share:.2e} of it, {share64:.2e} against "
-            f"the plain version in f64): {'ok' if ok else 'DISAGREES'}")
+            f"the plain version in f64, rtol {rtol64:g}): {'ok' if ok else 'DISAGREES'}")
         if not ok:
             raise AssertionError(f"fused_vgc {dtype_label} ({label}) disagrees with its "
                                  f"plain version")
@@ -570,9 +574,10 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None, hdiag=True):
         c = vgc()[3]
         shift = torch.tensor(0.05, dtype=cd, device=idx.device)
         max_err, ok, share, share64 = check_hvp(idx, vals, c, w, shift, d, rtol)
+        ok = ok and share64 <= rtol64
         log(f"[{label}] fused_hvp {dtype_label}: max |kernel - plain| = {max_err:.3e} "
             f"(rtol {rtol:g} x sum of |terms|; {share:.2e} of it, {share64:.2e} against "
-            f"the plain version in f64): {'ok' if ok else 'DISAGREES'}")
+            f"the plain version in f64, rtol {rtol64:g}): {'ok' if ok else 'DISAGREES'}")
         if not ok:
             raise AssertionError(f"fused_hvp {dtype_label} ({label}) disagrees with its "
                                  f"plain version")

@@ -19,43 +19,42 @@
 // gather that waits on it, with little in flight per warp.
 //
 // Design: each block takes a tile of whole rows, a contiguous span of the
-// design, cut into granules of GS slots (GS = 4 when k % 4 == 0 and the
-// bases are aligned, so a granule never crosses a row; else GS = 1). Each
-// thread first issues all the loads of its U granules, 16-byte ids and
-// 32, 16 or 8 bytes of values per granule under the streaming hint (each
-// warp on one contiguous span, so every lane works whatever k is), then all
-// their gathers of w through the read-only path, then the products: one
-// partial per granule, in slot order, into shared memory. After a barrier
-// one thread per row adds its row's partials in granule order and the
-// block writes its rows, once each, with no atomics. The order of every
-// sum is fixed, so the result has the same bits from run to run. A row
-// longer than a tile's granule budget spans several rounds, each added to
-// the row's running sum in order. Offsets are 64-bit (n*k passes 2^31 at
-// depth). Nothing is allocated here; the launch goes on the caller's
-// stream and does not synchronise. Each entry point returns
-// cudaGetLastError().
+// design, through the granule loads, gathers and fixed-order row sums of
+// ell_tile.cuh (4-slot granules when k % 4 == 0 and the bases are aligned,
+// else 1-slot; 4 or 8 granules per thread per round): 16-byte streaming
+// loads of ids and values, then the gathers of w through the read-only
+// path, then one partial per granule into shared memory, which one thread
+// per row adds in granule order. The block writes its rows, once each,
+// with no atomics. The order of every sum is fixed, so the result has the
+// same bits from run to run, and a row's sum those of the fused passes'
+// margins (fused.cu). A row longer than a round spans several rounds, each
+// added to the row's running sum in order. Nothing is allocated here; the
+// launch goes on the caller's stream and does not synchronise. Each entry
+// point returns cudaGetLastError().
 
-#include "ell_common.cuh"
+#include "ell_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+namespace tile = photon::tile;
+constexpr int kThreads = tile::kThreads;
 
-// granules per thread per round: fewer when a granule is 4 slots
+// granules per thread per round: fewer when a granule is 4 slots. A tile
+// here keeps no slots for a scatter, so it holds more than a fused pass's
 template <int GS>
 constexpr int kUnroll = GS == 1 ? 8 : 4;
 
-template <typename V, typename W, typename Acc, int GS>
+template <typename V, typename A, int GS>
 __global__ void __launch_bounds__(kThreads)
 ell_matvec_kernel(const int32_t* __restrict__ indices,
                   const V* __restrict__ values,
-                  const W* __restrict__ w,
-                  Acc* __restrict__ out,
+                  const A* __restrict__ w,
+                  A* __restrict__ out,
                   long long n, int k, int d, int rows_per_tile) {
   constexpr int U = kUnroll<GS>;
   constexpr int kRound = kThreads * U;  // granules per round
-  __shared__ Acc part[kRound];
-  __shared__ Acc row_acc[kRound];       // rows_per_tile <= kRound
+  __shared__ A part[kRound];
+  __shared__ A row_acc[kRound];         // rows_per_tile <= kRound
   const int kg = k / GS;                // granules per row
   const long long r0 = (long long)blockIdx.x * rows_per_tile;
   const int rows = (int)min((long long)rows_per_tile, n - r0);
@@ -63,56 +62,15 @@ ell_matvec_kernel(const int32_t* __restrict__ indices,
   const int32_t* tile_ids = indices + r0 * k;
   const V* tile_vals = values + r0 * k;
   for (int r = threadIdx.x; r < rows; r += kThreads) {
-    row_acc[r] = Acc(0);
+    row_acc[r] = A(0);
   }
   for (long long g0 = 0; g0 < granules; g0 += kRound) {
     int32_t c[U][GS];
-    Acc v[U][GS];
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      const long long g = g0 + j * kThreads + threadIdx.x;
-      if (g < granules) {
-        photon::load_cs<GS>(tile_ids + g * GS, c[j]);
-        photon::load_cs<GS>(tile_vals + g * GS, v[j]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < GS; ++e) {
-          c[j][e] = -1;
-          v[j][e] = Acc(0);
-        }
-      }
-    }
-    Acc wc[U][GS];
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-#pragma unroll
-      for (int e = 0; e < GS; ++e) {
-        wc[j][e] = (unsigned)c[j][e] < (unsigned)d ? Acc(__ldg(w + c[j][e])) : Acc(0);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      Acc s = v[j][0] * wc[j][0];
-#pragma unroll
-      for (int e = 1; e < GS; ++e) {
-        s += v[j][e] * wc[j][e];
-      }
-      part[j * kThreads + threadIdx.x] = s;
-    }
+    A v[U][GS];
+    tile::load_round(tile_ids, tile_vals, g0, granules, c, v);
+    tile::round_partials(c, v, w, d, part);
     __syncthreads();
-    // each row meeting this round adds its granules of it, in order
-    const long long g_end = min(g0 + kRound, granules);
-    const int r_first = (int)(g0 / kg);
-    const int r_last = (int)((g_end - 1) / kg);
-    for (int r = r_first + threadIdx.x; r <= r_last; r += kThreads) {
-      const long long lo = max((long long)r * kg, g0);
-      const long long hi = min((long long)(r + 1) * kg, g_end);
-      Acc s = row_acc[r];
-      for (long long g = lo; g < hi; ++g) {
-        s += part[g - g0];
-      }
-      row_acc[r] = s;
-    }
+    tile::add_row_partials<kRound>(part, g0, granules, kg, row_acc);
     __syncthreads();
   }
   for (int r = threadIdx.x; r < rows; r += kThreads) {
@@ -120,31 +78,32 @@ ell_matvec_kernel(const int32_t* __restrict__ indices,
   }
 }
 
-template <typename V, typename W, typename Acc, int GS>
-void launch_tiles(const int32_t* indices, const V* values, const W* w, Acc* out,
+template <typename V, typename A, int GS>
+void launch_tiles(const int32_t* indices, const V* values, const A* w, A* out,
                   long long n, int k, int d, cudaStream_t stream) {
   constexpr int kRound = kThreads * kUnroll<GS>;
   const int kg = k / GS;
   const int rows_per_tile = kg == 0 ? kRound : (kg >= kRound ? 1 : kRound / kg);
   const long long blocks = (n + rows_per_tile - 1) / rows_per_tile;
-  ell_matvec_kernel<V, W, Acc, GS><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  ell_matvec_kernel<V, A, GS><<<(unsigned)blocks, kThreads, 0, stream>>>(
       indices, values, w, out, n, k, d, rows_per_tile);
 }
 
-template <typename V, typename W, typename Acc>
+// w is in the compute type A: (f64, f64), (f32, f32), (bf16 values, f32)
+template <typename V, typename A>
 int launch(const void* indices, const void* values, const void* w, void* out,
            long long n, int k, int d, void* stream) {
   const int32_t* ix = static_cast<const int32_t*>(indices);
   const V* v = static_cast<const V*>(values);
-  const W* ww = static_cast<const W*>(w);
-  Acc* o = static_cast<Acc*>(out);
+  const A* ww = static_cast<const A*>(w);
+  A* o = static_cast<A*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // a 4-slot granule of values is 32, 16 or 8 bytes: aligned to 16 or 8
   constexpr unsigned kValueAlign = 4 * sizeof(V) < 16 ? 4 * sizeof(V) : 16;
   if (k % 4 == 0 && photon::aligned(ix, 16) && photon::aligned(v, kValueAlign)) {
-    launch_tiles<V, W, Acc, 4>(ix, v, ww, o, n, k, d, s);
+    launch_tiles<V, A, 4>(ix, v, ww, o, n, k, d, s);
   } else {
-    launch_tiles<V, W, Acc, 1>(ix, v, ww, o, n, k, d, s);
+    launch_tiles<V, A, 1>(ix, v, ww, o, n, k, d, s);
   }
   return (int)cudaGetLastError();
 }
@@ -156,19 +115,19 @@ extern "C" {
 int photon_ell_matvec_f64(const void* indices, const void* values,
                           const void* w, void* out, long long n, int k, int d,
                           void* stream) {
-  return launch<double, double, double>(indices, values, w, out, n, k, d, stream);
+  return launch<double, double>(indices, values, w, out, n, k, d, stream);
 }
 
 int photon_ell_matvec_f32(const void* indices, const void* values,
                           const void* w, void* out, long long n, int k, int d,
                           void* stream) {
-  return launch<float, float, float>(indices, values, w, out, n, k, d, stream);
+  return launch<float, float>(indices, values, w, out, n, k, d, stream);
 }
 
 int photon_ell_matvec_bf16_f32(const void* indices, const void* values,
                                const void* w, void* out, long long n, int k,
                                int d, void* stream) {
-  return launch<__nv_bfloat16, float, float>(indices, values, w, out, n, k, d, stream);
+  return launch<__nv_bfloat16, float>(indices, values, w, out, n, k, d, stream);
 }
 
 const char* photon_cuda_error_string(int code) {

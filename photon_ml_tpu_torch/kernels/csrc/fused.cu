@@ -297,7 +297,7 @@ __device__ __forceinline__ void fused_pass(const PassArgs<V, A>& p, const Rows& 
     tile::load_round<GS>(tile_ids, tile_vals, g0, granules, c, v);
     tile::round_partials<GS>(c, v, p.t, p.d, part);
     __syncthreads();
-    tile::add_row_partials<GS>(part, g0, granules, kg, row_acc);
+    tile::add_row_partials<kRound>(part, g0, granules, kg, row_acc);
     __syncthreads();
     g_last = g0;
   }

@@ -119,7 +119,7 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
         return fused_value_grad_curvature_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
-    y, off, e, w = (_as(t, cd) for t in (labels, offsets, ew, w_eff))
+    y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
     check_launch(
         "fused_vgc", indices, d, tables=[("values", values)],
         rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
@@ -184,7 +184,7 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     shift = torch.as_tensor(shift_v, dtype=cd, device=c.device)
     if not dispatch.use_kernel("fused_hvp", indices, values, c, v_eff, shift):
         return fused_hessian_vector_reference(indices, values, c, v_eff, shift, d)
-    cc, vv, sh = (_as(t, cd) for t in (c, v_eff, shift))
+    cc, vv, sh = (t.to(cd).contiguous() for t in (c, v_eff, shift))
     check_launch(
         "fused_hvp", indices, d, tables=[("values", values)],
         rows=[("c", cc)], cols=[("v_eff", vv)],
@@ -251,7 +251,7 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
         return fused_hessian_diagonal_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
-    y, off, e, w = (_as(t, cd) for t in (labels, offsets, ew, w_eff))
+    y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
     check_launch(
         "fused_hdiag", indices, d, tables=[("values", values)],
         rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
@@ -281,13 +281,6 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     build.check(lib, code, "fused_hdiag launch")
     dispatch.count_launch("fused_hdiag")
     return dx2, dx, csum[0]
-
-
-def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` in ``dtype``, contiguous: ``t`` itself when it already is."""
-    if t.dtype == dtype and t.is_contiguous():
-        return t
-    return t.to(dtype).contiguous()
 
 
 def _blocks(entry: str, n: int, k: int) -> int:

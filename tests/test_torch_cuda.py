@@ -165,37 +165,46 @@ def _fused_inputs(n, k, d, dt, device, seed=11):
 FUSED_SHAPES = SHAPES + [(300, 0), (5, 2500), (3, 4099)]
 
 
+def _vgc_on_margins(idx, val, y, ew, z, d, loss):
+    """The plain version of fused_vgc on the margins z: the row terms in
+    the compute type, as the kernel computes them, every sum in f64."""
+    a = ew * loss.d1(z, y)
+    upd = (val.to(a.dtype) * a[:, None]).double()
+    return ((ew * loss.value(z, y)).double().sum(), ell_scatter_add_reference(idx, upd, d),
+            a.double().sum(), ew * loss.d2(z, y))
+
+
 def _check_vgc(idx, val, y, off, ew, w, d, loss, rtol):
+    """The four outputs against the plain version on the kernel's own
+    margins. ``ell_matvec`` sums each row in the fused pass's granule
+    order, and its margins are first held to the plain version's. Where l'
+    cancels (z - y, e^z - y, m - 1) a margin summed in another order moves
+    a by more than a's own size, and a long row's e^z by more than rtol:
+    so the plain version's row terms are taken on those margins, in the
+    compute type as the kernel takes them, and summed in f64."""
     before = dispatch.launch_counts()["fused_vgc"]
     got = fused_value_grad_curvature(idx, val, y, off, ew, w, d, loss)
     torch.cuda.synchronize()
     assert dispatch.launch_counts()["fused_vgc"] == before + 1
-    ref = fused_value_grad_curvature_reference(idx, val, y, off, ew, w, d, loss)
-    # scales: the sums of |terms| each output element adds up. A margin
-    # summed in another order moves by up to rtol * row_abs; that moves l
-    # by |a| row_abs / ew and a = ew l' by ew |l''| row_abs (l'' taken at
-    # z and z +- rtol * row_abs, which covers the smoothed hinge's step),
-    # times rtol, as in tests/test_torch_fused.py and chip_smoke.check_vgc:
-    # where l' cancels (z - y, e^z - y, m - 1) a's own size is no bound on
-    # its rounding
-    cd = ref[1].dtype
-    z = ell_matvec_reference(idx, val, w, d) + off
-    a = ew * loss.d1(z, y)
+    cd = got[1].dtype
+    z = ell_matvec(idx, val, w, d) + off
     row_abs = ell_matvec_reference(idx, val.abs().double(), w.abs().double(), d) + off.abs()
-    dz = (rtol * row_abs).to(cd)
-    d2_near = sum((ew * loss.d2(z + t, y)).abs().double() for t in (-dz, 0 * dz, dz))
-    a_abs = a.abs().double() + d2_near * row_abs
-    val_scale = ((ew * loss.value(z, y)).abs().double() + a.abs().double() * row_abs).sum()
-    grad_scale = ell_scatter_add_reference(idx, val.to(cd).abs().double() * a_abs[:, None], d)
-    # in f64: e^(z + row_abs) of a long Poisson row passes the f32 range
+    assert _within(z, ell_matvec_reference(idx, val, w, d) + off, row_abs, rtol)
+    ref = _vgc_on_margins(idx, val, y, ew, z, d, loss)
+    # scales: the sums of |terms| each output element adds up
+    a = ew * loss.d1(z, y)
+    val_scale = (ew * loss.value(z, y)).abs().sum()
+    grad_scale = ell_scatter_add_reference(idx, (val.to(cd) * a[:, None]).abs().double(), d)
+    # in f64: a long Poisson row's e^(z + row_abs) passes the f32 range
     c_scale = ((ew.double() * loss.d2(z.double() + row_abs, y.double())).abs()
                + (ew * loss.d2(z, y)).abs().double())
     assert _within(got[0], ref[0], val_scale, rtol)
     assert _within(got[1], ref[1], grad_scale, rtol)
-    assert _within(got[2], ref[2], a_abs.sum(), rtol)
+    assert _within(got[2], ref[2], a.abs().sum(), rtol)
     assert got[3].shape == (idx.shape[0],) and bool(torch.isfinite(got[3]).all())
-    if loss is not SMOOTHED_HINGE_LOSS:  # its l'' is a step in the margin
-        assert _within(got[3], ref[3], c_scale, max(rtol, 1e-10) * 10)
+    # the smoothed hinge's l'' is a step in the margin: the same margins
+    # take the same step
+    assert _within(got[3], ref[3], c_scale, max(rtol, 1e-10) * 10)
     return got
 
 
@@ -490,31 +499,6 @@ def test_fused_scalars_have_the_same_bits_from_run_to_run(cuda, design, vdt, wdt
         assert torch.equal(first[0], again[0]) and torch.equal(first[2], again[2])
         assert torch.equal(first[3], again[3])  # per row, no atomics
         assert torch.equal(usum, fused_hessian_vector(idx, val, ew, w, shift, d)[1])
-
-
-@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
-@pytest.mark.parametrize("design", ["criteo_hot", "uniform", "misaligned_k5", "long_rows"])
-def test_fused_vgc_gradient_matches_its_own_margins(cuda, design, vdt, wdt, rtol):
-    # ell_matvec sums each row in the fused pass's granule order, so with
-    # the squared loss (a = ew (z - y), the same operations in both) the
-    # gradient is held at the sum of |v a| alone: no allowance for the
-    # margin's rounding, which _check_vgc's scale has to carry
-    if design == "uniform":
-        idx, val64, d = (*_ell(20011, 40, 3001, cuda), 3001)
-    elif design == "long_rows":
-        idx, val64, d = (*_ell(7, 4099, 3001, cuda), 3001)
-    else:
-        idx, val64, d = DESIGNS[design](cuda)
-    n, k = idx.shape
-    val = val64.to(vdt)
-    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda)
-    got = fused_value_grad_curvature(idx, val, y, off, ew, w, d, SQUARED_LOSS)
-    a = ew * SQUARED_LOSS.d1(ell_matvec(idx, val, w, d) + off, y)
-    v = val.to(a.dtype).double()
-    upd = v * a.double()[:, None]
-    ref = ell_scatter_add_reference(idx, upd, d)
-    assert _within(got[1], ref, ell_scatter_add_reference(idx, upd.abs(), d), rtol)
-    assert _within(got[2], a.double().sum(), a.double().abs().sum(), rtol)
 
 
 def test_fused_hvp_one_column_sums_every_slot(cuda):
