@@ -18,12 +18,15 @@ whenever any phase fails. Phases, in order:
    shape — ``ell_scatter_add`` (f64, f32 updates; yardstick
    ``index_add_``), ``fused_vgc`` (logistic loss), ``fused_hvp`` (beside
    it a composite of library calls: ``torch.mv`` on CSR, elementwise,
-   ``torch.mv`` on the transposed CSR) and ``fused_hdiag`` (logistic loss)
-   in the three dtype pairs — with times against the HBM bound, and the
-   fused passes' scalars held to the same bits over 3 calls; then
-   ``ell_scatter_add``, ``fused_vgc`` and ``fused_hvp`` (f64, f32) again
-   on the same design with 14 columns named by every row (the Criteo
-   layout's hot columns);
+   ``torch.mv`` on the transposed CSR) and ``fused_hdiag`` (logistic loss;
+   beside it a composite: ``torch.mv`` on CSR, the curvature, ``torch.mv``
+   on the transposed CSR of the squares and of the values, a sum) in the
+   three dtype pairs — with times against the HBM bound, the fused passes
+   held to their plain versions in the compute type and in f64, and their
+   scalars to the same bits over 3 calls; then ``ell_scatter_add``,
+   ``fused_vgc``, ``fused_hvp`` and ``fused_hdiag`` (f64, f32) again on
+   the same design with 14 columns named by every row (the Criteo layout's
+   hot columns);
 5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
@@ -455,13 +458,20 @@ def check_hvp(idx, vals, c, v_eff, shift, d, rtol):
 
 
 def check_hdiag(idx, vals, y, off, ew, w, d, rtol):
-    """The three outputs against the plain version. Scales: each output's
-    sum of |terms|, with c = ew l''(z) widened by its move under a margin
-    error of rtol * row_abs (the logistic loss's third derivative is at
-    most 0.1 in magnitude)."""
+    """The three outputs against the plain version: its margins, c and slot
+    updates in the compute type, summed in f64, as ``check_scatter`` sums
+    the same updates (in f32 the plain version's own index_add_ drifts by
+    1e-3 of a column named by all of 2^22 rows). Scales: each output's sum
+    of |terms|, with c = ew l''(z) widened by its move under a margin error
+    of rtol * row_abs (the logistic loss's third derivative is at most 0.1
+    in magnitude); with the share of the scale against the plain version
+    in f64, as ``check_vgc``."""
     got = fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
-    ref = fused_hessian_diagonal_reference(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
-    v = vals.to(ref[0].dtype).double()
+    v_cd = vals.to(got[0].dtype)
+    c = ew * LOGISTIC_LOSS.d2(ell_matvec_reference(idx, v_cd, w, d) + off, y)
+    ref = (ell_scatter_add_reference(idx, (v_cd * v_cd * c[:, None]).double(), d),
+           ell_scatter_add_reference(idx, (v_cd * c[:, None]).double(), d), c.double().sum())
+    v = v_cd.double()
     row_abs = ell_matvec_reference(idx, v.abs(), w.abs().double(), d) + off.abs().double()
     z = ell_matvec_reference(idx, v, w.double(), d) + off.double()
     c_abs = ew.double() * (LOGISTIC_LOSS.d2(z, y.double()).abs() + 0.1 * row_abs)
@@ -469,8 +479,11 @@ def check_hdiag(idx, vals, y, off, ew, w, d, rtol):
               ell_scatter_add_reference(idx, v.abs() * c_abs[:, None], d), c_abs.sum()]
     errs = [within(g_, r_, s_, rtol) for g_, r_, s_ in zip(got, ref, scales)]
     finite = all(bool(torch.isfinite(t).all()) for t in got)
+    ref64 = fused_hessian_diagonal_reference(
+        idx, vals.double(), y.double(), off.double(), ew.double(), w.double(), d, LOGISTIC_LOSS)
     return (max(e for e, _, _ in errs), all(ok for _, ok, _ in errs) and finite,
-            max(share for _, _, share in errs))
+            max(share for _, _, share in errs),
+            max(within(g_, r_, s_, rtol)[2] for g_, r_, s_ in zip(got, ref64, scales)))
 
 
 def scatter_checks(idx, vals64, d, peaks, label="kernel"):
@@ -519,9 +532,11 @@ def csr_t_of(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
     return torch.sparse_csr_tensor(crow, rows[order], vals[keep][order], size=(d, n))
 
 
-# fused_hvp's yardstick: no single PyTorch call computes the pass, so a
-# composite of library calls the port never uses (bf16 values upcast once)
+# the fused passes' yardsticks: no single PyTorch call computes a pass, so
+# a composite of library calls the port never uses (bf16 values upcast once)
 HVP_COMPOSITE = "torch.mv(XT_csr, c * (torch.mv(X_csr, v) + shift)), three calls"
+HDIAG_COMPOSITE = ("c = ew * l''(torch.mv(X_csr, w) + off); torch.mv(X2T_csr, c), "
+                   "torch.mv(XT_csr, c), c.sum()")
 
 
 def same_bits(fn, outputs, calls: int = 3) -> bool:
@@ -532,12 +547,12 @@ def same_bits(fn, outputs, calls: int = 3) -> bool:
                for again in (fn() for _ in range(calls - 1)) for i in outputs)
 
 
-def fused_checks(idx, vals64, d, peaks, label, cases=None, hdiag=True):
-    """Check and time fused_vgc, fused_hvp (with the composite beside) and,
-    with ``hdiag``, fused_hdiag on one design in each of ``cases`` (default
-    every dtype pair) against their plain versions; the scalars (val, asum;
-    usum) are held to the same bits over 3 calls. One record per (kernel,
-    dtype)."""
+def fused_checks(idx, vals64, d, peaks, label, cases=None):
+    """Check and time fused_vgc, fused_hvp and fused_hdiag (the last two
+    with a composite beside) on one design in each of ``cases`` (default
+    every dtype pair) against their plain versions; the scalars (val,
+    asum; usum; csum) are held to the same bits over 3 calls. One record
+    per (kernel, dtype)."""
     n, k = idx.shape
     valid = int((idx < d).sum())
     results = []
@@ -547,8 +562,7 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None, hdiag=True):
                                     nbytes, ops, peaks, {"n": n, "k": k, "d": d}, label,
                                     composite=composite))
         results[-1]["max_err_share"] = share
-        if kernel != "fused_hdiag":
-            results[-1]["max_err_share_vs_f64"] = share64
+        results[-1]["max_err_share_vs_f64"] = share64
 
     for dtype_label, vdt, cd, rtol, rtol64 in FUSED_CASES if cases is None else cases:
         vals = vals64.to(vdt)
@@ -594,22 +608,35 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None, hdiag=True):
                n * k * (4 + s) + 2 * d * sc + n * sc, 4 * valid + 2 * n,
                composite=(HVP_COMPOSITE, composite))
         results[-1]["composite_max_abs_diff"] = composite_diff
-        del x_csr, xt_csr, composite
-        if hdiag:
-            max_err, ok, share = check_hdiag(idx, vals, y, off, ew, w, d, rtol)
-            log(f"[{label}] fused_hdiag {dtype_label}: max |kernel - plain| = "
-                f"{max_err:.3e} (rtol {rtol:g} x sum of |terms|; {share:.2e} of it): "
-                f"{'ok' if ok else 'DISAGREES'}")
-            if not ok:
-                raise AssertionError(f"fused_hdiag {dtype_label} disagrees with its plain "
-                                     f"version")
-            # reads the design, w and three row vectors; writes two (d,) sums
-            record("fused_hdiag", dtype_label, cd, max_err,
-                   lambda: fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
-                   lambda: fused_hessian_diagonal_reference(
-                       idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
-                   n * k * (4 + s) + 3 * d * sc + 3 * n * sc,
-                   5 * valid + LOSS_OPS_PER_ROW * n)
+        del composite
+        max_err, ok, share, share64 = check_hdiag(idx, vals, y, off, ew, w, d, rtol)
+        ok = ok and share64 <= rtol64
+        log(f"[{label}] fused_hdiag {dtype_label}: max |kernel - plain| = {max_err:.3e} "
+            f"(rtol {rtol:g} x sum of |terms|; {share:.2e} of it, {share64:.2e} against "
+            f"the plain version in f64, rtol {rtol64:g}): {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            raise AssertionError(f"fused_hdiag {dtype_label} ({label}) disagrees with its "
+                                 f"plain version")
+        hdiag = lambda: fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
+        if not same_bits(hdiag, (2,)):
+            raise AssertionError(f"fused_hdiag {dtype_label} ({label}): csum changed bits "
+                                 f"from call to call")
+        x2t_csr = csr_t_of(idx, vals.to(cd) ** 2, d)
+
+        def composite():
+            c_ = ew * LOGISTIC_LOSS.d2(torch.mv(x_csr, w) + off, y)
+            return torch.mv(x2t_csr, c_), torch.mv(xt_csr, c_), c_.sum()
+
+        composite_diff = max(float((a.double() - b.double()).abs().max())
+                             for a, b in zip(composite(), hdiag()))
+        # reads the design, w and three row vectors; writes two (d,) sums
+        record("fused_hdiag", dtype_label, cd, max_err, hdiag,
+               lambda: fused_hessian_diagonal_reference(
+                   idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
+               n * k * (4 + s) + 3 * d * sc + 3 * n * sc,
+               5 * valid + LOSS_OPS_PER_ROW * n, composite=(HDIAG_COMPOSITE, composite))
+        results[-1]["composite_max_abs_diff"] = composite_diff
+        del x_csr, xt_csr, x2t_csr, composite
         del vals, y, off, ew, w, c
         torch.cuda.empty_cache()
     return results
@@ -625,10 +652,10 @@ def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
 
 
 def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
-    """The training kernels on the uniform design, then ell_scatter_add,
-    fused_vgc and fused_hvp (f64 and f32) on the same design with
-    HOT_COLUMNS columns named by every row. Returns (uniform records,
-    hot-column records)."""
+    """The training kernels on the uniform design, then ell_scatter_add
+    and the fused passes (f64 and f32) on the same design with HOT_COLUMNS
+    columns named by every row. Returns (uniform records, hot-column
+    records)."""
     idx, vals64 = make_ell(n, k, d, "cuda")
     peaks = peaks_for(name)
     results = training_kernels(name, idx, vals64, d, peaks)
@@ -636,7 +663,7 @@ def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k:
     idx[:, :HOT_COLUMNS] = torch.randperm(d, generator=g, device="cuda")[:HOT_COLUMNS].to(
         torch.int32)
     hot = (scatter_checks(idx, vals64, d, peaks, label="kernel-hot")
-           + fused_checks(idx, vals64, d, peaks, "kernel-hot", FUSED_CASES[:2], hdiag=False))
+           + fused_checks(idx, vals64, d, peaks, "kernel-hot", FUSED_CASES[:2]))
     del idx, vals64
     torch.cuda.empty_cache()
     return results, hot
@@ -1300,10 +1327,10 @@ def main() -> int:
 
     # 8. result lines: each kernel at the kernel-phase shape in the main
     # path's dtype (f64), its time at the training driver's shape (and
-    # with hot columns for ell_scatter_add, fused_vgc and fused_hvp), and
-    # its launches on its main path — the training run, and for
-    # fused_hdiag the full trainer's run A (per path: scoring, training,
-    # run A); fused_hvp's composite of library calls beside its times
+    # with hot columns for all but ell_matvec), and its launches on its
+    # main path — the training run, and for fused_hdiag the full trainer's
+    # run A (per path: scoring, training, run A); the composites of
+    # library calls beside fused_hvp's and fused_hdiag's times
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",

@@ -32,20 +32,26 @@
 // Bound on Hopper: HBM bytes. A pass reads the design once,
 // n*k*(4 + itemsize), reads the (d,) vector and writes the (d,) output,
 // 2*d*itemsize, and reads one (n,) row vector, n*itemsize (hvp: c); vgc
-// reads two more and writes the curvature, 3*n*itemsize more. The gathers
-// and the atomics hit the (d,) vectors in the 50 MB L2.
+// reads two more and writes the curvature, 3*n*itemsize more; hdiag reads
+// three (n,) row vectors and writes two (d,) outputs. The gathers and the
+// atomics hit the (d,) vectors in the 50 MB L2.
 //
-// vgc and hvp. What held the first design (a warp per row, as hdiag still
-// is) back, and what this one does about each point:
-//   1. One global atomic per slot. In the Criteo layout the intercept and
-//      the 13 integer-field columns are named by every row, so every row's
-//      atomics into them serialise in L2. Now each slot, scaled by its row's
-//      a_i or u_i, goes through photon::TileCombiner (ell_common.cuh): a
-//      column named once in the tile takes one global atomic, a repeated
-//      column is summed in shared memory and takes one global atomic per
-//      tile, and a column that finds no table slot in 16 probes takes a
-//      direct global atomic. The table (capacity the next power of two at
-//      least twice the tile's slots: 26 KB in f64) is dynamic shared memory.
+// The three passes share one body (fused_pass). What held the first design
+// (a warp per row) back, and what this one does about each point:
+//   1. Global atomics per slot (hdiag: two). In the Criteo layout the
+//      intercept and the 13 integer-field columns are named by every row,
+//      so every row's atomics into them serialise in L2. Now each slot's
+//      update (vgc, hvp: v times its row's a_i or u_i; hdiag: the pair
+//      v^2 c_i, v c_i) goes through photon::TileCombiner (ell_common.cuh)
+//      with one place() per slot: a column named once in the tile takes
+//      one global atomic per sum, a repeated column is summed in shared
+//      memory and takes one global atomic per sum per tile, and a column
+//      that finds no table slot in 16 probes takes direct global atomics.
+//      The table (capacity the next power of two at least twice the tile's
+//      slots: 26 KB in f64, 43 KB for hdiag's pairs) is dynamic shared
+//      memory; a tile above 48 KB (hdiag in f64 with 1-slot granules) sets
+//      cudaFuncAttributeMaxDynamicSharedMemorySize before its launch.
+//      hdiag's global sums are f64 in every compute type (launch_hdiag).
 //   2. A warp per row: at k = 40, 37.5% of lane steps idle, each step an
 //      id load and then the gather that waits on it, scalar loads with no
 //      streaming hint. Now a block takes a tile of R = max(1, floor(1024 /
@@ -67,29 +73,25 @@
 //      kept from call to call.
 //   5. The wrapper's host path (kernels/fused.py): each C entry point is
 //      resolved with its signature once, the scalars' sums and the
-//      partials are one allocation, and the output is cleared here.
+//      partials (hdiag: the outputs too) are one allocation, and the
+//      outputs are cleared here.
 // The row terms (for vgc the offset, the loss terms, curvature[i], the
 // row's share of val and asum, and a_i; for hvp the shift, u_i and its
-// share of usum) are computed by the thread that adds the row's sum; it
-// leaves the row's scale in shared memory for the scatter, and the block's
-// scalar partials are summed in a fixed order (block_sum). k = 0 with n > 0
-// gives every row's terms from the offsets alone.
-//
-// hdiag keeps the first design (row_dot: a group of lanes per row, a
-// __shfl_xor_sync butterfly hands the margin to every lane of the group;
-// then two atomics per slot) until it moves onto the tile pieces above.
+// share of usum; for hdiag the offset, c_i and its share of csum) are
+// computed by the thread that adds the row's sum; it leaves the row's
+// scale in shared memory for the scatter, and the block's scalar partials
+// are summed in a fixed order (block_sum). k = 0 with n > 0 gives every
+// row's terms from the offsets alone.
 //
 // Nothing is allocated here; the launches go on the caller's stream and do
-// not synchronise. vgc and hvp clear their (d,) output on that stream
-// first (cudaMemsetAsync: one host call, where a zeroed tensor costs the
-// wrapper a dispatched fill); hdiag's caller zeroes its two. Each entry
-// point returns the first CUDA error, or cudaGetLastError().
+// not synchronise. Each pass clears its (d,) outputs on that stream first
+// (cudaMemsetAsync: one host call, where a zeroed tensor costs the wrapper
+// a dispatched fill). Each entry point returns the first CUDA error, or
+// cudaGetLastError().
 
 #include "ell_tile.cuh"
 
 namespace {
-
-using photon::to_acc;
 
 constexpr int kThreads = photon::tile::kThreads;
 constexpr int kWarps = kThreads / 32;
@@ -157,7 +159,7 @@ __device__ __forceinline__ A block_sum(A x, A* shared) {
   return total;
 }
 
-// -- vgc and hvp: tiles of whole rows ----------------------------------------
+// -- the passes: tiles of whole rows ----------------------------------------
 
 // The row terms of vgc: returns the row's scale a_i and adds the row's
 // ew l and a_i to s[0], s[1].
@@ -195,15 +197,58 @@ struct HvpRows {
   }
 };
 
-// What both passes take: the design, the (d,) vector t gathered by the row
-// sums (w or v), the (d,) output (grad or hv), the per-block scalar
-// partials, and the tiling the host chose.
-template <typename V, typename A>
+// The row terms of hdiag: returns c_i = ew_i l''(z_i, y_i) and adds it to
+// s[0].
+template <typename A, int LOSS>
+struct HdiagRows {
+  static constexpr int kScalars = 1;
+  const A* __restrict__ labels;
+  const A* __restrict__ offsets;
+  const A* __restrict__ ew;
+
+  __device__ __forceinline__ A operator()(long long row, A margin, A* s) const {
+    A l, d1, d2;
+    loss_terms<LOSS, A>(margin + offsets[row], labels[row], l, d1, d2);
+    const A c = ew[row] * d2;
+    s[0] += c;
+    return c;
+  }
+};
+
+// What a valid slot of value v in a row of scale s adds to the output:
+// v s to one (d,) output (Out = A*: grad, hv), or v^2 s and v s to two
+// (Out = Pair<double*>: dx2, dx), each slot squared on its own.
+template <typename A>
+__device__ __forceinline__ A slot_update(A* /*out*/, A v, A s) {
+  return v * s;
+}
+template <typename A, typename W>
+__device__ __forceinline__ photon::Pair<A> slot_update(photon::Pair<W*> /*out*/, A v, A s) {
+  return {v * v * s, v * s};
+}
+
+// The update type, in the compute type A, of a pass with output Out: A for
+// one output, Pair<A> for two (Pair<W*>, whose W may be wider than A).
+template <typename A, typename Out>
+struct UpdateOfOut {
+  using type = A;
+};
+template <typename A, typename W>
+struct UpdateOfOut<A, photon::Pair<W*>> {
+  using type = photon::Pair<A>;
+};
+template <typename A, typename Out>
+using UpdateOf = typename UpdateOfOut<A, Out>::type;
+
+// What every pass takes: the design, the (d,) vector t gathered by the row
+// sums (w or v), the (d,) output(s) (grad, hv, or dx2 and dx), the
+// per-block scalar partials, and the tiling the host chose.
+template <typename V, typename A, typename Out>
 struct PassArgs {
   const int32_t* indices;
   const V* values;
   const A* t;
-  A* out;
+  Out out;
   A* partials;
   long long n;
   int k;
@@ -213,16 +258,17 @@ struct PassArgs {
 };
 
 // Scatter the thread's granules of the round that starts at granule g0:
-// each slot's value times its row's scale (row_scale[g / kg]) into out,
-// combined by column in the tile's table, which is clear with a barrier
-// since. v is scaled in place.
-template <int GS, typename A>
+// each valid slot's update (slot_update of its value and its row's scale,
+// row_scale[g / kg]) into out, combined by column in the tile's table,
+// which is clear with a barrier since.
+template <int GS, typename A, typename Out>
 __device__ __forceinline__ void scatter_round(
-    photon::TileCombiner<A>& table,
+    photon::TileCombiner<UpdateOf<A, Out>>& table,
     const int32_t (&c)[photon::tile::kGranules<GS>][GS],
-    A (&v)[photon::tile::kGranules<GS>][GS], long long g0, long long granules,
-    int kg, const A* row_scale, A* __restrict__ out, int d) {
+    const A (&v)[photon::tile::kGranules<GS>][GS], long long g0, long long granules,
+    int kg, const A* row_scale, Out out, int d) {
   constexpr int U = photon::tile::kGranules<GS>;
+  UpdateOf<A, Out> u[U][GS];
   int h[U][GS];
   bool owner[U][GS];
 #pragma unroll
@@ -235,10 +281,10 @@ __device__ __forceinline__ void scatter_round(
       h[j][e] = -1;
       owner[j][e] = false;
       if ((unsigned)c[j][e] < (unsigned)d) {
-        v[j][e] *= scale;
+        u[j][e] = slot_update(out, v[j][e], scale);
         h[j][e] = table.place(c[j][e], owner[j][e]);
         if (h[j][e] < 0) {
-          atomicAdd(out + c[j][e], v[j][e]);
+          photon::add_at(out, c[j][e], u[j][e]);
         }
       }
     }
@@ -249,7 +295,7 @@ __device__ __forceinline__ void scatter_round(
 #pragma unroll
     for (int e = 0; e < GS; ++e) {
       if (h[j][e] >= 0) {
-        table.add(h[j][e], owner[j][e], c[j][e], v[j][e], out);
+        table.add(h[j][e], owner[j][e], c[j][e], u[j][e], out);
       }
     }
   }
@@ -259,7 +305,7 @@ __device__ __forceinline__ void scatter_round(
 #pragma unroll
     for (int e = 0; e < GS; ++e) {
       if (h[j][e] >= 0) {
-        table.flush(h[j][e], owner[j][e], c[j][e], v[j][e], out);
+        table.flush(h[j][e], owner[j][e], c[j][e], u[j][e], out);
       }
     }
   }
@@ -269,15 +315,16 @@ __device__ __forceinline__ void scatter_round(
 // the block's scalar partials, then the scatter of the rows' scaled slots.
 // Dynamic shared memory: the table, then one partial per granule of a
 // round, then one running sum (later the scale) per row.
-template <int GS, typename V, typename A, typename Rows>
-__device__ __forceinline__ void fused_pass(const PassArgs<V, A>& p, const Rows& rows_of) {
+template <int GS, typename V, typename A, typename Out, typename Rows>
+__device__ __forceinline__ void fused_pass(const PassArgs<V, A, Out>& p, const Rows& rows_of) {
   namespace tile = photon::tile;
+  using Table = photon::TileCombiner<UpdateOf<A, Out>>;
   constexpr int U = tile::kGranules<GS>;
   constexpr int kRound = tile::kRoundGranules<GS>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ A scratch[kWarps];
-  photon::TileCombiner<A> table(smem, p.capacity);
-  A* part = reinterpret_cast<A*>(smem + photon::TileCombiner<A>::bytes(p.capacity));
+  Table table(smem, p.capacity);
+  A* part = reinterpret_cast<A*>(smem + Table::bytes(p.capacity));
   A* row_acc = part + kRound;
   const int kg = p.k / GS;
   const long long r0 = (long long)blockIdx.x * p.rows_per_tile;
@@ -332,87 +379,23 @@ __device__ __forceinline__ void fused_pass(const PassArgs<V, A>& p, const Rows& 
   }
 }
 
-// Two kernels with one body, so that a trace names each pass.
-template <int GS, typename V, typename A, typename Rows>
+// Three kernels with one body, so that a trace names each pass.
+template <int GS, typename V, typename A, typename Out, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-fused_vgc_kernel(PassArgs<V, A> p, Rows rows_of) {
+fused_vgc_kernel(PassArgs<V, A, Out> p, Rows rows_of) {
   fused_pass<GS>(p, rows_of);
 }
 
-template <int GS, typename V, typename A, typename Rows>
+template <int GS, typename V, typename A, typename Out, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-fused_hvp_kernel(PassArgs<V, A> p, Rows rows_of) {
+fused_hvp_kernel(PassArgs<V, A, Out> p, Rows rows_of) {
   fused_pass<GS>(p, rows_of);
 }
 
-// -- hdiag: a group of lanes per row -----------------------------------------
-
-// Row margin sum_k v_ik t[c_ik] over the group's lanes, on every lane.
-// Only fused_hdiag_kernel still uses it, until it moves onto ell_tile.cuh.
-template <typename V, typename A, int GROUP>
-__device__ __forceinline__ A row_dot(const int32_t* __restrict__ indices,
-                                     const V* __restrict__ values,
-                                     const A* __restrict__ table, bool live,
-                                     long long base, int lane, int k, int d) {
-  A acc = A(0);
-  if (live) {
-    for (int s = lane; s < k; s += GROUP) {
-      const int32_t c = indices[base + s];
-      const A tc = ((unsigned)c < (unsigned)d) ? table[c] : A(0);
-      acc += to_acc(values[base + s]) * tc;
-    }
-  }
-  // every lane of the warp takes part (full mask); xor partners of a group
-  // stay inside the group, and addition commutes, so every lane of the
-  // group ends with the same bits
-#pragma unroll
-  for (int off = GROUP / 2; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  return acc;
-}
-
-template <typename V, typename A, int GROUP, int LOSS>
+template <int GS, typename V, typename A, typename Out, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-fused_hdiag_kernel(const int32_t* __restrict__ indices,
-                   const V* __restrict__ values,
-                   const A* __restrict__ labels,
-                   const A* __restrict__ offsets,
-                   const A* __restrict__ ew,
-                   const A* __restrict__ w,
-                   A* __restrict__ dx2,
-                   A* __restrict__ dx,
-                   A* __restrict__ partials,
-                   long long n, int k, int d) {
-  __shared__ A shared[kWarps];
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long row = t / GROUP;
-  const int lane = (int)(t % GROUP);
-  const bool live = row < n;
-  const long long base = row * (long long)k;
-  A z = row_dot<V, A, GROUP>(indices, values, w, live, base, lane, k, d);
-  A csum = A(0);
-  if (live) {
-    z += offsets[row];
-    A l, d1, d2;
-    loss_terms<LOSS, A>(z, labels[row], l, d1, d2);
-    const A c = ew[row] * d2;
-    if (lane == 0) {
-      csum = c;
-    }
-    for (int s = lane; s < k; s += GROUP) {
-      const int32_t col = indices[base + s];
-      if ((unsigned)col < (unsigned)d) {
-        const A v = to_acc(values[base + s]);
-        atomicAdd(dx2 + col, v * v * c);
-        atomicAdd(dx + col, v * c);
-      }
-    }
-  }
-  csum = block_sum<A>(csum, shared);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = csum;
-  }
+fused_hdiag_kernel(PassArgs<V, A, Out> p, Rows rows_of) {
+  fused_pass<GS>(p, rows_of);
 }
 
 // out[j] = sum over blocks b of partials[b * width + j], j < width, in a
@@ -462,24 +445,38 @@ long long tile_blocks(long long n, int k) {
   return (n + rows - 1) / rows;
 }
 
-template <typename A>
-size_t tile_smem(int capacity, int round_granules, int rows) {
-  return photon::TileCombiner<A>::bytes(capacity) + (size_t)(round_granules + rows) * sizeof(A);
+template <typename T, typename A>
+constexpr size_t tile_smem(int capacity, int round_granules, int rows) {
+  return photon::TileCombiner<T>::bytes(capacity) + (size_t)(round_granules + rows) * sizeof(A);
 }
-// the largest tile (k = 1: 1024 rows, 1-slot granules) fits the 48 KB a
-// launch takes without cudaFuncSetAttribute
-static_assert(photon::TileCombiner<double>::bytes(2 * photon::tile::kRoundSlots) +
-                  2 * photon::tile::kRoundSlots * sizeof(double) +
-                  kWarps * sizeof(double) <= 48 * 1024,
-              "a tile above 48 KB of shared memory needs cudaFuncSetAttribute");
+// A launch takes 48 KB of dynamic shared memory, more after
+// cudaFuncSetAttribute, up to 227 KB less the static scratch. The largest
+// tile (k = 1: 1024 rows, 1-slot granules) of hdiag in f64 is 58 KB.
+constexpr size_t kDefaultSmem = 48 * 1024;
+static_assert(tile_smem<photon::Pair<double>, double>(2 * photon::tile::kRoundSlots,
+                                                      photon::tile::kRoundSlots,
+                                                      photon::tile::kRoundSlots) +
+                  kWarps * sizeof(double) <= 227 * 1024,
+              "the largest tile passes the shared memory of a block");
 
-// One pass on the caller's stream: the (d,) output cleared, the tile
+// clear the (d,) output(s) on the stream
+template <typename A>
+int clear(A* out, int d, cudaStream_t s) {
+  return (int)cudaMemsetAsync(out, 0, (size_t)d * sizeof(A), s);
+}
+template <typename W>
+int clear(photon::Pair<W*> out, int d, cudaStream_t s) {
+  const int code = clear(out.first, d, s);
+  return code != 0 ? code : clear(out.second, d, s);
+}
+
+// One pass on the caller's stream: the (d,) output(s) cleared, the tile
 // kernel with 4-slot granules (k % 4 == 0 and aligned bases) or 1-slot
 // ones, then the fixed-order sum of its Rows::kScalars partials per block
 // into sums.
-template <typename V, typename A, typename Rows>
-int launch_pass(void (*kernel4)(PassArgs<V, A>, Rows),
-                void (*kernel1)(PassArgs<V, A>, Rows), PassArgs<V, A> p,
+template <typename V, typename A, typename Out, typename Rows>
+int launch_pass(void (*kernel4)(PassArgs<V, A, Out>, Rows),
+                void (*kernel1)(PassArgs<V, A, Out>, Rows), PassArgs<V, A, Out> p,
                 Rows rows_of, A* sums, cudaStream_t s) {
   namespace tile = photon::tile;
   // a 4-slot granule of values is 32, 16 or 8 bytes: aligned to 16 or 8
@@ -489,13 +486,20 @@ int launch_pass(void (*kernel4)(PassArgs<V, A>, Rows),
   p.rows_per_tile = tile::rows_per_tile(p.k);
   p.capacity = table_capacity(p.k);
   const long long blocks = tile_blocks(p.n, p.k);
-  const size_t smem = tile_smem<A>(
+  const size_t smem = tile_smem<UpdateOf<A, Out>, A>(
       p.capacity, vec ? tile::kRoundGranules<4> : tile::kRoundGranules<1>, p.rows_per_tile);
-  int code = (int)cudaMemsetAsync(p.out, 0, (size_t)p.d * sizeof(A), s);
+  int code = clear(p.out, p.d, s);
   if (code != 0) {
     return code;
   }
-  void (*kernel)(PassArgs<V, A>, Rows) = vec ? kernel4 : kernel1;
+  void (*kernel)(PassArgs<V, A, Out>, Rows) = vec ? kernel4 : kernel1;
+  if (smem > kDefaultSmem) {
+    code = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+    if (code != 0) {
+      return code;
+    }
+  }
   kernel<<<(unsigned)blocks, kThreads, smem, s>>>(p, rows_of);
   code = (int)cudaGetLastError();
   if (code != 0) {
@@ -506,12 +510,12 @@ int launch_pass(void (*kernel4)(PassArgs<V, A>, Rows),
 }
 
 template <typename V, typename A, int LOSS>
-int launch_vgc_loss(const PassArgs<V, A>& p, const A* y, const A* off, const A* ew,
+int launch_vgc_loss(const PassArgs<V, A, A*>& p, const A* y, const A* off, const A* ew,
                     A* curvature, A* sums, cudaStream_t s) {
   using Rows = VgcRows<A, LOSS>;
-  return launch_pass<V, A, Rows>(fused_vgc_kernel<4, V, A, Rows>,
-                                 fused_vgc_kernel<1, V, A, Rows>, p,
-                                 Rows{y, off, ew, curvature}, sums, s);
+  return launch_pass<V, A, A*, Rows>(fused_vgc_kernel<4, V, A, A*, Rows>,
+                                     fused_vgc_kernel<1, V, A, A*, Rows>, p,
+                                     Rows{y, off, ew, curvature}, sums, s);
 }
 
 template <typename V, typename A>
@@ -519,9 +523,9 @@ int launch_vgc(const void* indices, const void* values, const void* labels,
                const void* offsets, const void* ew, const void* w, void* grad,
                void* curvature, void* partials, void* out, long long n, int k,
                int d, int loss, void* stream) {
-  const PassArgs<V, A> p{static_cast<const int32_t*>(indices), static_cast<const V*>(values),
-                         static_cast<const A*>(w), static_cast<A*>(grad),
-                         static_cast<A*>(partials), n, k, d, 0, 0};
+  const PassArgs<V, A, A*> p{static_cast<const int32_t*>(indices),
+                             static_cast<const V*>(values), static_cast<const A*>(w),
+                             static_cast<A*>(grad), static_cast<A*>(partials), n, k, d, 0, 0};
   const A* y = static_cast<const A*>(labels);
   const A* off = static_cast<const A*>(offsets);
   const A* e = static_cast<const A*>(ew);
@@ -545,73 +549,81 @@ int launch_hvp(const void* indices, const void* values, const void* curvature,
                const void* shift, const void* v, void* hv, void* partials,
                void* out, long long n, int k, int d, void* stream) {
   using Rows = HvpRows<A>;
-  const PassArgs<V, A> p{static_cast<const int32_t*>(indices), static_cast<const V*>(values),
-                         static_cast<const A*>(v), static_cast<A*>(hv),
-                         static_cast<A*>(partials), n, k, d, 0, 0};
+  const PassArgs<V, A, A*> p{static_cast<const int32_t*>(indices),
+                             static_cast<const V*>(values), static_cast<const A*>(v),
+                             static_cast<A*>(hv), static_cast<A*>(partials), n, k, d, 0, 0};
   const Rows rows_of{static_cast<const A*>(curvature), static_cast<const A*>(shift)};
-  return launch_pass<V, A, Rows>(fused_hvp_kernel<4, V, A, Rows>,
-                                 fused_hvp_kernel<1, V, A, Rows>, p, rows_of,
-                                 static_cast<A*>(out), static_cast<cudaStream_t>(stream));
+  return launch_pass<V, A, A*, Rows>(fused_hvp_kernel<4, V, A, A*, Rows>,
+                                     fused_hvp_kernel<1, V, A, A*, Rows>, p, rows_of,
+                                     static_cast<A*>(out), static_cast<cudaStream_t>(stream));
 }
 
-long long group_blocks(long long n, int group) {
-  return (n * group + kThreads - 1) / kThreads;
+template <typename V, typename A, int LOSS>
+int launch_hdiag_loss(const PassArgs<V, A, photon::Pair<double*>>& p, const A* y,
+                      const A* off, const A* ew, A* csum, cudaStream_t s) {
+  using Out = photon::Pair<double*>;
+  using Rows = HdiagRows<A, LOSS>;
+  return launch_pass<V, A, Out, Rows>(fused_hdiag_kernel<4, V, A, Out, Rows>,
+                                      fused_hdiag_kernel<1, V, A, Out, Rows>, p,
+                                      Rows{y, off, ew}, csum, s);
 }
 
-template <typename V, typename A, int GROUP>
-void launch_hdiag_group(const int32_t* ix, const V* vals, const A* y,
-                        const A* off, const A* ew, const A* w, A* dx2, A* dx,
-                        A* partials, long long n, int k, int d, int loss,
-                        cudaStream_t s) {
-  const unsigned blocks = (unsigned)group_blocks(n, GROUP);
-  switch (loss) {
-    case kLogistic:
-      fused_hdiag_kernel<V, A, GROUP, kLogistic><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
-      break;
-    case kSquared:
-      fused_hdiag_kernel<V, A, GROUP, kSquared><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
-      break;
-    case kPoisson:
-      fused_hdiag_kernel<V, A, GROUP, kPoisson><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
-      break;
-    default:
-      fused_hdiag_kernel<V, A, GROUP, kSmoothedHinge><<<blocks, kThreads, 0, s>>>(
-          ix, vals, y, off, ew, w, dx2, dx, partials, n, k, d);
-      break;
+// dx2, dx = the f64 sums rounded to f32, once
+__global__ void __launch_bounds__(kThreads)
+narrow_sums_kernel(photon::Pair<double*> wide, float* __restrict__ dx2,
+                   float* __restrict__ dx, int d) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j < d) {
+    dx2[j] = (float)wide.first[j];
+    dx[j] = (float)wide.second[j];
   }
 }
 
+// hdiag's (d,) sums accumulate in f64 whatever the compute type: in f32, a
+// column named by every row takes one global atomic per tile (167,773 at
+// n = 2^22), and a running f32 sum of that many positive terms drifts by
+// about 1e-5 of itself. In f64 they go straight to dx2 and dx; in f32 to
+// `wide` (2 d doubles), rounded to f32 after the pass.
 template <typename V, typename A>
 int launch_hdiag(const void* indices, const void* values, const void* labels,
                  const void* offsets, const void* ew, const void* w, void* dx2,
-                 void* dx, void* partials, void* out, long long n, int k,
+                 void* dx, void* wide, void* partials, void* out, long long n, int k,
                  int d, int loss, void* stream) {
-  const int32_t* ix = static_cast<const int32_t*>(indices);
-  const V* vals = static_cast<const V*>(values);
+  constexpr bool kWide = sizeof(A) < sizeof(double);
+  double* sums2 = static_cast<double*>(kWide ? wide : dx2);
+  double* sums1 = kWide ? static_cast<double*>(wide) + d : static_cast<double*>(dx);
+  const PassArgs<V, A, photon::Pair<double*>> p{
+      static_cast<const int32_t*>(indices), static_cast<const V*>(values),
+      static_cast<const A*>(w), {sums2, sums1}, static_cast<A*>(partials), n, k, d, 0, 0};
   const A* y = static_cast<const A*>(labels);
   const A* off = static_cast<const A*>(offsets);
   const A* e = static_cast<const A*>(ew);
-  const A* ww = static_cast<const A*>(w);
-  A* o2 = static_cast<A*>(dx2);
-  A* o1 = static_cast<A*>(dx);
-  A* p = static_cast<A*>(partials);
+  A* csum = static_cast<A*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int group = k <= 8 ? 8 : 32;
-  if (group == 8) {
-    launch_hdiag_group<V, A, 8>(ix, vals, y, off, e, ww, o2, o1, p, n, k, d, loss, s);
-  } else {
-    launch_hdiag_group<V, A, 32>(ix, vals, y, off, e, ww, o2, o1, p, n, k, d, loss, s);
+  int code;
+  switch (loss) {
+    case kLogistic:
+      code = launch_hdiag_loss<V, A, kLogistic>(p, y, off, e, csum, s);
+      break;
+    case kSquared:
+      code = launch_hdiag_loss<V, A, kSquared>(p, y, off, e, csum, s);
+      break;
+    case kPoisson:
+      code = launch_hdiag_loss<V, A, kPoisson>(p, y, off, e, csum, s);
+      break;
+    default:
+      code = launch_hdiag_loss<V, A, kSmoothedHinge>(p, y, off, e, csum, s);
+      break;
   }
-  int code = (int)cudaGetLastError();
-  if (code != 0) {
-    return code;
+  if constexpr (kWide) {
+    if (code == 0 && d > 0) {
+      narrow_sums_kernel<<<(unsigned)(((long long)d + kThreads - 1) / kThreads), kThreads, 0,
+                           s>>>(
+          p.out, static_cast<float*>(dx2), static_cast<float*>(dx), d);
+      code = (int)cudaGetLastError();
+    }
   }
-  sum_partials_kernel<A><<<1, kFinishThreads, 0, s>>>(
-      p, group_blocks(n, group), 1, static_cast<A*>(out));
-  return (int)cudaGetLastError();
+  return code;
 }
 
 }  // namespace
@@ -619,14 +631,11 @@ int launch_hdiag(const void* indices, const void* values, const void* labels,
 extern "C" {
 
 // scratch `partials` holds 2 * photon_fused_tile_blocks(n, k) (vgc) or
-// photon_fused_tile_blocks(n, k) (hvp) elements of the compute type
+// photon_fused_tile_blocks(n, k) (hvp, hdiag) elements of the compute type;
+// hdiag's `wide` holds 2 * d doubles for the f32 compute type (unused in
+// f64)
 long long photon_fused_tile_blocks(long long n, int k) {
   return tile_blocks(n, k);
-}
-
-// scratch `partials` of hdiag holds photon_fused_blocks(n, k) elements
-long long photon_fused_blocks(long long n, int k) {
-  return group_blocks(n, k <= 8 ? 8 : 32);
 }
 
 #define PHOTON_FUSED_ENTRIES(SUFFIX, V, A)                                     \
@@ -648,10 +657,10 @@ long long photon_fused_blocks(long long n, int k) {
   int photon_fused_hdiag_##SUFFIX(                                             \
       const void* indices, const void* values, const void* labels,             \
       const void* offsets, const void* ew, const void* w, void* dx2, void* dx, \
-      void* partials, void* out, long long n, int k, int d, int loss,          \
-      void* stream) {                                                          \
+      void* wide, void* partials, void* out, long long n, int k, int d,        \
+      int loss, void* stream) {                                                \
     return launch_hdiag<V, A>(indices, values, labels, offsets, ew, w, dx2,    \
-                              dx, partials, out, n, k, d, loss, stream);       \
+                              dx, wide, partials, out, n, k, d, loss, stream); \
   }
 
 PHOTON_FUSED_ENTRIES(f64, double, double)

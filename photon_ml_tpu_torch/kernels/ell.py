@@ -106,7 +106,8 @@ def check_launch(kernel: str, indices, d: int, tables=(), rows=(), cols=()) -> N
             raise ValueError(f"{kernel}: {name} must be ({d},), got {tuple(t.shape)}")
     if not (0 <= d <= _INT32_MAX):
         raise ValueError(f"{kernel}: d={d} outside int32")
-    # 32 lanes per row at most, 256 threads per block, one block per 256 slots
+    # a grid of max(n * 32, n * k) / 256 blocks at most: above every kernel's
+    # (tiles of at most 1024 slots, at least one row each)
     if k > _INT32_MAX or -(-max(n * 32, n * k) // 256) > _INT32_MAX:
         raise ValueError(f"{kernel}: (n, k)=({n}, {k}) exceeds the launch grid")
     for name, t in (("indices", indices), *tables, *rows, *cols):

@@ -15,10 +15,11 @@ touch (d,) and (n,) vectors, not the design. On CUDA tensors each wrapper
 makes one C call (or raises), which zeroes the (d,) outputs and launches
 the kernel and a fixed-order sum of the per-block scalar partials on the
 current stream; on CPU tensors it runs the ``*_reference`` function, the
-plain PyTorch version. ``fused_vgc`` and ``fused_hvp`` take tiles of whole
-rows and sum a tile's repeated columns in shared memory before they reach
-the (d,) output; ``fused_hdiag`` keeps a group of lanes per row and one
-atomic per slot, and its wrapper zeroes its outputs itself.
+plain PyTorch version. All three take tiles of whole rows and sum a tile's
+repeated columns in shared memory before they reach the (d,) outputs
+(``fused_hdiag``: both of its sums under one table slot per column, and
+its column sums accumulated in float64 in every compute type, rounded to
+float32 once).
 
 Compute type ``result_type(values, w, labels, offsets, ew)``; taken pairs
 (values, compute): (float64, float64), (float32, float32),
@@ -140,8 +141,7 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
     )
     # the two sums (written by the kernels' fixed-order finish), then two
     # partials per block
-    sums = torch.empty((2 + 2 * _blocks("photon_fused_tile_blocks", n, k),),
-                       dtype=cd, device=dev)
+    sums = torch.empty((2 + 2 * _blocks(n, k),), dtype=cd, device=dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
@@ -203,7 +203,7 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     )
     # the sum (written by the kernels' fixed-order finish), then one
     # partial per block
-    usum = torch.empty((1 + _blocks("photon_fused_tile_blocks", n, k),), dtype=cd, device=dev)
+    usum = torch.empty((1 + _blocks(n, k),), dtype=cd, device=dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), cc.data_ptr(), sh.data_ptr(),
@@ -257,37 +257,42 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
         rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
     )
     dev = indices.device
-    dx2 = torch.zeros((d,), dtype=cd, device=dev)
-    dx = torch.zeros((d,), dtype=cd, device=dev)
-    csum = torch.zeros((1,), dtype=cd, device=dev)
     if n == 0:
-        return dx2, dx, csum[0]
+        return (torch.zeros((d,), dtype=cd, device=dev), torch.zeros((d,), dtype=cd, device=dev),
+                torch.zeros((), dtype=cd, device=dev))
     import ctypes
 
     lib, entry = load_entry(
         "fused", f"photon_fused_hdiag_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p],
     )
-    partials = torch.empty((_blocks("photon_fused_blocks", n, k),), dtype=cd, device=dev)
+    # one allocation: dx2 and dx (cleared by the entry point on the stream),
+    # the sum (written by the kernels' fixed-order finish), then one partial
+    # per block; in float32 the column sums accumulate in a float64 scratch
+    out = torch.empty((2 * d + 1 + _blocks(n, k),), dtype=cd, device=dev)
+    dx2, dx, csum = out[:d], out[d:2 * d], out[2 * d]
+    wide = None if cd == torch.float64 else torch.empty((2 * d,), dtype=torch.float64,
+                                                        device=dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
             e.data_ptr(), w.data_ptr(), dx2.data_ptr(), dx.data_ptr(),
-            partials.data_ptr(), csum.data_ptr(), n, k, d, loss_id, stream_of(indices),
+            None if wide is None else wide.data_ptr(), csum.data_ptr() + cd.itemsize,
+            csum.data_ptr(), n, k, d, loss_id, stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
 
     build.check(lib, code, "fused_hdiag launch")
     dispatch.count_launch("fused_hdiag")
-    return dx2, dx, csum[0]
+    return dx2, dx, csum
 
 
-def _blocks(entry: str, n: int, k: int) -> int:
+def _blocks(n: int, k: int) -> int:
     """Blocks of a fused launch (the scalar partials of each), as the .cu
-    computes them: ``photon_fused_tile_blocks`` (vgc, hvp) or
-    ``photon_fused_blocks`` (hdiag)."""
+    computes them (``photon_fused_tile_blocks``)."""
     import ctypes
 
-    _, fn = load_entry("fused", entry, [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong)
+    _, fn = load_entry("fused", "photon_fused_tile_blocks", [ctypes.c_longlong, ctypes.c_int],
+                       ctypes.c_longlong)
     return int(fn(n, k))

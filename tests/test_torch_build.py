@@ -5,11 +5,12 @@ and use a stand-in library: they need no ``nvcc`` and no card."""
 
 import ctypes
 import os
+import re
 import shutil
 
 import pytest
 
-from photon_ml_tpu_torch.kernels import build, ell
+from photon_ml_tpu_torch.kernels import build, ell, fused
 
 
 @pytest.fixture
@@ -95,3 +96,24 @@ def test_load_entry_resolves_each_entry_once(monkeypatch):
     assert first[1].argtypes == [ctypes.c_int] and first[1].restype is ctypes.c_longlong
     other = ell.load_entry("fused", "photon_b", [])
     assert other[1].restype is ctypes.c_int and lib.looked_up == ["photon_a", "photon_b"]
+
+
+def test_fused_library_exports_the_tile_entries_only():
+    """Every fused pass runs on tiles of whole rows: the library exports
+    each entry its wrappers load and ``photon_fused_tile_blocks`` that
+    sizes their partials, and no longer the lane-per-row
+    ``photon_fused_blocks``; no source keeps the ``row_dot`` loop."""
+    with open(os.path.join(build.CSRC_DIR, build.SOURCES["fused"])) as f:
+        source = f.read()
+    exported = source[source.index('extern "C" {'):]
+    names = set(re.findall(r"\b(photon_\w+)\(", exported))
+    for suffix in re.findall(r"^PHOTON_FUSED_ENTRIES\((\w+),", exported, re.M):
+        names |= {n.replace("##SUFFIX", suffix)
+                  for n in re.findall(r"\b(photon_\w+##SUFFIX)\(", exported)}
+    wanted = {f"photon_fused_{p}_{s}" for p in ("vgc", "hvp", "hdiag")
+              for s in fused._FUSED_TYPES.values()}
+    assert wanted | {"photon_fused_tile_blocks"} <= names
+    assert "photon_fused_blocks" not in names and "photon_fused_blocks" not in source
+    for name in os.listdir(build.CSRC_DIR):
+        with open(os.path.join(build.CSRC_DIR, name)) as f:
+            assert "row_dot" not in f.read(), name

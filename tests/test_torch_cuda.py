@@ -261,7 +261,7 @@ from photon_ml_tpu_torch.kernels.fused import (  # noqa: E402
 
 @pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
 @pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
-@pytest.mark.parametrize("n,k", SHAPES)
+@pytest.mark.parametrize("n,k", FUSED_SHAPES)
 def test_fused_hdiag_matches_plain_version(cuda, n, k, vdt, wdt, rtol, loss):
     d = 3001
     idx, val64 = _ell(n, k, d, cuda)
@@ -291,6 +291,34 @@ def test_fused_hdiag_matches_plain_version(cuda, n, k, vdt, wdt, rtol, loss):
     assert _within(got[0], ref[0], scale2, tol)
     assert _within(got[1], ref[1], scale1, tol)
     assert _within(got[2], ref[2], c_abs.sum(), tol)
+
+
+def _check_hdiag(idx, val, y, off, ew, w, d, loss, rtol):
+    """The three outputs against the plain version on the kernel's own
+    margins, as ``_check_vgc``: where l'' is a step (smoothed hinge) or
+    grows with e^z (Poisson), a margin summed in another order moves c past
+    its scale. The margins are first held to the plain version's; c and
+    each slot's v^2 c and v c are taken on them in the compute type, as the
+    kernel takes them, and summed in f64."""
+    before = dispatch.launch_counts()["fused_hdiag"]
+    got = fused_hessian_diagonal(idx, val, y, off, ew, w, d, loss)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["fused_hdiag"] == before + 1
+    cd = got[0].dtype
+    assert all(t.dtype == cd for t in got)
+    assert got[0].shape == (d,) and got[1].shape == (d,) and got[2].shape == ()
+    z = ell_matvec(idx, val, w, d) + off
+    row_abs = ell_matvec_reference(idx, val.abs().double(), w.abs().double(), d) + off.abs()
+    assert _within(z, ell_matvec_reference(idx, val, w, d) + off, row_abs, rtol)
+    c = ew * loss.d2(z, y)
+    v = val.to(cd)
+    upd2, upd1 = v * v * c[:, None], v * c[:, None]
+    # scales: the sums of |terms| each output element adds up
+    for out, upd in ((got[0], upd2), (got[1], upd1)):
+        assert _within(out, ell_scatter_add_reference(idx, upd.double(), d),
+                       ell_scatter_add_reference(idx, upd.abs().double(), d), rtol)
+    assert _within(got[2], c.double().sum(), c.abs().double().sum(), rtol)
+    return got
 
 
 def test_fused_hdiag_squares_each_duplicate_slot(cuda):
@@ -499,6 +527,60 @@ def test_fused_scalars_have_the_same_bits_from_run_to_run(cuda, design, vdt, wdt
         assert torch.equal(first[0], again[0]) and torch.equal(first[2], again[2])
         assert torch.equal(first[3], again[3])  # per row, no atomics
         assert torch.equal(usum, fused_hessian_vector(idx, val, ew, w, shift, d)[1])
+
+
+@pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+def test_fused_hdiag_designs_match_plain_version(cuda, design, vdt, wdt, rtol, loss):
+    idx, val64, d = DESIGNS[design](cuda)
+    y, off, ew, w = _fused_inputs(idx.shape[0], idx.shape[1], d, vdt, cuda, seed=13)
+    _check_hdiag(idx, val64.to(vdt), y, off, ew, w, d, loss, rtol)
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+def test_fused_hdiag_hot_column_twice_squares_each_slot(cuda, vdt, wdt, rtol):
+    # column 7 in two slots of every row (1.5 and -0.5), columns 8-37 once
+    # (0.25), over 128 tiles of 32 rows; c = 1 (squared loss, ew 1), so
+    # every sum is exact: dx2_7 adds 1.5^2 + 0.5^2 = 2.5 a row, not
+    # (1.5 - 0.5)^2 = 1, through the table slot that carries both sums
+    n, k, d = 4096, 32, 41
+    idx = torch.arange(6, 6 + k, dtype=torch.int32, device=cuda).repeat(n, 1)
+    idx[:, :2] = 7
+    val = torch.full((n, k), 0.25, dtype=torch.float64, device=cuda)
+    val[:, 0], val[:, 1] = 1.5, -0.5
+    cd = torch.float64 if vdt == torch.float64 else torch.float32
+    one = torch.ones(n, dtype=cd, device=cuda)
+    dx2, dx, csum = fused_hessian_diagonal(idx, val.to(vdt), one, 0 * one, one,
+                                           torch.zeros(d, dtype=cd, device=cuda), d,
+                                           SQUARED_LOSS)
+    want2, want1 = [0.0] * d, [0.0] * d
+    want2[7], want1[7] = 2.5 * n, 1.0 * n
+    want2[8:38], want1[8:38] = [0.0625 * n] * 30, [0.25 * n] * 30
+    assert dx2.tolist() == want2 and dx.tolist() == want1 and float(csum) == n
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+def test_fused_hdiag_column_sums_accumulate_in_f64(cuda, vdt, wdt, rtol):
+    # column 7 in every row of 4097 tiles of 256 rows: tile 0 adds 2^24
+    # (one row of 2^12), every other tile 256 * (1/16)^2 = 1. A float32
+    # running sum past 2^24 drops each later 1 (2^24 + 1 rounds to 2^24),
+    # so only sums kept in f64 and rounded once give 2^24 + 4096 exactly
+    tiles, rows, k, d = 4097, 256, 4, 9
+    n = tiles * rows
+    idx = torch.full((n, k), d, dtype=torch.int32, device=cuda)
+    idx[:, 0] = 7
+    val = torch.zeros((n, k), dtype=torch.float64, device=cuda)
+    val[rows:, 0] = 1.0 / 16
+    val[0, 0] = 2.0 ** 12
+    cd = torch.float64 if vdt == torch.float64 else torch.float32
+    one = torch.ones(n, dtype=cd, device=cuda)
+    dx2, dx, csum = fused_hessian_diagonal(idx, val.to(vdt), one, 0 * one, one,
+                                           torch.zeros(d, dtype=cd, device=cuda), d,
+                                           SQUARED_LOSS)
+    assert dx2.tolist() == [0.0] * 7 + [2.0 ** 24 + 4096, 0.0]
+    assert dx.tolist() == [0.0] * 7 + [2.0 ** 12 + (tiles - 1) * rows / 16, 0.0]
+    assert float(csum) == n
 
 
 def test_fused_hvp_one_column_sums_every_slot(cuda):

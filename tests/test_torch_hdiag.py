@@ -54,19 +54,24 @@ DTYPES = {  # values (jax, torch), compute (numpy, torch)
     "bfloat16": ((jnp.bfloat16, torch.bfloat16), (np.float32, torch.float32)),
 }
 
-# (n, k, d, trailing padding slots, all-padding rows, duplicate ids)
-MIXED = (157, 12, 300, 3, 5, True)
+# (n, k, d, trailing padding slots, all-padding rows, duplicate ids,
+#  columns named by every row)
+MIXED = (157, 12, 300, 3, 5, True, 0)
 EDGES = {
-    "k1": (64, 1, 157, 0, 0, False),
-    "all_padding": (40, 6, 90, 6, 0, False),
-    "duplicates": (33, 8, 7, 0, 3, True),  # 8 slots over 7 columns
-    "criteo_width": (300, 40, 1000, 2, 4, True),
+    "k1": (64, 1, 157, 0, 0, False, 0),
+    "all_padding": (40, 6, 90, 6, 0, False, 0),
+    "duplicates": (33, 8, 7, 0, 3, True, 0),  # 8 slots over 7 columns
+    "criteo_width": (300, 40, 1000, 2, 4, True, 0),
+    # the Criteo layout's intercept and 13 integer fields in every row
+    "criteo_hot": (300, 40, 1000, 2, 4, True, 14),
 }
 
 
-def _inputs(rng, n, k, d, pad, pad_rows, dup, dtype):
+def _inputs(rng, n, k, d, pad, pad_rows, dup, hot, dtype):
     (jv, tv), (nc, tc) = DTYPES[dtype]
     idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    if hot:
+        idx[:, :hot] = rng.permutation(d)[:hot]
     val = rng.standard_normal((n, k))
     if pad:
         idx[:, k - pad:] = d
@@ -118,8 +123,8 @@ def _scales(idx, val, rows, d, loss):
 
 
 def _run(rng, case, loss, dtype):
-    n, k, d, pad, pad_rows, dup = case
-    idx, val, rows, jax_in, torch_in = _inputs(rng, n, k, d, pad, pad_rows, dup, dtype)
+    idx, val, rows, jax_in, torch_in = _inputs(rng, *case, dtype)
+    d = case[2]
     jl = JAX_LOSS[loss]
     pallas = jax_fused.fused_hessian_diagonal(*jax_in, d, jl)  # interpret mode
     # the XLA route: margins by gather, the column sums by scatter-add
@@ -179,7 +184,7 @@ def test_hdiag_of_an_empty_batch():
 
 def test_hdiag_cost_record_is_one_design_read(rng):
     n, k, d = 21, 5, 50
-    *_, t = _inputs(rng, n, k, d, 1, 0, False, "float32")
+    *_, t = _inputs(rng, n, k, d, 1, 0, False, 0, "float32")
     fused_hessian_diagonal(*t, d, port_losses.LOGISTIC_LOSS)
     assert dispatch.design_reads("fused_hdiag") == 1
     cost = dispatch.kernel_costs()[("fused_hdiag", n, k, d, 4)]

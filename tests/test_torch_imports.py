@@ -1,7 +1,7 @@
-"""Static scan: neither the port nor ``chip_smoke.py`` imports ``jax`` or
-the JAX package ``photon_ml_tpu`` (the port keeps its own copies of what it
-needs). Static, so it does not depend on what else the test process has
-already imported."""
+"""Static scan: neither the port nor ``chip_smoke.py`` nor ``chip_ab.py``
+imports ``jax`` or the JAX package ``photon_ml_tpu`` (the port keeps its
+own copies of what it needs). Static, so it does not depend on what else
+the test process has already imported."""
 
 import ast
 import os
@@ -13,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "photon_ml_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(os.path.relpath(f, ROOT) for f in files)
@@ -43,7 +43,7 @@ def _imported_modules(tree):
 
 def test_scan_covers_the_port():
     files = _port_files()
-    assert "chip_smoke.py" in files
+    assert "chip_smoke.py" in files and "chip_ab.py" in files
     assert os.path.join("photon_ml_tpu_torch", "cli", "score.py") in files
     assert os.path.join("photon_ml_tpu_torch", "kernels", "ell.py") in files
     for rel in (("cli", "train.py"), ("cli", "stages.py"), ("kernels", "fused.py"),
