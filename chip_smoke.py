@@ -27,6 +27,19 @@ whenever any phase fails. Phases, in order:
    ``fused_vgc``, ``fused_hvp`` and ``fused_hdiag`` (f64, f32) again on
    the same design with 14 columns named by every row (the Criteo layout's
    hot columns);
+4b. lab: the port's sparse kernel lab (``photon_ml_tpu_torch.benchmarks.
+   sparse_kernel_lab.main``) at its defaults, n = 200,000, k = 32,
+   d = 120,000 with Zipf(1.1) column ids, counters set to 0 just before
+   and read just after; then ``lane_gather`` and ``onehot_gather`` held to
+   their plain versions bit for bit, ``onehot_reduce`` within 1e-6 of each
+   column's sum of |upd| of the plain version summed in f64 and to the
+   same bits over 3 calls, C1's z and C2's g to ``ell_matvec`` and
+   ``ell_scatter_add`` within 1e-6 of the scale; each timed beside
+   ``torch.gather``, a ``torch.take`` composite and ``index_add_``; then
+   ``onehot_reduce`` and ``onehot_gather`` on the uniform design of phase
+   3 (f32) with the same checks, beside ``ell_scatter_add``,
+   ``index_add_`` and ``torch.mv`` on the transposed CSR (built untimed)
+   on it, the layout, its sort and the ``a[row]`` gather timed apart;
 5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
@@ -89,6 +102,7 @@ from photon_ml_tpu_torch.io.avro import write_avro_file
 from photon_ml_tpu_torch.io.models import save_glm_model
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary, feature_key
+from photon_ml_tpu_torch.benchmarks import sparse_kernel_lab
 from photon_ml_tpu_torch.kernels import build, dispatch
 from photon_ml_tpu_torch.kernels.ell import (
     ell_matvec,
@@ -103,6 +117,16 @@ from photon_ml_tpu_torch.kernels.fused import (
     fused_hessian_vector_reference,
     fused_value_grad_curvature,
     fused_value_grad_curvature_reference,
+)
+from photon_ml_tpu_torch.kernels.lab import (
+    LAB_BLOCK,
+    column_sorted_tiles,
+    lane_gather,
+    lane_gather_reference,
+    onehot_gather,
+    onehot_gather_reference,
+    onehot_reduce,
+    onehot_reduce_reference,
 )
 from photon_ml_tpu_torch.io.constraints import load_constraint_bounds
 from photon_ml_tpu_torch.models.training import GLMTrainingConfig, OptimizerType, train_glm
@@ -172,20 +196,9 @@ def peaks_for(name: str) -> dict:
 
 
 def time_ms(fn, warmup: int = 3, runs: int = 25) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn`` after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    """Median of ``runs`` CUDA-event timings of ``fn`` after warm-up (the
+    lab's timer, so that its lines and this script's records agree)."""
+    return sparse_kernel_lab.time_call(fn, torch.device("cuda"), warmup, runs)[0]
 
 
 # -- phase 3: the kernel against its plain version ---------------------------
@@ -358,6 +371,12 @@ SOURCES = {
                   "photon_ml_tpu/kernels/fused.py:185"),
     "fused_hdiag": ("photon_ml_tpu_torch/kernels/csrc/fused.cu",
                     "photon_ml_tpu/kernels/fused.py:245"),
+    "lane_gather": ("photon_ml_tpu_torch/kernels/csrc/lab.cu",
+                    "benchmarks/sparse_kernel_lab.py:130"),
+    "onehot_gather": ("photon_ml_tpu_torch/kernels/csrc/lab.cu",
+                      "benchmarks/sparse_kernel_lab.py:229"),
+    "onehot_reduce": ("photon_ml_tpu_torch/kernels/csrc/lab.cu",
+                      "benchmarks/sparse_kernel_lab.py:288"),
 }
 # columns named by every row in the hot-column scatter case: the Criteo
 # layout's intercept and 13 integer fields
@@ -667,6 +686,199 @@ def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k:
     del idx, vals64
     torch.cuda.empty_cache()
     return results, hot
+
+
+# -- phase 4b: the sparse kernel lab -----------------------------------------
+
+# the lab's defaults (benchmarks/sparse_kernel_lab.py): 6.4M Zipf(1.1) entries
+LAB_ARGS = ("200000", "32", "120000")
+LAB_KERNELS = ("lane_gather", "onehot_gather", "onehot_reduce")
+# the lab's f32 tolerance, of the scale (a column's or row's sum of |terms|)
+LAB_RTOL = 1e-6
+ONEHOT_GATHER_COMPOSITE = "vals * torch.take(w_pad, global column), two calls"
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def check_onehot_reduce(tiles, upd, label):
+    """onehot_reduce against the plain version summed in f64 from the same
+    updates, within LAB_RTOL of each column's sum of |upd|, and its output
+    the same bits over 3 calls. Returns (g, max err, share)."""
+    got = onehot_reduce(tiles, upd)
+    ref = onehot_reduce_reference(tiles, upd.double())
+    scale = onehot_reduce_reference(tiles, upd.abs().double())
+    max_err, ok, share = within(got, ref, scale, LAB_RTOL)
+    same = all(bits_equal(onehot_reduce(tiles, upd), got) for _ in range(2))
+    log(f"[{label}] onehot_reduce: max |kernel - plain in f64| = {max_err:.3e} (rtol "
+        f"{LAB_RTOL:g} x column sum of |upd|; {share:.2e} of it), same bits over 3 calls "
+        f"{same}: {'ok' if ok and same else 'DISAGREES'}")
+    if not (ok and same):
+        raise AssertionError(f"onehot_reduce ({label}) disagrees with its plain version or "
+                             f"changed bits from call to call")
+    return got, max_err, share
+
+
+def check_onehot_gather(tiles, w, label):
+    """onehot_gather against its plain version, bit for bit."""
+    got = onehot_gather(tiles, w)
+    ok = bits_equal(got, onehot_gather_reference(tiles, w))
+    log(f"[{label}] onehot_gather: bit for bit with the plain version: "
+        f"{'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        raise AssertionError(f"onehot_gather ({label}) disagrees with its plain version")
+    return got
+
+
+def check_lab_sums(label, z_c, z, row_abs, g_c, g, col_abs):
+    """C1's z and C2's g against ell_matvec and ell_scatter_add on the same
+    matrix, within LAB_RTOL of each row's and column's sum of |terms|."""
+    z_err, z_ok, z_share = within(z_c, z, row_abs, LAB_RTOL)
+    g_err, g_ok, g_share = within(g_c, g, col_abs, LAB_RTOL)
+    log(f"[{label}] z from onehot_gather vs ell_matvec: {z_err:.3e} ({z_share:.2e} of the "
+        f"row scale); g from onehot_reduce vs ell_scatter_add: {g_err:.3e} ({g_share:.2e} of "
+        f"the column scale): {'ok' if z_ok and g_ok else 'DISAGREE'}")
+    if not (z_ok and g_ok):
+        raise AssertionError(f"the lab's C1 or C2 ({label}) disagrees with ell_matvec or "
+                             "ell_scatter_add")
+    return {"z_max_err": z_err, "z_max_err_share": z_share, "g_max_err": g_err,
+            "g_max_err_share": g_share}
+
+
+def onehot_records(tiles, w, upd, e, g, peaks, label, shape):
+    """onehot_gather (beside the take-based composite) and onehot_reduce
+    (beside ``index_add_`` into the tiles' global columns), timed."""
+    gcol = tiles.global_cols().reshape(-1)
+    w_pad = torch.zeros(tiles.nblocks * LAB_BLOCK + 1, dtype=w.dtype, device=w.device)
+    w_pad[:tiles.d] = w
+    flat_upd = upd.reshape(-1)
+    padded = tiles.cols.numel()
+    valid = int((tiles.cols < LAB_BLOCK).sum())
+    width = tiles.nblocks * LAB_BLOCK
+    gather = timed_record(
+        "onehot_gather", "f32", torch.float32, 0.0, lambda: onehot_gather(tiles, w),
+        lambda: onehot_gather_reference(tiles, w), 12 * padded + 4 * width, valid, peaks,
+        shape, label, composite=(ONEHOT_GATHER_COMPOSITE,
+                                 lambda: tiles.vals * torch.take(w_pad, gcol).view_as(e)))
+    gather["max_err_share"] = 0.0
+    _, max_err, share = g
+    reduce = timed_record(
+        "onehot_reduce", "f32", torch.float32, max_err, lambda: onehot_reduce(tiles, upd),
+        lambda: onehot_reduce_reference(tiles, upd), 8 * padded + 4 * width, valid, peaks,
+        shape, label, lambda: torch.zeros(width + 1, device=upd.device).index_add_(
+            0, gcol, flat_upd), "index_add_")
+    reduce["max_err_share"] = share
+    return [gather, reduce]
+
+
+def lab_phase(name: str):
+    """(a) the port's lab at its default shape, counters set to 0 just
+    before and read just after, then each kernel held to its plain version
+    and timed; (b) onehot_reduce and onehot_gather on the kernel phase's
+    uniform design beside ell_scatter_add, index_add_, torch.mv on the
+    transposed CSR and ell_matvec, with the layout, its sort and the
+    a[row] gather timed apart. Returns (launches, records at the lab's
+    shape, records at 2^22, summary)."""
+    peaks = peaks_for(name)
+    dispatch.reset_launch_counts()
+    out = sparse_kernel_lab.main(list(LAB_ARGS))
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    log(f"[lab] launches on the lab's path: {json.dumps(launches)}")
+    missed = [k for k in LAB_KERNELS + ("ell_matvec", "ell_scatter_add") if launches[k] < 1]
+    if missed:
+        raise AssertionError(f"the lab did not launch {missed}")
+    x = out["inputs"]
+    tiles, shape = x.tiles, {"n": x.n, "k": x.k, "d": x.d}
+    # (a) lane gather, bit for bit, beside torch.gather
+    got = lane_gather(x.tbl, x.idx)
+    ok = bits_equal(got, lane_gather_reference(x.tbl, x.idx))
+    log(f"[lab] lane_gather: bit for bit with the plain version: {'ok' if ok else 'DISAGREES'}")
+    if not ok:
+        raise AssertionError("lane_gather disagrees with its plain version")
+    idx64 = x.idx.long()
+    records = [timed_record(
+        "lane_gather", "f32", torch.float32, 0.0, lambda: lane_gather(x.tbl, x.idx),
+        lambda: lane_gather_reference(x.tbl, x.idx), 3 * x.tbl.numel() * 4, 0, peaks,
+        {"rows": x.tbl.shape[0], "lanes": x.tbl.shape[1]}, "lab",
+        lambda: torch.gather(x.tbl, 1, idx64), "torch.gather")]
+    records[0]["max_err_share"] = 0.0
+    e = check_onehot_gather(tiles, x.w, "lab")
+    g = check_onehot_reduce(tiles, x.upd, "lab")
+    upd_ell = x.vals * x.a[:, None]
+    summary = {"lines": out["records"], "tiles": tiles.ntiles, "chains": tiles.chains.shape[0]}
+    summary["sums"] = check_lab_sums(
+        "lab", sparse_kernel_lab.rows_sum(tiles, e, x.n), ell_matvec(x.cols, x.vals, x.w, x.d),
+        ell_matvec_reference(x.cols, x.vals.abs().double(), x.w.abs().double(), x.d),
+        g[0][:x.d],
+        ell_scatter_add(x.cols, upd_ell, x.d),
+        ell_scatter_add_reference(x.cols, upd_ell.abs().double(), x.d))
+    records += onehot_records(tiles, x.w, x.upd, e, g, peaks, "lab", shape)
+    del out, x, tiles, e, g, upd_ell, idx64
+    torch.cuda.empty_cache()
+    return launches, records, *lab_uniform(peaks, summary)
+
+
+def lab_uniform(peaks, summary, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
+    """(b): the kernel phase's uniform design (padding slots, duplicate
+    ids), f32 values, through column_sorted_tiles."""
+    idx, vals64 = make_ell(n, k, d, "cuda")
+    vals = vals64.float()
+    del vals64
+    g_ = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    w = torch.randn(d, generator=g_, device="cuda")
+    a = torch.randn(n, generator=g_, device="cuda")
+    flat_ids = idx.reshape(-1)
+    sort_ms = time_ms(lambda: torch.sort(flat_ids, stable=True), warmup=1, runs=5)
+    layout_ms = time_ms(lambda: column_sorted_tiles(idx, vals, d), warmup=1, runs=5)
+    tiles = column_sorted_tiles(idx, vals, d)
+    gather_ms = time_ms(lambda: sparse_kernel_lab.row_gather(tiles, a))
+    upd = sparse_kernel_lab.row_gather(tiles, a)
+    upd_ell = vals * a[:, None]
+    e = check_onehot_gather(tiles, w, "lab-uniform")
+    g = check_onehot_reduce(tiles, upd, "lab-uniform")
+    row_abs = ell_matvec_reference(idx, vals.abs().double(), w.abs().double(), d)
+    col_abs = ell_scatter_add_reference(idx, upd_ell.abs().double(), d)
+    shape = {"n": n, "k": k, "d": d}
+    uniform = {"layout_ms": layout_ms, "sort_ms": sort_ms, "row_gather_ms": gather_ms,
+               "tiles": tiles.ntiles, "padded_entries": tiles.cols.numel(),
+               "chains": tiles.chains.shape[0],
+               **check_lab_sums("lab-uniform", sparse_kernel_lab.rows_sum(tiles, e, n),
+                                ell_matvec(idx, vals, w, d), row_abs, g[0][:d],
+                                ell_scatter_add(idx, upd_ell, d), col_abs)}
+    log(f"[lab-uniform] layout {layout_ms:.4f} ms (its stable sort {sort_ms:.4f} ms), "
+        f"a[row] gather {gather_ms:.4f} ms, {tiles.ntiles} tiles, "
+        f"{tiles.chains.shape[0]} columns across tiles")
+    records = onehot_records(tiles, w, upd, e, g, peaks, "lab-uniform", shape)
+    # the atomic scatter on the same matrix, in the same call
+    valid = int((idx < d).sum())
+    max_err, ok, share = check_scatter(idx, upd_ell, d, 1e-5)
+    if not ok:
+        raise AssertionError("ell_scatter_add (lab-uniform) disagrees with its plain version")
+    ids = torch.where(idx < d, idx, d).reshape(-1).long()
+    records.append(timed_record(
+        "ell_scatter_add", "f32", torch.float32, max_err,
+        lambda: ell_scatter_add(idx, upd_ell, d),
+        lambda: ell_scatter_add_reference(idx, upd_ell, d), n * k * 8 + d * 4, valid, peaks,
+        shape, "lab-uniform", lambda: torch.zeros(d + 1, device="cuda").index_add_(
+            0, ids, upd_ell.reshape(-1))))
+    records[-1]["max_err_share"] = share
+    # the library's way to X^T a without atomics: torch.mv on the
+    # transposed CSR, built untimed (the composite's side of fused_hvp)
+    xt_csr = csr_t_of(idx, vals, d)
+    uniform["xt_csr_mv_max_abs_diff"] = float(
+        (torch.mv(xt_csr, a).double() - g[0][:d].double()).abs().max())
+    uniform["xt_csr_mv_ms"] = time_ms(lambda: torch.mv(xt_csr, a))
+    uniform["xt_csr_mv_device_ms"] = device_ms(lambda: torch.mv(xt_csr, a))[0]
+    log(f"[lab-uniform] torch.mv(XT_csr, a): {uniform['xt_csr_mv_ms']:.4f} ms (device "
+        f"{uniform['xt_csr_mv_device_ms']:.4f} ms), max |it - onehot_reduce| "
+        f"{uniform['xt_csr_mv_max_abs_diff']:.3e}")
+    summary["uniform"] = uniform
+    del idx, vals, tiles, upd, upd_ell, e, g, ids, xt_csr
+    torch.cuda.empty_cache()
+    return records, summary
 
 
 # -- phase 5: the scoring driver end to end ----------------------------------
@@ -1308,6 +1520,11 @@ def main() -> int:
     log(json.dumps({"hot_column_fused_checks": [
         c for c in hot_checks if c["name"] != "ell_scatter_add"]}))
 
+    # 4b. the sparse kernel lab, and its column-sorted kernels at 2^22
+    lab_launches, lab_checks, lab_uniform_checks, lab_summary = lab_phase(name)
+    log(json.dumps({"lab_checks": lab_checks, "lab_uniform_checks": lab_uniform_checks,
+                    "lab": lab_summary}))
+
     # 5. GLM scoring end to end
     work = os.path.join(ROOT, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -1351,7 +1568,8 @@ def main() -> int:
             "launches": launches[kernel],
             "launches_by_path": {"score": summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
-                                 "full_trainer_a": full_launches[kernel]},
+                                 "full_trainer_a": full_launches[kernel],
+                                 "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],
             "library_device_ms": main_path["library_device_ms"],
@@ -1363,6 +1581,20 @@ def main() -> int:
         if main_path["composite"] is not None:
             kernels[-1].update({k: main_path[k] for k in (
                 "composite", "composite_ms", "composite_device_ms")})
+    # the lab's kernels: each at the lab's default shape, its launches on
+    # the lab's path, and the column-sorted pair at the uniform 2^22 design
+    for kernel in LAB_KERNELS:
+        main_path = next(c for c in lab_checks if c["name"] == kernel)
+        uniform = next((c for c in lab_uniform_checks if c["name"] == kernel), None)
+        kernels.append({
+            **{k: main_path[k] for k in keys},
+            "launches": lab_launches[kernel],
+            "launches_by_path": {"lab": lab_launches[kernel]},
+            **{k: main_path[k] for k in ("device_ms", "host_ms", "library_device_ms",
+                                         "composite", "composite_ms", "composite_device_ms",
+                                         "max_err_share")},
+            "uniform_2_22": None if uniform is None else {k: uniform.get(k) for k in shape_keys},
+        })
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     print(json.dumps({

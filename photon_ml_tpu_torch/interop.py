@@ -6,7 +6,9 @@ The inputs are numpy arrays taken from ``photon_ml_tpu``'s
 fields); this module never imports that package. bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) are converted exactly through float32.
 The other bridge is the GLM Avro model file, which both packages read and
-write (``io.models``).
+write (``io.models``). ``lab_tiles_from_numpy`` takes the column-sorted
+tiles of ``benchmarks/sparse_kernel_lab.py``, which that script builds in
+numpy.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
+from photon_ml_tpu_torch.kernels.lab import LAB_BLOCK, LAB_TILE, ColumnTiles, tile_chains
 from photon_ml_tpu_torch.ops.sparse import SparseFeatures
 from photon_ml_tpu_torch.solvers.common import SolverConfig
 
@@ -89,3 +92,49 @@ def bounds_from_numpy(lower=None, upper=None):
         None if b is None else torch.from_numpy(np.array(b, dtype=np.float64))
         for b in (lower, upper)
     )
+
+
+def lab_tiles_from_numpy(psc, psr, psv, tile_block, first_of_block, w_blk, device="cpu"):
+    """(ColumnTiles, w_pad) from the sparse kernel lab's layout: ``psc``,
+    ``psr``, ``psv`` (ntiles, 8, 128) local columns, rows and values,
+    ``tile_block`` and ``first_of_block`` (ntiles,), ``w_blk`` (nblocks * 8,
+    64) the padded weights. The port's tiles are flat (ntiles, LAB_TILE)
+    and its ``w_pad`` (nblocks * LAB_BLOCK,); the width ``d`` of the tiles
+    is the padded one, ``nblocks * LAB_BLOCK``, since the lab's arrays do
+    not carry ``d``. Raises unless the arrays have those shapes, each
+    tile's columns lie in [0, LAB_BLOCK] and are sorted within each block,
+    and the tiles' blocks do not decrease."""
+    psc, psr, psv = (np.asarray(a) for a in (psc, psr, psv))
+    tile_block = np.asarray(tile_block, np.int32)
+    w_blk = np.asarray(w_blk)
+    ntiles = psc.shape[0]
+    tile_shape = (8, LAB_TILE // 8)
+    if (any(a.shape != (ntiles, *tile_shape) for a in (psc, psr, psv))
+            or w_blk.ndim != 2 or w_blk.shape[0] % 8 or w_blk.shape[1] != LAB_BLOCK // 8
+            or tile_block.shape != (ntiles,)):
+        raise ValueError(f"lab_tiles_from_numpy: tiles must be (ntiles, {tile_shape[0]}, "
+                         f"{tile_shape[1]}), w_blk (nblocks * 8, {LAB_BLOCK // 8}); got "
+                         f"{psc.shape}, {psr.shape}, {psv.shape}, {w_blk.shape}")
+    nblocks = w_blk.shape[0] // 8
+    cols = psc.reshape(ntiles, LAB_TILE).astype(np.int32)
+    if cols.size and (cols.min() < 0 or cols.max() > LAB_BLOCK):
+        raise ValueError(f"lab_tiles_from_numpy: columns outside [0, {LAB_BLOCK}]")
+    if ntiles and (np.any(np.diff(tile_block) < 0) or tile_block[0] < 0
+                   or tile_block[-1] >= nblocks):
+        raise ValueError("lab_tiles_from_numpy: tile_block must not decrease and must lie "
+                         f"in [0, {nblocks})")
+    same_block = np.repeat(tile_block, LAB_TILE)
+    flat = cols.reshape(-1)
+    if np.any((np.diff(flat) < 0) & (same_block[1:] == same_block[:-1])):
+        raise ValueError("lab_tiles_from_numpy: columns must be sorted within each block")
+    cols_t = tensor_from_numpy(cols, device)
+    tb = tensor_from_numpy(tile_block, device)
+    tiles = ColumnTiles(
+        cols=cols_t,
+        rows=tensor_from_numpy(psr.reshape(ntiles, LAB_TILE).astype(np.int32), device),
+        vals=tensor_from_numpy(psv.reshape(ntiles, LAB_TILE), device),
+        tile_block=tb,
+        first_of_block=tensor_from_numpy(np.asarray(first_of_block, np.int32), device),
+        chains=tile_chains(cols_t, tb), d=nblocks * LAB_BLOCK, nblocks=nblocks,
+    )
+    return tiles, tensor_from_numpy(w_blk.reshape(-1), device)

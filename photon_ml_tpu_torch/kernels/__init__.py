@@ -3,8 +3,10 @@
 
 ``dispatch`` routes by tensor device and counts launches; ``build``
 compiles ``csrc/*.cu`` with ``nvcc`` at first use; ``ell`` holds the
-padded-ELL gather and scatter kernels and ``fused`` the fused objective
-passes, each with its plain PyTorch version.
+padded-ELL gather and scatter kernels, ``fused`` the fused objective
+passes and ``lab`` the sparse kernel lab's lane gather, column-sorted
+gather and column-sorted reduce with their layout; each kernel with its
+plain PyTorch version.
 """
 
 from photon_ml_tpu_torch.kernels.dispatch import (
@@ -29,6 +31,16 @@ from photon_ml_tpu_torch.kernels.fused import (
     fused_value_grad_curvature,
     fused_value_grad_curvature_reference,
 )
+from photon_ml_tpu_torch.kernels.lab import (
+    ColumnTiles,
+    column_sorted_tiles,
+    lane_gather,
+    lane_gather_reference,
+    onehot_gather,
+    onehot_gather_reference,
+    onehot_reduce,
+    onehot_reduce_reference,
+)
 
 __all__ = [
     "design_reads",
@@ -47,4 +59,12 @@ __all__ = [
     "fused_hessian_vector_reference",
     "fused_value_grad_curvature",
     "fused_value_grad_curvature_reference",
+    "ColumnTiles",
+    "column_sorted_tiles",
+    "lane_gather",
+    "lane_gather_reference",
+    "onehot_gather",
+    "onehot_gather_reference",
+    "onehot_reduce",
+    "onehot_reduce_reference",
 ]

@@ -36,6 +36,8 @@ __all__ = [
 # Design reads per pass, per kernel: each pass reads (indices, values) once.
 # ell_rmatvec and ell_colsum are ell_scatter_add launches whose update
 # table is formed outside the kernel; each counts its own calls as well.
+# The sparse kernel lab's kernels (kernels/lab.py) read their table or
+# column-sorted tiles once.
 _DESIGN_READS = {
     "ell_matvec": 1,
     "ell_scatter_add": 1,
@@ -44,6 +46,9 @@ _DESIGN_READS = {
     "fused_vgc": 1,
     "fused_hvp": 1,
     "fused_hdiag": 1,
+    "lane_gather": 1,
+    "onehot_gather": 1,
+    "onehot_reduce": 1,
 }
 KERNELS: Tuple[str, ...] = tuple(_DESIGN_READS)
 

@@ -10,7 +10,7 @@ import shutil
 
 import pytest
 
-from photon_ml_tpu_torch.kernels import build, ell, fused
+from photon_ml_tpu_torch.kernels import build, ell, fused, lab
 
 
 @pytest.fixture
@@ -33,6 +33,7 @@ def _append(path, text):
 
 def test_every_source_and_header_is_in_the_tree():
     names = set(os.listdir(build.CSRC_DIR))
+    assert set(build.SOURCES) == {"ell_matvec", "ell_scatter_add", "fused", "lab"}
     assert set(build.SOURCES.values()) <= names
     assert {"ell_common.cuh", "ell_tile.cuh"} <= names
 
@@ -117,3 +118,29 @@ def test_fused_library_exports_the_tile_entries_only():
     for name in os.listdir(build.CSRC_DIR):
         with open(os.path.join(build.CSRC_DIR, name)) as f:
             assert "row_dot" not in f.read(), name
+
+
+def _exported(library):
+    with open(os.path.join(build.CSRC_DIR, build.SOURCES[library])) as f:
+        source = f.read()
+    return source, set(re.findall(r"\b(photon_\w+)\(", source[source.index('extern "C" {'):]))
+
+
+def test_lab_library_exports_every_entry_its_wrappers_load():
+    """``lab.cu`` exports the three entries ``kernels/lab.py`` loads, and the
+    error string every library has."""
+    _, names = _exported("lab")
+    with open(lab.__file__) as f:
+        loaded = set(re.findall(r'"(photon_lab_\w+)"', f.read()))
+    assert loaded == {"photon_lab_lane_gather", "photon_lab_onehot_gather",
+                      "photon_lab_onehot_reduce"}
+    assert loaded | {"photon_cuda_error_string"} <= names
+
+
+def test_onehot_reduce_source_has_no_atomics():
+    """The column-sorted reduce writes each column once, in a fixed order:
+    no atomic anywhere in ``lab.cu``."""
+    source, _ = _exported("lab")
+    code = re.sub(r"//[^\n]*", "", source)
+    assert "onehot_reduce_tiles_kernel" in code and "onehot_reduce_chains_kernel" in code
+    assert "atomic" not in code.lower()

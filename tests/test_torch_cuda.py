@@ -610,3 +610,207 @@ def test_fused_passes_of_zero_slots_give_the_row_terms(cuda):
     assert _within(asum, ref[2], (ew * LOGISTIC_LOSS.d1(off, y)).abs().sum(), 1e-12)
     hv, usum = fused_hessian_vector(idx, val, ew, w, torch.tensor(0.5, device=cuda), d)
     assert not hv.any() and _within(usum, 0.5 * ew.sum(), ew.sum(), 1e-12)
+
+
+# -- the sparse kernel lab: lane_gather, onehot_gather, onehot_reduce ---------
+
+import numpy as np  # noqa: E402
+
+from photon_ml_tpu_torch.benchmarks.sparse_kernel_lab import make_data  # noqa: E402
+from photon_ml_tpu_torch.kernels.lab import (  # noqa: E402
+    LAB_BLOCK,
+    ColumnTiles,
+    column_sorted_tiles,
+    lane_gather,
+    lane_gather_reference,
+    onehot_gather,
+    onehot_gather_reference,
+    onehot_reduce,
+    onehot_reduce_reference,
+    tile_chains,
+)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("rows,lo,hi", [(8192, 0, 128), (8192, -300, 300), (1, -128, 128),
+                                        (37, 0, 128)])
+def test_lane_gather_matches_plain_version_bit_for_bit(cuda, rows, lo, hi):
+    g = torch.Generator(device=cuda).manual_seed(rows + hi)
+    tbl = torch.randn((rows, 128), generator=g, device=cuda)
+    idx = torch.randint(lo, hi, (rows, 128), generator=g, device=cuda, dtype=torch.int32)
+    before = dispatch.launch_counts()["lane_gather"]
+    got = lane_gather(tbl, idx)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["lane_gather"] == before + 1
+    assert torch.equal(_bits(got), _bits(lane_gather_reference(tbl, idx)))
+
+
+def _lab_design(n, k, d, seed=0):
+    cols, vals = make_data(n, k, d, seed)
+    return torch.from_numpy(cols), torch.from_numpy(vals), d
+
+
+def _with_padding(idx, val, d, every=7):
+    idx, val = idx.clone(), val.clone()
+    idx[::every, -1] = d
+    val[::every, -1] = 0.0
+    return idx, val, d
+
+
+def _lab_case(name):
+    """(indices, values, d) on the CPU; each an edge of onehot_reduce."""
+    rng = np.random.default_rng(5)
+    if name == "zipf_d_not_multiple":  # the lab's data, d = 1100
+        return _lab_design(30000, 8, 1100)
+    if name == "zipf_wide":  # many blocks, most with one tile
+        return _lab_design(20000, 32, 120000)
+    if name == "empty_blocks":  # blocks 1 and 3 named by no entry
+        idx = rng.choice(np.r_[0:512, 1024:1536, 2048:2500], size=(7000, 6))
+        return _with_padding(torch.from_numpy(idx.astype(np.int32)),
+                             torch.from_numpy(rng.standard_normal((7000, 6)).astype(np.float32)),
+                             2500)
+    if name == "block_of_exactly_1024":
+        idx = np.concatenate([rng.integers(0, 512, (512, 2)),
+                              rng.integers(512, 1500, (512, 1))], 1).astype(np.int32)
+        val = rng.standard_normal((512, 3)).astype(np.float32)
+        idx[::7, -1] = 1500
+        val[::7, -1] = 0.0
+        return torch.from_numpy(idx), torch.from_numpy(val), 1500
+    if name == "one_column_many_tiles":  # column 700 spans about 40 tiles
+        idx = rng.integers(0, 1800, size=(10000, 5)).astype(np.int32)
+        idx[:, :4] = 700
+        return _with_padding(torch.from_numpy(idx),
+                             torch.from_numpy(rng.standard_normal((10000, 5)).astype(np.float32)),
+                             1800)
+    if name == "d_one":
+        return _with_padding(torch.zeros((5000, 1), dtype=torch.int32),
+                             torch.from_numpy(rng.standard_normal((5000, 1)).astype(np.float32)),
+                             1)
+    raise KeyError(name)
+
+
+LAB_CASES = ["zipf_d_not_multiple", "zipf_wide", "empty_blocks", "block_of_exactly_1024",
+             "one_column_many_tiles", "d_one", "tile_of_only_padding"]
+
+
+def _padding_tile_after(tiles: ColumnTiles, t: int) -> ColumnTiles:
+    """The same tiles with a tile of only misses after tile ``t``, in its
+    block (a valid layout: misses end a block)."""
+    cat = lambda a, b: torch.cat([a[:t + 1], b, a[t + 1:]])  # noqa: E731
+    cols = cat(tiles.cols, torch.full_like(tiles.cols[:1], LAB_BLOCK))
+    tb = cat(tiles.tile_block, tiles.tile_block[t:t + 1])
+    return ColumnTiles(
+        cols=cols, rows=cat(tiles.rows, torch.zeros_like(tiles.rows[:1])),
+        vals=cat(tiles.vals, torch.zeros_like(tiles.vals[:1])), tile_block=tb,
+        first_of_block=cat(tiles.first_of_block, torch.zeros_like(tiles.first_of_block[:1])),
+        chains=tile_chains(cols, tb), d=tiles.d, nblocks=tiles.nblocks)
+
+
+def _lab_tiles(name, device):
+    """(tiles, w, upd) of a case on ``device``, the layout built there."""
+    if name == "tile_of_only_padding":
+        idx, val, d = _lab_case("zipf_d_not_multiple")
+    else:
+        idx, val, d = _lab_case(name)
+    tiles = column_sorted_tiles(idx.to(device), val.to(device), d)
+    if name == "tile_of_only_padding":
+        last_of_block0 = int((tiles.tile_block == 0).sum()) - 1
+        tiles = _padding_tile_after(tiles, last_of_block0)
+    g = torch.Generator(device=device).manual_seed(17)
+    w = torch.randn(d, generator=g, device=device)
+    a = torch.randn(idx.shape[0], generator=g, device=device)
+    upd = tiles.vals * a[tiles.rows.long()]
+    return tiles, w, upd
+
+
+@pytest.mark.parametrize("name", LAB_CASES)
+def test_onehot_gather_matches_plain_version_bit_for_bit(cuda, name):
+    tiles, w, _ = _lab_tiles(name, cuda)
+    before = dispatch.launch_counts()["onehot_gather"]
+    got = onehot_gather(tiles, w)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["onehot_gather"] == before + 1
+    assert torch.equal(_bits(got), _bits(onehot_gather_reference(tiles, w)))
+
+
+@pytest.mark.parametrize("name", LAB_CASES)
+def test_onehot_reduce_matches_plain_version_in_f64(cuda, name):
+    """Within 1e-6 of each column's sum of |upd| of the plain version
+    summed in f64 from the same updates; 0 where no entry names a column."""
+    tiles, _, upd = _lab_tiles(name, cuda)
+    before = dispatch.launch_counts()["onehot_reduce"]
+    got = onehot_reduce(tiles, upd)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["onehot_reduce"] == before + 1
+    ref = onehot_reduce_reference(tiles, upd.double())
+    scale = onehot_reduce_reference(tiles, upd.abs().double())
+    assert got.shape == (tiles.nblocks * 512,) and got.dtype == torch.float32
+    assert _within(got, ref, scale, 1e-6)
+    assert not got[scale == 0].any()
+    if name == "one_column_many_tiles":
+        (first, last), = tiles.chains[tiles.chains[:, 0] == 700, 1:].tolist()
+        assert last - first >= 30
+    if name == "empty_blocks":
+        assert set(tiles.tile_block.tolist()) == {0, 2, 4}
+
+
+def test_lab_kernels_on_empty_input_launch_nothing(cuda):
+    """A design of only padding has no tiles: g is 0 and no count moves
+    (the reduce clears nothing on the card either)."""
+    idx = torch.full((5, 3), 700, dtype=torch.int32, device=cuda)
+    tiles = column_sorted_tiles(idx, torch.zeros((5, 3), device=cuda), 700)
+    assert tiles.ntiles == 0
+    before = dispatch.launch_counts()
+    g = onehot_reduce(tiles, tiles.vals)
+    e = onehot_gather(tiles, torch.ones(700, device=cuda))
+    out = lane_gather(torch.ones((0, 128), device=cuda),
+                      torch.zeros((0, 128), dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts() == before
+    assert g.shape == (2 * LAB_BLOCK,) and g.is_cuda and not g.any()
+    assert e.shape == (0, 1024) and out.shape == (0, 128)
+
+
+@pytest.mark.parametrize("name", ["zipf_d_not_multiple", "one_column_many_tiles"])
+def test_onehot_reduce_has_the_same_bits_over_three_calls(cuda, name):
+    tiles, _, upd = _lab_tiles(name, cuda)
+    first = onehot_reduce(tiles, upd)
+    for _ in range(2):
+        assert torch.equal(_bits(onehot_reduce(tiles, upd)), _bits(first))
+
+
+@pytest.mark.parametrize("name", ["zipf_wide", "empty_blocks", "d_one"])
+def test_column_sorted_tiles_on_the_card_equal_the_cpus(cuda, name):
+    idx, val, d = _lab_case(name)
+    on_card = column_sorted_tiles(idx.to(cuda), val.to(cuda), d)
+    on_cpu = column_sorted_tiles(idx, val, d)
+    for field in ("cols", "rows", "vals", "tile_block", "first_of_block", "chains"):
+        assert torch.equal(getattr(on_card, field).cpu(), getattr(on_cpu, field)), field
+
+
+def test_lab_wrappers_raise_on_ids_outside_the_table_and_other_inputs(cuda):
+    idx, val, d = _lab_case("empty_blocks")
+    bad = idx.to(cuda)
+    bad[3, 2] = d + 1
+    with pytest.raises(ValueError, match="outside"):
+        column_sorted_tiles(bad, val.to(cuda), d)
+    bad[3, 2] = -5
+    with pytest.raises(ValueError, match="outside"):
+        column_sorted_tiles(bad, val.to(cuda), d)
+    tiles, w, upd = _lab_tiles("empty_blocks", cuda)
+    with pytest.raises(ValueError, match=r"\(2500,\)"):
+        onehot_gather(tiles, w[:-1])
+    with pytest.raises(TypeError, match="float32"):
+        onehot_reduce(tiles, upd.double())
+    with pytest.raises(ValueError, match="more than one device"):
+        onehot_gather(tiles, w.cpu())
+    tbl = torch.randn((64, 128), device=cuda)
+    ids = torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_gather(tbl.t().contiguous().t(), ids.t().contiguous().t())
+    flat = torch.empty(64 * 128 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        lane_gather(flat[1:].view(64, 128), ids)

@@ -49,7 +49,8 @@ def test_scan_covers_the_port():
     for rel in (("cli", "train.py"), ("cli", "stages.py"), ("kernels", "fused.py"),
                 ("ops", "objective.py"), ("ops", "stats.py"), ("solvers", "tron.py"),
                 ("solvers", "lbfgs.py"), ("solvers", "linesearch.py"),
-                ("models", "training.py"), ("core", "normalization.py")):
+                ("models", "training.py"), ("core", "normalization.py"),
+                ("kernels", "lab.py"), ("benchmarks", "sparse_kernel_lab.py")):
         assert os.path.join("photon_ml_tpu_torch", *rel) in files
 
 
