@@ -47,6 +47,23 @@ whenever any phase fails. Phases, in order:
    set to 0 just before and read just after; the kernel against its plain
    version at the shape the driver gave it; then the same run again under
    ``torch.profiler`` for the card's busy and idle share;
+5b. GAME score: the port's scoring driver with ``model_kind="game"`` on a
+   model written by the port's ``save_game_model`` from seeded numpy —
+   ``global``, a fixed effect on the Criteo layout (ELL, ``ell_matvec``);
+   ``per-user``, a random effect on a 20,000-column sparse shard, 4,096
+   users with a private pool of 25 columns each, 5 per row (the compact
+   join); ``per-ad``, a dense random effect on the 13 integer fields plus
+   the intercept, 1,024 ads; ``per-ad-latent``, a factored one on the same
+   type and shard, latent dimension 8, holding another random half of the
+   2,048 ads — on 30,000 records padded to the 2^15 bucket (1/16 with a
+   user the model lacks, 1/32 without an ad), counters set to 0 just
+   before and read just after (``ell_matvec`` exactly 1, every other
+   kernel 0); the phase seconds; the same run under ``torch.profiler``;
+   then the driver on the CPU: scores within 1e-10 max(1, |s|), every
+   metric within 1e-10 and the same uids in order, and the scores within
+   1e-10 of the generator's own numpy margins; ``ell_matvec`` against its
+   plain version and timed beside ``torch.mv`` on CSR at the driver's
+   shape (n = 2^15, k = 40, d = 2^20 + 1);
 6. train: the port's GLM training driver (``run_glm_training``, sparse
    TRON, L2 logistic, lambda in {10, 1}, float64, with validation) on 2^16
    Criteo-layout records and 2^14 held-out ones, counters set to 0 just
@@ -98,8 +115,9 @@ from photon_ml_tpu_torch.cli.score import run_scoring
 from photon_ml_tpu_torch.cli.train import run_glm_training
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
-from photon_ml_tpu_torch.io.avro import write_avro_file
-from photon_ml_tpu_torch.io.models import save_glm_model
+from photon_ml_tpu_torch.game.factored import FactoredParams
+from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
+from photon_ml_tpu_torch.io.models import save_game_model, save_glm_model
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary, feature_key
 from photon_ml_tpu_torch.benchmarks import sparse_kernel_lab
@@ -134,6 +152,7 @@ from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
 from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
 from photon_ml_tpu_torch.ops.sparse import from_coo
+from photon_ml_tpu_torch.serving.engine import bucket_size
 from photon_ml_tpu_torch.solvers import host_reads, reset_host_reads
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1085,6 +1104,242 @@ def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
     return summary
 
 
+# -- phase 5b: GAME scoring end to end --------------------------------------
+
+# a GAME model on the Criteo layout: the fixed effect on the hashed columns
+# (ELL, ell_matvec), a random effect per user on a wide sparse shard laid
+# out as examples/make_wide_game_data.py (a private pool of 25 columns per
+# user, 5 per row), and two per-ad effects on the 13 integer fields plus
+# the intercept: a dense table and a factored one (latent dimension 8),
+# each holding its own random half of the ads
+GAME_RECORDS = 30_000  # padded to the 2^15 bucket
+GAME_USERS = 4096
+GAME_USER_COLS = 20_000
+GAME_USER_POOL = 25
+GAME_USER_PER_ROW = 5
+GAME_ADS = 1024  # per coordinate, out of 2 * GAME_ADS
+GAME_LATENT = 8
+GAME_SPARSE_SHARDS = ["global", "user"]
+
+
+def write_game_inputs(work: str, n: int, d_hashed: int, n_users: int, user_cols: int,
+                      n_ads: int, seed: int = SEED + 20):
+    """The GAME model directory (written by the port's ``save_game_model``
+    from seeded numpy, with one feature-index file per shard) and n
+    TrainingExample records: the Criteo fields, 5 user features, a userId
+    (1/16 of rows one the model lacks) and an adId (absent from 1/32 of
+    rows, drawn from all 2 * n_ads ads). Returns (model dir, data file,
+    the records' margins from the generator's own numpy, without
+    offsets)."""
+    rng = np.random.default_rng(seed)
+    model_dir = os.path.join(work, "model")
+    gvocab = hashed_vocabulary(os.path.join(model_dir, "feature-index-global.txt"), d_hashed)
+    uvocab = FeatureVocabulary([feature_key("u", str(j)) for j in range(user_cols)])
+    uvocab.save(os.path.join(model_dir, "feature-index-user.txt"))
+    int_cols = _hash(np.arange(INT_FIELDS), np.zeros(INT_FIELDS, np.int64)) % d_hashed
+    avocab = FeatureVocabulary([feature_key("h", str(c)) for c in int_cols.tolist()],
+                               add_intercept=True)
+    avocab.save(os.path.join(model_dir, "feature-index-ad.txt"))
+    d_ad = len(avocab)
+
+    w_g = rng.normal(0.0, 0.25, size=len(gvocab))
+    pools = rng.integers(0, user_cols, size=(n_users, GAME_USER_POOL))
+    user_table = np.zeros((n_users, user_cols))
+    user_table[np.arange(n_users)[:, None], pools] = rng.normal(0.0, 0.5, size=pools.shape)
+    ad_table = rng.normal(0.0, 0.3, size=(n_ads, d_ad))
+    gamma = rng.normal(0.0, 0.5, size=(n_ads, GAME_LATENT))
+    projection = rng.normal(0.0, 0.3, size=(d_ad, GAME_LATENT))
+    ad_half = rng.permutation(2 * n_ads)[:n_ads]
+    latent_half = rng.permutation(2 * n_ads)[:n_ads]
+    save_game_model(
+        model_dir,
+        params={"global": w_g, "per-user": user_table, "per-ad": ad_table,
+                "per-ad-latent": FactoredParams(torch.from_numpy(gamma),
+                                                torch.from_numpy(projection))},
+        shards={"global": "global", "per-user": "user", "per-ad": "ad",
+                "per-ad-latent": "ad"},
+        vocabs={"global": gvocab, "per-user": uvocab, "per-ad": avocab,
+                "per-ad-latent": avocab},
+        entity_vocabs={"per-user": {f"user{u}": u for u in range(n_users)},
+                       "per-ad": {f"ad{a}": i for i, a in enumerate(ad_half.tolist())},
+                       "per-ad-latent": {f"ad{a}": i for i, a in enumerate(latent_half.tolist())}},
+        random_effects={"global": None, "per-user": "userId", "per-ad": "adId",
+                        "per-ad-latent": "adId"},
+        task=TaskType.LOGISTIC_REGRESSION,
+    )
+
+    rows, cols, vals = make_criteo_like(n, seed)
+    cols = cols % d_hashed
+    users = rng.integers(0, n_users, n)
+    known_user = np.arange(n) % 16 != 3
+    ucols = pools[users[:, None], rng.integers(0, GAME_USER_POOL, (n, GAME_USER_PER_ROW))]
+    uvals = rng.normal(size=ucols.shape)
+    ads = rng.integers(0, 2 * n_ads, n)
+    has_ad = np.arange(n) % 32 != 7
+    offsets = rng.normal(0.0, 0.1, size=n)
+
+    # the margins, from the generator's numpy: every feature lands in each
+    # shard whose vocabulary names it (an integer field's column, and any
+    # categorical value hashed onto one, in the ad shard too)
+    margins = np.bincount(rows, vals * w_g[cols], minlength=n) + w_g[gvocab.intercept_index]
+    margins += known_user * np.einsum("nj,nj->n", uvals, user_table[users[:, None], ucols])
+    slot = np.full(d_hashed, -1)
+    slot[int_cols] = np.arange(INT_FIELDS)
+    in_ad = slot[cols] >= 0
+    x_ad = np.zeros((n, d_ad))
+    np.add.at(x_ad, (rows[in_ad], slot[cols[in_ad]]), vals[in_ad])
+    x_ad[:, avocab.intercept_index] = 1.0
+    for half, coef in ((ad_half, lambda r: ad_table[r]),
+                       (latent_half, lambda r: gamma[r] @ projection.T)):
+        row_of = np.full(2 * n_ads, -1)
+        row_of[half] = np.arange(n_ads)
+        r = row_of[ads]
+        hit = has_ad & (r >= 0)
+        margins[hit] += np.einsum("nd,nd->n", x_ad[hit], coef(r[hit]))
+    labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-(margins + offsets)))).astype(np.float64)
+
+    per_row = cols.size // n
+    c2, v2 = cols.reshape(n, per_row), vals.reshape(n, per_row)
+    records = (
+        {
+            "uid": f"g{i}",
+            "label": float(labels[i]),
+            "features": [{"name": "h", "term": str(c), "value": float(v)}
+                         for c, v in zip(c2[i].tolist(), v2[i].tolist())]
+            + [{"name": "u", "term": str(c), "value": float(v)}
+               for c, v in zip(ucols[i].tolist(), uvals[i].tolist())],
+            "metadataMap": {
+                "userId": f"user{users[i] if known_user[i] else n_users + i}",
+                **({"adId": f"ad{ads[i]}"} if has_ad[i] else {}),
+            },
+            "weight": None,
+            "offset": float(offsets[i]),
+        }
+        for i in range(n)
+    )
+    data = os.path.join(work, "data", "part-00000.avro")
+    write_avro_file(data, TRAINING_EXAMPLE_SCHEMA, records)
+    icpt = np.full(n, gvocab.intercept_index)
+    coo = (np.concatenate([rows, np.arange(n)]), np.concatenate([cols, icpt]),
+           np.concatenate([vals, np.ones(n)]), len(gvocab), w_g)
+    return model_dir, data, margins + offsets, coo
+
+
+def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int = D_HASHED,
+               n_users: int = GAME_USERS, user_cols: int = GAME_USER_COLS,
+               n_ads: int = GAME_ADS, **device_kw):
+    """Run the port's GAME scoring driver on the card (the driver's default
+    device; ``device_kw`` names another for a rehearsal), with the counters
+    set to 0 just before and read just after, then the same run under
+    ``torch.profiler``, then on the CPU; hold the card's scores, metrics
+    and uids to the CPU's and the scores to the generator's margins, and
+    time ``ell_matvec`` at the shape the driver gave it."""
+    t0 = time.perf_counter()
+    model_dir, data, ref, coo = write_game_inputs(work, n, d_hashed, n_users, user_cols, n_ads)
+    setup_s = time.perf_counter() - t0
+    log(f"[game] wrote {n} records and a 4-coordinate GAME model ({d_hashed} hashed "
+        f"columns + intercept, {n_users} users x {user_cols} columns, 2 x {n_ads} ads) "
+        f"in {setup_s:.1f} s (set-up)")
+    params = {
+        "input": [data],
+        "model_dir": model_dir,
+        "output_dir": os.path.join(work, "scores"),
+        "model_kind": "game",
+        "sparse_shards": GAME_SPARSE_SHARDS,
+        "evaluate": True,
+    }
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = run_scoring(params, **device_kw)
+    wall_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    on_card = not device_kw
+    want = {k: (1 if on_card and k == "ell_matvec" else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"GAME scoring launched {launches}, expected {want}")
+    log(f"[game] card run {wall_s:.4f} s, phases {json.dumps(run.timings)}, "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+    busy = {"device_busy_s": None}
+    traced_wall_s = None
+    if on_card:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_scoring({**params, "overwrite": True})
+            traced_wall_s = time.perf_counter() - t0
+        busy = device_busy(prof)
+
+    t0 = time.perf_counter()
+    cpu = run_scoring({**params, "output_dir": os.path.join(work, "scores-cpu")}, device="cpu")
+    cpu_wall_s = time.perf_counter() - t0
+
+    # the card against the CPU, and both against the generator's margins
+    scale = np.maximum(1.0, np.abs(cpu.scores))
+    if run.scores.shape != (n,) or not np.isfinite(run.scores).all():
+        raise AssertionError(f"GAME scores: shape {run.scores.shape}, finite "
+                             f"{bool(np.isfinite(run.scores).all())}")
+    card_err = float(np.max(np.abs(run.scores - cpu.scores) / scale))
+    ref_err = float(np.max(np.abs(cpu.scores - ref) / np.maximum(1.0, np.abs(ref))))
+    metric_err = {k: abs(run.metrics[k] - v) for k, v in cpu.metrics.items()}
+    _, card_recs = read_avro_file(run.output_path)
+    _, cpu_recs = read_avro_file(cpu.output_path)
+    same_uids = [r["uid"] for r in card_recs] == [r["uid"] for r in cpu_recs]
+    auc = run.metrics["AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS"]
+    log(f"[game] card vs CPU: max |s - s_cpu| / max(1, |s_cpu|) {card_err:.3e} (limit 1e-10), "
+        f"metrics {json.dumps(metric_err)} (limit 1e-10), same uids in order {same_uids}; "
+        f"CPU vs the generator's margins {ref_err:.3e}; AUC {auc:.6f}")
+    if (card_err > 1e-10 or ref_err > 1e-10 or set(run.metrics) != set(cpu.metrics)
+            or max(metric_err.values()) > 1e-10 or not same_uids or not 0.5 < auc <= 1.0):
+        raise AssertionError("GAME scoring on the card disagrees with the CPU run")
+
+    # the kernel against its plain version at the shape the driver gave it
+    rows, cols, vals, d, w = coo
+    device = torch.device(run.device)
+    ell = from_coo(rows, cols, vals, bucket_size(n), d, dtype=torch.float64, device=device)
+    w_dev = torch.from_numpy(w).to(device)
+    kernel = ell_matvec(ell.indices, ell.values, w_dev, d)
+    plain = ell_matvec_reference(ell.indices, ell.values, w_dev, d)
+    row_abs = ell_matvec_reference(ell.indices, ell.values.abs(), w_dev.abs(), d)
+    kernel_err = (kernel - plain).abs()
+    if not bool(torch.all(kernel_err <= 1e-12 * row_abs)):
+        raise AssertionError(f"ell_matvec at the GAME shape: {float(kernel_err.max())}")
+    record = None
+    if on_card:
+        m, k = ell.indices.shape
+        valid = int((ell.indices < d).sum())
+        csr = csr_of(ell.indices, ell.values, d)
+        record = timed_record(
+            "ell_matvec", "f64", torch.float64, float(kernel_err.max()),
+            lambda: ell_matvec(ell.indices, ell.values, w_dev, d),
+            lambda: ell_matvec_reference(ell.indices, ell.values, w_dev, d),
+            m * k * 12 + d * 8 + m * 8, 2 * valid, peaks_for(name),
+            {"n": m, "k": k, "d": d}, "game", lambda: torch.mv(csr, w_dev), "torch.mv(CSR)",
+        )
+        del csr
+    summary = {
+        "records": n,
+        "bucket": bucket_size(n),
+        "device": run.device,
+        "wall_s": wall_s,
+        "rows_per_s": n / wall_s,
+        "timings_s": run.timings,
+        "launches": launches,
+        "traced_wall_s": traced_wall_s,
+        **busy,
+        "device_idle_share": (None if busy["device_busy_s"] is None
+                              else 1.0 - busy["device_busy_s"] / traced_wall_s),
+        "cpu_wall_s": cpu_wall_s,
+        "cpu_timings_s": cpu.timings,
+        "max_err_vs_cpu": card_err,
+        "max_err_vs_generator": ref_err,
+        "metrics": run.metrics,
+        "setup_s": setup_s,
+    }
+    log(f"[game] {json.dumps(summary)}")
+    return summary, record
+
+
 # -- phase 6: the training driver end to end ---------------------------------
 
 
@@ -1532,6 +1787,9 @@ def main() -> int:
         summary = score_phase(os.path.join(work, "score"))
         if summary["launches"]["ell_matvec"] < 1:
             raise AssertionError("the scoring run did not launch the ell_matvec kernel")
+        # 5b. GAME scoring end to end, held to the CPU
+        game_summary, game_record = game_phase(os.path.join(work, "game"), name)
+        shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
         # 6. GLM training end to end
         train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
         # 7. the full trainer on the same records
@@ -1544,9 +1802,10 @@ def main() -> int:
 
     # 8. result lines: each kernel at the kernel-phase shape in the main
     # path's dtype (f64), its time at the training driver's shape (and
-    # with hot columns for all but ell_matvec), and its launches on its
-    # main path — the training run, and for fused_hdiag the full trainer's
-    # run A (per path: scoring, training, run A); the composites of
+    # with hot columns for all but ell_matvec; for ell_matvec at the GAME
+    # scoring shape too), and its launches on its main path — the training
+    # run, and for fused_hdiag the full trainer's run A (per path: GLM
+    # scoring, GAME scoring, training, run A, lab); the composites of
     # library calls beside fused_hvp's and fused_hdiag's times
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1567,6 +1826,7 @@ def main() -> int:
             **{k: main_path[k] for k in keys},
             "launches": launches[kernel],
             "launches_by_path": {"score": summary["launches"][kernel],
+                                 "game_score": game_summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel],
                                  "lab": lab_launches[kernel]},
@@ -1578,6 +1838,8 @@ def main() -> int:
         })
         if hot is not None:
             kernels[-1]["hot_columns"] = {k: hot.get(k) for k in shape_keys}
+        if kernel == "ell_matvec":
+            kernels[-1]["game_shape"] = {k: game_record.get(k) for k in shape_keys}
         if main_path["composite"] is not None:
             kernels[-1].update({k: main_path[k] for k in (
                 "composite", "composite_ms", "composite_device_ms")})
@@ -1589,7 +1851,8 @@ def main() -> int:
         kernels.append({
             **{k: main_path[k] for k in keys},
             "launches": lab_launches[kernel],
-            "launches_by_path": {"lab": lab_launches[kernel]},
+            "launches_by_path": {"lab": lab_launches[kernel],
+                                 "game_score": game_summary["launches"][kernel]},
             **{k: main_path[k] for k in ("device_ms", "host_ms", "library_device_ms",
                                          "composite", "composite_ms", "composite_device_ms",
                                          "max_err_share")},

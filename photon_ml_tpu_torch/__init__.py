@@ -8,9 +8,12 @@ built from ``kernels/csrc`` at first use. The package imports neither
 are the bridges between the two packages.
 
 Ported so far: GLM scoring (``cli.score.run_scoring`` with
-``model_kind="glm"``) with the ``ell_matvec`` kernel, and GLM training
-(``cli.train.run_glm_training``, TRON and L-BFGS) with the
-``ell_scatter_add``, ``fused_vgc`` and ``fused_hvp`` kernels.
+``model_kind="glm"``) with the ``ell_matvec`` kernel; the whole GLM trainer
+(``cli.train.run_glm_training``) with the ``ell_scatter_add``,
+``fused_vgc``, ``fused_hvp`` and ``fused_hdiag`` kernels; the sparse kernel
+lab (``benchmarks.sparse_kernel_lab``) with its three kernels; and GAME
+scoring (``run_scoring`` with ``model_kind="game"``, ``game.scoring``),
+whose fixed effects run on ``ell_matvec``.
 """
 
 __version__ = "0.1.0"

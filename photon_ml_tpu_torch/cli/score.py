@@ -1,12 +1,13 @@
-"""Scoring driver: load a trained GLM, score Avro data, write ScoredItems
-(counterpart of ``photon_ml_tpu/cli/score.py``; the reference's
-``cli/game/scoring/Driver.scala:40-254``). Run as
+"""Scoring driver: load a trained GLM or GAME model, score Avro data,
+write ScoredItems (counterpart of ``photon_ml_tpu/cli/score.py``; the
+reference's ``cli/game/scoring/Driver.scala:40-254``). Run as
 
     python -m photon_ml_tpu_torch.cli.score --config params.json
 
 or programmatically via :func:`run_scoring`. It runs on the CUDA device
-unless given another: with ``sparse`` the margins go through the
-``ell_matvec`` CUDA kernel. Only ``model_kind="glm"`` is ported.
+unless given another. A GLM with ``sparse``, and each GAME fixed effect on
+a shard named in ``sparse_shards``, goes through the ``ell_matvec`` CUDA
+kernel (one launch per fixed-effect coordinate per call).
 """
 
 from __future__ import annotations
@@ -28,13 +29,15 @@ from photon_ml_tpu_torch.cli.config import (
     resolve_date_range,
 )
 from photon_ml_tpu_torch.core.tasks import TaskType
+from photon_ml_tpu_torch.game.scoring import score_game_data
 from photon_ml_tpu_torch.io.avro import write_avro_file
 from photon_ml_tpu_torch.io.ingest import IngestSource
-from photon_ml_tpu_torch.io.models import load_glm_model
+from photon_ml_tpu_torch.io.models import load_game_model_auto, load_glm_model
 from photon_ml_tpu_torch.io.schemas import SCORING_RESULT_SCHEMA
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import matvec
+from photon_ml_tpu_torch.serving.engine import bucket_size, pad_game_data
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed
@@ -48,9 +51,9 @@ class ScoringRun:
     metrics: Dict[str, float]
     output_path: str
     device: str
-    # wall-clock seconds per phase: ingest (Avro read + ELL build + model
-    # load), margins (matvec + offsets, device-synchronised), write,
-    # evaluate
+    # wall-clock seconds per phase: ingest (Avro read + design build; for
+    # a GLM also the model load), load (GAME model), margins (device-
+    # synchronised), write, evaluate
     timings: Dict[str, float]
 
 
@@ -104,19 +107,69 @@ def _glm_model_path(params: ScoringParams, logger: PhotonLogger) -> str:
     return os.path.join(mdir, candidates[0])
 
 
+def _glm_margins(params, source, device, logger, timings):
+    """-> (margins, labels, weights, uids, label_present, model task) of a
+    GLM, the columns as tensors on ``device``."""
+    t0 = time.perf_counter()
+    vocab = FeatureVocabulary.load(os.path.join(params.model_dir, "feature-index.txt"))
+    coefficients, model_task = load_glm_model(
+        _glm_model_path(params, logger), vocab, device=device
+    )
+    batch, uids, label_present = source.labeled_batch(
+        vocab, sparse=params.sparse, dtype=torch.float64,
+        allow_null_labels=True, device=device,
+    )
+    synchronize(device)
+    t1 = time.perf_counter()
+    margins = matvec(batch.features, coefficients.means.to(torch.float64)) + batch.offsets
+    synchronize(device)
+    timings["ingest"] = t1 - t0
+    timings["margins"] = time.perf_counter() - t1
+    return (margins, batch.labels, batch.effective_weights(), uids, label_present,
+            model_task)
+
+
+def _game_margins(params, source, device, timings):
+    """-> (margins, labels, weights, uids, label_present, None) of the GAME
+    model directory: load the model (entity vocabularies merged per
+    random-effect type), ingest the shards it names, pad to the
+    power-of-two bucket (pad rows: zero features, entity -1) and score on
+    ``device``, sliced back to the real rows."""
+    t0 = time.perf_counter()
+    model_params, shards, random_effects, shard_vocabs, re_vocabs = (
+        load_game_model_auto(params.model_dir)
+    )
+    t1 = time.perf_counter()
+    data, _, uids, label_present = source.game_data(
+        shard_vocabs,
+        sorted(re_vocabs),
+        entity_vocabs=re_vocabs,
+        allow_null_labels=True,
+        sparse_shards=set(params.sparse_shards),
+    )
+    t2 = time.perf_counter()
+    n = data.num_rows
+    padded = pad_game_data(data, bucket_size(n))
+    margins = score_game_data(
+        model_params, shards, random_effects, padded, device=device
+    ) + torch.from_numpy(padded.offsets).to(device)
+    margins = margins[:n]
+    synchronize(device)
+    timings["load"] = t1 - t0
+    timings["ingest"] = t2 - t1
+    timings["margins"] = time.perf_counter() - t2
+    columns = [torch.from_numpy(c).to(device) for c in (data.labels, data.weights)]
+    return (margins, *columns, uids, label_present, None)
+
+
 def run_scoring(params, device=None) -> ScoringRun:
-    """Score ``params.input`` with the GLM in ``params.model_dir``.
+    """Score ``params.input`` with the GLM or GAME model in
+    ``params.model_dir``.
 
     ``device=None`` means CUDA, and raises when no card is present."""
     device = resolve_device(device)
     params = load_params(params, ScoringParams)
     params.validate()
-    if params.model_kind != "glm":
-        raise NotImplementedError(
-            "GAME scoring is not ported to photon_ml_tpu_torch yet "
-            "(ROADMAP.md, queue A: 'GAME scoring'); score GAME models with "
-            "photon_ml_tpu.cli.score"
-        )
     prepare_output_dir(params.output_dir, params.overwrite)
     logger = PhotonLogger(
         os.path.join(params.output_dir, "log-message.txt"), level=params.log_level
@@ -127,30 +180,21 @@ def run_scoring(params, device=None) -> ScoringRun:
         expand_date_paths(params.input, resolve_date_range(params)),
         params.field_names,
     )
-    logger.info(f"scoring records with glm model from {params.model_dir} on {device}")
+    logger.info(
+        f"scoring records with {params.model_kind} model from "
+        f"{params.model_dir} on {device}"
+    )
 
     with timed(logger, "score"):
-        t0 = time.perf_counter()
-        vocab = FeatureVocabulary.load(
-            os.path.join(params.model_dir, "feature-index.txt")
-        )
-        coefficients, model_task = load_glm_model(
-            _glm_model_path(params, logger), vocab, device=device
-        )
+        if params.model_kind == "glm":
+            out = _glm_margins(params, source, device, logger, timings)
+        else:
+            out = _game_margins(params, source, device, timings)
+        margins, labels_t, weights_t, uids, label_present, model_task = out
         if model_task is not None:
             task = model_task
-        batch, uids, label_present = source.labeled_batch(
-            vocab, sparse=params.sparse, dtype=torch.float64,
-            allow_null_labels=True, device=device,
-        )
-        synchronize(device)
-        t1 = time.perf_counter()
-        margins = matvec(batch.features, coefficients.means.to(torch.float64)) + batch.offsets
-        synchronize(device)
-        timings["ingest"] = t1 - t0
-        timings["margins"] = time.perf_counter() - t1
         scores = margins.cpu().numpy()
-        labels = batch.labels.cpu().numpy()
+        labels = labels_t.cpu().numpy()
 
     # ---- write ScoredItems (``ScoredItem.scala`` / scoring Driver) -------
     t0 = time.perf_counter()
@@ -167,8 +211,7 @@ def run_scoring(params, device=None) -> ScoringRun:
         if not has_labels:
             raise ValueError("evaluate=True but input records carry no labels")
         t0 = time.perf_counter()
-        ev_labels, ev_margins = batch.labels, margins
-        ev_weights = batch.effective_weights()
+        ev_labels, ev_margins, ev_weights = labels_t, margins, weights_t
         if not label_present.all():
             # unlabeled rows carry a coerced 0.0 label: drop them
             logger.warn(
@@ -200,7 +243,7 @@ def run_scoring(params, device=None) -> ScoringRun:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="photon_ml_tpu_torch.cli.score",
-        description="Score data with a trained GLM on a CUDA device.",
+        description="Score data with a trained GLM or GAME model on a CUDA device.",
     )
     p.add_argument("--config", required=True, help="JSON ScoringParams")
     p.add_argument("--overwrite", action="store_true", default=None)

@@ -18,6 +18,8 @@ import torch
 
 from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
+from photon_ml_tpu_torch.game.factored import FactoredParams
+from photon_ml_tpu_torch.game.scoring import CompactReTable
 from photon_ml_tpu_torch.kernels.lab import LAB_BLOCK, LAB_TILE, ColumnTiles, tile_chains
 from photon_ml_tpu_torch.ops.sparse import SparseFeatures
 from photon_ml_tpu_torch.solvers.common import SolverConfig
@@ -61,6 +63,31 @@ def labeled_batch_from_numpy(
         weights=tensor_from_numpy(weights, device),
         mask=tensor_from_numpy(mask, device),
     )
+
+
+def game_params_from_numpy(params, device="cpu") -> dict:
+    """A GAME model's coordinate parameters, ``{name: value}``, for the
+    port's ``score_game_data``. Each value is one of the JAX package's
+    forms with numpy fields: a (d,) fixed-effect vector, an (E, d)
+    random-effect table, a ``CompactReTable`` (``columns``, ``values``;
+    columns become int32) or a ``FactoredParams`` (``gamma``,
+    ``projection``). Told apart by their fields, since this module never
+    imports that package."""
+    out = {}
+    for name, p in params.items():
+        if hasattr(p, "gamma") and hasattr(p, "projection"):
+            out[name] = FactoredParams(
+                gamma=tensor_from_numpy(p.gamma, device),
+                projection=tensor_from_numpy(p.projection, device),
+            )
+        elif hasattr(p, "columns") and hasattr(p, "values"):
+            out[name] = CompactReTable(
+                columns=tensor_from_numpy(np.asarray(p.columns, np.int32), device),
+                values=tensor_from_numpy(p.values, device),
+            )
+        else:
+            out[name] = tensor_from_numpy(p, device)
+    return out
 
 
 def normalization_from_numpy(factors=None, shifts=None, device="cpu") -> NormalizationContext:

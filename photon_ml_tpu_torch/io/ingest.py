@@ -6,8 +6,11 @@ Sparse (name, term, value) feature lists are indexed against a vocabulary,
 duplicate (name, term) entries in one record are summed
 (``DataProcessingUtils.scala:70-76`` dedup-by-sum), and the intercept column
 is set to 1. Rows land in a dense float matrix or, with ``sparse=True``, in
-a padded-ELL ``ops.sparse.SparseFeatures``. Not ported yet: the native C++
-reader, the quality fingerprints and the retrying read.
+a padded-ELL ``ops.sparse.SparseFeatures``. GAME input (``game_data``)
+gets one matrix per feature shard, dense or padded-ELL, and one entity
+index column per random-effect type. Not ported yet: the native C++
+reader, the streamed pipeline, the quality fingerprints and the retrying
+read.
 """
 
 from __future__ import annotations
@@ -60,6 +63,35 @@ def _read_label(rec: dict, i: int, allow_null_labels: bool) -> float:
             )
         return 0.0
     return v
+
+
+def index_entity_strings(
+    raw_entities: Dict[str, np.ndarray],
+    entity_vocabs: Optional[Dict[str, dict]] = None,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, dict]]:
+    """Per-row entity strings -> int32 index columns + vocabularies.
+
+    "" means the row does not carry the key (index -1). When
+    ``entity_vocabs`` provides a key's vocabulary (scoring against a
+    trained model) it is applied; otherwise one is built from the rows
+    that carry the key (training)."""
+    from photon_ml_tpu_torch.game.data import (
+        apply_entity_vocabulary,
+        build_entity_vocabulary,
+    )
+
+    entity_ids: Dict[str, np.ndarray] = {}
+    out_vocabs: Dict[str, dict] = {}
+    for k, raw in raw_entities.items():
+        known = np.asarray([r != "" for r in raw])
+        if entity_vocabs is not None and k in entity_vocabs:
+            vocab_k = dict(entity_vocabs[k])
+        else:
+            vocab_k, _ = build_entity_vocabulary(raw[known])
+        idx = apply_entity_vocabulary(vocab_k, raw)
+        entity_ids[k] = np.where(known, idx, -1).astype(np.int32)
+        out_vocabs[k] = vocab_k
+    return entity_ids, out_vocabs
 
 
 def _inject_intercept(rows, cols, vals, n, intercept_index):
@@ -159,6 +191,114 @@ def training_examples_to_sparse(
     return features, columns
 
 
+def _assemble_shard_features(
+    shard_vocabs: Dict[str, FeatureVocabulary],
+    shard_triplets: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]],
+    n: int,
+    sparse_shards: Optional[set] = None,
+):
+    """COO triplets per shard -> dense (n, d) float64 numpy matrices, or
+    padded-ELL ``SparseFeatures`` (float64, on the CPU) for shards named
+    in ``sparse_shards``. The intercept column (if the vocabulary has one)
+    is injected as value 1.0 either way. Everything stays on the host; the
+    scorer places each shard on its device."""
+    from photon_ml_tpu_torch.ops.sparse import from_coo
+
+    sparse_shards = sparse_shards or set()
+    unknown = sparse_shards - set(shard_vocabs)
+    if unknown:
+        raise ValueError(f"sparse_shards not in shard_vocabs: {unknown}")
+    features: Dict[str, object] = {}
+    for shard, vocab in shard_vocabs.items():
+        rows, cols, vals = _inject_intercept(
+            *shard_triplets[shard], n, vocab.intercept_index
+        )
+        if shard in sparse_shards:
+            features[shard] = from_coo(rows, cols, vals, n, len(vocab), dtype=torch.float64)
+        else:
+            x = np.zeros((n, len(vocab)), np.float64)
+            np.add.at(x, (rows, cols), vals)
+            features[shard] = x
+    return features
+
+
+def game_data_from_avro(
+    records: List[dict],
+    shard_vocabs: Dict[str, FeatureVocabulary],
+    entity_keys: List[str],
+    entity_vocabs: Optional[Dict[str, dict]] = None,
+    allow_null_labels: bool = False,
+    sparse_shards: Optional[set] = None,
+):
+    """TrainingExampleAvro records -> (GameData, entity_vocabs, uids).
+
+    The GAME analog of ``DataProcessingUtils.getGameDataSetFromGenericRecords``
+    (``DataProcessingUtils.scala:34-131``): each feature shard gets its own
+    (n, d_shard) matrix (padded-ELL for shards in ``sparse_shards``)
+    indexed by its vocabulary (a feature lands in every shard whose
+    vocabulary contains it: the reference's section-key bags), and each
+    entity key is read from the record's metadataMap into an int32 index
+    column (unknown entity -> -1, scoring 0). When ``entity_vocabs`` is
+    given (scoring against a trained model) it is applied; otherwise
+    vocabularies are built from the data (training)."""
+    from photon_ml_tpu_torch.game.data import GameData
+
+    n = len(records)
+    labels = np.zeros(n, np.float64)
+    offsets = np.zeros(n, np.float64)
+    weights = np.ones(n, np.float64)
+    uids: List[Optional[str]] = []
+    triplets: Dict[str, Tuple[list, list, list]] = {
+        shard: ([], [], []) for shard in shard_vocabs
+    }
+    raw_entities: Dict[str, List[str]] = {k: [] for k in entity_keys}
+    shards = [(t, v.key_to_index, v.intercept_index)
+              for t, v in zip(triplets.values(), shard_vocabs.values())]
+    for i, rec in enumerate(records):
+        labels[i] = _read_label(rec, i, allow_null_labels)
+        if rec.get("offset") is not None:
+            offsets[i] = rec["offset"]
+        if rec.get("weight") is not None:
+            weights[i] = rec["weight"]
+        uids.append(rec.get("uid"))
+        meta = rec.get("metadataMap") or {}
+        for k in entity_keys:
+            raw_entities[k].append(str(meta.get(k, "")))
+        for f in rec["features"]:
+            key = feature_key(f["name"], f["term"])
+            for (r, c, v), index, icpt in shards:
+                j = index.get(key)
+                if j is not None and j != icpt:
+                    r.append(i)
+                    c.append(j)
+                    v.append(f["value"])
+    features = _assemble_shard_features(
+        shard_vocabs,
+        {
+            shard: (
+                np.asarray(r, np.int64),
+                np.asarray(c, np.int64),
+                np.asarray(v, np.float64),
+            )
+            for shard, (r, c, v) in triplets.items()
+        },
+        n,
+        sparse_shards,
+    )
+    entity_ids, out_vocabs = index_entity_strings(
+        {k: np.asarray(v, object) for k, v in raw_entities.items()},
+        entity_vocabs,
+    )
+    data = GameData.create(
+        features=features,
+        labels=labels,
+        offsets=offsets,
+        weights=weights,
+        entity_ids=entity_ids,
+    )
+    return data, out_vocabs, np.asarray(uids, object)
+
+
 def labeled_batch_from_avro(
     records: List[dict],
     vocab: FeatureVocabulary,
@@ -190,8 +330,8 @@ def labeled_batch_from_avro(
 
 
 class IngestSource:
-    """Avro input files -> LabeledBatch, through the pure-Python codec.
-    Records are decoded once and cached."""
+    """Avro input files -> LabeledBatch or GameData, through the
+    pure-Python codec. Records are decoded once and cached."""
 
     def __init__(self, paths, field_names: str = TRAINING_EXAMPLE_FIELDS):
         if isinstance(paths, str):
@@ -244,6 +384,27 @@ class IngestSource:
         uids = np.asarray([r.get("uid") for r in recs], object)
         present = np.asarray([r.get("label") is not None for r in recs], bool)
         return batch, uids, present
+
+    def game_data(
+        self,
+        shard_vocabs: Dict[str, FeatureVocabulary],
+        entity_keys: List[str],
+        entity_vocabs: Optional[Dict[str, dict]] = None,
+        allow_null_labels: bool = False,
+        sparse_shards: Optional[set] = None,
+    ):
+        """-> (GameData on the host, entity_vocabs, uids, label_present)."""
+        recs = self.records()
+        data, vocabs, uids = game_data_from_avro(
+            recs,
+            shard_vocabs,
+            entity_keys,
+            entity_vocabs=entity_vocabs,
+            allow_null_labels=allow_null_labels,
+            sparse_shards=sparse_shards,
+        )
+        present = np.asarray([r.get("label") is not None for r in recs], bool)
+        return data, vocabs, uids, present
 
 
 def make_training_example(

@@ -51,6 +51,20 @@ def is_sparse(x) -> bool:
     return isinstance(x, SparseFeatures)
 
 
+def is_hybrid(x) -> bool:
+    """Always False: the JAX package's ``HybridFeatures`` (dense hot slab
+    plus sparse cold rows, in a row order of its own) is not ported yet,
+    so no value of the port is one. The predicate is kept so that callers
+    guard against it as the JAX package's do."""
+    return False
+
+
+def is_structured(x) -> bool:
+    """Any non-plain-array representation this module owns (only the ELL
+    container so far)."""
+    return is_sparse(x) or is_hybrid(x)
+
+
 def cast_values(x, dtype: torch.dtype, device="cpu"):
     """Representation-preserving placement: a dense matrix, or an ELL's
     values, to ``dtype`` on ``device`` (ELL ids stay int32)."""

@@ -814,3 +814,126 @@ def test_lab_wrappers_raise_on_ids_outside_the_table_and_other_inputs(cuda):
     flat = torch.empty(64 * 128 + 1, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         lane_gather(flat[1:].view(64, 128), ids)
+
+
+# -- GAME scoring -------------------------------------------------------------
+
+import os  # noqa: E402
+
+from photon_ml_tpu_torch.cli.score import run_scoring  # noqa: E402
+from photon_ml_tpu_torch.game.data import GameData  # noqa: E402
+from photon_ml_tpu_torch.game.factored import FactoredParams  # noqa: E402
+from photon_ml_tpu_torch.game.scoring import score_game_data  # noqa: E402
+from photon_ml_tpu_torch.io.avro import write_avro_file  # noqa: E402
+from photon_ml_tpu_torch.io.models import save_game_model  # noqa: E402
+from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA  # noqa: E402
+from photon_ml_tpu_torch.io.vocab import FeatureVocabulary, feature_key  # noqa: E402
+from photon_ml_tpu_torch.ops.sparse import from_coo  # noqa: E402
+
+
+def _game(n=3001, seed=23):
+    """Two fixed effects on ELL shards and one on a dense shard, a random
+    effect on a wide ELL shard (the compact join), a dense one and a
+    factored one; entity -1 on some rows."""
+    rng = np.random.default_rng(seed)
+
+    def ell(d, k):
+        rows = np.repeat(np.arange(n), k)
+        return from_coo(rows, rng.integers(0, d, n * k), rng.normal(size=n * k), n, d,
+                        dtype=torch.float64)
+
+    users = rng.integers(-1, 50, n)
+    data = GameData.create(
+        {"a": ell(5000, 12), "b": ell(300, 3), "c": rng.normal(size=(n, 6)),
+         "w": ell(2000, 4), "f": rng.normal(size=(n, 5))},
+        rng.integers(0, 2, n).astype(np.float64),
+        entity_ids={"userId": users, "adId": rng.integers(-1, 20, n)},
+    )
+    wide = np.zeros((50, 2000))
+    wide[np.arange(50)[:, None], rng.integers(0, 2000, (50, 30))] = rng.normal(size=(50, 30))
+    params = {"fa": rng.normal(size=5000), "fb": rng.normal(size=300),
+              "fc": rng.normal(size=6), "re-wide": wide, "re-ad": rng.normal(size=(20, 6)),
+              "re-latent": FactoredParams(torch.from_numpy(rng.normal(size=(50, 2))),
+                                          torch.from_numpy(rng.normal(size=(5, 2))))}
+    shards = {"fa": "a", "fb": "b", "fc": "c", "re-wide": "w", "re-ad": "c", "re-latent": "f"}
+    res = {"fa": None, "fb": None, "fc": None, "re-wide": "userId", "re-ad": "adId",
+           "re-latent": "userId"}
+    return params, shards, res, data
+
+
+def test_game_scoring_launches_ell_matvec_once_per_ell_fixed_effect(cuda):
+    params, shards, res, data = _game()
+    dispatch.reset_launch_counts()
+    got = score_game_data(params, shards, res, data, device=cuda)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    assert launches == {k: (2 if k == "ell_matvec" else 0) for k in launches}
+    ref = score_game_data(params, shards, res, data, device="cpu")
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    scale = ref.abs().clamp(min=1.0)
+    assert torch.all((got.cpu() - ref).abs() <= 1e-12 * scale)
+
+
+def test_game_scoring_does_not_fall_back_to_the_cpu(cuda, monkeypatch):
+    """A kernel that cannot launch fails the call: nothing rescores on the
+    CPU."""
+    from photon_ml_tpu_torch.kernels import ell as ell_module
+
+    def no_kernel(*args, **kwargs):
+        raise RuntimeError("ell_matvec kernel unavailable")
+
+    params, shards, res, data = _game(n=257)
+    monkeypatch.setattr(ell_module, "load_entry", no_kernel)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        score_game_data(params, shards, res, data, device=cuda)
+
+
+def _game_files(root):
+    gvocab = FeatureVocabulary([feature_key("g", str(j)) for j in range(40)],
+                               add_intercept=True)
+    uvocab = FeatureVocabulary([feature_key("u", str(j)) for j in range(8)])
+    rng = np.random.default_rng(29)
+    save_game_model(
+        os.path.join(root, "model"),
+        params={"global": rng.normal(size=41), "per-user": rng.normal(size=(6, 8))},
+        shards={"global": "g", "per-user": "u"}, vocabs={"global": gvocab, "per-user": uvocab},
+        entity_vocabs={"per-user": {f"user{i}": i for i in range(6)}},
+        random_effects={"global": None, "per-user": "userId"},
+    )
+    gvocab.save(os.path.join(root, "model", "feature-index-g.txt"))
+    uvocab.save(os.path.join(root, "model", "feature-index-u.txt"))
+    recs = [{"uid": f"r{i}", "label": float(i % 2),
+             "features": [{"name": "g", "term": str(j), "value": float(rng.normal())}
+                          for j in rng.choice(40, 5, replace=False)]
+             + [{"name": "u", "term": str(i % 8), "value": 1.0}],
+             "metadataMap": {"userId": f"user{i % 8}"}, "weight": None, "offset": 0.5}
+            for i in range(300)]
+    write_avro_file(os.path.join(root, "data.avro"), TRAINING_EXAMPLE_SCHEMA, recs)
+    return {"input": [os.path.join(root, "data.avro")], "model_dir": os.path.join(root, "model"),
+            "model_kind": "game", "sparse_shards": ["g", "u"], "evaluate": True}
+
+
+def test_game_driver_on_the_card_matches_the_cpu_with_one_launch(cuda, tmp_path):
+    params = _game_files(str(tmp_path))
+    dispatch.reset_launch_counts()
+    run = run_scoring({**params, "output_dir": str(tmp_path / "card")})
+    launches = dispatch.launch_counts()
+    assert run.device.startswith("cuda")
+    assert launches == {k: (1 if k == "ell_matvec" else 0) for k in launches}
+    cpu = run_scoring({**params, "output_dir": str(tmp_path / "cpu")}, device="cpu")
+    assert np.all(np.abs(run.scores - cpu.scores) <= 1e-10 * np.maximum(1, np.abs(cpu.scores)))
+    for k, v in cpu.metrics.items():
+        assert abs(run.metrics[k] - v) <= 1e-10, k
+
+
+def test_game_driver_does_not_fall_back_to_the_cpu(cuda, tmp_path, monkeypatch):
+    from photon_ml_tpu_torch.kernels import ell as ell_module
+
+    def no_kernel(*args, **kwargs):
+        raise RuntimeError("ell_matvec kernel unavailable")
+
+    params = _game_files(str(tmp_path))
+    monkeypatch.setattr(ell_module, "load_entry", no_kernel)
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        run_scoring({**params, "output_dir": str(tmp_path / "card")})
+    assert not os.path.exists(tmp_path / "card" / "scores")
