@@ -64,6 +64,31 @@ whenever any phase fails. Phases, in order:
    1e-10 of the generator's own numpy margins; ``ell_matvec`` against its
    plain version and timed beside ``torch.mv`` on CSR at the driver's
    shape (n = 2^15, k = 40, d = 2^20 + 1);
+5c. GAME train: the port's GAME training driver (``run_game_training``)
+   in the configuration of ``examples/game_train.json`` at the Criteo
+   layout's width — ``global``, a fixed effect on the 13 + 26 hashed
+   fields in 2^20 + 1 columns (ELL: TRON, lambda 1, tolerance 1e-15, 100
+   iterations at most), ``per-user``, a random effect on the 13 integer
+   fields plus the intercept (dense, d = 14: TRON, lambda in {10, 1},
+   tolerance 1e-8, 20 iterations, 2 size buckets) — 3 passes per combo,
+   float64, validation after every update, BEST output, on 2^16 training
+   and 2^14 held-out records drawn as phase 6's with a userId drawn
+   Zipf(1.1) over 4,096 users and labels from a seeded global model plus
+   per-user models; counters set to 0 just before and read just after,
+   held to the trainer's own counts (``fused_vgc`` to the fixed effect's
+   evaluations, ``fused_hvp`` to its CG steps, ``ell_matvec`` to the
+   initial scores, rescores and validations; every other kernel 0); the
+   descent alone (ingest excluded) under ``torch.profiler``, its per-update
+   objectives beside the first run's (the card against itself); the
+   descent again with ``examples/game_train.json``'s own solver settings
+   (the fixed effect at lambda 0.1, 20 iterations, tolerance 1e-8), timed,
+   traced and its launches held to its own counts; then the driver on the
+   CPU: the same best combo, per-update objectives within
+   1e-7 relative, the fixed effect within 1e-6 max(1, |w|inf), the
+   random-effect table within 1e-6 of its scale, validation AUC within
+   1e-6, the count of entity updates whose iterations differ printed;
+   ``fused_vgc`` and ``fused_hvp`` held to their plain versions on the
+   last fixed-effect update's batch and offsets;
 6. train: the port's GLM training driver (``run_glm_training``, sparse
    TRON, L2 logistic, lambda in {10, 1}, float64, with validation) on 2^16
    Criteo-layout records and 2^14 held-out ones, counters set to 0 just
@@ -111,10 +136,14 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.cli.game_train import build_coordinates, run_game_training
 from photon_ml_tpu_torch.cli.score import run_scoring
 from photon_ml_tpu_torch.cli.train import run_glm_training
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
+from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
+from photon_ml_tpu_torch.game.data import GameData
+from photon_ml_tpu_torch.game.descent import CoordinateDescent
 from photon_ml_tpu_torch.game.factored import FactoredParams
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.models import save_game_model, save_glm_model
@@ -154,6 +183,7 @@ from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContex
 from photon_ml_tpu_torch.ops.sparse import from_coo
 from photon_ml_tpu_torch.serving.engine import bucket_size
 from photon_ml_tpu_torch.solvers import host_reads, reset_host_reads
+from photon_ml_tpu_torch.utils.device import synchronize
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
@@ -1340,6 +1370,429 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
     return summary, record
 
 
+# -- phase 5c: GAME training end to end -------------------------------------
+
+# examples/game_train.json at the Criteo layout's width: the global fixed
+# effect on the 13 + 26 hashed fields (ELL: fused_vgc / fused_hvp in its
+# TRON, ell_matvec in its rescore and in every validation) and a per-user
+# random effect on the 13 integer fields plus the intercept (dense, d = 14;
+# the batched per-entity TRON), users drawn Zipf(1.1)
+GAME_TRAIN_USERS = 4096
+GAME_TRAIN_ITERATIONS = 3
+# the card's fused passes split from the CPU's in the last bits (atomics),
+# TRON's trajectory amplifies the split (its iterations differ from the
+# first solve on), and coordinate descent feeds it into the next
+# coordinate's offsets: the fixed effect converges far past the default so
+# that both runs end near one optimum. On an H100 at 1e-12 the card and the
+# CPU ended 2.6e-6 apart in w (over the 1e-6 gate), at 1e-15 8.1e-8 apart
+GAME_TRAIN_FIXED_TOLERANCE = 1e-15
+# card against CPU, per-update training objectives, relative. An update
+# after the fixed effect's moves the objective at first order in the fixed
+# effect's split: on an H100 the card against ITSELF differed by 1.3e-9
+# (7.3e-9) at 1e-15 (1e-14), and healthy runs against the CPU by at most
+# 1.09e-8; with a per-user bucket solved in float32 (chip_game_faults.py)
+# by 1.01e-6. The gate sits between the two. A fault in one entity moves
+# the objectives no more than the healthy split: the table's gate is the
+# one that sees it (4.0e-4 of a 1e-6 limit)
+GAME_TRAIN_OBJECTIVE_RTOL = 1e-7
+GAME_TRAIN_COORDINATES = {
+    "global": {"shard": "gshard", "optimizer": "TRON", "reg_weights": [1.0],
+               "max_iters": 100},
+    "per-user": {"shard": "ushard", "random_effect": "userId", "optimizer": "TRON",
+                 "reg_weights": [10.0, 1.0], "max_iters": 20, "tolerance": 1e-8,
+                 "num_buckets": 2},
+}
+
+
+# the solver settings that the descent at examples/game_train.json's
+# settings takes from that file, per coordinate
+EXAMPLE_SOLVER_FIELDS = ("optimizer", "reg_weights", "max_iters", "tolerance")
+
+
+def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
+                               n_users: int, seed: int = SEED + 30):
+    """Both shards' feature-index files and two Avro inputs, training and
+    held-out, drawn as phase 6's from one seeded global logistic model plus
+    a seeded model per user: the Criteo fields, a userId drawn Zipf(1.1)
+    over ``n_users`` users, offsets. Returns (vocabulary paths, the two
+    data paths, the training set's design straight from the generator:
+    ELL COO over the global shard, the dense user shard, the user ids)."""
+    rng = np.random.default_rng(seed)
+    gpath = os.path.join(work, "feature-index-gshard.txt")
+    upath = os.path.join(work, "feature-index-ushard.txt")
+    gvocab = hashed_vocabulary(gpath, d_hashed)
+    int_cols = _hash(np.arange(INT_FIELDS), np.zeros(INT_FIELDS, np.int64)) % d_hashed
+    uvocab = FeatureVocabulary([feature_key("h", str(c)) for c in int_cols.tolist()],
+                               add_intercept=True)
+    uvocab.save(upath)
+    slot = np.full(d_hashed, -1)
+    slot[int_cols] = np.arange(INT_FIELDS)
+    w_g = rng.normal(0.0, 0.25, size=len(gvocab))
+    w_u = rng.normal(0.0, 0.3, size=(n_users, len(uvocab)))
+    paths, train_design = [], None
+    for label, count, set_seed in (("train", n, seed + 1), ("heldout", n_heldout, seed + 2)):
+        rows, cols, vals = make_criteo_like(count, set_seed)
+        cols = cols % d_hashed
+        users = (rng.zipf(1.1, size=count) - 1) % n_users
+        # the user shard: every feature its vocabulary names (an integer
+        # field's column, and any categorical value hashed onto one)
+        in_u = slot[cols] >= 0
+        x_u = np.zeros((count, len(uvocab)))
+        np.add.at(x_u, (rows[in_u], slot[cols[in_u]]), vals[in_u])
+        x_u[:, uvocab.intercept_index] = 1.0
+        offsets = rng.normal(0.0, 0.1, size=count)
+        margins = (np.bincount(rows, vals * w_g[cols], minlength=count)
+                   + w_g[gvocab.intercept_index] + np.einsum("nd,nd->n", x_u, w_u[users])
+                   + offsets)
+        labels = (rng.uniform(size=count) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
+        per_row = cols.size // count
+        c2, v2 = cols.reshape(count, per_row), vals.reshape(count, per_row)
+        records = (
+            {
+                "uid": f"t{i}",
+                "label": float(labels[i]),
+                "features": [{"name": "h", "term": str(c), "value": float(v)}
+                             for c, v in zip(c2[i].tolist(), v2[i].tolist())],
+                "metadataMap": {"userId": f"user{users[i]}"},
+                "weight": None,
+                "offset": float(offsets[i]),
+            }
+            for i in range(count)
+        )
+        path = os.path.join(work, label, "part-00000.avro")
+        write_avro_file(path, TRAINING_EXAMPLE_SCHEMA, records)
+        paths.append(path)
+        if label == "train":
+            icpt = np.full(count, gvocab.intercept_index)
+            train_design = ((np.concatenate([rows, np.arange(count)]),
+                             np.concatenate([cols, icpt]),
+                             np.concatenate([vals, np.ones(count)]), len(gvocab)),
+                            x_u, users, labels, offsets)
+    return (gpath, upath), paths, train_design
+
+
+def _fixed_records(history):
+    return [h for h in history if h.coordinate == "global"]
+
+
+def game_train_params(work: str, train: str, heldout: str, gpath: str, upath: str,
+                      fixed_tolerance: float = GAME_TRAIN_FIXED_TOLERANCE) -> dict:
+    """Phase 5c's driver configuration over the written inputs."""
+    return {
+        "train_input": [train],
+        "validate_input": [heldout],
+        "output_dir": os.path.join(work, "out"),
+        "task": "LOGISTIC_REGRESSION",
+        "num_iterations": GAME_TRAIN_ITERATIONS,
+        "updating_sequence": ["global", "per-user"],
+        "feature_shards": {"gshard": gpath, "ushard": upath},
+        "coordinates": {**GAME_TRAIN_COORDINATES, "global": {
+            **GAME_TRAIN_COORDINATES["global"], "tolerance": fixed_tolerance}},
+        "sparse_shards": ["gshard"],
+        "model_output_mode": "BEST",
+        "precision": "float64",
+    }
+
+
+def game_train_gaps(run, cpu) -> dict:
+    """A GAME training run's readings against the CPU's run of the same
+    configuration, the quantities phase 5c's gates hold: the best combo,
+    the per-update training objectives (relative), the validation AUC,
+    the best model's fixed effect and random-effect table (absolute, with
+    their scales), and the entity updates whose iterations differ."""
+    history = [h for s in run.sweep for h in s["history"]]
+    cpu_history = [h for s in cpu.sweep for h in s["history"]]
+    obj_errs = [abs(a.objective - b.objective) / abs(b.objective)
+                for a, b in zip(history, cpu_history)]
+    best, cpu_best = run.sweep[run.best_index]["model"], cpu.sweep[cpu.best_index]["model"]
+    w_card, w_cpu = best.params["global"].cpu(), cpu_best.params["global"]
+    t_card, t_cpu = best.params["per-user"].cpu(), cpu_best.params["per-user"]
+    per_user = [(a, b) for a, b in zip(history, cpu_history) if a.coordinate == "per-user"]
+    return {
+        "best_index": [run.best_index, cpu.best_index],
+        "updates": [len(history), len(cpu_history)],
+        "objective": max(obj_errs),
+        "objective_per_update": obj_errs,
+        "auc": max(abs(a.validation_metric - b.validation_metric)
+                   for a, b in zip(history, cpu_history)),
+        "w": float((w_card - w_cpu).abs().max()),
+        "w_scale": max(1.0, float(w_cpu.abs().max())),
+        "table": float((t_card - t_cpu).abs().max()),
+        "table_scale": max(1.0, float(t_cpu.abs().max())),
+        "entity_updates_with_other_iterations": int(sum(
+            int(np.sum(a.entity_iterations != b.entity_iterations)) for a, b in per_user)),
+        "fixed_iterations": [(int(a.solver_iterations), int(b.solver_iterations))
+                             for a, b in zip(_fixed_records(history),
+                                             _fixed_records(cpu_history))],
+    }
+
+
+def game_train_gate_failures(gaps: dict) -> list:
+    """Which of phase 5c's card-against-CPU gates a run's readings break."""
+    failed = []
+    if gaps["best_index"][0] != gaps["best_index"][1]:
+        failed.append("best combo")
+    if gaps["updates"][0] != gaps["updates"][1]:
+        failed.append("update count")
+    if not gaps["objective"] <= GAME_TRAIN_OBJECTIVE_RTOL:
+        failed.append("objectives")
+    if not gaps["auc"] <= 1e-6:
+        failed.append("AUC")
+    if not gaps["w"] <= 1e-6 * gaps["w_scale"]:
+        failed.append("fixed effect")
+    if not gaps["table"] <= 1e-6 * gaps["table_scale"]:
+        failed.append("random-effect table")
+    return failed
+
+
+def traced_descents(gparams, data: GameData, entity_ids: np.ndarray, columns, device,
+                    cache: dict, on_card: bool):
+    """Each combo's coordinate descent over ``data`` (ingest excluded)
+    under ``torch.profiler``, with the launch counters set to 0 just
+    before and read just after. Returns (the histories, the card's busy
+    time, the wall seconds, the launches)."""
+    coords_by_combo = [
+        build_coordinates(gparams, data, TaskType.LOGISTIC_REGRESSION, combo,
+                          {"userId": int(entity_ids.max()) + 1}, device=device,
+                          design_cache=cache)
+        for combo in gparams.grid()
+    ]
+    # the card's activity only: tracing every host op of some 20,000 CG
+    # steps took 100 s to record and read back on an H100 host
+    activities = ([torch.profiler.ProfilerActivity.CUDA] if on_card
+                  else [torch.profiler.ProfilerActivity.CPU])
+    synchronize(device)
+    dispatch.reset_launch_counts()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        histories = [
+            CoordinateDescent(coords, *columns, task=TaskType.LOGISTIC_REGRESSION).run(
+                gparams.num_iterations)[1]
+            for coords in coords_by_combo
+        ]
+        synchronize(device)
+        wall_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    return histories, device_busy(prof), wall_s, launches
+
+
+def game_train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
+                     n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+                     n_users: int = GAME_TRAIN_USERS,
+                     fixed_tolerance: float = GAME_TRAIN_FIXED_TOLERANCE, **device_kw):
+    """Run the port's GAME training driver on the card (``device_kw``
+    names another device for a rehearsal), counters set to 0 just before
+    and read just after and held to the trainer's own counts; then the
+    descent alone under ``torch.profiler``, in this configuration and with
+    ``examples/game_train.json``'s solver settings; then the same driver on
+    the CPU, the card held to it; then ``fused_vgc`` and ``fused_hvp`` held to their
+    plain versions on the last fixed-effect update's batch and offsets."""
+    t0 = time.perf_counter()
+    (gpath, upath), (train, heldout), design = write_game_training_inputs(
+        work, n, n_heldout, d_hashed, n_users)
+    setup_s = time.perf_counter() - t0
+    log(f"[game-train] wrote {n} training and {n_heldout} held-out records "
+        f"({d_hashed} hashed columns + intercept, {n_users} users) in {setup_s:.1f} s (set-up)")
+    params = game_train_params(work, train, heldout, gpath, upath, fixed_tolerance)
+    on_card = not device_kw
+
+    # the last fixed-effect update's inputs, for the kernel checks below
+    last_fixed = {}
+    update_and_score = FixedEffectCoordinate.update_and_score
+
+    def recording(self, w, partial_scores, generator=None):
+        last_fixed.update(batch=self.batch, w=w, partial=partial_scores)
+        return update_and_score(self, w, partial_scores, generator)
+
+    FixedEffectCoordinate.update_and_score = recording
+    try:
+        dispatch.reset_launch_counts()
+        reset_host_reads()
+        t0 = time.perf_counter()
+        run = run_game_training(params, **device_kw)
+        wall_s = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        reads = host_reads()
+    finally:
+        FixedEffectCoordinate.update_and_score = update_and_score
+
+    # the trainer's own counts: a TRON evaluation per iteration plus the
+    # first, a CG step per fused_hvp; ell_matvec for each combo's initial
+    # score, each fixed-effect rescore and each validation
+    history = [h for s in run.sweep for h in s["history"]]
+    fixed = _fixed_records(history)
+    expected = {
+        "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
+        "fused_hvp": sum(h.cg_iterations for h in fixed),
+        "ell_matvec": (len(run.sweep) + len(fixed)
+                       + sum(h.validation_metric is not None for h in history)),
+    }
+    want = {k: (expected.get(k, 0) if on_card else 0) for k in launches}
+    failures = []
+    if launches != want:
+        failures.append(f"GAME training launched {launches}, expected {want}")
+    per_user = [h for h in history if h.coordinate == "per-user"]
+    for combo in run.sweep:
+        log(f"[game-train] combo {json.dumps(combo['combo'])}: "
+            + "; ".join(f"pass {h.iteration} {h.coordinate} objective {h.objective!r} "
+                        f"AUC {h.validation_metric!r} {h.seconds:.4f} s"
+                        for h in combo["history"]))
+    hist = np.bincount(np.concatenate([h.entity_iterations for h in per_user]))
+    log(f"[game-train] card run {wall_s:.4f} s, phases {json.dumps(run.timings)}, "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}, "
+        f"{reads} host reads; per-user iterations histogram {hist.tolist()}")
+
+    # the descent alone, ingest excluded, under torch.profiler: the design
+    # straight from the generator, each combo's three passes; first in
+    # this configuration, then with the solver settings of
+    # examples/game_train.json (the fixed effect at lambda 0.1, 20
+    # iterations, tolerance 1e-8), the settings users run
+    (rows, cols, vals, d), x_u, users, labels, offsets = design
+    device = torch.device(run.device)
+    entity_ids = np.unique(users, return_inverse=True)[1].astype(np.int32)
+    data = GameData.create(
+        features={"gshard": from_coo(rows, cols, vals, n, d, dtype=torch.float64), "ushard": x_u},
+        labels=labels, offsets=offsets, entity_ids={"userId": entity_ids},
+    )
+    columns = [torch.as_tensor(c, dtype=torch.float64, device=device)
+               for c in (data.labels, data.offsets, data.weights)]
+    cache = {}
+    traced, busy, traced_wall_s, _ = traced_descents(
+        run.params, data, entity_ids, columns, device, cache, on_card)
+    # the card against itself: the same descent on the same card, apart
+    # from the atomics' last bits (and the entities' order)
+    card_spread = max(abs(a.objective - b.objective) / abs(b.objective)
+                      for a, b in zip([h for t in traced for h in t], history))
+    with open(os.path.join(ROOT, "examples", "game_train.json")) as f:
+        example = json.load(f)["coordinates"]
+    example_params = dataclasses.replace(run.params, coordinates={
+        name: dataclasses.replace(spec, **{k: example[name][k] for k in EXAMPLE_SOLVER_FIELDS})
+        for name, spec in run.params.coordinates.items()})
+    ex_traced, ex_busy, ex_wall_s, ex_launches = traced_descents(
+        example_params, data, entity_ids, columns, device, cache, on_card)
+    ex_history = [h for t in ex_traced for h in t]
+    ex_fixed = _fixed_records(ex_history)
+    ex_expected = {
+        "fused_vgc": sum(int(h.solver_iterations) + 1 for h in ex_fixed),
+        "fused_hvp": sum(h.cg_iterations for h in ex_fixed),
+        "ell_matvec": len(ex_traced) + len(ex_fixed),
+    }
+    ex_want = {k: (ex_expected.get(k, 0) if on_card else 0) for k in ex_launches}
+    if ex_launches != ex_want:
+        failures.append(f"GAME descent at the example's settings launched {ex_launches}, "
+                        f"expected {ex_want}")
+    example_summary = {
+        "solver_settings": {name: {k: example[name][k] for k in EXAMPLE_SOLVER_FIELDS}
+                            for name in example},
+        "traced_descent_s": ex_wall_s,
+        **ex_busy,
+        "device_idle_share": (None if ex_busy["device_busy_s"] is None
+                              else 1.0 - ex_busy["device_busy_s"] / ex_wall_s),
+        "update_s": {c: [h.seconds for h in ex_history if h.coordinate == c]
+                     for c in ("global", "per-user")},
+        "fixed_iterations": [int(h.solver_iterations) for h in ex_fixed],
+        "fixed_cg_iterations": [h.cg_iterations for h in ex_fixed],
+        "per_user_mean_iterations": [h.solver_iterations for h in ex_history
+                                     if h.coordinate == "per-user"],
+        "launches": ex_launches,
+    }
+    log(f"[game-train] the descent at examples/game_train.json's solver settings: "
+        f"{json.dumps(example_summary)}")
+    del cache, data, columns
+
+    # the same driver on the CPU
+    t0 = time.perf_counter()
+    cpu = run_game_training({**params, "output_dir": os.path.join(work, "out-cpu")},
+                            device="cpu")
+    cpu_wall_s = time.perf_counter() - t0
+    gaps = game_train_gaps(run, cpu)
+    gate_failures = game_train_gate_failures(gaps)
+    log(f"[game-train] card vs CPU: objectives {gaps['objective']:.3e} relative (limit "
+        f"{GAME_TRAIN_OBJECTIVE_RTOL:g}; per update "
+        f"{['%.1e' % e for e in gaps['objective_per_update']]}; the card against itself "
+        f"{card_spread:.3e}), AUC {gaps['auc']:.3e} (limit 1e-6), fixed effect "
+        f"{gaps['w']:.3e} of {gaps['w_scale']:.4f} (limit 1e-6), per-user table "
+        f"{gaps['table']:.3e} of {gaps['table_scale']:.4f} (limit 1e-6); "
+        f"{gaps['entity_updates_with_other_iterations']} entity updates with other "
+        f"iterations; fixed-effect iterations (card, CPU) {gaps['fixed_iterations']}")
+    if gate_failures:
+        failures.append(f"GAME training on the card disagrees with the CPU run: "
+                        f"{', '.join(gate_failures)}")
+    w_card = run.sweep[run.best_index]["model"].params["global"].cpu()
+    t_card = run.sweep[run.best_index]["model"].params["per-user"].cpu()
+    auc = run.sweep[run.best_index]["validation_metric"]
+    if not (0.5 < auc <= 1.0 and np.isfinite(w_card.numpy()).all()
+            and np.isfinite(t_card.numpy()).all()):
+        failures.append(f"GAME training: AUC {auc}, non-finite coefficients")
+
+    # fused_vgc and fused_hvp against their plain versions on the last
+    # fixed-effect update's batch and offsets (nonzero: the random
+    # effect's scores)
+    kernel_errs = {}
+    if on_card:
+        b, w = last_fixed["batch"], last_fixed["w"]
+        x = b.features
+        off = b.offsets + last_fixed["partial"]
+        ew = b.effective_weights()
+        got = fused_value_grad_curvature(x.indices, x.values, b.labels, off, ew, w, x.d,
+                                         LOGISTIC_LOSS)
+        ref = fused_value_grad_curvature_reference(x.indices, x.values, b.labels, off, ew, w,
+                                                   x.d, LOGISTIC_LOSS)
+        kernel_errs["fused_vgc"] = max(
+            float((g - r).abs().max()) / (float(r.abs().max()) + 1.0) for g, r in zip(got, ref))
+        g = torch.Generator(device=device).manual_seed(SEED + 31)
+        v = torch.randn(x.d, generator=g, device=device, dtype=torch.float64)
+        shift = torch.zeros((), dtype=torch.float64, device=device)
+        got = fused_hessian_vector(x.indices, x.values, ref[3], v, shift, x.d)
+        ref_h = fused_hessian_vector_reference(x.indices, x.values, ref[3], v, shift, x.d)
+        kernel_errs["fused_hvp"] = max(
+            float((a - r).abs().max()) / (float(r.abs().max()) + 1.0) for a, r in zip(got, ref_h))
+        log(f"[game-train] kernels on the last fixed-effect update's inputs: "
+            f"{json.dumps(kernel_errs)} (limit 1e-10 of the output's scale); "
+            f"offsets max |partial| {float(last_fixed['partial'].abs().max()):.4f}")
+        if max(kernel_errs.values()) > 1e-10:
+            failures.append(f"fused passes at the GAME shape: {kernel_errs}")
+        del b, x, off, ew, got, ref, ref_h, v
+        last_fixed.clear()
+    summary = {
+        "records": n,
+        "heldout_records": n_heldout,
+        "users": n_users,
+        "entities": len(run.entity_vocabs["userId"]),
+        "device": run.device,
+        "wall_s": wall_s,
+        "timings_s": run.timings,
+        "combo_s": [s["seconds"] for s in run.sweep],
+        "update_s": {c: [h.seconds for h in history if h.coordinate == c]
+                     for c in ("global", "per-user")},
+        "best_combo": run.sweep[run.best_index]["combo"],
+        "best_auc": auc,
+        "launches": launches,
+        "expected_launches": expected,
+        "host_reads": reads,
+        "fixed_iterations": [int(h.solver_iterations) for h in fixed],
+        "fixed_cg_iterations": [h.cg_iterations for h in fixed],
+        "per_user_iterations_histogram": hist.tolist(),
+        "per_user_mean_iterations": [h.solver_iterations for h in per_user],
+        "traced_descent_s": traced_wall_s,
+        **busy,
+        "device_idle_share": (None if busy["device_busy_s"] is None
+                              else 1.0 - busy["device_busy_s"] / traced_wall_s),
+        "cpu_wall_s": cpu_wall_s,
+        "cpu_timings_s": cpu.timings,
+        "gaps_vs_cpu": gaps,
+        "card_vs_card_objective_spread": card_spread,
+        "fixed_tolerance": fixed_tolerance,
+        "example_settings": example_summary,
+        "kernel_errs_at_last_update": kernel_errs,
+        "setup_s": setup_s,
+    }
+    log(f"[game-train] {json.dumps(summary)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary
+
+
 # -- phase 6: the training driver end to end ---------------------------------
 
 
@@ -1790,6 +2243,9 @@ def main() -> int:
         # 5b. GAME scoring end to end, held to the CPU
         game_summary, game_record = game_phase(os.path.join(work, "game"), name)
         shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
+        # 5c. GAME training end to end, held to the CPU
+        game_train_summary = game_train_phase(os.path.join(work, "game_train"), name)
+        shutil.rmtree(os.path.join(work, "game_train"), ignore_errors=True)
         # 6. GLM training end to end
         train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
         # 7. the full trainer on the same records
@@ -1805,7 +2261,8 @@ def main() -> int:
     # with hot columns for all but ell_matvec; for ell_matvec at the GAME
     # scoring shape too), and its launches on its main path — the training
     # run, and for fused_hdiag the full trainer's run A (per path: GLM
-    # scoring, GAME scoring, training, run A, lab); the composites of
+    # scoring, GAME scoring, GAME training, training, run A, lab); the
+    # composites of
     # library calls beside fused_hvp's and fused_hdiag's times
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1827,6 +2284,7 @@ def main() -> int:
             "launches": launches[kernel],
             "launches_by_path": {"score": summary["launches"][kernel],
                                  "game_score": game_summary["launches"][kernel],
+                                 "game_train": game_train_summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel],
                                  "lab": lab_launches[kernel]},
@@ -1852,7 +2310,8 @@ def main() -> int:
             **{k: main_path[k] for k in keys},
             "launches": lab_launches[kernel],
             "launches_by_path": {"lab": lab_launches[kernel],
-                                 "game_score": game_summary["launches"][kernel]},
+                                 "game_score": game_summary["launches"][kernel],
+                                 "game_train": game_train_summary["launches"][kernel]},
             **{k: main_path[k] for k in ("device_ms", "host_ms", "library_device_ms",
                                          "composite", "composite_ms", "composite_device_ms",
                                          "max_err_share")},

@@ -1,0 +1,437 @@
+"""GAME training driver (counterpart of ``photon_ml_tpu/cli/game_train.py``;
+the reference's ``cli/game/training/Driver.scala:47-541``): read the
+per-shard feature lists, convert Avro records to a GAME dataset (feature
+bags + entity columns), build one coordinate per updating-sequence entry,
+train the cartesian product of the per-coordinate reg-weight grids
+(``Driver.scala:317-384``), log the training objective and the validation
+metric after every coordinate update (``CoordinateDescent.scala:173-189``),
+and save models in the reference's output layout with BEST/ALL selection
+(``Driver.scala:393-441``). Run as
+
+    python -m photon_ml_tpu_torch.cli.game_train --config params.json
+
+or programmatically via :func:`run_game_training`. It runs on the CUDA
+device unless given another: a fixed effect on a shard in
+``sparse_shards`` solves through the ``fused_vgc`` / ``fused_hvp`` kernels
+(one launch per TRON evaluation / CG step) and rescores through
+``ell_matvec``, as does each validation.
+
+Single process, fixed effects and plain (identity-projected) random
+effects on dense shards. The grid combos train one after another (the JAX
+package may vmap them, ``descent.run_grid``: the same math); projected and
+factored effects, checkpoints, multi-process and entity-sharded runs and
+the observability envelope raise ``NotImplementedError`` naming their
+ROADMAP item (``cli/config.UNPORTED_GAME_FIELDS``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.cli.config import (
+    CoordinateSpec,
+    GameDriverParams,
+    load_params,
+    prepare_output_dir,
+    resolve_date_range,
+)
+from photon_ml_tpu_torch.cli.train import driver_dtype
+from photon_ml_tpu_torch.core.tasks import TaskType
+from photon_ml_tpu_torch.game.coordinates import (
+    CoordinateConfig,
+    FixedEffectCoordinate,
+    RandomEffectCoordinate,
+)
+from photon_ml_tpu_torch.game.data import GameData, build_bucketed_random_effect_design
+from photon_ml_tpu_torch.game.descent import CoordinateDescent, GameModel
+from photon_ml_tpu_torch.game.scoring import score_game_data
+from photon_ml_tpu_torch.io.ingest import IngestSource
+from photon_ml_tpu_torch.io.models import (
+    collapse_game_model,
+    load_game_model,
+    save_game_model,
+    write_model_manifest,
+)
+from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
+from photon_ml_tpu_torch.models.training import OptimizerType
+from photon_ml_tpu_torch.ops import metrics as metrics_mod
+from photon_ml_tpu_torch.ops.sparse import cast_values
+from photon_ml_tpu_torch.resilience import GracefulShutdown
+from photon_ml_tpu_torch.utils.dates import expand_date_paths
+from photon_ml_tpu_torch.utils.device import resolve_device, synchronize, to_numpy
+from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed
+
+
+def _coordinate_config(name: str, spec: CoordinateSpec, task: TaskType,
+                       reg_weight: float) -> CoordinateConfig:
+    return CoordinateConfig(
+        shard=spec.shard,
+        task=task,
+        optimizer=OptimizerType[spec.optimizer],
+        reg_weight=reg_weight,
+        l1_ratio=spec.l1_ratio,
+        max_iters=spec.max_iters,
+        tolerance=spec.tolerance,
+        down_sampling_rate=spec.down_sampling_rate,
+        random_effect=spec.random_effect,
+        active_cap=spec.active_cap,
+        track_states=spec.track_states,
+    )
+
+
+def build_coordinates(
+    params: GameDriverParams,
+    data: GameData,
+    task: TaskType,
+    reg_combo: Dict[str, float],
+    entity_counts: Dict[str, int],
+    dtype: torch.dtype = torch.float64,
+    device=None,
+    design_cache: Dict[str, object] = None,
+):
+    """One training coordinate per updating-sequence entry, its data on
+    ``device`` (None: the CUDA device, raising without one): fixed effects
+    on dense or ELL shards, plain random effects on dense shards. ``design_cache`` (name -> placed design and rows)
+    carries the combo-invariant work across a reg-weight grid: designs
+    depend on the data, never on lambda."""
+    device = resolve_device(device)
+    cache = {} if design_cache is None else design_cache
+    coords = {}
+    for name in params.updating_sequence:
+        spec = params.coordinates[name]
+        cfg = _coordinate_config(name, spec, task, reg_combo[name])
+        if name not in cache:
+            if spec.random_effect is None:
+                cache[name] = data.fixed_effect_batch(spec.shard, dtype, device)
+            else:
+                design = build_bucketed_random_effect_design(
+                    data, spec.random_effect, spec.shard,
+                    entity_counts[spec.random_effect],
+                    num_buckets=spec.num_buckets, active_cap=spec.active_cap,
+                    dtype=dtype, feature_ratio=spec.feature_ratio,
+                    min_support=spec.min_support, device=device,
+                )
+                cache[name] = (
+                    design,
+                    torch.as_tensor(data.features[spec.shard], dtype=dtype, device=device),
+                    torch.as_tensor(data.entity_ids[spec.random_effect], dtype=torch.int64,
+                                    device=device),
+                    torch.as_tensor(data.offsets, dtype=dtype, device=device),
+                )
+        if spec.random_effect is None:
+            coords[name] = FixedEffectCoordinate(cache[name], cfg)
+        else:
+            design, row_features, row_entities, offsets_base = cache[name]
+            coords[name] = RandomEffectCoordinate(
+                design=design, row_features=row_features, row_entities=row_entities,
+                full_offsets_base=offsets_base, config=cfg,
+            )
+    return coords
+
+
+def materialize_original_space(model: GameModel, coords: Dict) -> GameModel:
+    """The model in original feature space. Every coordinate the port
+    trains is already there (projected and entity-sharded coordinates,
+    whose tables the JAX package maps back here, are not ported)."""
+    return model
+
+
+@dataclasses.dataclass
+class GameTrainingRun:
+    params: GameDriverParams
+    shard_vocabs: Dict[str, FeatureVocabulary]
+    entity_vocabs: Dict[str, dict]
+    # one entry per grid combo: (combo, model, history, validation metric,
+    # and the port's "seconds": the combo's coordinate build + descent)
+    sweep: List[dict]
+    best_index: int
+    output_dirs: List[str]
+    device: str
+    # wall-clock seconds per phase: ingest (training Avro decode, shards,
+    # entity ids), validation_ingest, train (every combo's designs and
+    # descent, per-update validation included), write (models, feature
+    # indexes, manifest)
+    timings: Dict[str, float]
+
+
+def run_game_training(params, device=None) -> GameTrainingRun:
+    """Train the GAME model described by ``params`` (a GameDriverParams, a
+    dict or a JSON path). ``device=None`` means CUDA, and raises when no
+    card is present. Installs the preemption handler (``graceful_shutdown``)
+    around the run."""
+    device = resolve_device(device)
+    params = load_params(params, GameDriverParams)
+    params.validate()
+    prepare_output_dir(params.output_dir, params.overwrite)
+    logger = PhotonLogger(
+        os.path.join(params.output_dir, "log-message.txt"), level=params.log_level
+    )
+    shutdown = GracefulShutdown(logger)
+    if params.graceful_shutdown:
+        shutdown.install()
+    try:
+        return _run_game_training(params, device, logger, shutdown)
+    finally:
+        shutdown.uninstall()
+        logger.close()
+
+
+def _placed_game_data(data: GameData, dtype: torch.dtype, device) -> GameData:
+    """The same dataset with every column on ``device``, so that scoring it
+    after every update copies nothing from the host."""
+    return GameData(
+        features={k: cast_values(v, dtype, device) for k, v in data.features.items()},
+        labels=torch.as_tensor(data.labels, dtype=dtype, device=device),
+        offsets=torch.as_tensor(data.offsets, dtype=dtype, device=device),
+        weights=torch.as_tensor(data.weights, dtype=dtype, device=device),
+        entity_ids={k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                    for k, v in data.entity_ids.items()},
+    )
+
+
+def _run_game_training(params: GameDriverParams, device: torch.device,
+                       logger: PhotonLogger, shutdown) -> GameTrainingRun:
+    task = TaskType[params.task]
+    dtype = driver_dtype(params.precision)
+    timings: Dict[str, float] = {}
+    logger.info(
+        f"GAME training driver on {device}: task={params.task} "
+        f"sequence={params.updating_sequence} iters={params.num_iterations}"
+    )
+
+    # ---- feature maps + dataset --------------------------------------------
+    with timed(logger, "prepare data"):
+        t0 = time.perf_counter()
+        date_range = resolve_date_range(params)
+        source = IngestSource(expand_date_paths(params.train_input, date_range),
+                              params.field_names)
+        shard_vocabs = {
+            shard: FeatureVocabulary.load(params.feature_shards[shard])
+            for shard in sorted({spec.shard for spec in params.coordinates.values()})
+        }
+        entity_keys = sorted({
+            spec.random_effect for spec in params.coordinates.values()
+            if spec.random_effect is not None
+        })
+        data, entity_vocabs, _uids, _present = source.game_data(
+            shard_vocabs, entity_keys, sparse_shards=set(params.sparse_shards)
+        )
+        timings["ingest"] = time.perf_counter() - t0
+        logger.info(f"read {len(data.labels)} training records")
+        entity_counts = {k: len(v) for k, v in entity_vocabs.items()}
+        logger.info(f"shards: { {s: len(v) for s, v in shard_vocabs.items()} } "
+                    f"entities: {entity_counts}")
+
+        vdata = None
+        if params.validate_input:
+            t0 = time.perf_counter()
+            vdata, _, _, _ = IngestSource(
+                expand_date_paths(params.validate_input, date_range), params.field_names,
+            ).game_data(
+                shard_vocabs, entity_keys, entity_vocabs=entity_vocabs,
+                sparse_shards=set(params.sparse_shards),
+            )
+            vdata = _placed_game_data(vdata, dtype, device)
+            synchronize(device)
+            timings["validation_ingest"] = time.perf_counter() - t0
+            logger.info(f"read {vdata.num_rows} validation records")
+
+    shards_by_coord = {n: params.coordinates[n].shard for n in params.updating_sequence}
+    res_by_coord = {n: params.coordinates[n].random_effect for n in params.updating_sequence}
+
+    def validation_metric(model: GameModel) -> float:
+        # a dense random-effect table on the device scores through the
+        # plain join (game/scoring._random_scores); no host compaction
+        margins = score_game_data(
+            model.params, shards_by_coord, res_by_coord, vdata, dtype=dtype, device=device
+        ) + vdata.offsets
+        if task.is_classifier:
+            return float(metrics_mod.area_under_roc_curve(vdata.labels, margins, vdata.weights))
+        if task == TaskType.POISSON_REGRESSION:
+            return -float(metrics_mod.total_poisson_loss(vdata.labels, margins, vdata.weights))
+        return -float(metrics_mod.root_mean_squared_error(vdata.labels, margins, vdata.weights))
+
+    # warm-start tables from a previously saved model: rows remap by raw
+    # entity id into THIS run's entity vocabulary
+    warm_params: Dict[str, np.ndarray] = {}
+    if params.initial_model_dir:
+        loaded, _, _, _ = load_game_model(
+            params.initial_model_dir,
+            {n: shard_vocabs[shards_by_coord[n]] for n in params.updating_sequence},
+            {n: entity_vocabs[res_by_coord[n]] for n in params.updating_sequence
+             if res_by_coord[n] is not None},
+        )
+        for n, p in loaded.items():
+            if n not in params.coordinates:
+                continue
+            if hasattr(p, "gamma"):
+                logger.warn(f"coordinate {n}: saved params do not match the "
+                            "coordinate kind/latent dim; cold-starting it")
+                continue
+            warm_params[n] = p
+        logger.info(f"warm-starting coordinates {sorted(warm_params)} from "
+                    f"{params.initial_model_dir}")
+
+    sweep: List[dict] = []
+    design_cache: Dict[str, object] = {}
+    t_train = time.perf_counter()
+    for combo in params.grid():
+        with timed(logger, f"train combo {combo}"):
+            t0 = time.perf_counter()
+            coords = build_coordinates(params, data, task, combo, entity_counts,
+                                       dtype=dtype, device=device, design_cache=design_cache)
+            cd = CoordinateDescent(
+                coordinates=coords,
+                labels=torch.as_tensor(data.labels, dtype=dtype, device=device),
+                base_offsets=torch.as_tensor(data.offsets, dtype=dtype, device=device),
+                weights=torch.as_tensor(data.weights, dtype=dtype, device=device),
+                task=task,
+            )
+            vfn = (
+                (lambda model, _coords=coords: validation_metric(
+                    materialize_original_space(model, _coords)))
+                if (vdata is not None and params.validate_per_coordinate) else None
+            )
+            model, history = cd.run(
+                params.num_iterations,
+                initial_model=warm_params or None,
+                validation_fn=vfn,
+                divergence_guard=params.divergence_guard,
+                stop_check=shutdown,
+                freeze=params.freeze_coordinates or None,
+            )
+            for h in history:
+                if h.event == "frozen":
+                    logger.warn(f"combo={combo} iter={h.iteration} coordinate "
+                                f"{h.coordinate!r} FROZEN by the divergence guard; "
+                                "remaining coordinates kept training")
+            for h in history:
+                logger.info(
+                    f"combo={combo} iter={h.iteration} coord={h.coordinate} "
+                    f"objective={h.objective:.6g}"
+                    + (f" validation={h.validation_metric:.6g}"
+                       if h.validation_metric is not None else "")
+                    + (f" ({h.seconds:.2f}s/pass)" if h.seconds is not None else "")
+                )
+            model = materialize_original_space(model, coords)
+            if vfn is not None:
+                final_metric = history[-1].validation_metric
+            elif vdata is not None:
+                final_metric = validation_metric(model)
+            else:
+                final_metric = None
+            synchronize(device)
+            sweep.append({"combo": combo, "model": model, "history": history,
+                          "validation_metric": final_metric,
+                          "seconds": time.perf_counter() - t0})
+            if shutdown.requested:
+                logger.warn(f"preempted during combo {combo}: no checkpoint is "
+                            "written (checkpoints are not ported); nothing is saved")
+                break
+    timings["train"] = time.perf_counter() - t_train
+
+    # best = highest validation metric (oriented so higher is better);
+    # without validation data the last combo wins, like the reference
+    if vdata is not None:
+        best_index = int(np.argmax([s["validation_metric"] for s in sweep]))
+    else:
+        best_index = len(sweep) - 1
+    logger.info(f"best combo: {sweep[best_index]['combo']} "
+                f"(validation={sweep[best_index]['validation_metric']})")
+
+    # ---- save models (``Driver.scala:393-441`` output modes) ---------------
+    # a preempted run saves nothing
+    output_dirs: List[str] = []
+    with timed(logger, "save models"):
+        t0 = time.perf_counter()
+        to_save: List[int] = []
+        if shutdown.requested:
+            pass
+        elif params.model_output_mode == "BEST":
+            to_save = [best_index]
+        elif params.model_output_mode == "ALL":
+            to_save = list(range(len(sweep)))
+        for idx in to_save:
+            entry = sweep[idx]
+            subdir = (
+                os.path.join(params.output_dir, "best")
+                if params.model_output_mode == "BEST"
+                else os.path.join(params.output_dir, "all", str(idx))
+            )
+            save_params = {n: to_numpy(p) for n, p in entry["model"].params.items()}
+            save_shards = shards_by_coord
+            save_res = res_by_coord
+            save_evocabs = {n: entity_vocabs[res_by_coord[n]]
+                            for n in params.updating_sequence if res_by_coord[n] is not None}
+            if params.collapse_output:
+                save_params, save_shards, save_res, save_evocabs = collapse_game_model(
+                    save_params, save_shards, save_res, save_evocabs
+                )
+                logger.info(f"collapsed to coordinates {sorted(save_params)}")
+            save_game_model(
+                subdir,
+                params=save_params,
+                shards=save_shards,
+                vocabs={n: shard_vocabs[save_shards[n]] for n in save_params},
+                entity_vocabs=save_evocabs,
+                random_effects=save_res,
+                task=task,
+            )
+            with open(os.path.join(subdir, "model-spec.json"), "w") as f:
+                json.dump(
+                    {
+                        "combo": entry["combo"],
+                        "validation_metric": entry["validation_metric"],
+                        "task": params.task,
+                        "updating_sequence": params.updating_sequence,
+                    },
+                    f,
+                    indent=2,
+                )
+            output_dirs.append(subdir)
+        if not shutdown.requested:
+            for shard, vocab in shard_vocabs.items():
+                vocab.save(os.path.join(params.output_dir, f"feature-index-{shard}.txt"))
+        if output_dirs:
+            # sha256 manifest over the whole export (models + vocabularies)
+            write_model_manifest(params.output_dir)
+        timings["write"] = time.perf_counter() - t0
+
+    return GameTrainingRun(
+        params=params,
+        shard_vocabs=shard_vocabs,
+        entity_vocabs=entity_vocabs,
+        sweep=sweep,
+        best_index=best_index,
+        output_dirs=output_dirs,
+        device=str(device),
+        timings=timings,
+    )
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(
+        prog="photon_ml_tpu_torch.cli.game_train",
+        description="Train GAME (fixed + random effects) models on a CUDA device.",
+    )
+    p.add_argument("--config", required=True, help="JSON GameDriverParams")
+    p.add_argument("--overwrite", action="store_true", default=None)
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+    with open(args.config) as f:
+        base = json.load(f)
+    if args.overwrite is not None:
+        base["overwrite"] = args.overwrite
+    run_game_training(base, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

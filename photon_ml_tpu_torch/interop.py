@@ -5,10 +5,11 @@ The inputs are numpy arrays taken from ``photon_ml_tpu``'s
 ``NormalizationContext`` and ``SolverConfig`` (``np.asarray`` of their
 fields); this module never imports that package. bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) are converted exactly through float32.
-The other bridge is the GLM Avro model file, which both packages read and
-write (``io.models``). ``lab_tiles_from_numpy`` takes the column-sorted
-tiles of ``benchmarks/sparse_kernel_lab.py``, which that script builds in
-numpy.
+``game_model_from_numpy`` / ``game_model_to_numpy`` carry a GAME model's
+parameters both ways. The other bridge is the Avro model files, which
+both packages read and write (``io.models``). ``lab_tiles_from_numpy``
+takes the column-sorted tiles of ``benchmarks/sparse_kernel_lab.py``,
+which that script builds in numpy.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ import torch
 
 from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
+from photon_ml_tpu_torch.game.descent import GameModel
 from photon_ml_tpu_torch.game.factored import FactoredParams
 from photon_ml_tpu_torch.game.scoring import CompactReTable
 from photon_ml_tpu_torch.kernels.lab import LAB_BLOCK, LAB_TILE, ColumnTiles, tile_chains
 from photon_ml_tpu_torch.ops.sparse import SparseFeatures
 from photon_ml_tpu_torch.solvers.common import SolverConfig
+from photon_ml_tpu_torch.utils.device import to_numpy
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -88,6 +91,19 @@ def game_params_from_numpy(params, device="cpu") -> dict:
         else:
             out[name] = tensor_from_numpy(p, device)
     return out
+
+
+def game_model_from_numpy(params, device="cpu") -> GameModel:
+    """A JAX ``GameModel``'s params, ``{name: numpy array}`` ((d,) fixed
+    effects, (E, d) random-effect tables), as the port's ``GameModel`` on
+    ``device``: the warm start both packages can begin from."""
+    return GameModel(params={n: tensor_from_numpy(p, device) for n, p in params.items()})
+
+
+def game_model_to_numpy(model: GameModel) -> dict:
+    """The port's ``GameModel`` as ``{name: numpy array}``, for the JAX
+    package's ``GameModel(params=...)``."""
+    return {n: to_numpy(p) for n, p in model.params.items()}
 
 
 def normalization_from_numpy(factors=None, shifts=None, device="cpu") -> NormalizationContext:

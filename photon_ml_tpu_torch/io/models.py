@@ -407,6 +407,51 @@ def remap_entity_rows(table: np.ndarray, own: dict, shared: dict) -> np.ndarray:
     return out
 
 
+def collapse_game_model(
+    params: Dict[str, object],
+    shards: Dict[str, str],
+    random_effects: Dict[str, Optional[str]],
+    entity_vocabs: Dict[str, dict],
+):
+    """Merge coordinates sharing (effect type, feature shard) by
+    coefficient ADDITION (``ModelProcessingUtils.collapseGameModel``
+    :224-264): fixed-effect vectors sum directly; random-effect tables
+    cogroup on the raw entity id (an entity absent from one coordinate
+    contributes zeros). Returns (params, shards, random_effects,
+    entity_vocabs) as numpy, merged coordinates named "<effect>-<shard>".
+    Factored coordinates are refused, like the reference."""
+    groups: Dict[Tuple[str, str], List[str]] = {}
+    for name in params:
+        if is_factored_params(params[name]):
+            raise ValueError(
+                f"collapse of factored coordinate {name!r} is not supported "
+                "(reference ModelProcessingUtils.scala:235-236)"
+            )
+        effect = random_effects.get(name) or "fixed-effect"
+        groups.setdefault((effect, shards[name]), []).append(name)
+
+    out_params: Dict[str, np.ndarray] = {}
+    out_shards: Dict[str, str] = {}
+    out_res: Dict[str, Optional[str]] = {}
+    out_evocabs: Dict[str, dict] = {}
+    for (effect, shard), names in groups.items():
+        merged_name = f"{effect}-{shard}"
+        out_shards[merged_name] = shard
+        re_type = random_effects.get(names[0])
+        out_res[merged_name] = re_type
+        if re_type is None:
+            out_params[merged_name] = np.sum([to_numpy(params[n]) for n in names], axis=0)
+            continue
+        merged_vocab = union_entity_vocab(entity_vocabs[n] for n in names)
+        d = to_numpy(params[names[0]]).shape[1]
+        table = np.zeros((len(merged_vocab), d))
+        for n in names:
+            table += remap_entity_rows(to_numpy(params[n]), entity_vocabs[n], merged_vocab)
+        out_params[merged_name] = table
+        out_evocabs[merged_name] = merged_vocab
+    return out_params, out_shards, out_res, out_evocabs
+
+
 def resolve_game_dirs(root: str) -> Tuple[str, str]:
     """(model_root, vocab_root): model_root holds fixed-effect/random-effect
     subdirs (the training-output root itself, its 'best' child, or the

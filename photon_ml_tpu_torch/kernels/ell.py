@@ -166,11 +166,11 @@ def ell_matvec_reference(
 ) -> torch.Tensor:
     """Plain PyTorch ``ell_matvec``: pad ``w`` with one zero at id ``d``,
     gather, multiply and sum over the slots in the compute dtype. Ids
-    outside [0, d) read the zero."""
+    outside [0, d) read the zero. (``torch.take`` gathers the same values
+    as ``index_select``, several times faster on the CPU.)"""
     cd = compute_dtype(values.dtype, w.dtype)
     w_pad = torch.cat([w.to(cd), w.new_zeros(1, dtype=cd)])
-    ids = _valid_ids(indices, d)
-    gathered = w_pad.index_select(0, ids.reshape(-1)).reshape(ids.shape)
+    gathered = torch.take(w_pad, _valid_ids(indices, d))
     return (values.to(cd) * gathered).sum(-1)
 
 
@@ -218,12 +218,14 @@ def ell_matvec(
 def ell_scatter_add_reference(
     indices: torch.Tensor, upd: torch.Tensor, d: int
 ) -> torch.Tensor:
-    """Plain PyTorch ``ell_scatter_add``: ``index_add_`` of every slot into
-    a (d + 1,) buffer whose last entry takes the padding, then dropped."""
+    """Plain PyTorch ``ell_scatter_add``: every slot added into a (d + 1,)
+    buffer whose last entry takes the padding, then dropped. On the CPU
+    ``scatter_add_`` adds in slot order, as ``index_add_`` does (the same
+    bits), in half its time."""
     _scatter_entry(upd.dtype)
     ids = _valid_ids(indices, d)
     out = upd.new_zeros(d + 1)
-    out.index_add_(0, ids.reshape(-1), upd.reshape(-1))
+    out.scatter_add_(0, ids.reshape(-1), upd.reshape(-1))
     return out[:d]
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from photon_ml_tpu_torch.ops.losses import softplus
+
 
 def _weighted(values, weights):
     w = torch.sum(weights)
@@ -31,6 +33,18 @@ def root_mean_squared_error(labels, predictions, weights):
 
 def mean_absolute_error(labels, predictions, weights):
     return _weighted(torch.abs(predictions - labels), weights)
+
+
+# -- total-loss evaluators (GAME ``evaluation/{Logistic,Squared}LossEvaluator``)
+
+
+def total_logistic_loss(labels, margins, weights):
+    s = 2.0 * labels - 1.0
+    return torch.sum(weights * softplus(-s * margins))
+
+
+def total_squared_loss(labels, margins, weights):
+    return torch.sum(weights * 0.5 * (margins - labels) ** 2)
 
 
 def total_poisson_loss(labels, margins, weights):

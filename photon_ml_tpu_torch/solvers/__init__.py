@@ -1,6 +1,7 @@
 """Solvers (counterpart of ``photon_ml_tpu/solvers``): L-BFGS, OWL-QN,
 TRON and the exact Newton solver as Python loops over tensors on the
-batch's device."""
+batch's device; ``batched`` holds TRON and L-BFGS over many per-entity
+problems at once (the JAX package's ``jax.vmap`` of them)."""
 
 from photon_ml_tpu_torch.solvers.common import (
     ConvergenceReason,

@@ -175,15 +175,18 @@ def check_convergence(
     grad_norm_cur: torch.Tensor,
     value_initial: torch.Tensor,
     grad_norm_initial: torch.Tensor,
-    iteration: int,
+    iteration,
     max_iters: int,
     tolerance: float,
 ) -> torch.Tensor:
-    """The ConvergenceReason code as an int32 0-dim tensor (0 = keep
-    going), computed on the device. Order follows
+    """The ConvergenceReason code as an int32 tensor (0 = keep going),
+    computed on the device, of the values' shape: a 0-dim code for one
+    solve with a host int ``iteration``, or one code per lane for the
+    batched solvers' (E,) values and iteration counts. Order follows
     ``AbstractOptimizer.convergenceReason:49-63``: max iterations, then
     function values, then gradient."""
-    if iteration >= max_iters:
+    batched = torch.is_tensor(iteration)
+    if not batched and iteration >= max_iters:
         return _code(ConvergenceReason.MAX_ITERATIONS, value_cur)
     reason = torch.where(
         grad_norm_cur <= tolerance * grad_norm_initial,
@@ -191,9 +194,14 @@ def check_convergence(
         _code(ConvergenceReason.NOT_CONVERGED, value_cur),
     )
     func_conv = torch.abs(value_prev - value_cur) <= tolerance * torch.abs(value_initial)
-    return torch.where(
+    reason = torch.where(
         func_conv, _code(ConvergenceReason.FUNCTION_VALUES_CONVERGED, value_cur), reason
     )
+    if batched:
+        reason = torch.where(
+            iteration >= max_iters, _code(ConvergenceReason.MAX_ITERATIONS, value_cur), reason
+        )
+    return reason
 
 
 def tracker_buffers(max_iters: int, like: torch.Tensor, track: bool = True):

@@ -57,13 +57,38 @@ def _empty_history(m: int, w: torch.Tensor) -> _History:
                     rho=torch.zeros((m,), **z))
 
 
+def _curvature_ok(sy: torch.Tensor, yy: torch.Tensor) -> torch.Tensor:
+    """Whether a pair with curvature s.y and y.y enters the history: s.y
+    positive against y.y (the safeguard that replaces breeze's handling).
+    Elementwise, so one solve's or the batched solver's lanes."""
+    return sy > 1e-10 * torch.clamp(yy, min=1e-30)
+
+
+def _first_step(direction_norm: torch.Tensor) -> torch.Tensor:
+    """The first iteration's trial step: unit-ish length, like breeze's
+    initial heuristic. Elementwise."""
+    return torch.clamp(1.0 / torch.clamp(direction_norm, min=1e-30), max=1.0)
+
+
+def _dead_search_reason(code: torch.Tensor, ls_ok: torch.Tensor) -> torch.Tensor:
+    """A dead line search means no further progress; it also leaves w
+    unchanged, so the |df| = 0 test would fire spuriously — replace that
+    (and NOT_CONVERGED), never GRADIENT_CONVERGED nor MAX_ITERATIONS,
+    which the reference checks first. Elementwise."""
+    return torch.where(
+        (~ls_ok)
+        & (code != ConvergenceReason.GRADIENT_CONVERGED)
+        & (code != ConvergenceReason.MAX_ITERATIONS),
+        torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
+        code,
+    )
+
+
 def _push_history(h: _History, s: torch.Tensor, y: torch.Tensor) -> _History:
-    """Append a correction pair in place; skip it when the curvature s.y
-    is not positive (the safeguard that replaces breeze's handling).
-    One host read."""
+    """Append a correction pair in place; skip it when its curvature fails
+    :func:`_curvature_ok`. One host read."""
     sy = torch.dot(s, y)
-    ok = sy > 1e-10 * torch.clamp(torch.dot(y, y), min=1e-30)
-    if host_read(ok):
+    if host_read(_curvature_ok(sy, torch.dot(y, y))):
         i = h.head
         h.s[i] = s
         h.y[i] = y
@@ -174,11 +199,8 @@ def minimize_lbfgs(
             val, g = value_and_grad_fn(w + alpha * direction)
             return val, torch.dot(g, direction), g
 
-        # first step: unit-ish length, like breeze's initial heuristic
         if hist.count == 0:
-            alpha_init = torch.clamp(
-                1.0 / torch.clamp(torch.linalg.norm(direction), min=1e-30), max=1.0
-            )
+            alpha_init = _first_step(torch.linalg.norm(direction))
         else:
             alpha_init = torch.ones((), dtype=value.dtype, device=value.device)
         alpha, v_ls, g_ls, ls_ok, ls_evals = strong_wolfe(
@@ -205,17 +227,7 @@ def minimize_lbfgs(
             value, v_new, gnorm, value_initial, grad_norm_initial, it,
             config.max_iters, config.tolerance,
         )
-        # a dead line search means no further progress; it also leaves w
-        # unchanged, so the |df| = 0 test would fire spuriously — replace
-        # that (and NOT_CONVERGED), never GRADIENT_CONVERGED nor
-        # MAX_ITERATIONS, which the reference checks first
-        code = torch.where(
-            (~ls_ok)
-            & (code != ConvergenceReason.GRADIENT_CONVERGED)
-            & (code != ConvergenceReason.MAX_ITERATIONS),
-            torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
-            code,
-        )
+        code = _dead_search_reason(code, ls_ok)
         record(values, it, v_new)
         record(grad_norms, it, gnorm)
         record(w_history, it, w_new)
@@ -337,12 +349,7 @@ def minimize_owlqn(
             config.max_iters, config.tolerance,
         )
         if not ls_ok:
-            code = torch.where(
-                (code != ConvergenceReason.GRADIENT_CONVERGED)
-                & (code != ConvergenceReason.MAX_ITERATIONS),
-                torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
-                code,
-            )
+            code = _dead_search_reason(code, torch.zeros_like(code, dtype=torch.bool))
         record(values, it, f_new)
         record(grad_norms, it, pgnorm)
         record(w_history, it, w_new)

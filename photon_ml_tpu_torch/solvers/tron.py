@@ -44,6 +44,61 @@ _SIGMA1, _SIGMA2, _SIGMA3 = 0.25, 0.5, 4.0
 TRON_DEFAULT_CONFIG = SolverConfig(max_iters=15, tolerance=1e-5)
 
 
+def _to_sphere(sp, ss, pp, delta):
+    """tau >= 0 with ||step + tau p|| = delta, from sp = step.p,
+    ss = step.step and pp = p.p: the CG step clipped to the trust-region
+    boundary (``TRON.scala:283-300``). Elementwise, so one solve's scalars
+    or the batched solver's lanes."""
+    rad = torch.sqrt(torch.clamp(sp * sp + pp * (delta * delta - ss), min=0.0))
+    return torch.where(
+        sp >= 0.0,
+        (delta * delta - ss) / torch.clamp(sp + rad, min=1e-30),
+        (rad - sp) / torch.clamp(pp, min=1e-30),
+    )
+
+
+def _new_radius(delta, snorm, gs, value, v_try, actred, prered):
+    """The radius after a trial step (``TRON.scala:136-224``, LIBLINEAR's
+    alpha logic), from the radius the step was taken in (already tightened
+    to the step length on the first iteration). Elementwise."""
+    denom = v_try - value - gs
+    alpha_c = torch.where(
+        denom <= 0.0, torch.full_like(denom, _SIGMA3),
+        torch.clamp(-0.5 * (gs / denom), min=_SIGMA1),
+    )
+    alpha_snorm = alpha_c * snorm
+    return torch.where(
+        actred < _ETA0 * prered,
+        torch.minimum(torch.maximum(alpha_snorm, _SIGMA1 * snorm), _SIGMA2 * delta),
+        torch.where(
+            actred < _ETA1 * prered,
+            torch.maximum(_SIGMA1 * delta, torch.minimum(alpha_snorm, _SIGMA2 * delta)),
+            torch.where(
+                actred < _ETA2 * prered,
+                torch.maximum(_SIGMA1 * delta, torch.minimum(alpha_snorm, _SIGMA3 * delta)),
+                torch.maximum(delta, torch.minimum(alpha_snorm, _SIGMA3 * delta)),
+            ),
+        ),
+    )
+
+
+def _step_reason(code, accept, failures, max_failures: int):
+    """TRON's own rules over ``check_convergence``'s code: function-value
+    convergence counts only on accepted steps (a rejected step has
+    |dv| = 0 by construction), and ``max_failures`` rejected steps in a
+    row stop the solve as not improving. Elementwise."""
+    not_converged = torch.full_like(code, int(ConvergenceReason.NOT_CONVERGED))
+    code = torch.where(
+        (~accept) & (code == ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+        not_converged, code,
+    )
+    return torch.where(
+        (failures >= max_failures) & (code == ConvergenceReason.NOT_CONVERGED),
+        torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
+        code,
+    )
+
+
 def _truncated_cg(
     hvp: Callable[[torch.Tensor], torch.Tensor],
     grad: torch.Tensor,
@@ -74,16 +129,8 @@ def _truncated_cg(
         outside = (torch.linalg.norm(step_try) > delta) | (php <= 0.0)
         i += 1
         if host_read(outside):
-            # back to the sphere: tau >= 0 with ||step + tau p|| = delta
-            sp = torch.dot(step, p)
-            ss = torch.dot(step, step)
-            pp = torch.dot(p, p)
-            rad = torch.sqrt(torch.clamp(sp * sp + pp * (delta * delta - ss), min=0.0))
-            tau = torch.where(
-                sp >= 0.0,
-                (delta * delta - ss) / torch.clamp(sp + rad, min=1e-30),
-                (rad - sp) / torch.clamp(pp, min=1e-30),
-            )
+            # back to the sphere
+            tau = _to_sphere(torch.dot(step, p), torch.dot(step, step), torch.dot(p, p), delta)
             step = step + tau * p
             r = r - tau * hp
             done = True
@@ -162,29 +209,10 @@ def minimize_tron(
             c_try = None
         actred = value - v_try
 
-        # radius update (``TRON.scala:136-224``, LIBLINEAR's alpha logic)
-        denom = v_try - value - gs
-        sigma3 = torch.full_like(denom, _SIGMA3)
-        alpha_c = torch.where(
-            denom <= 0.0, sigma3, torch.clamp(-0.5 * (gs / denom), min=_SIGMA1)
-        )
         # the first iteration tightens the radius to the actual step length
         if it == 0:
             delta = torch.minimum(delta, snorm)
-        alpha_snorm = alpha_c * snorm
-        delta = torch.where(
-            actred < _ETA0 * prered,
-            torch.minimum(torch.maximum(alpha_snorm, _SIGMA1 * snorm), _SIGMA2 * delta),
-            torch.where(
-                actred < _ETA1 * prered,
-                torch.maximum(_SIGMA1 * delta, torch.minimum(alpha_snorm, _SIGMA2 * delta)),
-                torch.where(
-                    actred < _ETA2 * prered,
-                    torch.maximum(_SIGMA1 * delta, torch.minimum(alpha_snorm, _SIGMA3 * delta)),
-                    torch.maximum(delta, torch.minimum(alpha_snorm, _SIGMA3 * delta)),
-                ),
-            ),
-        )
+        delta = _new_radius(delta, snorm, gs, value, v_try, actred, prered)
 
         accept = actred > _ETA0 * prered
         w_new = torch.where(accept, w_try, w)
@@ -196,22 +224,10 @@ def minimize_tron(
 
         it += 1
         gnorm = torch.linalg.norm(g_new)
-        code = check_convergence(
-            value, v_new, gnorm, value_initial, grad_norm_initial, it,
-            config.max_iters, config.tolerance,
-        )
-        # function-value convergence counts only on accepted steps: a
-        # rejected step has |dv| = 0 by construction
-        not_converged = torch.full_like(code, int(ConvergenceReason.NOT_CONVERGED))
-        code = torch.where(
-            (~accept) & (code == ConvergenceReason.FUNCTION_VALUES_CONVERGED),
-            not_converged, code,
-        )
-        code = torch.where(
-            (failures >= config.tron_max_failures)
-            & (code == ConvergenceReason.NOT_CONVERGED),
-            torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
-            code,
+        code = _step_reason(
+            check_convergence(value, v_new, gnorm, value_initial, grad_norm_initial, it,
+                              config.max_iters, config.tolerance),
+            accept, failures, config.tron_max_failures,
         )
         record(values, it, v_new)
         record(grad_norms, it, gnorm)

@@ -937,3 +937,119 @@ def test_game_driver_does_not_fall_back_to_the_cpu(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         run_scoring({**params, "output_dir": str(tmp_path / "card")})
     assert not os.path.exists(tmp_path / "card" / "scores")
+
+
+# -- GAME training -----------------------------------------------------------
+
+from photon_ml_tpu_torch.cli.game_train import run_game_training  # noqa: E402
+from photon_ml_tpu_torch.game.coordinates import (  # noqa: E402
+    CoordinateConfig,
+    _make_batched_solve,
+)
+from photon_ml_tpu_torch.game.data import RandomEffectDesign  # noqa: E402
+from photon_ml_tpu_torch.models.training import OptimizerType  # noqa: E402
+
+
+@pytest.mark.parametrize("optimizer", ["TRON", "LBFGS"])
+def test_batched_solve_on_the_card_matches_the_cpu(cuda, optimizer):
+    """Per entity the same reason and iterations as on the CPU, and w
+    within 1e-10 (plain tensor products: no kernel of the port) — except
+    where the card's other summation order flips a stopping test at its
+    threshold (chip_smoke.py phase 5c on an H100: 20 of 24,546 entity updates): at
+    most 1% of the lanes, and those within 1e-6 of the table's scale."""
+    rng = np.random.default_rng(31)
+    e, r, d = 512, 24, 14
+    counts = rng.integers(1, r + 1, e)
+    mask = (np.arange(r)[None, :] < counts[:, None]).astype(float)
+    x = rng.normal(size=(e, r, d)) * mask[:, :, None]
+    y = (rng.uniform(size=(e, r)) < 0.4).astype(float) * mask
+    parts = [x, y, rng.uniform(0.5, 2.0, (e, r)) * mask, mask]
+    off = rng.normal(size=(e, r)) * 0.3 * mask
+    lam = rng.choice([0.1, 1.0, 10.0], e).astype(np.float32)
+    cfg = CoordinateConfig(shard="u", random_effect="uid",
+                           optimizer=OptimizerType[optimizer], max_iters=20, tolerance=1e-8)
+    solve = _make_batched_solve(cfg)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+        design = RandomEffectDesign(*(t(a) for a in parts),
+                                    torch.zeros((e, r), dtype=torch.int32, device=dev))
+        out[dev.type] = solve(t(np.zeros((e, d))), t(lam), design, t(off))
+    got, ref = out["cuda"], out["cpu"]
+    same = (got.reason.cpu() == ref.reason) & (got.iterations.cpu() == ref.iterations)
+    assert int((~same).sum()) <= e // 100
+    dw = (got.w.cpu() - ref.w).abs()
+    assert float(dw[same].max()) <= 1e-10
+    assert float(dw.max()) <= 1e-6 * max(1.0, float(ref.w.abs().max()))
+
+
+def _game_training_files(root, n=3000, n_users=60):
+    """Avro inputs for GAME training: a wide global shard (ELL on the
+    card) and a per-user shard, with a held-out set."""
+    rng = np.random.default_rng(37)
+    gvocab = FeatureVocabulary([feature_key("g", str(j)) for j in range(500)],
+                               add_intercept=True)
+    uvocab = FeatureVocabulary([feature_key("u", str(j)) for j in range(4)], add_intercept=True)
+    gvocab.save(os.path.join(root, "g.txt"))
+    uvocab.save(os.path.join(root, "u.txt"))
+    w_g = rng.normal(size=500) * 0.5
+    w_u = rng.normal(size=(n_users, 4))
+    paths = []
+    for name, count in (("train", n), ("heldout", n // 3)):
+        recs = []
+        for i in range(count):
+            cols = rng.choice(500, 8, replace=False)
+            xg = rng.normal(size=8)
+            xu = rng.normal(size=4)
+            user = int((rng.zipf(1.3) - 1) % n_users)
+            margin = xg @ w_g[cols] + xu @ w_u[user]
+            recs.append({
+                "uid": f"{name}{i}", "label": float(rng.uniform() < 1 / (1 + np.exp(-margin))),
+                "features": [{"name": "g", "term": str(c), "value": float(v)}
+                             for c, v in zip(cols, xg)]
+                + [{"name": "u", "term": str(j), "value": float(xu[j])} for j in range(4)],
+                "metadataMap": {"userId": f"user{user}"}, "weight": None,
+                "offset": float(rng.normal() * 0.1)})
+        paths.append(os.path.join(root, f"{name}.avro"))
+        write_avro_file(paths[-1], TRAINING_EXAMPLE_SCHEMA, recs)
+    coord = {"optimizer": "TRON", "max_iters": 50}
+    return {
+        "train_input": [paths[0]], "validate_input": [paths[1]], "num_iterations": 2,
+        "updating_sequence": ["global", "per-user"],
+        "feature_shards": {"gshard": os.path.join(root, "g.txt"),
+                           "ushard": os.path.join(root, "u.txt")},
+        "coordinates": {
+            "global": {"shard": "gshard", "reg_weights": [1.0], "tolerance": 1e-15, **coord},
+            "per-user": {"shard": "ushard", "random_effect": "userId",
+                         "reg_weights": [5.0, 0.5], "tolerance": 1e-8, "num_buckets": 2,
+                         **coord},
+        },
+        "sparse_shards": ["gshard"], "model_output_mode": "BEST",
+    }
+
+
+def test_game_training_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The driver on the card: the fused passes and ell_matvec launched as
+    often as the trainer counts, the card's run held to the CPU's with
+    chip_smoke.py phase 5c's gates (the fixed effect at 1e-15: the card's
+    atomics split its TRON from the CPU's in the last bits)."""
+    params = _game_training_files(str(tmp_path))
+    dispatch.reset_launch_counts()
+    run = run_game_training({**params, "output_dir": str(tmp_path / "card")})
+    launches = dispatch.launch_counts()
+    history = [h for s in run.sweep for h in s["history"]]
+    fixed = [h for h in history if h.coordinate == "global"]
+    want = {"fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
+            "fused_hvp": sum(h.cg_iterations for h in fixed),
+            "ell_matvec": len(run.sweep) + len(fixed) + len(history)}
+    assert launches == {k: want.get(k, 0) for k in launches}
+    cpu = run_game_training({**params, "output_dir": str(tmp_path / "cpu")}, device="cpu")
+    cpu_history = [h for s in cpu.sweep for h in s["history"]]
+    assert run.best_index == cpu.best_index and len(history) == len(cpu_history)
+    for a, b in zip(history, cpu_history):
+        assert abs(a.objective - b.objective) <= 1e-7 * abs(b.objective)
+        assert abs(a.validation_metric - b.validation_metric) <= 1e-6
+    for g, c in zip(run.sweep, cpu.sweep):
+        for name, p in c["model"].params.items():
+            scale = max(1.0, float(p.abs().max()))
+            assert float((g["model"].params[name].cpu() - p).abs().max()) <= 1e-6 * scale

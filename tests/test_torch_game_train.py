@@ -1,0 +1,246 @@
+"""The port's GAME training driver against the JAX package's, on the CPU,
+in float64, on small Avro inputs made from a numpy seed: a global fixed
+effect (dense or padded-ELL) and a per-user random effect, two grid combos
+and validation after every update. Both drivers pick the same combo; the
+history, metrics and coefficients agree; each package's saved model loads
+in the other and scores the same. Then every setting the port does not run
+yet raises, naming its ROADMAP item."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.cli.game_train import run_game_training as jax_run_game_training
+from photon_ml_tpu.game.scoring import score_game_data as jax_score_game_data
+from photon_ml_tpu.io.avro import write_avro_file
+from photon_ml_tpu.io.ingest import IngestSource as JaxIngestSource
+from photon_ml_tpu.io.models import load_game_model as jax_load_game_model
+from photon_ml_tpu.io.schemas import TRAINING_EXAMPLE_SCHEMA
+from photon_ml_tpu.io.vocab import FeatureVocabulary, feature_key
+from photon_ml_tpu_torch.cli import game_train as tgame
+from photon_ml_tpu_torch.cli.config import (
+    UNPORTED_COORDINATE_FIELDS,
+    UNPORTED_GAME_FIELDS,
+    GameDriverParams,
+    load_params,
+)
+from photon_ml_tpu_torch.game.scoring import score_game_data
+from photon_ml_tpu_torch.io.ingest import IngestSource
+from photon_ml_tpu_torch.io.models import load_game_model
+
+N_USERS, D_G, D_U = 9, 4, 2
+
+
+def _records(rng, n, truth):
+    """Global features g*, user features u*, userId in the metadata (every
+    11th row without one); weights and offsets on some rows."""
+    w_g, w_u = truth
+    recs = []
+    for i in range(n):
+        u = int(rng.integers(0, N_USERS))
+        xg = rng.normal(size=D_G)
+        xu = rng.normal(size=D_U)
+        margin = xg @ w_g + xu @ w_u[u]
+        recs.append({
+            "uid": f"row{i}",
+            "label": float(rng.uniform() < 1 / (1 + np.exp(-margin))),
+            "features": ([{"name": f"g{j}", "term": "", "value": float(xg[j])}
+                          for j in range(D_G)]
+                         + [{"name": f"u{j}", "term": "", "value": float(xu[j])}
+                            for j in range(D_U)]),
+            "metadataMap": None if i % 11 == 4 else {"userId": f"user{u}"},
+            "weight": float(rng.uniform(0.5, 2.0)) if i % 4 == 1 else None,
+            "offset": float(rng.normal(0, 0.2)) if i % 3 else None,
+        })
+    return recs
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    rng = np.random.default_rng(20261017)
+    tmp = tmp_path_factory.mktemp("torch_game_train")
+    truth = (rng.normal(size=D_G), rng.normal(size=(N_USERS, D_U)) * 1.5)
+    train = str(tmp / "train.avro")
+    validate = str(tmp / "validate.avro")
+    write_avro_file(train, TRAINING_EXAMPLE_SCHEMA, _records(rng, 260, truth))
+    write_avro_file(validate, TRAINING_EXAMPLE_SCHEMA, _records(rng, 120, truth))
+    shards = {}
+    for shard, keys in (("gshard", [f"g{j}" for j in range(D_G)]),
+                        ("ushard", [f"u{j}" for j in range(D_U)])):
+        shards[shard] = str(tmp / f"{shard}.txt")
+        FeatureVocabulary([feature_key(k, "") for k in keys], add_intercept=True).save(
+            shards[shard])
+    return {"train": train, "validate": validate, "shards": shards, "tmp": tmp}
+
+
+def _params(inputs, out, sparse_shards=(), **extra):
+    coord = {"optimizer": "TRON", "max_iters": 30, "tolerance": 1e-6}
+    return {
+        "train_input": [inputs["train"]],
+        "validate_input": [inputs["validate"]],
+        "output_dir": str(inputs["tmp"] / out),
+        "task": "LOGISTIC_REGRESSION",
+        "num_iterations": 3,
+        "updating_sequence": ["global", "per-user"],
+        "feature_shards": inputs["shards"],
+        "coordinates": {
+            "global": {"shard": "gshard", "reg_weights": [0.5], **coord},
+            "per-user": {"shard": "ushard", "random_effect": "userId",
+                         "reg_weights": [3.0, 0.1], "num_buckets": 2, **coord},
+        },
+        "sparse_shards": list(sparse_shards),
+        "model_output_mode": "ALL",
+        **extra,
+    }
+
+
+def _score_with(score_fn, source_cls, load_fn, model_dir, inputs, sparse_shards):
+    """Score the validation records with one package's loader and scorer."""
+    vocabs = {s: FeatureVocabulary.load(p) for s, p in inputs["shards"].items()}
+    shards = {"global": "gshard", "per-user": "ushard"}
+    params, _, res, evocabs = load_fn(model_dir, {n: vocabs[s] for n, s in shards.items()})
+    data, _, _, _ = source_cls([inputs["validate"]]).game_data(
+        vocabs, ["userId"], entity_vocabs={"userId": evocabs["per-user"]},
+        sparse_shards=set(sparse_shards),
+    )
+    return np.asarray(score_fn(params, shards, res, data))
+
+
+@pytest.mark.parametrize("sparse_shards", [(), ("gshard",)], ids=["dense", "ell-global"])
+def test_game_training_matches_jax(inputs, sparse_shards):
+    ref = jax_run_game_training(
+        _params(inputs, f"jax-{len(sparse_shards)}", sparse_shards, quality_fingerprint=False))
+    got = tgame.run_game_training(
+        _params(inputs, f"torch-{len(sparse_shards)}", sparse_shards), device="cpu")
+
+    assert got.best_index == ref.best_index
+    assert [s["combo"] for s in got.sweep] == [s["combo"] for s in ref.sweep]
+    for g, r in zip(got.sweep, ref.sweep):
+        np.testing.assert_allclose(g["validation_metric"], r["validation_metric"],
+                                   rtol=0, atol=1e-10)
+        assert [(h.iteration, h.coordinate) for h in g["history"]] == [
+            (h.iteration, h.coordinate) for h in r["history"]]
+        for hg, hr in zip(g["history"], r["history"]):
+            np.testing.assert_allclose(hg.objective, hr.objective, rtol=1e-10)
+            np.testing.assert_allclose(hg.validation_metric, hr.validation_metric,
+                                       rtol=0, atol=1e-10)
+            assert hg.convergence_histogram == hr.convergence_histogram
+            assert hg.solver_iterations == hr.solver_iterations
+        for name, p in r["model"].params.items():
+            np.testing.assert_allclose(g["model"].params[name].numpy(), np.asarray(p),
+                                       rtol=0, atol=1e-8, err_msg=name)
+    assert got.entity_vocabs == ref.entity_vocabs
+
+    # the saved models: the same files, and each loads in the other
+    # package and scores the same
+    for g_dir, r_dir in zip(got.output_dirs, ref.output_dirs):
+        with open(os.path.join(g_dir, "model-spec.json")) as f:
+            g_spec = json.load(f)
+        with open(os.path.join(r_dir, "model-spec.json")) as f:
+            r_spec = json.load(f)
+        assert g_spec.pop("combo") == r_spec.pop("combo")
+        np.testing.assert_allclose(g_spec.pop("validation_metric"),
+                                   r_spec.pop("validation_metric"), rtol=0, atol=1e-10)
+        assert g_spec == r_spec
+        by_jax = _score_with(jax_score_game_data, JaxIngestSource, jax_load_game_model,
+                             g_dir, inputs, sparse_shards)
+        by_torch = _score_with(
+            lambda *a: score_game_data(*a, device="cpu"), IngestSource, load_game_model,
+            r_dir, inputs, sparse_shards)
+        np.testing.assert_allclose(by_jax, by_torch, rtol=1e-10, atol=1e-10)
+    for shard in inputs["shards"]:
+        assert os.path.exists(os.path.join(got.params.output_dir,
+                                           f"feature-index-{shard}.txt"))
+    assert os.path.exists(os.path.join(got.params.output_dir, "model-manifest.json"))
+
+
+def test_warm_start_and_collapse_match_jax(inputs):
+    """A warm start from the JAX run's model and the collapsed BEST output,
+    with the validation metric only at the end of each combo."""
+    base = jax_run_game_training(_params(inputs, "jax-base", quality_fingerprint=False,
+                                         model_output_mode="BEST"))
+    extra = {"initial_model_dir": base.output_dirs[0], "model_output_mode": "BEST",
+             "collapse_output": True, "validate_per_coordinate": False,
+             "num_iterations": 1}
+    ref = jax_run_game_training(_params(inputs, "jax-warm", quality_fingerprint=False,
+                                        **extra))
+    got = tgame.run_game_training(_params(inputs, "torch-warm", **extra), device="cpu")
+    assert got.best_index == ref.best_index
+    for g, r in zip(got.sweep, ref.sweep):
+        np.testing.assert_allclose(g["validation_metric"], r["validation_metric"],
+                                   rtol=0, atol=1e-10)
+        assert all(h.validation_metric is None for h in g["history"])
+        for name, p in r["model"].params.items():
+            np.testing.assert_allclose(g["model"].params[name].numpy(), np.asarray(p),
+                                       rtol=0, atol=1e-8)
+    collapsed = sorted(os.listdir(os.path.join(got.output_dirs[0], "fixed-effect"))
+                       + os.listdir(os.path.join(got.output_dirs[0], "random-effect")))
+    assert collapsed == ["fixed-effect-gshard", "userId-ushard"]
+
+
+def test_cli_main_on_cpu(inputs):
+    cfg = str(inputs["tmp"] / "cli.json")
+    with open(cfg, "w") as f:
+        json.dump(_params(inputs, "cli", num_iterations=1), f)
+    tgame.main(["--config", cfg, "--device", "cpu"])
+    assert os.path.exists(os.path.join(str(inputs["tmp"] / "cli"), "all", "1",
+                                       "model-spec.json"))
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(inputs):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgame.run_game_training(_params(inputs, "nocard"))
+    # build_coordinates resolves its device before it reads anything
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgame.build_coordinates(None, None, None, {}, {})
+
+
+# a value that turns each unported setting on
+_ON = {"checkpoint_every": 1, "resume": True, "streamed_ingest": True,
+       "quality_fingerprint": True, "trace_dir": "trace", "metrics_every": 5.0,
+       "profile_dir": "profile", "flight_dir": "flight", "convergence_report": True,
+       "entity_shards": 2, "heartbeat_s": 1.0, "collective_timeout_s": 30.0,
+       "sharded_ckpt": True, "collective_mode": "fused",
+       "projector": "RANDOM=2", "latent_dim": 2, "hot_columns": 3}
+_UNPORTED_CASES = (
+    [(name, {name: _ON[name]}, item) for name, (_, item) in UNPORTED_GAME_FIELDS.items()]
+    + [(f"coordinate.{name}", {"coordinate": {name: _ON[name]}}, item)
+       for name, (_, item) in UNPORTED_COORDINATE_FIELDS.items()]
+    + [("sparse random effect", {"sparse_shards": ["ushard"], "coordinate": {
+        "projector": "INDEX_MAP"}}, "GAME training"),
+       ("no feature file", {"feature_shards": {}}, "Ingest hooks"),
+       ("passes with a tolerance", {"passes_per_dispatch": 2,
+                                    "convergence_tolerance": 1e-6}, "GAME training")]
+)
+
+
+@pytest.mark.parametrize("name,change,item", _UNPORTED_CASES,
+                         ids=[c[0] for c in _UNPORTED_CASES])
+def test_unported_setting_raises(inputs, name, change, item):
+    params = _params(inputs, "unported")
+    change = dict(change)
+    coord = change.pop("coordinate", None)
+    if name == "resume":
+        change["checkpoint_every"] = 1
+    if coord is not None:
+        target = "per-user" if name in ("sparse random effect", "coordinate.projector",
+                                        "coordinate.latent_dim") else "global"
+        if name == "coordinate.hot_columns":
+            params["sparse_shards"] = ["gshard"]
+        params["coordinates"][target].update(coord)
+    params.update(change)
+    with pytest.raises(NotImplementedError, match=f"'{item}'"):
+        load_params(params, GameDriverParams).validate()
+
+
+def test_settings_that_stay_off_validate(inputs):
+    """IDENTITY projectors, one entity shard and several passes per
+    dispatch without a tolerance run (the same math)."""
+    params = _params(inputs, "on", entity_shards=1, passes_per_dispatch=3)
+    params["coordinates"]["per-user"]["projector"] = "IDENTITY"
+    load_params(params, GameDriverParams).validate()

@@ -52,7 +52,9 @@ def test_scan_covers_the_port():
                 ("models", "training.py"), ("core", "normalization.py"),
                 ("kernels", "lab.py"), ("benchmarks", "sparse_kernel_lab.py"),
                 ("game", "data.py"), ("game", "factored.py"), ("game", "scoring.py"),
-                ("serving", "engine.py")):
+                ("serving", "engine.py"), ("game", "coordinates.py"),
+                ("game", "descent.py"), ("solvers", "batched.py"),
+                ("cli", "game_train.py"), ("resilience", "shutdown.py")):
         assert os.path.join("photon_ml_tpu_torch", *rel) in files
 
 
