@@ -71,8 +71,9 @@ whenever any phase fails. Phases, in order:
    iterations at most), ``per-user``, a random effect on the 13 integer
    fields plus the intercept (dense, d = 14: TRON, lambda in {10, 1},
    tolerance 1e-8, 20 iterations, 2 size buckets) — 3 passes per combo,
-   float64, validation after every update, BEST output, on 2^16 training
-   and 2^14 held-out records drawn as phase 6's with a userId drawn
+   float64, validation after every update, BEST output, on 2^15 training
+   and 2^13 held-out records (cut from 2^16 and 2^14 so that phase 5d fits
+   the run's time) drawn as phase 6's with a userId drawn
    Zipf(1.1) over 4,096 users and labels from a seeded global model plus
    per-user models; counters set to 0 just before and read just after,
    held to the trainer's own counts (``fused_vgc`` to the fixed effect's
@@ -89,6 +90,30 @@ whenever any phase fails. Phases, in order:
    1e-6, the count of entity updates whose iterations differ printed;
    ``fused_vgc`` and ``fused_hvp`` held to their plain versions on the
    last fixed-effect update's batch and offsets;
+5d. GAME train, projected and factored: the same driver on phase 5c's
+   records at 2^16 + 2^14 with a 20,000-column sparse per-user shard
+   (phase 5b's layout) and an adId drawn uniformly over 1,024 ads, 2
+   passes per combo, validation after every update, ``checkpoint_every``
+   1 — ``global`` at phase 5c's check settings but lambda 10;
+   ``per-user-wide``, the userId effect on the sparse shard through
+   ``INDEX_MAP`` (``examples/run_wide_game.sh``'s settings: ``min_support`` 1, TRON,
+   lambda 1, 30 iterations, 1e-8); ``per-ad``, the adId effect on the 13
+   integer fields plus the intercept through ``RANDOM=8`` (NEWTON, lambda
+   in {10, 1}); ``per-user-latent``, a factored userId effect on the same
+   shard (latent 8, OWL-QN for gamma at lambda 100 and for B at lambda
+   300, tolerance 1e-15, 1,000 iterations at most) —
+   counters set to 0 just before and read just after, held to the
+   trainer's counts; a run preempted by SIGTERM after its first pass
+   (``preempted.json``, no model) and resumed, held to the first run with
+   the card-against-CPU gates; the descent alone under ``torch.profiler``;
+   the driver on the CPU: the same best combo, per-update objectives
+   within 1e-7 relative, the fixed effect, each random-effect table in the
+   original space and gamma and B apart within 1e-6 of their scales, the
+   INDEX_MAP table's nonzero pattern equal, validation AUC within 1e-6;
+   the saved model scored by the GAME scoring driver within 1e-10
+   max(1, |s|) of the training's own model, and its tables and the
+   factored effect through ``save_mf_model`` / ``load_mf_model`` read
+   back bit for bit;
 6. train: the port's GLM training driver (``run_glm_training``, sparse
    TRON, L2 logistic, lambda in {10, 1}, float64, with validation) on 2^16
    Criteo-layout records and 2^14 held-out ones, counters set to 0 just
@@ -129,6 +154,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -136,6 +162,7 @@ import time
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.cli import game_train as game_train_mod
 from photon_ml_tpu_torch.cli.game_train import build_coordinates, run_game_training
 from photon_ml_tpu_torch.cli.score import run_scoring
 from photon_ml_tpu_torch.cli.train import run_glm_training
@@ -144,9 +171,17 @@ from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
 from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.descent import CoordinateDescent
-from photon_ml_tpu_torch.game.factored import FactoredParams
+from photon_ml_tpu_torch.game.factored import FactoredParams, MatrixFactorizationModel
+from photon_ml_tpu_torch.game.scoring import score_game_data
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
-from photon_ml_tpu_torch.io.models import save_game_model, save_glm_model
+from photon_ml_tpu_torch.io.ingest import IngestSource
+from photon_ml_tpu_torch.io.models import (
+    load_game_model,
+    load_mf_model,
+    save_game_model,
+    save_glm_model,
+    save_mf_model,
+)
 from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary, feature_key
 from photon_ml_tpu_torch.benchmarks import sparse_kernel_lab
@@ -181,6 +216,7 @@ from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
 from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
 from photon_ml_tpu_torch.ops.sparse import from_coo
+from photon_ml_tpu_torch.resilience import GracefulShutdown, read_preempted_marker
 from photon_ml_tpu_torch.serving.engine import bucket_size
 from photon_ml_tpu_torch.solvers import host_reads, reset_host_reads
 from photon_ml_tpu_torch.utils.device import synchronize
@@ -1040,10 +1076,13 @@ def device_busy(prof) -> dict:
     """Device time of a profiled window: the union of every CUDA activity
     (kernels, copies, sets) on the card, and each port kernel's own time,
     in seconds. None where the profiler saw no device activity (a machine
-    whose CUPTI tracing is off): not measured."""
+    whose CUPTI tracing is off): not measured. Read from the raw trace's
+    events: ``prof.events()`` builds a Python object per launch, too slow
+    for the launches of a GAME descent."""
     spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        (e.start_ns() * 1e-3, e.end_ns() * 1e-3, e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
     )
     if not spans:
         return {"device_busy_s": None,
@@ -1379,6 +1418,9 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
 # the batched per-entity TRON), users drawn Zipf(1.1)
 GAME_TRAIN_USERS = 4096
 GAME_TRAIN_ITERATIONS = 3
+# depth cut from 2^16 + 2^14 so that phase 5d fits the run's time
+GAME_TRAIN_RECORDS = 1 << 15
+GAME_TRAIN_HELDOUT = 1 << 13
 # the card's fused passes split from the CPU's in the last bits (atomics),
 # TRON's trajectory amplifies the split (its iterations differ from the
 # first solve on), and coordinate descent feeds it into the next
@@ -1410,14 +1452,25 @@ EXAMPLE_SOLVER_FIELDS = ("optimizer", "reg_weights", "max_iters", "tolerance")
 
 
 def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
-                               n_users: int, seed: int = SEED + 30):
+                               n_users: int, seed: int = SEED + 30, user_cols: int = 0,
+                               n_ads: int = 0):
     """Both shards' feature-index files and two Avro inputs, training and
     held-out, drawn as phase 6's from one seeded global logistic model plus
     a seeded model per user: the Criteo fields, a userId drawn Zipf(1.1)
     over ``n_users`` users, offsets. Returns (vocabulary paths, the two
     data paths, the training set's design straight from the generator:
-    ELL COO over the global shard, the dense user shard, the user ids)."""
+    ELL COO over the global shard, the dense user shard, the user ids).
+
+    With ``user_cols`` and ``n_ads`` (phase 5d) each record also carries a
+    wide per-user shard in phase 5b's layout (a private pool of 25 of
+    ``user_cols`` columns per user, 5 a row, feature name ``w``) and an
+    adId drawn uniformly over ``n_ads`` ads, both in the labels' model
+    (per-user coefficients on the pool, a per-ad model on the user
+    shard), drawn from a second generator so that the base records keep
+    their draws; the vocabulary paths then include the wide shard's and
+    the design the wide COO and the ad ids."""
     rng = np.random.default_rng(seed)
+    xrng = np.random.default_rng(seed + 7)
     gpath = os.path.join(work, "feature-index-gshard.txt")
     upath = os.path.join(work, "feature-index-ushard.txt")
     gvocab = hashed_vocabulary(gpath, d_hashed)
@@ -1429,6 +1482,14 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
     slot[int_cols] = np.arange(INT_FIELDS)
     w_g = rng.normal(0.0, 0.25, size=len(gvocab))
     w_u = rng.normal(0.0, 0.3, size=(n_users, len(uvocab)))
+    vocab_paths = [gpath, upath]
+    if user_cols:
+        wpath = os.path.join(work, "feature-index-wshard.txt")
+        FeatureVocabulary([feature_key("w", str(j)) for j in range(user_cols)]).save(wpath)
+        vocab_paths.append(wpath)
+        pools = xrng.integers(0, user_cols, size=(n_users, GAME_USER_POOL))
+        w_pool = xrng.normal(0.0, 0.5, size=pools.shape)
+        w_ad = xrng.normal(0.0, 0.3, size=(n_ads, len(uvocab)))
     paths, train_design = [], None
     for label, count, set_seed in (("train", n, seed + 1), ("heldout", n_heldout, seed + 2)):
         rows, cols, vals = make_criteo_like(count, set_seed)
@@ -1444,6 +1505,17 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
         margins = (np.bincount(rows, vals * w_g[cols], minlength=count)
                    + w_g[gvocab.intercept_index] + np.einsum("nd,nd->n", x_u, w_u[users])
                    + offsets)
+        extra = [[] for _ in range(count)]
+        if user_cols:
+            pick = xrng.integers(0, GAME_USER_POOL, (count, GAME_USER_PER_ROW))
+            wcols = pools[users[:, None], pick]
+            wvals = xrng.normal(size=wcols.shape)
+            ads = xrng.integers(0, n_ads, count)
+            margins += (np.einsum("nj,nj->n", wvals, w_pool[users[:, None], pick])
+                        + np.einsum("nd,nd->n", x_u, w_ad[ads]))
+            extra = [[{"name": "w", "term": str(c), "value": float(v)}
+                      for c, v in zip(wcols[i].tolist(), wvals[i].tolist())]
+                     for i in range(count)]
         labels = (rng.uniform(size=count) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
         per_row = cols.size // count
         c2, v2 = cols.reshape(count, per_row), vals.reshape(count, per_row)
@@ -1452,8 +1524,9 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
                 "uid": f"t{i}",
                 "label": float(labels[i]),
                 "features": [{"name": "h", "term": str(c), "value": float(v)}
-                             for c, v in zip(c2[i].tolist(), v2[i].tolist())],
-                "metadataMap": {"userId": f"user{users[i]}"},
+                             for c, v in zip(c2[i].tolist(), v2[i].tolist())] + extra[i],
+                "metadataMap": {"userId": f"user{users[i]}",
+                                **({"adId": f"ad{ads[i]}"} if user_cols else {})},
                 "weight": None,
                 "offset": float(offsets[i]),
             }
@@ -1468,7 +1541,9 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
                              np.concatenate([cols, icpt]),
                              np.concatenate([vals, np.ones(count)]), len(gvocab)),
                             x_u, users, labels, offsets)
-    return (gpath, upath), paths, train_design
+            if user_cols:
+                train_design += ((wcols, wvals, user_cols), ads)
+    return tuple(vocab_paths), paths, train_design
 
 
 def _fixed_records(history):
@@ -1545,7 +1620,7 @@ def game_train_gate_failures(gaps: dict) -> list:
     return failed
 
 
-def traced_descents(gparams, data: GameData, entity_ids: np.ndarray, columns, device,
+def traced_descents(gparams, data: GameData, entity_counts: dict, columns, device,
                     cache: dict, on_card: bool):
     """Each combo's coordinate descent over ``data`` (ingest excluded)
     under ``torch.profiler``, with the launch counters set to 0 just
@@ -1553,8 +1628,7 @@ def traced_descents(gparams, data: GameData, entity_ids: np.ndarray, columns, de
     time, the wall seconds, the launches)."""
     coords_by_combo = [
         build_coordinates(gparams, data, TaskType.LOGISTIC_REGRESSION, combo,
-                          {"userId": int(entity_ids.max()) + 1}, device=device,
-                          design_cache=cache)
+                          entity_counts, device=device, design_cache=cache)
         for combo in gparams.grid()
     ]
     # the card's activity only: tracing every host op of some 20,000 CG
@@ -1576,8 +1650,8 @@ def traced_descents(gparams, data: GameData, entity_ids: np.ndarray, columns, de
     return histories, device_busy(prof), wall_s, launches
 
 
-def game_train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
-                     n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
+                     n_heldout: int = GAME_TRAIN_HELDOUT, d_hashed: int = D_HASHED,
                      n_users: int = GAME_TRAIN_USERS,
                      fixed_tolerance: float = GAME_TRAIN_FIXED_TOLERANCE, **device_kw):
     """Run the port's GAME training driver on the card (``device_kw``
@@ -1658,7 +1732,8 @@ def game_train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                for c in (data.labels, data.offsets, data.weights)]
     cache = {}
     traced, busy, traced_wall_s, _ = traced_descents(
-        run.params, data, entity_ids, columns, device, cache, on_card)
+        run.params, data, {"userId": int(entity_ids.max()) + 1}, columns, device, cache,
+        on_card)
     # the card against itself: the same descent on the same card, apart
     # from the atomics' last bits (and the entities' order)
     card_spread = max(abs(a.objective - b.objective) / abs(b.objective)
@@ -1669,7 +1744,8 @@ def game_train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         name: dataclasses.replace(spec, **{k: example[name][k] for k in EXAMPLE_SOLVER_FIELDS})
         for name, spec in run.params.coordinates.items()})
     ex_traced, ex_busy, ex_wall_s, ex_launches = traced_descents(
-        example_params, data, entity_ids, columns, device, cache, on_card)
+        example_params, data, {"userId": int(entity_ids.max()) + 1}, columns, device,
+        cache, on_card)
     ex_history = [h for t in ex_traced for h in t]
     ex_fixed = _fixed_records(ex_history)
     ex_expected = {
@@ -1788,6 +1864,335 @@ def game_train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         "setup_s": setup_s,
     }
     log(f"[game-train] {json.dumps(summary)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary
+
+
+# -- phase 5d: GAME training with projected and factored effects -------------
+
+# phase 5c's records plus a wide per-user shard (phase 5b's layout) and an
+# adId over 1,024 ads; the coordinates of examples/run_wide_game.sh's
+# wide effect (INDEX_MAP), a RANDOM=8 per-ad effect (NEWTON) and a factored
+# per-user effect (latent 8, OWL-QN for gamma and for B). The settings
+# under which the card first meets the gates against itself, on an H100:
+# the fixed effect at phase 5c's check settings but lambda 10 (at lambda
+# 1 its first solve on these records split 1.6e-6 and 1.2e-6 from the
+# CPU's, at 10 1.2e-7); the factored effect converged (tolerance 1e-15,
+# at most 1,000 iterations; at 30 or 100 every heavy user stopped at the
+# cap and the split grew to 1e-3), gamma at lambda 100 and B at 300: B's
+# objective sums every row, so a function-value stopping rule leaves it
+# sqrt(tolerance x objective / weight) loose, 7.2e-6 at 30 and 4.3e-9 at
+# 300 from the CPU's; gamma at 30 ended 7.4e-7 from the CPU's, at 100
+# 3.5e-9
+GAME_PROJ_ITERATIONS = 2
+GAME_PROJ_ADS = 1024
+GAME_PROJ_COORDINATES = {
+    "global": {"shard": "gshard", "optimizer": "TRON", "reg_weights": [10.0],
+               "max_iters": 100, "tolerance": GAME_TRAIN_FIXED_TOLERANCE},
+    "per-user-wide": {"shard": "wshard", "random_effect": "userId", "projector": "INDEX_MAP",
+                      "min_support": 1, "optimizer": "TRON", "reg_weights": [1.0],
+                      "max_iters": 30, "tolerance": 1e-8},
+    "per-ad": {"shard": "ushard", "random_effect": "adId", "projector": "RANDOM=8",
+               "optimizer": "NEWTON", "reg_weights": [10.0, 1.0], "max_iters": 20,
+               "tolerance": 1e-8},
+    "per-user-latent": {"shard": "ushard", "random_effect": "userId", "latent_dim": 8,
+                        "optimizer": "LBFGS", "l1_ratio": 0.5, "reg_weights": [100.0],
+                        "latent_reg_weight": 300.0, "max_iters": 1000,
+                        "tolerance": GAME_TRAIN_FIXED_TOLERANCE},
+}
+GAME_PROJ_SEQUENCE = ["global", "per-user-wide", "per-ad", "per-user-latent"]
+
+
+def game_projected_params(work: str, train: str, heldout: str, vocab_paths, out: str) -> dict:
+    gpath, upath, wpath = vocab_paths
+    return {
+        "train_input": [train],
+        "validate_input": [heldout],
+        "output_dir": os.path.join(work, out),
+        "task": "LOGISTIC_REGRESSION",
+        "num_iterations": GAME_PROJ_ITERATIONS,
+        "updating_sequence": GAME_PROJ_SEQUENCE,
+        "feature_shards": {"gshard": gpath, "ushard": upath, "wshard": wpath},
+        "coordinates": GAME_PROJ_COORDINATES,
+        "sparse_shards": ["gshard", "wshard"],
+        "model_output_mode": "BEST",
+        "precision": "float64",
+        "checkpoint_every": 1,
+    }
+
+
+def _leaves(params: dict) -> dict:
+    """A GAME model's tables by name, FactoredParams as two leaves."""
+    out = {}
+    for n, p in params.items():
+        if isinstance(p, FactoredParams):
+            out[f"{n}#gamma"], out[f"{n}#projection"] = p.gamma, p.projection
+        else:
+            out[n] = p
+    return {n: (p if torch.is_tensor(p) else torch.from_numpy(np.asarray(p))).cpu()
+            for n, p in out.items()}
+
+
+def game_projected_gaps(run, other) -> dict:
+    """Phase 5d's readings of a run against another of the same
+    configuration: the best combo, the per-update objectives (relative),
+    the validation AUC, the best model's fixed effect, each random-effect
+    table in the original space (gamma and B apart for the factored one,
+    each with its scale), and whether the INDEX_MAP table's nonzero
+    pattern is the same."""
+    history = [h for s in run.sweep for h in s["history"]]
+    other_history = [h for s in other.sweep for h in s["history"]]
+    a = _leaves(run.sweep[run.best_index]["model"].params)
+    b = _leaves(other.sweep[other.best_index]["model"].params)
+    tables = {n: [float((a[n] - b[n]).abs().max()), max(1.0, float(b[n].abs().max()))]
+              for n in b}
+    return {
+        "best_index": [run.best_index, other.best_index],
+        "updates": [len(history), len(other_history)],
+        "objective": max(abs(x.objective - y.objective) / abs(y.objective)
+                         for x, y in zip(history, other_history)),
+        "auc": max(abs(x.validation_metric - y.validation_metric)
+                   for x, y in zip(history, other_history)),
+        "tables": tables,
+        "index_map_pattern_equal": bool(torch.equal(a["per-user-wide"] != 0,
+                                                    b["per-user-wide"] != 0)),
+    }
+
+
+def game_projected_gate_failures(gaps: dict) -> list:
+    failed = []
+    if gaps["best_index"][0] != gaps["best_index"][1]:
+        failed.append("best combo")
+    if gaps["updates"][0] != gaps["updates"][1]:
+        failed.append("update count")
+    if not gaps["objective"] <= GAME_TRAIN_OBJECTIVE_RTOL:
+        failed.append("objectives")
+    if not gaps["auc"] <= 1e-6:
+        failed.append("AUC")
+    failed += [f"table {n}" for n, (err, scale) in gaps["tables"].items()
+               if not err <= 1e-6 * scale]
+    if not gaps["index_map_pattern_equal"]:
+        failed.append("INDEX_MAP nonzero pattern")
+    return failed
+
+
+class _PreemptAfterFirstPass(GracefulShutdown):
+    """The driver's preemption handler, hit by SIGTERM (through its own
+    signal handler) at the end of the first pass: a deterministic
+    preemption, with no sleep and no race."""
+
+    def __call__(self) -> bool:
+        if not self.requested:
+            self._handle(signal.SIGTERM, None)
+        return self.requested
+
+
+def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
+                         n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+                         n_users: int = GAME_TRAIN_USERS, user_cols: int = GAME_USER_COLS,
+                         n_ads: int = GAME_PROJ_ADS, **device_kw):
+    """Phase 5d: the GAME training driver with an INDEX_MAP wide effect, a
+    RANDOM=8 one and a factored one on the card (``device_kw`` names
+    another device for a rehearsal), counters set to 0 just before and
+    read just after and held to the trainer's counts; a run preempted
+    after its first pass and resumed, held to the first run; the descent
+    alone under ``torch.profiler``; the same driver on the CPU, the card
+    held to it; the saved model scored by the GAME scoring driver and its
+    factored effect through the matrix-factorization files."""
+    phase_t0 = t0 = time.perf_counter()
+    vocab_paths, (train, heldout), design = write_game_training_inputs(
+        work, n, n_heldout, d_hashed, n_users, user_cols=user_cols, n_ads=n_ads)
+    setup_s = time.perf_counter() - t0
+    log(f"[game-proj] wrote {n} training and {n_heldout} held-out records ({d_hashed} hashed "
+        f"columns + intercept, {n_users} users x {user_cols} wide columns, {n_ads} ads) in "
+        f"{setup_s:.1f} s (set-up)")
+    params = game_projected_params(work, train, heldout, vocab_paths, "out")
+    on_card = not device_kw
+    failures = []
+
+    dispatch.reset_launch_counts()
+    reset_host_reads()
+    t0 = time.perf_counter()
+    run = run_game_training(params, **device_kw)
+    wall_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    reads = host_reads()
+    history = [h for s in run.sweep for h in s["history"]]
+    fixed = _fixed_records(history)
+    expected = {
+        "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
+        "fused_hvp": sum(h.cg_iterations for h in fixed),
+        "ell_matvec": len(run.sweep) + len(fixed) + len(history),
+    }
+    want = {k: (expected.get(k, 0) if on_card else 0) for k in launches}
+    if launches != want:
+        failures.append(f"GAME training (projected) launched {launches}, expected {want}")
+    for combo in run.sweep:
+        log(f"[game-proj] combo {json.dumps(combo['combo'])}: "
+            + "; ".join(f"pass {h.iteration} {h.coordinate} objective {h.objective!r} "
+                        f"AUC {h.validation_metric!r} {h.seconds:.4f} s "
+                        f"iterations {h.solver_iterations:.2f}"
+                        for h in combo["history"]))
+    log(f"[game-proj] card run {wall_s:.4f} s, phases {json.dumps(run.timings)}, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}, {reads} host reads")
+    steps = sorted(os.listdir(os.path.join(params["output_dir"], "checkpoints", "combo-0")))
+    if steps != ["step-1", "step-2"]:
+        failures.append(f"checkpoints of combo 0: {steps}")
+
+    # preemption after the first pass, then resume: the card against itself
+    t0 = time.perf_counter()
+    pre_params = game_projected_params(work, train, heldout, vocab_paths, "out-preempt")
+    shutdown_cls = game_train_mod.GracefulShutdown
+    game_train_mod.GracefulShutdown = _PreemptAfterFirstPass
+    try:
+        pre = run_game_training(pre_params, **device_kw)
+    finally:
+        game_train_mod.GracefulShutdown = shutdown_cls
+    ckdir = os.path.join(pre_params["output_dir"], "checkpoints", "combo-0")
+    marker = read_preempted_marker(ckdir)
+    if (marker is None or marker["step"] != 1 or marker["signal"] != int(signal.SIGTERM)
+            or pre.output_dirs or os.path.exists(os.path.join(pre_params["output_dir"], "best"))
+            or len(pre.sweep) != 1):
+        failures.append(f"preempted run: marker {marker}, saved {pre.output_dirs}, "
+                        f"{len(pre.sweep)} combos")
+    resumed = run_game_training({**pre_params, "resume": True}, **device_kw)
+    resume_s = time.perf_counter() - t0
+    resume_gaps = game_projected_gaps(resumed, run)
+    log(f"[game-proj] preempted at step {marker and marker['step']} and resumed in "
+        f"{resume_s:.1f} s: against the uninterrupted run {json.dumps(resume_gaps)}")
+    if read_preempted_marker(ckdir) is not None:
+        failures.append("the resumed run left preempted.json")
+    resume_failures = game_projected_gate_failures(resume_gaps)
+    if resume_failures:
+        failures.append(f"resumed run against the uninterrupted one: {resume_failures}")
+
+    # the descent alone, ingest excluded, under torch.profiler: the design
+    # straight from the generator
+    (rows, cols, vals, d), x_u, users, labels, offsets, (wcols, wvals, wd), ads = design
+    device = torch.device(run.device)
+    users_idx = np.unique(users, return_inverse=True)[1].astype(np.int32)
+    ads_idx = np.unique(ads, return_inverse=True)[1].astype(np.int32)
+    data = GameData.create(
+        features={"gshard": from_coo(rows, cols, vals, n, d, dtype=torch.float64),
+                  "ushard": x_u,
+                  "wshard": from_coo(np.repeat(np.arange(n), wcols.shape[1]), wcols.reshape(-1),
+                                     wvals.reshape(-1), n, wd, dtype=torch.float64)},
+        labels=labels, offsets=offsets, entity_ids={"userId": users_idx, "adId": ads_idx},
+    )
+    columns = [torch.as_tensor(c, dtype=torch.float64, device=device)
+               for c in (data.labels, data.offsets, data.weights)]
+    traced, busy, traced_wall_s, traced_launches = traced_descents(
+        run.params, data, {"userId": int(users_idx.max()) + 1, "adId": int(ads_idx.max()) + 1},
+        columns, device, {}, on_card)
+    log(f"[game-proj] traced descent {traced_wall_s:.1f} s, the phase at "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    traced_history = [h for t in traced for h in t]
+    traced_fixed = _fixed_records(traced_history)
+    traced_expected = {"fused_vgc": sum(int(h.solver_iterations) + 1 for h in traced_fixed),
+                       "fused_hvp": sum(h.cg_iterations for h in traced_fixed),
+                       "ell_matvec": len(traced) + len(traced_fixed)}
+    traced_want = {k: (traced_expected.get(k, 0) if on_card else 0) for k in traced_launches}
+    if traced_launches != traced_want:
+        failures.append(f"the traced descent launched {traced_launches}, expected {traced_want}")
+    del data, columns
+
+    # the same driver on the CPU
+    t0 = time.perf_counter()
+    cpu = run_game_training(game_projected_params(work, train, heldout, vocab_paths, "out-cpu"),
+                            device="cpu")
+    cpu_wall_s = time.perf_counter() - t0
+    gaps = game_projected_gaps(run, cpu)
+    log(f"[game-proj] card vs CPU (CPU run {cpu_wall_s:.1f} s): {json.dumps(gaps)}")
+    gate_failures = game_projected_gate_failures(gaps)
+    if gate_failures:
+        failures.append(f"GAME training (projected) on the card disagrees with the CPU run: "
+                        f"{', '.join(gate_failures)}")
+
+    # save and score: the GAME scoring driver on the saved model against the
+    # training's own final model scoring the held-out records; the factored
+    # effect through the matrix-factorization files and the model directory
+    best = run.sweep[run.best_index]["model"].params
+    shards = {c: GAME_PROJ_COORDINATES[c]["shard"] for c in GAME_PROJ_SEQUENCE}
+    res = {c: GAME_PROJ_COORDINATES[c].get("random_effect") for c in GAME_PROJ_SEQUENCE}
+    t0 = time.perf_counter()
+    scored = run_scoring({"input": [heldout], "model_dir": run.output_dirs[0],
+                          "output_dir": os.path.join(work, "scores"), "model_kind": "game",
+                          "sparse_shards": ["gshard", "wshard"], "evaluate": True},
+                         **device_kw)
+    score_s = time.perf_counter() - t0
+    vdata, _, _, _ = IngestSource([heldout]).game_data(
+        run.shard_vocabs, sorted(run.entity_vocabs), entity_vocabs=run.entity_vocabs,
+        sparse_shards={"gshard", "wshard"})
+    own = (score_game_data(best, shards, res, vdata, device=device).cpu().numpy()
+           + vdata.offsets)
+    score_err = float(np.max(np.abs(scored.scores - own) / np.maximum(1.0, np.abs(own))))
+    auc_err = abs(scored.metrics["AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS"] - run.sweep[run.best_index]["validation_metric"])
+    latent = best["per-user-latent"]
+    mf_dir = os.path.join(work, "mf")
+    save_mf_model(mf_dir, MatrixFactorizationModel(latent.gamma, latent.projection),
+                  "userId", "ushard", row_vocab=run.entity_vocabs["userId"])
+    mf, _, _ = load_mf_model(mf_dir, "userId", "ushard", row_vocab=run.entity_vocabs["userId"])
+    loaded, _, _, _ = load_game_model(
+        run.output_dirs[0], {c: run.shard_vocabs[shards[c]] for c in GAME_PROJ_SEQUENCE},
+        {c: run.entity_vocabs[res[c]] for c in GAME_PROJ_SEQUENCE if res[c]})
+    round_trip = {
+        "mf": bool(torch.equal(mf.row_factors, latent.gamma.cpu())
+                   and torch.equal(mf.col_factors, latent.projection.cpu())),
+        **{c: bool(all(torch.equal(x, y) for x, y in zip(
+            _leaves({c: loaded[c]}).values(), _leaves({c: best[c]}).values())))
+           for c in GAME_PROJ_SEQUENCE},
+    }
+    log(f"[game-proj] saved model scored by the GAME scoring driver in {score_s:.1f} s: "
+        f"{score_err:.3e} of max(1, |s|) (limit 1e-10), AUC {auc_err:.3e} (limit 1e-10); "
+        f"round trips {json.dumps(round_trip)}")
+    if not (score_err <= 1e-10 and auc_err <= 1e-10 and all(round_trip.values())):
+        failures.append(f"save and score: scores {score_err}, AUC {auc_err}, "
+                        f"round trips {round_trip}")
+    auc = run.sweep[run.best_index]["validation_metric"]
+    if not (0.5 < auc <= 1.0 and all(torch.isfinite(t).all() for t in _leaves(best).values())):
+        failures.append(f"GAME training (projected): AUC {auc}, non-finite coefficients")
+
+    summary = {
+        "records": n,
+        "heldout_records": n_heldout,
+        "users": n_users,
+        "wide_columns": user_cols,
+        "ads": n_ads,
+        "entities": {k: len(v) for k, v in run.entity_vocabs.items()},
+        "device": run.device,
+        "wall_s": wall_s,
+        "timings_s": run.timings,
+        "combo_s": [s["seconds"] for s in run.sweep],
+        "update_s": {c: [h.seconds for h in history if h.coordinate == c]
+                     for c in GAME_PROJ_SEQUENCE},
+        "mean_iterations": {c: [h.solver_iterations for h in history if h.coordinate == c]
+                            for c in GAME_PROJ_SEQUENCE},
+        "best_combo": run.sweep[run.best_index]["combo"],
+        "best_auc": auc,
+        "launches": launches,
+        "expected_launches": expected,
+        "host_reads": reads,
+        "fixed_iterations": [int(h.solver_iterations) for h in fixed],
+        "fixed_cg_iterations": [h.cg_iterations for h in fixed],
+        "traced_descent_s": traced_wall_s,
+        **busy,
+        "device_idle_share": (None if busy["device_busy_s"] is None
+                              else 1.0 - busy["device_busy_s"] / traced_wall_s),
+        "traced_launches": traced_launches,
+        "preempt_resume_s": resume_s,
+        "resume_vs_uninterrupted": resume_gaps,
+        "cpu_wall_s": cpu_wall_s,
+        "cpu_timings_s": cpu.timings,
+        "gaps_vs_cpu": gaps,
+        "score_s": score_s,
+        "score_err": score_err,
+        "score_auc_err": auc_err,
+        "round_trips": round_trip,
+        "setup_s": setup_s,
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    log(f"[game-proj] {json.dumps(summary)}")
     if failures:
         raise AssertionError("; ".join(failures))
     return summary
@@ -2246,6 +2651,10 @@ def main() -> int:
         # 5c. GAME training end to end, held to the CPU
         game_train_summary = game_train_phase(os.path.join(work, "game_train"), name)
         shutil.rmtree(os.path.join(work, "game_train"), ignore_errors=True)
+        # 5d. GAME training with projected and factored effects, checkpoints
+        # and a resume, held to the CPU
+        game_proj_summary = game_projected_phase(os.path.join(work, "game_proj"), name)
+        shutil.rmtree(os.path.join(work, "game_proj"), ignore_errors=True)
         # 6. GLM training end to end
         train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
         # 7. the full trainer on the same records
@@ -2285,6 +2694,7 @@ def main() -> int:
             "launches_by_path": {"score": summary["launches"][kernel],
                                  "game_score": game_summary["launches"][kernel],
                                  "game_train": game_train_summary["launches"][kernel],
+                                 "game_train_projected": game_proj_summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel],
                                  "lab": lab_launches[kernel]},
@@ -2311,7 +2721,8 @@ def main() -> int:
             "launches": lab_launches[kernel],
             "launches_by_path": {"lab": lab_launches[kernel],
                                  "game_score": game_summary["launches"][kernel],
-                                 "game_train": game_train_summary["launches"][kernel]},
+                                 "game_train": game_train_summary["launches"][kernel],
+                                 "game_train_projected": game_proj_summary["launches"][kernel]},
             **{k: main_path[k] for k in ("device_ms", "host_ms", "library_device_ms",
                                          "composite", "composite_ms", "composite_device_ms",
                                          "max_err_share")},

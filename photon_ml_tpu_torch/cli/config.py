@@ -176,8 +176,6 @@ class GLMDriverParams:
 # that keeps it off, its item in ROADMAP.md queue A). ``entity_shards`` is
 # off at 0 or 1.
 UNPORTED_GAME_FIELDS = {
-    "checkpoint_every": (0, "I/O runtime"),
-    "resume": (False, "I/O runtime"),
     "streamed_ingest": (False, "I/O runtime"),
     "quality_fingerprint": (False, "Ingest hooks"),
     "trace_dir": (None, _OBS),
@@ -191,11 +189,8 @@ UNPORTED_GAME_FIELDS = {
     "sharded_ckpt": (False, "Parallel"),
     "collective_mode": (None, "Parallel"),
 }
-# the same for each CoordinateSpec; ``projector`` is off at None or
-# "IDENTITY" (a plain random effect)
+# the same for each CoordinateSpec
 UNPORTED_COORDINATE_FIELDS = {
-    "projector": (None, "GAME training"),
-    "latent_dim": (None, "GAME training"),
     "hot_columns": (0, "Hybrid designs"),
 }
 
@@ -209,13 +204,8 @@ def _unported_game_setting(params: "GameDriverParams"):
     for cname, spec in params.coordinates.items():
         for name, (off, item) in UNPORTED_COORDINATE_FIELDS.items():
             value = getattr(spec, name)
-            if name == "projector" and (value or "").strip().upper() == "IDENTITY":
-                continue
             if value != off:
                 return f"coordinate {cname!r}: {name}={value!r}", item
-        if spec.random_effect is not None and spec.shard in set(params.sparse_shards):
-            return (f"coordinate {cname!r}: a random effect on sparse shard "
-                    f"{spec.shard!r} (projected)", "GAME training")
     missing = sorted({spec.shard for spec in params.coordinates.values()}
                      - {s for s, f in params.feature_shards.items() if f})
     if missing:
@@ -303,7 +293,8 @@ class GameDriverParams:
     freeze_coordinates: List[str] = dataclasses.field(default_factory=list)
     # merge coordinates sharing (effect type, shard) at save
     collapse_output: bool = False
-    # padded-ELL shards (fixed effects only)
+    # padded-ELL shards (fixed effects, and random effects with projector
+    # INDEX_MAP)
     sparse_shards: List[str] = dataclasses.field(default_factory=list)
     streamed_ingest: bool = False
     # ingest-pipeline knobs: read only by streamed_ingest

@@ -16,12 +16,18 @@ device unless given another: a fixed effect on a shard in
 (one launch per TRON evaluation / CG step) and rescores through
 ``ell_matvec``, as does each validation.
 
-Single process, fixed effects and plain (identity-projected) random
-effects on dense shards. The grid combos train one after another (the JAX
-package may vmap them, ``descent.run_grid``: the same math); projected and
-factored effects, checkpoints, multi-process and entity-sharded runs and
-the observability envelope raise ``NotImplementedError`` naming their
-ROADMAP item (``cli/config.UNPORTED_GAME_FIELDS``).
+Single process: fixed effects; plain random effects and random effects
+projected by ``RANDOM=k`` or ``INDEX_MAP`` on dense shards; wide random
+effects on a sparse shard through ``INDEX_MAP`` straight from the ELL; and
+factored random effects (``latent_dim``). With ``checkpoint_every`` each
+grid combo checkpoints under ``output_dir/checkpoints/combo-<i>``; a
+SIGTERM finishes the pass, writes a final checkpoint and
+``preempted.json`` and saves no model, and a run with ``resume`` continues
+from the checkpoints. The grid combos train one after another (the JAX
+package may vmap them, ``descent.run_grid``: the same math);
+multi-process and entity-sharded runs and the observability envelope
+raise ``NotImplementedError`` naming their ROADMAP item
+(``cli/config.UNPORTED_GAME_FIELDS``).
 """
 
 from __future__ import annotations
@@ -52,7 +58,19 @@ from photon_ml_tpu_torch.game.coordinates import (
 )
 from photon_ml_tpu_torch.game.data import GameData, build_bucketed_random_effect_design
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, GameModel
-from photon_ml_tpu_torch.game.scoring import score_game_data
+from photon_ml_tpu_torch.game.factored import (
+    FactoredConfig,
+    FactoredRandomEffectCoordinate,
+    is_factored_params,
+)
+from photon_ml_tpu_torch.game.projected import (
+    ProjectedRandomEffectCoordinate,
+    build_index_map_columns,
+    parse_projector_spec,
+    project_design_and_rows,
+)
+from photon_ml_tpu_torch.game.projectors import IndexMapProjection, build_random_projection
+from photon_ml_tpu_torch.game.scoring import CompactReTable, score_game_data
 from photon_ml_tpu_torch.io.ingest import IngestSource
 from photon_ml_tpu_torch.io.models import (
     collapse_game_model,
@@ -63,7 +81,7 @@ from photon_ml_tpu_torch.io.models import (
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
 from photon_ml_tpu_torch.models.training import OptimizerType
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
-from photon_ml_tpu_torch.ops.sparse import cast_values
+from photon_ml_tpu_torch.ops.sparse import cast_values, is_sparse
 from photon_ml_tpu_torch.resilience import GracefulShutdown
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize, to_numpy
@@ -96,52 +114,135 @@ def build_coordinates(
     dtype: torch.dtype = torch.float64,
     device=None,
     design_cache: Dict[str, object] = None,
+    shard_vocabs: Dict[str, FeatureVocabulary] = None,
 ):
     """One training coordinate per updating-sequence entry, its data on
     ``device`` (None: the CUDA device, raising without one): fixed effects
-    on dense or ELL shards, plain random effects on dense shards. ``design_cache`` (name -> placed design and rows)
-    carries the combo-invariant work across a reg-weight grid: designs
-    depend on the data, never on lambda."""
+    on dense or ELL shards; random effects on dense shards, plain,
+    projected (``RANDOM=k``, ``INDEX_MAP``) or factored (``latent_dim``);
+    random effects on an ELL shard through ``INDEX_MAP``.
+    ``design_cache`` carries the combo-invariant work across a reg-weight
+    grid (designs and projections depend on the data, never on lambda)."""
     device = resolve_device(device)
     cache = {} if design_cache is None else design_cache
     coords = {}
     for name in params.updating_sequence:
         spec = params.coordinates[name]
         cfg = _coordinate_config(name, spec, task, reg_combo[name])
-        if name not in cache:
-            if spec.random_effect is None:
+        if spec.random_effect is None:
+            if name not in cache:
                 cache[name] = data.fixed_effect_batch(spec.shard, dtype, device)
+            coords[name] = FixedEffectCoordinate(cache[name], cfg)
+            continue
+        if is_sparse(data.features[spec.shard]):
+            # a wide sparse random effect: INDEX_MAP straight from the ELL
+            # (validate() guarantees the projector)
+            key = f"{name}\x00sparse_projected"
+            if key in cache:
+                coords[name] = cache[key].with_config(cfg)
             else:
-                design = build_bucketed_random_effect_design(
-                    data, spec.random_effect, spec.shard,
-                    entity_counts[spec.random_effect],
-                    num_buckets=spec.num_buckets, active_cap=spec.active_cap,
+                coords[name] = cache[key] = ProjectedRandomEffectCoordinate.from_sparse_shard(
+                    data, spec.random_effect, spec.shard, entity_counts[spec.random_effect],
+                    cfg, num_buckets=spec.num_buckets, active_cap=spec.active_cap,
                     dtype=dtype, feature_ratio=spec.feature_ratio,
                     min_support=spec.min_support, device=device,
                 )
-                cache[name] = (
-                    design,
-                    torch.as_tensor(data.features[spec.shard], dtype=dtype, device=device),
-                    torch.as_tensor(data.entity_ids[spec.random_effect], dtype=torch.int64,
-                                    device=device),
-                    torch.as_tensor(data.offsets, dtype=dtype, device=device),
+            continue
+        if name not in cache:
+            design = build_bucketed_random_effect_design(
+                data, spec.random_effect, spec.shard,
+                entity_counts[spec.random_effect],
+                num_buckets=spec.num_buckets, active_cap=spec.active_cap,
+                dtype=dtype, feature_ratio=spec.feature_ratio,
+                min_support=spec.min_support, device=device,
+            )
+            cache[name] = (
+                design,
+                torch.as_tensor(data.features[spec.shard], dtype=dtype, device=device),
+                torch.as_tensor(data.entity_ids[spec.random_effect], dtype=torch.int64,
+                                device=device),
+                torch.as_tensor(data.offsets, dtype=dtype, device=device),
+            )
+        design, row_features, row_entities, offsets_base = cache[name]
+        if spec.latent_dim is not None:
+            if spec.projector:
+                raise ValueError(
+                    f"coordinate {name!r}: latent_dim (factored) and projector are "
+                    "mutually exclusive"
                 )
-        if spec.random_effect is None:
-            coords[name] = FixedEffectCoordinate(cache[name], cfg)
-        else:
-            design, row_features, row_entities, offsets_base = cache[name]
+            latent_cfg = dataclasses.replace(
+                cfg,
+                reg_weight=(spec.latent_reg_weight if spec.latent_reg_weight is not None
+                            else cfg.reg_weight),
+                max_iters=(spec.latent_max_iters if spec.latent_max_iters is not None
+                           else cfg.max_iters),
+                tolerance=(spec.latent_tolerance if spec.latent_tolerance is not None
+                           else cfg.tolerance),
+            )
+            coords[name] = FactoredRandomEffectCoordinate(
+                design=design, row_features=row_features, row_entities=row_entities,
+                full_offsets_base=offsets_base, re_config=cfg,
+                factored=FactoredConfig(latent_dim=spec.latent_dim,
+                                        num_inner_iterations=spec.num_inner_iterations,
+                                        latent_factor_config=latent_cfg),
+            )
+            continue
+        kind, k = parse_projector_spec(spec.projector) if spec.projector else ("IDENTITY", None)
+        if kind == "IDENTITY":
             coords[name] = RandomEffectCoordinate(
                 design=design, row_features=row_features, row_entities=row_entities,
                 full_offsets_base=offsets_base, config=cfg,
             )
+            continue
+        key = f"{name}\x00projected"
+        if key not in cache:
+            d_orig = row_features.shape[1]
+            if kind == "RANDOM":
+                # the intercept's passthrough column keeps per-entity base
+                # rates exactly representable (``ProjectionMatrix.scala:96-126``)
+                icpt = (shard_vocabs[spec.shard].intercept_index
+                        if shard_vocabs and spec.shard in shard_vocabs else None)
+                projector = build_random_projection(d_orig, k, seed=0, intercept_index=icpt,
+                                                    dtype=dtype, device=device)
+            else:
+                projector = build_index_map_columns(
+                    data, spec.random_effect, spec.shard,
+                    entity_counts[spec.random_effect], device=device)
+            cache[key] = (projector, d_orig, project_design_and_rows(
+                design, row_features, row_entities, projector))
+        projector, d_orig, prebuilt = cache[key]
+        coords[name] = ProjectedRandomEffectCoordinate(
+            design=design, row_features=row_features, row_entities=row_entities,
+            full_offsets_base=offsets_base, config=cfg, projector=projector,
+            original_dim=d_orig, prebuilt=prebuilt,
+        )
     return coords
 
 
-def materialize_original_space(model: GameModel, coords: Dict) -> GameModel:
-    """The model in original feature space. Every coordinate the port
-    trains is already there (projected and entity-sharded coordinates,
-    whose tables the JAX package maps back here, are not ported)."""
-    return model
+def materialize_original_space(model: GameModel, coords: Dict,
+                               compact: bool = False) -> GameModel:
+    """The model in original feature space: a projected coordinate's
+    table back-projected (``RandomEffectModelInProjectedSpace.scala:31-97``;
+    persistence and scoring never see projected coefficients). With
+    ``compact``, an INDEX_MAP coordinate's table becomes the
+    :class:`CompactReTable` of its back-projection instead, on its device
+    (the entity's sorted active columns, padded with d): the same scores
+    without the dense (E, d) table, which is what each validation needs."""
+
+    def bridge(n, p):
+        c = coords.get(n)
+        if not isinstance(c, ProjectedRandomEffectCoordinate):
+            return p
+        if compact and isinstance(c.projector, IndexMapProjection):
+            cols = c.projector.columns
+            active = cols >= 0
+            return CompactReTable(
+                columns=torch.where(active, cols, torch.full_like(cols, c.original_dim)),
+                values=torch.where(active, p, torch.zeros_like(p)),
+            )
+        return c.back_project(p)
+
+    return dataclasses.replace(model, params={n: bridge(n, p) for n, p in model.params.items()})
 
 
 @dataclasses.dataclass
@@ -170,7 +271,7 @@ def run_game_training(params, device=None) -> GameTrainingRun:
     device = resolve_device(device)
     params = load_params(params, GameDriverParams)
     params.validate()
-    prepare_output_dir(params.output_dir, params.overwrite)
+    prepare_output_dir(params.output_dir, params.overwrite or params.resume)
     logger = PhotonLogger(
         os.path.join(params.output_dir, "log-message.txt"), level=params.log_level
     )
@@ -249,7 +350,8 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
 
     def validation_metric(model: GameModel) -> float:
         # a dense random-effect table on the device scores through the
-        # plain join (game/scoring._random_scores); no host compaction
+        # plain join (game/scoring._random_scores), an INDEX_MAP one
+        # through its compact table; no host compaction
         margins = score_game_data(
             model.params, shards_by_coord, res_by_coord, vdata, dtype=dtype, device=device
         ) + vdata.offsets
@@ -261,7 +363,7 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
 
     # warm-start tables from a previously saved model: rows remap by raw
     # entity id into THIS run's entity vocabulary
-    warm_params: Dict[str, np.ndarray] = {}
+    warm_params: Dict[str, object] = {}
     if params.initial_model_dir:
         loaded, _, _, _ = load_game_model(
             params.initial_model_dir,
@@ -269,25 +371,40 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             {n: entity_vocabs[res_by_coord[n]] for n in params.updating_sequence
              if res_by_coord[n] is not None},
         )
-        for n, p in loaded.items():
-            if n not in params.coordinates:
-                continue
-            if hasattr(p, "gamma"):
-                logger.warn(f"coordinate {n}: saved params do not match the "
-                            "coordinate kind/latent dim; cold-starting it")
-                continue
-            warm_params[n] = p
+        warm_params = {n: p for n, p in loaded.items() if n in params.coordinates}
         logger.info(f"warm-starting coordinates {sorted(warm_params)} from "
                     f"{params.initial_model_dir}")
+
+    def warm_start(coords) -> Dict[str, object]:
+        """The saved params each coordinate can start from: a plain table
+        for a plain coordinate, FactoredParams of its latent dimension for
+        a factored one; the others cold-start."""
+        init = {}
+        for n in params.updating_sequence:
+            p, coord = warm_params.get(n), coords[n]
+            if p is None:
+                continue
+            if isinstance(coord, FactoredRandomEffectCoordinate):
+                ok = is_factored_params(p) and p.gamma.shape[1] == coord.factored.latent_dim
+            else:
+                ok = (not is_factored_params(p)
+                      and not isinstance(coord, ProjectedRandomEffectCoordinate))
+            if ok:
+                init[n] = p
+            else:
+                logger.warn(f"coordinate {n}: saved params do not match the "
+                            "coordinate kind/latent dim; cold-starting it")
+        return init
 
     sweep: List[dict] = []
     design_cache: Dict[str, object] = {}
     t_train = time.perf_counter()
-    for combo in params.grid():
+    for combo_index, combo in enumerate(params.grid()):
         with timed(logger, f"train combo {combo}"):
             t0 = time.perf_counter()
             coords = build_coordinates(params, data, task, combo, entity_counts,
-                                       dtype=dtype, device=device, design_cache=design_cache)
+                                       dtype=dtype, device=device, design_cache=design_cache,
+                                       shard_vocabs=shard_vocabs)
             cd = CoordinateDescent(
                 coordinates=coords,
                 labels=torch.as_tensor(data.labels, dtype=dtype, device=device),
@@ -295,16 +412,28 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 weights=torch.as_tensor(data.weights, dtype=dtype, device=device),
                 task=task,
             )
+            # validation, like persistence, sees original-space
+            # coefficients
             vfn = (
                 (lambda model, _coords=coords: validation_metric(
-                    materialize_original_space(model, _coords)))
+                    materialize_original_space(model, _coords, compact=True)))
                 if (vdata is not None and params.validate_per_coordinate) else None
+            )
+            # keyed by the grid INDEX: reg-weight strings need not be unique
+            ckpt_dir = (
+                os.path.join(params.output_dir, "checkpoints", f"combo-{combo_index}")
+                if params.checkpoint_every > 0 else None
             )
             model, history = cd.run(
                 params.num_iterations,
-                initial_model=warm_params or None,
+                initial_model=warm_start(coords) or None,
                 validation_fn=vfn,
+                checkpoint_dir=ckpt_dir,
+                checkpoint_every=max(params.checkpoint_every, 1),
+                resume=params.resume,
                 divergence_guard=params.divergence_guard,
+                # polled at pass boundaries: SIGTERM/SIGINT finishes the
+                # pass, checkpoints and falls through to the break below
                 stop_check=shutdown,
                 freeze=params.freeze_coordinates or None,
             )
@@ -321,20 +450,26 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                        if h.validation_metric is not None else "")
                     + (f" ({h.seconds:.2f}s/pass)" if h.seconds is not None else "")
                 )
-            model = materialize_original_space(model, coords)
             if vfn is not None:
                 final_metric = history[-1].validation_metric
             elif vdata is not None:
-                final_metric = validation_metric(model)
+                final_metric = validation_metric(
+                    materialize_original_space(model, coords, compact=True))
             else:
                 final_metric = None
+            model = materialize_original_space(model, coords)
             synchronize(device)
             sweep.append({"combo": combo, "model": model, "history": history,
                           "validation_metric": final_metric,
                           "seconds": time.perf_counter() - t0})
             if shutdown.requested:
-                logger.warn(f"preempted during combo {combo}: no checkpoint is "
-                            "written (checkpoints are not ported); nothing is saved")
+                if ckpt_dir is not None:
+                    logger.warn(f"preempted during combo {combo}: final checkpoint + "
+                                f"resumable marker written under {ckpt_dir}; re-run "
+                                "with resume=true to continue")
+                else:
+                    logger.warn(f"preempted during combo {combo}: no checkpoint "
+                                "directory (checkpoint_every is 0); nothing is saved")
                 break
     timings["train"] = time.perf_counter() - t_train
 
@@ -366,7 +501,11 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 if params.model_output_mode == "BEST"
                 else os.path.join(params.output_dir, "all", str(idx))
             )
-            save_params = {n: to_numpy(p) for n, p in entry["model"].params.items()}
+            save_params = {
+                # FactoredParams pass through whole (the latent wire format)
+                n: p if is_factored_params(p) else to_numpy(p)
+                for n, p in entry["model"].params.items()
+            }
             save_shards = shards_by_coord
             save_res = res_by_coord
             save_evocabs = {n: entity_vocabs[res_by_coord[n]]

@@ -39,7 +39,7 @@ import torch
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.core.types import LabeledBatch
 from photon_ml_tpu_torch.game.data import BucketedRandomEffectDesign, RandomEffectDesign
-from photon_ml_tpu_torch.models.training import OptimizerType, not_ported, solve_dtype
+from photon_ml_tpu_torch.models.training import OptimizerType, solve_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss, loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.ops.sparse import is_structured, matvec
@@ -54,6 +54,8 @@ from photon_ml_tpu_torch.solvers.batched import (
     BatchedSolverResult,
     final_grad_norm,
     minimize_lbfgs_batched,
+    minimize_newton_batched,
+    minimize_owlqn_batched,
     minimize_tron_batched,
 )
 from photon_ml_tpu_torch.utils.device import to_numpy
@@ -168,20 +170,26 @@ class _BatchedObjective:
     def hessian_vector_at(self, c, v):
         return self._backproject(c * self._margins(v)) + self.l2[:, None] * v
 
+    def hessian_full(self, w):
+        """(E, d, d): X_e^T diag(c_e) X_e + l2_e I, for the exact Newton
+        solver (``GLMObjective.hessian_full`` lane by lane)."""
+        c = self.ew * self.loss.d2(self._margins(w) + self.offsets, self.labels)
+        x = self.features.to(c.dtype)
+        h = x.transpose(1, 2) @ (c[:, :, None] * x)
+        eye = torch.eye(w.shape[-1], dtype=h.dtype, device=h.device)
+        return h + self.l2[:, None, None] * eye
+
 
 def _make_batched_solve(config: CoordinateConfig):
     """``solve(W0, lams, design, offsets) -> BatchedSolverResult``: the
     JAX package's ``jax.vmap(solve_one)`` over the lanes of one bucket,
-    each lane with its own reg weight. The weights are float32, as there
-    (``coordinates.py:633-639``), and the L2 term is formed in float32
-    before it meets the solve's dtype."""
+    each lane with its own reg weight, through the batched OWL-QN
+    (``l1_ratio > 0``), TRON, NEWTON or L-BFGS. A plain random effect's
+    weights are float32, as there (``coordinates.py:633-639``), and the
+    L1 and L2 terms are formed in the weights' type before they meet the
+    solve's dtype."""
     loss = _checked_loss(config)
     scfg = config.solver_config()
-    if config.l1_ratio > 0.0:
-        raise not_ported("batched OWL-QN for random effects (l1_ratio > 0)", "GAME training")
-    if config.optimizer == OptimizerType.NEWTON:
-        raise not_ported("batched NEWTON for random effects", "GAME training")
-    use_tron = config.optimizer == OptimizerType.TRON
 
     def solve(w0, lams, design: RandomEffectDesign, offsets):
         l2 = (lams * (1.0 - config.l1_ratio)).to(w0.dtype)
@@ -189,10 +197,14 @@ def _make_batched_solve(config: CoordinateConfig):
             loss=loss, features=design.features, labels=design.labels,
             offsets=offsets, ew=design.weights * design.mask, l2=l2,
         )
-        if use_tron:
+        if config.l1_ratio > 0.0:
+            return minimize_owlqn_batched(obj.value_and_grad, w0, lams * config.l1_ratio, scfg)
+        if config.optimizer == OptimizerType.TRON:
             return minimize_tron_batched(
                 obj.value_grad_curvature, obj.hessian_vector_at, w0, scfg
             )
+        if config.optimizer == OptimizerType.NEWTON:
+            return minimize_newton_batched(obj.value_and_grad, obj.hessian_full, w0, scfg)
         return minimize_lbfgs_batched(obj.value_and_grad, w0, scfg)
 
     return solve

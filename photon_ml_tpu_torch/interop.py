@@ -6,7 +6,11 @@ The inputs are numpy arrays taken from ``photon_ml_tpu``'s
 fields); this module never imports that package. bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) are converted exactly through float32.
 ``game_model_from_numpy`` / ``game_model_to_numpy`` carry a GAME model's
-parameters both ways. The other bridge is the Avro model files, which
+parameters both ways, a table or ``FactoredParams`` per coordinate;
+``random_projection_from_numpy`` and ``index_map_from_numpy`` take a
+``RandomProjection``'s matrix and an ``IndexMapProjection``'s columns, and
+``checkpoint_from_numpy`` a ``TrainingCheckpoint``'s fields. The other
+bridge is the Avro model files and the checkpoint directories, which
 both packages read and write (``io.models``). ``lab_tiles_from_numpy``
 takes the column-sorted tiles of ``benchmarks/sparse_kernel_lab.py``,
 which that script builds in numpy.
@@ -21,7 +25,9 @@ from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
 from photon_ml_tpu_torch.game.descent import GameModel
 from photon_ml_tpu_torch.game.factored import FactoredParams
+from photon_ml_tpu_torch.game.projectors import IndexMapProjection, RandomProjection
 from photon_ml_tpu_torch.game.scoring import CompactReTable
+from photon_ml_tpu_torch.io.checkpoint import TrainingCheckpoint
 from photon_ml_tpu_torch.kernels.lab import LAB_BLOCK, LAB_TILE, ColumnTiles, tile_chains
 from photon_ml_tpu_torch.ops.sparse import SparseFeatures
 from photon_ml_tpu_torch.solvers.common import SolverConfig
@@ -93,17 +99,55 @@ def game_params_from_numpy(params, device="cpu") -> dict:
     return out
 
 
+def _params_from_numpy(p, device):
+    if hasattr(p, "gamma") and hasattr(p, "projection"):
+        return FactoredParams(gamma=tensor_from_numpy(p.gamma, device),
+                              projection=tensor_from_numpy(p.projection, device))
+    return tensor_from_numpy(p, device)
+
+
 def game_model_from_numpy(params, device="cpu") -> GameModel:
-    """A JAX ``GameModel``'s params, ``{name: numpy array}`` ((d,) fixed
-    effects, (E, d) random-effect tables), as the port's ``GameModel`` on
-    ``device``: the warm start both packages can begin from."""
-    return GameModel(params={n: tensor_from_numpy(p, device) for n, p in params.items()})
+    """A JAX ``GameModel``'s params, ``{name: value}`` ((d,) fixed effects,
+    (E, d) random-effect tables as numpy, or a ``FactoredParams`` with
+    numpy fields), as the port's ``GameModel`` on ``device``: the warm
+    start both packages can begin from."""
+    return GameModel(params={n: _params_from_numpy(p, device) for n, p in params.items()})
 
 
 def game_model_to_numpy(model: GameModel) -> dict:
-    """The port's ``GameModel`` as ``{name: numpy array}``, for the JAX
-    package's ``GameModel(params=...)``."""
-    return {n: to_numpy(p) for n, p in model.params.items()}
+    """The port's ``GameModel`` as ``{name: numpy array}`` (a factored
+    coordinate as ``{"gamma": ..., "projection": ...}``), for the JAX
+    package's ``GameModel(params=...)`` (its ``FactoredParams(**value)``)."""
+    return {
+        n: ({"gamma": to_numpy(p.gamma), "projection": to_numpy(p.projection)}
+            if isinstance(p, FactoredParams) else to_numpy(p))
+        for n, p in model.params.items()
+    }
+
+
+def random_projection_from_numpy(matrix, device="cpu") -> RandomProjection:
+    """A JAX ``RandomProjection`` from its (d, k) matrix."""
+    return RandomProjection(matrix=tensor_from_numpy(matrix, device))
+
+
+def index_map_from_numpy(columns, device="cpu") -> IndexMapProjection:
+    """A JAX ``IndexMapProjection`` from its (E, k) columns (-1 padded)."""
+    return IndexMapProjection(columns=tensor_from_numpy(np.asarray(columns, np.int64), device))
+
+
+def checkpoint_from_numpy(step, params, history, frozen=(), rng_key=None) -> TrainingCheckpoint:
+    """A JAX ``TrainingCheckpoint``'s fields (its params a table or a
+    ``FactoredParams`` of numpy per coordinate) as the port's, with no
+    generator state: the run it resumes draws from its seed."""
+    return TrainingCheckpoint(
+        step=int(step),
+        params={n: (FactoredParams(gamma=np.asarray(p.gamma), projection=np.asarray(p.projection))
+                    if hasattr(p, "gamma") else np.asarray(p))
+                for n, p in params.items()},
+        rng_key=np.asarray([] if rng_key is None else rng_key, np.uint32),
+        history=[dict(h) for h in history],
+        frozen=list(frozen),
+    )
 
 
 def normalization_from_numpy(factors=None, shifts=None, device="cpu") -> NormalizationContext:

@@ -15,8 +15,11 @@ GAME models: the reference's directory layout
 fixed-effect coefficients hold ONE record; random-effect files hold one
 record per entity with modelId = the raw entity key. id-info records the
 feature-shard id (and random-effect type for RE coordinates). A model
-saved by either package loads in the other. Not ported yet: the collapse
-of coordinates and the matrix-factorization model files (GAME training).
+saved by either package loads in the other.
+
+Matrix-factorization models: ``<root>/<rowEffectType>/part-00000.avro``
+and ``<root>/<colEffectType>/part-00000.avro``, LatentFactorAvro tables
+(``save_mf_model`` / ``load_mf_model``).
 """
 
 from __future__ import annotations
@@ -649,3 +652,50 @@ def load_factored_coordinate(
         info,
         entity_vocab,
     )
+
+
+def save_mf_model(
+    root: str,
+    model,  # game.factored.MatrixFactorizationModel
+    row_effect_type: str,
+    col_effect_type: str,
+    row_vocab: Optional[dict] = None,
+    col_vocab: Optional[dict] = None,
+) -> None:
+    """Matrix-factorization model -> <root>/<rowEffectType>/ and
+    <root>/<colEffectType>/ LatentFactorAvro files
+    (``ModelProcessingUtils.saveMatrixFactorizationModelToHDFS``
+    :267-296). Vocab dicts map raw ids -> row index; positional string ids
+    are used when absent."""
+    if row_effect_type == col_effect_type:
+        raise ValueError("row and col effect types must differ (they name directories)")
+    for effect, factors, vocab in (
+        (row_effect_type, to_numpy(model.row_factors), row_vocab),
+        (col_effect_type, to_numpy(model.col_factors), col_vocab),
+    ):
+        edir = os.path.join(root, effect)
+        os.makedirs(edir, exist_ok=True)
+        _write_latent_factor_table(os.path.join(edir, "part-00000.avro"), factors, vocab)
+
+
+def load_mf_model(
+    root: str,
+    row_effect_type: str,
+    col_effect_type: str,
+    row_vocab: Optional[dict] = None,
+    col_vocab: Optional[dict] = None,
+):
+    """Inverse of :func:`save_mf_model`
+    (``ModelProcessingUtils.loadMatrixFactorizationModelFromHDFS``
+    :303-332). Returns (MatrixFactorizationModel of float64 CPU tensors,
+    row_vocab, col_vocab)."""
+    from photon_ml_tpu_torch.game.factored import MatrixFactorizationModel
+
+    def load_side(effect, vocab):
+        _, records = read_avro_file(os.path.join(root, effect, "part-00000.avro"))
+        table, vocab = _fill_table_from_latent_records(records, vocab, f"MF {effect}")
+        return torch.from_numpy(table), vocab
+
+    rows, row_vocab = load_side(row_effect_type, row_vocab)
+    cols, col_vocab = load_side(col_effect_type, col_vocab)
+    return MatrixFactorizationModel(rows, cols), row_vocab, col_vocab

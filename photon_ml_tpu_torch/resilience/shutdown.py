@@ -1,12 +1,11 @@
 """Preemption-safe shutdown: SIGTERM/SIGINT -> finish the pass, then stop
 (counterpart of ``photon_ml_tpu/resilience/shutdown.py``).
 
-The descent loop polls a flag at PASS BOUNDARIES. With checkpoints (not
-ported yet: ROADMAP.md queue A, "I/O runtime") the JAX package writes a
-final one and a ``preempted.json`` marker there; here a stop at a pass
-boundary ends the run, and the training driver then saves nothing, as the
-JAX driver does without checkpoints. The JAX package's observability event
-and flight dump on a request wait for queue A's "Host layers with no
+The descent loop polls a flag at PASS BOUNDARIES. With a checkpoint
+directory it writes a final checkpoint and a ``preempted.json`` marker
+there, and a run restarted with ``resume`` continues from it; the training
+driver saves no model for a preempted run. The JAX package's observability
+event and flight dump on a request wait for queue A's "Host layers with no
 device math".
 
 Signal handlers only install on the main thread (Python restriction);
@@ -16,9 +15,13 @@ triggers the same path.
 
 from __future__ import annotations
 
+import json
+import os
 import signal
 import threading
 from typing import Optional
+
+PREEMPTED_MARKER = "preempted.json"
 
 
 class GracefulShutdown:
@@ -96,3 +99,30 @@ class GracefulShutdown:
 
     def __exit__(self, *exc) -> None:
         self.uninstall()
+
+
+def write_preempted_marker(checkpoint_dir: str, step: int,
+                           signum: Optional[int] = None) -> str:
+    """Record that the run exited early but resumable. The marker is
+    advisory (resume works off the checkpoints alone), but it tells
+    drivers and operators 'preempted mid-run' from 'finished'."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    path = os.path.join(checkpoint_dir, PREEMPTED_MARKER)
+    with open(path, "w") as f:
+        json.dump({"step": step, "signal": signum}, f)
+    return path
+
+
+def read_preempted_marker(checkpoint_dir: str) -> Optional[dict]:
+    try:
+        with open(os.path.join(checkpoint_dir, PREEMPTED_MARKER)) as f:
+            return json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        return None
+
+
+def clear_preempted_marker(checkpoint_dir: str) -> None:
+    try:
+        os.remove(os.path.join(checkpoint_dir, PREEMPTED_MARKER))
+    except FileNotFoundError:
+        pass

@@ -1,13 +1,15 @@
-"""Batched per-entity solvers: TRON and L-BFGS over E independent
-problems at once, the counterpart of ``jax.vmap`` over the JAX package's
-solvers (``photon_ml_tpu/game/coordinates.py:135``; the reference's
-millions of per-entity solves, ``RandomEffectCoordinate.scala:36-214``).
+"""Batched per-entity solvers: TRON, L-BFGS, OWL-QN and exact Newton over
+E independent problems at once, the counterpart of ``jax.vmap`` over the
+JAX package's solvers (``photon_ml_tpu/game/coordinates.py:102-136``; the
+reference's millions of per-entity solves,
+``RandomEffectCoordinate.scala:36-214``).
 
 The state of every lane is a row of an (E, ...) tensor, and the loops keep
 ``vmap``'s semantics over ``lax.while_loop``:
 
   - every lane runs its own solve: trust-region radius, failure count,
-    CG boundary step, line-search stage and L-BFGS history are per lane;
+    CG boundary step, line-search stage and step, quasi-Newton history,
+    Cholesky ``info`` and jitter retry are per lane;
   - a lane that has stopped keeps its state (each update is a select);
   - the outer loop, each inner CG loop and each line search run until
     every lane has stopped.
@@ -26,6 +28,10 @@ functions, elementwise: ``common.check_convergence``; TRON's boundary step,
 radius update and stopping rules (``tron._to_sphere``, ``_new_radius``,
 ``_step_reason``); L-BFGS's history safeguard, first step and dead-search
 rule (``lbfgs._curvature_ok``, ``_first_step``, ``_dead_search_reason``);
+OWL-QN's pseudo-gradient, sign alignment and orthant projection
+(``lbfgs._pseudo_gradient``, ``_aligned``, ``_orthant``,
+``_project_orthant``); Newton's Cholesky step, jitter and steepest
+fallback (``newton._cholesky_step``, ``_jittered``, ``_scaled_steepest``);
 the line search's cubic step (``linesearch._cubic_min``). What stays in
 two forms is the loops' control: the unbatched solvers branch on host
 reads where the lanes select (ROADMAP.md queue C).
@@ -45,11 +51,16 @@ from photon_ml_tpu_torch.solvers.common import (
     host_read,
 )
 from photon_ml_tpu_torch.solvers.lbfgs import (
+    _aligned,
     _curvature_ok,
     _dead_search_reason,
     _first_step,
+    _orthant,
+    _project_orthant,
+    _pseudo_gradient,
 )
 from photon_ml_tpu_torch.solvers.linesearch import _BRACKET, _DONE, _FAIL, _ZOOM, _cubic_min
+from photon_ml_tpu_torch.solvers.newton import _cholesky_step, _jittered, _scaled_steepest
 from photon_ml_tpu_torch.solvers.tron import _ETA0, _new_radius, _step_reason, _to_sphere
 
 _NOT = int(ConvergenceReason.NOT_CONVERGED)
@@ -71,7 +82,7 @@ class BatchedSolverResult:
     values: torch.Tensor
     grad_norms: torch.Tensor
     cg_iterations: Optional[torch.Tensor] = None  # (E,) TRON
-    evals: Optional[torch.Tensor] = None  # (E,) L-BFGS
+    evals: Optional[torch.Tensor] = None  # (E,) L-BFGS, OWL-QN, Newton
 
 
 def final_grad_norm(result: BatchedSolverResult) -> torch.Tensor:
@@ -241,6 +252,14 @@ class _History:
     rho: torch.Tensor  # (E, m)
     count: torch.Tensor  # (E,) int64
     head: torch.Tensor  # (E,) int64
+
+
+def _empty_history(m: int, w: torch.Tensor) -> _History:
+    e, d = w.shape
+    z = dict(dtype=w.dtype, device=w.device)
+    lanes0 = torch.zeros(e, dtype=torch.int64, device=w.device)
+    return _History(s=torch.zeros((e, m, d), **z), y=torch.zeros((e, m, d), **z),
+                    rho=torch.zeros((e, m), **z), count=lanes0, head=lanes0)
 
 
 def _push_history(h: _History, s, y, lanes) -> _History:
@@ -435,16 +454,11 @@ def minimize_lbfgs_batched(
     constraints are not taken (no GAME coordinate sets them)."""
     if config.lower_bounds is not None or config.upper_bounds is not None:
         raise ValueError("the batched L-BFGS takes no box constraints")
-    m = config.num_corrections
-    e, d = w0.shape
     w = w0
     value, grad = value_and_grad_fn(w)
     gnorm0 = torch.linalg.norm(grad, dim=-1)
     tapes = _Tapes(config.max_iters, value, gnorm0, config.track_states)
-    z = dict(dtype=w.dtype, device=w.device)
-    lanes0 = torch.zeros(e, dtype=torch.int64, device=w.device)
-    hist = _History(s=torch.zeros((e, m, d), **z), y=torch.zeros((e, m, d), **z),
-                    rho=torch.zeros((e, m), **z), count=lanes0, head=lanes0)
+    hist = _empty_history(config.num_corrections, w)
     value_initial, grad_norm_initial = value, gnorm0
     evals = torch.ones_like(value, dtype=torch.int32)
     it = torch.zeros_like(evals)
@@ -474,6 +488,183 @@ def minimize_lbfgs_batched(
         # the accepted point IS the last line-search point
         w_new = w + _col(alpha) * direction
         hist = _push_history(hist, w_new - w, g_new - grad, active)
+
+        it_new = it + 1
+        gnorm = torch.linalg.norm(g_new, dim=-1)
+        code = _dead_search_reason(
+            check_convergence(value, v_new, gnorm, value_initial, grad_norm_initial,
+                              it_new, config.max_iters, config.tolerance),
+            ls_ok,
+        )
+        tapes.record(active, it_new, v_new, gnorm)
+        w = torch.where(_col(active), w_new, w)
+        value = torch.where(active, v_new, value)
+        grad = torch.where(_col(active), g_new, grad)
+        evals = torch.where(active, evals + ls_evals, evals)
+        it = torch.where(active, it_new, it)
+        reason = torch.where(active, code, reason)
+
+    return BatchedSolverResult(
+        w=w, value=value, grad=grad, iterations=it, reason=reason,
+        values=tapes.values, grad_norms=tapes.grad_norms, evals=evals,
+    )
+
+
+# -- OWL-QN -------------------------------------------------------------------
+
+
+def minimize_owlqn_batched(
+    value_and_grad_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+    w0: torch.Tensor,
+    l1_weight: torch.Tensor,
+    config: SolverConfig,
+) -> BatchedSolverResult:
+    """E OWL-QN solves of f_e(w) + l1_e ||w||_1 (``solvers/lbfgs.
+    minimize_owlqn``, lane by lane): ``value_and_grad_fn`` is the smooth
+    part, ``l1_weight`` (E,) each lane's L1 weight. Each lane keeps its
+    own history and its projected backtracking: a trial evaluates every
+    lane, and only the lanes still searching take it. ``value`` is the
+    full objective and ``grad`` the pseudo-gradient, as there."""
+    l1 = _col(l1_weight.to(w0.dtype))
+    w = w0
+    value, grad = value_and_grad_fn(w)
+    full = value + l1[:, 0] * w.abs().sum(-1)
+    pgnorm0 = torch.linalg.norm(_pseudo_gradient(w, grad, l1), dim=-1)
+    tapes = _Tapes(config.max_iters, full, pgnorm0, config.track_states)
+    hist = _empty_history(config.num_corrections, w)
+    value_initial, grad_norm_initial = full, pgnorm0
+    evals = torch.ones_like(value, dtype=torch.int32)
+    it = torch.zeros_like(evals)
+    reason = torch.where(pgnorm0 == 0.0, _codes(_GRAD, value), _codes(_NOT, value))
+    while True:
+        active = reason == _NOT
+        if not host_read(torch.any(active)):
+            break
+        pg = _pseudo_gradient(w, grad, l1)
+        direction = _aligned(-_two_loop(hist, pg), pg)
+        degenerate = _dot(direction, direction) == 0.0
+        direction = torch.where(_col(degenerate), -pg, direction)
+        xi = _orthant(w, pg)
+
+        def trial(alpha, w=w, direction=direction, xi=xi, pg=pg, full=full):
+            wt = _project_orthant(w + _col(alpha) * direction, xi)
+            vt, gt = value_and_grad_fn(wt)
+            ft = vt + l1[:, 0] * wt.abs().sum(-1)
+            return wt, vt, ft, gt, ft <= full + config.ls_c1 * _dot(pg, wt - w)
+
+        alpha = torch.where(hist.count == 0,
+                            1.0 / torch.clamp(torch.linalg.norm(direction, dim=-1), min=1e-30),
+                            torch.ones_like(value))
+        # backtracking with the Armijo-like acceptance of Andrew & Gao,
+        # F(w') <= F(w) + c1 pg . (w' - w), per lane
+        w_new, v_new, f_new, g_new, ls_ok = trial(alpha)
+        ls_evals = torch.ones_like(evals)
+        alpha = torch.where(ls_ok, alpha, alpha * 0.5)
+        while True:
+            live = active & ~ls_ok & (ls_evals < config.ls_max_evals)
+            if not host_read(torch.any(live)):
+                break
+            wt, vt, ft, gt, acc = trial(alpha)
+            w_new = torch.where(_col(live), wt, w_new)
+            v_new = torch.where(live, vt, v_new)
+            f_new = torch.where(live, ft, f_new)
+            g_new = torch.where(_col(live), gt, g_new)
+            ls_ok = torch.where(live, acc, ls_ok)
+            alpha = torch.where(live & ~acc, alpha * 0.5, alpha)
+            ls_evals = ls_evals + live.to(torch.int32)
+        # an exhausted line search keeps the previous iterate
+        w_new = torch.where(_col(ls_ok), w_new, w)
+        v_new = torch.where(ls_ok, v_new, value)
+        f_new = torch.where(ls_ok, f_new, full)
+        g_new = torch.where(_col(ls_ok), g_new, grad)
+        hist = _push_history(hist, w_new - w, g_new - grad, active)
+
+        it_new = it + 1
+        pgnorm = torch.linalg.norm(_pseudo_gradient(w_new, g_new, l1), dim=-1)
+        code = _dead_search_reason(
+            check_convergence(full, f_new, pgnorm, value_initial, grad_norm_initial,
+                              it_new, config.max_iters, config.tolerance),
+            ls_ok,
+        )
+        tapes.record(active, it_new, f_new, pgnorm)
+        w = torch.where(_col(active), w_new, w)
+        value = torch.where(active, v_new, value)
+        full = torch.where(active, f_new, full)
+        grad = torch.where(_col(active), g_new, grad)
+        evals = torch.where(active, evals + ls_evals, evals)
+        it = torch.where(active, it_new, it)
+        reason = torch.where(active, code, reason)
+
+    return BatchedSolverResult(
+        w=w, value=full, grad=_pseudo_gradient(w, grad, l1), iterations=it, reason=reason,
+        values=tapes.values, grad_norms=tapes.grad_norms, evals=evals,
+    )
+
+
+# -- exact Newton -------------------------------------------------------------
+
+
+def _newton_directions(h: torch.Tensor, grad: torch.Tensor, running: torch.Tensor):
+    """Per lane, p with H_e p = -g_e: one batched ``cholesky_ex``; the
+    lanes whose ``info`` says not positive definite retry with the jitter
+    (``solvers/newton._newton_direction``, lane by lane), which costs a
+    second batched factorization only when a running lane needs it. One
+    host read. A lane whose jittered matrix fails too gets NaN."""
+    p, info = _cholesky_step(h, grad)
+    retry = (info != 0) & running
+    if host_read(torch.any(retry)):
+        p = torch.where(_col(retry), _cholesky_step(_jittered(h), grad)[0], p)
+    return p
+
+
+def minimize_newton_batched(
+    value_and_grad_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+    hessian_fn: Callable[[torch.Tensor], torch.Tensor],
+    w0: torch.Tensor,
+    config: SolverConfig,
+) -> BatchedSolverResult:
+    """E damped exact Newton solves (``solvers/newton.minimize_newton``,
+    lane by lane): ``hessian_fn(W) -> (E, d, d)``. Each lane backtracks on
+    its own Armijo test; a trial evaluates every lane, and only the lanes
+    still searching take it."""
+    w = w0
+    value, grad = value_and_grad_fn(w)
+    gnorm0 = torch.linalg.norm(grad, dim=-1)
+    tapes = _Tapes(config.max_iters, value, gnorm0, config.track_states)
+    value_initial, grad_norm_initial = value, gnorm0
+    evals = torch.ones_like(value, dtype=torch.int32)
+    it = torch.zeros_like(evals)
+    reason = torch.where(gnorm0 == 0.0, _codes(_GRAD, value), _codes(_NOT, value))
+    while True:
+        active = reason == _NOT
+        if not host_read(torch.any(active)):
+            break
+        direction = _newton_directions(hessian_fn(w), grad, active)
+        dphi0 = _dot(grad, direction)
+        bad = dphi0 >= 0.0
+        direction = torch.where(_col(bad), _scaled_steepest(grad, direction), direction)
+        dphi0 = torch.where(bad, _dot(grad, direction), dphi0)
+
+        alpha = torch.ones_like(value)
+        v_new, g_new = value_and_grad_fn(w + direction)
+        ls_ok = v_new <= value + config.ls_c1 * dphi0
+        ls_evals = torch.ones_like(evals)
+        alpha = torch.where(ls_ok, alpha, alpha * 0.5)
+        while True:
+            live = active & ~ls_ok & (ls_evals < config.ls_max_evals)
+            if not host_read(torch.any(live)):
+                break
+            vt, gt = value_and_grad_fn(w + _col(alpha) * direction)
+            acc = vt <= value + config.ls_c1 * alpha * dphi0
+            v_new = torch.where(live, vt, v_new)
+            g_new = torch.where(_col(live), gt, g_new)
+            ls_ok = torch.where(live, acc, ls_ok)
+            alpha = torch.where(live & ~acc, alpha * 0.5, alpha)
+            ls_evals = ls_evals + live.to(torch.int32)
+        # an exhausted line search keeps the previous iterate
+        w_new = torch.where(_col(ls_ok), w + _col(alpha) * direction, w)
+        v_new = torch.where(ls_ok, v_new, value)
+        g_new = torch.where(_col(ls_ok), g_new, grad)
 
         it_new = it + 1
         gnorm = torch.linalg.norm(g_new, dim=-1)

@@ -256,12 +256,31 @@ def minimize_lbfgs(
 
 
 def _pseudo_gradient(w: torch.Tensor, g: torch.Tensor, l1) -> torch.Tensor:
-    """Pseudo-gradient of f(w) + l1 ||w||_1 (Andrew & Gao 2007, eq. 4)."""
+    """Pseudo-gradient of f(w) + l1 ||w||_1 (Andrew & Gao 2007, eq. 4).
+    Elementwise (``l1`` a scalar, or (E, 1) for the batched solver's
+    lanes)."""
     right = g + l1  # the derivative approaching w = 0 from the right
     left = g - l1  # from the left
     zero = torch.zeros_like(g)
     pg_zero = torch.where(left > 0.0, left, torch.where(right < 0.0, right, zero))
     return torch.where(w > 0.0, right, torch.where(w < 0.0, left, pg_zero))
+
+
+def _aligned(direction: torch.Tensor, pg: torch.Tensor) -> torch.Tensor:
+    """Sign alignment: the components of the quasi-Newton direction that
+    agree with -pg. Elementwise."""
+    return torch.where(direction * pg < 0.0, direction, torch.zeros_like(direction))
+
+
+def _orthant(w: torch.Tensor, pg: torch.Tensor) -> torch.Tensor:
+    """The orthant of the projected step: sign(w), or sign(-pg) at w = 0.
+    Elementwise."""
+    return torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
+
+
+def _project_orthant(wt: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """A trial point projected onto the orthant ``xi``. Elementwise."""
+    return torch.where(wt * xi > 0.0, wt, torch.zeros_like(wt))
 
 
 def minimize_owlqn(
@@ -307,15 +326,13 @@ def minimize_owlqn(
         direction = -_two_loop(hist, pg)
         # sign alignment: drop components that disagree with -pg; fall back
         # to steepest pseudo-descent when that leaves nothing
-        direction = torch.where(direction * pg < 0.0, direction, torch.zeros_like(direction))
+        direction = _aligned(direction, pg)
         degenerate = torch.dot(direction, direction) == 0.0
         direction = torch.where(degenerate, -pg, direction)
-        # the orthant of the projected step: sign(w), or sign(-pg) at w = 0
-        xi = torch.where(w != 0.0, torch.sign(w), torch.sign(-pg))
+        xi = _orthant(w, pg)
 
         def trial(alpha, w=w, direction=direction, xi=xi, pg=pg, full=full):
-            wt = w + alpha * direction
-            wt = torch.where(wt * xi > 0.0, wt, torch.zeros_like(wt))
+            wt = _project_orthant(w + alpha * direction, xi)
             vt, gt = value_and_grad_fn(wt)
             ft = vt + l1 * wt.abs().sum()
             accepted = host_read(ft <= full + config.ls_c1 * torch.dot(pg, wt - w))

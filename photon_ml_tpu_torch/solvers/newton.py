@@ -32,6 +32,7 @@ from photon_ml_tpu_torch.solvers.common import (
     tape_buffer,
     tracker_buffers,
 )
+from photon_ml_tpu_torch.solvers.lbfgs import _dead_search_reason
 
 ValueAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 HessianFull = Callable[[torch.Tensor], torch.Tensor]
@@ -39,20 +40,41 @@ HessianFull = Callable[[torch.Tensor], torch.Tensor]
 NEWTON_DEFAULT_CONFIG = SolverConfig(max_iters=25, tolerance=1e-7)
 
 
+def _cholesky_step(h: torch.Tensor, grad: torch.Tensor):
+    """(p with H p = -grad, the factorization's ``info``), for one (d, d)
+    matrix or a batch of them; p is NaN where ``info`` is not 0 (H not
+    positive definite), as the JAX package's factorization gives."""
+    factor, info = torch.linalg.cholesky_ex(h)
+    p = torch.cholesky_solve(-grad[..., None], factor)[..., 0]
+    return torch.where((info == 0)[..., None], p, torch.full_like(p, float("nan"))), info
+
+
+def _jittered(h: torch.Tensor) -> torch.Tensor:
+    """H + 1e-6 (1 + trace(H) / d) I: the Levenberg retry of a matrix that
+    is not positive definite, per matrix of a batch."""
+    d = h.shape[-1]
+    jitter = 1e-6 * (1.0 + torch.diagonal(h, dim1=-2, dim2=-1).sum(-1) / d)
+    eye = torch.eye(d, dtype=h.dtype, device=h.device)
+    return h + jitter[..., None, None] * eye
+
+
+def _scaled_steepest(grad: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """The fallback for a direction that is not a descent direction
+    (possible after the jitter): steepest descent scaled to the Newton
+    step's length, per row of a batch."""
+    ratio = (torch.linalg.norm(direction, dim=-1, keepdim=True)
+             / torch.clamp(torch.linalg.norm(grad, dim=-1, keepdim=True), min=1e-30))
+    return -grad * ratio
+
+
 def _newton_direction(h: torch.Tensor, grad: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     """(p with H p = -grad, whether the jitter retry ran). One host read:
     the factorization's ``info`` (0 when H is positive definite). When the
-    jittered matrix is not positive definite either, p is NaN, as the JAX
-    package's factorization gives."""
-    factor, info = torch.linalg.cholesky_ex(h)
-    jittered = host_read(info) != 0
-    if not jittered:
-        return torch.cholesky_solve(-grad[:, None], factor)[:, 0], False
-    jitter = 1e-6 * (1.0 + torch.trace(h) / h.shape[-1])
-    eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
-    factor, info = torch.linalg.cholesky_ex(h + jitter * eye)
-    p = torch.cholesky_solve(-grad[:, None], factor)[:, 0]
-    return torch.where(info == 0, p, torch.full_like(p, float("nan"))), True
+    jittered matrix is not positive definite either, p is NaN."""
+    p, info = _cholesky_step(h, grad)
+    if host_read(info) == 0:
+        return p, False
+    return _cholesky_step(_jittered(h), grad)[0], True
 
 
 def minimize_newton(
@@ -88,12 +110,7 @@ def minimize_newton(
         # not a descent direction (possible after the jitter): steepest
         # descent scaled to the Newton step's length
         bad = dphi0 >= 0.0
-        direction = torch.where(
-            bad,
-            -grad * (torch.linalg.norm(direction)
-                     / torch.clamp(torch.linalg.norm(grad), min=1e-30)),
-            direction,
-        )
+        direction = torch.where(bad, _scaled_steepest(grad, direction), direction)
         dphi0 = torch.where(bad, torch.dot(grad, direction), dphi0)
 
         alpha = 1.0
@@ -121,12 +138,7 @@ def minimize_newton(
             config.max_iters, config.tolerance,
         )
         if not ls_ok:
-            code = torch.where(
-                (code != ConvergenceReason.GRADIENT_CONVERGED)
-                & (code != ConvergenceReason.MAX_ITERATIONS),
-                torch.full_like(code, int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)),
-                code,
-            )
+            code = _dead_search_reason(code, torch.zeros_like(code, dtype=torch.bool))
         record(values, it, v_new)
         record(grad_norms, it, gnorm)
         record(w_history, it, w_new)

@@ -4,7 +4,9 @@ effect (dense or padded-ELL) and a per-user random effect, two grid combos
 and validation after every update. Both drivers pick the same combo; the
 history, metrics and coefficients agree; each package's saved model loads
 in the other and scores the same. Then every setting the port does not run
-yet raises, naming its ROADMAP item."""
+yet raises, naming its ROADMAP item, and the settings that used to raise
+(projectors, factored effects, a sparse random effect, checkpoints and
+resume) train as the JAX driver does."""
 
 import json
 import os
@@ -74,6 +76,30 @@ def inputs(tmp_path_factory):
         FeatureVocabulary([feature_key(k, "") for k in keys], add_intercept=True).save(
             shards[shard])
     return {"train": train, "validate": validate, "shards": shards, "tmp": tmp}
+
+
+def _assert_same_runs(got, ref):
+    """The same best combo and history; objectives within 1e-10 relative,
+    validation metrics within 1e-10, every table within 1e-8 (FactoredParams
+    leaf by leaf)."""
+    assert got.best_index == ref.best_index
+    assert [s["combo"] for s in got.sweep] == [s["combo"] for s in ref.sweep]
+    for g, r in zip(got.sweep, ref.sweep):
+        assert [(h.iteration, h.coordinate) for h in g["history"]] == [
+            (h.iteration, h.coordinate) for h in r["history"]]
+        for hg, hr in zip(g["history"], r["history"]):
+            np.testing.assert_allclose(hg.objective, hr.objective, rtol=1e-10)
+            if hr.validation_metric is not None:
+                np.testing.assert_allclose(hg.validation_metric, hr.validation_metric,
+                                           rtol=0, atol=1e-10)
+            assert hg.convergence_histogram == hr.convergence_histogram
+        for name, p in r["model"].params.items():
+            q = g["model"].params[name]
+            pairs = ([(q.gamma, p.gamma), (q.projection, p.projection)]
+                     if hasattr(p, "gamma") else [(q, p)])
+            for a, b in pairs:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-8,
+                                           err_msg=name)
 
 
 def _params(inputs, out, sparse_shards=(), **extra):
@@ -201,40 +227,100 @@ def test_default_device_is_cuda_and_raises_without_a_card(inputs):
 
 
 # a value that turns each unported setting on
-_ON = {"checkpoint_every": 1, "resume": True, "streamed_ingest": True,
+_ON = {"streamed_ingest": True,
        "quality_fingerprint": True, "trace_dir": "trace", "metrics_every": 5.0,
        "profile_dir": "profile", "flight_dir": "flight", "convergence_report": True,
        "entity_shards": 2, "heartbeat_s": 1.0, "collective_timeout_s": 30.0,
-       "sharded_ckpt": True, "collective_mode": "fused",
-       "projector": "RANDOM=2", "latent_dim": 2, "hot_columns": 3}
+       "sharded_ckpt": True, "collective_mode": "fused", "hot_columns": 3}
 _UNPORTED_CASES = (
     [(name, {name: _ON[name]}, item) for name, (_, item) in UNPORTED_GAME_FIELDS.items()]
     + [(f"coordinate.{name}", {"coordinate": {name: _ON[name]}}, item)
        for name, (_, item) in UNPORTED_COORDINATE_FIELDS.items()]
-    + [("sparse random effect", {"sparse_shards": ["ushard"], "coordinate": {
-        "projector": "INDEX_MAP"}}, "GAME training"),
-       ("no feature file", {"feature_shards": {}}, "Ingest hooks"),
+    + [("no feature file", {"feature_shards": {}}, "Ingest hooks"),
        ("passes with a tolerance", {"passes_per_dispatch": 2,
                                     "convergence_tolerance": 1e-6}, "GAME training")]
 )
 
 
-@pytest.mark.parametrize("name,change,item", _UNPORTED_CASES,
-                         ids=[c[0] for c in _UNPORTED_CASES])
+# the pins of settings this port now runs: each becomes a parity case of
+# the driver against the JAX driver, under the same test id
+_PORTED_CASES = [
+    ("checkpoint_every", {"checkpoint_every": 1}),
+    ("resume", {"checkpoint_every": 1, "resume": True}),
+    ("coordinate.projector", {"coordinate": {"projector": "RANDOM=2"}}),
+    ("coordinate.latent_dim", {"coordinate": {"latent_dim": 2}}),
+    ("sparse random effect", {"sparse_shards": ["ushard"],
+                              "coordinate": {"projector": "INDEX_MAP"}}),
+]
+_PORTED = dict(_PORTED_CASES)
+_ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]
+              + [c for c in _UNPORTED_CASES if c[0] not in _PORTED])
+
+
+def _ported_setting_matches_jax(inputs, name, change):
+    change = dict(change)
+    coord = change.pop("coordinate", {})
+    tag = name.replace(" ", "-").replace(".", "-")
+    both = []
+    for pkg in ("jax", "torch"):
+        p = _params(inputs, f"ported-{pkg}-{tag}", num_iterations=2, **change)
+        p["coordinates"]["per-user"].update(coord)
+        if name == "resume":
+            # a first run stops after one pass with its checkpoint; the
+            # resumed run continues it to two
+            first = {**p, "num_iterations": 1, "resume": False}
+            (jax_run_game_training if pkg == "jax" else
+             lambda q: tgame.run_game_training(q, device="cpu"))(
+                {**first, **({"quality_fingerprint": False} if pkg == "jax" else {})})
+        if pkg == "jax":
+            both.append(jax_run_game_training({**p, "quality_fingerprint": False}))
+        else:
+            both.append(tgame.run_game_training(p, device="cpu"))
+    ref, got = both
+    _assert_same_runs(got, ref)
+    if "checkpoint_every" in change:
+        from photon_ml_tpu.io.checkpoint import latest_checkpoint as jax_latest
+
+        for combo in range(len(got.sweep)):
+            ckdir = os.path.join(got.params.output_dir, "checkpoints", f"combo-{combo}")
+            # the port's step loads in the JAX package
+            ck = jax_latest(ckdir)
+            assert ck.step == 2 and sorted(ck.params) == ["global", "per-user"]
+            assert len(ck.history) == 4
+
+
+@pytest.mark.parametrize("name,change,item", _ALL_CASES, ids=[c[0] for c in _ALL_CASES])
 def test_unported_setting_raises(inputs, name, change, item):
+    """Named for the pins it holds: each setting the port does not run
+    raises, naming its ROADMAP item; each setting it now runs (``item``
+    None) trains as the JAX driver does."""
+    if item is None:
+        _ported_setting_matches_jax(inputs, name, change)
+        return
     params = _params(inputs, "unported")
     change = dict(change)
     coord = change.pop("coordinate", None)
     if name == "resume":
         change["checkpoint_every"] = 1
     if coord is not None:
-        target = "per-user" if name in ("sparse random effect", "coordinate.projector",
-                                        "coordinate.latent_dim") else "global"
         if name == "coordinate.hot_columns":
             params["sparse_shards"] = ["gshard"]
-        params["coordinates"][target].update(coord)
+        params["coordinates"]["global"].update(coord)
     params.update(change)
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
+        load_params(params, GameDriverParams).validate()
+
+
+def test_factored_and_projector_are_exclusive(inputs):
+    params = _params(inputs, "exclusive")
+    params["coordinates"]["per-user"].update(latent_dim=2, projector="RANDOM=2")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tgame.run_game_training(params, device="cpu")
+
+
+def test_sparse_random_effect_needs_index_map(inputs):
+    params = _params(inputs, "needs-index-map", sparse_shards=("ushard",))
+    with pytest.raises(ValueError, match="INDEX_MAP"):
         load_params(params, GameDriverParams).validate()
 
 
