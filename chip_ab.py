@@ -17,9 +17,27 @@ shapes are this checkout's ``chip_smoke.py``'s:
 
 Per (checkout, shape, kernel, dtype): the CUDA-event median of 25 calls
 (``ms``) and the card's and the host's time per call with 20 calls queued
-(``device_ms``, ``host_ms``). Every kernel in f64 (the main path's type),
-``fused_hdiag`` also in f32 and bf16 x f32. Prints one JSON line per
-checkout. Needs one CUDA device and ``nvcc``.
+(``device_ms``, ``host_ms``). ``ell_matvec`` and ``ell_scatter_add`` in
+f64 (the main path's type), the three fused passes in f64, f32 and bf16 x
+f32. A checkout with the column-sorted reduce (``kernels/colsort.py``)
+also times the reduce (``colsort_reduce``, linear, each dtype) and the
+build of the design's column-sorted copy (``copy_build``, once per shape:
+its ``ms`` is the build's CUDA-event time, with its bytes). Prints one
+JSON line per checkout. Needs one CUDA device and ``nvcc``.
+
+    python3 chip_ab.py --train DIR [DIR ...]
+
+times the training drivers end to end instead. This checkout's
+``chip_smoke.py`` first writes the inputs of phases 5c, 5d and 6 once,
+into ``_ab_work/`` of this checkout, and times ``torch.cumsum`` and
+``ops.metrics.fixed_order_cumsum`` on the card, with the distinct bit
+patterns each gives over 50 calls on one vector; then each DIR in turn, in
+a process of its own, runs its own drivers on those inputs on the card,
+one run each, counters set to 0 just before and read just after: phase
+5c's GAME training, phase 5d's, phase 5e's (5d's at lambda 1), and
+phase 6's GLM training. Per run: the wall seconds, the driver's
+``timings`` and the launches; then the kernels at the ``driver`` shape as
+above. Prints the inputs' line, then one JSON line per checkout.
 """
 
 from __future__ import annotations
@@ -27,8 +45,10 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ("uniform", "hot", "driver")
@@ -65,60 +85,191 @@ def _design(cs, shape):
     return idx, vals64, cs.D_HASHED
 
 
-def worker(root: str) -> dict:
+def prepare(work: str, device_kw=None, game=None, proj=None, glm=None) -> dict:
+    """Write the training drivers' inputs under ``work`` with this
+    checkout's writers (``game``, ``proj``, ``glm``: (records, held-out
+    records) of phases 5c, 5d and 6, by default theirs), and on the card
+    time the two scans. Returns the paths and the scans' record."""
+    cs = _smoke()
+    game = game or (cs.GAME_TRAIN_RECORDS, cs.GAME_TRAIN_HELDOUT)
+    proj = proj or (cs.TRAIN_RECORDS, cs.HELDOUT_RECORDS)
+    glm = glm or (cs.TRAIN_RECORDS, cs.HELDOUT_RECORDS)
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    (gpath, upath), (train, heldout), _ = cs.write_game_training_inputs(
+        os.path.join(work, "game"), *game, cs.D_HASHED, cs.GAME_TRAIN_USERS)
+    vocab_paths, (ptrain, pheldout), _ = cs.write_game_training_inputs(
+        os.path.join(work, "proj"), *proj, cs.D_HASHED, cs.GAME_TRAIN_USERS,
+        user_cols=cs.GAME_USER_COLS, n_ads=cs.GAME_PROJ_ADS)
+    vocab_path, _, sets = cs.write_training_inputs(os.path.join(work, "glm"), *glm, cs.D_HASHED)
+    out = {"work": work, "setup_s": time.perf_counter() - t0,
+           "game": [gpath, upath, train, heldout],
+           "proj": [list(vocab_paths), ptrain, pheldout],
+           "glm": [vocab_path, sets["train"][0], sets["heldout"][0]]}
+    if not device_kw:
+        out["card"] = cs.nvidia_smi()
+        out["scans"] = [scan_bits(cs, n) for n in (glm[1], 1 << 22)]
+    return out
+
+
+def scan_bits(cs, n: int, calls: int = 50) -> dict:
+    """``torch.cumsum`` and ``fixed_order_cumsum`` of one seeded (n,) f64
+    vector on the card: the distinct bit patterns over ``calls`` calls and
+    the CUDA-event median of each."""
+    import torch
+
+    from photon_ml_tpu_torch.ops.metrics import fixed_order_cumsum
+
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    x = torch.rand(n, generator=g, device="cuda", dtype=torch.float64) * 3.0
+    rec = {"n": n, "calls": calls}
+    for name, fn in (("torch_cumsum", lambda: torch.cumsum(x, 0)),
+                     ("fixed_order_cumsum", lambda: fixed_order_cumsum(x))):
+        first = fn()
+        distinct = {first.cpu().numpy().tobytes()}
+        for _ in range(calls - 1):
+            distinct.add(fn().cpu().numpy().tobytes())
+        rec[name] = {"distinct_bits": len(distinct), "ms": cs.time_ms(fn)}
+    return rec
+
+
+def train_runs(cs, inputs: dict, device_kw=None) -> list:
+    """One run of each training driver of this checkout on ``inputs``,
+    outputs under a directory of its own, removed after."""
+    from photon_ml_tpu_torch.cli.game_train import run_game_training
+    from photon_ml_tpu_torch.cli.train import run_glm_training
+    from photon_ml_tpu_torch.kernels import dispatch
+
+    device_kw = device_kw or {}
+    work = os.path.join(inputs["work"], f"out-{os.getpid()}")
+    gpath, upath, train, heldout = inputs["game"]
+    vocab_paths, ptrain, pheldout = inputs["proj"]
+    vocab_path, gtrain, gheldout = inputs["glm"]
+    configs = [
+        ("game_train_5c", "game", cs.game_train_params(work, train, heldout, gpath, upath)),
+        ("game_projected_5d", "game",
+         cs.game_projected_params(work, ptrain, pheldout, vocab_paths, "out")),
+        ("game_determinism_5e", "game",
+         {**cs.game_projected_params(work, ptrain, pheldout, vocab_paths, "out"),
+          "coordinates": cs.GAME_DET_COORDINATES}),
+        ("train_6", "glm", {
+            "train_input": [gtrain], "validate_input": [gheldout],
+            "output_dir": os.path.join(work, "out"), "feature_file": vocab_path,
+            "optimizer": "TRON", "reg_type": "L2", "reg_weights": cs.TRAIN_LAMBDAS,
+            "tolerance": cs.TRAIN_TOLERANCE, "max_iters": cs.TRAIN_MAX_ITERS,
+            "sparse": True, "precision": "float64"}),
+    ]
+    records = []
+    for name, kind, params in configs:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = (run_game_training if kind == "game" else run_glm_training)(params, **device_kw)
+        wall_s = time.perf_counter() - t0
+        rec = {"run": name, "wall_s": wall_s, "timings_s": dict(run.timings),
+               "launches": {k: v for k, v in dispatch.launch_counts().items() if v}}
+        if kind == "game":
+            rec["fixed_iterations"] = [int(h.solver_iterations) for c in run.sweep
+                                       for h in c["history"] if h.coordinate == "global"]
+        else:
+            rec["iterations"] = [int(tm.result.iterations) for tm in run.models]
+        records.append(rec)
+        shutil.rmtree(work, ignore_errors=True)
+    return records
+
+
+def worker(root: str, inputs=None) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     cs = _smoke()
     import torch
 
     cs.build.build()
+    has_reduce = importlib.util.find_spec("photon_ml_tpu_torch.kernels.colsort") is not None
     out = {"root": root, "card": cs.nvidia_smi(), "times": []}
-    for shape in SHAPES:
+    if inputs is not None:
+        out["runs"] = train_runs(cs, inputs)
+    for shape in (SHAPES if inputs is None else ("driver",)):
         idx, vals64, d = _design(cs, shape)
         n = idx.shape[0]
+        copy = None
+        if has_reduce:
+            from photon_ml_tpu_torch.kernels.colsort import column_reduce, column_values
+
+            copy, rec = cs.copy_build(idx, d, f"ab-{shape}")
+            out["times"].append({"shape": shape, "kernel": "copy_build", "dtype": "-",
+                                 "ms": rec["build_ms"], **rec})
         for label, vdt, cd, *_ in cs.FUSED_CASES:
-            if label != "f64" and shape == "driver":
-                continue
             vals = vals64.to(vdt)
             y, off, ew, w = cs.row_inputs(n, d, cd, idx.device)
             loss = cs.LOGISTIC_LOSS
             c = cs.fused_value_grad_curvature(idx, vals, y, off, ew, w, d, loss)[3]
             shift = torch.tensor(0.05, dtype=cd, device=idx.device)
-            calls = {"fused_hdiag": lambda: cs.fused_hessian_diagonal(
-                idx, vals, y, off, ew, w, d, loss)}
+            calls = {
+                "fused_vgc": lambda: cs.fused_value_grad_curvature(
+                    idx, vals, y, off, ew, w, d, loss),
+                "fused_hvp": lambda: cs.fused_hessian_vector(idx, vals, c, w, shift, d),
+                "fused_hdiag": lambda: cs.fused_hessian_diagonal(
+                    idx, vals, y, off, ew, w, d, loss),
+            }
             if label == "f64":
                 calls.update({
                     "ell_matvec": lambda: cs.ell_matvec(idx, vals, w, d),
                     "ell_scatter_add": lambda: cs.ell_scatter_add(idx, vals, d),
-                    "fused_vgc": lambda: cs.fused_value_grad_curvature(
-                        idx, vals, y, off, ew, w, d, loss),
-                    "fused_hvp": lambda: cs.fused_hessian_vector(idx, vals, c, w, shift, d),
                 })
+            if copy is not None:
+                cvals = column_values(copy, vals)
+                calls["colsort_reduce"] = lambda: column_reduce(copy, cvals, c, "linear")
             for kernel, fn in calls.items():
                 ms = cs.time_ms(fn)
                 device_ms, host_ms = cs.device_ms(fn)
                 out["times"].append({"shape": shape, "kernel": kernel, "dtype": label,
                                      "ms": ms, "device_ms": device_ms, "host_ms": host_ms})
             del vals, y, off, ew, w, c, calls
-        del idx, vals64
+        del idx, vals64, copy
         torch.cuda.empty_cache()
     return out
 
 
+def _last_line(args, cwd):
+    """Run this script with ``args`` in a process of its own: (exit code,
+    its last line of output), its output passed on to stderr on failure."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                          capture_output=True, text=True, cwd=cwd)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout + proc.stderr)
+        return proc.returncode, None
+    return 0, proc.stdout.strip().splitlines()[-1]
+
+
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--worker":
-        print(json.dumps(worker(argv[1])), flush=True)
+        inputs = json.loads(argv[2]) if len(argv) > 2 else None
+        print(json.dumps(worker(argv[1], inputs)), flush=True)
         return 0
-    if not argv:
+    if len(argv) == 2 and argv[0] == "--prepare":
+        print(json.dumps(prepare(argv[1])), flush=True)
+        return 0
+    train = bool(argv) and argv[0] == "--train"
+    roots = argv[1:] if train else argv
+    if not roots:
         print(__doc__, file=sys.stderr)
         return 2
-    for root in argv:
-        root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
-                              capture_output=True, text=True, cwd=root)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            return proc.returncode
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    extra = []
+    if train:
+        code, line = _last_line(["--prepare", os.path.join(HERE, "_ab_work")], HERE)
+        if code:
+            return code
+        print(line, flush=True)
+        extra = [line]
+    try:
+        for root in roots:
+            root = os.path.abspath(root)
+            code, line = _last_line(["--worker", root, *extra], root)
+            if code:
+                return code
+            print(line, flush=True)
+    finally:
+        if train:
+            shutil.rmtree(os.path.join(HERE, "_ab_work"), ignore_errors=True)
     return 0
 
 

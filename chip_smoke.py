@@ -22,11 +22,16 @@ whenever any phase fails. Phases, in order:
    beside it a composite: ``torch.mv`` on CSR, the curvature, ``torch.mv``
    on the transposed CSR of the squares and of the values, a sum) in the
    three dtype pairs — with times against the HBM bound, the fused passes
-   held to their plain versions in the compute type and in f64, and their
-   scalars to the same bits over 3 calls; then ``ell_scatter_add``,
-   ``fused_vgc``, ``fused_hvp`` and ``fused_hdiag`` (f64, f32) again on
-   the same design with 14 columns named by every row (the Criteo layout's
-   hot columns);
+   held to their plain versions in the compute type and in f64, and every
+   output (the scalars and the (d,) column sums) to the same bits over 3
+   calls; the column-sorted reduce (``colsort_reduce``, the X^T side of
+   the fused passes, ``ell_rmatvec`` and ``ell_colsum``) in its linear and
+   pair modes against its plain version summed in f64, to the same bits
+   over 3 calls, timed beside ``torch.mv`` on the transposed CSR, with the
+   design's column-sorted copy built and timed on its own; then
+   ``ell_scatter_add``, ``fused_vgc``, ``fused_hvp``, ``fused_hdiag`` (f64,
+   f32) and the reduce again on the same design with 14 columns named by
+   every row (the Criteo layout's hot columns);
 4b. lab: the port's sparse kernel lab (``photon_ml_tpu_torch.benchmarks.
    sparse_kernel_lab.main``) at its defaults, n = 200,000, k = 32,
    d = 120,000 with Zipf(1.1) column ids, counters set to 0 just before
@@ -114,6 +119,15 @@ whenever any phase fails. Phases, in order:
    max(1, |s|) of the training's own model, and its tables and the
    factored effect through ``save_mf_model`` / ``load_mf_model`` read
    back bit for bit;
+5e. determinism at the settings users run: phase 5d's records and
+   coordinates with ``examples/run_wide_game.sh``'s lambda 1 for
+   ``global`` (TRON, 30 iterations, 1e-8) and ``per-user-wide``, and the
+   factored effect at lambda 1 for gamma and B, 100 iterations at most:
+   two runs on the card, then one preempted by SIGTERM after its first
+   pass and resumed, all three bit for bit equal (every update's objective
+   and AUC, every combo's tables in memory, the saved tables read back,
+   the MF files); no CPU reference (the GLM half, two training runs with
+   the same w bits, runs in phase 6 on its design);
 6. train: the port's GLM training driver (``run_glm_training``, sparse
    TRON, L2 logistic, lambda in {10, 1}, float64, with validation) on 2^16
    Criteo-layout records and 2^14 held-out ones, counters set to 0 just
@@ -122,9 +136,11 @@ whenever any phase fails. Phases, in order:
    ``train_glm`` on the same batch on the CPU; phase seconds and host
    syncs per iteration; every kernel (``ell_matvec`` with ``torch.mv`` on
    CSR beside it, ``fused_hvp`` with its composite) checked and timed at
-   the shape the training driver gave them, the fused passes' scalars
+   the shape the training driver gave them, the fused passes' outputs
    held to the same bits over 3 calls, and the host's part of each call
-   timed beside the card's; then the same run under ``torch.profiler``;
+   timed beside the card's; then the same run under ``torch.profiler``,
+   whose w must equal the first run's bit for bit at every lambda (phase
+   5e's GLM gate);
 7. full trainer: on the same records, each run with the counters set to 0
    just before and read just after, and each held to the same training on
    the CPU (the same convergence reason; coefficients within 1e-6 max(1,
@@ -145,6 +161,13 @@ whenever any phase fails. Phases, in order:
    with the variance pass timed on the card at the driver's shape;
 8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+Every driver run of phases 5-7 must read (and write) its Avro through the
+native C++ codec (``run.codecs``): a phase whose codec fell back to the
+Python one fails. ``determinism_probe`` (not a phase) runs phase 5e's
+GAME configuration and phase 6's GLM training under
+``torch.use_deterministic_algorithms(True, warn_only=True)`` and lists
+what PyTorch reports as nondeterministic.
 """
 
 from __future__ import annotations
@@ -462,7 +485,33 @@ SOURCES = {
                       "benchmarks/sparse_kernel_lab.py:229"),
     "onehot_reduce": ("photon_ml_tpu_torch/kernels/csrc/lab.cu",
                       "benchmarks/sparse_kernel_lab.py:288"),
+    # the X^T side of rows 3-5 (and of ell_rmatvec / ell_colsum), on row
+    # 8's scheme
+    "colsort_reduce": ("photon_ml_tpu_torch/kernels/csrc/colsort.cuh",
+                       "photon_ml_tpu/kernels/fused.py:185"),
 }
+# the X^T sides the column-sorted reduce replaces: the Pallas kernels'
+# scatters, each file:line
+REDUCE_REPLACES = ["photon_ml_tpu/kernels/fused.py:120", "photon_ml_tpu/kernels/fused.py:185",
+                   "photon_ml_tpu/kernels/fused.py:245", "photon_ml_tpu/kernels/ell.py:191",
+                   "photon_ml_tpu/kernels/ell.py:204"]
+# the wrappers that launch the column-sorted reduce, once per call
+REDUCE_CALLERS = ("fused_vgc", "fused_hvp", "fused_hdiag", "ell_rmatvec", "ell_colsum")
+
+
+def with_reduce(expected: dict) -> dict:
+    """A run's expected launches with the column-sorted reduce's: one per
+    fused pass and per ``ell_rmatvec`` or ``ell_colsum`` call."""
+    return {**expected, "colsort_reduce": sum(expected.get(k, 0) for k in REDUCE_CALLERS)}
+
+
+def require_native(run, label: str) -> None:
+    """The ingest gate: every Avro read and write of a driver run went
+    through the native codec (a broken build would otherwise hide behind
+    the Python codec)."""
+    if not run.codecs or any(c != "native" for c in run.codecs.values()):
+        raise AssertionError(f"{label}: the run's codecs are {run.codecs}; every read and "
+                             f"write must be native")
 # columns named by every row in the hot-column scatter case: the Criteo
 # layout's intercept and 13 integer fields
 HOT_COLUMNS = INT_FIELDS + 1
@@ -644,8 +693,8 @@ HDIAG_COMPOSITE = ("c = ew * l''(torch.mv(X_csr, w) + off); torch.mv(X2T_csr, c)
 
 
 def same_bits(fn, outputs, calls: int = 3) -> bool:
-    """``fn``'s scalar outputs (indices into its result) have the same bits
-    over ``calls`` calls."""
+    """``fn``'s outputs (indices into its result: the scalars and the (d,)
+    column sums) have the same bits over ``calls`` calls."""
     first = fn()
     return all(torch.equal(first[i], again[i])
                for again in (fn() for _ in range(calls - 1)) for i in outputs)
@@ -655,8 +704,8 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
     """Check and time fused_vgc, fused_hvp and fused_hdiag (the last two
     with a composite beside) on one design in each of ``cases`` (default
     every dtype pair) against their plain versions; the scalars (val,
-    asum; usum; csum) are held to the same bits over 3 calls. One record
-    per (kernel, dtype)."""
+    asum; usum; csum) and the (d,) outputs (grad; hv; dx2, dx) are held to
+    the same bits over 3 calls. One record per (kernel, dtype)."""
     n, k = idx.shape
     valid = int((idx < d).sum())
     results = []
@@ -681,9 +730,9 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
             raise AssertionError(f"fused_vgc {dtype_label} ({label}) disagrees with its "
                                  f"plain version")
         vgc = lambda: fused_value_grad_curvature(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
-        if not same_bits(vgc, (0, 2)):
-            raise AssertionError(f"fused_vgc {dtype_label} ({label}): val or asum changed "
-                                 f"bits from call to call")
+        if not same_bits(vgc, (0, 1, 2)):
+            raise AssertionError(f"fused_vgc {dtype_label} ({label}): val, grad or asum "
+                                 f"changed bits from call to call")
         record("fused_vgc", dtype_label, cd, max_err, vgc,
                lambda: fused_value_grad_curvature_reference(
                    idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
@@ -700,9 +749,9 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
             raise AssertionError(f"fused_hvp {dtype_label} ({label}) disagrees with its "
                                  f"plain version")
         hvp = lambda: fused_hessian_vector(idx, vals, c, w, shift, d)
-        if not same_bits(hvp, (1,)):
-            raise AssertionError(f"fused_hvp {dtype_label} ({label}): usum changed bits "
-                                 f"from call to call")
+        if not same_bits(hvp, (0, 1)):
+            raise AssertionError(f"fused_hvp {dtype_label} ({label}): hv or usum changed "
+                                 f"bits from call to call")
         # the composite's two CSR tensors are built outside the timed region
         x_csr, xt_csr = csr_of(idx, vals.to(cd), d), csr_t_of(idx, vals.to(cd), d)
         composite = lambda: torch.mv(xt_csr, c * (torch.mv(x_csr, w) + shift))
@@ -722,9 +771,9 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
             raise AssertionError(f"fused_hdiag {dtype_label} ({label}) disagrees with its "
                                  f"plain version")
         hdiag = lambda: fused_hessian_diagonal(idx, vals, y, off, ew, w, d, LOGISTIC_LOSS)
-        if not same_bits(hdiag, (2,)):
-            raise AssertionError(f"fused_hdiag {dtype_label} ({label}): csum changed bits "
-                                 f"from call to call")
+        if not same_bits(hdiag, (0, 1, 2)):
+            raise AssertionError(f"fused_hdiag {dtype_label} ({label}): dx2, dx or csum "
+                                 f"changed bits from call to call")
         x2t_csr = csr_t_of(idx, vals.to(cd) ** 2, d)
 
         def composite():
@@ -746,13 +795,127 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
     return results
 
 
+# the reduce's yardstick: one sparse product on the transposed CSR (built
+# untimed; bf16 values upcast once)
+REDUCE_LIBRARY = "torch.mv(XT_csr, a)"
+
+
+def copy_build(idx, d, label, vals64=None):
+    """Build the design's column-sorted copy anew, timed on its own (CUDA
+    events around the sort, the layout and the chains, which end in host
+    reads), and its bytes: (copy, record). With ``vals64`` the record also
+    holds the most device memory the build and the first layout of those
+    f64 values held at once above what was held before (``peak_bytes``),
+    and the most ELL slots that the card's memory holds as the design alone
+    (int32 ids + f64 values) and as the design with its copy: the copy's
+    bytes a slot, with the rest of the peak (one build chunk's sort, which
+    does not grow with the design) held once."""
+    from photon_ml_tpu_torch.kernels.colsort import build_design_columns
+
+    build_design_columns(idx, d)  # warm-up: the sort's first call allocates
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    copy = build_design_columns(idx, d)
+    end.record()
+    end.synchronize()
+    rec = {"build_ms": start.elapsed_time(end), "entries": copy.nvalid,
+           "ntiles": copy.ntiles, "chains": int(copy.chains.shape[0]),
+           "bytes": copy.nbytes(), "bytes_f64_values": copy.nbytes(8),
+           "ell_bytes": idx.numel() * (4 + 8)}
+    if vals64 is not None:
+        laid = copy.layout(vals64)
+        torch.cuda.synchronize()
+        slots = idx.numel()
+        card = torch.cuda.get_device_properties(idx.device).total_memory
+        peak = torch.cuda.max_memory_allocated() - base
+        kept = copy.nbytes(8)
+        rec.update({"peak_bytes": peak, "card_bytes": card,
+                    "largest_slots_design_alone": card // 12,
+                    "largest_slots_with_copy": int((card - max(0, peak - kept))
+                                                   // (12 + kept / slots))})
+        del laid
+    log(f"[{label}] column-sorted copy: built in {rec['build_ms']:.4f} ms, {copy.nvalid} "
+        f"entries in {copy.ntiles} tiles, {rec['chains']} chains, {rec['bytes']} bytes "
+        f"({rec['bytes_f64_values']} with f64 values; the ELL {rec['ell_bytes']})"
+        + ("" if vals64 is None else
+           f"; at most {rec['peak_bytes']} bytes held at once by the build and an f64 "
+           f"layout: the card's {rec['card_bytes']} bytes hold "
+           f"{rec['largest_slots_design_alone']} slots of a design alone, "
+           f"{rec['largest_slots_with_copy']} with its copy"))
+    return copy, rec
+
+
+def reduce_checks(idx, vals64, d, peaks, label):
+    """Check and time the column-sorted reduce on one design in the three
+    dtype pairs: the linear and the pair mode against the plain version
+    summed in f64 from the same inputs (rtol x each column's sum of
+    |terms|), both held to the same bits over 3 calls; the linear mode
+    timed beside ``torch.mv`` on the transposed CSR. One record per dtype
+    (the linear mode), with the copy's build time and bytes."""
+    from photon_ml_tpu_torch.kernels.colsort import (column_reduce, column_reduce_reference,
+                                                     column_values)
+
+    n = idx.shape[0]
+    copy, build_rec = copy_build(idx, d, label, vals64)
+    results = []
+    for dtype_label, vdt, cd, rtol, _ in FUSED_CASES:
+        vals = column_values(copy, vals64.to(vdt))
+        g = torch.Generator(device=idx.device).manual_seed(SEED + 9)
+        a = (torch.rand(n, generator=g, device=idx.device, dtype=torch.float64) - 0.3).to(cd)
+        v = vals.double()
+        worst = (0.0, 0.0)
+        for mode in ("linear", "pair"):
+            got = column_reduce(copy, vals, a, mode)
+            ref = column_reduce_reference(copy, v, a.double(), mode)
+            pairs = zip(got, ref, (v * v, v)) if mode == "pair" else [(got, ref, v)]
+            for out, want, t in pairs:
+                scale = column_reduce_reference(copy, t.abs(), a.abs().double(), "linear")
+                err, ok, share = within(out, want, scale, rtol)
+                if not (ok and bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"colsort_reduce {mode} {dtype_label} ({label}) "
+                                         f"disagrees with its plain version: {err:.3e}")
+                worst = max(worst, (err, share))
+            outputs = (0, 1) if mode == "pair" else (0,)
+            fn = ((lambda m=mode: column_reduce(copy, vals, a, m)) if mode == "pair"
+                  else (lambda: (column_reduce(copy, vals, a, "linear"),)))
+            if not same_bits(fn, outputs):
+                raise AssertionError(f"colsort_reduce {mode} {dtype_label} ({label}) changed "
+                                     f"bits from call to call")
+        log(f"[{label}] colsort_reduce {dtype_label}: linear and pair within "
+            f"{worst[1]:.2e} of rtol {rtol:g} x column sum of |terms| (max |kernel - plain| "
+            f"{worst[0]:.3e}); the same bits over 3 calls")
+        xt_csr = csr_t_of(idx, vals64.to(vdt).to(cd), d)
+        s_, sc = vals.element_size(), cd.itemsize
+        # the bound: the least traffic of X^T a, each entry's column id and
+        # value read once, a read, g written; the copy's row ids and tail
+        # padding are this design's own, reported as analytic_bytes
+        results.append(timed_record(
+            "colsort_reduce", dtype_label, cd, worst[0],
+            lambda: column_reduce(copy, vals, a, "linear"),
+            lambda: column_reduce_reference(copy, vals, a, "linear"),
+            copy.nvalid * (4 + s_) + n * sc + d * sc, 2 * copy.nvalid, peaks,
+            {"n": n, "k": idx.shape[1], "d": d, "entries": copy.nvalid}, label,
+            lambda: torch.mv(xt_csr, a), REDUCE_LIBRARY,
+        ))
+        results[-1].update({"max_err_share": worst[1], "replaces_all": REDUCE_REPLACES,
+                            "analytic_bytes": copy.cols.shape[0] * (8 + s_) + n * sc + d * sc,
+                            "copy": build_rec})
+        del vals, a, v, xt_csr
+        torch.cuda.empty_cache()
+    return results
+
+
 def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
-    """Check and time ell_scatter_add, fused_vgc, fused_hvp and
-    fused_hdiag on one design (every dtype each takes), against their
-    plain versions and, for ell_scatter_add, ``index_add_``. Returns one
-    record per (kernel, dtype)."""
+    """Check and time ell_scatter_add, fused_vgc, fused_hvp, fused_hdiag
+    and the column-sorted reduce on one design (every dtype each takes),
+    against their plain versions and, for ell_scatter_add, ``index_add_``.
+    Returns one record per (kernel, dtype)."""
     return (scatter_checks(idx, vals64, d, peaks, label)
-            + fused_checks(idx, vals64, d, peaks, label))
+            + fused_checks(idx, vals64, d, peaks, label)
+            + reduce_checks(idx, vals64, d, peaks, label))
 
 
 def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
@@ -767,7 +930,8 @@ def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k:
     idx[:, :HOT_COLUMNS] = torch.randperm(d, generator=g, device="cuda")[:HOT_COLUMNS].to(
         torch.int32)
     hot = (scatter_checks(idx, vals64, d, peaks, label="kernel-hot")
-           + fused_checks(idx, vals64, d, peaks, "kernel-hot", FUSED_CASES[:2]))
+           + fused_checks(idx, vals64, d, peaks, "kernel-hot", FUSED_CASES[:2])
+           + reduce_checks(idx, vals64, d, peaks, "kernel-hot"))
     del idx, vals64
     torch.cuda.empty_cache()
     return results, hot
@@ -1121,6 +1285,7 @@ def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
     run = run_scoring(params, **device_kw)
     wall_s = time.perf_counter() - t0
     launches = dispatch.launch_counts()
+    require_native(run, "[score]")
 
     # the same run again under torch.profiler, for the card's busy share;
     # tracing slows the synchronised margin step, so the run above is the
@@ -1168,6 +1333,7 @@ def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
         "kernel_max_abs_err": float(kernel_err.max()),
         "metrics": run.metrics,
         "setup_s": setup_s,
+        "codecs": run.codecs,
     }
     log(f"[score] {json.dumps(summary)}")
     return summary
@@ -1326,6 +1492,7 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
     want = {k: (1 if on_card and k == "ell_matvec" else 0) for k in launches}
     if launches != want:
         raise AssertionError(f"GAME scoring launched {launches}, expected {want}")
+    require_native(run, "[game]")
     log(f"[game] card run {wall_s:.4f} s, phases {json.dumps(run.timings)}, "
         f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
 
@@ -1342,6 +1509,7 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
     t0 = time.perf_counter()
     cpu = run_scoring({**params, "output_dir": os.path.join(work, "scores-cpu")}, device="cpu")
     cpu_wall_s = time.perf_counter() - t0
+    require_native(cpu, "[game] the CPU run")
 
     # the card against the CPU, and both against the generator's margins
     scale = np.maximum(1.0, np.abs(cpu.scores))
@@ -1689,18 +1857,19 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
         reads = host_reads()
     finally:
         FixedEffectCoordinate.update_and_score = update_and_score
+    require_native(run, "[game-train]")
 
     # the trainer's own counts: a TRON evaluation per iteration plus the
     # first, a CG step per fused_hvp; ell_matvec for each combo's initial
     # score, each fixed-effect rescore and each validation
     history = [h for s in run.sweep for h in s["history"]]
     fixed = _fixed_records(history)
-    expected = {
+    expected = with_reduce({
         "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
         "fused_hvp": sum(h.cg_iterations for h in fixed),
         "ell_matvec": (len(run.sweep) + len(fixed)
                        + sum(h.validation_metric is not None for h in history)),
-    }
+    })
     want = {k: (expected.get(k, 0) if on_card else 0) for k in launches}
     failures = []
     if launches != want:
@@ -1748,11 +1917,11 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
         cache, on_card)
     ex_history = [h for t in ex_traced for h in t]
     ex_fixed = _fixed_records(ex_history)
-    ex_expected = {
+    ex_expected = with_reduce({
         "fused_vgc": sum(int(h.solver_iterations) + 1 for h in ex_fixed),
         "fused_hvp": sum(h.cg_iterations for h in ex_fixed),
         "ell_matvec": len(ex_traced) + len(ex_fixed),
-    }
+    })
     ex_want = {k: (ex_expected.get(k, 0) if on_card else 0) for k in ex_launches}
     if ex_launches != ex_want:
         failures.append(f"GAME descent at the example's settings launched {ex_launches}, "
@@ -1781,6 +1950,7 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
     cpu = run_game_training({**params, "output_dir": os.path.join(work, "out-cpu")},
                             device="cpu")
     cpu_wall_s = time.perf_counter() - t0
+    require_native(cpu, "[game-train] the CPU run")
     gaps = game_train_gaps(run, cpu)
     gate_failures = game_train_gate_failures(gaps)
     log(f"[game-train] card vs CPU: objectives {gaps['objective']:.3e} relative (limit "
@@ -2018,13 +2188,14 @@ def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     wall_s = time.perf_counter() - t0
     launches = dispatch.launch_counts()
     reads = host_reads()
+    require_native(run, "[game-proj]")
     history = [h for s in run.sweep for h in s["history"]]
     fixed = _fixed_records(history)
-    expected = {
+    expected = with_reduce({
         "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
         "fused_hvp": sum(h.cg_iterations for h in fixed),
         "ell_matvec": len(run.sweep) + len(fixed) + len(history),
-    }
+    })
     want = {k: (expected.get(k, 0) if on_card else 0) for k in launches}
     if launches != want:
         failures.append(f"GAME training (projected) launched {launches}, expected {want}")
@@ -2058,6 +2229,7 @@ def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                         f"{len(pre.sweep)} combos")
     resumed = run_game_training({**pre_params, "resume": True}, **device_kw)
     resume_s = time.perf_counter() - t0
+    require_native(resumed, "[game-proj] the resumed run")
     resume_gaps = game_projected_gaps(resumed, run)
     log(f"[game-proj] preempted at step {marker and marker['step']} and resumed in "
         f"{resume_s:.1f} s: against the uninterrupted run {json.dumps(resume_gaps)}")
@@ -2089,9 +2261,10 @@ def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         f"{time.perf_counter() - phase_t0:.1f} s")
     traced_history = [h for t in traced for h in t]
     traced_fixed = _fixed_records(traced_history)
-    traced_expected = {"fused_vgc": sum(int(h.solver_iterations) + 1 for h in traced_fixed),
-                       "fused_hvp": sum(h.cg_iterations for h in traced_fixed),
-                       "ell_matvec": len(traced) + len(traced_fixed)}
+    traced_expected = with_reduce({
+        "fused_vgc": sum(int(h.solver_iterations) + 1 for h in traced_fixed),
+        "fused_hvp": sum(h.cg_iterations for h in traced_fixed),
+        "ell_matvec": len(traced) + len(traced_fixed)})
     traced_want = {k: (traced_expected.get(k, 0) if on_card else 0) for k in traced_launches}
     if traced_launches != traced_want:
         failures.append(f"the traced descent launched {traced_launches}, expected {traced_want}")
@@ -2102,6 +2275,7 @@ def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     cpu = run_game_training(game_projected_params(work, train, heldout, vocab_paths, "out-cpu"),
                             device="cpu")
     cpu_wall_s = time.perf_counter() - t0
+    require_native(cpu, "[game-proj] the CPU run")
     gaps = game_projected_gaps(run, cpu)
     log(f"[game-proj] card vs CPU (CPU run {cpu_wall_s:.1f} s): {json.dumps(gaps)}")
     gate_failures = game_projected_gate_failures(gaps)
@@ -2121,6 +2295,7 @@ def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                           "sparse_shards": ["gshard", "wshard"], "evaluate": True},
                          **device_kw)
     score_s = time.perf_counter() - t0
+    require_native(scored, "[game-proj] the scoring run")
     vdata, _, _, _ = IngestSource([heldout]).game_data(
         run.shard_vocabs, sorted(run.entity_vocabs), entity_vocabs=run.entity_vocabs,
         sparse_shards={"gshard", "wshard"})
@@ -2198,6 +2373,191 @@ def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     return summary
 
 
+# -- phase 5e: determinism at the settings users run -------------------------
+
+# phase 5d's records and coordinates at examples/run_wide_game.sh's lambda 1
+# for the fixed effect (TRON, 30 iterations, 1e-8: the example's own) and
+# the wide per-user effect, and the factored effect at lambda 1 for gamma
+# and B, capped at 100 iterations: settings at which the card's atomic
+# X^T once split the card from itself (ROADMAP queue C, C1). The gate is
+# bits, not convergence
+GAME_DET_COORDINATES = {
+    **GAME_PROJ_COORDINATES,
+    "global": {**GAME_PROJ_COORDINATES["global"], "reg_weights": [1.0], "max_iters": 30,
+               "tolerance": 1e-8},
+    "per-user-latent": {**GAME_PROJ_COORDINATES["per-user-latent"], "reg_weights": [1.0],
+                        "latent_reg_weight": 1.0, "max_iters": 100},
+}
+
+
+def _saved_leaves(run) -> dict:
+    """The best model's tables as the model directory holds them (read
+    back), and the factored effect through the matrix-factorization files."""
+    shards = {c: GAME_DET_COORDINATES[c]["shard"] for c in GAME_PROJ_SEQUENCE}
+    res = {c: GAME_DET_COORDINATES[c].get("random_effect") for c in GAME_PROJ_SEQUENCE}
+    loaded, _, _, _ = load_game_model(
+        run.output_dirs[0], {c: run.shard_vocabs[shards[c]] for c in GAME_PROJ_SEQUENCE},
+        {c: run.entity_vocabs[res[c]] for c in GAME_PROJ_SEQUENCE if res[c]})
+    leaves = {f"saved {k}": v for k, v in _leaves(loaded).items()}
+    latent = run.sweep[run.best_index]["model"].params["per-user-latent"]
+    mf_dir = os.path.join(run.params.output_dir, "mf")
+    save_mf_model(mf_dir, MatrixFactorizationModel(latent.gamma, latent.projection),
+                  "userId", "ushard", row_vocab=run.entity_vocabs["userId"])
+    mf, _, _ = load_mf_model(mf_dir, "userId", "ushard", row_vocab=run.entity_vocabs["userId"])
+    leaves["mf rows"], leaves["mf cols"] = mf.row_factors.cpu(), mf.col_factors.cpu()
+    return leaves
+
+
+def bit_gaps(run, other) -> list:
+    """What differs, bit for bit, between two runs of one configuration:
+    the best combo, every update's objective and validation AUC, every
+    table of every combo's final model in memory, every saved table and
+    the MF files. Empty when the runs are equal."""
+    diffs = []
+    if run.best_index != other.best_index:
+        diffs.append("best combo")
+    for i, (a, b) in enumerate(zip(run.sweep, other.sweep)):
+        ha, hb = a["history"], b["history"]
+        if [(h.objective, h.validation_metric) for h in ha] != [
+                (h.objective, h.validation_metric) for h in hb]:
+            diffs.append(f"combo {i}: per-update objectives or AUC")
+        la, lb = _leaves(a["model"].params), _leaves(b["model"].params)
+        diffs += [f"combo {i}: table {n}" for n in la if not torch.equal(la[n], lb[n])]
+    if len(run.sweep) != len(other.sweep):
+        diffs.append("combo count")
+    sa, sb = _saved_leaves(run), _saved_leaves(other)
+    diffs += [n for n in sa if not torch.equal(sa[n], sb[n])]
+    return diffs
+
+
+def game_determinism_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
+                           n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+                           n_users: int = GAME_TRAIN_USERS, user_cols: int = GAME_USER_COLS,
+                           n_ads: int = GAME_PROJ_ADS, **device_kw):
+    """Phase 5e: two uninterrupted runs of phase 5d's driver at the
+    settings users run (``GAME_DET_COORDINATES``) equal bit for bit, and a
+    run preempted by SIGTERM after its first pass and resumed equal to
+    them bit for bit: every update's objective, every table in memory and
+    saved, the MF files. No CPU reference. (The GLM half of the gate, two
+    training runs with the same w bits, runs in phase 6 on its design.)"""
+    phase_t0 = t0 = time.perf_counter()
+    vocab_paths, (train, heldout), _ = write_game_training_inputs(
+        work, n, n_heldout, d_hashed, n_users, user_cols=user_cols, n_ads=n_ads)
+    log(f"[game-det] wrote {n} training and {n_heldout} held-out records in "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+
+    def params(out):
+        return {**game_projected_params(work, train, heldout, vocab_paths, out),
+                "coordinates": GAME_DET_COORDINATES}
+
+    runs, walls = [], []
+    for out in ("first", "second"):
+        t0 = time.perf_counter()
+        runs.append(run_game_training(params(out), **device_kw))
+        walls.append(time.perf_counter() - t0)
+        require_native(runs[-1], f"[game-det] the {out} run")
+        history = [h for c in runs[-1].sweep for h in c["history"]]
+        log(f"[game-det] {out} run {walls[-1]:.4f} s, phases "
+            f"{json.dumps(runs[-1].timings)}, codecs {json.dumps(runs[-1].codecs)}, "
+            f"iterations per update "
+            f"{json.dumps([[h.coordinate, h.solver_iterations] for h in history])}")
+    first, second = runs
+
+    t0 = time.perf_counter()
+    pre_params = params("preempt")
+    shutdown_cls = game_train_mod.GracefulShutdown
+    game_train_mod.GracefulShutdown = _PreemptAfterFirstPass
+    try:
+        pre = run_game_training(pre_params, **device_kw)
+    finally:
+        game_train_mod.GracefulShutdown = shutdown_cls
+    marker = read_preempted_marker(
+        os.path.join(pre_params["output_dir"], "checkpoints", "combo-0"))
+    resumed = run_game_training({**pre_params, "resume": True}, **device_kw)
+    resume_s = time.perf_counter() - t0
+    require_native(resumed, "[game-det] the resumed run")
+
+    failures = []
+    if marker is None or marker["step"] != 1 or pre.output_dirs:
+        failures.append(f"preempted run: marker {marker}, saved {pre.output_dirs}")
+    rerun_gaps = bit_gaps(second, first)
+    resume_gaps = bit_gaps(resumed, first)
+    log(f"[game-det] second run against the first, bit for bit: "
+        f"{'equal' if not rerun_gaps else rerun_gaps}")
+    log(f"[game-det] preempted after pass {marker and marker['step']} and resumed "
+        f"({resume_s:.1f} s) against the first run, bit for bit: "
+        f"{'equal' if not resume_gaps else resume_gaps}")
+    if rerun_gaps:
+        failures.append(f"two card runs differ: {rerun_gaps}")
+    if resume_gaps:
+        failures.append(f"the resumed run differs from the uninterrupted one: {resume_gaps}")
+    history = [h for c in first.sweep for h in c["history"]]
+    fixed = _fixed_records(history)
+    summary = {
+        "records": n,
+        "heldout_records": n_heldout,
+        "device": first.device,
+        "wall_s": walls,
+        "timings_s": [r.timings for r in runs],
+        "codecs": first.codecs,
+        "preempt_resume_s": resume_s,
+        "fixed_iterations": [int(h.solver_iterations) for h in fixed],
+        "fixed_cg_iterations": [h.cg_iterations for h in fixed],
+        "mean_iterations": {c: [h.solver_iterations for h in history if h.coordinate == c]
+                            for c in GAME_PROJ_SEQUENCE},
+        "second_run_bit_gaps": rerun_gaps,
+        "resumed_bit_gaps": resume_gaps,
+        "best_auc": first.sweep[first.best_index]["validation_metric"],
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    log(f"[game-det] {json.dumps(summary)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary
+
+
+def determinism_probe(work: str, n: int = 1 << 14, n_heldout: int = 1 << 12, **device_kw):
+    """Not a phase of the smoke run: phase 5e's GAME configuration and phase
+    6's GLM training, once each under ``torch.use_deterministic_algorithms
+    (True, warn_only=True)``, listing every operation that PyTorch reports
+    as without a deterministic implementation (cuBLAS is held to one
+    workspace, as the flag requires). Run it in a process of its own, first
+    thing after the build. Returns {path: [messages]}."""
+    import warnings
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    found = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for path in ("game", "glm"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if path == "game":
+                    vocab_paths, (train, heldout), _ = write_game_training_inputs(
+                        os.path.join(work, path), n, n_heldout, D_HASHED, GAME_TRAIN_USERS,
+                        user_cols=GAME_USER_COLS, n_ads=GAME_PROJ_ADS)
+                    run_game_training({
+                        **game_projected_params(os.path.join(work, path), train, heldout,
+                                                vocab_paths, "out"),
+                        "coordinates": GAME_DET_COORDINATES}, **device_kw)
+                else:
+                    vocab_path, _, sets = write_training_inputs(
+                        os.path.join(work, path), n, n_heldout, D_HASHED)
+                    run_glm_training({
+                        "train_input": [sets["train"][0]], "validate_input": [sets["heldout"][0]],
+                        "output_dir": os.path.join(work, path, "out"), "feature_file": vocab_path,
+                        "optimizer": "TRON", "reg_type": "L2", "reg_weights": TRAIN_LAMBDAS,
+                        "tolerance": TRAIN_TOLERANCE, "max_iters": TRAIN_MAX_ITERS,
+                        "sparse": True, "precision": "float64"}, **device_kw)
+            found[path] = sorted({str(w.message).splitlines()[0] for w in caught
+                                  if "deterministic" in str(w.message)})
+            log(f"[probe] {path}: {len(found[path])} operations without a deterministic "
+                f"implementation: {json.dumps(found[path])}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return found
+
+
 # -- phase 6: the training driver end to end ---------------------------------
 
 
@@ -2264,12 +2624,17 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     iters = [tm.result.iterations for tm in run.models]
     cg = [tm.result.cg_iterations for tm in run.models]
     expected = {"fused_vgc": sum(i + 1 for i in iters), "fused_hvp": sum(cg)}
+    # the feature summary's five column sums go through the reduce too
+    expected["colsort_reduce"] = with_reduce({**expected, "ell_colsum": launches["ell_colsum"],
+                                              "ell_rmatvec": launches["ell_rmatvec"]}
+                                             )["colsort_reduce"]
     failures = []
+    require_native(run, "[train] the training run")
     if not device_kw:
         for kernel, count in expected.items():
             if launches[kernel] != count:
                 failures.append(f"{kernel}: {launches[kernel]} launches, the solves need {count}")
-        if launches["ell_scatter_add"] < 5 or launches["ell_matvec"] < 1:
+        if launches["ell_colsum"] < 5 or launches["ell_matvec"] < 1:
             failures.append(f"the training run missed a kernel: {launches}")
 
     # the same batch on the CPU through train_glm: coefficients and
@@ -2330,9 +2695,18 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        run_glm_training({**params, "overwrite": True}, **device_kw)
+        again = run_glm_training({**params, "overwrite": True}, **device_kw)
         traced_wall_s = time.perf_counter() - t0
     busy = device_busy(prof)
+    # phase 5e's GLM gate, on this phase's design: the second run (traced)
+    # ends with the first run's w bits at every lambda
+    same_w = [bool(torch.equal(a.model.coefficients.means, b.model.coefficients.means))
+              for a, b in zip(run.models, again.models)]
+    log(f"[train] determinism: the second run's w bit for bit equal to the first's at "
+        f"lambda {[tm.reg_weight for tm in run.models]}: {same_w}")
+    require_native(again, "[train] the traced run")
+    if not (all(same_w) and len(again.models) == len(run.models)):
+        raise AssertionError(f"two GLM training runs ended with other w bits: {same_w}")
 
     total_iters = sum(iters)
     summary = {
@@ -2355,6 +2729,8 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                               else 1.0 - busy["device_busy_s"] / traced_wall_s),
         "cpu_reference_s": cpu_s,
         "setup_s": setup_s,
+        "codecs": run.codecs,
+        "second_run_same_w_bits": same_w,
     }
     log(f"[train] {json.dumps(summary)}")
     reference = {"params": params, "vocab": vocab, "sets": sets, "batch_cpu": batch_cpu,
@@ -2452,6 +2828,7 @@ def timed_run(params, device_kw):
     t0 = time.perf_counter()
     run = run_glm_training(params, **device_kw)
     wall_s = time.perf_counter() - t0
+    require_native(run, "[full]")
     return run, wall_s, dispatch.launch_counts(), host_reads()
 
 
@@ -2497,7 +2874,7 @@ def full_trainer_phase(work: str, ref: dict, **device_kw):
         failures.append(f"run A: {launches['fused_hdiag']} fused_hdiag launches, "
                         f"one per lambda is {lam_count}")
     if not device_kw and min(launches[k] for k in ("fused_vgc", "fused_hvp", "ell_matvec",
-                                                      "ell_scatter_add")) < 1:
+                                                      "ell_colsum", "colsort_reduce")) < 1:
         failures.append(f"run A missed a kernel: {launches}")
     html = os.path.join(run.params.output_dir, "model-diagnostic.html")
     if not (os.path.exists(html) and os.path.getsize(html) > 0):
@@ -2655,6 +3032,10 @@ def main() -> int:
         # and a resume, held to the CPU
         game_proj_summary = game_projected_phase(os.path.join(work, "game_proj"), name)
         shutil.rmtree(os.path.join(work, "game_proj"), ignore_errors=True)
+        # 5e. determinism at the settings users run: two card runs and a
+        # preempted-and-resumed one, bit for bit
+        game_det_summary = game_determinism_phase(os.path.join(work, "game_det"), name)
+        shutil.rmtree(os.path.join(work, "game_det"), ignore_errors=True)
         # 6. GLM training end to end
         train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
         # 7. the full trainer on the same records
@@ -2664,6 +3045,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"train_shape_checks": shape_checks}))
     log(json.dumps({"full_trainer": full_summary}))
+    log(json.dumps({"determinism": {"game": game_det_summary,
+                                    "glm_second_run_same_w_bits":
+                                        train_summary["second_run_same_w_bits"]}}))
 
     # 8. result lines: each kernel at the kernel-phase shape in the main
     # path's dtype (f64), its time at the training driver's shape (and
@@ -2683,11 +3067,15 @@ def main() -> int:
         return next((c for c in records if c["name"] == kernel and c["dtype"] == "f64"), None)
 
     kernels = []
-    for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp", "fused_hdiag"):
+    for kernel in ("ell_matvec", "ell_scatter_add", "fused_vgc", "fused_hvp", "fused_hdiag",
+                   "colsort_reduce"):
         main_path = f64_record(checks + train_checks, kernel)
         at_shape = f64_record(shape_checks, kernel)
         hot = f64_record(hot_checks, kernel)
-        launches = (full_launches if kernel == "fused_hdiag" else train_summary["launches"])
+        # ell_scatter_add's path is the lab's A2 since the training paths'
+        # column sums went to the reduce
+        launches = {"fused_hdiag": full_launches, "ell_scatter_add": lab_launches}.get(
+            kernel, train_summary["launches"])
         kernels.append({
             **{k: main_path[k] for k in keys},
             "launches": launches[kernel],
@@ -2711,6 +3099,12 @@ def main() -> int:
         if main_path["composite"] is not None:
             kernels[-1].update({k: main_path[k] for k in (
                 "composite", "composite_ms", "composite_device_ms")})
+        if kernel == "colsort_reduce":
+            kernels[-1].update({"replaces_all": REDUCE_REPLACES,
+                                "bytes": main_path["bytes"],
+                                "analytic_bytes": main_path["analytic_bytes"],
+                                "copy": main_path["copy"],
+                                "hot_copy": hot["copy"], "train_shape_copy": at_shape["copy"]})
     # the lab's kernels: each at the lab's default shape, its launches on
     # the lab's path, and the column-sorted pair at the uniform 2^22 design
     for kernel in LAB_KERNELS:

@@ -9,11 +9,14 @@ are the bridges between the two packages.
 
 Ported so far: GLM scoring (``cli.score.run_scoring`` with
 ``model_kind="glm"``) with the ``ell_matvec`` kernel; the whole GLM trainer
-(``cli.train.run_glm_training``) with the ``ell_scatter_add``,
-``fused_vgc``, ``fused_hvp`` and ``fused_hdiag`` kernels; the sparse kernel
-lab (``benchmarks.sparse_kernel_lab``) with its three kernels; and GAME
-scoring (``run_scoring`` with ``model_kind="game"``, ``game.scoring``),
-whose fixed effects run on ``ell_matvec``.
+(``cli.train.run_glm_training``) with the ``fused_vgc``, ``fused_hvp`` and
+``fused_hdiag`` kernels, whose X^T side (and the feature summary's column
+sums) is the fixed-order column-sorted reduce (``kernels.colsort``); the
+sparse kernel lab (``benchmarks.sparse_kernel_lab``) with its three
+kernels and ``ell_scatter_add``; GAME scoring and training (``cli.score``
+with ``model_kind="game"``, ``cli.game_train``), whose fixed effects run on
+the same kernels; and the native Avro codec (``io.native``), through which
+every driver reads and writes its Avro.
 """
 
 __version__ = "0.1.0"

@@ -212,10 +212,11 @@ def _unported_game_setting(params: "GameDriverParams"):
         return (f"shards {missing} without a feature_shards file (the "
                 "from-records vocabulary)", "Ingest hooks")
     if params.passes_per_dispatch > 1 and params.convergence_tolerance > 0:
-        # the JAX package tests the early exit once per dispatch chunk
+        # the JAX package tests the early exit once per dispatch chunk of
+        # its fused passes; the port's descent runs pass by pass
         return (f"passes_per_dispatch={params.passes_per_dispatch} with "
                 f"convergence_tolerance={params.convergence_tolerance!r}",
-                "GAME training")
+                "Combo grid and dispatch chunks")
     return None
 
 

@@ -261,6 +261,9 @@ class GameTrainingRun:
     # descent, per-update validation included), write (models, feature
     # indexes, manifest)
     timings: Dict[str, float]
+    # the Avro codec of each read: {"ingest": ..., "validation_ingest": ...},
+    # each "native" (the C++ codec) or "python"
+    codecs: Dict[str, str]
 
 
 def run_game_training(params, device=None) -> GameTrainingRun:
@@ -326,7 +329,8 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             shard_vocabs, entity_keys, sparse_shards=set(params.sparse_shards)
         )
         timings["ingest"] = time.perf_counter() - t0
-        logger.info(f"read {len(data.labels)} training records")
+        codecs = {"ingest": source.codec}
+        logger.info(f"read {len(data.labels)} training records ({source.codec} codec)")
         entity_counts = {k: len(v) for k, v in entity_vocabs.items()}
         logger.info(f"shards: { {s: len(v) for s, v in shard_vocabs.items()} } "
                     f"entities: {entity_counts}")
@@ -334,12 +338,14 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
         vdata = None
         if params.validate_input:
             t0 = time.perf_counter()
-            vdata, _, _, _ = IngestSource(
+            vsource = IngestSource(
                 expand_date_paths(params.validate_input, date_range), params.field_names,
-            ).game_data(
+            )
+            vdata, _, _, _ = vsource.game_data(
                 shard_vocabs, entity_keys, entity_vocabs=entity_vocabs,
                 sparse_shards=set(params.sparse_shards),
             )
+            codecs["validation_ingest"] = vsource.codec
             vdata = _placed_game_data(vdata, dtype, device)
             synchronize(device)
             timings["validation_ingest"] = time.perf_counter() - t0
@@ -553,6 +559,7 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
         output_dirs=output_dirs,
         device=str(device),
         timings=timings,
+        codecs=codecs,
     )
 
 

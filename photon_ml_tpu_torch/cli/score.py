@@ -55,6 +55,9 @@ class ScoringRun:
     # a GLM also the model load), load (GAME model), margins (device-
     # synchronised), write, evaluate
     timings: Dict[str, float]
+    # the Avro codec of each step: {"ingest": ..., "write": ...}, each
+    # "native" (the C++ codec) or "python"
+    codecs: Dict[str, str]
 
 
 def write_scored_items(
@@ -63,9 +66,30 @@ def write_scored_items(
     uids: np.ndarray,
     labels: np.ndarray,
     label_present: np.ndarray,
-) -> int:
-    """ScoringResultAvro output through the Python codec. An empty-string
-    uid is written as null, as the JAX package writes it."""
+) -> str:
+    """ScoringResultAvro output, natively encoded straight from the score
+    arrays when the C++ codec builds (no per-record dicts), through the
+    Python codec otherwise or if the native writer refuses the schema.
+    Both write an empty-string uid as null, as the JAX package does.
+    Returns the codec that wrote ("native" or "python")."""
+    from photon_ml_tpu_torch.io import native
+
+    if native.native_available():
+        try:
+            native.write_columnar_avro(
+                out_path,
+                SCORING_RESULT_SCHEMA,
+                {
+                    "predictionScore": scores,
+                    "uid": uids,
+                    "label": (labels, label_present),
+                    "metadataMap": None,
+                },
+                len(scores),
+            )
+            return "native"
+        except native.UnsupportedSchema:
+            pass
     write_avro_file(
         out_path,
         SCORING_RESULT_SCHEMA,
@@ -79,7 +103,7 @@ def write_scored_items(
             for s, u, l, p in zip(scores, uids, labels, label_present)
         ],
     )
-    return len(scores)
+    return "python"
 
 
 def _glm_model_path(params: ScoringParams, logger: PhotonLogger) -> str:
@@ -201,9 +225,10 @@ def run_scoring(params, device=None) -> ScoringRun:
     out_path = os.path.join(params.output_dir, "scores", "part-00000.avro")
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     has_labels = bool(label_present.any())
-    n_out = write_scored_items(out_path, scores, uids, labels, label_present)
+    codecs = {"ingest": source.codec,
+              "write": write_scored_items(out_path, scores, uids, labels, label_present)}
     timings["write"] = time.perf_counter() - t0
-    logger.info(f"wrote {n_out} scored items to {out_path}")
+    logger.info(f"wrote {len(scores)} scored items to {out_path} (codecs {codecs})")
 
     # ---- optional evaluation (Driver.scala:166-185) ----------------------
     eval_metrics: Dict[str, float] = {}
@@ -237,6 +262,7 @@ def run_scoring(params, device=None) -> ScoringRun:
         output_path=out_path,
         device=str(device),
         timings=timings,
+        codecs=codecs,
     )
 
 

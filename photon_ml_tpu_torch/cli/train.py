@@ -12,8 +12,9 @@ outputs. Run as
 or programmatically via :func:`run_glm_training`. It runs on the CUDA
 device unless given another: with ``sparse`` the objective passes go
 through the ``fused_vgc`` / ``fused_hvp`` kernels, the variances through
-``fused_hdiag``, the feature summary through ``ell_scatter_add`` and the
-validation margins through ``ell_matvec``.
+``fused_hdiag``, the feature summary through ``ell_colsum`` (the
+column-sorted reduce on the card) and the validation margins through
+``ell_matvec``.
 """
 
 from __future__ import annotations
@@ -133,6 +134,9 @@ class GLMTrainingRun:
     # report, with diagnostics), write (models, texts, vocabulary,
     # metrics); each solve's own seconds are on its model
     timings: Dict[str, float]
+    # the Avro codec of each read: {"ingest": ..., "validate": ...}, each
+    # "native" (the C++ codec) or "python"
+    codecs: Dict[str, str]
 
 
 def run_glm_training(params, device=None) -> GLMTrainingRun:
@@ -178,7 +182,8 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         )
         synchronize(device)
         timings["ingest"] = time.perf_counter() - t0
-        logger.info(f"read {batch.labels.shape[0]} training records")
+        codecs = {"ingest": source.codec}
+        logger.info(f"read {batch.labels.shape[0]} training records ({source.codec} codec)")
 
         t0 = time.perf_counter()
         sanity_check_data(batch, task, DataValidationType[params.data_validation])
@@ -231,10 +236,13 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         tracker.assert_at_least(DriverStage.TRAINED)
         with timed(logger, "validate"):
             t0 = time.perf_counter()
-            vbatch, _vuids, _vpresent = IngestSource(
+            vsource = IngestSource(
                 expand_date_paths(params.validate_input, date_range),
                 params.field_names,
-            ).labeled_batch(vocab, sparse=params.sparse, dtype=dtype, device=device)
+            )
+            vbatch, _vuids, _vpresent = vsource.labeled_batch(
+                vocab, sparse=params.sparse, dtype=dtype, device=device)
+            codecs["validate"] = vsource.codec
             weights = vbatch.effective_weights()
             for tm in models:
                 margins = tm.model.compute_margin(vbatch.features, vbatch.offsets)
@@ -324,6 +332,7 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         summary=summary,
         device=str(device),
         timings=timings,
+        codecs=codecs,
     )
 
 

@@ -1,6 +1,5 @@
 """Ingest: Avro training records -> columnar arrays / LabeledBatch
-(counterpart of ``photon_ml_tpu/io/ingest.py``, cut down to the pure-Python
-Avro codec path).
+(counterpart of ``photon_ml_tpu/io/ingest.py``).
 
 Sparse (name, term, value) feature lists are indexed against a vocabulary,
 duplicate (name, term) entries in one record are summed
@@ -8,9 +7,12 @@ duplicate (name, term) entries in one record are summed
 is set to 1. Rows land in a dense float matrix or, with ``sparse=True``, in
 a padded-ELL ``ops.sparse.SparseFeatures``. GAME input (``game_data``)
 gets one matrix per feature shard, dense or padded-ELL, and one entity
-index column per random-effect type. Not ported yet: the native C++
-reader, the streamed pipeline, the quality fingerprints and the retrying
-read.
+index column per random-effect type. ``IngestSource`` reads through the
+native C++ codec (:mod:`photon_ml_tpu_torch.io.native`) when it builds and
+the writer schema is in its family, and through the pure-Python codec
+otherwise, as the JAX package does; ``IngestSource.codec`` says which ran.
+Not ported yet: the native vocabulary scan, the streamed pipeline, the
+quality fingerprints and the retrying read.
 """
 
 from __future__ import annotations
@@ -330,8 +332,11 @@ def labeled_batch_from_avro(
 
 
 class IngestSource:
-    """Avro input files -> LabeledBatch or GameData, through the
-    pure-Python codec. Records are decoded once and cached."""
+    """Avro input files -> LabeledBatch or GameData: one native decode pass
+    per artifact when the C++ codec builds and takes the files' schema,
+    else the pure-Python codec, whose records are decoded once and cached.
+    ``codec`` is the codec of the last artifact read ("native" or
+    "python"; None before the first)."""
 
     def __init__(self, paths, field_names: str = TRAINING_EXAMPLE_FIELDS):
         if isinstance(paths, str):
@@ -351,7 +356,12 @@ class IngestSource:
             raise FileNotFoundError(f"no input files in {paths!r}")
         self.files = files
         self.field_names = field_names
+        self.codec: Optional[str] = None
         self._records: Optional[List[dict]] = None
+
+    @property
+    def label_field(self) -> str:
+        return "response" if self.field_names == RESPONSE_PREDICTION_FIELDS else "label"
 
     def records(self) -> List[dict]:
         """Decoded records (cached); raises on a valid-but-empty input."""
@@ -366,6 +376,24 @@ class IngestSource:
             self._records = normalize_field_names(recs, self.field_names)
         return self._records
 
+    def _read_native(self, vocabs, entity_keys, allow_null_labels):
+        """The native codec's columns, or None where it does not build or
+        refuses the schema (the caller takes the Python codec)."""
+        from photon_ml_tpu_torch.io import native
+
+        if not native.native_available():
+            return None
+        try:
+            out = native.read_columnar(
+                self.files, vocabs, entity_keys, label_field=self.label_field,
+                allow_null_labels=allow_null_labels,
+            )
+        except native.UnsupportedSchema:
+            return None
+        if out["n"] == 0:
+            raise ValueError(f"no records found in {self.files}")
+        return out
+
     def labeled_batch(
         self,
         vocab: FeatureVocabulary,
@@ -376,14 +404,34 @@ class IngestSource:
         device="cpu",
     ) -> Tuple[LabeledBatch, np.ndarray, np.ndarray]:
         """-> (LabeledBatch on ``device``, uids, label_present)."""
-        recs = self.records()
-        batch = labeled_batch_from_avro(
-            recs, vocab, dtype=dtype, sparse=sparse, nnz_per_row=nnz_per_row,
-            allow_null_labels=allow_null_labels, device=device,
+        out = self._read_native([vocab], (), allow_null_labels)
+        if out is None:
+            self.codec = "python"
+            recs = self.records()
+            batch = labeled_batch_from_avro(
+                recs, vocab, dtype=dtype, sparse=sparse, nnz_per_row=nnz_per_row,
+                allow_null_labels=allow_null_labels, device=device,
+            )
+            uids = np.asarray([r.get("uid") for r in recs], object)
+            present = np.asarray([r.get("label") is not None for r in recs], bool)
+            return batch, uids, present
+        self.codec = "native"
+        n = out["n"]
+        rows, cols, vals = _inject_intercept(*out["coo"][0], n, vocab.intercept_index)
+        dtype = dtype or torch.float32
+        if sparse:
+            from photon_ml_tpu_torch.ops.sparse import from_coo
+
+            features = from_coo(rows, cols, vals, n, len(vocab), nnz_per_row=nnz_per_row,
+                                dtype=dtype, device=device)
+        else:
+            features = np.zeros((n, len(vocab)), np.float64)
+            np.add.at(features, (rows.astype(np.int64), cols.astype(np.int64)), vals)
+        batch = LabeledBatch.create(
+            features, out["labels"], offsets=out["offsets"], weights=out["weights"],
+            dtype=dtype, device=device,
         )
-        uids = np.asarray([r.get("uid") for r in recs], object)
-        present = np.asarray([r.get("label") is not None for r in recs], bool)
-        return batch, uids, present
+        return batch, out["uids"], out["label_present"]
 
     def game_data(
         self,
@@ -394,17 +442,38 @@ class IngestSource:
         sparse_shards: Optional[set] = None,
     ):
         """-> (GameData on the host, entity_vocabs, uids, label_present)."""
-        recs = self.records()
-        data, vocabs, uids = game_data_from_avro(
-            recs,
-            shard_vocabs,
-            entity_keys,
-            entity_vocabs=entity_vocabs,
-            allow_null_labels=allow_null_labels,
-            sparse_shards=sparse_shards,
+        from photon_ml_tpu_torch.game.data import GameData
+
+        shards = list(shard_vocabs)
+        out = self._read_native([shard_vocabs[s] for s in shards], tuple(entity_keys),
+                                allow_null_labels)
+        if out is None:
+            self.codec = "python"
+            recs = self.records()
+            data, vocabs, uids = game_data_from_avro(
+                recs,
+                shard_vocabs,
+                entity_keys,
+                entity_vocabs=entity_vocabs,
+                allow_null_labels=allow_null_labels,
+                sparse_shards=sparse_shards,
+            )
+            present = np.asarray([r.get("label") is not None for r in recs], bool)
+            return data, vocabs, uids, present
+        self.codec = "native"
+        n = out["n"]
+        features = _assemble_shard_features(
+            shard_vocabs, {shard: out["coo"][si] for si, shard in enumerate(shards)}, n,
+            sparse_shards,
         )
-        present = np.asarray([r.get("label") is not None for r in recs], bool)
-        return data, vocabs, uids, present
+        entity_ids, out_vocabs = index_entity_strings(
+            {k: out["entities"][k] for k in entity_keys}, entity_vocabs
+        )
+        data = GameData.create(
+            features=features, labels=out["labels"], offsets=out["offsets"],
+            weights=out["weights"], entity_ids=entity_ids,
+        )
+        return data, out_vocabs, out["uids"], out["label_present"]
 
 
 def make_training_example(

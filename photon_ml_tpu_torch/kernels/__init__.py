@@ -4,11 +4,21 @@
 ``dispatch`` routes by tensor device and counts launches; ``build``
 compiles ``csrc/*.cu`` with ``nvcc`` at first use; ``ell`` holds the
 padded-ELL gather and scatter kernels, ``fused`` the fused objective
-passes and ``lab`` the sparse kernel lab's lane gather, column-sorted
-gather and column-sorted reduce with their layout; each kernel with its
-plain PyTorch version.
+passes, ``colsort`` a design's column-sorted copy and the fixed-order
+column reduce over it (the X^T side of the fused passes, ``ell_rmatvec``
+and ``ell_colsum`` on the card) and ``lab`` the sparse kernel lab's lane
+gather, column-sorted gather and column-sorted reduce with their layout;
+each kernel with its plain PyTorch version.
 """
 
+from photon_ml_tpu_torch.kernels.colsort import (
+    DesignColumns,
+    build_design_columns,
+    column_reduce,
+    column_reduce_reference,
+    column_values,
+    design_columns,
+)
 from photon_ml_tpu_torch.kernels.dispatch import (
     design_reads,
     launch_counts,
@@ -43,6 +53,12 @@ from photon_ml_tpu_torch.kernels.lab import (
 )
 
 __all__ = [
+    "DesignColumns",
+    "build_design_columns",
+    "column_reduce",
+    "column_reduce_reference",
+    "column_values",
+    "design_columns",
     "design_reads",
     "launch_counts",
     "record_kernel_cost",

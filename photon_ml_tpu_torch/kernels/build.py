@@ -28,6 +28,7 @@ SOURCES: Dict[str, str] = {
     "ell_matvec": "ell_matvec.cu",
     "ell_scatter_add": "ell_scatter_add.cu",
     "fused": "fused.cu",
+    "colsort": "colsort.cu",
     "lab": "lab.cu",
 }
 

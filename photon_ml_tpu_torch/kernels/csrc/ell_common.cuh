@@ -60,38 +60,15 @@ __host__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// Two sums carried by one update (fused_hdiag: v^2 c and v c), and the
-// two (d,) outputs they go to, as Pair<W*> (W may be wider than the sums).
-template <typename T>
-struct Pair {
-  T first;
-  T second;
-};
-
-template <typename T>
-__device__ __forceinline__ Pair<T> operator+(Pair<T> x, Pair<T> y) {
-  return {x.first + y.first, x.second + y.second};
-}
-
 // atomicAdd of an update into one shared-memory value, and into column c
-// of the output(s); a Pair takes two atomics, one per sum
+// of the output
 template <typename T>
 __device__ __forceinline__ void atomic_add(T* p, T u) {
   atomicAdd(p, u);
 }
 template <typename T>
-__device__ __forceinline__ void atomic_add(Pair<T>* p, Pair<T> u) {
-  atomicAdd(&p->first, u.first);
-  atomicAdd(&p->second, u.second);
-}
-template <typename T>
 __device__ __forceinline__ void add_at(T* out, int32_t c, T u) {
   atomicAdd(out + c, u);
-}
-template <typename W, typename T>
-__device__ __forceinline__ void add_at(Pair<W*> out, int32_t c, Pair<T> u) {
-  atomicAdd(out.first + c, W(u.first));
-  atomicAdd(out.second + c, W(u.second));
 }
 
 // An open-addressing table in shared memory that sums one tile's updates by
@@ -101,9 +78,7 @@ __device__ __forceinline__ void add_at(Pair<W*> out, int32_t c, Pair<T> u) {
 // c mod capacity, then the next ones: hashed or vocabulary-ordered ids
 // spread over the low bits. Per table slot: the column id (claimed by
 // atomicCAS from kEmpty), a flag "named more than once", and a value in
-// the update's type T: one sum (ell_scatter_add, fused_vgc, fused_hvp), or
-// a Pair of two (fused_hdiag), which one place() claims together and
-// which go out to the two outputs of a Pair<T*> side by side. Every thread
+// the update's type T (ell_scatter_add's f64 or f32). Every thread
 // of the block goes through four steps, with a barrier between each:
 //
 //   1. clear();
@@ -114,15 +89,16 @@ __device__ __forceinline__ void add_at(Pair<W*> out, int32_t c, Pair<T> u) {
 //      is a multiple of the capacity, costs what one atomic per slot
 //      costs and never stalls);
 //   3. add(): an id named once in the tile goes straight to the output
-//      with one global atomicAdd per sum; the other slots of a repeated id
+//      with one global atomicAdd; the other slots of a repeated id
 //      add into the table's value with shared-memory atomicAdd;
 //   4. flush(): the owner of a repeated id adds its own update and the
-//      table's value into the output with one global atomicAdd per sum.
+//      table's value into the output with one global atomicAdd.
 //
 // So a tile of all-distinct ids pays one shared CAS per slot and its usual
 // global atomics, and a column named by many rows of a tile takes one
-// global atomic per sum per tile instead of one per slot. The order of the
-// adds varies from run to run, and so do a column's last bits.
+// global atomic per tile instead of one per slot. The order of the adds
+// varies from run to run, and so do a column's last bits: the training
+// paths' X^T goes through the column-sorted reduce instead (colsort.cuh).
 template <typename T>
 struct TileCombiner {
   static constexpr int32_t kEmpty = -1;
@@ -179,9 +155,7 @@ struct TileCombiner {
     return -1;
   }
 
-  // Out is T* (one output) or, for a Pair<A>, Pair<W*> (two outputs)
-  template <typename Out>
-  __device__ __forceinline__ void add(int h, bool owner, int32_t c, T u, Out out) {
+  __device__ __forceinline__ void add(int h, bool owner, int32_t c, T u, T* out) {
     if (!repeated[h]) {
       add_at(out, c, u);
     } else if (!owner) {
@@ -189,8 +163,7 @@ struct TileCombiner {
     }
   }
 
-  template <typename Out>
-  __device__ __forceinline__ void flush(int h, bool owner, int32_t c, T u, Out out) {
+  __device__ __forceinline__ void flush(int h, bool owner, int32_t c, T u, T* out) {
     if (owner && repeated[h]) {
       add_at(out, c, vals[h] + u);
     }

@@ -2,9 +2,10 @@
 // g_j = sum over slots (i, k) with c_ik = j of upd_ik.
 //
 // Replaces photon_ml_tpu/kernels/ell.py::ell_scatter_add (Pallas body
-// _scatter_kernel), the shared core of ell_rmatvec (upd = v_ik * a_i) and
-// ell_colsum (upd = v_ik * c_i or v_ik^2 * c_i); the wrapper forms upd
-// outside the kernel, as the JAX package does. Same contract: a slot whose
+// _scatter_kernel), which takes any per-slot update table (the sparse
+// kernel lab's A2 forms upd = v_ik * a_i outside the kernel). On CUDA
+// tensors the port's ell_rmatvec and ell_colsum go through the fixed-order
+// column-sorted reduce (colsort.cuh) instead. Same contract: a slot whose
 // column id is >= d (the padding id is d) adds nothing — the ids are
 // compared as unsigned, so a negative id adds nothing too; duplicate ids,
 // within a row or across rows, sum. Types: upd f64 -> f64, f32 -> f32.

@@ -8,9 +8,9 @@
 // loads (so a granule never crosses a row), else GS = 1 (k = 1, 5, 17,
 // ...). A round of a tile is U granules per thread of a kThreads block,
 // held in registers; a row longer than a round spans several. ell_matvec
-// holds 4 granules of 4 slots or 8 of 1 per thread; a fused pass, whose
-// slots wait in registers for the combiner's table, 4 slots (kRoundSlots
-// = 1024 per round, R = max(1, floor(1024 / k)) rows per tile). Each
+// holds 4 granules of 4 slots or 8 of 1 per thread; a fused pass 4 slots
+// (kRoundSlots = 1024 per round, R = max(1, floor(1024 / k)) rows per
+// tile). Each
 // thread first issues all the loads of its granules (photon::load_cs:
 // 16-byte ids, 32, 16 or 8 bytes of values, under the streaming hint; each
 // warp on one contiguous span, so every lane works whatever k is), then

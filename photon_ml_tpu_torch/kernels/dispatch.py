@@ -33,11 +33,14 @@ __all__ = [
     "kernel_costs",
 ]
 
-# Design reads per pass, per kernel: each pass reads (indices, values) once.
-# ell_rmatvec and ell_colsum are ell_scatter_add launches whose update
-# table is formed outside the kernel; each counts its own calls as well.
-# The sparse kernel lab's kernels (kernels/lab.py) read their table or
-# column-sorted tiles once.
+# Design reads per pass, per kernel: the least traffic of each pass reads
+# (indices, values) once. On the card ell_rmatvec, ell_colsum and the fused
+# passes' X^T side run the column-sorted reduce (kernels/colsort.py), which
+# counts its own launches as colsort_reduce as well and reads the design's
+# column-sorted copy once; the fused passes read the design twice (the ELL,
+# then the copy), which their analytic_bytes record. The sparse kernel
+# lab's kernels (kernels/lab.py) read their table or column-sorted tiles
+# once.
 _DESIGN_READS = {
     "ell_matvec": 1,
     "ell_scatter_add": 1,
@@ -46,6 +49,7 @@ _DESIGN_READS = {
     "fused_vgc": 1,
     "fused_hvp": 1,
     "fused_hdiag": 1,
+    "colsort_reduce": 1,
     "lane_gather": 1,
     "onehot_gather": 1,
     "onehot_reduce": 1,

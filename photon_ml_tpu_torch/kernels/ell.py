@@ -2,11 +2,14 @@
 
 - ``ell_matvec``: z_i = sum_k v_ik * w[c_ik] (``csrc/ell_matvec.cu``);
 - ``ell_scatter_add``: g_j = sum over slots with c_ik = j of upd_ik
-  (``csrc/ell_scatter_add.cu``), the core of
-- ``ell_rmatvec`` (upd = v_ik * a_i, the gradient back-projection) and
-- ``ell_colsum`` (upd = v_ik * c_i or v_ik^2 * c_i, the column sums), whose
-  update tables are formed outside the kernel, as the JAX package forms
-  them.
+  (``csrc/ell_scatter_add.cu``), for any per-slot update table;
+- ``ell_rmatvec`` (v_ik * a_i summed by column, the gradient
+  back-projection) and
+- ``ell_colsum`` (v_ik * c_i or v_ik^2 * c_i summed by column): on CPU
+  tensors the plain version forms the update table and scatters it, as
+  the JAX package does; on CUDA tensors the fixed-order column reduce over
+  the design's column-sorted copy (``kernels/colsort.py``), so the
+  feature summary has the same bits from run to run.
 
 Padding slots (column id ``d``, value 0) read 0 and add nothing; so do ids
 outside [0, d). On CUDA tensors each wrapper launches its hand-written
@@ -277,19 +280,35 @@ def ell_rmatvec_reference(indices, values, a, d: int) -> torch.Tensor:
     return ell_scatter_add_reference(indices, _rmatvec_update(values, a), d)
 
 
-def ell_rmatvec(indices, values, a, d: int) -> torch.Tensor:
-    """g = ELL^T @ a, shape (d,), in ``result_type(values, a)``: the
-    per-slot update v_ik * a_i is formed outside the kernel."""
+def _column_reduce(kernel: str, indices, values, c, d: int, mode: str) -> torch.Tensor:
+    """``kernel``'s CUDA route: the reduce of ``mode`` over the design's
+    column-sorted copy (built at the first call on ``indices``)."""
+    from photon_ml_tpu_torch.kernels import colsort
+
     n, k = indices.shape
-    upd = _rmatvec_update(values, a)
+    check_launch(kernel, indices, d, tables=[("values", values)])
+    vdt, cd = colsort.reduce_dtypes(values.dtype, c.dtype)
+    if n * k == 0:
+        return torch.zeros((d,), dtype=cd, device=indices.device)
+    copy = colsort.design_columns(indices, d)
+    out = colsort.column_reduce(copy, colsort.column_values(copy, values.to(vdt)), c, mode)
+    dispatch.count_launch(kernel)
+    return out
+
+
+def ell_rmatvec(indices, values, a, d: int) -> torch.Tensor:
+    """g = ELL^T @ a, shape (d,), in ``result_type(values, a)``. CUDA
+    tensors: the column reduce (one launch, no atomics, a fixed order);
+    CPU tensors: the per-slot update v_ik * a_i scattered by
+    ``ell_scatter_add_reference``."""
+    n, k = indices.shape
     dispatch.record_kernel_cost(
         "ell_rmatvec", n, k, d, values.element_size(),
-        extra_bytes=d * upd.element_size(),
+        extra_bytes=d * torch.promote_types(values.dtype, a.dtype).itemsize,
     )
-    out = ell_scatter_add(indices, upd, d)
-    if dispatch.use_kernel("ell_rmatvec", indices, values, a) and n * k:
-        dispatch.count_launch("ell_rmatvec")
-    return out
+    if not dispatch.use_kernel("ell_rmatvec", indices, values, a):
+        return ell_scatter_add(indices, _rmatvec_update(values, a), d)
+    return _column_reduce("ell_rmatvec", indices, values, a, d, "linear")
 
 
 def ell_colsum_reference(indices, values, c, d: int, square: bool = False) -> torch.Tensor:
@@ -298,14 +317,16 @@ def ell_colsum_reference(indices, values, c, d: int, square: bool = False) -> to
 
 def ell_colsum(indices, values, c, d: int, square: bool = False) -> torch.Tensor:
     """s_j = sum_i c_i * v_ij (or v_ij^2), shape (d,): the column sums of
-    the feature summary and the Hessian diagonal."""
+    the feature summary and the Hessian diagonal. CUDA tensors: the column
+    reduce (each slot squared on its own, in the compute type); CPU
+    tensors: the per-slot update through ``ell_scatter_add`` (its plain
+    version)."""
     n, k = indices.shape
-    upd = _colsum_update(values, c, square)
     dispatch.record_kernel_cost(
         "ell_colsum", n, k, d, values.element_size(),
-        extra_bytes=d * upd.element_size(),
+        extra_bytes=d * torch.promote_types(values.dtype, c.dtype).itemsize,
     )
-    out = ell_scatter_add(indices, upd, d)
-    if dispatch.use_kernel("ell_colsum", indices, values, c) and n * k:
-        dispatch.count_launch("ell_colsum")
-    return out
+    if not dispatch.use_kernel("ell_colsum", indices, values, c):
+        return ell_scatter_add(indices, _colsum_update(values, c, square), d)
+    return _column_reduce("ell_colsum", indices, values, c, d,
+                          "square" if square else "linear")

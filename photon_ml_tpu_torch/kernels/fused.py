@@ -12,14 +12,16 @@
 
 ``GLMObjective`` applies the normalization algebra and L2 outside; those
 touch (d,) and (n,) vectors, not the design. On CUDA tensors each wrapper
-makes one C call (or raises), which zeroes the (d,) outputs and launches
-the kernel and a fixed-order sum of the per-block scalar partials on the
-current stream; on CPU tensors it runs the ``*_reference`` function, the
-plain PyTorch version. All three take tiles of whole rows and sum a tile's
-repeated columns in shared memory before they reach the (d,) outputs
-(``fused_hdiag``: both of its sums under one table slot per column, and
-its column sums accumulated in float64 in every compute type, rounded to
-float32 once).
+makes one C call (or raises), which launches on the current stream the
+row pass over tiles of whole rows (margins, row terms, each row's scale
+a_i, u_i or c_i, and a fixed-order sum of the per-block scalar partials)
+and then the X^T side: the fixed-order column reduce of
+:mod:`~photon_ml_tpu_torch.kernels.colsort` over the design's
+column-sorted copy, built at the first pass on the ``indices`` tensor and
+kept with it (``fused_hdiag``: its column sums in float64 in every
+compute type, rounded once). Every output has the same bits from call to
+call. On CPU tensors each wrapper runs its ``*_reference`` function, the
+plain PyTorch version.
 
 Compute type ``result_type(values, w, labels, offsets, ew)``; taken pairs
 (values, compute): (float64, float64), (float32, float32),
@@ -29,9 +31,11 @@ to the compute type, as the JAX package casts them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from photon_ml_tpu_torch.kernels import dispatch
+from photon_ml_tpu_torch.kernels import colsort, dispatch
 from photon_ml_tpu_torch.kernels.ell import (
     check_launch,
     device_scope,
@@ -112,11 +116,8 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
     cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype, w_eff.dtype)
     loss_id = _loss_id(loss)
     n, k = indices.shape
-    dispatch.record_kernel_cost(
-        "fused_vgc", n, k, d, values.element_size(), flops_per_slot=4.0,
-        extra_bytes=2 * d * cd.itemsize + 4 * n * cd.itemsize,
-    )
     if not dispatch.use_kernel("fused_vgc", indices, values, labels, offsets, ew, w_eff):
+        _record_cost("fused_vgc", n, k, d, values, cd, None, flops=4.0, d_out=2, n_rows=4)
         return fused_value_grad_curvature_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
@@ -130,30 +131,35 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
     if n == 0:
         sums = torch.zeros((2,), dtype=cd, device=dev)
         return sums[0], torch.zeros((d,), dtype=cd, device=dev), sums[1], curvature
-    # the entry point clears grad on the stream before the kernel
+    copy, cvals = _columns(indices, values, d)
+    _record_cost("fused_vgc", n, k, d, values, cd, copy, flops=4.0, d_out=2, n_rows=4)
+    # the entry point clears grad on the stream before the reduce
     grad = torch.empty((d,), dtype=cd, device=dev)
-    import ctypes
-
     lib, entry = load_entry(
         "fused", f"photon_fused_vgc_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 11 + _COPY_ARGTYPES + [ctypes.c_longlong, ctypes.c_int,
+                                                   ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p],
     )
-    # the two sums (written by the kernels' fixed-order finish), then two
-    # partials per block
-    sums = torch.empty((2 + 2 * _blocks(n, k),), dtype=cd, device=dev)
+    # the two sums (written by the row pass's fixed-order finish), two
+    # partials per block, then each row's a_i
+    blocks = _blocks(n, k)
+    work = torch.empty((2 + 2 * blocks + n,), dtype=cd, device=dev)
+    at = work.data_ptr()
+    edge = _edge(copy, 1, dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
             e.data_ptr(), w.data_ptr(), grad.data_ptr(), curvature.data_ptr(),
-            sums.data_ptr() + 2 * cd.itemsize, sums.data_ptr(), n, k, d, loss_id,
-            stream_of(indices),
+            at + (2 + 2 * blocks) * cd.itemsize, at + 2 * cd.itemsize, at,
+            *_copy_args(copy, cvals, edge), n, k, d, loss_id, stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
 
     build.check(lib, code, "fused_vgc launch")
     dispatch.count_launch("fused_vgc")
-    return sums[0], grad, sums[1], curvature
+    dispatch.count_launch("colsort_reduce")
+    return work[0], grad, work[1], curvature
 
 
 # -- Hessian-vector ----------------------------------------------------------
@@ -177,12 +183,9 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     tensor on the device, read by the kernel: no host sync)."""
     cd = fused_compute_dtype(values.dtype, c.dtype, v_eff.dtype)
     n, k = indices.shape
-    dispatch.record_kernel_cost(
-        "fused_hvp", n, k, d, values.element_size(), flops_per_slot=4.0,
-        extra_bytes=2 * d * cd.itemsize + n * cd.itemsize,
-    )
     shift = torch.as_tensor(shift_v, dtype=cd, device=c.device)
     if not dispatch.use_kernel("fused_hvp", indices, values, c, v_eff, shift):
+        _record_cost("fused_hvp", n, k, d, values, cd, None, flops=4.0, d_out=2, n_rows=1)
         return fused_hessian_vector_reference(indices, values, c, v_eff, shift, d)
     cc, vv, sh = (t.to(cd).contiguous() for t in (c, v_eff, shift))
     check_launch(
@@ -192,29 +195,34 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     dev = indices.device
     if n == 0:
         return torch.zeros((d,), dtype=cd, device=dev), torch.zeros((), dtype=cd, device=dev)
-    # the entry point clears hv on the stream before the kernel
+    copy, cvals = _columns(indices, values, d)
+    _record_cost("fused_hvp", n, k, d, values, cd, copy, flops=4.0, d_out=2, n_rows=1)
+    # the entry point clears hv on the stream before the reduce
     hv = torch.empty((d,), dtype=cd, device=dev)
-    import ctypes
-
     lib, entry = load_entry(
         "fused", f"photon_fused_hvp_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p],
+        [ctypes.c_void_p] * 9 + _COPY_ARGTYPES + [ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_void_p],
     )
-    # the sum (written by the kernels' fixed-order finish), then one
-    # partial per block
-    usum = torch.empty((1 + _blocks(n, k),), dtype=cd, device=dev)
+    # the sum (written by the row pass's fixed-order finish), one partial
+    # per block, then each row's u_i
+    blocks = _blocks(n, k)
+    work = torch.empty((1 + blocks + n,), dtype=cd, device=dev)
+    at = work.data_ptr()
+    edge = _edge(copy, 1, dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), cc.data_ptr(), sh.data_ptr(),
-            vv.data_ptr(), hv.data_ptr(), usum.data_ptr() + cd.itemsize, usum.data_ptr(),
+            vv.data_ptr(), hv.data_ptr(), at + (1 + blocks) * cd.itemsize,
+            at + cd.itemsize, at, *_copy_args(copy, cvals, edge),
             n, k, d, stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
 
     build.check(lib, code, "fused_hvp launch")
     dispatch.count_launch("fused_hvp")
-    return hv, usum[0]
+    dispatch.count_launch("colsort_reduce")
+    return hv, work[0]
 
 
 # -- Hessian diagonal --------------------------------------------------------
@@ -243,11 +251,8 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype, w_eff.dtype)
     loss_id = _loss_id(loss)
     n, k = indices.shape
-    dispatch.record_kernel_cost(
-        "fused_hdiag", n, k, d, values.element_size(), flops_per_slot=5.0,
-        extra_bytes=3 * d * cd.itemsize + 3 * n * cd.itemsize,
-    )
     if not dispatch.use_kernel("fused_hdiag", indices, values, labels, offsets, ew, w_eff):
+        _record_cost("fused_hdiag", n, k, d, values, cd, None, flops=5.0, d_out=3, n_rows=3)
         return fused_hessian_diagonal_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
@@ -260,39 +265,77 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     if n == 0:
         return (torch.zeros((d,), dtype=cd, device=dev), torch.zeros((d,), dtype=cd, device=dev),
                 torch.zeros((), dtype=cd, device=dev))
-    import ctypes
-
+    copy, cvals = _columns(indices, values, d)
+    _record_cost("fused_hdiag", n, k, d, values, cd, copy, flops=5.0, d_out=3, n_rows=3)
     lib, entry = load_entry(
         "fused", f"photon_fused_hdiag_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 11 + _COPY_ARGTYPES + [ctypes.c_longlong, ctypes.c_int,
+                                                   ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p],
     )
     # one allocation: dx2 and dx (cleared by the entry point on the stream),
-    # the sum (written by the kernels' fixed-order finish), then one partial
-    # per block; in float32 the column sums accumulate in a float64 scratch
-    out = torch.empty((2 * d + 1 + _blocks(n, k),), dtype=cd, device=dev)
+    # the sum (written by the row pass's fixed-order finish), one partial
+    # per block, then each row's c_i
+    blocks = _blocks(n, k)
+    out = torch.empty((2 * d + 1 + blocks + n,), dtype=cd, device=dev)
     dx2, dx, csum = out[:d], out[d:2 * d], out[2 * d]
-    wide = None if cd == torch.float64 else torch.empty((2 * d,), dtype=torch.float64,
-                                                        device=dev)
+    at = out.data_ptr()
+    edge = _edge(copy, 2, dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
-            e.data_ptr(), w.data_ptr(), dx2.data_ptr(), dx.data_ptr(),
-            None if wide is None else wide.data_ptr(), csum.data_ptr() + cd.itemsize,
-            csum.data_ptr(), n, k, d, loss_id, stream_of(indices),
+            e.data_ptr(), w.data_ptr(), at, at + d * cd.itemsize,
+            at + (2 * d + 1 + blocks) * cd.itemsize, at + (2 * d + 1) * cd.itemsize,
+            at + 2 * d * cd.itemsize, *_copy_args(copy, cvals, edge), n, k, d, loss_id,
+            stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
 
     build.check(lib, code, "fused_hdiag launch")
     dispatch.count_launch("fused_hdiag")
+    dispatch.count_launch("colsort_reduce")
     return dx2, dx, csum
+
+
+# the copy's arguments of the fused entry points: cols, rows, values,
+# chains, edge scratch, ntiles, nchains
+_COPY_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+
+
+def _columns(indices, values, d: int):
+    """The design's column-sorted copy (built at the first pass on
+    ``indices``, kept with it) and ``values`` laid out in its order."""
+    copy = colsort.design_columns(indices, d)
+    return copy, colsort.column_values(copy, values)
+
+
+def _edge(copy, sums: int, dev):
+    """The reduce's float64 scratch: ``sums`` values at each side of each
+    tile."""
+    return torch.empty((max(1, 2 * copy.ntiles * sums),), dtype=torch.float64, device=dev)
+
+
+def _copy_args(copy, cvals, edge):
+    return (copy.cols.data_ptr(), copy.rows.data_ptr(), cvals.data_ptr(),
+            copy.chains.data_ptr(), edge.data_ptr(), copy.ntiles, copy.chains.shape[0])
+
+
+def _record_cost(kernel, n, k, d, values, cd, copy, flops, d_out, n_rows):
+    """The pass's analytic cost: the ELL read once (the roofline's least
+    traffic), the (d,) vectors and ``n_rows`` (n,) vectors, and on the card
+    what this design moves beyond that: the copy read (column, row and
+    value of each entry and of the tail padding) and each row's scale
+    written and read."""
+    extra = d_out * d * cd.itemsize + n_rows * n * cd.itemsize
+    if copy is not None:
+        extra += copy.cols.shape[0] * (8 + values.element_size()) + 2 * n * cd.itemsize
+    dispatch.record_kernel_cost(kernel, n, k, d, values.element_size(), flops_per_slot=flops,
+                                extra_bytes=extra)
 
 
 def _blocks(n: int, k: int) -> int:
     """Blocks of a fused launch (the scalar partials of each), as the .cu
     computes them (``photon_fused_tile_blocks``)."""
-    import ctypes
-
     _, fn = load_entry("fused", "photon_fused_tile_blocks", [ctypes.c_longlong, ctypes.c_int],
                        ctypes.c_longlong)
     return int(fn(n, k))

@@ -31,6 +31,7 @@ import dataclasses
 import torch
 
 from photon_ml_tpu_torch.kernels import dispatch
+from photon_ml_tpu_torch.kernels.colsort import run_chains, sorted_slots
 from photon_ml_tpu_torch.kernels.ell import device_scope, load_entry, stream_of
 
 __all__ = [
@@ -92,27 +93,16 @@ class ColumnTiles:
 
 def tile_chains(cols: torch.Tensor, tile_block: torch.Tensor) -> torch.Tensor:
     """(nchains, 3) int32: global column, first tile, last tile of every
-    column whose run crosses a tile edge. Edge t (between tiles t - 1 and
-    t) is crossed when both tiles are in one block and the column that ends
-    tile t - 1 starts tile t (never the miss); a run crosses the next edge
-    too when it fills its tile."""
-    ntiles = cols.shape[0]
-    dev = cols.device
-    if ntiles < 2:
-        return torch.zeros((0, 3), dtype=torch.int32, device=dev)
-    head, tail = cols[:, 0], cols[:, -1]
-    cross = torch.zeros(ntiles + 1, dtype=torch.bool, device=dev)
-    cross[1:ntiles] = ((tile_block[1:] == tile_block[:-1]) & (head[1:] == tail[:-1])
-                       & (head[1:] != LAB_BLOCK))
-    whole = head == tail
-    # edge t continues the chain of edge t - 1 when tile t - 1 is one run
-    cont = torch.zeros_like(cross)
-    cont[1:ntiles] = cross[1:ntiles] & cross[:ntiles - 1] & whole[:-1]
-    starts = torch.nonzero(cross & ~cont).flatten()
-    ends = torch.nonzero(cross[:ntiles] & ~cont[1:]).flatten()
-    first = starts - 1
-    col = tile_block[first].long() * LAB_BLOCK + tail[first].long()
-    return torch.stack([col, first, ends], dim=1).to(torch.int32)
+    column whose run crosses a tile edge (``colsort.run_chains`` on each
+    tile's first and last global columns). Edge t is crossed when both
+    tiles are in one block and the column that ends tile t - 1 starts
+    tile t (never the miss)."""
+    head, tail = cols[:, 0].long(), cols[:, -1].long()
+    base = tile_block.long() * LAB_BLOCK
+    # a miss never continues a run: -1 at a head, -2 at a tail
+    ghead = torch.where(head != LAB_BLOCK, base + head, -1)
+    gtail = torch.where(tail != LAB_BLOCK, base + tail, -2)
+    return run_chains(ghead, gtail, ghead >= 0)
 
 
 def column_sorted_tiles(indices: torch.Tensor, values: torch.Tensor, d: int) -> ColumnTiles:
@@ -121,7 +111,8 @@ def column_sorted_tiles(indices: torch.Tensor, values: torch.Tensor, d: int) -> 
     ids sorted stably (so rows keep their order within a column), each
     block's entries padded to a multiple of ``LAB_TILE``. Slots with id ``d``
     are the ELL's padding and are left out; any other id outside [0, d)
-    raises. Two host reads: the sizes and the chains."""
+    raises. Four host reads: the bad ids, the count, the size and the
+    chains."""
     if indices.shape != values.shape or indices.dim() != 2:
         raise ValueError(f"column_sorted_tiles: indices {tuple(indices.shape)} and values "
                          f"{tuple(values.shape)} must be the same (n, k)")
@@ -132,18 +123,17 @@ def column_sorted_tiles(indices: torch.Tensor, values: torch.Tensor, d: int) -> 
     k = indices.shape[1]
     ids = indices.reshape(-1)
     nblocks = -(-d // block)
-    # padding ids (d) sort after every valid id, so the valid entries are a
-    # prefix of the sorted order
-    sorted_ids, perm = torch.sort(ids, stable=True)
-    blk_all = torch.where((ids >= 0) & (ids < d), ids.long() // block, nblocks)
-    counts = torch.bincount(blk_all, minlength=nblocks + 1)[:nblocks]
-    padded = (counts + tile - 1) // tile * tile
-    bad = ((ids < 0) | (ids > d)).sum()
-    n_bad, nvalid, total = torch.stack([bad, counts.sum(), padded.sum()]).tolist()
+    n_bad = int(((ids < 0) | (ids > d)).sum())
     if n_bad:
         raise ValueError(f"column_sorted_tiles: {n_bad} ids outside [0, {d}] "
                          f"(id {d} is the padding)")
+    # the design copy's sort (kernels/colsort.py): the valid entries are a
+    # prefix of the sorted order, the padding ids (d) after them
+    sorted_ids, perm, nvalid = sorted_slots(ids, d)
     sc = sorted_ids[:nvalid].long()
+    counts = torch.bincount(sc // block, minlength=nblocks)
+    padded = (counts + tile - 1) // tile * tile
+    total = int(padded.sum())
     perm = perm[:nvalid]
     blk = sc // block
     starts = torch.cumsum(padded, 0) - padded

@@ -5,7 +5,10 @@
 
 Everything is weighted and mask-aware (weight 0 = padding), O(n log n) in
 the sort, on whatever device the inputs live. Sorts are stable, as
-``jnp.argsort`` is, so ties break the same way as in the JAX package.
+``jnp.argsort`` is, so ties break the same way as in the JAX package. The
+running sums of the curves are a fixed tree of adds on every device
+(:func:`fixed_order_cumsum`), so a metric has the same bits from run to
+run.
 """
 
 from __future__ import annotations
@@ -13,6 +16,20 @@ from __future__ import annotations
 import torch
 
 from photon_ml_tpu_torch.ops.losses import softplus
+
+
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, 0)`` of a 1-D ``x`` as a doubling scan: step s
+    adds to every entry the one s places before it, for s = 1, 2, 4, ...
+    Each entry is the same tree of elementwise adds on every device and in
+    every run, whatever order a library scan would combine its blocks in
+    (log2 n passes over the vector, all on its device)."""
+    out = x.clone()
+    step = 1
+    while step < out.shape[0]:
+        out[step:] = out[step:] + out[:-step]
+        step *= 2
+    return out
 
 
 def _weighted(values, weights):
@@ -66,7 +83,7 @@ def area_under_roc_curve(labels, scores, weights):
     zero = torch.zeros_like(w)
     pos_w = torch.where(y > 0.5, w, zero)
     neg_w = torch.where(y > 0.5, zero, w)
-    cum_neg = torch.cumsum(neg_w, 0)
+    cum_neg = fixed_order_cumsum(neg_w)
     total_neg = cum_neg[-1]
     total_pos = torch.sum(pos_w)
 
@@ -93,8 +110,8 @@ def _pr_curve(labels, scores, weights):
     y = labels[order]
     w = weights[order]
     zero = torch.zeros_like(w)
-    tp = torch.cumsum(torch.where(y > 0.5, w, zero), 0)
-    fp = torch.cumsum(torch.where(y > 0.5, zero, w), 0)
+    tp = fixed_order_cumsum(torch.where(y > 0.5, w, zero))
+    fp = fixed_order_cumsum(torch.where(y > 0.5, zero, w))
     # a row is an operating point iff it is the last of its tie group
     is_boundary = torch.cat(
         [s[1:] != s[:-1], torch.ones(1, dtype=torch.bool, device=s.device)]

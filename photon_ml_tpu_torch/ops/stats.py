@@ -4,8 +4,9 @@
 
 The summary feeds normalization
 (``core.normalization.build_normalization_context``) and the driver's
-``feature-summary.tsv``. Padded-ELL designs take five ``colsum`` scatters
-(the ``ell_scatter_add`` kernel on the card) for the moments, and
+``feature-summary.tsv``. Padded-ELL designs take five ``colsum`` calls
+(the column-sorted reduce on the card, in a fixed order) for the moments,
+and
 ``scatter_reduce_`` ("amin" / "amax") for the extremes — the JAX package
 does those in XLA, outside Pallas.
 """

@@ -33,9 +33,9 @@ def _append(path, text):
 
 def test_every_source_and_header_is_in_the_tree():
     names = set(os.listdir(build.CSRC_DIR))
-    assert set(build.SOURCES) == {"ell_matvec", "ell_scatter_add", "fused", "lab"}
+    assert set(build.SOURCES) == {"ell_matvec", "ell_scatter_add", "fused", "colsort", "lab"}
     assert set(build.SOURCES.values()) <= names
-    assert {"ell_common.cuh", "ell_tile.cuh"} <= names
+    assert {"ell_common.cuh", "ell_tile.cuh", "colsort.cuh"} <= names
 
 
 def test_unchanged_tree_gives_the_same_paths(csrc):

@@ -131,6 +131,7 @@ def test_scatter_add_matches_plain_version(cuda, n, k, dt, rtol):
 
 
 def test_rmatvec_and_colsum_count_their_scatter(cuda):
+    # on the card both go through the column-sorted reduce, not the scatter
     d = 500
     idx, val = _ell(2000, 9, d, cuda)
     a = torch.randn(2000, device=cuda, dtype=torch.float64)
@@ -138,9 +139,13 @@ def test_rmatvec_and_colsum_count_their_scatter(cuda):
     g = ell_rmatvec(idx, val, a, d)
     s = ell_colsum(idx, val, a.abs(), d, square=True)
     after = dispatch.launch_counts()
-    assert after["ell_scatter_add"] == before["ell_scatter_add"] + 2
+    assert after["ell_scatter_add"] == before["ell_scatter_add"]
+    assert after["colsort_reduce"] == before["colsort_reduce"] + 2
     assert after["ell_rmatvec"] == before["ell_rmatvec"] + 1
     assert after["ell_colsum"] == before["ell_colsum"] + 1
+    for _ in range(2):
+        assert torch.equal(g, ell_rmatvec(idx, val, a, d))
+        assert torch.equal(s, ell_colsum(idx, val, a.abs(), d, square=True))
     ref_g = ell_rmatvec_reference(idx, val, a, d)
     ref_s = ell_colsum_reference(idx, val, a.abs(), d, square=True)
     scale_g = ell_scatter_add_reference(idx, (val * a[:, None]).abs(), d)
@@ -522,11 +527,15 @@ def test_fused_scalars_have_the_same_bits_from_run_to_run(cuda, design, vdt, wdt
     shift = torch.tensor(0.1, device=cuda, dtype=w.dtype)
     first = _check_vgc(idx, val, y, off, ew, w, d, LOGISTIC_LOSS, rtol)
     hv, usum = _check_hvp(idx, val, ew, w, shift, d, rtol)
+    hdiag = fused_hessian_diagonal(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
     for _ in range(3):
         again = fused_value_grad_curvature(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
-        assert torch.equal(first[0], again[0]) and torch.equal(first[2], again[2])
-        assert torch.equal(first[3], again[3])  # per row, no atomics
-        assert torch.equal(usum, fused_hessian_vector(idx, val, ew, w, shift, d)[1])
+        # every output, the (d,) gradient too: no atomics anywhere
+        assert all(torch.equal(f, g) for f, g in zip(first, again))
+        assert all(torch.equal(f, g) for f, g in zip(
+            (hv, usum), fused_hessian_vector(idx, val, ew, w, shift, d)))
+        assert all(torch.equal(f, g) for f, g in zip(
+            hdiag, fused_hessian_diagonal(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)))
 
 
 @pytest.mark.parametrize("loss", LOSSES, ids=lambda l: l.name)
@@ -610,6 +619,75 @@ def test_fused_passes_of_zero_slots_give_the_row_terms(cuda):
     assert _within(asum, ref[2], (ew * LOGISTIC_LOSS.d1(off, y)).abs().sum(), 1e-12)
     hv, usum = fused_hessian_vector(idx, val, ew, w, torch.tensor(0.5, device=cuda), d)
     assert not hv.any() and _within(usum, 0.5 * ew.sum(), ew.sum(), 1e-12)
+
+
+# -- the column-sorted reduce (kernels/colsort.py) -----------------------------
+
+from photon_ml_tpu_torch.kernels.colsort import (  # noqa: E402
+    build_design_columns,
+    column_reduce,
+    column_reduce_reference,
+    column_values,
+    design_columns,
+)
+
+REDUCE_DESIGNS = ["criteo_hot", "one_column", "out_of_range", "misaligned", "uniform"]
+
+
+def _reduce_design(name, device):
+    if name == "uniform":
+        return (*_ell(20011, 40, 3001, device), 3001)
+    return DESIGNS[name](device)
+
+
+@pytest.mark.parametrize("mode", ["linear", "square", "pair"])
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+@pytest.mark.parametrize("design", REDUCE_DESIGNS)
+def test_column_reduce_matches_plain_version_and_repeats_its_bits(cuda, design, vdt, wdt,
+                                                                  rtol, mode):
+    idx, val64, d = _reduce_design(design, cuda)
+    n = idx.shape[0]
+    copy = design_columns(idx, d)
+    vals = column_values(copy, val64.to(vdt))
+    a = torch.rand(n, device=cuda, dtype=torch.float64).to(wdt) + 0.1
+    before = dispatch.launch_counts()["colsort_reduce"]
+    got = column_reduce(copy, vals, a, mode)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["colsort_reduce"] == before + 1
+    # the plain version summed in f64 from the same inputs: in f32 its own
+    # index_add_ (200,000 adds into one column) drifts past the tolerance
+    v = vals.double()
+    ref = column_reduce_reference(copy, v, a.double(), mode)
+    outs, refs = (got, ref) if mode == "pair" else ((got,), (ref,))
+    cd = torch.float64 if vdt == torch.float64 else torch.float32
+    terms = {"linear": [v], "square": [v * v], "pair": [v * v, v]}[mode]
+    for out, want, t in zip(outs, refs, terms):
+        assert out.dtype == cd and out.shape == (d,)
+        scale = column_reduce_reference(copy, t.abs(), a.double(), "linear")
+        assert _within(out, want, scale, rtol)
+    for _ in range(2):
+        again = column_reduce(copy, vals, a, mode)
+        again = again if mode == "pair" else (again,)
+        assert all(torch.equal(x, y) for x, y in zip(outs, again))
+
+
+def test_column_copy_on_the_card_equals_the_cpus(cuda):
+    idx, _, d = DESIGNS["criteo_hot"](cuda)
+    card = build_design_columns(idx, d)
+    cpu = build_design_columns(idx.cpu(), d)
+    for name in ("cols", "rows", "perm", "chains"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+
+
+def test_fused_passes_build_the_copy_once_per_design(cuda):
+    d = 3001
+    idx, val = _ell(4099, 40, d, cuda)
+    y, off, ew, w = _fused_inputs(4099, 40, d, torch.float64, cuda)
+    fused_value_grad_curvature(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
+    copy = design_columns(idx, d)
+    fused_hessian_vector(idx, val, ew, w, torch.tensor(0.0, device=cuda), d)
+    fused_hessian_diagonal(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
+    assert design_columns(idx, d) is copy
 
 
 # -- the sparse kernel lab: lane_gather, onehot_gather, onehot_reduce ---------
@@ -1037,7 +1115,8 @@ def test_game_training_on_the_card_matches_the_cpu(cuda, tmp_path):
     """The driver on the card: the fused passes and ell_matvec launched as
     often as the trainer counts, the card's run held to the CPU's with
     chip_smoke.py phase 5c's gates (the fixed effect at 1e-15: the card's
-    atomics split its TRON from the CPU's in the last bits)."""
+    sums, in another order than the CPU's, split its TRON from the CPU's
+    in the last bits)."""
     params = _game_training_files(str(tmp_path))
     dispatch.reset_launch_counts()
     run = run_game_training({**params, "output_dir": str(tmp_path / "card")})
@@ -1047,6 +1126,8 @@ def test_game_training_on_the_card_matches_the_cpu(cuda, tmp_path):
     want = {"fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
             "fused_hvp": sum(h.cg_iterations for h in fixed),
             "ell_matvec": len(run.sweep) + len(fixed) + len(history)}
+    # each fused pass's X^T side is one launch of the column-sorted reduce
+    want["colsort_reduce"] = want["fused_vgc"] + want["fused_hvp"]
     assert launches == {k: want.get(k, 0) for k in launches}
     cpu = run_game_training({**params, "output_dir": str(tmp_path / "cpu")}, device="cpu")
     cpu_history = [h for s in cpu.sweep for h in s["history"]]
@@ -1162,3 +1243,16 @@ def test_factored_update_on_the_card_matches_the_cpu(cuda):
     (got, sg), (ref, sr) = out["cuda"], out["cpu"]
     for a, b in ((got.gamma, ref.gamma), (got.projection, ref.projection), (sg, sr)):
         assert float((a.cpu() - b).abs().max()) <= 1e-8 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_fixed_order_cumsum_keeps_its_bits_on_the_card(cuda, n):
+    from photon_ml_tpu_torch.ops.metrics import fixed_order_cumsum
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.rand(n, generator=g, device="cuda", dtype=torch.float64)
+    first = fixed_order_cumsum(x)
+    assert first.device == x.device
+    for _ in range(3):
+        assert torch.equal(fixed_order_cumsum(x), first)
+    assert torch.allclose(first.cpu(), torch.cumsum(x.cpu(), 0), rtol=1e-12, atol=0)

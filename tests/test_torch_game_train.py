@@ -238,7 +238,8 @@ _UNPORTED_CASES = (
        for name, (_, item) in UNPORTED_COORDINATE_FIELDS.items()]
     + [("no feature file", {"feature_shards": {}}, "Ingest hooks"),
        ("passes with a tolerance", {"passes_per_dispatch": 2,
-                                    "convergence_tolerance": 1e-6}, "GAME training")]
+                                    "convergence_tolerance": 1e-6},
+        "Combo grid and dispatch chunks")]
 )
 
 

@@ -93,3 +93,11 @@ def test_losses_match_jax(rng, task):
 def test_loss_for_unknown_task_raises():
     with pytest.raises(ValueError, match="unknown task type"):
         tlosses.loss_for_task("NOPE")
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 8, 257, 4097])
+def test_fixed_order_cumsum_matches_cumsum(rng, n):
+    x = rng.uniform(-1.0, 3.0, n)
+    got = tmetrics.fixed_order_cumsum(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.cumsum(x), rtol=1e-12, atol=1e-12)
+    assert torch.equal(got, tmetrics.fixed_order_cumsum(torch.from_numpy(x)))
