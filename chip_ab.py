@@ -22,7 +22,8 @@ f64 (the main path's type), the three fused passes in f64, f32 and bf16 x
 f32. A checkout with the column-sorted reduce (``kernels/colsort.py``)
 also times the reduce (``colsort_reduce``, linear, each dtype) and the
 build of the design's column-sorted copy (``copy_build``, once per shape:
-its ``ms`` is the build's CUDA-event time, with its bytes). Prints one
+its ``ms`` is the build's CUDA-event time, with its bytes and, where the
+copy is cut into blocks of rows, its blocks). Prints one
 JSON line per checkout. Needs one CUDA device and ``nvcc``.
 
     python3 chip_ab.py --train DIR [DIR ...]
@@ -92,7 +93,7 @@ def prepare(work: str, device_kw=None, game=None, proj=None, glm=None) -> dict:
     time the two scans. Returns the paths and the scans' record."""
     cs = _smoke()
     game = game or (cs.GAME_TRAIN_RECORDS, cs.GAME_TRAIN_HELDOUT)
-    proj = proj or (cs.TRAIN_RECORDS, cs.HELDOUT_RECORDS)
+    proj = proj or (cs.GAME_PROJ_RECORDS, cs.GAME_PROJ_HELDOUT)
     glm = glm or (cs.TRAIN_RECORDS, cs.HELDOUT_RECORDS)
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()

@@ -809,7 +809,9 @@ def copy_build(idx, d, label, vals64=None):
     and the most ELL slots that the card's memory holds as the design alone
     (int32 ids + f64 values) and as the design with its copy: the copy's
     bytes a slot, with the rest of the peak (one build chunk's sort, which
-    does not grow with the design) held once."""
+    does not grow with the design) held once. A copy in blocks of rows
+    keeps each entry's slot within its block in int32 at any size, so its
+    bytes a slot here are its bytes a slot at the size reported."""
     from photon_ml_tpu_torch.kernels.colsort import build_design_columns
 
     build_design_columns(idx, d)  # warm-up: the sort's first call allocates
@@ -823,6 +825,7 @@ def copy_build(idx, d, label, vals64=None):
     end.synchronize()
     rec = {"build_ms": start.elapsed_time(end), "entries": copy.nvalid,
            "ntiles": copy.ntiles, "chains": int(copy.chains.shape[0]),
+           "blocks": getattr(copy, "nblocks", 1), "row_block": getattr(copy, "row_block", None),
            "bytes": copy.nbytes(), "bytes_f64_values": copy.nbytes(8),
            "ell_bytes": idx.numel() * (4 + 8)}
     if vals64 is not None:
@@ -832,20 +835,72 @@ def copy_build(idx, d, label, vals64=None):
         card = torch.cuda.get_device_properties(idx.device).total_memory
         peak = torch.cuda.max_memory_allocated() - base
         kept = copy.nbytes(8)
+        # the design (12 bytes a slot) and its copy with an f64 layout at
+        # this run's bytes a slot; int32 slots at any size (a copy whose
+        # slot is not int32 here is not scaled)
+        per_slot = 12 + kept / slots
+        scales = getattr(copy, "perm").dtype == torch.int32 and hasattr(copy, "nblocks")
         rec.update({"peak_bytes": peak, "card_bytes": card,
+                    "bytes_per_slot_with_copy": per_slot,
                     "largest_slots_design_alone": card // 12,
-                    "largest_slots_with_copy": int((card - max(0, peak - kept))
-                                                   // (12 + kept / slots))})
+                    "largest_slots_with_copy": (int((card - max(0, peak - kept)) // per_slot)
+                                                if scales else None)})
         del laid
     log(f"[{label}] column-sorted copy: built in {rec['build_ms']:.4f} ms, {copy.nvalid} "
-        f"entries in {copy.ntiles} tiles, {rec['chains']} chains, {rec['bytes']} bytes "
-        f"({rec['bytes_f64_values']} with f64 values; the ELL {rec['ell_bytes']})"
+        f"entries in {copy.ntiles} tiles and {rec['blocks']} blocks, {rec['chains']} chains, "
+        f"{rec['bytes']} bytes ({rec['bytes_f64_values']} with f64 values; the ELL "
+        f"{rec['ell_bytes']})"
         + ("" if vals64 is None else
            f"; at most {rec['peak_bytes']} bytes held at once by the build and an f64 "
            f"layout: the card's {rec['card_bytes']} bytes hold "
            f"{rec['largest_slots_design_alone']} slots of a design alone, "
-           f"{rec['largest_slots_with_copy']} with its copy"))
+           f"{rec['largest_slots_with_copy']} with its copy "
+           f"({rec['bytes_per_slot_with_copy']:.4f} bytes a slot)"))
     return copy, rec
+
+
+def reduce_error(copy, vals, a, mode, rtol, what):
+    """The reduce of ``mode`` against its plain version summed in f64 from
+    the same inputs, within ``rtol`` x each column's sum of |terms|:
+    (max |kernel - plain|, the largest share of the tolerance's scale it
+    took); raises where it disagrees or is not finite."""
+    from photon_ml_tpu_torch.kernels.colsort import column_reduce, column_reduce_reference
+
+    v = vals.double()
+    got = column_reduce(copy, vals, a, mode)
+    ref = column_reduce_reference(copy, v, a.double(), mode)
+    worst = (0.0, 0.0)
+    pairs = zip(got, ref, (v * v, v)) if mode == "pair" else [(got, ref, v)]
+    for out, want, t in pairs:
+        scale = column_reduce_reference(copy, t.abs(), a.abs().double(), "linear")
+        err, ok, share = within(out, want, scale, rtol)
+        if not (ok and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"colsort_reduce {mode} {what} disagrees with its plain "
+                                 f"version: {err:.3e}")
+        worst = max(worst, (err, share))
+    return worst
+
+
+def reduce_same_bits(copy, vals, a, mode, what):
+    """Raise unless the reduce's output(s) keep their bits over 3 calls."""
+    from photon_ml_tpu_torch.kernels.colsort import column_reduce
+
+    fn = ((lambda: column_reduce(copy, vals, a, mode)) if mode == "pair"
+          else (lambda: (column_reduce(copy, vals, a, mode),)))
+    if not same_bits(fn, (0, 1) if mode == "pair" else (0,)):
+        raise AssertionError(f"colsort_reduce {mode} {what} changed bits from call to call")
+
+
+def reduce_vector(n, cd, device):
+    """The reduce's seeded (n,) row vector."""
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    return (torch.rand(n, generator=g, device=device, dtype=torch.float64) - 0.3).to(cd)
+
+
+def reduce_bound_bytes(copy, n, d, itemsize, cd):
+    """The least traffic of X^T a: each entry's column id and value read
+    once, a read, g written."""
+    return copy.nvalid * (4 + itemsize) + n * cd.itemsize + d * cd.itemsize
 
 
 def reduce_checks(idx, vals64, d, peaks, label):
@@ -855,57 +910,152 @@ def reduce_checks(idx, vals64, d, peaks, label):
     |terms|), both held to the same bits over 3 calls; the linear mode
     timed beside ``torch.mv`` on the transposed CSR. One record per dtype
     (the linear mode), with the copy's build time and bytes."""
-    from photon_ml_tpu_torch.kernels.colsort import (column_reduce, column_reduce_reference,
-                                                     column_values)
+    from photon_ml_tpu_torch.kernels.colsort import (block_bytes, column_reduce,
+                                                     column_reduce_reference, column_values)
 
     n = idx.shape[0]
     copy, build_rec = copy_build(idx, d, label, vals64)
     results = []
     for dtype_label, vdt, cd, rtol, _ in FUSED_CASES:
         vals = column_values(copy, vals64.to(vdt))
-        g = torch.Generator(device=idx.device).manual_seed(SEED + 9)
-        a = (torch.rand(n, generator=g, device=idx.device, dtype=torch.float64) - 0.3).to(cd)
-        v = vals.double()
-        worst = (0.0, 0.0)
+        a = reduce_vector(n, cd, idx.device)
+        what = f"{dtype_label} ({label})"
+        worst = max(reduce_error(copy, vals, a, mode, rtol, what) for mode in ("linear", "pair"))
         for mode in ("linear", "pair"):
-            got = column_reduce(copy, vals, a, mode)
-            ref = column_reduce_reference(copy, v, a.double(), mode)
-            pairs = zip(got, ref, (v * v, v)) if mode == "pair" else [(got, ref, v)]
-            for out, want, t in pairs:
-                scale = column_reduce_reference(copy, t.abs(), a.abs().double(), "linear")
-                err, ok, share = within(out, want, scale, rtol)
-                if not (ok and bool(torch.isfinite(out).all())):
-                    raise AssertionError(f"colsort_reduce {mode} {dtype_label} ({label}) "
-                                         f"disagrees with its plain version: {err:.3e}")
-                worst = max(worst, (err, share))
-            outputs = (0, 1) if mode == "pair" else (0,)
-            fn = ((lambda m=mode: column_reduce(copy, vals, a, m)) if mode == "pair"
-                  else (lambda: (column_reduce(copy, vals, a, "linear"),)))
-            if not same_bits(fn, outputs):
-                raise AssertionError(f"colsort_reduce {mode} {dtype_label} ({label}) changed "
-                                     f"bits from call to call")
+            reduce_same_bits(copy, vals, a, mode, what)
         log(f"[{label}] colsort_reduce {dtype_label}: linear and pair within "
             f"{worst[1]:.2e} of rtol {rtol:g} x column sum of |terms| (max |kernel - plain| "
             f"{worst[0]:.3e}); the same bits over 3 calls")
         xt_csr = csr_t_of(idx, vals64.to(vdt).to(cd), d)
         s_, sc = vals.element_size(), cd.itemsize
-        # the bound: the least traffic of X^T a, each entry's column id and
-        # value read once, a read, g written; the copy's row ids and tail
-        # padding are this design's own, reported as analytic_bytes
+        # the bound: the least traffic; the copy's slots, its tiles' padding
+        # and its later blocks' columns are this design's own, reported as
+        # analytic_bytes
         results.append(timed_record(
             "colsort_reduce", dtype_label, cd, worst[0],
             lambda: column_reduce(copy, vals, a, "linear"),
             lambda: column_reduce_reference(copy, vals, a, "linear"),
-            copy.nvalid * (4 + s_) + n * sc + d * sc, 2 * copy.nvalid, peaks,
+            reduce_bound_bytes(copy, n, d, s_, cd), 2 * copy.nvalid, peaks,
             {"n": n, "k": idx.shape[1], "d": d, "entries": copy.nvalid}, label,
             lambda: torch.mv(xt_csr, a), REDUCE_LIBRARY,
         ))
         results[-1].update({"max_err_share": worst[1], "replaces_all": REDUCE_REPLACES,
-                            "analytic_bytes": copy.cols.shape[0] * (8 + s_) + n * sc + d * sc,
+                            "analytic_bytes": (copy.cols.shape[0] * (8 + s_) + n * sc + d * sc
+                                               + block_bytes(copy, "linear", cd)),
                             "copy": build_rec})
-        del vals, a, v, xt_csr
+        del vals, a, xt_csr
         torch.cuda.empty_cache()
     return results
+
+
+# the ROW_BLOCKs of phase 4's f64 reduce sweep at 2^22: a quarter and half
+# the default, the default, and one block over every row (the single
+# sort's layout, the in-run baseline)
+ROW_BLOCK_SWEEP = (1 << 19, 1 << 20, 1 << 21, KERNEL_ROWS)
+# the rows of the f64 reduce's large line: a is 128 MB
+REDUCE_LARGE_ROWS = 1 << 24
+
+
+def reduce_sweep(idx, vals64, d, peaks, label="kernel-sweep", row_blocks=ROW_BLOCK_SWEEP):
+    """The f64 linear reduce on one design with its copy built at each
+    ``ROW_BLOCK`` of ``row_blocks``: held to its plain version (1e-12 x
+    each column's sum of |terms|) and to the same bits over 3 calls, timed
+    (CUDA-event median, device and host ms per call) with the copy's build
+    record; ``torch.mv`` on the transposed CSR timed once beside, and the
+    bound. Returns one record."""
+    from photon_ml_tpu_torch.kernels import colsort
+
+    n = idx.shape[0]
+    a = reduce_vector(n, torch.float64, idx.device)
+    xt_csr = csr_t_of(idx, vals64, d)
+    library_ms = time_ms(lambda: torch.mv(xt_csr, a))
+    library_device_ms = device_ms(lambda: torch.mv(xt_csr, a))[0]
+    del xt_csr
+    torch.cuda.empty_cache()
+    rows, nbytes = [], None
+    saved = colsort.ROW_BLOCK
+    try:
+        for row_block in row_blocks:
+            colsort.ROW_BLOCK = row_block
+            what = f"f64 ROW_BLOCK={row_block}"
+            copy, build_rec = copy_build(idx, d, f"{label} ROW_BLOCK={row_block}")
+            vals = copy.layout(vals64)
+            err, share = reduce_error(copy, vals, a, "linear", 1e-12, what)
+            reduce_same_bits(copy, vals, a, "linear", what)
+            fn = lambda: colsort.column_reduce(copy, vals, a, "linear")  # noqa: E731
+            ms = time_ms(fn)
+            dev_ms, host_ms = device_ms(fn)
+            nbytes = reduce_bound_bytes(copy, n, d, 8, torch.float64)
+            rows.append({"row_block": row_block, "blocks": copy.nblocks, "ms": ms,
+                         "device_ms": dev_ms, "host_ms": host_ms, "max_abs_err": err,
+                         "max_err_share": share, "copy": build_rec})
+            log(f"[{label}] colsort_reduce f64 ROW_BLOCK={row_block} ({copy.nblocks} blocks): "
+                f"{ms:.4f} ms (device {dev_ms:.4f} ms, host {host_ms:.4f} ms), max |kernel - "
+                f"plain| {err:.3e}, the same bits over 3 calls")
+            del copy, vals, fn
+            torch.cuda.empty_cache()
+    finally:
+        colsort.ROW_BLOCK = saved
+    bound_ms, bound_by = bound(nbytes, 2 * rows[-1]["copy"]["entries"], torch.float64, peaks)
+    log(f"[{label}] beside: {REDUCE_LIBRARY} {library_ms:.4f} ms (device "
+        f"{library_device_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
+    return {"n": n, "k": idx.shape[1], "d": d, "library": REDUCE_LIBRARY,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "row_blocks": rows}
+
+
+def reduce_large_check(peaks, n=REDUCE_LARGE_ROWS, d=D_HASHED, k=K):
+    """The f64 linear reduce at ``n`` rows, at the default ``ROW_BLOCK``:
+    against its plain version (1e-12 x each column's sum of |terms|) and
+    the same bits over 3 calls, timed beside ``torch.mv`` on the
+    transposed CSR and the bound; then its device time with the copy in
+    one block over every row (``one_block_device_ms``). One record."""
+    from photon_ml_tpu_torch.kernels import colsort
+    from photon_ml_tpu_torch.kernels.colsort import column_reduce, column_reduce_reference
+
+    label = f"kernel-{n}"
+    idx, vals64 = make_ell(n, k, d, "cuda")
+    copy, build_rec = copy_build(idx, d, label)
+    vals = copy.layout(vals64)
+    xt_csr = csr_t_of(idx, vals64, d)
+    del idx, vals64
+    torch.cuda.empty_cache()
+    a = reduce_vector(n, torch.float64, "cuda")
+    err, share = reduce_error(copy, vals, a, "linear", 1e-12, f"f64 ({label})")
+    reduce_same_bits(copy, vals, a, "linear", f"f64 ({label})")
+    rec = timed_record(
+        "colsort_reduce", "f64", torch.float64, err,
+        lambda: column_reduce(copy, vals, a, "linear"),
+        lambda: column_reduce_reference(copy, vals, a, "linear"),
+        reduce_bound_bytes(copy, n, d, 8, torch.float64), 2 * copy.nvalid, peaks,
+        {"n": n, "k": k, "d": d, "entries": copy.nvalid}, label,
+        lambda: torch.mv(xt_csr, a), REDUCE_LIBRARY,
+    )
+    rec.update({"max_err_share": share, "blocks": copy.nblocks, "copy": build_rec})
+    want = column_reduce(copy, vals, a, "linear")
+    del copy, vals, xt_csr
+    torch.cuda.empty_cache()
+    # the same seeded design again, its copy in one block
+    saved = colsort.ROW_BLOCK
+    try:
+        colsort.ROW_BLOCK = n
+        idx, vals64 = make_ell(n, k, d, "cuda")
+        one = colsort.build_design_columns(idx, d)
+        vals = one.layout(vals64)
+        del idx, vals64
+        torch.cuda.empty_cache()
+        err, _ = reduce_error(one, vals, a, "linear", 1e-12, f"f64 one block ({label})")
+        rec["one_block_device_ms"] = device_ms(lambda: column_reduce(one, vals, a, "linear"))[0]
+        rec["one_block_max_abs_err"] = err
+        rec["one_block_max_abs_diff_vs_blocks"] = float(
+            (column_reduce(one, vals, a, "linear") - want).abs().max())
+    finally:
+        colsort.ROW_BLOCK = saved
+    log(f"[{label}] colsort_reduce f64 in one block: device {rec['one_block_device_ms']:.4f} "
+        f"ms against {rec['device_ms']:.4f} in {rec['blocks']} blocks")
+    del one, vals, a, want
+    torch.cuda.empty_cache()
+    return rec
 
 
 def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
@@ -919,13 +1069,16 @@ def training_kernels(name, idx, vals64, d, peaks, label="kernel"):
 
 
 def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int = K):
-    """The training kernels on the uniform design, then ell_scatter_add
-    and the fused passes (f64 and f32) on the same design with HOT_COLUMNS
-    columns named by every row. Returns (uniform records, hot-column
-    records)."""
+    """The training kernels on the uniform design, the f64 reduce's
+    ``ROW_BLOCK`` sweep on it, then ell_scatter_add, the fused passes (f64
+    and f32) and the reduce on the same design with HOT_COLUMNS columns
+    named by every row, then the f64 reduce at REDUCE_LARGE_ROWS rows.
+    Returns (uniform records, hot-column records, {"row_block_sweep",
+    "large"} of the reduce)."""
     idx, vals64 = make_ell(n, k, d, "cuda")
     peaks = peaks_for(name)
     results = training_kernels(name, idx, vals64, d, peaks)
+    sweep = reduce_sweep(idx, vals64, d, peaks)
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     idx[:, :HOT_COLUMNS] = torch.randperm(d, generator=g, device="cuda")[:HOT_COLUMNS].to(
         torch.int32)
@@ -934,7 +1087,8 @@ def training_kernel_phase(name: str, n: int = KERNEL_ROWS, d: int = D_HASHED, k:
            + reduce_checks(idx, vals64, d, peaks, "kernel-hot"))
     del idx, vals64
     torch.cuda.empty_cache()
-    return results, hot
+    large = reduce_large_check(peaks)
+    return results, hot, {"row_block_sweep": sweep, "large": large}
 
 
 # -- phase 4b: the sparse kernel lab -----------------------------------------
@@ -2041,7 +2195,7 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
 
 # -- phase 5d: GAME training with projected and factored effects -------------
 
-# phase 5c's records plus a wide per-user shard (phase 5b's layout) and an
+# phase 5c's layout plus a wide per-user shard (phase 5b's layout) and an
 # adId over 1,024 ads; the coordinates of examples/run_wide_game.sh's
 # wide effect (INDEX_MAP), a RANDOM=8 per-ad effect (NEWTON) and a factored
 # per-user effect (latent 8, OWL-QN for gamma and for B). The settings
@@ -2057,6 +2211,11 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
 # 3.5e-9
 GAME_PROJ_ITERATIONS = 2
 GAME_PROJ_ADS = 1024
+# phases 5d and 5e: depth cut from 2^16 + 2^14 to phase 5c's, so that the
+# whole run keeps inside its time limit on a slow host (a run of 1153 s on
+# an H100 whose CPU references ran 1.7-2.9x slower than the run before)
+GAME_PROJ_RECORDS = GAME_TRAIN_RECORDS
+GAME_PROJ_HELDOUT = GAME_TRAIN_HELDOUT
 GAME_PROJ_COORDINATES = {
     "global": {"shard": "gshard", "optimizer": "TRON", "reg_weights": [10.0],
                "max_iters": 100, "tolerance": GAME_TRAIN_FIXED_TOLERANCE},
@@ -2158,8 +2317,8 @@ class _PreemptAfterFirstPass(GracefulShutdown):
         return self.requested
 
 
-def game_projected_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
-                         n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+def game_projected_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
+                         n_heldout: int = GAME_PROJ_HELDOUT, d_hashed: int = D_HASHED,
                          n_users: int = GAME_TRAIN_USERS, user_cols: int = GAME_USER_COLS,
                          n_ads: int = GAME_PROJ_ADS, **device_kw):
     """Phase 5d: the GAME training driver with an INDEX_MAP wide effect, a
@@ -2430,8 +2589,8 @@ def bit_gaps(run, other) -> list:
     return diffs
 
 
-def game_determinism_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
-                           n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
+def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
+                           n_heldout: int = GAME_PROJ_HELDOUT, d_hashed: int = D_HASHED,
                            n_users: int = GAME_TRAIN_USERS, user_cols: int = GAME_USER_COLS,
                            n_ads: int = GAME_PROJ_ADS, **device_kw):
     """Phase 5e: two uninterrupted runs of phase 5d's driver at the
@@ -3003,8 +3162,9 @@ def main() -> int:
 
     # 4. the training kernels against their plain versions, and the scatter
     # with hot columns
-    train_checks, hot_checks = training_kernel_phase(name)
+    train_checks, hot_checks, reduce_extra = training_kernel_phase(name)
     log(json.dumps({"training_kernel_checks": train_checks}))
+    log(json.dumps({"reduce_row_blocks": reduce_extra}))
     log(json.dumps({"hot_column_scatter_checks": [
         c for c in hot_checks if c["name"] == "ell_scatter_add"]}))
     log(json.dumps({"hot_column_fused_checks": [
@@ -3104,7 +3264,10 @@ def main() -> int:
                                 "bytes": main_path["bytes"],
                                 "analytic_bytes": main_path["analytic_bytes"],
                                 "copy": main_path["copy"],
-                                "hot_copy": hot["copy"], "train_shape_copy": at_shape["copy"]})
+                                "hot_copy": hot["copy"], "train_shape_copy": at_shape["copy"],
+                                "row_block_sweep": reduce_extra["row_block_sweep"],
+                                "large": {k: reduce_extra["large"].get(k) for k in (
+                                    "shape", "blocks", *shape_keys[1:])}})
     # the lab's kernels: each at the lab's default shape, its launches on
     # the lab's path, and the column-sorted pair at the uniform 2^22 design
     for kernel in LAB_KERNELS:

@@ -3,22 +3,26 @@
 passes, ``ell_rmatvec`` and ``ell_colsum`` on CUDA tensors.
 
 - :class:`DesignColumns` (built by :func:`build_design_columns`, kept with
-  the design by :func:`design_columns`): every valid slot of a padded ELL
-  (an id in [0, d)) as one entry (column, row, value), sorted stably by
-  column, so a column's entries are one run whose rows keep their order,
-  and in-row duplicates stay separate entries; padded at the tail with
-  column ``d`` to whole tiles of ``TILE`` entries. It keeps the sort's
-  permutation, so a new values table over the same indices is laid out
-  with one gather (:meth:`DesignColumns.layout`), and ``chains``, the
-  columns whose run crosses a tile edge.
+  the design by :func:`design_columns`): the padded ELL cut into blocks of
+  ``ROW_BLOCK`` rows; within a block every valid slot (an id in [0, d)) is
+  one entry (column, slot, value), sorted stably by column, so a column's
+  entries are one run whose rows keep their order, and in-row duplicates
+  stay separate entries; each block padded at its tail with column ``d``
+  to whole tiles of ``TILE`` entries. An entry's slot is counted from its
+  block's first slot (int32 at any n), and its row follows from it: the
+  block's first row + slot // k. A new values table over the same indices
+  is laid out with one gather per block (:meth:`DesignColumns.layout`);
+  ``chains`` are the columns whose run crosses a tile edge within a block.
+  A design of at most ``ROW_BLOCK`` rows is one block.
 - :func:`column_reduce`: ``g_j = sum over column j's entries of f(v_e) *
   a[row_e]``, ``f(v) = v`` (``"linear"``), ``v^2`` (``"square"``) or both
   (``"pair"``: the two sums in float64 in every compute type, each rounded
-  once). On CUDA tensors one C call clears the outputs and launches the
-  tiles and the chains, with no atomics and every sum in a fixed order,
-  so the outputs have the same bits from call to call; on CPU tensors it
-  runs :func:`column_reduce_reference`, the plain PyTorch version, whose
-  order may differ.
+  once). On CUDA tensors one C call clears the outputs and launches, block
+  after block, the tiles and the chains, the first block storing its sums
+  and each later one adding to them, with no atomics and every sum in a
+  fixed order, so the outputs have the same bits from call to call; on CPU
+  tensors it runs :func:`column_reduce_reference`, the plain PyTorch
+  version, whose order may differ.
 
 The lab's layout (``kernels/lab.py``) is the same order cut into blocks
 of 512 columns, made by one sort (:func:`sorted_slots`); it builds its
@@ -53,6 +57,15 @@ TILE = 1024  # entries per tile (csrc/colsort.cuh kTile)
 # slots that the copy's build sorts at a time: its memory beyond the copy
 # is a few tens of bytes times this, whatever the design's size
 BUILD_CHUNK = 1 << 24
+# rows of a block of the copy: the reduce's a[row] gathers of one block
+# fall in a window of this many rows (16 MB of an f64 vector), which stays
+# in the card's L2 while the block's entries stream past; of 2^19, 2^20
+# and 2^21 the fastest on the H100 (PERF.md)
+ROW_BLOCK = 1 << 21
+# a line of DesignColumns.blocks: first row, first tile, end tile, first
+# chain, end chain (the five that csrc/colsort.cuh reads), entries, columns
+# named
+BLOCK_FIELDS = 7
 
 # mode -> (sums per entry, the C entry's name part)
 REDUCE_MODES = {"linear": 1, "square": 1, "pair": 2}
@@ -94,42 +107,67 @@ _layouts = _KeptBeside()
 
 @dataclasses.dataclass(frozen=True)
 class DesignColumns:
-    """The column-sorted copy of an (n, k) padded ELL of width ``d``.
+    """The column-sorted copy of an (n, k) padded ELL of width ``d``, in
+    blocks of rows.
 
-    ``cols``, ``rows``: (ntiles * TILE,) int32, each entry's column (``d``
-    in the tail padding) and row (0 there); within a column the entries
-    keep the ELL's slot order. ``perm``: (nvalid,) int64 or int32, each
-    entry's flat slot in the ELL (row * k + slot). ``chains``: (nchains,
-    3) int32, one line per column whose run crosses a tile edge: the
-    column, its first tile, its last tile. ``token`` names this build (a
-    values layout is valid for the build that made it)."""
+    ``cols``, ``perm``: (ntiles * TILE,) int32, each entry's column (``d``
+    in a block's tail padding) and its slot counted from its block's first
+    slot (local row * k + slot in the row; 0 in the padding); within a
+    block and a column the entries keep the ELL's slot order. ``chains``:
+    (nchains, 3) int32, one line per column whose run crosses a tile edge
+    within a block: the column, its first tile, its last tile, ordered by
+    first tile. ``blocks``: (nblocks, BLOCK_FIELDS) int64 on the host, one
+    line per block of rows: first row, first tile, end tile, first chain,
+    end chain, entries, columns named. ``row_block`` is the ``ROW_BLOCK``
+    of the build; ``token`` names this build (a values layout is valid for
+    the build that made it)."""
 
     cols: torch.Tensor
-    rows: torch.Tensor
     perm: torch.Tensor
     chains: torch.Tensor
+    blocks: torch.Tensor
     n: int
     k: int
     d: int
     nvalid: int
+    row_block: int
     token: int
 
     @property
     def ntiles(self) -> int:
         return self.cols.shape[0] // TILE
 
+    @property
+    def nblocks(self) -> int:
+        return self.blocks.shape[0]
+
+    def _spans(self):
+        """(first row, first entry, entries) of each block."""
+        return [(r0, t0 * TILE, nv) for r0, t0, _, _, _, nv, _ in self.blocks.tolist()]
+
+    def entry_rows(self) -> torch.Tensor:
+        """(ntiles * TILE,) int64: each entry's row, the block's first row
+        + slot // k, as the kernel derives it (0 in the padding)."""
+        rows = torch.zeros(self.cols.shape[0], dtype=torch.int64, device=self.cols.device)
+        for r0, e0, nv in self._spans():
+            rows[e0:e0 + nv] = torch.div(self.perm[e0:e0 + nv], self.k,
+                                         rounding_mode="floor") + r0
+        return rows
+
     def layout(self, values: torch.Tensor) -> torch.Tensor:
         """(ntiles * TILE,) ``values`` (n, k) in the copy's order, 0 in the
-        tail padding: one gather."""
+        tail padding: one gather per block."""
         out = torch.zeros(self.cols.shape[0], dtype=values.dtype, device=values.device)
-        torch.index_select(values.reshape(-1), 0, self.perm, out=out[:self.nvalid])
+        flat = values.reshape(-1)
+        for r0, e0, nv in self._spans():
+            torch.index_select(flat[r0 * self.k:], 0, self.perm[e0:e0 + nv],
+                               out=out[e0:e0 + nv])
         return out
 
     def nbytes(self, values_itemsize: int = 0) -> int:
-        """Device bytes of the copy (columns, rows, permutation, chains),
-        plus one values layout of ``values_itemsize`` bytes an entry."""
-        return (sum(t.numel() * t.element_size()
-                    for t in (self.cols, self.rows, self.perm, self.chains))
+        """Device bytes of the copy (columns, slots, chains), plus one
+        values layout of ``values_itemsize`` bytes an entry."""
+        return (sum(t.numel() * t.element_size() for t in (self.cols, self.perm, self.chains))
                 + self.cols.shape[0] * values_itemsize)
 
 
@@ -170,23 +208,31 @@ def run_chains(head: torch.Tensor, tail: torch.Tensor, open_head: torch.Tensor) 
     return torch.stack([tail[first].long(), first, ends], dim=1).to(torch.int32)
 
 
-def _chunk_spans(total: int):
-    return [(s, min(s + BUILD_CHUNK, total)) for s in range(0, total, BUILD_CHUNK)]
+def _chunk_spans(lo: int, hi: int):
+    return [(s, min(s + BUILD_CHUNK, hi)) for s in range(lo, hi, BUILD_CHUNK)]
+
+
+def rows_per_block(k: int) -> int:
+    """Rows of a block of the copy: ``ROW_BLOCK``, or fewer where the rows
+    are so wide that a block's slots would leave int32."""
+    return max(1, min(ROW_BLOCK, (2**31 - 1) // max(k, 1)))
 
 
 def build_design_columns(indices: torch.Tensor, d: int) -> DesignColumns:
     """The column-sorted copy of ``indices`` (n, k) int, built on its
-    device in the order of a stable sort by column (the same layout on
-    every build). Ids outside [0, d) are the ELL's padding (or ids the
-    kernels ignore) and are left out.
+    device block by block, in the order of a stable sort by column within
+    each block (the same layout on every build). Ids outside [0, d) are
+    the ELL's padding (or ids the kernels ignore) and are left out.
 
-    A counting sort in chunks of ``BUILD_CHUNK`` slots, so the build holds
-    the copy and one chunk's sort at a time, not a sort of every slot:
-    the columns' counts give each column's first position; each chunk,
-    sorted stably on its own, places its entries after those of the
-    chunks before it. Positions are unique and integer sums exact, so the
-    layout does not depend on the device's order. One host read per chunk
-    (its count of valid slots), one for the total, one for the chains."""
+    Each block is a counting sort in chunks of ``BUILD_CHUNK`` slots over
+    its own rows, so the build holds the copy and one chunk's sort at a
+    time, not a sort of every slot: the block's column counts give each
+    column's first position; each chunk, sorted stably on its own, places
+    its entries after those of the chunks before it. Positions are unique
+    and integer sums exact, so the layout does not depend on the device's
+    order. One host read for the blocks' sizes, one per chunk (its count
+    of valid slots), one for the chains and the columns each block
+    names."""
     if indices.dim() != 2:
         raise ValueError(f"build_design_columns: indices must be (n, k), got "
                          f"{tuple(indices.shape)}")
@@ -195,54 +241,77 @@ def build_design_columns(indices: torch.Tensor, d: int) -> DesignColumns:
     n, k = indices.shape
     dev = indices.device
     flat = indices.reshape(-1)
-    spans = _chunk_spans(flat.numel())
+    per = rows_per_block(k)
+    spans = [(r0, min(r0 + per, n)) for r0 in range(0, n, per)]
 
     def keys(lo, hi):
         ids = flat[lo:hi]
         return torch.where((ids >= 0) & (ids < d), ids, d)
 
-    counts = torch.zeros(d + 1, dtype=torch.int64, device=dev)
-    for lo, hi in spans:
-        counts += torch.bincount(keys(lo, hi), minlength=d + 1)
-    nvalid = int(counts[:d].sum())
-    total = -(-nvalid // TILE) * TILE
+    counted = torch.zeros(len(spans), dtype=torch.int64, device=dev)
+    for b, (r0, r1) in enumerate(spans):
+        for lo, hi in _chunk_spans(r0 * k, r1 * k):
+            ids = flat[lo:hi]
+            counted[b] += ((ids >= 0) & (ids < d)).sum()
+    entries = counted.tolist()
+    ends = list(itertools.accumulate(-(-v // TILE) for v in entries))
+    firsts = [0] + ends[:-1]
+    total = (ends[-1] if ends else 0) * TILE
     cols = torch.full((total,), d, dtype=torch.int32, device=dev)
-    rows = torch.zeros(total, dtype=torch.int32, device=dev)
-    perm = torch.empty(nvalid, dtype=torch.int32 if n * k <= 2**31 - 1 else torch.int64,
-                       device=dev)
-    # each column's next free position in the copy
-    nxt = torch.cumsum(counts, 0) - counts
-    for lo, hi in spans:
-        key = keys(lo, hi)
-        chunk = torch.bincount(key, minlength=d + 1)
-        valid = int(chunk[:d].sum())
-        sorted_key, order = torch.sort(key, stable=True)
-        col = sorted_key[:valid].long()
-        # the entry's rank in its column's run within the chunk, after the
-        # chunks before
-        pos = (nxt - (torch.cumsum(chunk, 0) - chunk))[col]
-        pos += torch.arange(valid, device=dev)
-        slot = order[:valid] + lo
-        cols[pos] = col.to(torch.int32)
-        perm[pos] = slot.to(perm.dtype)
-        rows[pos] = torch.div(slot, max(k, 1), rounding_mode="floor").to(torch.int32)
-        nxt += chunk
-        del key, sorted_key, order, col, pos, slot
+    perm = torch.zeros(total, dtype=torch.int32, device=dev)
+    named = torch.zeros(len(spans), dtype=torch.int64, device=dev)
+    for b, (r0, r1) in enumerate(spans):
+        chunks = _chunk_spans(r0 * k, r1 * k)
+        counts = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+        for lo, hi in chunks:
+            counts += torch.bincount(keys(lo, hi), minlength=d + 1)
+        named[b] = (counts[:d] > 0).sum()
+        # each column's next free position in the copy
+        nxt = torch.cumsum(counts, 0) - counts + firsts[b] * TILE
+        for lo, hi in chunks:
+            key = keys(lo, hi)
+            chunk = torch.bincount(key, minlength=d + 1)
+            valid = int(chunk[:d].sum())
+            sorted_key, order = torch.sort(key, stable=True)
+            col = sorted_key[:valid].long()
+            # the entry's rank in its column's run within the chunk, after
+            # the chunks before
+            pos = (nxt - (torch.cumsum(chunk, 0) - chunk))[col]
+            pos += torch.arange(valid, device=dev)
+            cols[pos] = col.to(torch.int32)
+            perm[pos] = (order[:valid] + (lo - r0 * k)).to(torch.int32)
+            nxt += chunk
+            del key, sorted_key, order, col, pos
     tiles = cols.view(-1, TILE)
     head, tail = tiles[:, 0], tiles[:, -1]
+    # a run never crosses into the next block
+    open_head = head < d
+    open_head[torch.tensor([t for t in firsts if t < tiles.shape[0]], dtype=torch.int64,
+                           device=dev)] = False
+    chains = run_chains(head, tail, open_head)
+    # each block's chains: the run of those whose first tile is its own
+    edges = torch.searchsorted(chains[:, 1].long().contiguous(),
+                               torch.tensor(firsts + ends[-1:], dtype=torch.int64, device=dev))
+    read = torch.cat([named, edges]).tolist()
+    named_b, edges = read[:len(spans)], read[len(spans):]
+    blocks = torch.tensor(
+        [[r0, t0, t1, c0, c1, nv, m] for (r0, _), t0, t1, c0, c1, nv, m in
+         zip(spans, firsts, ends, edges, edges[1:], entries, named_b)],
+        dtype=torch.int64).reshape(-1, BLOCK_FIELDS)
     return DesignColumns(
-        cols=cols, rows=rows, perm=perm, chains=run_chains(head, tail, head < d),
-        n=n, k=k, d=int(d), nvalid=nvalid, token=next(_tokens),
+        cols=cols, perm=perm, chains=chains, blocks=blocks, n=n, k=k, d=int(d),
+        nvalid=sum(entries), row_block=ROW_BLOCK, token=next(_tokens),
     )
 
 
 def design_columns(indices: torch.Tensor, d: int) -> DesignColumns:
     """The copy of ``indices``, built at the first call and kept beside the
     tensor object for as long as it lives: every later call on the same
-    tensor, at the same width and with its contents unchanged
-    (``_version``), returns it without a sort."""
+    tensor, at the same width, with its contents unchanged (``_version``)
+    and the same ``ROW_BLOCK``, returns it without a sort."""
     kept = _copies.get(indices)
-    if kept is not None and kept[0] == indices._version and kept[1].d == d:
+    if (kept is not None and kept[0] == indices._version and kept[1].d == d
+            and kept[1].row_block == ROW_BLOCK):
         return kept[1]
     copy = build_design_columns(indices, d)
     _copies.put(indices, (indices._version, copy))
@@ -278,11 +347,12 @@ def reduce_dtypes(values_dtype: torch.dtype, a_dtype: torch.dtype):
 def column_reduce_reference(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
                             mode: str = "linear"):
     """Plain PyTorch version of :func:`column_reduce`: each entry's update
-    in the compute type (``"pair"``: widened to float64) added into a
-    (d + 1,) buffer whose last entry takes the padding, by ``index_add_``."""
+    in the compute type (``"pair"``: widened to float64), with its row
+    derived from its block's first row and its slot, added into a (d + 1,)
+    buffer whose last entry takes the padding, by ``index_add_``."""
     _, cd = reduce_dtypes(vals.dtype, a.dtype)
     v = vals.to(cd)
-    s = a.to(cd)[copy.rows.long()]
+    s = a.to(cd)[copy.entry_rows()]
     ids = copy.cols.long()
 
     def colsum(upd):
@@ -301,16 +371,45 @@ def column_reduce_reference(copy: DesignColumns, vals: torch.Tensor, a: torch.Te
 def check_copy(kernel: str, copy: DesignColumns, vals: torch.Tensor) -> None:
     """Raise on what the CUDA reduce does not take: a layout of the wrong
     size, non-contiguous or misaligned tensors (it loads 4 entries at a
-    time)."""
+    time), a block table that is not on the host."""
     if vals.shape != copy.cols.shape:
         raise ValueError(f"{kernel}: values laid out as {tuple(vals.shape)}, the copy "
                          f"holds {tuple(copy.cols.shape)}")
-    for name, t in (("cols", copy.cols), ("rows", copy.rows), ("vals", vals),
+    for name, t in (("cols", copy.cols), ("perm", copy.perm), ("vals", vals),
                     ("chains", copy.chains)):
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: the copy's {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: the copy's {name} must start on a 16-byte boundary")
+    blocks = copy.blocks
+    if blocks.device.type != "cpu" or blocks.dtype != torch.int64 or not blocks.is_contiguous():
+        raise ValueError(f"{kernel}: the copy's blocks must be contiguous int64 on the host")
+
+
+def wide_sums(copy: DesignColumns, mode: str, cd: torch.dtype) -> bool:
+    """Whether the reduce keeps the pair mode's sums in float64 across
+    blocks and rounds each column once at the end (csrc/colsort.cuh)."""
+    return mode == "pair" and cd != torch.float64 and copy.nblocks > 1
+
+
+def block_bytes(copy: DesignColumns, mode: str, cd: torch.dtype) -> int:
+    """Bytes the reduce moves for its blocks of rows beyond what one block
+    moves: each later block's second read and write of the columns it
+    names, and for :func:`wide_sums` the float64 sums written and read
+    again by the narrowing pass."""
+    sums = REDUCE_MODES[mode]
+    wide = wide_sums(copy, mode, cd)
+    named_later = int(copy.blocks[1:, 6].sum())
+    return (2 * sums * (8 if wide else cd.itemsize) * named_later
+            + (2 * sums * copy.d * 8 if wide else 0))
+
+
+def reduce_scratch(copy: DesignColumns, mode: str, cd: torch.dtype, device) -> torch.Tensor:
+    """The reduce's float64 scratch: its sums at each side of each tile,
+    then, for :func:`wide_sums`, the (2, d) float64 sums."""
+    sums = REDUCE_MODES[mode]
+    size = 2 * copy.ntiles * sums + (2 * copy.d if wide_sums(copy, mode, cd) else 0)
+    return torch.empty((max(1, size),), dtype=torch.float64, device=device)
 
 
 def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
@@ -318,22 +417,24 @@ def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
     """The (d,) column sums of ``f(v_e) * a[row_e]`` over the copy, in
     ``promote_types(vals, a)`` (a tuple of two for ``"pair"``): ``vals``
     laid out by :func:`column_values`, ``a`` (n,). CUDA tensors: one C
-    call (outputs cleared, the tiles, the chains) or an exception; CPU
-    tensors: :func:`column_reduce_reference`."""
+    call (outputs cleared, then each block's tiles and chains in block
+    order) or an exception; CPU tensors: :func:`column_reduce_reference`."""
     if mode not in REDUCE_MODES:
         raise ValueError(f"column_reduce: mode {mode!r} not in {sorted(REDUCE_MODES)}")
     vdt, cd = reduce_dtypes(vals.dtype, a.dtype)
     if a.dim() != 1 or a.shape[0] != copy.n:
         raise ValueError(f"column_reduce: a must be ({copy.n},), got {tuple(a.shape)}")
     sums = REDUCE_MODES[mode]
-    # the roofline: each entry's column id and value read once; beyond it
-    # the copy's row ids, its tail padding, a and the outputs
+    # the roofline: each entry's column id and value read once, a read, g
+    # written; beyond it the copy's slots, its tiles' padding and what its
+    # blocks of rows add
     pad = copy.cols.shape[0] - copy.nvalid
     dispatch.record_kernel_cost(
         "colsort_reduce", copy.nvalid, 1, copy.d, vals.element_size(),
         flops_per_slot=sums + (mode != "linear"),
         extra_bytes=(4 * copy.nvalid + pad * (8 + vals.element_size())
-                     + copy.n * cd.itemsize + sums * copy.d * cd.itemsize),
+                     + copy.n * cd.itemsize + sums * copy.d * cd.itemsize
+                     + block_bytes(copy, mode, cd)),
     )
     if not dispatch.use_kernel("colsort_reduce", copy.cols, vals, a):
         return column_reduce_reference(copy, vals, a, mode)
@@ -341,21 +442,21 @@ def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
     a = a.to(cd).contiguous()
     check_copy("colsort_reduce", copy, vals)
     out = torch.empty((sums, copy.d), dtype=cd, device=a.device)
-    edge = torch.empty((max(1, 2 * copy.ntiles * sums),), dtype=torch.float64, device=a.device)
+    scratch = reduce_scratch(copy, mode, cd, a.device)
     import ctypes
 
     from photon_ml_tpu_torch.kernels.ell import device_scope, load_entry, stream_of
 
     lib, entry = load_entry(
         "colsort", f"photon_colsort_reduce_{mode}_{_REDUCE_TYPES[(vdt, cd)]}",
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p],
     )
     with device_scope(a.device):
-        code = entry(copy.cols.data_ptr(), copy.rows.data_ptr(), vals.data_ptr(),
-                     copy.chains.data_ptr(), a.data_ptr(), out[0].data_ptr(),
-                     out[sums - 1].data_ptr(), edge.data_ptr(), copy.ntiles,
-                     copy.chains.shape[0], copy.d, stream_of(a))
+        code = entry(copy.cols.data_ptr(), copy.perm.data_ptr(), vals.data_ptr(),
+                     copy.chains.data_ptr(), copy.blocks.data_ptr(), a.data_ptr(),
+                     out[0].data_ptr(), out[sums - 1].data_ptr(), scratch.data_ptr(),
+                     copy.nblocks, copy.k, copy.d, stream_of(a))
     from photon_ml_tpu_torch.kernels import build
 
     build.check(lib, code, "colsort_reduce launch")

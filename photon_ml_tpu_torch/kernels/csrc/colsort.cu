@@ -4,7 +4,7 @@
 // (kernels/colsort.py::column_reduce). The fused passes launch the same
 // kernels from fused.cu, after their row pass.
 //
-// Each entry point clears the output(s) and launches the tiles and the
+// Each entry point clears the output(s) and launches each block's tiles and
 // chains on the caller's stream; nothing is allocated here and nothing
 // synchronises. It returns the first CUDA error, or cudaGetLastError().
 
@@ -13,30 +13,34 @@
 namespace {
 
 template <typename V, typename A, int MODE>
-int reduce(const void* cols, const void* rows, const void* vals, const void* chains,
-           const void* a, void* out0, void* out1, void* edge, long long ntiles,
-           long long nchains, int d, void* stream) {
-  const photon::colsort::ReduceArgs<V, A> p{
-      static_cast<const int32_t*>(cols), static_cast<const int32_t*>(rows),
-      static_cast<const V*>(vals),       static_cast<const int32_t*>(chains),
-      static_cast<const A*>(a),          static_cast<A*>(out0),
-      static_cast<A*>(out1),             static_cast<double*>(edge),
-      ntiles,                            nchains,
-      d};
-  return photon::colsort::launch_reduce<V, A, MODE>(p, static_cast<cudaStream_t>(stream));
+int reduce(const void* cols, const void* slots, const void* vals, const void* chains,
+           const void* blocks, const void* a, void* out0, void* out1, void* scratch,
+           long long nblocks, int k, int d, void* stream) {
+  const photon::colsort::Reduce<V, A> r{
+      static_cast<const int32_t*>(cols),    static_cast<const int32_t*>(slots),
+      static_cast<const V*>(vals),          static_cast<const int32_t*>(chains),
+      static_cast<const long long*>(blocks), nblocks,
+      static_cast<const A*>(a),             static_cast<A*>(out0),
+      static_cast<A*>(out1),                static_cast<double*>(scratch),
+      k,                                    d};
+  return photon::colsort::launch_reduce<V, A, MODE>(r, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-#define PHOTON_COLSORT_ENTRY(MODE_NAME, MODE, SUFFIX, V, A)                          \
-  int photon_colsort_reduce_##MODE_NAME##_##SUFFIX(                                  \
-      const void* cols, const void* rows, const void* vals, const void* chains,      \
-      const void* a, void* out0, void* out1, void* edge, long long ntiles,           \
-      long long nchains, int d, void* stream) {                                      \
-    return reduce<V, A, MODE>(cols, rows, vals, chains, a, out0, out1, edge, ntiles, \
-                              nchains, d, stream);                                   \
+// `blocks` is the copy's block table in host memory (nblocks lines of
+// kBlockFields int64); `scratch` holds 2 * ntiles doubles per sum, and 2 *
+// d more for kPair over several blocks in f32 (kernels/colsort.py
+// reduce_scratch)
+#define PHOTON_COLSORT_ENTRY(MODE_NAME, MODE, SUFFIX, V, A)                              \
+  int photon_colsort_reduce_##MODE_NAME##_##SUFFIX(                                      \
+      const void* cols, const void* slots, const void* vals, const void* chains,         \
+      const void* blocks, const void* a, void* out0, void* out1, void* scratch,          \
+      long long nblocks, int k, int d, void* stream) {                                   \
+    return reduce<V, A, MODE>(cols, slots, vals, chains, blocks, a, out0, out1, scratch, \
+                              nblocks, k, d, stream);                                    \
   }
 #define PHOTON_COLSORT_ENTRIES(SUFFIX, V, A)                                  \
   PHOTON_COLSORT_ENTRY(linear, photon::colsort::kLinear, SUFFIX, V, A)        \

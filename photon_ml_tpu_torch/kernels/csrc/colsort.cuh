@@ -12,35 +12,60 @@
 // passes and the scatter of kernels/ell.py::ell_scatter_add under
 // ell_rmatvec and ell_colsum. Its scheme is that of the lab's
 // onehot_reduce (lab.cu, the port of benchmarks/sparse_kernel_lab.py::
-// pallas_onehot_reduce), on the design's copy (kernels/colsort.py): every
-// valid slot of the ELL as one entry (global column, row, value), sorted
-// stably by column, so a column's entries are one run with its rows in
-// order; padded at the tail (column d) to whole tiles of kTile entries.
-// Values are f64, f32 or bf16 (widened to f32), a is the compute type A.
+// pallas_onehot_reduce), on the design's copy (kernels/colsort.py): the
+// ELL cut into blocks of ROW_BLOCK rows; in each block every valid slot as
+// one entry (global column, slot counted from the block's first slot,
+// value), sorted stably by column, so a column's entries in a block are
+// one run with its rows in order; each block padded at its tail (column
+// d) to whole tiles of kTile entries. An entry's row is the block's first
+// row + slot / k. Values are f64, f32 or bf16 (widened to f32), a is the
+// compute type A.
 //
-// Every column is written once, with no atomics, by sums in a fixed order,
-// so the outputs have the same bits from call to call:
+// What bounds it on Hopper: memory traffic. The copy streams once (4 + 4 +
+// sizeof(V) bytes an entry, evict-first loads); each entry also gathers
+// a[row], 8 or 4 bytes at a row far from the last one (within a column,
+// rows are about n / (entries per column) apart), so a gather that misses
+// the L2 costs a whole 32-byte sector of HBM. Over all n rows at once, a
+// is too large to stay in the 50 MB L2 (two partitions) while gigabytes
+// of copy stream through it: at n = 2^22 in f64 (a 32 MB vector) the
+// gathers' sectors were about twice the copy's own bytes. The row blocks
+// bound the window: the blocks run in order, so one block's gathers fall
+// in ROW_BLOCK rows of a (16 MB of f64 at 2^21), which stay in L2 while
+// the block's entries stream past, and a is read from HBM about once. What
+// is left bounds it on the L2: each gather still moves a 32-byte sector
+// from L2 to the SM for 8 or 4 bytes. An f64 pass at n = 2^22 (1.6e8
+// entries) moves 5.2 GB of gathered sectors and 2.6 GB of copy through
+// the L2, and took 1.6 ms on an H100 SXM (about 4.8 TB/s). What the blocks
+// cost: a launch of tiles and one of chains each, each block's tile
+// padding, and a second read and write of every column a later block
+// names; where a already stays in L2 (an f32 a of 16 MB) they cost more
+// than they save. A design of at most ROW_BLOCK rows is one block, whose
+// launches and bits are those of the single sort.
+//
+// Every column is written once per launch, with no atomics, by sums in a
+// fixed order, so the outputs have the same bits from call to call:
 //   1. the caller's stream clears the outputs (columns no entry names stay
 //      0);
-//   2. a block per tile: each thread loads 4 entries (16-byte loads of
-//      columns and rows, 8, 16 or 32 bytes of values), gathers a[row]
-//      through the read-only path, forms its updates, and sums each run of
-//      equal columns by a segmented inclusive scan: in order over its 4
-//      entries, then across the warp by shuffles, then across the 8 warps
-//      in warp order through shared memory. A run inside the tile has one
-//      writer and goes straight to the output. The tile's first run, where
-//      it continues the previous tile's last column, goes to edge[2t]; its
-//      last run, where the next tile continues it (and it is not also the
+//   2. per block, in block order, a block of threads per tile: each thread
+//      loads 4 entries (16-byte loads of columns and slots, 8, 16 or 32
+//      bytes of values), gathers a[row] through the read-only path, forms
+//      its updates, and sums each run of equal columns by a segmented
+//      inclusive scan: in order over its 4 entries, then across the warp
+//      by shuffles, then across the 8 warps in warp order through shared
+//      memory. A run inside the tile has one writer and goes straight to
+//      the output. The tile's first run, where it continues the previous
+//      tile's last column in the same block, goes to edge[2t]; its last
+//      run, where the next tile continues it (and it is not also the
 //      first), to edge[2t + 1]; edges are f64;
-//   3. a warp per column whose run crosses a tile edge (a line of `chains`:
-//      column, first tile, last tile; built with the copy) adds edge[2
-//      first + 1] and edge[2t] of the tiles after it, in tile order per
-//      lane and then a fixed shuffle tree, in f64, and writes the column
-//      once.
-// Bound on Hopper: HBM bytes, the copy read once (4 + 4 + sizeof(V) per
-// entry), a (n,) read and the (d,) output(s) written; the a[row] gathers
-// hit a (n,) vector that is L2-resident up to n = 2^22 in f64 and are in
-// row order within a column.
+//   3. then a warp per column whose run crosses a tile edge in that block
+//      (a line of `chains`: column, first tile, last tile; built with the
+//      copy) adds edge[2 first + 1] and edge[2t] of the tiles after it, in
+//      tile order per lane and then a fixed shuffle tree, in f64, and
+//      writes the column once;
+//   4. the first block stores each column's sum, each later block adds
+//      its sum to it. kPair in an f32 compute type over several blocks
+//      keeps the sums in (2, d) f64 scratch and rounds each column once in
+//      a last narrowing pass.
 
 #pragma once
 
@@ -57,7 +82,7 @@ constexpr int kTile = 1024;  // entries per tile
 constexpr int kPer = kTile / kThreads;  // entries per thread: 4
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kPer == 4, "one 16-byte load of columns and of rows per thread");
+static_assert(kPer == 4, "one 16-byte load of columns and of slots per thread");
 
 enum Mode { kLinear = 0, kSquare = 1, kPair = 2 };
 
@@ -100,23 +125,71 @@ __device__ __forceinline__ Seg<S, N> shfl_up(const Seg<S, N>& x, int off) {
   return out;
 }
 
-// What the reduce takes: the copy (cols, rows, vals: ntiles * kTile
-// entries; chains: nchains lines of (column, first tile, last tile)), the
-// (n,) vector a, the (d,) output(s) and 2 * ntiles * N doubles of scratch.
+// A line of the copy's block table (kernels/colsort.py BLOCK_FIELDS): first
+// row, first tile, end tile, first chain, end chain, then two fields the
+// reduce does not read.
+constexpr int kBlockFields = 7;
+
+// What the reduce takes: the copy (cols, slots, vals: ntiles * kTile
+// entries; chains: nchains lines of (column, first tile, last tile); the
+// block table on the host), the (n,) vector a, the (d,) output(s) and
+// 2 * ntiles * N doubles of edge scratch, followed for wide sums (kPair
+// over several blocks in f32) by 2 * d doubles.
+template <typename V, typename A>
+struct Reduce {
+  const int32_t* cols;
+  const int32_t* slots;
+  const V* vals;
+  const int32_t* chains;
+  const long long* blocks;
+  long long nblocks;
+  const A* a;
+  A* out0;
+  A* out1;
+  double* scratch;
+  int k;
+  int d;
+};
+
+// One block's launch: its tiles and chains (global indices), a from the
+// block's first row, and whether it adds to the sums of the blocks before.
 template <typename V, typename A>
 struct ReduceArgs {
   const int32_t* cols;
-  const int32_t* rows;
+  const int32_t* slots;
   const V* vals;
   const int32_t* chains;
   const A* a;
   A* out0;
   A* out1;
   double* edge;
-  long long ntiles;
-  long long nchains;
+  double* wide0;  // the f64 sums of wide kPair, else null
+  double* wide1;
+  long long tile_begin;
+  long long tile_end;
+  long long chain_begin;
+  long long chain_end;
+  int k;
   int d;
+  int add;
 };
+
+// Write one column's sum: stored by the first block, added by the others.
+template <typename V, typename A, int N, typename S>
+__device__ __forceinline__ void put(const ReduceArgs<V, A>& p, long long col,
+                                    const S (&sum)[N]) {
+  if constexpr (N == 2 && !std::is_same<A, double>::value) {
+    if (p.wide0 != nullptr) {
+      p.wide0[col] = p.add ? p.wide0[col] + (double)sum[0] : (double)sum[0];
+      p.wide1[col] = p.add ? p.wide1[col] + (double)sum[1] : (double)sum[1];
+      return;
+    }
+  }
+  p.out0[col] = p.add ? p.out0[col] + (A)sum[0] : (A)sum[0];
+  if constexpr (N == 2) {
+    p.out1[col] = p.add ? p.out1[col] + (A)sum[1] : (A)sum[1];
+  }
+}
 
 template <typename V, typename A, int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -125,22 +198,24 @@ colsort_reduce_tiles_kernel(ReduceArgs<V, A> p) {
   constexpr int N = Sums<A, MODE>::kN;
   using Span = Seg<S, N>;
   __shared__ Span warp_sum[kWarps];
-  const long long t = blockIdx.x;
+  const long long t = p.tile_begin + blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long base = t * kTile;
   const long long s = base + kPer * tid;
   const int4 c4 = __ldcs(reinterpret_cast<const int4*>(p.cols + s));
-  const int4 r4 = __ldcs(reinterpret_cast<const int4*>(p.rows + s));
+  const int4 l4 = __ldcs(reinterpret_cast<const int4*>(p.slots + s));
   A v[kPer];
   load_cs<kPer>(p.vals + s, v);
   const int32_t c[kPer] = {c4.x, c4.y, c4.z, c4.w};
-  const int32_t r[kPer] = {r4.x, r4.y, r4.z, r4.w};
+  const unsigned slot[kPer] = {(unsigned)l4.x, (unsigned)l4.y, (unsigned)l4.z,
+                               (unsigned)l4.w};
   const unsigned d = (unsigned)p.d;
+  const unsigned k = (unsigned)p.k;
   // the updates; a padding entry (column d) adds nothing and reads no row
   S u[kPer][N];
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    const A aj = (unsigned)c[j] < d ? __ldg(p.a + r[j]) : A(0);
+    const A aj = (unsigned)c[j] < d ? __ldg(p.a + slot[j] / k) : A(0);
     if constexpr (MODE == kLinear) {
       u[j][0] = v[j] * aj;
     } else if constexpr (MODE == kSquare) {
@@ -150,11 +225,12 @@ colsort_reduce_tiles_kernel(ReduceArgs<V, A> p) {
       u[j][1] = (S)(v[j] * aj);
     }
   }
-  // the tile's first and last columns, and whether its neighbours continue
-  // them (never the padding)
+  // the tile's first and last columns, and whether its neighbours in the
+  // block continue them (never the padding)
   const int32_t first = __ldg(p.cols + base), last = __ldg(p.cols + base + kTile - 1);
-  const bool left_open = (unsigned)first < d && t > 0 && __ldg(p.cols + base - 1) == first;
-  const bool right_open = (unsigned)last < d && t + 1 < p.ntiles &&
+  const bool left_open =
+      (unsigned)first < d && t > p.tile_begin && __ldg(p.cols + base - 1) == first;
+  const bool right_open = (unsigned)last < d && t + 1 < p.tile_end &&
                           __ldg(p.cols + base + kTile) == last;
   // the columns just before and just after this thread's 4 entries
   int32_t prev = __shfl_up_sync(kFull, c[kPer - 1], 1);
@@ -250,10 +326,7 @@ colsort_reduce_tiles_kernel(ReduceArgs<V, A> p) {
         p.edge[(2 * t + 1) * N + i] = (double)sum[i];
       }
     } else {
-      p.out0[c[j]] = (A)sum[0];
-      if constexpr (N == 2) {
-        p.out1[c[j]] = (A)sum[1];
-      }
+      put(p, c[j], sum);
     }
   }
 }
@@ -262,9 +335,9 @@ template <typename V, typename A, int MODE>
 __global__ void __launch_bounds__(kThreads)
 colsort_reduce_chains_kernel(ReduceArgs<V, A> p) {
   constexpr int N = Sums<A, MODE>::kN;
-  const long long chain = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long chain = p.chain_begin + (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (chain >= p.nchains) {
+  if (chain >= p.chain_end) {
     return;
   }
   const long long col = __ldg(p.chains + 3 * chain);
@@ -289,32 +362,65 @@ colsort_reduce_chains_kernel(ReduceArgs<V, A> p) {
     }
   }
   if (lane == 0) {
-    p.out0[col] = (A)acc[0];
-    if constexpr (N == 2) {
-      p.out1[col] = (A)acc[1];
-    }
+    put(p, col, acc);
   }
 }
 
-// The reduce on the caller's stream: the output(s) cleared, the tiles,
-// then the chains. Returns the first CUDA error.
+// wide kPair's last pass: each column's f64 sums rounded once
+template <typename A>
+__global__ void __launch_bounds__(kThreads)
+colsort_narrow_kernel(const double* wide0, const double* wide1, A* out0, A* out1, int d) {
+  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < d;
+       j += (long long)gridDim.x * kThreads) {
+    out0[j] = (A)wide0[j];
+    out1[j] = (A)wide1[j];
+  }
+}
+
+// The reduce on the caller's stream: the output(s) (or wide sums) cleared,
+// each block's tiles then chains in block order, then for wide sums the
+// narrowing pass. Returns the first CUDA error.
 template <typename V, typename A, int MODE>
-int launch_reduce(const ReduceArgs<V, A>& p, cudaStream_t s) {
-  int code = (int)cudaMemsetAsync(p.out0, 0, (size_t)p.d * sizeof(A), s);
-  if (code == 0 && MODE == kPair) {
-    code = (int)cudaMemsetAsync(p.out1, 0, (size_t)p.d * sizeof(A), s);
+int launch_reduce(const Reduce<V, A>& r, cudaStream_t s) {
+  constexpr int N = Sums<A, MODE>::kN;
+  const long long ntiles = r.nblocks > 0 ? r.blocks[(r.nblocks - 1) * kBlockFields + 2] : 0;
+  const bool wide = MODE == kPair && !std::is_same<A, double>::value && r.nblocks > 1;
+  double* wide0 = wide ? r.scratch + 2 * ntiles * N : nullptr;
+  double* wide1 = wide ? wide0 + r.d : nullptr;
+  int code;
+  if (wide) {
+    code = (int)cudaMemsetAsync(wide0, 0, 2 * (size_t)r.d * sizeof(double), s);
+  } else {
+    code = (int)cudaMemsetAsync(r.out0, 0, (size_t)r.d * sizeof(A), s);
+    if (code == 0 && MODE == kPair) {
+      code = (int)cudaMemsetAsync(r.out1, 0, (size_t)r.d * sizeof(A), s);
+    }
   }
-  if (code != 0 || p.ntiles == 0) {
-    return code;
+  for (long long b = 0; code == 0 && b < r.nblocks; ++b) {
+    const long long* line = r.blocks + b * kBlockFields;
+    const ReduceArgs<V, A> p{r.cols,   r.slots, r.vals,  r.chains,  r.a + line[0],
+                             r.out0,   r.out1,  r.scratch, wide0,   wide1,
+                             line[1],  line[2], line[3], line[4],   r.k,
+                             r.d,      b > 0 ? 1 : 0};
+    if (p.tile_end > p.tile_begin) {
+      colsort_reduce_tiles_kernel<V, A, MODE>
+          <<<(unsigned)(p.tile_end - p.tile_begin), kThreads, 0, s>>>(p);
+      code = (int)cudaGetLastError();
+    }
+    if (code == 0 && p.chain_end > p.chain_begin) {
+      colsort_reduce_chains_kernel<V, A, MODE>
+          <<<(unsigned)((p.chain_end - p.chain_begin + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+              p);
+      code = (int)cudaGetLastError();
+    }
   }
-  colsort_reduce_tiles_kernel<V, A, MODE><<<(unsigned)p.ntiles, kThreads, 0, s>>>(p);
-  code = (int)cudaGetLastError();
-  if (code != 0 || p.nchains == 0) {
-    return code;
+  if (code == 0 && wide) {
+    const unsigned grid = (unsigned)((r.d + kThreads - 1) / kThreads);
+    colsort_narrow_kernel<A><<<grid < 1024u ? grid : 1024u, kThreads, 0, s>>>(
+        wide0, wide1, r.out0, r.out1, r.d);
+    code = (int)cudaGetLastError();
   }
-  colsort_reduce_chains_kernel<V, A, MODE>
-      <<<(unsigned)((p.nchains + kWarps - 1) / kWarps), kThreads, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return code;
 }
 
 }  // namespace colsort

@@ -44,10 +44,11 @@
 //      adds the blocks' partials in a fixed order (sum_partials_kernel).
 //      k = 0 with n > 0 gives every row's terms from the offsets alone;
 //   2. the X^T side: the column-sorted reduce of colsort.cuh over the
-//      design's column-sorted copy (kernels/colsort.py), which gathers
-//      scale[row] itself and writes each column once with no atomics (vgc,
-//      hvp: v scale; hdiag: the pair v^2 scale, v scale, summed in f64 in
-//      every compute type and rounded once).
+//      design's column-sorted copy (kernels/colsort.py), block of rows
+//      after block of rows so that its scale[row] gathers stay in L2; it
+//      gathers them itself and writes each column once per block with no
+//      atomics (vgc, hvp: v scale; hdiag: the pair v^2 scale, v scale,
+//      summed in f64 in every compute type and rounded once).
 // Until this design the X^T side was a scatter of each slot's update
 // through a shared-memory combiner with global atomics, one read of the
 // design; a column's last bits then changed from run to run, and TRON
@@ -56,8 +57,9 @@
 // Bound on Hopper: HBM bytes. The least traffic reads the design once,
 // n*k*(4 + itemsize), the (d,) vector and writes the (d,) output(s), plus
 // the (n,) row vectors. This design reads the design twice, once as the ELL
-// and once as the copy (4 + 4 + itemsize per valid slot), and writes and
-// reads the (n,) scale: the price of a fixed order.
+// and once as the copy (column, slot in its block and value: 4 + 4 +
+// itemsize per valid slot), and writes and reads the (n,) scale: the price
+// of a fixed order.
 //
 // Nothing is allocated here; the launches go on the caller's stream and do
 // not synchronise. Each entry point returns the first CUDA error, or
@@ -308,16 +310,17 @@ long long tile_blocks(long long n, int k) {
 }
 
 // The design's column-sorted copy, as the entry points take it
-// (kernels/colsort.py::DesignColumns): entries, the chains, and the
-// reduce's f64 edge scratch (2 * ntiles per sum).
+// (kernels/colsort.py::DesignColumns): entries, the chains, the block table
+// (in host memory) and the reduce's f64 scratch (colsort.py
+// reduce_scratch).
 struct Copy {
   const void* cols;
-  const void* rows;
+  const void* slots;
   const void* vals;
   const void* chains;
-  void* edge;
-  long long ntiles;
-  long long nchains;
+  const void* blocks;
+  void* scratch;
+  long long nblocks;
 };
 
 // One pass on the caller's stream: the row kernel with 4-slot granules (k
@@ -350,13 +353,13 @@ int launch_pass(void (*kernel4)(PassArgs<V, A>, Rows), void (*kernel1)(PassArgs<
   if (code != 0) {
     return code;
   }
-  const photon::colsort::ReduceArgs<V, A> r{
-      static_cast<const int32_t*>(copy.cols), static_cast<const int32_t*>(copy.rows),
-      static_cast<const V*>(copy.vals),       static_cast<const int32_t*>(copy.chains),
-      p.scale,                                out0,
-      out1,                                   static_cast<double*>(copy.edge),
-      copy.ntiles,                            copy.nchains,
-      p.d};
+  const photon::colsort::Reduce<V, A> r{
+      static_cast<const int32_t*>(copy.cols),    static_cast<const int32_t*>(copy.slots),
+      static_cast<const V*>(copy.vals),          static_cast<const int32_t*>(copy.chains),
+      static_cast<const long long*>(copy.blocks), copy.nblocks,
+      p.scale,                                   out0,
+      out1,                                      static_cast<double*>(copy.scratch),
+      p.k,                                       p.d};
   return photon::colsort::launch_reduce<V, A, MODE>(r, s);
 }
 
@@ -455,16 +458,18 @@ extern "C" {
 
 // scratch `partials` holds 2 * photon_fused_tile_blocks(n, k) (vgc) or
 // photon_fused_tile_blocks(n, k) (hvp, hdiag) elements of the compute
-// type, `scale` n of them; the copy's `edge` holds 2 * ntiles doubles (4 *
-// ntiles for hdiag)
+// type, `scale` n of them; the copy's `scratch` holds what
+// kernels/colsort.py::reduce_scratch allocates (2 * ntiles doubles per sum,
+// and 2 * d more for hdiag over several blocks in f32); `blocks` is in host
+// memory
 long long photon_fused_tile_blocks(long long n, int k) {
   return tile_blocks(n, k);
 }
 
-#define PHOTON_COPY_PARAMS                                                  \
-  const void *cols, const void *rows, const void *cvals, const void *chains, \
-      void *edge, long long ntiles, long long nchains
-#define PHOTON_COPY Copy{cols, rows, cvals, chains, edge, ntiles, nchains}
+#define PHOTON_COPY_PARAMS                                                   \
+  const void *cols, const void *slots, const void *cvals, const void *chains, \
+      const void *blocks, void *scratch, long long nblocks
+#define PHOTON_COPY Copy{cols, slots, cvals, chains, blocks, scratch, nblocks}
 
 #define PHOTON_FUSED_ENTRIES(SUFFIX, V, A)                                          \
   int photon_fused_vgc_##SUFFIX(                                                    \

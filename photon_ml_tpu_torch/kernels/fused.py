@@ -146,13 +146,13 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
     blocks = _blocks(n, k)
     work = torch.empty((2 + 2 * blocks + n,), dtype=cd, device=dev)
     at = work.data_ptr()
-    edge = _edge(copy, 1, dev)
+    scratch = colsort.reduce_scratch(copy, "linear", cd, dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
             e.data_ptr(), w.data_ptr(), grad.data_ptr(), curvature.data_ptr(),
             at + (2 + 2 * blocks) * cd.itemsize, at + 2 * cd.itemsize, at,
-            *_copy_args(copy, cvals, edge), n, k, d, loss_id, stream_of(indices),
+            *_copy_args(copy, cvals, scratch), n, k, d, loss_id, stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
 
@@ -209,12 +209,12 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     blocks = _blocks(n, k)
     work = torch.empty((1 + blocks + n,), dtype=cd, device=dev)
     at = work.data_ptr()
-    edge = _edge(copy, 1, dev)
+    scratch = colsort.reduce_scratch(copy, "linear", cd, dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), cc.data_ptr(), sh.data_ptr(),
             vv.data_ptr(), hv.data_ptr(), at + (1 + blocks) * cd.itemsize,
-            at + cd.itemsize, at, *_copy_args(copy, cvals, edge),
+            at + cd.itemsize, at, *_copy_args(copy, cvals, scratch),
             n, k, d, stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
@@ -280,13 +280,13 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     out = torch.empty((2 * d + 1 + blocks + n,), dtype=cd, device=dev)
     dx2, dx, csum = out[:d], out[d:2 * d], out[2 * d]
     at = out.data_ptr()
-    edge = _edge(copy, 2, dev)
+    scratch = colsort.reduce_scratch(copy, "pair", cd, dev)
     with device_scope(dev):
         code = entry(
             indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
             e.data_ptr(), w.data_ptr(), at, at + d * cd.itemsize,
             at + (2 * d + 1 + blocks) * cd.itemsize, at + (2 * d + 1) * cd.itemsize,
-            at + 2 * d * cd.itemsize, *_copy_args(copy, cvals, edge), n, k, d, loss_id,
+            at + 2 * d * cd.itemsize, *_copy_args(copy, cvals, scratch), n, k, d, loss_id,
             stream_of(indices),
         )
     from photon_ml_tpu_torch.kernels import build
@@ -297,9 +297,9 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     return dx2, dx, csum
 
 
-# the copy's arguments of the fused entry points: cols, rows, values,
-# chains, edge scratch, ntiles, nchains
-_COPY_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+# the copy's arguments of the fused entry points: cols, slots, values,
+# chains, the block table (host), the reduce's scratch, nblocks
+_COPY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
 
 
 def _columns(indices, values, d: int):
@@ -309,26 +309,24 @@ def _columns(indices, values, d: int):
     return copy, colsort.column_values(copy, values)
 
 
-def _edge(copy, sums: int, dev):
-    """The reduce's float64 scratch: ``sums`` values at each side of each
-    tile."""
-    return torch.empty((max(1, 2 * copy.ntiles * sums),), dtype=torch.float64, device=dev)
-
-
-def _copy_args(copy, cvals, edge):
-    return (copy.cols.data_ptr(), copy.rows.data_ptr(), cvals.data_ptr(),
-            copy.chains.data_ptr(), edge.data_ptr(), copy.ntiles, copy.chains.shape[0])
+def _copy_args(copy, cvals, scratch):
+    return (copy.cols.data_ptr(), copy.perm.data_ptr(), cvals.data_ptr(),
+            copy.chains.data_ptr(), copy.blocks.data_ptr(), scratch.data_ptr(),
+            copy.nblocks)
 
 
 def _record_cost(kernel, n, k, d, values, cd, copy, flops, d_out, n_rows):
     """The pass's analytic cost: the ELL read once (the roofline's least
     traffic), the (d,) vectors and ``n_rows`` (n,) vectors, and on the card
-    what this design moves beyond that: the copy read (column, row and
-    value of each entry and of the tail padding) and each row's scale
-    written and read."""
+    what this design moves beyond that: the copy read (column, slot in its
+    block and value of each entry and of each block's tile padding), each
+    row's scale written and read, and what the reduce's blocks of rows
+    add (``colsort.block_bytes``)."""
     extra = d_out * d * cd.itemsize + n_rows * n * cd.itemsize
     if copy is not None:
-        extra += copy.cols.shape[0] * (8 + values.element_size()) + 2 * n * cd.itemsize
+        mode = "pair" if kernel == "fused_hdiag" else "linear"
+        extra += (copy.cols.shape[0] * (8 + values.element_size()) + 2 * n * cd.itemsize
+                  + colsort.block_bytes(copy, mode, cd))
     dispatch.record_kernel_cost(kernel, n, k, d, values.element_size(), flops_per_slot=flops,
                                 extra_bytes=extra)
 

@@ -623,6 +623,7 @@ def test_fused_passes_of_zero_slots_give_the_row_terms(cuda):
 
 # -- the column-sorted reduce (kernels/colsort.py) -----------------------------
 
+from photon_ml_tpu_torch.kernels import colsort  # noqa: E402
 from photon_ml_tpu_torch.kernels.colsort import (  # noqa: E402
     build_design_columns,
     column_reduce,
@@ -640,11 +641,24 @@ def _reduce_design(name, device):
     return DESIGNS[name](device)
 
 
+# ROW_BLOCK: the default (every design here one block), and blocks of 997
+# rows (5 to 21 blocks, the last one short)
+ROW_BLOCKS = [None, 997]
+
+
+@pytest.fixture
+def row_block(request, monkeypatch):
+    if request.param is not None:
+        monkeypatch.setattr(colsort, "ROW_BLOCK", request.param)
+    return colsort.ROW_BLOCK
+
+
+@pytest.mark.parametrize("row_block", ROW_BLOCKS, indirect=True)
 @pytest.mark.parametrize("mode", ["linear", "square", "pair"])
 @pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
 @pytest.mark.parametrize("design", REDUCE_DESIGNS)
 def test_column_reduce_matches_plain_version_and_repeats_its_bits(cuda, design, vdt, wdt,
-                                                                  rtol, mode):
+                                                                  rtol, mode, row_block):
     idx, val64, d = _reduce_design(design, cuda)
     n = idx.shape[0]
     copy = design_columns(idx, d)
@@ -671,12 +685,84 @@ def test_column_reduce_matches_plain_version_and_repeats_its_bits(cuda, design, 
         assert all(torch.equal(x, y) for x, y in zip(outs, again))
 
 
-def test_column_copy_on_the_card_equals_the_cpus(cuda):
+@pytest.mark.parametrize("row_block", ROW_BLOCKS, indirect=True)
+def test_column_copy_on_the_card_equals_the_cpus(cuda, row_block):
     idx, _, d = DESIGNS["criteo_hot"](cuda)
     card = build_design_columns(idx, d)
     cpu = build_design_columns(idx.cpu(), d)
-    for name in ("cols", "rows", "perm", "chains"):
+    assert card.nblocks == -(-idx.shape[0] // row_block)
+    for name in ("cols", "perm", "chains", "blocks"):
         assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+
+
+@pytest.mark.parametrize("mode", ["linear", "square", "pair"])
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+def test_column_reduce_in_row_blocks_agrees_with_one_block(cuda, monkeypatch, vdt, wdt, rtol,
+                                                           mode):
+    # the same sums cut into 21 blocks of rows and added in block order,
+    # within the tolerance of the one-block sums
+    idx, val64 = _ell(20011, 40, 3001, cuda)
+    a = torch.rand(20011, device=cuda, dtype=torch.float64).to(wdt) + 0.1
+    outs = []
+    for rows in (None, 997):
+        if rows is not None:
+            monkeypatch.setattr(colsort, "ROW_BLOCK", rows)
+        copy = build_design_columns(idx, 3001)
+        got = column_reduce(copy, column_values(copy, val64.to(vdt)), a, mode)
+        outs.append(got if mode == "pair" else (got,))
+        v = column_values(copy, val64.to(vdt)).double()
+        terms = {"linear": [v], "square": [v * v], "pair": [v * v, v]}[mode]
+        scales = [column_reduce_reference(copy, t.abs(), a.double(), "linear") for t in terms]
+    assert copy.nblocks == 21
+    assert all(_within(x, y, sc, rtol) for x, y, sc in zip(*outs, scales))
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+def test_fused_passes_in_row_blocks_match_plain_versions_and_repeat_their_bits(
+        cuda, monkeypatch, vdt, wdt, rtol):
+    monkeypatch.setattr(colsort, "ROW_BLOCK", 997)
+    n, k, d = 10007, 40, 3001
+    idx, val64 = _ell(n, k, d, cuda)
+    val = val64.to(vdt)
+    y, off, ew, w = _fused_inputs(n, k, d, vdt, cuda)
+    shift = torch.tensor(0.3, device=cuda, dtype=w.dtype)
+    vgc = _check_vgc(idx, val, y, off, ew, w, d, LOGISTIC_LOSS, rtol)
+    assert design_columns(idx, d).nblocks == 11
+    _check_hvp(idx, val, vgc[3], w, shift, d, rtol)
+    _check_hdiag(idx, val, y, off, ew, w, d, LOGISTIC_LOSS, rtol)
+    calls = [lambda: fused_value_grad_curvature(idx, val, y, off, ew, w, d, LOGISTIC_LOSS),
+             lambda: fused_hessian_vector(idx, val, vgc[3], w, shift, d),
+             lambda: fused_hessian_diagonal(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)]
+    for fn in calls:
+        first = fn()
+        for _ in range(2):
+            assert all(torch.equal(x, y_) for x, y_ in zip(first, fn()))
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES)
+def test_fused_hdiag_column_sums_accumulate_in_f64_across_row_blocks(cuda, monkeypatch, vdt,
+                                                                      wdt, rtol):
+    # as test_fused_hdiag_column_sums_accumulate_in_f64, in blocks of 1000
+    # rows: a float32 sum of the blocks' rounded sums drops each later
+    # block's 1000 / 256 (2^24 + 3.90625 rounds to 2^24 + 4); the f64 sums
+    # kept across blocks and rounded once give 2^24 + 4096 exactly
+    monkeypatch.setattr(colsort, "ROW_BLOCK", 1000)
+    tiles, rows, k, d = 4097, 256, 4, 9
+    n = tiles * rows
+    idx = torch.full((n, k), d, dtype=torch.int32, device=cuda)
+    idx[:, 0] = 7
+    val = torch.zeros((n, k), dtype=torch.float64, device=cuda)
+    val[rows:, 0] = 1.0 / 16
+    val[0, 0] = 2.0 ** 12
+    cd = torch.float64 if vdt == torch.float64 else torch.float32
+    one = torch.ones(n, dtype=cd, device=cuda)
+    dx2, dx, csum = fused_hessian_diagonal(idx, val.to(vdt), one, 0 * one, one,
+                                           torch.zeros(d, dtype=cd, device=cuda), d,
+                                           SQUARED_LOSS)
+    assert design_columns(idx, d).nblocks == -(-n // 1000)
+    assert dx2.tolist() == [0.0] * 7 + [2.0 ** 24 + 4096, 0.0]
+    assert dx.tolist() == [0.0] * 7 + [2.0 ** 12 + (tiles - 1) * rows / 16, 0.0]
+    assert float(csum) == n
 
 
 def test_fused_passes_build_the_copy_once_per_design(cuda):
