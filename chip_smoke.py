@@ -69,6 +69,26 @@ whenever any phase fails. Phases, in order:
    1e-10 of the generator's own numpy margins; ``ell_matvec`` against its
    plain version and timed beside ``torch.mv`` on CSR at the driver's
    shape (n = 2^15, k = 40, d = 2^20 + 1);
+5f. online serving, on phase 5b's model directory and records (run right
+   after 5b): ``ScoringEngine.from_model_dir`` in float64 on the card,
+   the 8-64 ladder and its degraded ladder built (8 builds, the warmup
+   seconds, the resident entity bytes and the ``hbm.serving.warmup``
+   gauges printed); 4,096 of the records as ``ScoreRequest``s from their
+   raw feature keys, entity ids and offsets, in calls of mixed size 1-64,
+   every score within 1e-10 max(1, |s|) of 5b's card scores, per bucket
+   the p50/p99 of ``featurize``, of the engine's bucket latency (copy in,
+   device, copy out) and of the whole call, and no build and no new CUDA
+   memory segment after warmup; 1,024 of them through ``MicroBatcher``
+   (64 rows, 2 ms) from 8 closed-loop clients (requests/s, p50/p99, every
+   answer the direct engine's); ``ModelRegistry`` hot reload to the model
+   re-saved with every coefficient halved, under the same load (no
+   dropped request, every answer one of the two versions'); the tiered
+   cache with 512 slots per entity type under Zipf(1.1) users (the hit
+   rate; a resident entity scores as uncached, a missed one as cold
+   start); ``python -m photon_ml_tpu_torch.cli.serve`` over a pipe (its
+   scores the engine's; ``stats``, ``metrics`` and ``health`` answered).
+   The engine featurizes densely, as the JAX engine does: 8.55 MB a row,
+   so call counts are cut and widths never;
 5c. GAME train: the port's GAME training driver (``run_game_training``)
    in the configuration of ``examples/game_train.json`` at the Criteo
    layout's width — ``global``, a fixed effect on the 13 + 26 hashed
@@ -240,6 +260,16 @@ from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
 from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
 from photon_ml_tpu_torch.ops.sparse import from_coo
 from photon_ml_tpu_torch.resilience import GracefulShutdown, read_preempted_marker
+from photon_ml_tpu_torch import obs
+from photon_ml_tpu_torch.io.models import write_model_manifest
+from photon_ml_tpu_torch.serving import (
+    MicroBatcher,
+    ModelRegistry,
+    ScoreRequest,
+    ScoringEngine,
+    ServingStats,
+    bucket_builds,
+)
 from photon_ml_tpu_torch.serving.engine import bucket_size
 from photon_ml_tpu_torch.solvers import host_reads, reset_host_reads
 from photon_ml_tpu_torch.utils.device import synchronize
@@ -1728,7 +1758,414 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
         "setup_s": setup_s,
     }
     log(f"[game] {json.dumps(summary)}")
-    return summary, record
+    served = {"model_dir": model_dir, "data": data, "scores": run.scores}
+    return summary, record, served
+
+
+# -- phase 5f: online serving ------------------------------------------------
+
+# phase 5b's model and records through the online engine on the card. The
+# engine featurizes densely (as the JAX engine does): 2^20 + 1 + 20,000 +
+# 14 columns, 8.55 MB a row in f64, so the call counts are cut, never the
+# widths: 4,096 of the 30,000 records scored directly, 1,024 in each of the
+# batcher, reload and cache passes
+SERVE_DIRECT = 4096
+SERVE_PASS = 1024
+SERVE_MAX_BATCH = 64
+SERVE_WAIT_MS = 2.0
+SERVE_CLIENTS = 8
+SERVE_CACHE = 512
+SERVE_ZIPF = 1.1
+SERVE_CLI_REQUESTS = 8
+SERVE_RTOL = 1e-10
+
+
+def serving_requests(records) -> list:
+    """ScoreRequests from TrainingExample records: each feature under its
+    raw ``name\\x01term`` key (duplicate keys summed, as ingest sums them),
+    the metadata's entity ids and the record's offset."""
+    out = []
+    for r in records:
+        feats = {}
+        for f in r["features"]:
+            key = feature_key(f["name"], f["term"])
+            feats[key] = feats.get(key, 0.0) + f["value"]
+        out.append(ScoreRequest(features=feats, entities=dict(r["metadataMap"]),
+                                offset=float(r["offset"] or 0.0)))
+    return out
+
+
+def serving_gaps(got, want) -> float:
+    """max |got - want| / max(1, |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf")
+    return float(np.max(np.abs(got - want) / np.maximum(1.0, np.abs(want)), initial=0.0))
+
+
+def quantiles_ms(seconds) -> dict:
+    ms = np.asarray(seconds, np.float64) * 1e3
+    return {"n": int(ms.size), "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99))}
+
+
+class _RawBucketStats(ServingStats):
+    """ServingStats that also keeps every per-bucket latency the engine
+    records (copy in, device work, copy out), for exact percentiles."""
+
+    def __init__(self):
+        super().__init__()
+        self.raw = {}
+
+    def record_bucket_latency(self, bucket, device_s):
+        super().record_bucket_latency(bucket, device_s)
+        self.raw.setdefault(int(bucket), []).append(device_s)
+
+
+def closed_loop(submit, requests, clients: int, keep_going=None):
+    """``clients`` threads, each sending its share of ``requests`` one at a
+    time (submit, wait for the answer, send the next); while
+    ``keep_going()`` is true a client starts its share over. Returns
+    ([(request index, answer or exception, seconds)], wall seconds)."""
+    import threading
+
+    results, lock = [], threading.Lock()
+
+    def client(c):
+        mine = list(range(c, len(requests), clients))
+        while True:
+            for i in mine:
+                t0 = time.perf_counter()
+                try:
+                    answer = submit(requests[i]).result(timeout=120)
+                except Exception as e:  # noqa: BLE001 — counted as dropped
+                    answer = e
+                with lock:
+                    results.append((i, answer, time.perf_counter() - t0))
+            if keep_going is None or not keep_going():
+                return
+
+    threads = [threading.Thread(target=client, args=(c,), name=f"client-{c}")
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+        if t.is_alive():
+            raise AssertionError(f"{t.name} did not finish")
+    return results, time.perf_counter() - t0
+
+
+def scaled_game_model(src: str, dst: str, factor: float) -> None:
+    """Re-save phase 5b's model with every coefficient times ``factor``
+    (a factored effect's per-entity gamma; its shared projection as is)
+    and its vocabularies, then its manifest."""
+    shard_of = {"global": "global", "per-user": "user", "per-ad": "ad", "per-ad-latent": "ad"}
+    vocabs = {s: FeatureVocabulary.load(os.path.join(src, f"feature-index-{s}.txt"))
+              for s in set(shard_of.values())}
+    coord_vocabs = {c: vocabs[s] for c, s in shard_of.items()}
+    params, shards, res, entity_vocabs = load_game_model(src, coord_vocabs)
+    scaled = {n: (FactoredParams(p.gamma * factor, p.projection)
+                  if isinstance(p, FactoredParams) else np.asarray(p) * factor)
+              for n, p in params.items()}
+    save_game_model(dst, params=scaled, shards=shards, vocabs=coord_vocabs,
+                    entity_vocabs={n: v for n, v in entity_vocabs.items() if res.get(n)},
+                    random_effects=res, task=TaskType.LOGISTIC_REGRESSION)
+    for s, v in vocabs.items():
+        v.save(os.path.join(dst, f"feature-index-{s}.txt"))
+    write_model_manifest(dst)
+
+
+def serving_cli(model_dir: str, requests, want, device=None) -> dict:
+    """``python -m photon_ml_tpu_torch.cli.serve`` over a pipe, as an
+    interactive client: each request line's answer is read before the
+    next line is sent; then ``stats``, ``metrics`` and ``health``. The
+    scores must equal ``want`` and the commands must count the requests."""
+    import queue as queue_mod
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve", "--model-dir", model_dir,
+         "--dtype", "float64", *(["--device", device] if device else [])],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    lines = queue_mod.Queue()
+    err = []
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True)
+    err_reader = threading.Thread(target=lambda: err.append(proc.stderr.read()), daemon=True)
+    reader.start()
+    err_reader.start()
+
+    def ask(obj, timeout):
+        proc.stdin.write(json.dumps(obj) + "\n")
+        proc.stdin.flush()
+        return json.loads(lines.get(timeout=timeout))
+
+    try:
+        # the first answer waits for the model's load and the ladder
+        scores = [ask({"features": r.features, "entities": r.entities, "offset": r.offset},
+                      600 if i == 0 else 60).get("score", np.nan)
+                  for i, r in enumerate(requests)]
+        stats_r, metrics_r, health_r = (ask({"cmd": c}, 60) for c in ("stats", "metrics",
+                                                                       "health"))
+        proc.stdin.close()
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err_reader.join(10)
+    n = len(requests)
+    summary = {"seconds": time.perf_counter() - t0, "exit": code,
+               "max_err_vs_engine": serving_gaps(scores, want),
+               "stats_requests": stats_r.get("requests"),
+               "health_version": health_r.get("version"),
+               "health_breaker": health_r.get("breaker", {}).get("state"),
+               "metrics_lines": len(metrics_r.get("prometheus", "").splitlines())}
+    log(f"[serve] cli.serve: {json.dumps(summary)}")
+    if (code != 0 or summary["max_err_vs_engine"] > SERVE_RTOL or stats_r.get("requests") != n
+            or f"photon_serving_requests {n}" not in metrics_r.get("prometheus", "")
+            or health_r.get("version") != os.path.basename(model_dir)):
+        raise AssertionError(f"cli.serve over a pipe: {json.dumps(summary)}; "
+                             f"{''.join(err)[-4000:]}")
+    return summary
+
+
+def serving_phase(work: str, served: dict, name: str = "", direct: int = SERVE_DIRECT,
+                  per_pass: int = SERVE_PASS, cache_entities: int = SERVE_CACHE,
+                  seed: int = SEED + 50, **device_kw):
+    """Phase 5f: phase 5b's model directory and records through the
+    online serving stack, on the card (``device_kw`` names another device
+    for a rehearsal). Every gate raises."""
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    device = device_kw.get("device")
+    cuda = on_card or torch.device(device).type == "cuda"
+    model_dir, card_scores = served["model_dir"], served["scores"]
+    t0 = time.perf_counter()
+    _, records = read_avro_file(served["data"])
+    n_req = min(direct, len(records))
+    requests = serving_requests(records[:n_req])
+    want = np.asarray(card_scores[:n_req], np.float64)
+    del records
+    read_s = time.perf_counter() - t0
+    log(f"[serve] {n_req} requests from phase 5b's records in {read_s:.1f} s (set-up)")
+
+    # the engine and its ladder
+    stats = _RawBucketStats()
+    t0 = time.perf_counter()
+    engine = ScoringEngine.from_model_dir(model_dir, dtype=torch.float64, stats=stats,
+                                          **device_kw)
+    load_s = time.perf_counter() - t0
+    builds0 = bucket_builds()
+    t0 = time.perf_counter()
+    warmed = engine.warmup(max_batch=SERVE_MAX_BATCH, include_degraded=True)
+    warmup_s = time.perf_counter() - t0
+    builds = bucket_builds() - builds0
+    gauges = {k: obs.registry().gauge(k).value for k in obs.registry().names("hbm.serving.warmup")}
+    resident = stats.registry.gauge("serving.shard.resident_re_bytes_per_process").value
+    dims = {s: engine._shard_dim(s) for s in engine._used_shards}
+    log(f"[serve] engine on {engine.device}: load {load_s:.2f} s, warmup of {list(warmed)} and "
+        f"the degraded ladder {warmup_s:.2f} s, {builds} builds (8 expected), compile_count "
+        f"{engine.compile_count}, resident RE bytes {resident:.0f}, hbm {json.dumps(gauges)}, "
+        f"columns per shard {json.dumps(dims)} ({sum(dims.values()) * 8} bytes a row in f64)")
+    if builds != 8 or engine.compile_count != 8:
+        raise AssertionError(f"warmup built {builds} bucket scorers, expected 8")
+    if on_card and not gauges:
+        raise AssertionError("warmup recorded no hbm.serving.warmup gauges on the card")
+
+    # direct scoring: mixed sizes 1-64, every score against phase 5b's card
+    # scores, no build and no new CUDA segment after warmup
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < n_req:
+        sizes.append(int(min(rng.integers(1, SERVE_MAX_BATCH + 1), n_req - sum(sizes))))
+    segments = torch.cuda.memory_stats()["segment.all.allocated"] if cuda else None
+    got = np.empty(n_req)
+    per_bucket = {}
+    lo = 0
+    t_direct = time.perf_counter()
+    for size in sizes:
+        batch = requests[lo:lo + size]
+        t0 = time.perf_counter()
+        feats, ents, offsets = engine.featurize(batch)
+        t1 = time.perf_counter()
+        got[lo:lo + size] = engine.score_arrays(feats, ents, offsets)
+        t2 = time.perf_counter()
+        del feats
+        b = per_bucket.setdefault(bucket_size(size), {"featurize": [], "call": []})
+        b["featurize"].append(t1 - t0)
+        b["call"].append(t2 - t0)
+        lo += size
+    direct_s = time.perf_counter() - t_direct
+    rebuilt = bucket_builds() - builds0 - builds
+    new_segments = (torch.cuda.memory_stats()["segment.all.allocated"] - segments
+                    if cuda else None)
+    direct_err = serving_gaps(got, want)
+    bucket_lines = {
+        str(b): {"calls": len(v["call"]), "featurize_ms": quantiles_ms(v["featurize"]),
+                 "bucket_latency_ms": quantiles_ms(stats.raw[b]),
+                 "call_ms": quantiles_ms(v["call"])}
+        for b, v in sorted(per_bucket.items())}
+    log(f"[serve] direct: {n_req} requests in {len(sizes)} calls, {direct_s:.2f} s; max |s - "
+        f"s_5b| / max(1, |s_5b|) {direct_err:.3e} (limit {SERVE_RTOL}); builds after warmup "
+        f"{rebuilt}, new CUDA segments {new_segments}")
+    for b, line in bucket_lines.items():
+        log(f"[serve] bucket {b}: {json.dumps(line)}")
+    if direct_err > SERVE_RTOL:
+        raise AssertionError(f"engine scores differ from phase 5b's by {direct_err:.3e}")
+    if rebuilt or engine.compile_count != 8:
+        raise AssertionError("steady-state traffic built a bucket scorer")
+    if cuda and new_segments != 0:
+        raise AssertionError(f"steady-state traffic allocated {new_segments} CUDA segments")
+
+    # the micro-batcher, 8 closed-loop clients
+    pass_reqs = requests[:per_pass]
+    pass_want = got[:per_pass]
+    with MicroBatcher(engine.score, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                      stats=stats) as batcher:
+        results, wall = closed_loop(batcher.submit, pass_reqs, SERVE_CLIENTS)
+    errors = [a for _, a, _ in results if isinstance(a, Exception)]
+    answers = np.full(per_pass, np.nan)
+    for i, a, _ in results:
+        if not isinstance(a, Exception):
+            answers[i] = a
+    batcher_err = serving_gaps(answers, pass_want)
+    same_bits = int(np.sum(answers == pass_want))
+    batcher_summary = {"requests": len(results), "requests_per_s": len(results) / wall,
+                       "latency_ms": quantiles_ms([t for _, _, t in results]),
+                       "batches": int(stats.batches),
+                       "occupancy_mean": stats.snapshot()["batch_occupancy_mean"],
+                       "max_err_vs_direct": batcher_err, "same_bits_as_direct": same_bits,
+                       "errors": len(errors)}
+    log(f"[serve] batcher: {json.dumps(batcher_summary)}")
+    if errors or len(results) != per_pass or batcher_err > SERVE_RTOL:
+        raise AssertionError(f"batcher answers: {len(errors)} errors, {len(results)} of "
+                             f"{per_pass}, max err {batcher_err:.3e}")
+
+    # hot reload under that load: v2 is the model with every coefficient
+    # halved, so its score is 0.5 (s - offset) + offset
+    watch = os.path.join(work, "watch")
+    v2_dir = os.path.join(watch, "v2")
+    t0 = time.perf_counter()
+    write_model_manifest(model_dir)
+    scaled_game_model(model_dir, v2_dir, 0.5)
+    publish_s = time.perf_counter() - t0
+    offsets = np.asarray([r.offset for r in pass_reqs])
+    v2_want = 0.5 * (pass_want - offsets) + offsets
+    reg_stats = ServingStats()
+
+    def factory(root):
+        # v1 is the warmed engine above; v2 is built from its directory
+        if root == model_dir:
+            return engine
+        return ScoringEngine.from_model_dir(root, dtype=torch.float64, stats=reg_stats,
+                                            **device_kw)
+
+    registry = ModelRegistry(engine_factory=factory, warmup_max_batch=SERVE_MAX_BATCH,
+                             stats=reg_stats)
+    registry.load(model_dir)
+    import threading
+
+    reloaded = threading.Event()
+    out = []
+    with MicroBatcher(registry.score, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                      stats=reg_stats) as batcher:
+        loop = threading.Thread(target=lambda: out.append(closed_loop(
+            batcher.submit, pass_reqs, SERVE_CLIENTS, keep_going=lambda: not reloaded.is_set())))
+        loop.start()
+        while len(out) == 0 and reg_stats.requests < per_pass // 4:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        v2 = registry.load(v2_dir)
+        reload_s = time.perf_counter() - t0
+        reloaded.set()
+        loop.join(900)
+        if loop.is_alive() or not out:
+            raise AssertionError("the reload pass's clients did not finish")
+    results, wall = out[0]
+    dropped = [a for _, a, _ in results if isinstance(a, Exception)]
+    which = {"v1": 0, "v2": 0, "neither": 0}
+    for i, a, _ in results:
+        if isinstance(a, Exception):
+            continue
+        if serving_gaps([a], [pass_want[i]]) <= SERVE_RTOL:
+            which["v1"] += 1
+        elif serving_gaps([a], [v2_want[i]]) <= SERVE_RTOL:
+            which["v2"] += 1
+        else:
+            which["neither"] += 1
+    after = registry.score(pass_reqs[:SERVE_MAX_BATCH])
+    after_err = serving_gaps(after, v2_want[:SERVE_MAX_BATCH])
+    reload_summary = {"requests": len(results), "dropped": len(dropped), **which,
+                      "requests_per_s": len(results) / wall, "reload_s": reload_s,
+                      "publish_s": publish_s, "version": registry.version(),
+                      "retired": registry.retired_versions,
+                      "after_reload_max_err_vs_v2": after_err}
+    log(f"[serve] hot reload: {json.dumps(reload_summary)}")
+    if (dropped or which["neither"] or not which["v1"] or not which["v2"]
+            or len(results) < per_pass or registry.version() != "v2" or after_err > SERVE_RTOL):
+        raise AssertionError(f"hot reload under load: {json.dumps(reload_summary)}")
+    v2.engine.close()
+    del registry, v2
+
+    # the tiered entity cache: 512 slots per RE key under Zipf(1.1) users;
+    # promotion between batches (the workers stopped), so each row's
+    # residency is known when it is scored
+    n_users = len(engine.re_vocabs["userId"])
+    zipf_users = (rng.zipf(SERVE_ZIPF, per_pass) - 1) % n_users
+    cache_reqs = [ScoreRequest(r.features, {**r.entities, "userId": f"user{u}"}, r.offset)
+                  for r, u in zip(pass_reqs, zipf_users.tolist())]
+    cached = ScoringEngine.from_model_dir(model_dir, dtype=torch.float64,
+                                          hbm_cache_entities=cache_entities, **device_kw)
+    cached.warmup(max_batch=SERVE_MAX_BATCH)
+    for cache in cached._caches.values():
+        cache.close()
+    cache_err, hit_rows = 0.0, 0
+    for lo in range(0, per_pass, SERVE_MAX_BATCH):
+        batch = cache_reqs[lo:lo + SERVE_MAX_BATCH]
+        feats, ents, offs = cached.featurize(batch)
+        masked = {rk: np.where(cached._caches[rk].slot_of[np.maximum(col, 0)] >= 0, col, -1)
+                  for rk, col in ents.items()}
+        hit_rows += int(np.sum(masked["userId"] >= 0))
+        cache_err = max(cache_err, serving_gaps(cached.score_arrays(feats, ents, offs),
+                                                engine.score_arrays(feats, masked, offs)))
+        del feats
+        for cache in cached._caches.values():
+            cache.promote_pending()
+    cache_summary = {"requests": per_pass, "capacity": cache_entities, "users": n_users,
+                     "user_hit_rate": hit_rows / per_pass,
+                     "hit_rate_all_keys": cached.stats.cache_hit_frac(),
+                     "snapshot": cached.cache_snapshot(),
+                     "resident_re_bytes": cached.stats.registry.gauge(
+                         "serving.shard.resident_re_bytes_per_process").value,
+                     "max_err_vs_uncached_with_misses_cold": cache_err}
+    log(f"[serve] tiered cache: {json.dumps(cache_summary)}")
+    if cache_err > SERVE_RTOL or not 0 < hit_rows < per_pass:
+        raise AssertionError(f"tiered cache: {json.dumps(cache_summary)}")
+    cached.close()
+    del cached
+
+    # the CLI over a pipe: the requests first (their answers read back),
+    # then the commands
+    cli_summary = serving_cli(model_dir, requests[:SERVE_CLI_REQUESTS],
+                              got[:SERVE_CLI_REQUESTS], device)
+    summary = {
+        "device": str(engine.device), "requests_direct": n_req, "calls_direct": len(sizes),
+        "load_s": load_s, "warmup_s": warmup_s, "builds": builds,
+        "builds_after_warmup": rebuilt,
+        "new_cuda_segments": new_segments, "resident_re_bytes": resident,
+        "hbm_warmup": gauges, "row_bytes": sum(dims.values()) * 8,
+        "direct_s": direct_s, "max_err_vs_5b": direct_err, "buckets": bucket_lines,
+        "batcher": batcher_summary, "reload": reload_summary, "cache": cache_summary,
+        "cli": cli_summary, "phase_s": time.perf_counter() - phase_t0,
+    }
+    log(f"[serve] {json.dumps(summary)}")
+    engine.close()
+    return summary
 
 
 # -- phase 5c: GAME training end to end -------------------------------------
@@ -3183,8 +3620,13 @@ def main() -> int:
         if summary["launches"]["ell_matvec"] < 1:
             raise AssertionError("the scoring run did not launch the ell_matvec kernel")
         # 5b. GAME scoring end to end, held to the CPU
-        game_summary, game_record = game_phase(os.path.join(work, "game"), name)
+        game_summary, game_record, served = game_phase(os.path.join(work, "game"), name)
+        # 5f. online serving: 5b's model and records through the engine,
+        # the micro-batcher, a hot reload, the tiered cache and cli.serve
+        serve_summary = serving_phase(os.path.join(work, "serve"), served, name)
+        del served
         shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "serve"), ignore_errors=True)
         # 5c. GAME training end to end, held to the CPU
         game_train_summary = game_train_phase(os.path.join(work, "game_train"), name)
         shutil.rmtree(os.path.join(work, "game_train"), ignore_errors=True)
@@ -3204,6 +3646,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"train_shape_checks": shape_checks}))
+    log(json.dumps({"serving": serve_summary}))
     log(json.dumps({"full_trainer": full_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":

@@ -17,8 +17,10 @@ draws come from a ``torch.Generator`` seeded by ``seed``, not
 are written at pass boundaries by a one-deep background writer, and a run
 restarted over the same directory resumes from the newest valid step with
 the generator's state, reproducing the uninterrupted run bit for bit on
-the CPU. Not ported: the update's fault site (``descent.update``), the
-sharded checkpoints and the heartbeat (ROADMAP.md queue A items 9, 10).
+the CPU. Each update probes the ``descent.update`` fault site (key = the
+coordinate's name): a ``corrupt`` action poisons the accepted update with
+NaN, the drill for the divergence guard. Not ported: the sharded
+checkpoints and the heartbeat (ROADMAP.md queue A items 9, 10).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.game.factored import FactoredParams, is_factored_params
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
+from photon_ml_tpu_torch.resilience import faults as _faults
 from photon_ml_tpu_torch.resilience.shutdown import (
     clear_preempted_marker,
     write_preempted_marker,
@@ -172,6 +175,16 @@ def _host_params(p):
     if is_factored_params(p):
         return FactoredParams(gamma=to_numpy(p.gamma), projection=to_numpy(p.projection))
     return to_numpy(p)
+
+
+def _poisoned(p):
+    """A coordinate's parameters with every entry NaN (FactoredParams leaf
+    by leaf): what a ``corrupt`` action of ``descent.update`` makes of an
+    update."""
+    if is_factored_params(p):
+        return FactoredParams(gamma=torch.full_like(p.gamma, float("nan")),
+                              projection=torch.full_like(p.projection, float("nan")))
+    return torch.full_like(p, float("nan"))
 
 
 class CoordinateDescent:
@@ -321,16 +334,24 @@ class CoordinateDescent:
                 coord = self.coordinates[name]
                 total = sum(scores.values())
                 partial = total - scores[name]
-                params, result, new_scores = coord.update_and_score(
-                    model.params[name], partial, generator
-                )
+
+                def _attempt(prev_p, residual):
+                    p, r, s = coord.update_and_score(prev_p, residual, generator)
+                    # fault site: corrupt-mode poisons the accepted update
+                    # with non-finites — the drill for the divergence guard
+                    if _faults.fire("descent.update", key=name).corrupt:
+                        p = _poisoned(p)
+                        s = torch.full_like(s, float("nan"))
+                    return p, r, s
+
+                params, result, new_scores = _attempt(model.params[name], partial)
                 event = None
                 if divergence_guard:
                     obj = float(self._full_objective(
                         {**scores, name: new_scores}, {**model.params, name: params}))
                     if not np.isfinite(obj):
-                        params, result, new_scores = coord.update_and_score(
-                            model.params[name], partial * 0.5, generator
+                        params, result, new_scores = _attempt(
+                            model.params[name], partial * 0.5
                         )
                         obj = float(self._full_objective(
                             {**scores, name: new_scores}, {**model.params, name: params}))

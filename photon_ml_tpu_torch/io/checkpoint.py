@@ -27,8 +27,10 @@ same-step dir is renamed aside first and deleted only after the new one is
 in place), transient ``OSError`` is retried with backoff
 (:mod:`photon_ml_tpu_torch.resilience.retry`), and loads verify the
 digests: :func:`latest_checkpoint` falls back to the newest step that
-loads clean. Not ported: the sharded writer and ``reindex_entity_params``
-(ROADMAP.md queue A item 9) and the fault-injection sites (item 10).
+loads clean. The write probes the ``checkpoint.save`` fault site between
+the temp dir's write and the swap, and each step's load probes
+``checkpoint.load``. Not ported: the sharded writer and
+``reindex_entity_params`` (ROADMAP.md queue A item 9).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from photon_ml_tpu_torch.game.factored import FactoredParams, is_factored_params
-from photon_ml_tpu_torch.resilience import retry
+from photon_ml_tpu_torch.resilience import faults, retry
 
 _STEP_PREFIX = "step-"
 _DATA_FILES = ("arrays.npz",)
@@ -167,6 +169,12 @@ def save_checkpoint(
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
+        # fault site: the torn-checkpoint window — the temp dir is fully
+        # written but the swap has not happened. raise-mode kills the write
+        # here; corrupt-mode tears arrays.npz AFTER its digest was
+        # recorded, so the load-side verification must catch it.
+        if faults.fire("checkpoint.save").corrupt:
+            faults.corrupt_file(os.path.join(tmp, "arrays.npz"))
         # swap: old step aside -> new step in -> delete old; every instant
         # keeps at least one complete copy of the step on disk
         if os.path.exists(old):
@@ -202,6 +210,7 @@ def _load_step(directory: str, step: int) -> TrainingCheckpoint:
     :class:`CheckpointCorrupted` on any defect (an unreadable manifest, a
     missing data file, a digest mismatch, a missing npz key)."""
     d = os.path.join(directory, f"{_STEP_PREFIX}{step}")
+    faults.fire("checkpoint.load")
     try:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)

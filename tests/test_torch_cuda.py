@@ -1342,3 +1342,83 @@ def test_fixed_order_cumsum_keeps_its_bits_on_the_card(cuda, n):
     for _ in range(3):
         assert torch.equal(fixed_order_cumsum(x), first)
     assert torch.allclose(first.cpu(), torch.cumsum(x.cpu(), 0), rtol=1e-12, atol=0)
+
+
+# -- the online serving engine on the card -----------------------------------
+
+
+def _serving_model(seed=3, n_users=40, d_g=300, d_u=50, k=4):
+    import numpy as np
+
+    from photon_ml_tpu_torch.game.factored import FactoredParams
+
+    rng = np.random.default_rng(seed)
+    user = rng.normal(size=(n_users, d_u)) * (rng.uniform(size=(n_users, d_u)) < 0.2)
+    params = {"global": rng.normal(size=d_g), "per-user": user,
+              "fact": FactoredParams(torch.from_numpy(rng.normal(size=(n_users, k))),
+                                     torch.from_numpy(rng.normal(size=(d_u, k))))}
+    shards = {"global": "g", "per-user": "u", "fact": "u"}
+    res = {"global": None, "per-user": "userId", "fact": "userId"}
+    pool = ({"g": rng.normal(size=(64, d_g)), "u": rng.normal(size=(64, d_u))},
+            rng.integers(-1, n_users, size=64).astype(np.int32))
+    return params, shards, res, pool
+
+
+def test_serving_engine_on_the_card_matches_the_cpu_without_new_segments(cuda):
+    import numpy as np
+
+    from photon_ml_tpu_torch.serving import ScoringEngine, bucket_builds
+
+    params, shards, res, (feats, ents) = _serving_model()
+    card = ScoringEngine(params, shards, res)
+    cpu = ScoringEngine(params, shards, res, device="cpu")
+    assert card.device.type == "cuda"
+    card.warmup(max_batch=64, include_degraded=True)
+    cpu.warmup(max_batch=64, include_degraded=True)
+    assert card.compile_count == 8 == cpu.compile_count
+    torch.cuda.synchronize()
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    builds = bucket_builds()
+    for i in range(200):
+        n = 1 + (i * 37) % 64
+        got = card.score_arrays({s: f[:n] for s, f in feats.items()}, {"userId": ents[:n]},
+                                fixed_only=i % 5 == 0)
+        want = cpu.score_arrays({s: f[:n] for s, f in feats.items()}, {"userId": ents[:n]},
+                                fixed_only=i % 5 == 0)
+        assert np.all(np.abs(got - want) <= 1e-10 * np.maximum(1.0, np.abs(want)))
+    assert card.compile_count == 8 and bucket_builds() == builds
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
+
+
+def test_tiered_cache_on_the_card(cuda):
+    import numpy as np
+
+    from photon_ml_tpu_torch.serving import ScoringEngine
+
+    params, shards, res, (feats, ents) = _serving_model()
+    plain = ScoringEngine(params, shards, res)
+    cached = ScoringEngine(params, shards, res, hbm_cache_entities=8)
+    cache = cached._caches["userId"]
+    cache.close()
+    got = cached.score_arrays(feats, {"userId": ents})
+    hit = np.isin(ents, np.flatnonzero(cache.slot_of >= 0))
+    full = plain.score_arrays(feats, {"userId": ents})
+    cold = plain.score_arrays(feats, {"userId": np.full_like(ents, -1)})
+    assert hit.any() and (~hit).any()
+    assert np.all(np.abs(got[hit] - full[hit]) <= 1e-10 * np.maximum(1.0, np.abs(full[hit])))
+    assert np.all(np.abs(got[~hit] - cold[~hit]) <= 1e-10 * np.maximum(1.0, np.abs(cold[~hit])))
+    assert cache.promote_pending() > 0
+    assert cache.device_tables()[("per-user", "values")].device.type == "cuda"
+
+
+def test_hbm_watermark_on_the_card(cuda):
+    from photon_ml_tpu_torch import obs
+    from photon_ml_tpu_torch.obs.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    with obs.hbm_watermark("phase", registry=reg, device=cuda) as wm:
+        x = torch.empty(1 << 20, device=cuda)
+        del x
+    assert wm.supported and wm.peak_bytes >= wm.before_bytes + (4 << 20)
+    assert reg.gauge("hbm.phase.peak_bytes").value == wm.peak_bytes
+    assert reg.gauge("hbm.phase.delta_bytes").value == wm.delta_bytes

@@ -54,7 +54,12 @@ def test_scan_covers_the_port():
                 ("game", "data.py"), ("game", "factored.py"), ("game", "scoring.py"),
                 ("serving", "engine.py"), ("game", "coordinates.py"),
                 ("game", "descent.py"), ("solvers", "batched.py"),
-                ("cli", "game_train.py"), ("resilience", "shutdown.py")):
+                ("cli", "game_train.py"), ("resilience", "shutdown.py"),
+                ("resilience", "faults.py"), ("serving", "stats.py"),
+                ("serving", "batcher.py"), ("serving", "registry.py"),
+                ("serving", "cache.py"), ("cli", "serve.py"), ("obs", "__init__.py"),
+                ("obs", "metrics.py"), ("obs", "sketches.py"), ("obs", "exemplars.py"),
+                ("obs", "reqtrace.py"), ("obs", "trace.py"), ("obs", "device.py")):
         assert os.path.join("photon_ml_tpu_torch", *rel) in files
 
 
