@@ -39,6 +39,15 @@ one run each, counters set to 0 just before and read just after: phase
 phase 6's GLM training. Per run: the wall seconds, the driver's
 ``timings`` and the launches; then the kernels at the ``driver`` shape as
 above. Prints the inputs' line, then one JSON line per checkout.
+
+    python3 chip_ab.py --lab DIR [DIR ...]
+
+times the sparse kernel lab's kernels instead: ``lane_gather`` beside
+``torch.gather`` on the lab's table (8192 x 128), ``onehot_gather`` and
+``onehot_reduce`` on the lab's column-sorted tiles at its default shape
+(n = 200,000, k = 32, d = 120,000, Zipf(1.1)) and on the ``uniform``
+design in f32 (``lab``, ``uniform``), each as ``ms``, ``device_ms`` and
+``host_ms`` above.
 """
 
 from __future__ import annotations
@@ -230,6 +239,43 @@ def worker(root: str, inputs=None) -> dict:
     return out
 
 
+def lab_worker(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    cs = _smoke()
+    import torch
+
+    cs.build.build()
+    lab = cs.sparse_kernel_lab
+    x = lab.lab_inputs(*(int(a) for a in cs.LAB_ARGS), torch.device("cuda"))
+    tiles = cs.column_sorted_tiles(x.cols, x.vals, x.d)
+    upd = lab.row_gather(tiles, x.a)
+    idx64 = x.idx.long()
+    idx, vals64, d = _design(cs, "uniform")
+    vals = vals64.float()
+    del vals64
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    w = torch.randn(d, generator=g, device="cuda")
+    a = torch.randn(idx.shape[0], generator=g, device="cuda")
+    utiles = cs.column_sorted_tiles(idx, vals, d)
+    uupd = lab.row_gather(utiles, a)
+    del idx, vals, a
+    calls = [
+        ("lab", "lane_gather", lambda: cs.lane_gather(x.tbl, x.idx)),
+        ("lab", "torch.gather", lambda: torch.gather(x.tbl, 1, idx64)),
+        ("lab", "onehot_gather", lambda: cs.onehot_gather(tiles, x.w)),
+        ("lab", "onehot_reduce", lambda: cs.onehot_reduce(tiles, upd)),
+        ("uniform", "onehot_gather", lambda: cs.onehot_gather(utiles, w)),
+        ("uniform", "onehot_reduce", lambda: cs.onehot_reduce(utiles, uupd)),
+    ]
+    out = {"root": root, "card": cs.nvidia_smi(), "times": []}
+    for shape, kernel, fn in calls:
+        ms = cs.time_ms(fn)
+        device_ms, host_ms = cs.device_ms(fn)
+        out["times"].append({"shape": shape, "kernel": kernel, "dtype": "f32", "ms": ms,
+                             "device_ms": device_ms, "host_ms": host_ms})
+    return out
+
+
 def _last_line(args, cwd):
     """Run this script with ``args`` in a process of its own: (exit code,
     its last line of output), its output passed on to stderr on failure."""
@@ -242,6 +288,9 @@ def _last_line(args, cwd):
 
 
 def main(argv) -> int:
+    if len(argv) == 3 and argv[0] == "--worker" and argv[2] == "--lab":
+        print(json.dumps(lab_worker(argv[1])), flush=True)
+        return 0
     if len(argv) >= 2 and argv[0] == "--worker":
         inputs = json.loads(argv[2]) if len(argv) > 2 else None
         print(json.dumps(worker(argv[1], inputs)), flush=True)
@@ -250,11 +299,12 @@ def main(argv) -> int:
         print(json.dumps(prepare(argv[1])), flush=True)
         return 0
     train = bool(argv) and argv[0] == "--train"
-    roots = argv[1:] if train else argv
+    lab = bool(argv) and argv[0] == "--lab"
+    roots = argv[1:] if train or lab else argv
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
-    extra = []
+    extra = ["--lab"] if lab else []
     if train:
         code, line = _last_line(["--prepare", os.path.join(HERE, "_ab_work")], HERE)
         if code:

@@ -40,11 +40,16 @@ whenever any phase fails. Phases, in order:
    column's sum of |upd| of the plain version summed in f64 and to the
    same bits over 3 calls, C1's z and C2's g to ``ell_matvec`` and
    ``ell_scatter_add`` within 1e-6 of the scale; each timed beside
-   ``torch.gather``, a ``torch.take`` composite and ``index_add_``; then
-   ``onehot_reduce`` and ``onehot_gather`` on the uniform design of phase
-   3 (f32) with the same checks, beside ``ell_scatter_add``,
-   ``index_add_`` and ``torch.mv`` on the transposed CSR (built untimed)
-   on it, the layout, its sort and the ``a[row]`` gather timed apart;
+   ``torch.gather``, a ``torch.take`` composite and ``index_add_`` (the
+   host's part of a call too, the library call's beside the kernel's);
+   ``onehot_reduce``'s output in recycled NaN memory with every column no
+   entry names exactly 0.0, its device operations timed apart under
+   ``torch.profiler`` and a sweep of its chunk of tiles per block (each
+   chunk held to the plain version as above); then ``onehot_reduce`` and
+   ``onehot_gather`` on the uniform design of phase 3 (f32) with the same
+   checks, beside ``ell_scatter_add``, ``index_add_`` and ``torch.mv`` on
+   the transposed CSR (built untimed) on it, the layout, its sort and the
+   ``a[row]`` gather timed apart;
 5. score: the port's GLM scoring driver (``run_scoring``, sparse, with
    evaluation) end to end at the Criteo Terabyte width — 13 integer and
    26 categorical fields hashed into 2^20 columns plus the intercept —
@@ -411,12 +416,12 @@ def timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, pe
     composite of library calls (``(name, fn)``, if any), and return the
     kernel's record against its bound, with the device time per call of
     the kernel, the library call and the composite, and the host's time
-    per call of the kernel, beside."""
+    per call of the kernel and the library call, beside."""
     kernel_ms = time_ms(fn)
     plain_ms = time_ms(plain_fn)
     library_ms = None if lib_fn is None else time_ms(lib_fn)
     kernel_device_ms, kernel_host_ms = device_ms(fn)
-    library_device_ms = None if lib_fn is None else device_ms(lib_fn)[0]
+    library_device_ms, library_host_ms = (None, None) if lib_fn is None else device_ms(lib_fn)
     composite_ms = composite_device_ms = None
     if composite is not None:
         composite_ms = time_ms(composite[1])
@@ -424,7 +429,8 @@ def timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, pe
     bound_ms, bound_by = bound(nbytes, ops, cd, peaks)
     src, replaces = SOURCES[kernel]
     lib = ("" if library_ms is None else
-           f", {lib_name} {library_ms:.4f} ms (device {library_device_ms:.4f} ms)")
+           f", {lib_name} {library_ms:.4f} ms (device {library_device_ms:.4f} ms, host "
+           f"{library_host_ms:.4f} ms)")
     if composite is not None:
         lib += (f", composite {composite[0]} {composite_ms:.4f} ms (device "
                 f"{composite_device_ms:.4f} ms)")
@@ -436,7 +442,7 @@ def timed_record(kernel, dtype_label, cd, max_err, fn, plain_fn, nbytes, ops, pe
         "replaces": replaces, "shape": shape, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms, "device_ms": kernel_device_ms, "host_ms": kernel_host_ms,
-        "library_device_ms": library_device_ms,
+        "library_device_ms": library_device_ms, "library_host_ms": library_host_ms,
         "composite": None if composite is None else composite[0],
         "composite_ms": composite_ms, "composite_device_ms": composite_device_ms,
         "bytes": nbytes, "ops": ops,
@@ -1154,6 +1160,137 @@ def check_onehot_reduce(tiles, upd, label):
     return got, max_err, share
 
 
+def onehot_reduce_ops(tiles, upd, label, calls: int = 20) -> dict:
+    """onehot_reduce's device operations timed apart: ``calls`` calls under
+    ``torch.profiler``, each CUDA activity's time summed by its kernel's
+    name (``memset`` for a memset), in ms per call, and their sum. Empty
+    where the profiler saw no device activity: not measured. A kernel
+    launched as a programmatic dependent (the chains pass) starts while
+    the one before it drains and waits for it, so its span counts some of
+    the other's time and the sum can exceed ``device_ms``'s."""
+    onehot_reduce(tiles, upd)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            onehot_reduce(tiles, upd)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        found = re.search(r"(\w+_kernel)", e.name())
+        op = "memset" if "memset" in e.name().lower() else (
+            found.group(1) if found else e.name())
+        ops[op] = ops.get(op, 0.0) + (e.end_ns() - e.start_ns()) * 1e-6 / calls
+    if ops:
+        ops["sum"] = sum(ops.values())
+    log(f"[{label}] onehot_reduce device operations, ms per call over {calls} calls: "
+        + (", ".join(f"{op} {ms:.4f}" for op, ms in ops.items()) or "not measured"))
+    return ops
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """The host's µs per call of ``fn`` over ``calls`` calls back to back
+    (the card synchronised before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def lane_gather_host_parts(tbl, idx, label) -> dict:
+    """The host's µs per call of each part of ``lane_gather``'s launch path
+    (kernels/launch.py), and of the whole wrapper and ``torch.gather``: the
+    key and its plan's lookup, the per-call alignment and contiguity
+    checks with the pointers, the output's allocation, the entry point's
+    ctypes call with the kernel's launch, and ``Entry.launch`` (that call
+    with the device check, the stream's handle, the return code and the
+    count)."""
+    from photon_ml_tpu_torch.kernels import lab as lab_kernels
+
+    entry, rows = lab_kernels._LANE_GATHER, tbl.shape[0]
+    out = torch.empty_like(tbl)
+    ptrs = (tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), rows)
+    dev = tbl.device.index
+    idx64 = idx.long()
+    parts = {
+        "key_and_plan": lambda: lab_kernels._lane_plans.get(
+            (tbl.dtype, idx.dtype, tbl.shape, idx.shape, tbl.device, idx.device)),
+        "checks": lambda: ((tbl.data_ptr() | idx.data_ptr()) & 15
+                           or not (tbl.is_contiguous() and idx.is_contiguous())),
+        "allocation": lambda: torch.empty_like(tbl),
+        "ctypes_call": lambda: entry._fn(*ptrs, torch._C._cuda_getCurrentRawStream(dev)),
+        "entry_launch": lambda: entry.launch(dev, *ptrs),
+        "wrapper": lambda: lane_gather(tbl, idx),
+        "torch.gather": lambda: torch.gather(tbl, 1, idx64),
+    }
+    us = {name: host_us(fn) for name, fn in parts.items()}
+    log(f"[{label}] lane_gather's host path, µs per call: "
+        + ", ".join(f"{name} {v:.2f}" for name, v in us.items()))
+    return us
+
+
+# the chunks of tiles per block of phase 4b's onehot_reduce sweep
+# (kernels/lab.py's LAB_CHUNK is the default)
+REDUCE_CHUNKS = (1, 2, 4, 8, 16, 24, 32, 64)
+
+
+def onehot_reduce_sweep(tiles, upd, label, chunks=REDUCE_CHUNKS) -> list:
+    """onehot_reduce at each chunk of tiles per block: within LAB_RTOL of
+    the plain version in f64 and the same bits over 3 calls, then its
+    CUDA-event ms and device and host ms per call."""
+    ref = onehot_reduce_reference(tiles, upd.double())
+    scale = onehot_reduce_reference(tiles, upd.abs().double())
+    rows = []
+    for chunk in chunks:
+        got = onehot_reduce(tiles, upd, chunk=chunk)
+        max_err, ok, share = within(got, ref, scale, LAB_RTOL)
+        same = all(bits_equal(onehot_reduce(tiles, upd, chunk=chunk), got) for _ in range(2))
+        if not (ok and same):
+            raise AssertionError(f"onehot_reduce ({label}, chunk {chunk}) disagrees with its "
+                                 "plain version or changed bits from call to call")
+        fn = lambda: onehot_reduce(tiles, upd, chunk=chunk)  # noqa: E731
+        ms = time_ms(fn)
+        dev_ms, host_ms = device_ms(fn)
+        rows.append({"chunk": chunk, "blocks": -(-tiles.ntiles // chunk), "ms": ms,
+                     "device_ms": dev_ms, "host_ms": host_ms, "max_abs_err": max_err,
+                     "max_err_share": share})
+    log(f"[{label}] onehot_reduce chunk sweep, device ms per call: " + ", ".join(
+        f"{r['chunk']}: {r['device_ms']:.4f}" for r in rows) + " (each within "
+        f"{LAB_RTOL:g} of the plain version in f64, the same bits over 3 calls)")
+    return rows
+
+
+def check_recycled_zeros(tiles, upd, label) -> dict:
+    """onehot_reduce's output in memory that held NaN: the output's whole
+    buffer is freed, filled with NaN in a tensor of its size and freed
+    again, so the caching allocator hands the next call that block; every
+    column that no entry names must then read exactly 0.0."""
+    width = tiles.nblocks * LAB_BLOCK
+    named = torch.bincount(tiles.global_cols().reshape(-1), minlength=width + 1)[:width] > 0
+    g = onehot_reduce(tiles, upd)
+    floats = g.untyped_storage().nbytes() // 4
+    del g
+    nan = torch.full((floats,), float("nan"), device=upd.device)
+    nan_ptr = nan.data_ptr()
+    del nan
+    g = onehot_reduce(tiles, upd)
+    reused = g.data_ptr() == nan_ptr
+    unnamed = int((~named).sum())
+    zeros = bool((g[~named] == 0).all()) and not bool(g.isnan().any())
+    log(f"[{label}] onehot_reduce in recycled NaN memory (the same block: {reused}): "
+        f"{unnamed} of {width} columns named by no entry, all exactly 0.0 and no NaN "
+        f"anywhere: {'ok' if zeros else 'FAILS'}")
+    if not (reused and zeros):
+        raise AssertionError(f"onehot_reduce ({label}) left a column unwritten in recycled "
+                             f"memory (block reused {reused})")
+    return {"unnamed_columns": unnamed, "width": width, "exact_zeros": zeros}
+
+
 def check_onehot_gather(tiles, w, label):
     """onehot_gather against its plain version, bit for bit."""
     got = onehot_gather(tiles, w)
@@ -1238,10 +1375,15 @@ def lab_phase(name: str):
         {"rows": x.tbl.shape[0], "lanes": x.tbl.shape[1]}, "lab",
         lambda: torch.gather(x.tbl, 1, idx64), "torch.gather")]
     records[0]["max_err_share"] = 0.0
+    host_parts = lane_gather_host_parts(x.tbl, x.idx, "lab")
     e = check_onehot_gather(tiles, x.w, "lab")
     g = check_onehot_reduce(tiles, x.upd, "lab")
     upd_ell = x.vals * x.a[:, None]
-    summary = {"lines": out["records"], "tiles": tiles.ntiles, "chains": tiles.chains.shape[0]}
+    summary = {"lines": out["records"], "tiles": tiles.ntiles, "chains": tiles.chains.shape[0],
+               "lane_gather_host_us": host_parts,
+               "recycled_zeros": check_recycled_zeros(tiles, x.upd, "lab"),
+               "reduce_ops": onehot_reduce_ops(tiles, x.upd, "lab"),
+               "reduce_chunks": onehot_reduce_sweep(tiles, x.upd, "lab")}
     summary["sums"] = check_lab_sums(
         "lab", sparse_kernel_lab.rows_sum(tiles, e, x.n), ell_matvec(x.cols, x.vals, x.w, x.d),
         ell_matvec_reference(x.cols, x.vals.abs().double(), x.w.abs().double(), x.d),
@@ -1272,12 +1414,16 @@ def lab_uniform(peaks, summary, n: int = KERNEL_ROWS, d: int = D_HASHED, k: int 
     upd_ell = vals * a[:, None]
     e = check_onehot_gather(tiles, w, "lab-uniform")
     g = check_onehot_reduce(tiles, upd, "lab-uniform")
+    zeros = check_recycled_zeros(tiles, upd, "lab-uniform")
+    ops = onehot_reduce_ops(tiles, upd, "lab-uniform")
+    sweep = onehot_reduce_sweep(tiles, upd, "lab-uniform")
     row_abs = ell_matvec_reference(idx, vals.abs().double(), w.abs().double(), d)
     col_abs = ell_scatter_add_reference(idx, upd_ell.abs().double(), d)
     shape = {"n": n, "k": k, "d": d}
     uniform = {"layout_ms": layout_ms, "sort_ms": sort_ms, "row_gather_ms": gather_ms,
                "tiles": tiles.ntiles, "padded_entries": tiles.cols.numel(),
-               "chains": tiles.chains.shape[0],
+               "chains": tiles.chains.shape[0], "recycled_zeros": zeros, "reduce_ops": ops,
+               "reduce_chunks": sweep,
                **check_lab_sums("lab-uniform", sparse_kernel_lab.rows_sum(tiles, e, n),
                                 ell_matvec(idx, vals, w, d), row_abs, g[0][:d],
                                 ell_scatter_add(idx, upd_ell, d), col_abs)}
@@ -3663,7 +3809,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
-                  "host_ms", "library_device_ms", "composite_ms", "composite_device_ms",
+                  "host_ms", "library_device_ms", "library_host_ms", "composite_ms",
+                  "composite_device_ms",
                   "max_abs_err", "max_err_share", "max_err_share_vs_f64")
 
     def f64_record(records, kernel):
@@ -3692,6 +3839,7 @@ def main() -> int:
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],
             "library_device_ms": main_path["library_device_ms"],
+            "library_host_ms": main_path.get("library_host_ms"),
             "train_shape": None if at_shape is None else {
                 k: at_shape.get(k) for k in shape_keys},
         })
@@ -3724,7 +3872,7 @@ def main() -> int:
                                  "game_train": game_train_summary["launches"][kernel],
                                  "game_train_projected": game_proj_summary["launches"][kernel]},
             **{k: main_path[k] for k in ("device_ms", "host_ms", "library_device_ms",
-                                         "composite", "composite_ms", "composite_device_ms",
+                                         "library_host_ms", "composite", "composite_ms", "composite_device_ms",
                                          "max_err_share")},
             "uniform_2_22": None if uniform is None else {k: uniform.get(k) for k in shape_keys},
         })

@@ -36,24 +36,50 @@
 // padded entry (cols and upd read) and g written once. The TPU kernel
 // carries a block's sums across its sequential grid; Hopper's blocks run
 // in parallel and in no order, and a block per column block would again
-// put half the work on one SM. Design, with no global atomics and every
-// sum in a fixed order, so g has the same bits from call to call:
-//   1. the caller's stream clears g (cudaMemsetAsync): blocks with no
-//      tiles and columns no entry names stay 0;
-//   2. a block per tile loads 4 entries per thread (16-byte loads) and
-//      sums each run of equal columns with a segmented inclusive scan:
-//      in each thread's 4 entries, then across the warp by shuffles, then
-//      across the 8 warps through shared memory. A run that lies inside
-//      the tile has one writer and goes straight to g. The tile's first
-//      run, where it continues the previous tile's last column, goes to
-//      edge[2t]; its last run, where the next tile continues it (and it
-//      is not also the first), to edge[2t + 1];
-//   3. a warp per crossing column (a line of `chains`: global column,
-//      first tile, last tile; built with the layout) adds edge[2 first +
-//      1] and edge[2 t] for the tiles after it, in tile order per lane
-//      and then a fixed shuffle tree, in double, and writes the column
-//      once. The Zipf head column of the lab's default shape crosses
-//      about 594 tiles.
+// put half the work on one SM (Zipf data puts half the lab's tiles in
+// block 0). Design, with no global atomics and every sum in a fixed
+// order, so g has the same bits from call to call:
+//   1. a block per chunk of `chunk` consecutive tiles (the last chunk may
+//      be shorter), a warp per tile (4 warps; warp w takes the chunk's
+//      tiles w, w + 4, ...) and 32 consecutive entries a lane. The warp
+//      copies its tile into shared memory with coalesced cp.async (a
+//      swizzled layout, so each lane then reads its 8 vectors without
+//      bank conflicts), and meanwhile reads the tile's neighbours (their
+//      blocks, the previous tile's last column, the next tile's first).
+//      A lane walks its entries in order and writes each run that starts
+//      and ends in it at once; the run open at the lane's start gets the
+//      earlier lanes' part from a segmented scan across the warp by
+//      shuffles. A tile's first run, when the previous tile continues it,
+//      and its last, when the next tile does, go to shared memory; then
+//      one thread walks the chunk's tiles in order: the TPU grid's
+//      sequential carry, moved inside the block, in double. A run that
+//      began and ends in the chunk goes to g; one that continues from the
+//      previous chunk (the chunk's first run) leaves its part in edge[2c];
+//      one that continues into the next chunk (its last run, if it is not
+//      also the first) in edge[2c + 1];
+//   2. every column of g is written exactly once, zeros included, so g
+//      needs no clearing: the columns between two consecutive columns of
+//      a tile are zeroed by the lane that ends the first one's run; a
+//      tile's columns before its first named column, back to where the
+//      previous tile's range ended, and after its last named column, up
+//      to the next tile's first column (or to the next tile's block, or
+//      to `width` after the last tile), by the tile's warp. So blocks no
+//      tile names, and the columns past d, are zeroed by the tile before
+//      them (by tile 0 before the first tile's block);
+//   3. a thread per line of `chains` (a column whose run crosses a tile
+//      edge: global column, first tile, last tile; built with the layout)
+//      whose run crosses a chunk edge: it adds edge[2 cf + 1] and edge[2 k]
+//      for the chunks k after the first chunk cf, up to the last, in
+//      chunk order, in double, and writes the column once; a run over
+//      more than kLaneSpan chunks is summed by a warp of its own instead
+//      (in chunk order per lane, then a fixed shuffle tree). A chunk of 4
+//      tiles cuts the Zipf head column's chain of the lab's default shape
+//      from about 594 partials to about 149. This launch is a programmatic
+//      dependent of the tiles pass (Hopper's griddepcontrol), so it is
+//      scheduled while the tiles pass drains and waits for it on the card.
+// Order of a column's sum: within a lane in entry order, across the
+// lanes of the tile's warp, along the chunk in double, then across chunks
+// in double; a function of the layout and `chunk` alone.
 // Nothing is allocated here; the launches go on the caller's stream and do
 // not synchronise. Each entry point returns cudaGetLastError().
 
@@ -69,6 +95,11 @@ constexpr int kBlockCols = 512;  // columns per block; also the miss
 constexpr int kTile = 1024;  // entries per tile
 constexpr int kPer = kTile / kThreads;  // entries per thread: 4
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLaneEntries = kTile / 32;  // onehot_reduce: a warp per tile, 32 a lane
+constexpr int kReduceWarps = 4;           // onehot_reduce's warps per block
+constexpr int kVecs = kTile / 4;          // 16-byte vectors of a tile's cols (or upd)
+constexpr int kMaxChunk = 64;  // tiles per onehot_reduce block, at most
+constexpr int kLaneSpan = 16;  // chunks a thread sums alone in the chains pass
 
 static_assert(kPer == 4, "one 16-byte load of ids and of values per thread");
 
@@ -137,118 +168,300 @@ __device__ __forceinline__ Seg combine(Seg a, Seg b) {
   return {b.head ? b.v : a.v + b.v, a.head | b.head};
 }
 
-__global__ void __launch_bounds__(kThreads)
+// 16 bytes from global to shared memory, bypassing L1 (cp.async.cg);
+// both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// where a tile's 16-byte vector v sits in shared memory: lane l reads
+// vectors 8l .. 8l + 7 (its 32 entries), and any 8 consecutive lanes find
+// the i-th of theirs in 8 different bank groups; 32 consecutive vectors,
+// as the copy writes them, stay 8 to a bank-group permutation too
+__device__ __forceinline__ int swizzle(int v) {
+  return v ^ ((v >> 3) & 7);
+}
+
+// g[lo, hi) = 0 by the whole warp
+__device__ __forceinline__ void zero_range(float* __restrict__ g, long long lo, long long hi,
+                                           int lane) {
+  for (long long i = lo + lane; i < hi; i += 32) {
+    g[i] = 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kReduceWarps)
 onehot_reduce_tiles_kernel(const int32_t* __restrict__ cols, const float* __restrict__ upd,
                            const int32_t* __restrict__ tile_block, float* __restrict__ g,
-                           float* __restrict__ edge, long long ntiles) {
-  __shared__ Seg warp_sum[kWarps];
-  const long long t = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long base = t * kTile;
-  const long long s = base + kPer * tid;
-  const int4 c4 = __ldcs(reinterpret_cast<const int4*>(cols + s));
-  const float4 u4 = __ldcs(reinterpret_cast<const float4*>(upd + s));
-  const int32_t c[kPer] = {c4.x, c4.y, c4.z, c4.w};
-  const float u[kPer] = {u4.x, u4.y, u4.z, u4.w};
-  const int32_t b = __ldg(tile_block + t);
-  // the tile's first and last columns, and whether its neighbours in the
-  // same block continue them (never the miss)
-  const int32_t first = __ldg(cols + base), last = __ldg(cols + base + kTile - 1);
-  const bool left_open = first != kBlockCols && t > 0 && __ldg(tile_block + t - 1) == b
-                         && __ldg(cols + base - 1) == first;
-  const bool right_open = last != kBlockCols && t + 1 < ntiles
-                          && __ldg(tile_block + t + 1) == b
-                          && __ldg(cols + base + kTile) == last;
-  // the columns just before and just after this thread's 4 entries
-  int32_t prev = __shfl_up_sync(kFull, c[kPer - 1], 1);
-  int32_t next = __shfl_down_sync(kFull, c[0], 1);
-  if (lane == 0 && tid > 0) {
-    prev = __ldg(cols + s - 1);
-  }
-  if (lane == 31 && tid < kThreads - 1) {
-    next = __ldg(cols + s + kPer);
-  }
-  bool head[kPer], end[kPer];
-  head[0] = tid == 0 || prev != c[0];
+                           double* __restrict__ edge, long long ntiles, int chunk,
+                           long long width) {
+  // per tile of the chunk: the part of its first run when the previous
+  // tile continues it, of its last run when the next tile continues it,
+  // its first run's global column, and flags (1: continued from the
+  // previous tile, 2: continued by the next, 4: one column)
+  __shared__ float s_in[kMaxChunk], s_out[kMaxChunk];
+  __shared__ long long s_first_col[kMaxChunk];
+  __shared__ int s_flags[kMaxChunk];
+  // each warp's tile, staged
+  __shared__ int4 s_cols[kReduceWarps][kVecs];
+  __shared__ float4 s_upd[kReduceWarps][kVecs];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long c = blockIdx.x;
+  const long long t0 = c * chunk;
+  const long long t1 = t0 + chunk < ntiles ? t0 + chunk : ntiles;
+  const int4* tc = s_cols[warp];
+  const float4* tu = s_upd[warp];
+  // the chains pass may be scheduled once every block has started; it
+  // waits for this grid to finish before it reads edge
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  for (long long t = t0 + warp; t < t1; t += kReduceWarps) {
+    const int m = (int)(t - t0);
+    // the tile, coalesced, into shared memory; the tile's neighbours meanwhile
+    const int4* gc = reinterpret_cast<const int4*>(cols + t * kTile);
+    const float4* gu = reinterpret_cast<const float4*>(upd + t * kTile);
 #pragma unroll
-  for (int j = 1; j < kPer; ++j) {
-    head[j] = c[j] != c[j - 1];
-    end[j - 1] = head[j];
-  }
-  end[kPer - 1] = tid == kThreads - 1 || next != c[kPer - 1];
-  // segmented inclusive sums of the thread's entries, in order
-  float r[kPer];
-  bool started[kPer];
-  r[0] = u[0];
-  started[0] = head[0];
-#pragma unroll
-  for (int j = 1; j < kPer; ++j) {
-    r[j] = head[j] ? u[j] : r[j - 1] + u[j];
-    started[j] = started[j - 1] || head[j];
-  }
-  // across the warp: inclusive scan of the threads' spans
-  Seg inc = {r[kPer - 1], started[kPer - 1] ? 1 : 0};
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const Seg o = {__shfl_up_sync(kFull, inc.v, off), __shfl_up_sync(kFull, inc.head, off)};
-    if (lane >= off) {
-      inc = combine(o, inc);
+    for (int r = 0; r < kVecs / 32; ++r) {
+      const int v = lane + 32 * r;
+      cp_async16(&s_cols[warp][swizzle(v)], gc + v);
+      cp_async16(&s_upd[warp][swizzle(v)], gu + v);
     }
-  }
-  Seg before = {__shfl_up_sync(kFull, inc.v, 1), __shfl_up_sync(kFull, inc.head, 1)};
-  if (lane == 0) {
-    before = {0.0f, 0};
-  }
-  if (lane == 31) {
-    warp_sum[warp] = inc;
+    const int32_t b = __ldg(tile_block + t);
+    const int32_t prev_block = t > 0 ? __ldg(tile_block + t - 1) : -1;
+    const int32_t next_block = t + 1 < ntiles ? __ldg(tile_block + t + 1) : -1;
+    const int32_t prev_last = t > 0 ? __ldg(cols + t * kTile - 1) : kBlockCols;
+    const int32_t next_head = t + 1 < ntiles ? __ldg(cols + (t + 1) * kTile) : kBlockCols;
+    cp_async_wait_all();
+    __syncwarp();
+    // the lane's 32 consecutive entries are vectors 8 lane .. 8 lane + 7
+    const int32_t lane_first = tc[swizzle(8 * lane)].x;
+    const int32_t lane_last = tc[swizzle(8 * lane + 7)].w;
+    const int32_t first = __shfl_sync(kFull, lane_first, 0);
+    const int32_t last = __shfl_sync(kFull, lane_last, 31);
+    const long long col0 = (long long)b * kBlockCols;
+    const bool prev_same = prev_block == b, next_same = next_block == b;
+    const int32_t next_first = next_same ? next_head : kBlockCols;
+    // whether the previous tile's last run continues here, and whether
+    // this tile's last run continues in the next (never the miss)
+    const bool cont_in = first != kBlockCols && prev_same && prev_last == first;
+    const bool cont_out = last != kBlockCols && next_first == last;
+    // the columns this tile zeroes where no entry names them: [lo, hi)
+    const long long lo = t == 0 ? 0 : !prev_same ? col0 : col0 + first;
+    const long long hi = next_block < 0 ? width
+                         : !next_same   ? (long long)next_block * kBlockCols
+                                        : col0 + next_first;
+    // a run of `col` that ends in the tile, with its sum over the tile:
+    // the tile's first or last run to the chunk's pass when a
+    // neighbouring tile continues it, any other to g (never a miss)
+    const auto emit = [&](int32_t col, float sum) {
+      if (col == kBlockCols) {
+        return;
+      }
+      if (cont_in && col == first) {
+        s_in[m] = sum;
+      } else if (cont_out && col == last) {
+        s_out[m] = sum;
+      } else {
+        g[col0 + col] = sum;
+      }
+    };
+    // the columns strictly between two consecutive columns of the tile
+    const auto zero_gap = [&](int32_t from, int32_t to) {
+      if (to != kBlockCols) {
+        for (int32_t i = from + 1; i < to; ++i) {
+          g[col0 + i] = 0.0f;
+        }
+      }
+    };
+    // the lane's pass, in entry order: a run that starts and ends in the
+    // lane is written at once; the lane's first run, when an earlier lane
+    // began it, waits for that lane's part
+    const int32_t before = __shfl_up_sync(kFull, lane_last, 1);
+    const int32_t after = __shfl_down_sync(kFull, lane_first, 1);
+    const bool lane_cont = lane > 0 && before == lane_first;
+    bool split = false;  // a run starts inside the lane
+    float first_part = 0.0f;
+    int32_t named = -1;  // the lane's last named column
+    int32_t cur = lane_first;
+    float acc = -0.0f;  // -0 + x is x, -0 included
+#pragma unroll
+    for (int i = 0; i < kLaneEntries / 4; ++i) {
+      const int4 c4 = tc[swizzle(8 * lane + i)];
+      const float4 u4 = tu[swizzle(8 * lane + i)];
+      const int32_t cl[4] = {c4.x, c4.y, c4.z, c4.w};
+      const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (cl[j] != cur) {
+          if (lane_cont && !split) {
+            first_part = acc;
+          } else {
+            emit(cur, acc);
+          }
+          zero_gap(cur, cl[j]);
+          named = cur;
+          split = true;
+          cur = cl[j];
+          acc = u[j];
+        } else {
+          acc += u[j];
+        }
+      }
+    }
+    if (cur != kBlockCols) {
+      named = cur;
+    }
+    // across the warp: the part of the run open at each lane's start
+    Seg inc = {acc, (split || !lane_cont) ? 1 : 0};
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const Seg o = {__shfl_up_sync(kFull, inc.v, off), __shfl_up_sync(kFull, inc.head, off)};
+      if (lane >= off) {
+        inc = combine(o, inc);
+      }
+    }
+    const float open_part = __shfl_up_sync(kFull, inc.v, 1);
+    if (lane_cont && split) {
+      emit(lane_first, open_part + first_part);
+    }
+    if (lane == 31 || after != cur) {
+      emit(cur, lane_cont && !split ? open_part + acc : acc);
+      if (lane < 31) {
+        zero_gap(cur, after);
+      }
+    }
+    // the tile's columns before its first named one and after its last
+    const int32_t last_named = __reduce_max_sync(kFull, named);
+    if (first == kBlockCols) {
+      zero_range(g, lo, hi, lane);
+    } else {
+      zero_range(g, lo, col0 + first, lane);
+      zero_range(g, col0 + last_named + 1, hi, lane);
+    }
+    if (lane == 0) {
+      s_flags[m] = (cont_in ? 1 : 0) | (cont_out ? 2 : 0) | (first == last ? 4 : 0);
+      s_first_col[m] = col0 + first;
+    }
+    __syncwarp();  // the warp's next tile overwrites the staged one
   }
   __syncthreads();
-  // across the warps, in warp order
-  Seg prefix = {0.0f, 0};
-  for (int i = 0; i < warp; ++i) {
-    prefix = combine(prefix, warp_sum[i]);
+  if (threadIdx.x != 0) {
+    return;
   }
-  prefix = combine(prefix, before);
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    if (!end[j] || (unsigned)c[j] >= (unsigned)kBlockCols) {
-      continue;
+  // the chunk's pass, in tile order, in double: a run carried from tile
+  // to tile; one that began before the chunk or goes on after it leaves
+  // its part in edge
+  const int n = (int)(t1 - t0);
+  double carry = 0.0;
+  bool carry_open = false;
+  for (int m = 0; m < n; ++m) {
+    const int f = s_flags[m];
+    const bool cin = f & 1, cout = f & 2, single = f & 4;
+    if (cin) {
+      const double s = m == 0 ? (double)s_in[m] : carry + (double)s_in[m];
+      const bool open = m == 0 || carry_open;
+      if (single && cout) {
+        if (m + 1 < n) {
+          carry = s, carry_open = open;
+        } else {
+          edge[2 * c + (open ? 0 : 1)] = s;
+        }
+        continue;
+      }
+      if (open) {
+        edge[2 * c] = s;
+      } else {
+        g[s_first_col[m]] = (float)s;
+      }
     }
-    // the run that ends here: within the tile, it is the only run of its
-    // column (the tile is sorted), so its column says whether it is the
-    // tile's first or last run
-    const float sum = started[j] ? r[j] : prefix.v + r[j];
-    if (left_open && c[j] == first) {
-      edge[2 * t] = sum;
-    } else if (right_open && c[j] == last) {
-      edge[2 * t + 1] = sum;
-    } else {
-      g[(long long)b * kBlockCols + c[j]] = sum;
+    if (cout) {
+      if (m + 1 < n) {
+        carry = s_out[m], carry_open = false;
+      } else {
+        edge[2 * c + 1] = s_out[m];
+      }
     }
   }
 }
 
+// A thread per line of `chains`: when its run crosses a chunk edge and
+// spans at most kLaneSpan chunks, it sums the partials alone, in chunk
+// order (loads in batches of 8); the block's longer runs go one to a warp,
+// in line order, summed by the whole warp. Launched as a programmatic
+// dependent of the tiles pass: it waits for that grid before reading edge.
 __global__ void __launch_bounds__(kThreads)
 onehot_reduce_chains_kernel(const int32_t* __restrict__ chains, long long nchains,
-                            const float* __restrict__ edge, float* __restrict__ g) {
-  const long long chain = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (chain >= nchains) {
-    return;
+                            const double* __restrict__ edge, int chunk,
+                            float* __restrict__ g) {
+  __shared__ unsigned s_mask[kWarps];
+  __shared__ int s_long[kThreads];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long block_line = (long long)blockIdx.x * kThreads;
+  const long long line = block_line + tid;
+  int32_t col = 0;
+  long long first = 0, last = 0;
+  if (line < nchains) {
+    col = __ldg(chains + 3 * line);
+    first = __ldg(chains + 3 * line + 1) / chunk;
+    last = __ldg(chains + 3 * line + 2) / chunk;
   }
-  const long long col = __ldg(chains + 3 * chain);
-  const long long first = __ldg(chains + 3 * chain + 1);
-  const long long last = __ldg(chains + 3 * chain + 2);
-  double acc = lane == 0 ? (double)__ldg(edge + 2 * first + 1) : 0.0;
-  for (long long t = first + 1 + lane; t <= last; t += 32) {
-    acc += (double)__ldg(edge + 2 * t);
-  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // a run that stays in one chunk was written by the tiles pass
+  const bool longer = last - first > kLaneSpan;
+  if (first != last && !longer) {
+    double acc = __ldcg(edge + 2 * first + 1);
+    long long k = first + 1;
+    for (; k + 7 <= last; k += 8) {
+      double part[8];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(kFull, acc, off);
-  }
-  if (lane == 0) {
+      for (int i = 0; i < 8; ++i) {
+        part[i] = __ldcg(edge + 2 * (k + i));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc += part[i];
+      }
+    }
+    for (; k <= last; ++k) {
+      acc += __ldcg(edge + 2 * k);
+    }
     g[col] = (float)acc;
+  }
+  // the block's longer runs, in line order, one to a warp
+  const unsigned mask = __ballot_sync(kFull, longer);
+  if (lane == 0) {
+    s_mask[warp] = mask;
+  }
+  __syncthreads();
+  int total = 0, at = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int n = __popc(s_mask[w]);
+    at += w < warp ? n : 0;
+    total += n;
+  }
+  if (longer) {
+    s_long[at + __popc(mask & ((1u << lane) - 1u))] = tid;
+  }
+  __syncthreads();
+  for (int j = warp; j < total; j += kWarps) {
+    const long long l = block_line + s_long[j];
+    const long long f = __ldg(chains + 3 * l + 1) / chunk;
+    const long long e = __ldg(chains + 3 * l + 2) / chunk;
+    double acc = lane == 0 ? __ldcg(edge + 2 * f + 1) : 0.0;
+    for (long long k = f + 1 + lane; k <= e; k += 32) {
+      acc += __ldcg(edge + 2 * k);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_xor_sync(kFull, acc, off);
+    }
+    if (lane == 0) {
+      g[__ldg(chains + 3 * l)] = (float)acc;
+    }
   }
 }
 
@@ -280,26 +493,36 @@ int photon_lab_onehot_gather(const void* cols, const void* vals, const void* til
   return (int)cudaGetLastError();
 }
 
-// g (width floats) is cleared here; edge holds 2 * ntiles floats of scratch
+// g: width floats, every one written; edge: 2 * ceil(ntiles / chunk)
+// doubles of scratch; ntiles > 0
 int photon_lab_onehot_reduce(const void* cols, const void* upd, const void* tile_block,
                              const void* chains, void* g, long long nchains,
-                             long long ntiles, void* edge, long long width, void* stream) {
+                             long long ntiles, void* edge, long long width, int chunk,
+                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(g, 0, (size_t)width * sizeof(float), st);
-  if (err != cudaSuccess || ntiles == 0) {
-    return (int)err;
-  }
-  onehot_reduce_tiles_kernel<<<(unsigned)ntiles, kThreads, 0, st>>>(
+  onehot_reduce_tiles_kernel<<<blocks_for(ntiles, chunk), 32 * kReduceWarps, 0, st>>>(
       static_cast<const int32_t*>(cols), static_cast<const float*>(upd),
       static_cast<const int32_t*>(tile_block), static_cast<float*>(g),
-      static_cast<float*>(edge), ntiles);
-  err = cudaGetLastError();
+      static_cast<double*>(edge), ntiles, chunk, width);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nchains == 0) {
     return (int)err;
   }
-  onehot_reduce_chains_kernel<<<blocks_for(nchains, kWarps), kThreads, 0, st>>>(
-      static_cast<const int32_t*>(chains), nchains, static_cast<const float*>(edge),
-      static_cast<float*>(g));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks_for(nchains, kThreads));
+  config.blockDim = dim3(kThreads);
+  config.stream = st;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, onehot_reduce_chains_kernel,
+                           static_cast<const int32_t*>(chains), nchains,
+                           static_cast<const double*>(edge), chunk, static_cast<float*>(g));
+  if (err != cudaSuccess) {
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

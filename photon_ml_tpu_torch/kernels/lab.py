@@ -21,23 +21,27 @@ of ``benchmarks/sparse_kernel_lab.py``) and its column-sorted layout.
 The lab's names are kept, so that each counterpart is found. On CUDA
 tensors each wrapper launches its kernel in ``csrc/lab.cu`` (or raises);
 on CPU tensors it runs its ``*_reference``, the plain PyTorch version. The
-CUDA kernels take float32.
+CUDA kernels take float32. The wrappers check a call in full once per key
+of dtypes, shapes, devices and widths, and keep what the checks yield
+(``kernels/launch.py``); every call still checks its tensors' contiguity
+and alignment.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
-from photon_ml_tpu_torch.kernels import dispatch
+from photon_ml_tpu_torch.kernels import dispatch, launch
 from photon_ml_tpu_torch.kernels.colsort import run_chains, sorted_slots
-from photon_ml_tpu_torch.kernels.ell import device_scope, load_entry, stream_of
 
 __all__ = [
     "LAB_BLOCK",
     "LAB_TILE",
     "LANES",
+    "LAB_CHUNK",
     "ColumnTiles",
     "column_sorted_tiles",
     "tile_chains",
@@ -52,6 +56,10 @@ __all__ = [
 LAB_BLOCK = 512  # columns per block (the lab's CB)
 LAB_TILE = 1024  # entries per tile (the lab's T, stored there as (8, 128))
 LANES = 128  # lane_gather's row width (the lab's BC)
+# tiles per block of the CUDA onehot_reduce (a chunk); chip_smoke.py's
+# phase 4b sweeps it
+LAB_CHUNK = 4
+MAX_CHUNK = 64  # kMaxChunk in csrc/lab.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,23 +167,13 @@ def column_sorted_tiles(indices: torch.Tensor, values: torch.Tensor, d: int) -> 
     )
 
 
-# -- checks ------------------------------------------------------------------
+# -- checks, once per key (kernels/launch.py) --------------------------------
 
 
 def _check_f32(kernel: str, **tensors) -> None:
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel}: {name} must be float32, got {t.dtype}")
-
-
-def _check_cuda(kernel: str, *named) -> None:
-    """What the CUDA kernels take beyond the plain versions: contiguous
-    tensors with 16-byte aligned bases (they load 4 entries at a time)."""
-    for name, t in named:
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
 
 
 def _check_tiles(kernel: str, tiles: ColumnTiles, table: torch.Tensor, name: str,
@@ -193,13 +191,27 @@ def _check_kernel_layout(kernel: str, tiles: ColumnTiles) -> None:
         raise ValueError(f"{kernel}: d={tiles.d} outside int32")
 
 
-def _launch(kernel: str, entry: str, argtypes, *args) -> None:
-    lib, fn = load_entry("lab", entry, argtypes)
-    code = fn(*args)
-    from photon_ml_tpu_torch.kernels import build
+def _tiles_key(tiles: ColumnTiles) -> tuple:
+    """The layout's part of a key: its tensors' dtypes, shapes and
+    devices, and its widths."""
+    cols, tb, chains = tiles.cols, tiles.tile_block, tiles.chains
+    return (cols.dtype, cols.shape, cols.device, tb.dtype, tb.shape, tb.device,
+            chains.dtype, chains.shape, chains.device, tiles.d, tiles.nblocks)
 
-    build.check(lib, code, f"{kernel} launch")
-    dispatch.count_launch(kernel)
+
+_LANE_GATHER = launch.Entry("lane_gather", "lab", "photon_lab_lane_gather",
+                            [ctypes.c_void_p] * 3 + [ctypes.c_longlong])
+_ONEHOT_GATHER = launch.Entry(
+    "onehot_gather", "lab", "photon_lab_onehot_gather",
+    [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int])
+_ONEHOT_REDUCE = launch.Entry(
+    "onehot_reduce", "lab", "photon_lab_onehot_reduce",
+    [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                             ctypes.c_longlong, ctypes.c_int])
+# key -> plan, one dict per wrapper
+_lane_plans: dict = {}
+_gather_plans: dict = {}
+_reduce_plans: dict = {}
 
 
 # -- lane_gather (row 6) -----------------------------------------------------
@@ -215,10 +227,8 @@ def lane_gather_reference(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, got, torch.full_like(got, float("nan")))
 
 
-def lane_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[r, j] = tbl[r, idx[r, j]]: ``tbl`` (R, 128) float32, ``idx``
-    (R, 128) int32. CUDA tensors: one launch of the CUDA kernel (a warp per
-    row) or an exception; CPU tensors: ``lane_gather_reference``."""
+def _lane_gather_plan(key: tuple, tbl: torch.Tensor, idx: torch.Tensor):
+    """(device index, rows) of a CUDA key, ``launch.PLAIN`` of a CPU one."""
     _check_f32("lane_gather", tbl=tbl)
     if idx.dtype != torch.int32:
         raise TypeError(f"lane_gather: idx must be int32, got {idx.dtype}")
@@ -229,17 +239,28 @@ def lane_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     dispatch.record_kernel_cost("lane_gather", rows, LANES, LANES, 4, flops_per_slot=0.0,
                                 extra_bytes=rows * LANES * 4)
     if not dispatch.use_kernel("lane_gather", tbl, idx):
-        return lane_gather_reference(tbl, idx)
-    _check_cuda("lane_gather", ("tbl", tbl), ("idx", idx))
-    out = torch.empty_like(tbl)
-    if rows == 0:
-        return out
-    import ctypes
+        return launch.keep(_lane_plans, key, launch.PLAIN)
+    _LANE_GATHER.load()
+    return launch.keep(_lane_plans, key, (tbl.device.index, rows))
 
-    with device_scope(tbl.device):
-        _launch("lane_gather", "photon_lab_lane_gather",
-                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
-                tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, stream_of(tbl))
+
+def lane_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[r, j] = tbl[r, idx[r, j]]: ``tbl`` (R, 128) float32, ``idx``
+    (R, 128) int32. CUDA tensors: one launch of the CUDA kernel (a warp per
+    row) on the current stream, or an exception; CPU tensors:
+    ``lane_gather_reference``."""
+    key = (tbl.dtype, idx.dtype, tbl.shape, idx.shape, tbl.device, idx.device)
+    plan = _lane_plans.get(key) or _lane_gather_plan(key, tbl, idx)
+    if plan is launch.PLAIN:
+        return lane_gather_reference(tbl, idx)
+    # launch.pointers' checks, inline: this call's host time is its cost
+    tbl_ptr, idx_ptr = tbl.data_ptr(), idx.data_ptr()
+    if (tbl_ptr | idx_ptr) & 15 or not (tbl.is_contiguous() and idx.is_contiguous()):
+        launch.pointers("lane_gather", ("tbl", "idx"), tbl, idx)
+    out = torch.empty_like(tbl)
+    device, rows = plan
+    if rows:
+        _LANE_GATHER.launch(device, tbl_ptr, idx_ptr, out.data_ptr(), rows)
     return out
 
 
@@ -255,11 +276,8 @@ def onehot_gather_reference(tiles: ColumnTiles, w: torch.Tensor) -> torch.Tensor
     return tiles.vals * w_pad[tiles.global_cols()]
 
 
-def onehot_gather(tiles: ColumnTiles, w: torch.Tensor) -> torch.Tensor:
-    """e = (ntiles, tile) float32, ``e[t, i] = vals[t, i] * w[tile_block[t]
-    * LAB_BLOCK + cols[t, i]]`` and 0 at a miss, ``w`` (d,) float32. CUDA
-    tensors: one launch of the CUDA kernel (a block per tile) or an
-    exception; CPU tensors: ``onehot_gather_reference``."""
+def _onehot_gather_plan(key: tuple, tiles: ColumnTiles, w: torch.Tensor):
+    """(device index, ntiles) of a CUDA key, ``launch.PLAIN`` of a CPU one."""
     _check_f32("onehot_gather", w=w, vals=tiles.vals)
     _check_tiles("onehot_gather", tiles, w, "w", (tiles.d,))
     ntiles = tiles.ntiles
@@ -267,20 +285,31 @@ def onehot_gather(tiles: ColumnTiles, w: torch.Tensor) -> torch.Tensor:
                                 flops_per_slot=1.0,
                                 extra_bytes=4 * ntiles * LAB_TILE + 4 * tiles.d)
     if not dispatch.use_kernel("onehot_gather", tiles.cols, tiles.vals, tiles.tile_block, w):
-        return onehot_gather_reference(tiles, w)
+        return launch.keep(_gather_plans, key, launch.PLAIN)
     _check_kernel_layout("onehot_gather", tiles)
-    _check_cuda("onehot_gather", ("cols", tiles.cols), ("vals", tiles.vals),
-                ("tile_block", tiles.tile_block), ("w", w))
-    out = torch.empty_like(tiles.vals)
-    if ntiles == 0:
-        return out
-    import ctypes
+    _ONEHOT_GATHER.load()
+    return launch.keep(_gather_plans, key, (w.device.index, ntiles))
 
-    with device_scope(w.device):
-        _launch("onehot_gather", "photon_lab_onehot_gather",
-                [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-                tiles.cols.data_ptr(), tiles.vals.data_ptr(), tiles.tile_block.data_ptr(),
-                w.data_ptr(), out.data_ptr(), ntiles, tiles.d, stream_of(w))
+
+def onehot_gather(tiles: ColumnTiles, w: torch.Tensor) -> torch.Tensor:
+    """e = (ntiles, tile) float32, ``e[t, i] = vals[t, i] * w[tile_block[t]
+    * LAB_BLOCK + cols[t, i]]`` and 0 at a miss, ``w`` (d,) float32. CUDA
+    tensors: one launch of the CUDA kernel (a block per tile) on the
+    current stream, or an exception; CPU tensors:
+    ``onehot_gather_reference``."""
+    vals = tiles.vals
+    key = (w.dtype, w.shape, w.device, vals.dtype, vals.shape, vals.device, *_tiles_key(tiles))
+    plan = _gather_plans.get(key) or _onehot_gather_plan(key, tiles, w)
+    if plan is launch.PLAIN:
+        return onehot_gather_reference(tiles, w)
+    ptrs = launch.pointers("onehot_gather", ("cols", "vals", "tile_block", "w"),
+                           tiles.cols, vals, tiles.tile_block, w)
+    if not tiles.chains.is_contiguous():
+        raise ValueError("onehot_gather: chains must be contiguous int32")
+    out = torch.empty_like(vals)
+    device, ntiles = plan
+    if ntiles:
+        _ONEHOT_GATHER.launch(device, *ptrs, out.data_ptr(), ntiles, tiles.d)
     return out
 
 
@@ -296,36 +325,51 @@ def onehot_reduce_reference(tiles: ColumnTiles, upd: torch.Tensor) -> torch.Tens
     return out[:-1]
 
 
-def onehot_reduce(tiles: ColumnTiles, upd: torch.Tensor) -> torch.Tensor:
-    """g = (nblocks * LAB_BLOCK,) float32 column sums of ``upd`` (ntiles,
-    LAB_TILE) float32 over the tiles; the caller takes ``[:d]``. A block with
-    no tiles, and a column no entry names, is 0. CUDA tensors: the output
-    cleared and two launches, the tiles then the runs that cross tiles, no
-    atomics (or an exception); CPU tensors: ``onehot_reduce_reference``."""
+def _onehot_reduce_plan(key: tuple, tiles: ColumnTiles, upd: torch.Tensor, chunk: int):
+    """(device, ntiles, width, buffer floats, chains) of a CUDA key,
+    ``launch.PLAIN`` of a CPU one."""
     _check_f32("onehot_reduce", upd=upd)
     _check_tiles("onehot_reduce", tiles, upd, "upd", tuple(tiles.cols.shape))
+    if not isinstance(chunk, int) or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"onehot_reduce: chunk must be an int in [1, {MAX_CHUNK}], got {chunk!r}")
     ntiles = tiles.ntiles
     width = tiles.nblocks * LAB_BLOCK
     dispatch.record_kernel_cost("onehot_reduce", ntiles, LAB_TILE, tiles.d, 4,
                                 flops_per_slot=1.0, extra_bytes=4 * width)
     if not dispatch.use_kernel("onehot_reduce", tiles.cols, upd, tiles.tile_block,
                                tiles.chains):
-        return onehot_reduce_reference(tiles, upd)
+        return launch.keep(_reduce_plans, key, launch.PLAIN)
     _check_kernel_layout("onehot_reduce", tiles)
-    _check_cuda("onehot_reduce", ("cols", tiles.cols), ("upd", upd),
-                ("tile_block", tiles.tile_block))
-    if ntiles == 0:
-        return torch.zeros(width, dtype=torch.float32, device=upd.device)
-    # g, then the two partials of each tile's edge runs
-    buf = torch.empty(width + 2 * ntiles, dtype=torch.float32, device=upd.device)
-    g = buf[:width]
-    import ctypes
+    _ONEHOT_REDUCE.load()
+    # one buffer: g, then two f64 partials per chunk of tiles
+    floats = width + 4 * -(-ntiles // chunk)
+    return launch.keep(_reduce_plans, key, (upd.device, ntiles, width, floats,
+                                            tiles.chains.shape[0]))
 
-    with device_scope(upd.device):
-        _launch("onehot_reduce", "photon_lab_onehot_reduce",
-                [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong,
-                                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
-                tiles.cols.data_ptr(), upd.data_ptr(), tiles.tile_block.data_ptr(),
-                tiles.chains.data_ptr(), g.data_ptr(), tiles.chains.shape[0], ntiles,
-                buf[width:].data_ptr(), width, stream_of(upd))
-    return g
+
+def onehot_reduce(tiles: ColumnTiles, upd: torch.Tensor, chunk: int = LAB_CHUNK) -> torch.Tensor:
+    """g = (nblocks * LAB_BLOCK,) float32 column sums of ``upd`` (ntiles,
+    LAB_TILE) float32 over the tiles; the caller takes ``[:d]``. A block with
+    no tiles, and a column no entry names, is 0. CUDA tensors: two
+    launches on the current stream, a block per ``chunk`` consecutive
+    tiles that writes every column of g once (zeros included), then the
+    runs that cross chunks; no atomics, no clearing (or an exception). The
+    sums' order depends on the layout and ``chunk`` alone. CPU tensors:
+    ``onehot_reduce_reference``."""
+    key = (upd.dtype, upd.shape, upd.device, chunk, *_tiles_key(tiles))
+    plan = _reduce_plans.get(key) or _onehot_reduce_plan(key, tiles, upd, chunk)
+    if plan is launch.PLAIN:
+        return onehot_reduce_reference(tiles, upd)
+    cols_ptr, upd_ptr, tb_ptr = launch.pointers(
+        "onehot_reduce", ("cols", "upd", "tile_block"), tiles.cols, upd, tiles.tile_block)
+    chains = tiles.chains
+    if not chains.is_contiguous():
+        raise ValueError("onehot_reduce: chains must be contiguous int32")
+    device, ntiles, width, floats, nchains = plan
+    if ntiles == 0:
+        return torch.zeros(width, dtype=torch.float32, device=device)
+    buf = torch.empty(floats, dtype=torch.float32, device=device)
+    g_ptr = buf.data_ptr()
+    _ONEHOT_REDUCE.launch(device.index, cols_ptr, upd_ptr, tb_ptr, chains.data_ptr(), g_ptr,
+                          nchains, ntiles, g_ptr + 4 * width, width, chunk)
+    return buf[:width]

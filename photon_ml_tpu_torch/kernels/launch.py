@@ -1,0 +1,85 @@
+"""A lean launch path for the kernels' C entry points.
+
+A wrapper on this path checks a call in full once per key: the entry
+point, the dtypes, shapes and devices of its tensors and its other
+arguments. What the checks yield (the route, the launch's sizes) is kept
+in the wrapper's dict of plans under that key, the kernel's cost is
+recorded, and a CUDA route loads its library and sets its entry point's
+signature there. A later call with the same key does only what can differ
+between two calls of one key: the tensors' contiguity and 16-byte
+alignment (``pointers``), the output's allocation, the raw pointers, and
+``Entry.launch``: the current stream's raw handle, one ``ctypes`` call,
+its return code and the launch count. A call with a new key is checked in
+full, and refused where the checks refuse it; a refused call keeps no
+plan.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+
+from photon_ml_tpu_torch.kernels import build, dispatch
+from photon_ml_tpu_torch.kernels.ell import load_entry
+
+__all__ = ["PLAIN", "MAX_PLANS", "Entry", "keep", "pointers"]
+
+# the plan of a key whose tensors lie on the CPU: the plain version
+PLAIN = "plain"
+# plans kept per wrapper; more distinct keys than this start the dict anew
+MAX_PLANS = 1024
+
+
+def keep(plans: Dict[tuple, object], key: tuple, plan):
+    """Store ``plan`` under ``key`` and return it."""
+    if len(plans) >= MAX_PLANS:
+        plans.clear()
+    plans[key] = plan
+    return plan
+
+
+def pointers(kernel: str, names: Sequence[str], *tensors: torch.Tensor) -> list:
+    """The tensors' data pointers, after the checks a CUDA kernel needs on
+    every call: contiguous, and 16-byte aligned bases (the kernels load 4
+    entries at a time). ``names`` name the tensors in the errors."""
+    out = []
+    for name, t in zip(names, tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        ptr = t.data_ptr()
+        if ptr % 16:
+            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
+        out.append(ptr)
+    return out
+
+
+class Entry:
+    """One C entry point of a kernel library, whose last argument is the
+    stream. ``load`` builds the library at first use and sets the
+    signature, once per process; ``launch`` calls it."""
+
+    __slots__ = ("kernel", "library", "name", "argtypes", "_lib", "_fn")
+
+    def __init__(self, kernel: str, library: str, name: str, argtypes: Sequence):
+        self.kernel, self.library, self.name = kernel, library, name
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self._lib = self._fn = None
+
+    def load(self) -> None:
+        if self._fn is None:
+            self._lib, self._fn = load_entry(self.library, self.name, self.argtypes)
+
+    def launch(self, device: int, *args) -> None:
+        """Call the entry point with ``args`` and the raw handle of
+        ``device``'s current stream, with ``device`` the current device;
+        raise on a CUDA error, else count the launch."""
+        if torch._C._cuda_getDevice() == device:
+            code = self._fn(*args, torch._C._cuda_getCurrentRawStream(device))
+        else:
+            with torch.cuda.device(device):
+                code = self._fn(*args, torch._C._cuda_getCurrentRawStream(device))
+        if code:
+            build.check(self._lib, code, f"{self.kernel} launch")
+        dispatch.count_launch(self.kernel)

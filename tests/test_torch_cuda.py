@@ -853,23 +853,37 @@ def _lab_case(name):
         return _with_padding(torch.zeros((5000, 1), dtype=torch.int32),
                              torch.from_numpy(rng.standard_normal((5000, 1)).astype(np.float32)),
                              1)
+    if name == "leading_and_trailing_empty_blocks":  # blocks 4-5 of 20 only
+        idx = rng.integers(2048, 3072, size=(6000, 3)).astype(np.int32)
+        return _with_padding(torch.from_numpy(idx),
+                             torch.from_numpy(rng.standard_normal((6000, 3)).astype(np.float32)),
+                             10000)
     raise KeyError(name)
 
 
+# one-tile blocks (zipf_wide), blocks no tile names (empty_blocks, the
+# leading and trailing ones), d not a multiple of 512, tile counts that are
+# no multiple of the chunk, a column across several chunks (column 700
+# across about 40 tiles), tiles and a block of only padding
 LAB_CASES = ["zipf_d_not_multiple", "zipf_wide", "empty_blocks", "block_of_exactly_1024",
-             "one_column_many_tiles", "d_one", "tile_of_only_padding"]
+             "one_column_many_tiles", "d_one", "tile_of_only_padding",
+             "leading_and_trailing_empty_blocks", "block_of_only_padding"]
 
 
-def _padding_tile_after(tiles: ColumnTiles, t: int) -> ColumnTiles:
+def _padding_tile_after(tiles: ColumnTiles, t: int, block=None) -> ColumnTiles:
     """The same tiles with a tile of only misses after tile ``t``, in its
-    block (a valid layout: misses end a block)."""
+    block (a valid layout: misses end a block), or in ``block``, one that
+    no tile names between tile ``t``'s and the next tile's."""
     cat = lambda a, b: torch.cat([a[:t + 1], b, a[t + 1:]])  # noqa: E731
     cols = cat(tiles.cols, torch.full_like(tiles.cols[:1], LAB_BLOCK))
-    tb = cat(tiles.tile_block, tiles.tile_block[t:t + 1])
+    new_block = block is not None and block != int(tiles.tile_block[t])
+    tb = cat(tiles.tile_block, tiles.tile_block[t:t + 1] if block is None
+             else torch.full_like(tiles.tile_block[:1], block))
     return ColumnTiles(
         cols=cols, rows=cat(tiles.rows, torch.zeros_like(tiles.rows[:1])),
         vals=cat(tiles.vals, torch.zeros_like(tiles.vals[:1])), tile_block=tb,
-        first_of_block=cat(tiles.first_of_block, torch.zeros_like(tiles.first_of_block[:1])),
+        first_of_block=cat(tiles.first_of_block,
+                           torch.full_like(tiles.first_of_block[:1], int(new_block))),
         chains=tile_chains(cols, tb), d=tiles.d, nblocks=tiles.nblocks)
 
 
@@ -877,12 +891,17 @@ def _lab_tiles(name, device):
     """(tiles, w, upd) of a case on ``device``, the layout built there."""
     if name == "tile_of_only_padding":
         idx, val, d = _lab_case("zipf_d_not_multiple")
+    elif name == "block_of_only_padding":
+        idx, val, d = _lab_case("empty_blocks")
     else:
         idx, val, d = _lab_case(name)
     tiles = column_sorted_tiles(idx.to(device), val.to(device), d)
     if name == "tile_of_only_padding":
         last_of_block0 = int((tiles.tile_block == 0).sum()) - 1
         tiles = _padding_tile_after(tiles, last_of_block0)
+    if name == "block_of_only_padding":  # block 1 holds one tile of misses
+        last_of_block0 = int((tiles.tile_block == 0).sum()) - 1
+        tiles = _padding_tile_after(tiles, last_of_block0, block=1)
     g = torch.Generator(device=device).manual_seed(17)
     w = torch.randn(d, generator=g, device=device)
     a = torch.randn(idx.shape[0], generator=g, device=device)
@@ -938,12 +957,107 @@ def test_lab_kernels_on_empty_input_launch_nothing(cuda):
     assert e.shape == (0, 1024) and out.shape == (0, 128)
 
 
-@pytest.mark.parametrize("name", ["zipf_d_not_multiple", "one_column_many_tiles"])
+@pytest.mark.parametrize("name", LAB_CASES)
 def test_onehot_reduce_has_the_same_bits_over_three_calls(cuda, name):
     tiles, _, upd = _lab_tiles(name, cuda)
     first = onehot_reduce(tiles, upd)
     for _ in range(2):
         assert torch.equal(_bits(onehot_reduce(tiles, upd)), _bits(first))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5, 16, 64])
+@pytest.mark.parametrize("name", ["zipf_d_not_multiple", "one_column_many_tiles",
+                                  "block_of_only_padding"])
+def test_onehot_reduce_at_other_chunks(cuda, name, chunk):
+    """Any chunk of tiles per block (a tile count no multiple of it, a
+    column across several chunks): within 1e-6 of the plain version in
+    f64, 0 where no entry names a column, the same bits over 3 calls."""
+    tiles, _, upd = _lab_tiles(name, cuda)
+    got = onehot_reduce(tiles, upd, chunk=chunk)
+    ref = onehot_reduce_reference(tiles, upd.double())
+    scale = onehot_reduce_reference(tiles, upd.abs().double())
+    assert _within(got, ref, scale, 1e-6)
+    assert not got[scale == 0].any()
+    for _ in range(2):
+        assert torch.equal(_bits(onehot_reduce(tiles, upd, chunk=chunk)), _bits(got))
+    if name == "one_column_many_tiles" and chunk < 16:
+        (first, last), = tiles.chains[tiles.chains[:, 0] == 700, 1:].tolist()
+        assert last // chunk - first // chunk >= 2
+
+
+@pytest.mark.parametrize("name", ["zipf_d_not_multiple", "leading_and_trailing_empty_blocks",
+                                  "block_of_only_padding"])
+def test_onehot_reduce_writes_zeros_into_recycled_memory(cuda, name):
+    """The reduce clears nothing: its output's buffer, freed, filled with
+    NaN in a tensor of its size and freed again, is handed to the next
+    call, and every column no entry names reads exactly 0.0."""
+    tiles, _, upd = _lab_tiles(name, cuda)
+    width = tiles.nblocks * LAB_BLOCK
+    named = torch.bincount(tiles.global_cols().reshape(-1), minlength=width + 1)[:width] > 0
+    g = onehot_reduce(tiles, upd)
+    floats = g.untyped_storage().nbytes() // 4
+    del g
+    nan = torch.full((floats,), float("nan"), device=cuda)
+    nan_ptr = nan.data_ptr()
+    del nan
+    g = onehot_reduce(tiles, upd)
+    torch.cuda.synchronize()
+    assert g.data_ptr() == nan_ptr
+    assert (~named).any() and bool((g[~named] == 0).all()) and not g.isnan().any()
+    ref = onehot_reduce_reference(tiles, upd.double())
+    assert _within(g, ref, onehot_reduce_reference(tiles, upd.abs().double()), 1e-6)
+
+
+def test_lane_gather_launches_on_the_current_stream(cuda):
+    """Inside ``torch.cuda.stream(s)``, after the card sleeps and ``tbl`` is
+    written in place on ``s``, the gather sees the write: it ran on ``s``."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tbl = torch.randn((8192, 128), generator=g, device=cuda)
+    idx = torch.randint(-128, 128, (8192, 128), generator=g, device=cuda, dtype=torch.int32)
+    lane_gather(tbl, idx)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)
+        tbl.mul_(-3.0)
+        got = lane_gather(tbl, idx)
+    torch.cuda.current_stream().wait_stream(s)
+    assert torch.equal(_bits(got), _bits(lane_gather_reference(tbl, idx)))
+
+
+def test_lab_wrappers_refuse_after_a_good_call_of_the_same_shape(cuda):
+    """The per-key plans skip no per-call check: a wrong dtype, a
+    non-contiguous or misaligned tensor of the shape a good call had, or a
+    tensor on another device, still raises."""
+    tbl = torch.randn((128, 128), device=cuda)
+    idx = torch.zeros((128, 128), dtype=torch.int32, device=cuda)
+    lane_gather(tbl, idx)
+    with pytest.raises(TypeError, match="int32"):
+        lane_gather(tbl, idx.long())
+    with pytest.raises(TypeError, match="float32"):
+        lane_gather(tbl.double(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_gather(tbl.t(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_gather(tbl, idx.t())
+    flat = torch.empty(128 * 128 + 1, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        lane_gather(flat[1:].view(128, 128), idx)
+    with pytest.raises(ValueError, match="more than one device"):
+        lane_gather(tbl, idx.cpu())
+    tiles, w, upd = _lab_tiles("zipf_d_not_multiple", cuda)
+    onehot_reduce(tiles, upd)
+    onehot_gather(tiles, w)
+    with pytest.raises(TypeError, match="float32"):
+        onehot_reduce(tiles, upd.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        onehot_reduce(tiles, upd.t().contiguous().t())
+    with pytest.raises(ValueError, match="more than one device"):
+        onehot_reduce(tiles, upd.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        onehot_gather(tiles, w.double())
+    with pytest.raises(ValueError, match="16-byte"):
+        onehot_gather(tiles, torch.empty(tiles.d + 1, device=cuda)[1:])
 
 
 @pytest.mark.parametrize("name", ["zipf_wide", "empty_blocks", "d_one"])

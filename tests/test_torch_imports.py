@@ -50,7 +50,8 @@ def test_scan_covers_the_port():
                 ("ops", "objective.py"), ("ops", "stats.py"), ("solvers", "tron.py"),
                 ("solvers", "lbfgs.py"), ("solvers", "linesearch.py"),
                 ("models", "training.py"), ("core", "normalization.py"),
-                ("kernels", "lab.py"), ("benchmarks", "sparse_kernel_lab.py"),
+                ("kernels", "lab.py"), ("kernels", "launch.py"),
+                ("benchmarks", "sparse_kernel_lab.py"),
                 ("game", "data.py"), ("game", "factored.py"), ("game", "scoring.py"),
                 ("serving", "engine.py"), ("game", "coordinates.py"),
                 ("game", "descent.py"), ("solvers", "batched.py"),

@@ -18,7 +18,10 @@ CPU tensors) are held to those records:
 """
 
 import contextlib
+import dataclasses
 import io
+import os
+import subprocess
 import sys
 
 import jax
@@ -31,8 +34,11 @@ import benchmarks.sparse_kernel_lab as jax_lab
 from photon_ml_tpu_torch.benchmarks import sparse_kernel_lab as lab
 from photon_ml_tpu_torch.interop import lab_tiles_from_numpy
 from photon_ml_tpu_torch.kernels import dispatch
+from photon_ml_tpu_torch.kernels import launch
+from photon_ml_tpu_torch.kernels import lab as kernels_lab
 from photon_ml_tpu_torch.kernels.lab import (
     LAB_BLOCK,
+    LAB_CHUNK,
     ColumnTiles,
     column_sorted_tiles,
     lane_gather,
@@ -284,36 +290,78 @@ def _design(case):
 DESIGNS = ["empty_block", "one_column_many_tiles", "whole_tiles", "d_one"]
 
 
-def _emulate_reduce(tiles: ColumnTiles, upd: np.ndarray) -> np.ndarray:
-    """The CUDA kernel's decomposition, in numpy: per tile, each run of a
-    column is summed; a run inside the tile goes to g, the first run to
-    the tile's left partial when the previous tile continues it, the last
-    to its right partial when the next tile does; then each chain adds its
-    first tile's right partial and the later tiles' left partials."""
+def _emulate_reduce(tiles: ColumnTiles, upd: np.ndarray, chunk: int = LAB_CHUNK) -> np.ndarray:
+    """The CUDA kernel's decomposition, in numpy, in chunks of ``chunk``
+    tiles walked in order: each run of a column in a tile is summed; a
+    run the next tile of the chunk continues is carried, and the next
+    tile adds its part; a run that began and ends in the chunk goes to g,
+    the chunk's first run to its left partial when the previous chunk
+    continues it, its last run to its right partial when the next chunk
+    does; each tile writes 0 to the columns no entry names in its range
+    (from where the previous tile's range ended to the next tile's first
+    column, block or ``width``). Then each chain that crosses a chunk
+    edge adds its first chunk's right partial and the later chunks' left
+    partials. Asserts that every column of g is written exactly once."""
     cols = tiles.cols.numpy()
     tb = tiles.tile_block.numpy()
-    ntiles, tile = cols.shape
-    g = np.zeros(tiles.nblocks * LAB_BLOCK)
-    edge = np.full((ntiles, 2), np.nan)
-    for t in range(ntiles):
-        first, last = cols[t, 0], cols[t, -1]
-        left = first != LAB_BLOCK and t > 0 and tb[t - 1] == tb[t] and cols[t - 1, -1] == first
-        right = (last != LAB_BLOCK and t + 1 < ntiles and tb[t + 1] == tb[t]
-                 and cols[t + 1, 0] == last)
-        for c in np.unique(cols[t]):
-            if c == LAB_BLOCK:
-                continue
-            s = upd[t][cols[t] == c].astype(np.float64).sum()
-            if left and c == first:
-                edge[t, 0] = s
-            elif right and c == last:
-                edge[t, 1] = s
+    ntiles = cols.shape[0]
+    width = tiles.nblocks * LAB_BLOCK
+    g = np.full(width, np.nan)
+    writes = np.zeros(width, np.int64)
+
+    def put(lo, hi, value):
+        g[lo:hi] = value
+        writes[lo:hi] += 1
+
+    nchunks = -(-ntiles // chunk)
+    edge = np.full((nchunks, 2), np.nan)
+    for c in range(nchunks):
+        t0, t1 = c * chunk, min((c + 1) * chunk, ntiles)
+        carry, carry_open = np.nan, False
+        for t in range(t0, t1):
+            row, col0 = cols[t], tb[t] * LAB_BLOCK
+            first, last = row[0], row[-1]
+            prev_same = t > 0 and tb[t - 1] == tb[t]
+            next_same = t + 1 < ntiles and tb[t + 1] == tb[t]
+            next_first = cols[t + 1, 0] if next_same else LAB_BLOCK
+            cont_in = first != LAB_BLOCK and prev_same and cols[t - 1, -1] == first
+            cont_out = last != LAB_BLOCK and next_first == last
+            lo = 0 if t == 0 else col0 if not prev_same else col0 + first
+            hi = (width if t + 1 == ntiles else tb[t + 1] * LAB_BLOCK if not next_same
+                  else col0 + next_first)
+            named = [x for x in np.unique(row) if x != LAB_BLOCK]
+            for i, x in enumerate(named):
+                s = upd[t][row == x].astype(np.float64).sum()
+                is_open = False
+                if cont_in and x == first:
+                    if t == t0:
+                        is_open = True
+                    else:
+                        s, is_open = carry + s, carry_open
+                if cont_out and x == last:
+                    if t + 1 < t1:
+                        carry, carry_open = s, is_open
+                    else:
+                        edge[c, 0 if is_open else 1] = s
+                elif is_open:
+                    edge[c, 0] = s
+                else:
+                    put(col0 + x, col0 + x + 1, s)
+                if i + 1 < len(named):
+                    put(col0 + x + 1, col0 + named[i + 1], 0.0)
+            if named:
+                put(lo, col0 + named[0], 0.0)
+                put(col0 + named[-1] + 1, hi, 0.0)
             else:
-                g[tb[t] * LAB_BLOCK + c] = s
+                put(lo, hi, 0.0)
     for col, first, last in tiles.chains.numpy():
-        parts = [edge[first, 1]] + [edge[t, 0] for t in range(first + 1, last + 1)]
+        cf, cl = first // chunk, last // chunk
+        if cf == cl:
+            continue
+        parts = [edge[cf, 1]] + [edge[k, 0] for k in range(cf + 1, cl + 1)]
         assert not np.isnan(parts).any()
-        g[col] = np.sum(parts)
+        put(col, col + 1, np.sum(parts))
+    assert (writes == 1).all(), np.flatnonzero(writes != 1)[:10]
     return g
 
 
@@ -345,7 +393,9 @@ def test_reduce_decomposition_gives_the_column_sums(case):
     upd = lab.row_gather(tiles, a)
     ref64 = onehot_reduce_reference(tiles, upd.double()).numpy()
     scale = onehot_reduce_reference(tiles, upd.abs().double()).numpy()
-    assert np.all(np.abs(_emulate_reduce(tiles, upd.numpy()) - ref64) <= 1e-12 * scale)
+    for chunk in (1, 3, LAB_CHUNK):
+        assert np.all(np.abs(_emulate_reduce(tiles, upd.numpy(), chunk) - ref64)
+                      <= 1e-12 * scale)
     got = onehot_reduce(tiles, upd)
     assert torch.all((got.double() - torch.from_numpy(ref64)).abs()
                      <= 1e-6 * torch.from_numpy(scale))
@@ -429,3 +479,142 @@ def test_design_of_only_padding_has_no_tiles_and_zero_sums():
     g = onehot_reduce(tiles, tiles.vals)
     assert g.shape == (2 * LAB_BLOCK,) and not g.any()
     assert onehot_gather(tiles, torch.ones(700)).shape == (0, 1024)
+
+
+# -- the chunked reduce on more layouts, and the launch path's plans --------
+
+
+def _with_padding_tile(tiles: ColumnTiles, t: int, block: int) -> ColumnTiles:
+    """The same tiles with a tile of only misses after tile ``t``, its block
+    ``block``: a valid layout when ``block`` is tile ``t``'s (misses end a
+    block) or a block between ``t``'s and the next tile's (a block of only
+    padding)."""
+    cat = lambda a, b: torch.cat([a[:t + 1], b, a[t + 1:]])  # noqa: E731
+    cols = cat(tiles.cols, torch.full_like(tiles.cols[:1], LAB_BLOCK))
+    tb = cat(tiles.tile_block, torch.full_like(tiles.tile_block[:1], block))
+    first = cat(tiles.first_of_block,
+                torch.full_like(tiles.first_of_block[:1], int(block != tiles.tile_block[t])))
+    return ColumnTiles(
+        cols=cols, rows=cat(tiles.rows, torch.zeros_like(tiles.rows[:1])),
+        vals=cat(tiles.vals, torch.zeros_like(tiles.vals[:1])), tile_block=tb,
+        first_of_block=first, chains=tile_chains(cols, tb), d=tiles.d, nblocks=tiles.nblocks)
+
+
+def _layout(case) -> ColumnTiles:
+    if case == "zipf":  # 24 tiles, the head column across three
+        return _tiles(SHAPES[1])
+    if case == "leading_and_trailing_empty_blocks":  # blocks 2 and 3 of 10
+        rng = np.random.default_rng(3)
+        idx = rng.integers(1024, 2048, size=(900, 4)).astype(np.int32)
+        return column_sorted_tiles(torch.from_numpy(idx),
+                                   torch.from_numpy(rng.standard_normal((900, 4), np.float32)),
+                                   5000)
+    idx, vals, d = _design("empty_block")
+    tiles = column_sorted_tiles(torch.from_numpy(idx), torch.from_numpy(vals), d)
+    last0 = int((tiles.tile_block == 0).sum()) - 1
+    if case == "tile_of_only_padding":
+        return _with_padding_tile(tiles, last0, 0)
+    if case == "block_of_only_padding":  # block 1 holds one tile of misses
+        return _with_padding_tile(tiles, last0, 1)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5, LAB_CHUNK, 16])
+@pytest.mark.parametrize("case", ["zipf", "leading_and_trailing_empty_blocks",
+                                  "tile_of_only_padding", "block_of_only_padding"])
+def test_chunked_reduce_writes_every_column_once(case, chunk):
+    """The chunked decomposition sums to g and writes each column once,
+    zeros included, whatever the chunk (a tile count that is no multiple
+    of it, runs across several chunks, blocks no tile names, tiles and
+    blocks of only padding); on CPU tensors the wrapper is the plain
+    version at any chunk."""
+    tiles = _layout(case)
+    rng = np.random.default_rng(chunk)
+    upd = tiles.vals * torch.from_numpy(rng.standard_normal(tiles.cols.shape, np.float32))
+    ref64 = onehot_reduce_reference(tiles, upd.double()).numpy()
+    scale = onehot_reduce_reference(tiles, upd.abs().double()).numpy()
+    got = _emulate_reduce(tiles, upd.numpy(), chunk)
+    assert np.all(np.abs(got - ref64) <= 1e-12 * scale)
+    assert not got[scale == 0].any()
+    assert torch.equal(onehot_reduce(tiles, upd, chunk=chunk), onehot_reduce_reference(tiles, upd))
+    if case == "zipf":
+        assert tiles.ntiles % chunk if chunk in (5, 16) else True
+        assert int((tiles.chains[:, 2] - tiles.chains[:, 1]).max()) >= 2
+
+
+def test_lab_plans_refuse_what_was_refused_after_a_good_call():
+    """A call whose dtype, shape or device differs from a good call's is
+    checked in full and refused as before: the per-key plans let nothing
+    through."""
+    tbl, idx = torch.ones((4, 128)), torch.zeros((4, 128), dtype=torch.int32)
+    lane_gather(tbl, idx)
+    with pytest.raises(TypeError, match="int32"):
+        lane_gather(tbl, idx.long())
+    with pytest.raises(TypeError, match="float32"):
+        lane_gather(tbl.double(), idx)
+    with pytest.raises(ValueError, match="128"):
+        lane_gather(tbl[:, :64], idx[:, :64])
+    with pytest.raises(ValueError, match="more than one device"):
+        lane_gather(tbl, idx.to("meta"))
+    with pytest.raises(ValueError, match="no route"):
+        lane_gather(tbl.to("meta"), idx.to("meta"))
+    tiles = _tiles(SHAPES[0])
+    w, upd = torch.ones(tiles.d), tiles.vals
+    onehot_gather(tiles, w)
+    onehot_reduce(tiles, upd)
+    with pytest.raises(TypeError, match="float32"):
+        onehot_gather(tiles, w.double())
+    with pytest.raises(ValueError, match=r"\(1500,\)"):
+        onehot_gather(tiles, w[:-1])
+    with pytest.raises(ValueError, match="more than one device"):
+        onehot_gather(tiles, w.to("meta"))
+    with pytest.raises(TypeError, match="float32"):
+        onehot_reduce(tiles, upd.double())
+    with pytest.raises(ValueError, match="upd"):
+        onehot_reduce(tiles, upd[:-1])
+    with pytest.raises(ValueError, match="more than one device"):
+        onehot_reduce(tiles, upd.to("meta"))
+    with pytest.raises(TypeError, match="int32"):
+        onehot_reduce(dataclasses.replace(tiles, cols=tiles.cols.long()), upd)
+    for chunk in (0, kernels_lab.MAX_CHUNK + 1, 2.0):
+        with pytest.raises(ValueError, match="chunk"):
+            onehot_reduce(tiles, upd, chunk=chunk)
+
+
+def test_lab_plans_check_a_key_once(monkeypatch):
+    """The full checks and the cost record run once per key, and again
+    for a new key; past ``MAX_PLANS`` keys the dict starts anew."""
+    recorded = []
+    monkeypatch.setattr(dispatch, "record_kernel_cost", lambda *a, **kw: recorded.append(a[0]))
+    monkeypatch.setattr(kernels_lab, "_lane_plans", {})
+    monkeypatch.setattr(launch, "MAX_PLANS", 2)
+    idx = torch.zeros((4, 128), dtype=torch.int32)
+    for _ in range(3):
+        lane_gather(torch.ones((4, 128)), idx)
+    assert recorded == ["lane_gather"]
+    assert list(kernels_lab._lane_plans.values()) == [launch.PLAIN]
+    lane_gather(torch.ones((5, 128)), torch.zeros((5, 128), dtype=torch.int32))
+    lane_gather(torch.ones((6, 128)), torch.zeros((6, 128), dtype=torch.int32))
+    assert recorded == ["lane_gather"] * 3
+    assert len(kernels_lab._lane_plans) == 1
+
+
+def test_importing_the_lab_and_its_cpu_calls_build_and_load_nothing():
+    """No library is built or loaded, and no entry point resolved, by the
+    import or by calls on CPU tensors."""
+    code = (
+        "import torch\n"
+        "from photon_ml_tpu_torch.kernels import build, ell\n"
+        "from photon_ml_tpu_torch.kernels import lab\n"
+        "assert not build._loaded and not ell._entries\n"
+        "build.build = build.load = None\n"
+        "lab.lane_gather(torch.ones((4, 128)), torch.zeros((4, 128), dtype=torch.int32))\n"
+        "t = lab.column_sorted_tiles(torch.zeros((9, 2), dtype=torch.int32), torch.ones((9, 2)), 5)\n"
+        "lab.onehot_gather(t, torch.ones(5))\n"
+        "lab.onehot_reduce(t, t.vals)\n"
+        "assert not build._loaded and not ell._entries\n"
+        "assert all(e._fn is None for e in (lab._LANE_GATHER, lab._ONEHOT_GATHER, "
+        "lab._ONEHOT_REDUCE))\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=300)
