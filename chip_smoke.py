@@ -16,8 +16,10 @@ whenever any phase fails. Phases, in order:
    matrix (a yardstick the port never calls), against the HBM bound;
 4. kernel: the training kernels against their plain versions at the same
    shape — ``ell_scatter_add`` (f64, f32 updates; yardstick
-   ``index_add_``), ``fused_vgc`` (logistic loss), ``fused_hvp`` (beside
-   it a composite of library calls: ``torch.mv`` on CSR, elementwise,
+   ``index_add_``), ``fused_vgc`` (logistic loss; beside it a composite of
+   library calls: ``torch.mv`` on CSR for z, the elementwise loss terms,
+   ``torch.mv`` on the transposed CSR for X^T a), ``fused_hvp`` (beside
+   it a composite: ``torch.mv`` on CSR, elementwise,
    ``torch.mv`` on the transposed CSR) and ``fused_hdiag`` (logistic loss;
    beside it a composite: ``torch.mv`` on CSR, the curvature, ``torch.mv``
    on the transposed CSR of the squares and of the values, a sum) in the
@@ -94,6 +96,31 @@ whenever any phase fails. Phases, in order:
    scores the engine's; ``stats``, ``metrics`` and ``health`` answered).
    The engine featurizes densely, as the JAX engine does: 8.55 MB a row,
    so call counts are cut and widths never;
+5g. the quality loop (run after phase 7, on phase 6's files):
+   ``python -m photon_ml_tpu_torch.cli.build_index`` on phase 6's training
+   Avro, in the GLM layout and as a GAME shard with ``--name-prefix``, each
+   file byte for byte ``FeatureVocabulary.from_records`` over the same
+   file, the native scan's keys equal and its codec native; the GLM driver
+   on that index with the quality fingerprint (the default), counters set
+   to 0 just before and read just after (``ell_matvec``: two per lambda
+   and the fingerprint's one), its fingerprint's rows, label and feature
+   sketches equal to the same ingest on the CPU and its margin sketch's
+   moments within 1e-9 of the same model's margins there; the GAME driver
+   at phase 5c's layout on 2^13 + 2^11 records with the global shard
+   without a feature file (the from-records vocabulary, the records' own
+   keys), counted as 5c's plus the fingerprint's pass, a fingerprint in
+   every export subdir; that export through ``ScoringEngine.from_model_dir``
+   (its drift monitor set from the fingerprint): the training records in
+   calls of 64, every drift check under the 0.25 PSI alarm (features and
+   scores), their served scores' moments within 1e-9 of the
+   fingerprint's margins, then the held-out records (their drift
+   reported), no build and no new CUDA segment after warmup, all their
+   labels fed back into the online-quality window (its AUC within 1e-12
+   of the exact AUC), then
+   4,096 of them with one integer field planted 4x through the
+   micro-batcher from 8 closed-loop clients, which must raise the alarm;
+   and ``cli.serve`` over a pipe answering ``feedback``, ``quality`` and
+   ``drift``;
 5c. GAME train: the port's GAME training driver (``run_game_training``)
    in the configuration of ``examples/game_train.json`` at the Criteo
    layout's width — ``global``, a fixed effect on the 13 + 26 hashed
@@ -213,7 +240,7 @@ import torch
 from photon_ml_tpu_torch.cli import game_train as game_train_mod
 from photon_ml_tpu_torch.cli.game_train import build_coordinates, run_game_training
 from photon_ml_tpu_torch.cli.score import run_scoring
-from photon_ml_tpu_torch.cli.train import run_glm_training
+from photon_ml_tpu_torch.cli.train import run_glm_training, write_model_text
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
 from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
@@ -263,9 +290,11 @@ from photon_ml_tpu_torch.models.training import GLMTrainingConfig, OptimizerType
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
 from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
-from photon_ml_tpu_torch.ops.sparse import from_coo
+from photon_ml_tpu_torch.ops.sparse import from_coo, matvec
 from photon_ml_tpu_torch.resilience import GracefulShutdown, read_preempted_marker
 from photon_ml_tpu_torch import obs
+from photon_ml_tpu_torch.obs import quality as quality_mod
+from photon_ml_tpu_torch.obs.sketches import MomentSketch
 from photon_ml_tpu_torch.io.models import write_model_manifest
 from photon_ml_tpu_torch.serving import (
     MicroBatcher,
@@ -723,6 +752,8 @@ def csr_t_of(idx: torch.Tensor, vals: torch.Tensor, d: int) -> torch.Tensor:
 
 # the fused passes' yardsticks: no single PyTorch call computes a pass, so
 # a composite of library calls the port never uses (bf16 values upcast once)
+VGC_COMPOSITE = ("z = torch.mv(X_csr, w) + off; l, l', l'' elementwise; sum(ew * l), "
+                 "torch.mv(XT_csr, ew * l'), sum(ew * l'), ew * l''")
 HVP_COMPOSITE = "torch.mv(XT_csr, c * (torch.mv(X_csr, v) + shift)), three calls"
 HDIAG_COMPOSITE = ("c = ew * l''(torch.mv(X_csr, w) + off); torch.mv(X2T_csr, c), "
                    "torch.mv(XT_csr, c), c.sum()")
@@ -737,8 +768,8 @@ def same_bits(fn, outputs, calls: int = 3) -> bool:
 
 
 def fused_checks(idx, vals64, d, peaks, label, cases=None):
-    """Check and time fused_vgc, fused_hvp and fused_hdiag (the last two
-    with a composite beside) on one design in each of ``cases`` (default
+    """Check and time fused_vgc, fused_hvp and fused_hdiag (each with a
+    composite of library calls beside) on one design in each of ``cases`` (default
     every dtype pair) against their plain versions; the scalars (val,
     asum; usum; csum) and the (d,) outputs (grad; hv; dx2, dx) are held to
     the same bits over 3 calls. One record per (kernel, dtype)."""
@@ -769,11 +800,23 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
         if not same_bits(vgc, (0, 1, 2)):
             raise AssertionError(f"fused_vgc {dtype_label} ({label}): val, grad or asum "
                                  f"changed bits from call to call")
+        # the composites' two CSR tensors are built outside the timed region
+        x_csr, xt_csr = csr_of(idx, vals.to(cd), d), csr_t_of(idx, vals.to(cd), d)
+
+        def vgc_composite():
+            z = torch.mv(x_csr, w) + off
+            a = ew * LOGISTIC_LOSS.d1(z, y)
+            return ((ew * LOGISTIC_LOSS.value(z, y)).sum(), torch.mv(xt_csr, a), a.sum(),
+                    ew * LOGISTIC_LOSS.d2(z, y))
+
+        composite_diff = max(float((a.double() - b.double()).abs().max())
+                             for a, b in zip(vgc_composite(), vgc()))
         record("fused_vgc", dtype_label, cd, max_err, vgc,
                lambda: fused_value_grad_curvature_reference(
                    idx, vals, y, off, ew, w, d, LOGISTIC_LOSS),
                n * k * (4 + s) + 2 * d * sc + 4 * n * sc,
-               4 * valid + LOSS_OPS_PER_ROW * n)
+               4 * valid + LOSS_OPS_PER_ROW * n, composite=(VGC_COMPOSITE, vgc_composite))
+        results[-1]["composite_max_abs_diff"] = composite_diff
         c = vgc()[3]
         shift = torch.tensor(0.05, dtype=cd, device=idx.device)
         max_err, ok, share, share64 = check_hvp(idx, vals, c, w, shift, d, rtol)
@@ -788,8 +831,6 @@ def fused_checks(idx, vals64, d, peaks, label, cases=None):
         if not same_bits(hvp, (0, 1)):
             raise AssertionError(f"fused_hvp {dtype_label} ({label}): hv or usum changed "
                                  f"bits from call to call")
-        # the composite's two CSR tensors are built outside the timed region
-        x_csr, xt_csr = csr_of(idx, vals.to(cd), d), csr_t_of(idx, vals.to(cd), d)
         composite = lambda: torch.mv(xt_csr, c * (torch.mv(x_csr, w) + shift))
         composite_diff = float((composite().double() - hvp()[0].double()).abs().max())
         record("fused_hvp", dtype_label, cd, max_err, hvp,
@@ -2023,18 +2064,19 @@ def scaled_game_model(src: str, dst: str, factor: float) -> None:
     write_model_manifest(dst)
 
 
-def serving_cli(model_dir: str, requests, want, device=None) -> dict:
+def serve_pipe(model_dir: str, device, exchange, *flags):
     """``python -m photon_ml_tpu_torch.cli.serve`` over a pipe, as an
-    interactive client: each request line's answer is read before the
-    next line is sent; then ``stats``, ``metrics`` and ``health``. The
-    scores must equal ``want`` and the commands must count the requests."""
+    interactive client: ``exchange(ask)`` sends lines through ``ask(obj,
+    timeout=60)``, each answer read before the next line is sent (the
+    first waits for the model's load and the ladder). Returns (what
+    ``exchange`` returned, the exit code, its stderr); the process is
+    stopped whatever happens."""
     import queue as queue_mod
     import threading
 
-    t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve", "--model-dir", model_dir,
-         "--dtype", "float64", *(["--device", device] if device else [])],
+         "--dtype", "float64", *flags, *(["--device", device] if device else [])],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
     )
@@ -2044,19 +2086,16 @@ def serving_cli(model_dir: str, requests, want, device=None) -> dict:
     err_reader = threading.Thread(target=lambda: err.append(proc.stderr.read()), daemon=True)
     reader.start()
     err_reader.start()
+    first = [True]
 
-    def ask(obj, timeout):
+    def ask(obj, timeout=60):
         proc.stdin.write(json.dumps(obj) + "\n")
         proc.stdin.flush()
-        return json.loads(lines.get(timeout=timeout))
+        wait, first[0] = (600 if first[0] else timeout), False
+        return json.loads(lines.get(timeout=wait))
 
     try:
-        # the first answer waits for the model's load and the ladder
-        scores = [ask({"features": r.features, "entities": r.entities, "offset": r.offset},
-                      600 if i == 0 else 60).get("score", np.nan)
-                  for i, r in enumerate(requests)]
-        stats_r, metrics_r, health_r = (ask({"cmd": c}, 60) for c in ("stats", "metrics",
-                                                                       "health"))
+        out = exchange(ask)
         proc.stdin.close()
         code = proc.wait(timeout=120)
     finally:
@@ -2064,6 +2103,22 @@ def serving_cli(model_dir: str, requests, want, device=None) -> dict:
             proc.kill()
             proc.wait()
     err_reader.join(10)
+    return out, code, "".join(err)
+
+
+def request_line(r: ScoreRequest) -> dict:
+    return {"features": r.features, "entities": r.entities, "offset": r.offset}
+
+
+def serving_cli(model_dir: str, requests, want, device=None) -> dict:
+    """``cli.serve`` over a pipe (``serve_pipe``): the requests, then
+    ``stats``, ``metrics`` and ``health``. The scores must equal ``want``
+    and the commands must count the requests."""
+    t0 = time.perf_counter()
+    (scores, stats_r, metrics_r, health_r), code, err = serve_pipe(
+        model_dir, device, lambda ask: (
+            [ask(request_line(r)).get("score", np.nan) for r in requests],
+            *(ask({"cmd": c}) for c in ("stats", "metrics", "health"))))
     n = len(requests)
     summary = {"seconds": time.perf_counter() - t0, "exit": code,
                "max_err_vs_engine": serving_gaps(scores, want),
@@ -2075,8 +2130,7 @@ def serving_cli(model_dir: str, requests, want, device=None) -> dict:
     if (code != 0 or summary["max_err_vs_engine"] > SERVE_RTOL or stats_r.get("requests") != n
             or f"photon_serving_requests {n}" not in metrics_r.get("prometheus", "")
             or health_r.get("version") != os.path.basename(model_dir)):
-        raise AssertionError(f"cli.serve over a pipe: {json.dumps(summary)}; "
-                             f"{''.join(err)[-4000:]}")
+        raise AssertionError(f"cli.serve over a pipe: {json.dumps(summary)}; {err[-4000:]}")
     return summary
 
 
@@ -2598,14 +2652,16 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
 
     # the trainer's own counts: a TRON evaluation per iteration plus the
     # first, a CG step per fused_hvp; ell_matvec for each combo's initial
-    # score, each fixed-effect rescore and each validation
+    # score, each fixed-effect rescore and each validation, and the quality
+    # fingerprint's margin pass over the training rows
     history = [h for s in run.sweep for h in s["history"]]
     fixed = _fixed_records(history)
     expected = with_reduce({
         "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
         "fused_hvp": sum(h.cg_iterations for h in fixed),
         "ell_matvec": (len(run.sweep) + len(fixed)
-                       + sum(h.validation_metric is not None for h in history)),
+                       + sum(h.validation_metric is not None for h in history)
+                       + fingerprint_launches(run)),
     })
     want = {k: (expected.get(k, 0) if on_card else 0) for k in launches}
     failures = []
@@ -2936,7 +2992,8 @@ def game_projected_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
     expected = with_reduce({
         "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
         "fused_hvp": sum(h.cg_iterations for h in fixed),
-        "ell_matvec": len(run.sweep) + len(fixed) + len(history),
+        # + the quality fingerprint's margin pass
+        "ell_matvec": len(run.sweep) + len(fixed) + len(history) + fingerprint_launches(run),
     })
     want = {k: (expected.get(k, 0) if on_card else 0) for k in launches}
     if launches != want:
@@ -3108,6 +3165,8 @@ def game_projected_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
         "round_trips": round_trip,
         "setup_s": setup_s,
         "phase_s": time.perf_counter() - phase_t0,
+        # the written inputs, which phase 5e reads again
+        "inputs": {"vocab_paths": list(vocab_paths), "train": train, "heldout": heldout},
     }
     log(f"[game-proj] {json.dumps(summary)}")
     if failures:
@@ -3175,18 +3234,24 @@ def bit_gaps(run, other) -> list:
 def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
                            n_heldout: int = GAME_PROJ_HELDOUT, d_hashed: int = D_HASHED,
                            n_users: int = GAME_TRAIN_USERS, user_cols: int = GAME_USER_COLS,
-                           n_ads: int = GAME_PROJ_ADS, **device_kw):
+                           n_ads: int = GAME_PROJ_ADS, inputs=None, **device_kw):
     """Phase 5e: two uninterrupted runs of phase 5d's driver at the
     settings users run (``GAME_DET_COORDINATES``) equal bit for bit, and a
     run preempted by SIGTERM after its first pass and resumed equal to
     them bit for bit: every update's objective, every table in memory and
     saved, the MF files. No CPU reference. (The GLM half of the gate, two
-    training runs with the same w bits, runs in phase 6 on its design.)"""
+    training runs with the same w bits, runs in phase 6 on its design.)
+    ``inputs`` is phase 5d's summary's ``"inputs"`` (its records, read
+    again); without it the records are written anew."""
     phase_t0 = t0 = time.perf_counter()
-    vocab_paths, (train, heldout), _ = write_game_training_inputs(
-        work, n, n_heldout, d_hashed, n_users, user_cols=user_cols, n_ads=n_ads)
-    log(f"[game-det] wrote {n} training and {n_heldout} held-out records in "
-        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    if inputs is not None:
+        vocab_paths, train, heldout = inputs["vocab_paths"], inputs["train"], inputs["heldout"]
+        log("[game-det] reads phase 5d's records")
+    else:
+        vocab_paths, (train, heldout), _ = write_game_training_inputs(
+            work, n, n_heldout, d_hashed, n_users, user_cols=user_cols, n_ads=n_ads)
+        log(f"[game-det] wrote {n} training and {n_heldout} held-out records in "
+            f"{time.perf_counter() - t0:.1f} s (set-up)")
 
     def params(out):
         return {**game_projected_params(work, train, heldout, vocab_paths, out),
@@ -3365,7 +3430,10 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
 
     iters = [tm.result.iterations for tm in run.models]
     cg = [tm.result.cg_iterations for tm in run.models]
-    expected = {"fused_vgc": sum(i + 1 for i in iters), "fused_hvp": sum(cg)}
+    expected = {"fused_vgc": sum(i + 1 for i in iters), "fused_hvp": sum(cg),
+                # each lambda's validation metrics and its selection, then the
+                # quality fingerprint's margin pass
+                "ell_matvec": 2 * len(run.models) + fingerprint_launches(run)}
     # the feature summary's five column sums go through the reduce too
     expected["colsort_reduce"] = with_reduce({**expected, "ell_colsum": launches["ell_colsum"],
                                               "ell_rmatvec": launches["ell_rmatvec"]}
@@ -3376,7 +3444,7 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         for kernel, count in expected.items():
             if launches[kernel] != count:
                 failures.append(f"{kernel}: {launches[kernel]} launches, the solves need {count}")
-        if launches["ell_colsum"] < 5 or launches["ell_matvec"] < 1:
+        if launches["ell_colsum"] < 5:
             failures.append(f"the training run missed a kernel: {launches}")
 
     # the same batch on the CPU through train_glm: coefficients and
@@ -3478,6 +3546,415 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     reference = {"params": params, "vocab": vocab, "sets": sets, "batch_cpu": batch_cpu,
                  "heldout_cpu": heldout_cpu, "tron_models": cpu_models}
     return summary, shape_checks, reference
+
+
+# -- phase 5g: index -> train -> serve, with the quality loop ---------------
+
+# the GAME half's depth: 5c's layout and users' Zipf(1.1), fewer records
+QUALITY_GAME_RECORDS = 1 << 13
+QUALITY_GAME_HELDOUT = 1 << 11
+QUALITY_GAME_USERS = 1024
+QUALITY_FIXED_TOLERANCE = 1e-8
+# the integer field planted out of its range in the shifted traffic
+QUALITY_PLANT_FIELD = 0
+QUALITY_PLANT_FACTOR = 4.0
+QUALITY_PLANTED = 4096
+QUALITY_CLI_REQUESTS = 8
+# card against CPU: the margin sketch's moments (the card's margins are
+# ell_matvec's sums, the CPU's the plain version's), relative
+QUALITY_MARGIN_RTOL = 1e-9
+# the online window's AUC against the exact one on the same labels/scores
+QUALITY_AUC_TOL = 1e-12
+
+
+def fingerprint_launches(run) -> int:
+    """The ``ell_matvec`` launches of a driver run's quality fingerprint:
+    one margin pass over the training rows after the solves — a sparse GLM
+    design's one ``ell_matvec``, or GAME scoring's one per fixed effect on
+    an ELL shard — and none with the fingerprint off or a preempted run,
+    which saves nothing."""
+    p = run.params
+    if not p.quality_fingerprint:
+        return 0
+    if hasattr(run, "sweep"):
+        if os.path.exists(os.path.join(p.output_dir, "preempted.json")):
+            return 0
+        return sum(1 for c in run.sweep[run.best_index]["model"].params
+                   if p.coordinates[c].random_effect is None
+                   and p.coordinates[c].shard in p.sparse_shards)
+    return 1 if p.sparse and run.models else 0
+
+
+def build_index_cli(*runs) -> list:
+    """``python -m photon_ml_tpu_torch.cli.build_index`` once per argument
+    list in ``runs``, all started at once: a function that waits for them
+    and returns [(the path each printed, its seconds, the process
+    included)]. Every process is stopped whatever happens."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.build_index", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT}) for args in runs]
+
+    def wait():
+        out = []
+        try:
+            for args, proc in zip(runs, procs):
+                stdout, stderr = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli.build_index {args}: exit {proc.returncode}: "
+                                         f"{stderr[-4000:]}")
+                out.append((stdout.strip().splitlines()[-1], time.perf_counter() - t0))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return out
+
+    return wait
+
+
+def quality_cli(model_dir: str, requests, labels, want, n_rows: int, device=None) -> dict:
+    """``cli.serve`` over a pipe (``serve_pipe``) on an export with a
+    fingerprint: each request's score read back (the engine's), then a
+    ``feedback`` line per request with its label and served score, then
+    ``quality`` (the window's exact AUC) and ``drift`` (the baseline's
+    monitor)."""
+    def exchange(ask):
+        scores = [ask(request_line(r)).get("score", np.nan) for r in requests]
+        feedback = [ask({"cmd": "feedback", "label": float(y), "score": float(sc)})
+                    for y, sc in zip(labels, scores)]
+        return scores, feedback, ask({"cmd": "quality"}), ask({"cmd": "drift"})
+
+    t0 = time.perf_counter()
+    (scores, feedback, quality_r, drift_r), code, err = serve_pipe(
+        model_dir, device, exchange, "--no-verify-manifest")
+    k = len(requests)
+    auc = round(quality_mod.exact_auc(labels, scores), 6)
+    summary = {"seconds": time.perf_counter() - t0, "exit": code,
+               "max_err_vs_engine": serving_gaps(scores, want),
+               "feedback_window_n": [f.get("window_n") for f in feedback],
+               "quality": quality_r, "drift": {key: drift_r.get(key) for key in (
+                   "psi_alarm", "baseline_rows", "window_rows", "checks", "alarms",
+                   "error")}}
+    log(f"[quality] cli.serve: {json.dumps(summary)}")
+    if (code != 0 or summary["max_err_vs_engine"] > SERVE_RTOL
+            or summary["feedback_window_n"] != list(range(1, k + 1))
+            or quality_r.get("window_n") != k or quality_r.get("auc") != auc
+            or drift_r.get("baseline_rows") != n_rows
+            or drift_r.get("psi_alarm") != quality_mod.DEFAULT_PSI_ALARM):
+        raise AssertionError(f"cli.serve feedback/quality/drift: {json.dumps(summary)}; "
+                             f"{err[-4000:]}")
+    return summary
+
+
+def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=None,
+                       n: int = QUALITY_GAME_RECORDS, n_heldout: int = QUALITY_GAME_HELDOUT,
+                       d_hashed: int = D_HASHED, n_users: int = QUALITY_GAME_USERS,
+                       planted: int = QUALITY_PLANTED, **device_kw):
+    """Phase 5g: the feature-indexing job on phase 6's training Avro, the
+    GLM driver on its index with the quality fingerprint (the default), the
+    GAME driver with a shard that has no feature file, and that export
+    served with its drift monitor and the online-quality loop, on the card
+    (``device_kw`` names another device for a rehearsal). ``glm_sets`` is
+    phase 6's ``{"train": (path, ...), "heldout": (path, ...)}``. Returns
+    (summary, {"glm": launches, "game": launches})."""
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    device = device_kw.get("device")
+    cuda = on_card or torch.device(device).type == "cuda"
+    failures = []
+    train_path, heldout_path = glm_sets["train"][0], glm_sets["heldout"][0]
+
+    # the index: the CLI twice (GLM layout, a GAME shard with a prefix),
+    # both byte for byte the from-records vocabulary of the same file,
+    # decoded here by the Python codec while the two processes run
+    index_dir = os.path.join(work, "index")
+    wait_index = build_index_cli(
+        ["--input", train_path, "--output-dir", index_dir, "--add-intercept"],
+        ["--input", train_path, "--output-dir", index_dir, "--shard", "gshard",
+         "--name-prefix", "h", "--add-intercept"])
+    try:
+        t0 = time.perf_counter()
+        _, records = read_avro_file(train_path)
+        reference = FeatureVocabulary.from_records(records, add_intercept=True)
+        from_records_s = time.perf_counter() - t0
+        del records
+    finally:
+        (glm_index, glm_index_s), (shard_index, shard_index_s) = wait_index()
+    source = IngestSource([train_path])
+    t0 = time.perf_counter()
+    scanned = source.build_vocab(add_intercept=True)
+    scan_s = time.perf_counter() - t0
+    ref_path = os.path.join(index_dir, "from-records.txt")
+    reference.save(ref_path)
+    with open(ref_path, "rb") as f:
+        ref_bytes = f.read()
+    index = {"glm_index_s": glm_index_s, "shard_index_s": shard_index_s, "scan_s": scan_s,
+             "codec": source.codec, "from_records_s": from_records_s,
+             "columns": len(reference)}
+    for label, path in (("glm", glm_index), ("shard", shard_index)):
+        with open(path, "rb") as f:
+            same = f.read() == ref_bytes
+        index[f"{label}_file_equals_from_records"] = same
+        if not same:
+            failures.append(f"cli.build_index's {label} file differs from from_records'")
+    if scanned.index_to_key != reference.index_to_key:
+        failures.append("the native scan's keys differ from from_records'")
+    if source.codec != "native":
+        failures.append(f"the vocabulary scan ran on the {source.codec} codec")
+    log(f"[quality] index: {json.dumps(index)}")
+
+    # GLM training on that index, the fingerprint on by default; its
+    # fingerprint against the same ingest and model's margins on the CPU
+    params = {
+        "train_input": [train_path], "validate_input": [heldout_path],
+        "output_dir": os.path.join(work, "glm"), "feature_file": glm_index,
+        "optimizer": "TRON", "reg_type": "L2", "reg_weights": TRAIN_LAMBDAS,
+        "tolerance": TRAIN_TOLERANCE, "max_iters": TRAIN_MAX_ITERS, "sparse": True,
+        "precision": "float64", "model_output_mode": "BEST",
+    }
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = run_glm_training(params, **device_kw)
+    glm_wall_s = time.perf_counter() - t0
+    glm_launches = dispatch.launch_counts()
+    require_native(run, "[quality] the GLM run")
+    iters = [tm.result.iterations for tm in run.models]
+    want = {"fused_vgc": sum(i + 1 for i in iters),
+            "fused_hvp": sum(tm.result.cg_iterations for tm in run.models),
+            # each lambda's validation metrics and its selection, then the
+            # fingerprint's margin pass
+            "ell_matvec": 2 * len(run.models) + fingerprint_launches(run)}
+    for kernel, count in want.items():
+        if glm_launches[kernel] != (count if on_card else 0):
+            failures.append(f"GLM run: {kernel} launched {glm_launches[kernel]}, expected "
+                            f"{count if on_card else 0}")
+    with open(os.path.join(params["output_dir"], quality_mod.QUALITY_FINGERPRINT)) as f:
+        card_fp = json.load(f)
+    t0 = time.perf_counter()
+    cpu_fp = quality_mod.install_fingerprint_collector()
+    try:
+        cpu_batch, _, _ = IngestSource([train_path]).labeled_batch(
+            run.vocab, sparse=True, dtype=torch.float64, device="cpu")
+    finally:
+        quality_mod.uninstall_fingerprint_collector()
+    chosen = run.best if run.best is not None else run.models[0]
+    # the write phase's parts: one model text and one Avro model save
+    t0 = time.perf_counter()
+    write_model_text(os.path.join(work, "model.txt"), chosen.model.coefficients.means,
+                     run.vocab)
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_glm_model(os.path.join(work, "model.avro"), chosen.model.coefficients, run.vocab,
+                   TaskType.LOGISTIC_REGRESSION)
+    avro_s = time.perf_counter() - t0
+    margins = matvec(cpu_batch.features, chosen.model.coefficients.means.cpu()) + cpu_batch.offsets
+    cpu_fp.observe_margins(margins.numpy(), cpu_batch.effective_weights().numpy())
+    cpu_doc = cpu_fp.to_dict()
+    cpu_fp_s = time.perf_counter() - t0
+    del cpu_batch, margins
+    m_card, m_cpu = card_fp["margin"]["moments"], cpu_doc["margin"]["moments"]
+    fp_gaps = {key: (abs(m_card[key] - m_cpu[key]) / max(abs(m_cpu[key]), 1e-300))
+               for key in ("weight", "mean", "m2")}
+    fp_same = {"rows": card_fp["rows"] == cpu_doc["rows"],
+               "label": card_fp["label"] == cpu_doc["label"],
+               "shards": card_fp["shards"] == cpu_doc["shards"],
+               "margin_count": m_card["count"] == m_cpu["count"] == cpu_doc["rows"]}
+    glm = {"wall_s": glm_wall_s, "timings_s": run.timings, "launches": glm_launches,
+           "expected_launches": want, "columns": len(run.vocab),
+           "fingerprint_rows": card_fp["rows"], "fingerprint_equal_to_cpu": fp_same,
+           "margin_moment_gaps_vs_cpu": fp_gaps, "cpu_fingerprint_s": cpu_fp_s,
+           "summary_write_s": run.timings["summary_write"], "write_s": run.timings["write"],
+           "one_model_text_s": text_s, "one_model_avro_s": avro_s,
+           "nonzero_coefficients": int((chosen.model.coefficients.means != 0).sum()),
+           "run_bc_summary_write_s": 4.65, "run_bc_write_s": 6.17}
+    log(f"[quality] GLM: {json.dumps(glm)}")
+    if not all(fp_same.values()):
+        failures.append(f"the GLM fingerprint differs from the CPU's: {fp_same}")
+    if not all(g <= QUALITY_MARGIN_RTOL for g in fp_gaps.values()):
+        failures.append(f"the GLM margin sketch is off the CPU's: {fp_gaps}")
+    del run
+
+    # GAME training: 5c's layout, the global shard without a feature file
+    gdir = os.path.join(work, "game")
+    t0 = time.perf_counter()
+    (gpath, upath), (gtrain, gheldout), design = write_game_training_inputs(
+        gdir, n, n_heldout, d_hashed, n_users)
+    game_setup_s = time.perf_counter() - t0
+    gparams = game_train_params(gdir, gtrain, gheldout, gpath, upath,
+                                fixed_tolerance=QUALITY_FIXED_TOLERANCE)
+    gparams["feature_shards"] = {"ushard": upath}
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    game_run = run_game_training(gparams, **device_kw)
+    game_wall_s = time.perf_counter() - t0
+    game_launches = dispatch.launch_counts()
+    require_native(game_run, "[quality] the GAME run")
+    history = [h for sw in game_run.sweep for h in sw["history"]]
+    fixed = _fixed_records(history)
+    game_want = with_reduce({
+        "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
+        "fused_hvp": sum(h.cg_iterations for h in fixed),
+        "ell_matvec": (len(game_run.sweep) + len(fixed)
+                       + sum(h.validation_metric is not None for h in history)
+                       + fingerprint_launches(game_run)),
+    })
+    game_want = {k: (game_want.get(k, 0) if on_card else 0) for k in game_launches}
+    if game_launches != game_want:
+        failures.append(f"GAME run launched {game_launches}, expected {game_want}")
+    hashed = np.unique(design[0][1][design[0][1] < d_hashed])
+    want_keys = sorted(feature_key("h", str(c)) for c in hashed.tolist())
+    gvocab = game_run.shard_vocabs["gshard"]
+    if gvocab.index_to_key != FeatureVocabulary(want_keys, add_intercept=True).index_to_key:
+        failures.append("the GAME run's from-records vocabulary is not the records' keys")
+    fp_docs = []
+    for d in game_run.output_dirs:
+        with open(os.path.join(d, quality_mod.QUALITY_FINGERPRINT)) as f:
+            fp_docs.append(json.load(f))
+    game_fp = fp_docs[0] if fp_docs else {}
+    if (not fp_docs or len(fp_docs) != len(game_run.output_dirs)
+            or any(doc["rows"] != n or sorted(doc["shards"]) != ["ushard"]
+                   or len(doc["shards"]["ushard"]) != INT_FIELDS + 1
+                   or doc["margin"]["moments"]["count"] != n
+                   or "userId" not in doc["categoricals"] for doc in fp_docs)):
+        failures.append("a GAME export's fingerprint is missing or incomplete")
+    game = {"records": n, "heldout_records": n_heldout, "setup_s": game_setup_s,
+            "wall_s": game_wall_s, "timings_s": game_run.timings, "launches": game_launches,
+            "expected_launches": game_want, "gshard_columns": len(gvocab),
+            "export_dirs": len(game_run.output_dirs)}
+    log(f"[quality] GAME: {json.dumps(game)}")
+
+    # serving the export with its drift monitor: its training records (the
+    # baseline's own rows: every check must stay quiet), then its held-out
+    # ones, a window of their own (reported: the baseline's margins are the
+    # training rows', which a model fits more closely than new rows)
+    best_dir = game_run.output_dirs[0]
+    records = read_avro_file(gtrain)[1] + read_avro_file(gheldout)[1]
+    requests = serving_requests(records)
+    labels = np.asarray([r["label"] for r in records], np.float64)
+    del records
+    stats = _RawBucketStats()
+    t0 = time.perf_counter()
+    engine = ScoringEngine.from_model_dir(best_dir, dtype=torch.float64, stats=stats,
+                                          **device_kw)
+    load_s = time.perf_counter() - t0
+    if engine.drift is None:
+        raise AssertionError(f"the engine over {best_dir} has no drift monitor")
+    builds0 = bucket_builds()
+    engine.warmup(max_batch=SERVE_MAX_BATCH, include_degraded=True)
+    builds = bucket_builds() - builds0
+    segments = torch.cuda.memory_stats()["segment.all.allocated"] if cuda else None
+    scores = np.empty(len(requests))
+    call_s = []
+
+    def serve_pass(lo_row, hi_row):
+        """Calls of 64 rows over requests[lo_row:hi_row]; the drift reports
+        of the checks they completed, the window's remainder closed last."""
+        reports, checks = [], engine.drift.checks
+        for lo in range(lo_row, hi_row, SERVE_MAX_BATCH):
+            batch = requests[lo:min(lo + SERVE_MAX_BATCH, hi_row)]
+            t0 = time.perf_counter()
+            feats, ents, offsets = engine.featurize(batch)
+            scores[lo:lo + len(batch)] = engine.score_arrays(feats, ents, offsets)
+            if len(batch) == SERVE_MAX_BATCH:
+                call_s.append(time.perf_counter() - t0)
+            del feats
+            if engine.drift.checks != checks:
+                checks = engine.drift.checks
+                reports.append(engine.drift.last_report)
+        tail = engine.drift.check()
+        return reports + ([tail] if tail is not None else [])
+
+    t_quiet = time.perf_counter()
+    reports = serve_pass(0, n)
+    quiet_alarms = engine.drift.alarms
+    heldout_reports = serve_pass(n, len(requests))
+    quiet_s = time.perf_counter() - t_quiet
+    rebuilt = bucket_builds() - builds0 - builds
+    new_segments = (torch.cuda.memory_stats()["segment.all.allocated"] - segments
+                    if cuda else None)
+    served = MomentSketch().add(scores[:n])
+    base = game_fp["margin"]["moments"]
+    served_gaps = {"mean": abs(served.mean - base["mean"]) / abs(base["mean"]),
+                   "m2": abs(served.m2 - base["m2"]) / abs(base["m2"]),
+                   "count": served.count - base["count"]}
+    # delayed labels for the served scores: the window's AUC
+    online = quality_mod.OnlineQuality(registry=stats.registry, max_samples=len(requests))
+    for y, sc in zip(labels.tolist(), scores.tolist()):
+        online.record(y, sc)
+    snap = online.snapshot()
+    window_auc = stats.registry.gauge("quality.auc").value
+    exact = quality_mod.exact_auc(labels, scores)
+    ops_auc = float(metrics_mod.area_under_roc_curve(
+        torch.from_numpy(labels), torch.from_numpy(scores), torch.ones(len(labels),
+                                                                       dtype=torch.float64)))
+    # the same records with one integer field planted 4x out of its range,
+    # through the micro-batcher from closed-loop clients
+    plant_key = feature_key("h", str(int(_hash(np.array([QUALITY_PLANT_FIELD]),
+                                                np.zeros(1, np.int64))[0] % d_hashed)))
+    shifted = [ScoreRequest({k: (v * QUALITY_PLANT_FACTOR if k == plant_key else v)
+                             for k, v in r.features.items()}, r.entities, r.offset)
+               for r in requests[:planted]]
+    heldout_alarms = engine.drift.alarms - quiet_alarms
+    alarms0, checks0 = engine.drift.alarms, engine.drift.checks
+    with MicroBatcher(engine.score, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                      stats=stats) as batcher:
+        results, planted_wall = closed_loop(batcher.submit, shifted, SERVE_CLIENTS)
+    errors = [a for _, a, _ in results if isinstance(a, Exception)]
+    engine.drift.check()
+    last = engine.drift.last_report or {}
+    drift = {"quiet_checks": len(reports), "quiet_alarms": quiet_alarms,
+             "quiet_psi_max": max((r["psi_max"] for r in reports), default=None),
+             "quiet_score_psi_max": max((r["score_psi"] or 0.0 for r in reports),
+                                        default=None),
+             "heldout_checks": len(heldout_reports), "heldout_alarms": heldout_alarms,
+             "heldout_psi_max": max((r["psi_max"] for r in heldout_reports), default=None),
+             "heldout_score_psi_max": max((r["score_psi"] or 0.0 for r in heldout_reports),
+                                          default=None),
+             "planted_requests": len(results), "planted_errors": len(errors),
+             "planted_checks": engine.drift.checks - checks0,
+             "planted_alarms": engine.drift.alarms - alarms0,
+             "planted_last_flagged": last.get("flagged"), "planted_psi_max": last.get("psi_max"),
+             "planted_score_psi": last.get("score_psi"), "planted_feature": plant_key}
+    bucket = stats.raw.get(SERVE_MAX_BATCH, [])
+    f5 = (serve_summary or {}).get("buckets", {}).get(str(SERVE_MAX_BATCH), {})
+    serving = {"load_s": load_s, "builds": builds, "builds_after_warmup": rebuilt,
+               "new_cuda_segments": new_segments, "quiet_s": quiet_s,
+               "requests": len(requests), "row_bytes": 8 * sum(
+                   engine._shard_dim(s) for s in engine._used_shards),
+               "call_64_ms_drift_on": quantiles_ms(call_s),
+               "bucket_latency_64_ms_drift_on": quantiles_ms(bucket),
+               "call_64_ms_5f": f5.get("call_ms"), "drift": drift,
+               "served_vs_fingerprint_margin": served_gaps,
+               "online": {**snap, "auc_gauge": window_auc, "exact_auc": exact,
+                          "auc_gap": abs(window_auc - exact), "ops_metrics_auc": ops_auc,
+                          "ops_metrics_gap": abs(ops_auc - exact)},
+               "batcher_requests_per_s": len(results) / planted_wall}
+    log(f"[quality] serving: {json.dumps(serving)}")
+    if builds != 8 or rebuilt or (cuda and new_segments != 0):
+        failures.append(f"drift-on serving built {rebuilt} scorers after warmup ({builds} at "
+                        f"warmup) and {new_segments} CUDA segments")
+    if not reports or quiet_alarms or max(
+            drift["quiet_psi_max"], drift["quiet_score_psi_max"]) >= quality_mod.DEFAULT_PSI_ALARM:
+        failures.append(f"the training records raised the drift alarm: {json.dumps(drift)}")
+    if errors or drift["planted_alarms"] < 1:
+        failures.append(f"the planted feature did not raise the alarm: {json.dumps(drift)}")
+    if served_gaps["count"] or max(served_gaps["mean"], served_gaps["m2"]) > QUALITY_MARGIN_RTOL:
+        failures.append(f"served scores off the fingerprint's margins: {served_gaps}")
+    if abs(window_auc - exact) > QUALITY_AUC_TOL or snap["window_n"] != len(requests):
+        failures.append(f"the online window's AUC {window_auc} vs exact {exact}")
+    engine.close()
+
+    k = QUALITY_CLI_REQUESTS
+    cli = quality_cli(best_dir, requests[:k], labels[:k], scores[:k], n, device)
+    summary = {"index": index, "glm": glm, "game": game, "serving": serving, "cli": cli,
+               "phase_s": time.perf_counter() - phase_t0}
+    log(f"[quality] {json.dumps(summary)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, {"glm": glm_launches, "game": game_launches}
 
 
 # -- phase 7: the full trainer -----------------------------------------------
@@ -3779,21 +4256,28 @@ def main() -> int:
         # 5d. GAME training with projected and factored effects, checkpoints
         # and a resume, held to the CPU
         game_proj_summary = game_projected_phase(os.path.join(work, "game_proj"), name)
-        shutil.rmtree(os.path.join(work, "game_proj"), ignore_errors=True)
         # 5e. determinism at the settings users run: two card runs and a
-        # preempted-and-resumed one, bit for bit
-        game_det_summary = game_determinism_phase(os.path.join(work, "game_det"), name)
+        # preempted-and-resumed one, bit for bit, on 5d's records
+        game_det_summary = game_determinism_phase(os.path.join(work, "game_det"), name,
+                                                  inputs=game_proj_summary["inputs"])
+        shutil.rmtree(os.path.join(work, "game_proj"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "game_det"), ignore_errors=True)
         # 6. GLM training end to end
         train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
         # 7. the full trainer on the same records
         full_summary, full_launches = full_trainer_phase(os.path.join(work, "full"), reference)
+        # 5g. the index job on phase 6's training file, the GLM and GAME
+        # drivers with the quality fingerprint, the export served with its
+        # drift monitor and the feedback loop
+        quality_summary, quality_launches = quality_loop_phase(
+            os.path.join(work, "quality"), reference["sets"], name, serve_summary)
         del reference
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"train_shape_checks": shape_checks}))
     log(json.dumps({"serving": serve_summary}))
     log(json.dumps({"full_trainer": full_summary}))
+    log(json.dumps({"quality_loop": quality_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":
                                         train_summary["second_run_same_w_bits"]}}))
@@ -3835,6 +4319,8 @@ def main() -> int:
                                  "game_train_projected": game_proj_summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel],
+                                 "quality_glm": quality_launches["glm"][kernel],
+                                 "quality_game": quality_launches["game"][kernel],
                                  "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],

@@ -8,8 +8,6 @@ or a JSON file; unknown keys are rejected.
 field of the JAX package's, so one JSON config drives both packages' drivers.
 A field whose path the port does not run yet raises ``NotImplementedError``
 naming its ROADMAP item when it is set; its default keeps it off.
-``quality_fingerprint`` defaults to off here (the JAX package's default is
-on).
 """
 
 from __future__ import annotations
@@ -40,7 +38,6 @@ UNPORTED_GLM_FIELDS = {
     "streamed_ingest": (False, "I/O runtime"),
     "mesh_shape": (None, "Parallel"),
     "hot_columns": (0, "Hybrid designs"),
-    "quality_fingerprint": (False, "Ingest hooks"),
     "profile": (False, _OBS),
     "debug_nans": (False, _OBS),
     "trace_dir": (None, _OBS),
@@ -58,8 +55,7 @@ UNPORTED_GLM_FIELDS = {
 @dataclasses.dataclass
 class GLMDriverParams:
     """Core GLM train-driver knobs (``Params.scala:36-183``); the fields and
-    defaults of ``photon_ml_tpu.cli.config.GLMDriverParams`` except
-    ``quality_fingerprint``."""
+    defaults of ``photon_ml_tpu.cli.config.GLMDriverParams``."""
 
     train_input: List[str]
     output_dir: str
@@ -123,7 +119,9 @@ class GLMDriverParams:
     heartbeat_s: float = 0.0
     collective_timeout_s: Optional[float] = None
     sharded_ckpt: bool = False
-    quality_fingerprint: bool = False
+    # per-feature/label/margin sketches of the training data written to
+    # quality-fingerprint.json: the serving drift monitor's baseline
+    quality_fingerprint: bool = True
     collective_mode: Optional[str] = None
 
     def validate(self) -> None:
@@ -177,7 +175,6 @@ class GLMDriverParams:
 # off at 0 or 1.
 UNPORTED_GAME_FIELDS = {
     "streamed_ingest": (False, "I/O runtime"),
-    "quality_fingerprint": (False, "Ingest hooks"),
     "trace_dir": (None, _OBS),
     "metrics_every": (0.0, _OBS),
     "profile_dir": (None, _OBS),
@@ -206,11 +203,6 @@ def _unported_game_setting(params: "GameDriverParams"):
             value = getattr(spec, name)
             if value != off:
                 return f"coordinate {cname!r}: {name}={value!r}", item
-    missing = sorted({spec.shard for spec in params.coordinates.values()}
-                     - {s for s, f in params.feature_shards.items() if f})
-    if missing:
-        return (f"shards {missing} without a feature_shards file (the "
-                "from-records vocabulary)", "Ingest hooks")
     if params.passes_per_dispatch > 1 and params.convergence_tolerance > 0:
         # the JAX package tests the early exit once per dispatch chunk of
         # its fused passes; the port's descent runs pass by pass
@@ -259,8 +251,7 @@ class CoordinateSpec:
 @dataclasses.dataclass
 class GameDriverParams:
     """GAME train-driver knobs (``cli/game/training/Params.scala:81-292``);
-    the fields and defaults of ``photon_ml_tpu.cli.config.GameDriverParams``
-    except ``quality_fingerprint``."""
+    the fields and defaults of ``photon_ml_tpu.cli.config.GameDriverParams``."""
 
     train_input: List[str]
     output_dir: str
@@ -270,8 +261,8 @@ class GameDriverParams:
     num_iterations: int = 1
     validate_input: List[str] = dataclasses.field(default_factory=list)
     validate_per_coordinate: bool = True
-    # shard id -> feature list file (a shard without one raises here: the
-    # from-records vocabulary is ROADMAP item "Ingest hooks")
+    # shard id -> feature list file; a shard without one takes the
+    # vocabulary of every key in the training records (the native scan)
     feature_shards: Dict[str, Optional[str]] = dataclasses.field(default_factory=dict)
     add_intercept: bool = True
     date_range: Optional[str] = None
@@ -318,7 +309,9 @@ class GameDriverParams:
     heartbeat_s: float = 0.0
     collective_timeout_s: Optional[float] = None
     sharded_ckpt: bool = False
-    quality_fingerprint: bool = False
+    # quality-fingerprint.json in every export subdir (the serving drift
+    # monitor's baseline)
+    quality_fingerprint: bool = True
     entity_shards: int = 0
     collective_mode: Optional[str] = None
 

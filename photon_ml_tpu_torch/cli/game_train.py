@@ -14,7 +14,12 @@ or programmatically via :func:`run_game_training`. It runs on the CUDA
 device unless given another: a fixed effect on a shard in
 ``sparse_shards`` solves through the ``fused_vgc`` / ``fused_hvp`` kernels
 (one launch per TRON evaluation / CG step) and rescores through
-``ell_matvec``, as does each validation.
+``ell_matvec``, as does each validation and, with ``quality_fingerprint``
+(the default), the best model's margins on the training rows, which
+complete the fingerprint the training ingest fed
+(``quality-fingerprint.json`` in every export subdir). A shard without a
+``feature_shards`` file takes the vocabulary of every key in the training
+records (the native scan, ``IngestSource.build_vocab``).
 
 Single process: fixed effects; plain random effects and random effects
 projected by ``RANDOM=k`` or ``INDEX_MAP`` on dense shards; wide random
@@ -80,6 +85,7 @@ from photon_ml_tpu_torch.io.models import (
 )
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
 from photon_ml_tpu_torch.models.training import OptimizerType
+from photon_ml_tpu_torch.obs import quality as quality_mod
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import cast_values, is_sparse
 from photon_ml_tpu_torch.resilience import GracefulShutdown
@@ -284,6 +290,10 @@ def run_game_training(params, device=None) -> GameTrainingRun:
     try:
         return _run_game_training(params, device, logger, shutdown)
     finally:
+        if params.quality_fingerprint:
+            # normally uninstalled right after the training ingest; this
+            # covers an ingest that raised
+            quality_mod.uninstall_fingerprint_collector()
         shutdown.uninstall()
         logger.close()
 
@@ -312,15 +322,38 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
     )
 
     # ---- feature maps + dataset --------------------------------------------
+    # the ingest paths feed the installed collector per shard; installed
+    # for the TRAINING ingest only (validation rows must not blur the
+    # baseline)
+    fingerprint = None
+    if params.quality_fingerprint:
+        fingerprint = quality_mod.install_fingerprint_collector()
     with timed(logger, "prepare data"):
         t0 = time.perf_counter()
         date_range = resolve_date_range(params)
         source = IngestSource(expand_date_paths(params.train_input, date_range),
                               params.field_names)
-        shard_vocabs = {
-            shard: FeatureVocabulary.load(params.feature_shards[shard])
-            for shard in sorted({spec.shard for spec in params.coordinates.values()})
-        }
+        shard_vocabs: Dict[str, FeatureVocabulary] = {}
+        fallback_shards = []
+        fallback_vocab = None
+        for shard in sorted({spec.shard for spec in params.coordinates.values()}):
+            feature_file = params.feature_shards.get(shard)
+            if feature_file:
+                shard_vocabs[shard] = FeatureVocabulary.load(feature_file)
+            else:
+                fallback_shards.append(shard)
+                if fallback_vocab is None:
+                    fallback_vocab = source.build_vocab(add_intercept=params.add_intercept)
+                shard_vocabs[shard] = fallback_vocab
+        if len(fallback_shards) > 1:
+            # the from-records vocabulary is the FULL feature space, so these
+            # shards collapse into identical bags, unlike the reference's
+            # partitioned feature sections
+            logger.warn(
+                f"shards {sorted(fallback_shards)} have no feature_shards "
+                "file and all fall back to the full from-records vocabulary; "
+                "they will share an identical feature space"
+            )
         entity_keys = sorted({
             spec.random_effect for spec in params.coordinates.values()
             if spec.random_effect is not None
@@ -331,6 +364,11 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
         timings["ingest"] = time.perf_counter() - t0
         codecs = {"ingest": source.codec}
         logger.info(f"read {len(data.labels)} training records ({source.codec} codec)")
+        if fingerprint is not None:
+            # training ingest done: stop collecting before validation io
+            quality_mod.uninstall_fingerprint_collector()
+            logger.info(f"quality fingerprint: {fingerprint.rows} rows sketched "
+                        f"over shards {sorted(fingerprint.shards)}")
         entity_counts = {k: len(v) for k, v in entity_vocabs.items()}
         logger.info(f"shards: { {s: len(v) for s, v in shard_vocabs.items()} } "
                     f"entities: {entity_counts}")
@@ -493,6 +531,15 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
     output_dirs: List[str] = []
     with timed(logger, "save models"):
         t0 = time.perf_counter()
+        if fingerprint is not None and fingerprint.rows > 0 and not shutdown.requested:
+            # margin sketch: the best model's score distribution over its
+            # own training rows, offsets included (the space serving scores
+            # live in); one scoring pass, copied to the host once
+            margins = score_game_data(
+                sweep[best_index]["model"].params, shards_by_coord, res_by_coord, data,
+                dtype=dtype, device=device,
+            ) + torch.as_tensor(data.offsets, dtype=dtype, device=device)
+            fingerprint.observe_margins(margins.cpu().numpy(), np.asarray(data.weights))
         to_save: List[int] = []
         if shutdown.requested:
             pass
@@ -541,6 +588,10 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                     f,
                     indent=2,
                 )
+            if fingerprint is not None and fingerprint.rows > 0:
+                # before the manifest below, so that the baseline is under
+                # the export's digest and hot-reloads with the model
+                fingerprint.save(subdir)
             output_dirs.append(subdir)
         if not shutdown.requested:
             for shard, vocab in shard_vocabs.items():
@@ -570,12 +621,20 @@ def main(argv=None) -> None:
     )
     p.add_argument("--config", required=True, help="JSON GameDriverParams")
     p.add_argument("--overwrite", action="store_true", default=None)
+    p.add_argument(
+        "--no-quality-fingerprint", dest="quality_fingerprint",
+        action="store_false", default=None,
+        help="skip the train-data quality fingerprint "
+        "(quality-fingerprint.json in every export subdir — the "
+        "serving drift-detection baseline)",
+    )
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args(argv)
     with open(args.config) as f:
         base = json.load(f)
-    if args.overwrite is not None:
-        base["overwrite"] = args.overwrite
+    for key in ("overwrite", "quality_fingerprint"):
+        if getattr(args, key) is not None:
+            base[key] = getattr(args, key)
     run_game_training(base, device=args.device)
 
 

@@ -34,6 +34,15 @@ Protocol (one JSON object per line):
     {"cmd": "exemplars"} -> tail-sampled exemplar rings: latency-bucket
                            -> recent trace ids (optional "ge_ms"/"class"
                            filters; obs/exemplars.py, --exemplar-fraction)
+    {"cmd": "feedback", "label": 1, "score": 0.83, "weight": 1.0}
+                        -> {"ok": true, "window_n": N}: a delayed label
+                           for a served score, into the rolling window
+                           (quality.*; obs.quality.OnlineQuality)
+    {"cmd": "quality"}  -> online-quality snapshot (window AUC — exact,
+                           tie-aware — and calibration error)
+    {"cmd": "drift"}    -> the current version's drift monitor snapshot
+                           (PSI/JS against the export's quality
+                           fingerprint; an error when it has none)
 
 ``deadline_ms`` (per request, or ``--default-deadline-ms``) drops a
 request that can't start scoring in time — the Future answers
@@ -58,9 +67,8 @@ while the last good version keeps serving.
 Not ported, and refused with their item in ROADMAP.md queue A
 (:data:`UNPORTED_FLAGS`, :data:`UNPORTED_COMMANDS`): the async front end
 with its tenants and replicas (``--frontend-port``, ``--tenant``,
-``--replicas``; item 10), entity-sharded serving (``--serving-shards`` >
-1; item 9), and the online-quality and drift commands (``feedback``,
-``quality``, ``drift``; item 5).
+``--replicas``; item 10) and entity-sharded serving (``--serving-shards``
+> 1; item 9).
 """
 
 from __future__ import annotations
@@ -86,9 +94,6 @@ UNPORTED_FLAGS = {
     "--serving-shards": "item 9, Parallel (serving/sharding.py)",
 }
 UNPORTED_COMMANDS = {
-    "feedback": "item 5, Ingest hooks (obs/quality.py)",
-    "quality": "item 5, Ingest hooks (obs/quality.py)",
-    "drift": "item 5, Ingest hooks (obs/quality.py)",
     "tenants": _FRONTEND,
     "replicas": _FRONTEND,
 }
@@ -115,9 +120,12 @@ def make_admin_handler(
     batcher,
     registry: Optional[ModelRegistry] = None,
     stats: Optional[ServingStats] = None,
+    quality=None,
 ):
     """One ``{"cmd": ...} -> dict`` dispatcher shared by every channel
-    (stdin and ``--socket``)."""
+    (stdin and ``--socket``). ``quality`` (an
+    :class:`~photon_ml_tpu_torch.obs.quality.OnlineQuality`) answers
+    ``feedback`` and ``quality``."""
 
     def handle(obj: dict) -> dict:
         cmd = obj.get("cmd")
@@ -151,6 +159,34 @@ def make_admin_handler(
                 if registry is not None:
                     health.update(registry.health())
                 return health
+            if cmd == "feedback":
+                # delayed-label loop: the client echoes the served score
+                # once the true label arrives
+                if quality is None:
+                    return {"error": "no online-quality tracker"}
+                quality.record(
+                    float(obj["label"]),
+                    float(obj["score"]),
+                    float(obj.get("weight", 1.0)),
+                )
+                return {"ok": True, "window_n": quality.window_n}
+            if cmd == "quality":
+                if quality is None:
+                    return {"error": "no online-quality tracker"}
+                return quality.snapshot()
+            if cmd == "drift":
+                v = registry.current if registry is not None else None
+                monitor = (
+                    getattr(v.engine, "drift", None)
+                    if v is not None and v.engine is not None
+                    else None
+                )
+                if monitor is None:
+                    return {
+                        "error": "no drift monitor (export has no "
+                        "quality fingerprint)"
+                    }
+                return monitor.snapshot()
             if cmd == "exemplars":
                 # tail-sampled exemplar rings (obs/exemplars.py): a
                 # latency-histogram bucket resolves to live trace ids
@@ -191,6 +227,7 @@ def serve_lines(
     shutdown=None,
     window: int = 128,
     default_deadline_ms: Optional[float] = None,
+    quality=None,
 ) -> int:
     """Pump a JSON-lines stream through the batcher, writing one response
     line per request IN ORDER. A dedicated writer thread emits each
@@ -234,7 +271,7 @@ def serve_lines(
     def reply_now(obj: dict) -> None:
         outbox.put(("line", json.dumps(obj)))
 
-    handle_cmd = make_admin_handler(batcher, registry, stats)
+    handle_cmd = make_admin_handler(batcher, registry, stats, quality=quality)
 
     try:
         for line in lines:
@@ -290,7 +327,7 @@ def _watch_loop(registry, watch_root, poll_s, shutdown, logger):
 
 def _serve_socket(
     port, batcher, registry, stats, shutdown, logger,
-    default_deadline_ms=None,
+    default_deadline_ms=None, quality=None,
 ):
     import socketserver
 
@@ -307,7 +344,7 @@ def _serve_socket(
 
             serve_lines(
                 lines, _W(), batcher, registry, stats, shutdown=shutdown,
-                default_deadline_ms=default_deadline_ms,
+                default_deadline_ms=default_deadline_ms, quality=quality,
             )
 
     class Server(socketserver.ThreadingTCPServer):
@@ -466,6 +503,11 @@ def main(argv=None) -> None:
         window_s=args.slo_window_s,
         registry=stats.registry,
     )
+    # online quality: delayed-label feedback -> rolling exact AUC /
+    # calibration gauges (quality.*; the {"cmd": "feedback"} surface)
+    from photon_ml_tpu_torch.obs.quality import OnlineQuality
+
+    quality = OnlineQuality(registry=stats.registry)
     # tail-based exemplar sampling: the batcher feeds every finished
     # request; the rings answer {"cmd": "exemplars"} with live trace ids
     if args.exemplar_fraction >= 0:
@@ -495,7 +537,7 @@ def main(argv=None) -> None:
         if args.socket:
             _serve_socket(
                 args.socket, batcher, registry, stats, shutdown, logger,
-                default_deadline_ms=args.default_deadline_ms,
+                default_deadline_ms=args.default_deadline_ms, quality=quality,
             )
         else:
             serve_lines(
@@ -507,6 +549,7 @@ def main(argv=None) -> None:
                 shutdown=shutdown,
                 window=args.max_batch * 2,
                 default_deadline_ms=args.default_deadline_ms,
+                quality=quality,
             )
     finally:
         drained = batcher.drain()

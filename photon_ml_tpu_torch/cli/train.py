@@ -13,8 +13,13 @@ or programmatically via :func:`run_glm_training`. It runs on the CUDA
 device unless given another: with ``sparse`` the objective passes go
 through the ``fused_vgc`` / ``fused_hvp`` kernels, the variances through
 ``fused_hdiag``, the feature summary through ``ell_colsum`` (the
-column-sorted reduce on the card) and the validation margins through
-``ell_matvec``.
+column-sorted reduce on the card), and the validation margins and the
+quality fingerprint's margins through ``ell_matvec``. Without a
+``feature_file`` the vocabulary is the native scan of the training files
+(``IngestSource.build_vocab``); with ``quality_fingerprint`` (the default)
+the training ingest feeds a :class:`~photon_ml_tpu_torch.obs.quality.
+BaselineFingerprint`, which the chosen model's margins on the training
+batch complete and ``quality-fingerprint.json`` stores.
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ from photon_ml_tpu_torch.diagnostics.html import render_html
 from photon_ml_tpu_torch.io.constraints import load_constraint_bounds
 from photon_ml_tpu_torch.io.ingest import IngestSource
 from photon_ml_tpu_torch.io.models import load_glm_model, save_glm_model
+from photon_ml_tpu_torch.io.schemas import NAME_TERM_DELIMITER
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
 from photon_ml_tpu_torch.models.selection import select_best_model
 from photon_ml_tpu_torch.models.training import TrainedModel, train_glm
+from photon_ml_tpu_torch.obs import quality as quality_mod
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import matvec
 from photon_ml_tpu_torch.ops.stats import summarize_features
@@ -58,18 +65,44 @@ def driver_dtype(precision: str) -> torch.dtype:
     return torch.float64 if precision == "float64" else torch.float32
 
 
+def _host_f64(values) -> np.ndarray:
+    """A tensor (any device or dtype) or array as a host float64 array; the
+    widening is exact, so each value prints as the JAX writers'
+    ``float(v)`` does."""
+    if torch.is_tensor(values):
+        values = values.detach().to("cpu", torch.float64).numpy()
+    return np.ascontiguousarray(values, np.float64)
+
+
+def _float_texts(values: np.ndarray) -> List[str]:
+    """``str(float(v))`` of every value — Python's shortest round-trip
+    repr, what the JAX writers print — formatted once per distinct bit
+    pattern (so ``-0.0`` and ``0.0`` stay apart) and gathered."""
+    bits, inverse = np.unique(values.view(np.int64), return_inverse=True)
+    texts = np.asarray(list(map(str, bits.view(np.float64).tolist())), dtype=object)
+    return texts[inverse.reshape(-1)].tolist()
+
+
+def _name_term_prefixes(vocab: FeatureVocabulary, rows) -> List[str]:
+    """"name\\tterm" of each vocabulary row (``vocab.name_term``)."""
+    keys = vocab.index_to_key
+    return [f"{name}\t{term}" for name, _, term in
+            (keys[i].partition(NAME_TERM_DELIMITER) for i in rows)]
+
+
 def write_model_text(path: str, means, vocab: FeatureVocabulary) -> None:
     """Plain-text model (``GLMSuite.scala:355-400``): one
     "name\\tterm\\tvalue" line per nonzero coefficient, the intercept
-    always."""
-    values = means.detach().cpu().tolist() if torch.is_tensor(means) else list(means)
-    icpt = vocab.intercept_index
+    always; the bytes of the JAX driver's writer, built column-wise."""
+    values = _host_f64(means)
+    keep = values != 0.0  # NaN is written, -0.0 is not (JAX's v == 0.0)
+    if vocab.intercept_index is not None:
+        keep[vocab.intercept_index] = True
+    rows = np.flatnonzero(keep)
+    lines = map("\t".join, zip(_name_term_prefixes(vocab, rows.tolist()),
+                               _float_texts(values[rows])))
     with open(path, "w", encoding="utf-8") as f:
-        for i, v in enumerate(values):
-            if v == 0.0 and i != icpt:
-                continue
-            name, term = vocab.name_term(i)
-            f.write(f"{name}\t{term}\t{float(v)}\n")
+        f.writelines(line + "\n" for line in lines)
 
 
 SUMMARY_COLUMNS = ("mean", "variance", "min", "max", "norm_l1", "norm_l2",
@@ -77,17 +110,13 @@ SUMMARY_COLUMNS = ("mean", "variance", "min", "max", "norm_l1", "norm_l2",
 
 
 def write_feature_summary(path: str, summary, vocab: FeatureVocabulary) -> None:
-    """Per-feature summary TSV, the JAX driver's layout (one line per
-    feature; each value as ``str(float(v))``)."""
-    columns = [
-        getattr(summary, c).detach().to("cpu", torch.float64).tolist()
-        for c in SUMMARY_COLUMNS
-    ]
+    """Per-feature summary TSV, the JAX driver's layout and bytes (one line
+    per feature; each value as ``str(float(v))``), built column-wise."""
+    columns = [_float_texts(_host_f64(getattr(summary, c))) for c in SUMMARY_COLUMNS]
+    lines = map("\t".join, zip(_name_term_prefixes(vocab, range(len(vocab))), *columns))
     with open(path, "w", encoding="utf-8") as f:
         f.write("name\tterm\t" + "\t".join(SUMMARY_COLUMNS) + "\n")
-        for i, row in enumerate(zip(*columns)):
-            name, term = vocab.name_term(i)
-            f.write(f"{name}\t{term}\t" + "\t".join(map(str, row)) + "\n")
+        f.writelines(line + "\n" for line in lines)
 
 
 def _initial_model_path(init_path: str) -> str:
@@ -131,8 +160,9 @@ class GLMTrainingRun:
     # to the device), validate_data, summary (device, synchronised),
     # summary_write (feature-summary.tsv), train (every solve), validate
     # (validation ingest + margins + metrics), diagnose (the diagnostic
-    # report, with diagnostics), write (models, texts, vocabulary,
-    # metrics); each solve's own seconds are on its model
+    # report, with diagnostics), write (the fingerprint's margins and file,
+    # models, texts, vocabulary, metrics); each solve's own seconds are on
+    # its model
     timings: Dict[str, float]
     # the Avro codec of each read: {"ingest": ..., "validate": ...}, each
     # "native" (the C++ codec) or "python"
@@ -147,7 +177,14 @@ def run_glm_training(params, device=None) -> GLMTrainingRun:
     params = load_params(params, GLMDriverParams)
     params.validate()
     prepare_output_dir(params.output_dir, params.overwrite)
-    return _run_glm_training(params, device)
+    try:
+        return _run_glm_training(params, device)
+    finally:
+        if params.quality_fingerprint:
+            # normally uninstalled right after the training ingest; this
+            # covers an ingest that raised, so no collector leaks into the
+            # next run in this process
+            quality_mod.uninstall_fingerprint_collector()
 
 
 def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrainingRun:
@@ -172,11 +209,14 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         if params.feature_file:
             vocab = FeatureVocabulary.load(params.feature_file)
         else:
-            vocab = FeatureVocabulary.from_records(
-                source.records(), add_intercept=params.add_intercept
-            )
+            vocab = source.build_vocab(add_intercept=params.add_intercept)
         logger.info(f"feature space: {len(vocab)} columns "
                     f"(intercept={vocab.intercept_index})")
+        # the ingest paths feed the installed collector; installed for the
+        # TRAINING ingest only (validation rows must not blur the baseline)
+        fingerprint = None
+        if params.quality_fingerprint:
+            fingerprint = quality_mod.install_fingerprint_collector()
         batch, _uids, _present = source.labeled_batch(
             vocab, sparse=params.sparse, dtype=dtype, device=device
         )
@@ -198,6 +238,9 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
             os.path.join(params.output_dir, "feature-summary.tsv"), summary, vocab
         )
         timings["summary_write"] = time.perf_counter() - t0
+        if fingerprint is not None:
+            quality_mod.uninstall_fingerprint_collector()
+            logger.info(f"quality fingerprint: {fingerprint.rows} rows sketched")
     tracker.advance(DriverStage.PREPROCESSED)
 
     # ---- TRAIN -----------------------------------------------------------
@@ -286,6 +329,18 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
     # ---- OUTPUT ----------------------------------------------------------
     with timed(logger, "write models"):
         t0 = time.perf_counter()
+        if fingerprint is not None and fingerprint.rows > 0:
+            # margin sketch: the shipped model's score distribution on its
+            # own training rows, what the serving drift monitor compares
+            # live scores against; one margin pass, copied to the host once
+            if models:
+                chosen = best if best is not None else models[0]
+                margins = chosen.model.compute_margin(batch.features, batch.offsets)
+                fingerprint.observe_margins(
+                    margins.cpu().numpy(), batch.effective_weights().cpu().numpy()
+                )
+            fp_path = fingerprint.save(params.output_dir)
+            logger.info(f"wrote quality fingerprint to {fp_path}")
         vocab.save(os.path.join(params.output_dir, "feature-index.txt"))
         if params.model_output_mode != "NONE":
             to_write = (
@@ -380,6 +435,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--overwrite", action="store_true", default=None)
     p.add_argument("--diagnostics", action="store_true", default=None)
     p.add_argument("--training-diagnostics", action="store_true", default=None)
+    p.add_argument(
+        "--no-quality-fingerprint", dest="quality_fingerprint",
+        action="store_false", default=None,
+        help="skip the train-data quality fingerprint (per-feature/"
+        "label/margin sketches written to quality-fingerprint.json; "
+        "the drift-detection baseline)",
+    )
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     return p
 

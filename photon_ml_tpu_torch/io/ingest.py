@@ -11,20 +11,105 @@ index column per random-effect type. ``IngestSource`` reads through the
 native C++ codec (:mod:`photon_ml_tpu_torch.io.native`) when it builds and
 the writer schema is in its family, and through the pure-Python codec
 otherwise, as the JAX package does; ``IngestSource.codec`` says which ran.
-Not ported yet: the native vocabulary scan, the streamed pipeline, the
-quality fingerprints and the retrying read.
+Every read goes through ``_resilient_read`` (the ``ingest.read`` fault
+site, retried ``OSError``s, the ``io.ingest.*`` metrics), and every
+assembled artifact feeds the installed quality fingerprint collector
+(:mod:`photon_ml_tpu_torch.obs.quality`). ``IngestSource.build_vocab`` is
+the native vocabulary scan. Not ported yet: the streamed pipeline.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import obs
 from photon_ml_tpu_torch.core.types import LabeledBatch
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary, feature_key
+from photon_ml_tpu_torch.obs import quality as _quality
+from photon_ml_tpu_torch.resilience import faults as _faults
+from photon_ml_tpu_torch.resilience import retry as _retry
+
+
+def _host(x):
+    """A tensor (on any device) as a numpy array; anything else as is."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else x
+
+
+def _vocab_names(vocab, limit: int) -> List[str]:
+    """Human names for a vocabulary's leading ``limit`` columns (the
+    fingerprint cap) — ``name`` or ``name\\x01term`` rendered readable."""
+    names = []
+    for j in range(min(len(vocab), limit)):
+        name, term = vocab.name_term(j)
+        names.append(f"{name}\x01{term}" if term else str(name))
+    return names
+
+
+def _feed_fingerprint(features_by_shard, labels, weights, vocabs=None):
+    """Feed the installed quality fingerprint collector (no-op when
+    none is installed — the common case costs one global read). Dense
+    (n, d) shards contribute per-column sketches, read on the host;
+    sparse containers contribute labels/weights only."""
+    coll = _quality.fingerprint_collector()
+    if coll is None:
+        return
+    weights = _host(weights)
+    for shard, m in (features_by_shard or {}).items():
+        if getattr(m, "ndim", 0) != 2:
+            continue
+        vocab = (vocabs or {}).get(shard)
+        coll.observe_rows(
+            shard,
+            np.asarray(_host(m)),
+            weights,
+            names=(_vocab_names(vocab, coll.max_features) if vocab is not None else None),
+        )
+    if labels is not None:
+        coll.observe_labels(np.asarray(_host(labels)), weights)
+
+
+def _feed_fingerprint_entities(entities, weights=None):
+    coll = _quality.fingerprint_collector()
+    if coll is None:
+        return
+    for kind, keys in (entities or {}).items():
+        coll.observe_categorical(kind, keys, _host(weights))
+
+
+def _resilient_read(fn, *args, label: str, logger=None, paths=None, **kwargs):
+    """Run one input-read with the ``ingest.read`` fault site armed and
+    transient ``OSError`` retried (backoff; resilience.retry). A flaky
+    network filesystem — or an injected fault drill — costs a retry, not
+    the run. Non-I/O errors (bad schema, bad records) propagate
+    immediately.
+
+    ``paths`` (the files this read covers) feeds the obs layer:
+    ``io.ingest.files`` / ``io.ingest.bytes_read`` counters and a
+    ``io.ingest.read_ms`` latency histogram, plus a span on the active
+    tracer."""
+
+    def attempt():
+        _faults.fire("ingest.read")
+        return fn(*args, **kwargs)
+
+    t0 = time.perf_counter()
+    with obs.span("io.ingest.read", cat="io", label=label):
+        out = _retry.retry_call(attempt, retries=3, label=label, logger=logger)
+    reg = obs.registry()
+    reg.observe("io.ingest.read_ms", (time.perf_counter() - t0) * 1e3)
+    for p in paths or ():
+        reg.inc("io.ingest.files")
+        try:
+            reg.inc("io.ingest.bytes_read", os.path.getsize(p))
+        except OSError:
+            pass  # metrics must never fail a read that succeeded
+    return out
+
 
 # Avro field-name sets (``avro/FieldNamesType.scala:20``)
 TRAINING_EXAMPLE_FIELDS = "TRAINING_EXAMPLE"
@@ -363,6 +448,12 @@ class IngestSource:
     def label_field(self) -> str:
         return "response" if self.field_names == RESPONSE_PREDICTION_FIELDS else "label"
 
+    def _check_nonempty(self, n: int):
+        """Valid-but-empty inputs fail loudly here rather than training a
+        degenerate model."""
+        if n == 0:
+            raise ValueError(f"no records found in {self.files}")
+
     def records(self) -> List[dict]:
         """Decoded records (cached); raises on a valid-but-empty input."""
         if self._records is None:
@@ -370,9 +461,9 @@ class IngestSource:
 
             recs: List[dict] = []
             for f in self.files:
-                recs.extend(read_avro_file(f)[1])
-            if not recs:
-                raise ValueError(f"no records found in {self.files}")
+                _, r = _resilient_read(read_avro_file, f, label=f"read {f}", paths=[f])
+                recs.extend(r)
+            self._check_nonempty(len(recs))
             self._records = normalize_field_names(recs, self.field_names)
         return self._records
 
@@ -384,15 +475,44 @@ class IngestSource:
         if not native.native_available():
             return None
         try:
-            out = native.read_columnar(
-                self.files, vocabs, entity_keys, label_field=self.label_field,
-                allow_null_labels=allow_null_labels,
+            out = _resilient_read(
+                native.read_columnar, self.files, vocabs, entity_keys,
+                label_field=self.label_field, allow_null_labels=allow_null_labels,
+                label=f"native read {self.files}", paths=self.files,
             )
         except native.UnsupportedSchema:
             return None
-        if out["n"] == 0:
-            raise ValueError(f"no records found in {self.files}")
+        self._check_nonempty(out["n"])
         return out
+
+    def build_vocab(
+        self,
+        add_intercept: bool = True,
+        selected_keys: Optional[set] = None,
+    ) -> FeatureVocabulary:
+        """Distinct (name, term) scan (``FeatureIndexingJob`` analog): the
+        native parallel scan when the C++ codec builds, the Python codec's
+        records only where the native reader refuses the schema."""
+        from photon_ml_tpu_torch.io import native
+
+        if native.native_available():
+            try:
+                keys, n_scanned = native.scan_feature_keys(
+                    self.files, label_field=self.label_field
+                )
+                # a valid-but-empty input fails here exactly as the Python
+                # path does, not with an intercept-only vocabulary
+                self._check_nonempty(n_scanned)
+                self.codec = "native"
+                if selected_keys is not None:
+                    keys = [k for k in keys if k in selected_keys]
+                return FeatureVocabulary(sorted(keys), add_intercept=add_intercept)
+            except native.UnsupportedSchema:
+                pass
+        self.codec = "python"
+        return FeatureVocabulary.from_records(
+            self.records(), add_intercept=add_intercept, selected_keys=selected_keys
+        )
 
     def labeled_batch(
         self,
@@ -414,6 +534,8 @@ class IngestSource:
             )
             uids = np.asarray([r.get("uid") for r in recs], object)
             present = np.asarray([r.get("label") is not None for r in recs], bool)
+            _feed_fingerprint({"features": batch.features}, batch.labels,
+                              batch.effective_weights(), vocabs={"features": vocab})
             return batch, uids, present
         self.codec = "native"
         n = out["n"]
@@ -431,6 +553,8 @@ class IngestSource:
             features, out["labels"], offsets=out["offsets"], weights=out["weights"],
             dtype=dtype, device=device,
         )
+        _feed_fingerprint({"features": features}, out["labels"], out["weights"],
+                          vocabs={"features": vocab})
         return batch, out["uids"], out["label_present"]
 
     def game_data(
@@ -459,6 +583,8 @@ class IngestSource:
                 sparse_shards=sparse_shards,
             )
             present = np.asarray([r.get("label") is not None for r in recs], bool)
+            _feed_fingerprint(dict(data.features), data.labels, np.asarray(data.weights),
+                              vocabs=shard_vocabs)
             return data, vocabs, uids, present
         self.codec = "native"
         n = out["n"]
@@ -473,6 +599,9 @@ class IngestSource:
             features=features, labels=out["labels"], offsets=out["offsets"],
             weights=out["weights"], entity_ids=entity_ids,
         )
+        _feed_fingerprint(features, out["labels"], out["weights"], vocabs=shard_vocabs)
+        _feed_fingerprint_entities({k: out["entities"][k] for k in entity_keys},
+                                   out["weights"])
         return data, out_vocabs, out["uids"], out["label_present"]
 
 

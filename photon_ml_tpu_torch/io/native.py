@@ -13,8 +13,8 @@ The shared library builds with ``g++`` at first use into
 a hash of the source and the flags, written to a temporary name and moved
 into place, so that processes building at once never load a half-written
 library. If the toolchain or zlib is missing every entry point reports
-unavailable and callers take the Python codec. Not ported here:
-``scan_feature_keys`` (the vocabulary scan, with the ingest hooks).
+unavailable and callers take the Python codec. ``scan_feature_keys`` is the
+native vocabulary scan (the ``FeatureIndexingJob`` analog).
 """
 
 from __future__ import annotations
@@ -188,6 +188,13 @@ def _build_and_load() -> Tuple[Optional[ctypes.CDLL], Optional[str]]:
             ctypes.c_void_p, ctypes.c_int32,
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.pml_reader_keys_bytes.restype = ctypes.c_int64
+        lib.pml_reader_keys_bytes.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)
+        ]
+        lib.pml_reader_keys.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p
         ]
         lib.pml_reader_error.restype = ctypes.c_char_p
         lib.pml_reader_error.argtypes = [ctypes.c_void_p]
@@ -434,6 +441,7 @@ class NativeAvroReader:
     vocabset: a NativeVocabSet (may be shared across readers; must stay
     alive for this reader's lifetime).
     entity_keys: metadataMap keys to extract as per-row string columns.
+    collect_keys: gather the distinct feature keys (``distinct_keys``).
     """
 
     def __init__(
@@ -442,6 +450,7 @@ class NativeAvroReader:
         feat_desc: np.ndarray,
         vocabset: NativeVocabSet,
         entity_keys: Sequence[str] = (),
+        collect_keys: bool = False,
     ):
         lib = get_lib()
         if lib is None:
@@ -461,7 +470,7 @@ class NativeAvroReader:
             entity_blob,
             _i64p(entity_offsets),
             self._nentities,
-            0,  # no distinct-key collection: the vocabulary scan is not ported
+            1 if collect_keys else 0,
         )
         if not self._handle:
             raise RuntimeError("pml_reader_new failed")
@@ -609,6 +618,18 @@ class NativeAvroReader:
         nbytes = int(self._sizes()[1 + which])
         return self._strings(which, nbytes)
 
+    def distinct_keys(self) -> List[str]:
+        """Distinct feature keys seen (requires collect_keys=True) — the
+        native ``FeatureIndexingJob`` analog. Unordered; callers sort."""
+        nkeys = ctypes.c_int64(0)
+        nbytes = int(self._lib.pml_reader_keys_bytes(self._handle, ctypes.byref(nkeys)))
+        n = int(nkeys.value)
+        offsets = np.zeros(n + 1, np.int64)
+        raw = ctypes.create_string_buffer(max(nbytes, 1))
+        self._lib.pml_reader_keys(self._handle, _i64p(offsets), raw)
+        blob = raw.raw[:nbytes]
+        return [blob[offsets[i]:offsets[i + 1]].decode("utf-8") for i in range(n)]
+
     def coo(self, vocab: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         nnz = int(self._sizes()[1 + self._nentities + vocab])
         rows = np.zeros(nnz, np.int32)
@@ -689,6 +710,47 @@ def _read_header_schema(path: str) -> dict:
             k = _decode_bytes(buf).decode("utf-8")
             meta[k] = _decode_bytes(buf)
     return json.loads(meta["avro.schema"])
+
+
+def scan_feature_keys(
+    paths: Sequence[str],
+    *,
+    label_field: str = "label",
+    max_workers: Optional[int] = None,
+) -> Tuple[List[str], int]:
+    """Native distinct-feature-key scan over Avro files — the
+    ``FeatureIndexingJob.scala:48-160`` vocabulary-building pass.
+    Multi-file inputs scan in parallel (per-file keysets union'd, like
+    the reference's per-partition dedup + distinct()).
+
+    Returns (keys, records_scanned) — the count lets callers reject
+    valid-but-empty inputs the same way the Python fallback does."""
+    if not paths:
+        raise FileNotFoundError("no input files")
+    schema = _read_header_schema(paths[0])
+    field_prog, feat_desc = compile_schema(
+        schema, label_field=label_field, want_entities=False
+    )
+    vocabset = NativeVocabSet([], [])
+
+    threads = _default_decode_threads(len(paths), max_workers)
+
+    def scan_one(path: str) -> Tuple[List[str], int]:
+        with NativeAvroReader(
+            field_prog, feat_desc, vocabset, (), collect_keys=True
+        ) as reader:
+            reader.feed_file(path, expected_schema=schema, decode_threads=threads)
+            return reader.distinct_keys(), reader.num_records
+
+    with vocabset:
+        per_file = _map_files(paths, scan_one, max_workers)
+        total = sum(n for _, n in per_file)
+        if len(per_file) == 1:
+            return per_file[0][0], total
+        merged = set()
+        for keys, _ in per_file:
+            merged.update(keys)
+        return list(merged), total
 
 
 # write ops (must mirror photon_ml_tpu_torch/native/avro_reader.cpp)

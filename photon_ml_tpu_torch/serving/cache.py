@@ -303,6 +303,9 @@ class TieredEntityCache:
         self._free: List[int] = list(range(self.capacity - 1, -1, -1))
         self._pending: "collections.deque" = collections.deque()
         self._pending_set: set = set()
+        # batches taken off the queue whose copy has not landed yet: flush()
+        # waits for these too, so that it is a barrier on the tier itself
+        self._in_flight = 0
         # bumped on every promotion batch (the tier's contents changed)
         self.generation = 0
         # re-entrant: the engine holds it across a whole scoring call
@@ -475,31 +478,16 @@ class TieredEntityCache:
                     e = self._pending.popleft()
                     self._pending_set.discard(e)
                     batch.append(e)
+                if batch:
+                    self._in_flight += 1
             if not batch:
                 break
             batches += 1
             try:
-                # chaos seam: the host->HBM promotion copy. raise = a
-                # failed tier transfer (entities stay cold, served
-                # fixed-effect-only); delay = a slow tier.
-                _faults.fire("serving.cache_tier", key=self.re_key)
-            except OSError:
-                if self.stats is not None:
-                    self.stats.record_cache_tier_error()
-                continue
-            with self._lock:
-                pairs = self._claim_slots(batch)
-                if not pairs:
-                    continue
-                slots = torch.as_tensor(
-                    [slot for _, slot in pairs], dtype=torch.int64
-                ).to(self.device)
-                rows_of = np.asarray([e for e, _ in pairs], np.int64)
-                for key, host in self._host.items():
-                    rows = torch.from_numpy(host[rows_of]).to(self.device)
-                    self._dev[key].index_copy_(0, slots, rows)
-                self.generation += 1
-            total += len(pairs)
+                total += self._promote_batch(batch)
+            finally:
+                with self._lock:
+                    self._in_flight -= 1
         if total and self.stats is not None:
             self.stats.record_promotions(total)
         if total:
@@ -516,9 +504,34 @@ class TieredEntityCache:
                 )
         return total
 
+    def _promote_batch(self, batch) -> int:
+        """One batch's host->device copy; the entities promoted."""
+        try:
+            # chaos seam: the host->HBM promotion copy. raise = a failed
+            # tier transfer (entities stay cold, served fixed-effect-only);
+            # delay = a slow tier.
+            _faults.fire("serving.cache_tier", key=self.re_key)
+        except OSError:
+            if self.stats is not None:
+                self.stats.record_cache_tier_error()
+            return 0
+        with self._lock:
+            pairs = self._claim_slots(batch)
+            if not pairs:
+                return 0
+            slots = torch.as_tensor([slot for _, slot in pairs], dtype=torch.int64).to(
+                self.device)
+            rows_of = np.asarray([e for e, _ in pairs], np.int64)
+            for key, host in self._host.items():
+                rows = torch.from_numpy(host[rows_of]).to(self.device)
+                self._dev[key].index_copy_(0, slots, rows)
+            self.generation += 1
+        return len(pairs)
+
     def flush(self, timeout: float = 10.0) -> None:
-        """Block until the pending queue is drained (worker mode) or
-        drain it inline (worker=False) — the determinism barrier."""
+        """Block until the pending queue is drained and every batch taken
+        off it has landed (worker mode), or drain it inline
+        (worker=False) — the determinism barrier."""
         if self._thread is None:
             self.promote_pending()
             return
@@ -528,7 +541,7 @@ class TieredEntityCache:
         self._wake.set()
         while _time.monotonic() < deadline:
             with self._lock:
-                if not self._pending:
+                if not self._pending and not self._in_flight:
                     return
             self._wake.set()
             _time.sleep(0.002)

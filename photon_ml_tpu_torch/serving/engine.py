@@ -39,9 +39,12 @@ means the card and raises without one.
 
 The engine is synchronous and thread-safe for scoring; coalescing of
 concurrent requests belongs to :mod:`.batcher`, versioning/hot-reload to
-:mod:`.registry`. Not ported: the drift monitor (``baseline`` / ``drift``,
-ROADMAP.md queue A item 5), the cost book's MFU on score spans (item 10)
-and the entity-sharded engine (item 9).
+:mod:`.registry`. With a baseline (``baseline=``, or the export's
+``quality-fingerprint.json`` read by ``from_model_dir``) the engine carries
+a :class:`~photon_ml_tpu_torch.obs.quality.DriftMonitor` that samples the
+unpadded host features and the scores of every batch that is not
+fixed-effect-only. Not ported: the cost book's MFU on score spans (ROADMAP.md
+queue A item 10) and the entity-sharded engine (item 9).
 """
 
 from __future__ import annotations
@@ -74,11 +77,6 @@ from photon_ml_tpu_torch.utils.device import resolve_device, to_numpy
 
 DEFAULT_MIN_BUCKET = 8
 DEFAULT_MAX_BUCKET = 1024
-
-_DRIFT_UNPORTED = (
-    "the drift monitor (baseline / drift) is not ported: ROADMAP.md queue A "
-    "item 5 (obs.quality)"
-)
 
 
 def bucket_size(n: int, min_bucket: int = DEFAULT_MIN_BUCKET) -> int:
@@ -299,8 +297,6 @@ class ScoringEngine:
         admission_log_path: Optional[str] = None,
         compile_cache: Optional["SharedCompileCache"] = None,
     ):
-        if baseline is not None or drift is not None:
-            raise NotImplementedError(_DRIFT_UNPORTED)
         self.device = resolve_device(device)
         self.dtype = dtype
         self.np_dtype = torch.empty((), dtype=dtype).numpy().dtype
@@ -311,9 +307,18 @@ class ScoringEngine:
         self.shard_vocabs = dict(shard_vocabs or {})
         self.re_vocabs = dict(re_vocabs or {})
         self.stats = stats if stats is not None else ServingStats()
-        # the drift monitor is not ported (queue A item 5); the registry's
-        # health() reads this attribute
-        self.drift = None
+        # drift monitor: live request-feature/score sketches vs the model's
+        # train-time baseline (obs.quality). It lives ON the engine, so a
+        # registry hot reload swaps the baseline atomically with the model;
+        # gauges and events go to this engine's stats registry
+        if drift is not None:
+            self.drift = drift
+        elif baseline is not None:
+            from photon_ml_tpu_torch.obs.quality import DriftMonitor
+
+            self.drift = DriftMonitor(baseline, registry=self.stats.registry)
+        else:
+            self.drift = None
         self._coord_order = sorted(params)
         self._used_shards = sorted({self.shards[name] for name in self._coord_order})
         # feature dims observable from the raw params (dense tables, fixed
@@ -532,11 +537,16 @@ class ScoringEngine:
         """Load a GAME model export (training-output layout, written by
         either package) and stand up an engine over it. Integrity
         verification belongs to the registry (:mod:`.registry`) — this
-        loads whatever is on disk. The JAX engine's drift baseline from
-        the export's quality fingerprint is not ported (queue A item 5)."""
+        loads whatever is on disk. The export's quality fingerprint, when
+        present and readable, becomes the engine's drift baseline; a
+        missing or corrupt one is counted (``quality.baseline_*``) and the
+        engine serves without drift monitoring — never refuses to serve."""
         from photon_ml_tpu_torch.io.models import load_game_model_auto
+        from photon_ml_tpu_torch.obs.quality import try_load_fingerprint
 
         params, shards, random_effects, shard_vocabs, re_vocabs = load_game_model_auto(root)
+        if "baseline" not in kw and "drift" not in kw:
+            kw = dict(kw, baseline=try_load_fingerprint(root))
         return cls(params, shards, random_effects, shard_vocabs, re_vocabs, **kw)
 
     # -- scoring body ------------------------------------------------------
@@ -830,6 +840,11 @@ class ScoringEngine:
                 self.stats.record_bucket_latency(bucket, elapsed)
         if offsets is not None:
             out = out + np.asarray(offsets, out.dtype)
+        if self.drift is not None and not fixed_only:
+            # this batch's unpadded host features and scores into the live
+            # drift window; degraded batches are skipped (fixed-effect-only
+            # scores are another distribution by design, not model drift)
+            self.drift.observe({s: np.asarray(features[s]) for s in self._used_shards}, out)
         return out
 
     def score(

@@ -1323,9 +1323,12 @@ def test_game_training_on_the_card_matches_the_cpu(cuda, tmp_path):
     launches = dispatch.launch_counts()
     history = [h for s in run.sweep for h in s["history"]]
     fixed = [h for h in history if h.coordinate == "global"]
+    # ell_matvec: each combo's initial score, each fixed-effect rescore,
+    # each validation, and the quality fingerprint's margin pass (the ELL
+    # fixed effect of the best combo, once)
     want = {"fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
             "fused_hvp": sum(h.cg_iterations for h in fixed),
-            "ell_matvec": len(run.sweep) + len(fixed) + len(history)}
+            "ell_matvec": len(run.sweep) + len(fixed) + len(history) + 1}
     # each fused pass's X^T side is one launch of the column-sorted reduce
     want["colsort_reduce"] = want["fused_vgc"] + want["fused_hvp"]
     assert launches == {k: want.get(k, 0) for k in launches}
@@ -1339,6 +1342,46 @@ def test_game_training_on_the_card_matches_the_cpu(cuda, tmp_path):
         for name, p in c["model"].params.items():
             scale = max(1.0, float(p.abs().max()))
             assert float((g["model"].params[name].cpu() - p).abs().max()) <= 1e-6 * scale
+
+
+def test_game_fingerprint_margins_on_the_card_equal_the_cpus(cuda, tmp_path):
+    """The quality fingerprint's margin pass over a CUDA ELL design (one
+    ell_matvec per ELL fixed effect) against the same model's on the CPU:
+    the same rows, label, feature and entity sketches; the margins within
+    1e-10, the margin sketch's moments within 1e-9 relative (phase 5g's
+    gate)."""
+    import json
+
+    params = {**_game_training_files(str(tmp_path)), "output_dir": str(tmp_path / "card")}
+    run = run_game_training(params)
+    with open(os.path.join(run.output_dirs[0], "quality-fingerprint.json")) as f:
+        card = json.load(f)
+    from photon_ml_tpu_torch.game.scoring import score_game_data
+    from photon_ml_tpu_torch.io.ingest import IngestSource
+    from photon_ml_tpu_torch.obs import quality
+
+    fp = quality.install_fingerprint_collector()
+    try:
+        data, _, _, _ = IngestSource(params["train_input"]).game_data(
+            run.shard_vocabs, ["userId"], sparse_shards={"gshard"})
+    finally:
+        quality.uninstall_fingerprint_collector()
+    shards = {"global": "gshard", "per-user": "ushard"}
+    res = {"global": None, "per-user": "userId"}
+    model = {n: (p.cpu() if torch.is_tensor(p) else p)
+             for n, p in run.sweep[run.best_index]["model"].params.items()}
+    before = dispatch.launch_counts()["ell_matvec"]
+    card_margins = score_game_data(model, shards, res, data, device=cuda)
+    assert dispatch.launch_counts()["ell_matvec"] == before + 1
+    cpu_margins = score_game_data(model, shards, res, data, device="cpu")
+    fp.observe_margins(cpu_margins.numpy() + data.offsets, np.asarray(data.weights))
+    cpu = fp.to_dict()
+    assert float((card_margins.cpu() - cpu_margins).abs().max()) <= 1e-10
+    for key in ("rows", "label", "shards", "categoricals"):
+        assert card[key] == cpu[key], key
+    for key in ("count", "weight", "mean", "m2"):
+        a, b = card["margin"]["moments"][key], cpu["margin"]["moments"][key]
+        assert a == b or abs(a - b) <= 1e-9 * abs(b), key
 
 
 from photon_ml_tpu_torch.game.data import build_bucketed_random_effect_design  # noqa: E402
@@ -1501,6 +1544,47 @@ def test_serving_engine_on_the_card_matches_the_cpu_without_new_segments(cuda):
                                 fixed_only=i % 5 == 0)
         assert np.all(np.abs(got - want) <= 1e-10 * np.maximum(1.0, np.abs(want)))
     assert card.compile_count == 8 and bucket_builds() == builds
+    assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
+
+
+def test_drift_monitor_on_the_card(cuda):
+    """A CUDA engine with a baseline observes the unpadded host rows and
+    scores of each batch that is not fixed-effect-only: its reports equal a
+    CPU engine's after the same batches, and warmup leaves no build and no
+    new CUDA segment to the monitored traffic."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.obs import quality
+    from photon_ml_tpu_torch.serving import ScoringEngine, bucket_builds
+
+    params, shards, res, (feats, ents) = _serving_model()
+    engines = []
+    for device in (None, "cpu"):
+        base = quality.BaselineFingerprint(max_features=16)
+        base.observe_rows("g", np.random.default_rng(1).normal(size=(2000, 300)))
+        base.observe_margins(np.random.default_rng(2).normal(size=2000) * 8.0)
+        engine = ScoringEngine(params, shards, res, baseline=base, device=device)
+        engine.drift.check_every_rows, engine.drift.min_rows = 128, 32
+        engine.drift.sample_every = 1
+        engine.warmup(max_batch=64, include_degraded=True)
+        engines.append(engine)
+    card, cpu = engines
+    torch.cuda.synchronize()
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    builds = bucket_builds()
+    for i in range(40):
+        n = 1 + (i * 29) % 64
+        shift = 3.0 if i >= 24 else 0.0
+        f = {"g": feats["g"][:n] + shift, "u": feats["u"][:n]}
+        e = {"userId": ents[:n]}
+        for engine in engines:
+            engine.score_arrays(f, e, fixed_only=i % 7 == 3)
+        assert card.drift.last_report == cpu.drift.last_report or all(
+            abs(card.drift.last_report[k] - cpu.drift.last_report[k]) <= 1e-9
+            for k in ("psi_max", "js_max"))
+    assert card.drift.checks == cpu.drift.checks >= 3
+    assert card.drift.alarms == cpu.drift.alarms >= 1
+    assert bucket_builds() == builds
     assert torch.cuda.memory_stats()["segment.all.allocated"] == segments
 
 

@@ -6,7 +6,9 @@ history, metrics and coefficients agree; each package's saved model loads
 in the other and scores the same. Then every setting the port does not run
 yet raises, naming its ROADMAP item, and the settings that used to raise
 (projectors, factored effects, a sparse random effect, checkpoints and
-resume) train as the JAX driver does."""
+resume, the quality fingerprint, shards without a feature file) train as
+the JAX driver does; the fingerprints in every export subdir are the JAX
+driver's within 1e-12 relative."""
 
 import json
 import os
@@ -216,6 +218,19 @@ def test_cli_main_on_cpu(inputs):
                                        "model-spec.json"))
 
 
+def test_cli_writes_the_fingerprint_unless_told_not_to(inputs):
+    """The fingerprint is the default, in every export subdir;
+    ``--no-quality-fingerprint`` turns it off, as in the JAX CLI."""
+    for flag, out in (([], "cli-fp"), (["--no-quality-fingerprint"], "cli-no-fp")):
+        cfg = str(inputs["tmp"] / f"{out}.json")
+        with open(cfg, "w") as f:
+            json.dump(_params(inputs, out, num_iterations=1), f)
+        tgame.main(["--config", cfg, "--device", "cpu", *flag])
+        for sub in ("0", "1"):
+            path = os.path.join(str(inputs["tmp"] / out), "all", sub, "quality-fingerprint.json")
+            assert os.path.exists(path) == (not flag)
+
+
 def test_default_device_is_cuda_and_raises_without_a_card(inputs):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -228,7 +243,7 @@ def test_default_device_is_cuda_and_raises_without_a_card(inputs):
 
 # a value that turns each unported setting on
 _ON = {"streamed_ingest": True,
-       "quality_fingerprint": True, "trace_dir": "trace", "metrics_every": 5.0,
+       "trace_dir": "trace", "metrics_every": 5.0,
        "profile_dir": "profile", "flight_dir": "flight", "convergence_report": True,
        "entity_shards": 2, "heartbeat_s": 1.0, "collective_timeout_s": 30.0,
        "sharded_ckpt": True, "collective_mode": "fused", "hot_columns": 3}
@@ -236,8 +251,7 @@ _UNPORTED_CASES = (
     [(name, {name: _ON[name]}, item) for name, (_, item) in UNPORTED_GAME_FIELDS.items()]
     + [(f"coordinate.{name}", {"coordinate": {name: _ON[name]}}, item)
        for name, (_, item) in UNPORTED_COORDINATE_FIELDS.items()]
-    + [("no feature file", {"feature_shards": {}}, "Ingest hooks"),
-       ("passes with a tolerance", {"passes_per_dispatch": 2,
+    + [("passes with a tolerance", {"passes_per_dispatch": 2,
                                     "convergence_tolerance": 1e-6},
         "Combo grid and dispatch chunks")]
 )
@@ -252,6 +266,10 @@ _PORTED_CASES = [
     ("coordinate.latent_dim", {"coordinate": {"latent_dim": 2}}),
     ("sparse random effect", {"sparse_shards": ["ushard"],
                               "coordinate": {"projector": "INDEX_MAP"}}),
+    ("quality_fingerprint", {"quality_fingerprint": True}),
+    # both shards take the vocabulary of every key in the records (the
+    # native scan), with the fingerprint in both packages
+    ("no feature file", {"feature_shards": {}, "quality_fingerprint": True}),
 ]
 _PORTED = dict(_PORTED_CASES)
 _ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]
@@ -263,6 +281,8 @@ def _ported_setting_matches_jax(inputs, name, change):
     coord = change.pop("coordinate", {})
     tag = name.replace(" ", "-").replace(".", "-")
     both = []
+    # the JAX driver writes its fingerprint only where the case asks for it
+    jax_extra = {"quality_fingerprint": change.get("quality_fingerprint", False)}
     for pkg in ("jax", "torch"):
         p = _params(inputs, f"ported-{pkg}-{tag}", num_iterations=2, **change)
         p["coordinates"]["per-user"].update(coord)
@@ -272,13 +292,29 @@ def _ported_setting_matches_jax(inputs, name, change):
             first = {**p, "num_iterations": 1, "resume": False}
             (jax_run_game_training if pkg == "jax" else
              lambda q: tgame.run_game_training(q, device="cpu"))(
-                {**first, **({"quality_fingerprint": False} if pkg == "jax" else {})})
+                {**first, **(jax_extra if pkg == "jax" else {})})
         if pkg == "jax":
-            both.append(jax_run_game_training({**p, "quality_fingerprint": False}))
+            both.append(jax_run_game_training({**p, **jax_extra}))
         else:
             both.append(tgame.run_game_training(p, device="cpu"))
     ref, got = both
     _assert_same_runs(got, ref)
+    if "feature_shards" in change:
+        assert {s: v.index_to_key for s, v in got.shard_vocabs.items()} == {
+            s: v.index_to_key for s, v in ref.shard_vocabs.items()}
+        assert len(got.shard_vocabs["gshard"]) == D_G + D_U + 1
+    if change.get("quality_fingerprint"):
+        from test_torch_quality import assert_same_doc
+
+        assert got.output_dirs and len(got.output_dirs) == len(ref.output_dirs)
+        for gdir, rdir in zip(got.output_dirs, ref.output_dirs):
+            docs = []
+            for d in (gdir, rdir):
+                with open(os.path.join(d, "quality-fingerprint.json")) as f:
+                    docs.append(json.load(f))
+            assert_same_doc(*docs)
+            assert docs[0]["rows"] == 260 and docs[0]["categoricals"]["userId"]["weight"] > 0
+            assert sorted(docs[0]["shards"]) == ["gshard", "ushard"]
     if "checkpoint_every" in change:
         from photon_ml_tpu.io.checkpoint import latest_checkpoint as jax_latest
 

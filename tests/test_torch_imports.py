@@ -60,7 +60,9 @@ def test_scan_covers_the_port():
                 ("serving", "batcher.py"), ("serving", "registry.py"),
                 ("serving", "cache.py"), ("cli", "serve.py"), ("obs", "__init__.py"),
                 ("obs", "metrics.py"), ("obs", "sketches.py"), ("obs", "exemplars.py"),
-                ("obs", "reqtrace.py"), ("obs", "trace.py"), ("obs", "device.py")):
+                ("obs", "reqtrace.py"), ("obs", "trace.py"), ("obs", "device.py"),
+                ("obs", "quality.py"), ("cli", "build_index.py"), ("io", "ingest.py"),
+                ("io", "native.py")):
         assert os.path.join("photon_ml_tpu_torch", *rel) in files
 
 

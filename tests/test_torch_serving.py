@@ -13,8 +13,11 @@ bucket builds over 1000 mixed-size calls after warmup;
 ``precompact_model``; the micro-batcher; the registry (manifest, bad
 export, hot reload under load, the watch root); the tiered entity cache;
 and the serve protocol, whose ``metrics`` command is held to the JAX
-CLI's Prometheus text on the same model and lines. Every thread is joined
-with a timeout.
+CLI's Prometheus text on the same model and lines. The drift monitor
+(``baseline=``, or the export's quality fingerprint through
+``from_model_dir`` and the registry) gives the JAX engine's reports after
+the same batches, and the ``feedback`` / ``quality`` / ``drift`` commands
+the JAX CLI's replies. Every thread is joined with a timeout.
 """
 
 import json
@@ -314,8 +317,6 @@ class TestEngineParity:
 
     def test_refusals(self, rng, tmp_path):
         _, pp, shards, res = _dense_model(rng)
-        with pytest.raises(NotImplementedError, match="item 5"):
-            ScoringEngine(pp, shards, res, baseline=object(), **CPU)
         engine = ScoringEngine(pp, shards, res, **CPU)
         with pytest.raises(ValueError, match="shard vocabularies"):
             engine.featurize([ScoreRequest({"x": 1.0})])
@@ -328,6 +329,68 @@ class TestEngineParity:
                                labels=np.zeros(3), entity_ids={"userId": np.zeros(3, np.int32)})
         with pytest.raises(ValueError, match="featurizes densely"):
             engine.score_data(data)
+
+    @pytest.mark.parametrize("sample_every", [1, 4])
+    def test_drift_monitor_equals_jax_engine(self, rng, sample_every):
+        """``baseline=`` (refused before the drift monitor was ported): the
+        same batches through ``score_arrays`` — quiet ones, degraded ones
+        (not observed) and shifted ones — give the JAX engine's reports,
+        snapshot and ``drift.*`` gauges; ``drift=`` takes a monitor as is."""
+        from photon_ml_tpu.obs import quality as jq
+        from photon_ml_tpu_torch.obs import quality as tq
+        from test_torch_quality import assert_same_doc
+
+        jp, pp, shards, res = _dense_model(rng)
+        feats, ents = _dense_arrays(rng, 2000)
+        margins = ScoringEngine(pp, shards, res, **CPU).score_arrays(feats, ents)
+        batches = [_dense_arrays(rng, int(rng.integers(30, 120))) for _ in range(60)]
+        runs = []
+        for mod, engine_cls, params in ((tq, ScoringEngine, pp),
+                                        (jq, jax_engine.ScoringEngine, jp)):
+            base = mod.BaselineFingerprint()
+            for shard in ("g", "u"):
+                base.observe_rows(shard, feats[shard])
+            base.observe_margins(margins)
+            kw = CPU if engine_cls is ScoringEngine else {}
+            engine = engine_cls(params, shards, res, baseline=base, **kw)
+            engine.drift.check_every_rows, engine.drift.min_rows = 256, 64
+            engine.drift.sample_every = sample_every
+            reports = []
+            for i, (f, e) in enumerate(batches):
+                shifted = {"g": f["g"] + (2.5 if i >= 36 else 0.0), "u": f["u"]}
+                engine.score_arrays(shifted, e, fixed_only=(i % 5 == 2))
+                reports.append(engine.drift.last_report)
+            runs.append((reports, engine.drift.snapshot(),
+                         engine.stats.registry.snapshot()["gauges"]))
+        assert_same_doc(*runs)
+        snap = runs[0][1]
+        assert snap["checks"] >= 2 and snap["alarms"] >= 1
+        quiet = [r for r in runs[0][0][:36] if r is not None]
+        assert quiet and not any(r["alarm"] for r in quiet)
+        monitor = tq.DriftMonitor(tq.BaselineFingerprint())
+        assert ScoringEngine(pp, shards, res, drift=monitor, **CPU).drift is monitor
+
+    def test_from_model_dir_loads_the_fingerprint(self, rng, tmp_path):
+        """An export's fingerprint becomes the engine's baseline (as the JAX
+        engine reads it); a missing or torn one is counted and the engine
+        serves without monitoring."""
+        from photon_ml_tpu_torch.obs import quality as tq
+
+        root = _save_disk_model(str(tmp_path / "m"))
+        engine = ScoringEngine.from_model_dir(root, **CPU)
+        assert engine.drift is None
+        fp = tq.BaselineFingerprint()
+        fp.observe_batch(rng.normal(size=(300, 3)), np.zeros(300), shard="us")
+        fp.save(root)
+        engine = ScoringEngine.from_model_dir(root, **CPU)
+        want = jax_engine.ScoringEngine.from_model_dir(root)
+        assert engine.drift.baseline.to_dict() == want.drift.baseline.to_dict()
+        assert engine.drift.registry is engine.stats.registry
+        with open(os.path.join(root, "quality-fingerprint.json"), "w") as f:
+            f.write("{torn")
+        engine = ScoringEngine.from_model_dir(root, **CPU)
+        assert engine.drift is None
+        assert ScoringEngine.from_model_dir(root, baseline=fp, **CPU).drift.baseline is fp
 
     def test_default_device_is_the_card(self, rng, tmp_path):
         if torch.cuda.is_available():
@@ -603,6 +666,26 @@ class TestRegistry:
         with pytest.raises(NotImplementedError, match="item 9"):
             ModelRegistry(serving_shards=2, **CPU)
 
+    def test_hot_reload_swaps_the_drift_baseline(self, rng, tmp_path):
+        """The monitor lives on the engine: a reload to an export with a
+        fingerprint brings its baseline (health() reports it, as the JAX
+        registry does), one without serves unmonitored."""
+        from photon_ml_tpu_torch.obs import quality as tq
+
+        root = _save_disk_model(str(tmp_path / "v1"))
+        fp = tq.BaselineFingerprint()
+        fp.observe_batch(rng.normal(size=(300, 3)), np.zeros(300), shard="us")
+        fp.save(root)
+        port_models.write_model_manifest(root)
+        reg = _port_registry(root)
+        jreg = JaxModelRegistry(warmup_max_batch=8, dtype=jnp.float64)
+        jreg.load(root)
+        assert reg.current.engine.drift.baseline.rows == 300
+        assert reg.health()["drift"] == jreg.health()["drift"] == {
+            "checks": 0, "alarms": 0, "psi_max": None}
+        reg.load(_save_disk_model(str(tmp_path / "v2"), scale=2.0))
+        assert reg.current.engine.drift is None and reg.health()["drift"] is None
+
 
 # ---------------------------------------------------------------------------
 # tiered entity cache
@@ -727,7 +810,11 @@ def _port_registry(root, **kw):
 
 class TestServeStream:
     def test_serve_lines_json_protocol(self, tmp_path):
-        reg = _port_registry(_save_disk_model(str(tmp_path / "m")))
+        from photon_ml_tpu.obs.quality import OnlineQuality as JaxOnlineQuality
+        from photon_ml_tpu_torch.obs.quality import OnlineQuality
+
+        root = _save_disk_model(str(tmp_path / "m"))
+        reg = _port_registry(root)
         batcher = MicroBatcher(reg.score, max_wait_ms=0.5, stats=reg.stats)
         lines = [
             json.dumps({"features": {"uf0": 1.0}, "entities": {"userId": "u0"}}),
@@ -743,10 +830,20 @@ class TestServeStream:
             json.dumps({"features": "no"}),
         ]
         out = StringIO()
-        scored = port_serve.serve_lines(iter(lines), out, batcher, reg, reg.stats)
+        scored = port_serve.serve_lines(iter(lines), out, batcher, reg, reg.stats,
+                                        quality=OnlineQuality(registry=reg.stats.registry))
         assert batcher.drain()
         replies = [json.loads(s) for s in out.getvalue().splitlines()]
         assert scored == 2
+        # the JAX CLI's replies to the same lines on the same export
+        jreg = JaxModelRegistry(warmup_max_batch=8, dtype=jnp.float64)
+        jreg.load(root)
+        jb = JaxMicroBatcher(jreg.score, max_wait_ms=0.5, stats=jreg.stats)
+        jout = StringIO()
+        jax_serve.serve_lines(iter(lines), jout, jb, jreg, jreg.stats,
+                              quality=JaxOnlineQuality(registry=jreg.stats.registry))
+        assert jb.drain()
+        jreplies = [json.loads(s) for s in jout.getvalue().splitlines()]
         expect0 = reg.score([ScoreRequest({"uf0": 1.0}, {"userId": "u0"})])[0]
         assert abs(replies[0]["score"] - expect0) < 1e-9
         assert abs(replies[1]["score"] - (2.0 * 2 + 1.0)) < 1e-9
@@ -755,7 +852,8 @@ class TestServeStream:
         assert "bad JSON" in replies[4]["error"]
         assert "unknown cmd" in replies[5]["error"]
         assert replies[6]["version"] == "m" and replies[6]["breaker"]["state"] == "closed"
-        assert "item 5" in replies[7]["error"] and "item 5" in replies[8]["error"]
+        assert replies[7] == jreplies[7] == {"ok": True, "window_n": 1}
+        assert replies[8] == jreplies[8] and "no drift monitor" in replies[8]["error"]
         assert "item 10" in replies[9]["error"]
         assert "'features' must be an object" in replies[10]["error"]
 
@@ -861,6 +959,52 @@ class TestServeMain:
         assert "qps" in replies[2] and "photon_serving_requests" in replies[3]["prometheus"]
         assert replies[4]["version"] == "m" and "p99_ms" in replies[5]
         assert json.load(open(stats_json))["requests"] == 2
+
+    def test_main_answers_feedback_quality_and_drift(self, rng, tmp_path):
+        """``cli.serve`` over a pipe on an export with a fingerprint: the
+        drift monitor is on, feedback lines fill the online-quality window
+        (its AUC the exact one over the same labels and scores), and the
+        replies are those of the JAX CLI's handler on the same lines."""
+        from photon_ml_tpu.obs.quality import OnlineQuality as JaxOnlineQuality
+        from photon_ml_tpu_torch.obs import quality as tq
+
+        root = _save_disk_model(str(tmp_path / "m"))
+        fp = tq.BaselineFingerprint()
+        fp.observe_batch(rng.normal(size=(300, 3)), np.zeros(300), shard="us")
+        fp.observe_margins(rng.normal(size=300) * 5.0)
+        fp.save(root)
+        port_models.write_model_manifest(root)
+        feedback = [(float(i % 3 == 0), float(rng.normal()), 1.0 + (i % 2)) for i in range(9)]
+        lines = ([json.dumps({"features": {"uf0": 1.0}, "entities": {"userId": "u1"}})]
+                 + [json.dumps({"cmd": "feedback", "label": y, "score": s, "weight": w})
+                    for y, s, w in feedback]
+                 + [json.dumps({"cmd": c}) for c in ("quality", "drift")]
+                 + [json.dumps({"cmd": "feedback", "label": 1})])
+        proc = subprocess.run(
+            [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve", "--model-dir", root,
+             "--device", "cpu", "--max-wait-ms", "0.5"],
+            input="\n".join(lines) + "\n", capture_output=True, text=True, timeout=120,
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+        )
+        assert proc.returncode == 0, proc.stderr
+        replies = [json.loads(s) for s in proc.stdout.splitlines()]
+        jreg = JaxModelRegistry(warmup_max_batch=8, dtype=jnp.float64)
+        jreg.load(root)
+        handle = jax_serve.make_admin_handler(
+            JaxMicroBatcher(jreg.score, stats=jreg.stats), jreg, jreg.stats,
+            quality=JaxOnlineQuality(registry=jreg.stats.registry))
+        jreg.score([jax_engine.ScoreRequest({"uf0": 1.0}, {"userId": "u1"})])
+        want = [handle(json.loads(line)) for line in lines[1:]]
+        assert len(replies) == 13 and replies[1:11] == want[:10]
+        assert replies[10]["window_n"] == 9 and replies[10]["total"] == 9
+        y, sc, w = (np.asarray(c) for c in zip(*feedback))
+        assert replies[10]["auc"] == round(tq.exact_auc(y, sc, w), 6)
+        for key in ("psi_alarm", "baseline_rows", "checks", "alarms", "last_report"):
+            assert replies[11][key] == want[10][key]
+        # commands run when read: the scored line may not have reached the
+        # engine yet
+        assert replies[11]["baseline_rows"] == 300 and replies[11]["window_rows"] in (0, 1)
+        assert "error" in replies[12] and replies[12] == want[11]
 
     def test_sigterm_drains_and_exits_clean(self, tmp_path):
         """SIGTERM reaches the batcher through the port's

@@ -10,7 +10,9 @@ CG iterations per lambda, exactly; coefficients and variances within
 1e-8 x max(1, ||.||_inf); validation metrics within 1e-8; the same best
 index; feature-summary.tsv values within rtol 1e-12. A model written by
 either package loads in the other; the diagnostic reports are the same
-HTML once the output directories are named alike.
+HTML once the output directories are named alike. The quality fingerprint
+(the port's default, as in JAX) is the JAX driver's within 1e-12
+relative, and both text writers write the JAX writers' bytes.
 """
 
 import json
@@ -224,8 +226,44 @@ UNPORTED = [(name, value) for name, value in (
 )]
 
 
+# the pins of settings this port now runs: each is a parity case of the
+# driver against the JAX driver, under the same test id
+PORTED = {"quality_fingerprint"}
+
+
+def _fingerprint_matches_jax(fixture):
+    """The dense driver without a feature file (the native vocabulary
+    scan) writes quality-fingerprint.json as the JAX driver does: the same
+    rows, label, per-column feature sketches and names, and the chosen
+    model's margin sketch, within 1e-12 relative."""
+    from test_torch_quality import assert_same_doc
+
+    kw = dict(optimizer="TRON", quality_fingerprint=True)
+    ref = jax_run(_params(fixture, "jax-fingerprint", **kw))
+    got = ttrain.run_glm_training(_params(fixture, "port-fingerprint", **kw), device="cpu")
+    _assert_same_runs(got, ref)
+    docs = []
+    for run in (got, ref):
+        with open(os.path.join(run.params.output_dir, "quality-fingerprint.json")) as f:
+            docs.append(json.load(f))
+    assert_same_doc(*docs)
+    assert docs[0]["rows"] == 300 and len(docs[0]["shards"]["features"]) == D + 1
+    assert docs[0]["margin"]["moments"]["count"] == 300
+    # the flag turns it off as in JAX
+    out = fixture["tmp"] / "port-no-fingerprint"
+    cfg = fixture["tmp"] / "no-fingerprint.json"
+    cfg.write_text(json.dumps(_params(fixture, "port-no-fingerprint", sparse=True)))
+    ttrain.main(["--config", str(cfg), "--device", "cpu", "--no-quality-fingerprint"])
+    assert not (out / "quality-fingerprint.json").exists() and (out / "best-model.avro").exists()
+
+
 @pytest.mark.parametrize("field,value", UNPORTED)
 def test_unported_paths_raise_and_name_their_roadmap_item(fixture, field, value):
+    """Named for the pins it holds: each setting the port does not run
+    raises naming its ROADMAP item; each it now runs matches JAX."""
+    if field in PORTED:
+        _fingerprint_matches_jax(fixture)
+        return
     params = {**_params(fixture, f"port-unported-{field}"), field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         ttrain.run_glm_training(params, device="cpu")
@@ -254,6 +292,65 @@ def test_model_text_writes_nonzeros_and_the_intercept(tmp_path):
     lines = path.read_text().splitlines()
     assert lines[0] == "b\tt\t2.5" and len(lines) == 2
     save_glm_model(str(tmp_path / "m.avro"), Coefficients(torch.tensor([0.0, 2.5, 0.0])), vocab)
+
+
+# every value the writers must print as Python's float repr does
+SPECIAL = [float("nan"), float("inf"), -0.0, 1e-05, float("-inf"), 0.0, 1.5e300, 5e-324,
+           -1e-05, 0.1, 2.0 / 3.0, 123456789.0, 1e16, -7.0]
+
+
+def _writer_vocab(intercept=True):
+    keys = (["a\x01", "b\x01t", "naïve\x01térm", "x\x01y\x01z", "noterm", "é\x01",
+             "\u00e9\x01\u4e2d"] + [f"h\x01{i}" for i in range(300)])
+    return keys, FeatureVocabulary(keys, add_intercept=intercept), JVocab(
+        keys, add_intercept=intercept)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("intercept_value", [0.0, -0.0, 0.75])
+def test_model_text_bytes_equal_jax(tmp_path, dtype, intercept_value):
+    """The column-wise writer against the JAX driver's per-row loop:
+    non-ASCII and odd keys, nan/inf/-0.0/1e-05 and zeros (skipped but for
+    the intercept), in the model's dtype."""
+    from photon_ml_tpu.cli.train import write_model_text as jax_write
+
+    _, vocab, jvocab = _writer_vocab()
+    rng = np.random.default_rng(3)
+    values = rng.normal(size=len(vocab)) * 10.0 ** rng.integers(-8, 8, len(vocab))
+    values[::4] = 0.0
+    values[:len(SPECIAL)] = SPECIAL
+    values[vocab.intercept_index] = intercept_value
+    with np.errstate(over="ignore"):
+        values = values.astype(dtype)
+    ttrain.write_model_text(str(tmp_path / "p.txt"), torch.from_numpy(values), vocab)
+    jax_write(str(tmp_path / "j.txt"), values, jvocab)
+    got, want = (tmp_path / "p.txt").read_bytes(), (tmp_path / "j.txt").read_bytes()
+    assert got == want and b"nan" in got and b"-inf" in got
+    assert (b"\t1e-05\n" in got) == (dtype == "float64")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_feature_summary_bytes_equal_jax(tmp_path, dtype):
+    from types import SimpleNamespace
+
+    from photon_ml_tpu.cli.train import write_feature_summary as jax_write
+
+    _, vocab, jvocab = _writer_vocab()
+    rng = np.random.default_rng(4)
+    cols = {}
+    for i, c in enumerate(ttrain.SUMMARY_COLUMNS):
+        v = rng.normal(size=len(vocab))
+        v[::3] = 0.0
+        v[i:i + len(SPECIAL)] = SPECIAL
+        with np.errstate(over="ignore"):
+            cols[c] = v.astype(dtype)
+    cols["num_nonzeros"] = rng.integers(0, 9, len(vocab)).astype(dtype)
+    ttrain.write_feature_summary(
+        str(tmp_path / "p.tsv"),
+        SimpleNamespace(**{c: torch.from_numpy(v) for c, v in cols.items()}), vocab)
+    jax_write(str(tmp_path / "j.tsv"), SimpleNamespace(**cols), jvocab)
+    got, want = (tmp_path / "p.tsv").read_bytes(), (tmp_path / "j.tsv").read_bytes()
+    assert got == want and got.count(b"\n") == len(vocab) + 1
 
 
 # -- the solver options and the diagnostics report ----------------------------
@@ -300,7 +397,9 @@ def test_solver_options_and_diagnostics_match_jax(fixture, monkeypatch, case):
         path = fixture["tmp"] / "bounds.json"
         path.write_text(json.dumps(CONSTRAINTS))
         kw["constraint_file"] = str(path)
-    ref = jax_run({**_params(fixture, f"jax-{case}", **kw), "quality_fingerprint": False})
+    # both drivers at their default, the quality fingerprint on: the
+    # report's parameter table names it
+    ref = jax_run(_params(fixture, f"jax-{case}", **kw))
     got = ttrain.run_glm_training(_params(fixture, f"port-{case}", **kw), device="cpu")
     _assert_same_runs(got, ref)
     for g, r in zip(got.models, ref.models):
