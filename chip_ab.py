@@ -48,6 +48,13 @@ times the sparse kernel lab's kernels instead: ``lane_gather`` beside
 (n = 200,000, k = 32, d = 120,000, Zipf(1.1)) and on the ``uniform``
 design in f32 (``lab``, ``uniform``), each as ``ms``, ``device_ms`` and
 ``host_ms`` above.
+
+    python3 chip_ab.py --writers
+
+times ``--lab``'s calls of this checkout in turns with ``chip_smoke.py``'s
+input writers idle and busy (at nice 19, as the smoke run starts them,
+and at nice 0): the host's part of a call beside the writers that the
+smoke run keeps busy during its kernel phases. One JSON line.
 """
 
 from __future__ import annotations
@@ -71,6 +78,9 @@ def _smoke():
                                                   os.path.join(HERE, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    # a module loaded under this name cannot be imported by the smoke run's
+    # spawned writer processes: its records are encoded here, at the call
+    module.write_examples_file = module.encode_examples
     return module
 
 
@@ -239,12 +249,10 @@ def worker(root: str, inputs=None) -> dict:
     return out
 
 
-def lab_worker(root: str) -> dict:
-    sys.path.insert(0, os.path.abspath(root))
-    cs = _smoke()
+def _lab_calls(cs):
+    """The lab's calls of ``--lab``, on their inputs on the card."""
     import torch
 
-    cs.build.build()
     lab = cs.sparse_kernel_lab
     x = lab.lab_inputs(*(int(a) for a in cs.LAB_ARGS), torch.device("cuda"))
     tiles = cs.column_sorted_tiles(x.cols, x.vals, x.d)
@@ -267,12 +275,56 @@ def lab_worker(root: str) -> dict:
         ("uniform", "onehot_gather", lambda: cs.onehot_gather(utiles, w)),
         ("uniform", "onehot_reduce", lambda: cs.onehot_reduce(utiles, uupd)),
     ]
-    out = {"root": root, "card": cs.nvidia_smi(), "times": []}
+    return calls
+
+
+def _time_calls(cs, calls) -> list:
+    times = []
     for shape, kernel, fn in calls:
         ms = cs.time_ms(fn)
         device_ms, host_ms = cs.device_ms(fn)
-        out["times"].append({"shape": shape, "kernel": kernel, "dtype": "f32", "ms": ms,
-                             "device_ms": device_ms, "host_ms": host_ms})
+        times.append({"shape": shape, "kernel": kernel, "dtype": "f32", "ms": ms,
+                      "device_ms": device_ms, "host_ms": host_ms})
+    return times
+
+
+def lab_worker(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    cs = _smoke()
+    cs.build.build()
+    return {"root": root, "card": cs.nvidia_smi(), "times": _time_calls(cs, _lab_calls(cs))}
+
+
+def writers_turns() -> dict:
+    """``--lab``'s calls of this checkout timed in turns with the smoke
+    run's input writers idle (``quiet``) and busy: every phase's records
+    drawn and handed to its writer processes (``write_inputs_ahead``) at
+    nice 19, as the smoke run starts them, and at nice 0; the order quiet,
+    nice 19, nice 0, quiet. A busy turn times the calls once the draws are
+    done and records how many of the writes were still running or queued
+    when its timing ended."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs  # by name: the spawned writers import it so
+
+    cs.build.build()
+    calls = _lab_calls(cs)
+    work = os.path.join(HERE, "_ab_work", "writers")
+    out = {"card": cs.nvidia_smi(), "turns": []}
+    try:
+        for turn, nice in (("quiet", None), ("nice 19", 19), ("nice 0", 0), ("quiet", None)):
+            if nice is not None:
+                shutil.rmtree(work, ignore_errors=True)
+                cs.start_writers(nice=nice)
+                cs.write_inputs_ahead(work)
+            rec = {"turn": turn, "times": _time_calls(cs, calls)}
+            if nice is not None:
+                rec["writes_unfinished"] = sum(not f.done() for f in cs._written.values())
+                rec["writes"] = len(cs._written)
+                cs.stop_writers()
+            out["turns"].append(rec)
+    finally:
+        cs.stop_writers()
+        shutil.rmtree(os.path.join(HERE, "_ab_work"), ignore_errors=True)
     return out
 
 
@@ -288,6 +340,9 @@ def _last_line(args, cwd):
 
 
 def main(argv) -> int:
+    if argv == ["--writers"]:
+        print(json.dumps(writers_turns()), flush=True)
+        return 0
     if len(argv) == 3 and argv[0] == "--worker" and argv[2] == "--lab":
         print(json.dumps(lab_worker(argv[1])), flush=True)
         return 0

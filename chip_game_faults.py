@@ -96,6 +96,8 @@ def main() -> int:
         (gpath, upath), (train, heldout), _ = chip_smoke.write_game_training_inputs(
             work, chip_smoke.TRAIN_RECORDS, chip_smoke.HELDOUT_RECORDS, chip_smoke.D_HASHED,
             chip_smoke.GAME_TRAIN_USERS)
+        chip_smoke.wait_written(train, heldout)
+        chip_smoke.stop_writers()
         params = chip_smoke.game_train_params(work, train, heldout, gpath, upath)
         t0 = time.perf_counter()
         cpu = run_game_training({**params, "output_dir": os.path.join(work, "cpu")},

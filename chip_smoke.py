@@ -8,7 +8,12 @@ whenever any phase fails. Phases, in order:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, from ``photon_ml_tpu_torch/
-   kernels/csrc``, one ``nvcc`` per source, all at once;
+   kernels/csrc``, one ``nvcc`` per source, all at once; then every driver
+   phase's records drawn (in each phase's order, from its seeds) and
+   handed to 4 worker processes at nice 19, which encode and write them
+   with the Python codec while phases 3-4b hold the card
+   (``write_inputs_ahead``);
+   each phase waits for its own files;
 3. kernel: ``ell_matvec`` against its plain PyTorch version on the card at
    n = 2^22 rows, k = 40 slots, d = 2^20 columns, with padding slots and
    duplicate ids, for (f64, f64), (f32, f32) and (bf16, f32); times of the
@@ -109,7 +114,14 @@ whenever any phase fails. Phases, in order:
    at phase 5c's layout on 2^13 + 2^11 records with the global shard
    without a feature file (the from-records vocabulary, the records' own
    keys), counted as 5c's plus the fingerprint's pass, a fingerprint in
-   every export subdir; that export through ``ScoringEngine.from_model_dir``
+   every export subdir (the fixed effect at phase 5c's tolerance, 1e-15);
+   the same GAME run again with ``hot_columns: -1`` on ``global`` (a
+   hybrid design inside the fixed effect), held to the ELL run: the same
+   best combo, per-update objectives within 1e-7 relative, the per-user
+   table within 1e-6 of its scale, and its launches to its solves and
+   split (one ``ell_matvec`` per cold segment per margins pass, one
+   reduce per segment that holds an entry per X^T pass); that export
+   through ``ScoringEngine.from_model_dir``
    (its drift monitor set from the fingerprint): the training records in
    calls of 64, every drift check under the 0.25 PSI alarm (features and
    scores), their served scores' moments within 1e-9 of the
@@ -211,6 +223,19 @@ whenever any phase fails. Phases, in order:
    D. ``train_glm`` in memory: NEWTON on the dense intercept + 13 integer
       fields (d = 14) of the training records;
    with the variance pass timed on the card at the driver's shape;
+6h. hybrid designs (run after phase 7, on phase 6's files): phase 6's
+   driver with ``hot_columns`` -1 (the JAX package's split sized by column
+   counts) and 14 (the intercept and the 13 integer fields), each held to
+   phase 6's CPU models at phase 6's gates, its launches held to its
+   solves and its splits (``hybrid_expected_launches``), with H, each
+   segment's width and rows, the stored cold entries, the padded slots
+   and the solve seconds per lambda beside phase 6's printed; the
+   14-column run again under ``torch.profiler`` (the busy share), which
+   must end with the first run's w bits; then, for each split, each
+   segment's column-sorted copy built and timed, ``ell_matvec`` and the
+   reduce at the widest segment's shape held to their plain versions and
+   timed, the slab's ``torch.matmul`` both ways, the whole hybrid
+   ``matvec`` / ``rmatvec``, and the adds of the segments' (d,) outputs;
 8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -290,7 +315,16 @@ from photon_ml_tpu_torch.models.training import GLMTrainingConfig, OptimizerType
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
 from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
-from photon_ml_tpu_torch.ops.sparse import from_coo, matvec
+from photon_ml_tpu_torch.ops.sparse import (
+    cast_values,
+    cold_padded_slots,
+    from_coo,
+    matvec,
+    rmatvec,
+    stored_cold_entries,
+    to_hybrid,
+)
+from photon_ml_tpu_torch.kernels import colsort
 from photon_ml_tpu_torch.resilience import GracefulShutdown, read_preempted_marker
 from photon_ml_tpu_torch import obs
 from photon_ml_tpu_torch.obs import quality as quality_mod
@@ -1535,6 +1569,116 @@ def make_criteo_like(n: int, seed: int = SEED):
     return rows, cols.reshape(-1), vals.reshape(-1)
 
 
+# the smoke run's inputs: each phase's arrays are drawn in this process (the
+# seeds' order unchanged), and the records encoded and written by
+# ``encode_examples`` on worker processes, started at the first write and at
+# the lowest scheduling priority, so that the card's timed phases keep the
+# host's cores first; each phase waits for its own files (``wait_written``)
+_writers = None  # the worker pool, started by the first write
+_written = {}  # path -> its write's future
+WRITER_PROCESSES = 4
+
+
+def encode_examples(path: str, uid_prefix: str, labels: np.ndarray, offsets: np.ndarray,
+                    blocks, metadata=None) -> str:
+    """Write n TrainingExample records at ``path`` with the Python codec:
+    record i has uid ``uid_prefix + str(i)``, its label and offset, no
+    weight, the features of every block ``(name, (n, m) column ids, (n, m)
+    values)`` in block order (term: the column id), and a metadataMap of
+    each ``metadata`` key whose (n,) entry is not None (None: no map)."""
+    n = labels.shape[0]
+    blocks = [(name, c.tolist(), v.tolist()) for name, c, v in blocks]
+    labels, offsets = labels.tolist(), offsets.tolist()
+    records = (
+        {
+            "uid": f"{uid_prefix}{i}",
+            "label": float(labels[i]),
+            "features": [{"name": name, "term": str(c), "value": float(v)}
+                         for name, cols, vals in blocks for c, v in zip(cols[i], vals[i])],
+            "metadataMap": None if metadata is None else {
+                k: v[i] for k, v in metadata.items() if v[i] is not None},
+            "weight": None,
+            "offset": float(offsets[i]),
+        }
+        for i in range(n)
+    )
+    write_avro_file(path, TRAINING_EXAMPLE_SCHEMA, records)
+    return path
+
+
+def write_examples_file(path: str, *args) -> None:
+    """``encode_examples(path, *args)`` on a worker process;
+    ``wait_written(path)`` waits for it."""
+    _written[path] = start_writers().submit(encode_examples, path, *args)
+
+
+def wait_written(*paths) -> float:
+    """Wait for the pending writes of ``paths`` (a worker's error raised
+    here); returns the seconds waited."""
+    t0 = time.perf_counter()
+    for path in paths:
+        pending = _written.pop(path, None)
+        if pending is not None:
+            pending.result()
+    return time.perf_counter() - t0
+
+
+def start_writers(processes: int = WRITER_PROCESSES, nice: int = 19):
+    """The pool of writer processes, started at the first call (spawned:
+    they touch no CUDA state of this process), each at ``nice``, and
+    stopped at the latest when this process exits."""
+    global _writers
+    if _writers is None:
+        import atexit
+        import concurrent.futures
+        import multiprocessing
+
+        _writers = concurrent.futures.ProcessPoolExecutor(
+            processes, mp_context=multiprocessing.get_context("spawn"),
+            initializer=os.nice, initargs=(nice,))
+        atexit.register(stop_writers)
+    return _writers
+
+
+def stop_writers() -> None:
+    """Stop the writer processes, cancelling any write not yet begun."""
+    global _writers
+    if _writers is not None:
+        _writers.shutdown(wait=True, cancel_futures=True)
+        _writers = None
+    _written.clear()
+
+
+def write_inputs_ahead(work: str) -> dict:
+    """Every driver phase's inputs under ``work`` — phases 5, 5b, 5c, 5d
+    (and 5e, which reads 5d's), 6 and 5g's GAME half — drawn here in the
+    phases' order with their seeds, and written by ``WRITER_PROCESSES``
+    worker processes, which encode while the kernel phases hold the card;
+    each phase waits for its own files. Returns {phase: its writer's
+    return}, the ``inputs`` of each phase function."""
+    t0 = time.perf_counter()
+    ahead = {
+        "score": write_scoring_inputs(os.path.join(work, "score"), SCORE_RECORDS, D_HASHED),
+        "game": write_game_inputs(os.path.join(work, "game"), GAME_RECORDS, D_HASHED,
+                                  GAME_USERS, GAME_USER_COLS, GAME_ADS),
+        "game_train": write_game_training_inputs(
+            os.path.join(work, "game_train"), GAME_TRAIN_RECORDS, GAME_TRAIN_HELDOUT,
+            D_HASHED, GAME_TRAIN_USERS),
+        "game_proj": write_game_training_inputs(
+            os.path.join(work, "game_proj"), GAME_PROJ_RECORDS, GAME_PROJ_HELDOUT, D_HASHED,
+            GAME_TRAIN_USERS, user_cols=GAME_USER_COLS, n_ads=GAME_PROJ_ADS),
+        "train": write_training_inputs(os.path.join(work, "train"), TRAIN_RECORDS,
+                                       HELDOUT_RECORDS, D_HASHED),
+        "quality_game": write_game_training_inputs(
+            os.path.join(work, "quality", "game"), QUALITY_GAME_RECORDS,
+            QUALITY_GAME_HELDOUT, D_HASHED, QUALITY_GAME_USERS),
+    }
+    log(f"[inputs] every phase's records drawn (and the scoring models saved) in "
+        f"{time.perf_counter() - t0:.1f} s (set-up); {len(_written)} files being written by "
+        f"{WRITER_PROCESSES} processes")
+    return ahead
+
+
 def write_examples(path: str, n: int, d_hashed: int, w: np.ndarray, icpt: int,
                    seed: int, rng):
     """n TrainingExample records in the Criteo layout at ``path``, with
@@ -1547,22 +1691,8 @@ def write_examples(path: str, n: int, d_hashed: int, w: np.ndarray, icpt: int,
     margins = np.bincount(rows, vals * w[cols], minlength=n) + w[icpt] + offsets
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
     per_row = cols.size // n
-    c2, v2 = cols.reshape(n, per_row), vals.reshape(n, per_row)
-    records = (
-        {
-            "uid": f"r{i}",
-            "label": float(labels[i]),
-            "features": [
-                {"name": "h", "term": str(c), "value": float(v)}
-                for c, v in zip(c2[i].tolist(), v2[i].tolist())
-            ],
-            "metadataMap": None,
-            "weight": None,
-            "offset": float(offsets[i]),
-        }
-        for i in range(n)
-    )
-    write_avro_file(path, TRAINING_EXAMPLE_SCHEMA, records)
+    write_examples_file(path, "r", labels, offsets,
+                        [("h", cols.reshape(n, per_row), vals.reshape(n, per_row))])
     coo = (
         np.concatenate([rows, np.arange(n)]),
         np.concatenate([cols, np.full(n, icpt)]),
@@ -1635,11 +1765,15 @@ def device_busy(prof) -> dict:
 
 
 def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
-                **device_kw):
+                inputs=None, **device_kw):
     """Run the port's GLM scoring driver; ``device_kw`` is empty for the
-    card (the driver's default device)."""
+    card (the driver's default device). ``inputs``: the return of
+    ``write_scoring_inputs`` over ``work``, written ahead."""
     t0 = time.perf_counter()
-    model_dir, data, w, offsets, coo = write_scoring_inputs(work, n, d_hashed)
+    if inputs is None:
+        inputs = write_scoring_inputs(work, n, d_hashed)
+    model_dir, data, w, offsets, coo = inputs
+    wait_written(data)
     setup_s = time.perf_counter() - t0
     log(f"[score] wrote {n} records, {d_hashed} hashed columns + intercept, "
         f"model and vocabulary in {setup_s:.1f} s (set-up)")
@@ -1805,26 +1939,12 @@ def write_game_inputs(work: str, n: int, d_hashed: int, n_users: int, user_cols:
     labels = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-(margins + offsets)))).astype(np.float64)
 
     per_row = cols.size // n
-    c2, v2 = cols.reshape(n, per_row), vals.reshape(n, per_row)
-    records = (
-        {
-            "uid": f"g{i}",
-            "label": float(labels[i]),
-            "features": [{"name": "h", "term": str(c), "value": float(v)}
-                         for c, v in zip(c2[i].tolist(), v2[i].tolist())]
-            + [{"name": "u", "term": str(c), "value": float(v)}
-               for c, v in zip(ucols[i].tolist(), uvals[i].tolist())],
-            "metadataMap": {
-                "userId": f"user{users[i] if known_user[i] else n_users + i}",
-                **({"adId": f"ad{ads[i]}"} if has_ad[i] else {}),
-            },
-            "weight": None,
-            "offset": float(offsets[i]),
-        }
-        for i in range(n)
-    )
     data = os.path.join(work, "data", "part-00000.avro")
-    write_avro_file(data, TRAINING_EXAMPLE_SCHEMA, records)
+    write_examples_file(
+        data, "g", labels, offsets,
+        [("h", cols.reshape(n, per_row), vals.reshape(n, per_row)), ("u", ucols, uvals)],
+        {"userId": [f"user{users[i] if known_user[i] else n_users + i}" for i in range(n)],
+         "adId": [f"ad{ads[i]}" if has_ad[i] else None for i in range(n)]})
     icpt = np.full(n, gvocab.intercept_index)
     coo = (np.concatenate([rows, np.arange(n)]), np.concatenate([cols, icpt]),
            np.concatenate([vals, np.ones(n)]), len(gvocab), w_g)
@@ -1833,7 +1953,7 @@ def write_game_inputs(work: str, n: int, d_hashed: int, n_users: int, user_cols:
 
 def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int = D_HASHED,
                n_users: int = GAME_USERS, user_cols: int = GAME_USER_COLS,
-               n_ads: int = GAME_ADS, **device_kw):
+               n_ads: int = GAME_ADS, inputs=None, **device_kw):
     """Run the port's GAME scoring driver on the card (the driver's default
     device; ``device_kw`` names another for a rehearsal), with the counters
     set to 0 just before and read just after, then the same run under
@@ -1841,7 +1961,10 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
     and uids to the CPU's and the scores to the generator's margins, and
     time ``ell_matvec`` at the shape the driver gave it."""
     t0 = time.perf_counter()
-    model_dir, data, ref, coo = write_game_inputs(work, n, d_hashed, n_users, user_cols, n_ads)
+    if inputs is None:
+        inputs = write_game_inputs(work, n, d_hashed, n_users, user_cols, n_ads)
+    model_dir, data, ref, coo = inputs
+    wait_written(data)
     setup_s = time.perf_counter() - t0
     log(f"[game] wrote {n} records and a 4-coordinate GAME model ({d_hashed} hashed "
         f"columns + intercept, {n_users} users x {user_cols} columns, 2 x {n_ads} ads) "
@@ -2464,7 +2587,9 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
         margins = (np.bincount(rows, vals * w_g[cols], minlength=count)
                    + w_g[gvocab.intercept_index] + np.einsum("nd,nd->n", x_u, w_u[users])
                    + offsets)
-        extra = [[] for _ in range(count)]
+        per_row = cols.size // count
+        blocks = [("h", cols.reshape(count, per_row), vals.reshape(count, per_row))]
+        metadata = {"userId": [f"user{u}" for u in users.tolist()]}
         if user_cols:
             pick = xrng.integers(0, GAME_USER_POOL, (count, GAME_USER_PER_ROW))
             wcols = pools[users[:, None], pick]
@@ -2472,27 +2597,11 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
             ads = xrng.integers(0, n_ads, count)
             margins += (np.einsum("nj,nj->n", wvals, w_pool[users[:, None], pick])
                         + np.einsum("nd,nd->n", x_u, w_ad[ads]))
-            extra = [[{"name": "w", "term": str(c), "value": float(v)}
-                      for c, v in zip(wcols[i].tolist(), wvals[i].tolist())]
-                     for i in range(count)]
+            blocks.append(("w", wcols, wvals))
+            metadata["adId"] = [f"ad{a}" for a in ads.tolist()]
         labels = (rng.uniform(size=count) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
-        per_row = cols.size // count
-        c2, v2 = cols.reshape(count, per_row), vals.reshape(count, per_row)
-        records = (
-            {
-                "uid": f"t{i}",
-                "label": float(labels[i]),
-                "features": [{"name": "h", "term": str(c), "value": float(v)}
-                             for c, v in zip(c2[i].tolist(), v2[i].tolist())] + extra[i],
-                "metadataMap": {"userId": f"user{users[i]}",
-                                **({"adId": f"ad{ads[i]}"} if user_cols else {})},
-                "weight": None,
-                "offset": float(offsets[i]),
-            }
-            for i in range(count)
-        )
         path = os.path.join(work, label, "part-00000.avro")
-        write_avro_file(path, TRAINING_EXAMPLE_SCHEMA, records)
+        write_examples_file(path, "t", labels, offsets, blocks, metadata)
         paths.append(path)
         if label == "train":
             icpt = np.full(count, gvocab.intercept_index)
@@ -2530,8 +2639,9 @@ def game_train_params(work: str, train: str, heldout: str, gpath: str, upath: st
 
 def game_train_gaps(run, cpu) -> dict:
     """A GAME training run's readings against the CPU's run of the same
-    configuration, the quantities phase 5c's gates hold: the best combo,
-    the per-update training objectives (relative), the validation AUC,
+    configuration (or against another run, on any device), the quantities
+    phase 5c's gates hold: the best combo, the per-update training
+    objectives (relative), the validation AUC,
     the best model's fixed effect and random-effect table (absolute, with
     their scales), and the entity updates whose iterations differ."""
     history = [h for s in run.sweep for h in s["history"]]
@@ -2539,8 +2649,8 @@ def game_train_gaps(run, cpu) -> dict:
     obj_errs = [abs(a.objective - b.objective) / abs(b.objective)
                 for a, b in zip(history, cpu_history)]
     best, cpu_best = run.sweep[run.best_index]["model"], cpu.sweep[cpu.best_index]["model"]
-    w_card, w_cpu = best.params["global"].cpu(), cpu_best.params["global"]
-    t_card, t_cpu = best.params["per-user"].cpu(), cpu_best.params["per-user"]
+    w_card, w_cpu = best.params["global"].cpu(), cpu_best.params["global"].cpu()
+    t_card, t_cpu = best.params["per-user"].cpu(), cpu_best.params["per-user"].cpu()
     per_user = [(a, b) for a, b in zip(history, cpu_history) if a.coordinate == "per-user"]
     return {
         "best_index": [run.best_index, cpu.best_index],
@@ -2612,7 +2722,8 @@ def traced_descents(gparams, data: GameData, entity_counts: dict, columns, devic
 def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
                      n_heldout: int = GAME_TRAIN_HELDOUT, d_hashed: int = D_HASHED,
                      n_users: int = GAME_TRAIN_USERS,
-                     fixed_tolerance: float = GAME_TRAIN_FIXED_TOLERANCE, **device_kw):
+                     fixed_tolerance: float = GAME_TRAIN_FIXED_TOLERANCE, inputs=None,
+                     **device_kw):
     """Run the port's GAME training driver on the card (``device_kw``
     names another device for a rehearsal), counters set to 0 just before
     and read just after and held to the trainer's own counts; then the
@@ -2621,8 +2732,10 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
     the CPU, the card held to it; then ``fused_vgc`` and ``fused_hvp`` held to their
     plain versions on the last fixed-effect update's batch and offsets."""
     t0 = time.perf_counter()
-    (gpath, upath), (train, heldout), design = write_game_training_inputs(
-        work, n, n_heldout, d_hashed, n_users)
+    if inputs is None:
+        inputs = write_game_training_inputs(work, n, n_heldout, d_hashed, n_users)
+    (gpath, upath), (train, heldout), design = inputs
+    wait_written(train, heldout)
     setup_s = time.perf_counter() - t0
     log(f"[game-train] wrote {n} training and {n_heldout} held-out records "
         f"({d_hashed} hashed columns + intercept, {n_users} users) in {setup_s:.1f} s (set-up)")
@@ -2959,7 +3072,7 @@ class _PreemptAfterFirstPass(GracefulShutdown):
 def game_projected_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
                          n_heldout: int = GAME_PROJ_HELDOUT, d_hashed: int = D_HASHED,
                          n_users: int = GAME_TRAIN_USERS, user_cols: int = GAME_USER_COLS,
-                         n_ads: int = GAME_PROJ_ADS, **device_kw):
+                         n_ads: int = GAME_PROJ_ADS, inputs=None, **device_kw):
     """Phase 5d: the GAME training driver with an INDEX_MAP wide effect, a
     RANDOM=8 one and a factored one on the card (``device_kw`` names
     another device for a rehearsal), counters set to 0 just before and
@@ -2969,8 +3082,11 @@ def game_projected_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS,
     held to it; the saved model scored by the GAME scoring driver and its
     factored effect through the matrix-factorization files."""
     phase_t0 = t0 = time.perf_counter()
-    vocab_paths, (train, heldout), design = write_game_training_inputs(
-        work, n, n_heldout, d_hashed, n_users, user_cols=user_cols, n_ads=n_ads)
+    if inputs is None:
+        inputs = write_game_training_inputs(work, n, n_heldout, d_hashed, n_users,
+                                            user_cols=user_cols, n_ads=n_ads)
+    vocab_paths, (train, heldout), design = inputs
+    wait_written(train, heldout)
     setup_s = time.perf_counter() - t0
     log(f"[game-proj] wrote {n} training and {n_heldout} held-out records ({d_hashed} hashed "
         f"columns + intercept, {n_users} users x {user_cols} wide columns, {n_ads} ads) in "
@@ -3250,6 +3366,7 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
     else:
         vocab_paths, (train, heldout), _ = write_game_training_inputs(
             work, n, n_heldout, d_hashed, n_users, user_cols=user_cols, n_ads=n_ads)
+        wait_written(train, heldout)
         log(f"[game-det] wrote {n} training and {n_heldout} held-out records in "
             f"{time.perf_counter() - t0:.1f} s (set-up)")
 
@@ -3343,6 +3460,7 @@ def determinism_probe(work: str, n: int = 1 << 14, n_heldout: int = 1 << 12, **d
                     vocab_paths, (train, heldout), _ = write_game_training_inputs(
                         os.path.join(work, path), n, n_heldout, D_HASHED, GAME_TRAIN_USERS,
                         user_cols=GAME_USER_COLS, n_ads=GAME_PROJ_ADS)
+                    wait_written(train, heldout)
                     run_game_training({
                         **game_projected_params(os.path.join(work, path), train, heldout,
                                                 vocab_paths, "out"),
@@ -3350,6 +3468,7 @@ def determinism_probe(work: str, n: int = 1 << 14, n_heldout: int = 1 << 12, **d
                 else:
                     vocab_path, _, sets = write_training_inputs(
                         os.path.join(work, path), n, n_heldout, D_HASHED)
+                    wait_written(sets["train"][0], sets["heldout"][0])
                     run_glm_training({
                         "train_input": [sets["train"][0]], "validate_input": [sets["heldout"][0]],
                         "output_dir": os.path.join(work, path, "out"), "feature_file": vocab_path,
@@ -3398,12 +3517,16 @@ def batch_from(coo, labels, offsets, d: int, device) -> LabeledBatch:
 
 def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                 n_heldout: int = HELDOUT_RECORDS, d_hashed: int = D_HASHED,
-                **device_kw):
+                inputs=None, **device_kw):
     """Run the port's GLM training driver (sparse TRON, L2 logistic) and
     hold it to ``train_glm`` on the CPU; ``device_kw`` is empty for the
-    card (the driver's default device)."""
+    card (the driver's default device). ``inputs``: the return of
+    ``write_training_inputs`` over ``work``, written ahead."""
     t0 = time.perf_counter()
-    vocab_path, vocab, sets = write_training_inputs(work, n, n_heldout, d_hashed)
+    if inputs is None:
+        inputs = write_training_inputs(work, n, n_heldout, d_hashed)
+    vocab_path, vocab, sets = inputs
+    wait_written(sets["train"][0], sets["heldout"][0])
     setup_s = time.perf_counter() - t0
     log(f"[train] wrote {n} training and {n_heldout} held-out records, "
         f"{d_hashed} hashed columns + intercept in {setup_s:.1f} s (set-up)")
@@ -3548,13 +3671,256 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     return summary, shape_checks, reference
 
 
+# -- phase 6h: hybrid designs on phase 6's records ---------------------------
+
+# the hybrid runs: the JAX package's split sized by column counts (-1), and
+# the 14 columns every row names (the intercept and the 13 integer fields)
+HYBRID_HOT_COLUMNS = (-1, INT_FIELDS + 1)
+
+
+def hybrid_split_summary(hf) -> dict:
+    """H, the cold segments' widths and rows, how many hold no entry, the
+    stored cold entries and the padded slots of a hybrid design."""
+    bounds = hf.segment_bounds()
+    return {"hot_columns": int(hf.dense.shape[1]), "segments": len(bounds),
+            "widths": [seg.nnz_per_row for seg in hf.cold_segments],
+            "rows": [hi - lo for lo, hi in bounds],
+            "empty_segments": sum(not bool((seg.indices < seg.d).any())
+                                  for seg in hf.cold_segments),
+            "stored_cold_entries": stored_cold_entries(hf),
+            "cold_padded_slots": cold_padded_slots(hf)}
+
+
+def hybrid_expected_launches(run, split: dict, vsplit: dict) -> dict:
+    """A GLM run's launches on hybrid designs, from its solves: a margins
+    pass is one ``ell_matvec`` per cold segment, an X^T pass one reduce
+    (``ell_rmatvec``, ``colsort_reduce``) per segment that holds an entry;
+    TRON's evaluations (iterations + 1 a lambda) and CG steps are one of
+    each; each lambda's validation metrics and selection are a margins pass
+    over the held-out split (``vsplit``), the fingerprint one over the
+    training split; the summary's five column sums run on the cold
+    segments joined into one ELL (none when it holds no entry)."""
+    passes = sum(tm.result.iterations + 1 + tm.result.cg_iterations for tm in run.models)
+    full = split["segments"] - split["empty_segments"]
+    want = {k: 0 for k in dispatch.KERNELS}
+    want["ell_matvec"] = (split["segments"] * (passes + fingerprint_launches(run))
+                          + 2 * len(run.models) * vsplit["segments"])
+    want["ell_rmatvec"] = full * passes
+    want["ell_colsum"] = 5 if split["stored_cold_entries"] else 0
+    want["colsort_reduce"] = want["ell_rmatvec"] + want["ell_colsum"]
+    return want
+
+
+def segment_checks(seg, a_seg, w, what: str) -> dict:
+    """One cold segment's kernels held to their plain versions at its own
+    shape, raising where one disagrees: ``ell_matvec`` in the three type
+    pairs (``check_kernel``: rtol x each row's sum of |v w|); the
+    column-sorted reduce on the segment's own copy in its linear and pair
+    modes in the three dtype pairs (``reduce_error``: rtol x each column's
+    sum of |terms|); and the f64 X^T side as the hybrid path calls it,
+    ``rmatvec`` on the segment with ``a_seg`` (the rows of the design's
+    (n,) vector at the segment's offset, a view), within 1e-12 x each
+    column's sum of |terms|. Returns the largest errors."""
+    d = seg.d
+    out = {"rows": int(seg.indices.shape[0]), "width": int(seg.indices.shape[1]),
+           "ell_matvec_max_abs_err": 0.0, "reduce_max_abs_err": 0.0}
+    for dtype_label, vdt, wdt, rtol in DTYPE_CASES:
+        *_, err, ok = check_kernel(seg.indices, seg.values, d, vdt, wdt, rtol, w)
+        if not ok:
+            raise AssertionError(f"ell_matvec {dtype_label} disagrees with its plain version "
+                                 f"on {what}: {err:.3e}")
+        out["ell_matvec_max_abs_err"] = max(out["ell_matvec_max_abs_err"], err)
+    copy = colsort.build_design_columns(seg.indices, d)
+    for dtype_label, vdt, cd, rtol, _ in FUSED_CASES:
+        vals = colsort.column_values(copy, seg.values.to(vdt))
+        for mode in ("linear", "pair"):
+            err, _ = reduce_error(copy, vals, a_seg.to(cd), mode, rtol,
+                                  f"{dtype_label} ({what})")
+            out["reduce_max_abs_err"] = max(out["reduce_max_abs_err"], err)
+    terms = seg.values * a_seg[:, None]
+    err, ok, _ = within(rmatvec(seg, a_seg),
+                        ell_scatter_add_reference(seg.indices, terms, d),
+                        ell_scatter_add_reference(seg.indices, terms.abs(), d), 1e-12)
+    if not ok:
+        raise AssertionError(f"the hybrid's f64 rmatvec on {what} disagrees with its plain "
+                             f"version: {err:.3e}")
+    out["rmatvec_max_abs_err"] = err
+    return out
+
+
+def hybrid_kernel_times(hf_cpu, label: str) -> dict:
+    """On the card, for one hybrid split of the training design: each cold
+    segment's column-sorted copy built and timed (seconds, bytes); the
+    segment with the most slots and the one with the fewest rows held to
+    their plain versions (``segment_checks``, which raises); at the widest
+    segment's shape, ``ell_matvec`` and the reduce (``ell_rmatvec``) timed
+    (event and device ms); the slab's ``torch.matmul`` both ways; the whole
+    hybrid ``matvec`` and ``rmatvec``; and the adds of the segments' (d,)
+    outputs in segment order, the cost of S full-width outputs."""
+    from functools import reduce as fold
+
+    hf = cast_values(hf_cpu, torch.float64, "cuda")
+    n, d = hf.shape
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    w = torch.randn(d, generator=g, device="cuda", dtype=torch.float64)
+    a = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    copies = []
+    for seg in hf.cold_segments:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        copy = colsort.build_design_columns(seg.indices, d)
+        torch.cuda.synchronize()
+        copies.append({"build_s": time.perf_counter() - t0, "bytes": copy.nbytes(8),
+                       "entries": copy.nvalid, "tiles": copy.ntiles})
+        del copy
+    bounds = hf.segment_bounds()
+    held = [i for i, c in enumerate(copies) if c["entries"]]
+    big = max(held, key=lambda i: hf.cold_segments[i].indices.numel())
+    short = min(held, key=lambda i: bounds[i][1] - bounds[i][0])
+    checked = {}
+    for i in dict.fromkeys((big, short)):
+        (lo, hi), what = bounds[i], f"{label} segment {i} (rows {bounds[i]})"
+        checked[str(i)] = segment_checks(hf.cold_segments[i], a[lo:hi], w, what)
+    seg, (lo, hi) = hf.cold_segments[big], bounds[big]
+    a_seg = a[lo:hi]
+    torch.cuda.synchronize()
+    parts = [rmatvec(s_, a[l_:h_]) for s_, (l_, h_) in zip(hf.cold_segments, bounds)]
+    hw = w.index_select(0, hf.hot_ids)
+    timed = {
+        "segment_ell_matvec": lambda: ell_matvec(seg.indices, seg.values, w, d),
+        "segment_reduce": lambda: rmatvec(seg, a_seg),
+        "slab_matvec": lambda: torch.matmul(hf.dense, hw),
+        "slab_rmatvec": lambda: torch.matmul(a, hf.dense),
+        "hybrid_matvec": lambda: matvec(hf, w),
+        "hybrid_rmatvec": lambda: rmatvec(hf, a),
+        "segment_output_adds": lambda: fold(torch.add, parts),
+    }
+    out = {"split": hybrid_split_summary(hf_cpu), "copies": copies,
+           "segment_shape": list(seg.indices.shape), "segment_checks": checked,
+           "slab_shape": list(hf.dense.shape),
+           "segment_output_adds_bytes": 3 * 8 * d * (len(parts) - 1)}
+    for key, fn in timed.items():
+        out[f"{key}_ms"] = time_ms(fn)
+        out[f"{key}_device_ms"], out[f"{key}_host_ms"] = device_ms(fn)
+    log(f"[hybrid] {label} on the card: {json.dumps(out)}")
+    del hf, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_train_phase(work: str, reference: dict, ell_summary=None, name: str = "",
+                       **device_kw):
+    """Phase 6h: phase 6's driver configuration with ``hot_columns`` -1 and
+    14 on phase 6's files, each run held to phase 6's CPU models
+    (``reference["tron_models"]``) at phase 6's gates, its launches held
+    to the count its solves and splits give (``hybrid_expected_launches``);
+    the 14-column run repeated under ``torch.profiler`` (the busy share;
+    the same w bits as the first); then the kernels at the splits' shapes
+    (``hybrid_kernel_times``, on the card). ``ell_summary``: phase 6's
+    summary, whose solve seconds per lambda are printed beside these.
+    Returns (summary, the two runs' launches summed)."""
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    auc_key = metrics_mod.AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS
+    heldout_cpu = reference["heldout_cpu"]
+    ell_solve_s = {pl["lambda"]: pl["solve_s"] for pl in (ell_summary or {}).get(
+        "per_lambda", [])}
+    failures, runs, splits, launches = [], {}, {}, {k: 0 for k in dispatch.KERNELS}
+    for hot in HYBRID_HOT_COLUMNS:
+        t0 = time.perf_counter()
+        splits[hot] = to_hybrid(reference["batch_cpu"].features, hot_columns=hot)
+        split = hybrid_split_summary(splits[hot])
+        vsplit = hybrid_split_summary(to_hybrid(heldout_cpu.features, hot_columns=hot))
+        split_s = time.perf_counter() - t0
+        params = {**reference["params"], "hot_columns": hot,
+                  "output_dir": os.path.join(work, f"hot{hot}")}
+        dispatch.reset_launch_counts()
+        reset_host_reads()
+        t0 = time.perf_counter()
+        run = run_glm_training(params, **device_kw)
+        wall_s = time.perf_counter() - t0
+        got = dispatch.launch_counts()
+        reads = host_reads()
+        require_native(run, f"[hybrid] the hot_columns={hot} run")
+        want = (hybrid_expected_launches(run, split, vsplit) if on_card
+                else {k: 0 for k in dispatch.KERNELS})
+        if got != want:
+            failures.append(f"hot_columns={hot}: launched {got}, the solves need {want}")
+        launches = {k: launches[k] + got[k] for k in launches}
+        per_lambda = []
+        for tm, ref, vm in zip(run.models, reference["tron_models"], run.validation_metrics):
+            w_cpu = ref.model.coefficients.means
+            dw = float((tm.model.coefficients.means.cpu() - w_cpu).abs().max())
+            w_inf = float(w_cpu.abs().max())
+            margins = ref.model.compute_margin(heldout_cpu.features, heldout_cpu.offsets)
+            auc_cpu = float(metrics_mod.area_under_roc_curve(
+                heldout_cpu.labels, margins, heldout_cpu.effective_weights()))
+            if not dw <= 1e-6 * max(1.0, w_inf):
+                failures.append(f"hot_columns={hot} lambda={tm.reg_weight}: max |dw| {dw} "
+                                "vs the CPU run")
+            if not (0.5 < vm[auc_key] <= 1.0 and abs(vm[auc_key] - auc_cpu) <= 1e-6):
+                failures.append(f"hot_columns={hot} lambda={tm.reg_weight}: held-out AUC "
+                                f"{vm[auc_key]} vs CPU {auc_cpu}")
+            per_lambda.append({
+                "lambda": tm.reg_weight, "iterations": tm.result.iterations,
+                "cpu_iterations": ref.result.iterations, "cg_iterations": tm.result.cg_iterations,
+                "cpu_cg_iterations": ref.result.cg_iterations, "solve_s": tm.seconds,
+                "ell_solve_s": ell_solve_s.get(tm.reg_weight), "max_abs_dw": dw,
+                "w_inf": w_inf, "heldout_auc": vm[auc_key], "cpu_heldout_auc": auc_cpu})
+        runs[hot] = {"split": split, "heldout_split": vsplit, "split_on_host_s": split_s,
+                     "wall_s": wall_s, "timings_s": run.timings, "launches": got,
+                     "expected_launches": want, "host_reads": reads,
+                     "per_lambda": per_lambda, "codecs": run.codecs}
+        log(f"[hybrid] hot_columns={hot}: {json.dumps(runs[hot])}")
+        if hot == HYBRID_HOT_COLUMNS[-1]:
+            first = run
+        del run
+
+    # the 14-column run again, traced: the busy share, and the same w bits
+    hot = HYBRID_HOT_COLUMNS[-1]
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        again = run_glm_training({**reference["params"], "hot_columns": hot, "overwrite": True,
+                                  "output_dir": os.path.join(work, f"hot{hot}")}, **device_kw)
+        traced_wall_s = time.perf_counter() - t0
+    busy = device_busy(prof)
+    same_w = [bool(torch.equal(a.model.coefficients.means, b.model.coefficients.means))
+              for a, b in zip(first.models, again.models)]
+    if not (all(same_w) and len(again.models) == len(first.models)):
+        failures.append(f"the traced hot_columns={hot} run ended with other w bits: {same_w}")
+    del first, again
+    kernels = {}
+    if on_card:
+        for hot in HYBRID_HOT_COLUMNS:
+            kernels[hot] = hybrid_kernel_times(splits.pop(hot), f"hot_columns={hot}")
+    splits.clear()
+    summary = {"runs": {str(h): r for h, r in runs.items()},
+               "traced_wall_s": traced_wall_s, **busy,
+               "device_idle_share": (None if busy["device_busy_s"] is None
+                                     else 1.0 - busy["device_busy_s"] / traced_wall_s),
+               "traced_run_same_w_bits": same_w,
+               "kernels": {str(h): k for h, k in kernels.items()},
+               "phase_s": time.perf_counter() - phase_t0}
+    log(f"[hybrid] {json.dumps({k: v for k, v in summary.items() if k != 'runs'})}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, launches
+
+
 # -- phase 5g: index -> train -> serve, with the quality loop ---------------
 
 # the GAME half's depth: 5c's layout and users' Zipf(1.1), fewer records
 QUALITY_GAME_RECORDS = 1 << 13
 QUALITY_GAME_HELDOUT = 1 << 11
 QUALITY_GAME_USERS = 1024
-QUALITY_FIXED_TOLERANCE = 1e-8
+# the fixed effect at phase 5c's tolerance: the hybrid rerun sums in
+# another order than the ELL run, and TRON amplifies the split (at 1e-8 the
+# two ended 3.1e-6 apart in the per-user table on the CPU, over the 1e-6
+# gate; at 1e-15 they meet near one optimum)
+QUALITY_FIXED_TOLERANCE = GAME_TRAIN_FIXED_TOLERANCE
 # the integer field planted out of its range in the shifted traffic
 QUALITY_PLANT_FIELD = 0
 QUALITY_PLANT_FACTOR = 4.0
@@ -3652,7 +4018,7 @@ def quality_cli(model_dir: str, requests, labels, want, n_rows: int, device=None
 def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=None,
                        n: int = QUALITY_GAME_RECORDS, n_heldout: int = QUALITY_GAME_HELDOUT,
                        d_hashed: int = D_HASHED, n_users: int = QUALITY_GAME_USERS,
-                       planted: int = QUALITY_PLANTED, **device_kw):
+                       planted: int = QUALITY_PLANTED, game_inputs=None, **device_kw):
     """Phase 5g: the feature-indexing job on phase 6's training Avro, the
     GLM driver on its index with the quality fingerprint (the default), the
     GAME driver with a shard that has no feature file, and that export
@@ -3780,8 +4146,10 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
     # GAME training: 5c's layout, the global shard without a feature file
     gdir = os.path.join(work, "game")
     t0 = time.perf_counter()
-    (gpath, upath), (gtrain, gheldout), design = write_game_training_inputs(
-        gdir, n, n_heldout, d_hashed, n_users)
+    if game_inputs is None:
+        game_inputs = write_game_training_inputs(gdir, n, n_heldout, d_hashed, n_users)
+    (gpath, upath), (gtrain, gheldout), design = game_inputs
+    wait_written(gtrain, gheldout)
     game_setup_s = time.perf_counter() - t0
     gparams = game_train_params(gdir, gtrain, gheldout, gpath, upath,
                                 fixed_tolerance=QUALITY_FIXED_TOLERANCE)
@@ -3825,6 +4193,52 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
             "expected_launches": game_want, "gshard_columns": len(gvocab),
             "export_dirs": len(game_run.output_dirs)}
     log(f"[quality] GAME: {json.dumps(game)}")
+
+    # the same GAME run with hot_columns -1 on the global shard (a hybrid
+    # inside the fixed effect), held to the ELL run above at every gate of
+    # phase 5c (``game_train_gate_failures``): the same best combo and
+    # update count, per-update objectives within 1e-7, held-out AUC within
+    # 1e-6, the fixed effect's w and the tables within 1e-6 of their scale;
+    # its launches from its solves and its split
+    hparams = {**gparams, "output_dir": os.path.join(gdir, "hybrid"), "coordinates": {
+        **gparams["coordinates"],
+        "global": {**gparams["coordinates"]["global"], "hot_columns": -1}}}
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    hybrid_run = run_game_training(hparams, **device_kw)
+    hybrid_wall_s = time.perf_counter() - t0
+    hybrid_launches = dispatch.launch_counts()
+    require_native(hybrid_run, "[quality] the hybrid GAME run")
+    # the driver's global design, from the generator's COO in the columns
+    # of its from-records vocabulary
+    rows, cols, vals, _ = design[0]
+    cols = np.asarray([gvocab.get("h", str(c)) if c < d_hashed else gvocab.intercept_index
+                       for c in cols.tolist()])
+    split = hybrid_split_summary(to_hybrid(
+        from_coo(rows, cols, vals, n, len(gvocab), dtype=torch.float64), hot_columns=-1))
+    hybrid_history = [h for sw in hybrid_run.sweep for h in sw["history"]]
+    hybrid_fixed = _fixed_records(hybrid_history)
+    passes = sum(int(h.solver_iterations) + 1 + h.cg_iterations for h in hybrid_fixed)
+    hybrid_want = {k: 0 for k in hybrid_launches}
+    if on_card:
+        hybrid_want["ell_matvec"] = (
+            split["segments"] * (passes + len(hybrid_run.sweep) + len(hybrid_fixed))
+            + sum(h.validation_metric is not None for h in hybrid_history)
+            + fingerprint_launches(hybrid_run))
+        hybrid_want["ell_rmatvec"] = hybrid_want["colsort_reduce"] = (
+            (split["segments"] - split["empty_segments"]) * passes)
+    if hybrid_launches != hybrid_want:
+        failures.append(f"hybrid GAME run launched {hybrid_launches}, expected {hybrid_want}")
+    hgaps = game_train_gaps(hybrid_run, game_run)
+    hybrid_failed = game_train_gate_failures(hgaps)
+    if hybrid_failed:
+        failures.append(f"the hybrid GAME run against the ELL run: {hybrid_failed} "
+                        f"({json.dumps(hgaps)})")
+    game["hybrid"] = {"wall_s": hybrid_wall_s, "timings_s": hybrid_run.timings,
+                      "split": split, "launches": hybrid_launches,
+                      "expected_launches": hybrid_want, "gaps_vs_ell": hgaps}
+    log(f"[quality] hybrid GAME: {json.dumps(game['hybrid'])}")
+    del hybrid_run
 
     # serving the export with its drift monitor: its training records (the
     # baseline's own rows: every check must stay quiet), then its held-out
@@ -3954,7 +4368,8 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
     log(f"[quality] {json.dumps(summary)}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return summary, {"glm": glm_launches, "game": game_launches}
+    return summary, {"glm": glm_launches, "game": game_launches,
+                     "game_hybrid": hybrid_launches}
 
 
 # -- phase 7: the full trainer -----------------------------------------------
@@ -4216,34 +4631,39 @@ def main() -> int:
         log(f"[build] {library} instantiations: registers per thread {regs}, "
             f"spill-store bytes {spills}")
 
-    # 3. ell_matvec against its plain version
-    checks = kernel_phase(name)
-    log(json.dumps({"ell_matvec_checks": checks}))
-
-    # 4. the training kernels against their plain versions, and the scatter
-    # with hot columns
-    train_checks, hot_checks, reduce_extra = training_kernel_phase(name)
-    log(json.dumps({"training_kernel_checks": train_checks}))
-    log(json.dumps({"reduce_row_blocks": reduce_extra}))
-    log(json.dumps({"hot_column_scatter_checks": [
-        c for c in hot_checks if c["name"] == "ell_scatter_add"]}))
-    log(json.dumps({"hot_column_fused_checks": [
-        c for c in hot_checks if c["name"] != "ell_scatter_add"]}))
-
-    # 4b. the sparse kernel lab, and its column-sorted kernels at 2^22
-    lab_launches, lab_checks, lab_uniform_checks, lab_summary = lab_phase(name)
-    log(json.dumps({"lab_checks": lab_checks, "lab_uniform_checks": lab_uniform_checks,
-                    "lab": lab_summary}))
-
-    # 5. GLM scoring end to end
+    # every driver phase's records, drawn now and written by worker
+    # processes while phases 3-4b hold the card
     work = os.path.join(ROOT, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        summary = score_phase(os.path.join(work, "score"))
+        ahead = write_inputs_ahead(work)
+
+        # 3. ell_matvec against its plain version
+        checks = kernel_phase(name)
+        log(json.dumps({"ell_matvec_checks": checks}))
+
+        # 4. the training kernels against their plain versions, and the
+        # scatter with hot columns
+        train_checks, hot_checks, reduce_extra = training_kernel_phase(name)
+        log(json.dumps({"training_kernel_checks": train_checks}))
+        log(json.dumps({"reduce_row_blocks": reduce_extra}))
+        log(json.dumps({"hot_column_scatter_checks": [
+            c for c in hot_checks if c["name"] == "ell_scatter_add"]}))
+        log(json.dumps({"hot_column_fused_checks": [
+            c for c in hot_checks if c["name"] != "ell_scatter_add"]}))
+
+        # 4b. the sparse kernel lab, and its column-sorted kernels at 2^22
+        lab_launches, lab_checks, lab_uniform_checks, lab_summary = lab_phase(name)
+        log(json.dumps({"lab_checks": lab_checks, "lab_uniform_checks": lab_uniform_checks,
+                        "lab": lab_summary}))
+
+        # 5. GLM scoring end to end
+        summary = score_phase(os.path.join(work, "score"), inputs=ahead.pop("score"))
         if summary["launches"]["ell_matvec"] < 1:
             raise AssertionError("the scoring run did not launch the ell_matvec kernel")
         # 5b. GAME scoring end to end, held to the CPU
-        game_summary, game_record, served = game_phase(os.path.join(work, "game"), name)
+        game_summary, game_record, served = game_phase(os.path.join(work, "game"), name,
+                                                       inputs=ahead.pop("game"))
         # 5f. online serving: 5b's model and records through the engine,
         # the micro-batcher, a hot reload, the tiered cache and cli.serve
         serve_summary = serving_phase(os.path.join(work, "serve"), served, name)
@@ -4251,11 +4671,13 @@ def main() -> int:
         shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "serve"), ignore_errors=True)
         # 5c. GAME training end to end, held to the CPU
-        game_train_summary = game_train_phase(os.path.join(work, "game_train"), name)
+        game_train_summary = game_train_phase(os.path.join(work, "game_train"), name,
+                                              inputs=ahead.pop("game_train"))
         shutil.rmtree(os.path.join(work, "game_train"), ignore_errors=True)
         # 5d. GAME training with projected and factored effects, checkpoints
         # and a resume, held to the CPU
-        game_proj_summary = game_projected_phase(os.path.join(work, "game_proj"), name)
+        game_proj_summary = game_projected_phase(os.path.join(work, "game_proj"), name,
+                                                 inputs=ahead.pop("game_proj"))
         # 5e. determinism at the settings users run: two card runs and a
         # preempted-and-resumed one, bit for bit, on 5d's records
         game_det_summary = game_determinism_phase(os.path.join(work, "game_det"), name,
@@ -4263,20 +4685,30 @@ def main() -> int:
         shutil.rmtree(os.path.join(work, "game_proj"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "game_det"), ignore_errors=True)
         # 6. GLM training end to end
-        train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name)
+        train_summary, shape_checks, reference = train_phase(os.path.join(work, "train"), name,
+                                                             inputs=ahead.pop("train"))
         # 7. the full trainer on the same records
         full_summary, full_launches = full_trainer_phase(os.path.join(work, "full"), reference)
+        shutil.rmtree(os.path.join(work, "full"), ignore_errors=True)
+        # 6h. hybrid designs: phase 6's driver with hot_columns -1 and 14
+        hybrid_summary, hybrid_launches = hybrid_train_phase(
+            os.path.join(work, "hybrid"), reference, train_summary, name)
+        shutil.rmtree(os.path.join(work, "hybrid"), ignore_errors=True)
         # 5g. the index job on phase 6's training file, the GLM and GAME
-        # drivers with the quality fingerprint, the export served with its
-        # drift monitor and the feedback loop
+        # drivers with the quality fingerprint (the GAME one again with a
+        # hybrid fixed effect), the export served with its drift monitor and
+        # the feedback loop
         quality_summary, quality_launches = quality_loop_phase(
-            os.path.join(work, "quality"), reference["sets"], name, serve_summary)
+            os.path.join(work, "quality"), reference["sets"], name, serve_summary,
+            game_inputs=ahead.pop("quality_game"))
         del reference
     finally:
+        stop_writers()
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"train_shape_checks": shape_checks}))
     log(json.dumps({"serving": serve_summary}))
     log(json.dumps({"full_trainer": full_summary}))
+    log(json.dumps({"hybrid": hybrid_summary}))
     log(json.dumps({"quality_loop": quality_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":
@@ -4321,6 +4753,8 @@ def main() -> int:
                                  "full_trainer_a": full_launches[kernel],
                                  "quality_glm": quality_launches["glm"][kernel],
                                  "quality_game": quality_launches["game"][kernel],
+                                 "train_hybrid": hybrid_launches[kernel],
+                                 "quality_game_hybrid": quality_launches["game_hybrid"][kernel],
                                  "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],

@@ -37,7 +37,6 @@ UNPORTED_GLM_FIELDS = {
     "out_of_core": (False, "I/O runtime"),
     "streamed_ingest": (False, "I/O runtime"),
     "mesh_shape": (None, "Parallel"),
-    "hot_columns": (0, "Hybrid designs"),
     "profile": (False, _OBS),
     "debug_nans": (False, _OBS),
     "trace_dir": (None, _OBS),
@@ -77,6 +76,9 @@ class GLMDriverParams:
     prefetch_depth: int = 2
     stage_timeout_s: Optional[float] = None
     epoch_policy: str = "fail"
+    # with sparse: the hottest columns as a dense slab, the rest as row
+    # buckets of ELL (ops.sparse.to_hybrid); 0 = off, -1 = sized by column
+    # counts, N > 0 = the N columns stored most
     hot_columns: int = 0
     validate_input: List[str] = dataclasses.field(default_factory=list)
     data_validation: str = "VALIDATE_FULL"
@@ -127,6 +129,21 @@ class GLMDriverParams:
     def validate(self) -> None:
         if not self.train_input:
             raise ValueError("train_input is required")
+        # the JAX package's hybrid refusals, with its messages, ahead of the
+        # settings the port does not run (mesh_shape is one)
+        if self.hot_columns and not self.sparse:
+            raise ValueError("hot_columns requires sparse=True")
+        if self.hot_columns and self.mesh_shape:
+            raise ValueError(
+                "hot_columns (hybrid features) is single-device for now: "
+                "the bucketed cold segments have unequal row counts, "
+                "which the row-sharded mesh path does not partition"
+            )
+        if self.hot_columns and self.optimizer == "NEWTON":
+            raise ValueError(
+                "NEWTON materializes the exact Hessian from dense "
+                "features; hot_columns (hybrid) is not supported"
+            )
         for name, (off, item) in UNPORTED_GLM_FIELDS.items():
             if getattr(self, name) != off:
                 raise not_ported(f"{name}={getattr(self, name)!r}", item)
@@ -186,10 +203,8 @@ UNPORTED_GAME_FIELDS = {
     "sharded_ckpt": (False, "Parallel"),
     "collective_mode": (None, "Parallel"),
 }
-# the same for each CoordinateSpec
-UNPORTED_COORDINATE_FIELDS = {
-    "hot_columns": (0, "Hybrid designs"),
-}
+# the same for each CoordinateSpec (every coordinate field runs)
+UNPORTED_COORDINATE_FIELDS: Dict[str, tuple] = {}
 
 
 def _unported_game_setting(params: "GameDriverParams"):
@@ -243,6 +258,9 @@ class CoordinateSpec:
     latent_reg_weight: Optional[float] = None
     latent_max_iters: Optional[int] = None
     latent_tolerance: Optional[float] = None
+    # a fixed effect on a shard in sparse_shards: its design as a hybrid
+    # (to_hybrid, -1 = sized by column counts), built once per grid sweep;
+    # the row permutation stays inside the coordinate
     hot_columns: int = 0
     # per-iteration solver tapes inside this coordinate's solves
     track_states: bool = False

@@ -14,8 +14,10 @@ or programmatically via :func:`run_game_training`. It runs on the CUDA
 device unless given another: a fixed effect on a shard in
 ``sparse_shards`` solves through the ``fused_vgc`` / ``fused_hvp`` kernels
 (one launch per TRON evaluation / CG step) and rescores through
-``ell_matvec``, as does each validation and, with ``quality_fingerprint``
-(the default), the best model's margins on the training rows, which
+``ell_matvec`` — with ``hot_columns`` through a hybrid design instead,
+``ell_matvec`` and the column-sorted reduce per cold segment — as does
+each validation and, with ``quality_fingerprint`` (the default), the
+best model's margins on the training rows, which
 complete the fingerprint the training ingest fed
 (``quality-fingerprint.json`` in every export subdir). A shard without a
 ``feature_shards`` file takes the vocabulary of every key in the training
@@ -86,12 +88,29 @@ from photon_ml_tpu_torch.io.models import (
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
 from photon_ml_tpu_torch.models.training import OptimizerType
 from photon_ml_tpu_torch.obs import quality as quality_mod
+from photon_ml_tpu_torch.obs.trace import process_identity
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import cast_values, is_sparse
 from photon_ml_tpu_torch.resilience import GracefulShutdown
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize, to_numpy
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed
+
+
+def _refuse_multiprocess_hybrid(params: GameDriverParams) -> None:
+    """The JAX driver's multi-process refusal of ``hot_columns``, with its
+    message: a hybrid's row permutation is private to one process. A run
+    is multi-process when the PHOTON_PROCESS_* environment says so
+    (``obs.trace.process_identity``); the port's other multi-process
+    paths are ROADMAP item 'Parallel'."""
+    if process_identity()[1] <= 1:
+        return
+    problems = [f"coordinate {name!r}: hot_columns (the hybrid row permutation is "
+                "process-local)" for name, spec in params.coordinates.items()
+                if spec.hot_columns]
+    if problems:
+        raise ValueError("multi-process GAME training does not support: "
+                         + "; ".join(problems))
 
 
 def _coordinate_config(name: str, spec: CoordinateSpec, task: TaskType,
@@ -124,7 +143,8 @@ def build_coordinates(
 ):
     """One training coordinate per updating-sequence entry, its data on
     ``device`` (None: the CUDA device, raising without one): fixed effects
-    on dense or ELL shards; random effects on dense shards, plain,
+    on dense or ELL shards, the latter as a hybrid with ``hot_columns``;
+    random effects on dense shards, plain,
     projected (``RANDOM=k``, ``INDEX_MAP``) or factored (``latent_dim``);
     random effects on an ELL shard through ``INDEX_MAP``.
     ``design_cache`` carries the combo-invariant work across a reg-weight
@@ -136,6 +156,15 @@ def build_coordinates(
         spec = params.coordinates[name]
         cfg = _coordinate_config(name, spec, task, reg_combo[name])
         if spec.random_effect is None:
+            if spec.hot_columns:
+                # the hybrid split does not depend on lambda: built once per
+                # grid sweep, like the random-effect designs
+                key = f"{name}\x00hybrid"
+                if key not in cache:
+                    cache[key] = FixedEffectCoordinate.hybridize_batch(
+                        data.fixed_effect_batch(spec.shard, dtype, device), spec.hot_columns)
+                coords[name] = FixedEffectCoordinate(cache[key][0], cfg, hybrid_pack=cache[key])
+                continue
             if name not in cache:
                 cache[name] = data.fixed_effect_batch(spec.shard, dtype, device)
             coords[name] = FixedEffectCoordinate(cache[name], cfg)
@@ -280,6 +309,7 @@ def run_game_training(params, device=None) -> GameTrainingRun:
     device = resolve_device(device)
     params = load_params(params, GameDriverParams)
     params.validate()
+    _refuse_multiprocess_hybrid(params)
     prepare_output_dir(params.output_dir, params.overwrite or params.resume)
     logger = PhotonLogger(
         os.path.join(params.output_dir, "log-message.txt"), level=params.log_level

@@ -14,12 +14,17 @@ device unless given another: with ``sparse`` the objective passes go
 through the ``fused_vgc`` / ``fused_hvp`` kernels, the variances through
 ``fused_hdiag``, the feature summary through ``ell_colsum`` (the
 column-sorted reduce on the card), and the validation margins and the
-quality fingerprint's margins through ``ell_matvec``. Without a
-``feature_file`` the vocabulary is the native scan of the training files
-(``IngestSource.build_vocab``); with ``quality_fingerprint`` (the default)
-the training ingest feeds a :class:`~photon_ml_tpu_torch.obs.quality.
-BaselineFingerprint`, which the chosen model's margins on the training
-batch complete and ``quality-fingerprint.json`` stores.
+quality fingerprint's margins through ``ell_matvec``. With
+``hot_columns`` each batch, training and validation, is split on the
+host into a hybrid design (``ops.sparse.to_hybrid``, its own hot columns,
+its rows permuted), whose solves take the unfused passes: ``ell_matvec``
+and the column-sorted reduce per cold segment and a plain product on the
+slab. Without a ``feature_file`` the vocabulary is the native scan of
+the training files (``IngestSource.build_vocab``); with
+``quality_fingerprint`` (the default) the training ingest feeds a
+:class:`~photon_ml_tpu_torch.obs.quality.BaselineFingerprint`, which the
+chosen model's margins on the training batch complete and
+``quality-fingerprint.json`` stores.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from photon_ml_tpu_torch.models.selection import select_best_model
 from photon_ml_tpu_torch.models.training import TrainedModel, train_glm
 from photon_ml_tpu_torch.obs import quality as quality_mod
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
-from photon_ml_tpu_torch.ops.sparse import matvec
+from photon_ml_tpu_torch.ops.sparse import matvec, stored_cold_entries, to_hybrid
 from photon_ml_tpu_torch.ops.stats import summarize_features
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize
@@ -119,6 +124,29 @@ def write_feature_summary(path: str, summary, vocab: FeatureVocabulary) -> None:
         f.writelines(line + "\n" for line in lines)
 
 
+def _hybridize(batch, params: GLMDriverParams, logger):
+    """The ELL batch as a hybrid design (``ops.sparse.to_hybrid``: the hot
+    columns a dense slab, the cold tail in row buckets), with its
+    row-aligned columns permuted to the hybrid's stored order on their
+    device (training is row-order invariant)."""
+    hf = to_hybrid(batch.features, hot_columns=params.hot_columns)
+    widths = [seg.nnz_per_row for seg in hf.cold_segments]
+    logger.info(
+        f"hybrid split: {hf.dense.shape[1]} hot columns densified, "
+        f"{stored_cold_entries(hf)} entries stay sparse over "
+        f"{len(widths)} row buckets (widths {widths})"
+    )
+    perm = hf.row_perm
+    return dataclasses.replace(
+        batch,
+        features=hf,
+        labels=batch.labels.index_select(0, perm),
+        offsets=batch.offsets.index_select(0, perm),
+        weights=batch.weights.index_select(0, perm),
+        mask=batch.mask.index_select(0, perm),
+    )
+
+
 def _initial_model_path(init_path: str) -> str:
     """A run directory's best-model.avro, or the sole model in its
     models/, or an explicit .avro path."""
@@ -157,12 +185,13 @@ class GLMTrainingRun:
     summary: object
     device: str
     # wall-clock seconds per phase: ingest (Avro decode + ELL build + copy
-    # to the device), validate_data, summary (device, synchronised),
-    # summary_write (feature-summary.tsv), train (every solve), validate
-    # (validation ingest + margins + metrics), diagnose (the diagnostic
-    # report, with diagnostics), write (the fingerprint's margins and file,
-    # models, texts, vocabulary, metrics); each solve's own seconds are on
-    # its model
+    # to the device), hybridize (with hot_columns: the training batch's
+    # split on the host, placed on the device), validate_data, summary
+    # (device, synchronised), summary_write (feature-summary.tsv), train
+    # (every solve), validate (validation ingest + margins + metrics),
+    # diagnose (the diagnostic report, with diagnostics), write (the
+    # fingerprint's margins and file, models, texts, vocabulary, metrics);
+    # each solve's own seconds are on its model
     timings: Dict[str, float]
     # the Avro codec of each read: {"ingest": ..., "validate": ...}, each
     # "native" (the C++ codec) or "python"
@@ -224,6 +253,11 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         timings["ingest"] = time.perf_counter() - t0
         codecs = {"ingest": source.codec}
         logger.info(f"read {batch.labels.shape[0]} training records ({source.codec} codec)")
+        if params.hot_columns:
+            t0 = time.perf_counter()
+            batch = _hybridize(batch, params, logger)
+            synchronize(device)
+            timings["hybridize"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         sanity_check_data(batch, task, DataValidationType[params.data_validation])
@@ -286,6 +320,8 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
             vbatch, _vuids, _vpresent = vsource.labeled_batch(
                 vocab, sparse=params.sparse, dtype=dtype, device=device)
             codecs["validate"] = vsource.codec
+            if params.hot_columns:
+                vbatch = _hybridize(vbatch, params, logger)
             weights = vbatch.effective_weights()
             for tm in models:
                 margins = tm.model.compute_margin(vbatch.features, vbatch.offsets)

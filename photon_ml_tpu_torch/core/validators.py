@@ -31,13 +31,19 @@ class DataValidationType(enum.Enum):
 
 def _row_checks(batch: LabeledBatch, task: TaskType) -> Dict[str, torch.Tensor]:
     """Per-check boolean (n,) tensors; True = the row VIOLATES the check."""
-    from photon_ml_tpu_torch.ops.sparse import is_sparse
+    from photon_ml_tpu_torch.ops.sparse import is_hybrid, is_sparse
 
     m = batch.mask > 0
     x = batch.features
-    # only stored ELL slots can be non-finite; padding slots hold 0.0
-    values = x.values if is_sparse(x) else x
-    feats_finite = torch.isfinite(values).all(dim=-1)
+    if is_hybrid(x):
+        # the slab and every cold segment, row by row in stored order
+        cold_finite = torch.cat(
+            [torch.isfinite(seg.values).all(dim=-1) for seg in x.cold_segments])
+        feats_finite = torch.isfinite(x.dense).all(dim=-1) & cold_finite
+    else:
+        # only stored ELL slots can be non-finite; padding slots hold 0.0
+        values = x.values if is_sparse(x) else x
+        feats_finite = torch.isfinite(values).all(dim=-1)
     checks = {
         "finite_features": m & ~feats_finite,
         "finite_label": m & ~torch.isfinite(batch.labels),

@@ -12,8 +12,13 @@ owns its training design on its device and exposes:
 ``FixedEffectCoordinate`` (``FixedEffectCoordinate.scala:33-179``): one
 GLM solve through the port's solvers; on an ELL shard every TRON
 evaluation is one ``fused_vgc`` launch, every CG step one ``fused_hvp``
-and the rescore one ``ell_matvec``. Optional down-sampling is a weight
-transform (``sampler/*DownSampler.scala``), its draws from a
+and the rescore one ``ell_matvec``. With ``hot_columns`` the shard is a
+hybrid design inside the coordinate (``hybridize_batch``): each pass runs
+``ell_matvec`` and the column-sorted reduce per cold segment and a plain
+product on the slab, and the hybrid's row permutation stays private —
+partial scores come in and rescores go out in the global row order
+through two ``index_select`` calls on the device. Optional down-sampling
+is a weight transform (``sampler/*DownSampler.scala``), its draws from a
 ``torch.Generator`` (another stream than ``jax.random``'s).
 
 ``RandomEffectCoordinate`` (``RandomEffectCoordinate.scala:36-214``): per
@@ -23,9 +28,8 @@ bucket ONE batched solve over the padded (entities, rows, dim) design
 reasons come back as an (E,) array for the tracker histogram
 (``RandomEffectOptimizationTracker.scala:33-110``).
 
-Not ported: the hybrid re-pack (``hot_columns``), the permuted variant,
-the entity-sharded coordinate and the fused-state hooks of the JAX
-package's one-dispatch passes and grid sweeps.
+Not ported: the entity-sharded coordinate and the fused-state hooks of
+the JAX package's one-dispatch passes and grid sweeps.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from photon_ml_tpu_torch.game.data import BucketedRandomEffectDesign, RandomEffe
 from photon_ml_tpu_torch.models.training import OptimizerType, solve_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss, loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMObjective
-from photon_ml_tpu_torch.ops.sparse import is_structured, matvec
+from photon_ml_tpu_torch.ops.sparse import is_sparse, is_structured, matvec, to_hybrid
 from photon_ml_tpu_torch.solvers import (
     SolverConfig,
     minimize_lbfgs,
@@ -251,12 +255,40 @@ def _uniform_downsample_weights(generator, weights, labels, rate: float):
 
 
 class FixedEffectCoordinate:
-    """Global GLM coordinate over a LabeledBatch on its device (dense or
-    padded-ELL)."""
+    """Global GLM coordinate over a LabeledBatch on its device (dense,
+    padded-ELL, or with ``hot_columns`` a hybrid whose row permutation is
+    private to the coordinate)."""
 
-    def __init__(self, batch: LabeledBatch, config: CoordinateConfig):
+    @staticmethod
+    def hybridize_batch(batch: LabeledBatch, hot_columns: int):
+        """(permuted hybrid batch, row_perm, inv_perm): the split on the
+        host (``to_hybrid``), exposed so that a grid sweep builds it once
+        per coordinate (it depends on the data and ``hot_columns``, never
+        on the reg weight). The permutations are int64 on the batch's
+        device."""
+        if not is_sparse(batch.features):
+            raise ValueError("hot_columns requires a padded-ELL (sparse) shard")
+        hf = to_hybrid(batch.features, hot_columns=hot_columns)
+        perm = hf.row_perm.long()
+        batch = dataclasses.replace(
+            batch,
+            features=hf,
+            labels=batch.labels.index_select(0, perm),
+            offsets=batch.offsets.index_select(0, perm),
+            weights=batch.weights.index_select(0, perm),
+            mask=batch.mask.index_select(0, perm),
+        )
+        return batch, perm, torch.argsort(perm)
+
+    def __init__(self, batch: LabeledBatch, config: CoordinateConfig,
+                 hot_columns: int = 0, hybrid_pack=None):
         if config.random_effect is not None:
             raise ValueError("config names a random effect; wrong coordinate")
+        self._row_perm = self._inv_perm = None
+        if hybrid_pack is not None:
+            batch, self._row_perm, self._inv_perm = hybrid_pack
+        elif hot_columns:
+            batch, self._row_perm, self._inv_perm = self.hybridize_batch(batch, hot_columns)
         self.batch = batch
         self.config = config
         self._solve = _make_solve(config)
@@ -268,8 +300,9 @@ class FixedEffectCoordinate:
         )
         # down-sampling SAVES work on a dense design: the kept rows are
         # gathered into a smaller batch sized for the expected keep count
-        # plus a 6-sigma margin. An ELL design keeps its rows with zero
-        # weights.
+        # plus a 6-sigma margin. An ELL or hybrid design keeps its rows with
+        # zero weights; on a hybrid the draws follow its stored row order,
+        # as the JAX package's do.
         self._ds_budget = None
         if self._downsample is not None and not is_structured(batch.features):
             self._ds_budget = _downsample_budget(
@@ -291,8 +324,12 @@ class FixedEffectCoordinate:
 
     def update_and_score(self, w: torch.Tensor, partial_scores: torch.Tensor,
                          generator: Optional[torch.Generator] = None):
-        """(w', SolverResult, full-batch rescore)."""
+        """(w', SolverResult, full-batch rescore), the partial scores and
+        the rescore in the global row order."""
         b = self.batch
+        if self._row_perm is not None:
+            # a hybrid batch lives in its stored order
+            partial_scores = partial_scores.index_select(0, self._row_perm)
         offsets = b.offsets + partial_scores
         weights = b.weights
         reg = self.config.reg_weight
@@ -330,8 +367,10 @@ class FixedEffectCoordinate:
 
     def score(self, w: torch.Tensor) -> torch.Tensor:
         """Broadcast-dot scoring (``FixedEffectCoordinate.scala:171-178``),
-        without the dataset offset (scores sum across coordinates)."""
-        return matvec(self.batch.features, w)
+        without the dataset offset (scores sum across coordinates), in the
+        global row order."""
+        z = matvec(self.batch.features, w)
+        return z if self._inv_perm is None else z.index_select(0, self._inv_perm)
 
 
 @dataclasses.dataclass

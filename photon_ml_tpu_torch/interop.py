@@ -1,7 +1,7 @@
 """Carry data across from the JAX package as numpy arrays.
 
 The inputs are numpy arrays taken from ``photon_ml_tpu``'s
-``Coefficients``, ``SparseFeatures``, ``LabeledBatch``,
+``Coefficients``, ``SparseFeatures``, ``HybridFeatures``, ``LabeledBatch``,
 ``NormalizationContext`` and ``SolverConfig`` (``np.asarray`` of their
 fields); this module never imports that package. bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) are converted exactly through float32.
@@ -9,7 +9,9 @@ fields); this module never imports that package. bfloat16 arrays
 parameters both ways, a table or ``FactoredParams`` per coordinate;
 ``random_projection_from_numpy`` and ``index_map_from_numpy`` take a
 ``RandomProjection``'s matrix and an ``IndexMapProjection``'s columns, and
-``checkpoint_from_numpy`` a ``TrainingCheckpoint``'s fields. The other
+``checkpoint_from_numpy`` a ``TrainingCheckpoint``'s fields;
+``hybrid_from_numpy`` / ``hybrid_to_numpy`` carry a ``HybridFeatures``
+(slab, hot ids, cold segments, row permutation) both ways. The other
 bridge is the Avro model files and the checkpoint directories, which
 both packages read and write (``io.models``). ``lab_tiles_from_numpy``
 takes the column-sorted tiles of ``benchmarks/sparse_kernel_lab.py``,
@@ -29,7 +31,7 @@ from photon_ml_tpu_torch.game.projectors import IndexMapProjection, RandomProjec
 from photon_ml_tpu_torch.game.scoring import CompactReTable
 from photon_ml_tpu_torch.io.checkpoint import TrainingCheckpoint
 from photon_ml_tpu_torch.kernels.lab import LAB_BLOCK, LAB_TILE, ColumnTiles, tile_chains
-from photon_ml_tpu_torch.ops.sparse import SparseFeatures
+from photon_ml_tpu_torch.ops.sparse import HybridFeatures, SparseFeatures
 from photon_ml_tpu_torch.solvers.common import SolverConfig
 from photon_ml_tpu_torch.utils.device import to_numpy
 
@@ -58,12 +60,42 @@ def sparse_from_numpy(indices, values, d: int, device="cpu") -> SparseFeatures:
     )
 
 
+def hybrid_from_numpy(dense, hot_ids, cold_segments, row_perm, device="cpu") -> HybridFeatures:
+    """A JAX ``HybridFeatures`` from its fields: the (n, H) slab, the (H,)
+    hot ids, the cold segments (each with numpy ``indices`` and ``values``
+    and its ``d``) and the (n,) row permutation; ids and the permutation
+    become int32."""
+    segs = tuple(sparse_from_numpy(s.indices, s.values, s.d, device=device)
+                 for s in cold_segments)
+    return HybridFeatures(
+        dense=tensor_from_numpy(dense, device),
+        hot_ids=tensor_from_numpy(np.asarray(hot_ids, np.int32), device),
+        cold_segments=segs,
+        row_perm=tensor_from_numpy(np.asarray(row_perm, np.int32), device),
+    )
+
+
+def hybrid_to_numpy(hf: HybridFeatures) -> dict:
+    """The port's ``HybridFeatures`` as ``{"dense", "hot_ids",
+    "cold_segments": [(indices, values, d), ...], "row_perm"}`` of numpy
+    arrays (bfloat16 values widened to float64), for the JAX package's
+    ``HybridFeatures`` and ``SparseFeatures``."""
+    return {
+        "dense": to_numpy(hf.dense),
+        "hot_ids": to_numpy(hf.hot_ids),
+        "cold_segments": [(to_numpy(s.indices), to_numpy(s.values), s.d)
+                          for s in hf.cold_segments],
+        "row_perm": to_numpy(hf.row_perm),
+    }
+
+
 def labeled_batch_from_numpy(
     features, labels, offsets, weights, mask, device="cpu"
 ) -> LabeledBatch:
-    """``features`` is a dense numpy matrix or a port ``SparseFeatures``
-    (from :func:`sparse_from_numpy`); the columns keep their dtypes."""
-    if not isinstance(features, SparseFeatures):
+    """``features`` is a dense numpy matrix or a port ``SparseFeatures`` or
+    ``HybridFeatures`` (from :func:`sparse_from_numpy` /
+    :func:`hybrid_from_numpy`); the columns keep their dtypes."""
+    if not isinstance(features, (SparseFeatures, HybridFeatures)):
         features = tensor_from_numpy(features, device)
     return LabeledBatch(
         features=features,

@@ -291,6 +291,11 @@ def _column_reduce(kernel: str, indices, values, c, d: int, mode: str) -> torch.
     if n * k == 0:
         return torch.zeros((d,), dtype=cd, device=indices.device)
     copy = colsort.design_columns(indices, d)
+    if copy.nvalid == 0:
+        # an all-padding design (a hybrid's cold segment whose rows hold no
+        # cold entry): its copy has no tile, so the sums are exact zeros and
+        # nothing is launched or counted
+        return torch.zeros((d,), dtype=cd, device=indices.device)
     out = colsort.column_reduce(copy, colsort.column_values(copy, values.to(vdt)), c, mode)
     dispatch.count_launch(kernel)
     return out

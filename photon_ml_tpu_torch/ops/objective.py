@@ -19,7 +19,10 @@ solver (``solvers.lbfgs.minimize_owlqn``), which handles it itself.
 Padded-ELL designs take the fused single-read passes
 (:mod:`photon_ml_tpu_torch.kernels.fused`) on every device — the CUDA
 kernels on the card, their plain versions on the CPU; dense designs take
-plain tensor products. This is a single-device slice: the JAX package's
+plain tensor products. A hybrid design takes the unfused passes, as in the
+JAX package: ``matvec`` / ``rmatvec`` / ``colsum`` per cold segment (the
+``ell_matvec`` kernel and the column-sorted reduce on the card) plus a
+plain product on its dense slab. This is a single-device slice: the JAX package's
 ``axis_name`` psum and feature-sharded branches are not ported.
 """
 
@@ -40,7 +43,14 @@ from photon_ml_tpu_torch.kernels.fused import (
     fused_value_grad_curvature,
 )
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
-from photon_ml_tpu_torch.ops.sparse import as_dense, colsum, is_sparse, matvec, rmatvec
+from photon_ml_tpu_torch.ops.sparse import (
+    as_dense,
+    colsum,
+    is_sparse,
+    is_structured,
+    matvec,
+    rmatvec,
+)
 
 _REG_TYPES = ("NONE", "L1", "L2", "ELASTIC_NET")
 
@@ -139,7 +149,7 @@ class GLMObjective:
         :meth:`hessian_vector_at` takes: TRON's acceptance evaluation
         already computes z at the trial point, so the next CG loop starts
         with c for free. ELL designs: one ``fused_value_grad_curvature``
-        pass."""
+        pass; hybrid designs: a margins pass and a back-projection."""
         if is_sparse(batch.features):
             return self._value_grad_curvature_fused(w, batch)
         z = self.margins(w, batch)
@@ -234,14 +244,15 @@ class GLMObjective:
     def hessian_full(self, w: torch.Tensor, batch: LabeledBatch) -> torch.Tensor:
         """The explicit (d, d) Hessian X'^T diag(c) X' + l2 I, for the exact
         Newton solver at small d: dense designs with scale-only (or no)
-        normalization. A plain matrix product; no kernel of the port."""
+        normalization. A plain matrix product; no kernel of the port. ELL
+        and hybrid designs are refused, as in the JAX package."""
         norm = self.normalization
         if norm.shifts is not None:
             raise ValueError(
                 "hessian_full supports scale-only normalization (whiten "
                 "shifts change X densely; use hessian_vector instead)"
             )
-        if is_sparse(batch.features):
+        if is_structured(batch.features):
             raise ValueError("hessian_full requires dense features")
         x = as_dense(batch.features)
         c = self.hessian_coefficients(w, batch)

@@ -8,7 +8,9 @@ The summary feeds normalization
 (the column-sorted reduce on the card, in a fixed order) for the moments,
 and
 ``scatter_reduce_`` ("amin" / "amax") for the extremes — the JAX package
-does those in XLA, outside Pallas.
+does those in XLA, outside Pallas. A hybrid design's columns split
+disjointly, so its statistics are the cold segments' (joined into one
+ELL) with the hot columns overwritten by the dense slab's.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ def summarize_features(batch: LabeledBatch) -> BasicStatisticalSummary:
     colStats). Sparse batches count each column's implicit zeros in every
     statistic, matching the dense semantics."""
     x = batch.features
+    if sparse_ops.is_hybrid(x):
+        return _summarize_hybrid(batch)
     if sparse_ops.is_sparse(x):
         return _summarize_sparse(batch)
     x = sparse_ops.as_dense(x)
@@ -84,6 +88,28 @@ def summarize_features(batch: LabeledBatch) -> BasicStatisticalSummary:
     mn = torch.where(m > 0, x, big).amin(0)
     mx = torch.where(m > 0, x, -big).amax(0)
     return _finish(n, s1, s2, sabs, nnz, mn, mx)
+
+
+def _summarize_hybrid(batch: LabeledBatch) -> BasicStatisticalSummary:
+    """A hybrid's columns split disjointly, so the statistics merge by
+    overwrite: the hot columns take the dense slab's (the cold pass sees
+    them as all-zero columns), the cold columns keep the ELL's."""
+    x = batch.features
+    cold = summarize_features(
+        dataclasses.replace(batch, features=sparse_ops.cold_as_single_ell(x)))
+    slab = summarize_features(dataclasses.replace(batch, features=x.dense))
+    hot = x.hot_ids.long()
+
+    def merge(cold_v, slab_v):
+        out = cold_v.clone()
+        out[hot] = slab_v.to(cold_v.dtype)
+        return out
+
+    return BasicStatisticalSummary(
+        **{f.name: merge(getattr(cold, f.name), getattr(slab, f.name))
+           for f in dataclasses.fields(BasicStatisticalSummary) if f.name != "count"},
+        count=cold.count,
+    )
 
 
 def _summarize_sparse(batch: LabeledBatch) -> BasicStatisticalSummary:

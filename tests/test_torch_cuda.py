@@ -1620,3 +1620,102 @@ def test_hbm_watermark_on_the_card(cuda):
     assert wm.supported and wm.peak_bytes >= wm.before_bytes + (4 << 20)
     assert reg.gauge("hbm.phase.peak_bytes").value == wm.peak_bytes
     assert reg.gauge("hbm.phase.delta_bytes").value == wm.delta_bytes
+
+
+# -- hybrid designs: the slab a plain product, each cold segment on the
+# kernels -------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from photon_ml_tpu_torch.ops import sparse as sparse_ops  # noqa: E402
+
+
+def _hybrid(n=3000, d=5000, hot=12, seed=29):
+    """A hybrid on the CPU whose first cold segment is all padding (the
+    rows that name hot columns only), and whose last holds one row (the
+    one row with 40 cold entries), among 8 row buckets."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for i in range(n):
+        c = rng.choice(hot, size=3, replace=False).tolist()
+        if i % 7:
+            c += (hot + rng.choice(d - hot, size=40 if i == n // 2 else 1 + i % 6,
+                                   replace=False)).tolist()
+        rows += [i] * len(c)
+        cols += c
+    vals = rng.normal(size=len(cols))
+    sf = from_coo(np.asarray(rows), np.asarray(cols), vals, n, d, dtype=torch.float64)
+    hf = sparse_ops.to_hybrid(sf, hot_columns=hot)
+    widths = [s.nnz_per_row for s in hf.cold_segments]
+    assert not bool((hf.cold_segments[0].indices < d).any()) and widths[0] == 1
+    assert hf.segment_bounds()[-1][1] - hf.segment_bounds()[-1][0] == 1 and widths[-1] == 40
+    return hf
+
+
+def _abs_hybrid(hf):
+    return dataclasses.replace(
+        hf, dense=hf.dense.abs().double(),
+        cold_segments=tuple(dataclasses.replace(s, values=s.values.abs().double())
+                            for s in hf.cold_segments))
+
+
+@pytest.mark.parametrize("vdt,wdt,rtol", DTYPES, ids=["f64", "f32", "bf16-f32"])
+def test_hybrid_contractions_match_plain_versions(cuda, vdt, wdt, rtol):
+    """matvec, rmatvec and colsum of a hybrid on the card against the same
+    calls on the CPU (each segment's plain versions), with one ell_matvec
+    per segment and one reduce per segment that holds an entry."""
+    cpu = sparse_ops.cast_values(_hybrid(), vdt, "cpu")
+    card = sparse_ops.cast_values(cpu, vdt, cuda)
+    n, d = cpu.shape
+    segs = len(cpu.cold_segments)
+    g = torch.Generator().manual_seed(31)
+    w = torch.randn(d, generator=g, dtype=torch.float64).to(wdt)
+    a = torch.randn(n, generator=g, dtype=torch.float64).to(wdt)
+    absx = _abs_hybrid(cpu)
+    before = dispatch.launch_counts()
+    z = sparse_ops.matvec(card, w.to(cuda))
+    gr = sparse_ops.rmatvec(card, a.to(cuda))
+    sums = [sparse_ops.colsum(card, a.to(cuda), square=sq) for sq in (False, True)]
+    torch.cuda.synchronize()
+    after = dispatch.launch_counts()
+    assert after["ell_matvec"] - before["ell_matvec"] == segs
+    assert after["colsort_reduce"] - before["colsort_reduce"] == 3 * (segs - 1)
+    assert after["ell_rmatvec"] - before["ell_rmatvec"] == segs - 1
+    assert after["ell_colsum"] - before["ell_colsum"] == 2 * (segs - 1)
+    pairs = [(z, sparse_ops.matvec(cpu, w), sparse_ops.matvec(absx, w.abs().double())),
+             (gr, sparse_ops.rmatvec(cpu, a), sparse_ops.rmatvec(absx, a.abs().double()))]
+    for sq, got in zip((False, True), sums):
+        pairs.append((got, sparse_ops.colsum(cpu, a, square=sq),
+                      sparse_ops.colsum(absx, a.abs().double(), square=sq)))
+    for got, ref, scale in pairs:
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.all((got.cpu().double() - ref.double()).abs() <= rtol * scale + 1e-300)
+
+
+def test_hybrid_empty_segment_launches_nothing_and_is_zero(cuda):
+    hf = sparse_ops.cast_values(_hybrid(), torch.float64, cuda)
+    first = hf.cold_segments[0]
+    lo, hi = hf.segment_bounds()[0]
+    a = torch.randn(hf.shape[0], dtype=torch.float64, device=cuda)[lo:hi]
+    before = dispatch.launch_counts()
+    g = sparse_ops.rmatvec(first, a)
+    s = sparse_ops.colsum(first, a, square=True)
+    assert dispatch.launch_counts() == before
+    assert g.device.type == "cuda" and not g.any() and not s.any()
+
+
+def test_hybrid_does_not_fall_back_to_the_cpu(cuda, monkeypatch):
+    """A hybrid whose kernels cannot launch fails the call."""
+    from photon_ml_tpu_torch.kernels import ell as ell_module
+
+    hf = sparse_ops.cast_values(_hybrid(), torch.float64, cuda)
+
+    def no_kernel(*args, **kwargs):
+        raise RuntimeError("kernel unavailable")
+
+    monkeypatch.setattr(ell_module, "load_entry", no_kernel)
+    n, d = hf.shape
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        sparse_ops.matvec(hf, torch.ones(d, dtype=torch.float64, device=cuda))
+    with pytest.raises(RuntimeError, match="kernel unavailable"):
+        sparse_ops.rmatvec(hf, torch.ones(n, dtype=torch.float64, device=cuda))

@@ -270,10 +270,82 @@ _PORTED_CASES = [
     # both shards take the vocabulary of every key in the records (the
     # native scan), with the fingerprint in both packages
     ("no feature file", {"feature_shards": {}, "quality_fingerprint": True}),
+    # the JAX package's tests/test_sparse_game.py hybrid case
+    ("coordinate.hot_columns", {"coordinate": {"hot_columns": -1}}),
+    # the same fixture with 3 hot columns: cold segments that hold entries
+    ("coordinate.hot_columns=3", {"coordinate": {"hot_columns": 3}}),
 ]
 _PORTED = dict(_PORTED_CASES)
 _ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]
               + [c for c in _UNPORTED_CASES if c[0] not in _PORTED])
+
+
+def _hybrid_game_matches_jax(tmp, monkeypatch, hot_columns):
+    """``hot_columns`` on the sparse global shard of the JAX package's
+    sparse-GAME fixture (500 rows, 6 of 24 global columns each, 4 user
+    columns, 20 users): both drivers split the shard alike, once for the
+    run, and train alike."""
+    import photon_ml_tpu.ops.sparse as jsparse
+    from photon_ml_tpu.io.ingest import make_training_example
+    from photon_ml_tpu_torch.game import coordinates as tcoords
+
+    rng = np.random.default_rng(20261018)
+    n, d_global, d_user = 500, 24, 4
+    recs = []
+    for i in range(n):
+        feats = {(f"g{j}", ""): float(rng.normal())
+                 for j in rng.choice(d_global, 6, replace=False)}
+        feats.update({(f"u{j}", ""): float(rng.normal()) for j in range(d_user)})
+        rec = make_training_example(label=float(i % 2), features=feats)
+        rec["metadataMap"] = {"userId": f"user{i % 20}"}
+        recs.append(rec)
+    write_avro_file(str(tmp / "train" / "p.avro"), TRAINING_EXAMPLE_SCHEMA, recs)
+    (tmp / "global.txt").write_text(
+        "".join(f"g{j}\x01\n" for j in range(d_global)) + "(INTERCEPT)\x01\n")
+    (tmp / "user.txt").write_text("".join(f"u{j}\x01\n" for j in range(d_user)))
+    coord = {"optimizer": "TRON", "reg_weights": [1.0], "max_iters": 40, "tolerance": 1e-9}
+
+    def params(out):
+        return {
+            "train_input": [str(tmp / "train")], "validate_input": [str(tmp / "train")],
+            "output_dir": str(tmp / out), "task": "LOGISTIC_REGRESSION",
+            "num_iterations": 2, "updating_sequence": ["global", "per-user"],
+            "feature_shards": {"globalShard": str(tmp / "global.txt"),
+                               "userShard": str(tmp / "user.txt")},
+            "coordinates": {
+                "global": {"shard": "globalShard", "hot_columns": hot_columns, **coord},
+                "per-user": {"shard": "userShard", "random_effect": "userId", **coord},
+            },
+            "sparse_shards": ["globalShard"], "quality_fingerprint": False,
+        }
+
+    splits = {"jax": [], "port": []}
+
+    def record(pkg, split):
+        def run(sf, **kw):
+            hf = split(sf, **kw)
+            cold = sum(int((np.asarray(seg.indices) < seg.d).sum()) for seg in hf.cold_segments)
+            splits[pkg].append((np.asarray(hf.hot_ids).tolist(), hf.segment_bounds(), cold))
+            return hf
+        return run
+
+    monkeypatch.setattr(jsparse, "to_hybrid", record("jax", jsparse.to_hybrid))
+    monkeypatch.setattr(tcoords, "to_hybrid", record("port", tcoords.to_hybrid))
+    ref = jax_run_game_training(params("jax-hybrid"))
+    got = tgame.run_game_training(params("port-hybrid"), device="cpu")
+    _assert_same_runs(got, ref)
+    assert len(splits["port"]) == 1 and splits["port"] == splits["jax"]
+    hot_ids, bounds, cold = splits["port"][0]
+    if hot_columns == -1:
+        # every column is stored in about 125 of the 500 rows, above the
+        # split's 64: all of them are hot and the cold segment is all padding
+        assert len(hot_ids) == d_global + 1 and cold == 0
+    else:
+        # the intercept and 2 global columns hot; the other 22 columns' 6
+        # entries a row (fewer where a row names a hot one) stored in cold
+        # segments
+        assert len(hot_ids) == hot_columns and len(bounds) > 1
+        assert cold > n * (6 - 2)
 
 
 def _ported_setting_matches_jax(inputs, name, change):
@@ -327,10 +399,13 @@ def _ported_setting_matches_jax(inputs, name, change):
 
 
 @pytest.mark.parametrize("name,change,item", _ALL_CASES, ids=[c[0] for c in _ALL_CASES])
-def test_unported_setting_raises(inputs, name, change, item):
+def test_unported_setting_raises(inputs, tmp_path, monkeypatch, name, change, item):
     """Named for the pins it holds: each setting the port does not run
     raises, naming its ROADMAP item; each setting it now runs (``item``
     None) trains as the JAX driver does."""
+    if name.startswith("coordinate.hot_columns"):
+        _hybrid_game_matches_jax(tmp_path, monkeypatch, change["coordinate"]["hot_columns"])
+        return
     if item is None:
         _ported_setting_matches_jax(inputs, name, change)
         return

@@ -228,7 +228,44 @@ UNPORTED = [(name, value) for name, value in (
 
 # the pins of settings this port now runs: each is a parity case of the
 # driver against the JAX driver, under the same test id
-PORTED = {"quality_fingerprint"}
+PORTED = {"quality_fingerprint", "hot_columns"}
+
+
+def _hybrid_matches_jax(fixture, monkeypatch):
+    """With ``hot_columns`` -1 (sized by column counts) and 14, the
+    drivers split each batch alike (the same hot ids, training batch
+    first, then validation) and train alike: the same iterations and CG
+    steps, w within the GLM parity tolerance, and feature-summary.tsv
+    within the summary's tolerance."""
+    import photon_ml_tpu.ops.sparse as jsparse
+
+    splits = {"jax": [], "port": []}
+    jax_split, port_split = jsparse.to_hybrid, ttrain.to_hybrid
+
+    def record(pkg, split):
+        def run(sf, **kw):
+            hf = split(sf, **kw)
+            splits[pkg].append(np.asarray(hf.hot_ids).tolist())
+            return hf
+        return run
+
+    monkeypatch.setattr(jsparse, "to_hybrid", record("jax", jax_split))
+    monkeypatch.setattr(ttrain, "to_hybrid", record("port", port_split))
+    for hot in (-1, 14):
+        kw = dict(optimizer="TRON", sparse=True, hot_columns=hot)
+        ref = jax_run({**_params(fixture, f"jax-hot{hot}", **kw), "quality_fingerprint": False})
+        got = ttrain.run_glm_training(
+            {**_params(fixture, f"port-hot{hot}", **kw), "quality_fingerprint": False},
+            device="cpu")
+        _assert_same_runs(got, ref)
+        assert len(splits["port"]) == 2 and splits["port"] == splits["jax"]
+        if hot > 0:
+            assert [len(h) for h in splits["port"]] == [hot, hot]
+        _same_tsv(os.path.join(got.params.output_dir, "feature-summary.tsv"),
+                  os.path.join(ref.params.output_dir, "feature-summary.tsv"))
+        assert "hybridize" in got.timings
+        splits["jax"].clear()
+        splits["port"].clear()
 
 
 def _fingerprint_matches_jax(fixture):
@@ -258,11 +295,14 @@ def _fingerprint_matches_jax(fixture):
 
 
 @pytest.mark.parametrize("field,value", UNPORTED)
-def test_unported_paths_raise_and_name_their_roadmap_item(fixture, field, value):
+def test_unported_paths_raise_and_name_their_roadmap_item(fixture, monkeypatch, field, value):
     """Named for the pins it holds: each setting the port does not run
     raises naming its ROADMAP item; each it now runs matches JAX."""
-    if field in PORTED:
+    if field == "quality_fingerprint":
         _fingerprint_matches_jax(fixture)
+        return
+    if field == "hot_columns":
+        _hybrid_matches_jax(fixture, monkeypatch)
         return
     params = {**_params(fixture, f"port-unported-{field}"), field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
@@ -376,6 +416,11 @@ OPTION_CASES = {
     "newton_dense_scaled_variances": dict(
         optimizer="NEWTON", sparse=False, normalization="SCALE_WITH_MAX_MAGNITUDE",
         compute_variances=True, diagnostics=True),
+    # a hybrid design through the variances (colsum per cold segment) and
+    # both reports (their training batch in the hybrid's row order)
+    "tron_hybrid_variances_diagnostics": dict(
+        optimizer="TRON", sparse=True, hot_columns=-1, compute_variances=True,
+        diagnostics=True, training_diagnostics=True),
 }
 
 
