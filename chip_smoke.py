@@ -236,6 +236,23 @@ whenever any phase fails. Phases, in order:
    reduce at the widest segment's shape held to their plain versions and
    timed, the slab's ``torch.matmul`` both ways, the whole hybrid
    ``matvec`` / ``rmatvec``, and the adds of the segments' (d,) outputs;
+5h. the I/O runtime (run after 5g): 2^16 training records (8 part files)
+   and 2^13 held-out ones of 256 dense fields (``bench.py`` case 1's
+   width); (a) the GLM driver (TRON, L2, lambda in {10, 1}, f64,
+   ``compute_variances``) with ``streamed_ingest`` (8 MB chunks, prefetch
+   depth 2), its w and variances the in-core run's bits, and the pipeline
+   alone at depths 1, 2 and 4, every column ``labeled_batch``'s bits and
+   the assemble's device peak at most the dataset plus depth + 1 chunks;
+   (b) ``out_of_core`` on the same files, TRON with variances (phase 6's
+   gates against the in-core run, the same iterations and CG steps),
+   L-BFGS at lambda 1 and OWL-QN with L1 at lambda 10 (objective 2e-4,
+   AUC 1e-3), the solves' device peak at most depth + 2 chunks, the
+   sweeps, their device seconds (from CUDA events), bytes and the copies'
+   overlap with the passes, the design's pinning and one epoch's
+   host-to-device copy timed by events; every counter 0 on these
+   dense paths; (c) 5g's GAME run again with ``streamed_ingest`` on its
+   training records written as 4 part files: the GameData, objectives,
+   tables and launches 5g's to the bit;
 8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -1580,9 +1597,9 @@ WRITER_PROCESSES = 4
 
 
 def encode_examples(path: str, uid_prefix: str, labels: np.ndarray, offsets: np.ndarray,
-                    blocks, metadata=None) -> str:
+                    blocks, metadata=None, first: int = 0) -> str:
     """Write n TrainingExample records at ``path`` with the Python codec:
-    record i has uid ``uid_prefix + str(i)``, its label and offset, no
+    record i has uid ``uid_prefix + str(first + i)``, its label and offset, no
     weight, the features of every block ``(name, (n, m) column ids, (n, m)
     values)`` in block order (term: the column id), and a metadataMap of
     each ``metadata`` key whose (n,) entry is not None (None: no map)."""
@@ -1591,7 +1608,7 @@ def encode_examples(path: str, uid_prefix: str, labels: np.ndarray, offsets: np.
     labels, offsets = labels.tolist(), offsets.tolist()
     records = (
         {
-            "uid": f"{uid_prefix}{i}",
+            "uid": f"{uid_prefix}{first + i}",
             "label": float(labels[i]),
             "features": [{"name": name, "term": str(c), "value": float(v)}
                          for name, cols, vals in blocks for c, v in zip(cols[i], vals[i])],
@@ -1651,7 +1668,8 @@ def stop_writers() -> None:
 
 def write_inputs_ahead(work: str) -> dict:
     """Every driver phase's inputs under ``work`` — phases 5, 5b, 5c, 5d
-    (and 5e, which reads 5d's), 6 and 5g's GAME half — drawn here in the
+    (and 5e, which reads 5d's), 6, 5g's GAME half (its training records
+    also as 5h's part files) and 5h's dense records — drawn here in the
     phases' order with their seeds, and written by ``WRITER_PROCESSES``
     worker processes, which encode while the kernel phases hold the card;
     each phase waits for its own files. Returns {phase: its writer's
@@ -1671,7 +1689,9 @@ def write_inputs_ahead(work: str) -> dict:
                                        HELDOUT_RECORDS, D_HASHED),
         "quality_game": write_game_training_inputs(
             os.path.join(work, "quality", "game"), QUALITY_GAME_RECORDS,
-            QUALITY_GAME_HELDOUT, D_HASHED, QUALITY_GAME_USERS),
+            QUALITY_GAME_HELDOUT, D_HASHED, QUALITY_GAME_USERS, parts=IO_GAME_PARTS),
+        "io": write_io_inputs(os.path.join(work, "io"), IO_RECORDS, IO_HELDOUT, IO_FIELDS,
+                              IO_PARTS),
     }
     log(f"[inputs] every phase's records drawn (and the scoring models saved) in "
         f"{time.perf_counter() - t0:.1f} s (set-up); {len(_written)} files being written by "
@@ -2535,7 +2555,7 @@ EXAMPLE_SOLVER_FIELDS = ("optimizer", "reg_weights", "max_iters", "tolerance")
 
 def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
                                n_users: int, seed: int = SEED + 30, user_cols: int = 0,
-                               n_ads: int = 0):
+                               n_ads: int = 0, parts: int = 0):
     """Both shards' feature-index files and two Avro inputs, training and
     held-out, drawn as phase 6's from one seeded global logistic model plus
     a seeded model per user: the Criteo fields, a userId drawn Zipf(1.1)
@@ -2550,7 +2570,11 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
     (per-user coefficients on the pool, a per-ad model on the user
     shard), drawn from a second generator so that the base records keep
     their draws; the vocabulary paths then include the wide shard's and
-    the design the wide COO and the ad ids."""
+    the design the wide COO and the ad ids.
+
+    With ``parts`` (phase 5h) the training records are also written a
+    second time, in order, as ``parts`` files under ``train_parts/`` (the
+    same records, uids included), listed third in the data paths."""
     rng = np.random.default_rng(seed)
     xrng = np.random.default_rng(seed + 7)
     gpath = os.path.join(work, "feature-index-gshard.txt")
@@ -2603,6 +2627,15 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
         path = os.path.join(work, label, "part-00000.avro")
         write_examples_file(path, "t", labels, offsets, blocks, metadata)
         paths.append(path)
+        if label == "train" and parts:
+            part_paths = []
+            for p, rows_p in enumerate(np.array_split(np.arange(count), parts)):
+                lo, hi = int(rows_p[0]), int(rows_p[-1]) + 1
+                part_paths.append(os.path.join(work, "train_parts", f"part-{p:05d}.avro"))
+                write_examples_file(
+                    part_paths[-1], "t", labels[lo:hi], offsets[lo:hi],
+                    [(name, c[lo:hi], v[lo:hi]) for name, c, v in blocks],
+                    {k: v[lo:hi] for k, v in metadata.items()}, lo)
         if label == "train":
             icpt = np.full(count, gvocab.intercept_index)
             train_design = ((np.concatenate([rows, np.arange(count)]),
@@ -2611,6 +2644,8 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
                             x_u, users, labels, offsets)
             if user_cols:
                 train_design += ((wcols, wvals, user_cols), ads)
+    if parts:
+        paths.append(part_paths)
     return tuple(vocab_paths), paths, train_design
 
 
@@ -4025,7 +4060,8 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
     served with its drift monitor and the online-quality loop, on the card
     (``device_kw`` names another device for a rehearsal). ``glm_sets`` is
     phase 6's ``{"train": (path, ...), "heldout": (path, ...)}``. Returns
-    (summary, {"glm": launches, "game": launches})."""
+    (summary, {"glm": launches, "game": launches, "game_hybrid": launches},
+    the GAME run with its params, launches and inputs for phase 5h)."""
     phase_t0 = time.perf_counter()
     on_card = not device_kw
     device = device_kw.get("device")
@@ -4148,7 +4184,7 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
     t0 = time.perf_counter()
     if game_inputs is None:
         game_inputs = write_game_training_inputs(gdir, n, n_heldout, d_hashed, n_users)
-    (gpath, upath), (gtrain, gheldout), design = game_inputs
+    (gpath, upath), (gtrain, gheldout, *gparts), design = game_inputs
     wait_written(gtrain, gheldout)
     game_setup_s = time.perf_counter() - t0
     gparams = game_train_params(gdir, gtrain, gheldout, gpath, upath,
@@ -4368,8 +4404,11 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
     log(f"[quality] {json.dumps(summary)}")
     if failures:
         raise AssertionError("; ".join(failures))
+    # phase 5h reruns the GAME run through the ingest pipeline
+    game_ref = {"params": gparams, "run": game_run, "launches": game_launches,
+                "train": gtrain, "parts": gparts[0] if gparts else None}
     return summary, {"glm": glm_launches, "game": game_launches,
-                     "game_hybrid": hybrid_launches}
+                     "game_hybrid": hybrid_launches}, game_ref
 
 
 # -- phase 7: the full trainer -----------------------------------------------
@@ -4606,6 +4645,355 @@ def full_trainer_phase(work: str, ref: dict, **device_kw):
     return summary, launches_a
 
 
+# -- phase 5h: the I/O runtime -------------------------------------------------
+
+# bench.py case 1's dense width (1M x 256), cut to 2^16 rows for the run's
+# time; the training records in 8 part files, the held-out ones in one
+IO_RECORDS = 1 << 16
+IO_HELDOUT = 1 << 13
+IO_FIELDS = 256
+IO_PARTS = 8
+# 8 MB chunks: 4,017 rows of 2,088 bytes (257 f64 columns and the four
+# scalar columns), 17 chunks an epoch
+IO_CHUNK_MB = 8.0
+IO_DEPTHS = (1, 2, 4)
+IO_DRIVER_DEPTH = 2
+IO_GAME_PARTS = 4
+IO_GAME_CHUNK_MB = 1.0
+IO_TOLERANCE = 1e-9
+IO_MAX_ITERS = 100
+IO_LBFGS_LAMBDAS = [1.0]
+IO_L1_LAMBDAS = [10.0]
+
+
+def write_io_inputs(work: str, n: int, n_heldout: int, fields: int, parts: int,
+                    seed: int = SEED + 50):
+    """feature-index.txt (``fields`` dense keys ``d``/j and the intercept)
+    and two Avro inputs of records naming every field, drawn from one
+    seeded logistic model: the training set in ``parts`` files (rows in
+    order), the held-out set in one. Returns (the index path, the training
+    paths, the held-out path)."""
+    rng = np.random.default_rng(seed)
+    vocab_path = os.path.join(work, "feature-index.txt")
+    FeatureVocabulary([feature_key("d", str(j)) for j in range(fields)],
+                      add_intercept=True).save(vocab_path)
+    w_true = rng.normal(0.0, 0.1, size=fields + 1)
+    out = []
+    for label, count, files in (("train", n, parts), ("heldout", n_heldout, 1)):
+        x = rng.normal(size=(count, fields))
+        offsets = rng.normal(0.0, 0.1, size=count)
+        margins = x @ w_true[:fields] + w_true[fields] + offsets
+        labels = (rng.uniform(size=count) < 1.0 / (1.0 + np.exp(-margins))).astype(np.float64)
+        cols = np.broadcast_to(np.arange(fields), (count, fields))
+        paths = []
+        for p, rows_p in enumerate(np.array_split(np.arange(count), files)):
+            lo, hi = int(rows_p[0]), int(rows_p[-1]) + 1
+            paths.append(os.path.join(work, label, f"part-{p:05d}.avro"))
+            write_examples_file(paths[-1], "d", labels[lo:hi], offsets[lo:hi],
+                                [("d", np.ascontiguousarray(cols[lo:hi]), x[lo:hi])], None, lo)
+        out.append(paths)
+    return vocab_path, out[0], out[1][0]
+
+
+def _bits_equal_models(a, b) -> bool:
+    for ta, tb in zip(a.models, b.models):
+        ca, cb = ta.model.coefficients, tb.model.coefficients
+        if not torch.equal(ca.means, cb.means):
+            return False
+        if (ca.variances is None) != (cb.variances is None) or (
+                ca.variances is not None and not torch.equal(ca.variances, cb.variances)):
+            return False
+    return len(a.models) == len(b.models)
+
+
+def io_model_gaps(run, ref) -> list:
+    """Per lambda, an out-of-core run's readings against the in-core run
+    of the same configuration: w (absolute, with its scale), variances
+    (relative), the objective (relative), held-out AUC, iterations and CG
+    steps."""
+    auc = metrics_mod.AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS
+    out = []
+    for i, (tm, rm) in enumerate(zip(run.models, ref.models)):
+        w, w_ref = tm.model.coefficients.means.cpu(), rm.model.coefficients.means.cpu()
+        rec = {"lambda": tm.reg_weight,
+               "dw": float((w - w_ref).abs().max()),
+               "w_scale": max(1.0, float(w_ref.abs().max())),
+               "objective_rel": abs(float(tm.result.value) - float(rm.result.value))
+               / abs(float(rm.result.value)),
+               "auc": run.validation_metrics[i][auc], "ref_auc": ref.validation_metrics[i][auc],
+               "auc_gap": abs(run.validation_metrics[i][auc] - ref.validation_metrics[i][auc]),
+               "iterations": [tm.result.iterations, rm.result.iterations],
+               "cg_iterations": [tm.result.cg_iterations, rm.result.cg_iterations],
+               "solve_s": [tm.seconds, rm.seconds],
+               "nonzeros": [int((w != 0).sum()), int((w_ref != 0).sum())]}
+        v, v_ref = tm.model.coefficients.variances, rm.model.coefficients.variances
+        if v_ref is not None and v is not None:
+            rec["variance_rel"] = float(((v.cpu() - v_ref.cpu()).abs() / v_ref.cpu().abs()).max())
+        out.append(rec)
+    return out
+
+
+def h2d_rate(design, device, epochs: int = 3) -> dict:
+    """One epoch of the design's pinned chunks copied into one device slot
+    on a side stream, timed by CUDA events (the median of ``epochs``): the
+    card's host-to-device rate from this host's pinned memory."""
+    slot = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
+            for k, t in design.chunks[0].items()}
+    stream = torch.cuda.Stream(device=device)
+    times = []
+    with torch.cuda.stream(stream):
+        for _ in range(epochs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for chunk in design.chunks:
+                for k, t in chunk.items():
+                    slot[k].copy_(t, non_blocking=True)
+            end.record(stream)
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    return {"epoch_ms": ms, "gb_per_s": design.bytes_per_epoch / ms / 1e6,
+            "epoch_ms_all": times}
+
+
+def io_runtime_phase(work: str, game_ref: dict, name: str = "", n: int = IO_RECORDS,
+                     n_heldout: int = IO_HELDOUT, fields: int = IO_FIELDS,
+                     parts: int = IO_PARTS, chunk_mb: float = IO_CHUNK_MB, inputs=None,
+                     **device_kw):
+    """Phase 5h: the I/O runtime on the card (``device_kw`` names another
+    device for a rehearsal). (a) ``streamed_ingest``: the GLM driver (TRON,
+    L2, f64) with the dense batch assembled through the pipeline, its w and
+    variances the in-core run's bits; the pipeline alone at each prefetch
+    depth, every column ``labeled_batch``'s bits, the assemble's device peak
+    at most the dataset plus depth + 1 chunks. (b) ``out_of_core`` on the
+    same files: TRON with variances, L-BFGS and OWL-QN, each held to its
+    in-core run (TRON at phase 6's gates with the same iterations and CG
+    steps, the first-order solvers at PERF.md's), the solves' device peak
+    at most depth + 2 chunks; the sweeps' device seconds (sweep, copies,
+    passes) and bytes, the copies' overlap with the passes, the
+    host-to-device rate. (c) 5g's GAME run (``game_ref``,
+    from ``quality_loop_phase``) again with ``streamed_ingest`` on the same
+    records in part files: its GameData, objectives, tables and launches
+    5g's to the bit. Returns (summary, the GAME run's launches)."""
+    from photon_ml_tpu_torch.io.pipeline import (
+        COLUMNS,
+        IngestPipeline,
+        PipelineConfig,
+        StreamedDesign,
+        rows_per_chunk_for,
+    )
+
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    device = torch.device(device_kw.get("device", "cuda"))
+    cuda = device.type == "cuda"
+    failures = []
+    t0 = time.perf_counter()
+    if inputs is None:
+        inputs = write_io_inputs(work, n, n_heldout, fields, parts)
+    vocab_path, train_paths, heldout_path = inputs
+    wait_written(*train_paths, heldout_path)
+    setup_s = time.perf_counter() - t0
+    vocab = FeatureVocabulary.load(vocab_path)
+    d = len(vocab)
+    rpc = rows_per_chunk_for(chunk_mb, d)
+    chunk_bytes = rpc * (d + 4) * 8
+    dataset_bytes = n * (d + 4) * 8
+    base = {"train_input": train_paths, "validate_input": [heldout_path],
+            "feature_file": vocab_path, "task": "LOGISTIC_REGRESSION", "reg_type": "L2",
+            "reg_weights": TRAIN_LAMBDAS, "tolerance": IO_TOLERANCE,
+            "max_iters": IO_MAX_ITERS, "precision": "float64", "model_output_mode": "BEST",
+            "ingest_chunk_mb": chunk_mb, "prefetch_depth": IO_DRIVER_DEPTH,
+            "log_level": "WARN"}
+
+    def drive(label, **kw):
+        """The GLM driver on the dense records: (run, wall s, sweeps). No
+        kernel of the port is on a dense path: every counter must stay 0."""
+        reg = obs.registry()
+        sweeps0 = reg.counter("ingest.oocore.sweeps").value
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = run_glm_training({**base, "output_dir": os.path.join(work, label), **kw},
+                               **device_kw)
+        wall = time.perf_counter() - t0
+        require_native(run, f"[io] {label}")
+        launched = {k: v for k, v in dispatch.launch_counts().items() if v}
+        if launched:
+            failures.append(f"{label}: the dense path launched {launched}")
+        return run, wall, reg.counter("ingest.oocore.sweeps").value - sweeps0
+
+    # (a) streamed_ingest through the driver, then the pipeline alone
+    incore, incore_s, _ = drive("incore_tron", optimizer="TRON", compute_variances=True)
+    streamed, streamed_s, _ = drive("streamed_tron", optimizer="TRON", compute_variances=True,
+                                    streamed_ingest=True)
+    same_w = _bits_equal_models(streamed, incore)
+    if not same_w:
+        failures.append("the streamed_ingest run's w or variances differ from the in-core "
+                        "run's bits")
+    ref_batch, _, _ = IngestSource(train_paths).labeled_batch(vocab, dtype=torch.float64,
+                                                              device=device)
+    synchronize(device)
+    depths = []
+    for depth in IO_DEPTHS:
+        with IngestPipeline(train_paths, [vocab], config=PipelineConfig(
+                chunk_mb=chunk_mb, prefetch_depth=depth)) as pipe:
+            t0 = time.perf_counter()
+            batch, _, _ = pipe.labeled_batch(dtype=torch.float64, device=device)
+            synchronize(device)
+            wall = time.perf_counter() - t0
+            wm, stats = pipe.assemble_watermark, pipe.stats.snapshot()
+        same = {f: bool(torch.equal(getattr(batch, f), getattr(ref_batch, f)))
+                for f in COLUMNS}
+        peak = (wm.peak_bytes - wm.before_bytes) if wm.supported else None
+        limit = dataset_bytes + (depth + 1) * chunk_bytes
+        depths.append({"depth": depth, "wall_s": wall, "same_bits": same, "peak_bytes": peak,
+                       "limit_bytes": limit, "dataset_bytes": dataset_bytes,
+                       "rows_per_chunk": rpc, "stats": stats})
+        if not all(same.values()):
+            failures.append(f"depth {depth}: the streamed batch differs from labeled_batch's: "
+                            f"{same}")
+        if cuda and not (peak is not None and peak <= limit):
+            failures.append(f"depth {depth}: the assemble's peak {peak} over {limit}")
+        del batch
+    del ref_batch
+    streamed_summary = {
+        "incore_wall_s": incore_s, "streamed_wall_s": streamed_s,
+        "same_w_and_variance_bits": same_w,
+        "timings_s": {"incore": incore.timings, "streamed": streamed.timings},
+        "iterations": [tm.result.iterations for tm in streamed.models],
+        "by_depth": depths}
+    log(f"[io] streamed_ingest: {json.dumps(streamed_summary)}")
+
+    # (b) out_of_core on the same files, each held to its in-core run
+    limit = (IO_DRIVER_DEPTH + 2) * chunk_bytes
+    oocore = {}
+    cases = [("tron", incore, {"optimizer": "TRON", "compute_variances": True}),
+             ("lbfgs", None, {"optimizer": "LBFGS", "reg_weights": IO_LBFGS_LAMBDAS}),
+             ("owlqn", None, {"optimizer": "LBFGS", "reg_type": "L1",
+                              "reg_weights": IO_L1_LAMBDAS})]
+    for label, ref, kw in cases:
+        if ref is None:
+            ref, _, _ = drive(f"incore_{label}", **kw)
+        run, wall, sweeps = drive(f"oocore_{label}", out_of_core=True, **kw)
+        gaps = io_model_gaps(run, ref)
+        t = run.timings
+        peak = t.get("oocore_peak_bytes")
+        # the sweeps' seconds, copies and overlap are the card's, from CUDA
+        # events around every copy and pass
+        rec = {"wall_s": wall, "sweeps": sweeps, "gaps": gaps,
+               "sweep_s": t["oocore_sweep"] / max(sweeps, 1),
+               "copy_s": t["oocore_transfer"] / max(sweeps, 1),
+               "pass_s": t["oocore_consume"] / max(sweeps, 1),
+               "bytes_per_epoch": t["bytes_per_epoch"], "streamed_bytes": t["oocore_bytes"],
+               "stream_gb_per_s": t["oocore_bytes"] / max(t["oocore_sweep"], 1e-12) / 1e9,
+               "copy_gb_per_s": t["oocore_bytes"] / max(t["oocore_transfer"], 1e-12) / 1e9,
+               "overlap_frac": t["oocore_overlap_frac"],
+               "pipeline_overlap_frac": t["pipeline_overlap_frac"],
+               "stall_frac": t["pipeline_stall_frac"], "pin_s": t["pin"],
+               "ingest_s": t["ingest"], "train_s": t["train"],
+               "peak_bytes": peak, "peak_limit_bytes": limit,
+               "design_bytes": t["bytes_per_epoch"]}
+        oocore[label] = rec
+        log(f"[io] out_of_core {label}: {json.dumps(rec)}")
+        if cuda and not (peak is not None and peak <= limit):
+            failures.append(f"out_of_core {label}: the solves' peak {peak} over {limit}")
+        for g in gaps:
+            where = f"out_of_core {label} lambda={g['lambda']}"
+            if label == "tron":
+                if g["iterations"][0] != g["iterations"][1] or (
+                        g["cg_iterations"][0] != g["cg_iterations"][1]):
+                    failures.append(f"{where}: iterations {g['iterations']}, CG "
+                                    f"{g['cg_iterations']}")
+                if not (g["dw"] <= 1e-6 * g["w_scale"] and g["variance_rel"] <= 1e-6
+                        and g["auc_gap"] <= 1e-6):
+                    failures.append(f"{where}: {json.dumps(g)}")
+            elif not (g["objective_rel"] <= 2e-4 and g["auc_gap"] <= 1e-3):
+                failures.append(f"{where}: {json.dumps(g)}")
+        del run
+    # the design alone: its pinning, then one epoch copied to the card
+    with IngestPipeline(train_paths, [vocab], config=PipelineConfig(chunk_mb=chunk_mb)) as pipe:
+        t0 = time.perf_counter()
+        design = StreamedDesign.from_pipeline(pipe, dtype=torch.float64, device=device)
+        design_s = time.perf_counter() - t0
+    oocore["design"] = {"build_s": design_s, "pin_s": design.pin_s,
+                        "chunks": design.num_chunks, "rows_per_chunk": design.rows_per_chunk,
+                        "chunk_bytes": design.chunk_bytes,
+                        "bytes_per_epoch": design.bytes_per_epoch,
+                        "h2d": h2d_rate(design, device) if cuda else None}
+    log(f"[io] out_of_core design: {json.dumps(oocore['design'])}")
+    del design
+
+    # (c) 5g's GAME run again, its training records through the pipeline
+    game_run, gparams = game_ref["run"], game_ref["params"]
+    game_parts = game_ref["parts"]
+    wait_written(*game_parts)
+    sharded = set(gparams["sparse_shards"])
+    keys = sorted({c["random_effect"] for c in gparams["coordinates"].values()
+                   if c.get("random_effect")})
+    one, _, _, _ = IngestSource([game_ref["train"]]).game_data(
+        game_run.shard_vocabs, keys, sparse_shards=sharded)
+    t0 = time.perf_counter()
+    many, _, _, _ = IngestSource(game_parts).game_data_streamed(
+        game_run.shard_vocabs, keys, sparse_shards=sharded, chunk_mb=IO_GAME_CHUNK_MB,
+        prefetch_depth=IO_DRIVER_DEPTH)
+    streamed_read_s = time.perf_counter() - t0
+
+    def equal(a, b):
+        return bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
+
+    data_same = {}
+    for shard, x in one.features.items():
+        y = many.features[shard]
+        data_same[shard] = (equal(x.indices, y.indices) and equal(x.values, y.values)
+                            if shard in sharded else equal(x, y))
+    for field in ("labels", "offsets", "weights"):
+        data_same[field] = equal(getattr(one, field), getattr(many, field))
+    for key in keys:
+        data_same[f"entity:{key}"] = equal(one.entity_ids[key], many.entity_ids[key])
+    if not all(data_same.values()):
+        failures.append(f"game_data_streamed on the parts differs from game_data: {data_same}")
+    del one, many
+    sparams = {**gparams, "train_input": game_parts,
+               "output_dir": os.path.join(work, "game_streamed"), "streamed_ingest": True,
+               "ingest_chunk_mb": IO_GAME_CHUNK_MB, "prefetch_depth": IO_DRIVER_DEPTH}
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    srun = run_game_training(sparams, **device_kw)
+    game_wall_s = time.perf_counter() - t0
+    game_launches = dispatch.launch_counts()
+    require_native(srun, "[io] the streamed GAME run")
+    history = [h for sw in srun.sweep for h in sw["history"]]
+    ref_history = [h for sw in game_run.sweep for h in sw["history"]]
+    game_same = {
+        "best_index": srun.best_index == game_run.best_index,
+        "objectives": [h.objective for h in history] == [h.objective for h in ref_history],
+        "validation": ([h.validation_metric for h in history]
+                       == [h.validation_metric for h in ref_history]),
+        "tables": all(
+            all(equal(sw["model"].params[c].cpu(), rw["model"].params[c].cpu())
+                for c in rw["model"].params)
+            for sw, rw in zip(srun.sweep, game_run.sweep)),
+        "launches": game_launches == game_ref["launches"],
+    }
+    if not all(game_same.values()):
+        failures.append(f"the streamed GAME run differs from 5g's: {game_same} (launches "
+                        f"{game_launches} vs {game_ref['launches']})")
+    game = {"parts": len(game_parts), "read_s": streamed_read_s, "wall_s": game_wall_s,
+            "timings_s": srun.timings, "launches": game_launches,
+            "data_same_bits": data_same, "same_as_5g": game_same}
+    log(f"[io] GAME streamed_ingest: {json.dumps(game)}")
+    del srun
+
+    summary = {"setup_s": setup_s, "records": n, "heldout_records": n_heldout,
+               "fields": fields, "parts": parts, "chunk_mb": chunk_mb,
+               "streamed": streamed_summary, "out_of_core": oocore, "game": game,
+               "phase_s": time.perf_counter() - phase_t0}
+    log(f"[io] phase 5h: {time.perf_counter() - phase_t0:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, game_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -4698,10 +5086,15 @@ def main() -> int:
         # drivers with the quality fingerprint (the GAME one again with a
         # hybrid fixed effect), the export served with its drift monitor and
         # the feedback loop
-        quality_summary, quality_launches = quality_loop_phase(
+        quality_summary, quality_launches, game_ref = quality_loop_phase(
             os.path.join(work, "quality"), reference["sets"], name, serve_summary,
             game_inputs=ahead.pop("quality_game"))
         del reference
+        # 5h. the I/O runtime: streamed_ingest and out_of_core on dense
+        # records, and 5g's GAME run again through the ingest pipeline
+        io_summary, io_launches = io_runtime_phase(os.path.join(work, "io"), game_ref, name,
+                                                   inputs=ahead.pop("io"))
+        del game_ref
     finally:
         stop_writers()
         shutil.rmtree(work, ignore_errors=True)
@@ -4710,6 +5103,7 @@ def main() -> int:
     log(json.dumps({"full_trainer": full_summary}))
     log(json.dumps({"hybrid": hybrid_summary}))
     log(json.dumps({"quality_loop": quality_summary}))
+    log(json.dumps({"io_runtime": io_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":
                                         train_summary["second_run_same_w_bits"]}}))
@@ -4755,6 +5149,7 @@ def main() -> int:
                                  "quality_game": quality_launches["game"][kernel],
                                  "train_hybrid": hybrid_launches[kernel],
                                  "quality_game_hybrid": quality_launches["game_hybrid"][kernel],
+                                 "io_game_streamed": io_launches[kernel],
                                  "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],

@@ -34,8 +34,6 @@ MODEL_OUTPUT_MODES = ("ALL", "BEST", "NONE")
 # that keeps it off, its item in ROADMAP.md queue A)
 _OBS = "Host layers with no device math"
 UNPORTED_GLM_FIELDS = {
-    "out_of_core": (False, "I/O runtime"),
-    "streamed_ingest": (False, "I/O runtime"),
     "mesh_shape": (None, "Parallel"),
     "profile": (False, _OBS),
     "debug_nans": (False, _OBS),
@@ -129,10 +127,12 @@ class GLMDriverParams:
     def validate(self) -> None:
         if not self.train_input:
             raise ValueError("train_input is required")
-        # the JAX package's hybrid refusals, with its messages, ahead of the
-        # settings the port does not run (mesh_shape is one)
+        # the JAX package's hybrid, ingest and out_of_core refusals, with
+        # its messages and in its order, ahead of the settings the port
+        # does not run (mesh_shape is one)
         if self.hot_columns and not self.sparse:
             raise ValueError("hot_columns requires sparse=True")
+        self._validate_ingest()
         if self.hot_columns and self.mesh_shape:
             raise ValueError(
                 "hot_columns (hybrid features) is single-device for now: "
@@ -166,6 +166,57 @@ class GLMDriverParams:
             )
         self.to_training_config().validate()
 
+    def _validate_ingest(self) -> None:
+        """The JAX package's checks of the ingest-pipeline knobs and of
+        ``out_of_core`` against the settings it cannot run with, with its
+        messages."""
+        if self.ingest_chunk_mb <= 0:
+            raise ValueError(f"ingest_chunk_mb must be > 0, got {self.ingest_chunk_mb}")
+        if self.decode_threads < 0:
+            raise ValueError(
+                f"decode_threads must be >= 0 (0 = auto), got {self.decode_threads}"
+            )
+        if self.prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.stage_timeout_s is not None and self.stage_timeout_s < 0:
+            raise ValueError(f"stage_timeout_s must be >= 0, got {self.stage_timeout_s}")
+        if self.epoch_policy not in ("fail", "skip"):
+            raise ValueError(
+                f"epoch_policy must be 'fail' or 'skip', got {self.epoch_policy!r}"
+            )
+        if not self.out_of_core:
+            return
+        if self.sparse:
+            raise ValueError(
+                "out_of_core streams dense uniform chunks; sparse "
+                "designs decode in-core (padded-ELL width is global)"
+            )
+        if self.streamed_ingest:
+            raise ValueError(
+                "out_of_core subsumes streamed_ingest (chunks stay "
+                "host-side instead of assembling on device); pick one"
+            )
+        if self.normalization != "NONE":
+            raise ValueError(
+                "out_of_core requires normalization NONE (the "
+                "whitening summary would need its own streaming pass)"
+            )
+        if self.optimizer == "NEWTON":
+            raise ValueError(
+                "NEWTON materializes the explicit Hessian from the "
+                "in-core design; out_of_core supports TRON/LBFGS"
+            )
+        if self.mesh_shape:
+            raise ValueError(
+                "out_of_core is single-device for now (chunk "
+                "streaming does not partition across a mesh)"
+            )
+        if self.diagnostics or self.validate_per_iteration:
+            raise ValueError(
+                "diagnostics/validate_per_iteration need the in-core "
+                "training batch; not available with out_of_core"
+            )
+
     def to_training_config(self) -> GLMTrainingConfig:
         return GLMTrainingConfig(
             task=TaskType[self.task],
@@ -191,7 +242,6 @@ class GLMDriverParams:
 # that keeps it off, its item in ROADMAP.md queue A). ``entity_shards`` is
 # off at 0 or 1.
 UNPORTED_GAME_FIELDS = {
-    "streamed_ingest": (False, "I/O runtime"),
     "trace_dir": (None, _OBS),
     "metrics_every": (0.0, _OBS),
     "profile_dir": (None, _OBS),

@@ -21,7 +21,10 @@ best model's margins on the training rows, which
 complete the fingerprint the training ingest fed
 (``quality-fingerprint.json`` in every export subdir). A shard without a
 ``feature_shards`` file takes the vocabulary of every key in the training
-records (the native scan, ``IngestSource.build_vocab``).
+records (the native scan, ``IngestSource.build_vocab``). With
+``streamed_ingest`` the training records decode through the ingest
+pipeline's bounded pool (``IngestSource.game_data_streamed``): the same
+GameData.
 
 Single process: fixed effects; plain random effects and random effects
 projected by ``RANDOM=k`` or ``INDEX_MAP`` on dense shards; wide random
@@ -79,6 +82,7 @@ from photon_ml_tpu_torch.game.projected import (
 from photon_ml_tpu_torch.game.projectors import IndexMapProjection, build_random_projection
 from photon_ml_tpu_torch.game.scoring import CompactReTable, score_game_data
 from photon_ml_tpu_torch.io.ingest import IngestSource
+from photon_ml_tpu_torch.io.pipeline import PipelineStats
 from photon_ml_tpu_torch.io.models import (
     collapse_game_model,
     load_game_model,
@@ -294,7 +298,8 @@ class GameTrainingRun:
     # wall-clock seconds per phase: ingest (training Avro decode, shards,
     # entity ids), validation_ingest, train (every combo's designs and
     # descent, per-update validation included), write (models, feature
-    # indexes, manifest)
+    # indexes, manifest); with streamed_ingest the pipeline's
+    # pipeline_decode and pipeline_stall seconds and pipeline_overlap_frac
     timings: Dict[str, float]
     # the Avro codec of each read: {"ingest": ..., "validation_ingest": ...},
     # each "native" (the C++ codec) or "python"
@@ -388,9 +393,25 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             spec.random_effect for spec in params.coordinates.values()
             if spec.random_effect is not None
         })
-        data, entity_vocabs, _uids, _present = source.game_data(
-            shard_vocabs, entity_keys, sparse_shards=set(params.sparse_shards)
-        )
+        if params.streamed_ingest:
+            # the bounded parallel decode of the ingest pipeline: the same
+            # GameData as the one-shot read
+            stats = PipelineStats()
+            data, entity_vocabs, _uids, _present = source.game_data_streamed(
+                shard_vocabs, entity_keys, sparse_shards=set(params.sparse_shards),
+                chunk_mb=params.ingest_chunk_mb, decode_threads=params.decode_threads,
+                prefetch_depth=params.prefetch_depth,
+                stage_timeout_s=params.stage_timeout_s, epoch_policy=params.epoch_policy,
+                stats=stats,
+            )
+            snap = stats.snapshot()
+            timings.update({"pipeline_decode": snap["decode_s"],
+                            "pipeline_stall": snap["stall_s"],
+                            "pipeline_overlap_frac": snap["overlap_frac"]})
+        else:
+            data, entity_vocabs, _uids, _present = source.game_data(
+                shard_vocabs, entity_keys, sparse_shards=set(params.sparse_shards)
+            )
         timings["ingest"] = time.perf_counter() - t0
         codecs = {"ingest": source.codec}
         logger.info(f"read {len(data.labels)} training records ({source.codec} codec)")
@@ -658,11 +679,40 @@ def main(argv=None) -> None:
         "(quality-fingerprint.json in every export subdir — the "
         "serving drift-detection baseline)",
     )
+    p.add_argument(
+        "--streamed-ingest", action="store_true", default=None,
+        help="decode the training input through the streaming ingest "
+        "pipeline (bounded parallel decode)",
+    )
+    p.add_argument(
+        "--ingest-chunk-mb", type=float, default=None,
+        help="ingest pipeline: target decoded-chunk size in MB (default 64)",
+    )
+    p.add_argument(
+        "--decode-threads", type=int, default=None,
+        help="ingest pipeline: concurrent decode workers (0 = auto)",
+    )
+    p.add_argument(
+        "--prefetch-depth", type=int, default=None,
+        help="ingest pipeline: chunks decode may run ahead of the consumer "
+        "(default 2)",
+    )
+    p.add_argument(
+        "--stage-timeout-s", type=float, default=None,
+        help="ingest pipeline watchdog: abandon and rerun a decode attempt "
+        "stalled past this many seconds (default: off)",
+    )
+    p.add_argument(
+        "--epoch-policy", choices=["fail", "skip"], default=None,
+        help="exhausted ingest retries: fail the run (default) or skip and "
+        "log the lost group",
+    )
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args(argv)
     with open(args.config) as f:
         base = json.load(f)
-    for key in ("overwrite", "quality_fingerprint"):
+    for key in ("overwrite", "quality_fingerprint", "streamed_ingest", "ingest_chunk_mb",
+                "decode_threads", "prefetch_depth", "stage_timeout_s", "epoch_policy"):
         if getattr(args, key) is not None:
             base[key] = getattr(args, key)
     run_game_training(base, device=args.device)

@@ -24,12 +24,19 @@ the training files (``IngestSource.build_vocab``); with
 ``quality_fingerprint`` (the default) the training ingest feeds a
 :class:`~photon_ml_tpu_torch.obs.quality.BaselineFingerprint`, which the
 chosen model's margins on the training batch complete and
-``quality-fingerprint.json`` stores.
+``quality-fingerprint.json`` stores. With ``streamed_ingest`` the dense
+batch is assembled on the device through the ingest pipeline
+(:mod:`photon_ml_tpu_torch.io.pipeline`); with ``out_of_core`` the dense
+design stays on the host in uniform chunks (pinned for the card) that every
+objective pass streams to the device (``train_glm_streamed``), with no
+sanity check, feature summary or fingerprint margins. Both feed the
+fingerprint per staged chunk.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -39,6 +46,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import obs
 from photon_ml_tpu_torch.cli.config import (
     GLMDriverParams,
     load_params,
@@ -53,10 +61,16 @@ from photon_ml_tpu_torch.diagnostics.html import render_html
 from photon_ml_tpu_torch.io.constraints import load_constraint_bounds
 from photon_ml_tpu_torch.io.ingest import IngestSource
 from photon_ml_tpu_torch.io.models import load_glm_model, save_glm_model
+from photon_ml_tpu_torch.io.pipeline import (
+    IngestPipeline,
+    PipelineStats,
+    StreamedDesign,
+    config_for,
+)
 from photon_ml_tpu_torch.io.schemas import NAME_TERM_DELIMITER
 from photon_ml_tpu_torch.io.vocab import FeatureVocabulary
 from photon_ml_tpu_torch.models.selection import select_best_model
-from photon_ml_tpu_torch.models.training import TrainedModel, train_glm
+from photon_ml_tpu_torch.models.training import TrainedModel, train_glm, train_glm_streamed
 from photon_ml_tpu_torch.obs import quality as quality_mod
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import matvec, stored_cold_entries, to_hybrid
@@ -147,6 +161,21 @@ def _hybridize(batch, params: GLMDriverParams, logger):
     )
 
 
+def _pipeline_timings(timings: Dict[str, float], stats: PipelineStats, design) -> None:
+    """The ingest pipeline's stage seconds, overlap and bytes into the run's
+    timings (``pipeline_*``)."""
+    snap = stats.snapshot()
+    for key in ("decode_s", "stage_s", "transfer_s", "stall_s"):
+        timings[f"pipeline_{key[:-2]}"] = snap[key]
+    timings["pipeline_overlap_frac"] = snap["overlap_frac"]
+    timings["pipeline_stall_frac"] = snap["stall_frac"]
+    timings["pipeline_chunks"] = snap["chunks"]
+    # bytes of one epoch: copied to the device once (streamed_ingest), or
+    # streamed at every objective pass (out_of_core)
+    timings["bytes_per_epoch"] = float(
+        design.bytes_per_epoch if design is not None else snap["bytes_to_device"])
+
+
 def _initial_model_path(init_path: str) -> str:
     """A run directory's best-model.avro, or the sole model in its
     models/, or an explicit .avro path."""
@@ -191,7 +220,15 @@ class GLMTrainingRun:
     # (every solve), validate (validation ingest + margins + metrics),
     # diagnose (the diagnostic report, with diagnostics), write (the
     # fingerprint's margins and file, models, texts, vocabulary, metrics);
-    # each solve's own seconds are on its model
+    # each solve's own seconds are on its model. With streamed_ingest or
+    # out_of_core: the pipeline's pipeline_{decode,stage,transfer,stall}
+    # seconds, pipeline_overlap_frac, pipeline_stall_frac, pipeline_chunks
+    # and bytes_per_epoch; out_of_core adds pin (pinning the chunks, part
+    # of ingest) and the sweeps' oocore_{sweep,transfer,consume} seconds,
+    # oocore_bytes and oocore_overlap_frac (the share of the copies' and
+    # passes' busy time with both running), device times from CUDA events
+    # on the card, and there oocore_peak_bytes (the solves' device peak
+    # above what was allocated before them)
     timings: Dict[str, float]
     # the Avro codec of each read: {"ingest": ..., "validate": ...}, each
     # "native" (the C++ codec) or "python"
@@ -246,32 +283,71 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         fingerprint = None
         if params.quality_fingerprint:
             fingerprint = quality_mod.install_fingerprint_collector()
-        batch, _uids, _present = source.labeled_batch(
-            vocab, sparse=params.sparse, dtype=dtype, device=device
-        )
+        batch = design = summary = None
+        stats = PipelineStats()
+        if params.out_of_core:
+            # decode and stage once into host-resident uniform chunks
+            # (pinned for the card); every objective pass streams them
+            with IngestPipeline(
+                source.files, [vocab], label_field=source.label_field,
+                config=config_for(params.ingest_chunk_mb, params.decode_threads,
+                                  params.prefetch_depth, params.stage_timeout_s,
+                                  params.epoch_policy),
+                stats=stats,
+            ) as pipe:
+                design = StreamedDesign.from_pipeline(pipe, dtype=dtype, device=device)
+            source.codec = "native"
+            timings["pin"] = design.pin_s
+            logger.info(
+                f"out-of-core design: {design.n} rows x {design.d} columns in "
+                f"{design.num_chunks} chunks of {design.rows_per_chunk} rows "
+                f"({design.bytes_per_epoch / 1e9:.2f} GB/epoch streamed; pinned in "
+                f"{design.pin_s:.3f} s); sanity checks and the feature summary need the "
+                "in-core batch and are skipped"
+            )
+        elif params.streamed_ingest:
+            if params.sparse:
+                raise ValueError(
+                    "streamed_ingest is dense-only (padded-ELL width is "
+                    "a global property; decode sparse inputs whole)"
+                )
+            batch, _uids, _present = source.labeled_batch_streamed(
+                vocab, dtype=dtype, chunk_mb=params.ingest_chunk_mb,
+                decode_threads=params.decode_threads, prefetch_depth=params.prefetch_depth,
+                stage_timeout_s=params.stage_timeout_s, epoch_policy=params.epoch_policy,
+                device=device, stats=stats,
+            )
+        else:
+            batch, _uids, _present = source.labeled_batch(
+                vocab, sparse=params.sparse, dtype=dtype, device=device
+            )
         synchronize(device)
         timings["ingest"] = time.perf_counter() - t0
         codecs = {"ingest": source.codec}
-        logger.info(f"read {batch.labels.shape[0]} training records ({source.codec} codec)")
-        if params.hot_columns:
+        if params.out_of_core or params.streamed_ingest:
+            _pipeline_timings(timings, stats, design)
+        if batch is not None:
+            logger.info(f"read {batch.labels.shape[0]} training records "
+                        f"({source.codec} codec)")
+            if params.hot_columns:
+                t0 = time.perf_counter()
+                batch = _hybridize(batch, params, logger)
+                synchronize(device)
+                timings["hybridize"] = time.perf_counter() - t0
+
             t0 = time.perf_counter()
-            batch = _hybridize(batch, params, logger)
+            sanity_check_data(batch, task, DataValidationType[params.data_validation])
+            timings["validate_data"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            summary = summarize_features(batch)
             synchronize(device)
-            timings["hybridize"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        sanity_check_data(batch, task, DataValidationType[params.data_validation])
-        timings["validate_data"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        summary = summarize_features(batch)
-        synchronize(device)
-        timings["summary"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        write_feature_summary(
-            os.path.join(params.output_dir, "feature-summary.tsv"), summary, vocab
-        )
-        timings["summary_write"] = time.perf_counter() - t0
+            timings["summary"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            write_feature_summary(
+                os.path.join(params.output_dir, "feature-summary.tsv"), summary, vocab
+            )
+            timings["summary_write"] = time.perf_counter() - t0
         if fingerprint is not None:
             quality_mod.uninstall_fingerprint_collector()
             logger.info(f"quality fingerprint: {fingerprint.rows} rows sketched")
@@ -294,8 +370,27 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
             # new features start at 0
             initial, _ = load_glm_model(init_path, vocab, device=device)
             logger.info(f"warm-starting from {init_path}")
-        models = list(train_glm(batch, cfg, initial_coefficients=initial))
-        synchronize(device)
+        if design is not None:
+            logger.info(f"out-of-core solve over {design.num_chunks} streamed chunks")
+            sweeps = PipelineStats()
+            # the card's peak over the solves: the design's two device
+            # slots and each pass's temporaries, not the design
+            with (obs.hbm_watermark("io.oocore.solve", device=device)
+                  if device.type == "cuda" else contextlib.nullcontext()) as wm:
+                models = list(train_glm_streamed(design, cfg, initial_coefficients=initial,
+                                                 stats=sweeps))
+                synchronize(device)
+            snap = sweeps.snapshot()
+            timings.update({"oocore_sweep": snap["wall_s"],
+                            "oocore_transfer": snap["transfer_s"],
+                            "oocore_consume": snap["consume_s"],
+                            "oocore_bytes": snap["bytes_to_device"],
+                            "oocore_overlap_frac": snap["overlap_frac"]})
+            if wm is not None and wm.supported:
+                timings["oocore_peak_bytes"] = float(wm.peak_bytes - wm.before_bytes)
+        else:
+            models = list(train_glm(batch, cfg, initial_coefficients=initial))
+            synchronize(device)
         timings["train"] = time.perf_counter() - t0
         for tm in models:
             logger.info(
@@ -368,8 +463,9 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         if fingerprint is not None and fingerprint.rows > 0:
             # margin sketch: the shipped model's score distribution on its
             # own training rows, what the serving drift monitor compares
-            # live scores against; one margin pass, copied to the host once
-            if models:
+            # live scores against; one margin pass, copied to the host once.
+            # In-core only: the out-of-core design holds no batch to score
+            if models and batch is not None:
                 chosen = best if best is not None else models[0]
                 margins = chosen.model.compute_margin(batch.features, batch.offsets)
                 fingerprint.observe_margins(
@@ -418,7 +514,7 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         best=best,
         best_index=best_index,
         validation_metrics=validation_metrics,
-        num_training_rows=int(batch.labels.shape[0]),
+        num_training_rows=design.n if design is not None else int(batch.labels.shape[0]),
         num_features=len(vocab),
         summary=summary,
         device=str(device),
@@ -468,6 +564,43 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-iters", type=int)
     p.add_argument("--tolerance", type=float)
     p.add_argument("--sparse", action="store_true", default=None)
+    p.add_argument(
+        "--streamed-ingest", action="store_true", default=None,
+        help="assemble the dense dataset on the device through the ingest "
+        "pipeline (parallel decode, a pinned staging ring, copies on a side "
+        "stream; the host holds the ring, not the dataset)",
+    )
+    p.add_argument(
+        "--out-of-core", action="store_true", default=None,
+        help="out-of-core training: keep the dense design on the host in "
+        "uniform chunks and stream them to the device at every objective "
+        "pass (the exact full-dataset objective; TRON/LBFGS, normalization NONE)",
+    )
+    p.add_argument(
+        "--ingest-chunk-mb", type=float, default=None,
+        help="ingest pipeline: target decoded-chunk size in MB (file-group "
+        "planning and the uniform staged row blocks; default 64)",
+    )
+    p.add_argument(
+        "--decode-threads", type=int, default=None,
+        help="ingest pipeline: concurrent decode workers (0 = auto)",
+    )
+    p.add_argument(
+        "--prefetch-depth", type=int, default=None,
+        help="ingest pipeline: chunks decode and staging may run ahead of the "
+        "consumer; also sizes the staging ring (default 2)",
+    )
+    p.add_argument(
+        "--stage-timeout-s", type=float, default=None,
+        help="ingest pipeline watchdog: a decode/stage/transfer attempt stalled "
+        "past this many seconds is abandoned and run again (default: off)",
+    )
+    p.add_argument(
+        "--epoch-policy", choices=["fail", "skip"], default=None,
+        help="what an exhausted ingest retry budget does to the epoch: fail "
+        "(default) raises; skip logs and counts the lost group and goes on "
+        "with fewer rows",
+    )
     p.add_argument("--overwrite", action="store_true", default=None)
     p.add_argument("--diagnostics", action="store_true", default=None)
     p.add_argument("--training-diagnostics", action="store_true", default=None)

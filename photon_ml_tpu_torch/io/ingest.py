@@ -15,7 +15,9 @@ Every read goes through ``_resilient_read`` (the ``ingest.read`` fault
 site, retried ``OSError``s, the ``io.ingest.*`` metrics), and every
 assembled artifact feeds the installed quality fingerprint collector
 (:mod:`photon_ml_tpu_torch.obs.quality`). ``IngestSource.build_vocab`` is
-the native vocabulary scan. Not ported yet: the streamed pipeline.
+the native vocabulary scan. ``labeled_batch_streamed`` and
+``game_data_streamed`` read through the streaming pipeline
+(:mod:`photon_ml_tpu_torch.io.pipeline`), bit for bit the one-shot reads.
 """
 
 from __future__ import annotations
@@ -556,6 +558,113 @@ class IngestSource:
         _feed_fingerprint({"features": features}, out["labels"], out["weights"],
                           vocabs={"features": vocab})
         return batch, out["uids"], out["label_present"]
+
+    def labeled_batch_streamed(
+        self,
+        vocab: FeatureVocabulary,
+        dtype: Optional[torch.dtype] = None,
+        allow_null_labels: bool = False,
+        chunk_mb: Optional[float] = None,
+        decode_threads: int = 0,
+        prefetch_depth: Optional[int] = None,
+        stage_timeout_s: Optional[float] = None,
+        epoch_policy: str = "fail",
+        device="cpu",
+        stats=None,
+    ) -> Tuple[LabeledBatch, np.ndarray, np.ndarray]:
+        """-> (LabeledBatch on ``device``, uids, label_present) through the
+        streaming pipeline: the files decode on a bounded thread pool, the
+        decoded columns stage into a ring of uniform ``chunk_mb`` row
+        blocks (pinned for a CUDA device), and each block is copied into
+        its rows of the dataset's preallocated tensors on a side stream
+        while the next decodes. Bit for bit :meth:`labeled_batch` (dense);
+        the fingerprint is fed per staged chunk. ``stats`` (a
+        ``PipelineStats``) collects the pipeline's stage times."""
+        from photon_ml_tpu_torch.io import native
+        from photon_ml_tpu_torch.io import pipeline as pipeline_mod
+
+        if not native.native_available():
+            raise RuntimeError(
+                "streamed ingest requires the native reader "
+                "(io.native); use labeled_batch() for the Python codec"
+            )
+        config = pipeline_mod.config_for(chunk_mb, decode_threads, prefetch_depth,
+                                         stage_timeout_s, epoch_policy)
+        try:
+            with pipeline_mod.IngestPipeline(
+                self.files, [vocab], label_field=self.label_field,
+                allow_null_labels=allow_null_labels, config=config, stats=stats,
+            ) as pipe:
+                out = pipe.labeled_batch(dtype=dtype, device=device)
+        except native.UnsupportedSchema as e:
+            raise RuntimeError(
+                f"streamed ingest: native reader rejected {self.files!r} "
+                f"({e}); use labeled_batch()"
+            )
+        self.codec = "native"
+        return out
+
+    def game_data_streamed(
+        self,
+        shard_vocabs: Dict[str, FeatureVocabulary],
+        entity_keys: List[str],
+        entity_vocabs: Optional[Dict[str, dict]] = None,
+        allow_null_labels: bool = False,
+        sparse_shards: Optional[set] = None,
+        chunk_mb: Optional[float] = None,
+        decode_threads: int = 0,
+        prefetch_depth: Optional[int] = None,
+        stage_timeout_s: Optional[float] = None,
+        epoch_policy: str = "fail",
+        stats=None,
+    ):
+        """-> (GameData on the host, entity_vocabs, uids, label_present),
+        decoded by the streaming pipeline's bounded pool in place of the
+        one-shot map: the output of :meth:`game_data` on the same files
+        (the shard assembly, entity indexing and label policy are shared
+        code)."""
+        from photon_ml_tpu_torch.game.data import GameData
+        from photon_ml_tpu_torch.io import native
+        from photon_ml_tpu_torch.io import pipeline as pipeline_mod
+
+        if not native.native_available():
+            raise RuntimeError(
+                "streamed ingest requires the native reader "
+                "(io.native); use game_data() for the Python codec"
+            )
+        shards = list(shard_vocabs)
+        config = pipeline_mod.config_for(chunk_mb, decode_threads, prefetch_depth,
+                                         stage_timeout_s, epoch_policy)
+        try:
+            with pipeline_mod.IngestPipeline(
+                self.files, [shard_vocabs[s] for s in shards],
+                entity_keys=tuple(entity_keys), label_field=self.label_field,
+                allow_null_labels=allow_null_labels, config=config, stats=stats,
+            ) as pipe:
+                out = pipe.read_columnar()
+        except native.UnsupportedSchema as e:
+            raise RuntimeError(
+                f"streamed ingest: native reader rejected {self.files!r} "
+                f"({e}); use game_data()"
+            )
+        self._check_nonempty(out["n"])
+        self.codec = "native"
+        n = out["n"]
+        features = _assemble_shard_features(
+            shard_vocabs, {shard: out["coo"][si] for si, shard in enumerate(shards)}, n,
+            sparse_shards,
+        )
+        entity_ids, out_vocabs = index_entity_strings(
+            {k: out["entities"][k] for k in entity_keys}, entity_vocabs
+        )
+        data = GameData.create(
+            features=features, labels=out["labels"], offsets=out["offsets"],
+            weights=out["weights"], entity_ids=entity_ids,
+        )
+        _feed_fingerprint(features, out["labels"], out["weights"], vocabs=shard_vocabs)
+        _feed_fingerprint_entities({k: out["entities"][k] for k in entity_keys},
+                                   out["weights"])
+        return data, out_vocabs, out["uids"], out["label_present"]
 
     def game_data(
         self,

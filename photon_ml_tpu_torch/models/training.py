@@ -16,7 +16,9 @@ of ``photon_ml_tpu/models/training.py``; the reference's
 
 The path is a Python loop over one per-lambda solve: the JAX package's
 ``path_mode="loop"``, which its tests hold equal to its default ``"scan"``.
-The port takes either value and runs the loop.
+The port takes either value and runs the loop. ``train_glm_streamed`` is
+the same path out of core, over a host-resident chunked design
+(``io.pipeline.StreamedDesign``).
 """
 
 from __future__ import annotations
@@ -312,4 +314,78 @@ def train_glm(
         by_lambda[lam] = TrainedModel(
             reg_weight=lam, model=model, result=result, seconds=seconds
         )
+    return [by_lambda[lam] for lam in config.reg_weights]
+
+
+def train_glm_streamed(
+    design,
+    config: GLMTrainingConfig,
+    initial_coefficients: Optional[Coefficients] = None,
+    stats=None,
+) -> Sequence[TrainedModel]:
+    """Out-of-core :func:`train_glm`: every objective evaluation streams the
+    host-resident chunks of a :class:`photon_ml_tpu_torch.io.pipeline.
+    StreamedDesign` to its device through the per-chunk dense passes
+    (``io.pipeline.StreamingObjective``), so TRON, L-BFGS and OWL-QN see
+    the exact full-dataset objective, and the models equal the in-core
+    path's up to the reassociation at the chunk boundaries.
+
+    The contract of :func:`train_glm` (the descending warm-started lambda
+    path, models in config order, variances from the streamed Hessian
+    diagonal), with the JAX package's refusals: ``normalization`` other
+    than NONE (the summary would need its own streaming pass) and NEWTON
+    (its explicit Hessian needs the in-core design). ``stats`` (a
+    ``PipelineStats``) collects every sweep's copy and pass times (the
+    device's, on the card), each lambda's by the time its model is made."""
+    from photon_ml_tpu_torch.io.pipeline import StreamingObjective
+
+    config.validate()
+    if config.normalization != NormalizationType.NONE:
+        raise ValueError(
+            "train_glm_streamed supports normalization=NONE only (the "
+            "whitening summary needs its own streaming pass)"
+        )
+    if config.optimizer == OptimizerType.NEWTON:
+        raise ValueError(
+            "NEWTON materializes the explicit Hessian from the in-core "
+            "design; use TRON or LBFGS for out-of-core training"
+        )
+    loss = loss_for_task(config.task)
+    reg = config.regularization
+    scfg = config.solver_config()
+    if scfg.lower_bounds is not None or scfg.upper_bounds is not None:
+        scfg = dataclasses.replace(scfg, **{
+            name: None if b is None else b.to(device=design.device, dtype=design.dtype)
+            for name, b in (("lower_bounds", scfg.lower_bounds),
+                            ("upper_bounds", scfg.upper_bounds))
+        })
+    use_owlqn = reg.reg_type in ("L1", "ELASTIC_NET")
+    use_tron = config.optimizer == OptimizerType.TRON
+    if initial_coefficients is not None:
+        w = initial_coefficients.means.to(device=design.device, dtype=design.dtype)
+    else:
+        w = torch.zeros((design.d,), dtype=design.dtype, device=design.device)
+
+    by_lambda = {}
+    for lam in sorted(config.reg_weights, reverse=True):
+        sobj = StreamingObjective(design, loss, l2_weight=lam * reg.l2_weight(1.0),
+                                  stats=stats)
+        t0 = time.perf_counter()
+        if use_owlqn:
+            result = minimize_owlqn(sobj.value_and_grad, w, lam * reg.l1_weight(1.0), scfg)
+        elif use_tron:
+            result = minimize_tron(sobj.value_and_grad, sobj.hessian_vector, w, scfg)
+        else:
+            result = minimize_lbfgs(sobj.value_and_grad, w, scfg)
+        seconds = time.perf_counter() - t0
+        w = result.w  # warm start for the next (smaller) lambda
+        var = None
+        if config.compute_variances:
+            var = 1.0 / torch.clamp(sobj.hessian_diagonal(result.w), min=_VARIANCE_EPSILON)
+        sobj.flush_timing()
+        # normalization is NONE: the solved space is the raw feature space
+        model = GeneralizedLinearModel(
+            coefficients=Coefficients(means=result.w, variances=var), task=config.task)
+        by_lambda[lam] = TrainedModel(reg_weight=lam, model=model, result=result,
+                                      seconds=seconds)
     return [by_lambda[lam] for lam in config.reg_weights]

@@ -1719,3 +1719,179 @@ def test_hybrid_does_not_fall_back_to_the_cpu(cuda, monkeypatch):
         sparse_ops.matvec(hf, torch.ones(d, dtype=torch.float64, device=cuda))
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         sparse_ops.rmatvec(hf, torch.ones(n, dtype=torch.float64, device=cuda))
+
+
+# -- the I/O runtime: the pinned staging ring, the copy stream, the
+# out-of-core double buffer -------------------------------------------------
+
+from photon_ml_tpu_torch.io import pipeline as pipeline_mod  # noqa: E402
+from photon_ml_tpu_torch.io.avro import write_avro_file  # noqa: E402
+from photon_ml_tpu_torch.io.ingest import IngestSource, make_training_example  # noqa: E402
+from photon_ml_tpu_torch.io.schemas import TRAINING_EXAMPLE_SCHEMA  # noqa: E402
+from photon_ml_tpu_torch.io.vocab import FeatureVocabulary  # noqa: E402
+from photon_ml_tpu_torch.resilience.faults import FaultSpec, inject  # noqa: E402
+
+PIPE_D = 48
+
+
+def _pipe_parts(tmp_path, sizes=(700, 311, 923, 402)):
+    rng = np.random.default_rng(41)
+    paths = []
+    for i, n in enumerate(sizes):
+        recs = [make_training_example(
+            label=float(rng.integers(0, 2)),
+            features={(f"f{j}", "t"): float(rng.standard_normal())
+                      for j in rng.choice(PIPE_D, 9, replace=False)},
+            uid=f"u{i}-{r}", offset=float(rng.standard_normal()),
+            weight=float(rng.uniform(0.5, 2.0)) if r % 3 else None) for r in range(n)]
+        p = str(tmp_path / f"part-{i}.avro")
+        write_avro_file(p, TRAINING_EXAMPLE_SCHEMA, recs)
+        paths.append(p)
+    return paths, FeatureVocabulary([f"f{j}\x01t" for j in range(PIPE_D)], add_intercept=True)
+
+
+def _same_batch(a, b):
+    for f in pipeline_mod.COLUMNS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.shape == y.shape and torch.equal(x.cpu(), y.cpu()), f
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_streamed_batch_on_the_card_is_the_one_shot_read(cuda, tmp_path, depth):
+    paths, vocab = _pipe_parts(tmp_path)
+    whole, uids_w, _ = IngestSource(paths).labeled_batch(vocab, dtype=torch.float64)
+    with pipeline_mod.IngestPipeline(paths, [vocab], config=pipeline_mod.PipelineConfig(
+            chunk_mb=0.02, prefetch_depth=depth)) as pipe:
+        batch, uids, _ = pipe.labeled_batch(dtype=torch.float64, device=cuda)
+        wm = pipe.assemble_watermark
+        assert pipe.stats.chunks > 4 * depth
+    assert batch.features.device.type == "cuda"
+    _same_batch(batch, whole)
+    assert list(uids) == list(uids_w)
+    # the dataset and the one chunk in flight on the card, each of their
+    # five tensors rounded up to the allocator's 512-byte granule
+    rows = pipeline_mod.rows_per_chunk_for(0.02, len(vocab))
+
+    def granules(n):
+        return -(-n * 8 // 512) * 512
+
+    dataset = sum(granules(getattr(batch, f).numel()) for f in pipeline_mod.COLUMNS)
+    chunk = granules(rows * len(vocab)) + 4 * granules(rows)
+    assert wm.supported and wm.peak_bytes - wm.before_bytes <= dataset + chunk
+
+
+def test_slot_reuse_race_keeps_the_exact_batch(cuda, tmp_path, monkeypatch):
+    """Prefetch depth 1 (a ring of two pinned slots), the first group's
+    decode delayed, and every chunk's copy held back on the copy stream by
+    a 5 ms device sleep queued before it: each slot is refilled while the
+    copy issued from it two chunks back is still pending, unless the ring
+    waits on that copy's event. With the events dropped the batch is
+    corrupted (the race is planted); with them it is the one-shot read."""
+    paths, vocab = _pipe_parts(tmp_path, sizes=(2000, 1500, 2500, 1800))
+    whole, _, _ = IngestSource(paths).labeled_batch(vocab, dtype=torch.float64)
+    transfer = pipeline_mod.IngestPipeline._transfer
+
+    def held_back(self, staged, ring, device, streams):
+        with torch.cuda.stream(streams[0]):
+            torch.cuda._sleep(10_000_000)  # about 5 ms of the card's cycles
+        return transfer(self, staged, ring, device, streams)
+
+    monkeypatch.setattr(pipeline_mod.IngestPipeline, "_transfer", held_back)
+
+    def assemble():
+        with inject(FaultSpec("pipeline.decode", "delay", nth=1, delay=0.05)):
+            with pipeline_mod.IngestPipeline(paths, [vocab], config=pipeline_mod.PipelineConfig(
+                    chunk_mb=0.01, prefetch_depth=1, decode_threads=2)) as pipe:
+                batch, _, _ = pipe.labeled_batch(dtype=torch.float64, device=cuda)
+                assert pipe.stats.chunks > 20
+        return batch
+
+    with monkeypatch.context() as m:
+        m.setattr(pipeline_mod._StagingRing, "note_transfer", lambda self, slot, event: None)
+        corrupted = assemble()
+    assert not torch.equal(corrupted.features.cpu(), whole.features)
+    _same_batch(assemble(), whole)
+
+
+def test_stalled_transfer_on_the_card_is_harmless(cuda, tmp_path):
+    """A copy attempt delayed past ``stage_timeout_s`` is abandoned and
+    redone; the stray wakes after the batch is built and copies into
+    device tensors of its own, so the batch stays the one-shot read."""
+    paths, vocab = _pipe_parts(tmp_path)
+    whole, _, _ = IngestSource(paths).labeled_batch(vocab, dtype=torch.float64)
+    with inject(FaultSpec("pipeline.transfer", "delay", nth=1, delay=1.0)):
+        with pipeline_mod.IngestPipeline(paths, [vocab], config=pipeline_mod.PipelineConfig(
+                chunk_mb=0.02, prefetch_depth=1, stage_timeout_s=0.3)) as pipe:
+            batch, _, _ = pipe.labeled_batch(dtype=torch.float64, device=cuda)
+            _same_batch(batch, whole)
+            assert pipe.stats.retries == 1
+    # closing the pipeline joined the stray: its copy has run
+    torch.cuda.synchronize()
+    _same_batch(batch, whole)
+
+
+def test_a_failed_copy_raises_and_does_not_fall_back(cuda, tmp_path, monkeypatch):
+    from photon_ml_tpu_torch.resilience.retry import RetryBudgetExceeded
+
+    paths, vocab = _pipe_parts(tmp_path, sizes=(300,))
+    with inject(FaultSpec("pipeline.transfer", "raise", nth=1, count=-1)):
+        with pipeline_mod.IngestPipeline(paths, [vocab]) as pipe:
+            with pytest.raises(RetryBudgetExceeded):
+                pipe.labeled_batch(dtype=torch.float64, device=cuda)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(torch.cuda.Event, "record", broken)
+    with pipeline_mod.IngestPipeline(paths, [vocab]) as pipe:
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            pipe.labeled_batch(dtype=torch.float64, device=cuda)
+
+
+def test_out_of_core_objective_on_the_card(cuda):
+    """The double-buffered sweep on the card equals the in-core objective
+    on the CPU within 1e-12, pins its chunks, and holds two chunk slots."""
+    from photon_ml_tpu_torch.core.types import LabeledBatch
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC_LOSS
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+
+    rng = np.random.default_rng(5)
+    n, d = 5000, 33
+    x = rng.standard_normal((n, d))
+    batch = LabeledBatch.create(x, (rng.uniform(size=n) < 0.4).astype(float),
+                                offsets=0.1 * rng.standard_normal(n),
+                                weights=rng.uniform(0.5, 2.0, n), dtype=torch.float64)
+    design = pipeline_mod.StreamedDesign.from_batch(batch, rows_per_chunk=700, device=cuda)
+    assert design.num_chunks == 8 and all(
+        t.is_pinned() for c in design.chunks for t in c.values())
+    sobj = pipeline_mod.StreamingObjective(design, LOGISTIC_LOSS, l2_weight=0.3)
+    obj = GLMObjective(loss=LOGISTIC_LOSS, l2_weight=0.3)
+    w = torch.from_numpy(rng.standard_normal(d))
+    v = torch.from_numpy(rng.standard_normal(d))
+    # the compute stream's cuBLAS workspace is allocated once, at its first
+    # product, and is no part of the design's footprint
+    torch.mv(torch.ones((2, 2), dtype=torch.float64, device=cuda),
+             torch.ones(2, dtype=torch.float64, device=cuda))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    val, grad = sobj.value_and_grad(w.to(cuda))
+    hv = sobj.hessian_vector(w.to(cuda), v.to(cuda))
+    diag = sobj.hessian_diagonal(w.to(cuda))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - before
+    # the two slots, the diagonal's x * x of one chunk, and row vectors
+    assert 2 * design.chunk_bytes <= peak <= 4 * design.chunk_bytes
+    val_i, grad_i = obj.value_and_grad(w, batch)
+    assert abs(float(val) - float(val_i)) <= 1e-12 * abs(float(val_i))
+    for got, want in ((grad, grad_i), (hv, obj.hessian_vector(w, v, batch)),
+                      (diag, obj.hessian_diagonal(w, batch))):
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - want).abs().max()) <= 1e-12 * max(1.0, float(want.abs().max()))
+    # the sweeps' device times, read from their events
+    sobj.flush_timing()
+    assert sobj.stats.bytes_to_device == 3 * design.bytes_per_epoch
+    assert len(sobj.stats._intervals) == 3 * 2 * design.num_chunks
+    assert 0.0 < sobj.stats.transfer_s < sobj.stats.wall_s
+    assert 0.0 < sobj.stats.consume_s < sobj.stats.wall_s
+    assert 0.0 <= sobj.stats.overlap_frac() <= 1.0

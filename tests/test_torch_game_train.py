@@ -274,6 +274,10 @@ _PORTED_CASES = [
     ("coordinate.hot_columns", {"coordinate": {"hot_columns": -1}}),
     # the same fixture with 3 hot columns: cold segments that hold entries
     ("coordinate.hot_columns=3", {"coordinate": {"hot_columns": 3}}),
+    # the training records through the ingest pipeline, with the
+    # fingerprint in both packages
+    ("streamed_ingest", {"streamed_ingest": True, "ingest_chunk_mb": 0.01,
+                         "prefetch_depth": 1, "quality_fingerprint": True}),
 ]
 _PORTED = dict(_PORTED_CASES)
 _ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]

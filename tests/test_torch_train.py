@@ -228,7 +228,43 @@ UNPORTED = [(name, value) for name, value in (
 
 # the pins of settings this port now runs: each is a parity case of the
 # driver against the JAX driver, under the same test id
-PORTED = {"quality_fingerprint", "hot_columns"}
+PORTED = {"quality_fingerprint", "hot_columns", "out_of_core", "streamed_ingest"}
+
+
+def _files_under(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _ingest_matches_jax(fixture, field):
+    """``out_of_core`` / ``streamed_ingest`` on the dense records, in chunks
+    of 0.02 MB (6 of 58 rows): the port's driver writes the files the JAX
+    driver writes, with w within 1e-10 and the same iterations, and its
+    quality-fingerprint.json is the JAX driver's (fed per staged chunk;
+    with out_of_core without the margin sketch)."""
+    from test_torch_quality import assert_same_doc
+
+    kw = dict(optimizer="TRON", sparse=False, ingest_chunk_mb=0.02, prefetch_depth=1,
+              **{field: True})
+    ref = jax_run(_params(fixture, f"jax-{field}", **kw))
+    got = ttrain.run_glm_training(_params(fixture, f"port-{field}", **kw), device="cpu")
+    _assert_same_runs(got, ref)
+    for g, r in zip(got.models, ref.models):
+        np.testing.assert_allclose(g.model.coefficients.means.numpy(),
+                                   np.asarray(r.model.coefficients.means), atol=1e-10, rtol=0)
+    out_j, out_p = ref.params.output_dir, got.params.output_dir
+    assert _files_under(out_p) == _files_under(out_j)
+    assert os.path.exists(os.path.join(out_p, "feature-summary.tsv")) == (
+        field == "streamed_ingest")
+    docs = []
+    for out in (out_p, out_j):
+        with open(os.path.join(out, "quality-fingerprint.json")) as f:
+            docs.append(json.load(f))
+    assert_same_doc(*docs)
+    assert docs[0]["rows"] == 300
+    assert docs[0]["margin"]["moments"]["count"] == (300 if field == "streamed_ingest" else 0)
+    assert got.codecs["ingest"] == "native"
+    assert got.timings["pipeline_chunks"] == 6
 
 
 def _hybrid_matches_jax(fixture, monkeypatch):
@@ -303,6 +339,9 @@ def test_unported_paths_raise_and_name_their_roadmap_item(fixture, monkeypatch, 
         return
     if field == "hot_columns":
         _hybrid_matches_jax(fixture, monkeypatch)
+        return
+    if field in ("out_of_core", "streamed_ingest"):
+        _ingest_matches_jax(fixture, field)
         return
     params = {**_params(fixture, f"port-unported-{field}"), field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
