@@ -159,6 +159,22 @@ whenever any phase fails. Phases, in order:
    1e-6, the count of entity updates whose iterations differ printed;
    ``fused_vgc`` and ``fused_hvp`` held to their plain versions on the
    last fixed-effect update's batch and offsets;
+5i. the combo grid, the lambda path and dispatch chunks, on 5c's records
+   and widths right after 5c (nothing written but the driver's output):
+   (a) the GAME driver on 5c's training file with no held-out file takes
+   the grid branch (``run_grid``: each update combo by combo on the
+   coordinates' one design and the fixed effect's kernels), each combo held to 5c's sweep — the same updates, per-update
+   objectives within 1e-7 relative, both tables within 1e-6 of their
+   scale, and its launches 5c's less its validations (the run's counters
+   their sum plus the fingerprint's pass); (b) ``run_lambda_path`` over
+   the same combos, strongest lambda first, on 5c's in-process GameData
+   and design cache: combo 0 at (a)'s gates against (a)'s combo 0, combo
+   1 against ``cd.run`` warm-started from the path's combo 0; (c)
+   ``cd.run`` of combo 0 with ``passes_per_dispatch`` 3 and a tolerance
+   between the relative moves of (a)'s first and second passes (a decade
+   apart, else the phase fails): it stops after pass 2 with (a)'s first
+   objectives within 1e-7; each part's seconds and the grid's launches
+   per combo printed;
 5d. GAME train, projected and factored: the same driver on phase 5c's
    records at 2^16 + 2^14 with a 20,000-column sparse per-user shard
    (phase 5b's layout) and an adId drawn uniformly over 1,024 ads, 2
@@ -2884,7 +2900,6 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
     }
     log(f"[game-train] the descent at examples/game_train.json's solver settings: "
         f"{json.dumps(example_summary)}")
-    del cache, data, columns
 
     # the same driver on the CPU
     t0 = time.perf_counter()
@@ -2977,7 +2992,256 @@ def game_train_phase(work: str, name: str = "", n: int = GAME_TRAIN_RECORDS,
     log(f"[game-train] {json.dumps(summary)}")
     if failures:
         raise AssertionError("; ".join(failures))
+    # what phase 5i reuses: the card run, the files, the in-process
+    # GameData with its columns and design cache
+    reuse = {"run": run, "params": params, "data": data, "columns": columns, "cache": cache,
+             "entity_counts": {"userId": int(entity_ids.max()) + 1}, "device": device,
+             "users": users}
+    return summary, reuse
+
+
+# -- phase 5i: the combo grid, the lambda path and dispatch chunks -----------
+
+# (c)'s chunk: 3 passes, 5c's whole run, as one chunk
+GRID_CHUNK = 3
+# the tolerance of (c) sits between the first and the second pass's
+# relative moves; they must be a decade apart so that the card's splits
+# (1e-7 relative) cannot move the stop
+GRID_TOLERANCE_SPREAD = 10.0
+
+
+def descent_launches(history) -> dict:
+    """The launches of one combo's descent on 5c's layout, from its
+    records: a ``fused_vgc`` per fixed-effect evaluation, a ``fused_hvp``
+    per CG step, a reduce per fused pass, an ``ell_matvec`` per rescore
+    and per initial score (validation excluded)."""
+    fixed = _fixed_records(history)
+    return with_reduce({
+        "fused_vgc": sum(int(h.solver_iterations) + 1 for h in fixed),
+        "fused_hvp": sum(h.cg_iterations for h in fixed),
+        "ell_matvec": 1 + len(fixed),
+    })
+
+
+def history_gaps(got, want) -> dict:
+    """Per-update objectives (relative) and the pass structure of two
+    histories of one combo."""
+    return {
+        "updates": [len(got), len(want)],
+        "same_updates": [(h.iteration, h.coordinate) for h in got] == [
+            (h.iteration, h.coordinate) for h in want[:len(got)]],
+        "objective": max((abs(a.objective - b.objective) / abs(b.objective)
+                          for a, b in zip(got, want)), default=0.0),
+    }
+
+
+def table_gaps(model, want) -> dict:
+    """Each coordinate's table against ``want``'s: max |difference| and
+    its scale max(1, max |want|)."""
+    out = {}
+    for c, p in want.params.items():
+        a, b = model.params[c].cpu(), p.cpu()
+        out[c] = [float((a - b).abs().max()), max(1.0, float(b.abs().max()))]
+    return out
+
+
+def grid_gate_failures(label, hist, want_hist, model, want_model, launches, want_launches):
+    """Phase 5i's gates for one combo: the same updates, objectives within
+    5c's 1e-7, tables within 1e-6 of their scale, the same launches."""
+    failed = []
+    h = history_gaps(hist, want_hist)
+    if not (h["same_updates"] and h["updates"][0] == h["updates"][1]):
+        failed.append(f"{label}: updates {h}")
+    if not h["objective"] <= GAME_TRAIN_OBJECTIVE_RTOL:
+        failed.append(f"{label}: objectives {h['objective']:.3e} relative")
+    for c, (gap, scale) in table_gaps(model, want_model).items():
+        if not gap <= 1e-6 * scale:
+            failed.append(f"{label}: table {c} {gap:.3e} of {scale:.4f}")
+    if launches != want_launches:
+        failed.append(f"{label}: launches {launches}, 5c's {want_launches}")
+    return failed
+
+
+def game_grid_phase(work: str, reuse: dict, name: str = "", **device_kw):
+    """Phase 5i, after 5c and on 5c's records (``reuse``, from
+    ``game_train_phase``; ``device_kw`` names another device for a
+    rehearsal). (a) The GAME driver on 5c's training file with no held-out
+    file: 5c's grid (``global`` lambda 1 x ``per-user`` lambda {10, 1})
+    takes the grid branch (``run_grid``); each combo held to 5c's sweep:
+    the same updates, per-update objectives within 1e-7 relative, both
+    tables within 1e-6 of their scale, and its launches (from its records,
+    the run's counters their sum plus the fingerprint's pass) 5c's less
+    its validations. (b) ``run_lambda_path`` over the same combos,
+    strongest lambda first, on 5c's in-process GameData and design cache:
+    combo 0 held to (a)'s combo 0, combo 1 to ``cd.run`` warm-started from
+    the path's combo 0, launches included. (c) ``cd.run`` of combo 0 with 3 passes in
+    one chunk and a tolerance between the relative moves of its first and
+    second passes in (a), which must stop it after pass 2 with (a)'s
+    first 4 objectives within 1e-7. Writes nothing beyond the driver's
+    output under ``work``."""
+    from photon_ml_tpu_torch.game.descent import GameModel, run_lambda_path
+
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    ref, data, columns, cache = reuse["run"], reuse["data"], reuse["columns"], reuse["cache"]
+    device = reuse["device"]
+    failures = []
+    ref_hist = [s["history"] for s in ref.sweep]
+    ref_models = [s["model"] for s in ref.sweep]
+    ref_launches = [descent_launches(h) for h in ref_hist]
+
+    def counted(want):
+        return {k: (want.get(k, 0) if on_card else 0) for k in dispatch.KERNELS}
+
+    # (a) the driver's grid branch
+    params = {**reuse["params"], "output_dir": os.path.join(work, "grid")}
+    params.pop("validate_input")
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = run_game_training(params, **device_kw)
+    grid_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    require_native(run, "[game-grid]")
+    with open(os.path.join(params["output_dir"], "log-message.txt")) as f:
+        vmapped = f"train grid x{len(run.sweep)} (vmapped)" in f.read()
+    if not vmapped:
+        failures.append("(a): the driver did not take the grid branch")
+    per_combo = [descent_launches(s["history"]) for s in run.sweep]
+    total = {k: sum(c.get(k, 0) for c in per_combo) for k in per_combo[0]}
+    total["ell_matvec"] += fingerprint_launches(run)
+    if launches != counted(total):
+        failures.append(f"(a): the grid launched {launches}, its records {counted(total)}")
+    for c, s in enumerate(run.sweep):
+        failures += grid_gate_failures(f"(a) combo {c}", s["history"], ref_hist[c], s["model"],
+                                       ref_models[c], counted(per_combo[c]),
+                                       counted(ref_launches[c]))
+        if s["validation_metric"] is not None or s["seconds"] != run.sweep[0]["seconds"]:
+            failures.append(f"(a) combo {c}: validation {s['validation_metric']}, seconds "
+                            f"{s['seconds']}")
+    grid = {
+        "wall_s": grid_s, "grid_s": run.sweep[0]["seconds"], "timings_s": run.timings,
+        "sequential_combo_s_5c": [s["seconds"] for s in ref.sweep],
+        "launches": launches, "launches_per_combo": per_combo,
+        "launches_per_combo_5c_less_validation": ref_launches,
+        "objective_gap": [history_gaps(s["history"], ref_hist[c])["objective"]
+                          for c, s in enumerate(run.sweep)],
+        "table_gap": [table_gaps(s["model"], ref_models[c]) for c, s in enumerate(run.sweep)],
+        "update_s": [[h.seconds for h in s["history"]] for s in run.sweep],
+    }
+    log(f"[game-grid] (a) the driver's grid: {json.dumps(grid)}")
+
+    # (b) the lambda path on 5c's in-process data, strongest lambda first
+    gparams = ref.params
+    combos = sorted(gparams.grid(), key=lambda cb: -cb["per-user"])
+    coords = build_coordinates(gparams, data, TaskType.LOGISTIC_REGRESSION, combos[0],
+                               reuse["entity_counts"], device=device, design_cache=cache)
+    cd = CoordinateDescent(coords, *columns, task=TaskType.LOGISTIC_REGRESSION)
+    synchronize(device)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    path_models, path_hist = run_lambda_path(cd, combos, gparams.num_iterations)
+    synchronize(device)
+    path_s = time.perf_counter() - t0
+    path_launches = dispatch.launch_counts()
+    path_per_combo = [descent_launches(h) for h in path_hist]
+    path_total = {k: path_per_combo[0].get(k, 0) + path_per_combo[1].get(k, 0)
+                  for k in path_per_combo[0]}
+    if path_launches != counted(path_total):
+        failures.append(f"(b): the path launched {path_launches}, its records "
+                        f"{counted(path_total)}")
+    first = [c for c, cb in enumerate(gparams.grid()) if cb == combos[0]][0]
+    # the in-process data numbers the users in sorted order, the driver by
+    # its entity vocabulary: the path's table in the driver's rows
+    rows = torch.as_tensor([run.entity_vocabs["userId"][f"user{u}"]
+                            for u in np.unique(reuse["users"]).tolist()])
+
+    def driver_rows(model):
+        params = dict(_original_space(model, coords).params)
+        table = params["per-user"]
+        params["per-user"] = torch.empty_like(table).index_copy_(0, rows.to(table.device),
+                                                                 table)
+        return GameModel(params)
+
+    failures += grid_gate_failures(
+        "(b) combo 0", path_hist[0], run.sweep[first]["history"],
+        driver_rows(path_models[0]), run.sweep[first]["model"],
+        counted(path_per_combo[0]), counted(per_combo[first]))
+    coords1 = build_coordinates(gparams, data, TaskType.LOGISTIC_REGRESSION, combos[1],
+                                reuse["entity_counts"], device=device, design_cache=cache)
+    synchronize(device)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    warm_model, warm_hist = CoordinateDescent(
+        coords1, *columns, task=TaskType.LOGISTIC_REGRESSION).run(
+        gparams.num_iterations, initial_model=path_models[0])
+    synchronize(device)
+    warm_s = time.perf_counter() - t0
+    warm_launches = dispatch.launch_counts()
+    if warm_launches != counted(descent_launches(warm_hist)):
+        failures.append(f"(b): the warm-started run launched {warm_launches}")
+    failures += grid_gate_failures(
+        "(b) combo 1", path_hist[1], warm_hist, path_models[1], warm_model,
+        counted(path_per_combo[1]), counted(descent_launches(warm_hist)))
+    path = {"combos": combos, "wall_s": path_s, "warm_started_run_s": warm_s,
+            "launches": path_launches, "launches_per_combo": path_per_combo,
+            "objective_gap": [history_gaps(path_hist[0], run.sweep[first]["history"])[
+                "objective"], history_gaps(path_hist[1], warm_hist)["objective"]],
+            "seconds": [[h.seconds for h in hist] for hist in path_hist]}
+    log(f"[game-grid] (b) the lambda path: {json.dumps(path)}")
+    del path_models, warm_model, coords1
+
+    # (c) 3 passes in one chunk of combo 0, a tolerance that stops pass 2
+    hist0 = run.sweep[first]["history"]
+    coords0 = build_coordinates(gparams, data, TaskType.LOGISTIC_REGRESSION, combos[0],
+                                reuse["entity_counts"], device=device, design_cache=cache)
+    cd0 = CoordinateDescent(coords0, *columns, task=TaskType.LOGISTIC_REGRESSION)
+    start = {n: c.initial_params() for n, c in coords0.items()}
+    obj_in = float(cd0._full_objective({n: c.score(start[n]) for n, c in coords0.items()},
+                                       start))
+    last = [h.objective for h in hist0 if h.coordinate == "per-user"]
+    moves = [abs(obj_in - last[0]) / abs(obj_in), abs(last[0] - last[1]) / abs(obj_in)]
+    tol = float(np.sqrt(moves[0] * moves[1]))
+    if not moves[0] >= GRID_TOLERANCE_SPREAD * moves[1]:
+        failures.append(f"(c): the first two passes' moves {moves} are within "
+                        f"{GRID_TOLERANCE_SPREAD:g}x of each other; no tolerance between "
+                        "them is safe from the card's splits")
+    synchronize(device)
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    chunk_model, chunk_hist = cd0.run(gparams.num_iterations, passes_per_dispatch=GRID_CHUNK,
+                                      convergence_tolerance=tol)
+    synchronize(device)
+    chunk_s = time.perf_counter() - t0
+    chunk_launches = dispatch.launch_counts()
+    chunk_gaps = history_gaps(chunk_hist, hist0)
+    if not (chunk_gaps["same_updates"] and len(chunk_hist) == 2 * len(coords0)):
+        failures.append(f"(c): {len(chunk_hist)} updates, not pass 2's {2 * len(coords0)}")
+    if not chunk_gaps["objective"] <= GAME_TRAIN_OBJECTIVE_RTOL:
+        failures.append(f"(c): objectives {chunk_gaps['objective']:.3e} relative")
+    if [h.seconds is None for h in chunk_hist] != [False] + [True] * (len(chunk_hist) - 1):
+        failures.append("(c): the chunk's seconds are not on its first record alone")
+    if chunk_launches != counted(descent_launches(chunk_hist)):
+        failures.append(f"(c): launched {chunk_launches}")
+    chunk = {"tolerance": tol, "moves": moves, "obj_in": obj_in, "wall_s": chunk_s,
+             "passes": len(chunk_hist) // len(coords0), "objective_gap": chunk_gaps["objective"],
+             "launches": chunk_launches}
+    log(f"[game-grid] (c) passes_per_dispatch={GRID_CHUNK} with a tolerance: "
+        f"{json.dumps(chunk)}")
+    summary = {"grid": grid, "lambda_path": path, "chunks": chunk,
+               "phase_s": time.perf_counter() - phase_t0, "launches": launches}
+    log(f"[game-grid] phase 5i took {summary['phase_s']:.1f} s: grid {grid_s:.2f} s "
+        f"(5c's sequential combos {[round(s['seconds'], 2) for s in ref.sweep]} s, with "
+        f"validation), lambda path {path_s:.2f} s, warm-started run {warm_s:.2f} s, "
+        f"chunked run {chunk_s:.2f} s; the grid's launches per combo "
+        f"{json.dumps(per_combo)}")
+    if failures:
+        raise AssertionError("phase 5i: " + "; ".join(failures))
     return summary
+
+
+def _original_space(model, coords):
+    """A descent's model as the driver saves it (original space)."""
+    return game_train_mod.materialize_original_space(model, coords)
 
 
 # -- phase 5d: GAME training with projected and factored effects -------------
@@ -5059,8 +5323,13 @@ def main() -> int:
         shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "serve"), ignore_errors=True)
         # 5c. GAME training end to end, held to the CPU
-        game_train_summary = game_train_phase(os.path.join(work, "game_train"), name,
-                                              inputs=ahead.pop("game_train"))
+        game_train_summary, game_train_reuse = game_train_phase(
+            os.path.join(work, "game_train"), name, inputs=ahead.pop("game_train"))
+        # 5i. the combo grid, the lambda path and dispatch chunks on 5c's
+        # records, held to 5c's sweep
+        game_grid_summary = game_grid_phase(os.path.join(work, "game_train"),
+                                            game_train_reuse, name)
+        del game_train_reuse
         shutil.rmtree(os.path.join(work, "game_train"), ignore_errors=True)
         # 5d. GAME training with projected and factored effects, checkpoints
         # and a resume, held to the CPU
@@ -5142,6 +5411,7 @@ def main() -> int:
             "launches_by_path": {"score": summary["launches"][kernel],
                                  "game_score": game_summary["launches"][kernel],
                                  "game_train": game_train_summary["launches"][kernel],
+                                 "game_grid": game_grid_summary["launches"][kernel],
                                  "game_train_projected": game_proj_summary["launches"][kernel],
                                  "train": train_summary["launches"][kernel],
                                  "full_trainer_a": full_launches[kernel],

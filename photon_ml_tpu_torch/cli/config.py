@@ -268,12 +268,6 @@ def _unported_game_setting(params: "GameDriverParams"):
             value = getattr(spec, name)
             if value != off:
                 return f"coordinate {cname!r}: {name}={value!r}", item
-    if params.passes_per_dispatch > 1 and params.convergence_tolerance > 0:
-        # the JAX package tests the early exit once per dispatch chunk of
-        # its fused passes; the port's descent runs pass by pass
-        return (f"passes_per_dispatch={params.passes_per_dispatch} with "
-                f"convergence_tolerance={params.convergence_tolerance!r}",
-                "Combo grid and dispatch chunks")
     return None
 
 
@@ -370,8 +364,8 @@ class GameDriverParams:
     hbm_every: float = 0.5
     flight_dir: Optional[str] = None
     convergence_report: bool = False
-    # passes per dispatch: the port runs one pass at a time whatever K
-    # (the same math); K > 1 with a convergence tolerance is not ported
+    # passes per dispatch: the passes run in chunks of K, where the
+    # tolerance's early exit is checked after each pass (cd.run)
     passes_per_dispatch: int = 1
     convergence_tolerance: float = 0.0
     heartbeat_s: float = 0.0

@@ -33,8 +33,13 @@ factored random effects (``latent_dim``). With ``checkpoint_every`` each
 grid combo checkpoints under ``output_dir/checkpoints/combo-<i>``; a
 SIGTERM finishes the pass, writes a final checkpoint and
 ``preempted.json`` and saves no model, and a run with ``resume`` continues
-from the checkpoints. The grid combos train one after another (the JAX
-package may vmap them, ``descent.run_grid``: the same math);
+from the checkpoints. Without validation data, warm start, checkpoints
+or divergence guard, and with no factored, projected or sparse random
+effect, the grid's combos train at once (``descent.run_grid``, where the
+JAX driver vmaps them; log ``train grid xC (vmapped)``; the grid writes
+no checkpoints, so a SIGTERM ends it after its pass and saves nothing);
+otherwise one after another, each with ``passes_per_dispatch`` and
+``convergence_tolerance``;
 multi-process and entity-sharded runs and the observability envelope
 raise ``NotImplementedError`` naming their ROADMAP item
 (``cli/config.UNPORTED_GAME_FIELDS``).
@@ -67,7 +72,7 @@ from photon_ml_tpu_torch.game.coordinates import (
     RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.game.data import GameData, build_bucketed_random_effect_design
-from photon_ml_tpu_torch.game.descent import CoordinateDescent, GameModel
+from photon_ml_tpu_torch.game.descent import CoordinateDescent, GameModel, run_grid
 from photon_ml_tpu_torch.game.factored import (
     FactoredConfig,
     FactoredRandomEffectCoordinate,
@@ -290,7 +295,9 @@ class GameTrainingRun:
     shard_vocabs: Dict[str, FeatureVocabulary]
     entity_vocabs: Dict[str, dict]
     # one entry per grid combo: (combo, model, history, validation metric,
-    # and the port's "seconds": the combo's coordinate build + descent)
+    # and the port's "seconds": the combo's coordinate build + descent; on
+    # the grid branch (``run_grid``) every entry holds the whole grid's
+    # build + descent)
     sweep: List[dict]
     best_index: int
     output_dirs: List[str]
@@ -494,7 +501,57 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
     sweep: List[dict] = []
     design_cache: Dict[str, object] = {}
     t_train = time.perf_counter()
-    for combo_index, combo in enumerate(params.grid()):
+    grid_combos = list(params.grid())
+    # the whole grid trains at once (``run_grid``) where the JAX driver
+    # vmaps it (``photon_ml_tpu/cli/game_train.py:926-958``): no
+    # validation, warm start, checkpoints or guard, and coordinates with
+    # the grid surface (no factored, projected or sparse random effect)
+    vmappable = (
+        len(grid_combos) > 1
+        and params.entity_shards <= 1
+        and vdata is None
+        and not warm_params
+        and params.checkpoint_every <= 0
+        and not params.divergence_guard
+        and all(
+            spec.latent_dim is None
+            and not spec.projector
+            and not (spec.random_effect is not None and is_sparse(data.features[spec.shard]))
+            for spec in params.coordinates.values()
+        )
+    )
+    if vmappable:
+        t0 = time.perf_counter()
+        coords = build_coordinates(params, data, task, grid_combos[0], entity_counts,
+                                   dtype=dtype, device=device, design_cache=design_cache,
+                                   shard_vocabs=shard_vocabs)
+        vmappable = all(hasattr(c, "fused_state_for_reg") for c in coords.values())
+        if vmappable:
+            with timed(logger, f"train grid x{len(grid_combos)} (vmapped)"):
+                cd = CoordinateDescent(
+                    coordinates=coords,
+                    labels=torch.as_tensor(data.labels, dtype=dtype, device=device),
+                    base_offsets=torch.as_tensor(data.offsets, dtype=dtype, device=device),
+                    weights=torch.as_tensor(data.weights, dtype=dtype, device=device),
+                    task=task,
+                )
+                # a SIGTERM ends the grid after its pass; nothing is saved
+                models, histories = run_grid(cd, grid_combos, params.num_iterations,
+                                             stop_check=shutdown)
+                synchronize(device)
+            seconds = time.perf_counter() - t0
+            if shutdown.requested:
+                logger.warn("preempted during the grid: it has no checkpoints; "
+                            "nothing is saved")
+            for combo, model, history in zip(grid_combos, models, histories):
+                for h in history:
+                    logger.info(f"combo={combo} iter={h.iteration} coord={h.coordinate} "
+                                f"objective={h.objective:.6g}")
+                sweep.append({"combo": combo,
+                              "model": materialize_original_space(model, coords),
+                              "history": history, "validation_metric": None,
+                              "seconds": seconds})
+    for combo_index, combo in enumerate([] if vmappable else grid_combos):
         with timed(logger, f"train combo {combo}"):
             t0 = time.perf_counter()
             coords = build_coordinates(params, data, task, combo, entity_counts,
@@ -531,6 +588,10 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 # pass, checkpoints and falls through to the break below
                 stop_check=shutdown,
                 freeze=params.freeze_coordinates or None,
+                # passes in chunks of K with the tolerance's early exit,
+                # where the JAX package runs K passes per dispatch
+                passes_per_dispatch=params.passes_per_dispatch,
+                convergence_tolerance=params.convergence_tolerance,
             )
             for h in history:
                 if h.event == "frozen":

@@ -28,12 +28,18 @@ bucket ONE batched solve over the padded (entities, rows, dim) design
 reasons come back as an (E,) array for the tracker histogram
 (``RandomEffectOptimizationTracker.scala:33-110``).
 
-Not ported: the entity-sharded coordinate and the fused-state hooks of
-the JAX package's one-dispatch passes and grid sweeps.
+The grid surface (``fused_state_for_reg`` / ``with_fused_state``, the
+JAX package's names): a coordinate's state for one reg weight, whose
+pieces that do not depend on the weight are the same tensor objects on
+every call, and a copy of the coordinate on such a state. The combo grid
+and the lambda path (``game/descent.run_grid``, ``run_lambda_path``) run
+on it, combo by combo over the coordinates' one design. Not ported: the
+entity-sharded coordinate.
 """
 
 from __future__ import annotations
 
+import copy as copy_module
 import dataclasses
 from typing import List, Optional, Tuple
 
@@ -291,6 +297,9 @@ class FixedEffectCoordinate:
             batch, self._row_perm, self._inv_perm = self.hybridize_batch(batch, hot_columns)
         self.batch = batch
         self.config = config
+        # the reg weight the solves and the penalty read: the config's, or
+        # a grid combo's on a copy made by with_fused_state
+        self._reg_weight = config.reg_weight
         self._solve = _make_solve(config)
         rate = config.down_sampling_rate
         self._downsample = (
@@ -332,7 +341,7 @@ class FixedEffectCoordinate:
             partial_scores = partial_scores.index_select(0, self._row_perm)
         offsets = b.offsets + partial_scores
         weights = b.weights
-        reg = self.config.reg_weight
+        reg = self._reg_weight
         if self._downsample is not None:
             if generator is None:
                 raise ValueError(
@@ -358,9 +367,25 @@ class FixedEffectCoordinate:
         result = self._solve(w, reg, batch)
         return result.w, result, self.score(result.w)
 
+    def fused_state_for_reg(self, reg_weight):
+        """The coordinate's state for one reg weight (JAX
+        ``coordinates.py:378``): the batch, the hybrid's row permutations
+        and the weight, a float64 scalar on the host. Same-object contract:
+        every piece that does not depend on ``reg_weight`` is the same
+        tensor object on every call, so a grid reads it once for all its
+        combos."""
+        return (self.batch, self._row_perm, self._inv_perm,
+                torch.tensor(float(reg_weight), dtype=torch.float64))
+
+    def with_fused_state(self, state):
+        """A copy of the coordinate on ``state`` (``fused_state_for_reg``)."""
+        c = copy_module.copy(self)
+        c.batch, c._row_perm, c._inv_perm, lam = state
+        c._reg_weight = float(lam)
+        return c
+
     def reg_term(self, params: torch.Tensor) -> torch.Tensor:
-        lam = torch.as_tensor(self.config.reg_weight, dtype=params.dtype,
-                              device=params.device)
+        lam = torch.as_tensor(self._reg_weight, dtype=params.dtype, device=params.device)
         l2 = lam * (1.0 - self.config.l1_ratio)
         l1 = lam * self.config.l1_ratio
         return 0.5 * l2 * torch.dot(params, params) + l1 * torch.sum(torch.abs(params))
@@ -466,6 +491,7 @@ class RandomEffectCoordinate:
         e = design.num_entities
         # (E,) per-entity regularization weights, float32 as in the JAX
         # package (``RandomEffectOptimizationProblem.scala:41-110``)
+        self._uniform_reg = reg_weights is None
         if reg_weights is None:
             reg_weights = torch.full((e,), config.reg_weight, dtype=torch.float32,
                                      device=device)
@@ -535,6 +561,35 @@ class RandomEffectCoordinate:
     def score(self, table: torch.Tensor) -> torch.Tensor:
         return _score_rows_by_entity(table, self.row_features, self.row_entities)
 
+    def fused_state_for_reg(self, reg_weight):
+        """The coordinate's state with every entity's reg weight set to
+        ``reg_weight`` (JAX ``coordinates.py:730``): the (E,) float32
+        weights, then the offsets, the design's buckets, the scoring rows
+        and their entities. The grid replaces the coordinate's shared
+        weight, so a coordinate built with custom per-entity weights
+        refuses. Same-object contract: only the weights are made anew."""
+        if not self._uniform_reg:
+            raise ValueError(
+                "grid sweeps replace the coordinate's shared reg weight; "
+                "this RandomEffectCoordinate carries CUSTOM per-entity "
+                "reg_weights — run its combos sequentially instead"
+            )
+        return (
+            torch.full((self.design.num_entities,), reg_weight, dtype=torch.float32,
+                       device=self.row_features.device),
+            self.full_offsets_base,
+            tuple(self.design.buckets),
+            self.row_features,
+            self.row_entities,
+        )
+
+    def with_fused_state(self, state):
+        """A copy of the coordinate on ``state`` (``fused_state_for_reg``)."""
+        c = copy_module.copy(self)
+        c.reg_weights, c.full_offsets_base, buckets, c.row_features, c.row_entities = state
+        c.design = dataclasses.replace(self.design, buckets=list(buckets))
+        return c
+
     def reg_term(self, table: torch.Tensor) -> torch.Tensor:
         """Penalty with the PER-ENTITY weights the batched solves
         minimized (``RandomEffectOptimizationProblem.getRegularizationTermValue``)."""
@@ -544,3 +599,4 @@ class RandomEffectCoordinate:
         sq = torch.sum(table * table, dim=-1)
         ab = torch.sum(torch.abs(table), dim=-1)
         return torch.sum(0.5 * l2 * sq + l1 * ab)
+

@@ -10,8 +10,12 @@ The JAX package runs a pass as one XLA dispatch (``fuse_passes=True``), one
 dispatch per update (``"coordinate"``), several passes per dispatch
 (``passes_per_dispatch``), or the per-update loop; all four compute the
 same math. The port runs the per-update loop (the divergence guard and
-the caller's ``freeze`` included) and takes neither option: the driver
-runs every ``passes_per_dispatch`` one pass at a time. Down-sampling
+the caller's ``freeze`` included) and takes no ``fuse_passes``; with
+``passes_per_dispatch`` it runs the passes in chunks with the JAX
+superpass's boundaries, tolerance check and guard replay. The combo grid
+(:func:`run_grid`) and the warm-started lambda path
+(:func:`run_lambda_path`) run on the coordinates' grid surface
+(``fused_state_for_reg``). Down-sampling
 draws come from a ``torch.Generator`` seeded by ``seed``, not
 ``jax.random``. Checkpoints (:mod:`photon_ml_tpu_torch.io.checkpoint`)
 are written at pass boundaries by a one-deep background writer, and a run
@@ -28,7 +32,8 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Mapping, Optional
+import warnings
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -122,6 +127,18 @@ def _history_record(iteration, coordinate, objective, reasons, iterations, secon
     )
 
 
+def _pending_record(p: dict) -> CoordinateUpdateRecord:
+    """The record of one pending update (its objective and its solver's
+    result still on the device): a SolverResult, a BatchedSolverResult or
+    a RandomEffectUpdateSummary."""
+    r = p["result"]
+    return _history_record(
+        p["iteration"], p["coordinate"], float(p["objective"]), r.reason, r.iterations,
+        p["seconds"], p.get("validation_metric"), p.get("event"), r.cg_iterations,
+        r.iterations if hasattr(r, "entity_ids") else None,
+    )
+
+
 def _loss_fn_for_task(task: TaskType):
     if task == TaskType.LOGISTIC_REGRESSION:
         return metrics_mod.total_logistic_loss
@@ -177,6 +194,21 @@ def _host_params(p):
     return to_numpy(p)
 
 
+def _finite(p) -> torch.Tensor:
+    """A 0-dim bool tensor: every entry of ``p`` (FactoredParams leaf by
+    leaf) is finite."""
+    if is_factored_params(p):
+        return torch.isfinite(p.gamma).all() & torch.isfinite(p.projection).all()
+    return torch.isfinite(torch.as_tensor(p)).all()
+
+
+def _pass_finite(records, params) -> bool:
+    """The JAX superpass's guard predicate for one pass: every update's
+    objective and every coordinate's parameters finite (one host read)."""
+    ok = [_finite(r["objective"]) for r in records] + [_finite(p) for p in params.values()]
+    return bool(torch.stack([t.cpu() for t in ok]).all())
+
+
 def _poisoned(p):
     """A coordinate's parameters with every entry NaN (FactoredParams leaf
     by leaf): what a ``corrupt`` action of ``descent.update`` makes of an
@@ -208,11 +240,14 @@ class CoordinateDescent:
         self.task = task
         self._loss_fn = _loss_fn_for_task(task)
 
-    def _full_objective(self, scores: Dict[str, torch.Tensor], params) -> torch.Tensor:
+    def _full_objective(self, scores: Dict[str, torch.Tensor], params,
+                        coords: Optional[Mapping[str, object]] = None) -> torch.Tensor:
         """Loss + every coordinate's penalty, in the JAX package's order
-        (``descent.py:337-342``)."""
+        (``descent.py:337-342``); ``coords``: the coordinates whose
+        penalties apply (a grid combo's), by default the descent's own."""
+        coords = self.coordinates if coords is None else coords
         names = list(self.coordinates)
-        reg = sum(_coordinate_reg_term(self.coordinates[n], params[n]) for n in names)
+        reg = sum(_coordinate_reg_term(coords[n], params[n]) for n in names)
         total = sum(scores[n] for n in names)
         return self._loss_fn(self.labels, self.base_offsets + total, self.weights) + reg
 
@@ -228,6 +263,8 @@ class CoordinateDescent:
         divergence_guard: bool = False,
         stop_check=None,
         freeze=None,
+        passes_per_dispatch: int = 1,
+        convergence_tolerance: float = 0.0,
     ):
         """Returns (model, history): one record per coordinate update
         (``CoordinateDescent.scala:160-189``), with
@@ -254,7 +291,22 @@ class CoordinateDescent:
         ``stop_check``, a zero-arg callable, is polled at pass boundaries:
         when it turns true the run ends after that pass, and with a
         checkpoint directory it writes a final checkpoint and a
-        ``preempted.json`` marker there first."""
+        ``preempted.json`` marker there first.
+
+        ``passes_per_dispatch`` (K) and ``convergence_tolerance``: where
+        the JAX package runs K passes per dispatch (K > 1, no
+        ``validation_fn``, no frozen coordinate), the passes run in chunks
+        of K, shrunk to land on the checkpoint cadence and the run's end;
+        checkpoints and ``stop_check`` fall on chunk boundaries, and a
+        chunk's seconds go on its first record. With a tolerance > 0 the
+        run ends after the first pass whose last objective moved at most
+        ``tolerance * |objective at the chunk's entry|`` from the pass
+        before (the chunk's entry objective for its first pass). With
+        ``divergence_guard`` a pass of a chunk whose objectives or
+        parameters are not all finite is rolled back and replayed through
+        the guarded per-update loop, and the next pass starts a new chunk.
+        Elsewhere K and the tolerance change nothing, as in the JAX
+        package."""
         names = list(self.coordinates)
         seed_frozen = set(freeze or ())
         unknown = seed_frozen - set(names)
@@ -295,15 +347,7 @@ class CoordinateDescent:
         pending: List[dict] = []
 
         def materialize():
-            for p in pending:
-                # a SolverResult, a BatchedSolverResult or a
-                # RandomEffectUpdateSummary
-                r = p["result"]
-                history.append(_history_record(
-                    p["iteration"], p["coordinate"], float(p["objective"]), r.reason,
-                    r.iterations, p["seconds"], p["validation_metric"], p["event"],
-                    r.cg_iterations, r.iterations if hasattr(r, "entity_ids") else None,
-                ))
+            history.extend(_pending_record(p) for p in pending)
             pending.clear()
 
         writer = _AsyncCheckpointWriter()
@@ -325,8 +369,54 @@ class CoordinateDescent:
             if wait:
                 writer.join()
 
-        stopped = False
-        for it in range(start_it, num_iterations):
+        tol = float(convergence_tolerance)
+
+        def run_chunk(it: int, chunk: int):
+            """Up to ``chunk`` passes from pass ``it`` as one dispatch chunk
+            of the JAX package's superpass (``descent.py:405-535``) ->
+            (passes done, guard tripped, converged). ``obj_in``, the full
+            objective at the chunk's entry, scales the tolerance check and
+            is the first pass's previous objective; the run has converged
+            after a pass when ``|prev - cur| <= tol * |obj_in|``, ``cur``
+            the pass's last objective. With the divergence guard a pass
+            with a non-finite objective or parameters is rolled back (its
+            parameters, scores, draws and records) and not counted. The
+            chunk's seconds go on its first record."""
+            obj_in = self._full_objective(scores, model.params)
+            tol_t = torch.as_tensor(tol, dtype=obj_in.dtype, device=obj_in.device)
+            first = len(pending)
+            t0 = time.perf_counter()
+            prev = obj_in
+            done, tripped, converged = 0, False, False
+            for p in range(chunk):
+                mark = len(pending)
+                if divergence_guard:
+                    kept = (dict(model.params), dict(scores), generator.get_state())
+                run_pass(it + p, guard=False)
+                if divergence_guard and not _pass_finite(pending[mark:], model.params):
+                    del pending[mark:]
+                    model.params.clear()
+                    model.params.update(kept[0])
+                    scores.clear()
+                    scores.update(kept[1])
+                    generator.set_state(kept[2])
+                    tripped = True
+                    break
+                done += 1
+                cur = pending[-1]["objective"]
+                if tol > 0 and bool(torch.abs(prev - cur) <= tol_t * torch.abs(obj_in)):
+                    converged = True
+                    break
+                prev = cur
+            seconds = time.perf_counter() - t0
+            for i, rec in enumerate(pending[first:]):
+                rec["seconds"] = seconds if i == 0 else None
+            return done, tripped, converged
+
+        def run_pass(it: int, guard: bool) -> None:
+            """One pass of updates, each against the others' scores, its
+            record pending; ``guard``: the divergence guard's rollback,
+            damped retry and freeze after each update."""
             for name in names:
                 if name in frozen:
                     continue
@@ -346,7 +436,7 @@ class CoordinateDescent:
 
                 params, result, new_scores = _attempt(model.params[name], partial)
                 event = None
-                if divergence_guard:
+                if guard:
                     obj = float(self._full_objective(
                         {**scores, name: new_scores}, {**model.params, name: params}))
                     if not np.isfinite(obj):
@@ -374,21 +464,61 @@ class CoordinateDescent:
                     "seconds": seconds, "validation_metric": vmetric, "event": event,
                     "result": result,
                 })
+
+        def boundary(step: int, saved: bool) -> bool:
+            """The preemption poll at a pass or chunk boundary: True when
+            the run stops there, after a final checkpoint and the marker."""
+            if stop_check is None or not stop_check():
+                return False
+            if checkpoint_dir is not None:
+                # the marker promises a durable checkpoint at this step
+                if saved:
+                    writer.join()
+                else:
+                    save(step, wait=True)
+                write_preempted_marker(checkpoint_dir, step,
+                                       getattr(stop_check, "signum", None))
+            return True
+
+        # chunks of K passes where the JAX package runs its superpass
+        # (``descent.py:982-989``): K > 1, no validation, no frozen set
+        k_dispatch = max(1, int(passes_per_dispatch))
+        use_chunks = k_dispatch > 1 and validation_fn is None
+        stopped = False
+        it = start_it
+        # after a chunk's guard trips, the failing pass replays through the
+        # guarded per-update loop before the next chunk starts
+        force_plain = False
+        while it < num_iterations:
+            if use_chunks and not frozen and not force_plain:
+                chunk = min(k_dispatch, num_iterations - it)
+                if checkpoint_dir is not None:
+                    # land on the checkpoint cadence
+                    chunk = min(chunk, checkpoint_every - ((it - start_it) % checkpoint_every))
+                done, guard_tripped, converged = run_chunk(it, chunk)
+                it += done
+                force_plain = guard_tripped
+                saved = False
+                if done and checkpoint_dir is not None and (
+                        it - start_it) % checkpoint_every == 0:
+                    save(it)
+                    saved = True
+                if boundary(it, saved):
+                    stopped = True
+                    break
+                if converged:
+                    break
+                continue
+            run_pass(it, guard=divergence_guard)
+            force_plain = False
             saved = False
             if checkpoint_dir is not None and (it + 1 - start_it) % checkpoint_every == 0:
                 save(it + 1)
                 saved = True
-            if stop_check is not None and stop_check():
+            if boundary(it + 1, saved):
                 stopped = True
-                if checkpoint_dir is not None:
-                    # the marker promises a durable checkpoint at this step
-                    if saved:
-                        writer.join()
-                    else:
-                        save(it + 1, wait=True)
-                    write_preempted_marker(checkpoint_dir, it + 1,
-                                           getattr(stop_check, "signum", None))
                 break
+            it += 1
         # every checkpoint submitted is on disk (or has raised) before the
         # run returns
         writer.join()
@@ -401,6 +531,172 @@ class CoordinateDescent:
 
     def total_scores(self, model: GameModel) -> torch.Tensor:
         return sum(self.coordinates[n].score(model.params[n]) for n in self.coordinates)
+
+
+# the same-object audit's threshold: a piece of a coordinate's grid state
+# that is value-equal across combos but a fresh object each call is held
+# once per combo; from this size on that costs real memory
+_GRID_STACK_WARN_BYTES = 1 << 20
+
+
+def _state_leaves(state, path: str):
+    """(path, tensor) of every tensor in a coordinate's grid state
+    (tuples, lists and dataclasses such as a bucket's design walked
+    through), in a fixed order; None pieces are skipped."""
+    if torch.is_tensor(state):
+        yield path, state
+    elif isinstance(state, (tuple, list)):
+        for i, x in enumerate(state):
+            yield from _state_leaves(x, f"{path}[{i}]")
+    elif dataclasses.is_dataclass(state) and not isinstance(state, type):
+        for f in dataclasses.fields(state):
+            yield from _state_leaves(getattr(state, f.name), f"{path}.{f.name}")
+
+
+def _audit_grid_states(per_combo: List[dict], names) -> None:
+    """The same-object contract of ``fused_state_for_reg`` (JAX
+    ``descent.py:1873-1910``): a piece that is not the same object for
+    every combo is held once per combo. Where that costs at least
+    ``_GRID_STACK_WARN_BYTES`` and the first two combos' pieces are equal
+    in value, warn: the coordinate should return the same object."""
+    n_combo = len(per_combo)
+    for n in names:
+        columns = zip(*(list(_state_leaves(st[n], f"[{n!r}]")) for st in per_combo))
+        for column in columns:
+            leaves = [t for _, t in column]
+            if all(t is leaves[0] for t in leaves):
+                continue
+            nbytes = sum(t.numel() * t.element_size() for t in leaves)
+            if (nbytes >= _GRID_STACK_WARN_BYTES and leaves[0].shape == leaves[1].shape
+                    and bool(torch.equal(leaves[0], leaves[1].to(leaves[0].device)))):
+                warnings.warn(
+                    f"run_grid: leaf {column[0][0]} ({nbytes / 1e6:.1f} MB stacked) is "
+                    "value-identical across combos but was returned as a fresh object by "
+                    "fused_state_for_reg, so it is stacked x{} instead of broadcast — "
+                    "return the SAME array object for combo-invariant leaves".format(n_combo),
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+
+
+def _grid_coordinates(cd: CoordinateDescent, what: str):
+    """The descent's coordinates, each refused unless it has the grid
+    surface (JAX ``descent.py:1850-1855``)."""
+    for c in cd.coordinates.values():
+        if not hasattr(c, "fused_state_for_reg"):
+            raise ValueError(
+                f"{type(c).__name__} does not support {what} "
+                "(no fused_state_for_reg); run combos sequentially"
+            )
+    return cd.coordinates
+
+
+def run_grid(cd: CoordinateDescent, combos: Sequence[Mapping[str, float]],
+             num_iterations: int, seed: int = 0, initial_model=None, stop_check=None):
+    """Train every reg-weight combo at once (JAX ``descent.py:1805``; the
+    reference trains grid entries independently,
+    ``cli/game/training/Driver.scala:317-384``): pass by pass and
+    coordinate by coordinate, all C combos take the update together, combo
+    by combo, each through its coordinate's ``update_and_score`` with the
+    solver and kernels of ``cd.run``, so each combo launches what
+    ``cd.run`` launches for it. (The JAX package vmaps the combos; a pass
+    that reads a design once for all combos is ROADMAP queue B's.)
+    Every combo sees the draws of ``cd.run(seed=seed)``: one draw per
+    update (a fixed effect's down-sampling), shared by the combos.
+
+    Each combo's result is ``cd.run(num_iterations, seed=seed)`` with its
+    weights; ``initial_model`` warm-starts every combo from the same
+    tables (``_warm_start_params``, with its shape refusals). The pieces of
+    each coordinate's state that do not depend on the weight are read
+    from the same tensor objects for every combo, never copied; a fresh
+    but equal piece of 1 MB or more warns (``_audit_grid_states``).
+
+    ``stop_check``, a zero-arg callable (not in the JAX signature, whose
+    grid is not preemptible), is polled after each pass: when it turns
+    true the grid ends there, with every combo at the same pass.
+
+    Returns ``(models, history)``: ``models[c]`` combo c's
+    :class:`GameModel`, ``history[c]`` its records, with each pass's
+    seconds on its first record and no validation metric. The objectives
+    and trackers are read to the host once, at the end."""
+    names = list(cd.coordinates)
+    combos = list(combos)
+    n_combo = len(combos)
+    if n_combo < 2:
+        raise ValueError(
+            f"run_grid needs >= 2 combos (got {n_combo}); run cd.run() "
+            "for a single configuration"
+        )
+    coords = _grid_coordinates(cd, "grid vmapping")
+    per_combo = [{n: coords[n].fused_state_for_reg(cb[n]) for n in names} for cb in combos]
+    _audit_grid_states(per_combo, names)
+    lives = [{n: coords[n].with_fused_state(st[n]) for n in names} for st in per_combo]
+    starts = _warm_start_params(coords, names, initial_model)
+    params = [dict(starts) for _ in combos]
+    # each combo scores its start, as its cd.run does
+    scores = [{n: coords[n].score(starts[n]) for n in names} for _ in combos]
+    generator = torch.Generator().manual_seed(seed)
+    pending: List[List[dict]] = [[] for _ in combos]
+    for it in range(num_iterations):
+        t0 = time.perf_counter()
+        first = len(pending[0])
+        for name in names:
+            drawn = generator.get_state()
+            for c, live in enumerate(lives):
+                # every combo takes the update's one draw
+                generator.set_state(drawn)
+                partial = sum(scores[c].values()) - scores[c][name]
+                p, r, sc = live[name].update_and_score(params[c][name], partial, generator)
+                params[c][name] = p
+                scores[c][name] = sc
+                pending[c].append({
+                    "iteration": it, "coordinate": name, "seconds": None,
+                    "objective": cd._full_objective(scores[c], params[c], live), "result": r,
+                })
+        seconds = time.perf_counter() - t0
+        for pc in pending:
+            pc[first]["seconds"] = seconds
+        if stop_check is not None and stop_check():
+            break
+    models = [GameModel(dict(p)) for p in params]
+    return models, [[_pending_record(p) for p in pc] for pc in pending]
+
+
+def run_lambda_path(cd: CoordinateDescent, combos: Sequence[Mapping[str, float]],
+                    num_iterations: int, seed: int = 0, initial_model=None,
+                    scan: bool = True):
+    """The warm-started lambda path over reg-weight combos (JAX
+    ``descent.py:2031``): the combos run in order, each as ``cd.run`` over
+    the coordinates on its weights (``with_fused_state``), combo c + 1
+    starting from combo c's model (order them strongest lambda first), and
+    the first from ``initial_model`` when one is given. Every combo
+    restarts the draws from ``seed``; only the warm start carries forward,
+    and each combo rescores its start (the JAX package carries the scores
+    forward: the same values). ``scan`` is accepted for the JAX signature:
+    both values run the same per-update loop (where the JAX package runs a
+    combo's passes as one ``lax.scan`` or one dispatch per update, the same
+    math). Returns ``(models, history)`` shaped like :func:`run_grid`, each
+    combo's seconds on its first record."""
+    names = list(cd.coordinates)
+    combos = list(combos)
+    if not combos:
+        raise ValueError("run_lambda_path needs >= 1 combo")
+    coords = _grid_coordinates(cd, "the lambda path")
+    models: List[GameModel] = []
+    history: List[List[CoordinateUpdateRecord]] = []
+    model = initial_model
+    for cb in combos:
+        live = {n: coords[n].with_fused_state(coords[n].fused_state_for_reg(cb[n]))
+                for n in names}
+        t0 = time.perf_counter()
+        model, records = CoordinateDescent(live, cd.labels, cd.base_offsets, cd.weights,
+                                           cd.task).run(num_iterations, initial_model=model,
+                                                        seed=seed)
+        seconds = time.perf_counter() - t0
+        models.append(model)
+        history.append([dataclasses.replace(h, seconds=seconds if i == 0 else None)
+                        for i, h in enumerate(records)])
+    return models, history
 
 
 def _record_from_dict(h: dict) -> CoordinateUpdateRecord:

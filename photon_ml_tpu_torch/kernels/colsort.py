@@ -31,6 +31,7 @@ chains with :func:`run_chains` too.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import weakref
@@ -38,7 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.kernels import dispatch
+from photon_ml_tpu_torch.kernels import dispatch, launch
 
 __all__ = [
     "TILE",
@@ -404,21 +405,31 @@ def block_bytes(copy: DesignColumns, mode: str, cd: torch.dtype) -> int:
             + (2 * sums * copy.d * 8 if wide else 0))
 
 
-def reduce_scratch(copy: DesignColumns, mode: str, cd: torch.dtype, device) -> torch.Tensor:
-    """The reduce's float64 scratch: its sums at each side of each tile,
-    then, for :func:`wide_sums`, the (2, d) float64 sums."""
+def scratch_size(copy: DesignColumns, mode: str, cd: torch.dtype) -> int:
+    """Float64 entries of the reduce's scratch: its sums at each side of
+    each tile, then, for :func:`wide_sums`, the (2, d) float64 sums."""
     sums = REDUCE_MODES[mode]
-    size = 2 * copy.ntiles * sums + (2 * copy.d if wide_sums(copy, mode, cd) else 0)
-    return torch.empty((max(1, size),), dtype=torch.float64, device=device)
+    return max(1, 2 * copy.ntiles * sums + (2 * copy.d if wide_sums(copy, mode, cd) else 0))
 
 
-def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
-                  mode: str = "linear"):
-    """The (d,) column sums of ``f(v_e) * a[row_e]`` over the copy, in
-    ``promote_types(vals, a)`` (a tuple of two for ``"pair"``): ``vals``
-    laid out by :func:`column_values`, ``a`` (n,). CUDA tensors: one C
-    call (outputs cleared, then each block's tiles and chains in block
-    order) or an exception; CPU tensors: :func:`column_reduce_reference`."""
+def reduce_scratch(copy: DesignColumns, mode: str, cd: torch.dtype, device) -> torch.Tensor:
+    """The reduce's float64 scratch (:func:`scratch_size`)."""
+    return torch.empty((scratch_size(copy, mode, cd),), dtype=torch.float64, device=device)
+
+
+_REDUCE_ENTRIES = {
+    (mode, vdt, cd): launch.Entry(
+        "colsort_reduce", "colsort", f"photon_colsort_reduce_{mode}_{suffix}",
+        [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+    for mode in REDUCE_MODES for (vdt, cd), suffix in _REDUCE_TYPES.items()
+}
+# key -> plan
+_reduce_plans: dict = {}
+
+
+def _reduce_plan(key, copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor, mode: str):
+    """(device index, values dtype, compute dtype, sums, scratch size,
+    entry) of a CUDA key, ``launch.PLAIN`` of a CPU one."""
     if mode not in REDUCE_MODES:
         raise ValueError(f"column_reduce: mode {mode!r} not in {sorted(REDUCE_MODES)}")
     vdt, cd = reduce_dtypes(vals.dtype, a.dtype)
@@ -437,28 +448,36 @@ def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
                      + block_bytes(copy, mode, cd)),
     )
     if not dispatch.use_kernel("colsort_reduce", copy.cols, vals, a):
+        return launch.keep(_reduce_plans, key, launch.PLAIN)
+    check_copy("colsort_reduce", copy, vals.to(vdt))
+    entry = _REDUCE_ENTRIES[(mode, vdt, cd)]
+    entry.load()
+    scratch = scratch_size(copy, mode, cd)
+    return launch.keep(_reduce_plans, key, (a.device.index, vdt, cd, sums, scratch, entry))
+
+
+def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
+                  mode: str = "linear"):
+    """The (d,) column sums of ``f(v_e) * a[row_e]`` over the copy, in
+    ``promote_types(vals, a)`` (a tuple of two for ``"pair"``): ``vals``
+    laid out by :func:`column_values`, ``a`` (n,). CUDA tensors: one C
+    call (outputs cleared, then each block's tiles and chains in block
+    order) or an exception; CPU tensors: :func:`column_reduce_reference`.
+    A call is checked in full once per key of the copy, dtypes, shapes,
+    devices and mode (``kernels/launch.py``); later calls check the
+    tensors' contiguity and 16-byte alignment and launch."""
+    key = (copy.token, vals.dtype, vals.shape, vals.device, a.dtype, a.shape, a.device, mode)
+    plan = _reduce_plans.get(key) or _reduce_plan(key, copy, vals, a, mode)
+    if plan is launch.PLAIN:
         return column_reduce_reference(copy, vals, a, mode)
+    device, vdt, cd, sums, scratch_size, entry = plan
     vals = vals.to(vdt)
     a = a.to(cd).contiguous()
-    check_copy("colsort_reduce", copy, vals)
+    ptrs = launch.pointers("colsort_reduce", ("the copy's cols", "the copy's perm",
+                                              "the copy's vals", "the copy's chains"),
+                           copy.cols, copy.perm, vals, copy.chains)
     out = torch.empty((sums, copy.d), dtype=cd, device=a.device)
-    scratch = reduce_scratch(copy, mode, cd, a.device)
-    import ctypes
-
-    from photon_ml_tpu_torch.kernels.ell import device_scope, load_entry, stream_of
-
-    lib, entry = load_entry(
-        "colsort", f"photon_colsort_reduce_{mode}_{_REDUCE_TYPES[(vdt, cd)]}",
-        [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p],
-    )
-    with device_scope(a.device):
-        code = entry(copy.cols.data_ptr(), copy.perm.data_ptr(), vals.data_ptr(),
-                     copy.chains.data_ptr(), copy.blocks.data_ptr(), a.data_ptr(),
-                     out[0].data_ptr(), out[sums - 1].data_ptr(), scratch.data_ptr(),
-                     copy.nblocks, copy.k, copy.d, stream_of(a))
-    from photon_ml_tpu_torch.kernels import build
-
-    build.check(lib, code, "colsort_reduce launch")
-    dispatch.count_launch("colsort_reduce")
+    scratch = torch.empty((scratch_size,), dtype=torch.float64, device=a.device)
+    entry.launch(device, *ptrs, copy.blocks.data_ptr(), a.data_ptr(), out[0].data_ptr(),
+                 out[sums - 1].data_ptr(), scratch.data_ptr(), copy.nblocks, copy.k, copy.d)
     return (out[0], out[1]) if mode == "pair" else out[0]

@@ -30,12 +30,12 @@ dtype (so bf16 values times a float32 vector scatter in float32).
 
 from __future__ import annotations
 
-import contextlib
+import ctypes
 from typing import Dict, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.kernels import dispatch
+from photon_ml_tpu_torch.kernels import dispatch, launch
 
 __all__ = [
     "ell_matvec",
@@ -86,10 +86,11 @@ def _scatter_entry(dtype: torch.dtype) -> str:
         ) from None
 
 
-def check_launch(kernel: str, indices, d: int, tables=(), rows=(), cols=()) -> None:
+def check_plan(kernel: str, indices, d: int, tables=(), rows=(), cols=()) -> None:
     """Raise on what a CUDA kernel over an (n, k) ELL does not take: int32
-    ids, (n, k) ``tables``, (n,) ``rows``, (d,) ``cols``, all contiguous,
-    d and the launch grid within int32."""
+    ids, (n, k) ``tables``, (n,) ``rows``, (d,) ``cols``, d and the launch
+    grid within int32. A plan's checks, once per key; each call then
+    checks the tensors' contiguity (``launch.pointers``)."""
     if indices.dtype != torch.int32:
         raise TypeError(f"{kernel}: indices must be int32, got {indices.dtype}")
     if indices.dim() != 2:
@@ -113,9 +114,12 @@ def check_launch(kernel: str, indices, d: int, tables=(), rows=(), cols=()) -> N
     # (tiles of at most 1024 slots, at least one row each)
     if k > _INT32_MAX or -(-max(n * 32, n * k) // 256) > _INT32_MAX:
         raise ValueError(f"{kernel}: (n, k)=({n}, {k}) exceeds the launch grid")
-    for name, t in (("indices", indices), *tables, *rows, *cols):
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def key_of(*tensors: torch.Tensor) -> tuple:
+    """A plan key's part for ``tensors``: each one's dtype, shape and
+    device."""
+    return tuple(x for t in tensors for x in (t.dtype, t.shape, t.device))
 
 
 # (library, entry) -> (library, entry point with its signature set)
@@ -130,8 +134,6 @@ def load_entry(library: str, entry: str, argtypes, restype=None):
     found = _entries.get((library, entry))
     if found is not None:
         return found
-    import ctypes
-
     from photon_ml_tpu_torch.kernels import build
 
     lib = build.load(library)
@@ -140,19 +142,6 @@ def load_entry(library: str, entry: str, argtypes, restype=None):
     fn.restype = ctypes.c_int if restype is None else restype
     _entries[(library, entry)] = (lib, fn)
     return lib, fn
-
-
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def device_scope(dev: torch.device):
-    """``torch.cuda.device(dev)`` around a launch; nothing when ``dev`` is
-    already the current device, the common case, which then costs the host
-    one query instead of two device switches."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
 
 
 def _valid_ids(indices: torch.Tensor, d: int) -> torch.Tensor:
@@ -177,13 +166,15 @@ def ell_matvec_reference(
     return (values.to(cd) * gathered).sum(-1)
 
 
-def ell_matvec(
-    indices: torch.Tensor, values: torch.Tensor, w: torch.Tensor, d: int
-) -> torch.Tensor:
-    """z = ELL(indices, values) @ w, shape (n,), in ``compute_dtype``.
+_MATVEC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+_MATVEC_ENTRIES = {pair: launch.Entry("ell_matvec", "ell_matvec", name, _MATVEC_ARGS)
+                   for pair, (_, name) in _MATVEC_TYPES.items()}
+_matvec_plans: dict = {}
 
-    CUDA tensors: one launch of the CUDA kernel on the current stream (or
-    an exception); CPU tensors: ``ell_matvec_reference``."""
+
+def _matvec_plan(key, indices, values, w, d: int):
+    """(device index, compute dtype, n, k, entry) of a CUDA key,
+    ``launch.PLAIN`` of a CPU one."""
     cd = compute_dtype(values.dtype, w.dtype)
     n, k = indices.shape
     dispatch.record_kernel_cost(
@@ -191,27 +182,32 @@ def ell_matvec(
         extra_bytes=d * w.element_size() + n * cd.itemsize,
     )
     if not dispatch.use_kernel("ell_matvec", indices, values, w):
+        return launch.keep(_matvec_plans, key, launch.PLAIN)
+    check_plan("ell_matvec", indices, d, tables=[("values", values)], cols=[("w", w)])
+    entry = _MATVEC_ENTRIES[(values.dtype, w.dtype)]
+    entry.load()
+    return launch.keep(_matvec_plans, key, (indices.device.index, cd, n, k, entry))
+
+
+def ell_matvec(
+    indices: torch.Tensor, values: torch.Tensor, w: torch.Tensor, d: int
+) -> torch.Tensor:
+    """z = ELL(indices, values) @ w, shape (n,), in ``compute_dtype``.
+
+    CUDA tensors: one launch of the CUDA kernel on the current stream (or
+    an exception); CPU tensors: ``ell_matvec_reference``. A call is
+    checked in full once per key of dtypes, shapes, devices and ``d``
+    (``kernels/launch.py``)."""
+    key = (*key_of(indices, values, w), d)
+    plan = _matvec_plans.get(key) or _matvec_plan(key, indices, values, w, d)
+    if plan is launch.PLAIN:
         return ell_matvec_reference(indices, values, w, d)
-    check_launch("ell_matvec", indices, d, tables=[("values", values)], cols=[("w", w)])
+    ptrs = launch.pointers("ell_matvec", ("indices", "values", "w"), indices, values, w,
+                           align=1)
+    device, cd, n, k, entry = plan
     out = torch.empty((n,), dtype=cd, device=indices.device)
-    if n == 0:
-        return out
-    import ctypes
-
-    lib, entry = load_entry(
-        "ell_matvec", _MATVEC_TYPES[(values.dtype, w.dtype)][1],
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p],
-    )
-    with device_scope(indices.device):
-        code = entry(
-            indices.data_ptr(), values.data_ptr(), w.data_ptr(), out.data_ptr(),
-            n, k, d, stream_of(indices),
-        )
-    from photon_ml_tpu_torch.kernels import build
-
-    build.check(lib, code, "ell_matvec launch")
-    dispatch.count_launch("ell_matvec")
+    if n:
+        entry.launch(device, *ptrs, out.data_ptr(), n, k, d)
     return out
 
 
@@ -232,38 +228,45 @@ def ell_scatter_add_reference(
     return out[:d]
 
 
-def ell_scatter_add(indices: torch.Tensor, upd: torch.Tensor, d: int) -> torch.Tensor:
-    """g = column sums of ``upd`` by ``indices``, shape (d,), in ``upd``'s
-    dtype. CUDA tensors: a zeroed output and one launch of the CUDA kernel
-    on the current stream (or an exception); CPU tensors:
-    ``ell_scatter_add_reference``."""
-    entry_name = _scatter_entry(upd.dtype)
+_SCATTER_ENTRIES = {
+    dtype: launch.Entry("ell_scatter_add", "ell_scatter_add", name,
+                        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int])
+    for dtype, name in _SCATTER_TYPES.items()
+}
+_scatter_plans: dict = {}
+
+
+def _scatter_plan(key, indices, upd, d: int):
+    """(device index, n * k, entry) of a CUDA key, ``launch.PLAIN`` of a
+    CPU one."""
+    _scatter_entry(upd.dtype)
     n, k = indices.shape
     dispatch.record_kernel_cost(
         "ell_scatter_add", n, k, d, upd.element_size(),
         flops_per_slot=1.0, extra_bytes=d * upd.element_size(),
     )
     if not dispatch.use_kernel("ell_scatter_add", indices, upd):
+        return launch.keep(_scatter_plans, key, launch.PLAIN)
+    check_plan("ell_scatter_add", indices, d, tables=[("upd", upd)])
+    entry = _SCATTER_ENTRIES[upd.dtype]
+    entry.load()
+    return launch.keep(_scatter_plans, key, (indices.device.index, n * k, entry))
+
+
+def ell_scatter_add(indices: torch.Tensor, upd: torch.Tensor, d: int) -> torch.Tensor:
+    """g = column sums of ``upd`` by ``indices``, shape (d,), in ``upd``'s
+    dtype. CUDA tensors: a zeroed output and one launch of the CUDA kernel
+    on the current stream (or an exception); CPU tensors:
+    ``ell_scatter_add_reference``. Checked in full once per key."""
+    key = (*key_of(indices, upd), d)
+    plan = _scatter_plans.get(key) or _scatter_plan(key, indices, upd, d)
+    if plan is launch.PLAIN:
         return ell_scatter_add_reference(indices, upd, d)
-    check_launch("ell_scatter_add", indices, d, tables=[("upd", upd)])
+    ptrs = launch.pointers("ell_scatter_add", ("indices", "upd"), indices, upd, align=1)
+    device, slots, entry = plan
     out = torch.zeros((d,), dtype=upd.dtype, device=indices.device)
-    if n * k == 0:
-        return out
-    import ctypes
-
-    lib, entry = load_entry(
-        "ell_scatter_add", entry_name,
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-    )
-    with device_scope(indices.device):
-        code = entry(
-            indices.data_ptr(), upd.data_ptr(), out.data_ptr(), n * k, d,
-            stream_of(indices),
-        )
-    from photon_ml_tpu_torch.kernels import build
-
-    build.check(lib, code, "ell_scatter_add launch")
-    dispatch.count_launch("ell_scatter_add")
+    if slots:
+        entry.launch(device, *ptrs, out.data_ptr(), slots, d)
     return out
 
 
@@ -280,15 +283,38 @@ def ell_rmatvec_reference(indices, values, a, d: int) -> torch.Tensor:
     return ell_scatter_add_reference(indices, _rmatvec_update(values, a), d)
 
 
+_reduce_plans: dict = {}
+
+
 def _column_reduce(kernel: str, indices, values, c, d: int, mode: str) -> torch.Tensor:
-    """``kernel``'s CUDA route: the reduce of ``mode`` over the design's
-    column-sorted copy (built at the first call on ``indices``)."""
+    """``kernel``'s route (``ell_rmatvec`` or ``ell_colsum``): on CUDA
+    tensors the reduce of ``mode`` over the design's column-sorted copy
+    (built at the first call on ``indices``), one launch of
+    ``colsort_reduce``; on CPU tensors the per-slot update scattered by
+    ``ell_scatter_add``. Checked in full once per key."""
+    key = (kernel, *key_of(indices, values, c), d, mode)
+    plan = _reduce_plans.get(key)
+    if plan is None:
+        n, k = indices.shape
+        dispatch.record_kernel_cost(
+            kernel, n, k, d, values.element_size(),
+            extra_bytes=d * torch.promote_types(values.dtype, c.dtype).itemsize,
+        )
+        if not dispatch.use_kernel(kernel, indices, values, c):
+            plan = launch.keep(_reduce_plans, key, launch.PLAIN)
+        else:
+            from photon_ml_tpu_torch.kernels import colsort
+
+            check_plan(kernel, indices, d, tables=[("values", values)])
+            vdt, cd = colsort.reduce_dtypes(values.dtype, c.dtype)
+            plan = launch.keep(_reduce_plans, key, (n * k, vdt, cd))
+    if plan is launch.PLAIN:
+        return ell_scatter_add(indices, _colsum_update(values, c, mode == "square"), d)
     from photon_ml_tpu_torch.kernels import colsort
 
-    n, k = indices.shape
-    check_launch(kernel, indices, d, tables=[("values", values)])
-    vdt, cd = colsort.reduce_dtypes(values.dtype, c.dtype)
-    if n * k == 0:
+    launch.pointers(kernel, ("indices", "values"), indices, values, align=1)
+    slots, vdt, cd = plan
+    if slots == 0:
         return torch.zeros((d,), dtype=cd, device=indices.device)
     copy = colsort.design_columns(indices, d)
     if copy.nvalid == 0:
@@ -306,13 +332,6 @@ def ell_rmatvec(indices, values, a, d: int) -> torch.Tensor:
     tensors: the column reduce (one launch, no atomics, a fixed order);
     CPU tensors: the per-slot update v_ik * a_i scattered by
     ``ell_scatter_add_reference``."""
-    n, k = indices.shape
-    dispatch.record_kernel_cost(
-        "ell_rmatvec", n, k, d, values.element_size(),
-        extra_bytes=d * torch.promote_types(values.dtype, a.dtype).itemsize,
-    )
-    if not dispatch.use_kernel("ell_rmatvec", indices, values, a):
-        return ell_scatter_add(indices, _rmatvec_update(values, a), d)
     return _column_reduce("ell_rmatvec", indices, values, a, d, "linear")
 
 
@@ -326,12 +345,5 @@ def ell_colsum(indices, values, c, d: int, square: bool = False) -> torch.Tensor
     reduce (each slot squared on its own, in the compute type); CPU
     tensors: the per-slot update through ``ell_scatter_add`` (its plain
     version)."""
-    n, k = indices.shape
-    dispatch.record_kernel_cost(
-        "ell_colsum", n, k, d, values.element_size(),
-        extra_bytes=d * torch.promote_types(values.dtype, c.dtype).itemsize,
-    )
-    if not dispatch.use_kernel("ell_colsum", indices, values, c):
-        return ell_scatter_add(indices, _colsum_update(values, c, square), d)
     return _column_reduce("ell_colsum", indices, values, c, d,
                           "square" if square else "linear")

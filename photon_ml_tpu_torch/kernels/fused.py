@@ -21,7 +21,9 @@ column-sorted copy, built at the first pass on the ``indices`` tensor and
 kept with it (``fused_hdiag``: its column sums in float64 in every
 compute type, rounded once). Every output has the same bits from call to
 call. On CPU tensors each wrapper runs its ``*_reference`` function, the
-plain PyTorch version.
+plain PyTorch version. A call is checked in full once per key of dtypes,
+shapes, devices, ``d`` and the loss (``kernels/launch.py``); later calls
+of the key check their tensors' contiguity and launch.
 
 Compute type ``result_type(values, w, labels, offsets, ew)``; taken pairs
 (values, compute): (float64, float64), (float32, float32),
@@ -35,14 +37,13 @@ import ctypes
 
 import torch
 
-from photon_ml_tpu_torch.kernels import colsort, dispatch
+from photon_ml_tpu_torch.kernels import colsort, dispatch, launch
 from photon_ml_tpu_torch.kernels.ell import (
-    check_launch,
-    device_scope,
+    check_plan,
     ell_matvec_reference,
     ell_scatter_add_reference,
+    key_of,
     load_entry,
-    stream_of,
 )
 
 __all__ = [
@@ -108,56 +109,95 @@ def fused_value_grad_curvature_reference(
     return val, grad, a.sum(), e * loss.d2(z, y)
 
 
+# the copy's arguments of the fused entry points: cols, slots, values,
+# chains, the block table (host), the reduce's scratch, nblocks
+_COPY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+# the C entry points' arguments beyond the copy's: the pointers, then
+# n, k, d (and the loss id)
+_ARGS = {
+    "fused_vgc": [ctypes.c_void_p] * 11, "fused_hvp": [ctypes.c_void_p] * 9,
+    "fused_hdiag": [ctypes.c_void_p] * 11,
+}
+_SIZES = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+# (kernel, values dtype, compute dtype) -> its entry point
+_ENTRIES = {
+    (kernel, vdt, cd): launch.Entry(
+        kernel, "fused", f"photon_{kernel}_{suffix}",
+        args + _COPY_ARGTYPES + _SIZES + ([] if kernel == "fused_hvp" else [ctypes.c_int]))
+    for kernel, args in _ARGS.items() for (vdt, cd), suffix in _FUSED_TYPES.items()
+}
+# key -> plan, one dict per wrapper
+_vgc_plans: dict = {}
+_hvp_plans: dict = {}
+_hdiag_plans: dict = {}
+
+
+def _plan(plans, key, kernel, indices, values, d, cd, flops, d_out, n_rows, routed,
+          rows, cols):
+    """(device index, n, k, row-pass blocks, entry, compute dtype) of a
+    CUDA key, ``launch.PLAIN`` of a CPU one (``routed``: the tensors whose
+    device picks the route); the pass's cost is recorded here, on the card
+    with the design's column-sorted copy (built here at the first pass on
+    ``indices``)."""
+    n, k = indices.shape
+    if not dispatch.use_kernel(kernel, *routed):
+        _record_cost(kernel, n, k, d, values, cd, None, flops=flops, d_out=d_out,
+                     n_rows=n_rows)
+        return launch.keep(plans, key, launch.PLAIN)
+    check_plan(kernel, indices, d, tables=[("values", values)], rows=rows, cols=cols)
+    entry = _ENTRIES[(kernel, values.dtype, cd)]
+    entry.load()
+    blocks = 0
+    if n:
+        copy = colsort.design_columns(indices, d)
+        _record_cost(kernel, n, k, d, values, cd, copy, flops=flops, d_out=d_out,
+                     n_rows=n_rows)
+        blocks = _blocks(n, k)
+    return launch.keep(plans, key, (indices.device.index, n, k, blocks, entry, cd))
+
+
 def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: int, loss):
     """One design read -> (loss sum, raw gradient X^T a, sum(a), curvature
     weights c). ``offsets`` already carry the margin shift; ``w_eff`` is
     the normalization-effective coefficient vector. The scalars are 0-dim
     tensors on the inputs' device (no host sync)."""
-    cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype, w_eff.dtype)
-    loss_id = _loss_id(loss)
-    n, k = indices.shape
-    if not dispatch.use_kernel("fused_vgc", indices, values, labels, offsets, ew, w_eff):
-        _record_cost("fused_vgc", n, k, d, values, cd, None, flops=4.0, d_out=2, n_rows=4)
+    key = (*key_of(indices, values, labels, offsets, ew, w_eff), d, loss.name)
+    plan = _vgc_plans.get(key)
+    if plan is None:
+        cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype,
+                                 w_eff.dtype)
+        _loss_id(loss)
+        plan = _plan(_vgc_plans, key, "fused_vgc", indices, values, d, cd, 4.0, 2, 4,
+                     (indices, values, labels, offsets, ew, w_eff),
+                     [("labels", labels), ("offsets", offsets), ("ew", ew)],
+                     [("w_eff", w_eff)])
+    if plan is launch.PLAIN:
         return fused_value_grad_curvature_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
+    device, n, k, blocks, entry, cd = plan
     y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
-    check_launch(
-        "fused_vgc", indices, d, tables=[("values", values)],
-        rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
-    )
+    idx_ptr, val_ptr = launch.pointers("fused_vgc", ("indices", "values"), indices, values,
+                                       align=1)
     dev = indices.device
     curvature = torch.empty((n,), dtype=cd, device=dev)
     if n == 0:
         sums = torch.zeros((2,), dtype=cd, device=dev)
         return sums[0], torch.zeros((d,), dtype=cd, device=dev), sums[1], curvature
     copy, cvals = _columns(indices, values, d)
-    _record_cost("fused_vgc", n, k, d, values, cd, copy, flops=4.0, d_out=2, n_rows=4)
     # the entry point clears grad on the stream before the reduce
     grad = torch.empty((d,), dtype=cd, device=dev)
-    lib, entry = load_entry(
-        "fused", f"photon_fused_vgc_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 11 + _COPY_ARGTYPES + [ctypes.c_longlong, ctypes.c_int,
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p],
-    )
     # the two sums (written by the row pass's fixed-order finish), two
     # partials per block, then each row's a_i
-    blocks = _blocks(n, k)
     work = torch.empty((2 + 2 * blocks + n,), dtype=cd, device=dev)
     at = work.data_ptr()
     scratch = colsort.reduce_scratch(copy, "linear", cd, dev)
-    with device_scope(dev):
-        code = entry(
-            indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
-            e.data_ptr(), w.data_ptr(), grad.data_ptr(), curvature.data_ptr(),
-            at + (2 + 2 * blocks) * cd.itemsize, at + 2 * cd.itemsize, at,
-            *_copy_args(copy, cvals, scratch), n, k, d, loss_id, stream_of(indices),
-        )
-    from photon_ml_tpu_torch.kernels import build
-
-    build.check(lib, code, "fused_vgc launch")
-    dispatch.count_launch("fused_vgc")
+    entry.launch(
+        device, idx_ptr, val_ptr, y.data_ptr(), off.data_ptr(), e.data_ptr(), w.data_ptr(),
+        grad.data_ptr(), curvature.data_ptr(), at + (2 + 2 * blocks) * cd.itemsize,
+        at + 2 * cd.itemsize, at, *_copy_args(copy, cvals, scratch), n, k, d,
+        LOSS_IDS[loss.name],
+    )
     dispatch.count_launch("colsort_reduce")
     return work[0], grad, work[1], curvature
 
@@ -181,46 +221,38 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
     the curvature weights of :func:`fused_value_grad_curvature`;
     ``shift_v`` is the scalar margin shift of the direction (a 0-dim
     tensor on the device, read by the kernel: no host sync)."""
-    cd = fused_compute_dtype(values.dtype, c.dtype, v_eff.dtype)
-    n, k = indices.shape
-    shift = torch.as_tensor(shift_v, dtype=cd, device=c.device)
-    if not dispatch.use_kernel("fused_hvp", indices, values, c, v_eff, shift):
-        _record_cost("fused_hvp", n, k, d, values, cd, None, flops=4.0, d_out=2, n_rows=1)
+    key = (*key_of(indices, values, c, v_eff), d)
+    plan = _hvp_plans.get(key)
+    if plan is None:
+        cd = fused_compute_dtype(values.dtype, c.dtype, v_eff.dtype)
+        shift = torch.as_tensor(shift_v, dtype=cd, device=c.device)
+        plan = _plan(_hvp_plans, key, "fused_hvp", indices, values, d, cd, 4.0, 2, 1,
+                     (indices, values, c, v_eff, shift), [("c", c)], [("v_eff", v_eff)])
+    if plan is launch.PLAIN:
+        cd = fused_compute_dtype(values.dtype, c.dtype, v_eff.dtype)
+        shift = torch.as_tensor(shift_v, dtype=cd, device=c.device)
         return fused_hessian_vector_reference(indices, values, c, v_eff, shift, d)
-    cc, vv, sh = (t.to(cd).contiguous() for t in (c, v_eff, shift))
-    check_launch(
-        "fused_hvp", indices, d, tables=[("values", values)],
-        rows=[("c", cc)], cols=[("v_eff", vv)],
-    )
+    device, n, k, blocks, entry, cd = plan
+    cc, vv = c.to(cd).contiguous(), v_eff.to(cd).contiguous()
+    sh = torch.as_tensor(shift_v, dtype=cd, device=c.device)
+    idx_ptr, val_ptr = launch.pointers("fused_hvp", ("indices", "values"), indices, values,
+                                       align=1)
     dev = indices.device
     if n == 0:
         return torch.zeros((d,), dtype=cd, device=dev), torch.zeros((), dtype=cd, device=dev)
     copy, cvals = _columns(indices, values, d)
-    _record_cost("fused_hvp", n, k, d, values, cd, copy, flops=4.0, d_out=2, n_rows=1)
     # the entry point clears hv on the stream before the reduce
     hv = torch.empty((d,), dtype=cd, device=dev)
-    lib, entry = load_entry(
-        "fused", f"photon_fused_hvp_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 9 + _COPY_ARGTYPES + [ctypes.c_longlong, ctypes.c_int,
-                                                  ctypes.c_int, ctypes.c_void_p],
-    )
     # the sum (written by the row pass's fixed-order finish), one partial
     # per block, then each row's u_i
-    blocks = _blocks(n, k)
     work = torch.empty((1 + blocks + n,), dtype=cd, device=dev)
     at = work.data_ptr()
     scratch = colsort.reduce_scratch(copy, "linear", cd, dev)
-    with device_scope(dev):
-        code = entry(
-            indices.data_ptr(), values.data_ptr(), cc.data_ptr(), sh.data_ptr(),
-            vv.data_ptr(), hv.data_ptr(), at + (1 + blocks) * cd.itemsize,
-            at + cd.itemsize, at, *_copy_args(copy, cvals, scratch),
-            n, k, d, stream_of(indices),
-        )
-    from photon_ml_tpu_torch.kernels import build
-
-    build.check(lib, code, "fused_hvp launch")
-    dispatch.count_launch("fused_hvp")
+    entry.launch(
+        device, idx_ptr, val_ptr, cc.data_ptr(), sh.data_ptr(), vv.data_ptr(), hv.data_ptr(),
+        at + (1 + blocks) * cd.itemsize, at + cd.itemsize, at,
+        *_copy_args(copy, cvals, scratch), n, k, d,
+    )
     dispatch.count_launch("colsort_reduce")
     return hv, work[0]
 
@@ -248,58 +280,44 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
     carry the margin shift; ``w_eff`` is the normalization-effective
     coefficient vector. ``sum(c)`` is a 0-dim tensor on the inputs'
     device (no host sync)."""
-    cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype, w_eff.dtype)
-    loss_id = _loss_id(loss)
-    n, k = indices.shape
-    if not dispatch.use_kernel("fused_hdiag", indices, values, labels, offsets, ew, w_eff):
-        _record_cost("fused_hdiag", n, k, d, values, cd, None, flops=5.0, d_out=3, n_rows=3)
+    key = (*key_of(indices, values, labels, offsets, ew, w_eff), d, loss.name)
+    plan = _hdiag_plans.get(key)
+    if plan is None:
+        cd = fused_compute_dtype(values.dtype, labels.dtype, offsets.dtype, ew.dtype,
+                                 w_eff.dtype)
+        _loss_id(loss)
+        plan = _plan(_hdiag_plans, key, "fused_hdiag", indices, values, d, cd, 5.0, 3, 3,
+                     (indices, values, labels, offsets, ew, w_eff),
+                     [("labels", labels), ("offsets", offsets), ("ew", ew)],
+                     [("w_eff", w_eff)])
+    if plan is launch.PLAIN:
         return fused_hessian_diagonal_reference(
             indices, values, labels, offsets, ew, w_eff, d, loss
         )
+    device, n, k, blocks, entry, cd = plan
     y, off, e, w = (t.to(cd).contiguous() for t in (labels, offsets, ew, w_eff))
-    check_launch(
-        "fused_hdiag", indices, d, tables=[("values", values)],
-        rows=[("labels", y), ("offsets", off), ("ew", e)], cols=[("w_eff", w)],
-    )
+    idx_ptr, val_ptr = launch.pointers("fused_hdiag", ("indices", "values"), indices, values,
+                                       align=1)
     dev = indices.device
     if n == 0:
         return (torch.zeros((d,), dtype=cd, device=dev), torch.zeros((d,), dtype=cd, device=dev),
                 torch.zeros((), dtype=cd, device=dev))
     copy, cvals = _columns(indices, values, d)
-    _record_cost("fused_hdiag", n, k, d, values, cd, copy, flops=5.0, d_out=3, n_rows=3)
-    lib, entry = load_entry(
-        "fused", f"photon_fused_hdiag_{_FUSED_TYPES[(values.dtype, cd)]}",
-        [ctypes.c_void_p] * 11 + _COPY_ARGTYPES + [ctypes.c_longlong, ctypes.c_int,
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p],
-    )
     # one allocation: dx2 and dx (cleared by the entry point on the stream),
     # the sum (written by the row pass's fixed-order finish), one partial
     # per block, then each row's c_i
-    blocks = _blocks(n, k)
     out = torch.empty((2 * d + 1 + blocks + n,), dtype=cd, device=dev)
     dx2, dx, csum = out[:d], out[d:2 * d], out[2 * d]
     at = out.data_ptr()
     scratch = colsort.reduce_scratch(copy, "pair", cd, dev)
-    with device_scope(dev):
-        code = entry(
-            indices.data_ptr(), values.data_ptr(), y.data_ptr(), off.data_ptr(),
-            e.data_ptr(), w.data_ptr(), at, at + d * cd.itemsize,
-            at + (2 * d + 1 + blocks) * cd.itemsize, at + (2 * d + 1) * cd.itemsize,
-            at + 2 * d * cd.itemsize, *_copy_args(copy, cvals, scratch), n, k, d, loss_id,
-            stream_of(indices),
-        )
-    from photon_ml_tpu_torch.kernels import build
-
-    build.check(lib, code, "fused_hdiag launch")
-    dispatch.count_launch("fused_hdiag")
+    entry.launch(
+        device, idx_ptr, val_ptr, y.data_ptr(), off.data_ptr(), e.data_ptr(), w.data_ptr(),
+        at, at + d * cd.itemsize, at + (2 * d + 1 + blocks) * cd.itemsize,
+        at + (2 * d + 1) * cd.itemsize, at + 2 * d * cd.itemsize,
+        *_copy_args(copy, cvals, scratch), n, k, d, LOSS_IDS[loss.name],
+    )
     dispatch.count_launch("colsort_reduce")
     return dx2, dx, csum
-
-
-# the copy's arguments of the fused entry points: cols, slots, values,
-# chains, the block table (host), the reduce's scratch, nblocks
-_COPY_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
 
 
 def _columns(indices, values, d: int):

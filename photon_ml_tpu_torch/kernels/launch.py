@@ -11,7 +11,8 @@ alignment (``pointers``), the output's allocation, the raw pointers, and
 ``Entry.launch``: the current stream's raw handle, one ``ctypes`` call,
 its return code and the launch count. A call with a new key is checked in
 full, and refused where the checks refuse it; a refused call keeps no
-plan.
+plan. Every wrapper of ``kernels/{ell,fused,colsort,lab}.py`` launches
+here.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from typing import Dict, Sequence
 import torch
 
 from photon_ml_tpu_torch.kernels import build, dispatch
-from photon_ml_tpu_torch.kernels.ell import load_entry
 
 __all__ = ["PLAIN", "MAX_PLANS", "Entry", "keep", "pointers"]
 
@@ -40,17 +40,19 @@ def keep(plans: Dict[tuple, object], key: tuple, plan):
     return plan
 
 
-def pointers(kernel: str, names: Sequence[str], *tensors: torch.Tensor) -> list:
+def pointers(kernel: str, names: Sequence[str], *tensors: torch.Tensor,
+             align: int = 16) -> list:
     """The tensors' data pointers, after the checks a CUDA kernel needs on
-    every call: contiguous, and 16-byte aligned bases (the kernels load 4
-    entries at a time). ``names`` name the tensors in the errors."""
+    every call: contiguous, and bases aligned to ``align`` bytes (16 for
+    the kernels that load 4 entries at a time; 1, no check, for those that
+    take any base). ``names`` name the tensors in the errors."""
     out = []
     for name, t in zip(names, tensors):
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
         ptr = t.data_ptr()
-        if ptr % 16:
-            raise ValueError(f"{kernel}: {name} must start on a 16-byte boundary")
+        if ptr % align:
+            raise ValueError(f"{kernel}: {name} must start on a {align}-byte boundary")
         out.append(ptr)
     return out
 
@@ -69,7 +71,9 @@ class Entry:
 
     def load(self) -> None:
         if self._fn is None:
-            self._lib, self._fn = load_entry(self.library, self.name, self.argtypes)
+            from photon_ml_tpu_torch.kernels import ell
+
+            self._lib, self._fn = ell.load_entry(self.library, self.name, self.argtypes)
 
     def launch(self, device: int, *args) -> None:
         """Call the entry point with ``args`` and the raw handle of

@@ -1156,12 +1156,15 @@ def test_game_scoring_does_not_fall_back_to_the_cpu(cuda, monkeypatch):
     """A kernel that cannot launch fails the call: nothing rescores on the
     CPU."""
     from photon_ml_tpu_torch.kernels import ell as ell_module
+    from photon_ml_tpu_torch.kernels import launch as launch_module
 
     def no_kernel(*args, **kwargs):
         raise RuntimeError("ell_matvec kernel unavailable")
 
     params, shards, res, data = _game(n=257)
     monkeypatch.setattr(ell_module, "load_entry", no_kernel)
+    # an entry loaded by an earlier call launches through its plan
+    monkeypatch.setattr(launch_module.Entry, "launch", no_kernel)
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         score_game_data(params, shards, res, data, device=cuda)
 
@@ -1206,12 +1209,14 @@ def test_game_driver_on_the_card_matches_the_cpu_with_one_launch(cuda, tmp_path)
 
 def test_game_driver_does_not_fall_back_to_the_cpu(cuda, tmp_path, monkeypatch):
     from photon_ml_tpu_torch.kernels import ell as ell_module
+    from photon_ml_tpu_torch.kernels import launch as launch_module
 
     def no_kernel(*args, **kwargs):
         raise RuntimeError("ell_matvec kernel unavailable")
 
     params = _game_files(str(tmp_path))
     monkeypatch.setattr(ell_module, "load_entry", no_kernel)
+    monkeypatch.setattr(launch_module.Entry, "launch", no_kernel)
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         run_scoring({**params, "output_dir": str(tmp_path / "card")})
     assert not os.path.exists(tmp_path / "card" / "scores")
@@ -1707,6 +1712,7 @@ def test_hybrid_empty_segment_launches_nothing_and_is_zero(cuda):
 def test_hybrid_does_not_fall_back_to_the_cpu(cuda, monkeypatch):
     """A hybrid whose kernels cannot launch fails the call."""
     from photon_ml_tpu_torch.kernels import ell as ell_module
+    from photon_ml_tpu_torch.kernels import launch as launch_module
 
     hf = sparse_ops.cast_values(_hybrid(), torch.float64, cuda)
 
@@ -1714,6 +1720,7 @@ def test_hybrid_does_not_fall_back_to_the_cpu(cuda, monkeypatch):
         raise RuntimeError("kernel unavailable")
 
     monkeypatch.setattr(ell_module, "load_entry", no_kernel)
+    monkeypatch.setattr(launch_module.Entry, "launch", no_kernel)
     n, d = hf.shape
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         sparse_ops.matvec(hf, torch.ones(d, dtype=torch.float64, device=cuda))
@@ -1895,3 +1902,149 @@ def test_out_of_core_objective_on_the_card(cuda):
     assert 0.0 < sobj.stats.transfer_s < sobj.stats.wall_s
     assert 0.0 < sobj.stats.consume_s < sobj.stats.wall_s
     assert 0.0 <= sobj.stats.overlap_frac() <= 1.0
+
+
+# -- the main path's launch plans (kernels/launch.py) ------------------------
+
+from photon_ml_tpu_torch.kernels import colsort as colsort_module  # noqa: E402
+from photon_ml_tpu_torch.kernels import ell as ell_plans  # noqa: E402
+from photon_ml_tpu_torch.kernels import fused as fused_plans  # noqa: E402
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                              b.reshape(-1).view(torch.uint8))
+
+
+def _main_path_calls(idx, val, d, dt, device):
+    """name -> (a call of the wrapper, the launches it counts)."""
+    y, off, ew, w = _fused_inputs(idx.shape[0], idx.shape[1], d, dt, device)
+    v = val.to(dt)
+    copy = colsort_module.design_columns(idx, d)
+    cvals = colsort_module.column_values(copy, v)
+    return {
+        "ell_matvec": (lambda: ell_matvec(idx, v, w, d), {"ell_matvec": 1}),
+        "ell_scatter_add": (lambda: ell_scatter_add(idx, v * ew[:, None], d),
+                            {"ell_scatter_add": 1}),
+        "ell_rmatvec": (lambda: ell_rmatvec(idx, v, ew, d),
+                        {"ell_rmatvec": 1, "colsort_reduce": 1}),
+        "ell_colsum": (lambda: ell_colsum(idx, v, ew, d, square=True),
+                       {"ell_colsum": 1, "colsort_reduce": 1}),
+        "fused_vgc": (lambda: fused_value_grad_curvature(idx, v, y, off, ew, w, d, LOGISTIC_LOSS),
+                      {"fused_vgc": 1, "colsort_reduce": 1}),
+        "fused_hvp": (lambda: fused_hessian_vector(idx, v, ew, w, torch.tensor(
+            0.3, dtype=dt, device=device), d), {"fused_hvp": 1, "colsort_reduce": 1}),
+        "fused_hdiag": (lambda: fused_hessian_diagonal(idx, v, y, off, ew, w, d, LOGISTIC_LOSS),
+                        {"fused_hdiag": 1, "colsort_reduce": 1}),
+        "colsort_reduce": (lambda: colsort_module.column_reduce(copy, cvals, ew, "pair"),
+                           {"colsort_reduce": 1}),
+    }
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_main_path_plans_keep_the_bits_and_the_launch_counts(cuda, dt):
+    """A first call (which builds its plan) and later calls of the same key
+    give the same bits (``ell_scatter_add``, whose hot columns take
+    atomics, off the training paths: within 1e-12 of its largest sum in
+    f64, 1e-5 in f32), and each
+    call counts exactly its launches."""
+    d = 3001
+    idx, val = _ell(4099, 40, d, cuda)
+    for name, (call, launches) in _main_path_calls(idx, val, d, dt, cuda).items():
+        tol = 1e-12 if dt == torch.float64 else 1e-5
+        same = _same_bits if name != "ell_scatter_add" else (
+            lambda a, b: bool(((a - b).abs() <= tol * a.abs().max()).all()))
+        before = dispatch.launch_counts()
+        first = call()
+        torch.cuda.synchronize()
+        after = dispatch.launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == launches, name
+        for _ in range(3):
+            again = call()
+            for a, b in zip(*(o if isinstance(o, tuple) else (o,) for o in (first, again))):
+                assert same(a, b), name
+        final = dispatch.launch_counts()
+        assert all(final[k] - after[k] == 3 * v for k, v in launches.items()), name
+
+
+def test_main_path_plans_are_built_per_key(cuda, monkeypatch):
+    """A changed dtype or width builds a new plan; the same key reuses its
+    plan; the plan of a CUDA key holds its entry point, loaded."""
+    monkeypatch.setattr(ell_plans, "_matvec_plans", {})
+    monkeypatch.setattr(fused_plans, "_vgc_plans", {})
+    d = 3001
+    idx, val = _ell(999, 5, d, cuda)
+    w = torch.randn(d, device=cuda, dtype=torch.float64)
+    ell_matvec(idx, val, w, d)
+    count = len(ell_plans._matvec_plans)
+    ell_matvec(idx, val, w, d)
+    assert len(ell_plans._matvec_plans) == count
+    ell_matvec(idx, val.float(), w.float(), d)
+    assert len(ell_plans._matvec_plans) == count + 1
+    idx2 = idx.clone()
+    idx2[idx2 == d] = d + 1
+    ell_matvec(idx2, val, torch.randn(d + 1, device=cuda, dtype=torch.float64), d + 1)
+    assert len(ell_plans._matvec_plans) == count + 2
+    plans = [p for p in ell_plans._matvec_plans.values() if p != "plain"]
+    assert plans and all(p[-1]._fn is not None for p in plans)
+    y, off, ew, wf = _fused_inputs(999, 5, d, torch.float64, cuda)
+    fused_value_grad_curvature(idx, val, y, off, ew, wf, d, LOGISTIC_LOSS)
+    count = len(fused_plans._vgc_plans)
+    fused_value_grad_curvature(idx, val, y, off, ew, wf, d, SQUARED_LOSS)
+    assert len(fused_plans._vgc_plans) == count + 1
+
+
+def test_main_path_wrappers_refuse_after_a_good_call_of_the_same_key(cuda):
+    """A non-contiguous tensor of a good call's shape still raises, and a
+    misaligned copy's values are refused by the reduce."""
+    d = 100
+    idx, val = _ell(64, 8, d, cuda)
+    y, off, ew, w = _fused_inputs(64, 8, d, torch.float64, cuda)
+    ell_matvec(idx, val, w, d)
+    fused_value_grad_curvature(idx, val, y, off, ew, w, d, LOGISTIC_LOSS)
+    ell_rmatvec(idx, val, ew, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_matvec(idx.t().contiguous().t(), val, w, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_value_grad_curvature(idx, val.t().contiguous().t(), y, off, ew, w, d,
+                                   LOGISTIC_LOSS)
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_rmatvec(idx, val.t().contiguous().t(), ew, d)
+    copy = colsort_module.design_columns(idx, d)
+    cvals = colsort_module.column_values(copy, val)
+    colsort_module.column_reduce(copy, cvals, ew)
+    flat = torch.empty(cvals.numel() + 1, dtype=cvals.dtype, device=cuda)
+    flat[1:] = cvals
+    with pytest.raises(ValueError, match="16-byte"):
+        colsort_module.column_reduce(copy, flat[1:], ew)
+
+
+@pytest.mark.parametrize("name", ["ell_matvec", "ell_scatter_add", "ell_rmatvec", "fused_vgc",
+                                  "fused_hvp", "fused_hdiag", "colsort_reduce"])
+def test_main_path_wrappers_launch_on_the_current_stream(cuda, name):
+    """Inside ``torch.cuda.stream(s)``, after the card sleeps and the
+    weights are written in place on ``s``, the wrapper sees the write: it
+    ran on ``s``."""
+    d = 3001
+    idx, val = _ell(20011, 40, d, cuda)
+    calls = _main_path_calls(idx, val, d, torch.float64, cuda)
+    call = calls[name][0]
+    ref = call()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    # every call reads the values; scaling them by -3 on s after the sleep
+    # changes every output
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)
+        val.mul_(-3.0)
+        got = _main_path_calls(idx, val, d, torch.float64, cuda)[name][0]()
+    torch.cuda.current_stream().wait_stream(s)
+    want = _main_path_calls(idx, val, d, torch.float64, cuda)[name][0]()
+    outs = [o if isinstance(o, tuple) else (o,) for o in (got, want, ref)]
+    # the scatter's hot columns take atomics: its sums within 1e-12 of the
+    # largest, every other output's bits
+    same = _same_bits if name != "ell_scatter_add" else (
+        lambda a, b: bool(((a - b).abs() <= 1e-12 * a.abs().max()).all()))
+    for a, b in zip(outs[0], outs[1]):
+        assert same(a, b), name
+    assert not all(same(a, b) for a, b in zip(outs[0], outs[2]))

@@ -251,9 +251,6 @@ _UNPORTED_CASES = (
     [(name, {name: _ON[name]}, item) for name, (_, item) in UNPORTED_GAME_FIELDS.items()]
     + [(f"coordinate.{name}", {"coordinate": {name: _ON[name]}}, item)
        for name, (_, item) in UNPORTED_COORDINATE_FIELDS.items()]
-    + [("passes with a tolerance", {"passes_per_dispatch": 2,
-                                    "convergence_tolerance": 1e-6},
-        "Combo grid and dispatch chunks")]
 )
 
 
@@ -278,6 +275,11 @@ _PORTED_CASES = [
     # fingerprint in both packages
     ("streamed_ingest", {"streamed_ingest": True, "ingest_chunk_mb": 0.01,
                          "prefetch_depth": 1, "quality_fingerprint": True}),
+    # one combo and no validation data, so the passes run in chunks of 2
+    # and the tolerance ends the run early, as in the JAX driver
+    ("passes with a tolerance", {"passes_per_dispatch": 2, "convergence_tolerance": 2e-3,
+                                 "validate_input": [], "num_iterations": 8,
+                                 "coordinate": {"reg_weights": [0.1]}}),
 ]
 _PORTED = dict(_PORTED_CASES)
 _ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]
@@ -355,12 +357,13 @@ def _hybrid_game_matches_jax(tmp, monkeypatch, hot_columns):
 def _ported_setting_matches_jax(inputs, name, change):
     change = dict(change)
     coord = change.pop("coordinate", {})
+    iterations = change.pop("num_iterations", 2)
     tag = name.replace(" ", "-").replace(".", "-")
     both = []
     # the JAX driver writes its fingerprint only where the case asks for it
     jax_extra = {"quality_fingerprint": change.get("quality_fingerprint", False)}
     for pkg in ("jax", "torch"):
-        p = _params(inputs, f"ported-{pkg}-{tag}", num_iterations=2, **change)
+        p = _params(inputs, f"ported-{pkg}-{tag}", num_iterations=iterations, **change)
         p["coordinates"]["per-user"].update(coord)
         if name == "resume":
             # a first run stops after one pass with its checkpoint; the
@@ -375,6 +378,13 @@ def _ported_setting_matches_jax(inputs, name, change):
             both.append(tgame.run_game_training(p, device="cpu"))
     ref, got = both
     _assert_same_runs(got, ref)
+    if "convergence_tolerance" in change:
+        # stopped early, in the middle of a chunk, with each chunk's seconds
+        # on its first record
+        (hist,) = [s["history"] for s in got.sweep]
+        assert len(hist) == len(ref.sweep[0]["history"]) < 2 * iterations
+        assert [h.seconds is None for h in hist] == [
+            h.seconds is None for h in ref.sweep[0]["history"]]
     if "feature_shards" in change:
         assert {s: v.index_to_key for s, v in got.shard_vocabs.items()} == {
             s: v.index_to_key for s, v in ref.shard_vocabs.items()}
@@ -446,3 +456,85 @@ def test_settings_that_stay_off_validate(inputs):
     params = _params(inputs, "on", entity_shards=1, passes_per_dispatch=3)
     params["coordinates"]["per-user"]["projector"] = "IDENTITY"
     load_params(params, GameDriverParams).validate()
+
+
+def _log(run) -> str:
+    with open(os.path.join(run.params.output_dir, "log-message.txt")) as f:
+        return f.read()
+
+
+def test_grid_without_validation_trains_every_combo_at_once(inputs):
+    """The counterpart of the JAX package's vmapped sweep test: with no
+    validation data the driver trains the grid through ``run_grid``, and
+    its sweep equals the JAX driver's, combo by combo."""
+    extra = {"validate_input": [], "quality_fingerprint": False}
+    ref = jax_run_game_training(_params(inputs, "grid-jax", **extra))
+    got = tgame.run_game_training(_params(inputs, "grid-torch", **extra), device="cpu")
+    _assert_same_runs(got, ref)
+    assert "train grid x2 (vmapped)" in _log(got) and "train combo" not in _log(got)
+    assert all(s["validation_metric"] is None for s in got.sweep)
+    assert len({s["seconds"] for s in got.sweep}) == 1
+    for s in got.sweep:
+        assert [h.seconds is None for h in s["history"]] == [False, True] * 3
+    assert got.best_index == 1 and len(got.output_dirs) == 2
+
+
+def test_grid_preempted_after_a_pass_saves_nothing(inputs, monkeypatch):
+    """A shutdown requested during the grid ends it after that pass, with
+    every combo at the same pass, and the driver saves no model."""
+    real = tgame.run_grid
+
+    def preempted(cd, combos, num_iterations, stop_check=None, **kwargs):
+        def stop():
+            stop_check.request()
+            return stop_check()
+
+        return real(cd, combos, num_iterations, stop_check=stop, **kwargs)
+
+    monkeypatch.setattr(tgame, "run_grid", preempted)
+    run = tgame.run_game_training(_params(inputs, "grid-preempted", validate_input=[],
+                                          quality_fingerprint=False), device="cpu")
+    assert "train grid x2 (vmapped)" in _log(run)
+    assert "preempted during the grid" in _log(run)
+    assert [[h.iteration for h in s["history"]] for s in run.sweep] == [[0, 0], [0, 0]]
+    assert run.output_dirs == []
+
+
+# each setting that keeps the driver off the grid branch, as the JAX
+# driver's ``vmappable`` does; the warm start's model comes from a run
+_LOOP_CASES = {
+    "validation data": {"validate_input": None},
+    "warm start": {"initial_model_dir": "warm"},
+    "checkpoint_every": {"checkpoint_every": 1},
+    "divergence_guard": {"divergence_guard": True},
+    "latent_dim": {"coordinate": {"latent_dim": 2}},
+    "projector": {"coordinate": {"projector": "RANDOM=2"}},
+    "sparse random effect": {"sparse_shards": ["ushard"],
+                             "coordinate": {"projector": "INDEX_MAP"}},
+    "one combo": {"coordinate": {"reg_weights": [0.1]}},
+}
+
+
+@pytest.mark.parametrize("case", list(_LOOP_CASES))
+def test_grid_exclusions_take_the_loop(inputs, monkeypatch, case):
+    change = dict(_LOOP_CASES[case])
+    coord = change.pop("coordinate", {})
+    tag = case.replace(" ", "-")
+    params = _params(inputs, f"loop-{tag}", num_iterations=1, quality_fingerprint=False)
+    params["validate_input"] = []
+    params["coordinates"]["per-user"].update(coord)
+    if change.get("initial_model_dir"):
+        warm = tgame.run_game_training({**params, "output_dir": str(inputs["tmp"] / "loop-warm0"),
+                                        "model_output_mode": "BEST"}, device="cpu")
+        change["initial_model_dir"] = warm.output_dirs[0]
+    for key, value in change.items():
+        params[key] = [inputs["validate"]] if key == "validate_input" else value
+
+    def no_grid(*args, **kwargs):
+        raise AssertionError("run_grid taken")
+
+    monkeypatch.setattr(tgame, "run_grid", no_grid)
+    run = tgame.run_game_training(params, device="cpu")
+    combos = len(params["coordinates"]["per-user"]["reg_weights"])
+    assert len(run.sweep) == combos
+    assert _log(run).count("train combo") == combos and "vmapped" not in _log(run)
