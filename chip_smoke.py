@@ -252,6 +252,21 @@ whenever any phase fails. Phases, in order:
    reduce at the widest segment's shape held to their plain versions and
    timed, the slab's ``torch.matmul`` both ways, the whole hybrid
    ``matvec`` / ``rmatvec``, and the adds of the segments' (d,) outputs;
+6i. mesh-sharded training (run after 6h, on phase 6's files): phase 6's
+   driver configuration with ``mesh_shape`` — (a) ``{"data": 1}`` in an
+   NCCL world of one in this process, its w bit for bit phase 6's card w,
+   its ``ell_matvec`` / ``fused_vgc`` / ``fused_hvp`` launches phase 6's
+   and one all-reduce a fused pass; (b) ``{"data": 2}`` in a 2-rank gloo
+   world, (c) ``{"data": 2, "feature": 2}`` in ``fused`` mode and (d)
+   ``{"feature": 4}`` in ``overlap`` mode (the balanced layout) in 4-rank
+   gloo worlds, their ranks spawned once and sharing the card (the three
+   worlds at once, beside (a); (c) and (d) at lambda = 10 alone): w within
+   1e-6 max(1, |w|_inf) of phase 6's card w and the AUC within 1e-6, every
+   rank's w bit for bit rank 0's, every rank's card peak below (a)'s (a
+   rank holds its shard, not the design), every rank's launched kernels
+   held to their plain versions at its shard's or block's shape; per world
+   the launches, the collectives and bytes per objective pass, each
+   solve's seconds, the card peaks and the phase's seconds;
 5h. the I/O runtime (run after 5g): 2^16 training records (8 part files)
    and 2^13 held-out ones of 256 dense fields (``bench.py`` case 1's
    width); (a) the GLM driver (TRON, L2, lambda in {10, 1}, f64,
@@ -357,6 +372,7 @@ from photon_ml_tpu_torch.ops.sparse import (
     stored_cold_entries,
     to_hybrid,
 )
+from photon_ml_tpu_torch.parallel.overlap import overlap_chunks
 from photon_ml_tpu_torch.kernels import colsort
 from photon_ml_tpu_torch.resilience import GracefulShutdown, read_preempted_marker
 from photon_ml_tpu_torch import obs
@@ -3966,7 +3982,9 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     }
     log(f"[train] {json.dumps(summary)}")
     reference = {"params": params, "vocab": vocab, "sets": sets, "batch_cpu": batch_cpu,
-                 "heldout_cpu": heldout_cpu, "tron_models": cpu_models}
+                 "heldout_cpu": heldout_cpu, "tron_models": cpu_models,
+                 "card_w": [tm.model.coefficients.means.cpu() for tm in run.models],
+                 "card_auc": [vm[auc_key] for vm in run.validation_metrics]}
     return summary, shape_checks, reference
 
 
@@ -4204,6 +4222,457 @@ def hybrid_train_phase(work: str, reference: dict, ell_summary=None, name: str =
                "kernels": {str(h): k for h, k in kernels.items()},
                "phase_s": time.perf_counter() - phase_t0}
     log(f"[hybrid] {json.dumps({k: v for k, v in summary.items() if k != 'runs'})}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, launches
+
+
+# -- phase 6i: mesh-sharded GLM training on phase 6's records ----------------
+
+# (label, mesh_shape, collective_mode, worker processes, lambdas) of the
+# gloo worlds whose ranks share the card, rank i of a world its i-th
+# process, each running the first ``lambdas`` of phase 6's lambda path;
+# the three run at once, beside (a), the NCCL world of one in this process
+# (each world is bound by gloo's latency per collective, not by the card).
+# (c) and (d) solve lambda = 10 alone: phase 6's lambda = 1 solve (505 CG
+# steps of its 684) held the phase past its 60 s, and a cut of rows would
+# lose phase 6's card w as their reference
+MESH_WORLDS = (
+    ("b", {"data": 2}, "fused", (8, 9), 2),
+    ("c", {"data": 2, "feature": 2}, "fused", (0, 1, 2, 3), 1),
+    ("d", {"feature": 4}, "overlap", (4, 5, 6, 7), 1),
+)
+MESH_PROCESSES = 10
+MESH_WORLD_TIMEOUT_S = 240.0
+# (b)-(d) against phase 6's card w: max |dw| <= MESH_W_RTOL max(1, |w|_inf)
+MESH_W_RTOL = 1e-6
+MESH_AUC_TOL = 1e-6
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_shards_ahead(work: str, batch_cpu, worlds) -> None:
+    """Phase 6's design as the driver shards it, written once for the
+    spawned ranks' kernel checks: the ELL and the batch's columns, and for
+    each feature-sharded world its blocks (``shard_columns`` in the
+    world's layout), one file a block."""
+    from photon_ml_tpu_torch.ops import sparse as sparse_ops
+
+    x = batch_cpu.features
+    np.savez(os.path.join(work, "ell.npz"), indices=x.indices.numpy(), values=x.values.numpy(),
+             labels=batch_cpu.labels.numpy(), offsets=batch_cpu.offsets.numpy(), d=x.d)
+    for label, shape, mode, _, _ in worlds:
+        n_data, n_feat = shape.get("data", 1), shape.get("feature", 1)
+        if n_feat == 1:
+            continue
+        blocked = sparse_ops.shard_columns(x, n_feat,
+                                           balance_rows=mode == "overlap" and n_data == 1)
+        for f in range(n_feat):
+            blk = sparse_ops.feature_sharded_block(blocked, f)
+            extra = ({} if blk.row_map is None else
+                     {"row_map": blk.row_map.numpy(), "num_rows": blk.num_rows,
+                      "aligned_rows": blk.aligned_rows})
+            np.savez(os.path.join(work, f"{label}-block{f}.npz"),
+                     indices=blk.indices.numpy(), values=blk.values.numpy(),
+                     d_shard=blk.d_shard, d_orig=blk.d_orig, **extra)
+
+
+def mesh_shard(work: str, label: str, shape: dict, rank: int, device):
+    """This rank's share of phase 6's design as the driver shards it (from
+    ``mesh_shards_ahead``'s files): its rows of the ELL ('feature' 1), or
+    its rows of its column block (an ELL over the block's columns), on
+    ``device``; with the block's layout."""
+    from photon_ml_tpu_torch import interop
+    from photon_ml_tpu_torch.parallel.mesh import shard_rows
+
+    z = np.load(os.path.join(work, "ell.npz"))
+    n_data, n_feat = shape.get("data", 1), shape.get("feature", 1)
+    features = interop.sparse_from_numpy(z["indices"], z["values"], int(z["d"]))
+    layout = None
+    if n_feat > 1:
+        b = np.load(os.path.join(work, f"{label}-block{rank % n_feat}.npz"))
+        balanced = "row_map" in b
+        features = interop.feature_sharded_from_numpy(
+            b["indices"], b["values"], int(b["d_shard"]), int(b["d_orig"]),
+            b["row_map"] if balanced else None,
+            int(b["num_rows"]) if balanced else None,
+            int(b["aligned_rows"]) if balanced else 0)
+        layout = {"balanced": balanced, "d_shard": int(b["d_shard"])}
+    batch = LabeledBatch.create(features, z["labels"], offsets=z["offsets"],
+                                dtype=torch.float64)
+    return shard_rows(batch, n_data, rank // n_feat, device), layout
+
+
+def mesh_shard_checks(local, layout, rank: int, launched: dict) -> dict:
+    """Each kernel this rank launched held to its plain version at its
+    shard's shape (f64, the path's dtype): on a 'data' shard ``fused_vgc``
+    / ``fused_hvp`` (``check_vgc`` / ``check_hvp``, 1e-12) and
+    ``ell_matvec``; on a feature block ``ell_matvec`` (``check_kernel``,
+    1e-12 x each row's sum of |v w|) and the column-sorted reduce on the
+    block's own copy, linear and pair (``reduce_error``, 1e-12 x each
+    column's sum of |terms|), with the block's ``rmatvec`` as the solve
+    calls it. Raises on a miss."""
+    out = {}
+    if layout is None:
+        x = local.features
+        ew, y, off = local.effective_weights(), local.labels, local.offsets
+        g = torch.Generator(device=x.indices.device).manual_seed(SEED + 11)
+        w = 0.01 * torch.randn(x.d, generator=g, device=x.indices.device, dtype=torch.float64)
+        if launched.get("fused_vgc"):
+            err, ok, share, _ = check_vgc(x.indices, x.values, y, off, ew, w, x.d, 1e-12)
+            if not ok:
+                raise AssertionError(f"fused_vgc disagrees on rank {rank}'s shard: {err:.3e}")
+            out["fused_vgc"] = {"rows": int(x.indices.shape[0]), "max_abs_err": err,
+                                "max_err_share": share}
+        if launched.get("fused_hvp"):
+            c = ew * LOGISTIC_LOSS.d2(ell_matvec_reference(x.indices, x.values, w, x.d) + off, y)
+            shift = torch.zeros((), dtype=torch.float64, device=w.device)
+            err, ok, share, _ = check_hvp(x.indices, x.values, c, w, shift, x.d, 1e-12)
+            if not ok:
+                raise AssertionError(f"fused_hvp disagrees on rank {rank}'s shard: {err:.3e}")
+            out["fused_hvp"] = {"rows": int(x.indices.shape[0]), "max_abs_err": err,
+                                "max_err_share": share}
+        blk = x
+    else:
+        blk = local.features.blocks[0]
+        out["layout"] = {**layout, "virtual_rows": int(blk.indices.shape[0]),
+                         "width": int(blk.indices.shape[1])}
+    g = torch.Generator(device=blk.indices.device).manual_seed(SEED + 12)
+    w = torch.randn(blk.d, generator=g, device=blk.indices.device, dtype=torch.float64)
+    if launched.get("ell_matvec"):
+        *_, err, ok = check_kernel(blk.indices, blk.values, blk.d, torch.float64,
+                                   torch.float64, 1e-12, w)
+        if not ok:
+            raise AssertionError(f"ell_matvec disagrees on rank {rank}'s shard: {err:.3e}")
+        out["ell_matvec"] = {"rows": int(blk.indices.shape[0]), "max_abs_err": err}
+    if launched.get("colsort_reduce"):
+        copy = colsort.build_design_columns(blk.indices, blk.d)
+        vals = colsort.column_values(copy, blk.values)
+        a = reduce_vector(blk.indices.shape[0], torch.float64, blk.indices.device)
+        err = max(reduce_error(copy, vals, a, m, 1e-12, f"rank {rank}'s shard")[0]
+                  for m in ("linear", "pair"))
+        terms = blk.values * a[:, None]
+        r_err, ok, _ = within(rmatvec(blk, a), ell_scatter_add_reference(blk.indices, terms, blk.d),
+                              ell_scatter_add_reference(blk.indices, terms.abs(), blk.d), 1e-12)
+        if not ok:
+            raise AssertionError(f"rmatvec disagrees on rank {rank}'s shard: {r_err:.3e}")
+        out["colsort_reduce"] = {"columns": blk.d, "max_abs_err": max(err, r_err)}
+    return out
+
+
+def mesh_world_worker(proc: int, work: str, worlds, device: str) -> None:
+    """One process of phase 6i's gloo worlds (spawned ahead by
+    ``start_mesh_workers``). Once the parent's go file appears it reads the
+    driver's params (``params.json``), then for each world it belongs to
+    joins through a file store, runs the GLM driver with the world's
+    ``mesh_shape`` and ``collective_mode`` on ``device`` with every count set
+    to 0 just before and read just after, and leaves; then, once the
+    parent's shards are written, holds its launched kernels to their plain
+    versions at each shard's shape (``mesh_shard``, ``mesh_shard_checks``;
+    on the card).
+    The results go to ``proc-<p>.json`` (an ``error-<p>.txt`` on failure)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.parallel.mesh import collective_counts, reset_collective_counts
+
+    try:
+        torch.set_num_threads(2)
+        if device != "cpu":
+            torch.cuda.set_device(torch.device(device))
+        mine = [(label, shape, mode, procs.index(proc), len(procs), lambdas)
+                for label, shape, mode, procs, lambdas in worlds if proc in procs]
+        while not os.path.exists(os.path.join(work, "go")):
+            time.sleep(0.05)
+        with open(os.path.join(work, "params.json")) as f:
+            params = json.load(f)
+        results = {}
+        for label, shape, mode, rank, n_ranks, lambdas in mine:
+            t_join = time.perf_counter()
+            store = os.path.abspath(os.path.join(work, f"store-{label}"))
+            dist.init_process_group(
+                "gloo", init_method=f"file://{store}", world_size=n_ranks, rank=rank,
+                timeout=datetime.timedelta(seconds=MESH_WORLD_TIMEOUT_S))
+            log(f"[mesh] ({label}) rank {rank} joined in {time.perf_counter() - t_join:.2f} s")
+            try:
+                dispatch.reset_launch_counts()
+                reset_collective_counts()
+                if device != "cpu":
+                    torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                run = run_glm_training({**params, "mesh_shape": shape, "collective_mode": mode,
+                                        "reg_weights": params["reg_weights"][:lambdas],
+                                        "output_dir": os.path.join(work, f"out-{label}"),
+                                        "overwrite": True}, device=device)
+                wall_s = time.perf_counter() - t0
+                launched = dispatch.launch_counts()
+                colls = collective_counts()
+                peak = torch.cuda.max_memory_allocated(device) if device != "cpu" else None
+                log(f"[mesh] ({label}) rank {rank} trained in {wall_s:.2f} s")
+                auc_key = metrics_mod.AREA_UNDER_RECEIVER_OPERATOR_CHARACTERISTICS
+                # the models in binary: a JSON list of 2^20 floats a model
+                # costs seconds to write and read
+                w_path = os.path.join(work, f"w-{label}-{rank}.npy")
+                np.save(w_path, np.stack([tm.model.coefficients.means.cpu().numpy()
+                                          for tm in run.models]))
+                results[label] = {
+                    "rank": rank, "w": w_path, "peak_bytes": peak,
+                    "auc": [vm[auc_key] for vm in run.validation_metrics],
+                    "iterations": [tm.result.iterations for tm in run.models],
+                    "cg_iterations": [tm.result.cg_iterations for tm in run.models],
+                    "solve_s": [tm.seconds for tm in run.models],
+                    "wall_s": wall_s, "timings_s": run.timings, "launches": launched,
+                    "collectives": colls, "codecs": run.codecs,
+                }
+                del run
+                dist.barrier()
+            finally:
+                dist.destroy_process_group()
+        # the kernels at the shards' shapes once this process's worlds are
+        # done (and the parent has written the shards), so that no world
+        # waits on them
+        while not os.path.exists(os.path.join(work, "shards")):
+            time.sleep(0.05)
+        for label, shape, _, rank, _, _ in mine:
+            t0 = time.perf_counter()
+            result = results[label]
+            local, layout = mesh_shard(work, label, shape, rank, device)
+            result["shard_bytes"] = design_bytes(local.features)
+            result["checks"] = (mesh_shard_checks(local, layout, rank, result["launches"])
+                                if device != "cpu" else {})
+            del local
+            result["checks_s"] = time.perf_counter() - t0
+        with open(os.path.join(work, f"proc-{proc}.json"), "w") as f:
+            json.dump(results, f)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        with open(os.path.join(work, f"error-{proc}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def design_bytes(x) -> int:
+    """The bytes of an ELL design's or a column block's column ids and
+    values."""
+    blocks = x.blocks if hasattr(x, "blocks") else (x,)
+    return sum(b.indices.numel() * b.indices.element_size()
+               + b.values.numel() * b.values.element_size() for b in blocks)
+
+
+def objective_passes(colls: dict, shape: dict, mode: str) -> int:
+    """A world's objective passes from rank 0's collectives: one 'data'
+    reduction a pass ('feature' 1), else one margins reduction a pass
+    (``fused``) or one a row chunk (``overlap``)."""
+    if shape.get("feature", 1) == 1:
+        return colls.get("value_grad", {}).get("count", 0) + colls.get("hvp", {}).get("count", 0)
+    per = overlap_chunks() if mode == "overlap" else 1
+    return colls.get("margins", {}).get("count", 0) // per
+
+
+def _per_pass(colls: dict, passes: int) -> dict:
+    """Collectives and bytes per objective pass, by label."""
+    return {k: {"count": v["count"] / max(passes, 1), "bytes": v["bytes"] / max(passes, 1)}
+            for k, v in colls.items()}
+
+
+def start_mesh_workers(work: str, device=None) -> list:
+    """Spawn phase 6i's worker processes ahead of the phase (their imports
+    then overlap the phases before it); they wait for the phase's go file
+    in ``work``. ``device`` None: the card."""
+    import multiprocessing
+
+    os.makedirs(work, exist_ok=True)
+    dev = "cuda:0" if device is None else device
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_world_worker, args=(p, work, MESH_WORLDS, dev), daemon=True)
+             for p in range(MESH_PROCESSES)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def mesh_train_phase(work: str, reference: dict, train_summary: dict, name: str = "",
+                     device=None, procs=None):
+    """Phase 6i: phase 6's driver configuration with ``mesh_shape`` on phase
+    6's files, held to phase 6's card models (``reference["card_w"]``,
+    ``reference["card_auc"]``). (a) ``{"data": 1}`` in an NCCL world of
+    one in this process: w bit for bit phase 6's, with phase 6's launches
+    of ``ell_matvec``, ``fused_vgc`` and ``fused_hvp`` and one all-reduce
+    a pass; (b) ``{"data": 2}`` in a 2-rank gloo world, (c) ``{"data": 2,
+    "feature": 2}`` in ``fused`` mode and (d) ``{"feature": 4}`` in
+    ``overlap`` mode (the balanced layout) in 4-rank gloo worlds, their
+    ranks spawned once (10 processes: the three worlds at once, beside
+    (a)) and sharing the card, each over the first lambdas of phase 6's
+    path that ``MESH_WORLDS`` gives it: w within MESH_W_RTOL max(1,
+    |w|_inf) of phase 6's, every rank's w bit for bit rank 0's, the AUC
+    within MESH_AUC_TOL, every rank's card peak below (a)'s, each rank's
+    kernels held to their plain versions at its shard's shape. ``procs``: the workers of ``start_mesh_workers``
+    over ``work`` (started here when None). ``device="cpu"`` rehearses it
+    (gloo for (a), no card checks). Returns (summary, the launches of (a)
+    and every world's ranks summed)."""
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.parallel.mesh import collective_counts, reset_collective_counts
+
+    phase_t0 = time.perf_counter()
+    on_card = device is None
+    os.makedirs(work, exist_ok=True)
+    # the model files are phase 6's to write: these runs keep theirs in
+    # memory; (b)-(d) also sketch no quality fingerprint (phase 6's files)
+    params = {**reference["params"], "model_output_mode": "NONE",
+              "output_dir": os.path.join(work, "out-a")}
+    worlds_params = {**params, "quality_fingerprint": False}
+    card_w = reference["card_w"]
+    card_auc = reference["card_auc"]
+    if procs is None:
+        procs = start_mesh_workers(work, device)
+    with open(os.path.join(work, "params.json"), "w") as f:
+        json.dump(worlds_params, f)
+    failures, worlds = [], {}
+    launches = {k: 0 for k in dispatch.KERNELS}
+    try:
+        # the spawned worlds start at once; beside them this process writes
+        # the shards for the ranks' kernel checks, then runs (a)
+        with open(os.path.join(work, "go"), "w"):
+            pass
+        t_worlds = time.perf_counter()
+        mesh_shards_ahead(work, reference["batch_cpu"], MESH_WORLDS)
+        with open(os.path.join(work, "shards"), "w"):
+            pass
+        # (a): the NCCL world of one, in this process
+        t_init = time.perf_counter()
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                init_method=f"tcp://localhost:{_free_port()}",
+                                world_size=1, rank=0)
+        log(f"[mesh] (a) joined its world of one in {time.perf_counter() - t_init:.2f} s")
+        try:
+            dispatch.reset_launch_counts()
+            reset_collective_counts()
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before_a = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            run = run_glm_training({**params, "mesh_shape": {"data": 1}},
+                                   **({} if on_card else {"device": device}))
+            wall_a = time.perf_counter() - t0
+            got = dispatch.launch_counts()
+            colls = collective_counts()
+            peak_a = torch.cuda.max_memory_allocated() - before_a if on_card else None
+        finally:
+            dist.destroy_process_group()
+        launches = {k: launches[k] + got[k] for k in launches}
+        same = [bool(torch.equal(tm.model.coefficients.means.cpu(), w))
+                for tm, w in zip(run.models, card_w)]
+        if not (all(same) and len(same) == len(card_w)):
+            failures.append(f"(a) w not bit for bit phase 6's: {same}")
+        want = train_summary["launches"]
+        if on_card:
+            for k in ("ell_matvec", "fused_vgc", "fused_hvp"):
+                if got[k] != want[k]:
+                    failures.append(f"(a) {k}: {got[k]} launches, phase 6 had {want[k]}")
+        passes = colls.get("value_grad", {}).get("count", 0) + colls.get("hvp", {}).get("count", 0)
+        if on_card and passes != got["fused_vgc"] + got["fused_hvp"]:
+            failures.append(f"(a) {passes} all-reduces for {got['fused_vgc']} + "
+                            f"{got['fused_hvp']} fused passes")
+        worlds["a"] = {"mesh_shape": {"data": 1}, "backend": "nccl" if on_card else "gloo",
+                       "ranks": 1, "wall_s": wall_a, "launches": got, "collectives": colls,
+                       "peak_bytes": peak_a,
+                       "design_bytes": design_bytes(reference["batch_cpu"].features),
+                       "collectives_per_pass": _per_pass(colls, passes),
+                       "solve_s": [tm.seconds for tm in run.models],
+                       "iterations": [tm.result.iterations for tm in run.models],
+                       "cg_iterations": [tm.result.cg_iterations for tm in run.models],
+                       "w_bits_equal_phase6": same}
+        log(f"[mesh] (a) {json.dumps(worlds['a'])}")
+        del run
+
+        # (b)-(d): the spawned ranks' gloo worlds
+        deadline = t_worlds + MESH_WORLD_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        worlds_s = time.perf_counter() - t_worlds
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+        for p in procs:
+            p.join(5.0)
+    errors = []
+    for p in range(MESH_PROCESSES):
+        path = os.path.join(work, f"error-{p}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"process {p}: {f.read()[-3000:]}")
+    if alive or errors:
+        raise AssertionError(f"phase 6i's worlds failed ({len(alive)} processes killed at "
+                             f"{MESH_WORLD_TIMEOUT_S:.0f} s): " + "\n".join(errors))
+    per_proc = []
+    for p in range(MESH_PROCESSES):
+        with open(os.path.join(work, f"proc-{p}.json")) as f:
+            per_proc.append(json.load(f))
+    for label, shape, mode, world_procs, lambdas in MESH_WORLDS:
+        n_ranks = len(world_procs)
+        res = [per_proc[p][label] for p in world_procs]
+        ws = [torch.from_numpy(np.load(rr["w"])) for rr in res]
+        w0 = list(ws[0])
+        if len(w0) != lambdas:
+            failures.append(f"({label}) {len(w0)} models for {lambdas} lambdas")
+        gaps = []
+        for lam_w, ref_w in zip(w0, card_w):
+            dw = float((lam_w - ref_w).abs().max())
+            gaps.append(dw)
+            if not dw <= MESH_W_RTOL * max(1.0, float(ref_w.abs().max())):
+                failures.append(f"({label}) max |dw| {dw:.3e} vs phase 6's card w")
+        for r, wr in enumerate(ws[1:], start=1):
+            if not torch.equal(wr, ws[0]):
+                failures.append(f"({label}) rank {r}'s w is not rank 0's bit for bit")
+        auc_gaps = [abs(a - b) for a, b in zip(res[0]["auc"], card_auc)]
+        if not all(g <= MESH_AUC_TOL for g in auc_gaps):
+            failures.append(f"({label}) held-out AUC {res[0]['auc']} vs phase 6's {card_auc}")
+        summed = {k: sum(rr["launches"][k] for rr in res) for k in dispatch.KERNELS}
+        launches = {k: launches[k] + summed[k] for k in launches}
+        if on_card:
+            need = (("fused_vgc", "fused_hvp") if shape.get("feature", 1) == 1
+                    else ("ell_matvec", "colsort_reduce"))
+            for rr_i, rr in enumerate(res):
+                for k in need:
+                    if not rr["launches"][k] > 0:
+                        failures.append(f"({label}) rank {rr_i} launched no {k}")
+        c0 = res[0]["collectives"]
+        passes = objective_passes(c0, shape, mode)
+        # the card's peak on each rank against (a)'s, which held the whole
+        # design: a rank holds its shard alone
+        peaks = [rr["peak_bytes"] for rr in res]
+        if on_card and not all(p < worlds["a"]["peak_bytes"] for p in peaks):
+            failures.append(f"({label}) a rank's peak {max(peaks)} B is not below (a)'s "
+                            f"{worlds['a']['peak_bytes']} B")
+        worlds[label] = {
+            "mesh_shape": shape, "collective_mode": mode, "backend": "gloo", "ranks": n_ranks,
+            "lambdas": TRAIN_LAMBDAS[:lambdas],
+            "launches_rank0": res[0]["launches"], "launches_summed": summed,
+            "collectives_rank0": c0, "objective_passes": passes,
+            "collectives_per_pass_rank0": _per_pass(c0, passes),
+            "solve_s": [rr["solve_s"] for rr in res], "wall_s": [rr["wall_s"] for rr in res],
+            "timings_s_rank0": res[0]["timings_s"],
+            "checks_s": [rr["checks_s"] for rr in res],
+            "peak_bytes": peaks, "shard_bytes": [rr["shard_bytes"] for rr in res],
+            "iterations": res[0]["iterations"], "cg_iterations": res[0]["cg_iterations"],
+            "max_abs_dw_vs_phase6": gaps, "auc_gap_vs_phase6": auc_gaps,
+            "checks": [rr["checks"] for rr in res],
+        }
+        log(f"[mesh] ({label}) {json.dumps(worlds[label])}")
+    summary = {"worlds": worlds, "worlds_s": worlds_s,
+               "phase_s": time.perf_counter() - phase_t0}
+    log(f"[mesh] phase 6i: {summary['phase_s']:.1f} s (the spawned worlds "
+        f"{worlds_s:.1f} s)")
     if failures:
         raise AssertionError("; ".join(failures))
     return summary, launches
@@ -5347,10 +5816,17 @@ def main() -> int:
         # 7. the full trainer on the same records
         full_summary, full_launches = full_trainer_phase(os.path.join(work, "full"), reference)
         shutil.rmtree(os.path.join(work, "full"), ignore_errors=True)
+        # 6i's worker processes start now and import while 6h runs
+        mesh_procs = start_mesh_workers(os.path.join(work, "mesh"))
         # 6h. hybrid designs: phase 6's driver with hot_columns -1 and 14
         hybrid_summary, hybrid_launches = hybrid_train_phase(
             os.path.join(work, "hybrid"), reference, train_summary, name)
         shutil.rmtree(os.path.join(work, "hybrid"), ignore_errors=True)
+        # 6i. mesh-sharded training: phase 6's driver with mesh_shape in an
+        # NCCL world of one and in gloo worlds of 2 and 4 ranks on the card
+        mesh_summary, mesh_launches = mesh_train_phase(os.path.join(work, "mesh"), reference,
+                                                       train_summary, name, procs=mesh_procs)
+        shutil.rmtree(os.path.join(work, "mesh"), ignore_errors=True)
         # 5g. the index job on phase 6's training file, the GLM and GAME
         # drivers with the quality fingerprint (the GAME one again with a
         # hybrid fixed effect), the export served with its drift monitor and
@@ -5371,6 +5847,7 @@ def main() -> int:
     log(json.dumps({"serving": serve_summary}))
     log(json.dumps({"full_trainer": full_summary}))
     log(json.dumps({"hybrid": hybrid_summary}))
+    log(json.dumps({"mesh": mesh_summary}))
     log(json.dumps({"quality_loop": quality_summary}))
     log(json.dumps({"io_runtime": io_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
@@ -5418,6 +5895,7 @@ def main() -> int:
                                  "quality_glm": quality_launches["glm"][kernel],
                                  "quality_game": quality_launches["game"][kernel],
                                  "train_hybrid": hybrid_launches[kernel],
+                                 "train_mesh": mesh_launches[kernel],
                                  "quality_game_hybrid": quality_launches["game_hybrid"][kernel],
                                  "io_game_streamed": io_launches[kernel],
                                  "lab": lab_launches[kernel]},

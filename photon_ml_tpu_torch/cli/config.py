@@ -34,7 +34,6 @@ MODEL_OUTPUT_MODES = ("ALL", "BEST", "NONE")
 # that keeps it off, its item in ROADMAP.md queue A)
 _OBS = "Host layers with no device math"
 UNPORTED_GLM_FIELDS = {
-    "mesh_shape": (None, "Parallel"),
     "profile": (False, _OBS),
     "debug_nans": (False, _OBS),
     "trace_dir": (None, _OBS),
@@ -42,11 +41,19 @@ UNPORTED_GLM_FIELDS = {
     "profile_dir": (None, _OBS),
     "flight_dir": (None, _OBS),
     "convergence_report": (False, _OBS),
-    "heartbeat_s": (0.0, "Parallel"),
-    "collective_timeout_s": (None, "Parallel"),
-    "sharded_ckpt": (False, "Parallel"),
-    "collective_mode": (None, "Parallel"),
 }
+
+
+def _validate_pod_resilience(params) -> None:
+    """The JAX package's checks of the resilience fields both drivers
+    carry (``heartbeat_s``, ``collective_timeout_s``), with its messages."""
+    if params.heartbeat_s < 0:
+        raise ValueError(f"heartbeat_s must be >= 0 (0 = off), got {params.heartbeat_s}")
+    if params.collective_timeout_s is not None and params.collective_timeout_s <= 0:
+        raise ValueError(
+            "collective_timeout_s must be > 0 (or null = no watchdog), got "
+            f"{params.collective_timeout_s}"
+        )
 
 
 @dataclasses.dataclass
@@ -127,9 +134,15 @@ class GLMDriverParams:
     def validate(self) -> None:
         if not self.train_input:
             raise ValueError("train_input is required")
-        # the JAX package's hybrid, ingest and out_of_core refusals, with
-        # its messages and in its order, ahead of the settings the port
-        # does not run (mesh_shape is one)
+        if self.collective_mode is not None and self.collective_mode not in (
+            "fused", "overlap",
+        ):
+            raise ValueError(
+                f"collective_mode must be 'fused' or 'overlap', got {self.collective_mode!r}"
+            )
+        # the JAX package's hybrid, ingest, out_of_core and mesh refusals,
+        # with its messages and in its order, ahead of the settings the
+        # port does not run
         if self.hot_columns and not self.sparse:
             raise ValueError("hot_columns requires sparse=True")
         self._validate_ingest()
@@ -159,11 +172,18 @@ class GLMDriverParams:
             raise ValueError("training_diagnostics requires diagnostics=True")
         if self.validate_per_iteration and not self.validate_input:
             raise ValueError("validate_per_iteration requires validate_input")
+        if self.mesh_shape is not None:
+            unknown = set(self.mesh_shape) - {"data", "feature"}
+            if unknown:
+                raise ValueError(f"mesh_shape axes must be 'data'/'feature': {unknown}")
+            if any(not isinstance(v, int) or v < 1 for v in self.mesh_shape.values()):
+                raise ValueError(f"mesh_shape sizes must be integers >= 1: {self.mesh_shape}")
         if self.diagnostics and not self.validate_input:
             raise ValueError(
                 "diagnostics requires validate_input (the model diagnostics "
                 "run against validation data, Driver.scala:424-474)"
             )
+        _validate_pod_resilience(self)
         self.to_training_config().validate()
 
     def _validate_ingest(self) -> None:
@@ -477,13 +497,7 @@ class GameDriverParams:
             raise ValueError(
                 f"convergence_tolerance must be >= 0, got {self.convergence_tolerance}"
             )
-        if self.heartbeat_s < 0:
-            raise ValueError(f"heartbeat_s must be >= 0 (0 = off), got {self.heartbeat_s}")
-        if self.collective_timeout_s is not None and self.collective_timeout_s <= 0:
-            raise ValueError(
-                "collective_timeout_s must be > 0 (or null = no watchdog), got "
-                f"{self.collective_timeout_s}"
-            )
+        _validate_pod_resilience(self)
         unported = _unported_game_setting(self)
         if unported is not None:
             raise not_ported(*unported)

@@ -31,6 +31,25 @@ design stays on the host in uniform chunks (pinned for the card) that every
 objective pass streams to the device (``train_glm_streamed``), with no
 sanity check, feature summary or fingerprint margins. Both feed the
 fingerprint per staged chunk.
+
+With ``mesh_shape`` the solve is sharded over a ``torch.distributed``
+world whose size is the product of the mesh (``{"data": P}`` rows over P
+ranks, ``"feature"`` > 1 also the coefficients;
+``photon_ml_tpu_torch.parallel``). Launch one process per card::
+
+    torchrun --nproc-per-node P -m photon_ml_tpu_torch.cli.train --config c.json
+
+The driver joins the world from the launcher's variables (or uses one the
+caller has joined), every rank ingests the input to its host and places
+only its shard on its card (``cuda:{LOCAL_RANK}`` unless ``device`` is
+given); the feature summary and the fingerprint's margins come from the
+shards. Rank 0 alone writes the outputs (and runs the diagnostics, on the
+whole batch); every rank returns the same models.
+``collective_timeout_s`` puts a watchdog on the host collectives,
+``heartbeat_s`` starts the heartbeat monitor, ``collective_mode`` picks
+the feature-sharded reduction schedule, and ``sharded_ckpt`` is checked
+and writes nothing (the GLM path has no checkpoint, as in the JAX
+driver). ``main`` exits with the host-loss code when a peer is lost.
 """
 
 from __future__ import annotations
@@ -45,8 +64,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
-from photon_ml_tpu_torch import obs
+from photon_ml_tpu_torch import obs, parallel
 from photon_ml_tpu_torch.cli.config import (
     GLMDriverParams,
     load_params,
@@ -75,6 +95,13 @@ from photon_ml_tpu_torch.obs import quality as quality_mod
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import matvec, stored_cold_entries, to_hybrid
 from photon_ml_tpu_torch.ops.stats import summarize_features
+from photon_ml_tpu_torch.parallel import distributed
+from photon_ml_tpu_torch.parallel import mesh as parallel_mesh
+from photon_ml_tpu_torch.parallel.mesh import shard_rows
+from photon_ml_tpu_torch.parallel import multihost
+from photon_ml_tpu_torch.parallel.heartbeat import HeartbeatMonitor, install_monitor
+from photon_ml_tpu_torch.parallel.overlap import COLLECTIVE_MODE_ENV
+from photon_ml_tpu_torch.resilience.hostloss import HOST_LOSS_EXIT_CODE, is_host_loss
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed
@@ -235,28 +262,82 @@ class GLMTrainingRun:
     codecs: Dict[str, str]
 
 
+def _join_mesh_world(params: GLMDriverParams, device) -> bool:
+    """With ``mesh_shape``: join the launcher's world unless one is joined
+    (NCCL for the card, gloo for ``device='cpu'``) and check that the mesh
+    is the whole world. True when this call joined it."""
+    if not params.mesh_shape:
+        return False
+    cpu = device is not None and torch.device(device).type == "cpu"
+    joined_now = not torch.distributed.is_initialized() and multihost.initialize_multihost(
+        backend="gloo" if cpu else None)
+    size = 1
+    for v in params.mesh_shape.values():
+        size *= v
+    n_world = parallel_mesh.world()[0]
+    if size != n_world:
+        if joined_now:
+            multihost.shutdown_multihost()
+        raise ValueError(
+            f"mesh_shape {params.mesh_shape} needs a world of {size} ranks; this "
+            f"world has {n_world} (launch one process per device, e.g. torchrun "
+            f"--nproc-per-node {size})"
+        )
+    return joined_now
+
+
 def run_glm_training(params, device=None) -> GLMTrainingRun:
     """Train the GLM path described by ``params`` (a GLMDriverParams, a
-    dict or a JSON path). ``device=None`` means CUDA, and raises when no
-    card is present."""
-    device = resolve_device(device)
+    dict or a JSON path). ``device=None`` means CUDA (under a mesh, this
+    rank's card), and raises when no card is present."""
     params = load_params(params, GLMDriverParams)
     params.validate()
-    prepare_output_dir(params.output_dir, params.overwrite)
+    joined_now = _join_mesh_world(params, device)
     try:
-        return _run_glm_training(params, device)
+        device = (parallel_mesh.rank_device(device) if params.mesh_shape and device is None
+                  else resolve_device(device))
+        writer = parallel_mesh.world()[1] == 0
+        if writer:
+            prepare_output_dir(params.output_dir, params.overwrite)
+        # the resilience envelope: a watchdog deadline on every host
+        # collective and the heartbeat monitor that names a straggler
+        prev_resilience = multihost.configure_collective_resilience(
+            timeout_s=params.collective_timeout_s)
+        prev_mode = os.environ.get(COLLECTIVE_MODE_ENV)
+        if params.collective_mode is not None:
+            os.environ[COLLECTIVE_MODE_ENV] = params.collective_mode
+        monitor = None
+        if params.heartbeat_s > 0:
+            monitor = HeartbeatMonitor(interval_s=params.heartbeat_s).start()
+            install_monitor(monitor)
+        try:
+            return _run_glm_training(params, device, writer)
+        finally:
+            if params.quality_fingerprint:
+                # normally uninstalled right after the training ingest; this
+                # covers an ingest that raised, so no collector leaks into the
+                # next run in this process
+                quality_mod.uninstall_fingerprint_collector()
+            multihost.configure_collective_resilience(
+                prev_resilience.timeout_s, prev_resilience.retries)
+            if prev_mode is None:
+                os.environ.pop(COLLECTIVE_MODE_ENV, None)
+            else:
+                os.environ[COLLECTIVE_MODE_ENV] = prev_mode
+            if monitor is not None:
+                install_monitor(None)
+                monitor.stop()
     finally:
-        if params.quality_fingerprint:
-            # normally uninstalled right after the training ingest; this
-            # covers an ingest that raised, so no collector leaks into the
-            # next run in this process
-            quality_mod.uninstall_fingerprint_collector()
+        if joined_now:
+            multihost.shutdown_multihost()
 
 
-def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrainingRun:
+def _run_glm_training(params: GLMDriverParams, device: torch.device,
+                      writer: bool = True) -> GLMTrainingRun:
     tracker = StageTracker()
     logger = PhotonLogger(
-        os.path.join(params.output_dir, "log-message.txt"), level=params.log_level
+        os.path.join(params.output_dir, "log-message.txt") if writer else os.devnull,
+        level=params.log_level,
     )
     logger.info(f"GLM training driver on {device}: task={params.task} "
                 f"optimizer={params.optimizer} reg={params.reg_type} "
@@ -283,8 +364,11 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         fingerprint = None
         if params.quality_fingerprint:
             fingerprint = quality_mod.install_fingerprint_collector()
-        batch = design = summary = None
+        batch = design = summary = placed = None
         stats = PipelineStats()
+        # under a mesh the input stays on the host: each rank places its
+        # shard alone on its card (``_mesh_place``)
+        ingest_device = torch.device("cpu") if params.mesh_shape else device
         if params.out_of_core:
             # decode and stage once into host-resident uniform chunks
             # (pinned for the card); every objective pass streams them
@@ -315,11 +399,11 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
                 vocab, dtype=dtype, chunk_mb=params.ingest_chunk_mb,
                 decode_threads=params.decode_threads, prefetch_depth=params.prefetch_depth,
                 stage_timeout_s=params.stage_timeout_s, epoch_policy=params.epoch_policy,
-                device=device, stats=stats,
+                device=ingest_device, stats=stats,
             )
         else:
             batch, _uids, _present = source.labeled_batch(
-                vocab, sparse=params.sparse, dtype=dtype, device=device
+                vocab, sparse=params.sparse, dtype=dtype, device=ingest_device
             )
         synchronize(device)
         timings["ingest"] = time.perf_counter() - t0
@@ -339,14 +423,21 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
             sanity_check_data(batch, task, DataValidationType[params.data_validation])
             timings["validate_data"] = time.perf_counter() - t0
 
+            if params.mesh_shape:
+                t0 = time.perf_counter()
+                placed = _mesh_place(params, batch, device)
+                synchronize(device)
+                timings["place"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            summary = summarize_features(batch)
+            summary = (summarize_features(batch) if placed is None
+                       else distributed.placed_summary(placed))
             synchronize(device)
             timings["summary"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            write_feature_summary(
-                os.path.join(params.output_dir, "feature-summary.tsv"), summary, vocab
-            )
+            if writer:
+                write_feature_summary(
+                    os.path.join(params.output_dir, "feature-summary.tsv"), summary, vocab
+                )
             timings["summary_write"] = time.perf_counter() - t0
         if fingerprint is not None:
             quality_mod.uninstall_fingerprint_collector()
@@ -388,6 +479,10 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
                             "oocore_overlap_frac": snap["overlap_frac"]})
             if wm is not None and wm.supported:
                 timings["oocore_peak_bytes"] = float(wm.peak_bytes - wm.before_bytes)
+        elif placed is not None:
+            logger.info(f"mesh solve over {params.mesh_shape}")
+            models = list(distributed.train_placed(placed, cfg, initial_coefficients=initial))
+            synchronize(device)
         else:
             models = list(train_glm(batch, cfg, initial_coefficients=initial))
             synchronize(device)
@@ -429,13 +524,25 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
                 f"best lambda={best.reg_weight} (model #{best_index}, "
                 f"metrics={validation_metrics[best_index]})"
             )
-            if params.validate_per_iteration:
+            if params.validate_per_iteration and writer:
                 _write_per_iteration_metrics(params, task, models, vbatch, logger)
             timings["validate"] = time.perf_counter() - t0
         tracker.advance(DriverStage.VALIDATED)
 
+    # the margin sketch's scores: the shipped model's margins on its own
+    # training rows (under a mesh from the shards, on every rank), after
+    # which the shards are dropped. In-core only: the out-of-core design
+    # holds no batch to score
+    fp_margins = None
+    if fingerprint is not None and fingerprint.rows > 0 and models and batch is not None:
+        chosen = best if best is not None else models[0]
+        fp_margins = (chosen.model.compute_margin(batch.features, batch.offsets)
+                      if placed is None
+                      else distributed.placed_margins(placed, chosen.model.coefficients.means))
+    placed = None
+
     # ---- DIAGNOSE (``Driver.scala:424-474``) -----------------------------
-    if params.diagnostics:
+    if params.diagnostics and writer:
         tracker.assert_at_least(DriverStage.VALIDATED)
         with timed(logger, "diagnose"):
             t0 = time.perf_counter()
@@ -443,7 +550,9 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
                 params_dict=dataclasses.asdict(params),
                 models=models,
                 validation_metrics=validation_metrics,
-                train_batch=batch,
+                # under a mesh the whole batch on rank 0's card, as the
+                # JAX driver's diagnostics take the unsharded batch
+                train_batch=batch if not params.mesh_shape else shard_rows(batch, 1, 0, device),
                 validation_batch=vbatch,
                 vocab=vocab,
                 summary=summary,
@@ -457,52 +566,21 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
             logger.info(f"wrote diagnostic report to {report_path}")
         tracker.advance(DriverStage.DIAGNOSED)
 
-    # ---- OUTPUT ----------------------------------------------------------
+    # ---- OUTPUT (rank 0 of a mesh's world alone) --------------------------
     with timed(logger, "write models"):
         t0 = time.perf_counter()
-        if fingerprint is not None and fingerprint.rows > 0:
+        if writer and fingerprint is not None and fingerprint.rows > 0:
             # margin sketch: the shipped model's score distribution on its
             # own training rows, what the serving drift monitor compares
-            # live scores against; one margin pass, copied to the host once.
-            # In-core only: the out-of-core design holds no batch to score
-            if models and batch is not None:
-                chosen = best if best is not None else models[0]
-                margins = chosen.model.compute_margin(batch.features, batch.offsets)
+            # live scores against; copied to the host once
+            if fp_margins is not None:
                 fingerprint.observe_margins(
-                    margins.cpu().numpy(), batch.effective_weights().cpu().numpy()
+                    fp_margins.cpu().numpy(), batch.effective_weights().cpu().numpy()
                 )
             fp_path = fingerprint.save(params.output_dir)
             logger.info(f"wrote quality fingerprint to {fp_path}")
-        vocab.save(os.path.join(params.output_dir, "feature-index.txt"))
-        if params.model_output_mode != "NONE":
-            to_write = (
-                [best]
-                if params.model_output_mode == "BEST" and best is not None
-                else models
-            )
-            mdir = os.path.join(params.output_dir, "models")
-            os.makedirs(mdir, exist_ok=True)
-            for i, tm in enumerate(to_write):
-                stem = os.path.join(mdir, f"{i}_lambda_{tm.reg_weight:g}")
-                save_glm_model(stem + ".avro", tm.model.coefficients, vocab, task)
-                write_model_text(stem + ".txt", tm.model.coefficients.means, vocab)
-            if best is not None:
-                save_glm_model(
-                    os.path.join(params.output_dir, "best-model.avro"),
-                    best.model.coefficients, vocab, task,
-                )
-        if validation_metrics:
-            with open(
-                os.path.join(params.output_dir, "validation-metrics.json"), "w"
-            ) as f:
-                json.dump(
-                    {
-                        f"{i}_lambda_{tm.reg_weight:g}": m
-                        for i, (tm, m) in enumerate(zip(models, validation_metrics))
-                    },
-                    f,
-                    indent=2,
-                )
+        if writer:
+            _write_outputs(params, task, models, best, validation_metrics, vocab)
         timings["write"] = time.perf_counter() - t0
     logger.close()
 
@@ -521,6 +599,51 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device) -> GLMTrain
         timings=timings,
         codecs=codecs,
     )
+
+
+def _write_outputs(params, task, models, best, validation_metrics, vocab) -> None:
+    """The vocabulary, the models (their Avro and text files) and the
+    validation metrics."""
+    vocab.save(os.path.join(params.output_dir, "feature-index.txt"))
+    if params.model_output_mode != "NONE":
+        to_write = (
+            [best]
+            if params.model_output_mode == "BEST" and best is not None
+            else models
+        )
+        mdir = os.path.join(params.output_dir, "models")
+        os.makedirs(mdir, exist_ok=True)
+        for i, tm in enumerate(to_write):
+            stem = os.path.join(mdir, f"{i}_lambda_{tm.reg_weight:g}")
+            save_glm_model(stem + ".avro", tm.model.coefficients, vocab, task)
+            write_model_text(stem + ".txt", tm.model.coefficients.means, vocab)
+        if best is not None:
+            save_glm_model(
+                os.path.join(params.output_dir, "best-model.avro"),
+                best.model.coefficients, vocab, task,
+            )
+    if validation_metrics:
+        with open(os.path.join(params.output_dir, "validation-metrics.json"), "w") as f:
+            json.dump(
+                {
+                    f"{i}_lambda_{tm.reg_weight:g}": m
+                    for i, (tm, m) in enumerate(zip(models, validation_metrics))
+                },
+                f,
+                indent=2,
+            )
+
+
+def _mesh_place(params, batch, device) -> "distributed.Placement":
+    """The mesh branch's placement (``photon_ml_tpu/cli/train.py:426-457``):
+    this rank's rows of the host batch on its card ('data'), and with
+    'feature' > 1 its rows of its column block."""
+    n_data = params.mesh_shape.get("data", 1)
+    n_feat = params.mesh_shape.get("feature", 1)
+    if n_feat > 1:
+        return distributed.place_feature_shard(
+            batch, parallel.make_feature_mesh(n_data, n_feat), device)
+    return distributed.place_rows(batch, parallel.make_mesh(n_data), device)
 
 
 def _write_per_iteration_metrics(params, task, models, vbatch, logger) -> None:
@@ -611,7 +734,33 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "label/margin sketches written to quality-fingerprint.json; "
         "the drift-detection baseline)",
     )
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument(
+        "--heartbeat-s", type=float, default=None,
+        help="heartbeat interval in seconds (0 = off): feeds the "
+        "pod.heartbeat.* liveness gauges and the collective watchdog's "
+        "straggler attribution",
+    )
+    p.add_argument(
+        "--collective-timeout-s", type=float, default=None,
+        help="watchdog deadline on host collectives: a stalled exchange "
+        "times out, retries with backoff, and names the straggler instead "
+        "of wedging the world (default: no watchdog)",
+    )
+    p.add_argument(
+        "--sharded-ckpt", action="store_true", default=None,
+        help="per-process sharded checkpoint writes for any durability point "
+        "this driver reaches (the GLM path has none: checked, writes nothing)",
+    )
+    p.add_argument(
+        "--collective-mode", dest="collective_mode", choices=("fused", "overlap"),
+        default=None,
+        help="reduction schedule of feature-sharded mesh solves: 'overlap' "
+        "(default) row-balances blocked sparse designs and reduces the margins "
+        "in row chunks whose all-reduces fly while the next chunk computes; "
+        "'fused' is one all-reduce a pass",
+    )
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; under a mesh cuda:LOCAL_RANK)")
     return p
 
 
@@ -624,7 +773,18 @@ def main(argv=None) -> None:
     for key, value in vars(args).items():
         if key not in ("config", "device") and value is not None:
             base[key] = value
-    run_glm_training(base, device=args.device)
+    try:
+        run_glm_training(base, device=args.device)
+    except BaseException as e:
+        import sys
+
+        # a lost peer (a collective past its watchdog budget, a lost
+        # heartbeat, a failed torch.distributed collective) means "restart
+        # me", not "my code failed"
+        if is_host_loss(e):
+            print(f"host loss: {e} — exiting {HOST_LOSS_EXIT_CODE}", file=sys.stderr)
+            sys.exit(HOST_LOSS_EXIT_CODE)
+        raise
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from photon_ml_tpu_torch.core.types import Coefficients
+from photon_ml_tpu_torch.parallel.mesh import feature_sum
 
 
 class NormalizationType(enum.Enum):
@@ -54,7 +55,7 @@ class NormalizationContext:
         (``ValueAndGradientAggregator.scala:106-118``)."""
         if self.shifts is None:
             return torch.zeros((), dtype=w.dtype, device=w.device)
-        return -torch.dot(self.shifts, self.effective_coefficients(w))
+        return -feature_sum(torch.dot(self.shifts, self.effective_coefficients(w)), "shift")
 
     def transform_model_coefficients(
         self, coef: Coefficients, intercept_index: Optional[int]
@@ -111,10 +112,14 @@ def build_normalization_context(
     norm_type: NormalizationType,
     summary,
     intercept_index: Optional[int],
+    intercept_elsewhere: bool = False,
 ) -> NormalizationContext:
     """``NormalizationContext.apply`` (``NormalizationContext.scala:96-151``):
     (factors, shifts) from a feature summary exposing ``mean``,
-    ``variance`` and ``max_abs`` as (d,) tensors (``ops.stats``)."""
+    ``variance`` and ``max_abs`` as (d,) tensors (``ops.stats``).
+    ``intercept_elsewhere``: the summary is one rank's block of a
+    feature-sharded solve and the intercept lives in another rank's
+    block."""
     if norm_type == NormalizationType.NONE:
         return no_normalization()
 
@@ -138,7 +143,7 @@ def build_normalization_context(
         factors[intercept_index] = 1.0
         if shifts is not None:
             shifts[intercept_index] = 0.0
-    elif shifts is not None:
+    elif shifts is not None and not intercept_elsewhere:
         raise ValueError(
             "standardization requires an intercept term "
             "(reference Params.scala:166-169)"

@@ -36,6 +36,39 @@ class LabeledBatch:
         """Weights with padding zeroed — the only weights kernels should use."""
         return self.weights * self.mask
 
+    @property
+    def batch_size(self) -> int:
+        return self.labels.shape[0]
+
+    @staticmethod
+    def pad_to(batch: "LabeledBatch", n: int) -> "LabeledBatch":
+        """Pad a batch to ``n`` rows with masked (invisible) rows: zeros in
+        every column, all-padding rows in a structured design."""
+        from photon_ml_tpu_torch.ops import sparse as sparse_ops
+
+        cur = batch.batch_size
+        if cur == n:
+            return batch
+        if cur > n:
+            raise ValueError(f"cannot pad batch of {cur} rows down to {n}")
+        pad = n - cur
+
+        def pad_rows(x):
+            return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+        features = (
+            sparse_ops.pad_rows(batch.features, pad)
+            if sparse_ops.is_structured(batch.features)
+            else pad_rows(batch.features)
+        )
+        return LabeledBatch(
+            features=features,
+            labels=pad_rows(batch.labels),
+            offsets=pad_rows(batch.offsets),
+            weights=pad_rows(batch.weights),
+            mask=pad_rows(batch.mask),
+        )
+
     @staticmethod
     def create(
         features,

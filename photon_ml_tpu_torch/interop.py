@@ -11,7 +11,11 @@ parameters both ways, a table or ``FactoredParams`` per coordinate;
 ``RandomProjection``'s matrix and an ``IndexMapProjection``'s columns, and
 ``checkpoint_from_numpy`` a ``TrainingCheckpoint``'s fields;
 ``hybrid_from_numpy`` / ``hybrid_to_numpy`` carry a ``HybridFeatures``
-(slab, hot ids, cold segments, row permutation) both ways. The other
+(slab, hot ids, cold segments, row permutation) both ways;
+``feature_sharded_from_numpy`` takes a ``FeatureShardedSparse``'s (V, F,
+k) arrays with its ``row_map`` and ``aligned_rows``, and
+``blocked_from_numpy`` / ``unblocked_to_numpy`` carry coefficient-space
+vectors into and out of the blocked layout of ``shard_columns``. The other
 bridge is the Avro model files and the checkpoint directories, which
 both packages read and write (``io.models``). ``lab_tiles_from_numpy``
 takes the column-sorted tiles of ``benchmarks/sparse_kernel_lab.py``,
@@ -31,7 +35,13 @@ from photon_ml_tpu_torch.game.projectors import IndexMapProjection, RandomProjec
 from photon_ml_tpu_torch.game.scoring import CompactReTable
 from photon_ml_tpu_torch.io.checkpoint import TrainingCheckpoint
 from photon_ml_tpu_torch.kernels.lab import LAB_BLOCK, LAB_TILE, ColumnTiles, tile_chains
-from photon_ml_tpu_torch.ops.sparse import HybridFeatures, SparseFeatures
+from photon_ml_tpu_torch.ops.sparse import (
+    FeatureShardedSparse,
+    HybridFeatures,
+    SparseFeatures,
+    _tail_routes,
+    blocked_column_map,
+)
 from photon_ml_tpu_torch.solvers.common import SolverConfig
 from photon_ml_tpu_torch.utils.device import to_numpy
 
@@ -87,6 +97,43 @@ def hybrid_to_numpy(hf: HybridFeatures) -> dict:
                           for s in hf.cold_segments],
         "row_perm": to_numpy(hf.row_perm),
     }
+
+
+def feature_sharded_from_numpy(indices, values, d_shard: int, d_orig: int, row_map=None,
+                               num_rows=None, aligned_rows: int = 0,
+                               device="cpu") -> FeatureShardedSparse:
+    """A JAX ``FeatureShardedSparse`` from its fields: the (V, F, k) ids and
+    values, and for the balanced layout the (V, F) ``row_map`` with
+    ``num_rows`` and ``aligned_rows``; each block becomes an ELL of its own
+    and the tail routes are rebuilt from the row map."""
+    ind = np.asarray(indices, np.int32)
+    blocks = tuple(sparse_from_numpy(ind[:, f], np.asarray(values)[:, f], d_shard, device)
+                   for f in range(ind.shape[1]))
+    routes, rm = (), None
+    if row_map is not None:
+        rm_np = np.asarray(row_map, np.int32)
+        rm = tensor_from_numpy(rm_np, device)
+        routes = tuple((r.to(device), t.to(device), src.to(device), h)
+                       for r, t, src, h in _tail_routes(rm_np, int(num_rows), int(aligned_rows)))
+    return FeatureShardedSparse(blocks=blocks, d_shard=int(d_shard), d_orig=int(d_orig),
+                                row_map=rm, num_rows=None if num_rows is None else int(num_rows),
+                                aligned_rows=int(aligned_rows), routes=routes)
+
+
+def blocked_from_numpy(v, num_blocks: int, fill: float = 0.0, device="cpu") -> torch.Tensor:
+    """An original-order (d,) coefficient-space vector in the blocked layout
+    of ``shard_columns(..., num_blocks)`` (positions no column maps to hold
+    ``fill``)."""
+    v = np.asarray(v)
+    d = v.shape[0]
+    out = np.full((num_blocks * -(-d // num_blocks),), fill, dtype=v.dtype)
+    out[blocked_column_map(d, num_blocks)] = v
+    return tensor_from_numpy(out, device)
+
+
+def unblocked_to_numpy(v, d: int, num_blocks: int) -> np.ndarray:
+    """A blocked coefficient-space vector back in the original column order."""
+    return to_numpy(v)[blocked_column_map(d, num_blocks)]
 
 
 def labeled_batch_from_numpy(

@@ -19,6 +19,14 @@ The path is a Python loop over one per-lambda solve: the JAX package's
 The port takes either value and runs the loop. ``train_glm_streamed`` is
 the same path out of core, over a host-resident chunked design
 (``io.pipeline.StreamedDesign``).
+
+Under an active mesh (``parallel.mesh.set_mesh``) ``train_glm`` takes this
+rank's shard: the objective sums its data partials over 'data', and when
+the mesh splits the coefficient axis the batch is this rank's column block
+and so is every solver vector; each solution is then gathered over
+'feature' (the blocked coefficient space, identical on every rank) before
+it is mapped back to raw feature space. ``parallel.distributed`` places
+the shards.
 """
 
 from __future__ import annotations
@@ -41,8 +49,16 @@ from photon_ml_tpu_torch.core.types import Coefficients, LabeledBatch
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops.losses import loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContext
-from photon_ml_tpu_torch.ops.sparse import is_sparse
+from photon_ml_tpu_torch.ops.sparse import values_dtype
 from photon_ml_tpu_torch.ops.stats import summarize_features
+from photon_ml_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    FEATURE_AXIS,
+    active_mesh,
+    all_gather,
+    feature_sharded,
+    whole_vectors,
+)
 from photon_ml_tpu_torch.solvers import (
     SolverConfig,
     SolverResult,
@@ -197,7 +213,8 @@ def _solver_step_fn(config: GLMTrainingConfig):
 
     def solve(w0, reg_weight, batch: LabeledBatch, norm: NormalizationContext):
         obj = GLMObjective(
-            loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0)
+            loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0),
+            axis_name=_data_axis(),
         )
         cfg = scfg
         if cfg.lower_bounds is not None or cfg.upper_bounds is not None:
@@ -238,29 +255,59 @@ def _variances_fn(config: GLMTrainingConfig):
 
     def variances(w, reg_weight, batch: LabeledBatch, norm: NormalizationContext):
         obj = GLMObjective(
-            loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0)
+            loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0),
+            axis_name=_data_axis(),
         )
         return 1.0 / torch.clamp(obj.hessian_diagonal(w, batch), min=_VARIANCE_EPSILON)
 
     return variances
 
 
+def _data_axis():
+    """The axis the objective reduces its data partials over: 'data' under
+    an active mesh that has it, else none."""
+    mesh = active_mesh()
+    return DATA_AXIS if mesh is not None and DATA_AXIS in mesh.axis_names else None
+
+
+def _block_range(batch: LabeledBatch) -> Tuple[int, int]:
+    """[lo, hi) of this rank's columns in the blocked coefficient space."""
+    d_local = batch.features.shape[-1]
+    lo = active_mesh().index(FEATURE_AXIS) * d_local
+    return lo, lo + d_local
+
+
+def _gathered(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Every rank's block of a coefficient-space vector (or of each row of
+    an (iterations, d) tape) over 'feature', in block order."""
+    if v is None:
+        return None
+    g = all_gather(v, FEATURE_AXIS, "gather")
+    if v.dim() == 1:
+        return g.reshape(-1)
+    return g.permute(1, 0, 2).reshape(v.shape[0], -1)
+
+
 def solve_dtype(batch: LabeledBatch) -> torch.dtype:
     """Solver-state dtype: at least float32 (a bf16-stored design still
     accumulates and steps in float32)."""
-    x = batch.features
-    stored = x.values.dtype if is_sparse(x) else x.dtype
-    return torch.promote_types(stored, torch.float32)
+    return torch.promote_types(values_dtype(batch.features), torch.float32)
 
 
 def prepare_normalization(
     config: GLMTrainingConfig, batch: LabeledBatch
 ) -> NormalizationContext:
-    """Feature summary pass -> whitening context (``Driver.scala:229-253``)."""
+    """Feature summary pass -> whitening context (``Driver.scala:229-253``).
+    On a feature-sharded solve: this rank's block of it, the intercept
+    (a position in the blocked space) in whichever block holds it."""
     if config.normalization == NormalizationType.NONE:
         return no_normalization()
+    icpt, elsewhere = config.intercept_index, False
+    if feature_sharded() and icpt is not None:
+        lo, hi = _block_range(batch)
+        icpt, elsewhere = (icpt - lo, False) if lo <= icpt < hi else (None, True)
     return build_normalization_context(
-        config.normalization, summarize_features(batch), config.intercept_index
+        config.normalization, summarize_features(batch), icpt, intercept_elsewhere=elsewhere
     )
 
 
@@ -282,10 +329,21 @@ def train_glm(
     dtype = solve_dtype(batch)
     device = batch.labels.device
     d = batch.features.shape[-1]
+    sharded = feature_sharded()
+    # the raw-space map back runs on whole vectors: on a feature-sharded
+    # solve, the blocks gathered over 'feature'
+    out_norm = norm
+    if sharded:
+        out_norm = NormalizationContext(factors=_gathered(norm.factors),
+                                        shifts=_gathered(norm.shifts))
     if initial_coefficients is not None:
-        w = norm.inverse_transform_model_coefficients(
-            initial_coefficients, config.intercept_index
-        ).means.to(device=device, dtype=dtype)
+        with whole_vectors():
+            w = out_norm.inverse_transform_model_coefficients(
+                initial_coefficients, config.intercept_index
+            ).means.to(device=device, dtype=dtype)
+        if sharded:
+            lo, hi = _block_range(batch)
+            w = w[lo:hi].contiguous()
     else:
         w = torch.zeros((d,), dtype=dtype, device=device)
 
@@ -297,19 +355,25 @@ def train_glm(
         result = solve(w, lam, batch, norm)
         seconds = time.perf_counter() - t0
         w = result.w  # warm start for the next (smaller) lambda
-        if config.track_models and result.w_history is not None:
-            # snapshots leave the solver in normalized space
-            hist = torch.stack([
-                norm.transform_model_coefficients(
-                    Coefficients(means=row), config.intercept_index
-                ).means
-                for row in result.w_history
-            ])
-            result = dataclasses.replace(result, w_history=hist)
         var = None if variances is None else variances(result.w, lam, batch, norm)
-        coef = norm.transform_model_coefficients(
-            Coefficients(means=result.w, variances=var), config.intercept_index
-        )
+        if sharded:
+            result = dataclasses.replace(result, w=_gathered(result.w),
+                                         grad=_gathered(result.grad),
+                                         w_history=_gathered(result.w_history))
+            var = _gathered(var)
+        with whole_vectors():
+            if config.track_models and result.w_history is not None:
+                # snapshots leave the solver in normalized space
+                hist = torch.stack([
+                    out_norm.transform_model_coefficients(
+                        Coefficients(means=row), config.intercept_index
+                    ).means
+                    for row in result.w_history
+                ])
+                result = dataclasses.replace(result, w_history=hist)
+            coef = out_norm.transform_model_coefficients(
+                Coefficients(means=result.w, variances=var), config.intercept_index
+            )
         model = GeneralizedLinearModel(coefficients=coef, task=config.task)
         by_lambda[lam] = TrainedModel(
             reg_weight=lam, model=model, result=result, seconds=seconds

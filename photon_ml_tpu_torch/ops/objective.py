@@ -22,13 +22,27 @@ kernels on the card, their plain versions on the CPU; dense designs take
 plain tensor products. A hybrid design takes the unfused passes, as in the
 JAX package: ``matvec`` / ``rmatvec`` / ``colsum`` per cold segment (the
 ``ell_matvec`` kernel and the column-sorted reduce on the card) plus a
-plain product on its dense slab. This is a single-device slice: the JAX package's
-``axis_name`` psum and feature-sharded branches are not ported.
+plain product on its dense slab.
+
+Distribution (the JAX package's ``axis_name`` / ``_maybe_psum`` /
+``with_axis``): every method computes this rank's pure data partials, and
+with ``axis_name`` set they are summed over that axis of the active mesh
+(:func:`photon_ml_tpu_torch.parallel.mesh.set_mesh`) by one explicit
+all-reduce per pass — the value and the gradient together, the
+Hessian-vector product, the diagonal — with L2 added once, to the reduced
+value. Under a mesh that splits the coefficient axis, ``w`` and every
+(d,) vector are this rank's block: the margins are a block sum over the
+'feature' group, with the coefficient-space dots (the L2 term, the
+normalization's margin shift) riding the same all-reduce when
+``fuse_feature_reductions`` (``ops.sparse.matvec_and_feature_dots``); the
+ELL blocks run ``ell_matvec`` and the column-sorted reduce, and the fused
+passes run on a row-sharded ELL design.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -48,9 +62,12 @@ from photon_ml_tpu_torch.ops.sparse import (
     colsum,
     is_sparse,
     is_structured,
+    margins_sum_blocks,
     matvec,
+    matvec_and_feature_dots,
     rmatvec,
 )
+from photon_ml_tpu_torch.parallel.mesh import all_reduce, feature_sharded, feature_sum
 
 _REG_TYPES = ("NONE", "L1", "L2", "ELASTIC_NET")
 
@@ -99,10 +116,31 @@ class GLMObjective:
     )
     l2_weight: float = 0.0
     l1_weight: float = 0.0  # for OWL-QN, NOT added to value/grad here
+    # the active mesh's axis the data partials sum over (None: local sums)
+    axis_name: Optional[str] = None
+    # under a mesh that splits the coefficient axis: the L2 value dot and
+    # the margin shift ride the margins' all-reduce (one collective a pass)
+    fuse_feature_reductions: bool = True
 
     @property
     def _has_l2(self) -> bool:
         return self.l2_weight != 0.0
+
+    def _psum(self, *ts: torch.Tensor, label: str):
+        """The tensors summed over ``axis_name`` by ONE all-reduce of their
+        concatenation (themselves without an axis)."""
+        if self.axis_name is None:
+            return ts if len(ts) > 1 else ts[0]
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        flat = all_reduce(flat, self.axis_name, label)
+        out, i = [], 0
+        for t in ts:
+            out.append(flat[i:i + t.numel()].reshape(t.shape))
+            i += t.numel()
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def _fused_dots(self, batch: LabeledBatch) -> bool:
+        return self.fuse_feature_reductions and margins_sum_blocks(batch.features)
 
     # -- margins ---------------------------------------------------------
 
@@ -110,9 +148,15 @@ class GLMObjective:
         return self._dmargin_dot(w, batch) + batch.offsets
 
     def _dmargin_dot(self, v: torch.Tensor, batch: LabeledBatch) -> torch.Tensor:
-        """(d margin / d w) @ v for each row: the normalized-feature dot."""
+        """(d margin / d w) @ v for each row: the normalized-feature dot. On
+        a feature-sharded solve with whitening shifts the margin shift
+        rides the margins' all-reduce."""
         norm = self.normalization
-        return matvec(batch.features, norm.effective_coefficients(v)) + norm.margin_shift(v)
+        eff = norm.effective_coefficients(v)
+        if self._fused_dots(batch) and norm.shifts is not None:
+            z0, (ms,) = matvec_and_feature_dots(batch.features, eff, ((norm.shifts, eff),))
+            return z0 - ms
+        return matvec(batch.features, eff) + norm.margin_shift(v)
 
     def _backproject(self, a: torch.Tensor, batch: LabeledBatch) -> torch.Tensor:
         """X'^T @ a, X' the (virtually) normalized design matrix."""
@@ -149,20 +193,42 @@ class GLMObjective:
         :meth:`hessian_vector_at` takes: TRON's acceptance evaluation
         already computes z at the trial point, so the next CG loop starts
         with c for free. ELL designs: one ``fused_value_grad_curvature``
-        pass; hybrid designs: a margins pass and a back-projection."""
+        pass; other designs: a margins pass and a back-projection. The
+        value and gradient partials reduce in one all-reduce over
+        ``axis_name``."""
         if is_sparse(batch.features):
             return self._value_grad_curvature_fused(w, batch)
-        z = self.margins(w, batch)
+        norm = self.normalization
+        wdot = None
+        if self._fused_dots(batch) and (self._has_l2 or norm.shifts is not None):
+            eff = norm.effective_coefficients(w)
+            pairs = []
+            if norm.shifts is not None:
+                pairs.append((norm.shifts, eff))
+            if self._has_l2:
+                pairs.append((w, w))
+            z0, dots = matvec_and_feature_dots(batch.features, eff, pairs)
+            if norm.shifts is not None:
+                z0 = z0 - dots[0]
+                dots = dots[1:]
+            z = z0 + batch.offsets
+            if self._has_l2:
+                wdot = dots[0]
+        else:
+            z = self.margins(w, batch)
         ew = batch.effective_weights()
         val = torch.sum(ew * self.loss.value(z, batch.labels))
         a = ew * self.loss.d1(z, batch.labels)
         grad = self._backproject(a, batch)
         c = ew * self.loss.d2(z, batch.labels)
-        return self._with_l2(val, grad, w) + (c,)
+        val, grad = self._psum(val, grad, label="value_grad")
+        return self._with_l2(val, grad, w, wdot) + (c,)
 
-    def _with_l2(self, val, grad, w):
+    def _with_l2(self, val, grad, w, wdot=None):
         if self._has_l2:
-            val = val + 0.5 * self.l2_weight * torch.dot(w, w)
+            if wdot is None:
+                wdot = feature_sum(torch.dot(w, w))
+            val = val + 0.5 * self.l2_weight * wdot
             grad = grad + self.l2_weight * w
         return val, grad
 
@@ -176,6 +242,7 @@ class GLMObjective:
             norm.effective_coefficients(w), x.d, self.loss,
         )
         grad = self._correct_backprojection(g, asum)
+        val, grad = self._psum(val, grad, label="value_grad")
         return self._with_l2(val, grad, w) + (c,)
 
     # -- second-order ----------------------------------------------------
@@ -208,6 +275,7 @@ class GLMObjective:
             hv = self._correct_backprojection(hv0, usum)
         else:
             hv = self._backproject(c * self._dmargin_dot(v, batch), batch)
+        hv = self._psum(hv, label="hvp")
         if self._has_l2:
             hv = hv + self.l2_weight * v
         return hv
@@ -237,6 +305,7 @@ class GLMObjective:
             diag = d_x2 - 2.0 * s * d_x + s * s * csum
         if norm.factors is not None:
             diag = diag * norm.factors**2
+        diag = self._psum(diag, label="hdiag")
         if self._has_l2:
             diag = diag + self.l2_weight
         return diag
@@ -254,12 +323,18 @@ class GLMObjective:
             )
         if is_structured(batch.features):
             raise ValueError("hessian_full requires dense features")
+        if feature_sharded():
+            raise ValueError(
+                "hessian_full needs the whole coefficient axis on each rank; "
+                "a feature-sharded solve runs TRON, LBFGS or OWL-QN"
+            )
         x = as_dense(batch.features)
         c = self.hessian_coefficients(w, batch)
         x = x.to(c.dtype)
         h = x.T @ (c[:, None] * x)
         if norm.factors is not None:
             h = h * torch.outer(norm.factors, norm.factors)
+        h = self._psum(h, label="hessian_full")
         if self._has_l2:
             h = h + self.l2_weight * torch.eye(w.shape[-1], dtype=h.dtype, device=h.device)
         return h
@@ -268,6 +343,9 @@ class GLMObjective:
 
     def with_l2(self, l2_weight: float) -> "GLMObjective":
         return dataclasses.replace(self, l2_weight=l2_weight)
+
+    def with_axis(self, axis_name: Optional[str]) -> "GLMObjective":
+        return dataclasses.replace(self, axis_name=axis_name)
 
     def with_regularization(
         self, reg: RegularizationContext, reg_weight: float

@@ -10,7 +10,13 @@ and
 ``scatter_reduce_`` ("amin" / "amax") for the extremes — the JAX package
 does those in XLA, outside Pallas. A hybrid design's columns split
 disjointly, so its statistics are the cold segments' (joined into one
-ELL) with the hot columns overwritten by the dense slab's.
+ELL) with the hot columns overwritten by the dense slab's. A blocked
+container's statistics are its held blocks' columns, in blocked order.
+
+Under a mesh with a 'data' axis each rank sums its own rows and the sums,
+counts and extremes are reduced over the 'data' group (one all-reduce of
+the sums, one each for the minima and maxima) before the moments are
+formed.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from photon_ml_tpu_torch.core.types import LabeledBatch
 from photon_ml_tpu_torch.ops import sparse as sparse_ops
+from photon_ml_tpu_torch.parallel.mesh import data_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +72,18 @@ def _finish(n, s1, s2, sabs, nnz, mn, mx) -> BasicStatisticalSummary:
     )
 
 
+def _reduced(n, s1, s2, sabs, nnz, stored, mn, mx):
+    """The row sums, counts and extremes over the active mesh's 'data'
+    group (unchanged without one)."""
+    sums = torch.cat([n.reshape(1), s1, s2, sabs, nnz, stored])
+    sums = data_sum(sums, "summary")
+    mn = data_sum(mn, "summary", op="min")
+    mx = data_sum(mx, "summary", op="max")
+    d = s1.shape[0]
+    parts = torch.split(sums[1:], [d, d, d, d, stored.shape[0]])
+    return (sums[0],) + tuple(parts) + (mn, mx)
+
+
 def summarize_features(batch: LabeledBatch) -> BasicStatisticalSummary:
     """Single-pass masked column statistics (unweighted rows, like
     colStats). Sparse batches count each column's implicit zeros in every
@@ -72,7 +91,7 @@ def summarize_features(batch: LabeledBatch) -> BasicStatisticalSummary:
     x = batch.features
     if sparse_ops.is_hybrid(x):
         return _summarize_hybrid(batch)
-    if sparse_ops.is_sparse(x):
+    if sparse_ops.is_sparse(x) or sparse_ops.is_feature_sharded(x):
         return _summarize_sparse(batch)
     x = sparse_ops.as_dense(x)
     m = batch.mask[:, None]
@@ -87,6 +106,7 @@ def summarize_features(batch: LabeledBatch) -> BasicStatisticalSummary:
     big = torch.full_like(x, float("inf"))
     mn = torch.where(m > 0, x, big).amin(0)
     mx = torch.where(m > 0, x, -big).amax(0)
+    n, s1, s2, sabs, nnz, _, mn, mx = _reduced(n, s1, s2, sabs, nnz, s1.new_zeros((0,)), mn, mx)
     return _finish(n, s1, s2, sabs, nnz, mn, mx)
 
 
@@ -112,44 +132,67 @@ def _summarize_hybrid(batch: LabeledBatch) -> BasicStatisticalSummary:
     )
 
 
+def _entry_extremes(indices, values, row_ok, d: int):
+    """Per-column (min, max) over the stored entries of rows ``row_ok``,
+    +-inf for a column with none (``scatter_reduce_``)."""
+    dtype = values.dtype
+    entry_ok = (indices >= 0) & (indices < d) & row_ok[:, None]
+    flat_idx = torch.where(entry_ok, indices.long(), d).reshape(-1)
+    big = torch.tensor(float("inf"), dtype=dtype, device=values.device)
+    mn = torch.full((d + 1,), float("inf"), dtype=dtype, device=big.device)
+    mn.scatter_reduce_(0, flat_idx, torch.where(entry_ok, values, big).reshape(-1), "amin")
+    mx = torch.full((d + 1,), float("-inf"), dtype=dtype, device=big.device)
+    mx.scatter_reduce_(0, flat_idx, torch.where(entry_ok, values, -big).reshape(-1), "amax")
+    return mn[:d], mx[:d]
+
+
 def _summarize_sparse(batch: LabeledBatch) -> BasicStatisticalSummary:
-    """Column statistics over a padded-ELL design without densifying:
-    moments by scatter-add, extremes by scatter-min/max corrected for each
-    column's implicit zeros (a column stored in fewer unmasked rows than
-    exist contains zeros, as a dense matrix would)."""
+    """Column statistics over a padded-ELL design (or a blocked container,
+    block by block) without densifying: moments by column sums, extremes
+    by scatter-min/max corrected for each column's implicit zeros (a
+    column stored in fewer unmasked rows than exist contains zeros, as a
+    dense matrix would)."""
     x = batch.features
-    d = x.d
     m = batch.mask
-    dtype = x.values.dtype
 
     def colsum_of(values, square=False):
+        if sparse_ops.is_feature_sharded(x):
+            return sparse_ops.colsum(_with_values(x, values), m, square=square)
         return sparse_ops.colsum(dataclasses.replace(x, values=values), m, square=square)
 
+    vals = x.values if sparse_ops.is_sparse(x) else None
+    if sparse_ops.is_feature_sharded(x):
+        vals = [b.values for b in x.blocks]
+        abs_v = [v.abs() for v in vals]
+        nz_v = [(v != 0.0).to(v.dtype) for v in vals]
+        ones_v = [torch.ones_like(v) for v in vals]
+        ext = [_entry_extremes(b.indices, b.values, x.block_weights(f, m) > 0, x.d_shard)
+               for f, b in enumerate(x.blocks)]
+        mn_stored = torch.cat([e[0] for e in ext])
+        mx_stored = torch.cat([e[1] for e in ext])
+    else:
+        abs_v, nz_v, ones_v = vals.abs(), (vals != 0.0).to(vals.dtype), torch.ones_like(vals)
+        mn_stored, mx_stored = _entry_extremes(x.indices, vals, m > 0, x.d)
     n = m.sum()
-    s1 = colsum_of(x.values)
-    s2 = colsum_of(x.values, square=True)
-    sabs = colsum_of(x.values.abs())
-    nnz = colsum_of((x.values != 0.0).to(dtype))
+    s1 = colsum_of(vals)
+    s2 = colsum_of(vals, square=True)
+    sabs = colsum_of(abs_v)
+    nnz = colsum_of(nz_v)
     # stored-slot count per column (for implicit-zero detection); padding
-    # slots carry index d, so their all-ones payload adds nothing
-    stored = colsum_of(torch.ones_like(x.values))
-
-    entry_ok = (x.indices >= 0) & (x.indices < d) & (m[:, None] > 0)
-    flat_idx = torch.where(entry_ok, x.indices.long(), d).reshape(-1)
-    big = torch.tensor(float("inf"), dtype=dtype, device=x.values.device)
-    mn_stored = torch.full((d + 1,), float("inf"), dtype=dtype, device=big.device)
-    mn_stored.scatter_reduce_(
-        0, flat_idx, torch.where(entry_ok, x.values, big).reshape(-1), "amin"
-    )
-    mx_stored = torch.full((d + 1,), float("-inf"), dtype=dtype, device=big.device)
-    mx_stored.scatter_reduce_(
-        0, flat_idx, torch.where(entry_ok, x.values, -big).reshape(-1), "amax"
-    )
-    mn_stored, mx_stored = mn_stored[:d], mx_stored[:d]
+    # slots carry the padding id, so their all-ones payload adds nothing
+    stored = colsum_of(ones_v)
+    n, s1, s2, sabs, nnz, stored, mn_stored, mx_stored = _reduced(
+        n, s1, s2, sabs, nnz, stored, mn_stored, mx_stored)
     has_zero = stored < n  # some unmasked row lacks a stored entry
-    zero = torch.zeros((), dtype=dtype, device=big.device)
+    zero = torch.zeros((), dtype=mn_stored.dtype, device=mn_stored.device)
     mn = torch.where(has_zero, torch.minimum(mn_stored, zero), mn_stored)
     mx = torch.where(has_zero, torch.maximum(mx_stored, zero), mx_stored)
     mn = torch.where(torch.isfinite(mn), mn, zero)
     mx = torch.where(torch.isfinite(mx), mx, zero)
     return _finish(n, s1, s2, sabs, nnz, mn, mx)
+
+
+def _with_values(x, values):
+    """A blocked container with each block's values replaced."""
+    return dataclasses.replace(x, blocks=tuple(
+        dataclasses.replace(b, values=v) for b, v in zip(x.blocks, values)))

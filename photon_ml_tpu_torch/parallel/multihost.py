@@ -1,0 +1,432 @@
+"""Joining a multi-process world, input splits, host exchanges and their
+watchdog (counterpart of ``photon_ml_tpu/parallel/multihost.py``).
+
+One process per device joins one ``torch.distributed`` world
+(:func:`initialize_multihost`): NCCL for CUDA devices, gloo for the CPU.
+Joining happens only on an explicit signal — the arguments, or a
+launcher's ``WORLD_SIZE`` > 1 with ``RANK`` and ``MASTER_ADDR`` (what
+``torchrun`` sets), the counterparts of the JAX package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``.
+Every rank then builds the same mesh over the whole world
+(:mod:`.mesh`)::
+
+    initialize_multihost()           # no-op in a single process
+    mesh = make_mesh()               # every rank of the world
+    models = distributed_train_glm(batch, config, mesh)
+
+Every host exchange here (:func:`allgather_host` and what rides it) runs
+under the collective watchdog when one is configured
+(:func:`configure_collective_resilience`): a deadline per attempt, the
+stall recorded with straggler attribution from the heartbeat monitor,
+retries through the resilience backoff, and a budget whose exhaustion is
+the host-loss contract (:mod:`photon_ml_tpu_torch.resilience.hostloss`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+
+from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS, split_rows, world
+from photon_ml_tpu_torch.resilience import faults as _faults
+
+_INITIALIZED = False
+
+
+def process_count() -> int:
+    return world()[0]
+
+
+def process_index() -> int:
+    return world()[1]
+
+
+# ---------------------------------------------------------------------------
+# the collective watchdog
+# ---------------------------------------------------------------------------
+
+
+class CollectiveTimeout(OSError):
+    """A host collective exceeded its watchdog deadline. An OSError, so the
+    retry seam classifies it as transient: a straggler may still arrive on
+    the retry; a dead host exhausts the budget and becomes host loss."""
+
+    def __init__(self, label: str, timeout_s: float, attempt: int):
+        super().__init__(
+            f"collective {label!r} exceeded its {timeout_s:.3g}s watchdog "
+            f"deadline (attempt {attempt})"
+        )
+        self.label = label
+        self.timeout_s = timeout_s
+        self.attempt = attempt
+
+
+class CollectiveAbandoned(RuntimeError):
+    """An abandoned attempt was still in flight when its retry came due in
+    a world of several processes: reissuing could pair the orphan with a
+    peer's next exchange and desync the collective order, so this escalates
+    to the host-loss contract instead. Not an OSError: never retried."""
+
+    def __init__(self, label: str, waited_s: float):
+        super().__init__(
+            f"collective {label!r} abandoned: a timed-out attempt was "
+            f"still in flight {waited_s:.3g}s after issue — reissuing "
+            "would desync collective order across processes; escalating "
+            "to the host-loss contract"
+        )
+        self.label = label
+        self.waited_s = waited_s
+
+
+@dataclasses.dataclass
+class CollectiveResilience:
+    """Watchdog policy for host collectives. ``timeout_s`` None (default)
+    keeps the bare blocking exchange."""
+
+    timeout_s: Optional[float] = None
+    retries: int = 2
+
+
+_RESILIENCE = CollectiveResilience()
+
+
+def configure_collective_resilience(
+    timeout_s: Optional[float] = None, retries: int = 2
+) -> CollectiveResilience:
+    """Install the watchdog policy for every host collective here (the
+    drivers' ``collective_timeout_s``). Returns the previous policy."""
+    global _RESILIENCE
+    if timeout_s is not None and timeout_s <= 0:
+        raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
+    if retries < 0:
+        raise ValueError(f"retries must be >= 0, got {retries}")
+    prev = _RESILIENCE
+    _RESILIENCE = CollectiveResilience(timeout_s=timeout_s, retries=retries)
+    return prev
+
+
+def collective_resilience() -> CollectiveResilience:
+    return _RESILIENCE
+
+
+def _note_stall(label: str, waited_s: float, attempt: int) -> None:
+    """One watchdog trip: the ``collective.stalls`` counter, the
+    ``collective.stall_ms`` histogram and a ``collective.stall`` event
+    naming the slowest peer when a heartbeat monitor is installed."""
+    from photon_ml_tpu_torch import obs
+
+    reg = obs.registry()
+    reg.inc("collective.stalls")
+    reg.observe("collective.stall_ms", waited_s * 1e3)
+    slowest_host, slowest_age = None, None
+    from photon_ml_tpu_torch.parallel.heartbeat import current_monitor
+
+    mon = current_monitor()
+    if mon is not None and mon.slowest() is not None:
+        slowest_host, slowest_age = mon.slowest()
+        reg.set_gauge("pod.heartbeat.slowest_host", slowest_host)
+        reg.set_gauge("pod.heartbeat.slowest_age_s", round(slowest_age, 4))
+    obs.emit_event(
+        "collective.stall",
+        cat="collective",
+        label=label,
+        waited_s=round(waited_s, 4),
+        attempt=attempt,
+        slowest_host=slowest_host,
+        slowest_age_s=round(slowest_age, 4) if slowest_age is not None else None,
+    )
+
+
+def _resilient_exchange(label: str, fn: Callable):
+    """Run one host collective under the configured watchdog and retry
+    policy. Probes the ``collective.stall`` fault site (key = label) inside
+    each attempt. In a world of several processes a retry first waits one
+    more deadline for the abandoned attempt: a late result is consumed, a
+    live orphan raises :class:`CollectiveAbandoned`."""
+    cfg = _RESILIENCE
+
+    def attempt_body():
+        _faults.fire("collective.stall", key=label)
+        return fn()
+
+    if cfg.timeout_s is None:
+        return attempt_body()
+
+    from photon_ml_tpu_torch.resilience import retry as _retry
+
+    attempts = [0]
+    orphan: list = [None]
+
+    def deadline_attempt():
+        attempts[0] += 1
+        prev = orphan[0]
+        if prev is not None:
+            orphan[0] = None
+            p_thread, p_result, _p_error, p_t0 = prev
+            if process_count() > 1:
+                p_thread.join(cfg.timeout_s)
+                if p_thread.is_alive():
+                    waited = time.perf_counter() - p_t0
+                    from photon_ml_tpu_torch import obs
+
+                    obs.registry().inc("collective.abandoned")
+                    obs.emit_event("collective.abandoned", cat="collective", label=label,
+                                   waited_s=round(waited, 4), attempt=attempts[0])
+                    raise CollectiveAbandoned(label, waited)
+                if p_result:
+                    return p_result[0]
+
+        result: list = []
+        error: list = []
+
+        def work():
+            try:
+                result.append(attempt_body())
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                error.append(e)
+
+        t = threading.Thread(target=work, name=f"collective-{label}", daemon=True)
+        t0 = time.perf_counter()
+        t.start()
+        t.join(cfg.timeout_s)
+        if t.is_alive():
+            _note_stall(label, time.perf_counter() - t0, attempts[0])
+            orphan[0] = (t, result, error, t0)
+            raise CollectiveTimeout(label, cfg.timeout_s, attempts[0])
+        if error:
+            raise error[0]
+        return result[0]
+
+    return _retry.retry_call(deadline_attempt, retries=cfg.retries, label=f"collective {label}")
+
+
+def resilient_host_exchange(label: str, fn: Callable):
+    """The watchdog, retry and stall attribution of the built-in host
+    collectives, for a caller's own exchange point; ``fn`` blocks until
+    the exchange completes."""
+    return _resilient_exchange(label, fn)
+
+
+# ---------------------------------------------------------------------------
+# joining
+# ---------------------------------------------------------------------------
+
+
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: Optional[str] = None,
+    init_method: Optional[str] = None,
+    timeout_s: Optional[float] = None,
+) -> bool:
+    """Join this process to a ``torch.distributed`` world. True when a
+    world is joined (or already was), False for the single-process no-op,
+    so drivers call it unconditionally.
+
+    The signal to join is explicit: ``init_method``, a
+    ``coordinator_address`` ("host:port") or ``num_processes`` > 1, or
+    else the launcher's ``WORLD_SIZE`` > 1 with ``RANK`` and
+    ``MASTER_ADDR``. ``backend`` defaults to NCCL when a card is present
+    and gloo otherwise; under a launcher this process's card is
+    ``cuda:{LOCAL_RANK}``."""
+    global _INITIALIZED
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        _INITIALIZED = True
+        return True
+    env = os.environ
+    from_env = (
+        init_method is None and coordinator_address is None and num_processes is None
+        and int(env.get("WORLD_SIZE", "1") or "1") > 1
+        and env.get("RANK") is not None and env.get("MASTER_ADDR")
+    )
+    if from_env:
+        num_processes = int(env["WORLD_SIZE"])
+        process_id = int(env["RANK"])
+        init_method = "env://"
+    elif init_method is None:
+        if not (coordinator_address or (num_processes or 0) > 1):
+            return False
+        if coordinator_address is None:
+            raise ValueError("a world of several processes needs coordinator_address "
+                             "or init_method")
+        init_method = f"tcp://{coordinator_address}"
+    if num_processes is None or process_id is None:
+        raise ValueError("initialize_multihost needs num_processes and process_id")
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", "0") or "0"))
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, init_method=init_method, world_size=int(num_processes),
+                            rank=int(process_id), **kw)
+    _INITIALIZED = True
+    return True
+
+
+def shutdown_multihost() -> None:
+    """Leave the world joined by :func:`initialize_multihost` (no-op
+    unjoined)."""
+    global _INITIALIZED
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _INITIALIZED = False
+
+
+def _require_joined(caller: str) -> None:
+    """A configured but unjoined world is an error: an input split taken
+    before joining would hand every process the whole input."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    configured = int(os.environ.get("WORLD_SIZE", "1") or "1")
+    if configured > 1:
+        raise RuntimeError(
+            f"a world of {configured} processes is configured (WORLD_SIZE) but this "
+            f"process has not joined it; call initialize_multihost() before {caller}()"
+        )
+
+
+def process_local_rows(total_rows: int) -> range:
+    """The contiguous row range this rank ingests: the even split of a
+    global row space over the world (everything in a single process)."""
+    _require_joined("process_local_rows")
+    return split_rows(total_rows, process_count(), process_index())
+
+
+def process_local_paths(paths):
+    """The input part files this rank ingests: round-robin by sorted
+    position. Every rank raises when any rank's share would be empty."""
+    _require_joined("process_local_paths")
+    paths = sorted(paths)
+    n = process_count()
+    if len(paths) < n:
+        raise ValueError(
+            f"{len(paths)} part files for {n} processes — every process "
+            "needs at least one input file"
+        )
+    return paths[process_index()::n]
+
+
+# ---------------------------------------------------------------------------
+# host exchanges
+# ---------------------------------------------------------------------------
+
+
+def allgather_host(x) -> np.ndarray:
+    """A small host array -> the concatenation (axis 0, rank order) of
+    every rank's value, on every rank. Rides the watchdog when one is
+    configured; probes the ``collective.allreduce`` fault site."""
+
+    def exchange():
+        _faults.fire("collective.allreduce", key="allgather_host")
+        arr = np.asarray(x)
+        if process_count() == 1:
+            return arr
+        import torch.distributed as dist
+
+        out = [None] * process_count()
+        dist.all_gather_object(out, arr)
+        return np.concatenate([np.asarray(o) for o in out], axis=0)
+
+    return _resilient_exchange("allgather_host", exchange)
+
+
+def allgather_strings(strs) -> list:
+    """Every rank's list of strings -> one list in rank order, identical
+    on every rank."""
+    if process_count() == 1:
+        return list(strs)
+    enc = [s.encode("utf-8") for s in strs]
+    local_count = len(enc)
+    local_max = max((len(b) for b in enc), default=0)
+    meta = allgather_host(np.asarray([[local_count, local_max]], np.int64))
+    max_count = int(meta[:, 0].max())
+    max_len = max(int(meta[:, 1].max()), 1)
+    buf = np.zeros((max_count, max_len), np.uint8)
+    lens = np.zeros((max_count,), np.int64)
+    for i, b in enumerate(enc):
+        buf[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    g_buf = allgather_host(buf).reshape(-1, max_count, max_len)
+    g_lens = allgather_host(lens).reshape(-1, max_count)
+    out = []
+    for p in range(process_count()):
+        for i in range(int(meta[p, 0])):
+            out.append(g_buf[p, i, : g_lens[p, i]].tobytes().decode("utf-8"))
+    return out
+
+
+def fetch_replicated(x):
+    """A value on the host: a tensor (every rank holds the same one after
+    a reduction) as a numpy array; anything else unchanged."""
+    import torch
+
+    if torch.is_tensor(x):
+        t = x.detach().cpu()
+        return (t.to(torch.float64) if t.dtype == torch.bfloat16 else t).numpy()
+    return x
+
+
+def make_global_batch(local_batch, mesh):
+    """This rank's process-local batch as its 'data' shard of the global
+    batch (the JAX package's ``make_array_from_process_local_data``): the
+    rows stay where they are, and every rank must hold the same number of
+    rows and, for ELL, the same width (checked across the world)."""
+    from photon_ml_tpu_torch.ops.sparse import is_sparse
+
+    x = local_batch.features
+    shape = [local_batch.labels.shape[0], x.nnz_per_row if is_sparse(x) else x.shape[-1]]
+    shapes = allgather_host(np.asarray([shape], np.int64))
+    if not (shapes == shapes[0]).all():
+        raise ValueError(
+            f"ranks hold batches of other shapes {shapes.tolist()}: every rank "
+            "needs the same row count and width (pin nnz_per_row)"
+        )
+    if mesh.axis_size(DATA_AXIS) != mesh.size:
+        raise ValueError("make_global_batch row-shards over a 'data' mesh")
+    return local_batch
+
+
+def hierarchical_psum(x, intra_axis: str = "device", inter_axis: str = "host", mesh=None):
+    """Two-level sum over a ('host', 'device') mesh of a tensor or a tuple
+    of them: a reduce-scatter over the fast intra-host axis, an all-reduce
+    of each rank's 1/D slice over the slow inter-host axis (the only
+    cross-host traffic), then an all-gather over the intra axis. Leaves
+    flatten and pad to a multiple of the intra size."""
+    import torch
+
+    from photon_ml_tpu_torch.parallel.mesh import active_mesh, all_gather, all_reduce, reduce_scatter
+
+    mesh = mesh if mesh is not None else active_mesh()
+    n_intra = 1 if mesh is None else mesh.axis_size(intra_axis)
+
+    def reduce_leaf(leaf):
+        flat = leaf.reshape(-1)
+        size = flat.shape[0]
+        pad = (-size) % n_intra
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros((pad,))])
+        scat = reduce_scatter(flat, intra_axis, "hierarchical.scatter", mesh=mesh)
+        part = all_reduce(scat, inter_axis, "hierarchical.inter", mesh=mesh)
+        full = all_gather(part, intra_axis, "hierarchical.gather", mesh=mesh).reshape(-1)
+        return full[:size].reshape(leaf.shape)
+
+    if isinstance(x, (tuple, list)):
+        return type(x)(reduce_leaf(t) for t in x)
+    return reduce_leaf(x)

@@ -15,6 +15,14 @@ Here the loops are Python loops over tensors on the batch's device: every
 loop test or branch on a value the device computed reads it back to the
 host. :func:`host_read` does each such read and counts it, so a run can
 report its host syncs per iteration (``host_reads``).
+
+Every inner product, norm and L1 sum over a coefficient-space vector goes
+through :func:`vdot` / :func:`vnorm` / :func:`vsum` / :func:`vmm` (several
+at once through :func:`vdots` / :func:`vnorm_and_dots`). Under a
+mesh that splits the coefficient axis each rank holds its block of those
+vectors, so each is a local partial plus one all-reduce over the
+'feature' group (``parallel.mesh.feature_sum``); elsewhere each is the
+plain local operation, bit for bit. Elementwise steps stay local.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from photon_ml_tpu_torch.parallel.mesh import feature_sharded, feature_sum
 
 
 class ConvergenceReason(enum.IntEnum):
@@ -145,6 +155,50 @@ def reset_host_reads() -> None:
     global _host_reads
     with _reads_lock:
         _host_reads = 0
+
+
+# -- coefficient-space reductions ----------------------------------------------
+
+
+def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the whole coefficient axis."""
+    return feature_sum(torch.dot(a, b))
+
+
+def vnorm(a: torch.Tensor) -> torch.Tensor:
+    """||a||_2 over the whole coefficient axis."""
+    if not feature_sharded():
+        return torch.linalg.norm(a)
+    return torch.sqrt(feature_sum(torch.dot(a, a), "norm"))
+
+
+def vdots(*pairs) -> tuple:
+    """(a . b for each (a, b) of ``pairs``) over the whole coefficient
+    axis: one all-reduce for all of them under a mesh that splits it."""
+    if not feature_sharded():
+        return tuple(torch.dot(a, b) for a, b in pairs)
+    return tuple(feature_sum(torch.stack([torch.dot(a, b) for a, b in pairs])).unbind())
+
+
+def vnorm_and_dots(a: torch.Tensor, *pairs) -> tuple:
+    """(||a||_2, then b . c for each (b, c) of ``pairs``): :func:`vnorm`
+    and :func:`vdots` in one all-reduce under a mesh that splits the
+    coefficient axis."""
+    if not feature_sharded():
+        return (torch.linalg.norm(a),) + vdots(*pairs)
+    sq, *dots = vdots((a, a), *pairs)
+    return (torch.sqrt(sq), *dots)
+
+
+def vsum(a: torch.Tensor) -> torch.Tensor:
+    """sum(a) over the whole coefficient axis (the L1 norm of |w|)."""
+    return feature_sum(a.sum(), "l1")
+
+
+def vmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b contracting the coefficient axis (the history's Gram products:
+    (m, d) @ (d, m) or (m, d) @ (d,))."""
+    return feature_sum(a @ b, "gram")
 
 
 # -- shared steps -------------------------------------------------------------

@@ -33,6 +33,10 @@ from photon_ml_tpu_torch.solvers.common import (
     record,
     tape_buffer,
     tracker_buffers,
+    vdot,
+    vmm,
+    vnorm,
+    vsum,
 )
 from photon_ml_tpu_torch.solvers.linesearch import strong_wolfe
 
@@ -87,8 +91,8 @@ def _dead_search_reason(code: torch.Tensor, ls_ok: torch.Tensor) -> torch.Tensor
 def _push_history(h: _History, s: torch.Tensor, y: torch.Tensor) -> _History:
     """Append a correction pair in place; skip it when its curvature fails
     :func:`_curvature_ok`. One host read."""
-    sy = torch.dot(s, y)
-    if host_read(_curvature_ok(sy, torch.dot(y, y))):
+    sy = vdot(s, y)
+    if host_read(_curvature_ok(sy, vdot(y, y))):
         i = h.head
         h.s[i] = s
         h.y[i] = y
@@ -119,8 +123,8 @@ def _two_loop(h: _History, grad: torch.Tensor) -> torch.Tensor:
     step_of_t = torch.tensor(step_of, device=dev)
     valid_slot = torch.tensor([step_of[j] < h.count for j in range(m)], device=dev)
 
-    G = h.s @ h.y.T  # (m, m): G[a, b] = s_a . y_b
-    sg = h.s @ grad
+    G = vmm(h.s, h.y.T)  # (m, m): G[a, b] = s_a . y_b
+    sg = vmm(h.s, grad)
     zero = torch.zeros((), dtype=grad.dtype, device=dev)
     alphas = torch.zeros((m,), dtype=grad.dtype, device=dev)
     for i in range(m):
@@ -132,11 +136,11 @@ def _two_loop(h: _History, grad: torch.Tensor) -> torch.Tensor:
     newest = (h.head - 1) % m
     if h.count > 0:
         gamma = G[newest, newest] / torch.clamp(
-            torch.dot(h.y[newest], h.y[newest]), min=1e-30
+            vdot(h.y[newest], h.y[newest]), min=1e-30
         )
     else:
         gamma = torch.ones((), dtype=grad.dtype, device=dev)
-    yq = h.y @ q
+    yq = vmm(h.y, q)
     # forward order: oldest -> newest among valid; y_j . s_l = G[l, j]
     order_f = [(h.head - h.count + i) % m for i in range(m)]
     fstep_of = [0] * m
@@ -168,7 +172,7 @@ def minimize_lbfgs(
     w = project_to_hypercube(w0, lower, upper)
     value, grad = value_and_grad_fn(w)
     values, grad_norms = tracker_buffers(config.max_iters, value, config.track_states)
-    gnorm0 = torch.linalg.norm(grad)
+    gnorm0 = vnorm(grad)
     record(values, 0, value)
     record(grad_norms, 0, gnorm0)
     w_history = model_buffer(config.max_iters, w, config.track_models)
@@ -189,18 +193,18 @@ def minimize_lbfgs(
     )
     while reason == ConvergenceReason.NOT_CONVERGED:
         direction = -_two_loop(hist, grad)
-        dphi0 = torch.dot(grad, direction)
+        dphi0 = vdot(grad, direction)
         # not a descent direction (stale curvature): restart on -grad
         bad = dphi0 >= 0.0
         direction = torch.where(bad, -grad, direction)
-        dphi0 = torch.where(bad, -torch.dot(grad, grad), dphi0)
+        dphi0 = torch.where(bad, -vdot(grad, grad), dphi0)
 
         def phi(alpha, w=w, direction=direction):
             val, g = value_and_grad_fn(w + alpha * direction)
-            return val, torch.dot(g, direction), g
+            return val, vdot(g, direction), g
 
         if hist.count == 0:
-            alpha_init = _first_step(torch.linalg.norm(direction))
+            alpha_init = _first_step(vnorm(direction))
         else:
             alpha_init = torch.ones((), dtype=value.dtype, device=value.device)
         alpha, v_ls, g_ls, ls_ok, ls_evals = strong_wolfe(
@@ -222,7 +226,7 @@ def minimize_lbfgs(
         hist = _push_history(hist, w_new - w, g_new - grad)
 
         it += 1
-        gnorm = torch.linalg.norm(g_new)
+        gnorm = vnorm(g_new)
         code = check_convergence(
             value, v_new, gnorm, value_initial, grad_norm_initial, it,
             config.max_iters, config.tolerance,
@@ -301,8 +305,8 @@ def minimize_owlqn(
 
     w = w0
     value, grad = value_and_grad_fn(w)
-    full = value + l1 * w.abs().sum()
-    pgnorm0 = torch.linalg.norm(_pseudo_gradient(w, grad, l1))
+    full = value + l1 * vsum(w.abs())
+    pgnorm0 = vnorm(_pseudo_gradient(w, grad, l1))
     values, grad_norms = tracker_buffers(config.max_iters, value, config.track_states)
     record(values, 0, full)
     record(grad_norms, 0, pgnorm0)
@@ -327,19 +331,19 @@ def minimize_owlqn(
         # sign alignment: drop components that disagree with -pg; fall back
         # to steepest pseudo-descent when that leaves nothing
         direction = _aligned(direction, pg)
-        degenerate = torch.dot(direction, direction) == 0.0
+        degenerate = vdot(direction, direction) == 0.0
         direction = torch.where(degenerate, -pg, direction)
         xi = _orthant(w, pg)
 
         def trial(alpha, w=w, direction=direction, xi=xi, pg=pg, full=full):
             wt = _project_orthant(w + alpha * direction, xi)
             vt, gt = value_and_grad_fn(wt)
-            ft = vt + l1 * wt.abs().sum()
-            accepted = host_read(ft <= full + config.ls_c1 * torch.dot(pg, wt - w))
+            ft = vt + l1 * vsum(wt.abs())
+            accepted = host_read(ft <= full + config.ls_c1 * vdot(pg, wt - w))
             return wt, vt, ft, gt, accepted
 
         if hist.count == 0:
-            alpha = 1.0 / torch.clamp(torch.linalg.norm(direction), min=1e-30)
+            alpha = 1.0 / torch.clamp(vnorm(direction), min=1e-30)
         else:
             alpha = torch.ones((), dtype=value.dtype, device=value.device)
         # backtracking with the Armijo-like acceptance of Andrew & Gao:
@@ -360,7 +364,7 @@ def minimize_owlqn(
         hist = _push_history(hist, w_new - w, g_new - grad)
 
         it += 1
-        pgnorm = torch.linalg.norm(_pseudo_gradient(w_new, g_new, l1))
+        pgnorm = vnorm(_pseudo_gradient(w_new, g_new, l1))
         code = check_convergence(
             full, f_new, pgnorm, value_initial, grad_norm_initial, it,
             config.max_iters, config.tolerance,

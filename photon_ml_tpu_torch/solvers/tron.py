@@ -33,6 +33,10 @@ from photon_ml_tpu_torch.solvers.common import (
     record,
     tape_buffer,
     tracker_buffers,
+    vdot,
+    vdots,
+    vnorm,
+    vnorm_and_dots,
 )
 
 ValueAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -111,32 +115,33 @@ def _truncated_cg(
     Returns (s, r, iterations). Exits on residual < cg_tol_factor *
     ||grad||, on reaching the trust-region boundary (the step clipped to
     the sphere), or on max_cg."""
-    gnorm = torch.linalg.norm(grad)
+    gnorm = vnorm(grad)
     cg_tol = cg_tol_factor * gnorm
     step = torch.zeros_like(grad)
     r = -grad
     p = -grad
-    rtr = torch.dot(grad, grad)
+    rtr = vdot(grad, grad)
     i = 0
     done = host_read(gnorm <= cg_tol)
     while not done and i < max_cg:
         hp = hvp(p)
-        php = torch.dot(p, hp)
+        php = vdot(p, hp)
         # non-positive curvature should not happen for a convex GLM + L2;
         # guard the division and treat it as a boundary hit
         alpha = rtr / torch.where(php > 0.0, php, torch.full_like(php, 1e-30))
         step_try = step + alpha * p
-        outside = (torch.linalg.norm(step_try) > delta) | (php <= 0.0)
+        r_new = r - alpha * hp
+        # the step's norm and the next residual's square in one reduction
+        step_norm, rtr_new = vnorm_and_dots(step_try, (r_new, r_new))
+        outside = (step_norm > delta) | (php <= 0.0)
         i += 1
         if host_read(outside):
             # back to the sphere
-            tau = _to_sphere(torch.dot(step, p), torch.dot(step, step), torch.dot(p, p), delta)
+            tau = _to_sphere(*vdots((step, p), (step, step), (p, p)), delta)
             step = step + tau * p
             r = r - tau * hp
             done = True
         else:
-            r_new = r - alpha * hp
-            rtr_new = torch.dot(r_new, r_new)
             beta = rtr_new / torch.clamp(rtr, min=1e-30)
             step = step_try
             r = r_new
@@ -168,7 +173,7 @@ def minimize_tron(
         value, grad = value_and_grad_fn(w0)
         curv = None
     w = w0
-    gnorm0 = torch.linalg.norm(grad)
+    gnorm0 = vnorm(grad)
     values, grad_norms = tracker_buffers(config.max_iters, value, config.track_states)
     record(values, 0, value)
     record(grad_norms, 0, gnorm0)
@@ -197,9 +202,9 @@ def minimize_tron(
         step, r, cg_iters = _truncated_cg(
             hvp_local, grad, delta, config.tron_max_cg, config.tron_cg_tol
         )
-        snorm = torch.linalg.norm(step)
-        gs = torch.dot(grad, step)
-        prered = -0.5 * (gs - torch.dot(step, r))
+        snorm = vnorm(step)
+        gs = vdot(grad, step)
+        prered = -0.5 * (gs - vdot(step, r))
 
         w_try = w + step
         if use_vgc:
@@ -223,7 +228,7 @@ def minimize_tron(
         failures = torch.where(accept, torch.zeros_like(failures), failures + 1)
 
         it += 1
-        gnorm = torch.linalg.norm(g_new)
+        gnorm = vnorm(g_new)
         code = _step_reason(
             check_convergence(value, v_new, gnorm, value_initial, grad_norm_initial, it,
                               config.max_iters, config.tolerance),

@@ -228,7 +228,8 @@ UNPORTED = [(name, value) for name, value in (
 
 # the pins of settings this port now runs: each is a parity case of the
 # driver against the JAX driver, under the same test id
-PORTED = {"quality_fingerprint", "hot_columns", "out_of_core", "streamed_ingest"}
+PORTED = {"quality_fingerprint", "hot_columns", "out_of_core", "streamed_ingest",
+          "mesh_shape", "heartbeat_s"}
 
 
 def _files_under(root):
@@ -330,6 +331,79 @@ def _fingerprint_matches_jax(fixture):
     assert not (out / "quality-fingerprint.json").exists() and (out / "best-model.avro").exists()
 
 
+def _mesh_matches_jax(fixture):
+    """``mesh_shape {"data": 2}``: the port's driver in a 2-rank gloo world
+    (``torch_worlds.driver_world``) equals the JAX driver on a 2-device
+    mesh — the same iterations and CG steps, w within the GLM parity
+    tolerance on both ranks, bit for bit the same on both, the same
+    validation metrics and best model; rank 0 writes the JAX driver's
+    files, feature-summary.tsv within the summary's tolerance and
+    quality-fingerprint.json within 1e-12 (its margin sketch, of w within
+    1e-8, within 1e-7). ``{"feature": 2}`` (the balanced layout) in a
+    2-rank world too, its iterations aside. In a world of one the same
+    setting is refused naming both sizes, before anything is written."""
+    from test_torch_quality import assert_same_doc
+    from torch_worlds import run_world
+
+    kw = dict(optimizer="TRON", sparse=True, mesh_shape={"data": 2})
+    ref = jax_run(_params(fixture, "jax-mesh", **kw))
+    out_j = ref.params.output_dir
+    with open(os.path.join(out_j, "quality-fingerprint.json")) as f:
+        doc_j = json.load(f)
+    for shape in ({"data": 2}, {"feature": 2}):
+        name = "port-mesh-" + "-".join(shape)
+        params = _params(fixture, name, **{**kw, "mesh_shape": shape})
+        ranks = run_world(fixture["tmp"], 2, "driver_world", params=params)
+        for r in ranks:
+            if "data" in shape:
+                assert r["iterations"] == [int(m.result.iterations) for m in ref.models]
+                assert r["cg"] == [int(m.result.cg_iterations) for m in ref.models]
+            assert r["best_index"] == ref.best_index
+            for w, m in zip(r["w"], ref.models):
+                w_ref = np.asarray(m.model.coefficients.means)
+                assert np.abs(w - w_ref).max() <= 1e-8 * max(1.0, np.abs(w_ref).max())
+            for gm, rm in zip(r["metrics"], ref.validation_metrics):
+                for k in rm:
+                    assert abs(gm[k] - rm[k]) <= 1e-8, k
+            for a, b in zip(r["w"], ranks[0]["w"]):
+                assert np.array_equal(a.view(np.int64), b.view(np.int64))
+        out_p = params["output_dir"]
+        assert _files_under(out_p) == _files_under(out_j)
+        _same_tsv(os.path.join(out_p, "feature-summary.tsv"),
+                  os.path.join(out_j, "feature-summary.tsv"))
+        with open(os.path.join(out_p, "quality-fingerprint.json")) as f:
+            doc_p = json.load(f)
+        assert doc_p["margin"]["moments"]["count"] == 300
+        assert_same_doc(doc_p.pop("margin"), dict(doc_j)["margin"], rtol=1e-7)
+        assert_same_doc(doc_p, {k: v for k, v in doc_j.items() if k != "margin"})
+    refused = _params(fixture, "port-mesh-refused", **kw)
+    with pytest.raises(ValueError, match="needs a world of 2 ranks; this world has 1"):
+        ttrain.run_glm_training(refused, device="cpu")
+    assert not os.path.exists(refused["output_dir"])
+
+
+def _heartbeat_matches_jax(fixture):
+    """``heartbeat_s`` (with ``collective_timeout_s``) runs the single-process
+    solve under the heartbeat monitor and the collective watchdog, as the
+    JAX driver does: the same runs and files, and the monitor, the
+    watchdog and the port's ``collective_mode`` are undone afterwards."""
+    from photon_ml_tpu_torch.parallel import collective_resilience, current_monitor
+
+    from photon_ml_tpu_torch.parallel.overlap import COLLECTIVE_MODE_ENV
+
+    kw = dict(optimizer="TRON", sparse=True, heartbeat_s=1.0, collective_timeout_s=30.0,
+              quality_fingerprint=False)
+    ref = jax_run(_params(fixture, "jax-heartbeat", **kw))
+    mode_before = os.environ.get(COLLECTIVE_MODE_ENV)
+    got = ttrain.run_glm_training(
+        {**_params(fixture, "port-heartbeat", **kw), "collective_mode": "fused"}, device="cpu")
+    _assert_same_runs(got, ref)
+    assert _files_under(got.params.output_dir) == _files_under(ref.params.output_dir)
+    assert current_monitor() is None and collective_resilience().timeout_s is None
+    # the run's collective_mode does not outlive it
+    assert os.environ.get(COLLECTIVE_MODE_ENV) == mode_before
+
+
 @pytest.mark.parametrize("field,value", UNPORTED)
 def test_unported_paths_raise_and_name_their_roadmap_item(fixture, monkeypatch, field, value):
     """Named for the pins it holds: each setting the port does not run
@@ -342,6 +416,12 @@ def test_unported_paths_raise_and_name_their_roadmap_item(fixture, monkeypatch, 
         return
     if field in ("out_of_core", "streamed_ingest"):
         _ingest_matches_jax(fixture, field)
+        return
+    if field == "mesh_shape":
+        _mesh_matches_jax(fixture)
+        return
+    if field == "heartbeat_s":
+        _heartbeat_matches_jax(fixture)
         return
     params = {**_params(fixture, f"port-unported-{field}"), field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
