@@ -140,9 +140,10 @@ whenever any phase fails. Phases, in order:
    iterations at most), ``per-user``, a random effect on the 13 integer
    fields plus the intercept (dense, d = 14: TRON, lambda in {10, 1},
    tolerance 1e-8, 20 iterations, 2 size buckets) — 3 passes per combo,
-   float64, validation after every update, BEST output, on 2^15 training
-   and 2^13 held-out records (cut from 2^16 and 2^14 so that phase 5d fits
-   the run's time) drawn as phase 6's with a userId drawn
+   float64, validation after every update, BEST output, on 2^14 training
+   and 2^12 held-out records (cut from 2^16 and 2^14 so that phase 5d fits
+   the run's time, then from 2^15 and 2^13 so that the run fits its limit
+   on a slow host) drawn as phase 6's with a userId drawn
    Zipf(1.1) over 4,096 users and labels from a seeded global model plus
    per-user models; counters set to 0 just before and read just after,
    held to the trainer's own counts (``fused_vgc`` to the fixed effect's
@@ -284,6 +285,21 @@ whenever any phase fails. Phases, in order:
    dense paths; (c) 5g's GAME run again with ``streamed_ingest`` on its
    training records written as 4 part files: the GameData, objectives,
    tables and launches 5g's to the bit;
+5j. entity-sharded GAME training (run after 5h, on 5g's GAME records,
+   cut to one combo and 3 passes, the global effect at lambda 10): gloo
+   worlds whose ranks share the card, all at once, each held to the same
+   configuration trained unsharded on the card in this process at 5c's
+   gates — (a) ``entity_shards`` 2 and (b) 4, every rank's tables rank
+   0's bit for bit, no collective inside a random-effect update, each
+   rank's launches its history's and its kernels held to their plain
+   versions at its row block; (c) the host-loss drill (4 ranks, sharded
+   checkpoints every pass, the heartbeat, rank 3 silenced at pass 2): the
+   survivors exit 43 after a complete final shard set and
+   ``host-loss.json``, and (c2) a 2-rank restart from it held to (a); (d)
+   the multi-process branch, 2 ranks on 2 of 4 entity-partitioned part
+   files each, dense, held to the one-process run on all 4; per world the
+   solve seconds per update, the collectives and bytes per update, the
+   card peaks and the launches per rank;
 8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -1721,7 +1737,8 @@ def write_inputs_ahead(work: str) -> dict:
                                        HELDOUT_RECORDS, D_HASHED),
         "quality_game": write_game_training_inputs(
             os.path.join(work, "quality", "game"), QUALITY_GAME_RECORDS,
-            QUALITY_GAME_HELDOUT, D_HASHED, QUALITY_GAME_USERS, parts=IO_GAME_PARTS),
+            QUALITY_GAME_HELDOUT, D_HASHED, QUALITY_GAME_USERS, parts=IO_GAME_PARTS,
+            entity_parts=ES_ENTITY_PARTS),
         "io": write_io_inputs(os.path.join(work, "io"), IO_RECORDS, IO_HELDOUT, IO_FIELDS,
                               IO_PARTS),
     }
@@ -2552,9 +2569,12 @@ def serving_phase(work: str, served: dict, name: str = "", direct: int = SERVE_D
 # the batched per-entity TRON), users drawn Zipf(1.1)
 GAME_TRAIN_USERS = 4096
 GAME_TRAIN_ITERATIONS = 3
-# depth cut from 2^16 + 2^14 so that phase 5d fits the run's time
-GAME_TRAIN_RECORDS = 1 << 15
-GAME_TRAIN_HELDOUT = 1 << 13
+# depth cut from 2^16 + 2^14 so that phase 5d fits the run's time, then
+# from 2^15 + 2^13 (5c, 5i, 5d and 5e, which read these records) when a
+# smoke run on a slow host took 1,304 s of its 1,200: 5c's CPU reference
+# alone took 174 s there, 5d 163 s and 5e 156 s
+GAME_TRAIN_RECORDS = 1 << 14
+GAME_TRAIN_HELDOUT = 1 << 12
 # the card's fused passes split from the CPU's in the last bits (atomics),
 # TRON's trajectory amplifies the split (its iterations differ from the
 # first solve on), and coordinate descent feeds it into the next
@@ -2587,7 +2607,7 @@ EXAMPLE_SOLVER_FIELDS = ("optimizer", "reg_weights", "max_iters", "tolerance")
 
 def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
                                n_users: int, seed: int = SEED + 30, user_cols: int = 0,
-                               n_ads: int = 0, parts: int = 0):
+                               n_ads: int = 0, parts: int = 0, entity_parts: int = 0):
     """Both shards' feature-index files and two Avro inputs, training and
     held-out, drawn as phase 6's from one seeded global logistic model plus
     a seeded model per user: the Criteo fields, a userId drawn Zipf(1.1)
@@ -2606,7 +2626,12 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
 
     With ``parts`` (phase 5h) the training records are also written a
     second time, in order, as ``parts`` files under ``train_parts/`` (the
-    same records, uids included), listed third in the data paths."""
+    same records, uids included), listed third in the data paths. With
+    ``entity_parts`` (an even count; phase 5j) they are written once more
+    as that many files under ``train_entity_parts/``, each user's rows in
+    the files of its parity (file p holds the rows of users u with
+    u % 2 == p % 2): a 2-rank world's rank r reads files r, r + 2, ...
+    (``process_local_paths``), all of its users' rows; listed last."""
     rng = np.random.default_rng(seed)
     xrng = np.random.default_rng(seed + 7)
     gpath = os.path.join(work, "feature-index-gshard.txt")
@@ -2659,6 +2684,18 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
         path = os.path.join(work, label, "part-00000.avro")
         write_examples_file(path, "t", labels, offsets, blocks, metadata)
         paths.append(path)
+        if label == "train" and entity_parts:
+            entity_paths = []
+            of_row = users % 2 + 2 * (np.arange(count) % (entity_parts // 2))
+            for p in range(entity_parts):
+                mine = np.flatnonzero(of_row == p)
+                entity_paths.append(os.path.join(work, "train_entity_parts",
+                                                 f"part-{p:05d}.avro"))
+                write_examples_file(
+                    entity_paths[-1], "t", labels[mine], offsets[mine],
+                    [(name, c[mine], v[mine]) for name, c, v in blocks],
+                    {k: [v[i] for i in mine.tolist()] for k, v in metadata.items()},
+                    p * count)
         if label == "train" and parts:
             part_paths = []
             for p, rows_p in enumerate(np.array_split(np.arange(count), parts)):
@@ -2678,6 +2715,8 @@ def write_game_training_inputs(work: str, n: int, n_heldout: int, d_hashed: int,
                 train_design += ((wcols, wvals, user_cols), ads)
     if parts:
         paths.append(part_paths)
+    if entity_parts:
+        paths.append(entity_paths)
     return tuple(vocab_paths), paths, train_design
 
 
@@ -5137,9 +5176,11 @@ def quality_loop_phase(work: str, glm_sets: dict, name: str = "", serve_summary=
     log(f"[quality] {json.dumps(summary)}")
     if failures:
         raise AssertionError("; ".join(failures))
-    # phase 5h reruns the GAME run through the ingest pipeline
+    # phase 5h reruns the GAME run through the ingest pipeline; phase 5j
+    # trains on its records entity-sharded
     game_ref = {"params": gparams, "run": game_run, "launches": game_launches,
-                "train": gtrain, "parts": gparts[0] if gparts else None}
+                "train": gtrain, "parts": gparts[0] if gparts else None,
+                "inputs": game_inputs}
     return summary, {"glm": glm_launches, "game": game_launches,
                      "game_hybrid": hybrid_launches}, game_ref
 
@@ -5727,6 +5768,528 @@ def io_runtime_phase(work: str, game_ref: dict, name: str = "", n: int = IO_RECO
     return summary, game_launches
 
 
+# -- phase 5j: entity-sharded GAME training on 5g's records -------------------
+
+# 5g's GAME records and widths (2^13 + 2^11 records, 1,024 Zipf(1.1) users,
+# the global ELL over the hashed vocabulary's 2^20 + 1 columns, the dense
+# per-user effect on the 13 integer fields and the intercept), cut for the
+# gloo worlds' latency per collective: one combo (the per-user effect at
+# lambda 1, the global effect at lambda 10 with a 1e-12 tolerance), and 3
+# passes so that the drill's restart has a pass after the loss
+ES_PASSES = 3
+ES_GLOBAL_LAMBDA = 10.0
+ES_GLOBAL_TOLERANCE = 1e-12
+ES_USER_LAMBDA = 1.0
+ES_ENTITY_PARTS = 4
+# the drill's heartbeat: a peer is lost past 3 intervals without a beat
+# (at 0.05 s every rank of a CPU rehearsal lost its peers at the first
+# boundary: 12 busy processes' heartbeat threads beat late)
+ES_HEARTBEAT_S = 0.5
+# the drill's victim: rank 3 goes silent on the heartbeat store at its 4th
+# update (pass 2's random effect), which takes 3 s (6 intervals) longer, so
+# that its peers find it lost at pass 2's boundary
+ES_VICTIM_UPDATE = 4
+ES_VICTIM_DELAY_S = 3.0
+# (label, worker processes, kind): the worlds run at once on the card, each
+# rank its process; (c2) restarts (c)'s first two processes on (c)'s
+# checkpoints once (c) has ended
+ES_WORLDS = (
+    ("a", (0, 1), "sharded"),
+    ("b", (2, 3, 4, 5), "sharded"),
+    ("c", (6, 7, 8, 9), "drill"),
+    ("c2", (6, 7), "restart"),
+    ("d", (10, 11), "multi"),
+)
+ES_PROCESSES = 12
+ES_WORLD_TIMEOUT_S = 300.0
+
+
+def entity_params(work: str, gtrain: str, gheldout: str, gpath: str, upath: str,
+                  label: str, ranks: int, kind: str, entity_paths=()) -> dict:
+    """Phase 5j's driver configuration for one run: ``kind`` "sharded"
+    (entity_shards = ranks, with the held-out records), "drill" (4 ranks,
+    sharded checkpoints every pass, the heartbeat), "restart" (2 ranks,
+    resuming the drill's checkpoints), "multi" (the multi-process branch,
+    without entity_shards: both effects on the dense user shard, each rank
+    on its entity-partitioned part files) or "reference" / "multi-reference"
+    (the same in one process)."""
+    coords = {
+        "global": {"shard": "gshard", "optimizer": "TRON", "reg_weights": [ES_GLOBAL_LAMBDA],
+                   "max_iters": 100, "tolerance": ES_GLOBAL_TOLERANCE},
+        "per-user": {"shard": "ushard", "random_effect": "userId", "optimizer": "TRON",
+                     "reg_weights": [ES_USER_LAMBDA], "max_iters": 20, "tolerance": 1e-8,
+                     "num_buckets": 2},
+    }
+    params = {
+        "train_input": [gtrain], "validate_input": [gheldout],
+        "output_dir": os.path.join(work, f"out-{label}"), "task": "LOGISTIC_REGRESSION",
+        "num_iterations": ES_PASSES, "updating_sequence": ["global", "per-user"],
+        "feature_shards": {"gshard": gpath, "ushard": upath}, "coordinates": coords,
+        "sparse_shards": ["gshard"], "model_output_mode": "BEST", "precision": "float64",
+        "quality_fingerprint": False, "overwrite": True,
+    }
+    if kind in ("sharded", "drill", "restart"):
+        params["entity_shards"] = ranks
+    if kind in ("drill", "restart"):
+        params.update(validate_input=[], sharded_ckpt=True, checkpoint_every=1,
+                      output_dir=os.path.join(work, "out-c"))
+    if kind == "drill":
+        params["heartbeat_s"] = ES_HEARTBEAT_S
+    if kind == "restart":
+        params["resume"] = True
+    if kind in ("multi", "multi-reference"):
+        params.update(train_input=list(entity_paths), validate_input=[], sparse_shards=[],
+                      feature_shards={"ushard": upath})
+        params["coordinates"] = {"global": {**coords["global"], "shard": "ushard"},
+                                 "per-user": {**coords["per-user"], "num_buckets": 1}}
+    return params
+
+
+def _silence_at(rank: int, k: int, delay_s: float) -> None:
+    """From this rank's k-th ``descent.update`` probe on its heartbeat
+    beats stop (an armed ``heartbeat.miss`` fault keyed by its index), and
+    that update takes ``delay_s`` longer."""
+    from photon_ml_tpu_torch.resilience import faults
+
+    real = faults.fire
+    seen = [0]
+
+    def fire(site, key=None):
+        if site == "descent.update":
+            seen[0] += 1
+            if seen[0] == k:
+                faults.registry.arm(faults.FaultSpec("heartbeat.miss", "raise", nth=1,
+                                                     count=-1, key=str(rank)))
+                time.sleep(delay_s)
+        return real(site, key)
+
+    faults.fire = fire
+
+
+def _counted_re_updates():
+    """Wrap the entity-sharded random effect's update so that the
+    collectives issued inside it are counted: returns the tally."""
+    from photon_ml_tpu_torch.game.coordinates import EntityShardedRandomEffectCoordinate
+    from photon_ml_tpu_torch.parallel.mesh import collective_counts
+
+    tally = {"updates": 0, "collectives": 0}
+    real = EntityShardedRandomEffectCoordinate.update_and_score
+
+    def total():
+        return sum(v["count"] for v in collective_counts().values())
+
+    def counted(self, *args, **kwargs):
+        before = total()
+        out = real(self, *args, **kwargs)
+        tally["collectives"] += total() - before
+        tally["updates"] += 1
+        return out
+
+    EntityShardedRandomEffectCoordinate.update_and_score = counted
+    return tally
+
+
+def entity_block(work: str, params: dict, ranks: int, rank: int, device):
+    """This rank's fixed-effect rows as the driver lays them out: the
+    training records ingested, regrouped by their user's owner shard
+    (``entity_partition_game_data``) and the rank's row block, on
+    ``device``."""
+    from photon_ml_tpu_torch.game.data import entity_partition_game_data, entity_shard_assignment
+    from photon_ml_tpu_torch.parallel.mesh import shard_rows
+
+    vocabs = {s: FeatureVocabulary.load(p) for s, p in params["feature_shards"].items()}
+    data, evocabs, _, _ = IngestSource(params["train_input"]).game_data(
+        vocabs, ["userId"], sparse_shards={"gshard"})
+    assignment = entity_shard_assignment(len(evocabs["userId"]), ranks)
+    data, _ = entity_partition_game_data(data, "userId", assignment)
+    return shard_rows(data.fixed_effect_batch("gshard", torch.float64, "cpu"), ranks, rank,
+                      device)
+
+
+def entity_world_worker(proc: int, work: str, worlds, device: str) -> None:
+    """One process of phase 5j's gloo worlds (spawned ahead by
+    ``start_entity_workers``). Once the parent's go file appears, for each
+    world it belongs to it joins through a file store, runs the GAME driver
+    with the world's params (``params-<label>.json``) on ``device`` — the
+    drill through ``main``, its exit code kept — with every count set to 0
+    just before and read just after and the collectives inside the
+    random-effect updates counted, and leaves; then holds its launched
+    kernels to their plain versions at its row block's shape (on the card).
+    The results go to ``proc-<p>.json`` (an ``error-<p>.txt`` on failure)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.parallel.mesh import collective_counts, reset_collective_counts
+
+    try:
+        torch.set_num_threads(2)
+        if device != "cpu":
+            torch.cuda.set_device(torch.device(device))
+        mine = [(label, procs.index(proc), len(procs), kind)
+                for label, procs, kind in worlds if proc in procs]
+        while not os.path.exists(os.path.join(work, "go")):
+            time.sleep(0.05)
+        re_tally = _counted_re_updates()
+        results = {}
+        for label, rank, n_ranks, kind in mine:
+            with open(os.path.join(work, f"params-{label}.json")) as f:
+                params = json.load(f)
+            t_join = time.perf_counter()
+            dist.init_process_group(
+                "gloo", init_method=f"file://{os.path.abspath(os.path.join(work, 'store-' + label))}",
+                world_size=n_ranks, rank=rank,
+                timeout=datetime.timedelta(seconds=ES_WORLD_TIMEOUT_S))
+            join_s = time.perf_counter() - t_join
+            try:
+                dispatch.reset_launch_counts()
+                reset_collective_counts()
+                re_tally.update(updates=0, collectives=0)
+                if device != "cpu":
+                    torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                if kind == "drill":
+                    if rank == n_ranks - 1:
+                        _silence_at(rank, ES_VICTIM_UPDATE, ES_VICTIM_DELAY_S)
+                    cfg = os.path.join(work, f"config-{label}-{rank}.json")
+                    with open(cfg, "w") as f:
+                        json.dump(params, f)
+                    try:
+                        game_train_mod.main(["--config", cfg, "--device", device])
+                        code = 0
+                    except SystemExit as e:
+                        code = e.code
+                    except BaseException as e:  # noqa: BLE001 — the victim's end
+                        code = f"{type(e).__name__}: {str(e)[:200]}"
+                    results[label] = {"rank": rank, "exit": code,
+                                      "wall_s": time.perf_counter() - t0}
+                    if rank == 0:
+                        # the drill's shard set and marker, read before the
+                        # restart (which needs this process) writes on
+                        from photon_ml_tpu_torch.io.checkpoint import latest_checkpoint
+                        from photon_ml_tpu_torch.resilience import read_host_loss_marker
+
+                        ckdir = os.path.join(params["output_dir"], "checkpoints", "combo-0")
+                        ck = latest_checkpoint(ckdir)
+                        results[label]["final_shard_set"] = (
+                            None if ck is None else {"step": ck.step, "shards": ck.shards})
+                        results[label]["marker"] = read_host_loss_marker(ckdir)
+                    continue
+                run = run_game_training(params, device=device)
+                wall_s = time.perf_counter() - t0
+                synchronize(torch.device(device))
+                history = [h for sw in run.sweep for h in sw["history"]]
+                best = run.sweep[run.best_index]["model"]
+                tables = {}
+                for n, p in best.params.items():
+                    tables[n] = os.path.join(work, f"{label}-{rank}-{n}.npy")
+                    np.save(tables[n], p.cpu().numpy())
+                results[label] = {
+                    "rank": rank, "join_s": join_s, "wall_s": wall_s,
+                    "timings_s": run.timings, "codecs": run.codecs,
+                    "launches": dispatch.launch_counts(), "collectives": collective_counts(),
+                    "re_updates": dict(re_tally),
+                    "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                                   if device != "cpu" else None),
+                    "best_index": run.best_index, "tables": tables,
+                    "entity_keys": {k: sorted(v, key=v.get)
+                                    for k, v in run.entity_vocabs.items()},
+                    "history": [{"coordinate": h.coordinate, "objective": h.objective,
+                                 "seconds": h.seconds, "validation": h.validation_metric,
+                                 "solver_iterations": h.solver_iterations,
+                                 "cg_iterations": h.cg_iterations} for h in history],
+                    "output_dirs": run.output_dirs,
+                }
+                del run
+                dist.barrier()
+            finally:
+                dist.destroy_process_group()
+        # the kernels at the row blocks' shapes, once this process's worlds
+        # are done
+        for label, rank, n_ranks, kind in mine:
+            if kind != "sharded" or device == "cpu":
+                continue
+            t0 = time.perf_counter()
+            with open(os.path.join(work, f"params-{label}.json")) as f:
+                params = json.load(f)
+            local = entity_block(work, params, n_ranks, rank, device)
+            results[label]["block_rows"] = int(local.labels.shape[0])
+            results[label]["checks"] = mesh_shard_checks(local, None, rank,
+                                                         results[label]["launches"])
+            results[label]["checks_s"] = time.perf_counter() - t0
+            del local
+        with open(os.path.join(work, f"proc-{proc}.json"), "w") as f:
+            json.dump(results, f)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        with open(os.path.join(work, f"error-{proc}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def start_entity_workers(work: str, device=None) -> list:
+    """Spawn phase 5j's worker processes ahead of the phase (their imports
+    then overlap the phases before it); they wait for the phase's go file
+    in ``work``. ``device`` None: the card."""
+    import multiprocessing
+
+    os.makedirs(work, exist_ok=True)
+    dev = "cuda:0" if device is None else device
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=entity_world_worker, args=(p, work, ES_WORLDS, dev), daemon=True)
+             for p in range(ES_PROCESSES)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _es_tables(res: dict) -> dict:
+    return {n: np.load(path) for n, path in res["tables"].items()}
+
+
+def es_gaps(res: dict, ref, key_map=None) -> dict:
+    """A world rank's readings against the reference run (5c's gates): the
+    best combo, the per-update objectives (relative), the validation AUC,
+    the fixed effect and the random-effect table (absolute, with their
+    scales). ``key_map`` (the multi-process branch): the rank's table rows
+    matched to the reference's by entity key."""
+    ref_hist = [h for s in ref.sweep for h in s["history"]]
+    obj = [abs(a["objective"] - b.objective) / abs(b.objective)
+           for a, b in zip(res["history"], ref_hist)]
+    auc = [abs(a["validation"] - b.validation_metric) for a, b in zip(res["history"], ref_hist)
+           if a["validation"] is not None and b.validation_metric is not None]
+    tables = _es_tables(res)
+    best = ref.sweep[ref.best_index]["model"].params
+    w_ref, t_ref = best["global"].cpu().numpy(), best["per-user"].cpu().numpy()
+    t = tables["per-user"]
+    if key_map is not None:
+        t = t[key_map]
+    return {"best_index": [res["best_index"], ref.best_index],
+            "updates": [len(res["history"]), len(ref_hist)],
+            "objective": max(obj), "auc": max(auc) if auc else None,
+            "w": float(np.abs(tables["global"] - w_ref).max()),
+            "w_scale": max(1.0, float(np.abs(w_ref).max())),
+            "table": float(np.abs(t - t_ref).max()),
+            "table_scale": max(1.0, float(np.abs(t_ref).max()))}
+
+
+def es_gate_failures(gaps: dict) -> list:
+    failed = []
+    if gaps["best_index"][0] != gaps["best_index"][1]:
+        failed.append("best combo")
+    if gaps["updates"][0] != gaps["updates"][1]:
+        failed.append("update count")
+    if not gaps["objective"] <= GAME_TRAIN_OBJECTIVE_RTOL:
+        failed.append("objectives")
+    if gaps["auc"] is not None and not gaps["auc"] <= 1e-6:
+        failed.append("AUC")
+    if not gaps["w"] <= 1e-6 * gaps["w_scale"]:
+        failed.append("fixed effect")
+    if not gaps["table"] <= 1e-6 * gaps["table_scale"]:
+        failed.append("random-effect table")
+    return failed
+
+
+def es_expected_launches(res: dict, on_card: bool) -> dict:
+    """A rank's launches from its run's history: one ``fused_vgc`` per
+    TRON evaluation of the fixed effect and one ``fused_hvp`` per CG step
+    (every rank solves the replicated w), one ``ell_matvec`` per fixed
+    rescore and per combo's start, and on rank 0 one per validation."""
+    fixed = [h for h in res["history"] if h["coordinate"] == "global"]
+    want = with_reduce({
+        "fused_vgc": sum(int(h["solver_iterations"]) + 1 for h in fixed),
+        "fused_hvp": sum(h["cg_iterations"] for h in fixed),
+        "ell_matvec": 1 + len(fixed) + (sum(h["validation"] is not None for h in res["history"])
+                                        if res["rank"] == 0 else 0),
+    })
+    return {k: (want.get(k, 0) if on_card else 0) for k in res["launches"]}
+
+
+def entity_train_phase(work: str, game_inputs, name: str = "", device=None, procs=None):
+    """Phase 5j: 5g's GAME records trained entity-sharded in gloo worlds
+    whose ranks share the card (``ES_WORLDS``, all at once), each held to
+    the same configuration trained unsharded on the card in this process:
+    (a) ``entity_shards`` 2 and (b) 4 with the held-out records, at 5c's
+    gates (the same best combo, objectives 1e-7 relative, tables 1e-6 of
+    their scale, AUC 1e-6), every rank's tables rank 0's bit for bit, no
+    collective inside a random-effect update, each rank's launches its
+    history's and its kernels held to their plain versions at its row
+    block (1e-12); (c) the host-loss drill: 4 ranks with sharded
+    checkpoints every pass and the heartbeat, rank 3 silenced at pass 2:
+    the survivors exit 43 after a complete final shard set and
+    ``host-loss.json``, and (c2) a 2-rank restart from it is held to (a);
+    (d) the multi-process branch: 2 ranks each on its 2 of 4
+    entity-partitioned part files, dense, held to the one-process card run
+    on all 4 (its tables matched by entity key). ``procs``: the workers of
+    ``start_entity_workers`` over ``work`` (started here when None).
+    ``device="cpu"`` rehearses it (no card checks). Returns (summary, the
+    launches of every world's ranks summed)."""
+    from photon_ml_tpu_torch.resilience import HOST_LOSS_EXIT_CODE
+
+    phase_t0 = time.perf_counter()
+    on_card = device is None
+    device_kw = {} if on_card else {"device": device}
+    os.makedirs(work, exist_ok=True)
+    (gpath, upath), (gtrain, gheldout, *gparts), _ = game_inputs
+    entity_paths = gparts[-1]
+    wait_written(gtrain, gheldout, *entity_paths)
+    if procs is None:
+        procs = start_entity_workers(work, device)
+    for label, world_procs, kind in ES_WORLDS:
+        with open(os.path.join(work, f"params-{label}.json"), "w") as f:
+            json.dump(entity_params(work, gtrain, gheldout, gpath, upath, label,
+                                    len(world_procs), kind, entity_paths), f)
+    failures = []
+    try:
+        with open(os.path.join(work, "go"), "w"):
+            pass
+        t_worlds = time.perf_counter()
+        # beside the worlds: the references, unsharded in this process
+        refs = {}
+        for label, kind in (("ref", "reference"), ("ref-multi", "multi-reference")):
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            refs[label] = run_game_training(
+                entity_params(work, gtrain, gheldout, gpath, upath, label, 1, kind,
+                              entity_paths), **device_kw)
+            log(f"[entity] reference {label}: {time.perf_counter() - t0:.2f} s, launches "
+                f"{json.dumps(dispatch.launch_counts())}")
+        deadline = t_worlds + ES_WORLD_TIMEOUT_S
+        victims = {w[1][-1] for w in ES_WORLDS if w[2] == "drill"}
+        for i, p in enumerate(procs):
+            if i not in victims:
+                p.join(max(0.0, deadline - time.perf_counter()))
+        worlds_s = time.perf_counter() - t_worlds
+    finally:
+        alive = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(5.0)
+    errors = []
+    for p in range(ES_PROCESSES):
+        path = os.path.join(work, f"error-{p}.txt")
+        if os.path.exists(path) and p not in victims:
+            with open(path) as f:
+                errors.append(f"process {p}: {f.read()[-3000:]}")
+    stuck = [i for i in alive if i not in victims]
+    if stuck or errors:
+        raise AssertionError(f"phase 5j's worlds failed ({len(stuck)} processes killed at "
+                             f"{ES_WORLD_TIMEOUT_S:.0f} s): " + "\n".join(errors))
+    per_proc = {}
+    for p in range(ES_PROCESSES):
+        path = os.path.join(work, f"proc-{p}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                per_proc[p] = json.load(f)
+    launches = {k: 0 for k in dispatch.KERNELS}
+    worlds = {}
+    ref, ref_multi = refs["ref"], refs["ref-multi"]
+    for label, world_procs, kind in ES_WORLDS:
+        res = [per_proc.get(p, {}).get(label) for p in world_procs]
+        if kind == "drill":
+            codes = [r["exit"] if r else None for r in res]
+            marker = res[0]["marker"] if res[0] else None
+            final = res[0]["final_shard_set"] if res[0] else None
+            if codes[:-1] != [HOST_LOSS_EXIT_CODE] * (len(codes) - 1):
+                failures.append(f"(c) the survivors exited {codes[:-1]}, not "
+                                f"{HOST_LOSS_EXIT_CODE}")
+            if (not marker or marker["peers"] != [len(codes) - 1] or marker["step"] != 2
+                    or not marker["final_checkpoint"]):
+                failures.append(f"(c) host-loss.json: {marker}")
+            if final != {"step": 2, "shards": len(codes)}:
+                failures.append(f"(c) no complete final shard set at step 2 ({final})")
+            worlds[label] = {"kind": kind, "ranks": len(codes), "exit_codes": codes,
+                             "marker": marker, "final_shard_set": final,
+                             "wall_s": [r["wall_s"] if r else None for r in res]}
+            log(f"[entity] ({label}) {json.dumps(worlds[label])}")
+            continue
+        if any(r is None for r in res):
+            failures.append(f"({label}) a rank returned nothing")
+            continue
+        if kind == "multi":
+            ref_run = ref_multi
+            keys = res[0]["entity_keys"]["userId"]
+            ref_keys = ref_run.entity_vocabs["userId"]
+            key_map = np.asarray([keys.index(k) for k in sorted(ref_keys, key=ref_keys.get)])
+        else:
+            ref_run, key_map = ref, None
+        if kind == "restart":
+            # held to (a), the uninterrupted 2-rank run
+            a0 = worlds["a"]["rank0"]
+            gaps = es_gaps(res[0], ref)
+            ta, tc = _es_tables(a0), _es_tables(res[0])
+            gaps_a = {"objective": max(abs(x["objective"] - y["objective"]) / abs(y["objective"])
+                                       for x, y in zip(res[0]["history"], a0["history"])),
+                      "updates": [len(res[0]["history"]), len(a0["history"])],
+                      "w": float(np.abs(tc["global"] - ta["global"]).max()),
+                      "table": float(np.abs(tc["per-user"] - ta["per-user"]).max())}
+            if (gaps_a["updates"][0] != gaps_a["updates"][1]
+                    or not gaps_a["objective"] <= GAME_TRAIN_OBJECTIVE_RTOL
+                    or not gaps_a["w"] <= 1e-6 * gaps["w_scale"]
+                    or not gaps_a["table"] <= 1e-6 * gaps["table_scale"]):
+                failures.append(f"(c2) the restart against (a): {json.dumps(gaps_a)}")
+        else:
+            gaps = es_gaps(res[0], ref_run, key_map)
+            gaps_a = None
+        failed = es_gate_failures(gaps)
+        if failed:
+            failures.append(f"({label}) rank 0 against the unsharded card run: {failed} "
+                            f"({json.dumps(gaps)})")
+        t0s = _es_tables(res[0])
+        for r in res[1:]:
+            tr = _es_tables(r)
+            if not all(np.array_equal(tr[n], t0s[n]) for n in t0s):
+                failures.append(f"({label}) rank {r['rank']}'s tables are not rank 0's bit for "
+                                "bit")
+        for r in res:
+            if kind != "multi" and r["re_updates"]["collectives"] != 0:
+                failures.append(f"({label}) rank {r['rank']}: "
+                                f"{r['re_updates']['collectives']} collectives inside its "
+                                "random-effect updates")
+            want = es_expected_launches(r, on_card) if kind == "sharded" else None
+            if want is not None and r["launches"] != want:
+                failures.append(f"({label}) rank {r['rank']} launched {r['launches']}, "
+                                f"expected {want}")
+            if r["codecs"]["ingest"] != "native":
+                failures.append(f"({label}) rank {r['rank']} ingested on the "
+                                f"{r['codecs']['ingest']} codec")
+        summed = {k: sum(r["launches"][k] for r in res) for k in dispatch.KERNELS}
+        launches = {k: launches[k] + summed[k] for k in launches}
+        updates = len(res[0]["history"])
+        c0 = res[0]["collectives"]
+        worlds[label] = {
+            "kind": kind, "ranks": len(res), "gaps_vs_unsharded": gaps,
+            "gaps_vs_a": gaps_a, "launches_per_rank": [r["launches"] for r in res],
+            "re_updates_per_rank": [r["re_updates"] for r in res],
+            "collectives_rank0": c0,
+            "collectives_per_update_rank0": _per_pass(c0, updates),
+            "solve_s_per_update_rank0": [h["seconds"] for h in res[0]["history"]],
+            "wall_s": [r["wall_s"] for r in res], "join_s": [r["join_s"] for r in res],
+            "timings_s_rank0": res[0]["timings_s"],
+            "peak_bytes": [r["peak_bytes"] for r in res],
+            "block_rows": [r.get("block_rows") for r in res],
+            "checks": [r.get("checks") for r in res],
+            "checks_s": [r.get("checks_s") for r in res],
+            "writers": [bool(r["output_dirs"]) for r in res],
+        }
+        worlds[label]["rank0"] = res[0]
+        log(f"[entity] ({label}) " + json.dumps({k: v for k, v in worlds[label].items()
+                                                  if k != "rank0"}))
+    for w in worlds.values():
+        w.pop("rank0", None)
+    ref_hist = [h for s in ref.sweep for h in s["history"]]
+    summary = {"worlds": worlds, "worlds_s": worlds_s,
+               "reference_solve_s_per_update": [h.seconds for h in ref_hist],
+               "phase_s": time.perf_counter() - phase_t0}
+    log(f"[entity] phase 5j: {summary['phase_s']:.1f} s (the spawned worlds "
+        f"{worlds_s:.1f} s)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -5827,6 +6390,8 @@ def main() -> int:
         mesh_summary, mesh_launches = mesh_train_phase(os.path.join(work, "mesh"), reference,
                                                        train_summary, name, procs=mesh_procs)
         shutil.rmtree(os.path.join(work, "mesh"), ignore_errors=True)
+        # 5j's worker processes start now and import while 5g and 5h run
+        entity_procs = start_entity_workers(os.path.join(work, "entity"))
         # 5g. the index job on phase 6's training file, the GLM and GAME
         # drivers with the quality fingerprint (the GAME one again with a
         # hybrid fixed effect), the export served with its drift monitor and
@@ -5839,6 +6404,11 @@ def main() -> int:
         # records, and 5g's GAME run again through the ingest pipeline
         io_summary, io_launches = io_runtime_phase(os.path.join(work, "io"), game_ref, name,
                                                    inputs=ahead.pop("io"))
+        # 5j. entity-sharded GAME training on 5g's records: entity_shards 2
+        # and 4, the host-loss drill and its restart, and the multi-process
+        # branch, in gloo worlds on the card
+        entity_summary, entity_launches = entity_train_phase(
+            os.path.join(work, "entity"), game_ref["inputs"], name, procs=entity_procs)
         del game_ref
     finally:
         stop_writers()
@@ -5850,6 +6420,7 @@ def main() -> int:
     log(json.dumps({"mesh": mesh_summary}))
     log(json.dumps({"quality_loop": quality_summary}))
     log(json.dumps({"io_runtime": io_summary}))
+    log(json.dumps({"entity_sharded": entity_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":
                                         train_summary["second_run_same_w_bits"]}}))
@@ -5898,6 +6469,7 @@ def main() -> int:
                                  "train_mesh": mesh_launches[kernel],
                                  "quality_game_hybrid": quality_launches["game_hybrid"][kernel],
                                  "io_game_streamed": io_launches[kernel],
+                                 "game_train_entity_sharded": entity_launches[kernel],
                                  "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],

@@ -259,19 +259,13 @@ class GLMDriverParams:
 
 
 # GameDriverParams fields the port does not run yet: field -> (the value
-# that keeps it off, its item in ROADMAP.md queue A). ``entity_shards`` is
-# off at 0 or 1.
+# that keeps it off, its item in ROADMAP.md queue A)
 UNPORTED_GAME_FIELDS = {
     "trace_dir": (None, _OBS),
     "metrics_every": (0.0, _OBS),
     "profile_dir": (None, _OBS),
     "flight_dir": (None, _OBS),
     "convergence_report": (False, _OBS),
-    "entity_shards": (0, "Parallel"),
-    "heartbeat_s": (0.0, "Parallel"),
-    "collective_timeout_s": (None, "Parallel"),
-    "sharded_ckpt": (False, "Parallel"),
-    "collective_mode": (None, "Parallel"),
 }
 # the same for each CoordinateSpec (every coordinate field runs)
 UNPORTED_COORDINATE_FIELDS: Dict[str, tuple] = {}
@@ -281,7 +275,7 @@ def _unported_game_setting(params: "GameDriverParams"):
     """-> (what, item) of the first setting the port does not run, or None."""
     for name, (off, item) in UNPORTED_GAME_FIELDS.items():
         value = getattr(params, name)
-        if value != off and not (name == "entity_shards" and value == 1):
+        if value != off:
             return f"{name}={value!r}", item
     for cname, spec in params.coordinates.items():
         for name, (off, item) in UNPORTED_COORDINATE_FIELDS.items():
@@ -423,6 +417,20 @@ class GameDriverParams:
             )
         if self.entity_shards < 0:
             raise ValueError(f"entity_shards must be >= 0, got {self.entity_shards}")
+        if self.entity_shards > 1:
+            plain_res = [
+                n for n, c in self.coordinates.items()
+                if c.random_effect is not None and c.latent_dim is None and not c.projector
+                and c.shard not in set(self.sparse_shards)
+            ]
+            other_res = [n for n, c in self.coordinates.items()
+                         if c.random_effect is not None and n not in plain_res]
+            if len(plain_res) != 1 or other_res:
+                raise ValueError(
+                    "entity_shards requires exactly one PLAIN random-effect coordinate "
+                    f"(identity projector, dense shard); got plain={plain_res} "
+                    f"other={other_res}"
+                )
         sparse = set(self.sparse_shards)
         for name, spec in self.coordinates.items():
             uses_sparse = spec.shard in sparse
@@ -498,6 +506,14 @@ class GameDriverParams:
                 f"convergence_tolerance must be >= 0, got {self.convergence_tolerance}"
             )
         _validate_pod_resilience(self)
+        if self.entity_shards > 1 and any(c.hot_columns for c in self.coordinates.values()):
+            # the port's row blocks are ELL or dense rows (the GLM driver's
+            # refusal under a mesh)
+            raise ValueError(
+                "hot_columns (hybrid features) is single-device for now: the bucketed "
+                "cold segments have unequal row counts, which the row-sharded mesh path "
+                "does not partition"
+            )
         unported = _unported_game_setting(self)
         if unported is not None:
             raise not_ported(*unported)

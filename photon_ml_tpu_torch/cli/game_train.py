@@ -39,15 +39,38 @@ effect, the grid's combos train at once (``descent.run_grid``, where the
 JAX driver vmaps them; log ``train grid xC (vmapped)``; the grid writes
 no checkpoints, so a SIGTERM ends it after its pass and saves nothing);
 otherwise one after another, each with ``passes_per_dispatch`` and
-``convergence_tolerance``;
-multi-process and entity-sharded runs and the observability envelope
-raise ``NotImplementedError`` naming their ROADMAP item
+``convergence_tolerance``; the observability envelope raises
+``NotImplementedError`` naming its ROADMAP item
 (``cli/config.UNPORTED_GAME_FIELDS``).
+
+On a ``torch.distributed`` world (one process per card, e.g. ``torchrun
+--nproc-per-node P -m photon_ml_tpu_torch.cli.game_train``; the driver
+joins the launcher's world, NCCL on the card, gloo with ``--device cpu``):
+
+- with ``entity_shards`` = P every rank ingests the whole input to its
+  host and lays it out by entity there (``partition.entity_layout``,
+  ``game.data.entity_partition_game_data``), then places only its row
+  block (the fixed effect's rows, on ``fused_vgc`` / ``fused_hvp`` /
+  ``ell_matvec`` for an ELL shard) and its entities' block of the random
+  effect (``EntityShardedRandomEffectCoordinate``, an update with no
+  collective) on its card;
+- without it (the JAX driver's multi-process branch) every rank ingests
+  its own part files (``process_local_paths``), which must be
+  entity-partitioned, and owns the entities of its rows (dense shards).
+
+Exported tables are in global entity order and every rank returns the
+same model; rank 0 alone validates (on the whole model, gathered) and
+writes the outputs. ``sharded_ckpt`` writes the sharded checkpoints (every
+rank its shard), ``heartbeat_s`` starts the heartbeat monitor polled at
+pass boundaries, ``collective_timeout_s`` puts the watchdog on the host
+exchanges and ``collective_mode`` is set for the run; ``main`` exits with
+``HOST_LOSS_EXIT_CODE`` when a peer is lost.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -57,6 +80,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import obs
 from photon_ml_tpu_torch.cli.config import (
     CoordinateSpec,
     GameDriverParams,
@@ -68,10 +92,17 @@ from photon_ml_tpu_torch.cli.train import driver_dtype
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.game.coordinates import (
     CoordinateConfig,
+    EntityShardedRandomEffectCoordinate,
     FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
-from photon_ml_tpu_torch.game.data import GameData, build_bucketed_random_effect_design
+from photon_ml_tpu_torch.game.data import (
+    GameData,
+    build_bucketed_random_effect_design,
+    contiguous_entity_assignment,
+    entity_partition_game_data,
+    entity_shard_assignment,
+)
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, GameModel, run_grid
 from photon_ml_tpu_torch.game.factored import (
     FactoredConfig,
@@ -100,7 +131,12 @@ from photon_ml_tpu_torch.obs import quality as quality_mod
 from photon_ml_tpu_torch.obs.trace import process_identity
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
 from photon_ml_tpu_torch.ops.sparse import cast_values, is_sparse
+from photon_ml_tpu_torch.parallel import mesh as parallel_mesh
+from photon_ml_tpu_torch.parallel import multihost
+from photon_ml_tpu_torch.parallel.heartbeat import HeartbeatMonitor, current_monitor, install_monitor
+from photon_ml_tpu_torch.parallel.overlap import COLLECTIVE_MODE_ENV
 from photon_ml_tpu_torch.resilience import GracefulShutdown
+from photon_ml_tpu_torch.resilience.hostloss import HOST_LOSS_EXIT_CODE, is_host_loss
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize, to_numpy
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed
@@ -120,6 +156,80 @@ def _refuse_multiprocess_hybrid(params: GameDriverParams) -> None:
     if problems:
         raise ValueError("multi-process GAME training does not support: "
                          + "; ".join(problems))
+
+
+def _validate_multiprocess_params(params: GameDriverParams) -> None:
+    """The JAX driver's constraints of its multi-process branch, with its
+    messages (``photon_ml_tpu/cli/game_train.py:89-135``): dense fixed
+    effects and plain random effects with ``num_buckets`` 1 on
+    entity-partitioned splits; everything else fails loudly instead of
+    diverging across processes. The port adds factored random effects to
+    the list (their shared projection is not ported to a world)."""
+    problems = []
+    if params.validate_input:
+        problems.append("validate_input (validation rows would need the same entity "
+                        "partitioning; score offline with cli.score)")
+    if params.initial_model_dir:
+        problems.append(
+            "initial_model_dir (warm start: the loaded RE tables are remapped by POSITION "
+            "into each process's local entity vocabulary before globalization, so "
+            "coefficients would silently attach to the wrong entities; warm-start a "
+            "single-process run or export per-partition models)")
+    if params.sparse_shards:
+        problems.append("sparse_shards (the projected-sparse RE path is per-process host "
+                        "work)")
+    if params.checkpoint_every > 0 and not params.sharded_ckpt:
+        problems.append(
+            "checkpoint_every > 0 without sharded_ckpt (the whole-model save_checkpoint is "
+            "single-writer: every process racing the same step dir would trample the "
+            "tmp/swap protocol — set sharded_ckpt so each process writes only its shard, "
+            "docs/MULTIHOST.md)")
+    for name, spec in params.coordinates.items():
+        if spec.hot_columns:
+            problems.append(f"coordinate {name!r}: hot_columns (the hybrid row permutation "
+                            "is process-local)")
+        if spec.random_effect is not None and spec.num_buckets != 1:
+            problems.append(f"coordinate {name!r}: num_buckets != 1 (bucket shapes must "
+                            "agree across processes)")
+        if spec.projector:
+            problems.append(f"coordinate {name!r}: projector")
+        if spec.latent_dim is not None:
+            problems.append(f"coordinate {name!r}: latent_dim (the factored projection is "
+                            "not sharded over a world in this port)")
+    if problems:
+        raise ValueError("multi-process GAME training does not support: " + "; ".join(problems))
+
+
+def _ordered_entity_ids(re_key: str, vocab: dict) -> list:
+    """One rank's entity vocabulary ordered by local index, for the
+    allgather that makes it global; the ids must be str already
+    (``photon_ml_tpu/cli/game_train.py:140``)."""
+    ordered = [None] * len(vocab)
+    for raw, i in vocab.items():
+        if not isinstance(raw, str):
+            raise ValueError(
+                f"random effect {re_key!r}: entity id {raw!r} is {type(raw).__name__}, not "
+                "str — multi-process GAME requires string entity ids (coerce them at "
+                "ingest, before the vocabulary is built, so every process and every "
+                "artifact agrees on key types)")
+        ordered[i] = raw
+    return ordered
+
+
+def _pad_game_data(data: GameData, n_target: int) -> GameData:
+    """Pad to ``n_target`` rows with weight-0, entity -1 rows, so that every
+    rank holds the same row count."""
+    pad = n_target - data.num_rows
+    if pad == 0:
+        return data
+    return GameData(
+        features={k: np.pad(np.asarray(v), ((0, pad), (0, 0))) for k, v in data.features.items()},
+        labels=np.pad(data.labels, (0, pad)),
+        offsets=np.pad(data.offsets, (0, pad)),
+        weights=np.pad(data.weights, (0, pad)),
+        entity_ids={k: np.pad(v, (0, pad), constant_values=-1)
+                    for k, v in data.entity_ids.items()},
+    )
 
 
 def _coordinate_config(name: str, spec: CoordinateSpec, task: TaskType,
@@ -149,6 +259,7 @@ def build_coordinates(
     device=None,
     design_cache: Dict[str, object] = None,
     shard_vocabs: Dict[str, FeatureVocabulary] = None,
+    sharded: dict = None,
 ):
     """One training coordinate per updating-sequence entry, its data on
     ``device`` (None: the CUDA device, raising without one): fixed effects
@@ -157,13 +268,29 @@ def build_coordinates(
     projected (``RANDOM=k``, ``INDEX_MAP``) or factored (``latent_dim``);
     random effects on an ELL shard through ``INDEX_MAP``.
     ``design_cache`` carries the combo-invariant work across a reg-weight
-    grid (designs and projections depend on the data, never on lambda)."""
+    grid (designs and projections depend on the data, never on lambda).
+
+    ``sharded`` (a world): {"mesh", "assignment", "partition"} with
+    ``data`` the whole entity-partitioned dataset (``entity_shards``), or
+    {"mesh", "assignment", "entity_spaces", "row_base"} with ``data`` this
+    rank's own rows (the multi-process branch). The fixed effect places
+    this rank's row block, the plain random effect builds as an
+    :class:`EntityShardedRandomEffectCoordinate`."""
     device = resolve_device(device)
     cache = {} if design_cache is None else design_cache
     coords = {}
     for name in params.updating_sequence:
         spec = params.coordinates[name]
         cfg = _coordinate_config(name, spec, task, reg_combo[name])
+        if sharded is not None:
+            if name not in cache:
+                cache[name] = _sharded_inputs(params, spec, data, entity_counts, dtype, device,
+                                              sharded)
+            if spec.random_effect is None:
+                coords[name] = FixedEffectCoordinate(cache[name], cfg)
+            else:
+                coords[name] = cache[name].with_config(cfg)
+            continue
         if spec.random_effect is None:
             if spec.hot_columns:
                 # the hybrid split does not depend on lambda: built once per
@@ -263,6 +390,47 @@ def build_coordinates(
     return coords
 
 
+def _sharded_inputs(params, spec, data: GameData, entity_counts, dtype, device, sharded):
+    """A coordinate's combo-invariant inputs in a world: the fixed effect's
+    row block of this rank as a LabeledBatch on ``device``, or the random
+    effect's :class:`EntityShardedRandomEffectCoordinate` (its lanes and
+    rows on the card; ``with_config`` makes each combo's)."""
+    mesh = sharded["mesh"]
+    local = "partition" not in sharded
+    if spec.random_effect is None:
+        batch = data.fixed_effect_batch(spec.shard, dtype, "cpu")
+        if local:
+            return parallel_mesh.shard_rows(batch, 1, 0, device)
+        return parallel_mesh.shard_rows(batch, mesh.size, mesh.flat_index(), device)
+    re_key = spec.random_effect
+    if local:
+        e_glob, e_base = sharded["entity_spaces"][re_key]
+        design = build_bucketed_random_effect_design(
+            data, re_key, spec.shard, len(sharded["local_vocabs"][re_key]),
+            num_buckets=spec.num_buckets, active_cap=spec.active_cap, dtype=dtype,
+            feature_ratio=spec.feature_ratio, min_support=spec.min_support)
+        design = multihost.make_global_re_design(design, mesh, e_glob, e_base,
+                                                 sharded["row_base"])
+        ents = np.asarray(data.entity_ids[re_key], np.int64)
+        coord = EntityShardedRandomEffectCoordinate.from_local(
+            design, torch.as_tensor(np.asarray(data.features[spec.shard]), dtype=dtype),
+            np.where(ents >= 0, ents + e_base, -1),
+            torch.as_tensor(data.offsets, dtype=dtype),
+            _coordinate_config("", spec, TaskType[params.task], spec.reg_weights[0]),
+            mesh, sharded["assignments"][re_key], device=device)
+    else:
+        design = build_bucketed_random_effect_design(
+            data, re_key, spec.shard, entity_counts[re_key], num_buckets=spec.num_buckets,
+            active_cap=spec.active_cap, dtype=dtype, feature_ratio=spec.feature_ratio,
+            min_support=spec.min_support)
+        coord = EntityShardedRandomEffectCoordinate(
+            design, torch.as_tensor(np.asarray(data.features[spec.shard]), dtype=dtype),
+            data.entity_ids[re_key], torch.as_tensor(data.offsets, dtype=dtype),
+            _coordinate_config("", spec, TaskType[params.task], spec.reg_weights[0]),
+            mesh, sharded["assignments"][re_key], sharded["partition"], device=device)
+    return coord
+
+
 def materialize_original_space(model: GameModel, coords: Dict,
                                compact: bool = False) -> GameModel:
     """The model in original feature space: a projected coordinate's
@@ -275,6 +443,9 @@ def materialize_original_space(model: GameModel, coords: Dict,
 
     def bridge(n, p):
         c = coords.get(n)
+        if isinstance(c, EntityShardedRandomEffectCoordinate):
+            # the blocks gathered into global entity order (a collective)
+            return c.global_table(p)
         if not isinstance(c, ProjectedRandomEffectCoordinate):
             return p
         if compact and isinstance(c.projector, IndexMapProjection):
@@ -313,31 +484,87 @@ class GameTrainingRun:
     codecs: Dict[str, str]
 
 
+def _join_game_world(params: GameDriverParams, device) -> bool:
+    """Join the launcher's world unless one is joined (NCCL for the card,
+    gloo for ``device='cpu'``; a no-op without a launcher's variables) and,
+    with ``entity_shards`` > 1, check that the world has that many ranks.
+    True when this call joined it."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    joined_now = (not torch.distributed.is_initialized()
+                  and multihost.initialize_multihost(backend="gloo" if cpu else None))
+    n_world = parallel_mesh.world()[0]
+    if params.entity_shards > 1 and n_world != params.entity_shards:
+        if joined_now:
+            multihost.shutdown_multihost()
+        if params.entity_shards > n_world:
+            raise ValueError(f"entity_shards={params.entity_shards} exceeds {n_world} "
+                             "visible devices")
+        raise ValueError(
+            f"entity_shards={params.entity_shards} needs a world of {params.entity_shards} "
+            f"ranks; this world has {n_world} (launch one process per device, e.g. torchrun "
+            f"--nproc-per-node {params.entity_shards})")
+    return joined_now
+
+
 def run_game_training(params, device=None) -> GameTrainingRun:
     """Train the GAME model described by ``params`` (a GameDriverParams, a
-    dict or a JSON path). ``device=None`` means CUDA, and raises when no
-    card is present. Installs the preemption handler (``graceful_shutdown``)
+    dict or a JSON path). ``device=None`` means CUDA (in a world, this
+    rank's card), and raises when no card is present. Installs the
+    preemption handler (``graceful_shutdown``), the collective watchdog
+    (``collective_timeout_s``) and the heartbeat monitor (``heartbeat_s``)
     around the run."""
-    device = resolve_device(device)
     params = load_params(params, GameDriverParams)
     params.validate()
     _refuse_multiprocess_hybrid(params)
-    prepare_output_dir(params.output_dir, params.overwrite or params.resume)
-    logger = PhotonLogger(
-        os.path.join(params.output_dir, "log-message.txt"), level=params.log_level
-    )
-    shutdown = GracefulShutdown(logger)
-    if params.graceful_shutdown:
-        shutdown.install()
+    joined_now = _join_game_world(params, device)
     try:
-        return _run_game_training(params, device, logger, shutdown)
+        n_world, rank = parallel_mesh.world()
+        device = (parallel_mesh.rank_device(device) if n_world > 1 and device is None
+                  else resolve_device(device))
+        if n_world > 1 and params.entity_shards <= 1:
+            _validate_multiprocess_params(params)
+        writer = rank == 0
+        if writer:
+            prepare_output_dir(params.output_dir, params.overwrite or params.resume)
+        logger = PhotonLogger(
+            os.path.join(params.output_dir, "log-message.txt") if writer else os.devnull,
+            level=params.log_level,
+        )
+        shutdown = GracefulShutdown(logger)
+        if params.graceful_shutdown:
+            shutdown.install()
+        prev_resilience = multihost.configure_collective_resilience(
+            timeout_s=params.collective_timeout_s)
+        prev_mode = os.environ.get(COLLECTIVE_MODE_ENV)
+        if params.collective_mode is not None:
+            os.environ[COLLECTIVE_MODE_ENV] = params.collective_mode
+        monitor = None
+        if params.heartbeat_s > 0:
+            monitor = HeartbeatMonitor(interval_s=params.heartbeat_s).start()
+            install_monitor(monitor)
+            logger.info(f"heartbeat monitor: every {params.heartbeat_s}s over "
+                        f"{monitor.process_count} process(es)")
+        try:
+            return _run_game_training(params, device, logger, shutdown)
+        finally:
+            if params.quality_fingerprint:
+                # normally uninstalled right after the training ingest; this
+                # covers an ingest that raised
+                quality_mod.uninstall_fingerprint_collector()
+            multihost.configure_collective_resilience(prev_resilience.timeout_s,
+                                                      prev_resilience.retries)
+            if prev_mode is None:
+                os.environ.pop(COLLECTIVE_MODE_ENV, None)
+            else:
+                os.environ[COLLECTIVE_MODE_ENV] = prev_mode
+            if monitor is not None:
+                install_monitor(None)
+                monitor.stop()
+            shutdown.uninstall()
+            logger.close()
     finally:
-        if params.quality_fingerprint:
-            # normally uninstalled right after the training ingest; this
-            # covers an ingest that raised
-            quality_mod.uninstall_fingerprint_collector()
-        shutdown.uninstall()
-        logger.close()
+        if joined_now:
+            multihost.shutdown_multihost()
 
 
 def _placed_game_data(data: GameData, dtype: torch.dtype, device) -> GameData:
@@ -370,11 +597,18 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
     fingerprint = None
     if params.quality_fingerprint:
         fingerprint = quality_mod.install_fingerprint_collector()
+    n_world, rank = parallel_mesh.world()
+    # the JAX driver's multi-process branch: a world without entity_shards,
+    # each rank on its own part files
+    multi = n_world > 1 and params.entity_shards <= 1
+    writer = rank == 0
     with timed(logger, "prepare data"):
         t0 = time.perf_counter()
         date_range = resolve_date_range(params)
-        source = IngestSource(expand_date_paths(params.train_input, date_range),
-                              params.field_names)
+        train_paths = expand_date_paths(params.train_input, date_range)
+        if multi:
+            train_paths = multihost.process_local_paths(train_paths)
+        source = IngestSource(train_paths, params.field_names)
         shard_vocabs: Dict[str, FeatureVocabulary] = {}
         fallback_shards = []
         fallback_vocab = None
@@ -387,6 +621,11 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 if fallback_vocab is None:
                     fallback_vocab = source.build_vocab(add_intercept=params.add_intercept)
                 shard_vocabs[shard] = fallback_vocab
+        if multi and fallback_shards:
+            raise ValueError(
+                f"multi-process GAME requires a feature_shards file for every shard (got "
+                f"none for {sorted(fallback_shards)}): the from-records fallback vocabulary "
+                "is built from each process's local rows and would diverge across processes")
         if len(fallback_shards) > 1:
             # the from-records vocabulary is the FULL feature space, so these
             # shards collapse into identical bags, unlike the reference's
@@ -430,6 +669,10 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
         entity_counts = {k: len(v) for k, v in entity_vocabs.items()}
         logger.info(f"shards: { {s: len(v) for s, v in shard_vocabs.items()} } "
                     f"entities: {entity_counts}")
+        sharded = None
+        if multi:
+            data, entity_vocabs, entity_counts, sharded = _globalize_multiprocess(
+                data, entity_vocabs, entity_counts, logger)
 
         vdata = None
         if params.validate_input:
@@ -442,15 +685,41 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 sparse_shards=set(params.sparse_shards),
             )
             codecs["validation_ingest"] = vsource.codec
-            vdata = _placed_game_data(vdata, dtype, device)
+            # rank 0 alone validates, on the whole model
+            logger.info(f"read {vdata.num_rows} validation records")
+            vdata = _placed_game_data(vdata, dtype, device) if writer else None
             synchronize(device)
             timings["validation_ingest"] = time.perf_counter() - t0
-            logger.info(f"read {vdata.num_rows} validation records")
 
+    if params.entity_shards > 1:
+        data, sharded = _entity_layout(params, data, entity_counts, logger)
     shards_by_coord = {n: params.coordinates[n].shard for n in params.updating_sequence}
     res_by_coord = {n: params.coordinates[n].random_effect for n in params.updating_sequence}
+    has_validation = bool(params.validate_input)
+    # the checkpoints' entity keys, in each table's stored row order (a
+    # sharded table's shard-major layout, pad rows keyed uniquely), so that
+    # a restore at another width re-keys by entity
+    ckpt_entity_keys = None
+    if params.sharded_ckpt:
+        ckpt_entity_keys = {}
+        for n, re_key in res_by_coord.items():
+            if re_key is None:
+                continue
+            ordered = [None] * len(entity_vocabs[re_key])
+            for raw, i in entity_vocabs[re_key].items():
+                ordered[i] = raw
+            if sharded is not None:
+                ordered = sharded["assignments"][re_key].stored_entity_keys(ordered)
+            ckpt_entity_keys[n] = ordered
 
     def validation_metric(model: GameModel) -> float:
+        if sharded is not None:
+            # rank 0 scores; every rank takes its value
+            value = _validation_on_rank0(model) if writer else None
+            return float(multihost.allgather_objects(value)[0])
+        return _validation_on_rank0(model)
+
+    def _validation_on_rank0(model: GameModel) -> float:
         # a dense random-effect table on the device scores through the
         # plain join (game/scoring._random_scores), an INDEX_MAP one
         # through its compact table; no host compaction
@@ -486,6 +755,10 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             p, coord = warm_params.get(n), coords[n]
             if p is None:
                 continue
+            if isinstance(coord, EntityShardedRandomEffectCoordinate) and not is_factored_params(p):
+                # a global-order table -> the stored layout (the coordinate
+                # takes its block)
+                p = coord.assignment.table_from_global(to_numpy(p))
             if isinstance(coord, FactoredRandomEffectCoordinate):
                 ok = is_factored_params(p) and p.gamma.shape[1] == coord.factored.latent_dim
             else:
@@ -509,7 +782,8 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
     vmappable = (
         len(grid_combos) > 1
         and params.entity_shards <= 1
-        and vdata is None
+        and not has_validation
+        and not multi
         and not warm_params
         and params.checkpoint_every <= 0
         and not params.divergence_guard
@@ -556,12 +830,13 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             t0 = time.perf_counter()
             coords = build_coordinates(params, data, task, combo, entity_counts,
                                        dtype=dtype, device=device, design_cache=design_cache,
-                                       shard_vocabs=shard_vocabs)
+                                       shard_vocabs=shard_vocabs, sharded=sharded)
+            rows = _row_block(data, sharded)
             cd = CoordinateDescent(
                 coordinates=coords,
-                labels=torch.as_tensor(data.labels, dtype=dtype, device=device),
-                base_offsets=torch.as_tensor(data.offsets, dtype=dtype, device=device),
-                weights=torch.as_tensor(data.weights, dtype=dtype, device=device),
+                labels=torch.as_tensor(data.labels[rows], dtype=dtype, device=device),
+                base_offsets=torch.as_tensor(data.offsets[rows], dtype=dtype, device=device),
+                weights=torch.as_tensor(data.weights[rows], dtype=dtype, device=device),
                 task=task,
             )
             # validation, like persistence, sees original-space
@@ -569,30 +844,26 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             vfn = (
                 (lambda model, _coords=coords: validation_metric(
                     materialize_original_space(model, _coords, compact=True)))
-                if (vdata is not None and params.validate_per_coordinate) else None
+                if (has_validation and params.validate_per_coordinate) else None
             )
             # keyed by the grid INDEX: reg-weight strings need not be unique
             ckpt_dir = (
                 os.path.join(params.output_dir, "checkpoints", f"combo-{combo_index}")
                 if params.checkpoint_every > 0 else None
             )
-            model, history = cd.run(
-                params.num_iterations,
-                initial_model=warm_start(coords) or None,
-                validation_fn=vfn,
-                checkpoint_dir=ckpt_dir,
-                checkpoint_every=max(params.checkpoint_every, 1),
-                resume=params.resume,
-                divergence_guard=params.divergence_guard,
-                # polled at pass boundaries: SIGTERM/SIGINT finishes the
-                # pass, checkpoints and falls through to the break below
-                stop_check=shutdown,
-                freeze=params.freeze_coordinates or None,
-                # passes in chunks of K with the tolerance's early exit,
-                # where the JAX package runs K passes per dispatch
-                passes_per_dispatch=params.passes_per_dispatch,
-                convergence_tolerance=params.convergence_tolerance,
-            )
+            mesh_block = (parallel_mesh.set_mesh(sharded["mesh"]) if sharded is not None
+                          else contextlib.nullcontext())
+            with mesh_block:
+                model, history = _run_descent(cd, params, coords, warm_start(coords) or None,
+                                              vfn, ckpt_dir, shutdown, ckpt_entity_keys)
+                if vfn is not None:
+                    final_metric = history[-1].validation_metric
+                elif has_validation:
+                    final_metric = validation_metric(
+                        materialize_original_space(model, coords, compact=True))
+                else:
+                    final_metric = None
+                model = materialize_original_space(model, coords)
             for h in history:
                 if h.event == "frozen":
                     logger.warn(f"combo={combo} iter={h.iteration} coordinate "
@@ -606,14 +877,6 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                        if h.validation_metric is not None else "")
                     + (f" ({h.seconds:.2f}s/pass)" if h.seconds is not None else "")
                 )
-            if vfn is not None:
-                final_metric = history[-1].validation_metric
-            elif vdata is not None:
-                final_metric = validation_metric(
-                    materialize_original_space(model, coords, compact=True))
-            else:
-                final_metric = None
-            model = materialize_original_space(model, coords)
             synchronize(device)
             sweep.append({"combo": combo, "model": model, "history": history,
                           "validation_metric": final_metric,
@@ -631,7 +894,7 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
 
     # best = highest validation metric (oriented so higher is better);
     # without validation data the last combo wins, like the reference
-    if vdata is not None:
+    if has_validation:
         best_index = int(np.argmax([s["validation_metric"] for s in sweep]))
     else:
         best_index = len(sweep) - 1
@@ -639,11 +902,13 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 f"(validation={sweep[best_index]['validation_metric']})")
 
     # ---- save models (``Driver.scala:393-441`` output modes) ---------------
-    # a preempted run saves nothing
+    # a preempted run saves nothing; in a world rank 0 alone writes (every
+    # rank holds the same model)
     output_dirs: List[str] = []
+    save_here = writer and not shutdown.requested
     with timed(logger, "save models"):
         t0 = time.perf_counter()
-        if fingerprint is not None and fingerprint.rows > 0 and not shutdown.requested:
+        if fingerprint is not None and fingerprint.rows > 0 and save_here:
             # margin sketch: the best model's score distribution over its
             # own training rows, offsets included (the space serving scores
             # live in); one scoring pass, copied to the host once
@@ -653,7 +918,7 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
             ) + torch.as_tensor(data.offsets, dtype=dtype, device=device)
             fingerprint.observe_margins(margins.cpu().numpy(), np.asarray(data.weights))
         to_save: List[int] = []
-        if shutdown.requested:
+        if not save_here:
             pass
         elif params.model_output_mode == "BEST":
             to_save = [best_index]
@@ -705,7 +970,7 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
                 # the export's digest and hot-reloads with the model
                 fingerprint.save(subdir)
             output_dirs.append(subdir)
-        if not shutdown.requested:
+        if save_here:
             for shard, vocab in shard_vocabs.items():
                 vocab.save(os.path.join(params.output_dir, f"feature-index-{shard}.txt"))
         if output_dirs:
@@ -724,6 +989,104 @@ def _run_game_training(params: GameDriverParams, device: torch.device,
         timings=timings,
         codecs=codecs,
     )
+
+
+def _run_descent(cd: CoordinateDescent, params: GameDriverParams, coords, initial_model, vfn,
+                 ckpt_dir, shutdown, ckpt_entity_keys):
+    """``cd.run`` with the driver's settings."""
+    return cd.run(
+        params.num_iterations,
+        initial_model=initial_model,
+        validation_fn=vfn,
+        checkpoint_dir=ckpt_dir,
+        checkpoint_every=max(params.checkpoint_every, 1),
+        resume=params.resume,
+        divergence_guard=params.divergence_guard,
+        # polled at pass boundaries: SIGTERM/SIGINT finishes the pass,
+        # checkpoints and falls through to the driver's break
+        stop_check=shutdown,
+        freeze=params.freeze_coordinates or None,
+        # passes in chunks of K with the tolerance's early exit, where the
+        # JAX package runs K passes per dispatch
+        passes_per_dispatch=params.passes_per_dispatch,
+        convergence_tolerance=params.convergence_tolerance,
+        # every rank its shard, entity-keyed; the heartbeat polled at pass
+        # boundaries turns a lost peer into a final shard set and the
+        # host-loss exit
+        sharded_checkpoints=params.sharded_ckpt,
+        entity_keys=ckpt_entity_keys,
+        heartbeat=current_monitor(),
+    )
+
+
+def _row_block(data: GameData, sharded) -> slice:
+    """This rank's rows of ``data``: its block of the entity-partitioned
+    order (``entity_shards``), else all of them (one process, or a rank's
+    own rows)."""
+    if sharded is None or "partition" not in sharded:
+        return slice(None)
+    r = sharded["partition"].rows_per_shard
+    p = sharded["mesh"].flat_index()
+    return slice(p * r, (p + 1) * r)
+
+
+def _entity_layout(params: GameDriverParams, data: GameData, entity_counts, logger):
+    """The entity-sharded layout on the host (JAX ``cli/game_train.py:
+    786-850``): the round-robin assignment of the plain random effect's
+    entities and the rows regrouped by owner. Returns (permuted data,
+    {"mesh", "assignment", "partition"})."""
+    re_name = next(n for n, c in params.coordinates.items() if c.random_effect is not None)
+    re_key = params.coordinates[re_name].random_effect
+    mesh = parallel_mesh.make_entity_mesh(params.entity_shards)
+    assignment = entity_shard_assignment(entity_counts[re_key], params.entity_shards)
+    with obs.span("partition.entity_layout", cat="partition", shards=params.entity_shards,
+                  entities=entity_counts[re_key]):
+        data, partition = entity_partition_game_data(data, re_key, assignment)
+    logger.info(f"entity-sharded descent: {params.entity_shards} shards, "
+                f"{assignment.rows_per_shard} entities/shard, {partition.rows_per_shard} "
+                f"rows/shard (padded from {partition.row_perm.size} stored rows)")
+    return data, {"mesh": mesh, "assignments": {re_key: assignment}, "partition": partition}
+
+
+def _globalize_multiprocess(data: GameData, entity_vocabs, entity_counts, logger):
+    """The multi-process branch's global spaces (JAX ``cli/game_train.py:
+    716-785``): every rank's rows padded to the world's largest count, each
+    entity vocabulary allgathered in rank order into the global one (an
+    entity on two ranks' splits is refused), and the contiguous entity
+    assignment. Returns (data, global vocabularies, global counts,
+    {"mesh", "assignment", "entity_spaces", "row_base", "local_vocabs"})."""
+    from collections import Counter
+
+    n_world, rank = parallel_mesh.world()
+    n_local = data.num_rows
+    n_target = int(multihost.allgather_host(np.asarray([n_local], np.int64)).max())
+    data = _pad_game_data(data, n_target)
+    local_vocabs = dict(entity_vocabs)
+    entity_spaces = {k: multihost.global_entity_space(c) for k, c in sorted(entity_counts.items())}
+    global_vocabs = {}
+    for k in sorted(entity_vocabs):
+        all_raw = multihost.allgather_strings(_ordered_entity_ids(k, entity_vocabs[k]))
+        if len(set(all_raw)) != len(all_raw):
+            dups = [r for r, c in Counter(all_raw).items() if c > 1]
+            raise ValueError(
+                f"random effect {k!r}: entity ids {sorted(dups)[:5]}"
+                f"{'...' if len(dups) > 5 else ''} appear on more than one process — "
+                "multi-process GAME requires ENTITY-PARTITIONED input splits (every "
+                "entity's rows in exactly one process's files), like the reference's "
+                "RandomEffectIdPartitioner placement")
+        global_vocabs[k] = {r: i for i, r in enumerate(all_raw)}
+    counts = multihost.allgather_objects({k: len(v) for k, v in local_vocabs.items()})
+    res = sorted(entity_vocabs)
+    # one random effect owns the table layout (the JAX branch's too: each
+    # coordinate's table rows are its random effect's global entities)
+    assignments = {k: contiguous_entity_assignment([c[k] for c in counts]) for k in res}
+    logger.info(f"multi-process GAME: {n_world} processes; rows/process {n_target} (padded "
+                f"from {n_local}), global entities "
+                f"{ {k: es[0] for k, es in entity_spaces.items()} }")
+    sharded = {"mesh": parallel_mesh.make_mesh(), "entity_spaces": entity_spaces,
+               "row_base": n_target * rank, "local_vocabs": local_vocabs,
+               "assignments": assignments}
+    return data, global_vocabs, {k: es[0] for k, es in entity_spaces.items()}, sharded
 
 
 def main(argv=None) -> None:
@@ -768,15 +1131,57 @@ def main(argv=None) -> None:
         help="exhausted ingest retries: fail the run (default) or skip and "
         "log the lost group",
     )
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument(
+        "--heartbeat-s", type=float, default=None,
+        help="heartbeat interval in seconds (0 = off): a peer missing 3 intervals is "
+        "declared lost — survivors write a final checkpoint shard set and exit with the "
+        "distinct host-loss code",
+    )
+    p.add_argument(
+        "--collective-timeout-s", type=float, default=None,
+        help="watchdog deadline on host collectives: a stalled exchange times out, "
+        "retries with backoff, and names the straggler instead of wedging the world "
+        "(default: no watchdog)",
+    )
+    p.add_argument(
+        "--sharded-ckpt", action="store_true", default=None,
+        help="per-rank sharded checkpoints: each rank writes shard-<p>-of-<P> and rank 0 "
+        "publishes a quorum manifest; entity-keyed shards restore onto another world size",
+    )
+    p.add_argument(
+        "--entity-shards", type=int, default=None,
+        help="entity-sharded GAME descent over a world of N ranks (the random-effect "
+        "table, its bucket lanes and the entity-partitioned rows all shard; no collective "
+        "in the random-effect update). 0/1 = off",
+    )
+    p.add_argument(
+        "--collective-mode", choices=("fused", "overlap"), default=None,
+        help="collective reduction strategy of feature-sharded solves",
+    )
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; in a world cuda:LOCAL_RANK)")
     args = p.parse_args(argv)
     with open(args.config) as f:
         base = json.load(f)
     for key in ("overwrite", "quality_fingerprint", "streamed_ingest", "ingest_chunk_mb",
-                "decode_threads", "prefetch_depth", "stage_timeout_s", "epoch_policy"):
+                "decode_threads", "prefetch_depth", "stage_timeout_s", "epoch_policy",
+                "heartbeat_s", "collective_timeout_s", "sharded_ckpt", "entity_shards",
+                "collective_mode"):
         if getattr(args, key) is not None:
             base[key] = getattr(args, key)
-    run_game_training(base, device=args.device)
+    try:
+        run_game_training(base, device=args.device)
+    except BaseException as e:
+        import sys
+
+        # a lost peer (a lost heartbeat, a collective past its watchdog
+        # budget, a failed torch.distributed collective): the final shard set
+        # is on disk, so a restart (same or smaller world) resumes from it
+        if is_host_loss(e):
+            print(f"host loss: {e} — exiting {HOST_LOSS_EXIT_CODE} (restart resumes from "
+                  "the sharded checkpoint)", file=sys.stderr)
+            sys.exit(HOST_LOSS_EXIT_CODE)
+        raise
 
 
 if __name__ == "__main__":

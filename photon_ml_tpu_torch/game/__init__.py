@@ -3,5 +3,6 @@
 random-effect designs, ``factored`` the factored random-effect parameters,
 ``scoring`` the model-level scorer ``score_game_data``, ``coordinates``
 the fixed- and random-effect training coordinates and ``descent`` the
-coordinate-descent loop. Projected and factored training coordinates are
-not ported yet."""
+coordinate-descent loop (``projectors`` and ``projected`` the projected
+random effects); ``data`` also holds the entity-sharded layout that
+``coordinates.EntityShardedRandomEffectCoordinate`` trains on."""

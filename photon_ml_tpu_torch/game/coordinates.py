@@ -33,8 +33,15 @@ JAX package's names): a coordinate's state for one reg weight, whose
 pieces that do not depend on the weight are the same tensor objects on
 every call, and a copy of the coordinate on such a state. The combo grid
 and the lambda path (``game/descent.run_grid``, ``run_lambda_path``) run
-on it, combo by combo over the coordinates' one design. Not ported: the
-entity-sharded coordinate.
+on it, combo by combo over the coordinates' one design.
+
+``EntityShardedRandomEffectCoordinate`` (``coordinates.py:790``): the
+random effect over a world of ranks, each holding its entities' block of
+the table (stored shard-major) and their rows (the entity-partitioned row
+order): each rank solves its own lanes and rescores its own rows, and the
+update issues no collective. Under an active mesh the fixed effect's
+objective sums its row partials over the rows' axis
+(``parallel.mesh.row_axis``).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from photon_ml_tpu_torch.models.training import OptimizerType, solve_dtype
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss, loss_for_task
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.ops.sparse import is_sparse, is_structured, matvec, to_hybrid
+from photon_ml_tpu_torch.parallel.mesh import ENTITY_AXIS, entity_block, row_axis
 from photon_ml_tpu_torch.solvers import (
     SolverConfig,
     minimize_lbfgs,
@@ -126,7 +134,9 @@ def _make_solve(config: CoordinateConfig):
     def solve(w0, reg_weight: float, batch: LabeledBatch):
         l1 = reg_weight * config.l1_ratio
         l2 = reg_weight * (1.0 - config.l1_ratio)
-        obj = GLMObjective(loss=loss, l2_weight=l2)
+        # under a mesh the batch is this rank's rows: the row partials sum
+        # over the rows' axis
+        obj = GLMObjective(loss=loss, l2_weight=l2, axis_name=row_axis())
 
         def vg(w):
             return obj.value_and_grad(w, batch)
@@ -408,19 +418,26 @@ class RandomEffectUpdateSummary:
     # [(reason (E_b,), iterations (E_b,), grad_norm (E_b,), valid mask,
     #   entity_index (E_b,), cg_iterations (E_b,) or None), ...]
     pending: list
+    # an entity-sharded coordinate's: every rank's fields joined in rank
+    # order at the first read (a host exchange every rank makes at the same
+    # point of the run), so that each rank's record covers every entity
+    gathered: bool = False
 
     def _materialize(self):
         if self.pending is not None:
             def cat(i):
                 return np.concatenate([to_numpy(p[i])[p[3]] for p in self.pending])
 
-            self._reason = cat(0)
-            self._iterations = cat(1)
-            self._grad_norms = cat(2)
-            self._entity_ids = cat(4)
-            self._cg_iterations = (
-                None if any(p[5] is None for p in self.pending) else cat(5)
-            )
+            fields = [cat(0), cat(1), cat(2), cat(4),
+                      None if any(p[5] is None for p in self.pending) else cat(5)]
+            if self.gathered:
+                from photon_ml_tpu_torch.parallel.multihost import allgather_objects
+
+                ranks = allgather_objects(fields)
+                fields = [None if any(r[k] is None for r in ranks)
+                          else np.concatenate([r[k] for r in ranks]) for k in range(5)]
+            (self._reason, self._iterations, self._grad_norms, self._entity_ids,
+             self._cg_iterations) = fields
             self.pending = None
 
     @property
@@ -600,3 +617,318 @@ class RandomEffectCoordinate:
         ab = torch.sum(torch.abs(table), dim=-1)
         return torch.sum(0.5 * l2 * sq + l1 * ab)
 
+
+
+def _regroup_lanes(eidx: np.ndarray, assignment, n_shards: int):
+    """Lanes of one bucket regrouped by owner shard (JAX
+    ``coordinates.py:889-960``): shard p's lanes contiguous, padded to the
+    largest shard's count ``l_b``; sentinel lanes (entity index at or past
+    ``num_entities``) balance onto shard 0's padding. Returns (order,
+    lane_of, l_b, new_stored): the old lanes ``order`` go to the new lanes
+    ``lane_of``; ``new_stored`` is each new lane's stored table row
+    (``padded_rows`` = sentinel)."""
+    e_global = assignment.num_entities
+    eidx = np.asarray(eidx, np.int64)
+    g2s = assignment.global_to_stored
+    stored = np.where(eidx < e_global, g2s[np.minimum(eidx, e_global)], assignment.padded_rows)
+    owner = assignment.shard_of_stored(np.minimum(stored, assignment.padded_rows - 1))
+    owner = np.where(stored < assignment.padded_rows, owner, 0)
+    counts = np.bincount(owner, minlength=n_shards)
+    l_b = max(int(counts.max()), 1)
+    order = np.argsort(owner, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    slot = np.arange(eidx.size) - starts[owner[order]]
+    lane_of = owner[order] * l_b + slot
+    new_stored = np.full(n_shards * l_b, assignment.padded_rows, np.int64)
+    new_stored[lane_of] = stored[order]
+    return order, lane_of, l_b, new_stored
+
+
+class EntityShardedRandomEffectCoordinate:
+    """The random effect over a world of ranks, each holding its entities
+    (``photon_ml_tpu/game/coordinates.py:790``). Rank p (``mesh.flat_index()``)
+    keeps:
+
+    - its block of the table, rows ``[p * B, (p + 1) * B)`` of the stored
+      (shard-major, padded) layout of ``assignment`` — the coordinate's
+      params are this block, ``(B, d)``;
+    - its rows, block p of the entity-partitioned row order of
+      ``partition`` (every entity's rows on its owner);
+    - per bucket, shard p's lanes of the lanes regrouped by owner, with
+      table and offset indices local to the block (sentinel lanes masked,
+      their solutions dropped), and its block of the per-entity
+      ``reg_weights``, stored shard-major.
+
+    An update solves the rank's lanes (``solvers/batched.py``) and rescores
+    its rows: it issues no collective. Its penalty (:meth:`reg_term`) is the
+    rank's partial; ``sharded_params`` tells the descent to sum it over the
+    ranks with the loss. :meth:`stored_table` gathers the blocks (a
+    collective) and :meth:`global_table` puts them in global entity order.
+    The grid surface (``fused_state_for_reg`` / ``with_fused_state``) is
+    :class:`RandomEffectCoordinate`'s."""
+
+    sharded_params = True
+
+    def __init__(
+        self,
+        design,  # BucketedRandomEffectDesign on the PERMUTED rows, GLOBAL ids
+        row_features,  # (n_pad, d) permuted
+        row_entities,  # (n_pad,) permuted GLOBAL ids, -1 unknown
+        full_offsets_base,  # (n_pad,) permuted
+        config: CoordinateConfig,
+        mesh,
+        assignment,  # game.data.EntityShardAssignment
+        partition,  # game.data.EntityRowPartition
+        reg_weights=None,  # (E,) GLOBAL order
+        device=None,
+    ):
+        if config.random_effect is None:
+            raise ValueError("config lacks random_effect; wrong coordinate")
+        if isinstance(design, RandomEffectDesign):
+            design = BucketedRandomEffectDesign(
+                buckets=[design],
+                entity_index=[np.arange(design.num_entities, dtype=np.int32)],
+                num_entities=design.num_entities,
+            )
+        n_shards = mesh.size
+        if assignment.num_shards != n_shards:
+            raise ValueError(f"assignment built for {assignment.num_shards} shards, mesh "
+                             f"'{ENTITY_AXIS}' axis has {n_shards}")
+        if partition.num_shards != n_shards:
+            raise ValueError(f"row partition built for {partition.num_shards} shards, mesh "
+                             f"'{ENTITY_AXIS}' axis has {n_shards}")
+        if design.num_entities != assignment.num_entities:
+            raise ValueError(f"design covers {design.num_entities} entities, assignment "
+                             f"{assignment.num_entities}")
+        n_pad = partition.padded_rows
+        if int(np.shape(row_entities)[0]) != n_pad:
+            raise ValueError(f"row arrays must be in the partitioned row space ({n_pad} rows), "
+                             f"got {np.shape(row_entities)[0]}")
+        p = mesh.flat_index()
+        b_rows, r_rows = assignment.rows_per_shard, partition.rows_per_shard
+        buckets, locals_, valid, lane_entities = [], [], [], []
+        for bucket, eidx in zip(design.buckets, design.entity_index):
+            order, lane_of, l_b, new_stored = _regroup_lanes(eidx, assignment, n_shards)
+            mine = slice(p * l_b, (p + 1) * l_b)
+            stored = new_stored[mine]
+            real = stored < assignment.padded_rows
+            locals_.append(np.where(real, stored - p * b_rows, b_rows))
+            valid.append(real)
+            glob = np.full(l_b, assignment.num_entities, np.int64)
+            glob[real] = assignment.stored_to_global[stored[real]]
+            lane_entities.append(glob)
+            # the old lanes that land in this rank's slice, in lane order
+            pick = (lane_of >= p * l_b) & (lane_of < (p + 1) * l_b)
+            src = torch.as_tensor(order[pick])
+            dst = torch.as_tensor(lane_of[pick] - p * l_b)
+
+            def regroup(x, fill=0.0):
+                x = torch.as_tensor(x).cpu()
+                out = torch.full((l_b,) + tuple(x.shape[1:]), fill, dtype=x.dtype)
+                out[dst] = x[src]
+                return out
+
+            ri = regroup(bucket.row_index, fill=-1).long()
+            ri = torch.where(ri >= 0, ri - p * r_rows, torch.full_like(ri, -1))
+            buckets.append(RandomEffectDesign(
+                features=regroup(bucket.features), labels=regroup(bucket.labels),
+                weights=regroup(bucket.weights), mask=regroup(bucket.mask),
+                row_index=ri.to(torch.int32)))
+        re_ids = np.asarray(torch.as_tensor(row_entities).cpu(), np.int64)[p * r_rows:(p + 1) * r_rows]
+        known = re_ids >= 0
+        ents_local = np.full(re_ids.shape, -1, np.int64)
+        ents_local[known] = assignment.global_to_stored[re_ids[known]] - p * b_rows
+        rows = slice(p * r_rows, (p + 1) * r_rows)
+        self._setup(config, mesh, assignment, buckets, locals_, valid, lane_entities,
+                    torch.as_tensor(row_features)[rows], ents_local,
+                    torch.as_tensor(full_offsets_base)[rows], reg_weights, device)
+
+    @classmethod
+    def from_local(cls, design, row_features, row_entities, full_offsets_base,
+                   config: CoordinateConfig, mesh, assignment, reg_weights=None, device=None):
+        """The coordinate from this rank's own rows (the multi-process
+        branch, where each rank ingests its own part files and owns the
+        entities of its rows): ``design`` built on the rank's rows with
+        GLOBAL entity indices (``parallel.multihost.make_global_re_design``),
+        ``row_entities`` the rows' global indices (-1 unknown), every entity
+        of them in this rank's block of ``assignment``."""
+        if config.random_effect is None:
+            raise ValueError("config lacks random_effect; wrong coordinate")
+        e_global = assignment.num_entities
+        b_rows = assignment.rows_per_shard
+        base = mesh.flat_index() * b_rows
+
+        def local_rows(g):
+            g = np.asarray(g, np.int64)
+            real = (g >= 0) & (g < e_global)
+            loc = np.full(g.shape, -1, np.int64)
+            loc[real] = assignment.global_to_stored[g[real]] - base
+            if ((loc[real] < 0) | (loc[real] >= b_rows)).any():
+                raise ValueError("an entity of this rank's rows is owned by another rank: "
+                                 "the input splits must be entity-partitioned")
+            return loc, real
+
+        locals_, valid, lane_entities = [], [], []
+        for eidx in design.entity_index:
+            loc, real = local_rows(eidx)
+            locals_.append(np.where(real, loc, b_rows))
+            valid.append(real)
+            lane_entities.append(np.where(real, np.asarray(eidx, np.int64), e_global))
+        ents_local, _ = local_rows(np.asarray(torch.as_tensor(row_entities).cpu()))
+        c = cls.__new__(cls)
+        c._setup(config, mesh, assignment, [b.to("cpu") for b in design.buckets], locals_,
+                 valid, lane_entities, torch.as_tensor(row_features), ents_local,
+                 torch.as_tensor(full_offsets_base), reg_weights, device)
+        return c
+
+    def _setup(self, config, mesh, assignment, buckets, locals_, valid, lane_entities,
+               row_features, ents_local, offsets, reg_weights, device):
+        device = row_features.device if device is None else torch.device(device)
+        self.config = config
+        self.mesh = mesh
+        self.assignment = assignment
+        self.design = BucketedRandomEffectDesign(
+            buckets=[b.to(device) for b in buckets],
+            entity_index=[np.asarray(g, np.int64) for g in lane_entities],
+            num_entities=assignment.num_entities)
+        b_rows = assignment.rows_per_shard
+        lo = mesh.flat_index() * b_rows
+        # per-entity reg weights, stored shard-major, float32 as in the JAX
+        # package (pad rows keep the config weight: their solutions drop)
+        self._uniform_reg = reg_weights is None
+        if reg_weights is None:
+            reg_block = np.full((b_rows,), config.reg_weight, np.float32)
+        else:
+            reg_weights = np.asarray(reg_weights, np.float32)
+            if reg_weights.shape != (assignment.num_entities,):
+                raise ValueError(f"reg_weights must be ({assignment.num_entities},), got "
+                                 f"{reg_weights.shape}")
+            reg_block = assignment.table_from_global(reg_weights)[lo:lo + b_rows]
+        self.reg_weights = torch.as_tensor(reg_block, device=device)
+        self._valid_lanes = [np.asarray(v, bool) for v in valid]
+        self._lanes: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
+        for loc, v in zip(locals_, self._valid_lanes):
+            rows = torch.as_tensor(np.asarray(loc, np.int64), device=device)
+            real = None if v.all() else torch.as_tensor(np.flatnonzero(v), device=device)
+            self._lanes.append((rows.clamp(max=b_rows - 1), real))
+        self.row_features = row_features.to(device)
+        self.row_entities_local = torch.as_tensor(ents_local, dtype=torch.int64, device=device)
+        self.full_offsets_base = offsets.to(device)
+        self._solve = _make_batched_solve(config)
+
+    @property
+    def num_entities(self) -> int:
+        return self.assignment.num_entities
+
+    @property
+    def dim(self) -> int:
+        return self.design.dim
+
+    def initial_params(self) -> torch.Tensor:
+        """Zeros for this rank's block of the stored table."""
+        feats = self.design.buckets[0].features
+        return torch.zeros((self.assignment.rows_per_shard, self.dim),
+                           dtype=torch.promote_types(feats.dtype, torch.float32),
+                           device=feats.device)
+
+    def local_params(self, stored_table) -> torch.Tensor:
+        """This rank's block of a stored (shard-major, padded) table — a
+        checkpoint's or a warm start's — in the block's dtype and device; a
+        table already of the block's shape is taken as the block."""
+        want = self.initial_params()
+        t = torch.as_tensor(np.asarray(stored_table) if not torch.is_tensor(stored_table)
+                            else stored_table)
+        if t.shape[0] != want.shape[0]:
+            t = entity_block(t, self.mesh)
+        return t.to(want)
+
+    def stored_table(self, table: torch.Tensor) -> torch.Tensor:
+        """Every rank's block gathered into the stored table (a collective
+        over the mesh)."""
+        from photon_ml_tpu_torch.parallel.multihost import reshard_replicated
+
+        axis = self.mesh.axis_names[0] if len(self.mesh.axis_names) == 1 else ENTITY_AXIS
+        return reshard_replicated(table, self.mesh, axis)
+
+    def global_table(self, table: torch.Tensor) -> torch.Tensor:
+        """The table in global entity order (``coordinates.py:1063``), the
+        same on every rank."""
+        return self.assignment.table_to_global(self.stored_table(table))
+
+    def update(self, table, partial_scores, generator=None):
+        table, summary, _ = self.update_and_score(table, partial_scores, generator)
+        return table, summary
+
+    def update_and_score(self, table: torch.Tensor, partial_scores: torch.Tensor,
+                         generator=None):
+        """This rank's lanes solved from its block, scattered back into it,
+        and its rows rescored: no collective."""
+        full_offsets = self.full_offsets_base + partial_scores
+        trackers = []
+        for (rows, real), bucket in zip(self._lanes, self.design.buckets):
+            offsets = bucket.gather_offsets(full_offsets)
+            result: BatchedSolverResult = self._solve(
+                table[rows], self.reg_weights[rows], bucket, offsets)
+            w = result.w
+            if real is not None:
+                rows, w = rows[real], w[real]
+            table = table.index_copy(0, rows, w)
+            trackers.append((result.reason, result.iterations, final_grad_norm(result),
+                             result.cg_iterations))
+        scores = _score_rows_by_entity(table, self.row_features, self.row_entities_local)
+        return table, self.wrap_tracker(trackers), scores
+
+    def wrap_tracker(self, trackers) -> RandomEffectUpdateSummary:
+        return RandomEffectUpdateSummary(pending=[
+            (reason, iters, gnorm, valid, ents, cg)
+            for (reason, iters, gnorm, cg), valid, ents in zip(
+                trackers, self._valid_lanes, self.design.entity_index)
+        ], gathered=self.mesh.size > 1)
+
+    def score(self, table: torch.Tensor) -> torch.Tensor:
+        return _score_rows_by_entity(table, self.row_features, self.row_entities_local)
+
+    def with_config(self, config: CoordinateConfig) -> "EntityShardedRandomEffectCoordinate":
+        """A copy on another config (a grid combo's): the lanes, rows and
+        card tensors are shared; uniform reg weights take the config's."""
+        c = copy_module.copy(self)
+        c.config = config
+        if self._uniform_reg:
+            c.reg_weights = torch.full_like(self.reg_weights, config.reg_weight)
+        c._solve = _make_batched_solve(config)
+        return c
+
+    def fused_state_for_reg(self, reg_weight):
+        """:meth:`RandomEffectCoordinate.fused_state_for_reg` on this rank's
+        block (JAX ``coordinates.py:1103``)."""
+        if not self._uniform_reg:
+            raise ValueError(
+                "grid sweeps replace the coordinate's shared reg weight; "
+                "this RandomEffectCoordinate carries CUSTOM per-entity "
+                "reg_weights — run its combos sequentially instead"
+            )
+        return (
+            torch.full((self.assignment.rows_per_shard,), reg_weight, dtype=torch.float32,
+                       device=self.row_features.device),
+            self.full_offsets_base,
+            tuple(self.design.buckets),
+            self.row_features,
+            self.row_entities_local,
+        )
+
+    def with_fused_state(self, state):
+        c = copy_module.copy(self)
+        (c.reg_weights, c.full_offsets_base, buckets, c.row_features,
+         c.row_entities_local) = state
+        c.design = dataclasses.replace(self.design, buckets=list(buckets))
+        return c
+
+    def reg_term(self, table: torch.Tensor) -> torch.Tensor:
+        """This rank's partial of the per-entity penalty (pad rows are zero,
+        so their weight is inert)."""
+        lam = self.reg_weights.to(table.dtype)
+        l2 = lam * (1.0 - self.config.l1_ratio)
+        l1 = lam * self.config.l1_ratio
+        sq = torch.sum(table * table, dim=-1)
+        ab = torch.sum(torch.abs(table), dim=-1)
+        return torch.sum(0.5 * l2 * sq + l1 * ab)

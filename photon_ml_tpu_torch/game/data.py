@@ -17,9 +17,13 @@ ONCE into padded (num_entities, rows_cap, d) tensors
 (:class:`RandomEffectDesign`, built on the host, then placed), the analog
 of ``RandomEffectDataSet``'s groupByKey + reservoir capping; rows beyond
 the cap stay out of the active tensors but are still scored through the
-coefficient table (``RandomEffectDataSet.scala:319-358``). The entity
-partitions of the entity-sharded layout are not ported yet (ROADMAP.md
-queue A, "Parallel").
+coefficient table (``RandomEffectDataSet.scala:319-358``).
+
+The entity-sharded layout (``EntityShardAssignment``,
+``entity_partition_game_data``) is host numpy, deterministic and the same
+on every rank: entity ownership is the sharded checkpoint writer's
+round-robin rule (``io.checkpoint.shard_rows``), the table is stored
+shard-major, and the batch rows are regrouped by their entity's owner.
 """
 
 from __future__ import annotations
@@ -516,3 +520,215 @@ def build_bucketed_random_effect_design(
     return BucketedRandomEffectDesign(
         buckets=buckets, entity_index=entity_index, num_entities=num_entities
     )
+
+
+# -- the entity-sharded layout --------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EntityShardAssignment:
+    """Entity -> shard ownership for entity-sharded GAME descent
+    (``photon_ml_tpu/game/data.py:558``). Ownership is the sharded
+    checkpoint writer's round-robin rule (``io.checkpoint.shard_rows``:
+    shard p owns rows ``p::P`` of the global entity order), so the
+    device layout and the checkpoint shards come from one rule and a
+    restore at any width re-keys rows by entity.
+
+    The table is stored SHARD-MAJOR: shard p's entities contiguous, each
+    shard padded to ``rows_per_shard``, so rank p's block of the stored
+    table is rows ``[p * rows_per_shard, (p + 1) * rows_per_shard)``.
+
+    stored_to_global: (padded_rows,) int64 stored row -> global entity
+                      (``num_entities`` = the pad sentinel).
+    global_to_stored: (num_entities + 1,) int64 inverse; the last slot maps
+                      the global sentinel to the stored sentinel
+                      ``padded_rows``.
+    """
+
+    num_entities: int
+    num_shards: int
+    rows_per_shard: int
+    stored_to_global: np.ndarray
+    global_to_stored: np.ndarray
+
+    @property
+    def padded_rows(self) -> int:
+        return self.num_shards * self.rows_per_shard
+
+    def shard_of_stored(self, stored: np.ndarray) -> np.ndarray:
+        return np.minimum(np.asarray(stored, np.int64) // self.rows_per_shard,
+                          self.num_shards - 1)
+
+    def owner_of_global(self, entities: np.ndarray) -> np.ndarray:
+        """Owning shard of each global entity index in [0, num_entities)."""
+        return self.shard_of_stored(self.global_to_stored[np.asarray(entities, np.int64)])
+
+    def local_of_global(self, entities: np.ndarray) -> np.ndarray:
+        """Row of each global entity index within its owner's block."""
+        stored = self.global_to_stored[np.asarray(entities, np.int64)]
+        return stored - self.shard_of_stored(stored) * self.rows_per_shard
+
+    def stored_entity_keys(self, global_keys) -> list:
+        """The global entity-key list in the STORED (shard-major) order,
+        pad rows keyed uniquely so that a checkpoint's re-keying never
+        aliases them onto real entities."""
+        keys = list(global_keys)
+        if len(keys) != self.num_entities:
+            raise ValueError(f"{len(keys)} entity keys for {self.num_entities} entities")
+        return [str(keys[g]) if g < self.num_entities else f"__entity_pad__:{i}"
+                for i, g in enumerate(self.stored_to_global)]
+
+    def table_to_global(self, stored_table):
+        """Stored (shard-major, padded) table -> global entity order (numpy
+        or a tensor, kept as given)."""
+        idx = self.global_to_stored[: self.num_entities]
+        if torch.is_tensor(stored_table):
+            return stored_table.index_select(
+                0, torch.as_tensor(idx, device=stored_table.device))
+        return np.asarray(stored_table)[idx]
+
+    def table_from_global(self, global_table: np.ndarray) -> np.ndarray:
+        """Global entity order -> the stored layout; pad rows zero."""
+        global_table = np.asarray(global_table)
+        out = np.zeros((self.padded_rows,) + global_table.shape[1:], global_table.dtype)
+        real = self.stored_to_global < self.num_entities
+        out[real] = global_table[self.stored_to_global[real]]
+        return out
+
+
+def _assignment_from_blocks(num_entities: int, blocks) -> EntityShardAssignment:
+    """An assignment whose shard p owns the global entities ``blocks[p]``
+    (in that order), each shard padded to the largest block."""
+    num_shards = len(blocks)
+    per_shard = max(max((len(b) for b in blocks), default=0), 1)
+    padded = per_shard * num_shards
+    stored_to_global = np.full(padded, num_entities, np.int64)
+    for p, rows in enumerate(blocks):
+        rows = np.asarray(rows, np.int64)
+        stored_to_global[p * per_shard: p * per_shard + rows.size] = rows
+    global_to_stored = np.full(num_entities + 1, padded, np.int64)
+    real = stored_to_global < num_entities
+    global_to_stored[stored_to_global[real]] = np.flatnonzero(real)
+    return EntityShardAssignment(num_entities=num_entities, num_shards=num_shards,
+                                 rows_per_shard=per_shard, stored_to_global=stored_to_global,
+                                 global_to_stored=global_to_stored)
+
+
+def entity_shard_assignment(num_entities: int, num_shards: int) -> EntityShardAssignment:
+    """The round-robin entity -> shard assignment (``photon_ml_tpu/game/
+    data.py:647``; the rule of ``io.checkpoint.shard_rows``)."""
+    from photon_ml_tpu_torch.io.checkpoint import shard_rows
+
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    return _assignment_from_blocks(
+        num_entities, [list(shard_rows(num_entities, p, num_shards)) for p in range(num_shards)])
+
+
+def contiguous_entity_assignment(counts) -> EntityShardAssignment:
+    """Shard p owns the contiguous global entities ``[base_p, base_p +
+    counts[p])``, ``base_p`` the sum of the counts before it: the layout of
+    the multi-process GAME branch, where every rank indexes its own
+    entities and the global vocabulary is their concatenation in rank
+    order (``parallel.multihost.global_entity_space``)."""
+    counts = [int(c) for c in counts]
+    bases = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    return _assignment_from_blocks(int(bases[-1]), [np.arange(bases[p], bases[p + 1])
+                                                    for p in range(len(counts))])
+
+
+@dataclasses.dataclass(frozen=True)
+class EntityRowPartition:
+    """The row permutation that groups batch rows by their entity's owner
+    shard (``photon_ml_tpu/game/data.py:679``): shard p's rows sit in the
+    contiguous block ``[p * R, (p + 1) * R)``, padded with -1 sentinel rows
+    so that every shard holds the same count.
+
+    row_perm: (padded_rows,) int64 permuted position -> original row
+              (-1 = pad).
+    """
+
+    num_shards: int
+    rows_per_shard: int
+    row_perm: np.ndarray
+
+    @property
+    def padded_rows(self) -> int:
+        return self.num_shards * self.rows_per_shard
+
+    def apply(self, column: np.ndarray, fill=0.0) -> np.ndarray:
+        """One per-row array in the sharded order (pad rows ``fill``)."""
+        column = np.asarray(column)
+        out = np.full((self.padded_rows,) + column.shape[1:], fill, column.dtype)
+        real = self.row_perm >= 0
+        out[real] = column[self.row_perm[real]]
+        return out
+
+    def restore(self, column: np.ndarray) -> np.ndarray:
+        """Inverse of :meth:`apply` (drops pad rows)."""
+        column = np.asarray(column)
+        real = self.row_perm >= 0
+        out = np.zeros((int(real.sum()),) + column.shape[1:], column.dtype)
+        out[self.row_perm[real]] = column[real]
+        return out
+
+
+def entity_partition_game_data(data: GameData, random_effect: str,
+                               assignment: EntityShardAssignment):
+    """``data`` in the entity-partitioned row order of ``random_effect``
+    (``photon_ml_tpu/game/data.py:723``): rows grouped by their entity's
+    owner shard, pad rows of weight 0. Returns ``(permuted GameData,
+    EntityRowPartition)``. Dense and padded-ELL shards permute (an ELL pad
+    row takes column id ``d`` and value 0, the port's padding); other
+    structured shards are refused."""
+    from photon_ml_tpu_torch.ops.sparse import SparseFeatures, is_sparse
+
+    part = entity_partition_rows(data.entity_ids[random_effect], assignment)
+    real = part.row_perm >= 0
+    src = torch.as_tensor(part.row_perm[real])
+    dst = torch.as_tensor(np.flatnonzero(real))
+
+    def permute_features(v):
+        if is_sparse(v):
+            ind = torch.full((part.padded_rows,) + tuple(v.indices.shape[1:]), v.d,
+                             dtype=v.indices.dtype)
+            val = torch.zeros((part.padded_rows,) + tuple(v.values.shape[1:]),
+                              dtype=v.values.dtype)
+            ind[dst] = v.indices.cpu()[src]
+            val[dst] = v.values.cpu()[src]
+            return SparseFeatures(indices=ind, values=val, d=v.d)
+        if is_structured(v):
+            raise ValueError("entity partitioning permutes dense or plain-ELL shards; "
+                             f"got {type(v).__name__}")
+        return part.apply(v)
+
+    permuted = GameData(
+        features={k: permute_features(v) for k, v in data.features.items()},
+        labels=part.apply(data.labels),
+        offsets=part.apply(data.offsets),
+        weights=part.apply(data.weights),  # pad rows weigh 0: masked out
+        entity_ids={k: part.apply(v, fill=-1) for k, v in data.entity_ids.items()},
+    )
+    return permuted, part
+
+
+def entity_partition_rows(entity_ids: np.ndarray,
+                          assignment: EntityShardAssignment) -> EntityRowPartition:
+    """Group rows by their entity's owner shard, stable within a shard
+    (``photon_ml_tpu/game/data.py:775``). Rows of unknown entities (-1)
+    spread round-robin: they take part in no random-effect solve."""
+    eids = np.asarray(entity_ids, np.int64)
+    n = eids.shape[0]
+    known = eids >= 0
+    owner = np.empty(n, np.int64)
+    owner[known] = assignment.shard_of_stored(assignment.global_to_stored[eids[known]])
+    owner[~known] = np.arange(int((~known).sum())) % assignment.num_shards
+    counts = np.bincount(owner, minlength=assignment.num_shards)
+    per = int(counts.max()) if counts.size else 1
+    row_perm = np.full(per * assignment.num_shards, -1, np.int64)
+    order = np.argsort(owner, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    slot = np.arange(n) - starts[owner[order]]
+    row_perm[owner[order] * per + slot] = order
+    return EntityRowPartition(num_shards=assignment.num_shards, rows_per_shard=per,
+                              row_perm=row_perm)

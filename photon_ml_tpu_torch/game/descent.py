@@ -23,8 +23,19 @@ restarted over the same directory resumes from the newest valid step with
 the generator's state, reproducing the uninterrupted run bit for bit on
 the CPU. Each update probes the ``descent.update`` fault site (key = the
 coordinate's name): a ``corrupt`` action poisons the accepted update with
-NaN, the drill for the divergence guard. Not ported: the sharded
-checkpoints and the heartbeat (ROADMAP.md queue A items 9, 10).
+NaN, the drill for the divergence guard.
+
+On a world of ranks (an active mesh, ``parallel.mesh.set_mesh``) each rank
+holds its rows, and an entity-sharded coordinate its block of the table
+(``sharded_params``): the objective after each update is the sum of every
+rank's partial (the loss of its rows and its blocks' penalties), taken
+with ONE all-reduce over the rows' axis, plus the replicated coordinates'
+penalties. ``run(..., sharded_checkpoints=True)`` writes the JAX
+package's sharded checkpoints (every rank its shard, the stored tables
+gathered at the boundary), restores them re-keyed by entity at any width,
+and polls ``heartbeat`` at pass boundaries: on a lost peer the survivors
+write a final shard set with no collective, then ``host-loss.json``, and
+re-raise :class:`~photon_ml_tpu_torch.resilience.hostloss.HostLossDetected`.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.game.factored import FactoredParams, is_factored_params
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
+from photon_ml_tpu_torch.parallel.mesh import all_reduce, row_axis
 from photon_ml_tpu_torch.resilience import faults as _faults
 from photon_ml_tpu_torch.resilience.shutdown import (
     clear_preempted_marker,
@@ -204,9 +216,14 @@ def _finite(p) -> torch.Tensor:
 
 def _pass_finite(records, params) -> bool:
     """The JAX superpass's guard predicate for one pass: every update's
-    objective and every coordinate's parameters finite (one host read)."""
+    objective and every coordinate's parameters finite (one host read; on a
+    world, every rank's blocks, by one all-reduce)."""
     ok = [_finite(r["objective"]) for r in records] + [_finite(p) for p in params.values()]
-    return bool(torch.stack([t.cpu() for t in ok]).all())
+    flag = torch.stack([t.cpu() for t in ok]).all().to(torch.float64).reshape(1)
+    axis = row_axis()
+    if axis is not None:
+        flag = all_reduce(flag, axis, "guard", op="min")
+    return bool(flag[0] > 0)
 
 
 def _poisoned(p):
@@ -244,12 +261,22 @@ class CoordinateDescent:
                         coords: Optional[Mapping[str, object]] = None) -> torch.Tensor:
         """Loss + every coordinate's penalty, in the JAX package's order
         (``descent.py:337-342``); ``coords``: the coordinates whose
-        penalties apply (a grid combo's), by default the descent's own."""
+        penalties apply (a grid combo's), by default the descent's own.
+        Under a mesh with a rows' axis this rank's loss and its sharded
+        coordinates' penalties are summed over the ranks by one
+        all-reduce, and the replicated coordinates' penalties added once."""
         coords = self.coordinates if coords is None else coords
         names = list(self.coordinates)
-        reg = sum(_coordinate_reg_term(coords[n], params[n]) for n in names)
         total = sum(scores[n] for n in names)
-        return self._loss_fn(self.labels, self.base_offsets + total, self.weights) + reg
+        loss = self._loss_fn(self.labels, self.base_offsets + total, self.weights)
+        axis = row_axis()
+        if axis is None:
+            return loss + sum(_coordinate_reg_term(coords[n], params[n]) for n in names)
+        sharded = [n for n in names if getattr(coords[n], "sharded_params", False)]
+        part = loss + sum(_coordinate_reg_term(coords[n], params[n]) for n in sharded)
+        part = all_reduce(part.reshape(1), axis, "objective")[0]
+        return part + sum(_coordinate_reg_term(coords[n], params[n])
+                          for n in names if n not in sharded)
 
     def run(
         self,
@@ -265,6 +292,9 @@ class CoordinateDescent:
         freeze=None,
         passes_per_dispatch: int = 1,
         convergence_tolerance: float = 0.0,
+        sharded_checkpoints=False,
+        entity_keys=None,
+        heartbeat=None,
     ):
         """Returns (model, history): one record per coordinate update
         (``CoordinateDescent.scala:160-189``), with
@@ -306,7 +336,25 @@ class CoordinateDescent:
         parameters are not all finite is rolled back and replayed through
         the guarded per-update loop, and the next pass starts a new chunk.
         Elsewhere K and the tolerance change nothing, as in the JAX
-        package."""
+        package.
+
+        ``sharded_checkpoints`` (JAX ``descent.py:625-720``): True writes
+        the sharded format (in a world, every rank its shard, the
+        entity-sharded tables gathered into their stored order first); an
+        int N writes N shards from one process. ``entity_keys``
+        (coordinate -> the ordered entity keys of its table's rows; the
+        stored order for an entity-sharded coordinate) labels the rows, so
+        that a restore at another width or entity order re-keys by entity
+        (``io.checkpoint.reindex_entity_params``). Resume takes both
+        formats. ``heartbeat`` (a ``parallel.heartbeat.HeartbeatMonitor``)
+        is polled at pass boundaries after the boundary's checkpoint: on a
+        lost peer the run writes a final checkpoint with no collective
+        (where this boundary's cadence save has not already landed; an
+        entity-sharded table's other blocks are not on this rank, so in a
+        world that final set is only this boundary's cadence save), then
+        ``host-loss.json``, and re-raises
+        :class:`~photon_ml_tpu_torch.resilience.hostloss.HostLossDetected`
+        (the drivers' exit :data:`HOST_LOSS_EXIT_CODE`)."""
         names = list(self.coordinates)
         seed_frozen = set(freeze or ())
         unknown = seed_frozen - set(names)
@@ -333,7 +381,15 @@ class CoordinateDescent:
                     f"{num_iterations}; refusing to return a longer run's state as if "
                     "it were shorter"
                 )
-            model = GameModel(_warm_start_params(self.coordinates, names, ckpt.params))
+            restored = ckpt.params
+            if ckpt.entity_keys and entity_keys:
+                # the entity tables re-keyed onto this run's entity order
+                # (an identical order passes through: a bit-for-bit resume)
+                from photon_ml_tpu_torch.io.checkpoint import reindex_entity_params
+
+                restored = reindex_entity_params(
+                    ckpt, {n: list(k) for n, k in entity_keys.items()})
+            model = GameModel(_warm_start_params(self.coordinates, names, restored))
             if ckpt.generator_state is not None:
                 generator.set_state(torch.from_numpy(np.array(ckpt.generator_state)))
             start_it = ckpt.step
@@ -351,23 +407,92 @@ class CoordinateDescent:
             pending.clear()
 
         writer = _AsyncCheckpointWriter()
+        ekeys = ({n: [str(k) for k in v] for n, v in entity_keys.items()}
+                 if entity_keys else None)
+        num_shards = None if sharded_checkpoints is True else int(sharded_checkpoints or 0)
+        # whether every coordinate's whole parameters are on this rank
+        whole_here = row_axis() is None or not any(
+            getattr(c, "sharded_params", False) for c in self.coordinates.values())
 
-        def save(step: int, wait: bool = False) -> None:
-            from photon_ml_tpu_torch.io.checkpoint import jax_prng_key, save_checkpoint
+        def host_params(stored: bool):
+            """Every coordinate's parameters on the host; with ``stored``
+            an entity-sharded table gathered whole (a collective)."""
+            return {n: _host_params(self.coordinates[n].stored_table(model.params[n])
+                                    if stored and getattr(self.coordinates[n],
+                                                          "sharded_params", False)
+                                    else model.params[n])
+                    for n in names}
 
-            materialize()
+        def snapshot(params_host) -> dict:
+            from photon_ml_tpu_torch.io.checkpoint import jax_prng_key
+
             # the host snapshot of THIS boundary, taken before the next
             # pass mutates anything
-            snapshot = dict(
-                params={n: _host_params(model.params[n]) for n in names},
-                rng_key=jax_prng_key(seed),
-                history=[dataclasses.asdict(h) for h in history],
-                frozen=sorted(frozen),
-                generator_state=generator.get_state().numpy().copy(),
-            )
-            writer.submit(lambda: save_checkpoint(checkpoint_dir, step, **snapshot))
+            return dict(params=params_host, rng_key=jax_prng_key(seed),
+                        history=[dataclasses.asdict(h) for h in history],
+                        frozen=sorted(frozen),
+                        generator_state=generator.get_state().numpy().copy())
+
+        def save(step: int, wait: bool = False) -> None:
+            from photon_ml_tpu_torch.io.checkpoint import save_checkpoint, save_checkpoint_sharded
+
+            materialize()
+            if sharded_checkpoints:
+                # every rank reaches the digest exchange together: written
+                # on the training thread
+                writer.join()
+                save_checkpoint_sharded(checkpoint_dir, step, entity_keys=ekeys,
+                                        num_shards=num_shards,
+                                        **snapshot(host_params(stored=True)))
+                return
+            snap = snapshot(host_params(stored=False))
+            writer.submit(lambda: save_checkpoint(checkpoint_dir, step, **snap))
             if wait:
                 writer.join()
+
+        def host_loss_boundary(step: int, saved: bool) -> None:
+            """The heartbeat poll at a pass boundary (JAX
+            ``descent.py:1060-1170``): on a lost peer a final checkpoint
+            with no collective (unless this boundary's save landed), the
+            marker, and the exception re-raised."""
+            if heartbeat is None:
+                return
+            from photon_ml_tpu_torch.resilience.hostloss import (
+                HostLossDetected,
+                write_host_loss_marker,
+            )
+
+            try:
+                heartbeat.check()
+            except HostLossDetected as e:
+                if checkpoint_dir is not None:
+                    final_ok = True
+                    try:
+                        if saved:
+                            writer.join()
+                        elif not sharded_checkpoints:
+                            save(step, wait=True)
+                        elif whole_here:
+                            # no drain of the pending stats (their gather
+                            # would be a collective): the history written
+                            # is the one already read
+                            from photon_ml_tpu_torch.io.checkpoint import (
+                                save_checkpoint_sharded_final,
+                            )
+
+                            writer.join()
+                            save_checkpoint_sharded_final(
+                                checkpoint_dir, step, entity_keys=ekeys,
+                                num_shards=num_shards, **snapshot(host_params(stored=False)))
+                        else:
+                            # the lost peer's block of an entity-sharded
+                            # table is on no survivor
+                            final_ok = False
+                    except Exception:  # noqa: BLE001 — the marker says so
+                        final_ok = False
+                    write_host_loss_marker(checkpoint_dir, step, e.peers, reason=e.reason,
+                                           final_checkpoint=final_ok)
+                raise
 
         tol = float(convergence_tolerance)
 
@@ -466,8 +591,10 @@ class CoordinateDescent:
                 })
 
         def boundary(step: int, saved: bool) -> bool:
-            """The preemption poll at a pass or chunk boundary: True when
-            the run stops there, after a final checkpoint and the marker."""
+            """The heartbeat and preemption polls at a pass or chunk
+            boundary: True when the run stops there, after a final
+            checkpoint and the marker."""
+            host_loss_boundary(step, saved)
             if stop_check is None or not stop_check():
                 return False
             if checkpoint_dir is not None:
@@ -727,6 +854,10 @@ def _warm_start_params(coords, names, initial_model):
             out[n] = want
             continue
         got = init[n]
+        if hasattr(coords[n], "local_params"):
+            # an entity-sharded coordinate starts from its block of a
+            # stored table
+            got = coords[n].local_params(got)
         if is_factored_params(want) != is_factored_params(got):
             raise ValueError(
                 f"warm start for coordinate {n!r} does not match its parameter structure"

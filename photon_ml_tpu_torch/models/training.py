@@ -52,11 +52,11 @@ from photon_ml_tpu_torch.ops.objective import GLMObjective, RegularizationContex
 from photon_ml_tpu_torch.ops.sparse import values_dtype
 from photon_ml_tpu_torch.ops.stats import summarize_features
 from photon_ml_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
     FEATURE_AXIS,
     active_mesh,
     all_gather,
     feature_sharded,
+    row_axis,
     whole_vectors,
 )
 from photon_ml_tpu_torch.solvers import (
@@ -214,7 +214,7 @@ def _solver_step_fn(config: GLMTrainingConfig):
     def solve(w0, reg_weight, batch: LabeledBatch, norm: NormalizationContext):
         obj = GLMObjective(
             loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0),
-            axis_name=_data_axis(),
+            axis_name=row_axis(),
         )
         cfg = scfg
         if cfg.lower_bounds is not None or cfg.upper_bounds is not None:
@@ -256,18 +256,11 @@ def _variances_fn(config: GLMTrainingConfig):
     def variances(w, reg_weight, batch: LabeledBatch, norm: NormalizationContext):
         obj = GLMObjective(
             loss=loss, normalization=norm, l2_weight=reg_weight * reg.l2_weight(1.0),
-            axis_name=_data_axis(),
+            axis_name=row_axis(),
         )
         return 1.0 / torch.clamp(obj.hessian_diagonal(w, batch), min=_VARIANCE_EPSILON)
 
     return variances
-
-
-def _data_axis():
-    """The axis the objective reduces its data partials over: 'data' under
-    an active mesh that has it, else none."""
-    mesh = active_mesh()
-    return DATA_AXIS if mesh is not None and DATA_AXIS in mesh.axis_names else None
 
 
 def _block_range(batch: LabeledBatch) -> Tuple[int, int]:

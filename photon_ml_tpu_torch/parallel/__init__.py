@@ -13,8 +13,10 @@ ranks, one per device, whose axes (``("data", "feature")`` or
 
 The solvers' loops run on every rank, each taking its branches from host
 reads of reduced scalars, which the all-reduces give every rank bit for
-bit. Entity-sharded GAME, sharded checkpoints and sharded serving are not
-ported yet (ROADMAP.md, queue A item 9b and 9c).
+bit. Entity-sharded GAME (a 1-D 'entity' mesh, ``make_entity_mesh``)
+keeps each rank's entities and their rows on its device; its
+random-effect update issues no collective. Sharded serving is not ported
+yet (ROADMAP.md, queue A item 9c).
 """
 
 from photon_ml_tpu_torch.parallel.mesh import (
@@ -22,13 +24,18 @@ from photon_ml_tpu_torch.parallel.mesh import (
     active_mesh,
     collective_counts,
     default_mesh,
+    entity_block,
+    make_entity_mesh,
     make_feature_mesh,
+    make_game_mesh,
     make_host_device_mesh,
     make_mesh,
     rank_device,
     reset_collective_counts,
+    row_axis,
     set_mesh,
     shard_batch,
+    shard_bucketed_design,
     shard_design,
     split_rows,
 )
@@ -49,13 +56,17 @@ from photon_ml_tpu_torch.parallel.multihost import (
     CollectiveResilience,
     CollectiveTimeout,
     allgather_host,
+    allgather_objects,
     allgather_strings,
     collective_resilience,
     configure_collective_resilience,
     fetch_replicated,
+    global_entity_space,
     hierarchical_psum,
     initialize_multihost,
     make_global_batch,
+    make_global_re_design,
+    reshard_replicated,
     process_local_paths,
     process_local_rows,
     resilient_host_exchange,
@@ -83,13 +94,18 @@ def __getattr__(name):
 __all__ = [
     "Mesh",
     "make_mesh",
+    "make_entity_mesh",
+    "make_game_mesh",
     "make_feature_mesh",
     "make_host_device_mesh",
     "default_mesh",
     "active_mesh",
     "rank_device",
     "set_mesh",
+    "row_axis",
     "shard_batch",
+    "shard_bucketed_design",
+    "entity_block",
     "shard_design",
     "split_rows",
     "collective_counts",
@@ -105,7 +121,11 @@ __all__ = [
     "shard_map_value_and_grad",
     "allgather_host",
     "allgather_strings",
+    "allgather_objects",
     "fetch_replicated",
+    "reshard_replicated",
+    "global_entity_space",
+    "make_global_re_design",
     "initialize_multihost",
     "shutdown_multihost",
     "make_global_batch",

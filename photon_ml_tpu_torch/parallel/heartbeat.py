@@ -18,7 +18,9 @@ raises :class:`~photon_ml_tpu_torch.resilience.hostloss.HostLossDetected`.
 
 :class:`InProcessHeartbeats` simulates peers that beat on every read,
 except a peer whose ``heartbeat.miss`` fault (key = its index) is armed:
-raise mode silences it, delay mode makes it a straggler.
+raise mode silences it, delay mode makes it a straggler. In a world the
+same fault, armed on a rank with its own index as the key, silences that
+rank's beats on the store.
 """
 
 from __future__ import annotations
@@ -96,6 +98,13 @@ class DistributedKVHeartbeats:
         self._beats: Dict[int, float] = {}
 
     def publish(self, pid: int, t: float) -> None:
+        """This rank's beat; an armed ``heartbeat.miss`` fault whose key is
+        this rank's index silences it (raise mode: the drill of a rank that
+        went silent) or delays it."""
+        try:
+            _faults.fire("heartbeat.miss", key=str(int(pid)))
+        except _faults.InjectedFault:
+            return
         try:
             self._store.set(f"{self.KEY_PREFIX}{int(pid)}", repr(float(t)))
         except Exception:  # noqa: BLE001 — the liveness channel is best-effort

@@ -11,12 +11,14 @@ process group is a mesh with no groups, whose reductions are the identity.
 
 Axis conventions (as in the JAX package):
   'data'    — batch rows of the fixed-effect problem;
+  'entity'  — random-effect entities and, in entity-sharded GAME, the
+              entity-partitioned batch rows too;
   'feature' — coefficient columns (the huge-d regime);
   'host' / 'device' — the slow and fast axes of a hierarchical reduction.
 
 :func:`set_mesh` installs the active mesh, which decides every reduction
-of a solve: the objective's row sums over 'data', the margins over
-'feature', and the solvers' inner products of sharded vectors
+of a solve: the objective's row sums over the axis that holds the rows
+('data', else 'entity': :func:`row_axis`), the margins over 'feature', and the solvers' inner products of sharded vectors
 (:func:`feature_sum`). Every collective goes through :func:`all_reduce`
 (or its gather and scatter siblings), which counts it by label, so a run
 can report its collectives and their bytes per objective pass.
@@ -33,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 DATA_AXIS = "data"
+ENTITY_AXIS = "entity"
 FEATURE_AXIS = "feature"
 HOST_AXIS = "host"
 DEVICE_AXIS = "device"
@@ -145,6 +148,24 @@ def make_mesh(n_data: Optional[int] = None) -> Mesh:
     if n > n_world:
         raise ValueError(f"mesh of {n} 'data' devices requested, have {n_world}")
     return _make((DATA_AXIS,), (n,), f"mesh of {n} 'data' devices")
+
+
+def make_entity_mesh(n_entity: Optional[int] = None) -> Mesh:
+    """1-D 'entity' mesh over the world (default: the whole world) for
+    entity-sharded GAME descent: random-effect tables, their bucket lanes
+    and the entity-partitioned rows all shard over this one axis."""
+    n_world, _ = world()
+    n = n_world if n_entity is None else int(n_entity)
+    if n > n_world:
+        raise ValueError(f"mesh of {n} 'entity' devices requested, have {n_world}")
+    return _make((ENTITY_AXIS,), (n,), f"mesh of {n} 'entity' devices")
+
+
+def make_game_mesh(n_data: int, n_entity: int) -> Mesh:
+    """2-D ('data', 'entity') mesh: fixed-effect solves shard rows over both
+    axes flattened; random-effect bucket solves shard over 'entity'."""
+    return _make((DATA_AXIS, ENTITY_AXIS), (int(n_data), int(n_entity)),
+                 f"mesh {n_data}x{n_entity}")
 
 
 def make_feature_mesh(n_data: int, n_feature: int) -> Mesh:
@@ -316,10 +337,24 @@ def feature_sum(partial: torch.Tensor, label: str = "dot") -> torch.Tensor:
     return all_reduce(partial, FEATURE_AXIS, label)
 
 
+def row_axis(mesh: Optional[Mesh] = None) -> Optional[str]:
+    """The axis of the active mesh (or of ``mesh``) that holds the batch
+    rows: 'data' where the mesh has it, else 'entity' (the entity-sharded
+    GAME layout, where each rank holds its entities' rows), else None."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        return None
+    for axis in (DATA_AXIS, ENTITY_AXIS):
+        if axis in mesh.axis_names:
+            return axis
+    return None
+
+
 def data_sum(t: torch.Tensor, label: str, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced over the active mesh's 'data' axis (``t`` itself with
-    no mesh or a mesh without the axis)."""
-    return all_reduce(t, DATA_AXIS, label, op=op)
+    """``t`` reduced over the active mesh's rows' axis (:func:`row_axis`;
+    ``t`` itself with no mesh or a mesh without one)."""
+    axis = row_axis()
+    return t if axis is None else all_reduce(t, axis, label, op=op)
 
 
 # -- placement -----------------------------------------------------------------
@@ -402,6 +437,39 @@ def shard_rows(batch, n_shards: int, index: int, device=None):
         weights=col(padded.weights),
         mask=col(padded.mask),
     )
+
+
+def entity_block(x, mesh: Mesh, device=None):
+    """This rank's block of an entity-major array (the counterpart of the
+    JAX package's ``entity_sharding`` placement): its contiguous
+    ``len / size`` leading rows along 'entity' (all axes flattened), on
+    ``device`` (default: the array's). The leading extent must divide by
+    the mesh size (a shard-major layout padded per shard)."""
+    n = x.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} entity rows do not shard over {mesh.size} 'entity' devices; "
+                         "pad the layout per shard")
+    per = n // mesh.size
+    lo = mesh.flat_index() * per
+    t = x if torch.is_tensor(x) else torch.as_tensor(x)
+    dev = t.device if device is None else torch.device(device)
+    return t[lo:lo + per].to(dev).contiguous()
+
+
+def shard_bucketed_design(design, mesh: Mesh, device=None):
+    """This rank's lanes of every bucket of a BucketedRandomEffectDesign
+    whose lane counts divide by the mesh size (built with
+    ``entity_multiple`` = the mesh size), with their lane -> table row
+    indices; the table itself stays wherever the caller keeps it."""
+    import dataclasses as _dc
+
+    from photon_ml_tpu_torch.game.data import RandomEffectDesign
+
+    buckets = [RandomEffectDesign(*(entity_block(getattr(b, f.name), mesh, device)
+                                    for f in _dc.fields(b)))
+               for b in design.buckets]
+    index = [entity_block(torch.as_tensor(ei), mesh).numpy() for ei in design.entity_index]
+    return _dc.replace(design, buckets=buckets, entity_index=index)
 
 
 def _device_of(x) -> torch.device:

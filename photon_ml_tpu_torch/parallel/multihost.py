@@ -347,6 +347,23 @@ def allgather_host(x) -> np.ndarray:
     return _resilient_exchange("allgather_host", exchange)
 
 
+def allgather_objects(obj) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank (under
+    the watchdog when one is configured)."""
+
+    def exchange():
+        _faults.fire("collective.allreduce", key="allgather_objects")
+        if process_count() == 1:
+            return [obj]
+        import torch.distributed as dist
+
+        out = [None] * process_count()
+        dist.all_gather_object(out, obj)
+        return out
+
+    return _resilient_exchange("allgather_objects", exchange)
+
+
 def allgather_strings(strs) -> list:
     """Every rank's list of strings -> one list in rank order, identical
     on every rank."""
@@ -372,15 +389,91 @@ def allgather_strings(strs) -> list:
     return out
 
 
+def global_entity_space(local_num_entities: int):
+    """(global entity count, this rank's entity base) of the multi-process
+    GAME branch (``photon_ml_tpu/parallel/multihost.py:550``): every
+    entity's rows live in exactly one rank's input split, and this rank's
+    local entity e is global entity ``base + e``."""
+    counts = allgather_host(np.asarray([local_num_entities], np.int64))
+    return int(counts.sum()), int(counts[: process_index()].sum())
+
+
+def reshard_replicated(x, mesh=None, axis: Optional[str] = None):
+    """A tensor whose leading axis is sharded over a mesh axis (this rank
+    holds its block) -> the whole tensor, the blocks in rank order, on every
+    rank: one all-gather (``photon_ml_tpu/parallel/multihost.py:569``).
+    ``axis`` defaults to the mesh's rows' axis; without a mesh or a world
+    the tensor passes through."""
+    import torch
+
+    from photon_ml_tpu_torch.parallel.mesh import active_mesh, all_gather, row_axis
+
+    mesh = mesh if mesh is not None else active_mesh()
+    if not torch.is_tensor(x) or mesh is None:
+        return x
+    axis = axis or row_axis(mesh)
+    if axis is None:
+        return x
+    return all_gather(x, axis, "gather", mesh=mesh).reshape((-1,) + tuple(x.shape[1:]))
+
+
 def fetch_replicated(x):
     """A value on the host: a tensor (every rank holds the same one after
-    a reduction) as a numpy array; anything else unchanged."""
+    a reduction, or after :func:`reshard_replicated`) as a numpy array;
+    anything else unchanged."""
     import torch
 
     if torch.is_tensor(x):
         t = x.detach().cpu()
         return (t.to(torch.float64) if t.dtype == torch.bfloat16 else t).numpy()
     return x
+
+
+def make_global_re_design(design, mesh, num_entities_global: int, entity_base: int,
+                          row_base: int):
+    """This rank's random-effect design as its part of the global one
+    (``photon_ml_tpu/parallel/multihost.py:605``). The input rows are
+    ENTITY-PARTITIONED over the ranks (every entity's rows in one rank's
+    split) and every rank builds with the same bucket count (pin
+    ``num_buckets``). Each bucket is padded to the world's largest lane
+    count and row cap (pad lanes masked, the global sentinel as their
+    entity), and its lanes' entity indices become global (``entity_base``
+    + local). The rows stay on this rank: ``row_index`` stays local (the
+    rank's rows start at global row ``row_base``; the JAX package's global
+    arrays need it, the port's rank-local ones do not). Returns the padded
+    design, its ``num_entities`` the global count."""
+    import torch
+
+    from photon_ml_tpu_torch.game.data import BucketedRandomEffectDesign, RandomEffectDesign
+
+    if isinstance(design, RandomEffectDesign):
+        design = BucketedRandomEffectDesign(
+            buckets=[design], entity_index=[np.arange(design.num_entities, dtype=np.int32)],
+            num_entities=design.num_entities)
+    n_buckets = allgather_host(np.asarray([design.num_buckets], np.int64))
+    if not (n_buckets == n_buckets[0]).all():
+        raise ValueError(f"processes built different bucket counts {n_buckets.tolist()} — "
+                         "pin num_buckets in the coordinate spec")
+    buckets, index = [], []
+    for bucket, eidx in zip(design.buckets, design.entity_index):
+        shapes = allgather_host(np.asarray([[bucket.num_entities, bucket.rows_per_entity]],
+                                           np.int64))
+        e_max, r_max = int(shapes[:, 0].max()), int(shapes[:, 1].max())
+        pe, pr = e_max - bucket.num_entities, r_max - bucket.rows_per_entity
+
+        def pad2(t, fill=0.0):
+            return torch.nn.functional.pad(t, (0, pr, 0, pe), value=fill)
+
+        buckets.append(RandomEffectDesign(
+            features=torch.nn.functional.pad(bucket.features, (0, 0, 0, pr, 0, pe)),
+            labels=pad2(bucket.labels), weights=pad2(bucket.weights), mask=pad2(bucket.mask),
+            row_index=pad2(bucket.row_index, fill=-1)))
+        ei = np.asarray(eidx, np.int64)
+        ei_g = np.where(ei < design.num_entities, ei + entity_base, num_entities_global)
+        ei_g = np.pad(ei_g, (0, e_max - ei_g.shape[0]), constant_values=num_entities_global)
+        index.append(ei_g.astype(np.int32))
+    return BucketedRandomEffectDesign(buckets=buckets, entity_index=index,
+                                      num_entities=num_entities_global)
 
 
 def make_global_batch(local_batch, mesh):

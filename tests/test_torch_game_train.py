@@ -245,8 +245,7 @@ def test_default_device_is_cuda_and_raises_without_a_card(inputs):
 _ON = {"streamed_ingest": True,
        "trace_dir": "trace", "metrics_every": 5.0,
        "profile_dir": "profile", "flight_dir": "flight", "convergence_report": True,
-       "entity_shards": 2, "heartbeat_s": 1.0, "collective_timeout_s": 30.0,
-       "sharded_ckpt": True, "collective_mode": "fused", "hot_columns": 3}
+       "hot_columns": 3}
 _UNPORTED_CASES = (
     [(name, {name: _ON[name]}, item) for name, (_, item) in UNPORTED_GAME_FIELDS.items()]
     + [(f"coordinate.{name}", {"coordinate": {name: _ON[name]}}, item)
@@ -280,6 +279,15 @@ _PORTED_CASES = [
     ("passes with a tolerance", {"passes_per_dispatch": 2, "convergence_tolerance": 2e-3,
                                  "validate_input": [], "num_iterations": 8,
                                  "coordinate": {"reg_weights": [0.1]}}),
+    # the Parallel settings: entity_shards in a 2-rank gloo world, against
+    # the JAX unsharded driver (the JAX driver's entity_shards passes
+    # check_rep to shard_map, which the JAX here no longer takes); the
+    # others in one process, where the JAX driver takes them too
+    ("entity_shards", {"entity_shards": 2}),
+    ("heartbeat_s", {"heartbeat_s": 1.0}),
+    ("collective_timeout_s", {"collective_timeout_s": 30.0}),
+    ("sharded_ckpt", {"sharded_ckpt": True, "checkpoint_every": 1}),
+    ("collective_mode", {"collective_mode": "fused"}),
 ]
 _PORTED = dict(_PORTED_CASES)
 _ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]
@@ -354,7 +362,37 @@ def _hybrid_game_matches_jax(tmp, monkeypatch, hot_columns):
         assert cold > n * (6 - 2)
 
 
+def _entity_shards_match_jax(inputs, change):
+    """The port's driver with ``entity_shards`` in a gloo world of that
+    many ranks: every rank's sweep equals the JAX driver's unsharded one
+    within 1e-6 in every table, objective and validation metric, and rank
+    0 alone writes."""
+    from torch_worlds import run_world
+
+    n = change["entity_shards"]
+    ref = jax_run_game_training(_params(inputs, "ported-jax-entity_shards",
+                                        num_iterations=2, quality_fingerprint=False))
+    results = run_world(inputs["tmp"], n, "game_driver_world", runs={
+        "es": _params(inputs, "ported-torch-entity_shards", num_iterations=2, **change)})
+    for rank, res in enumerate(r["es"] for r in results):
+        assert res["best_index"] == ref.best_index
+        assert bool(res["output_dirs"]) == (rank == 0)
+        for g, r in zip(res["sweep"], ref.sweep):
+            assert g["coordinates"] == [(h.iteration, h.coordinate) for h in r["history"]]
+            np.testing.assert_allclose(g["objectives"], [h.objective for h in r["history"]],
+                                       rtol=1e-7)
+            np.testing.assert_allclose(g["validations"],
+                                       [h.validation_metric for h in r["history"]], atol=1e-6)
+            assert g["histograms"] == [h.convergence_histogram for h in r["history"]]
+            for name, p in r["model"].params.items():
+                np.testing.assert_allclose(g["params"][name], np.asarray(p), rtol=0,
+                                           atol=1e-6, err_msg=name)
+
+
 def _ported_setting_matches_jax(inputs, name, change):
+    if name == "entity_shards":
+        _entity_shards_match_jax(inputs, change)
+        return
     change = dict(change)
     coord = change.pop("coordinate", {})
     iterations = change.pop("num_iterations", 2)
@@ -410,6 +448,13 @@ def _ported_setting_matches_jax(inputs, name, change):
             ck = jax_latest(ckdir)
             assert ck.step == 2 and sorted(ck.params) == ["global", "per-user"]
             assert len(ck.history) == 4
+            if change.get("sharded_ckpt"):
+                # one shard from one process, its rows keyed by entity, as
+                # the JAX driver writes
+                ref_ck = jax_latest(os.path.join(ref.params.output_dir, "checkpoints",
+                                                 f"combo-{combo}"))
+                assert ck.shards == ref_ck.shards == 1
+                assert ck.entity_keys == ref_ck.entity_keys
 
 
 @pytest.mark.parametrize("name,change,item", _ALL_CASES, ids=[c[0] for c in _ALL_CASES])

@@ -332,3 +332,175 @@ def driver_world(rank, n, inputs) -> dict:
         "metrics": run.validation_metrics,
         "best_index": run.best_index,
     }
+
+
+def _game_run(run) -> dict:
+    """A GAME driver run's sweep as numpy: per combo the tables (global
+    entity order), the validation metric and the history's objectives."""
+    out = []
+    for s in run.sweep:
+        out.append({
+            "combo": s["combo"],
+            "params": {n: p.cpu().numpy() for n, p in s["model"].params.items()},
+            "validation_metric": s["validation_metric"],
+            "objectives": [h.objective for h in s["history"]],
+            "validations": [h.validation_metric for h in s["history"]],
+            "histograms": [h.convergence_histogram for h in s["history"]],
+            "coordinates": [(h.iteration, h.coordinate) for h in s["history"]],
+        })
+    return {"sweep": out, "best_index": run.best_index, "output_dirs": run.output_dirs,
+            "entity_vocabs": run.entity_vocabs}
+
+
+def game_driver_world(rank, n, inputs) -> dict:
+    """The port's GAME driver in the world (``entity_shards`` = n, or the
+    multi-process branch without it): every rank returns its run; with
+    ``count_update`` the collectives of one random-effect update are
+    counted on each rank."""
+    from photon_ml_tpu_torch.cli import game_train as tgame
+    from photon_ml_tpu_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    if "re_update" in inputs:
+        out["re_update"] = _re_update(n, inputs["re_update"])
+    for name, params in inputs.get("runs", {}).items():
+        mesh_mod.reset_collective_counts()
+        try:
+            out[name] = _game_run(tgame.run_game_training(dict(params), device="cpu"))
+        except ValueError as e:
+            if not name.startswith("refused"):
+                raise
+            out[name] = str(e)
+            continue
+        out[name]["collectives"] = mesh_mod.collective_counts()
+    return out
+
+
+def _re_update(n, spec) -> dict:
+    """One ``EntityShardedRandomEffectCoordinate`` update on this rank's
+    block, from a start table and partial scores in global order: the
+    table in global order, the rank's rescores (entity-partitioned rows),
+    its penalty partial, the tracker summary and the collectives the
+    update issued."""
+    import torch
+
+    from photon_ml_tpu_torch.game import coordinates as tcoords
+    from photon_ml_tpu_torch.game import data as tdata
+    from photon_ml_tpu_torch.models.training import OptimizerType
+    from photon_ml_tpu_torch.parallel import make_entity_mesh, set_mesh
+    from photon_ml_tpu_torch.parallel import mesh as mesh_mod
+
+    e = spec["num_entities"]
+    data = tdata.GameData.create(*spec["args"])
+    assignment = tdata.entity_shard_assignment(e, n)
+    pdata, part = tdata.entity_partition_game_data(data, "uid", assignment)
+    design = tdata.build_bucketed_random_effect_design(pdata, "uid", "u", e, num_buckets=3,
+                                                      dtype=torch.float64)
+    cfg = tcoords.CoordinateConfig(optimizer=OptimizerType[spec["optimizer"]],
+                                   **spec["config"])
+    mesh = make_entity_mesh(n)
+    coord = tcoords.EntityShardedRandomEffectCoordinate(
+        design, torch.from_numpy(np.asarray(pdata.features["u"])), pdata.entity_ids["uid"],
+        torch.from_numpy(pdata.offsets), cfg, mesh, assignment, part,
+        reg_weights=spec["reg"])
+    rows = slice(mesh.flat_index() * part.rows_per_shard,
+                 (mesh.flat_index() + 1) * part.rows_per_shard)
+    table0 = coord.local_params(assignment.table_from_global(spec["table"]))
+    partial = torch.from_numpy(part.apply(spec["partial"])[rows])
+    mesh_mod.reset_collective_counts()
+    with set_mesh(mesh):
+        table, summary, scores = coord.update_and_score(table0, partial)
+    counted = mesh_mod.collective_counts()
+    return {"collectives": counted, "table": coord.global_table(table).numpy(),
+            "scores": scores.numpy(), "reg": float(coord.reg_term(table)),
+            "row_perm": part.row_perm, "reason": summary.reason,
+            "iterations": summary.iterations, "entity_ids": summary.entity_ids,
+            "grad_norms": summary.grad_norms}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_cli_world(tmp_path, n: int, params: dict, victim=None, victim_delay_s: float = 6.0,
+                  timeout_s: float = WORLD_TIMEOUT_S):
+    """The port's GAME CLI as a launcher starts it: ``n`` processes with
+    ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` set, each
+    running ``main(["--config", ..., "--device", "cpu"])`` (the driver joins
+    the gloo world itself). With ``victim`` = (rank, k): that rank goes
+    silent on the heartbeat store at its k-th coordinate update and takes
+    ``victim_delay_s`` longer over it (``_silence_at``), so that its peers
+    find it lost at the next pass boundary: the delay must exceed the
+    heartbeat's loss threshold (3 intervals) with room for beats that a
+    busy machine delays. Returns every rank's exit code; a rank still
+    running once the others have ended (the victim) is killed and reports
+    None."""
+    import json as _json
+    import multiprocessing as mp
+
+    root = os.path.join(str(tmp_path), f"cli-{time.monotonic_ns()}")
+    os.makedirs(root)
+    cfg = os.path.join(root, "config.json")
+    with open(cfg, "w") as f:
+        _json.dump(params, f)
+    env = {"WORLD_SIZE": str(n), "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_cli_rank_main, args=(r, env, cfg, victim, victim_delay_s),
+                         daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    others = [p for r, p in enumerate(procs) if victim is None or r != victim[0]]
+    for p in others:
+        p.join(max(0.0, deadline - time.monotonic()))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(5.0)
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    if any(p.is_alive() for p in others):
+        raise TimeoutError(f"CLI world of {n} did not end within {timeout_s:.0f} s")
+    return codes
+
+
+def _silence_at(rank: int, k: int, delay_s: float) -> None:
+    """From this rank's k-th ``descent.update`` probe on, its heartbeat
+    beats stop (an armed ``heartbeat.miss`` fault keyed by its index), and
+    that update takes ``delay_s`` longer."""
+    from photon_ml_tpu_torch.resilience import faults
+
+    real = faults.fire
+    seen = [0]
+
+    def fire(site, key=None):
+        if site == "descent.update":
+            seen[0] += 1
+            if seen[0] == k:
+                faults.registry.arm(faults.FaultSpec("heartbeat.miss", "raise", nth=1, count=-1,
+                                                     key=str(rank)))
+                time.sleep(delay_s)
+        return real(site, key)
+
+    faults.fire = fire
+
+
+def _cli_rank_main(rank: int, env: dict, cfg: str, victim, victim_delay_s: float) -> None:
+    os.environ.update(env)
+    os.environ["RANK"] = str(rank)
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch
+
+    from photon_ml_tpu_torch.cli import game_train as tgame
+
+    torch.set_num_threads(1)
+    if victim is not None and victim[0] == rank:
+        _silence_at(rank, victim[1], victim_delay_s)
+    tgame.main(["--config", cfg, "--device", "cpu"])
