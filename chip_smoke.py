@@ -85,12 +85,12 @@ whenever any phase fails. Phases, in order:
    after 5b): ``ScoringEngine.from_model_dir`` in float64 on the card,
    the 8-64 ladder and its degraded ladder built (8 builds, the warmup
    seconds, the resident entity bytes and the ``hbm.serving.warmup``
-   gauges printed); 4,096 of the records as ``ScoreRequest``s from their
+   gauges printed); 2,048 of the records as ``ScoreRequest``s from their
    raw feature keys, entity ids and offsets, in calls of mixed size 1-64,
    every score within 1e-10 max(1, |s|) of 5b's card scores, per bucket
    the p50/p99 of ``featurize``, of the engine's bucket latency (copy in,
    device, copy out) and of the whole call, and no build and no new CUDA
-   memory segment after warmup; 1,024 of them through ``MicroBatcher``
+   memory segment after warmup; 512 of them through ``MicroBatcher``
    (64 rows, 2 ms) from 8 closed-loop clients (requests/s, p50/p99, every
    answer the direct engine's); ``ModelRegistry`` hot reload to the model
    re-saved with every coefficient halved, under the same load (no
@@ -101,6 +101,19 @@ whenever any phase fails. Phases, in order:
    scores the engine's; ``stats``, ``metrics`` and ``health`` answered).
    The engine featurizes densely, as the JAX engine does: 8.55 MB a row,
    so call counts are cut and widths never;
+5k. entity-sharded serving (run right after 5f, on 5b's model and
+   records): ``ShardedScoringEngine`` with 2 and then 4 shards, every
+   shard's block on the one card (``devices=[cuda:0] * P``, so that the
+   blocks score as one gather and dot), the ladder built and the requests
+   in calls of mixed size 1-64, every score within 1e-10 max(1, |s|) of
+   5b's card scores, no build and no new CUDA segment after warmup, the
+   per-shard occupancy, the p50/p99 per bucket and the resident RE bytes
+   per shard beside 5f's unsharded engine's; ``ModelRegistry`` at
+   ``serving_shards`` 2 hot-reloaded to 5f's halved model under load (no
+   dropped request); a ``serving.shard_route`` fault on shard 1 (exactly
+   its entities score fixed-effect-only); ``cli.serve --serving-shards 2``
+   over a pipe (its scores the engine's), started first so that its load
+   overlaps the rest;
 5g. the quality loop (run after phase 7, on phase 6's files):
    ``python -m photon_ml_tpu_torch.cli.build_index`` on phase 6's training
    Avro, in the GLM layout and as a GAME shard with ``--name-prefix``, each
@@ -176,8 +189,8 @@ whenever any phase fails. Phases, in order:
    apart, else the phase fails): it stops after pass 2 with (a)'s first
    objectives within 1e-7; each part's seconds and the grid's launches
    per combo printed;
-5d. GAME train, projected and factored: the same driver on phase 5c's
-   records at 2^16 + 2^14 with a 20,000-column sparse per-user shard
+5d. GAME train, projected and factored: the same driver on 2^13 + 2^11
+   records of phase 5c's layout with a 20,000-column sparse per-user shard
    (phase 5b's layout) and an adId drawn uniformly over 1,024 ads, 2
    passes per combo, validation after every update, ``checkpoint_every``
    1 — ``global`` at phase 5c's check settings but lambda 10;
@@ -297,9 +310,19 @@ whenever any phase fails. Phases, in order:
    survivors exit 43 after a complete final shard set and
    ``host-loss.json``, and (c2) a 2-rank restart from it held to (a); (d)
    the multi-process branch, 2 ranks on 2 of 4 entity-partitioned part
-   files each, dense, held to the one-process run on all 4; per world the
+   files each, dense, held to the one-process run on all 4, and (d2) the
+   same with a factored per-user effect (each rank its users' gamma rows,
+   the shared projection's solve reduced over the ranks); per world the
    solve seconds per update, the collectives and bytes per update, the
-   card peaks and the launches per rank;
+   card peaks and the launches per rank. The drill checkpoints every 2nd
+   pass and its victim is silenced at pass 1, so the loss is found at a
+   boundary with no cadence save: the survivors write the complete final
+   set from the host copy every boundary gathers (its bytes per pass per
+   rank printed), and the marker says ``final_checkpoint: true`` at step
+   1. After the worlds, the engine stood up from (c)'s final shard set by
+   ``ShardedScoringEngine.from_sharded_checkpoint`` at 3 serving shards
+   is held to an unsharded engine on the same step's tables within
+   1e-10 max(1, |s|);
 8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -336,7 +359,7 @@ from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.descent import CoordinateDescent
 from photon_ml_tpu_torch.game.factored import FactoredParams, MatrixFactorizationModel
-from photon_ml_tpu_torch.game.scoring import score_game_data
+from photon_ml_tpu_torch.game.scoring import CompactReTable, precompact_model, score_game_data
 from photon_ml_tpu_torch.io.avro import read_avro_file, write_avro_file
 from photon_ml_tpu_torch.io.ingest import IngestSource
 from photon_ml_tpu_torch.io.models import (
@@ -401,6 +424,7 @@ from photon_ml_tpu_torch.serving import (
     ScoreRequest,
     ScoringEngine,
     ServingStats,
+    ShardedScoringEngine,
     bucket_builds,
 )
 from photon_ml_tpu_torch.serving.engine import bucket_size
@@ -2148,8 +2172,9 @@ def game_phase(work: str, name: str = "", n: int = GAME_RECORDS, d_hashed: int =
 # 14 columns, 8.55 MB a row in f64, so the call counts are cut, never the
 # widths: 4,096 of the 30,000 records scored directly, 1,024 in each of the
 # batcher, reload and cache passes
-SERVE_DIRECT = 4096
-SERVE_PASS = 1024
+# cut from 4,096 and 1,024 requests when phase 5k came in
+SERVE_DIRECT = 2048
+SERVE_PASS = 512
 SERVE_MAX_BATCH = 64
 SERVE_WAIT_MS = 2.0
 SERVE_CLIENTS = 8
@@ -2302,23 +2327,24 @@ def request_line(r: ScoreRequest) -> dict:
     return {"features": r.features, "entities": r.entities, "offset": r.offset}
 
 
-def serving_cli(model_dir: str, requests, want, device=None) -> dict:
-    """``cli.serve`` over a pipe (``serve_pipe``): the requests, then
-    ``stats``, ``metrics`` and ``health``. The scores must equal ``want``
-    and the commands must count the requests."""
+def serving_cli(model_dir: str, requests, want, device=None, flags=()) -> dict:
+    """``cli.serve`` over a pipe (``serve_pipe``, with ``flags``): the
+    requests, then ``stats``, ``metrics`` and ``health``. The scores must
+    equal ``want`` and the commands must count the requests."""
     t0 = time.perf_counter()
     (scores, stats_r, metrics_r, health_r), code, err = serve_pipe(
         model_dir, device, lambda ask: (
             [ask(request_line(r)).get("score", np.nan) for r in requests],
-            *(ask({"cmd": c}) for c in ("stats", "metrics", "health"))))
+            *(ask({"cmd": c}) for c in ("stats", "metrics", "health"))), *flags)
     n = len(requests)
     summary = {"seconds": time.perf_counter() - t0, "exit": code,
                "max_err_vs_engine": serving_gaps(scores, want),
                "stats_requests": stats_r.get("requests"),
                "health_version": health_r.get("version"),
                "health_breaker": health_r.get("breaker", {}).get("state"),
-               "metrics_lines": len(metrics_r.get("prometheus", "").splitlines())}
-    log(f"[serve] cli.serve: {json.dumps(summary)}")
+               "metrics_lines": len(metrics_r.get("prometheus", "").splitlines()),
+               "serving_shards": health_r.get("serving_shards")}
+    log(f"[serve] cli.serve {' '.join(flags)}: {json.dumps(summary)}")
     if (code != 0 or summary["max_err_vs_engine"] > SERVE_RTOL or stats_r.get("requests") != n
             or f"photon_serving_requests {n}" not in metrics_r.get("prometheus", "")
             or health_r.get("version") != os.path.basename(model_dir)):
@@ -2557,7 +2583,288 @@ def serving_phase(work: str, served: dict, name: str = "", direct: int = SERVE_D
     }
     log(f"[serve] {json.dumps(summary)}")
     engine.close()
+    # phase 5k starts from this engine's params and these requests, not
+    # another load and read
+    served["engine"], served["requests"] = engine, requests
     return summary
+
+
+# -- phase 5k: entity-sharded serving --------------------------------------
+
+SHARD_SERVE_COUNTS = (2, 4)
+SHARD_SERVE_REQUESTS = 256
+SHARD_SERVE_PASS = 256
+SHARD_SERVE_FAULT_ROWS = 64
+SHARD_SERVE_VICTIM = 1
+
+
+def scaled_params(params: dict, factor: float) -> dict:
+    """Compact serving params with every coefficient times ``factor`` (a
+    factored effect's gamma; its projection as is): ``scaled_game_model``
+    in memory."""
+    out = {}
+    for n, p in params.items():
+        if isinstance(p, FactoredParams):
+            out[n] = FactoredParams(p.gamma * factor, p.projection)
+        elif isinstance(p, CompactReTable):
+            out[n] = CompactReTable(p.columns, p.values * factor)
+        else:
+            out[n] = p * factor
+    return out
+
+
+def sharded_cli_ahead(served: dict, device=None):
+    """Phase 5k's ``cli.serve --serving-shards 2`` over a pipe, started in
+    a thread ahead of the phase (``main`` starts it before 5f, so that the
+    process's load and ladder overlap 5f): 5b's first requests, their
+    scores held to 5b's card scores. Returns (thread, result dict)."""
+    import threading
+
+    dev = "cuda:0" if device is None else device
+    out = {}
+
+    def run():
+        try:
+            _, records = read_avro_file(served["data"])
+            requests = serving_requests(records[:SERVE_CLI_REQUESTS])
+            del records
+            # the manifest is 5f's to write: this client does not verify it
+            out["summary"] = serving_cli(
+                served["model_dir"], requests,
+                np.asarray(served["scores"][:SERVE_CLI_REQUESTS], np.float64), dev,
+                flags=("--serving-shards", "2", "--no-verify-manifest"))
+        except BaseException as e:  # noqa: BLE001 — raised by the phase
+            out["error"] = e
+
+    thread = threading.Thread(target=run, name="cli-serve-sharded", daemon=True)
+    thread.start()
+    return thread, out
+
+
+def sharded_serving_phase(work: str, served: dict, name: str = "", v2_dir=None,
+                          unsharded_resident=None, cli=None,
+                          n_requests: int = SHARD_SERVE_REQUESTS,
+                          per_pass: int = SHARD_SERVE_PASS, seed: int = SEED + 60,
+                          **device_kw):
+    """Phase 5k: phase 5b's model and records through the entity-sharded
+    engine, every shard's block on the one card (``device_kw`` names
+    another device for a rehearsal), from 5f's engine's params and 5f's
+    requests when 5f left them in ``served`` (else the model directory
+    and the records are read);
+    ``v2_dir``: 5f's halved model directory (written here when None);
+    ``unsharded_resident``: 5f's resident RE bytes; ``cli``:
+    ``sharded_cli_ahead``'s (started here when None). Every gate raises.
+    Returns (summary, the launches counted over the phase: none, the
+    engine featurizes densely)."""
+    import threading
+
+    from photon_ml_tpu_torch.io.models import load_game_model_auto
+    from photon_ml_tpu_torch.resilience.faults import FaultSpec, inject
+
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    dev = "cuda:0" if on_card else device_kw["device"]
+    cuda = torch.device(dev).type == "cuda"
+    os.makedirs(work, exist_ok=True)
+    cli_thread, cli_out = cli if cli is not None else sharded_cli_ahead(served, dev)
+    model_dir, card_scores = served["model_dir"], served["scores"]
+    t0 = time.perf_counter()
+    if len(served.get("requests", ())) >= n_requests:
+        requests = served["requests"][:n_requests]
+    else:
+        _, records = read_avro_file(served["data"])
+        requests = serving_requests(records[:n_requests])
+        del records
+    n_req = len(requests)
+    want = np.asarray(card_scores[:n_req], np.float64)
+    dispatch.reset_launch_counts()
+    base = served.get("engine")
+    if base is not None:
+        # 5f's compact params, already on the card
+        compact = dict(base._params)
+        shards, res = base.shards, base.random_effects
+        shard_vocabs, re_vocabs = base.shard_vocabs, base.re_vocabs
+    else:
+        params, shards, res, shard_vocabs, re_vocabs = load_game_model_auto(model_dir)
+        compact = precompact_model(params)
+        del params
+    load_s = time.perf_counter() - t0
+    log(f"[shard-serve] {n_req} requests and the model's compact params in {load_s:.2f} s "
+        f"(set-up; {'from 5f' if base is not None else 'read and loaded'})")
+
+    def engine(p, num_shards, stats=None):
+        return ShardedScoringEngine(p, shards, res, shard_vocabs, re_vocabs,
+                                    num_shards=num_shards, devices=[dev] * num_shards,
+                                    dtype=torch.float64, stats=stats)
+
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < n_req:
+        sizes.append(int(min(rng.integers(1, SERVE_MAX_BATCH + 1), n_req - sum(sizes))))
+    by_count, engines = {}, {}
+    for num_shards in SHARD_SERVE_COUNTS:
+        stats = _RawBucketStats()
+        t0 = time.perf_counter()
+        eng = engine(compact, num_shards, stats)
+        pin_s = time.perf_counter() - t0
+        builds0 = bucket_builds()
+        t0 = time.perf_counter()
+        warmed = eng.warmup(max_batch=SERVE_MAX_BATCH)
+        warmup_s = time.perf_counter() - t0
+        builds = bucket_builds() - builds0
+        segments = torch.cuda.memory_stats()["segment.all.allocated"] if cuda else None
+        got = np.empty(n_req)
+        occupancy = np.zeros(num_shards, np.int64)
+        per_bucket, lo = {}, 0
+        t_direct = time.perf_counter()
+        for size in sizes:
+            feats, ents, offsets = eng.featurize(requests[lo:lo + size])
+            t1 = time.perf_counter()
+            got[lo:lo + size] = eng.score_arrays(feats, ents, offsets)
+            per_bucket.setdefault(bucket_size(size), []).append(time.perf_counter() - t1)
+            occupancy += [int(stats.registry.gauge(f"serving.shard.occupancy.{p}").value)
+                          for p in range(num_shards)]
+            del feats
+            lo += size
+        direct_s = time.perf_counter() - t_direct
+        rebuilt = bucket_builds() - builds0 - builds
+        new_segments = (torch.cuda.memory_stats()["segment.all.allocated"] - segments
+                        if cuda else None)
+        err = serving_gaps(got, want)
+        line = {
+            "shards": num_shards, "devices": [str(d) for d in eng.devices],
+            "device_groups": len(eng._groups), "pin_s": pin_s, "warmup_s": warmup_s,
+            "builds": builds, "builds_after_warmup": rebuilt, "new_cuda_segments": new_segments,
+            "calls": len(sizes), "direct_s": direct_s, "max_err_vs_5b": err,
+            "placements_per_shard": occupancy.tolist(),
+            "resident_re_bytes_per_shard": eng.stats.registry.gauge(
+                "serving.shard.resident_re_bytes_per_process").value,
+            "unsharded_resident_re_bytes": unsharded_resident,
+            "call_ms_by_batch_bucket": {str(b): quantiles_ms(v)
+                                        for b, v in sorted(per_bucket.items())},
+            "bucket_latency_ms_by_routed_bucket": {str(b): quantiles_ms(v)
+                                                   for b, v in sorted(stats.raw.items())},
+            "shard_device_ms": {p: v.get("device_ms") for p, v in
+                                stats.snapshot()["shards"].items()},
+        }
+        log(f"[shard-serve] {json.dumps(line)}")
+        if err > SERVE_RTOL:
+            raise AssertionError(f"{num_shards} shards: scores differ from 5b's by {err:.3e}")
+        if builds != len(warmed) or eng.compile_count != len(warmed) or rebuilt:
+            raise AssertionError(f"{num_shards} shards: {builds} builds at warmup, {rebuilt} "
+                                 "after it")
+        if cuda and new_segments != 0:
+            raise AssertionError(f"{num_shards} shards: steady-state traffic allocated "
+                                 f"{new_segments} CUDA segments")
+        by_count[str(num_shards)] = line
+        engines[num_shards] = eng
+    engines.pop(4).close()
+
+    # a routing fault on one shard: exactly its entities score
+    # fixed-effect-only, every request answered
+    eng2 = engines[2]
+    feats, ents, offsets = eng2.featurize(requests[:SHARD_SERVE_FAULT_ROWS])
+    degraded0 = eng2.stats.registry.counter("serving.shard.degraded_rows").value
+    with inject(FaultSpec("serving.shard_route", "raise", nth=1, count=-1,
+                          key=str(SHARD_SERVE_VICTIM))):
+        faulted = eng2.score_arrays(feats, ents, offsets)
+    hit = np.zeros(len(faulted), bool)
+    masked = {}
+    for rk, col in ents.items():
+        col = np.asarray(col)
+        owned = (col >= 0) & (eng2.assignments[rk].owner_of_global(np.maximum(col, 0))
+                              == SHARD_SERVE_VICTIM)
+        hit |= owned
+        masked[rk] = np.where(owned, -1, col)
+    fault = {"rows": len(faulted), "victim": SHARD_SERVE_VICTIM, "rows_hit": int(hit.sum()),
+             "max_err_vs_victims_entities_cold": serving_gaps(
+                 faulted, eng2.score_arrays(feats, masked, offsets)),
+             "max_err_untouched_vs_5b": serving_gaps(
+                 faulted[~hit], want[:SHARD_SERVE_FAULT_ROWS][~hit]),
+             "degraded_rows": eng2.stats.registry.counter(
+                 "serving.shard.degraded_rows").value - degraded0}
+    del feats
+    log(f"[shard-serve] fault on shard {SHARD_SERVE_VICTIM}: {json.dumps(fault)}")
+    if (fault["max_err_vs_victims_entities_cold"] > SERVE_RTOL
+            or fault["max_err_untouched_vs_5b"] > SERVE_RTOL
+            or not 0 < fault["rows_hit"] < fault["rows"] or not fault["degraded_rows"]):
+        raise AssertionError(f"shard fault: {json.dumps(fault)}")
+
+    # hot reload at serving_shards 2 under load: v2 is 5f's halved model
+    if v2_dir is None:
+        write_model_manifest(model_dir)
+        v2_dir = os.path.join(work, "watch", "v2")
+        scaled_game_model(model_dir, v2_dir, 0.5)
+    pass_reqs, pass_want = requests[:per_pass], want[:per_pass]
+    offs = np.asarray([r.offset for r in pass_reqs])
+    v2_want = 0.5 * (pass_want - offs) + offs
+    reg_stats = ServingStats()
+    v2_params = scaled_params(compact, 0.5)
+
+    def factory(root):
+        # v1 is the warmed 2-shard engine above; v2 the halved params
+        return eng2 if root == model_dir else engine(v2_params, 2, reg_stats)
+
+    registry = ModelRegistry(engine_factory=factory, warmup_max_batch=SERVE_MAX_BATCH,
+                             stats=reg_stats, serving_shards=2)
+    registry.load(model_dir)
+    reloaded = threading.Event()
+    out = []
+    with MicroBatcher(registry.score, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                      stats=reg_stats,
+                      presort_fn=eng2.shard_presort_key) as batcher:
+        loop = threading.Thread(target=lambda: out.append(closed_loop(
+            batcher.submit, pass_reqs, SERVE_CLIENTS, keep_going=lambda: not reloaded.is_set())))
+        loop.start()
+        while len(out) == 0 and reg_stats.requests < per_pass // 4:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        v2 = registry.load(v2_dir)
+        reload_s = time.perf_counter() - t0
+        reloaded.set()
+        loop.join(900)
+        if loop.is_alive() or not out:
+            raise AssertionError("the sharded reload pass's clients did not finish")
+    results, wall = out[0]
+    which = {"v1": 0, "v2": 0, "neither": 0, "dropped": 0}
+    for i, a, _ in results:
+        if isinstance(a, Exception):
+            which["dropped"] += 1
+        elif serving_gaps([a], [pass_want[i]]) <= SERVE_RTOL:
+            which["v1"] += 1
+        elif serving_gaps([a], [v2_want[i]]) <= SERVE_RTOL:
+            which["v2"] += 1
+        else:
+            which["neither"] += 1
+    health = registry.health()
+    reload_summary = {"requests": len(results), **which, "requests_per_s": len(results) / wall,
+                      "latency_ms": quantiles_ms([t for _, _, t in results]),
+                      "reload_s": reload_s, "version": registry.version(),
+                      "serving_shards": health["serving_shards"],
+                      "engine": type(v2.engine).__name__}
+    log(f"[shard-serve] hot reload at serving_shards 2: {json.dumps(reload_summary)}")
+    if (which["dropped"] or which["neither"] or not which["v1"] or not which["v2"]
+            or len(results) < per_pass or registry.version() != "v2"
+            or health["serving_shards"] != 2):
+        raise AssertionError(f"sharded hot reload: {json.dumps(reload_summary)}")
+    v2.engine.close()
+    del registry, v2, eng2, engines
+
+    t_cli = time.perf_counter()
+    cli_thread.join(900)
+    cli_wait_s = time.perf_counter() - t_cli
+    if "error" in cli_out or "summary" not in cli_out:
+        raise AssertionError(f"cli.serve --serving-shards 2: {cli_out.get('error')!r}")
+    cli = cli_out["summary"]
+    if cli.get("serving_shards") != 2:
+        raise AssertionError(f"cli.serve --serving-shards 2 reported {cli}")
+    launches = dispatch.launch_counts()
+    summary = {"requests": n_req, "engines": by_count, "fault": fault, "reload": reload_summary,
+               "cli": cli, "cli_wait_s": cli_wait_s, "launches": launches,
+               "setup_s": load_s, "phase_s": time.perf_counter() - phase_t0}
+    log(f"[shard-serve] phase 5k: {summary['phase_s']:.1f} s (the CLI's {cli['seconds']:.1f} s "
+        f"started ahead, {cli_wait_s:.1f} s of it waited for here)")
+    return summary, launches
 
 
 # -- phase 5c: GAME training end to end -------------------------------------
@@ -3319,9 +3626,10 @@ GAME_PROJ_ITERATIONS = 2
 GAME_PROJ_ADS = 1024
 # phases 5d and 5e: depth cut from 2^16 + 2^14 to phase 5c's, so that the
 # whole run keeps inside its time limit on a slow host (a run of 1153 s on
-# an H100 whose CPU references ran 1.7-2.9x slower than the run before)
-GAME_PROJ_RECORDS = GAME_TRAIN_RECORDS
-GAME_PROJ_HELDOUT = GAME_TRAIN_HELDOUT
+# an H100 whose CPU references ran 1.7-2.9x slower than the run before),
+# and to half of 5c's when phase 5k and 5j's (d2) came in
+GAME_PROJ_RECORDS = GAME_TRAIN_RECORDS // 2
+GAME_PROJ_HELDOUT = GAME_TRAIN_HELDOUT // 2
 GAME_PROJ_COORDINATES = {
     "global": {"shard": "gshard", "optimizer": "TRON", "reg_weights": [10.0],
                "max_iters": 100, "tolerance": GAME_TRAIN_FIXED_TOLERANCE},
@@ -5785,11 +6093,26 @@ ES_ENTITY_PARTS = 4
 # (at 0.05 s every rank of a CPU rehearsal lost its peers at the first
 # boundary: 12 busy processes' heartbeat threads beat late)
 ES_HEARTBEAT_S = 0.5
-# the drill's victim: rank 3 goes silent on the heartbeat store at its 4th
-# update (pass 2's random effect), which takes 3 s (6 intervals) longer, so
-# that its peers find it lost at pass 2's boundary
-ES_VICTIM_UPDATE = 4
+# the drill checkpoints every 2nd pass, and its victim, rank 3, goes silent
+# on the heartbeat store at its 2nd update (pass 1's random effect), which
+# takes 3 s (6 intervals) longer, so that its peers find it lost at pass
+# 1's boundary, where no cadence save lands: the survivors write the final
+# set from the boundary's host copy
+ES_CHECKPOINT_EVERY = 2
+ES_VICTIM_UPDATE = 2
 ES_VICTIM_DELAY_S = 3.0
+ES_LOSS_STEP = 1
+# (d2)'s factored per-user effect. The ranks' reductions sum in another
+# order than the one-process run's, which moves some entities' stopping
+# iteration; the jump that makes scales with the tolerance (on the card
+# gamma B^T moved 7.3e-6 of a scale of 3.9 at 1e-10), so the solves run
+# to 1e-13
+ES_LATENT_DIM = 4
+ES_LATENT_TOLERANCE = 1e-13
+ES_LATENT_MAX_ITERS = 100
+# the engine stood up from (c)'s final shard set
+ES_SERVE_SHARDS = 3
+ES_SERVE_ROWS = 32
 # (label, worker processes, kind): the worlds run at once on the card, each
 # rank its process; (c2) restarts (c)'s first two processes on (c)'s
 # checkpoints once (c) has ended
@@ -5799,8 +6122,9 @@ ES_WORLDS = (
     ("c", (6, 7, 8, 9), "drill"),
     ("c2", (6, 7), "restart"),
     ("d", (10, 11), "multi"),
+    ("d2", (12, 13), "multi-factored"),
 )
-ES_PROCESSES = 12
+ES_PROCESSES = 14
 ES_WORLD_TIMEOUT_S = 300.0
 
 
@@ -5811,8 +6135,9 @@ def entity_params(work: str, gtrain: str, gheldout: str, gpath: str, upath: str,
     sharded checkpoints every pass, the heartbeat), "restart" (2 ranks,
     resuming the drill's checkpoints), "multi" (the multi-process branch,
     without entity_shards: both effects on the dense user shard, each rank
-    on its entity-partitioned part files) or "reference" / "multi-reference"
-    (the same in one process)."""
+    on its entity-partitioned part files), "multi-factored" (the same with
+    a factored per-user effect) or "reference" / "multi-reference" /
+    "multi-factored-reference" (the same in one process)."""
     coords = {
         "global": {"shard": "gshard", "optimizer": "TRON", "reg_weights": [ES_GLOBAL_LAMBDA],
                    "max_iters": 100, "tolerance": ES_GLOBAL_TOLERANCE},
@@ -5831,17 +6156,22 @@ def entity_params(work: str, gtrain: str, gheldout: str, gpath: str, upath: str,
     if kind in ("sharded", "drill", "restart"):
         params["entity_shards"] = ranks
     if kind in ("drill", "restart"):
-        params.update(validate_input=[], sharded_ckpt=True, checkpoint_every=1,
+        params.update(validate_input=[], sharded_ckpt=True,
+                      checkpoint_every=ES_CHECKPOINT_EVERY,
                       output_dir=os.path.join(work, "out-c"))
     if kind == "drill":
         params["heartbeat_s"] = ES_HEARTBEAT_S
     if kind == "restart":
         params["resume"] = True
-    if kind in ("multi", "multi-reference"):
+    if kind.startswith("multi"):
         params.update(train_input=list(entity_paths), validate_input=[], sparse_shards=[],
                       feature_shards={"ushard": upath})
         params["coordinates"] = {"global": {**coords["global"], "shard": "ushard"},
                                  "per-user": {**coords["per-user"], "num_buckets": 1}}
+    if kind.startswith("multi-factored"):
+        params["coordinates"]["per-user"].update(latent_dim=ES_LATENT_DIM,
+                                                 tolerance=ES_LATENT_TOLERANCE,
+                                                 max_iters=ES_LATENT_MAX_ITERS)
     return params
 
 
@@ -5963,7 +6293,8 @@ def entity_world_worker(proc: int, work: str, worlds, device: str) -> None:
                     except BaseException as e:  # noqa: BLE001 — the victim's end
                         code = f"{type(e).__name__}: {str(e)[:200]}"
                     results[label] = {"rank": rank, "exit": code,
-                                      "wall_s": time.perf_counter() - t0}
+                                      "wall_s": time.perf_counter() - t0,
+                                      "collectives": collective_counts()}
                     if rank == 0:
                         # the drill's shard set and marker, read before the
                         # restart (which needs this process) writes on
@@ -5972,9 +6303,21 @@ def entity_world_worker(proc: int, work: str, worlds, device: str) -> None:
 
                         ckdir = os.path.join(params["output_dir"], "checkpoints", "combo-0")
                         ck = latest_checkpoint(ckdir)
+                        marker = read_host_loss_marker(ckdir)
+                        # another survivor may have won the final save's
+                        # election and still be publishing it
+                        give_up = time.perf_counter() + 60.0
+                        while ((ck is None or marker is None or ck.step < marker["step"])
+                               and time.perf_counter() < give_up):
+                            time.sleep(0.2)
+                            ck = latest_checkpoint(ckdir)
                         results[label]["final_shard_set"] = (
                             None if ck is None else {"step": ck.step, "shards": ck.shards})
-                        results[label]["marker"] = read_host_loss_marker(ckdir)
+                        results[label]["marker"] = marker
+                        if ck is not None:
+                            # kept for the serving check after the worlds
+                            shutil.copytree(os.path.join(ckdir, f"step-{ck.step}"),
+                                            os.path.join(work, "c-final", f"step-{ck.step}"))
                     continue
                 run = run_game_training(params, device=device)
                 wall_s = time.perf_counter() - t0
@@ -5983,8 +6326,11 @@ def entity_world_worker(proc: int, work: str, worlds, device: str) -> None:
                 best = run.sweep[run.best_index]["model"]
                 tables = {}
                 for n, p in best.params.items():
-                    tables[n] = os.path.join(work, f"{label}-{rank}-{n}.npy")
-                    np.save(tables[n], p.cpu().numpy())
+                    leaves = ({f"{n}#gamma": p.gamma, f"{n}#projection": p.projection}
+                              if isinstance(p, FactoredParams) else {n: p})
+                    for leaf, t in leaves.items():
+                        tables[leaf] = os.path.join(work, f"{label}-{rank}-{leaf}.npy")
+                        np.save(tables[leaf], t.cpu().numpy())
                 results[label] = {
                     "rank": rank, "join_s": join_s, "wall_s": wall_s,
                     "timings_s": run.timings, "codecs": run.codecs,
@@ -6060,17 +6406,30 @@ def es_gaps(res: dict, ref, key_map=None) -> dict:
            if a["validation"] is not None and b.validation_metric is not None]
     tables = _es_tables(res)
     best = ref.sweep[ref.best_index]["model"].params
-    w_ref, t_ref = best["global"].cpu().numpy(), best["per-user"].cpu().numpy()
-    t = tables["per-user"]
-    if key_map is not None:
-        t = t[key_map]
+    w_ref = best["global"].cpu().numpy()
+    extra = {}
+    if isinstance(best["per-user"], FactoredParams):
+        # (d2): a factored effect's table is gamma B^T, the per-entity
+        # coefficients that score (a rotation R of the latent space leaves
+        # it and both penalties unchanged, so gamma and B alone need not
+        # agree); their own gaps are printed beside it
+        g_ref = best["per-user"].gamma.cpu().numpy()
+        b_ref = best["per-user"].projection.cpu().numpy()
+        g, b = tables["per-user#gamma"], tables["per-user#projection"]
+        g = g if key_map is None else g[key_map]
+        t, t_ref = g @ b.T, g_ref @ b_ref.T
+        extra = {"gamma": float(np.abs(g - g_ref).max()),
+                 "projection": float(np.abs(b - b_ref).max())}
+    else:
+        t, t_ref = tables["per-user"], best["per-user"].cpu().numpy()
+        t = t if key_map is None else t[key_map]
     return {"best_index": [res["best_index"], ref.best_index],
             "updates": [len(res["history"]), len(ref_hist)],
             "objective": max(obj), "auc": max(auc) if auc else None,
             "w": float(np.abs(tables["global"] - w_ref).max()),
             "w_scale": max(1.0, float(np.abs(w_ref).max())),
             "table": float(np.abs(t - t_ref).max()),
-            "table_scale": max(1.0, float(np.abs(t_ref).max()))}
+            "table_scale": max(1.0, float(np.abs(t_ref).max())), **extra}
 
 
 def es_gate_failures(gaps: dict) -> list:
@@ -6105,6 +6464,49 @@ def es_expected_launches(res: dict, on_card: bool) -> dict:
     return {k: (want.get(k, 0) if on_card else 0) for k in res["launches"]}
 
 
+def checkpoint_serving_check(ckpt_dir: str, gpath: str, upath: str, device=None,
+                             rows: int = ES_SERVE_ROWS, seed: int = SEED + 70) -> dict:
+    """``ShardedScoringEngine.from_sharded_checkpoint`` on the newest step
+    under ``ckpt_dir`` at ``ES_SERVE_SHARDS`` serving shards (a count the
+    writer did not use), every block on the one device, held to an
+    unsharded ``ScoringEngine`` on the same step's tables: ``rows`` dense
+    random rows (a share of them cold) within 1e-10 max(1, |s|)."""
+    from photon_ml_tpu_torch.io.checkpoint import latest_checkpoint
+
+    t0 = time.perf_counter()
+    dev = "cuda:0" if device is None else device
+    ck = latest_checkpoint(ckpt_dir)
+    step_dir = os.path.join(ckpt_dir, f"step-{ck.step}")
+    shards = {"global": "gshard", "per-user": "ushard"}
+    res = {"global": None, "per-user": "userId"}
+    keys = [str(k) for k in ck.entity_keys["per-user"]]
+    sharded = ShardedScoringEngine.from_sharded_checkpoint(
+        step_dir, shards, res, num_shards=ES_SERVE_SHARDS, devices=[dev] * ES_SERVE_SHARDS,
+        dtype=torch.float64)
+    whole = ScoringEngine({n: np.asarray(ck.params[n]) for n in shards}, shards, res,
+                          re_vocabs={"userId": {k: i for i, k in enumerate(keys)}},
+                          dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(seed)
+    feats = {"gshard": rng.normal(size=(rows, np.shape(ck.params["global"])[0])) * 0.01,
+             "ushard": rng.normal(size=(rows, np.shape(ck.params["per-user"])[1]))}
+    ents = {"userId": rng.integers(-1, len(keys), size=rows).astype(np.int32)}
+    got = sharded.score_arrays(feats, ents)
+    want = whole.score_arrays(feats, ents)
+    out = {"step": ck.step, "checkpoint_shards": ck.shards, "serving_shards": ES_SERVE_SHARDS,
+           "entities": len(keys), "rows": rows, "max_err": serving_gaps(got, want),
+           "same_entity_order": sharded.re_vocabs["userId"] == {k: i for i, k in
+                                                                enumerate(keys)},
+           "resident_re_bytes_per_shard": sharded.stats.registry.gauge(
+               "serving.shard.resident_re_bytes_per_process").value,
+           "seconds": time.perf_counter() - t0}
+    if not out["same_entity_order"]:
+        out["max_err"] = float("inf")
+    log(f"[entity] the engine from (c)'s final shard set: {json.dumps(out)}")
+    sharded.close()
+    whole.close()
+    return out
+
+
 def entity_train_phase(work: str, game_inputs, name: str = "", device=None, procs=None):
     """Phase 5j: 5g's GAME records trained entity-sharded in gloo worlds
     whose ranks share the card (``ES_WORLDS``, all at once), each held to
@@ -6115,12 +6517,16 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
     collective inside a random-effect update, each rank's launches its
     history's and its kernels held to their plain versions at its row
     block (1e-12); (c) the host-loss drill: 4 ranks with sharded
-    checkpoints every pass and the heartbeat, rank 3 silenced at pass 2:
-    the survivors exit 43 after a complete final shard set and
-    ``host-loss.json``, and (c2) a 2-rank restart from it is held to (a);
-    (d) the multi-process branch: 2 ranks each on its 2 of 4
-    entity-partitioned part files, dense, held to the one-process card run
-    on all 4 (its tables matched by entity key). ``procs``: the workers of
+    checkpoints every 2nd pass and the heartbeat, rank 3 silenced at pass
+    1: the survivors exit 43 after a complete final shard set at step 1,
+    written from the boundary's host copy, and ``host-loss.json`` saying
+    so, and (c2) a 2-rank restart from it is held to (a); (d) the
+    multi-process branch: 2 ranks each on its 2 of 4 entity-partitioned
+    part files, dense, held to the one-process card run on all 4 (its
+    tables matched by entity key), and (d2) the same with a factored
+    per-user effect; then the engine from (c)'s final shard set at
+    ``ES_SERVE_SHARDS`` serving shards held to an unsharded engine on the
+    same tables (``checkpoint_serving_check``). ``procs``: the workers of
     ``start_entity_workers`` over ``work`` (started here when None).
     ``device="cpu"`` rehearses it (no card checks). Returns (summary, the
     launches of every world's ranks summed)."""
@@ -6146,7 +6552,8 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
         t_worlds = time.perf_counter()
         # beside the worlds: the references, unsharded in this process
         refs = {}
-        for label, kind in (("ref", "reference"), ("ref-multi", "multi-reference")):
+        for label, kind in (("ref", "reference"), ("ref-multi", "multi-reference"),
+                            ("ref-multi-factored", "multi-factored-reference")):
             dispatch.reset_launch_counts()
             t0 = time.perf_counter()
             refs[label] = run_game_training(
@@ -6185,7 +6592,7 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
                 per_proc[p] = json.load(f)
     launches = {k: 0 for k in dispatch.KERNELS}
     worlds = {}
-    ref, ref_multi = refs["ref"], refs["ref-multi"]
+    ref = refs["ref"]
     for label, world_procs, kind in ES_WORLDS:
         res = [per_proc.get(p, {}).get(label) for p in world_procs]
         if kind == "drill":
@@ -6195,21 +6602,31 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
             if codes[:-1] != [HOST_LOSS_EXIT_CODE] * (len(codes) - 1):
                 failures.append(f"(c) the survivors exited {codes[:-1]}, not "
                                 f"{HOST_LOSS_EXIT_CODE}")
-            if (not marker or marker["peers"] != [len(codes) - 1] or marker["step"] != 2
-                    or not marker["final_checkpoint"]):
+            if (not marker or marker["peers"] != [len(codes) - 1]
+                    or marker["step"] != ES_LOSS_STEP or not marker["final_checkpoint"]):
                 failures.append(f"(c) host-loss.json: {marker}")
-            if final != {"step": 2, "shards": len(codes)}:
-                failures.append(f"(c) no complete final shard set at step 2 ({final})")
+            if final != {"step": ES_LOSS_STEP, "shards": len(codes)}:
+                failures.append(f"(c) no complete final shard set at step {ES_LOSS_STEP} "
+                                f"({final})")
+            # every boundary's host copy: one gather of the blocks a pass
+            copies = [r["collectives"].get("host_copy", {}) if r else {} for r in res[:-1]]
+            per_pass = [c.get("bytes", 0) / ES_LOSS_STEP for c in copies]
+            if not all(per_pass):
+                failures.append(f"(c) a survivor made no host copy ({copies})")
             worlds[label] = {"kind": kind, "ranks": len(codes), "exit_codes": codes,
                              "marker": marker, "final_shard_set": final,
+                             "checkpoint_every": ES_CHECKPOINT_EVERY,
+                             "host_copy_bytes_per_pass_per_rank": per_pass,
+                             "host_copy_gathers_per_pass_per_rank": [
+                                 c.get("count", 0) / ES_LOSS_STEP for c in copies],
                              "wall_s": [r["wall_s"] if r else None for r in res]}
             log(f"[entity] ({label}) {json.dumps(worlds[label])}")
             continue
         if any(r is None for r in res):
             failures.append(f"({label}) a rank returned nothing")
             continue
-        if kind == "multi":
-            ref_run = ref_multi
+        if kind.startswith("multi"):
+            ref_run = refs["ref-" + kind]
             keys = res[0]["entity_keys"]["userId"]
             ref_keys = ref_run.entity_vocabs["userId"]
             key_map = np.asarray([keys.index(k) for k in sorted(ref_keys, key=ref_keys.get)])
@@ -6244,7 +6661,7 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
                 failures.append(f"({label}) rank {r['rank']}'s tables are not rank 0's bit for "
                                 "bit")
         for r in res:
-            if kind != "multi" and r["re_updates"]["collectives"] != 0:
+            if not kind.startswith("multi") and r["re_updates"]["collectives"] != 0:
                 failures.append(f"({label}) rank {r['rank']}: "
                                 f"{r['re_updates']['collectives']} collectives inside its "
                                 "random-effect updates")
@@ -6279,8 +6696,16 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
                                                   if k != "rank0"}))
     for w in worlds.values():
         w.pop("rank0", None)
+    served = None
+    final_dir = os.path.join(work, "c-final")
+    if os.path.isdir(final_dir):
+        served = checkpoint_serving_check(final_dir, gpath, upath, device)
+        if served["max_err"] > SERVE_RTOL:
+            failures.append(f"the engine from (c)'s final shard set: {json.dumps(served)}")
+    else:
+        failures.append("(c) left no final shard set to serve")
     ref_hist = [h for s in ref.sweep for h in s["history"]]
-    summary = {"worlds": worlds, "worlds_s": worlds_s,
+    summary = {"worlds": worlds, "worlds_s": worlds_s, "served_from_final_set": served,
                "reference_solve_s_per_update": [h.seconds for h in ref_hist],
                "phase_s": time.perf_counter() - phase_t0}
     log(f"[entity] phase 5j: {summary['phase_s']:.1f} s (the spawned worlds "
@@ -6350,10 +6775,20 @@ def main() -> int:
                                                        inputs=ahead.pop("game"))
         # 5f. online serving: 5b's model and records through the engine,
         # the micro-batcher, a hot reload, the tiered cache and cli.serve
+        # 5k's cli.serve --serving-shards 2 starts now and loads beside 5f
+        shard_cli = sharded_cli_ahead(served)
         serve_summary = serving_phase(os.path.join(work, "serve"), served, name)
+        # 5k. entity-sharded serving on 5b's model and records: 2 and 4
+        # shards on the card, a sharded hot reload to 5f's halved model, a
+        # shard fault and cli.serve --serving-shards 2
+        shard_serve_summary, shard_serve_launches = sharded_serving_phase(
+            os.path.join(work, "shard_serve"), served, name,
+            v2_dir=os.path.join(work, "serve", "watch", "v2"),
+            unsharded_resident=serve_summary["resident_re_bytes"], cli=shard_cli)
         del served
         shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "serve"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "shard_serve"), ignore_errors=True)
         # 5c. GAME training end to end, held to the CPU
         game_train_summary, game_train_reuse = game_train_phase(
             os.path.join(work, "game_train"), name, inputs=ahead.pop("game_train"))
@@ -6415,6 +6850,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"train_shape_checks": shape_checks}))
     log(json.dumps({"serving": serve_summary}))
+    log(json.dumps({"sharded_serving": shard_serve_summary}))
     log(json.dumps({"full_trainer": full_summary}))
     log(json.dumps({"hybrid": hybrid_summary}))
     log(json.dumps({"mesh": mesh_summary}))
@@ -6470,6 +6906,7 @@ def main() -> int:
                                  "quality_game_hybrid": quality_launches["game_hybrid"][kernel],
                                  "io_game_streamed": io_launches[kernel],
                                  "game_train_entity_sharded": entity_launches[kernel],
+                                 "serving_sharded": shard_serve_launches[kernel],
                                  "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],
             "host_ms": main_path["host_ms"],

@@ -56,7 +56,10 @@ joins the launcher's world, NCCL on the card, gloo with ``--device cpu``):
   collective) on its card;
 - without it (the JAX driver's multi-process branch) every rank ingests
   its own part files (``process_local_paths``), which must be
-  entity-partitioned, and owns the entities of its rows (dense shards).
+  entity-partitioned, and owns the entities of its rows (dense shards); a
+  factored random effect keeps the gamma rows of its entities and reduces
+  its shared projection's solve over the ranks
+  (``game.factored.EntityShardedFactoredRandomEffectCoordinate``).
 
 Exported tables are in global entity order and every rank returns the
 same model; rank 0 alone validates (on the whole model, gathered) and
@@ -105,6 +108,7 @@ from photon_ml_tpu_torch.game.data import (
 )
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, GameModel, run_grid
 from photon_ml_tpu_torch.game.factored import (
+    EntityShardedFactoredRandomEffectCoordinate,
     FactoredConfig,
     FactoredRandomEffectCoordinate,
     is_factored_params,
@@ -161,10 +165,9 @@ def _refuse_multiprocess_hybrid(params: GameDriverParams) -> None:
 def _validate_multiprocess_params(params: GameDriverParams) -> None:
     """The JAX driver's constraints of its multi-process branch, with its
     messages (``photon_ml_tpu/cli/game_train.py:89-135``): dense fixed
-    effects and plain random effects with ``num_buckets`` 1 on
+    effects and plain or factored random effects with ``num_buckets`` 1 on
     entity-partitioned splits; everything else fails loudly instead of
-    diverging across processes. The port adds factored random effects to
-    the list (their shared projection is not ported to a world)."""
+    diverging across processes."""
     problems = []
     if params.validate_input:
         problems.append("validate_input (validation rows would need the same entity "
@@ -193,9 +196,6 @@ def _validate_multiprocess_params(params: GameDriverParams) -> None:
                             "agree across processes)")
         if spec.projector:
             problems.append(f"coordinate {name!r}: projector")
-        if spec.latent_dim is not None:
-            problems.append(f"coordinate {name!r}: latent_dim (the factored projection is "
-                            "not sharded over a world in this port)")
     if problems:
         raise ValueError("multi-process GAME training does not support: " + "; ".join(problems))
 
@@ -288,6 +288,11 @@ def build_coordinates(
                                               sharded)
             if spec.random_effect is None:
                 coords[name] = FixedEffectCoordinate(cache[name], cfg)
+            elif spec.latent_dim is not None:
+                # the factored effect's gamma block on the same lanes and
+                # rows as a plain one's table block
+                coords[name] = EntityShardedFactoredRandomEffectCoordinate(
+                    cache[name].with_config(cfg), cfg, _factored_config(spec, cfg))
             else:
                 coords[name] = cache[name].with_config(cfg)
             continue
@@ -341,21 +346,10 @@ def build_coordinates(
                     f"coordinate {name!r}: latent_dim (factored) and projector are "
                     "mutually exclusive"
                 )
-            latent_cfg = dataclasses.replace(
-                cfg,
-                reg_weight=(spec.latent_reg_weight if spec.latent_reg_weight is not None
-                            else cfg.reg_weight),
-                max_iters=(spec.latent_max_iters if spec.latent_max_iters is not None
-                           else cfg.max_iters),
-                tolerance=(spec.latent_tolerance if spec.latent_tolerance is not None
-                           else cfg.tolerance),
-            )
             coords[name] = FactoredRandomEffectCoordinate(
                 design=design, row_features=row_features, row_entities=row_entities,
                 full_offsets_base=offsets_base, re_config=cfg,
-                factored=FactoredConfig(latent_dim=spec.latent_dim,
-                                        num_inner_iterations=spec.num_inner_iterations,
-                                        latent_factor_config=latent_cfg),
+                factored=_factored_config(spec, cfg),
             )
             continue
         kind, k = parse_projector_spec(spec.projector) if spec.projector else ("IDENTITY", None)
@@ -388,6 +382,23 @@ def build_coordinates(
             original_dim=d_orig, prebuilt=prebuilt,
         )
     return coords
+
+
+def _factored_config(spec, cfg: CoordinateConfig) -> FactoredConfig:
+    """A factored coordinate's configuration: the latent-factor solve takes
+    the coordinate's config with the spec's ``latent_*`` overrides."""
+    latent_cfg = dataclasses.replace(
+        cfg,
+        reg_weight=(spec.latent_reg_weight if spec.latent_reg_weight is not None
+                    else cfg.reg_weight),
+        max_iters=(spec.latent_max_iters if spec.latent_max_iters is not None
+                   else cfg.max_iters),
+        tolerance=(spec.latent_tolerance if spec.latent_tolerance is not None
+                   else cfg.tolerance),
+    )
+    return FactoredConfig(latent_dim=spec.latent_dim,
+                          num_inner_iterations=spec.num_inner_iterations,
+                          latent_factor_config=latent_cfg)
 
 
 def _sharded_inputs(params, spec, data: GameData, entity_counts, dtype, device, sharded):
@@ -443,7 +454,8 @@ def materialize_original_space(model: GameModel, coords: Dict,
 
     def bridge(n, p):
         c = coords.get(n)
-        if isinstance(c, EntityShardedRandomEffectCoordinate):
+        if isinstance(c, (EntityShardedRandomEffectCoordinate,
+                          EntityShardedFactoredRandomEffectCoordinate)):
             # the blocks gathered into global entity order (a collective)
             return c.global_table(p)
         if not isinstance(c, ProjectedRandomEffectCoordinate):

@@ -50,6 +50,10 @@ request that can't start scoring in time — the Future answers
 important request shed the oldest lower-priority queued one when the
 bounded queue is full. Under sustained queue pressure the batcher
 degrades to fixed-effect-only scoring (``--no-degrade`` disables).
+``--serving-shards P`` serves through the entity-sharded engine (RE
+tables split by entity over P shards, shard p on ``cuda:p``, or every
+shard on the one ``--device`` named; requests route to their owner shards
+and the partial scores merge on the host, with no collective);
 ``--hbm-cache-entities N`` serves through the tiered device/host entity
 cache (the hot head on the card, misses score fixed-effect-only while
 async promotion runs).
@@ -67,8 +71,7 @@ while the last good version keeps serving.
 Not ported, and refused with their item in ROADMAP.md queue A
 (:data:`UNPORTED_FLAGS`, :data:`UNPORTED_COMMANDS`): the async front end
 with its tenants and replicas (``--frontend-port``, ``--tenant``,
-``--replicas``; item 10) and entity-sharded serving (``--serving-shards``
-> 1; item 9).
+``--replicas``; item 10).
 """
 
 from __future__ import annotations
@@ -91,7 +94,6 @@ UNPORTED_FLAGS = {
     "--frontend-port": _FRONTEND,
     "--tenant": _FRONTEND,
     "--replicas": _FRONTEND,
-    "--serving-shards": "item 9, Parallel (serving/sharding.py)",
 }
 UNPORTED_COMMANDS = {
     "tenants": _FRONTEND,
@@ -419,7 +421,10 @@ def main(argv=None) -> None:
     )
     p.add_argument(
         "--serving-shards", type=int, default=1,
-        help="entity-sharded serving: not ported, only 1 is accepted",
+        help="split RE tables by entity over N shards (shard p on cuda:p, or "
+        "every shard on the one --device named); requests route to their "
+        "owner shards and partial scores merge on the host. Default 1 = "
+        "unsharded.",
     )
     p.add_argument(
         "--hbm-cache-entities", type=int, default=None,
@@ -462,10 +467,14 @@ def main(argv=None) -> None:
         ("--frontend-port", args.frontend_port is not None),
         ("--tenant", bool(args.tenant)),
         ("--replicas", args.replicas != 1),
-        ("--serving-shards", args.serving_shards != 1),
     ):
         if given:
             p.error(_unported(flag, UNPORTED_FLAGS[flag]))
+    if args.serving_shards > 1 and args.hbm_cache_entities:
+        p.error(
+            "--hbm-cache-entities composes with the unsharded engine; "
+            "on a sharded mesh each shard's slice is the resident set"
+        )
     # after parse_args: --help / bad flags must not initialize torch
     import torch
 
@@ -485,6 +494,7 @@ def main(argv=None) -> None:
         dtype={"float32": torch.float32, "float64": torch.float64}[args.dtype],
         min_bucket=args.min_bucket,
         device=args.device,
+        serving_shards=args.serving_shards,
         **(
             {"hbm_cache_entities": args.hbm_cache_entities}
             if args.hbm_cache_entities

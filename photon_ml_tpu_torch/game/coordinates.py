@@ -850,6 +850,15 @@ class EntityShardedRandomEffectCoordinate:
         axis = self.mesh.axis_names[0] if len(self.mesh.axis_names) == 1 else ENTITY_AXIS
         return reshard_replicated(table, self.mesh, axis)
 
+    def stored_table_host(self, table: torch.Tensor) -> np.ndarray:
+        """:meth:`stored_table` on the host, gathered in pieces of at most
+        one block on the card (a collective over the mesh): what a
+        checkpoint and the pass boundary's host copy read."""
+        from photon_ml_tpu_torch.parallel.multihost import gather_rows_to_host
+
+        axis = self.mesh.axis_names[0] if len(self.mesh.axis_names) == 1 else ENTITY_AXIS
+        return gather_rows_to_host(table, self.mesh, axis)
+
     def global_table(self, table: torch.Tensor) -> torch.Tensor:
         """The table in global entity order (``coordinates.py:1063``), the
         same on every rank."""

@@ -36,6 +36,10 @@ gathered at the boundary), restores them re-keyed by entity at any width,
 and polls ``heartbeat`` at pass boundaries: on a lost peer the survivors
 write a final shard set with no collective, then ``host-loss.json``, and
 re-raise :class:`~photon_ml_tpu_torch.resilience.hostloss.HostLossDetected`.
+With a heartbeat, every pass boundary of such a world also gathers its
+block-held tables into a host copy of the training state (only cadence
+steps reach the disk), so that any one survivor writes the complete final
+set at any boundary.
 """
 
 from __future__ import annotations
@@ -349,12 +353,16 @@ class CoordinateDescent:
         formats. ``heartbeat`` (a ``parallel.heartbeat.HeartbeatMonitor``)
         is polled at pass boundaries after the boundary's checkpoint: on a
         lost peer the run writes a final checkpoint with no collective
-        (where this boundary's cadence save has not already landed; an
-        entity-sharded table's other blocks are not on this rank, so in a
-        world that final set is only this boundary's cadence save), then
+        (where this boundary's cadence save has not already landed), then
         ``host-loss.json``, and re-raises
         :class:`~photon_ml_tpu_torch.resilience.hostloss.HostLossDetected`
-        (the drivers' exit :data:`HOST_LOSS_EXIT_CODE`)."""
+        (the drivers' exit :data:`HOST_LOSS_EXIT_CODE`). In a world with
+        block-held tables (``sharded_params``: an entity-sharded table, a
+        factored coordinate's gamma) every boundary gathers them into a host
+        copy of the state, from which any survivor writes the complete
+        final set; a gather that a lost peer stalls (the collective
+        watchdog, or the backend's failure) ends the run the same way from
+        the last completed copy, and the marker names that step."""
         names = list(self.coordinates)
         seed_frozen = set(freeze or ())
         unknown = seed_frozen - set(names)
@@ -416,11 +424,11 @@ class CoordinateDescent:
 
         def host_params(stored: bool):
             """Every coordinate's parameters on the host; with ``stored``
-            an entity-sharded table gathered whole (a collective)."""
-            return {n: _host_params(self.coordinates[n].stored_table(model.params[n])
-                                    if stored and getattr(self.coordinates[n],
-                                                          "sharded_params", False)
-                                    else model.params[n])
+            an entity-sharded table gathered whole (a collective, in
+            pieces of at most one block on the card)."""
+            return {n: (self.coordinates[n].stored_table_host(model.params[n])
+                        if stored and getattr(self.coordinates[n], "sharded_params", False)
+                        else _host_params(model.params[n]))
                     for n in names}
 
         def snapshot(params_host) -> dict:
@@ -433,6 +441,22 @@ class CoordinateDescent:
                         frozen=sorted(frozen),
                         generator_state=generator.get_state().numpy().copy())
 
+        # the whole training state on the host at every pass boundary, the
+        # blocks of every block-held table gathered as a cadence save
+        # gathers them: with it any one survivor of a lost peer writes the
+        # complete final shard set at whatever boundary the loss is found
+        # (the JAX guarantee, ``descent.py:1103-1142``). Only cadence steps
+        # reach the disk; the copy stays in host memory
+        copy_each_boundary = (bool(sharded_checkpoints) and heartbeat is not None
+                              and checkpoint_dir is not None and not whole_here)
+        host_copy: List[Optional[tuple]] = [None]  # (step, snapshot)
+
+        def boundary_copy(step: int) -> dict:
+            materialize()
+            snap = snapshot(host_params(stored=True))
+            host_copy[0] = (step, snap)
+            return snap
+
         def save(step: int, wait: bool = False) -> None:
             from photon_ml_tpu_torch.io.checkpoint import save_checkpoint, save_checkpoint_sharded
 
@@ -442,57 +466,87 @@ class CoordinateDescent:
                 # on the training thread
                 writer.join()
                 save_checkpoint_sharded(checkpoint_dir, step, entity_keys=ekeys,
-                                        num_shards=num_shards,
-                                        **snapshot(host_params(stored=True)))
+                                        num_shards=num_shards, **boundary_copy(step))
                 return
             snap = snapshot(host_params(stored=False))
             writer.submit(lambda: save_checkpoint(checkpoint_dir, step, **snap))
             if wait:
                 writer.join()
 
+        def save_final(step: int, snap: dict) -> None:
+            """The survivors' final shard set, with no collective: the
+            history written is the one already read (draining the pending
+            stats could need a collective)."""
+            from photon_ml_tpu_torch.io.checkpoint import save_checkpoint_sharded_final
+
+            writer.join()
+            save_checkpoint_sharded_final(checkpoint_dir, step, entity_keys=ekeys,
+                                          num_shards=num_shards, **snap)
+
+        def survivors_exit(step: int, e, saved: bool):
+            """On a lost peer (JAX ``descent.py:1150-1204``): the final
+            checkpoint (unless this boundary's cadence save landed), the
+            marker naming its step, and the exception re-raised. A final
+            save that fails leaves the marker all the same."""
+            from photon_ml_tpu_torch.resilience.hostloss import write_host_loss_marker
+
+            if checkpoint_dir is not None:
+                final_ok = True
+                try:
+                    if saved:
+                        writer.join()
+                    elif not sharded_checkpoints:
+                        save(step, wait=True)
+                    elif whole_here:
+                        save_final(step, snapshot(host_params(stored=False)))
+                    elif host_copy[0] is not None:
+                        # the last boundary whose gather completed
+                        step, snap = host_copy[0]
+                        save_final(step, snap)
+                    else:
+                        final_ok = False
+                except Exception:  # noqa: BLE001 — the marker says so
+                    final_ok = False
+                peers = getattr(e, "peers", None)
+                if peers is None:
+                    peers = heartbeat.lost_peers() if heartbeat is not None else []
+                write_host_loss_marker(checkpoint_dir, step, peers,
+                                       reason=getattr(e, "reason", type(e).__name__),
+                                       final_checkpoint=final_ok)
+            raise e
+
+        def save_or_copy(step: int, cadence: bool) -> bool:
+            """This boundary's cadence save, or else its host copy: True
+            when a save landed. A lost peer that stalls the gather (the
+            collective watchdog, or the backend's own failure) ends the run
+            through :func:`survivors_exit` with the last completed copy."""
+            if not (cadence or copy_each_boundary):
+                return False
+            from photon_ml_tpu_torch.resilience.hostloss import is_host_loss
+
+            try:
+                if cadence:
+                    save(step)
+                else:
+                    boundary_copy(step)
+            except Exception as e:  # noqa: BLE001 — re-raised either way
+                if not (copy_each_boundary and is_host_loss(e)):
+                    raise
+                prior = host_copy[0]
+                survivors_exit(prior[0] if prior is not None else step, e, saved=False)
+            return cadence
+
         def host_loss_boundary(step: int, saved: bool) -> None:
             """The heartbeat poll at a pass boundary (JAX
-            ``descent.py:1060-1170``): on a lost peer a final checkpoint
-            with no collective (unless this boundary's save landed), the
-            marker, and the exception re-raised."""
+            ``descent.py:1060-1170``)."""
             if heartbeat is None:
                 return
-            from photon_ml_tpu_torch.resilience.hostloss import (
-                HostLossDetected,
-                write_host_loss_marker,
-            )
+            from photon_ml_tpu_torch.resilience.hostloss import HostLossDetected
 
             try:
                 heartbeat.check()
             except HostLossDetected as e:
-                if checkpoint_dir is not None:
-                    final_ok = True
-                    try:
-                        if saved:
-                            writer.join()
-                        elif not sharded_checkpoints:
-                            save(step, wait=True)
-                        elif whole_here:
-                            # no drain of the pending stats (their gather
-                            # would be a collective): the history written
-                            # is the one already read
-                            from photon_ml_tpu_torch.io.checkpoint import (
-                                save_checkpoint_sharded_final,
-                            )
-
-                            writer.join()
-                            save_checkpoint_sharded_final(
-                                checkpoint_dir, step, entity_keys=ekeys,
-                                num_shards=num_shards, **snapshot(host_params(stored=False)))
-                        else:
-                            # the lost peer's block of an entity-sharded
-                            # table is on no survivor
-                            final_ok = False
-                    except Exception:  # noqa: BLE001 — the marker says so
-                        final_ok = False
-                    write_host_loss_marker(checkpoint_dir, step, e.peers, reason=e.reason,
-                                           final_checkpoint=final_ok)
-                raise
+                survivors_exit(step, e, saved)
 
         tol = float(convergence_tolerance)
 
@@ -626,10 +680,9 @@ class CoordinateDescent:
                 it += done
                 force_plain = guard_tripped
                 saved = False
-                if done and checkpoint_dir is not None and (
-                        it - start_it) % checkpoint_every == 0:
-                    save(it)
-                    saved = True
+                if done:
+                    saved = save_or_copy(it, checkpoint_dir is not None and (
+                        it - start_it) % checkpoint_every == 0)
                 if boundary(it, saved):
                     stopped = True
                     break
@@ -638,10 +691,8 @@ class CoordinateDescent:
                 continue
             run_pass(it, guard=divergence_guard)
             force_plain = False
-            saved = False
-            if checkpoint_dir is not None and (it + 1 - start_it) % checkpoint_every == 0:
-                save(it + 1)
-                saved = True
+            saved = save_or_copy(it + 1, checkpoint_dir is not None
+                                 and (it + 1 - start_it) % checkpoint_every == 0)
             if boundary(it + 1, saved):
                 stopped = True
                 break

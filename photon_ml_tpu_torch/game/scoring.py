@@ -258,6 +258,22 @@ def compact_table_rows(rows: np.ndarray, k: int):
     return cols, vals
 
 
+def shard_compact_table(compact: CompactReTable, assignment) -> CompactReTable:
+    """Reorder a GLOBAL :class:`CompactReTable` into the stored
+    (shard-major, padded) layout of an ``EntityShardAssignment``
+    (``photon_ml_tpu/game/scoring.py:265``): shard p's entities contiguous
+    in block ``[p*R, (p+1)*R)``, pad rows all-zero (they score 0 wherever
+    gathered). Host numpy in, host numpy out."""
+    cols = to_numpy(compact.columns, np.int32)
+    vals = to_numpy(compact.values)
+    out_c = np.zeros((assignment.padded_rows,) + cols.shape[1:], cols.dtype)
+    out_v = np.zeros((assignment.padded_rows,) + vals.shape[1:], vals.dtype)
+    real = assignment.stored_to_global < assignment.num_entities
+    out_c[real] = cols[assignment.stored_to_global[real]]
+    out_v[real] = vals[assignment.stored_to_global[real]]
+    return CompactReTable(columns=out_c, values=out_v)
+
+
 def precompact_model(params: Dict[str, object]) -> Dict[str, object]:
     """Replace every (E, d) random-effect coefficient table with its
     :class:`CompactReTable`: pre-compact ONCE instead of leaning on the

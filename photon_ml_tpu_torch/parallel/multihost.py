@@ -417,6 +417,32 @@ def reshard_replicated(x, mesh=None, axis: Optional[str] = None):
     return all_gather(x, axis, "gather", mesh=mesh).reshape((-1,) + tuple(x.shape[1:]))
 
 
+def gather_rows_to_host(x, mesh=None, axis: Optional[str] = None) -> np.ndarray:
+    """The whole tensor of :func:`reshard_replicated` on the host, gathered
+    in pieces: each all-gather moves ceil(B / P) rows of every rank's
+    B-row block, so that what the gather holds on the card at once is at
+    most one block, whatever the world's size. A tensor outside a world
+    comes back as it is, on the host."""
+    import torch
+
+    from photon_ml_tpu_torch.parallel.mesh import active_mesh, all_gather, row_axis
+
+    mesh = mesh if mesh is not None else active_mesh()
+    axis = (axis or row_axis(mesh)) if mesh is not None else None
+    if mesh is None or axis is None:
+        return fetch_replicated(x)
+    size = mesh.axis_size(axis)
+    rows = int(x.shape[0])
+    piece = max(1, -(-rows // size))
+    out = None
+    for lo in range(0, max(rows, 1), piece):
+        got = fetch_replicated(all_gather(x[lo:lo + piece], axis, "host_copy", mesh=mesh))
+        if out is None:
+            out = np.empty((size, rows) + tuple(got.shape[2:]), got.dtype)
+        out[:, lo:lo + got.shape[1]] = got
+    return out.reshape((size * rows,) + out.shape[2:])
+
+
 def fetch_replicated(x):
     """A value on the host: a tensor (every rank holds the same one after
     a reduction, or after :func:`reshard_replicated`) as a numpy array;

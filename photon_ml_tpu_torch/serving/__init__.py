@@ -16,10 +16,11 @@ low-latency GAME scorer and what stands around it.
 - :mod:`.cache`    — tiered device/host entity cache: the hot head of
   each entity table in a device tier, the cold tail in host RAM, async
   promotion off the scoring path; a miss scores fixed-effect-only.
+- :mod:`.sharding` — the entity-sharded engine: RE tables split by entity
+  over P shards, shard-routed batches merged on the host, and the loader
+  that builds a shard set from a sharded checkpoint.
 
-Entry point: ``python -m photon_ml_tpu_torch.cli.serve``. Not ported: the
-entity-sharded engine (``serving/sharding.py``, ROADMAP.md queue A item
-9).
+Entry point: ``python -m photon_ml_tpu_torch.cli.serve``.
 """
 
 from photon_ml_tpu_torch.serving.batcher import (
@@ -44,6 +45,14 @@ from photon_ml_tpu_torch.serving.registry import (
     ReloadCircuitBreaker,
     ReloadQuarantined,
 )
+from photon_ml_tpu_torch.serving.sharding import (
+    RoutedBatch,
+    ShardedCompactTable,
+    ShardedScoringEngine,
+    iter_checkpoint_re_blocks,
+    load_sharded_re_table,
+    route_batch,
+)
 from photon_ml_tpu_torch.serving.stats import (
     LatencyHistogram,
     ServingStats,
@@ -52,6 +61,12 @@ from photon_ml_tpu_torch.serving.stats import (
 )
 
 __all__ = [
+    "RoutedBatch",
+    "ShardedCompactTable",
+    "ShardedScoringEngine",
+    "iter_checkpoint_re_blocks",
+    "load_sharded_re_table",
+    "route_batch",
     "TieredEntityCache",
     "Backpressure",
     "DeadlineExceeded",

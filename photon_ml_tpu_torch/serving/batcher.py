@@ -1,6 +1,5 @@
 """Deadline-based micro-batching with admission control for the scoring
-engine (a copy of ``photon_ml_tpu/serving/batcher.py``, without the
-entity-sharded engine's ``presort_fn``, ROADMAP.md queue A item 9).
+engine (a copy of ``photon_ml_tpu/serving/batcher.py``).
 
 One device call amortizes dispatch overhead across every request that
 arrives within a small window: the worker takes the first queued request,
@@ -287,12 +286,18 @@ class MicroBatcher:
             Callable[[Sequence[object]], np.ndarray]
         ] = None,
         degrade: Optional[_DegradeController] = None,
+        presort_fn: Optional[Callable[[Sequence[object]], np.ndarray]] = None,
         auto_start: bool = True,
     ):
         if max_batch <= 0:
             raise ValueError(f"max_batch must be positive, got {max_batch}")
         self._score_fn = score_fn
         self._degraded_score_fn = degraded_score_fn
+        # shard-routed micro-batching: an entity-sharded engine supplies its
+        # primary-owner-shard key (ShardedScoringEngine.shard_presort_key),
+        # so each flushed batch is stably grouped by owning shard before
+        # the score call and the engine's routed sub-batches are contiguous
+        self._presort_fn = presort_fn
         self._degrade = (
             degrade
             if degrade is not None
@@ -587,6 +592,12 @@ class MicroBatcher:
         batch = live
         if not batch:
             return
+        if self._presort_fn is not None and len(batch) > 1:
+            try:
+                keys = np.asarray(self._presort_fn([it.request for it in batch]))
+                batch = [batch[i] for i in np.argsort(keys, kind="stable")]
+            except Exception:  # noqa: BLE001 — grouping is an optimization
+                pass  # an unsorted batch still scores correctly
         degraded = self.degraded() and self._degraded_score_fn is not None
         score_fn = self._degraded_score_fn if degraded else self._score_fn
         t0 = time.perf_counter()

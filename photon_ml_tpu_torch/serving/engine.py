@@ -43,8 +43,11 @@ concurrent requests belongs to :mod:`.batcher`, versioning/hot-reload to
 ``quality-fingerprint.json`` read by ``from_model_dir``) the engine carries
 a :class:`~photon_ml_tpu_torch.obs.quality.DriftMonitor` that samples the
 unpadded host features and the scores of every batch that is not
-fixed-effect-only. Not ported: the cost book's MFU on score spans (ROADMAP.md
-queue A item 10) and the entity-sharded engine (item 9).
+fixed-effect-only. The entity-sharded engine is the subclass in
+:mod:`.sharding` (its hooks: ``_precompact``, ``_pin_params``,
+``_build_scorer`` and ``_placement_fingerprint``, which keys the shared
+scorer cache by placement). Not ported: the cost book's MFU on score spans
+(ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations

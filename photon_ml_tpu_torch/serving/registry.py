@@ -1,7 +1,7 @@
 """Versioned model registry with integrity-gated atomic hot-reload
-(counterpart of ``photon_ml_tpu/serving/registry.py``; the entity-sharded
-engine behind ``serving_shards`` > 1 is not ported, ROADMAP.md queue A
-item 9).
+(counterpart of ``photon_ml_tpu/serving/registry.py``; ``serving_shards``
+> 1 builds every version as a
+:class:`~photon_ml_tpu_torch.serving.sharding.ShardedScoringEngine`).
 
 A serving process outlives any single model export: training keeps
 publishing new versions, and the engine must pick them up without dropping
@@ -58,12 +58,6 @@ from photon_ml_tpu_torch.io.models import (
 from photon_ml_tpu_torch.resilience import faults as _faults
 from photon_ml_tpu_torch.serving.engine import ScoringEngine
 from photon_ml_tpu_torch.serving.stats import ServingStats
-
-
-SHARDING_UNPORTED = (
-    "entity-sharded serving (serving_shards > 1, serving/sharding.py) is not "
-    "ported: ROADMAP.md queue A item 9"
-)
 
 
 class NoModelLoaded(RuntimeError):
@@ -225,11 +219,10 @@ class ModelRegistry:
         **engine_kwargs,
     ):
         self.stats = stats if stats is not None else ServingStats()
-        # entity-sharded serving (serving/sharding.py) is not ported: the
-        # registry keeps the parameter and refuses any value but 1
+        # entity-sharded serving (serving/sharding.py): > 1 builds every
+        # version as a ShardedScoringEngine over that many shards; a hot
+        # reload swaps the whole engine, shard set and routing included
         self.serving_shards = int(serving_shards)
-        if self.serving_shards > 1:
-            raise NotImplementedError(SHARDING_UNPORTED)
         self._verify = verify
         self._warmup_max_batch = warmup_max_batch
         self._warmup_degraded = warmup_degraded
@@ -252,6 +245,12 @@ class ModelRegistry:
         )
 
     def _default_factory(self, root: str) -> ScoringEngine:
+        if self.serving_shards > 1:
+            from photon_ml_tpu_torch.serving.sharding import ShardedScoringEngine
+
+            return ShardedScoringEngine.from_model_dir(
+                root, stats=self.stats, num_shards=self.serving_shards,
+                **self._engine_kwargs)
         return ScoringEngine.from_model_dir(
             root, stats=self.stats, **self._engine_kwargs
         )

@@ -1,7 +1,7 @@
 """Serving telemetry: latency histograms, QPS, batching/bucket counters
-(a copy of ``photon_ml_tpu/serving/stats.py``; the entity-sharded
-engine's and the lifecycle loop's recorders wait for ROADMAP.md queue A
-items 9 and 10, and their snapshot keys read 0).
+(a copy of ``photon_ml_tpu/serving/stats.py``; the lifecycle loop's
+recorders wait for ROADMAP.md queue A item 10, and their snapshot keys
+read 0).
 
 The online engine's contract is "steady-state traffic never builds a new
 bucket and tail latency is bounded" — both are claims about
@@ -258,6 +258,31 @@ class ServingStats:
             misses = self.registry.counter("serving.cache.misses").value
         total = hits + misses
         return hits / total if total else 0.0
+
+    # -- entity-sharded serving (serving/sharding.py) ----------------------
+
+    def record_shard_batch(self, counts, device_s: float) -> None:
+        """Per-shard occupancy gauges and per-shard device latency
+        histograms for one routed batch (``photon_ml_tpu/serving/stats.py:242``).
+        The batch scores in one call per device, so the wall attributes to
+        every shard that had placements in it."""
+        with self._lock:
+            for p, rows in enumerate(counts):
+                rows = int(rows)
+                self.registry.set_gauge(f"serving.shard.occupancy.{p}", rows)
+                if rows:
+                    self.registry.observe(f"serving.shard.device_ms.{p}", device_s * 1e3)
+
+    def record_shard_degraded(self, shards, rows: int) -> None:
+        """A routing fault took shard(s) down for one batch
+        (``photon_ml_tpu/serving/stats.py:259``): their entities scored
+        fixed-effect-only; every request still completed."""
+        with self._lock:
+            self._inc("shard.degraded_batches")
+            self._inc("shard.degraded_rows", rows)
+        from photon_ml_tpu_torch import obs
+
+        obs.emit_event("serving.shard_degraded", cat="serving", shards=list(shards), rows=rows)
 
     def record_error(self) -> None:
         with self._lock:

@@ -34,6 +34,7 @@ from photon_ml_tpu.ops.sparse import from_dense as jax_from_dense
 from photon_ml_tpu_torch.cli import config as tconfig
 from photon_ml_tpu_torch.cli import game_train as tgame
 from photon_ml_tpu_torch.game import data as tdata
+from photon_ml_tpu_torch.io import checkpoint as tckpt
 from photon_ml_tpu_torch.ops.sparse import from_dense, to_hybrid
 
 from test_torch_game_train import D_G, D_U, N_USERS, _params, _records
@@ -242,6 +243,13 @@ def _multi_params(inputs, out, **extra):
     return p
 
 
+def _multi_factored_params(inputs, out):
+    p = _multi_params(inputs, out)
+    p["coordinates"]["per-user"].update(latent_dim=2, num_inner_iterations=2,
+                                        latent_reg_weight=0.5, reg_weights=[0.3])
+    return p
+
+
 def _re_spec(optimizer="TRON"):
     args, rng = _args(seed=4)
     return {"args": args, "num_entities": E, "optimizer": optimizer, "config": _RE_CONFIG,
@@ -259,6 +267,10 @@ def world(request, game_inputs):
             "ell": _driver_params(game_inputs, f"es{n}-ell", sparse=True, entity_shards=n)}
     if n == 2:
         runs["multi"] = _multi_params(game_inputs, "multi")
+        # with sharded checkpoints every pass: the factored gamma blocks
+        # gathered to the host at each boundary
+        runs["multi factored"] = {**_multi_factored_params(game_inputs, "multi-factored"),
+                                  "sharded_ckpt": True, "checkpoint_every": 1}
         dup = _multi_params(game_inputs, f"multi-dup-{n}")
         dup["train_input"] = [game_inputs["parts"][0], game_inputs["parts"][0]]
     else:
@@ -422,11 +434,67 @@ def test_multiprocess_refusals_have_the_jax_message(case):
     assert str(got.value) == str(want.value)
 
 
+def test_multiprocess_factored_branch_equals_single_process_jax(world, game_inputs):
+    """At 2 ranks a factored per-user effect (each rank its users' gamma
+    rows, the shared projection's solve reduced over the ranks) equals the
+    JAX single-process driver on all 4 files within 1e-10: the projection,
+    gamma by entity key and the fixed effect; the projection's value and
+    gradient are one all-reduce, and every rank's tables are rank 0's bit
+    for bit."""
+    n, results = world
+    if n != 2:
+        return
+    ref = _jax_run(game_inputs, "multi factored",
+                   _multi_factored_params(game_inputs, "jax-multi-factored"))
+    jv = ref.entity_vocabs["userId"]
+    runs = [r["multi factored"] for r in results]
+    for got in runs:
+        ev = got["entity_vocabs"]["userId"]
+        assert sorted(ev) == sorted(jv)
+        for g, r in zip(got["sweep"], ref.sweep):
+            assert g["coordinates"] == [(h.iteration, h.coordinate) for h in r["history"]]
+            np.testing.assert_allclose(g["objectives"], [h.objective for h in r["history"]],
+                                       rtol=1e-12)
+            jm = r["model"].params
+            np.testing.assert_allclose(g["params"]["global"], np.asarray(jm["global"]),
+                                       rtol=0, atol=1e-10)
+            fact = g["params"]["per-user"]
+            np.testing.assert_allclose(fact["projection"], np.asarray(jm["per-user"].projection),
+                                       rtol=0, atol=1e-10)
+            jg = np.asarray(jm["per-user"].gamma)
+            assert np.abs(jg).max() > 1e-2 and np.abs(fact["projection"]).max() > 1e-2
+            for key, i in jv.items():
+                np.testing.assert_allclose(fact["gamma"][ev[key]], jg[i], rtol=0, atol=1e-10)
+        for g, g0 in zip(got["sweep"], runs[0]["sweep"]):
+            np.testing.assert_array_equal(g["params"]["per-user"]["gamma"],
+                                          g0["params"]["per-user"]["gamma"])
+    assert runs[0]["collectives"]["value_grad"]["count"] > 0
+    # the last pass's sharded checkpoint holds every rank's gamma rows,
+    # keyed by entity, and the run's projection
+    ck = tckpt.latest_checkpoint(str(game_inputs["tmp"] / "multi-factored" / "checkpoints"
+                                     / "combo-0"))
+    assert ck.step == 3 and ck.shards == 2
+    fact = ck.params["per-user"]
+    keys = ck.entity_keys["per-user"]
+    ev = runs[0]["entity_vocabs"]["userId"]
+    want = runs[0]["sweep"][0]["params"]["per-user"]
+    np.testing.assert_array_equal(fact.projection, want["projection"])
+    for row, key in enumerate(keys):
+        if key in ev:
+            np.testing.assert_array_equal(fact.gamma[row], want["gamma"][ev[key]])
+        else:
+            assert key.startswith("__entity_pad__") and not fact.gamma[row].any()
+
+
 def test_multiprocess_refuses_a_factored_effect_and_non_str_ids():
+    """The factored half now checks that the branch admits a factored
+    effect, as the JAX one does (its parity run is
+    ``test_multiprocess_factored_branch_equals_single_process_jax``); the
+    non-str ids are refused in the JAX words."""
     raw = _base_dict()
     raw["coordinates"]["u"]["latent_dim"] = 2
-    with pytest.raises(ValueError, match="latent_dim"):
-        tgame._validate_multiprocess_params(tconfig.load_params(raw, tconfig.GameDriverParams))
+    jgame._validate_multiprocess_params(jconfig.load_params(raw, jconfig.GameDriverParams))
+    tgame._validate_multiprocess_params(tconfig.load_params(raw, tconfig.GameDriverParams))
     with pytest.raises(ValueError) as want:
         jgame._ordered_entity_ids("userId", {7: 0})
     with pytest.raises(ValueError) as got:

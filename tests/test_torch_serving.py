@@ -663,8 +663,12 @@ class TestRegistry:
         assert reg.health()["breaker"]["state"] == "open"
         assert reg.load(root, force=True).version_id == "v1"
         assert reg.health()["breaker"]["state"] == "closed"
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ModelRegistry(serving_shards=2, **CPU)
+        # the sharded registry (formerly refused) loads and reports its shards
+        from photon_ml_tpu_torch.serving import ShardedScoringEngine
+
+        sharded = ModelRegistry(warmup_max_batch=8, serving_shards=2, **CPU)
+        assert isinstance(sharded.load(root).engine, ShardedScoringEngine)
+        assert sharded.health()["serving_shards"] == 2
 
     def test_hot_reload_swaps_the_drift_baseline(self, rng, tmp_path):
         """The monitor lives on the engine: a reload to an export with a
@@ -1038,7 +1042,7 @@ class TestServeMain:
         assert json.load(open(stats_json))["requests"] == 1
 
     @pytest.mark.parametrize("flag", [["--frontend-port", "0"], ["--tenant", "{}"],
-                                      ["--replicas", "2"], ["--serving-shards", "2"]])
+                                      ["--replicas", "2"]])
     def test_unported_flags_are_refused(self, flag, capsys):
         with pytest.raises(SystemExit) as exc:
             port_serve.main(["--model-dir", "unused", *flag])

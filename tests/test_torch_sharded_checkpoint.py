@@ -285,9 +285,8 @@ def test_marker_written_even_when_the_final_save_fails(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def drill(tmp_path_factory):
-    """The 4-rank CLI drill, then the 2-rank restart and the uninterrupted
-    2-rank run in one world."""
+def drill_setup(tmp_path_factory):
+    """The drills' records, feature files and driver parameters."""
     from photon_ml_tpu.io.vocab import FeatureVocabulary, feature_key
 
     rng = np.random.default_rng(20261019)
@@ -310,6 +309,14 @@ def drill(tmp_path_factory):
         p["coordinates"]["per-user"]["reg_weights"] = [0.1]
         return p
 
+    return tmp, params
+
+
+@pytest.fixture(scope="module")
+def drill(drill_setup):
+    """The 4-rank CLI drill, then the 2-rank restart and the uninterrupted
+    2-rank run in one world."""
+    tmp, params = drill_setup
     # rank 3 goes silent at its 4th update (pass 2's random effect), which
     # takes 6 s longer; a peer is lost past 3 beats of 1 s (at 0.02 s a
     # loaded machine's late beats read as lost peers at the first boundary)
@@ -337,6 +344,59 @@ def test_shrunk_restart_equals_the_uninterrupted_run(drill):
     *_, runs = drill
     for rank_runs in runs:
         got, want = rank_runs["restart"]["sweep"][0], rank_runs["straight"]["sweep"][0]
+        assert got["coordinates"] == want["coordinates"]
+        np.testing.assert_allclose(got["objectives"], want["objectives"], rtol=1e-12)
+        for name in want["params"]:
+            np.testing.assert_allclose(got["params"][name], want["params"][name], rtol=0,
+                                       atol=1e-10, err_msg=name)
+
+
+# -- a complete final set at a boundary that is not a cadence step -------------
+
+
+@pytest.fixture(scope="module")
+def noncadence_drill(drill_setup, drill):
+    """The CLI on 2 gloo ranks with ``checkpoint_every`` 2, rank 1 silenced
+    at its 2nd update (pass 1's random effect), so that rank 0 finds it lost
+    at boundary 1, where no cadence save lands; then a 2-rank restart from
+    what rank 0 left, to be held to the drill's uninterrupted 2-rank run."""
+    tmp, params = drill_setup
+
+    def every2(out, **kw):
+        return {**params(out, 2, **kw), "checkpoint_every": 2}
+
+    codes = run_cli_world(tmp, 2, every2("noncadence", heartbeat_s=1.0), victim=(1, 2))
+    ckdir = str(tmp / "noncadence" / "checkpoints" / "combo-0")
+    marker = read_host_loss_marker(ckdir)
+    steps = sorted(d for d in os.listdir(ckdir) if d.startswith("step-"))
+    step_dir = os.path.join(ckdir, steps[-1]) if steps else None
+    listing = sorted(os.listdir(step_dir)) if step_dir else []
+    loaded = (tckpt.latest_checkpoint(ckdir), jckpt.latest_checkpoint(ckdir))
+    runs = run_world(tmp, 2, "game_driver_world", runs={
+        "restart": {**every2("noncadence"), "resume": True, "overwrite": True}})
+    return codes, marker, steps, listing, loaded, runs, drill[-1]
+
+
+def test_noncadence_loss_leaves_a_complete_final_shard_set(noncadence_drill):
+    codes, marker, steps, listing, (tck, jck), _, _ = noncadence_drill
+    assert codes[0] == HOST_LOSS_EXIT_CODE
+    # step 1 is no cadence step of checkpoint_every 2: the survivor wrote
+    # it from its host copy of the boundary, every block included
+    assert marker["peers"] == [1] and marker["step"] == 1
+    assert marker["final_checkpoint"] is True
+    assert steps == ["step-1"]
+    assert listing == ["manifest.json"] + [f"shard-{p}-of-2.{ext}" for p in (0, 1)
+                                           for ext in ("json", "npz")]
+    assert tck.step == jck.step == 1 and tck.shards == jck.shards == 2
+    _assert_same_params(tck.params, jck.params)
+    assert tck.entity_keys == jck.entity_keys
+    assert len(tck.entity_keys["per-user"]) == tck.params["per-user"].shape[0]
+
+
+def test_noncadence_restart_equals_the_uninterrupted_run(noncadence_drill):
+    *_, runs, straight = noncadence_drill
+    for rank_runs, rank_straight in zip(runs, straight):
+        got, want = rank_runs["restart"]["sweep"][0], rank_straight["straight"]["sweep"][0]
         assert got["coordinates"] == want["coordinates"]
         np.testing.assert_allclose(got["objectives"], want["objectives"], rtol=1e-12)
         for name in want["params"]:

@@ -334,6 +334,14 @@ def driver_world(rank, n, inputs) -> dict:
     }
 
 
+def _host(p):
+    """A coordinate's params as numpy: a table, or {"gamma", "projection"}
+    of FactoredParams."""
+    if hasattr(p, "gamma"):
+        return {"gamma": p.gamma.cpu().numpy(), "projection": p.projection.cpu().numpy()}
+    return p.cpu().numpy()
+
+
 def _game_run(run) -> dict:
     """A GAME driver run's sweep as numpy: per combo the tables (global
     entity order), the validation metric and the history's objectives."""
@@ -341,7 +349,7 @@ def _game_run(run) -> dict:
     for s in run.sweep:
         out.append({
             "combo": s["combo"],
-            "params": {n: p.cpu().numpy() for n, p in s["model"].params.items()},
+            "params": {n: _host(p) for n, p in s["model"].params.items()},
             "validation_metric": s["validation_metric"],
             "objectives": [h.objective for h in s["history"]],
             "validations": [h.validation_metric for h in s["history"]],
