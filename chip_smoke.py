@@ -221,7 +221,11 @@ whenever any phase fails. Phases, in order:
    pass and resumed, all three bit for bit equal (every update's objective
    and AUC, every combo's tables in memory, the saved tables read back,
    the MF files); no CPU reference (the GLM half, two training runs with
-   the same w bits, runs in phase 6 on its design);
+   the same w bits, runs in phase 6 on its design). The second run is
+   traced (``trace_dir``, ``convergence_report``): its fixed effect's
+   ``game.update`` spans and every ``game.pass`` span carry the cost
+   book's attribution (``hbm_util`` in (0, 1.05]); the preempted run has
+   a ``flight_dir`` and must leave ``flight-preemption.json``;
 6. train: the port's GLM training driver (``run_glm_training``, sparse
    TRON, L2 logistic, lambda in {10, 1}, float64, with validation) on 2^16
    Criteo-layout records and 2^14 held-out ones, counters set to 0 just
@@ -232,9 +236,15 @@ whenever any phase fails. Phases, in order:
    CSR beside it, ``fused_hvp`` with its composite) checked and timed at
    the shape the training driver gave them, the fused passes' outputs
    held to the same bits over 3 calls, and the host's part of each call
-   timed beside the card's; then the same run under ``torch.profiler``,
-   whose w must equal the first run's bit for bit at every lambda (phase
-   5e's GLM gate);
+   timed beside the card's; then the same driver with ``trace_dir``,
+   ``metrics_every``, ``flight_dir``, ``convergence_report`` and
+   ``profile_dir`` (a ``torch.profiler`` window over the whole run, the
+   card's busy share read from its Chrome trace), whose w must equal the
+   first run's bit for bit at every lambda (phase 5e's GLM gate) and
+   whose launches must be the first run's; each ``glm.solve`` span
+   carries ``bytes_per_s`` and an ``hbm_util`` in (0, 1.05],
+   ``metrics.json``'s TRON counters equal the run's history, and the
+   profile names each launched kernel by its CUDA symbol;
 7. full trainer: on the same records, each run with the counters set to 0
    just before and read just after, and each held to the same training on
    the CPU (the same convergence reason; coefficients within 1e-6 max(1,
@@ -245,7 +255,9 @@ whenever any phase fails. Phases, in order:
    the held-out AUC within 1e-3):
    A. ``run_glm_training``, TRON, L2, lambda in {10, 1},
       ``compute_variances`` (one ``fused_hdiag`` per lambda),
-      ``diagnostics`` and ``training_diagnostics`` (model-diagnostic.html);
+      ``diagnostics`` and ``training_diagnostics`` (model-diagnostic.html),
+      its train phase under ``debug_nans`` (every op's and kernel's
+      outputs checked for NaN) and ``profile``;
    B. ``run_glm_training``, L-BFGS with ELASTIC_NET (alpha 0.5, OWL-QN),
       lambda in {10, 1}, ``compute_variances``, 100 iterations at most;
    C. ``train_glm`` in memory: L-BFGS L2 with a constraint file boxing
@@ -322,8 +334,13 @@ whenever any phase fails. Phases, in order:
    1. After the worlds, the engine stood up from (c)'s final shard set by
    ``ShardedScoringEngine.from_sharded_checkpoint`` at 3 serving shards
    is held to an unsharded engine on the same step's tables within
-   1e-10 max(1, |s|);
-8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
+   1e-10 max(1, |s|). Each rank of (a) traces into its own directory, and
+   the shards must merge (``obs.dist``) aligned by the barrier-backed
+   ``clock.sync``, one pid per rank, the merged metrics holding the
+   ranks' ``collective.*.w2.count``;
+8. the ``{"obs": ...}`` line (each traced run's wall beside its untraced
+   twin's, its span counts, the profiled kernels), the
+   ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Every driver run of phases 5-7 must read (and write) its Avro through the
@@ -1855,6 +1872,89 @@ def device_busy(prof) -> dict:
         us = sum(end - start for start, end, name in spans if f"{kernel}_kernel" in name)
         out[f"{kernel}_device_s"] = us * 1e-6
     return out
+
+
+# the CUDA symbol each counted kernel launches under: the column-sorted
+# reduce runs ell_colsum's and ell_rmatvec's work on the card
+KERNEL_SYMBOLS = {
+    "ell_matvec": "ell_matvec_kernel", "ell_scatter_add": "ell_scatter_add_kernel",
+    "fused_vgc": "fused_vgc_kernel", "fused_hvp": "fused_hvp_kernel",
+    "fused_hdiag": "fused_hdiag_kernel", "colsort_reduce": "colsort_reduce_",
+    "ell_colsum": "colsort_reduce_", "ell_rmatvec": "colsort_reduce_",
+    "lane_gather": "lane_gather_kernel", "onehot_gather": "onehot_gather_kernel",
+    "onehot_reduce": "onehot_reduce_",
+}
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def chrome_profile(profile_dir: str) -> dict:
+    """What a driver's ``profile_dir`` Chrome trace (the one
+    ``*.pt.trace.json`` there) shows of the card: ``device_busy`` 's keys
+    from its device activities (kernels, copies, sets), and the names of
+    the kernels it lists (``kernel_names``). None where it lists no device
+    activity: not measured."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(profile_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
+                   for e in events if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS)
+    names = sorted({name for _, _, name in spans})
+    if not spans:
+        return {"device_busy_s": None, "kernel_names": [], "profile_bytes": os.path.getsize(path),
+                **{f"{k}_device_s": None for k in PROFILED_KERNELS}}
+    busy_us, reach = 0.0, float("-inf")
+    for start, end, _ in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    out = {"device_busy_s": busy_us * 1e-6, "kernel_names": names,
+           "profile_bytes": os.path.getsize(path)}
+    for kernel in PROFILED_KERNELS:
+        us = sum(end - start for start, end, name in spans if f"{kernel}_kernel" in name)
+        out[f"{kernel}_device_s"] = us * 1e-6
+    return out
+
+
+def unprofiled_kernels(launches: dict, kernel_names) -> list:
+    """The kernels launched (``launches`` > 0) that a profile's kernel
+    names do not list by their CUDA symbol."""
+    return sorted(k for k, n in launches.items()
+                  if n and not any(KERNEL_SYMBOLS[k] in name for name in kernel_names))
+
+
+def trace_spans(trace_dir: str) -> list:
+    """The complete ('X') events of a driver's ``trace.json``."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def span_counts(spans) -> dict:
+    out: dict = {}
+    for e in spans:
+        out[e["name"]] = out.get(e["name"], 0) + 1
+    return dict(sorted(out.items()))
+
+
+def attribution_failures(spans, name: str, on_card: bool, where: str, **match) -> list:
+    """Each ``name`` span whose args match ``match`` must carry the cost
+    book's attribution: ``flops`` and ``bytes_per_s`` above 0, and on the
+    card an ``hbm_util`` in (0, 1.05] (the H100's 3.35 TB/s)."""
+    failures = []
+    chosen = [e for e in spans if e["name"] == name
+              and all(e["args"].get(k) == v for k, v in match.items())]
+    if not chosen:
+        failures.append(f"{where}: no {name} span")
+    for e in chosen:
+        a = e["args"]
+        ok = a.get("flops", 0) > 0 and a.get("bytes_per_s", 0) > 0
+        if on_card:
+            ok = ok and 0 < a.get("hbm_util", 0) <= 1.05
+        if not ok:
+            failures.append(f"{where}: a {name} span without its attribution: {a}")
+            break
+    return failures
 
 
 def score_phase(work: str, n: int = SCORE_RECORDS, d_hashed: int = D_HASHED,
@@ -4036,10 +4136,14 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
         return {**game_projected_params(work, train, heldout, vocab_paths, out),
                 "coordinates": GAME_DET_COORDINATES}
 
+    # the second run traced, with the convergence report: its bits must be
+    # the first run's all the same
+    trace_dir = os.path.join(work, "trace")
+    extra = {"first": {}, "second": {"trace_dir": trace_dir, "convergence_report": True}}
     runs, walls = [], []
     for out in ("first", "second"):
         t0 = time.perf_counter()
-        runs.append(run_game_training(params(out), **device_kw))
+        runs.append(run_game_training({**params(out), **extra[out]}, **device_kw))
         walls.append(time.perf_counter() - t0)
         require_native(runs[-1], f"[game-det] the {out} run")
         history = [h for c in runs[-1].sweep for h in c["history"]]
@@ -4050,7 +4154,9 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
     first, second = runs
 
     t0 = time.perf_counter()
-    pre_params = params("preempt")
+    # the preempted run records its flights: SIGTERM dumps the ring
+    flight_dir = os.path.join(work, "flight")
+    pre_params = {**params("preempt"), "flight_dir": flight_dir}
     shutdown_cls = game_train_mod.GracefulShutdown
     game_train_mod.GracefulShutdown = _PreemptAfterFirstPass
     try:
@@ -4059,11 +4165,26 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
         game_train_mod.GracefulShutdown = shutdown_cls
     marker = read_preempted_marker(
         os.path.join(pre_params["output_dir"], "checkpoints", "combo-0"))
+    flights = sorted(os.listdir(flight_dir)) if os.path.isdir(flight_dir) else []
     resumed = run_game_training({**pre_params, "resume": True}, **device_kw)
     resume_s = time.perf_counter() - t0
     require_native(resumed, "[game-det] the resumed run")
 
     failures = []
+    if "flight-preemption.json" not in flights:
+        failures.append(f"the preempted run left no flight-preemption.json ({flights})")
+    spans = trace_spans(trace_dir)
+    on_card = not device_kw
+    # the fixed effect's updates (ELL, their solves' design passes) and
+    # every pass carry the cost book's attribution
+    failures += attribution_failures(spans, "game.update", on_card, "[game-det] traced run",
+                                     coordinate="global")
+    failures += attribution_failures(spans, "game.pass", on_card, "[game-det] traced run")
+    with open(os.path.join(second.params.output_dir, "convergence-report.json")) as f:
+        report = json.load(f)
+    updates = sum(len(c["history"]) for c in second.sweep)
+    if report["updates"] != updates:
+        failures.append(f"convergence-report.json: {report['updates']} updates of {updates}")
     if marker is None or marker["step"] != 1 or pre.output_dirs:
         failures.append(f"preempted run: marker {marker}, saved {pre.output_dirs}")
     rerun_gaps = bit_gaps(second, first)
@@ -4093,6 +4214,14 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
                             for c in GAME_PROJ_SEQUENCE},
         "second_run_bit_gaps": rerun_gaps,
         "resumed_bit_gaps": resume_gaps,
+        "obs": {"untraced_wall_s": walls[0], "traced_wall_s": walls[1],
+                "spans": span_counts(spans), "flight_dumps": flights,
+                "game_update_global": [
+                    {k: e["args"].get(k) for k in ("iteration", "flops", "bytes_per_s",
+                                                   "hbm_util", "mfu")}
+                    for e in spans if e["name"] == "game.update"
+                    and e["args"].get("coordinate") == "global"],
+                "convergence_nonconverged_frac": report["nonconverged_frac"]},
         "best_auc": first.sweep[first.best_index]["validation_metric"],
         "phase_s": time.perf_counter() - phase_t0,
     }
@@ -4285,14 +4414,21 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                                            label="train-shape"))
         del batch_card, x, w64
         torch.cuda.empty_cache()
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if not device_kw:
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        again = run_glm_training({**params, "overwrite": True}, **device_kw)
-        traced_wall_s = time.perf_counter() - t0
-    busy = device_busy(prof)
+    # the same driver again with every observability setting on: its own
+    # trace, metrics snapshots, flight recorder, convergence report and a
+    # torch.profiler window over the whole run (the card's busy share)
+    obs_dir = os.path.join(work, "obs")
+    traced = {**params, "overwrite": True, "trace_dir": os.path.join(obs_dir, "trace"),
+              "metrics_every": 1.0, "flight_dir": os.path.join(obs_dir, "flight"),
+              "convergence_report": True, "profile_dir": os.path.join(obs_dir, "profile")}
+    dispatch.reset_launch_counts()
+    reset_host_reads()
+    t0 = time.perf_counter()
+    again = run_glm_training(traced, **device_kw)
+    traced_wall_s = time.perf_counter() - t0
+    traced_launches = dispatch.launch_counts()
+    traced_reads = host_reads()
+    busy = chrome_profile(traced["profile_dir"])
     # phase 5e's GLM gate, on this phase's design: the second run (traced)
     # ends with the first run's w bits at every lambda
     same_w = [bool(torch.equal(a.model.coefficients.means, b.model.coefficients.means))
@@ -4302,6 +4438,11 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
     require_native(again, "[train] the traced run")
     if not (all(same_w) and len(again.models) == len(run.models)):
         raise AssertionError(f"two GLM training runs ended with other w bits: {same_w}")
+    obs_summary = traced_glm_checks(again, traced, launches, traced_launches, busy,
+                                    on_card=not device_kw)
+    obs_summary.update(untraced_wall_s=wall_s, traced_wall_s=traced_wall_s,
+                       untraced_host_reads=reads, traced_host_reads=traced_reads)
+    log(f"[train] the traced run: {json.dumps(obs_summary)}")
 
     total_iters = sum(iters)
     summary = {
@@ -4319,9 +4460,10 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
         "host_reads_per_iteration": reads / max(total_iters, 1),
         "cg_steps_per_iteration": sum(cg) / max(total_iters, 1),
         "traced_wall_s": traced_wall_s,
-        **busy,
+        **{k: v for k, v in busy.items() if k != "kernel_names"},
         "device_idle_share": (None if busy["device_busy_s"] is None
                               else 1.0 - busy["device_busy_s"] / traced_wall_s),
+        "obs": obs_summary,
         "cpu_reference_s": cpu_s,
         "setup_s": setup_s,
         "codecs": run.codecs,
@@ -4333,6 +4475,58 @@ def train_phase(work: str, name: str = "", n: int = TRAIN_RECORDS,
                  "card_w": [tm.model.coefficients.means.cpu() for tm in run.models],
                  "card_auc": [vm[auc_key] for vm in run.validation_metrics]}
     return summary, shape_checks, reference
+
+
+def traced_glm_checks(run, params: dict, launches: dict, traced_launches: dict, busy: dict,
+                      on_card: bool) -> dict:
+    """Phase 6's gates on its traced run (``params``: its trace_dir,
+    metrics_every, flight_dir, convergence_report and profile_dir): the
+    untraced run's launches; a ``glm.solve`` span per lambda, each with its
+    attribution (on the card an ``hbm_util`` in (0, 1.05]); the TRON
+    counters of ``metrics.json`` equal to the run's history; one solve per
+    lambda in ``convergence-report.json``; no flight dump (nothing went
+    wrong); and, on the card, every launched kernel named by its CUDA
+    symbol in the profile. Returns the summary of the ``{"obs": ...}``
+    line."""
+    failures = []
+    if traced_launches != launches:
+        failures.append(f"the traced run launched {traced_launches}, the untraced {launches}")
+    spans = trace_spans(params["trace_dir"])
+    solves = [e for e in spans if e["name"] == "glm.solve"]
+    if len(solves) != len(run.models):
+        failures.append(f"{len(solves)} glm.solve spans for {len(run.models)} lambdas")
+    failures += attribution_failures(spans, "glm.solve", on_card, "the traced run")
+    with open(os.path.join(params["trace_dir"], "metrics.json")) as f:
+        counters = json.load(f)["counters"]
+    want = {"solver.tron.iterations": sum(tm.result.iterations for tm in run.models),
+            "solver.tron.cg_iterations": sum(tm.result.cg_iterations for tm in run.models),
+            "solver.tron.solves": len(run.models)}
+    got = {k: counters.get(k) for k in want}
+    if got != want:
+        failures.append(f"metrics.json's TRON counters {got}, the history's {want}")
+    with open(os.path.join(params["output_dir"], "convergence-report.json")) as f:
+        report = json.load(f)
+    if report["solves"] != len(run.models):
+        failures.append(f"convergence-report.json: {report['solves']} solves")
+    if os.path.isdir(params["flight_dir"]) and os.listdir(params["flight_dir"]):
+        failures.append(f"a clean run dumped {os.listdir(params['flight_dir'])}")
+    missing = unprofiled_kernels(traced_launches, busy["kernel_names"]) if on_card else []
+    if missing:
+        failures.append(f"the profile lists no CUDA symbol of {missing} "
+                        f"(kernels {busy['kernel_names']})")
+    summary = {
+        "spans": span_counts(spans),
+        "glm_solve": [{k: e["args"].get(k) for k in ("reg_weight", "flops", "achieved_tflops",
+                                                      "bytes_per_s", "hbm_util", "mfu",
+                                                      "device_wait_ms")} for e in solves],
+        "tron_counters": got,
+        "kernel_builds": obs.kernel_build_events(),
+        "profiled_kernels": busy["kernel_names"],
+        "profile_bytes": busy["profile_bytes"],
+    }
+    if failures:
+        raise AssertionError("[train] the traced run: " + "; ".join(failures))
+    return summary
 
 
 # -- phase 6h: hybrid designs on phase 6's records ---------------------------
@@ -5620,10 +5814,13 @@ def full_trainer_phase(work: str, ref: dict, **device_kw):
     base = {**ref["params"], "output_dir": None}
     summary = {}
 
-    # A: TRON + variances + diagnostics
+    # A: TRON + variances + diagnostics, its train stage under debug_nans
+    # (every op's and every kernel's outputs checked for NaN) and profiled
     params_a = {**base, "output_dir": os.path.join(work, "a"), "compute_variances": True,
-                "diagnostics": True, "training_diagnostics": True}
+                "diagnostics": True, "training_diagnostics": True, "debug_nans": True,
+                "profile": True}
     run, wall_s, launches, reads = timed_run(params_a, device_kw)
+    profile_a = chrome_profile(os.path.join(params_a["output_dir"], "profile"))
     lam_count = len(run.models)
     if not device_kw and launches["fused_hdiag"] != lam_count:
         failures.append(f"run A: {launches['fused_hdiag']} fused_hdiag launches, "
@@ -5636,7 +5833,10 @@ def full_trainer_phase(work: str, ref: dict, **device_kw):
         failures.append("run A wrote no model-diagnostic.html")
     per_lambda = compare_models("run A", run.models, ref["tron_models"], heldout_cpu, failures)
     summary["run_a"] = {"wall_s": wall_s, "timings_s": run.timings, "launches": launches,
-                        "host_reads": reads, "per_lambda": per_lambda,
+                        "host_reads": reads, "per_lambda": per_lambda, "debug_nans": True,
+                        "profile": {"device_busy_s": profile_a["device_busy_s"],
+                                    "kernels": profile_a["kernel_names"],
+                                    "bytes": profile_a["profile_bytes"]},
                         "report_bytes": os.path.getsize(html) if os.path.exists(html) else 0}
     log(f"[full] run A: {json.dumps(summary['run_a'])}")
     launches_a = launches
@@ -6126,6 +6326,8 @@ ES_WORLDS = (
 )
 ES_PROCESSES = 14
 ES_WORLD_TIMEOUT_S = 300.0
+# the world whose ranks trace (trace_dir on each), merged by the parent
+ES_TRACED_WORLD = "a"
 
 
 def entity_params(work: str, gtrain: str, gheldout: str, gpath: str, upath: str,
@@ -6266,6 +6468,10 @@ def entity_world_worker(proc: int, work: str, worlds, device: str) -> None:
         for label, rank, n_ranks, kind in mine:
             with open(os.path.join(work, f"params-{label}.json")) as f:
                 params = json.load(f)
+            if label == ES_TRACED_WORLD:
+                # every rank traces into its own directory; the parent
+                # merges the shards
+                params["trace_dir"] = os.path.join(work, f"trace-{label}-{rank}")
             t_join = time.perf_counter()
             dist.init_process_group(
                 "gloo", init_method=f"file://{os.path.abspath(os.path.join(work, 'store-' + label))}",
@@ -6507,6 +6713,39 @@ def checkpoint_serving_check(ckpt_dir: str, gpath: str, upath: str, device=None,
     return out
 
 
+def merged_rank_traces(work: str, label: str, ranks: int, failures: list) -> dict:
+    """The world ``label``'s rank shards (``trace-<label>-<rank>``) merged
+    into one pod trace (``obs.dist``): aligned by the barrier-backed
+    ``clock.sync``, one pid per rank, and the merged metrics holding each
+    rank's collective counts (``collective.<label>.w<ranks>``) under
+    ``host.<i>.`` and their sums under ``pod.``."""
+    from photon_ml_tpu_torch.obs import dist as obs_dist
+
+    shards, snaps = [], []
+    for r in range(ranks):
+        d = os.path.join(work, f"trace-{label}-{r}")
+        doc, warning = obs_dist.load_trace_shard(d)
+        if warning is not None:
+            failures.append(f"({label}) rank {r}'s trace: {warning}")
+            return {}
+        shards.append((doc, d))
+        with open(os.path.join(d, "metrics.json")) as f:
+            snaps.append((json.load(f), r))
+    merged, info = obs_dist.merge_trace_shards(shards)
+    pod = obs_dist.merge_metrics_shards(snaps)
+    pids = sorted({e["pid"] for e in merged["traceEvents"]})
+    width = f".w{ranks}.count"
+    pod_counts = {k: v for k, v in pod["counters"].items()
+                  if k.startswith("pod.collective.") and k.endswith(width)}
+    if info["aligned_by"] != "sync" or pids != list(range(ranks)) or info["warnings"]:
+        failures.append(f"({label}) the rank traces merged {json.dumps(info)}, pids {pids}")
+    if not pod_counts:
+        failures.append(f"({label}) the merged metrics hold no collective.*{width}")
+    spans = [e for e in merged["traceEvents"] if e.get("ph") == "X"]
+    return {"world": label, "merge": info, "pids": pids, "spans": span_counts(spans),
+            "pod_collectives": pod_counts}
+
+
 def entity_train_phase(work: str, game_inputs, name: str = "", device=None, procs=None):
     """Phase 5j: 5g's GAME records trained entity-sharded in gloo worlds
     whose ranks share the card (``ES_WORLDS``, all at once), each held to
@@ -6696,6 +6935,8 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
                                                   if k != "rank0"}))
     for w in worlds.values():
         w.pop("rank0", None)
+    traced = merged_rank_traces(work, ES_TRACED_WORLD, next(
+        len(p) for label, p, _ in ES_WORLDS if label == ES_TRACED_WORLD), failures)
     served = None
     final_dir = os.path.join(work, "c-final")
     if os.path.isdir(final_dir):
@@ -6706,6 +6947,7 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
         failures.append("(c) left no final shard set to serve")
     ref_hist = [h for s in ref.sweep for h in s["history"]]
     summary = {"worlds": worlds, "worlds_s": worlds_s, "served_from_final_set": served,
+               "obs": traced,
                "reference_solve_s_per_update": [h.seconds for h in ref_hist],
                "phase_s": time.perf_counter() - phase_t0}
     log(f"[entity] phase 5j: {summary['phase_s']:.1f} s (the spawned worlds "
@@ -6860,6 +7102,19 @@ def main() -> int:
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":
                                         train_summary["second_run_same_w_bits"]}}))
+    # the observability layer on the card: each traced run's wall beside its
+    # untraced twin's, and what its trace holds
+    glm_obs = train_summary["obs"]
+    log(json.dumps({"obs": {
+        "glm_train": {k: glm_obs[k] for k in ("untraced_wall_s", "traced_wall_s",
+                                              "untraced_host_reads", "traced_host_reads",
+                                              "spans", "glm_solve", "profiled_kernels")},
+        "game_determinism": {k: game_det_summary["obs"][k] for k in (
+            "untraced_wall_s", "traced_wall_s", "spans", "flight_dumps")},
+        "entity_sharded": {k: entity_summary["obs"].get(k) for k in ("merge", "pids", "spans")},
+        "full_trainer_a": {"debug_nans": True, "profile": full_summary["run_a"]["profile"],
+                           "wall_s": full_summary["run_a"]["wall_s"]},
+    }}))
 
     # 8. result lines: each kernel at the kernel-phase shape in the main
     # path's dtype (f64), its time at the training driver's shape (and

@@ -31,17 +31,8 @@ from photon_ml_tpu_torch.utils.dates import DateRange
 MODEL_OUTPUT_MODES = ("ALL", "BEST", "NONE")
 
 # GLMDriverParams fields the port does not run yet: field -> (the value
-# that keeps it off, its item in ROADMAP.md queue A)
-_OBS = "Host layers with no device math"
-UNPORTED_GLM_FIELDS = {
-    "profile": (False, _OBS),
-    "debug_nans": (False, _OBS),
-    "trace_dir": (None, _OBS),
-    "metrics_every": (0.0, _OBS),
-    "profile_dir": (None, _OBS),
-    "flight_dir": (None, _OBS),
-    "convergence_report": (False, _OBS),
-}
+# that keeps it off, its item in ROADMAP.md queue A); every field runs
+UNPORTED_GLM_FIELDS: Dict[str, tuple] = {}
 
 
 def _validate_pod_resilience(params) -> None:
@@ -259,14 +250,8 @@ class GLMDriverParams:
 
 
 # GameDriverParams fields the port does not run yet: field -> (the value
-# that keeps it off, its item in ROADMAP.md queue A)
-UNPORTED_GAME_FIELDS = {
-    "trace_dir": (None, _OBS),
-    "metrics_every": (0.0, _OBS),
-    "profile_dir": (None, _OBS),
-    "flight_dir": (None, _OBS),
-    "convergence_report": (False, _OBS),
-}
+# that keeps it off, its item in ROADMAP.md queue A); every field runs
+UNPORTED_GAME_FIELDS: Dict[str, tuple] = {}
 # the same for each CoordinateSpec (every coordinate field runs)
 UNPORTED_COORDINATE_FIELDS: Dict[str, tuple] = {}
 

@@ -39,9 +39,13 @@ effect, the grid's combos train at once (``descent.run_grid``, where the
 JAX driver vmaps them; log ``train grid xC (vmapped)``; the grid writes
 no checkpoints, so a SIGTERM ends it after its pass and saves nothing);
 otherwise one after another, each with ``passes_per_dispatch`` and
-``convergence_tolerance``; the observability envelope raises
-``NotImplementedError`` naming its ROADMAP item
-(``cli/config.UNPORTED_GAME_FIELDS``).
+``convergence_tolerance``. The observability envelope is the JAX
+driver's (``obs.observe``): ``trace_dir`` (``trace.json``,
+``events.jsonl`` and ``metrics.json`` there), ``metrics_every``,
+``profile_dir`` (a ``torch.profiler`` Chrome trace), ``flight_dir``
+(``flight-<reason>.json`` on a divergence rollback, a preemption or a
+crash) and ``convergence_report`` (``convergence-report.json`` beside the
+models).
 
 On a ``torch.distributed`` world (one process per card, e.g. ``torchrun
 --nproc-per-node P -m photon_ml_tpu_torch.cli.game_train``; the driver
@@ -556,8 +560,31 @@ def run_game_training(params, device=None) -> GameTrainingRun:
             install_monitor(monitor)
             logger.info(f"heartbeat monitor: every {params.heartbeat_s}s over "
                         f"{monitor.process_count} process(es)")
+        # metrics.json lands in trace_dir when tracing, else beside
+        # log-message.txt (the writer's) when snapshots or the report are on
+        metrics_path = None
+        if params.trace_dir is None and writer and (
+                params.metrics_every > 0 or params.convergence_report):
+            metrics_path = os.path.join(params.output_dir, "metrics.json")
+        # every coordinate update's per-entity convergence decoded even
+        # without a tracer; the run's report lands beside the models
+        conv_tracker = obs.install_convergence_tracker() if params.convergence_report else None
+        n_world, rank = parallel_mesh.world()
+        if n_world > 1:
+            # every artifact of this rank (the tracer's, from its start) is
+            # stamped with its rank, whoever joined the world
+            obs.set_process_identity(rank, n_world)
         try:
-            return _run_game_training(params, device, logger, shutdown)
+            with obs.observe(trace_dir=params.trace_dir, metrics_path=metrics_path,
+                             metrics_every=params.metrics_every,
+                             profile_dir=params.profile_dir, hbm_every_s=params.hbm_every,
+                             process_name="photon_ml_tpu_torch.game_train",
+                             flight_dir=params.flight_dir, device=device):
+                if n_world > 1:
+                    # the world joined before this tracer: its barrier-backed
+                    # clock.sync anchors this rank's shard for the merge
+                    multihost.emit_pod_sync()
+                return _run_game_training(params, device, logger, shutdown)
         finally:
             if params.quality_fingerprint:
                 # normally uninstalled right after the training ingest; this
@@ -572,6 +599,15 @@ def run_game_training(params, device=None) -> GameTrainingRun:
             if monitor is not None:
                 install_monitor(None)
                 monitor.stop()
+            if conv_tracker is not None:
+                if writer:
+                    try:
+                        path = conv_tracker.dump(
+                            os.path.join(params.output_dir, "convergence-report.json"))
+                        logger.info(f"wrote convergence report to {path}")
+                    except OSError:
+                        pass
+                obs.uninstall_convergence_tracker()
             shutdown.uninstall()
             logger.close()
     finally:
@@ -1109,6 +1145,36 @@ def main(argv=None) -> None:
     p.add_argument("--config", required=True, help="JSON GameDriverParams")
     p.add_argument("--overwrite", action="store_true", default=None)
     p.add_argument(
+        "--trace-dir", default=None,
+        help="emit a Chrome trace-event JSON + events.jsonl + metrics.json "
+        "under this directory",
+    )
+    p.add_argument(
+        "--metrics-every", type=float, default=None,
+        help="seconds between periodic metrics.json registry snapshots "
+        "(0 = final snapshot only)",
+    )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="a torch.profiler window over the run, written here as a Chrome trace",
+    )
+    p.add_argument(
+        "--hbm-every", type=float, default=None,
+        help="seconds between device-memory counter-track samples while "
+        "tracing (0 disables; nothing off CUDA)",
+    )
+    p.add_argument(
+        "--flight-dir", default=None,
+        help="crash flight recorder output directory: flight-<reason>"
+        ".json dumps on divergence/preemption/crash (default: --trace-dir)",
+    )
+    p.add_argument(
+        "--convergence-report", action="store_true", default=None,
+        help="decode the solvers' tapes: per-coordinate fleet convergence "
+        "summaries every pass (convergence.* metrics + events) and "
+        "<output-dir>/convergence-report.json",
+    )
+    p.add_argument(
         "--no-quality-fingerprint", dest="quality_fingerprint",
         action="store_false", default=None,
         help="skip the train-data quality fingerprint "
@@ -1178,7 +1244,8 @@ def main(argv=None) -> None:
     for key in ("overwrite", "quality_fingerprint", "streamed_ingest", "ingest_chunk_mb",
                 "decode_threads", "prefetch_depth", "stage_timeout_s", "epoch_policy",
                 "heartbeat_s", "collective_timeout_s", "sharded_ckpt", "entity_shards",
-                "collective_mode"):
+                "collective_mode", "trace_dir", "metrics_every", "profile_dir", "hbm_every",
+                "flight_dir", "convergence_report"):
         if getattr(args, key) is not None:
             base[key] = getattr(args, key)
     try:

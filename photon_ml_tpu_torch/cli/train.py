@@ -50,6 +50,18 @@ whole batch); every rank returns the same models.
 the feature-sharded reduction schedule, and ``sharded_ckpt`` is checked
 and writes nothing (the GLM path has no checkpoint, as in the JAX
 driver). ``main`` exits with the host-loss code when a peer is lost.
+
+The observability envelope is the JAX driver's (``obs.observe``, JAX
+``cli/train.py:176-231``): ``trace_dir`` (``trace.json``, ``events.jsonl``
+and ``metrics.json`` there; ``glm.solve_path`` and ``glm.solve`` spans with
+the cost book's attribution), ``metrics_every`` (periodic ``metrics.json``
+snapshots, in ``trace_dir`` or else the output directory), ``profile_dir``
+(a ``torch.profiler`` Chrome trace of the whole run), ``flight_dir``
+(``flight-<reason>.json`` on a crash or a preemption) and
+``convergence_report`` (``convergence-report.json`` beside the models);
+``profile`` profiles the train phase into ``<output_dir>/profile`` and
+``debug_nans`` raises at the first op or kernel of the train phase that
+produces a NaN (``utils.debug``).
 """
 
 from __future__ import annotations
@@ -103,6 +115,7 @@ from photon_ml_tpu_torch.parallel.heartbeat import HeartbeatMonitor, install_mon
 from photon_ml_tpu_torch.parallel.overlap import COLLECTIVE_MODE_ENV
 from photon_ml_tpu_torch.resilience.hostloss import HOST_LOSS_EXIT_CODE, is_host_loss
 from photon_ml_tpu_torch.utils.dates import expand_date_paths
+from photon_ml_tpu_torch.utils.debug import debug_nans, profile_trace
 from photon_ml_tpu_torch.utils.device import resolve_device, synchronize
 from photon_ml_tpu_torch.utils.logging import PhotonLogger, timed
 
@@ -310,8 +323,31 @@ def run_glm_training(params, device=None) -> GLMTrainingRun:
         if params.heartbeat_s > 0:
             monitor = HeartbeatMonitor(interval_s=params.heartbeat_s).start()
             install_monitor(monitor)
+        # metrics.json lands in trace_dir when tracing, else in the output
+        # directory (the writer's) when snapshots or the report are asked for
+        metrics_path = None
+        if params.trace_dir is None and writer and (
+                params.metrics_every > 0 or params.convergence_report):
+            metrics_path = os.path.join(params.output_dir, "metrics.json")
+        # per-solve tape decode even without a tracer; the aggregated report
+        # lands beside the models
+        conv_tracker = obs.install_convergence_tracker() if params.convergence_report else None
+        n_world, rank = parallel_mesh.world()
+        if n_world > 1:
+            # every artifact of this rank (the tracer's, from its start) is
+            # stamped with its rank, whoever joined the world
+            obs.set_process_identity(rank, n_world)
         try:
-            return _run_glm_training(params, device, writer)
+            with obs.observe(trace_dir=params.trace_dir, metrics_path=metrics_path,
+                             metrics_every=params.metrics_every,
+                             profile_dir=params.profile_dir, hbm_every_s=params.hbm_every,
+                             process_name="photon_ml_tpu_torch.train",
+                             flight_dir=params.flight_dir, device=device):
+                if n_world > 1:
+                    # the world joined before this tracer: its barrier-backed
+                    # clock.sync anchors this rank's shard for the merge
+                    multihost.emit_pod_sync()
+                return _run_glm_training(params, device, writer)
         finally:
             if params.quality_fingerprint:
                 # normally uninstalled right after the training ingest; this
@@ -327,6 +363,14 @@ def run_glm_training(params, device=None) -> GLMTrainingRun:
             if monitor is not None:
                 install_monitor(None)
                 monitor.stop()
+            if conv_tracker is not None:
+                if writer:
+                    try:
+                        conv_tracker.dump(
+                            os.path.join(params.output_dir, "convergence-report.json"))
+                    except OSError:
+                        pass
+                obs.uninstall_convergence_tracker()
     finally:
         if joined_now:
             multihost.shutdown_multihost()
@@ -446,7 +490,9 @@ def _run_glm_training(params: GLMDriverParams, device: torch.device,
 
     # ---- TRAIN -----------------------------------------------------------
     tracker.assert_at_least(DriverStage.PREPROCESSED)
-    with timed(logger, "train"):
+    with timed(logger, "train"), profile_trace(
+            os.path.join(params.output_dir, "profile") if params.profile else None,
+            device=device, name="photon_ml_tpu_torch.train"), debug_nans(params.debug_nans):
         t0 = time.perf_counter()
         cfg = dataclasses.replace(
             params.to_training_config(), intercept_index=vocab.intercept_index
@@ -727,6 +773,43 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--overwrite", action="store_true", default=None)
     p.add_argument("--diagnostics", action="store_true", default=None)
     p.add_argument("--training-diagnostics", action="store_true", default=None)
+    p.add_argument("--profile", action="store_true", default=None,
+                   help="a torch.profiler window over the train phase, written as a "
+                   "Chrome trace under <output-dir>/profile")
+    p.add_argument("--debug-nans", action="store_true", default=None,
+                   help="raise FloatingPointError at the first op or kernel of the "
+                   "train phase that produces a NaN (reads the device after every op)")
+    p.add_argument(
+        "--trace-dir", default=None,
+        help="emit a Chrome trace-event JSON + events.jsonl + metrics.json "
+        "under this directory",
+    )
+    p.add_argument(
+        "--metrics-every", type=float, default=None,
+        help="seconds between periodic metrics.json registry snapshots "
+        "(0 = final snapshot only)",
+    )
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="a torch.profiler window over the WHOLE run, written here as a "
+        "Chrome trace (--profile captures only the train phase)",
+    )
+    p.add_argument(
+        "--hbm-every", type=float, default=None,
+        help="seconds between device-memory counter-track samples while "
+        "tracing (0 disables; nothing off CUDA)",
+    )
+    p.add_argument(
+        "--flight-dir", default=None,
+        help="crash flight recorder output directory: flight-<reason>"
+        ".json dumps on preemption/crash (default: --trace-dir)",
+    )
+    p.add_argument(
+        "--convergence-report", action="store_true", default=None,
+        help="decode each solve's tapes (reason / rate / plateau / "
+        "per-iteration curves) into convergence.* metrics + events and "
+        "<output-dir>/convergence-report.json",
+    )
     p.add_argument(
         "--no-quality-fingerprint", dest="quality_fingerprint",
         action="store_false", default=None,

@@ -25,6 +25,23 @@ the CPU. Each update probes the ``descent.update`` fault site (key = the
 coordinate's name): a ``corrupt`` action poisons the accepted update with
 NaN, the drill for the divergence guard.
 
+Observability (JAX ``descent.py:127``, ``:839-941``, ``:1300-1700``): every
+update is a ``game.update`` span and every pass a ``game.pass`` span (a
+chunk of passes adds a ``game.superpass`` span around its passes), each
+materialized update record feeds the ``game.*`` registry metrics, and the
+pass counters ``game.passes`` / ``game.pass_ms`` are kept always (host
+values only). Under a tracer an update's span ends in a device sync and
+carries the cost book's attribution where the update has a pass record (a
+fixed effect: its solve's design passes over its design); pass spans carry
+the sum of their updates' records, and each pass boundary samples the
+card's memory (``obs.sample_hbm``). With a convergence tracker installed
+each update's per-entity convergence is decoded (``obs.convergence.
+note_update``) when the records are read. The divergence guard's rollback
+emits ``resilience.rollback`` and dumps the flight recorder
+(``flight-divergence.json``) before the damped retry. The grid
+(:func:`run_grid`) traces its passes and updates the same way, each
+update span covering every combo's update.
+
 On a world of ranks (an active mesh, ``parallel.mesh.set_mesh``) each rank
 holds its rows, and an entity-sharded coordinate its block of the table
 (``sharded_params``): the objective after each update is the sum of every
@@ -53,6 +70,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import obs
 from photon_ml_tpu_torch.core.tasks import TaskType
 from photon_ml_tpu_torch.game.factored import FactoredParams, is_factored_params
 from photon_ml_tpu_torch.ops import metrics as metrics_mod
@@ -153,6 +171,83 @@ def _pending_record(p: dict) -> CoordinateUpdateRecord:
         p["seconds"], p.get("validation_metric"), p.get("event"), r.cg_iterations,
         r.iterations if hasattr(r, "entity_ids") else None,
     )
+
+
+def _record_update_metrics(rec: CoordinateUpdateRecord) -> None:
+    """One materialized update record into the registry (JAX
+    ``descent.py:123-138``): host values, recorded untraced too."""
+    reg = obs.registry()
+    reg.inc("game.updates")
+    reg.inc("game.solver_iterations", rec.solver_iterations)
+    reg.set_gauge("game.objective", rec.objective)
+    if rec.validation_metric is not None:
+        reg.set_gauge("game.validation_metric", rec.validation_metric)
+    if rec.seconds is not None:
+        reg.observe("game.update_ms", rec.seconds * 1e3)
+    if rec.event == "recovered":
+        reg.inc("resilience.rollbacks")
+    elif rec.event == "frozen":
+        reg.inc("resilience.frozen_coordinates")
+
+
+def _materialized(pending: List[dict]) -> List[CoordinateUpdateRecord]:
+    """The records of ``pending`` updates, each recorded in the registry
+    and, with a convergence tracker installed, its per-entity convergence
+    noted (JAX ``descent.py:839-941``; the fleet decode reads the solver
+    fields to the host, as the records do)."""
+    track = obs.convergence.tracking_enabled()
+    records = []
+    for p in pending:
+        rec = _pending_record(p)
+        _record_update_metrics(rec)
+        if track:
+            r = p["result"]
+            if hasattr(r, "entity_ids"):
+                reasons, iterations = r.reason, r.iterations
+                grad_norms, entity_ids = r.grad_norms, r.entity_ids
+            else:
+                reasons, iterations = to_numpy(r.reason), to_numpy(r.iterations)
+                gn = to_numpy(r.grad_norms)
+                idx = np.minimum(iterations, gn.shape[-1] - 1).astype(np.int64)
+                grad_norms = np.take_along_axis(gn, idx[..., None], axis=-1)[..., 0]
+                entity_ids = None
+            obs.convergence.note_update(coordinate=p["coordinate"], iteration=p["iteration"],
+                                        reasons=reasons, iterations=iterations,
+                                        grad_norms=grad_norms, entity_ids=entity_ids)
+        records.append(rec)
+    return records
+
+
+def _update_record(coord, result):
+    """The cost book's record of one update's device work and its passes,
+    or (None, 0): a coordinate over a design whose objective pass has a
+    record (a fixed effect: ``design_passes`` of its solve over its
+    design); a batched per-entity update has none."""
+    batch = getattr(coord, "batch", None)
+    if batch is None or not hasattr(result, "masked_history"):
+        return None, 0.0
+    from photon_ml_tpu_torch.models.training import solve_dtype
+    from photon_ml_tpu_torch.solvers.common import design_passes
+
+    return obs.cost.pass_record(batch.features, solve_dtype(batch)), design_passes(result)
+
+
+def _attribution(pieces, seconds: float, device) -> dict:
+    """The summed attribution of ``pieces`` ((record, passes) of each update
+    in a window of ``seconds``) against ``device``'s peaks, as span
+    arguments (JAX ``descent.py:1655-1684``); empty where no piece has a
+    record."""
+    pieces = [(r, k) for r, k in pieces if r is not None]
+    flops = sum((r.flops or 0.0) * k for r, k in pieces)
+    nbytes = sum((r.roofline_bytes or r.bytes_accessed or 0.0) * k for r, k in pieces)
+    if not (flops or nbytes) or seconds <= 0:
+        return {}
+    dtype = pieces[-1][0].dtype
+    rec = obs.CostRecord(name="game.pass", bucket="", flops=flops or None,
+                         roofline_bytes=nbytes or None, dtype=dtype)
+    peak_flops, peak_hbm = obs.cost.peaks_for(device, dtype)
+    return {"timing": "wall", **rec.achieved(seconds, peak_flops=peak_flops,
+                                              peak_hbm_bps=peak_hbm)}
 
 
 def _loss_fn_for_task(task: TaskType):
@@ -411,7 +506,7 @@ class CoordinateDescent:
         pending: List[dict] = []
 
         def materialize():
-            history.extend(_pending_record(p) for p in pending)
+            history.extend(_materialized(pending))
             pending.clear()
 
         writer = _AsyncCheckpointWriter()
@@ -549,6 +644,7 @@ class CoordinateDescent:
                 survivors_exit(step, e, saved)
 
         tol = float(convergence_tolerance)
+        device = self.labels.device
 
         def run_chunk(it: int, chunk: int):
             """Up to ``chunk`` passes from pass ``it`` as one dispatch chunk
@@ -564,14 +660,17 @@ class CoordinateDescent:
             obj_in = self._full_objective(scores, model.params)
             tol_t = torch.as_tensor(tol, dtype=obj_in.dtype, device=obj_in.device)
             first = len(pending)
+            tracer = obs.get_tracer()
+            ts = tracer.now_us() if tracer is not None else 0.0
             t0 = time.perf_counter()
             prev = obj_in
             done, tripped, converged = 0, False, False
+            pieces = []
             for p in range(chunk):
                 mark = len(pending)
                 if divergence_guard:
                     kept = (dict(model.params), dict(scores), generator.get_state())
-                run_pass(it + p, guard=False)
+                pass_pieces = run_pass(it + p, guard=False)
                 if divergence_guard and not _pass_finite(pending[mark:], model.params):
                     del pending[mark:]
                     model.params.clear()
@@ -582,6 +681,7 @@ class CoordinateDescent:
                     tripped = True
                     break
                 done += 1
+                pieces += pass_pieces
                 cur = pending[-1]["objective"]
                 if tol > 0 and bool(torch.abs(prev - cur) <= tol_t * torch.abs(obj_in)):
                     converged = True
@@ -590,59 +690,111 @@ class CoordinateDescent:
             seconds = time.perf_counter() - t0
             for i, rec in enumerate(pending[first:]):
                 rec["seconds"] = seconds if i == 0 else None
+            if tracer is not None:
+                tracer.add_span("game.superpass", ts, seconds * 1e6, cat="game", args={
+                    "iteration": it, "chunk": chunk, "passes": done,
+                    "coordinates": len(names), "guard": tripped, "converged": converged,
+                    **_attribution(pieces, seconds, device)})
+            reg = obs.registry()
+            reg.inc("game.dispatches")
+            reg.inc("game.superpasses")
+            reg.inc("game.passes", done)
+            if done:
+                reg.observe("game.pass_ms", seconds * 1e3 / done)
+            if tripped:
+                obs.emit_event("resilience.superpass_guard", cat="resilience",
+                               iteration=it + done, passes_done=done)
             return done, tripped, converged
 
-        def run_pass(it: int, guard: bool) -> None:
+        def run_pass(it: int, guard: bool) -> list:
             """One pass of updates, each against the others' scores, its
-            record pending; ``guard``: the divergence guard's rollback,
-            damped retry and freeze after each update."""
+            record pending, each a ``game.update`` span and the pass a
+            ``game.pass`` span; ``guard``: the divergence guard's rollback,
+            damped retry and freeze after each update. Returns the pass's
+            (cost record, passes) pieces (traced runs only)."""
+            tracer = obs.get_tracer()
+            pass_ts = tracer.now_us() if tracer is not None else 0.0
+            pass_t0 = time.perf_counter()
+            pieces = []
             for name in names:
                 if name in frozen:
                     continue
-                t0 = time.perf_counter()
-                coord = self.coordinates[name]
-                total = sum(scores.values())
-                partial = total - scores[name]
+                with obs.span("game.update", cat="game", coordinate=name,
+                              iteration=it) as upd_span:
+                    piece = update(it, name, guard, upd_span, tracer)
+                if piece is not None:
+                    pieces.append(piece)
+            pass_seconds = time.perf_counter() - pass_t0
+            if tracer is not None:
+                tracer.add_span("game.pass", pass_ts, pass_seconds * 1e6, cat="game", args={
+                    "iteration": it, "coordinates": len(names),
+                    **_attribution(pieces, pass_seconds, device)})
+                # the card's memory at the pass boundary (nothing off CUDA)
+                obs.sample_hbm(device=device)
+            return pieces
 
-                def _attempt(prev_p, residual):
-                    p, r, s = coord.update_and_score(prev_p, residual, generator)
-                    # fault site: corrupt-mode poisons the accepted update
-                    # with non-finites — the drill for the divergence guard
-                    if _faults.fire("descent.update", key=name).corrupt:
-                        p = _poisoned(p)
-                        s = torch.full_like(s, float("nan"))
-                    return p, r, s
+        def update(it: int, name: str, guard: bool, upd_span, tracer):
+            """One coordinate update of pass ``it`` inside its span; under a
+            tracer the span ends in a device sync and carries the update's
+            attribution, and the update's (record, passes) is returned."""
+            t0 = time.perf_counter()
+            coord = self.coordinates[name]
+            total = sum(scores.values())
+            partial = total - scores[name]
 
-                params, result, new_scores = _attempt(model.params[name], partial)
-                event = None
-                if guard:
+            def _attempt(prev_p, residual):
+                p, r, s = coord.update_and_score(prev_p, residual, generator)
+                # fault site: corrupt-mode poisons the accepted update
+                # with non-finites — the drill for the divergence guard
+                if _faults.fire("descent.update", key=name).corrupt:
+                    p = _poisoned(p)
+                    s = torch.full_like(s, float("nan"))
+                return p, r, s
+
+            params, result, new_scores = _attempt(model.params[name], partial)
+            event = None
+            if guard:
+                obj = float(self._full_objective(
+                    {**scores, name: new_scores}, {**model.params, name: params}))
+                if not np.isfinite(obj):
+                    obs.emit_event("resilience.rollback", cat="resilience",
+                                   coordinate=name, iteration=it)
+                    # the spans and metrics leading INTO the divergence
+                    # are the post-mortem: dumped before the retry
+                    obs.flight_dump("divergence")
+                    params, result, new_scores = _attempt(
+                        model.params[name], partial * 0.5
+                    )
                     obj = float(self._full_objective(
                         {**scores, name: new_scores}, {**model.params, name: params}))
-                    if not np.isfinite(obj):
-                        params, result, new_scores = _attempt(
-                            model.params[name], partial * 0.5
-                        )
-                        obj = float(self._full_objective(
-                            {**scores, name: new_scores}, {**model.params, name: params}))
-                        if np.isfinite(obj):
-                            event = "recovered"
-                        else:
-                            # keep the last finite state; the record's
-                            # objective is that state's
-                            frozen.add(name)
-                            event = "frozen"
-                            params = model.params[name]
-                            new_scores = scores[name]
-                model.params[name] = params
-                scores[name] = new_scores
-                obj = self._full_objective(scores, model.params)
-                seconds = time.perf_counter() - t0
-                vmetric = float(validation_fn(model)) if validation_fn is not None else None
-                pending.append({
-                    "iteration": it, "coordinate": name, "objective": obj,
-                    "seconds": seconds, "validation_metric": vmetric, "event": event,
-                    "result": result,
-                })
+                    if np.isfinite(obj):
+                        event = "recovered"
+                    else:
+                        # keep the last finite state; the record's
+                        # objective is that state's
+                        frozen.add(name)
+                        event = "frozen"
+                        params = model.params[name]
+                        new_scores = scores[name]
+                        obs.emit_event("resilience.freeze", cat="resilience",
+                                       coordinate=name, iteration=it)
+                    upd_span.set(event=event)
+            model.params[name] = params
+            scores[name] = new_scores
+            obj = self._full_objective(scores, model.params)
+            piece = None
+            if tracer is not None:
+                upd_span.sync(obj)
+                piece = _update_record(coord, result)
+                upd_span.set(**_attribution([piece], time.perf_counter() - t0, device))
+            seconds = time.perf_counter() - t0
+            vmetric = float(validation_fn(model)) if validation_fn is not None else None
+            pending.append({
+                "iteration": it, "coordinate": name, "objective": obj,
+                "seconds": seconds, "validation_metric": vmetric, "event": event,
+                "result": result,
+            })
+            return piece
 
         def boundary(step: int, saved: bool) -> bool:
             """The heartbeat and preemption polls at a pass or chunk
@@ -687,9 +839,15 @@ class CoordinateDescent:
                     stopped = True
                     break
                 if converged:
+                    obs.emit_event("game.converged", cat="game", iteration=it,
+                                   tolerance=float(convergence_tolerance))
                     break
                 continue
+            pass_t0 = time.perf_counter()
             run_pass(it, guard=divergence_guard)
+            reg = obs.registry()
+            reg.inc("game.passes")
+            reg.observe("game.pass_ms", (time.perf_counter() - pass_t0) * 1e3)
             force_plain = False
             saved = save_or_copy(it + 1, checkpoint_dir is not None
                                  and (it + 1 - start_it) % checkpoint_every == 0)
@@ -815,29 +973,53 @@ def run_grid(cd: CoordinateDescent, combos: Sequence[Mapping[str, float]],
     scores = [{n: coords[n].score(starts[n]) for n in names} for _ in combos]
     generator = torch.Generator().manual_seed(seed)
     pending: List[List[dict]] = [[] for _ in combos]
+    device = cd.labels.device
     for it in range(num_iterations):
+        tracer = obs.get_tracer()
+        pass_ts = tracer.now_us() if tracer is not None else 0.0
         t0 = time.perf_counter()
         first = len(pending[0])
+        pass_pieces = []
         for name in names:
             drawn = generator.get_state()
-            for c, live in enumerate(lives):
-                # every combo takes the update's one draw
-                generator.set_state(drawn)
-                partial = sum(scores[c].values()) - scores[c][name]
-                p, r, sc = live[name].update_and_score(params[c][name], partial, generator)
-                params[c][name] = p
-                scores[c][name] = sc
-                pending[c].append({
-                    "iteration": it, "coordinate": name, "seconds": None,
-                    "objective": cd._full_objective(scores[c], params[c], live), "result": r,
-                })
+            # one span per coordinate covers every combo's update
+            with obs.span("game.update", cat="game", coordinate=name, iteration=it,
+                          combos=n_combo) as upd_span:
+                u0 = time.perf_counter()
+                pieces = []
+                for c, live in enumerate(lives):
+                    # every combo takes the update's one draw
+                    generator.set_state(drawn)
+                    partial = sum(scores[c].values()) - scores[c][name]
+                    p, r, sc = live[name].update_and_score(params[c][name], partial, generator)
+                    params[c][name] = p
+                    scores[c][name] = sc
+                    pending[c].append({
+                        "iteration": it, "coordinate": name, "seconds": None,
+                        "objective": cd._full_objective(scores[c], params[c], live),
+                        "result": r,
+                    })
+                    if tracer is not None:
+                        pieces.append(_update_record(live[name], r))
+                if tracer is not None:
+                    upd_span.sync(pending[-1][-1]["objective"])
+                    upd_span.set(**_attribution(pieces, time.perf_counter() - u0, device))
+                    pass_pieces += pieces
         seconds = time.perf_counter() - t0
         for pc in pending:
             pc[first]["seconds"] = seconds
+        if tracer is not None:
+            tracer.add_span("game.pass", pass_ts, seconds * 1e6, cat="game", args={
+                "iteration": it, "coordinates": len(names), "combos": n_combo,
+                **_attribution(pass_pieces, seconds, device)})
+            obs.sample_hbm(device=device)
+        reg = obs.registry()
+        reg.inc("game.passes")
+        reg.observe("game.pass_ms", seconds * 1e3)
         if stop_check is not None and stop_check():
             break
     models = [GameModel(dict(p)) for p in params]
-    return models, [[_pending_record(p) for p in pc] for pc in pending]
+    return models, [_materialized(pc) for pc in pending]
 
 
 def run_lambda_path(cd: CoordinateDescent, combos: Sequence[Mapping[str, float]],

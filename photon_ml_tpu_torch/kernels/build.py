@@ -17,7 +17,10 @@ import hashlib
 import os
 import shutil
 import threading
+import time
 from typing import Dict, Iterable, Optional
+
+from photon_ml_tpu_torch.obs.build_events import note_build
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -83,6 +86,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name in missing:
         tmp = f"{paths[name]}.{os.getpid()}.tmp"
@@ -104,6 +108,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                 os.remove(tmp)
         else:
             os.replace(tmp, paths[name])
+            note_build(name, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return paths

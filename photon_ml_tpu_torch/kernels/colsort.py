@@ -448,12 +448,13 @@ def _reduce_plan(key, copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor, 
                      + block_bytes(copy, mode, cd)),
     )
     if not dispatch.use_kernel("colsort_reduce", copy.cols, vals, a):
-        return launch.keep(_reduce_plans, key, launch.PLAIN)
+        return launch.keep("colsort_reduce", _reduce_plans, key, launch.PLAIN)
     check_copy("colsort_reduce", copy, vals.to(vdt))
     entry = _REDUCE_ENTRIES[(mode, vdt, cd)]
     entry.load()
     scratch = scratch_size(copy, mode, cd)
-    return launch.keep(_reduce_plans, key, (a.device.index, vdt, cd, sums, scratch, entry))
+    return launch.keep("colsort_reduce", _reduce_plans, key,
+                       (a.device.index, vdt, cd, sums, scratch, entry))
 
 
 def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
@@ -480,4 +481,5 @@ def column_reduce(copy: DesignColumns, vals: torch.Tensor, a: torch.Tensor,
     scratch = torch.empty((scratch_size,), dtype=torch.float64, device=a.device)
     entry.launch(device, *ptrs, copy.blocks.data_ptr(), a.data_ptr(), out[0].data_ptr(),
                  out[sums - 1].data_ptr(), scratch.data_ptr(), copy.nblocks, copy.k, copy.d)
+    dispatch.check_outputs("colsort_reduce", out)
     return (out[0], out[1]) if mode == "pair" else out[0]

@@ -13,6 +13,10 @@ Each kernel wrapper adds one to its launch count where it launches its
 kernel, so a run can show that its main path went through the kernels.
 ``record_kernel_cost`` keeps each (kernel, shape)'s analytic cost — FLOPs,
 bytes, and the one-design-read roofline traffic — in a plain dict.
+Under ``utils.debug.debug_nans`` (``set_output_check``) each wrapper
+checks its kernel's outputs for NaN after the launch
+(``check_outputs``): a ``ctypes`` launch is invisible to PyTorch's
+dispatch, where the rest of a run's ops are checked.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ __all__ = [
     "design_reads",
     "record_kernel_cost",
     "kernel_costs",
+    "set_output_check",
+    "check_outputs",
 ]
 
 # Design reads per pass, per kernel: the least traffic of each pass reads
@@ -59,6 +65,7 @@ KERNELS: Tuple[str, ...] = tuple(_DESIGN_READS)
 _lock = threading.Lock()
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _costs: Dict[tuple, Dict[str, float]] = {}
+_output_check = False
 
 
 def use_kernel(kernel: str, *tensors: torch.Tensor) -> bool:
@@ -129,3 +136,22 @@ def record_kernel_cost(
 def kernel_costs() -> Dict[tuple, Dict[str, float]]:
     with _lock:
         return {k: dict(v) for k, v in _costs.items()}
+
+
+def set_output_check(on: bool) -> bool:
+    """Turn the wrappers' NaN check of their kernels' outputs on or off;
+    returns the previous state."""
+    global _output_check
+    prev, _output_check = _output_check, bool(on)
+    return prev
+
+
+def check_outputs(kernel: str, *outputs: torch.Tensor) -> None:
+    """With the output check on, raise ``FloatingPointError`` naming
+    ``kernel`` when one of its floating ``outputs`` holds a NaN (each
+    check reads the device); nothing otherwise."""
+    if not _output_check:
+        return
+    for t in outputs:
+        if t.is_floating_point() and t.numel() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"debug_nans: the {kernel} kernel produced a NaN")

@@ -182,11 +182,12 @@ def _matvec_plan(key, indices, values, w, d: int):
         extra_bytes=d * w.element_size() + n * cd.itemsize,
     )
     if not dispatch.use_kernel("ell_matvec", indices, values, w):
-        return launch.keep(_matvec_plans, key, launch.PLAIN)
+        return launch.keep("ell_matvec", _matvec_plans, key, launch.PLAIN)
     check_plan("ell_matvec", indices, d, tables=[("values", values)], cols=[("w", w)])
     entry = _MATVEC_ENTRIES[(values.dtype, w.dtype)]
     entry.load()
-    return launch.keep(_matvec_plans, key, (indices.device.index, cd, n, k, entry))
+    return launch.keep("ell_matvec", _matvec_plans, key,
+                       (indices.device.index, cd, n, k, entry))
 
 
 def ell_matvec(
@@ -208,6 +209,7 @@ def ell_matvec(
     out = torch.empty((n,), dtype=cd, device=indices.device)
     if n:
         entry.launch(device, *ptrs, out.data_ptr(), n, k, d)
+        dispatch.check_outputs("ell_matvec", out)
     return out
 
 
@@ -246,11 +248,12 @@ def _scatter_plan(key, indices, upd, d: int):
         flops_per_slot=1.0, extra_bytes=d * upd.element_size(),
     )
     if not dispatch.use_kernel("ell_scatter_add", indices, upd):
-        return launch.keep(_scatter_plans, key, launch.PLAIN)
+        return launch.keep("ell_scatter_add", _scatter_plans, key, launch.PLAIN)
     check_plan("ell_scatter_add", indices, d, tables=[("upd", upd)])
     entry = _SCATTER_ENTRIES[upd.dtype]
     entry.load()
-    return launch.keep(_scatter_plans, key, (indices.device.index, n * k, entry))
+    return launch.keep("ell_scatter_add", _scatter_plans, key,
+                       (indices.device.index, n * k, entry))
 
 
 def ell_scatter_add(indices: torch.Tensor, upd: torch.Tensor, d: int) -> torch.Tensor:
@@ -267,6 +270,7 @@ def ell_scatter_add(indices: torch.Tensor, upd: torch.Tensor, d: int) -> torch.T
     out = torch.zeros((d,), dtype=upd.dtype, device=indices.device)
     if slots:
         entry.launch(device, *ptrs, out.data_ptr(), slots, d)
+        dispatch.check_outputs("ell_scatter_add", out)
     return out
 
 
@@ -301,13 +305,13 @@ def _column_reduce(kernel: str, indices, values, c, d: int, mode: str) -> torch.
             extra_bytes=d * torch.promote_types(values.dtype, c.dtype).itemsize,
         )
         if not dispatch.use_kernel(kernel, indices, values, c):
-            plan = launch.keep(_reduce_plans, key, launch.PLAIN)
+            plan = launch.keep(kernel, _reduce_plans, key, launch.PLAIN)
         else:
             from photon_ml_tpu_torch.kernels import colsort
 
             check_plan(kernel, indices, d, tables=[("values", values)])
             vdt, cd = colsort.reduce_dtypes(values.dtype, c.dtype)
-            plan = launch.keep(_reduce_plans, key, (n * k, vdt, cd))
+            plan = launch.keep(kernel, _reduce_plans, key, (n * k, vdt, cd))
     if plan is launch.PLAIN:
         return ell_scatter_add(indices, _colsum_update(values, c, mode == "square"), d)
     from photon_ml_tpu_torch.kernels import colsort

@@ -143,7 +143,7 @@ def _plan(plans, key, kernel, indices, values, d, cd, flops, d_out, n_rows, rout
     if not dispatch.use_kernel(kernel, *routed):
         _record_cost(kernel, n, k, d, values, cd, None, flops=flops, d_out=d_out,
                      n_rows=n_rows)
-        return launch.keep(plans, key, launch.PLAIN)
+        return launch.keep(kernel, plans, key, launch.PLAIN)
     check_plan(kernel, indices, d, tables=[("values", values)], rows=rows, cols=cols)
     entry = _ENTRIES[(kernel, values.dtype, cd)]
     entry.load()
@@ -153,7 +153,8 @@ def _plan(plans, key, kernel, indices, values, d, cd, flops, d_out, n_rows, rout
         _record_cost(kernel, n, k, d, values, cd, copy, flops=flops, d_out=d_out,
                      n_rows=n_rows)
         blocks = _blocks(n, k)
-    return launch.keep(plans, key, (indices.device.index, n, k, blocks, entry, cd))
+    return launch.keep(kernel, plans, key,
+                       (indices.device.index, n, k, blocks, entry, cd))
 
 
 def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: int, loss):
@@ -199,6 +200,7 @@ def fused_value_grad_curvature(indices, values, labels, offsets, ew, w_eff, d: i
         LOSS_IDS[loss.name],
     )
     dispatch.count_launch("colsort_reduce")
+    dispatch.check_outputs("fused_vgc", work[:2], grad, curvature)
     return work[0], grad, work[1], curvature
 
 
@@ -254,6 +256,7 @@ def fused_hessian_vector(indices, values, c, v_eff, shift_v, d: int):
         *_copy_args(copy, cvals, scratch), n, k, d,
     )
     dispatch.count_launch("colsort_reduce")
+    dispatch.check_outputs("fused_hvp", hv, work[:1])
     return hv, work[0]
 
 
@@ -317,6 +320,7 @@ def fused_hessian_diagonal(indices, values, labels, offsets, ew, w_eff, d: int, 
         *_copy_args(copy, cvals, scratch), n, k, d, LOSS_IDS[loss.name],
     )
     dispatch.count_launch("colsort_reduce")
+    dispatch.check_outputs("fused_hdiag", out[:2 * d + 1])
     return dx2, dx, csum
 
 

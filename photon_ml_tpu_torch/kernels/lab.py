@@ -239,9 +239,9 @@ def _lane_gather_plan(key: tuple, tbl: torch.Tensor, idx: torch.Tensor):
     dispatch.record_kernel_cost("lane_gather", rows, LANES, LANES, 4, flops_per_slot=0.0,
                                 extra_bytes=rows * LANES * 4)
     if not dispatch.use_kernel("lane_gather", tbl, idx):
-        return launch.keep(_lane_plans, key, launch.PLAIN)
+        return launch.keep("lane_gather", _lane_plans, key, launch.PLAIN)
     _LANE_GATHER.load()
-    return launch.keep(_lane_plans, key, (tbl.device.index, rows))
+    return launch.keep("lane_gather", _lane_plans, key, (tbl.device.index, rows))
 
 
 def lane_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -261,6 +261,7 @@ def lane_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     device, rows = plan
     if rows:
         _LANE_GATHER.launch(device, tbl_ptr, idx_ptr, out.data_ptr(), rows)
+        dispatch.check_outputs("lane_gather", out)
     return out
 
 
@@ -285,10 +286,10 @@ def _onehot_gather_plan(key: tuple, tiles: ColumnTiles, w: torch.Tensor):
                                 flops_per_slot=1.0,
                                 extra_bytes=4 * ntiles * LAB_TILE + 4 * tiles.d)
     if not dispatch.use_kernel("onehot_gather", tiles.cols, tiles.vals, tiles.tile_block, w):
-        return launch.keep(_gather_plans, key, launch.PLAIN)
+        return launch.keep("onehot_gather", _gather_plans, key, launch.PLAIN)
     _check_kernel_layout("onehot_gather", tiles)
     _ONEHOT_GATHER.load()
-    return launch.keep(_gather_plans, key, (w.device.index, ntiles))
+    return launch.keep("onehot_gather", _gather_plans, key, (w.device.index, ntiles))
 
 
 def onehot_gather(tiles: ColumnTiles, w: torch.Tensor) -> torch.Tensor:
@@ -310,6 +311,7 @@ def onehot_gather(tiles: ColumnTiles, w: torch.Tensor) -> torch.Tensor:
     device, ntiles = plan
     if ntiles:
         _ONEHOT_GATHER.launch(device, *ptrs, out.data_ptr(), ntiles, tiles.d)
+        dispatch.check_outputs("onehot_gather", out)
     return out
 
 
@@ -338,13 +340,13 @@ def _onehot_reduce_plan(key: tuple, tiles: ColumnTiles, upd: torch.Tensor, chunk
                                 flops_per_slot=1.0, extra_bytes=4 * width)
     if not dispatch.use_kernel("onehot_reduce", tiles.cols, upd, tiles.tile_block,
                                tiles.chains):
-        return launch.keep(_reduce_plans, key, launch.PLAIN)
+        return launch.keep("onehot_reduce", _reduce_plans, key, launch.PLAIN)
     _check_kernel_layout("onehot_reduce", tiles)
     _ONEHOT_REDUCE.load()
     # one buffer: g, then two f64 partials per chunk of tiles
     floats = width + 4 * -(-ntiles // chunk)
-    return launch.keep(_reduce_plans, key, (upd.device, ntiles, width, floats,
-                                            tiles.chains.shape[0]))
+    return launch.keep("onehot_reduce", _reduce_plans, key,
+                       (upd.device, ntiles, width, floats, tiles.chains.shape[0]))
 
 
 def onehot_reduce(tiles: ColumnTiles, upd: torch.Tensor, chunk: int = LAB_CHUNK) -> torch.Tensor:
@@ -372,4 +374,5 @@ def onehot_reduce(tiles: ColumnTiles, upd: torch.Tensor, chunk: int = LAB_CHUNK)
     g_ptr = buf.data_ptr()
     _ONEHOT_REDUCE.launch(device.index, cols_ptr, upd_ptr, tb_ptr, chains.data_ptr(), g_ptr,
                           nchains, ntiles, g_ptr + 4 * width, width, chunk)
+    dispatch.check_outputs("onehot_reduce", buf[:width])
     return buf[:width]

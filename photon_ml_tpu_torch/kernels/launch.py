@@ -32,11 +32,15 @@ PLAIN = "plain"
 MAX_PLANS = 1024
 
 
-def keep(plans: Dict[tuple, object], key: tuple, plan):
-    """Store ``plan`` under ``key`` and return it."""
+def keep(kernel: str, plans: Dict[tuple, object], key: tuple, plan):
+    """Store ``plan``, ``kernel``'s wrapper's plan of ``key``, and return
+    it; counted as a new launch plan (``obs.build_events``)."""
+    from photon_ml_tpu_torch.obs.build_events import note_launch_plan
+
     if len(plans) >= MAX_PLANS:
         plans.clear()
     plans[key] = plan
+    note_launch_plan(kernel)
     return plan
 
 

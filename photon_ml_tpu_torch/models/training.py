@@ -20,6 +20,16 @@ The port takes either value and runs the loop. ``train_glm_streamed`` is
 the same path out of core, over a host-resident chunked design
 (``io.pipeline.StreamedDesign``).
 
+Observability follows the JAX package's default path: one
+``glm.solve_path`` span around the path and one ``glm.solve`` span per
+lambda. Where the JAX package retro-stamps each lambda's span with a
+share of its one dispatch, here each span is the solve's own window.
+Under a tracer (or an installed convergence tracker) each solve also
+records its ``solver.*`` counters, its convergence report
+(``obs.convergence``) and, under a tracer, the cost book's attribution
+over the window, which then ends in a device sync; an untraced run reads
+nothing more from the device.
+
 Under an active mesh (``parallel.mesh.set_mesh``) ``train_glm`` takes this
 rank's shard: the objective sums its data partials over 'data', and when
 the mesh splits the coefficient axis the batch is this rank's column block
@@ -37,6 +47,8 @@ import time
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from photon_ml_tpu_torch import obs
 
 from photon_ml_tpu_torch.core.normalization import (
     NormalizationContext,
@@ -263,6 +275,64 @@ def _variances_fn(config: GLMTrainingConfig):
     return variances
 
 
+def _record_solve_metrics(config: GLMTrainingConfig, result: SolverResult) -> None:
+    """A completed solve's counters under its solver's prefix (JAX
+    ``models/training.py:397``): OWL-QN for L1 and elastic net, else the
+    configured optimizer."""
+    if config.regularization.reg_type in ("L1", "ELASTIC_NET"):
+        from photon_ml_tpu_torch.solvers.lbfgs import record_solve_metrics
+
+        record_solve_metrics(result, owlqn=True)
+    elif config.optimizer == OptimizerType.TRON:
+        from photon_ml_tpu_torch.solvers.tron import record_solve_metrics
+
+        record_solve_metrics(result)
+    elif config.optimizer == OptimizerType.LBFGS:
+        from photon_ml_tpu_torch.solvers.lbfgs import record_solve_metrics
+
+        record_solve_metrics(result)
+    else:
+        from photon_ml_tpu_torch.solvers.common import record_solver_metrics
+
+        record_solver_metrics(config.optimizer.name.lower(), result)
+
+
+def _observe_solve(config: GLMTrainingConfig, sp, tracer, ts0: float, t0: float, lam: float,
+                   result: SolverResult, features=None, device=None, dtype=None,
+                   streamed: bool = False) -> float:
+    """The observed half of one solve (JAX ``models/training.py:745-845``),
+    run only under a tracer or an installed convergence tracker: the
+    span's device sync (a tracer's only), the solver counters, the cost
+    book's attribution of ``design_passes`` passes over ``features`` in
+    the window (the pass's record exists once the solve's first pass has
+    run), the convergence report and its counter track. Returns the
+    design passes."""
+    from photon_ml_tpu_torch.solvers.common import design_passes
+
+    sp.sync(result.w)
+    seconds = time.perf_counter() - t0
+    _record_solve_metrics(config, result)
+    passes = design_passes(result)
+    if features is not None:
+        obs.annotate_span(sp, obs.cost.pass_record(features, dtype), seconds=seconds,
+                          passes=passes, device=device, dtype=dtype)
+    report = obs.decode_result(result, optimizer=config.optimizer.name.lower())
+    obs.convergence.note_solve(
+        report, label=f"lambda={float(lam):g}" + (" (streamed)" if streamed else ""))
+    sp.set(convergence_reason=report.reason, convergence_order=report.order)
+    if streamed:
+        sp.set(sweep_s=round(seconds, 4))
+    elif tracer is not None:
+        obs.convergence.emit_tape_counters(report, tracer, ts0, seconds * 1e6)
+    return passes
+
+
+def _observed() -> bool:
+    """Whether a solve records its observations: an active tracer or an
+    installed convergence tracker (JAX's gate)."""
+    return obs.get_tracer() is not None or obs.convergence.tracking_enabled()
+
+
 def _block_range(batch: LabeledBatch) -> Tuple[int, int]:
     """[lo, hi) of this rank's columns in the blocked coefficient space."""
     d_local = batch.features.shape[-1]
@@ -343,35 +413,57 @@ def train_glm(
     solve = _solver_step_fn(config)
     variances = _variances_fn(config) if config.compute_variances else None
     by_lambda = {}
-    for lam in sorted(config.reg_weights, reverse=True):
-        t0 = time.perf_counter()
-        result = solve(w, lam, batch, norm)
-        seconds = time.perf_counter() - t0
-        w = result.w  # warm start for the next (smaller) lambda
-        var = None if variances is None else variances(result.w, lam, batch, norm)
-        if sharded:
-            result = dataclasses.replace(result, w=_gathered(result.w),
-                                         grad=_gathered(result.grad),
-                                         w_history=_gathered(result.w_history))
-            var = _gathered(var)
-        with whole_vectors():
-            if config.track_models and result.w_history is not None:
-                # snapshots leave the solver in normalized space
-                hist = torch.stack([
-                    out_norm.transform_model_coefficients(
-                        Coefficients(means=row), config.intercept_index
-                    ).means
-                    for row in result.w_history
-                ])
-                result = dataclasses.replace(result, w_history=hist)
-            coef = out_norm.transform_model_coefficients(
-                Coefficients(means=result.w, variances=var), config.intercept_index
-            )
-        model = GeneralizedLinearModel(coefficients=coef, task=config.task)
-        by_lambda[lam] = TrainedModel(
-            reg_weight=lam, model=model, result=result, seconds=seconds
-        )
+    lams = sorted(config.reg_weights, reverse=True)
+    path_t0, path_passes = time.perf_counter(), 0.0
+    path_span = obs.span("glm.solve_path", cat="solver", optimizer=config.optimizer.name,
+                         path_len=len(lams))
+    with path_span:
+        for lam in lams:
+            with obs.span("glm.solve", cat="solver", optimizer=config.optimizer.name,
+                          reg_weight=float(lam), path=True) as sp:
+                tracer = obs.get_tracer()
+                ts0 = tracer.now_us() if tracer is not None else 0.0
+                t0 = time.perf_counter()
+                result = solve(w, lam, batch, norm)
+                seconds = time.perf_counter() - t0
+                if _observed():
+                    path_passes += _observe_solve(config, sp, tracer, ts0, t0, lam, result,
+                                                  batch.features, device, dtype)
+            w, by_lambda[lam] = _finish_solve(config, result, lam, seconds, batch, norm,
+                                              out_norm, variances, sharded)
+        if _observed():
+            obs.annotate_span(path_span, obs.cost.pass_record(batch.features, dtype),
+                              seconds=time.perf_counter() - path_t0, passes=path_passes,
+                              device=device, dtype=dtype)
     return [by_lambda[lam] for lam in config.reg_weights]
+
+
+def _finish_solve(config, result, lam, seconds, batch, norm, out_norm, variances, sharded):
+    """(the warm start of the next lambda, this lambda's TrainedModel):
+    the variances, the gathered blocks of a feature-sharded solve, and the
+    map back to raw feature space."""
+    w = result.w  # warm start for the next (smaller) lambda
+    var = None if variances is None else variances(result.w, lam, batch, norm)
+    if sharded:
+        result = dataclasses.replace(result, w=_gathered(result.w),
+                                     grad=_gathered(result.grad),
+                                     w_history=_gathered(result.w_history))
+        var = _gathered(var)
+    with whole_vectors():
+        if config.track_models and result.w_history is not None:
+            # snapshots leave the solver in normalized space
+            hist = torch.stack([
+                out_norm.transform_model_coefficients(
+                    Coefficients(means=row), config.intercept_index
+                ).means
+                for row in result.w_history
+            ])
+            result = dataclasses.replace(result, w_history=hist)
+        coef = out_norm.transform_model_coefficients(
+            Coefficients(means=result.w, variances=var), config.intercept_index
+        )
+    model = GeneralizedLinearModel(coefficients=coef, task=config.task)
+    return w, TrainedModel(reg_weight=lam, model=model, result=result, seconds=seconds)
 
 
 def train_glm_streamed(
@@ -427,14 +519,20 @@ def train_glm_streamed(
     for lam in sorted(config.reg_weights, reverse=True):
         sobj = StreamingObjective(design, loss, l2_weight=lam * reg.l2_weight(1.0),
                                   stats=stats)
-        t0 = time.perf_counter()
-        if use_owlqn:
-            result = minimize_owlqn(sobj.value_and_grad, w, lam * reg.l1_weight(1.0), scfg)
-        elif use_tron:
-            result = minimize_tron(sobj.value_and_grad, sobj.hessian_vector, w, scfg)
-        else:
-            result = minimize_lbfgs(sobj.value_and_grad, w, scfg)
-        seconds = time.perf_counter() - t0
+        with obs.span("glm.solve", cat="solver", optimizer=config.optimizer.name,
+                      reg_weight=float(lam), streamed=True, chunks=design.num_chunks) as sp:
+            tracer = obs.get_tracer()
+            ts0 = tracer.now_us() if tracer is not None else 0.0
+            t0 = time.perf_counter()
+            if use_owlqn:
+                result = minimize_owlqn(sobj.value_and_grad, w, lam * reg.l1_weight(1.0), scfg)
+            elif use_tron:
+                result = minimize_tron(sobj.value_and_grad, sobj.hessian_vector, w, scfg)
+            else:
+                result = minimize_lbfgs(sobj.value_and_grad, w, scfg)
+            seconds = time.perf_counter() - t0
+            if _observed():
+                _observe_solve(config, sp, tracer, ts0, t0, lam, result, streamed=True)
         w = result.w  # warm start for the next (smaller) lambda
         var = None
         if config.compute_variances:

@@ -1,7 +1,6 @@
 """Structured span tracing: Chrome trace events + JSONL event log (a copy
 of ``photon_ml_tpu/obs/trace.py``; ``Span.sync`` waits on the value's CUDA
-device instead of ``jax.block_until_ready``, and the process identity is
-read from the environment alone).
+device instead of ``jax.block_until_ready``).
 
 The reference's only timing instrument is ``Driver.scala:124-149`` — ad-hoc
 elapsed-millis log lines per phase. That tells you *that* a GAME pass took
@@ -68,18 +67,12 @@ EVENTS_FILENAME = "events.jsonl"
 
 
 def process_identity():
-    """``(process_index, process_count)`` from the PHOTON_PROCESS_*
-    environment, else ``(0, 1)`` (the environment half of the JAX
-    package's ``obs.dist.process_identity``)."""
-    env = os.environ
-    idx = env.get("PHOTON_PROCESS_INDEX")
-    cnt = env.get("PHOTON_PROCESS_COUNT")
-    try:
-        if cnt is not None and int(cnt) > 1:
-            return (int(idx or 0), int(cnt))
-    except ValueError:
-        pass
-    return (0, 1)
+    """``(process_index, process_count)``: :func:`obs.dist.process_identity
+    <photon_ml_tpu_torch.obs.dist.process_identity>` (imported here, since
+    ``obs.dist`` imports this module)."""
+    from photon_ml_tpu_torch.obs import dist as _dist
+
+    return _dist.process_identity()
 
 
 def _cuda_devices(value) -> set:

@@ -21,7 +21,11 @@ of a solve: the objective's row sums over the axis that holds the rows
 ('data', else 'entity': :func:`row_axis`), the margins over 'feature', and the solvers' inner products of sharded vectors
 (:func:`feature_sum`). Every collective goes through :func:`all_reduce`
 (or its gather and scatter siblings), which counts it by label, so a run
-can report its collectives and their bytes per objective pass.
+can report its collectives and their bytes per objective pass, and feeds
+the collective profiler (``obs.collectives``): ``collective.<label>.w<W>``
+count and bytes always, and the blocked wall time where the call blocks
+until the exchange is done (gloo; NCCL only under a tracer, after a
+device sync — an NCCL enqueue is never timed as the exchange).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import contextlib
 import dataclasses
 import os
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -238,11 +243,37 @@ _counts_lock = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {}
 
 
-def _count(label: str, t: torch.Tensor) -> None:
+def _count(label: str, t: torch.Tensor, width: int = 1) -> float:
+    """Count one collective of payload ``t`` over an axis of ``width``
+    ranks, here and in the collective profiler; returns the start time
+    that :func:`_timed` reads."""
+    from photon_ml_tpu_torch.obs.collectives import record_collective
+
+    nbytes = t.numel() * t.element_size()
     with _counts_lock:
         c = _counts.setdefault(label, {"count": 0, "bytes": 0})
         c["count"] += 1
-        c["bytes"] += t.numel() * t.element_size()
+        c["bytes"] += nbytes
+    record_collective(label, mesh_width=width, nbytes=nbytes)
+    return time.perf_counter()
+
+
+def _timed(label: str, width: int, group, t0: float, out: torch.Tensor) -> None:
+    """Record the blocked wall time of a collective issued at ``t0`` where
+    the call blocked until the exchange was done: a gloo group's, or an
+    NCCL group's under a tracer, after a sync of ``out``'s device. An
+    untraced NCCL collective records no time (its return is the
+    enqueue)."""
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.obs.collectives import record_collective
+    from photon_ml_tpu_torch.obs.trace import get_tracer
+
+    if dist.get_backend(group) != "gloo":
+        if get_tracer() is None or out.device.type != "cuda":
+            return
+        torch.cuda.synchronize(out.device)
+    record_collective(label, mesh_width=width, count=0, wall_s=time.perf_counter() - t0)
 
 
 def collective_counts() -> Dict[str, Dict[str, int]]:
@@ -285,9 +316,12 @@ def all_reduce(t: torch.Tensor, axis: str, label: str, op: str = "sum",
     if group is None:
         return (t, None) if async_op else t
     out = t.clone()
-    _count(label, out)
+    width = mesh.axis_size(axis)
+    t0 = _count(label, out, width)
     work = dist.all_reduce(out, op=getattr(dist.ReduceOp, _OPS[op]), group=group,
                            async_op=async_op)
+    if not async_op:
+        _timed(label, width, group, t0, out)
     return (out, work) if async_op else out
 
 
@@ -304,9 +338,10 @@ def all_gather(t: torch.Tensor, axis: str, label: str,
     t = t.contiguous()
     size = mesh.axis_size(axis)
     out = t.new_empty((size * t.numel(),))
-    _count(label, t)
+    t0 = _count(label, t, size)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, t.reshape(-1), group=group)
+    _timed(label, size, group, t0, out)
     return out.reshape((size,) + tuple(t.shape))
 
 
@@ -322,9 +357,10 @@ def reduce_scatter(flat: torch.Tensor, axis: str, label: str,
         return flat
     size = mesh.axis_size(axis)
     out = flat.new_empty((flat.numel() // size,))
-    _count(label, flat)
+    t0 = _count(label, flat, size)
     scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     scatter(out, flat.contiguous(), group=group)
+    _timed(label, size, group, t0, out)
     return out
 
 

@@ -273,17 +273,46 @@ def initialize_multihost(
     dist.init_process_group(backend, init_method=init_method, world_size=int(num_processes),
                             rank=int(process_id), **kw)
     _INITIALIZED = True
+    # every obs artifact from here on is stamped with this rank, and an
+    # installed tracer gets the barrier-backed clock.sync anchor
+    emit_pod_sync()
     return True
+
+
+def emit_pod_sync() -> None:
+    """Stamp this process's obs identity from ``torch.distributed``'s rank
+    and world size and emit a barrier-backed ``clock.sync`` trace event
+    (JAX ``parallel/multihost.py:329-352``; no event untraced, the
+    identity is stamped always; nothing unjoined). Called by
+    :func:`initialize_multihost`; drivers call it again once their tracer
+    is installed. The barrier rides the watchdog and retry policy of every
+    host exchange (a dead peer must not wedge the sync)."""
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.obs import dist as obs_dist
+
+    if not dist.is_initialized():
+        return
+    obs_dist.set_process_identity(dist.get_rank(), dist.get_world_size())
+    barrier = None
+    if dist.get_world_size() > 1:
+        def barrier():
+            _resilient_exchange("pod_sync", lambda: dist.barrier())
+
+    obs_dist.emit_clock_sync(sync_id="startup", barrier=barrier)
 
 
 def shutdown_multihost() -> None:
     """Leave the world joined by :func:`initialize_multihost` (no-op
-    unjoined)."""
+    unjoined); the obs identity goes back to the environment's."""
     global _INITIALIZED
     import torch.distributed as dist
 
+    from photon_ml_tpu_torch.obs import dist as obs_dist
+
     if dist.is_initialized():
         dist.destroy_process_group()
+    obs_dist.reset_process_identity()
     _INITIALIZED = False
 
 
@@ -340,8 +369,13 @@ def allgather_host(x) -> np.ndarray:
             return arr
         import torch.distributed as dist
 
+        from photon_ml_tpu_torch.obs import collectives as obs_coll
+
         out = [None] * process_count()
-        dist.all_gather_object(out, arr)
+        # a host exchange: the call blocks until every rank's part is here
+        with obs_coll.collective_span("allgather_host", mesh_width=process_count(),
+                                      nbytes=int(arr.nbytes)):
+            dist.all_gather_object(out, arr)
         return np.concatenate([np.asarray(o) for o in out], axis=0)
 
     return _resilient_exchange("allgather_host", exchange)
@@ -357,8 +391,11 @@ def allgather_objects(obj) -> list:
             return [obj]
         import torch.distributed as dist
 
+        from photon_ml_tpu_torch.obs import collectives as obs_coll
+
         out = [None] * process_count()
-        dist.all_gather_object(out, obj)
+        with obs_coll.collective_span("allgather_objects", mesh_width=process_count()):
+            dist.all_gather_object(out, obj)
         return out
 
     return _resilient_exchange("allgather_objects", exchange)

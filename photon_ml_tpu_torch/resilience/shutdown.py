@@ -4,9 +4,12 @@
 The descent loop polls a flag at PASS BOUNDARIES. With a checkpoint
 directory it writes a final checkpoint and a ``preempted.json`` marker
 there, and a run restarted with ``resume`` continues from it; the training
-driver saves no model for a preempted run. The JAX package's observability
-event and flight dump on a request wait for queue A's "Host layers with no
-device math".
+driver saves no model for a preempted run. The first request counts
+``resilience.preemptions``, emits ``resilience.preemption_requested``,
+flushes the tracer's buffered span records and dumps the installed flight
+recorder (``flight-preemption.json`` on a signal, ``flight-shutdown.json``
+on a programmatic request), while the driver's observe envelope still
+holds it.
 
 Signal handlers only install on the main thread (Python restriction);
 elsewhere, or in tests, ``request()`` or a custom ``stop_check`` callable
@@ -50,6 +53,23 @@ class GracefulShutdown:
         first = not self._event.is_set()
         self._event.set()
         if first:
+            # obs note BEFORE draining: may run in signal-handler context,
+            # and both calls are non-blocking (counter inc + list append)
+            from photon_ml_tpu_torch import obs
+
+            obs.registry().inc("resilience.preemptions")
+            obs.emit_event("resilience.preemption_requested", cat="resilience",
+                           signum=signum)
+            # a SIGTERM'd process leaves its last buffered span records on
+            # disk and, with a recorder installed, its post-mortem: bounded
+            # file writes, best-effort either way
+            try:
+                tracer = obs.get_tracer()
+                if tracer is not None:
+                    tracer.flush()
+                obs.flight_dump("preemption" if signum is not None else "shutdown")
+            except Exception:  # noqa: BLE001 — shutdown must proceed
+                pass
             self.drain()
 
     def register_drain(self, hook):

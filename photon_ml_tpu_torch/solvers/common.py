@@ -131,6 +131,49 @@ def mask_tape(tape: torch.Tensor, iterations: int, axis: int = -1) -> np.ndarray
     return arr[tuple(sl)]
 
 
+def final_grad_norm(result: "SolverResult") -> torch.Tensor:
+    """||grad|| at the solve's last written tracker slot (valid with
+    tracking on or off: the one untracked slot holds the latest state), a
+    0-dim tensor on the solve's device (no host read)."""
+    gn = result.grad_norms
+    return gn[min(int(result.iterations), gn.shape[-1] - 1)]
+
+
+def design_passes(result: "SolverResult") -> float:
+    """Counted full design passes of one completed solve, in the one
+    value/gradient-pass unit the cost book's attribution uses (JAX
+    ``solvers/common.design_passes``). TRON: iterations + 1 initial
+    evaluation + CG Hessian-vector products; first-order solvers and
+    NEWTON: their value/gradient evaluations; otherwise iterations + 1.
+    The port's loop counters are host ints: nothing is read from the
+    device."""
+    iters = float(result.iterations)
+    if result.cg_iterations is not None:
+        return iters + 1.0 + float(result.cg_iterations)
+    if result.evals is not None:
+        return float(result.evals)
+    return iters + 1.0
+
+
+def record_solver_metrics(prefix: str, result: "SolverResult", registry=None) -> None:
+    """One completed solve's counters into the metrics registry under
+    ``solver.<prefix>.*`` plus the cross-optimizer ``solver.iterations``
+    (JAX ``solvers/common.record_solver_metrics``). The counters are host
+    ints; callers gate on observability being enabled, as in the JAX
+    package."""
+    from photon_ml_tpu_torch import obs
+
+    reg = registry if registry is not None else obs.registry()
+    iters = float(result.iterations)
+    reg.inc(f"solver.{prefix}.solves")
+    reg.inc(f"solver.{prefix}.iterations", iters)
+    reg.inc("solver.iterations", iters)
+    if result.cg_iterations is not None:
+        reg.inc(f"solver.{prefix}.cg_iterations", float(result.cg_iterations))
+    if result.evals is not None:
+        reg.inc(f"solver.{prefix}.evals", float(result.evals))
+
+
 # -- host reads ---------------------------------------------------------------
 
 _reads_lock = threading.Lock()

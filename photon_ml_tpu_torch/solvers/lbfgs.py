@@ -394,3 +394,13 @@ def minimize_owlqn(
         step_tape=step_tape,
         eval_tape=eval_tape,
     )
+
+
+def record_solve_metrics(result: SolverResult, registry=None, owlqn: bool = False) -> None:
+    """L-BFGS / OWL-QN counters into the obs registry:
+    ``solver.<lbfgs|owlqn>.iterations`` plus ``.evals`` (value+gradient
+    passes) (JAX ``solvers/lbfgs.py:589``). Host ints; callers gate on
+    observability being enabled."""
+    from photon_ml_tpu_torch.solvers.common import record_solver_metrics
+
+    record_solver_metrics("owlqn" if owlqn else "lbfgs", result, registry)

@@ -256,3 +256,13 @@ def minimize_tron(
         radius_tape=radius_tape,
         cg_tape=cg_tape,
     )
+
+
+def record_solve_metrics(result: SolverResult, registry=None) -> None:
+    """TRON counters into the obs registry: ``solver.tron.iterations``
+    (outer trust-region steps) and ``solver.tron.cg_iterations`` (inner
+    CG == Hessian-vector products) (JAX ``solvers/tron.py:348``). Host
+    ints; callers gate on observability being enabled."""
+    from photon_ml_tpu_torch.solvers.common import record_solver_metrics
+
+    record_solver_metrics("tron", result, registry)

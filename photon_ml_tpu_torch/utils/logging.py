@@ -1,7 +1,8 @@
 """Run logging: timestamped, level-filtered, teeing to a run-directory file
 (counterpart of ``photon_ml_tpu/utils/logging.py``; the reference's
 ``util/PhotonLogger.scala:35-503``). Every driver run leaves its full log in
-the output directory, and ``timed`` logs a phase's wall clock.
+the output directory, and ``timed`` logs a phase's wall clock (and traces it
+as a span).
 
 ``PHOTON_LOG_LEVEL`` (env) overrides the constructed level.
 """
@@ -93,12 +94,17 @@ class PhotonLogger:
 
 @contextlib.contextmanager
 def timed(logger: Optional[PhotonLogger], label: str):
-    """Log the wall clock of a phase (``Driver.scala:232-291`` timing).
-    Failed phases still report their duration."""
+    """Log the wall clock of a phase (``Driver.scala:232-291`` timing) AND
+    emit a span of the phase to the active tracer, so every phase a driver
+    times shows up in the trace. Failed phases still report their
+    duration."""
+    from photon_ml_tpu_torch.obs.trace import span as _span
+
     t0 = time.perf_counter()
     ok = True
     try:
-        yield
+        with _span(label, cat="phase"):
+            yield
     except BaseException:
         ok = False
         raise

@@ -2048,3 +2048,43 @@ def test_main_path_wrappers_launch_on_the_current_stream(cuda, name):
     for a, b in zip(outs[0], outs[1]):
         assert same(a, b), name
     assert not all(same(a, b) for a, b in zip(outs[0], outs[2]))
+
+
+# -- the observability layer on the card -------------------------------------
+
+
+def test_debug_nans_checks_each_kernel_launch(cuda, tmp_path):
+    """``ctypes`` launches are invisible to dispatch: under ``debug_nans``
+    the wrapper checks its kernel's output and names the kernel; outside
+    it the same launch returns the NaN. A profile window on the card lists
+    the kernel by its CUDA symbol, and the cost book gives the H100's
+    shares only on an H100."""
+    import glob
+    import json
+
+    from photon_ml_tpu_torch.obs import cost
+    from photon_ml_tpu_torch.utils.debug import debug_nans, profile_trace
+
+    d = 257
+    idx, val = _ell(1000, 8, d, cuda)
+    w = torch.randn(d, device=cuda, dtype=torch.float64)
+    w[idx[0, 0]] = float("nan")
+    before = dispatch.launch_counts()["ell_matvec"]
+    with debug_nans(True):
+        with pytest.raises(FloatingPointError, match="ell_matvec kernel"):
+            ell_matvec(idx, val, w, d)
+    assert dispatch.launch_counts()["ell_matvec"] == before + 1
+    assert bool(torch.isnan(ell_matvec(idx, val, w, d)).any())
+    with profile_trace(str(tmp_path), device=cuda):
+        ell_matvec(idx, val, torch.ones(d, device=cuda, dtype=torch.float64), d)
+        torch.cuda.synchronize()
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    assert any("ell_matvec_kernel" in n for n in names), sorted(names)[:20]
+    peaks = cost.peaks_for(cuda, torch.float64)
+    if "H100" in torch.cuda.get_device_name(cuda):
+        assert peaks == (34e12, 3.35e12)
+    else:
+        assert peaks == (None, None)

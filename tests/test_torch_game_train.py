@@ -242,10 +242,7 @@ def test_default_device_is_cuda_and_raises_without_a_card(inputs):
 
 
 # a value that turns each unported setting on
-_ON = {"streamed_ingest": True,
-       "trace_dir": "trace", "metrics_every": 5.0,
-       "profile_dir": "profile", "flight_dir": "flight", "convergence_report": True,
-       "hot_columns": 3}
+_ON = {"streamed_ingest": True, "hot_columns": 3}
 _UNPORTED_CASES = (
     [(name, {name: _ON[name]}, item) for name, (_, item) in UNPORTED_GAME_FIELDS.items()]
     + [(f"coordinate.{name}", {"coordinate": {name: _ON[name]}}, item)
@@ -288,7 +285,15 @@ _PORTED_CASES = [
     ("collective_timeout_s", {"collective_timeout_s": 30.0}),
     ("sharded_ckpt", {"sharded_ckpt": True, "checkpoint_every": 1}),
     ("collective_mode", {"collective_mode": "fused"}),
+    # the observability settings: the same files, spans, counters and
+    # report as the JAX driver (test_torch_obs_drivers.game_obs_parity)
+    ("trace_dir", {"trace_dir": "trace"}),
+    ("metrics_every", {"metrics_every": 5.0}),
+    ("profile_dir", {"profile_dir": "profile"}),
+    ("flight_dir", {"flight_dir": "flight"}),
+    ("convergence_report", {"convergence_report": True}),
 ]
+_OBS_CASES = {"trace_dir", "metrics_every", "profile_dir", "flight_dir", "convergence_report"}
 _PORTED = dict(_PORTED_CASES)
 _ALL_CASES = ([(name, change, None) for name, change in _PORTED_CASES]
               + [c for c in _UNPORTED_CASES if c[0] not in _PORTED])
@@ -464,6 +469,11 @@ def test_unported_setting_raises(inputs, tmp_path, monkeypatch, name, change, it
     None) trains as the JAX driver does."""
     if name.startswith("coordinate.hot_columns"):
         _hybrid_game_matches_jax(tmp_path, monkeypatch, change["coordinate"]["hot_columns"])
+        return
+    if name in _OBS_CASES:
+        from test_torch_obs_drivers import game_obs_parity
+
+        game_obs_parity(inputs, name)
         return
     if item is None:
         _ported_setting_matches_jax(inputs, name, change)

@@ -229,7 +229,7 @@ UNPORTED = [(name, value) for name, value in (
 # the pins of settings this port now runs: each is a parity case of the
 # driver against the JAX driver, under the same test id
 PORTED = {"quality_fingerprint", "hot_columns", "out_of_core", "streamed_ingest",
-          "mesh_shape", "heartbeat_s"}
+          "mesh_shape", "heartbeat_s", "trace_dir", "convergence_report", "profile"}
 
 
 def _files_under(root):
@@ -422,6 +422,13 @@ def test_unported_paths_raise_and_name_their_roadmap_item(fixture, monkeypatch, 
         return
     if field == "heartbeat_s":
         _heartbeat_matches_jax(fixture)
+        return
+    if field in ("trace_dir", "convergence_report", "profile"):
+        # the observability settings: the same files, spans, counters and
+        # report as the JAX driver (test_torch_obs_drivers.glm_obs_parity)
+        from test_torch_obs_drivers import glm_obs_parity
+
+        glm_obs_parity(fixture, field)
         return
     params = {**_params(fixture, f"port-unported-{field}"), field: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):

@@ -334,6 +334,20 @@ def driver_world(rank, n, inputs) -> dict:
     }
 
 
+def traced_driver_world(rank, n, inputs) -> dict:
+    """:func:`driver_world` with this rank's own ``trace_dir``
+    (``<trace_root>/rank-<r>``): returns its models and its collective
+    counts (``parallel.mesh.collective_counts``)."""
+    from photon_ml_tpu_torch.cli import train as ttrain
+    from photon_ml_tpu_torch.parallel.mesh import collective_counts
+
+    params = {**inputs["params"],
+              "trace_dir": os.path.join(inputs["trace_root"], f"rank-{rank}")}
+    run = ttrain.run_glm_training(params, device="cpu")
+    return {"w": [tm.model.coefficients.means.numpy() for tm in run.models],
+            "counts": collective_counts()}
+
+
 def _host(p):
     """A coordinate's params as numpy: a table, or {"gamma", "projection"}
     of FactoredParams."""
