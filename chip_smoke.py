@@ -114,6 +114,24 @@ whenever any phase fails. Phases, in order:
    its entities score fixed-effect-only); ``cli.serve --serving-shards 2``
    over a pipe (its scores the engine's), started first so that its load
    overlaps the rest;
+5l. (a) the serving fabric (run right after 5k, on 5b's model and
+   records): an in-process ``FrontendServer`` over a ``TenantManager``
+   with tenants ``gold`` (priority 2, quota 256) and ``free`` (priority 0,
+   quota 64), each behind a ``ReplicaRouter`` of 2 ``ModelRegistry``
+   replicas on the card (four registries, each its own resident tables,
+   one ``SharedCompileCache``: 8 builds in all, none after warmup); 512
+   of the records in calls of 1-64 over 4 connections, two speaking JSON
+   lines and two binary frames, every score within 1e-10 max(1, |s|) of
+   5b's card scores; a ``replica.route`` fault on ``gold/r0`` mid-stream
+   (the failover counted, its breaker open, then closed again by a probe
+   after the backoff, no request lost); a burst of 512 single frames on
+   ``free`` past its quota and the queue of 256, every frame answered
+   with a score or ``RESOURCE_EXHAUSTED``; the ``serving.score`` spans'
+   ``hbm_util`` in (0, 1.05]; per-tenant p50/p99 a call; and ``python -m
+   photon_ml_tpu_torch.cli.serve --frontend-port 0 --replicas 2 --tenant
+   ... --tenant ...`` as a process (started before 5f so that its four
+   loads overlap 5f and 5k): one round trip per framing, its scores 5b's,
+   and the ``tenants`` and ``replicas`` commands;
 5g. the quality loop (run after phase 7, on phase 6's files):
    ``python -m photon_ml_tpu_torch.cli.build_index`` on phase 6's training
    Avro, in the GLM layout and as a GAME shard with ``--name-prefix``, each
@@ -338,6 +356,21 @@ whenever any phase fails. Phases, in order:
    the shards must merge (``obs.dist``) aligned by the barrier-backed
    ``clock.sync``, one pid per rank, the merged metrics holding the
    ranks' ``collective.*.w2.count``;
+5l. (b) the retrain loop (run after 5j, on 5g's GAME export and
+   records): 5g's export published as ``v0001`` in a watch root, 5g's
+   first 4,096 training records with the planted field written as the
+   drift window and fingerprinted by the training ingest
+   (``--current-fp``); ``cli.retrain once`` on the card, counters set to
+   0 just before and read just after: the fingerprint trigger fires, the
+   retrain (the GAME driver on the window's records) is warm-started from
+   ``v0001``'s model, ``v0002`` is exported with its manifest and its own
+   fingerprint, and the verify stage finds the alarm cleared; its
+   ``fused_vgc``, ``fused_hvp``, reduce and ``ell_matvec`` launches each
+   above 0; a ``ModelRegistry`` serving ``v0001`` to 4 closed-loop
+   clients polls the root and swaps to ``v0002`` with none dropped, its
+   scores within 1e-10 of a fresh engine on ``v0002``; a second cycle
+   (``--always``) with ``retrain.warm_start`` corrupt fails at the
+   retrain stage with the alarm latched while ``v0002`` keeps serving;
 8. the ``{"obs": ...}`` line (each traced run's wall beside its untraced
    twin's, its span counts, the profiled kernels), the
    ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
@@ -6957,6 +6990,547 @@ def entity_train_phase(work: str, game_inputs, name: str = "", device=None, proc
     return summary, launches
 
 
+# -- phase 5l: the serving fabric and the retrain loop -------------------------
+
+# (a) 5b's model behind the front end: two tenants, each behind a router of
+# two replicas on the one card (four registries, each its tables resident,
+# one scorer ladder), 512 of 5b's records in calls of 1-64 over 4
+# connections, half JSON lines and half binary frames; a replica.route
+# fault on gold/r0 mid-stream and an over-quota burst on free
+FABRIC_TENANTS = (("gold", 2, 256), ("free", 0, 64))
+FABRIC_REPLICAS = 2
+FABRIC_REQUESTS = 512
+FABRIC_CONNECTIONS = 4
+FABRIC_QUEUE = 256
+FABRIC_BURST = 512
+FABRIC_BACKOFF_S = 0.2
+FABRIC_CLI_REQUESTS = 8
+# (b) the loop on 5g's GAME export: the retrain's records are 5g's first
+# 4,096 training records with the planted field (its drift window)
+LOOP_RECORDS = QUALITY_PLANTED
+LOOP_CLIENTS = 4
+LOOP_REQUESTS = 256
+
+
+def _cloned(p):
+    """A serving param's own copy (a replica's resident tables)."""
+    def copy(x):
+        return x.clone() if torch.is_tensor(x) else np.array(x)
+
+    if isinstance(p, CompactReTable):
+        return CompactReTable(copy(p.columns), copy(p.values))
+    if isinstance(p, FactoredParams):
+        return FactoredParams(copy(p.gamma), copy(p.projection))
+    return copy(p)
+
+
+def fabric_cli_ahead(served: dict, device=None):
+    """Phase 5l's ``cli.serve --frontend-port 0 --replicas 2 --tenant gold
+    --tenant free`` on 5b's model, started in a thread ahead of the phase
+    (``main`` starts it before 5f, so that its four loads overlap 5f and
+    5k; the manifest is 5f's to write, so it does not verify one): per
+    framing one round trip of 5b's first requests, the scores held to
+    5b's card scores, then the ``tenants`` and ``replicas`` commands and a
+    SIGTERM. Returns (thread, result dict)."""
+    import queue as queue_mod
+    import threading
+
+    from photon_ml_tpu_torch.frontend import FrontendClient
+
+    out = {}
+
+    def run():
+        proc = None
+        try:
+            t0 = time.perf_counter()
+            _, records = read_avro_file(served["data"])
+            requests = [request_line(r) for r in
+                        serving_requests(records[:FABRIC_CLI_REQUESTS])]
+            del records
+            want = np.asarray(served["scores"][:FABRIC_CLI_REQUESTS], np.float64)
+            tenants = [json.dumps({"name": t, "priority": p, "quota": q})
+                       for t, p, q in FABRIC_TENANTS]
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve", "--model-dir",
+                 served["model_dir"], "--dtype", "float64", "--frontend-port", "0",
+                 "--replicas", str(FABRIC_REPLICAS), "--max-batch", str(SERVE_MAX_BATCH),
+                 "--exemplar-fraction", "-1", "--no-verify-manifest",
+                 *[a for t in tenants for a in ("--tenant", t)],
+                 *(["--device", device] if device else [])],
+                stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT})
+            lines = queue_mod.Queue()
+            threading.Thread(target=lambda: [lines.put(x) for x in proc.stderr],
+                             daemon=True).start()
+            port, seen = None, []
+            while port is None:
+                line = lines.get(timeout=600)
+                seen.append(line)
+                m = re.search(r"frontend on 127\.0\.0\.1:(\d+)", line)
+                port = int(m.group(1)) if m else None
+            ready_s = time.perf_counter() - t0
+            gaps = {}
+            with FrontendClient("127.0.0.1", port, timeout=120) as c, \
+                    FrontendClient("127.0.0.1", port, binary=True, timeout=120) as b:
+                for (tenant, _, _), (label, client) in zip(FABRIC_TENANTS,
+                                                           (("json", c), ("binary", b))):
+                    reply = client.call({"tenant": tenant, "batch": requests})
+                    gaps[f"{tenant}_{label}"] = serving_gaps(reply.get("scores"), want)
+                snap = c.call({"cmd": "tenants"})
+                replicas = c.call({"cmd": "replicas"})
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            out["summary"] = {
+                "ready_s": ready_s, "seconds": time.perf_counter() - t0, "exit": code,
+                "max_err_vs_5b": gaps,
+                "tenants": {t: {k: s.get(k) for k in ("priority", "max_outstanding",
+                                                      "completed")}
+                            for t, s in snap.get("tenants", {}).items()},
+                "compile_cache": snap.get("compile_cache"),
+                "replicas": {t: sorted(h["replicas"]) for t, h in replicas.items()
+                             if t != "id"},
+            }
+            if (code != 0 or max(gaps.values()) > SERVE_RTOL
+                    or sorted(out["summary"]["tenants"]) != sorted(t for t, _, _ in
+                                                                   FABRIC_TENANTS)
+                    or out["summary"]["replicas"] != {
+                        t: [f"{t}/r{i}" for i in range(FABRIC_REPLICAS)]
+                        for t, _, _ in FABRIC_TENANTS}):
+                raise AssertionError(f"cli.serve --frontend-port: "
+                                     f"{json.dumps(out['summary'])}; {''.join(seen)[-2000:]}")
+        except BaseException as e:  # noqa: BLE001 — raised by the phase
+            out["error"] = e
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    thread = threading.Thread(target=run, name="cli-serve-frontend", daemon=True)
+    thread.start()
+    return thread, out
+
+
+def fabric_phase(work: str, served: dict, name: str = "", cli=None,
+                 n_requests: int = FABRIC_REQUESTS, burst: int = FABRIC_BURST,
+                 queue_depth: int = FABRIC_QUEUE, seed: int = SEED + 70, **device_kw):
+    """Phase 5l (a): phase 5b's model behind an in-process ``FrontendServer``
+    on the card (``device_kw`` names another device for a rehearsal), from
+    5f's engine's params and requests when 5f left them in ``served``;
+    ``cli``: ``fabric_cli_ahead``'s (started here when None). Every gate
+    raises. Returns the summary."""
+    import threading
+
+    from photon_ml_tpu_torch.frontend import (
+        FrontendClient,
+        FrontendServer,
+        ReplicaRouter,
+        TenantManager,
+    )
+    from photon_ml_tpu_torch.io.models import load_game_model_auto
+    from photon_ml_tpu_torch.resilience.faults import FaultSpec, inject
+    from photon_ml_tpu_torch.serving import SharedCompileCache
+
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    dev = "cuda:0" if on_card else device_kw["device"]
+    cuda = torch.device(dev).type == "cuda"
+    os.makedirs(work, exist_ok=True)
+    cli_thread, cli_out = cli if cli is not None else fabric_cli_ahead(served, dev)
+    model_dir = served["model_dir"]
+    if len(served.get("requests", ())) >= n_requests:
+        requests = served["requests"][:n_requests]
+    else:
+        _, records = read_avro_file(served["data"])
+        requests = serving_requests(records[:n_requests])
+        del records
+    n_req = len(requests)
+    lines = [request_line(r) for r in requests]
+    want = np.asarray(served["scores"][:n_req], np.float64)
+    base = served.get("engine")
+    if base is not None:
+        compact = dict(base._params)
+        shards, res = base.shards, base.random_effects
+        shard_vocabs, re_vocabs = base.shard_vocabs, base.re_vocabs
+    else:
+        params, shards, res, shard_vocabs, re_vocabs = load_game_model_auto(model_dir)
+        compact = precompact_model(params)
+        del params
+
+    # four registries (2 tenants x 2 replicas), each with its own resident
+    # copy of the tables, all on one scorer ladder
+    cache = SharedCompileCache()
+
+    def factory(root):
+        return ScoringEngine({n: _cloned(p) for n, p in compact.items()}, shards, res,
+                             shard_vocabs, re_vocabs, dtype=torch.float64, device=dev,
+                             compile_cache=cache)
+
+    builds0 = bucket_builds()
+    t0 = time.perf_counter()
+    registries = {}
+    for tenant, _, _ in FABRIC_TENANTS:
+        registries[tenant] = []
+        for _ in range(FABRIC_REPLICAS):
+            reg = ModelRegistry(engine_factory=factory, warmup_max_batch=SERVE_MAX_BATCH,
+                                warmup_degraded=True, stats=ServingStats())
+            reg.load(model_dir)
+            registries[tenant].append(reg)
+    warmup_s = time.perf_counter() - t0
+    builds = bucket_builds() - builds0
+    resident = sum(r.current.engine.stats.registry.gauge(
+        "serving.shard.resident_re_bytes_per_process").value
+        for regs in registries.values() for r in regs)
+    log(f"[fabric] {len(FABRIC_TENANTS)} tenants x {FABRIC_REPLICAS} replicas on {dev}: "
+        f"loaded and warmed in {warmup_s:.2f} s, {builds} builds (one engine's ladder: 8), "
+        f"cache {json.dumps(cache.snapshot())}, resident RE bytes {resident:.0f} in all")
+    if builds != 8 or cache.compiles != 8:
+        raise AssertionError(f"four registries built {builds} scorers, expected one ladder's 8")
+
+    stats = ServingStats()
+    tm = TenantManager(max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                       queue_depth=queue_depth, stats=stats, compile_cache=cache)
+    routers = {}
+    for tenant, prio, quota in FABRIC_TENANTS:
+        routers[tenant] = ReplicaRouter(
+            [(f"{tenant}/r{i}", reg.score) for i, reg in enumerate(registries[tenant])],
+            failure_threshold=1, backoff_s=FABRIC_BACKOFF_S)
+        tm.add_tenant(tenant, routers[tenant].score, priority=prio, max_outstanding=quota)
+    tracer = obs.Tracer()
+    prev_tracer = obs.set_tracer(tracer)
+    srv = FrontendServer(tm.submit, default_tenant="gold").start()
+    gold = routers["gold"]
+    try:
+        # the stream: calls of 1-64 rows, tenants alternating, dealt to 4
+        # connections (even ones JSON lines, odd ones binary frames)
+        rng = np.random.default_rng(seed)
+        calls, lo = [], 0
+        while lo < n_req:
+            size = int(min(rng.integers(1, SERVE_MAX_BATCH + 1), n_req - lo))
+            calls.append((lo, size, FABRIC_TENANTS[len(calls) % 2][0]))
+            lo += size
+        scores = np.full(n_req, np.nan)
+        answered, errors, latency = [0], [], {t: [] for t, _, _ in FABRIC_TENANTS}
+        lock = threading.Lock()
+
+        def connection(c):
+            try:
+                with FrontendClient("127.0.0.1", srv.port, binary=c % 2 == 1,
+                                    timeout=300) as client:
+                    for lo, size, tenant in calls[c::FABRIC_CONNECTIONS]:
+                        frame = ({"tenant": tenant, **lines[lo]} if size == 1 else
+                                 {"tenant": tenant, "batch": lines[lo:lo + size]})
+                        t0 = time.perf_counter()
+                        reply = client.call(frame)
+                        dt = time.perf_counter() - t0
+                        got = [reply.get("score")] if size == 1 else reply.get("scores", [])
+                        with lock:
+                            latency[tenant].append(dt)
+                            if "error" in reply or "errors" in reply or len(got) != size:
+                                errors.append(reply)
+                            else:
+                                scores[lo:lo + size] = got
+                            answered[0] += 1
+            except Exception as e:  # noqa: BLE001 — a lost connection is a gate
+                with lock:
+                    errors.append(repr(e))
+
+        threads = [threading.Thread(target=connection, args=(c,), name=f"fabric-conn-{c}")
+                   for c in range(FABRIC_CONNECTIONS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # mid-stream: gold/r0 dies (every routed attempt raises) until the
+        # router has failed over from it once
+        while answered[0] < len(calls) // 2 and any(t.is_alive() for t in threads):
+            time.sleep(0.005)
+        opened = None
+        with inject(FaultSpec("replica.route", "raise", nth=1, count=-1, key="gold/r0")):
+            deadline = time.perf_counter() + 120
+            while gold.failovers < 1 and time.perf_counter() < deadline:
+                if not any(t.is_alive() for t in threads):
+                    # the stream ended first: gold calls until one fails over
+                    with FrontendClient("127.0.0.1", srv.port, timeout=300) as client:
+                        client.call({"tenant": "gold", **lines[0]})
+                else:
+                    time.sleep(0.002)
+            opened = gold.health()["replicas"]["gold/r0"]["state"]
+        for t in threads:
+            t.join(900)
+            if t.is_alive():
+                raise AssertionError(f"{t.name} did not finish")
+        stream_s = time.perf_counter() - t0
+        # after the fault: probes re-admit gold/r0 once its backoff ends
+        reclosed_after = 0
+        with FrontendClient("127.0.0.1", srv.port, timeout=300) as client:
+            while (gold.health()["replicas"]["gold/r0"]["state"] != "closed"
+                   and reclosed_after < 40):
+                time.sleep(FABRIC_BACKOFF_S)
+                client.call({"tenant": "gold", "batch": lines[:2]})
+                reclosed_after += 1
+        builds_after = bucket_builds() - builds0 - builds
+        err = serving_gaps(scores, want)
+
+        # the burst: ``burst`` single frames for free pipelined on one
+        # connection, past its quota and the queue: each is answered, with
+        # a score or RESOURCE_EXHAUSTED
+        free0 = tm.tenant("free").snapshot()
+        shed0 = stats.snapshot().get("rejected", 0)
+        replies = {}
+        with FrontendClient("127.0.0.1", srv.port, binary=True, timeout=300) as client:
+            ids = {client.submit({"tenant": "free", **lines[i % n_req]}): i % n_req
+                   for i in range(burst)}
+            for _ in range(burst):
+                msg = client.recv()
+                replies[msg["id"]] = msg
+        codes = {}
+        burst_err = 0.0
+        for rid, i in ids.items():
+            msg = replies.get(rid, {"code": "LOST"})
+            if "score" in msg:
+                codes["score"] = codes.get("score", 0) + 1
+                burst_err = max(burst_err, serving_gaps([msg["score"]], [want[i]]))
+            else:
+                codes[msg.get("code")] = codes.get(msg.get("code"), 0) + 1
+        free1 = tm.tenant("free").snapshot()
+    finally:
+        srv.stop()
+        drained = tm.drain(timeout=120)
+        obs.set_tracer(prev_tracer)
+    spans = [e for e in tracer.events() if e.get("name") == "serving.score"]
+    utils = [e.get("args", {}).get("hbm_util") for e in spans]
+    snap = tm.snapshot()
+    per_tenant = {t: {"calls": quantiles_ms(latency[t]),
+                      "requests_slo": {k: snap["tenants"][t]["slo"].get(k)
+                                       for k in ("p50_ms", "p99_ms", "total_requests")},
+                      **{k: snap["tenants"][t][k] for k in (
+                          "submitted", "completed", "failed", "rejected",
+                          "over_quota_submits")}}
+                  for t, _, _ in FABRIC_TENANTS}
+    summary = {
+        "device": dev, "requests": n_req, "calls": len(calls), "connections":
+        FABRIC_CONNECTIONS, "warmup_s": warmup_s, "builds": builds,
+        "builds_after_warmup": builds_after, "compile_cache": cache.snapshot(),
+        "resident_re_bytes_all_registries": resident, "stream_s": stream_s,
+        "requests_per_s": n_req / stream_s, "max_err_vs_5b": err, "errors": len(errors),
+        "failovers": gold.failovers, "gold_r0_state_at_fault": opened,
+        "gold_r0_reclosed_after_calls": reclosed_after,
+        "replicas": {t: r.health() for t, r in routers.items()},
+        "burst": {"frames": burst, "answers": codes, "max_err_vs_5b": burst_err,
+                  "free_rejected": free1["rejected"] - free0["rejected"],
+                  "free_over_quota": free1["over_quota_submits"] - free0["over_quota_submits"],
+                  "queue_rejected": stats.snapshot().get("rejected", 0) - shed0},
+        "tenants": per_tenant, "drained": drained,
+        "score_spans": len(spans),
+        "score_span_hbm_util": [min((u for u in utils if u is not None), default=None),
+                                max((u for u in utils if u is not None), default=None)],
+        "score_span_bytes_per_s_max": max((e["args"].get("bytes_per_s", 0) for e in spans),
+                                          default=None),
+    }
+    for tenant, line in per_tenant.items():
+        log(f"[fabric] {tenant}: p50 {line['calls']['p50']:.3f} ms, p99 "
+            f"{line['calls']['p99']:.3f} ms a call ({line['calls']['n']} calls)")
+    cli_thread.join(900)
+    if cli_thread.is_alive():
+        raise AssertionError("cli.serve --frontend-port did not finish")
+    if "error" in cli_out:
+        raise cli_out["error"]
+    summary["cli"] = cli_out["summary"]
+    summary["phase_s"] = time.perf_counter() - phase_t0
+    log(f"[fabric] {json.dumps(summary)}")
+    failures = []
+    if err > SERVE_RTOL or errors:
+        failures.append(f"stream: max err {err:.3e}, {len(errors)} errors {errors[:3]}")
+    if gold.failovers < 1 or opened != "open":
+        failures.append(f"gold/r0's fault: {gold.failovers} failovers, its breaker {opened}")
+    if gold.health()["replicas"]["gold/r0"]["state"] != "closed":
+        failures.append("gold/r0's breaker did not close again")
+    if (codes.get("score", 0) + codes.get("RESOURCE_EXHAUSTED", 0) != burst
+            or not codes.get("RESOURCE_EXHAUSTED") or burst_err > SERVE_RTOL
+            or summary["burst"]["free_over_quota"] < 1):
+        failures.append(f"the burst: {json.dumps(summary['burst'])}")
+    if builds_after:
+        failures.append(f"{builds_after} scorer builds after warmup")
+    if not drained:
+        failures.append("the tenant queue did not drain")
+    if cuda and (not spans or any(u is None or not 0.0 < u <= 1.05 for u in utils)):
+        failures.append(f"serving.score spans' hbm_util {summary['score_span_hbm_util']} "
+                        f"({len(spans)} spans)")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for regs in registries.values():
+        for reg in regs:
+            reg.current.engine.close()
+    return summary
+
+
+def planted_records(path: str, out: str, n: int, d_hashed: int) -> str:
+    """5g's planted window as records: the first ``n`` records of ``path``
+    with the planted integer field times the planted factor (5g's
+    ``shifted`` requests), written to ``out``."""
+    col = str(int(_hash(np.array([QUALITY_PLANT_FIELD]), np.zeros(1, np.int64))[0] % d_hashed))
+    _, records = read_avro_file(path)
+    records = records[:n]
+    for r in records:
+        r["features"] = [dict(f, value=f["value"] * QUALITY_PLANT_FACTOR)
+                         if f["name"] == "h" and f["term"] == col else f
+                         for f in r["features"]]
+    write_avro_file(out, TRAINING_EXAMPLE_SCHEMA, records)
+    return out
+
+
+def lifecycle_phase(work: str, game_ref: dict, name: str = "", n: int = LOOP_RECORDS,
+                    d_hashed: int = D_HASHED, **device_kw):
+    """Phase 5l (b): the retrain loop on 5g's GAME export, on the card
+    (``device_kw`` names another device for a rehearsal). Every gate
+    raises. Returns (summary, the retrain's launches)."""
+    import contextlib
+    import io
+    import threading
+
+    from photon_ml_tpu_torch.cli import retrain as retrain_cli
+    from photon_ml_tpu_torch.io.models import MODEL_MANIFEST
+    from photon_ml_tpu_torch.lifecycle import latest_version_dir
+    from photon_ml_tpu_torch.resilience.faults import FaultSpec, inject
+
+    phase_t0 = time.perf_counter()
+    on_card = not device_kw
+    device = device_kw.get("device")
+    os.makedirs(work, exist_ok=True)
+    gparams = game_ref["params"]
+    (_, upath), (gtrain, *_), _ = game_ref["inputs"]
+
+    # v0001: 5g's export as published; the traffic fingerprint: 5g's
+    # planted window through the training ingest
+    t0 = time.perf_counter()
+    watch = os.path.join(work, "watch")
+    shutil.copytree(gparams["output_dir"], os.path.join(watch, "v0001"))
+    planted = planted_records(gtrain, os.path.join(work, "planted.avro"), n, d_hashed)
+    uvocab = FeatureVocabulary.load(upath)
+    current = os.path.join(work, "traffic-fp")
+    os.makedirs(current)
+    fp = quality_mod.install_fingerprint_collector()
+    try:
+        IngestSource([planted]).game_data({"ushard": uvocab}, ["userId"])
+    finally:
+        quality_mod.uninstall_fingerprint_collector()
+    fp.save(current)
+    config = os.path.join(work, "retrain.json")
+    with open(config, "w") as f:
+        json.dump({**gparams, "train_input": [planted], "output_dir": os.path.join(work, "x")},
+                  f)
+    dev_args = ["--device", device] if device else []
+    argv = ["once", "--config", config, "--watch-root", watch, "--current-fp", current,
+            *dev_args]
+    _, records = read_avro_file(planted)
+    requests = serving_requests(records[:LOOP_REQUESTS])
+    del records
+    setup_s = time.perf_counter() - t0
+
+    # the serving side: a registry on v0001 under closed-loop traffic
+    reg_stats = ServingStats()
+    registry = ModelRegistry(warmup_max_batch=SERVE_MAX_BATCH, stats=reg_stats,
+                             dtype=torch.float64, device=device)
+    registry.load(os.path.join(watch, "v0001"))
+    swapped, out = threading.Event(), []
+    batcher = MicroBatcher(registry.score, max_batch=SERVE_MAX_BATCH,
+                           max_wait_ms=SERVE_WAIT_MS, stats=reg_stats)
+    loop = threading.Thread(target=lambda: out.append(closed_loop(
+        batcher.submit, requests, LOOP_CLIENTS, keep_going=lambda: not swapped.is_set())),
+        name="loop-clients")
+    loop.start()
+    try:
+        # cycle 1: cli.retrain once (the trigger, the warm-started retrain
+        # on the card, the export, the publish, the verify)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            try:
+                retrain_cli.main(argv)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        cycle_s = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        result = json.loads(text.getvalue())
+        # the registry polls the root and swaps under the traffic
+        t0 = time.perf_counter()
+        polled = registry.poll(watch)
+        reload_s = time.perf_counter() - t0
+        swapped.set()
+        loop.join(900)
+        if loop.is_alive() or not out:
+            raise AssertionError("the loop's clients did not finish")
+    finally:
+        swapped.set()
+        batcher.drain()
+    results, wall = out[0]
+    dropped = [a for _, a, _ in results if isinstance(a, Exception)]
+    v2 = os.path.join(watch, "v0002")
+    with open(os.path.join(v2, "log-message.txt")) as f:
+        warm_line = next((line.strip() for line in f if "warm-starting" in line), "")
+    fresh = ScoringEngine.from_model_dir(v2, dtype=torch.float64, **device_kw)
+    reloaded = registry.score(requests[:SERVE_MAX_BATCH])
+    reload_err = serving_gaps(reloaded, fresh.score(requests[:SERVE_MAX_BATCH]))
+    fresh.close()
+
+    # cycle 2: --always with the warm start corrupt: the retrain stage
+    # fails, the alarm stays latched, v0002 keeps serving
+    args = retrain_cli.build_arg_parser().parse_args(
+        ["once", "--always", "--max-stage-attempts", "1", "--config", config,
+         "--watch-root", watch, *dev_args])
+    orch = retrain_cli._build_orchestrator(args)
+    with inject(FaultSpec("retrain.warm_start", "corrupt", nth=1, count=-1)):
+        failed = orch.run_cycle()
+    still = registry.poll(watch)
+    reason = (result.get("plan") or {}).get("reason") or {}
+    summary = {
+        "records": n, "setup_s": setup_s, "cycle_s": cycle_s, "exit": code,
+        "stages": [(s["name"], s["ok"], round(s["seconds"], 3)) for s in result["stages"]],
+        "trigger": {k: reason.get(k) for k in ("source", "alarm", "psi_max", "flagged",
+                                                "baseline_rows", "current_rows")},
+        "warm_start_dir": (result.get("plan") or {}).get("warm_start_dir"),
+        "warm_start": warm_line, "version": result.get("version"),
+        "retrain_launches": launches, "polled": polled, "reload_s": reload_s,
+        "loop_requests": len(results), "dropped": len(dropped),
+        "requests_per_s": len(results) / wall, "serving": registry.version(),
+        "reloaded_max_err_vs_fresh_v2": reload_err,
+        "second_cycle": {"ok": failed.ok, "stage": failed.stage,
+                         "error": failed.stages[-1].error if failed.stages else None,
+                         "latched": orch.alarm_latched, "poll": still,
+                         "serving": registry.version(),
+                         "latest": os.path.basename(latest_version_dir(watch) or "")},
+        "phase_s": time.perf_counter() - phase_t0,
+    }
+    log(f"[loop] {json.dumps(summary, default=str)}")
+    log(f"[loop] the retrain's launches: " + ", ".join(
+        f"{k} {launches[k]}" for k in ("fused_vgc", "fused_hvp", "colsort_reduce",
+                                       "ell_matvec")))
+    failures = []
+    if code != 0 or not result.get("ok") or reason.get("source") != "fingerprint":
+        failures.append(f"cycle 1: exit {code}, {json.dumps(result)[:2000]}")
+    if result.get("version") != "v0002" or polled != "v0002" or registry.version() != "v0002":
+        failures.append(f"v0002 not exported and swapped in ({result.get('version')}, "
+                        f"{polled}, {registry.version()})")
+    if "['global', 'per-user'] from" not in warm_line or "v0001" not in warm_line:
+        failures.append(f"the retrain was not warm-started from v0001: {warm_line!r}")
+    if not os.path.exists(os.path.join(v2, MODEL_MANIFEST)):
+        failures.append("v0002 has no manifest")
+    if dropped or reload_err > SERVE_RTOL:
+        failures.append(f"the swap under traffic: {len(dropped)} dropped, max err "
+                        f"{reload_err:.3e} vs a fresh engine on v0002")
+    if on_card and any(launches.get(k, 0) < 1 for k in ("fused_vgc", "fused_hvp",
+                                                        "colsort_reduce", "ell_matvec")):
+        failures.append(f"the retrain's launches {launches}")
+    if (failed.ok or failed.stage != "retrain" or not orch.alarm_latched or still is not None
+            or registry.version() != "v0002" or summary["second_cycle"]["latest"] != "v0002"):
+        failures.append(f"cycle 2: {json.dumps(summary['second_cycle'])}")
+    registry.current.engine.close()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return summary, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -7019,6 +7593,9 @@ def main() -> int:
         # the micro-batcher, a hot reload, the tiered cache and cli.serve
         # 5k's cli.serve --serving-shards 2 starts now and loads beside 5f
         shard_cli = sharded_cli_ahead(served)
+        # 5l (a)'s cli.serve --frontend-port starts now too: its four loads
+        # of 5b's model overlap 5f and 5k
+        fabric_cli = fabric_cli_ahead(served)
         serve_summary = serving_phase(os.path.join(work, "serve"), served, name)
         # 5k. entity-sharded serving on 5b's model and records: 2 and 4
         # shards on the card, a sharded hot reload to 5f's halved model, a
@@ -7027,10 +7604,15 @@ def main() -> int:
             os.path.join(work, "shard_serve"), served, name,
             v2_dir=os.path.join(work, "serve", "watch", "v2"),
             unsharded_resident=serve_summary["resident_re_bytes"], cli=shard_cli)
+        # 5l (a). the serving fabric: 5b's model behind the front end, two
+        # tenants, each behind two replicas on the card
+        fabric_summary = fabric_phase(os.path.join(work, "fabric"), served, name,
+                                      cli=fabric_cli)
         del served
         shutil.rmtree(os.path.join(work, "game"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "serve"), ignore_errors=True)
         shutil.rmtree(os.path.join(work, "shard_serve"), ignore_errors=True)
+        shutil.rmtree(os.path.join(work, "fabric"), ignore_errors=True)
         # 5c. GAME training end to end, held to the CPU
         game_train_summary, game_train_reuse = game_train_phase(
             os.path.join(work, "game_train"), name, inputs=ahead.pop("game_train"))
@@ -7086,6 +7668,10 @@ def main() -> int:
         # branch, in gloo worlds on the card
         entity_summary, entity_launches = entity_train_phase(
             os.path.join(work, "entity"), game_ref["inputs"], name, procs=entity_procs)
+        # 5l (b). the retrain loop on 5g's export: cli.retrain once on the
+        # card, a registry swapping under traffic, a faulted second cycle
+        loop_summary, loop_launches = lifecycle_phase(os.path.join(work, "loop"), game_ref,
+                                                      name)
         del game_ref
     finally:
         stop_writers()
@@ -7099,6 +7685,8 @@ def main() -> int:
     log(json.dumps({"quality_loop": quality_summary}))
     log(json.dumps({"io_runtime": io_summary}))
     log(json.dumps({"entity_sharded": entity_summary}))
+    log(json.dumps({"fabric": fabric_summary}))
+    log(json.dumps({"retrain_loop": loop_summary}))
     log(json.dumps({"determinism": {"game": game_det_summary,
                                     "glm_second_run_same_w_bits":
                                         train_summary["second_run_same_w_bits"]}}))
@@ -7161,6 +7749,7 @@ def main() -> int:
                                  "quality_game_hybrid": quality_launches["game_hybrid"][kernel],
                                  "io_game_streamed": io_launches[kernel],
                                  "game_train_entity_sharded": entity_launches[kernel],
+                                 "retrain_loop": loop_launches[kernel],
                                  "serving_sharded": shard_serve_launches[kernel],
                                  "lab": lab_launches[kernel]},
             "device_ms": main_path["device_ms"],

@@ -1236,6 +1236,12 @@ def main(argv=None) -> None:
         "--collective-mode", choices=("fused", "overlap"), default=None,
         help="collective reduction strategy of feature-sharded solves",
     )
+    p.add_argument(
+        "--warm-from-watch-root", default=None, metavar="DIR",
+        help="lifecycle warm start: resolve initial_model_dir to the newest "
+        "manifest-bearing export under this serving watch root (entity-keyed "
+        "warm start from whatever is live; cli.retrain drives this itself)",
+    )
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; in a world cuda:LOCAL_RANK)")
     args = p.parse_args(argv)
@@ -1248,6 +1254,14 @@ def main(argv=None) -> None:
                 "flight_dir", "convergence_report"):
         if getattr(args, key) is not None:
             base[key] = getattr(args, key)
+    if args.warm_from_watch_root is not None:
+        from photon_ml_tpu_torch.lifecycle.orchestrator import latest_version_dir
+
+        warm = latest_version_dir(args.warm_from_watch_root)
+        if warm is None:
+            p.error("--warm-from-watch-root: no manifest-bearing export "
+                    f"under {args.warm_from_watch_root}")
+        base["initial_model_dir"] = warm
     try:
         run_game_training(base, device=args.device)
     except BaseException as e:

@@ -11,6 +11,24 @@ or as a TCP socket server (one JSON object per line per connection):
 
     python -m photon_ml_tpu_torch.cli.serve --model-dir out/game --socket 7474
 
+or behind the production front end — async multiplexed connections,
+multi-tenant admission, optional engine replication (``frontend/``):
+
+    python -m photon_ml_tpu_torch.cli.serve --model-dir out/game \\
+        --frontend-port 7575 --replicas 2 \\
+        --tenant '{"name": "gold", "priority": 2, "quota": 256}' \\
+        --tenant '{"name": "free", "priority": 0, "quota": 64}'
+
+In frontend mode this protocol is the COMPAT ADMIN CHANNEL: the same
+``{"cmd": ...}`` commands answer on stdin/--socket AND as passthrough
+frames on the front end itself, plus ``{"cmd": "tenants"}`` (per-tenant
+policy/accounting/SLO) and ``{"cmd": "replicas"}`` (per-replica
+breaker/failover state); scoring lines on the compat channel ride the
+shared tenant queue under the default tenant's policy. Every engine of
+every tenant and replica shares the process-wide scorer ladder, so
+same-shaped models on one card build one ladder. Replicas on one card
+are separate registries, each with its tables resident.
+
 ``--device`` names the torch device (default ``cuda``, which raises
 without a card; ``--device cpu`` runs on the CPU).
 
@@ -43,6 +61,10 @@ Protocol (one JSON object per line):
     {"cmd": "drift"}    -> the current version's drift monitor snapshot
                            (PSI/JS against the export's quality
                            fingerprint; an error when it has none)
+    {"cmd": "tenants"}  -> per-tenant policy/accounting/SLO, the shared
+                           queue and scorer ladder (frontend mode)
+    {"cmd": "replicas"} -> per-replica breaker/outstanding/failover state
+                           (frontend mode with --replicas > 1)
 
 ``deadline_ms`` (per request, or ``--default-deadline-ms``) drops a
 request that can't start scoring in time — the Future answers
@@ -68,10 +90,8 @@ hot-reload automatically; exports that keep failing to load are
 quarantined by the reload circuit breaker (backoff probes re-admit them)
 while the last good version keeps serving.
 
-Not ported, and refused with their item in ROADMAP.md queue A
-(:data:`UNPORTED_FLAGS`, :data:`UNPORTED_COMMANDS`): the async front end
-with its tenants and replicas (``--frontend-port``, ``--tenant``,
-``--replicas``; item 10).
+Every flag and command of the JAX package's server runs here:
+:data:`UNPORTED_FLAGS` and :data:`UNPORTED_COMMANDS` are empty.
 """
 
 from __future__ import annotations
@@ -88,21 +108,9 @@ from photon_ml_tpu_torch.serving.registry import ModelRegistry
 from photon_ml_tpu_torch.serving.stats import ServingStats, SloTracker
 
 # flags and commands the port does not run yet: -> their item in
-# ROADMAP.md queue A
-_FRONTEND = "item 10, Host layers with no device math (frontend/)"
-UNPORTED_FLAGS = {
-    "--frontend-port": _FRONTEND,
-    "--tenant": _FRONTEND,
-    "--replicas": _FRONTEND,
-}
-UNPORTED_COMMANDS = {
-    "tenants": _FRONTEND,
-    "replicas": _FRONTEND,
-}
-
-
-def _unported(what: str, item: str) -> str:
-    return f"{what} is not ported (ROADMAP.md queue A {item})"
+# ROADMAP.md queue A (none are left)
+UNPORTED_FLAGS: dict = {}
+UNPORTED_COMMANDS: dict = {}
 
 
 def build_request(obj: dict) -> ScoreRequest:
@@ -123,17 +131,20 @@ def make_admin_handler(
     registry: Optional[ModelRegistry] = None,
     stats: Optional[ServingStats] = None,
     quality=None,
+    tenants=None,
+    replicas=None,
 ):
-    """One ``{"cmd": ...} -> dict`` dispatcher shared by every channel
-    (stdin and ``--socket``). ``quality`` (an
+    """One ``{"cmd": ...} -> dict`` dispatcher shared by every channel:
+    the original JSON-lines protocol (stdin and ``--socket``) and the
+    async front end's admin passthrough. ``quality`` (an
     :class:`~photon_ml_tpu_torch.obs.quality.OnlineQuality`) answers
-    ``feedback`` and ``quality``."""
+    ``feedback`` and ``quality``; ``tenants`` (a :class:`~photon_ml_tpu_torch.
+    frontend.tenants.TenantManager`) adds ``{"cmd": "tenants"}``;
+    ``replicas`` (``{tenant: ReplicaRouter}``) adds ``{"cmd":
+    "replicas"}``."""
 
     def handle(obj: dict) -> dict:
         cmd = obj.get("cmd")
-        if cmd in UNPORTED_COMMANDS:
-            return {"error": _unported(f"the {cmd!r} command",
-                                       UNPORTED_COMMANDS[cmd])}
         try:
             if cmd == "stats":
                 return (stats or batcher.stats).snapshot()
@@ -161,6 +172,17 @@ def make_admin_handler(
                 if registry is not None:
                     health.update(registry.health())
                 return health
+            if cmd == "tenants":
+                if tenants is None:
+                    return {"error": "not serving multi-tenant"}
+                return tenants.snapshot()
+            if cmd == "replicas":
+                if not replicas:
+                    return {"error": "not serving replicated"}
+                return {
+                    name: router.health()
+                    for name, router in replicas.items()
+                }
             if cmd == "feedback":
                 # delayed-label loop: the client echoes the served score
                 # once the true label arrives
@@ -230,6 +252,8 @@ def serve_lines(
     window: int = 128,
     default_deadline_ms: Optional[float] = None,
     quality=None,
+    tenants=None,
+    replicas=None,
 ) -> int:
     """Pump a JSON-lines stream through the batcher, writing one response
     line per request IN ORDER. A dedicated writer thread emits each
@@ -273,7 +297,8 @@ def serve_lines(
     def reply_now(obj: dict) -> None:
         outbox.put(("line", json.dumps(obj)))
 
-    handle_cmd = make_admin_handler(batcher, registry, stats, quality=quality)
+    handle_cmd = make_admin_handler(batcher, registry, stats, quality=quality,
+                                    tenants=tenants, replicas=replicas)
 
     try:
         for line in lines:
@@ -315,6 +340,37 @@ def serve_lines(
     return scored[0]
 
 
+class _CompatBatcher:
+    """Batcher-shaped adapter over a TenantManager: the old per-line
+    protocol (stdin / ``--socket``) keeps scoring in frontend mode, but
+    through the SHARED tenant queue under ``tenant``'s policy — one
+    admission control for both channels, not a side door around it."""
+
+    def __init__(self, tm, tenant: str):
+        self._tm = tm
+        self.tenant = tenant
+        self.stats = tm.stats
+        self.slo = tm.batcher.slo
+
+    def submit(self, request, *, deadline_ms=None, priority=None):
+        return self._tm.submit(
+            self.tenant, request,
+            deadline_ms=deadline_ms, priority=priority,
+        )
+
+    def health(self):
+        return self._tm.batcher.health()
+
+    def queue_depth(self):
+        return self._tm.batcher.queue_depth()
+
+    def begin_drain(self):
+        self._tm.begin_drain()
+
+    def drain(self, timeout=30.0):
+        return self._tm.drain(timeout)
+
+
 def _watch_loop(registry, watch_root, poll_s, shutdown, logger):
     while not shutdown.requested:
         try:
@@ -329,7 +385,7 @@ def _watch_loop(registry, watch_root, poll_s, shutdown, logger):
 
 def _serve_socket(
     port, batcher, registry, stats, shutdown, logger,
-    default_deadline_ms=None, quality=None,
+    default_deadline_ms=None, quality=None, tenants=None, replicas=None,
 ):
     import socketserver
 
@@ -346,7 +402,8 @@ def _serve_socket(
 
             serve_lines(
                 lines, _W(), batcher, registry, stats, shutdown=shutdown,
-                default_deadline_ms=default_deadline_ms, quality=quality,
+                default_deadline_ms=default_deadline_ms,
+                quality=quality, tenants=tenants, replicas=replicas,
             )
 
     class Server(socketserver.ThreadingTCPServer):
@@ -443,16 +500,29 @@ def main(argv=None) -> None:
     )
     p.add_argument(
         "--frontend-port", type=int, default=None,
-        help="the async front end: not ported, refused",
+        help="start the async multiplexing front end on this port "
+        "(0 = ephemeral; the bound port is logged). The old JSON-lines "
+        "protocol stays available — stdin/--socket and {'cmd': ...} "
+        "frames on the front end itself are the compat admin channel",
     )
     p.add_argument(
         "--replicas", type=int, default=1,
-        help="engine replicas behind the front end: not ported, only 1 "
-        "is accepted",
+        help="serve each tenant through N engine replicas behind a "
+        "least-outstanding-requests router with per-replica breakers "
+        "and whole-replica failover (requires --frontend-port; replicas "
+        "on one card are separate registries, each with its tables "
+        "resident)",
     )
     p.add_argument(
         "--tenant", action="append", default=None, metavar="JSON",
-        help="a tenant of the front end: not ported, refused",
+        help="register one tenant (repeatable; requires "
+        "--frontend-port): a JSON object like "
+        '\'{"name": "gold", "model_dir": "out/game", "priority": 2, '
+        '"deadline_ms": 50, "quota": 256, "p99_ms": 10}\'. '
+        "model_dir defaults to --model-dir (same-shaped tenants share "
+        "the scorer ladder via the process-wide cache); the first "
+        "tenant is the default for frames that name none. Without "
+        "--tenant, one tenant 'default' serves --model-dir.",
     )
     p.add_argument(
         "--exemplar-fraction", type=float, default=0.01,
@@ -463,18 +533,26 @@ def main(argv=None) -> None:
     )
     p.add_argument("--stats-json", help="dump a stats snapshot here on exit")
     args = p.parse_args(argv)
-    for flag, given in (
-        ("--frontend-port", args.frontend_port is not None),
-        ("--tenant", bool(args.tenant)),
-        ("--replicas", args.replicas != 1),
-    ):
-        if given:
-            p.error(_unported(flag, UNPORTED_FLAGS[flag]))
     if args.serving_shards > 1 and args.hbm_cache_entities:
         p.error(
             "--hbm-cache-entities composes with the unsharded engine; "
             "on a sharded mesh each shard's slice is the resident set"
         )
+    if args.frontend_port is None and (args.tenant or args.replicas != 1):
+        p.error("--tenant and --replicas require --frontend-port")
+    if args.replicas < 1:
+        p.error("--replicas must be >= 1")
+    tenant_specs = []
+    for raw in args.tenant or []:
+        try:
+            spec = json.loads(raw)
+            if not isinstance(spec, dict) or "name" not in spec:
+                raise ValueError("need a JSON object with 'name'")
+        except ValueError as e:
+            p.error(f"bad --tenant {raw!r}: {e}")
+        tenant_specs.append(spec)
+    if args.frontend_port is not None and not tenant_specs:
+        tenant_specs = [{"name": "default"}]
     # after parse_args: --help / bad flags must not initialize torch
     import torch
 
@@ -483,29 +561,42 @@ def main(argv=None) -> None:
 
     logger = PhotonLogger(None)
     stats = ServingStats()
-    registry = ModelRegistry(
-        verify=not args.no_verify_manifest,
-        warmup_max_batch=args.max_batch,
-        warmup_degraded=not args.no_degrade,
-        breaker_threshold=args.breaker_threshold,
-        breaker_backoff_s=args.breaker_backoff_s,
-        stats=stats,
-        logger=logger,
-        dtype={"float32": torch.float32, "float64": torch.float64}[args.dtype],
-        min_bucket=args.min_bucket,
-        device=args.device,
-        serving_shards=args.serving_shards,
-        **(
-            {"hbm_cache_entities": args.hbm_cache_entities}
-            if args.hbm_cache_entities
-            else {}
-        ),
-        **(
-            {"admission_log_path": args.admission_log}
-            if args.admission_log
-            else {}
-        ),
-    )
+    engine_extra = {}
+    if args.frontend_port is not None:
+        # frontend mode: every engine (all tenants, all replicas) shares
+        # the process-wide scorer ladder — N same-shaped models on one
+        # device build ONE ladder
+        from photon_ml_tpu_torch.frontend.tenants import process_compile_cache
+
+        engine_extra["compile_cache"] = process_compile_cache()
+
+    def make_registry() -> ModelRegistry:
+        return ModelRegistry(
+            verify=not args.no_verify_manifest,
+            warmup_max_batch=args.max_batch,
+            warmup_degraded=not args.no_degrade,
+            breaker_threshold=args.breaker_threshold,
+            breaker_backoff_s=args.breaker_backoff_s,
+            stats=stats,
+            logger=logger,
+            dtype={"float32": torch.float32, "float64": torch.float64}[args.dtype],
+            min_bucket=args.min_bucket,
+            device=args.device,
+            serving_shards=args.serving_shards,
+            **engine_extra,
+            **(
+                {"hbm_cache_entities": args.hbm_cache_entities}
+                if args.hbm_cache_entities
+                else {}
+            ),
+            **(
+                {"admission_log_path": args.admission_log}
+                if args.admission_log
+                else {}
+            ),
+        )
+
+    registry = make_registry()
     registry.load(args.model_dir)
     slo = SloTracker(
         target_p99_ms=args.slo_p99_ms,
@@ -524,17 +615,68 @@ def main(argv=None) -> None:
         from photon_ml_tpu_torch.obs import exemplars as _exemplars
 
         _exemplars.install_store(fast_fraction=args.exemplar_fraction)
-    batcher = MicroBatcher(
-        registry.score,
-        max_batch=args.max_batch,
-        max_wait_ms=args.max_wait_ms,
-        queue_depth=args.queue_depth,
-        stats=stats,
-        slo=slo,
-        degraded_score_fn=(
-            None if args.no_degrade else registry.score_fixed_only
-        ),
-    )
+    tm = None
+    routers = {}
+    frontend = None
+    if args.frontend_port is not None:
+        from photon_ml_tpu_torch.frontend import (
+            FrontendServer,
+            ReplicaRouter,
+            TenantManager,
+        )
+
+        tm = TenantManager(
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            queue_depth=args.queue_depth,
+            stats=stats,
+            slo=slo,
+        )
+        primary_used = False
+        for spec in tenant_specs:
+            name = str(spec["name"])
+            mdir = spec.get("model_dir", args.model_dir)
+            regs = []
+            for r in range(args.replicas):
+                if mdir == args.model_dir and not primary_used:
+                    reg = registry  # replica 0: the already-loaded one
+                    primary_used = True
+                else:
+                    reg = make_registry()
+                    reg.load(mdir)
+                regs.append(reg)
+            if len(regs) == 1:
+                scorer = regs[0]  # keeps the registry on TenantState
+            else:
+                router = ReplicaRouter(
+                    [(f"{name}/r{i}", rg.score) for i, rg in
+                     enumerate(regs)],
+                )
+                routers[name] = router
+                scorer = router.score
+            tm.add_tenant(
+                name, scorer,
+                deadline_ms=spec.get(
+                    "deadline_ms", args.default_deadline_ms
+                ),
+                priority=int(spec.get("priority", 0)),
+                max_outstanding=spec.get("quota"),
+                target_p99_ms=float(spec.get("p99_ms", args.slo_p99_ms)),
+            )
+        default_tenant = str(tenant_specs[0]["name"])
+        batcher = _CompatBatcher(tm, default_tenant)
+    else:
+        batcher = MicroBatcher(
+            registry.score,
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            queue_depth=args.queue_depth,
+            stats=stats,
+            slo=slo,
+            degraded_score_fn=(
+                None if args.no_degrade else registry.score_fixed_only
+            ),
+        )
     shutdown = GracefulShutdown(logger).install()
     shutdown.register_drain(batcher.begin_drain)
     if args.watch_root:
@@ -544,11 +686,33 @@ def main(argv=None) -> None:
             daemon=True,
         ).start()
     try:
+        if tm is not None:
+            frontend = FrontendServer(
+                tm.submit,
+                port=args.frontend_port,
+                admin_fn=make_admin_handler(
+                    batcher, registry, stats, quality=quality,
+                    tenants=tm, replicas=routers or None,
+                ),
+                default_tenant=default_tenant,
+            )
+            frontend.start()
+            logger.info(
+                f"frontend on 127.0.0.1:{frontend.port} "
+                f"({len(tenant_specs)} tenant(s), "
+                f"{args.replicas} replica(s))"
+            )
         if args.socket:
             _serve_socket(
                 args.socket, batcher, registry, stats, shutdown, logger,
-                default_deadline_ms=args.default_deadline_ms, quality=quality,
+                default_deadline_ms=args.default_deadline_ms,
+                quality=quality, tenants=tm, replicas=routers or None,
             )
+        elif tm is not None:
+            # the front end is the data plane; no stdin pump — park until
+            # SIGTERM/SIGINT (the compat channel is --socket or the front
+            # end's own {"cmd": ...} passthrough)
+            shutdown._event.wait()
         else:
             serve_lines(
                 sys.stdin,
@@ -562,6 +726,8 @@ def main(argv=None) -> None:
                 quality=quality,
             )
     finally:
+        if frontend is not None:
+            frontend.stop()
         drained = batcher.drain()
         if args.stats_json:
             stats.dump(args.stats_json)

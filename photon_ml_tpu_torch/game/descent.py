@@ -266,9 +266,11 @@ class _AsyncCheckpointWriter:
     threads) to :meth:`submit` and goes on with the next pass while
     serialization and the atomic swap hit the disk. ``submit`` joins the
     previous write first, so writes land in step order and at most one is
-    in flight. A background failure surfaces at the next ``submit`` or
+    in flight. A background failure (the ``checkpoint.async_write`` fault
+    site probes the writer thread) surfaces at the next ``submit`` or
     ``join`` (at the latest before ``run()`` returns), where the retained
-    closure runs again synchronously; only a second failure raises."""
+    closure runs again synchronously (``resilience.ckpt_async_fallbacks``);
+    only a second failure raises."""
 
     def __init__(self):
         self._thread = None
@@ -281,6 +283,7 @@ class _AsyncCheckpointWriter:
 
         def run():
             try:
+                _faults.fire("checkpoint.async_write")
                 write_fn()
             except Exception as e:  # noqa: BLE001 — surfaces at join
                 self._exc = e
@@ -293,7 +296,10 @@ class _AsyncCheckpointWriter:
             self._thread.join()
             self._thread = None
         if self._exc is not None:
-            self._exc = None
+            exc, self._exc = self._exc, None
+            obs.registry().inc("resilience.ckpt_async_fallbacks")
+            obs.emit_event("resilience.ckpt_async_fallback", cat="resilience",
+                           error=repr(exc))
             # the caller stands on a point that promised a checkpoint
             self._fn()
 

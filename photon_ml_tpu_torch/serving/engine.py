@@ -46,8 +46,12 @@ unpadded host features and the scores of every batch that is not
 fixed-effect-only. The entity-sharded engine is the subclass in
 :mod:`.sharding` (its hooks: ``_precompact``, ``_pin_params``,
 ``_build_scorer`` and ``_placement_fingerprint``, which keys the shared
-scorer cache by placement). Not ported: the cost book's MFU on score spans
-(ROADMAP.md queue A item 10).
+scorer cache by placement). Each built bucket scorer books its analytic
+cost in the process cost book (:meth:`ScoringEngine._record_cost`, keyed
+``"serving.score"`` and the bucket, ``"<bucket>-fixed"`` for the degraded
+ladder), and a traced ``serving.score`` span carries the cost book's
+shares over its synchronized window (``bytes_per_s``; ``hbm_util`` and
+``mfu`` on an H100, None elsewhere).
 """
 
 from __future__ import annotations
@@ -639,7 +643,50 @@ class ScoringEngine:
         none = {rk: np.zeros(0, np.int32) for rk in self._re_keys}
         scorer(self, self._params, zeros, none, 0)
         record_build(bucket, fixed_only, time.perf_counter() - t0)
+        self._record_cost(bucket, dims, fixed_only)
         return scorer
+
+    def _record_cost(self, bucket, dims, fixed_only) -> None:
+        """Book one call of a bucket's scoring body in the process cost
+        book. FLOPs and the analytic bytes count each coordinate's gather
+        and dot at the bucket's rows and widths: a fixed effect's (B, d)
+        product, a compact table's (B, k) gather and pick, a factored
+        effect's (B, d) x (d, r) product and (B, r) gather. The roofline
+        bytes read each input once: every shard's feature buffer, every
+        fixed vector and projection, each entity-id column, and of each
+        resident table the rows a bucket can touch (at most B of them),
+        plus the (B,) scores written."""
+        item = torch.empty((), dtype=self.dtype).element_size()
+        b = int(bucket)
+        names = self._fixed_coords if fixed_only else self._coord_order
+        flops = 0.0
+        analytic = 0.0
+        roofline = float(b * item)
+        for s in {self.shards[name] for name in names}:
+            roofline += float(b * dims[s] * item)
+        if not fixed_only:
+            roofline += float(b * 8 * len(self._re_keys))
+        for name in names:
+            p = self._params[name]
+            d = int(dims[self.shards[name]])
+            if self.random_effects.get(name) is None:
+                flops += 2.0 * b * d
+                analytic += float((b * d + d) * item)
+                roofline += float(d * item)
+            elif is_factored_params(p):
+                e, r = (int(x) for x in p.gamma.shape)
+                flops += 2.0 * b * d * r + 2.0 * b * r
+                analytic += float((b * d + d * r + b * r) * item + b * 8)
+                roofline += float((d * r + min(b, e) * r) * item)
+            else:
+                e, k = (int(x) for x in p.columns.shape)
+                flops += 2.0 * b * k
+                analytic += float(b * k * (4 + 2 * item) + b * 8)
+                roofline += float(min(b, e) * k * (4 + item))
+        obs.cost_book().record(
+            "serving.score", f"{b}-fixed" if fixed_only else str(b),
+            analytic_flops=flops, analytic_bytes=analytic + b * item,
+            roofline_bytes=roofline, dtype=self.dtype)
 
     def _compile_cache_key(self, bucket, dims, fixed_only) -> tuple:
         """Structural signature under which this engine's scorers are
@@ -831,7 +878,7 @@ class ScoringEngine:
                 rows=n,
                 fixed_only=fixed_only,
                 unknown_entities=unknown,
-            ):
+            ) as sp:
                 t0 = time.perf_counter()
                 out = scorer(self, self._params, feats, ents, n)
                 if action.corrupt:
@@ -841,6 +888,19 @@ class ScoringEngine:
                 # copy out: the aggregate device_ms histogram cannot say
                 # WHICH padded size is slow
                 self.stats.record_bucket_latency(bucket, elapsed)
+                if obs.get_tracer() is not None:
+                    # the scores' copy to the host synchronized, so the
+                    # window holds the whole call: the cost book's shares
+                    # for this bucket
+                    obs.annotate_span(
+                        sp,
+                        obs.cost_book().lookup(
+                            "serving.score",
+                            f"{bucket}-fixed" if fixed_only else str(bucket),
+                        ),
+                        seconds=elapsed,
+                        device=self.device,
+                    )
         if offsets is not None:
             out = out + np.asarray(offsets, out.dtype)
         if self.drift is not None and not fixed_only:

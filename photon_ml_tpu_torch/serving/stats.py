@@ -252,6 +252,12 @@ class ServingStats:
         with self._lock:
             self._inc("cache.admission_logged", n)
 
+    def record_admission_promoted(self, n: int) -> None:
+        """Admission-log entries the lifecycle orchestrator promoted
+        into a retrain's entity set (repeat-miss threshold met)."""
+        with self._lock:
+            self._inc("cache.admission_promoted", n)
+
     def cache_hit_frac(self) -> float:
         with self._lock:
             hits = self.registry.counter("serving.cache.hits").value

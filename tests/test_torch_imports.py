@@ -62,7 +62,10 @@ def test_scan_covers_the_port():
                 ("obs", "metrics.py"), ("obs", "sketches.py"), ("obs", "exemplars.py"),
                 ("obs", "reqtrace.py"), ("obs", "trace.py"), ("obs", "device.py"),
                 ("obs", "quality.py"), ("cli", "build_index.py"), ("io", "ingest.py"),
-                ("io", "native.py")):
+                ("io", "native.py"), ("frontend", "__init__.py"), ("frontend", "server.py"),
+                ("frontend", "tenants.py"), ("frontend", "replicas.py"),
+                ("lifecycle", "__init__.py"), ("lifecycle", "orchestrator.py"),
+                ("cli", "retrain.py")):
         assert os.path.join("photon_ml_tpu_torch", *rel) in files
 
 

@@ -17,7 +17,10 @@ CLI's Prometheus text on the same model and lines. The drift monitor
 (``baseline=``, or the export's quality fingerprint through
 ``from_model_dir`` and the registry) gives the JAX engine's reports after
 the same batches, and the ``feedback`` / ``quality`` / ``drift`` commands
-the JAX CLI's replies. Every thread is joined with a timeout.
+the JAX CLI's replies. The front end's flags (``--frontend-port``,
+``--tenant``, ``--replicas``) refuse a misuse as the JAX CLI does and serve
+as it does (both CLIs as processes on the same export).
+Every thread is joined with a timeout.
 """
 
 import json
@@ -858,7 +861,7 @@ class TestServeStream:
         assert replies[6]["version"] == "m" and replies[6]["breaker"]["state"] == "closed"
         assert replies[7] == jreplies[7] == {"ok": True, "window_n": 1}
         assert replies[8] == jreplies[8] and "no drift monitor" in replies[8]["error"]
-        assert "item 10" in replies[9]["error"]
+        assert replies[9] == jreplies[9] == {"error": "not serving multi-tenant"}
         assert "'features' must be an object" in replies[10]["error"]
 
     def test_interactive_client_gets_prompt_reply(self, tmp_path):
@@ -1043,9 +1046,112 @@ class TestServeMain:
 
     @pytest.mark.parametrize("flag", [["--frontend-port", "0"], ["--tenant", "{}"],
                                       ["--replicas", "2"]])
-    def test_unported_flags_are_refused(self, flag, capsys):
-        with pytest.raises(SystemExit) as exc:
-            port_serve.main(["--model-dir", "unused", *flag])
-        assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert f"{flag[0]} is not ported" in err and "ROADMAP.md queue A item" in err
+    def test_unported_flags_are_refused(self, flag, capsys, tmp_path):
+        """The front end's flags, refused before they were ported, now
+        behave as the JAX CLI's: the same refusals of a misuse (exit 2, the
+        same message), and with a front end each flag serves: a JSON-lines
+        and a binary round trip per tenant, the scores within 1e-10 *
+        max(1, |s|) of the JAX CLI's on the same export, and the ``tenants``
+        and ``replicas`` admin commands answering alike."""
+        assert port_serve.UNPORTED_FLAGS == {} and port_serve.UNPORTED_COMMANDS == {}
+        misuse = {
+            "--frontend-port": [["--frontend-port", "0", "--replicas", "0"]],
+            "--tenant": [["--tenant", "{}"], ["--frontend-port", "0", "--tenant", "{}"],
+                         ["--frontend-port", "0", "--tenant", "[1]"]],
+            "--replicas": [["--replicas", "2"], ["--frontend-port", "0", "--replicas", "0"]],
+        }[flag[0]]
+        for argv in misuse:
+            errs = []
+            for mod in (port_serve, jax_serve):
+                with pytest.raises(SystemExit) as exc:
+                    mod.main(["--model-dir", "unused", *argv])
+                assert exc.value.code == 2
+                errs.append(capsys.readouterr().err.strip().splitlines()[-1].split("error: ")[1])
+            assert errs[0] == errs[1], argv
+        served = {
+            "--frontend-port": ["--frontend-port", "0"],
+            "--tenant": ["--frontend-port", "0",
+                         "--tenant", json.dumps({"name": "gold", "priority": 2, "quota": 8}),
+                         "--tenant", json.dumps({"name": "free"})],
+            "--replicas": ["--frontend-port", "0", "--replicas", "2"],
+        }[flag[0]]
+        root = _save_disk_model(str(tmp_path / "m"))
+        reqs = [{"features": {"uf0": 1.0, "uf1": 0.5}, "entities": {"userId": "u3"}},
+                {"features": {"uf2": 2.0}, "entities": {"userId": "nobody"}, "offset": 1.0}]
+        got = {pkg: _frontend_cli_session(pkg, root, served, reqs) for pkg in ("port", "jax")}
+        _close(got["port"]["scores"], got["jax"]["scores"])
+        engine = ScoringEngine.from_model_dir(root, **CPU)
+        _close(got["port"]["scores"],
+               np.tile(engine.score([ScoreRequest(r["features"], r["entities"],
+                                                  r.get("offset", 0.0)) for r in reqs]),
+                       len(got["port"]["tenants"]) * 2))
+        assert got["port"]["tenants"] == got["jax"]["tenants"]
+        assert got["port"]["replicas"] == got["jax"]["replicas"]
+        if flag[0] == "--tenant":
+            assert got["port"]["tenants"] == {"gold": (2, 8), "free": (0, None)}
+        if flag[0] == "--replicas":
+            assert got["port"]["replicas"] == {"default": ["default/r0", "default/r1"]}
+        else:
+            assert got["port"]["replicas"] == "not serving replicated"
+
+
+def _frontend_cli_session(pkg, root, flags, reqs):
+    """``python -m <pkg>.cli.serve --model-dir root <flags>`` (float64, on
+    the CPU) until it logs its front end's port; per tenant, the requests
+    as one JSON-lines batch and one binary batch; then the ``tenants``
+    and ``replicas`` commands and a SIGTERM. Returns the scores, each
+    tenant's (priority, quota) and each router's replica names (or the
+    command's error)."""
+    import queue as queue_mod
+    import re
+    import signal
+
+    from photon_ml_tpu_torch.frontend import FrontendClient
+
+    module = {"port": "photon_ml_tpu_torch.cli.serve", "jax": "photon_ml_tpu.cli.serve"}[pkg]
+    device = ["--device", "cpu"] if pkg == "port" else []
+    env = {**os.environ, "PYTHONPATH": ROOT, "JAX_PLATFORMS": "cpu", "JAX_ENABLE_X64": "1",
+           "PHOTON_ML_COMPILE_CACHE": "off"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, "--model-dir", root, "--dtype", "float64",
+         "--max-batch", "8", "--max-wait-ms", "0.5", "--exemplar-fraction", "-1", *device,
+         *flags],
+        stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=env,
+    )
+    lines: "queue_mod.Queue" = queue_mod.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x) for x in proc.stderr],
+                              name=f"{pkg}-stderr", daemon=True)
+    reader.start()
+    try:
+        port, seen = None, []
+        while port is None:
+            try:
+                line = lines.get(timeout=120)
+            except queue_mod.Empty:
+                raise AssertionError(f"{module} did not start: {seen}") from None
+            seen.append(line)
+            m = re.search(r"frontend on 127\.0\.0\.1:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        out = {"scores": []}
+        with FrontendClient("127.0.0.1", port, timeout=60) as c, \
+                FrontendClient("127.0.0.1", port, binary=True, timeout=60) as b:
+            tenants = c.call({"cmd": "tenants"})["tenants"]
+            out["tenants"] = {t: (s["priority"], s["max_outstanding"])
+                              for t, s in tenants.items()}
+            for tenant in tenants:
+                for client in (c, b):
+                    reply = client.call({"tenant": tenant, "batch": reqs})
+                    assert "errors" not in reply, reply
+                    out["scores"] += reply["scores"]
+            replicas = c.call({"cmd": "replicas"})
+            out["replicas"] = replicas.get("error") or {
+                t: sorted(h["replicas"]) for t, h in replicas.items() if t != "id"}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+    return out
