@@ -371,6 +371,26 @@ whenever any phase fails. Phases, in order:
    scores within 1e-10 of a fresh engine on ``v0002``; a second cycle
    (``--always``) with ``retrain.warm_start`` corrupt fails at the
    retrain stage with the alarm latched while ``v0002`` keeps serving;
+5m. the operator tools (``photon_ml_tpu_torch.cli.obs_tools`` in this
+   process, ``cli.lint`` as a process) on what the run already leaves
+   under ``_smoke_work/``, with no training or serving run of their own:
+   (a) in 5l (a), ``top --once --json`` against its front end (given the
+   admin channel ``cli.serve`` wires) after ``gold/r0`` closed again: both
+   tenants and the four replicas reachable, every breaker in its router's
+   state, the routers' failovers; and, 5l (a)'s tracer streaming to
+   ``fabric/trace``, ``request <id>`` for a request whose batch failed
+   over: complete, flagged ``failover``, the failed hop on ``gold/r0``
+   and the retry, the card's ``device_ms``; (b) in 5j, ``merge`` over
+   (a)'s rank trace directories: its ``trace.json`` equal as JSON to the
+   in-process merge, one pid per rank; (c) ``convergence`` over phase 6's
+   traced run (one solve a lambda) and 5e's (one record an update), exit
+   0; (d) in 5l (b), ``drift`` from ``v0001``'s fingerprint to the planted
+   window: exit 1 with the trigger's largest PSI and each flagged
+   feature's (``ushard.0`` among them), and a fingerprint against itself:
+   exit 0; (e) ``python -m photon_ml_tpu_torch.cli.lint check
+   photon_ml_tpu_torch --json``, started after the build: exit 0, nothing
+   new, no stale entry, no reasonless suppression. One
+   ``{"operator_tools": ...}`` line holds each part's seconds;
 8. the ``{"obs": ...}`` line (each traced run's wall beside its untraced
    twin's, its span counts, the profiled kernels), the
    ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last the
@@ -4218,6 +4238,9 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
     updates = sum(len(c["history"]) for c in second.sweep)
     if report["updates"] != updates:
         failures.append(f"convergence-report.json: {report['updates']} updates of {updates}")
+    # 5m (c): the convergence console over the traced run, one record an update
+    convergence_cli = ops_convergence(trace_dir, updates)
+    failures += convergence_cli["failures"]
     if marker is None or marker["step"] != 1 or pre.output_dirs:
         failures.append(f"preempted run: marker {marker}, saved {pre.output_dirs}")
     rerun_gaps = bit_gaps(second, first)
@@ -4254,7 +4277,8 @@ def game_determinism_phase(work: str, name: str = "", n: int = GAME_PROJ_RECORDS
                                                    "hbm_util", "mfu")}
                     for e in spans if e["name"] == "game.update"
                     and e["args"].get("coordinate") == "global"],
-                "convergence_nonconverged_frac": report["nonconverged_frac"]},
+                "convergence_nonconverged_frac": report["nonconverged_frac"],
+                "convergence_cli": convergence_cli},
         "best_auc": first.sweep[first.best_index]["validation_metric"],
         "phase_s": time.perf_counter() - phase_t0,
     }
@@ -4543,6 +4567,9 @@ def traced_glm_checks(run, params: dict, launches: dict, traced_launches: dict, 
         failures.append(f"convergence-report.json: {report['solves']} solves")
     if os.path.isdir(params["flight_dir"]) and os.listdir(params["flight_dir"]):
         failures.append(f"a clean run dumped {os.listdir(params['flight_dir'])}")
+    # 5m (c): the convergence console over the traced run, one solve a lambda
+    convergence_cli = ops_convergence(params["trace_dir"], len(run.models))
+    failures += convergence_cli["failures"]
     missing = unprofiled_kernels(traced_launches, busy["kernel_names"]) if on_card else []
     if missing:
         failures.append(f"the profile lists no CUDA symbol of {missing} "
@@ -4556,6 +4583,7 @@ def traced_glm_checks(run, params: dict, launches: dict, traced_launches: dict, 
         "kernel_builds": obs.kernel_build_events(),
         "profiled_kernels": busy["kernel_names"],
         "profile_bytes": busy["profile_bytes"],
+        "convergence_cli": convergence_cli,
     }
     if failures:
         raise AssertionError("[train] the traced run: " + "; ".join(failures))
@@ -6751,7 +6779,8 @@ def merged_rank_traces(work: str, label: str, ranks: int, failures: list) -> dic
     into one pod trace (``obs.dist``): aligned by the barrier-backed
     ``clock.sync``, one pid per rank, and the merged metrics holding each
     rank's collective counts (``collective.<label>.w<ranks>``) under
-    ``host.<i>.`` and their sums under ``pod.``."""
+    ``host.<i>.`` and their sums under ``pod.``; then 5m (b), ``obs_tools
+    merge`` over the same directories, held to that merge."""
     from photon_ml_tpu_torch.obs import dist as obs_dist
 
     shards, snaps = [], []
@@ -6775,8 +6804,10 @@ def merged_rank_traces(work: str, label: str, ranks: int, failures: list) -> dic
     if not pod_counts:
         failures.append(f"({label}) the merged metrics hold no collective.*{width}")
     spans = [e for e in merged["traceEvents"] if e.get("ph") == "X"]
+    merge_cli = ops_merge(work, label, [d for _, d in shards], merged)
+    failures += merge_cli["failures"]
     return {"world": label, "merge": info, "pids": pids, "spans": span_counts(spans),
-            "pod_collectives": pod_counts}
+            "pod_collectives": pod_counts, "merge_cli": merge_cli}
 
 
 def entity_train_phase(work: str, game_inputs, name: str = "", device=None, procs=None):
@@ -7126,6 +7157,7 @@ def fabric_phase(work: str, served: dict, name: str = "", cli=None,
         ReplicaRouter,
         TenantManager,
     )
+    from photon_ml_tpu_torch.cli.serve import make_admin_handler
     from photon_ml_tpu_torch.io.models import load_game_model_auto
     from photon_ml_tpu_torch.resilience.faults import FaultSpec, inject
     from photon_ml_tpu_torch.serving import SharedCompileCache
@@ -7195,9 +7227,15 @@ def fabric_phase(work: str, served: dict, name: str = "", cli=None,
             [(f"{tenant}/r{i}", reg.score) for i, reg in enumerate(registries[tenant])],
             failure_threshold=1, backoff_s=FABRIC_BACKOFF_S)
         tm.add_tenant(tenant, routers[tenant].score, priority=prio, max_outstanding=quota)
-    tracer = obs.Tracer()
+    # the tracer also streams its events to the phase's trace directory,
+    # where 5m (a)'s ``request`` rebuilds a failed-over request's timeline;
+    # the admin channel is the one cli.serve wires, which 5m (a)'s ``top``
+    # polls
+    trace_dir = os.path.join(work, "trace")
+    tracer = obs.Tracer(trace_dir)
     prev_tracer = obs.set_tracer(tracer)
-    srv = FrontendServer(tm.submit, default_tenant="gold").start()
+    srv = FrontendServer(tm.submit, default_tenant="gold", admin_fn=make_admin_handler(
+        tm.batcher, stats=stats, tenants=tm, replicas=routers)).start()
     gold = routers["gold"]
     try:
         # the stream: calls of 1-64 rows, tenants alternating, dealt to 4
@@ -7267,6 +7305,8 @@ def fabric_phase(work: str, served: dict, name: str = "", cli=None,
                 time.sleep(FABRIC_BACKOFF_S)
                 client.call({"tenant": "gold", "batch": lines[:2]})
                 reclosed_after += 1
+        # 5m (a): the fleet console over the admin channel while it serves
+        top = ops_top(srv.port, routers)
         builds_after = bucket_builds() - builds0 - builds
         err = serving_gaps(scores, want)
 
@@ -7296,6 +7336,8 @@ def fabric_phase(work: str, served: dict, name: str = "", cli=None,
         srv.stop()
         drained = tm.drain(timeout=120)
         obs.set_tracer(prev_tracer)
+        tracer.close()
+    request = ops_request(trace_dir)
     spans = [e for e in tracer.events() if e.get("name") == "serving.score"]
     utils = [e.get("args", {}).get("hbm_util") for e in spans]
     snap = tm.snapshot()
@@ -7335,9 +7377,10 @@ def fabric_phase(work: str, served: dict, name: str = "", cli=None,
     if "error" in cli_out:
         raise cli_out["error"]
     summary["cli"] = cli_out["summary"]
+    summary["operator_tools"] = {"top": top, "request": request}
     summary["phase_s"] = time.perf_counter() - phase_t0
     log(f"[fabric] {json.dumps(summary)}")
-    failures = []
+    failures = top["failures"] + request["failures"]
     if err > SERVE_RTOL or errors:
         failures.append(f"stream: max err {err:.3e}, {len(errors)} errors {errors[:3]}")
     if gold.failovers < 1 or opened != "open":
@@ -7484,6 +7527,10 @@ def lifecycle_phase(work: str, game_ref: dict, name: str = "", n: int = LOOP_REC
         failed = orch.run_cycle()
     still = registry.poll(watch)
     reason = (result.get("plan") or {}).get("reason") or {}
+    # 5m (d): the drift console between v0001's training fingerprint and the
+    # planted window, held to what cycle 1's trigger read
+    drift_cli = ops_drift(retrain_cli._baseline_dir(os.path.join(watch, "v0001")), current,
+                          reason)
     summary = {
         "records": n, "setup_s": setup_s, "cycle_s": cycle_s, "exit": code,
         "stages": [(s["name"], s["ok"], round(s["seconds"], 3)) for s in result["stages"]],
@@ -7500,6 +7547,7 @@ def lifecycle_phase(work: str, game_ref: dict, name: str = "", n: int = LOOP_REC
                          "latched": orch.alarm_latched, "poll": still,
                          "serving": registry.version(),
                          "latest": os.path.basename(latest_version_dir(watch) or "")},
+        "drift_cli": drift_cli,
         "phase_s": time.perf_counter() - phase_t0,
     }
     log(f"[loop] {json.dumps(summary, default=str)}")
@@ -7522,6 +7570,7 @@ def lifecycle_phase(work: str, game_ref: dict, name: str = "", n: int = LOOP_REC
     if on_card and any(launches.get(k, 0) < 1 for k in ("fused_vgc", "fused_hvp",
                                                         "colsort_reduce", "ell_matvec")):
         failures.append(f"the retrain's launches {launches}")
+    failures += drift_cli["failures"]
     if (failed.ok or failed.stage != "retrain" or not orch.alarm_latched or still is not None
             or registry.version() != "v0002" or summary["second_cycle"]["latest"] != "v0002"):
         failures.append(f"cycle 2: {json.dumps(summary['second_cycle'])}")
@@ -7529,6 +7578,187 @@ def lifecycle_phase(work: str, game_ref: dict, name: str = "", n: int = LOOP_REC
     if failures:
         raise AssertionError("; ".join(failures))
     return summary, launches
+
+
+# -- phase 5m: the operator tools on the run's own artifacts -------------------
+
+
+def obs_tool(*argv) -> dict:
+    """One ``photon_ml_tpu_torch.cli.obs_tools`` command in this process:
+    its exit code, its summary (the last JSON line of its standard output),
+    its standard error and its seconds."""
+    import contextlib
+    import io
+
+    from photon_ml_tpu_torch.cli import obs_tools
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = obs_tools.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    line = None
+    for text in reversed(out.getvalue().splitlines()):
+        try:
+            line = json.loads(text)
+            break
+        except ValueError:
+            continue
+    return {"argv": [str(a) for a in argv], "rc": rc, "line": line,
+            "stderr": err.getvalue(), "s": seconds}
+
+
+def ops_top(port: int, routers: dict) -> dict:
+    """5m (a): ``top --once --json`` against 5l (a)'s front end while it
+    serves: both tenants and every replica of both routers reachable on its
+    admin channel, each breaker in the state its router reports (gold/r0's
+    closed again after its fault), the failovers the routers counted."""
+    run = obs_tool("top", "--endpoint", f"127.0.0.1:{port}", "--once", "--json",
+                   "--timeout", "60")
+    snap = run["line"] or {}
+    rep = (snap.get("replicas") or {}).get(f"127.0.0.1:{port}") or {}
+    got = {k: b.get("state") for k, b in (rep.get("breakers") or {}).items()}
+    want = {f"{t}/{name}": r["state"] for t, router in routers.items()
+            for name, r in router.health()["replicas"].items()}
+    failovers = sum(r.failovers for r in routers.values())
+    failures = []
+    if run["rc"] != 0 or snap.get("reachable") != 1 or not rep.get("reachable"):
+        failures.append(f"top: exit {run['rc']}, {snap.get('reachable')} endpoints answered")
+    if sorted(snap.get("tenants") or {}) != sorted(routers):
+        failures.append(f"top: tenants {sorted(snap.get('tenants') or {})}")
+    if got != want or len(got) != FABRIC_REPLICAS * len(routers) or (
+            got.get("gold/gold/r0") != "closed"):
+        failures.append(f"top: breakers {got}, the routers' {want}")
+    if rep.get("failovers") != failovers:
+        failures.append(f"top: {rep.get('failovers')} failovers, the routers counted {failovers}")
+    return {"s": run["s"], "rc": run["rc"], "tenants": sorted(snap.get("tenants") or {}),
+            "breakers": got, "failovers": rep.get("failovers"),
+            "requests": (snap.get("fleet") or {}).get("requests"), "failures": failures}
+
+
+def ops_request(trace_dir: str) -> dict:
+    """5m (a): ``request <trace id> <trace dir>`` on 5l (a)'s event log for
+    a request whose batch failed over (a ``replica.hop`` with an error):
+    its timeline complete, flagged ``failover``, with the failed hop on
+    ``gold/r0``, the retry, and the card's scoring time (``device_ms``)."""
+    from photon_ml_tpu_torch.obs import dist as obs_dist
+
+    records, _ = obs_dist.merge_events_shards([(trace_dir, 0)])
+    failed = {r.get("batch_id") for r in records
+              if r.get("name") == "replica.hop" and r.get("error")}
+    traces = [r["trace"] for r in records
+              if r.get("name") == "serving.request" and r.get("batch_id") in failed
+              and not r.get("error") and isinstance(r.get("trace"), str)]
+    if not traces:
+        return {"s": 0.0, "failures": [f"request: no failed-over request among "
+                                       f"{len(records)} records"]}
+    run = obs_tool("request", traces[0], trace_dir)
+    extra = (run["line"] or {}).get("extra") or {}
+    hops = [line for line in run["stderr"].splitlines() if line.startswith("hop:")]
+    failures = []
+    if (run["rc"] != 0 or not extra.get("failover") or not extra.get("complete")
+            or extra.get("hops", 0) < 2
+            or not any("replica=gold/r0" in h and "FAILED" in h for h in hops)
+            or not extra.get("segments", {}).get("device_ms")):
+        failures.append(f"request {traces[0]}: exit {run['rc']}, {json.dumps(extra)}, {hops}")
+    return {"s": run["s"], "rc": run["rc"], "trace": traces[0],
+            "failed_over_requests": len(traces), "hops": hops,
+            "segments": extra.get("segments"), "failures": failures}
+
+
+def ops_merge(work: str, label: str, dirs, merged: dict) -> dict:
+    """5m (b): ``merge`` over 5j (a)'s rank trace directories: its
+    ``trace.json`` equal as JSON to what ``obs_dist.merge_trace_shards``
+    gave in this process, one pid track per rank."""
+    out = os.path.join(work, f"pod-{label}")
+    run = obs_tool("merge", "--out", out, *dirs)
+    failures = []
+    try:
+        with open(os.path.join(out, "trace.json")) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        doc = None
+        failures.append(f"merge: exit {run['rc']}, no trace.json ({e})")
+    pids = sorted({e["pid"] for e in doc["traceEvents"]}) if doc else []
+    if doc is not None and (run["rc"] != 0 or doc != json.loads(json.dumps(merged))
+                            or pids != list(range(len(dirs)))):
+        failures.append(f"merge: exit {run['rc']}, pids {pids}, equal to the in-process "
+                        f"merge: {doc == json.loads(json.dumps(merged))}")
+    return {"s": run["s"], "rc": run["rc"], "pids": pids,
+            "summary": (run["line"] or {}).get("extra"), "failures": failures}
+
+
+def ops_convergence(trace_dir: str, want: int) -> dict:
+    """5m (c): ``convergence`` over a traced run's ``trace_dir``: exit 0,
+    and one record (a solve or a fleet update) for each of the run's
+    ``want`` lambdas or coordinate updates."""
+    run = obs_tool("convergence", trace_dir)
+    extra = (run["line"] or {}).get("extra") or {}
+    got = extra.get("solves", 0) + extra.get("fleet_updates", 0)
+    failures = []
+    if run["rc"] != 0 or got != want:
+        failures.append(f"convergence {trace_dir}: exit {run['rc']}, {got} records of {want}")
+    return {"s": run["s"], "rc": run["rc"], "solves": extra.get("solves"),
+            "fleet_updates": extra.get("fleet_updates"),
+            "coordinates": extra.get("coordinates"), "failures": failures}
+
+
+def ops_drift(baseline: str, current: str, trigger: dict) -> dict:
+    """5m (d): ``drift`` between 5g's training fingerprint and 5l (b)'s
+    planted window: exit 1 with the trigger's PSI (the largest, on
+    ``ushard.0``, and every flagged feature's); then the fingerprint
+    against itself: exit 0."""
+    run = obs_tool("drift", baseline, current)
+    same = obs_tool("drift", baseline, baseline)
+    extra = (run["line"] or {}).get("extra") or {}
+    psi = {}
+    for line in run["stderr"].splitlines():
+        m = re.match(r"(\S+)(?: \(.*\))?: psi=([0-9.]+) ", line)
+        if m:
+            psi[m.group(1)] = float(m.group(2))
+    features = trigger.get("features") or {}
+    want = {k: round(features[k]["psi"], 4) for k in trigger.get("flagged") or ()}
+    failures = []
+    if (run["rc"] != 1 or (run["line"] or {}).get("value") != trigger.get("psi_max")
+            or extra.get("flagged") != trigger.get("flagged") or "ushard.0" not in want
+            or any(psi.get(k) != v for k, v in want.items())):
+        failures.append(f"drift: exit {run['rc']}, {json.dumps(run['line'])}, psi {psi}, "
+                        f"the trigger's {want} (max {trigger.get('psi_max')})")
+    if same["rc"] != 0 or (same["line"] or {}).get("value") != 0.0:
+        failures.append(f"drift against itself: exit {same['rc']}, {json.dumps(same['line'])}")
+    return {"s": run["s"] + same["s"], "rc": run["rc"], "rc_same": same["rc"],
+            "psi_max": (run["line"] or {}).get("value"), "psi_flagged": want,
+            "flagged": extra.get("flagged"), "failures": failures}
+
+
+def start_lint():
+    """5m (e): ``python -m photon_ml_tpu_torch.cli.lint check
+    photon_ml_tpu_torch --json`` over the checkout, started at once at
+    nice 19, as the input writers are (it needs no card and must not take
+    a core from the timed phases), and read by ``finish_lint``."""
+    nice = ["nice", "-n", "19"] if shutil.which("nice") else []
+    return time.perf_counter(), subprocess.Popen(
+        nice + [sys.executable, "-m", "photon_ml_tpu_torch.cli.lint", "check",
+                "photon_ml_tpu_torch", "--json"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_lint(started) -> dict:
+    """5m (e)'s gate: exit 0 with nothing new, no stale baseline entry and
+    no reasonless suppression."""
+    t0, proc = started
+    out, err = proc.communicate(timeout=600)
+    try:
+        doc = json.loads(out)
+    except ValueError:
+        doc = {}
+    failures = []
+    if proc.returncode != 0 or doc.get("new") != [] or doc.get(
+            "stale_baseline_entries") != [] or doc.get("bare_suppressions") != []:
+        failures.append(f"lint: exit {proc.returncode}, {out[-2000:]} {err[-2000:]}")
+    return {"s": time.perf_counter() - t0, "rc": proc.returncode,
+            "files": doc.get("files"), "wall_s": doc.get("wall_s"),
+            "grandfathered": doc.get("grandfathered"), "failures": failures}
 
 
 def main() -> int:
@@ -7560,8 +7790,12 @@ def main() -> int:
     # processes while phases 3-4b hold the card
     work = os.path.join(ROOT, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
+    lint = None
     try:
         ahead = write_inputs_ahead(work)
+        # 5m (e): photon-lint over the checkout needs no card; it runs while
+        # phases 3-4b hold it
+        lint = start_lint()
 
         # 3. ell_matvec against its plain version
         checks = kernel_phase(name)
@@ -7673,9 +7907,29 @@ def main() -> int:
         loop_summary, loop_launches = lifecycle_phase(os.path.join(work, "loop"), game_ref,
                                                       name)
         del game_ref
+        # 5m. the operator tools on the run's own artifacts: (a) in 5l (a),
+        # (b) in 5j, (c) in phase 6 and 5e, (d) in 5l (b), (e) here
+        lint_summary = finish_lint(lint)
     finally:
         stop_writers()
+        if lint is not None and lint[1].poll() is None:
+            lint[1].kill()
+            lint[1].wait()
         shutil.rmtree(work, ignore_errors=True)
+    operator_tools = {
+        "top": fabric_summary["operator_tools"]["top"],
+        "request": fabric_summary["operator_tools"]["request"],
+        "merge": entity_summary["obs"]["merge_cli"],
+        "convergence_glm": train_summary["obs"]["convergence_cli"],
+        "convergence_game": game_det_summary["obs"]["convergence_cli"],
+        "drift": loop_summary["drift_cli"],
+        "lint": lint_summary,
+    }
+    log(json.dumps({"operator_tools": {
+        "seconds": {part: rec["s"] for part, rec in operator_tools.items()},
+        "seconds_total": sum(rec["s"] for rec in operator_tools.values()), **operator_tools}}))
+    if lint_summary["failures"]:
+        raise AssertionError("; ".join(lint_summary["failures"]))
     log(json.dumps({"train_shape_checks": shape_checks}))
     log(json.dumps({"serving": serve_summary}))
     log(json.dumps({"sharded_serving": shard_serve_summary}))
